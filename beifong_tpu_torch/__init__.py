@@ -10,4 +10,4 @@ there is no card.
 from .core.config import Band  # noqa: F401
 from .receive import receive, develop_signal  # noqa: F401
 from .scene import Scene, SceneData  # noqa: F401
-from .scenes import flagship_scene  # noqa: F401
+from .scenes import flagship_scene, mesh_scene  # noqa: F401

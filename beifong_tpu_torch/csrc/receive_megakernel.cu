@@ -1,18 +1,25 @@
-// Radar receive megakernel for Hopper (sm_90a), flagship configuration.
+// Radar receive megakernel for Hopper (sm_90a), in two configurations: the
+// flagship (analytic rectangles) and the mesh configuration (the same
+// lane plus a BVH walk over triangle meshes), two instantiations of one
+// template.
 //
 // Replaces the TPU kernel beifong_tpu/integrators/pallas_receive.py::
 // _make_kernel (launched by _run's pl.pallas_call) in its analytic /
-// diffuse / Wigner-aperture / raw / power / n_freq == 1 configuration:
-// per lane, the receive ray from the Wigner (or omni) receiver, the
-// closest hit over <= 64 analytic rectangles, direct transmitter hits at
+// diffuse / Wigner-aperture / raw / power / n_freq == 1 configuration,
+// with or without diffuse triangle meshes (has_mesh): per lane, the
+// receive ray from the Wigner (or omni) receiver, the closest hit over
+// <= 64 analytic rectangles and, in the mesh configuration, over the
+// triangles of the scene's BVH (bvh_walk.cuh, the walk of pallas_bvh.py::
+// traversal_body, pruned by the analytic best), direct transmitter hits at
 // depth 0, next-event estimation to the one Wigner transmitter with the
-// waveform and aperture Wigner weights, gate sampling and a shadow test,
-// a tent splat into the fast-time bins, and the diffuse bounce.  The
-// arithmetic follows beifong_tpu_torch/integrators/receive_kernel.py::
-// receive_megakernel_ref operation by operation (same association, same
-// constants rounded from double, no --use_fast_math), so the two differ
-// only where nvcc contracts a multiply and an add into one FMA (one
-// rounding fewer) and in the order in which sums are taken.
+// waveform and aperture Wigner weights, gate sampling and a shadow test
+// (rectangles, then the BVH any-hit walk), a tent splat into the
+// fast-time bins, and the diffuse bounce.  The arithmetic follows
+// beifong_tpu_torch/integrators/receive_kernel.py::receive_megakernel_ref
+// operation by operation (same association, same constants rounded from
+// double, no --use_fast_math), so the two differ only where nvcc contracts
+// a multiply and an add into one FMA (one rounding fewer) and in the
+// order in which sums are taken.
 //
 // What bounds it on the H100: FP32 ALU and SFU work per lane.  A lane
 // reads ~9 KB of scene tables that every lane shares and writes nothing
@@ -22,6 +29,17 @@
 // loop (a few blocks per SM, whatever the sample count), the scene tables
 // copied once per block into shared memory, prims looped at run time,
 // lanes that die (miss, absorbed, hit the receiver) leave the loop early.
+// The BVH tables (575 KB for 10,082 triangles) do not fit a block's
+// shared memory; they stay in device memory behind the read-only cache and
+// L2.
+//
+// Direction strata (mesh configuration, patch_p > 0): the pallas kernel
+// walks one node pointer per (8, 128) tile and keeps the tile's rays in
+// one cell of a P x P grid of the cosine-hemisphere square, so each tile
+// is a narrow beam.  Here lane L belongs to tile L / 1024 and takes cell
+// (tile * 131 + int(params[0])) % P^2 as there; since the grid-stride loop
+// hands a warp 32 consecutive lanes, a warp traces one beam and its
+// per-thread walks stay coherent.
 //
 // Splat and determinism: a tent touches floor(yb) and floor(yb) + 1
 // only.  Each thread owns a private row of n_time floats in shared memory
@@ -47,6 +65,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bvh_walk.cuh"
+
 #define F(x) ((float)(x))
 
 namespace {
@@ -67,6 +87,7 @@ struct Cfg {
     int n_prims;
     int n_params;
     int use_prng;
+    int patch_p;      // direction strata per side (mesh; 0 = none)
     float t_start;
     float t_window;
     float f_rx;
@@ -228,6 +249,38 @@ __device__ __forceinline__ bool rect_hit(const float* q, float cx, float cy,
     return big && fabsf(px) <= 1.0f && fabsf(py) <= 1.0f;
 }
 
+// Mesh closest hit for the receive lane: the walk is pruned by the
+// analytic best `ta`; a winning triangle gives its geometric normal and
+// its reflectance payload (leaf column 80).  The normal is the edge cross
+// product rounded as the plain version rounds it (no FMA contraction):
+// on a face whose exact normal has z = 0 the rounding alone picks the
+// sign of z, and that sign picks the tangent frame of the diffuse bounce,
+// so one rounding fewer would send the bounce elsewhere.
+__device__ __forceinline__ float cross_rn(float a, float b, float c,
+                                          float d) {   // a * b - c * d
+    return __fsub_rn(__fmul_rn(a, b), __fmul_rn(c, d));
+}
+
+struct MeshClosest {
+    float t = F(3.4e38), ta;
+    float nx = 0.0f, ny = 0.0f, nz = 0.0f, rf = 0.0f;
+    __device__ float tbest() const { return fminf(t, ta); }
+    __device__ void hit(const bvh::TriHit& h, const float* __restrict__ lr) {
+        if (!(h.t < t)) return;
+        float gnx = cross_rn(h.e1y, h.e2z, h.e1z, h.e2y);
+        float gny = cross_rn(h.e1z, h.e2x, h.e1x, h.e2z);
+        float gnz = cross_rn(h.e1x, h.e2y, h.e1y, h.e2x);
+        float rn = rsqrtf(fmaxf(gnx * gnx + gny * gny + gnz * gnz,
+                                F(1e-20)));
+        nx = gnx * rn;
+        ny = gny * rn;
+        nz = gnz * rn;
+        rf = __ldg(lr + 80 + h.slot);
+        t = h.t;
+    }
+    __device__ bool done() const { return false; }
+};
+
 // Tent splat of `val` at continuous bin yb into this thread's row.
 __device__ __forceinline__ void splat(float* hist, int T, int n_time,
                                       float val, float yb) {
@@ -241,9 +294,16 @@ __device__ __forceinline__ void splat(float* hist, int T, int n_time,
         hist[(i0 + 1) * T] += val * fmaxf(1.0f - fabsf(yb - b1), 0.0f);
 }
 
-__device__ void trace_lane(const Cfg& cfg, const float* sp,
-                           const float* prim, const Tx& tx, Draws& dr,
-                           float* hist, int T, unsigned int* events) {
+// Traces one lane.  In the mesh configuration it returns the sum of the
+// lane's contributions, which a parity run reads per lane (`lane_val`):
+// a ray that meets a triangle edge may, with one rounding fewer under FMA
+// contraction, take the neighbouring face or slip between the two, and
+// the per-lane sums show which lanes did.
+template <bool MESH>
+__device__ float trace_lane(const Cfg& cfg, const float* sp,
+                            const float* prim, const Tx& tx,
+                            const bvh::Tables& mesh, Draws& dr, float* hist,
+                            int T, unsigned int* events) {
     const float TP = F(6.283185307179586);
     const float cvel = sp[1];
     const float* rxm = sp + 2;
@@ -281,23 +341,41 @@ __device__ void trace_lane(const Cfg& cfg, const float* sp,
         nzz = nzz * nn;
         float u3 = dr.get(3), u4 = dr.get(4);
         float area = 4.0f * rx_wx * rx_wy;
-        float lam0 = cvel / fmaxf(cfg.f_rx, F(1e-6));
-        float w_mn = fminf(rx_wx, rx_wy);
-        float q = 2.0f * w_mn / (F(0.6) * lam0);
-        float k_l = fmaxf(2.0f * (q * q) - 2.0f, 0.0f);
-        bool pick = u3 >= 0.5f;
-        float u0m = pick ? 2.0f * u3 - 1.0f : 2.0f * u3;
-        float ph = TP * u4;
-        float ct_c = sqrtf(fmaxf(1.0f - u0m, 0.0f));
-        float ct_l = expf(logf(fmaxf(u0m, F(1e-12))) / (k_l + 1.0f));
-        float tz = pick ? ct_l : ct_c;
-        float st = sqrtf(fmaxf(1.0f - tz * tz, 0.0f));
-        float tx_ = st * fast_cos(ph), ty_ = st * fast_sin(ph);
-        float cosk = expf(k_l * logf(fmaxf(tz, F(1e-12))));
-        float pdf_d = 0.5f * tz * F(1.0 / 3.141592653589793)
-                      + 0.5f * (k_l + 1.0f) * F(1.0 / 6.283185307179586)
-                        * cosk;
-        float w0 = (tz / fmaxf(pdf_d, F(1e-30))) * area * sp[32];
+        float tx_, ty_, tz, w0;
+        if (MESH && cfg.patch_p > 0) {
+            // stratified cosine hemisphere: the tile's cell plus the
+            // lane's jitter; cos pdf, weight pi * area
+            const long long P = cfg.patch_p;
+            long long patch = ((dr.lane / 1024) * 131 + (int)sp[0])
+                              % (P * P);
+            u3 = ((float)(patch % P) + u3) * (float)(1.0 / (double)P);
+            u4 = ((float)(patch / P) + u4) * (float)(1.0 / (double)P);
+            float rr = sqrtf(u3);
+            float ph = TP * u4;
+            tx_ = rr * fast_cos(ph);
+            ty_ = rr * fast_sin(ph);
+            tz = sqrtf(fmaxf(1.0f - u3, 0.0f));
+            w0 = F(3.141592653589793) * area * sp[32];
+        } else {
+            float lam0 = cvel / fmaxf(cfg.f_rx, F(1e-6));
+            float w_mn = fminf(rx_wx, rx_wy);
+            float q = 2.0f * w_mn / (F(0.6) * lam0);
+            float k_l = fmaxf(2.0f * (q * q) - 2.0f, 0.0f);
+            bool pick = u3 >= 0.5f;
+            float u0m = pick ? 2.0f * u3 - 1.0f : 2.0f * u3;
+            float ph = TP * u4;
+            float ct_c = sqrtf(fmaxf(1.0f - u0m, 0.0f));
+            float ct_l = expf(logf(fmaxf(u0m, F(1e-12))) / (k_l + 1.0f));
+            tz = pick ? ct_l : ct_c;
+            float st = sqrtf(fmaxf(1.0f - tz * tz, 0.0f));
+            tx_ = st * fast_cos(ph);
+            ty_ = st * fast_sin(ph);
+            float cosk = expf(k_l * logf(fmaxf(tz, F(1e-12))));
+            float pdf_d = 0.5f * tz * F(1.0 / 3.141592653589793)
+                          + 0.5f * (k_l + 1.0f) * F(1.0 / 6.283185307179586)
+                            * cosk;
+            w0 = (tz / fmaxf(pdf_d, F(1e-30))) * area * sp[32];
+        }
         float sign = sgn_ge(nzz);
         float a = -1.0f / (sign + nzz);
         float b = nzx * nzy * a;
@@ -323,6 +401,7 @@ __device__ void trace_lane(const Cfg& cfg, const float* sp,
 
     float cx = ox, cy = oy, cz = oz;
     float plen = 0.0f;
+    float lane_sum = 0.0f;
     for (int depth = 0; depth < cfg.max_depth; ++depth) {
         // draws of this depth: u_dh, u5, u6, u7, then u8, u9
         const int d0 = base + 6 * depth;
@@ -344,6 +423,19 @@ __device__ void trace_lane(const Cfg& cfg, const float* sp,
                 nz = q[10] * rnorm;
                 rb = row[13];
                 txc = row[14];
+            }
+        }
+        if constexpr (MESH) {
+            MeshClosest mc;
+            mc.ta = tb;
+            bvh::walk(mesh, bvh::make_ray(cx, cy, cz, dx, dy, dz), mc);
+            if (mc.t < tb) {
+                tb = mc.t;
+                nx = mc.nx;
+                ny = mc.ny;
+                nz = mc.nz;
+                rb = mc.rf;
+                txc = -1.0f;
             }
         }
         if (!(tb < F(3.4e37))) break;     // miss: the lane is dead
@@ -373,6 +465,7 @@ __device__ void trace_lane(const Cfg& cfg, const float* sp,
                 float yb_h = (tr_h - t_start) / t_window * n_time_f - 0.5f;
                 splat(hist, T, cfg.n_time, val_h, yb_h);
                 *events += val_h != 0.0f;
+                if constexpr (MESH) lane_sum += val_h;
             }
         }
 
@@ -423,6 +516,15 @@ __device__ void trace_lane(const Cfg& cfg, const float* sp,
                                           wz_, &t_p);
                     occ = hit_p && t_p > F(1e-4) && t_p < limit;
                 }
+                if constexpr (MESH) {
+                    if (!occ) {
+                        bvh::Any sh;
+                        sh.limit = limit;
+                        bvh::walk(mesh, bvh::make_ray(sx, sy, sz, wx_, wy_,
+                                                      wz_), sh);
+                        occ = sh.occ;
+                    }
+                }
                 if (!occ && pdf_sa > 0.0f) {
                     float val = thr * f_cos * w_tx * w_gate
                                 / fmaxf(pdf_sa, F(1e-30));
@@ -430,6 +532,7 @@ __device__ void trace_lane(const Cfg& cfg, const float* sp,
                                - 0.5f;
                     splat(hist, T, cfg.n_time, val, yb);
                     *events += val != 0.0f;
+                    if constexpr (MESH) lane_sum += val;
                 }
             }
         }
@@ -460,12 +563,16 @@ __device__ void trace_lane(const Cfg& cfg, const float* sp,
         cy = hy + F(1e-4) * fy;
         cz = hz + F(1e-4) * fz;
     }
+    return lane_sum;
 }
 
+template <bool MESH>
 __global__ void receive_trace_kernel(const float* __restrict__ params,
                                      const float* __restrict__ prim,
                                      const float* __restrict__ txp,
                                      const float* __restrict__ uniforms,
+                                     bvh::Tables mesh,
+                                     float* __restrict__ lane_val,
                                      double* __restrict__ partial,
                                      unsigned long long* __restrict__ part_ev,
                                      Cfg cfg) {
@@ -514,7 +621,11 @@ __global__ void receive_trace_kernel(const float* __restrict__ params,
          lane += stride) {
         dr.lane = lane;
         dr.group = -1;
-        trace_lane(cfg, s_par, s_prim, tx, dr, my_hist, T, &events);
+        float v = trace_lane<MESH>(cfg, s_par, s_prim, tx, mesh, dr,
+                                   my_hist, T, &events);
+        if constexpr (MESH) {
+            if (lane_val != nullptr) lane_val[lane] = v;
+        }
     }
     __syncthreads();
 
@@ -567,25 +678,19 @@ int threads_for(int n_time) {
     return (t / 32) * 32;
 }
 
-}  // namespace
-
-extern "C" {
-
-// Launch geometry for one call: threads per block, dynamic shared bytes
-// and the persistent grid (resident blocks on every SM, fewer if the
-// lanes run out).  Returns a cudaError_t.
-int rk_geometry(int n_time, long long n_lanes, int n_prims, int n_params,
-                int* blocks, int* threads, int* smem_bytes) {
+template <bool MESH>
+int geometry(int n_time, long long n_lanes, int n_prims, int n_params,
+             int* blocks, int* threads, int* smem_bytes) {
     int T = threads_for(n_time);
     if (T < 32) return (int)cudaErrorInvalidValue;
     int smem = 4 * (n_params + n_prims * PRIM_COLS + TXP_COLS + n_time * T);
     cudaError_t err = cudaFuncSetAttribute(
-        receive_trace_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
+        receive_trace_kernel<MESH>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
     int per_sm = 0;
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, receive_trace_kernel, T, smem);
+        &per_sm, receive_trace_kernel<MESH>, T, smem);
     if (err != cudaSuccess) return (int)err;
     if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
     int dev = 0, sms = 0;
@@ -600,14 +705,36 @@ int rk_geometry(int n_time, long long n_lanes, int n_prims, int n_params,
     return (int)cudaSuccess;
 }
 
-// Trace + reduce on `stream`.  `uniforms` is null in PRNG mode.
+}  // namespace
+
+extern "C" {
+
+// Launch geometry for one call of the flagship (mesh == 0) or the mesh
+// configuration: threads per block, dynamic shared bytes and the
+// persistent grid (resident blocks on every SM, fewer if the lanes run
+// out).  Returns a cudaError_t.
+int rk_geometry(int n_time, long long n_lanes, int n_prims, int n_params,
+                int mesh, int* blocks, int* threads, int* smem_bytes) {
+    return mesh ? geometry<true>(n_time, n_lanes, n_prims, n_params, blocks,
+                                 threads, smem_bytes)
+                : geometry<false>(n_time, n_lanes, n_prims, n_params, blocks,
+                                  threads, smem_bytes);
+}
+
+// Trace + reduce on `stream`.  `uniforms` is null in PRNG mode; `bbox`
+// is null for the flagship configuration, else the BVH tables of the
+// mesh configuration (leaf rows of `stride` floats), with `patch_p`
+// direction strata per side (0 = none) and, unless null, each lane's
+// contribution sum written to `lane_val` (n_lanes floats).
 int rk_launch(const float* params, const float* prim, const float* txp,
               const float* uniforms, double* partial,
               unsigned long long* part_ev, float* out, long long* out_events,
-              long long n_lanes, unsigned long long seed, int n_time,
-              int max_depth, int gate, int omni, int n_prims, int n_params,
-              float t_start, float t_window, float f_rx,
-              int blocks, int threads, int smem_bytes, void* stream) {
+              const float* bbox, const int* links, const float* leaves,
+              int stride, int patch_p, float* lane_val, long long n_lanes,
+              unsigned long long seed, int n_time, int max_depth, int gate,
+              int omni, int n_prims, int n_params, float t_start,
+              float t_window, float f_rx, int blocks, int threads,
+              int smem_bytes, void* stream) {
     Cfg cfg;
     cfg.n_lanes = n_lanes;
     cfg.seed = seed;
@@ -618,12 +745,20 @@ int rk_launch(const float* params, const float* prim, const float* txp,
     cfg.n_prims = n_prims;
     cfg.n_params = n_params;
     cfg.use_prng = uniforms == nullptr;
+    cfg.patch_p = patch_p;
     cfg.t_start = t_start;
     cfg.t_window = t_window;
     cfg.f_rx = f_rx;
+    bvh::Tables mesh{bbox, links, leaves, stride};
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    receive_trace_kernel<<<blocks, threads, smem_bytes, s>>>(
-        params, prim, txp, uniforms, partial, part_ev, cfg);
+    if (bbox != nullptr)
+        receive_trace_kernel<true><<<blocks, threads, smem_bytes, s>>>(
+            params, prim, txp, uniforms, mesh, lane_val, partial, part_ev,
+            cfg);
+    else
+        receive_trace_kernel<false><<<blocks, threads, smem_bytes, s>>>(
+            params, prim, txp, uniforms, mesh, nullptr, partial, part_ev,
+            cfg);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     int rt = ((n_time + 31) / 32) * 32;

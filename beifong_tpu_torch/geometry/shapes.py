@@ -3,8 +3,9 @@
 Shape builders are host-side dataclasses (numpy); `ShapeTable.build`
 flattens them into tensors.  Unit-object conventions follow the JAX
 package: the unit rectangle spans [-1, 1]^2 in the z = 0 plane, normal +z.
-This slice builds rectangles only; the other kinds keep their codes so
-the packed tables read the same in both packages.
+This port builds rectangles and triangle meshes (`geometry/mesh.py`, one
+TRIANGLE row per mesh, its faces in `SceneData.tris`); the other kinds
+keep their codes so the packed tables read the same in both packages.
 """
 
 from __future__ import annotations
@@ -94,9 +95,12 @@ class ShapeTable:
 
 
 def _surface_area(s: ShapeSpec) -> float:
+    if s.kind == TRIANGLE:
+        return 1.0   # placeholder: Scene.compile sets the mesh's own area
     if s.kind != RECTANGLE:
         raise NotImplementedError(
-            f'shape kind {s.kind}: only rectangles are ported (ROADMAP A3)')
+            f'shape kind {s.kind}: only rectangles and meshes are ported '
+            '(ROADMAP A3)')
     m = s.to_world
     return 4.0 * float(np.linalg.norm(m[:3, 0])) \
         * float(np.linalg.norm(m[:3, 1]))

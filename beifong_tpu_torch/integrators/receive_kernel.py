@@ -1,15 +1,19 @@
 """Radar receive megakernel on Hopper: host side, plain PyTorch version and
 the wrapper of the CUDA kernel in `csrc/receive_megakernel.cu`.
 
-Counterpart of `beifong_tpu/integrators/pallas_receive.py` in its flagship
-configuration: analytic rectangles, diffuse BSDFs, one Wigner transmitter
-(CW / pulse / LFMCW), a Wigner or omni receiver, raw receive without LO,
-fixed or gate time sampling, power accumulation on a fast-time-only ADC
-(`n_freq == 1`), a static scene and no medium.  Per lane the kernel
-generates the receive ray, finds the closest hit, counts direct
-transmitter hits at depth 0, connects to the transmitter (NEE) with the
-waveform and aperture Wigner weights and a shadow test, tent-splats into
-the fast-time bins and makes the diffuse bounce.
+Counterpart of `beifong_tpu/integrators/pallas_receive.py` in two
+configurations.  The flagship one: analytic rectangles, diffuse BSDFs,
+one Wigner transmitter (CW / pulse / LFMCW), a Wigner or omni receiver,
+raw receive without LO, fixed or gate time sampling, power accumulation
+on a fast-time-only ADC (`n_freq == 1`), a static scene and no medium.
+The mesh one adds diffuse triangle meshes (and rectangles demoted into
+them past MAX_PRIMS) behind a BVH walk (`csrc/bvh_walk.cuh`) for the
+closest hit and the shadow test, and the per-tile direction strata of
+the receive rays.  Per lane the kernel generates the receive ray, finds
+the closest hit, counts direct transmitter hits at depth 0, connects to
+the transmitter (NEE) with the waveform and aperture Wigner weights and a
+shadow test, tent-splats into the fast-time bins and makes the diffuse
+bounce.
 
 `receive_megakernel_ref` holds that arithmetic as vectorised torch ops
 over lanes, in float32, consuming `uniforms (n_draws, n_lanes)` in the
@@ -24,30 +28,40 @@ kernel's positional draw order:
 `n_draws` over-allocates (26 rows at depth 3, of which 21 are read) and is
 honoured as the layout stride.  `receive_megakernel` runs that plain
 version for tensors on the CPU and the CUDA kernel for tensors on a card.
+
+Direction strata (mesh scenes whose 1024-lane tiles tile a P x P grid,
+P = 32 or 16): the lanes of tile `lane // 1024` draw their cosine-
+hemisphere direction inside cell ((tile * 131 + int(params[0])) % P^2) of
+the unit square, so a tile traces a narrow beam.  `params[0]` is the JAX
+package's seed slot, float32(seed * 1_000_003 % 2^30), written per call.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
-import hashlib
-import os
-import subprocess
-import threading
-import time
 
 import numpy as np
 import torch
 
+from .. import _nvcc
 from .._device import resolve_device
 from ..bsdf.tables import DIFFUSE
-from ..geometry.shapes import RECTANGLE
+from ..geometry import bvh as bvh_mod
+from ..geometry.bvh_kernel import PackedBVH, walk_ref, leaf_column, pack
+from ..geometry.shapes import RECTANGLE, TRIANGLE
 from ..radar.endpoints import ADCConfig, OMNI, WIGNER
 from ..radar.waveform import CW, LINFMCW
 
 MAX_PRIMS = 64          # prim rows held in shared memory
 MAX_N_TIME = 512        # per-thread shared-memory histograms (see the .cu)
 MAX_MEDIA_LAYERS = 32   # params layout: 45 + MAX_MEDIA_LAYERS slots
+MAX_MESH_SHAPES = 64    # distinct mesh-shape rows (the JAX package's cap)
+MESH_STRIDE = 96        # leaf rows: 80 + reflectance + shape-row payloads
+# the BVH tables live in device memory and are indexed with int32: a leaf
+# row's last float, leaf * 96 + 95, must stay below 2^31
+MAX_MESH_TRIS = 8 * ((2 ** 31 - 1) // MESH_STRIDE)
+TILE = 1024             # lanes per stratification tile (8 x 128 on the TPU)
 PRIM_COLS = 34
 TXP_COLS = 32
 
@@ -68,6 +82,84 @@ class PackedScene:
     txp: np.ndarray      # (n_tx, 32) f32 transmitter rows
     php: np.ndarray      # (n_tx, 2 + 6K) phased pair rows (zeros here)
     rxph: np.ndarray     # (1, 8) phased receiver row (zeros here)
+    msh: np.ndarray      # (n_mesh_shapes, 8) f32 mesh-shape rows
+    mesh: PackedBVH | None = None   # BVH over the mesh triangles (CPU)
+
+
+def _demoted_rects(sd) -> list:
+    """Shape rows of the plain rectangles moved into the triangle BVH when
+    the analytic prim table would overflow MAX_PRIMS (two exact world-space
+    triangles each).  Transmitter shapes, bsdf-less blockers (the receiver
+    rectangle) and textured rectangles stay analytic."""
+    kind_np = sd.shapes.kind.cpu().numpy()
+    if int((kind_np == RECTANGLE).sum()) <= MAX_PRIMS:
+        return []
+    bsdf_idx = sd.shapes.bsdf_idx.cpu().numpy()
+    tex_idx = sd.bsdfs.texture_idx.cpu().numpy()
+    tx_shapes = set()
+    if sd.transmitters is not None:
+        tx_shapes = {int(x) for x in sd.transmitters.shape_idx.tolist()}
+    return [i for i in range(len(kind_np))
+            if int(kind_np[i]) == RECTANGLE and i not in tx_shapes
+            and int(bsdf_idx[i]) >= 0 and int(tex_idx[bsdf_idx[i]]) < 0]
+
+
+def _mesh_shape_rows(sd, mesh_shape_ids):
+    """Deduplicated mesh-shape rows [vel(3), alpha, eta, k, type, 0]:
+    shapes sharing them collapse to one row.  Returns (rows, row_of) with
+    row_of: shape row -> mesh-shape row."""
+    bsdf_idx = sd.shapes.bsdf_idx.cpu().numpy()
+    shape_vel = sd.shapes.velocity.cpu().numpy()
+    b_type = sd.bsdfs.type.cpu().numpy()
+    b_alpha = sd.bsdfs.alpha.cpu().numpy()
+    b_eta = sd.bsdfs.eta.cpu().numpy()
+    b_k = sd.bsdfs.k.cpu().numpy()
+    rows, key_of, row_of = [], {}, {}
+    for s_i in sorted(mesh_shape_ids):
+        bi = int(bsdf_idx[s_i])
+        key = (float(shape_vel[s_i][0]), float(shape_vel[s_i][1]),
+               float(shape_vel[s_i][2]),
+               float(b_alpha[bi]) if bi >= 0 else 0.1,
+               float(b_eta[bi, 0]) if bi >= 0 else 0.0,
+               float(b_k[bi, 0]) if bi >= 0 else 0.0,
+               float(b_type[bi]) if bi >= 0 else 0.0)
+        if key not in key_of:
+            key_of[key] = len(rows)
+            rows.append(list(key) + [0.0])
+        row_of[s_i] = key_of[key]
+    return rows, row_of
+
+
+def _mesh_faces(sd, demote):
+    """(v0, e1, e2, shape row) of every triangle the BVH holds: the mesh
+    faces, then two per demoted rectangle."""
+    v0_a, e1_a, e2_a, sidx_a = [], [], [], []
+    if sd.tris is not None:
+        v0_a.append(sd.tris.v0.cpu().numpy())
+        e1_a.append(sd.tris.e1.cpu().numpy())
+        e2_a.append(sd.tris.e2.cpu().numpy())
+        sidx_a.append(sd.tris.shape_idx.cpu().numpy())
+    if demote:
+        tw = sd.shapes.to_world.cpu().numpy()
+        dv0, de1, de2, dsx = [], [], [], []
+        for i in demote:
+            m = tw[i]
+
+            def corner(x, y, m=m):
+                return m[:3, :3] @ np.array([x, y, 0.0]) + m[:3, 3]
+
+            w00, w10 = corner(-1, -1), corner(1, -1)
+            w01, w11 = corner(-1, 1), corner(1, 1)
+            dv0 += [w00, w11]
+            de1 += [w10 - w00, w01 - w11]
+            de2 += [w01 - w00, w10 - w11]
+            dsx += [i, i]
+        v0_a.append(np.asarray(dv0, np.float32))
+        e1_a.append(np.asarray(de1, np.float32))
+        e2_a.append(np.asarray(de2, np.float32))
+        sidx_a.append(np.asarray(dsx, np.int64))
+    return (np.concatenate(v0_a), np.concatenate(e1_a), np.concatenate(e2_a),
+            np.concatenate(sidx_a))
 
 
 def pack_scene(scene_data, rx, shape_idx: int) -> PackedScene:
@@ -76,6 +168,8 @@ def pack_scene(scene_data, rx, shape_idx: int) -> PackedScene:
     shapes = sd.shapes
     kind_np = shapes.kind.cpu().numpy()
     n = int(kind_np.shape[0])
+    demote = _demoted_rects(sd)
+    keep = [i for i in range(n) if i not in set(demote)]
     to_obj = shapes.to_object.cpu().numpy()
     to_world = shapes.to_world.cpu().numpy()
     bsdf_idx = shapes.bsdf_idx.cpu().numpy()
@@ -90,24 +184,24 @@ def pack_scene(scene_data, rx, shape_idx: int) -> PackedScene:
     tx_shapes = tx.shape_idx.cpu().numpy()
     shape_tx = {int(s): t for t, s in enumerate(tx_shapes)}
 
-    prim = np.zeros((n, PRIM_COLS), np.float32)
-    for i in range(n):
-        prim[i, 0] = kind_np[i]
-        prim[i, 1:13] = to_obj[i, :3, :].reshape(-1)
+    prim = np.zeros((len(keep), PRIM_COLS), np.float32)
+    for r, i in enumerate(keep):
+        prim[r, 0] = kind_np[i]
+        prim[r, 1:13] = to_obj[i, :3, :].reshape(-1)
         b = int(bsdf_idx[i])
         # the rx shape keeps refl = 0: it blocks rays and never scatters
-        prim[i, 13] = refl[b, 0] if b >= 0 else 0.0
-        prim[i, 14] = float(shape_tx.get(i, -1))
-        prim[i, 15] = b_alpha[b] if b >= 0 else 0.1
-        prim[i, 16] = b_eta[b, 0] if b >= 0 else 0.0
-        prim[i, 17] = b_k[b, 0] if b >= 0 else 0.0
-        prim[i, 18] = float(b_type[b]) if b >= 0 else 0.0
+        prim[r, 13] = refl[b, 0] if b >= 0 else 0.0
+        prim[r, 14] = float(shape_tx.get(i, -1))
+        prim[r, 15] = b_alpha[b] if b >= 0 else 0.1
+        prim[r, 16] = b_eta[b, 0] if b >= 0 else 0.0
+        prim[r, 17] = b_k[b, 0] if b >= 0 else 0.0
+        prim[r, 18] = float(b_type[b]) if b >= 0 else 0.0
         # second-lobe columns of blend/mask composites: a plain lobe here
-        prim[i, 28] = prim[i, 18]
-        prim[i, 29] = prim[i, 13]
-        prim[i, 30:33] = prim[i, 15:18]
-        prim[i, 33] = 1.0
-        prim[i, 19:22] = shape_vel[i]
+        prim[r, 28] = prim[r, 18]
+        prim[r, 29] = prim[r, 13]
+        prim[r, 30:33] = prim[r, 15:18]
+        prim[r, 33] = 1.0
+        prim[r, 19:22] = shape_vel[i]
 
     # per-tx rows; the phase pivots are computed in float64 on the host
     fc_ref = 0.5 * (sd.band.freq_min + sd.band.freq_max)
@@ -170,8 +264,23 @@ def pack_scene(scene_data, rx, shape_idx: int) -> PackedScene:
     params[18] = np.float32(fcc - np.float64(np.float32(fcc)))
     params[23:26] = np.asarray(rx.velocity, np.float32).reshape(3)
     params[32] = float(getattr(rx, 'gain', 1.0))
+
+    # meshes (and demoted rectangles): the aligned BVH, per-face
+    # reflectance at leaf column 80, the owning shape's mesh-shape row at 88
+    mesh = None
+    msh = np.zeros((1, 8), np.float32)
+    if sd.tris is not None or demote:
+        v0, e1, e2, sidx = _mesh_faces(sd, demote)
+        b = bvh_mod.build(v0, e1, e2, align=True)
+        b_of = bsdf_idx[sidx]
+        payload = np.where(b_of >= 0, refl[np.maximum(b_of, 0), 0], 0.0)
+        rows, row_of = _mesh_shape_rows(sd, set(int(x) for x in sidx))
+        payload2 = np.asarray([row_of[int(x)] for x in sidx], np.float32)
+        mesh = pack(b, payload=np.asarray(payload, np.float32),
+                    payload2=payload2)
+        msh = np.asarray(rows, np.float32)
     return PackedScene(params=params, prim=prim, txp=txp, php=php,
-                       rxph=rxph)
+                       rxph=rxph, msh=msh, mesh=mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -200,21 +309,37 @@ def supported(scene_data, rx, reason: list | None = None) -> bool:
         return no('free-standing transmitter: the kernel samples its '
                   'rectangle (ROADMAP B6)')
     kinds = set(sd.shapes.kind.tolist())
-    if not kinds <= {-1, RECTANGLE}:
-        return no(f'shape kinds {sorted(kinds)}: analytic rectangles only '
-                  '(ROADMAP B5)')
-    n_prims = int((sd.shapes.kind == RECTANGLE).sum())
+    if not kinds <= {-1, RECTANGLE, TRIANGLE}:
+        return no(f'shape kinds {sorted(kinds)}: rectangles and triangle '
+                  'meshes only (ROADMAP B5)')
+    demote = _demoted_rects(sd)
+    n_prims = int(sd.shapes.kind.shape[0]) - len(demote)
     if n_prims > MAX_PRIMS:
-        return no(f'{n_prims} rectangles > {MAX_PRIMS} (shared-memory prim '
-                  'table; rect demotion into the BVH is ROADMAP B4)')
+        return no(f'{n_prims} analytic shape rows > {MAX_PRIMS} after '
+                  'demoting plain rectangles into the BVH (shared-memory '
+                  'prim table; ROADMAP B5)')
+    if sd.tris is not None or demote:
+        n_tris = (sd.tris.n_faces if sd.tris is not None else 0) \
+            + 2 * len(demote)
+        if n_tris > MAX_MESH_TRIS:
+            return no(f'{n_tris} mesh triangles > {MAX_MESH_TRIS} (int32 '
+                      'indices into the BVH leaf table)')
+        sidx = (sd.tris.shape_idx.tolist() if sd.tris is not None else [])
+        if any(int(sd.shapes.bsdf_idx[i]) < 0 for i in set(sidx)):
+            return no('mesh shape without a BSDF')
+        rows, _ = _mesh_shape_rows(sd, set(sidx) | set(demote))
+        if len(rows) > MAX_MESH_SHAPES:
+            return no(f'{len(rows)} distinct mesh-shape rows > '
+                      f'{MAX_MESH_SHAPES} (per-shape resolution)')
     if not set(sd.bsdfs.present) <= {DIFFUSE}:
-        return no('BSDFs beyond diffuse (ROADMAP B5)')
+        return no('BSDFs beyond diffuse, on meshes as on rectangles '
+                  '(ROADMAP B5)')
     if bool((sd.bsdfs.texture_idx >= 0).any()):
         return no('textured BSDFs (ROADMAP B7)')
     if bool((sd.shapes.velocity != 0).any()) \
             or bool((tx.velocity != 0).any()) \
             or bool(np.any(np.asarray(rx.velocity) != 0)):
-        return no('moving scene: the Doppler chain is ROADMAP B7')
+        return no('moving scene or mesh: the Doppler chain is ROADMAP B7')
     if rx.kind not in (WIGNER, OMNI):
         return no(f'receiver kind {rx.kind} (ROADMAP B6)')
     if rx.receive_type != 'raw' or rx.lo_waveform is not None:
@@ -322,17 +447,29 @@ def _sign(x):
 
 def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
                            max_depth: int, time_sampling: str, rx_kind: str,
-                           stats: dict | None = None):
+                           mesh: PackedBVH | None = None, patch_p: int = 0,
+                           lane0: int = 0, stats: dict | None = None,
+                           lane_out=None):
     """Plain version of the kernel.  Returns (acc (n_time,) float32,
     n_events 0-d int64): the tent-splatted power and the count of nonzero
     contributions.
 
+    `mesh`: the BVH tables of a mesh scene (stride 96; `pack_scene`), on
+    the uniforms' device.  `patch_p` > 0 stratifies the Wigner receive
+    directions over patch_p^2 cells per 1024-lane tile; the first lane is
+    lane `lane0` of the call (tiles count from lane 0).  `lane_out`, if
+    given, receives each lane's contribution sum (n_lanes,) float32.
+
     `stats`, if given, accumulates how many lanes reach each stage of the
-    kernel (the work a run's data needs): keys 'lanes', 'trace', 'hit',
-    'direct', 'nee_geom', 'nee', 'occ_tests', 'nee_splat', 'bounce', each
-    summed over depths."""
-    counts = {k: 0 for k in ('lanes', 'trace', 'hit', 'direct', 'nee_geom',
-                             'nee', 'occ_tests', 'nee_splat', 'bounce')}
+    kernel (the work a run's data needs): keys 'lanes', 'strata' (lanes
+    with stratified directions), 'trace', 'hit', 'direct', 'nee_geom',
+    'nee', 'occ_tests', 'nee_splat', 'bounce', each summed over depths;
+    with a mesh also 'walks', 'node_tests', 'leaf_tests' (BVH walks, slab
+    tests, leaves entered) and 'mesh_hits' (closest hits on a triangle)."""
+    counts = {k: 0 for k in ('lanes', 'strata', 'trace', 'hit', 'direct',
+                             'nee_geom', 'nee', 'occ_tests', 'nee_splat',
+                             'bounce', 'walks', 'node_tests', 'leaf_tests',
+                             'mesh_hits')}
 
     def count(key, mask):
         if stats is not None:
@@ -438,23 +575,37 @@ def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
         nzx, nzy, nzz = nzx * nn, nzy * nn, nzz * nn
         u3, u4 = draw(), draw()
         area = 4.0 * rx_wx * rx_wy
-        lam0 = cvel / torch.clamp(f_rx, min=1e-6)
-        w_mn = torch.minimum(rx_wx, rx_wy)
-        q = 2.0 * w_mn / (0.6 * lam0)
-        k_l = torch.clamp(2.0 * (q * q) - 2.0, min=0.0)
-        pick = u3 >= 0.5
-        u0m = torch.where(pick, 2.0 * u3 - 1.0, 2.0 * u3)
-        ph = TWO_PI * u4
-        ct_c = torch.sqrt(torch.clamp(1.0 - u0m, min=0.0))
-        ct_l = torch.exp(torch.log(torch.clamp(u0m, min=1e-12))
-                         / (k_l + 1.0))
-        tz_ = torch.where(pick, ct_l, ct_c)
-        st = torch.sqrt(torch.clamp(1.0 - tz_ * tz_, min=0.0))
-        tx_, ty_ = st * _fast_cos(ph), st * _fast_sin(ph)
-        cosk = torch.exp(k_l * torch.log(torch.clamp(tz_, min=1e-12)))
-        pdf_d = (0.5 * tz_ * (1.0 / np.pi)
-                 + 0.5 * (k_l + 1.0) * (1.0 / TWO_PI) * cosk)
-        w0 = (tz_ / torch.clamp(pdf_d, min=1e-30)) * area * sp[32]
+        if patch_p:
+            # stratified cosine hemisphere: the tile's cell plus the lane's
+            # jitter; cos pdf, weight pi * area
+            counts['strata'] += n_lanes
+            tile = torch.arange(lane0, lane0 + n_lanes, device=dev) // TILE
+            patch = (tile * 131 + int(sp[0])) % (patch_p * patch_p)
+            u3 = ((patch % patch_p).float() + u3) * (1.0 / patch_p)
+            u4 = ((patch // patch_p).float() + u4) * (1.0 / patch_p)
+            rr = torch.sqrt(u3)
+            ph = TWO_PI * u4
+            tx_, ty_ = rr * _fast_cos(ph), rr * _fast_sin(ph)
+            tz_ = torch.sqrt(torch.clamp(1.0 - u3, min=0.0))
+            w0 = (c(np.pi) * area).expand(n_lanes) * sp[32]
+        else:
+            lam0 = cvel / torch.clamp(f_rx, min=1e-6)
+            w_mn = torch.minimum(rx_wx, rx_wy)
+            q = 2.0 * w_mn / (0.6 * lam0)
+            k_l = torch.clamp(2.0 * (q * q) - 2.0, min=0.0)
+            pick = u3 >= 0.5
+            u0m = torch.where(pick, 2.0 * u3 - 1.0, 2.0 * u3)
+            ph = TWO_PI * u4
+            ct_c = torch.sqrt(torch.clamp(1.0 - u0m, min=0.0))
+            ct_l = torch.exp(torch.log(torch.clamp(u0m, min=1e-12))
+                             / (k_l + 1.0))
+            tz_ = torch.where(pick, ct_l, ct_c)
+            st = torch.sqrt(torch.clamp(1.0 - tz_ * tz_, min=0.0))
+            tx_, ty_ = st * _fast_cos(ph), st * _fast_sin(ph)
+            cosk = torch.exp(k_l * torch.log(torch.clamp(tz_, min=1e-12)))
+            pdf_d = (0.5 * tz_ * (1.0 / np.pi)
+                     + 0.5 * (k_l + 1.0) * (1.0 / TWO_PI) * cosk)
+            w0 = (tz_ / torch.clamp(pdf_d, min=1e-30)) * area * sp[32]
         sign = _sign(nzz)
         a = -1.0 / (sign + nzz)
         b = nzx * nzy * a
@@ -486,9 +637,12 @@ def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
     acc = torch.zeros(n_time, dtype=torch.float64, device=dev)
     n_events = torch.zeros((), dtype=torch.int64, device=dev)
 
+    lane_sum = torch.zeros(n_lanes, dtype=torch.float32, device=dev)
+
     def splat(val, yb, ok):
-        nonlocal n_events
+        nonlocal n_events, lane_sum
         n_events = n_events + (ok & (val != 0.0)).sum()
+        lane_sum = lane_sum + val
         b0 = torch.floor(yb)
         for b in (b0, b0 + 1.0):
             w = torch.clamp(1.0 - (yb - b).abs(), min=0.0)
@@ -535,6 +689,30 @@ def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
             nz = torch.where(closer, q[10] * rnorm, nz)
             rb = torch.where(closer, row[13], rb)
             txc = torch.where(closer, row[14], txc)
+        if mesh is not None:
+            # mesh closest hit, pruned by the analytic best; the geometric
+            # normal from the winner's edges, its reflectance from the leaf
+            walk = active.nonzero().squeeze(1)
+            w = walk_ref(mesh, cx[walk], cy[walk], cz[walk], ddx[walk],
+                         ddy[walk], ddz[walk], tb[walk], anyhit=False,
+                         stats=counts if stats is not None else None)
+            e1x, e1y, e1z, e2x, e2y, e2z = (
+                leaf_column(mesh, w.leaf, w.slot, col)
+                for col in (24, 32, 40, 48, 56, 64))
+            gnx = e1y * e2z - e1z * e2y
+            gny = e1z * e2x - e1x * e2z
+            gnz = e1x * e2y - e1y * e2x
+            rn = torch.rsqrt(torch.clamp(gnx * gnx + gny * gny + gnz * gnz,
+                                         min=1e-20))
+            m_closer = w.t < tb[walk]
+            count('mesh_hits', m_closer)
+            sel = walk[m_closer]
+            tb[sel] = w.t[m_closer]
+            nx[sel] = (gnx * rn)[m_closer]
+            ny[sel] = (gny * rn)[m_closer]
+            nz[sel] = (gnz * rn)[m_closer]
+            rb[sel] = leaf_column(mesh, w.leaf, w.slot, 80)[m_closer]
+            txc[sel] = -1.0
         hit = tb < 3.4e37
         active = active & hit
         count('hit', active)
@@ -604,6 +782,13 @@ def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
             count('occ_tests', shade & ~occ)
             t_p, hit_p, _ = rect_t(row, sx, sy, sz, wx_, wy_, wz_)
             occ = occ | (hit_p & (t_p > 1e-4) & (t_p < limit))
+        if mesh is not None:
+            # mesh any hit for the lanes the rectangles left unblocked
+            walk = (shade & ~occ).nonzero().squeeze(1)
+            w = walk_ref(mesh, sx[walk], sy[walk], sz[walk], wx_[walk],
+                         wy_[walk], wz_[walk], limit[walk], anyhit=True,
+                         stats=counts if stats is not None else None)
+            occ[walk] = w.occ
         ok = active & ~occ & (pdf_sa > 0.0) & (cos_tx > 1e-6) & (txc < 0.0)
         count('nee_splat', ok)
         val = torch.where(ok, throughput * f_cos * w_tx * w_gate
@@ -640,6 +825,8 @@ def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
     if stats is not None:
         for k, v in counts.items():
             stats[k] = stats.get(k, 0) + v
+    if lane_out is not None:
+        lane_out.copy_(lane_sum)
     return acc.float(), n_events
 
 
@@ -647,111 +834,70 @@ def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
 # the CUDA kernel: build at first use, bind with ctypes
 # ---------------------------------------------------------------------------
 
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG_DIR, 'csrc', 'receive_megakernel.cu')
-BUILD_DIR = os.path.join(_PKG_DIR, '_build')
-# no --use_fast_math: expf / logf / sqrtf / division stay IEEE, as in the
-# plain version.  FMA contraction stays on (nvcc's default): it moves the
-# kernel from the plain version by ~1e-7 of max|acc| and makes it 6.6%
-# faster (tools/fmad_ab.py, PERF.md)
-NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-O3',
-              '-std=c++17', '-shared', '-Xcompiler', '-fPIC', '-Xptxas',
-              '-v')
+
+def _bind(lib):
+    vp, i32, i64, u64, f32 = (ctypes.c_void_p, ctypes.c_int,
+                              ctypes.c_longlong, ctypes.c_ulonglong,
+                              ctypes.c_float)
+    ip = ctypes.POINTER(ctypes.c_int)
+    lib.rk_geometry.argtypes = [i32, i64, i32, i32, i32, ip, ip, ip]
+    lib.rk_geometry.restype = i32
+    lib.rk_launch.argtypes = [vp] * 11 + [
+        i32, i32, vp, i64, u64, i32, i32, i32, i32, i32, i32, f32, f32, f32,
+        i32, i32, i32, vp]
+    lib.rk_launch.restype = i32
 
 
-@dataclasses.dataclass(frozen=True)
-class BuildInfo:
-    path: str          # the shared library
-    seconds: float     # nvcc wall time (0.0 when the library was there)
-    log: str           # nvcc / ptxas output (registers, spills)
+LIBRARY = _nvcc.Library('receive_megakernel', 'rk', _bind)
 
 
-def _nvcc() -> str:
-    home = os.environ.get('CUDA_HOME', '/usr/local/cuda')
-    path = os.path.join(home, 'bin', 'nvcc')
-    return path if os.path.exists(path) else 'nvcc'
-
-
-def build_library() -> BuildInfo:
-    """Compile `csrc/receive_megakernel.cu` into `_build/` unless a library
-    built from the same source and flags is there already."""
-    with open(SOURCE, 'rb') as f:
-        digest = hashlib.sha256(f.read() + ' '.join(NVCC_FLAGS).encode())
-    path = os.path.join(BUILD_DIR,
-                        f'receive_megakernel_{digest.hexdigest()[:16]}.so')
-    if os.path.exists(path):
-        return BuildInfo(path=path, seconds=0.0, log='')
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f'{path}.{os.getpid()}.tmp'
-    t0 = time.perf_counter()
-    res = subprocess.run([_nvcc(), *NVCC_FLAGS, '-o', tmp, SOURCE],
-                         capture_output=True, text=True)
-    secs = time.perf_counter() - t0
-    if res.returncode != 0:
-        raise RuntimeError(f'nvcc failed ({res.returncode}):\n{res.stderr}')
-    os.replace(tmp, path)
-    return BuildInfo(path=path, seconds=secs, log=res.stdout + res.stderr)
-
-
-class _Library:
-    """The loaded kernel library, built on first use."""
-
-    _lock = threading.Lock()
-    _lib = None
-
-    @classmethod
-    def get(cls):
-        with cls._lock:
-            if cls._lib is None:
-                lib = ctypes.CDLL(build_library().path)
-                vp, i32, i64, u64, f32 = (ctypes.c_void_p, ctypes.c_int,
-                                          ctypes.c_longlong,
-                                          ctypes.c_ulonglong, ctypes.c_float)
-                ip = ctypes.POINTER(ctypes.c_int)
-                lib.rk_geometry.argtypes = [i32, i64, i32, i32, ip, ip, ip]
-                lib.rk_geometry.restype = i32
-                lib.rk_launch.argtypes = [vp] * 8 + [
-                    i64, u64, i32, i32, i32, i32, i32, i32, f32, f32, f32,
-                    i32, i32, i32, vp]
-                lib.rk_launch.restype = i32
-                lib.rk_error_string.argtypes = [i32]
-                lib.rk_error_string.restype = ctypes.c_char_p
-                cls._lib = lib
-            return cls._lib
-
-
-def _check(lib, err: int, what: str):
-    if err != 0:
-        raise RuntimeError(f'{what}: CUDA error {err} '
-                           f'({lib.rk_error_string(err).decode()})')
+def build_library() -> _nvcc.BuildInfo:
+    return _nvcc.build('receive_megakernel')
 
 
 def launch_geometry(n_time: int, n_lanes: int, n_prims: int,
-                    n_params: int = 45 + MAX_MEDIA_LAYERS):
+                    n_params: int = 45 + MAX_MEDIA_LAYERS,
+                    mesh: bool = False):
     """(blocks, threads per block, dynamic shared bytes) of the trace
-    kernel on the current card: a persistent grid of as many blocks as fit
-    on every SM at once, fewer when the lanes run out."""
-    lib = _Library.get()
+    kernel (its mesh configuration if `mesh`) on the current card: a
+    persistent grid of as many blocks as fit on every SM at once, fewer
+    when the lanes run out."""
+    lib = LIBRARY.get()
     blocks, threads, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-    _check(lib, lib.rk_geometry(n_time, n_lanes, n_prims, n_params,
-                                ctypes.byref(blocks), ctypes.byref(threads),
-                                ctypes.byref(smem)),
-           'receive_megakernel geometry')
+    LIBRARY.check(lib.rk_geometry(n_time, n_lanes, n_prims, n_params,
+                                  int(mesh), ctypes.byref(blocks),
+                                  ctypes.byref(threads), ctypes.byref(smem)),
+                  'receive_megakernel geometry')
     return blocks.value, threads.value, smem.value
+
+
+def patch_p_for(n_lanes: int) -> int:
+    """The strata grid of a mesh call (the JAX package's rule): P = 32 if
+    the 1024-lane tiles count a multiple of 1024, 16 if of 256, else 0
+    (no strata: the lanes take the cosine / lobe mixture)."""
+    n_tiles = max(n_lanes // TILE, 1)
+    return next((p for p in (32, 16) if n_tiles % (p * p) == 0), 0)
 
 
 def receive_megakernel(params, prim, txp, *, adc: ADCConfig, max_depth: int,
                        time_sampling: str, rx_kind: str, n_lanes: int,
-                       seed: int = 0, uniforms=None):
+                       seed: int = 0, uniforms=None,
+                       mesh: PackedBVH | None = None, patch_p: int = 0,
+                       lane_out=None):
     """Trace `n_lanes` receive samples.  Returns (acc (n_time,) float32,
     n_events 0-d int64) on the tables' device.
 
     `uniforms` (n_draws(max_depth), n_lanes) float32 feeds the draws
     (injected mode); without it the lanes draw from Philox4x32-10 keyed by
-    `seed`.  Tables on the CPU run the plain version
-    (`receive_megakernel_ref`, fed `philox_uniforms` in PRNG mode); tables
-    on a card launch the CUDA kernel, which raises if it cannot build or
-    launch."""
+    `seed`.  `mesh` (BVH tables of stride 96, on the tables' device)
+    selects the mesh configuration; `patch_p` its direction strata (0 =
+    none; `patch_p_for`), read with the seed slot `params[0]`; a
+    `lane_out` (n_lanes,) float32 tensor receives each lane's contribution
+    sum there (parity runs: it shows which lanes a triangle edge flipped).
+    Tables on
+    the CPU run the plain version (`receive_megakernel_ref`, fed
+    `philox_uniforms` in PRNG mode); tables on a card launch the CUDA
+    kernel, which raises if it cannot build or launch."""
     dev = params.device
     if time_sampling not in ('fixed', 'gate'):
         raise ValueError(f'time_sampling {time_sampling!r}')
@@ -778,36 +924,55 @@ def receive_megakernel(params, prim, txp, *, adc: ADCConfig, max_depth: int,
             or not uniforms.is_contiguous()):
         raise ValueError(f'uniforms: expected contiguous float32 '
                          f'({nd}, {n_lanes}) on {dev}')
+    if mesh is not None:
+        if mesh.stride != MESH_STRIDE or any(
+                x.device != dev or not x.is_contiguous()
+                for x in (mesh.bbox, mesh.links, mesh.leaves)):
+            raise ValueError(f'mesh: expected contiguous stride-'
+                             f'{MESH_STRIDE} tables on {dev}')
+    if lane_out is not None and (
+            mesh is None or tuple(lane_out.shape) != (n_lanes,)
+            or lane_out.dtype != torch.float32 or lane_out.device != dev):
+        raise ValueError(f'lane_out: expected float32 ({n_lanes},) on {dev}, '
+                         'with a mesh')
+    if patch_p and (mesh is None or rx_kind != 'wigner'):
+        raise ValueError('direction strata need a mesh and a Wigner '
+                         'receiver')
     if dev.type == 'cpu':
         u = uniforms if uniforms is not None else \
             philox_uniforms(seed, nd, n_lanes)
         return receive_megakernel_ref(params, prim, txp, u, adc=adc,
                                       max_depth=max_depth,
                                       time_sampling=time_sampling,
-                                      rx_kind=rx_kind)
+                                      rx_kind=rx_kind, mesh=mesh,
+                                      patch_p=patch_p, lane_out=lane_out)
     if dev.type != 'cuda':
         raise ValueError(f'no receive kernel for device {dev}')
-    lib = _Library.get()
+    lib = LIBRARY.get()
     with torch.cuda.device(dev):
-        blocks, threads, smem = launch_geometry(adc.n_time, n_lanes, n_prims,
-                                                int(params.shape[0]))
+        blocks, threads, smem = launch_geometry(
+            adc.n_time, n_lanes, n_prims, int(params.shape[0]),
+            mesh is not None)
         partial = torch.empty((blocks, adc.n_time), dtype=torch.float64,
                               device=dev)
         part_ev = torch.empty(blocks, dtype=torch.int64, device=dev)
         acc = torch.empty(adc.n_time, dtype=torch.float32, device=dev)
         n_events = torch.empty((), dtype=torch.int64, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
+        m = (None, None, None, 0) if mesh is None else (
+            mesh.bbox.data_ptr(), mesh.links.data_ptr(),
+            mesh.leaves.data_ptr(), mesh.stride)
         err = lib.rk_launch(
             params.data_ptr(), prim.data_ptr(), txp.data_ptr(),
             None if uniforms is None else uniforms.data_ptr(),
             partial.data_ptr(), part_ev.data_ptr(), acc.data_ptr(),
-            n_events.data_ptr(), n_lanes, seed & 0xFFFFFFFFFFFFFFFF,
-            adc.n_time, max_depth, int(time_sampling == 'gate'),
-            int(rx_kind == 'omni'), n_prims, int(params.shape[0]),
-            adc.sampling_start, adc.sampling_time,
-            0.5 * (adc.freq_lo + adc.freq_hi),
-            blocks, threads, smem, stream)
-        _check(lib, err, 'receive_megakernel launch')
+            n_events.data_ptr(), *m, patch_p,
+            None if lane_out is None else lane_out.data_ptr(), n_lanes,
+            seed & 0xFFFFFFFFFFFFFFFF, adc.n_time, max_depth,
+            int(time_sampling == 'gate'), int(rx_kind == 'omni'), n_prims,
+            int(params.shape[0]), adc.sampling_start, adc.sampling_time,
+            0.5 * (adc.freq_lo + adc.freq_hi), blocks, threads, smem, stream)
+        LIBRARY.check(err, 'receive_megakernel launch')
     receive_megakernel.launches += 1
     return acc, n_events
 
@@ -820,11 +985,22 @@ receive_megakernel.launches = 0
 # ---------------------------------------------------------------------------
 
 
-def _device_tables(scene, scene_data, rx, dev):
-    """(params, prim, txp) of (scene_data, rx) on `dev`.  The scope check
-    and the pack read ~20 tables back from the card, so they run once per
-    pair: the scene keeps the last pair of each receiver and device, and a
-    call with the same objects launches without touching the host."""
+@dataclasses.dataclass(frozen=True)
+class DeviceTables:
+    """A scene's kernel tables on one device."""
+
+    params: torch.Tensor
+    prim: torch.Tensor
+    txp: torch.Tensor
+    mesh: PackedBVH | None
+
+
+def _device_tables(scene, scene_data, rx, dev) -> DeviceTables:
+    """The kernel tables of (scene_data, rx) on `dev`.  The scope check
+    and the pack (and a mesh's BVH build) read the tables back from the
+    card, so they run once per pair: the scene keeps the last pair of each
+    receiver and device, and a call with the same objects launches without
+    touching the host."""
     cache = scene.__dict__.setdefault('_receive_kernel_tables', {})
     key = (rx.id, dev)
     hit = cache.get(key)
@@ -836,29 +1012,45 @@ def _device_tables(scene, scene_data, rx, dev):
             "scene outside the receive kernel's scope: " + '; '.join(why))
     packed = pack_scene(scene_data, rx,
                         scene.shape_index_of_endpoint('receiver', rx.id))
-    # params[0] stays 0: the JAX package's seed slot feeds only its TPU
-    # generator; this kernel takes the 64-bit seed as an argument
-    tables = tuple(torch.as_tensor(a, device=dev).contiguous()
-                   for a in (packed.params, packed.prim, packed.txp))
+    params, prim, txp = (torch.as_tensor(a, device=dev).contiguous()
+                         for a in (packed.params, packed.prim, packed.txp))
+    tables = DeviceTables(params=params, prim=prim, txp=txp,
+                          mesh=None if packed.mesh is None
+                          else packed.mesh.to(dev))
     cache[key] = (scene_data, rx, tables)
     return tables
+
+
+def seed_slot(seed: int) -> float:
+    """The JAX package's per-call seed slot params[0]: float32 of
+    seed * 1_000_003 % 2^30 (it offsets the direction strata)."""
+    return float(np.float32(seed * 1_000_003 % (1 << 30)))
 
 
 def receive_kernel(scene, scene_data, rx, spp: int, seed: int = 0,
                    max_depth: int = 3, time_sampling: str = 'gate',
                    device=None):
     """Run the receive kernel on `scene_data`'s tables.  Returns
-    (signal (n_time, 1) float32 accumulated power, n_samples = spp).
+    (signal (n_time, 1) float32 accumulated power, n_samples).
 
-    The lanes draw from Philox4x32-10 keyed by `seed`: the kernel's own
+    n_samples is `spp`, rounded down to whole 1024-lane tiles (at least
+    one) for mesh scenes, as the JAX package rounds its mesh lanes.  The
+    lanes draw from Philox4x32-10 keyed by `seed`: the kernel's own
     generator on a card, `philox_uniforms` on the CPU, so one seed gives
     one stream on both.  Develop with `receive.develop_signal`
     (x n_time / n_samples)."""
     dev = resolve_device(device)
-    params, prim, txp = _device_tables(scene, scene_data, rx, dev)
+    tab = _device_tables(scene, scene_data, rx, dev)
+    rx_kind = 'omni' if rx.kind == OMNI else 'wigner'
+    n_lanes, patch_p, params = spp, 0, tab.params
+    if tab.mesh is not None:
+        n_lanes = max(TILE, (spp // TILE) * TILE)
+        if rx_kind == 'wigner':
+            patch_p = patch_p_for(n_lanes)
+        params = params.clone()
+        params[0] = seed_slot(seed)
     acc, _ = receive_megakernel(
-        params, prim, txp, adc=rx.adc, max_depth=max_depth,
-        time_sampling=time_sampling,
-        rx_kind='omni' if rx.kind == OMNI else 'wigner', n_lanes=spp,
-        seed=seed)
-    return acc.reshape(rx.adc.n_time, 1), spp
+        params, tab.prim, tab.txp, adc=rx.adc, max_depth=max_depth,
+        time_sampling=time_sampling, rx_kind=rx_kind, n_lanes=n_lanes,
+        seed=seed, mesh=tab.mesh, patch_p=patch_p)
+    return acc.reshape(rx.adc.n_time, 1), n_lanes

@@ -18,14 +18,14 @@ import torch
 from ._device import resolve_device
 from .bsdf.tables import BSDFTable
 from .core.config import Band
+from .geometry.intersect import TriData
 from .geometry.shapes import ShapeTable
 from .radar.endpoints import ReceiverTable, TransmitterTable
 from .radar.waveform import Waveform
 from .scene import SceneData
 from .textures import TextureTable
 
-_PORTED_ELSEWHERE = {'.tris': 'triangle meshes (ROADMAP A7)',
-                     '.bvh': 'BVHs (ROADMAP A7)',
+_PORTED_ELSEWHERE = {'.bvh': "the wavefront's BVH (ROADMAP A4)",
                      '.medium': 'ambient media (ROADMAP A10)'}
 
 
@@ -58,6 +58,7 @@ def scene_data_from_numpy(leaves: dict, band: Band, device=None) -> SceneData:
         tx = table(TransmitterTable, '.transmitters', wf=wf)
     rx = table(ReceiverTable, '.receivers') \
         if '.receivers.kind' in leaves else None
+    tris = table(TriData, '.tris') if '.tris.v0' in leaves else None
     return SceneData(band=band, shapes=table(ShapeTable, '.shapes'),
                      bsdfs=bsdfs, textures=table(TextureTable, '.textures'),
-                     transmitters=tx, receivers=rx)
+                     transmitters=tx, receivers=rx, tris=tris)

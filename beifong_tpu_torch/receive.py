@@ -2,8 +2,8 @@
 `beifong_tpu/receive.py`).
 
 A scene inside the receive kernel's scope (`integrators.receive_kernel.
-supported`) runs the CUDA kernel on a card, or its plain PyTorch version on
-the CPU.  Anything else raises `NotImplementedError` naming what is
+supported`: rectangles and diffuse triangle meshes) runs the CUDA kernel
+on a card, or its plain PyTorch version on the CPU.  Anything else raises `NotImplementedError` naming what is
 missing: the eager wavefront that the JAX package falls back to
 (`radar_path.radar_receive_trace`) is ROADMAP A4, and until it lands there
 is nothing to route to.  A failing build or launch raises as well.
@@ -26,9 +26,11 @@ def receive(scene, scene_data=None, receiver=None, seed: int = 0,
 
     adc_grid: (n_time, n_freq, 3) float32 — accumulated power, then the
     weight and count channels of the JAX package's layout (left at zero by
-    the kernel, as there).  `time_sampling`: 'fixed' (reference semantics)
-    or 'gate' (deferred time-gated importance sampling).  Runs on `device`
-    (`cuda` by default; raises without a card)."""
+    the kernel, as there).  total_samples is `spp`, rounded down to whole
+    1024-lane tiles for scenes with meshes.  `time_sampling`: 'fixed'
+    (reference semantics) or 'gate' (deferred time-gated importance
+    sampling).  Runs on `device` (`cuda` by default; raises without a
+    card)."""
     dev = resolve_device(device)
     if scene_data is None:
         scene_data = scene.compile(device=dev)

@@ -1,10 +1,12 @@
 """Scene builder and its compiled tensor tables (counterpart of
-`beifong_tpu/scene.py`, for analytic scenes).
+`beifong_tpu/scene.py`, for rectangles and triangle meshes).
 
 A `Scene` collects host-side specs; `compile()` flattens them into
-`SceneData`, a dataclass of tensors on one device.  The tables the
-flagship leaves empty (emitters, triangles, BVH, medium) are `None` here:
-the builder takes no spec that would fill them (`add` raises on one).
+`SceneData`, a dataclass of tensors on one device, baking meshes into a
+world-space triangle table (`tris`).  The tables the port does not fill
+yet (emitters, medium) are `None`, and so is `bvh`: it is the JAX
+package's wavefront BVH (ROADMAP A4); the receive kernel builds its own
+from `tris`.
 """
 
 from __future__ import annotations
@@ -12,9 +14,14 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+import numpy as np
+import torch
+
 from ._device import resolve_device
 from .bsdf.tables import BSDFSpec, BSDFTable
 from .core.config import Band, ULTRASOUND_40K
+from .geometry.intersect import TriData
+from .geometry.mesh import MeshSpec
 from .geometry.shapes import ShapeSpec, ShapeTable
 from .radar.endpoints import ReceiverTable, TransmitterTable
 from .textures import TextureTable
@@ -30,10 +37,10 @@ class SceneData:
     textures: TextureTable
     transmitters: Optional[TransmitterTable]
     receivers: Optional[ReceiverTable]
-    tris: None = None        # triangle meshes: ROADMAP A7
+    tris: Optional[TriData] = None   # world-space faces of every mesh
     emitters: None = None    # optical emitters: ROADMAP A12
     medium: None = None      # ambient media: ROADMAP A10 / B7
-    bvh: None = None         # ROADMAP A7
+    bvh: None = None         # the wavefront's BVH: ROADMAP A4
 
 
 @dataclasses.dataclass
@@ -98,8 +105,31 @@ class Scene:
                 self.receivers,
                 lambda rid: self.shape_index_of_endpoint('receiver', rid),
                 dev)
-        return SceneData(band=self.band,
-                         shapes=ShapeTable.build(self.shapes, resolve, dev),
+        shapes = ShapeTable.build(self.shapes, resolve, dev)
+        # meshes: world-space faces, and the mesh's own surface area
+        areas = shapes.surface_area.cpu().numpy().copy()
+        chunks = []
+        for i, s in enumerate(self.shapes):
+            if isinstance(s, MeshSpec):
+                areas[i] = s.surface_area_world()
+                v = s.world_vertices()
+                a, b, c = (v[s.faces[:, 0]], v[s.faces[:, 1]],
+                           v[s.faces[:, 2]])
+                e1, e2 = b - a, c - a
+                n = np.cross(e1, e2)
+                n = n / np.maximum(np.linalg.norm(n, axis=1, keepdims=True),
+                                   1e-20)
+                chunks.append((a, e1, e2, n, np.full(len(a), i, np.int32)))
+        shapes = dataclasses.replace(
+            shapes, surface_area=torch.as_tensor(areas, device=dev))
+        tris = None
+        if chunks:
+            cols = [np.concatenate([c[j] for c in chunks]) for j in range(5)]
+            tris = TriData(*(torch.as_tensor(
+                c.astype(np.float32) if j < 4 else c, device=dev)
+                for j, c in enumerate(cols)))
+        return SceneData(band=self.band, shapes=shapes,
                          bsdfs=BSDFTable.build(self.bsdfs, dev),
                          textures=TextureTable.empty(dev),
-                         transmitters=tx_table, receivers=rx_table)
+                         transmitters=tx_table, receivers=rx_table,
+                         tris=tris)

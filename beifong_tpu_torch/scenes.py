@@ -5,6 +5,11 @@ builds for its benchmark and entry point: a 40 kHz sonar band, Wigner
 transmitter and receiver apertures 0.6 m apart, a diffuse 1 m target
 plate R metres out, a 40 m ground plane, a 2 ms pulse and a raw
 64-bin ADC over 60 ms.
+
+`mesh_scene` is the JAX package's mesh benchmark scene
+(`benchmarks/mesh_megakernel.py::build`): the same endpoints and ADC,
+no ground, and for the target a crumpled 1.2 m grid of 2 n_side^2
+triangles (9,800 at n_side = 71) R metres out.
 """
 
 from __future__ import annotations
@@ -16,6 +21,7 @@ from .bsdf.tables import diffuse
 from .core import transform as tf
 from .core.config import Band
 from .geometry import shapes as sh
+from .geometry.mesh import MeshSpec, make_grid
 from .radar import (ADCConfig, omni_receiver, pulse, wigner_receiver,
                     wigner_transmitter)
 
@@ -52,6 +58,32 @@ def flagship_scene(R: float = 4.0, ground: bool = True,
         gnd = np.asarray(tf.compose(tf.translate([0, 0, -0.5]),
                                     tf.scale(20.0)))
         s.add(sh.rectangle(to_world=gnd, bsdf='mat'))
+    return s, rx
+
+
+def mesh_scene(R: float = 4.0, n_side: int = 71):
+    """Returns (scene, receiver spec)."""
+    band = Band.from_freq(340.0, 40e3, 10e3)
+    s = sc.Scene(band=band)
+    s.add(diffuse('mat', reflectance=1.0, twosided=True))
+    wf = pulse(f_centre=40e3, prf=10.0, pulse_len=2e-3, f_ext=2e3,
+               is_delta=True)
+    s.add(wigner_transmitter('tx', wf, resample_freq=True))
+    aim = np.asarray(tf.compose(tf.look_at([0.3, 0, 0], [0.3, -1, 0]),
+                                tf.scale([0.05, 0.05, 1.0])))
+    s.add(sh.rectangle(to_world=aim, transmitter='tx'))
+    adc = ADCConfig(n_time=64, n_freq=1, sampling_start=0.0,
+                    sampling_time=0.06, freq_lo=35e3, freq_hi=45e3)
+    rx = wigner_receiver('rx', adc, receive_type='raw')
+    s.add(rx)
+    aim_rx = np.asarray(tf.compose(tf.look_at([-0.3, 0, 0], [-0.3, -1, 0]),
+                                   tf.scale([0.05, 0.05, 1.0])))
+    s.add(sh.rectangle(to_world=aim_rx, receiver='rx'))
+    v, f = make_grid(n_side, n_side)
+    v[:, 2] = 0.05 * np.sin(6 * v[:, 0]) * np.cos(5 * v[:, 1])
+    m = np.asarray(tf.compose(tf.look_at([0, -R, 0], [0, 0, 0]),
+                              tf.scale(0.6)))
+    s.add(MeshSpec(v, f, bsdf='mat', to_world=m))
     return s, rx
 
 

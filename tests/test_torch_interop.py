@@ -91,7 +91,9 @@ def test_pack_scene_bit_identical(kw):
 
 def test_import_loads_no_jax():
     code = ('import sys, beifong_tpu_torch, beifong_tpu_torch.interop, '
-            'beifong_tpu_torch.dsp.pulse; '
+            'beifong_tpu_torch.dsp.pulse, beifong_tpu_torch.geometry.bvh, '
+            'beifong_tpu_torch.geometry.bvh_kernel, '
+            'beifong_tpu_torch.geometry.mesh; '
             'bad = [m for m in sys.modules if m == "jax" '
             'or m.startswith("jax.") or m == "beifong_tpu" '
             'or m.startswith("beifong_tpu.")]; '

@@ -1,6 +1,6 @@
 """End to end on the CPU: the port's receive() -> develop_signal ->
 pulse_compress range profile against the JAX package's jnp wavefront on
-the flagship scene, and against the 2R/c anchor."""
+the flagship scene and the mesh scene, and against the 2R/c anchor."""
 
 import jax  # noqa: F401  (JAX stays on the CPU: tests/conftest.py)
 import jax.numpy as jnp
@@ -16,7 +16,10 @@ from beifong_tpu.receive import develop_signal as develop_j
 import beifong_tpu_torch as bt
 from beifong_tpu_torch.dsp import pulse as pulse_t
 from beifong_tpu_torch.integrators import receive_kernel as rk
-from beifong_tpu_torch.scenes import flagship_scene, round_trip_bin
+from beifong_tpu_torch.scenes import flagship_scene, mesh_scene, \
+    round_trip_bin
+
+from test_torch_mesh import twin_scene
 
 torch.set_num_threads(1)
 
@@ -126,3 +129,27 @@ def test_receive_packs_tables_once_per_scene_data(monkeypatch):
     assert len(calls) == 1
     bt.receive(s, s.compile(device='cpu'), rx, seed=1, **kw)
     assert len(calls) == 2
+
+
+def test_mesh_profile_matches_jax_wavefront():
+    """The mesh scene at n_side 9: the port's receive() (plain version of
+    the mesh kernel, direction strata at 256 tiles) against the JAX jnp
+    wavefront, averaged over seeds; the peak bins agree within one, as
+    tests/test_pallas_receive.py holds the TPU kernel on this scene."""
+    s_t, rx_t = mesh_scene(n_side=9)
+    sd_t = s_t.compile(device='cpu')
+    s_j, rx_j = twin_scene('jax', n_side=9)
+    sd_j = s_j.compile(use_bvh=False)
+    tp = np.zeros(rx_t.adc.n_time)
+    tj = np.zeros(rx_t.adc.n_time)
+    for seed in range(SEEDS):
+        a, n = bt.receive(s_t, sd_t, rx_t, seed=seed, spp=1 << 18,
+                          max_depth=2, time_sampling='gate', device='cpu')
+        assert n == 1 << 18
+        tp += bt.develop_signal(a, n, rx_t.adc)[:, 0, 0].numpy() / SEEDS
+        a, n = receive_j(s_j, sd_j, rx_j, seed=100 + seed, spp=1 << 13,
+                         max_depth=2, time_sampling='gate', use_pallas=False)
+        tj += np.asarray(develop_j(a, n, rx_j.adc))[:, 0, 0] / SEEDS
+    assert np.isfinite(tp).all() and tp.sum() > 0
+    assert abs(int(tp.argmax()) - int(tj.argmax())) <= 1
+    assert abs(int(tp.argmax()) - round_trip_bin(s_t, rx_t)) <= 2

@@ -1,7 +1,8 @@
 """The port's receive kernel: its plain PyTorch version against the JAX
-package's Pallas megakernel (interpret mode) on identical uniforms, and
-the Philox generator.  The CUDA kernel itself is held against the plain
-version on a card by tests/test_torch_gpu.py."""
+package's Pallas megakernel (interpret mode) on identical uniforms, in the
+flagship and the mesh configuration (with and without direction strata),
+and the Philox generator.  The CUDA kernel itself is held against the
+plain version on a card by tests/test_torch_gpu.py."""
 
 import dataclasses as dc
 
@@ -14,9 +15,12 @@ import torch
 import __graft_entry__ as g
 from beifong_tpu.integrators import pallas_receive as pr
 
+from beifong_tpu_torch.geometry.bvh_kernel import PackedBVH
 from beifong_tpu_torch.integrators import receive_kernel as rk
 from beifong_tpu_torch.radar.endpoints import ADCConfig
 from beifong_tpu_torch.scenes import flagship_scene
+
+from test_torch_mesh import twin_scene
 
 torch.set_num_threads(1)
 
@@ -84,6 +88,88 @@ def test_plain_version_matches_jax_megakernel(case):
         t(params), t(prim), t(txp), adc=adc, max_depth=depth,
         time_sampling=ts, rx_kind=rx_kind, n_lanes=u.shape[1],
         uniforms=t(u))
+    assert torch.equal(acc_w, acc) and int(n_w) == int(n_ev)
+
+
+def _jax_mesh_run(n_lanes, max_depth, seed):
+    """`_run(interpret=True, has_mesh=True)` on the mesh benchmark scene at
+    n_side 9 (162 triangles), as `receive_pallas` calls it, plus the
+    uniforms it drew as (n_draws, n_lanes) and its tables."""
+    s, rx = twin_scene('jax', n_side=9)
+    sd = s.compile(use_bvh=False)
+    assert pr.supported(sd, rx)
+    si = s.shape_index_of_endpoint('receiver', rx.id)
+    (params, prim, txp, php, rxph, msh, mesh_types, tex, bmp_meta,
+     mesh_pack) = pr._pack_scene(sd, rx, si)
+    params = params.copy()
+    params[0] = float(seed * 1_000_003 % (1 << 30))
+    out, _, _, _, cnt = pr._run(
+        jnp.asarray(params), jnp.asarray(prim), jnp.asarray(txp),
+        jnp.asarray(php), jnp.asarray(rxph), jax.random.key(seed),
+        tuple(int(k) for k in prim[:, 0]), tuple(int(f) for f in prim[:, 14]),
+        tuple(int(f) for f in prim[:, 18]), tuple(int(f) for f in prim[:, 26]),
+        rx.adc, rx.receive_type, 'gate', max_depth, 'wigner', n_lanes,
+        True, False, has_mesh=True, mesh_types=mesh_types, moving=False,
+        absorbing=False, tx_kinds=tuple(int(f) for f in txp[:, 27]),
+        has_lo=False, polarized=False, bmp_meta=bmp_meta, layered=0,
+        tex=jnp.asarray(tex), msh=jnp.asarray(msh), mimo_e=0, eoff=None,
+        grid_meta=pr._grid_meta(params),
+        prim_bsdf1=tuple(int(f) for f in prim[:, 28]),
+        prim_mix=tuple(int(f) for f in prim[:, 27]),
+        bvh_bbox=mesh_pack.bbox, bvh_links=mesh_pack.links,
+        bvh_leaves=mesh_pack.leaves)
+    nd = pr.n_draws(max_depth)
+    n_tiles = n_lanes // (8 * 128)
+    u = jax.random.uniform(jax.random.key(seed), (n_tiles, nd, 8, 128),
+                           dtype=jnp.float32)
+    u = np.asarray(u).transpose(1, 0, 2, 3).reshape(nd, n_lanes)
+    mesh = PackedBVH(*(torch.tensor(np.asarray(x)) for x in (
+        mesh_pack.bbox, mesh_pack.links, mesh_pack.leaves)),
+        n_nodes=mesh_pack.n_nodes, n_leaves=mesh_pack.n_leaves,
+        stride=mesh_pack.stride)
+    adc = ADCConfig(**{f.name: getattr(rx.adc, f.name)
+                       for f in dc.fields(ADCConfig)})
+    return (np.asarray(out)[:, 0], float(np.asarray(cnt)[0, 0]),
+            (params, prim, txp, u, adc, mesh))
+
+
+@pytest.mark.parametrize('n_lanes, max_depth, patch_p',
+                         [(1024, 2, 0), (4096, 1, 2)],
+                         ids=['one-tile', 'four-tiles-strata'])
+def test_plain_version_matches_jax_megakernel_mesh(monkeypatch, n_lanes,
+                                                   max_depth, patch_p):
+    """Mesh configuration: the per-lane BVH walk against the TPU kernel's
+    tile-shared walk.  Four tiles take 2 x 2 direction strata: the JAX
+    kernel reads BF_PATCH_P when it traces, which its jit key does not
+    see, hence the cache clears."""
+    if patch_p:
+        monkeypatch.setenv('BF_PATCH_P', str(patch_p))
+        monkeypatch.setattr(pr, 'PATCH_P', patch_p)
+    jax.clear_caches()
+    try:
+        out_j, cnt_j, (params, prim, txp, u, adc, mesh) = _jax_mesh_run(
+            n_lanes, max_depth, seed=3)
+    finally:
+        jax.clear_caches()
+    t = torch.tensor
+    stats = {}
+    acc, n_ev = rk.receive_megakernel_ref(
+        t(params), t(prim), t(txp), t(u), adc=adc, max_depth=max_depth,
+        time_sampling='gate', rx_kind='wigner', mesh=mesh, patch_p=patch_p,
+        stats=stats)
+    assert cnt_j > 0 and np.abs(out_j).max() > 0
+    assert stats['mesh_hits'] > 0 and stats['leaf_tests'] > 0
+    assert stats['strata'] == (n_lanes if patch_p else 0)
+    # the tolerances of the flagship cases: the frameworks sum in another
+    # order and may differ by an ulp in exp / log / rsqrt
+    np.testing.assert_allclose(acc.numpy(), out_j, rtol=0,
+                               atol=1e-4 * np.abs(out_j).max())
+    assert abs(int(n_ev) - cnt_j) <= 1e-3 * cnt_j
+    # the CPU wrapper is the plain version
+    acc_w, n_w = rk.receive_megakernel(
+        t(params), t(prim), t(txp), adc=adc, max_depth=max_depth,
+        time_sampling='gate', rx_kind='wigner', n_lanes=n_lanes,
+        uniforms=t(u), mesh=mesh, patch_p=patch_p)
     assert torch.equal(acc_w, acc) and int(n_w) == int(n_ev)
 
 

@@ -48,11 +48,13 @@ def child(fmad: str, full: bool) -> dict:
     if not torch.cuda.is_available():
         sys.exit('needs a card')
     import beifong_tpu_torch as bt
+    from beifong_tpu_torch import _nvcc
     from beifong_tpu_torch.integrators import receive_kernel as rk
     from beifong_tpu_torch.scenes import flagship_scene
 
-    rk.NVCC_FLAGS = tuple(f for f in rk.NVCC_FLAGS
-                          if not f.startswith('--fmad')) + (f'--fmad={fmad}',)
+    _nvcc.NVCC_FLAGS = tuple(f for f in _nvcc.NVCC_FLAGS
+                             if not f.startswith('--fmad')) \
+        + (f'--fmad={fmad}',)
     info = rk.build_library()
     regs = [ln.strip() for ln in info.log.splitlines()
             if 'registers' in ln]
