@@ -56,3 +56,30 @@ def compose(*mats) -> torch.Tensor:
 def inverse(m) -> torch.Tensor:
     """World-to-object inverse of a to-world transform."""
     return torch.linalg.inv(torch.as_tensor(m, dtype=_F32))
+
+
+# ---------------------------------------------------------------------------
+# Frames: orthonormal (s, t, n) bases stored as (..., 3, 3) with rows s, t, n
+# ---------------------------------------------------------------------------
+
+
+def frame_from_normal(n: torch.Tensor) -> torch.Tensor:
+    """Orthonormal frame around unit normal n (Duff et al., branchless)."""
+    sign = torch.where(n[..., 2] >= 0.0, 1.0, -1.0)
+    a = -1.0 / (sign + n[..., 2])
+    b = n[..., 0] * n[..., 1] * a
+    s = torch.stack([1.0 + sign * n[..., 0] ** 2 * a, sign * b,
+                     -sign * n[..., 0]], dim=-1)
+    t = torch.stack([b, sign + n[..., 1] ** 2 * a, -n[..., 1]], dim=-1)
+    return torch.stack([s, t, n], dim=-2)
+
+
+def to_local(frame: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """World -> local: the rows of `frame` are the basis vectors."""
+    p = frame * v[..., None, :]
+    return p[..., 0] + p[..., 1] + p[..., 2]
+
+
+def to_world(frame: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    p = frame * v[..., :, None]
+    return p[..., 0, :] + p[..., 1, :] + p[..., 2, :]

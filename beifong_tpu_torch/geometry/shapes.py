@@ -2,10 +2,12 @@
 
 Shape builders are host-side dataclasses (numpy); `ShapeTable.build`
 flattens them into tensors.  Unit-object conventions follow the JAX
-package: the unit rectangle spans [-1, 1]^2 in the z = 0 plane, normal +z.
-This port builds rectangles and triangle meshes (`geometry/mesh.py`, one
-TRIANGLE row per mesh, its faces in `SceneData.tris`); the other kinds
-keep their codes so the packed tables read the same in both packages.
+package: the unit rectangle spans [-1, 1]^2 in the z = 0 plane, normal +z;
+the unit sphere has radius 1 at the origin; the unit disk radius 1 in the
+z = 0 plane; the unit cylinder radius 1 with z in [0, 1].  Triangle meshes
+(`geometry/mesh.py`) take one TRIANGLE row per mesh, their faces in
+`SceneData.tris`.  Shape groups and instances wait for the loaders
+(ROADMAP A10).
 """
 
 from __future__ import annotations
@@ -37,11 +39,40 @@ class ShapeSpec:
     flip_normals: bool = False
 
 
+def _m4(m) -> np.ndarray:
+    if m is None:
+        return np.eye(4, dtype=np.float32)
+    return np.asarray(m, np.float32).reshape(4, 4)
+
+
 def rectangle(to_world=None, **kw) -> ShapeSpec:
     """Unit rectangle spanning [-1, 1]^2 in the z = 0 plane, normal +z."""
-    m = np.eye(4, dtype=np.float32) if to_world is None else \
-        np.asarray(to_world, np.float32).reshape(4, 4)
-    return ShapeSpec(kind=RECTANGLE, to_world=m, **kw)
+    return ShapeSpec(kind=RECTANGLE, to_world=_m4(to_world), **kw)
+
+
+def sphere(to_world=None, center=None, radius: float = 1.0,
+           **kw) -> ShapeSpec:
+    """Sphere: the unit sphere under to_world @ translate(center) @
+    scale(radius)."""
+    m = _m4(to_world)
+    if center is not None or radius != 1.0:
+        c = np.zeros(3, np.float32) if center is None else \
+            np.asarray(center, np.float32)
+        t = np.eye(4, dtype=np.float32)
+        t[:3, 3] = c
+        sc = np.diag([radius, radius, radius, 1.0]).astype(np.float32)
+        m = m @ t @ sc
+    return ShapeSpec(kind=SPHERE, to_world=m, **kw)
+
+
+def disk(to_world=None, **kw) -> ShapeSpec:
+    """Unit disk: radius 1 in the z = 0 plane, normal +z."""
+    return ShapeSpec(kind=DISK, to_world=_m4(to_world), **kw)
+
+
+def cylinder(to_world=None, **kw) -> ShapeSpec:
+    """Unit cylinder: radius 1, z in [0, 1], open ends."""
+    return ShapeSpec(kind=CYLINDER, to_world=_m4(to_world), **kw)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,12 +126,26 @@ class ShapeTable:
 
 
 def _surface_area(s: ShapeSpec) -> float:
-    if s.kind == TRIANGLE:
-        return 1.0   # placeholder: Scene.compile sets the mesh's own area
-    if s.kind != RECTANGLE:
-        raise NotImplementedError(
-            f'shape kind {s.kind}: only rectangles and meshes are ported '
-            '(ROADMAP A3)')
+    """World surface area from the to_world column norms (1.0 for a mesh:
+    `Scene.compile` sets the mesh's own area)."""
     m = s.to_world
-    return 4.0 * float(np.linalg.norm(m[:3, 0])) \
-        * float(np.linalg.norm(m[:3, 1]))
+    sx = float(np.linalg.norm(m[:3, 0]))
+    sy = float(np.linalg.norm(m[:3, 1]))
+    sz = float(np.linalg.norm(m[:3, 2]))
+    if s.kind == RECTANGLE:
+        return 4.0 * sx * sy          # the unit rectangle spans [-1, 1]^2
+    if s.kind == DISK:
+        return float(np.pi) * sx * sy
+    if s.kind == SPHERE:
+        r = (sx + sy + sz) / 3.0
+        return float(4.0 * np.pi * r * r)
+    if s.kind == CYLINDER:
+        return float(2.0 * np.pi) * sx * sz
+    return 1.0
+
+
+def aperture_extents(table: ShapeTable, idx):
+    """Half-widths (wx, wy) of rectangle rows `idx`: the norms of their
+    to_world x and y columns."""
+    m = table.to_world[idx]
+    return m[..., :3, 0].norm(dim=-1), m[..., :3, 1].norm(dim=-1)

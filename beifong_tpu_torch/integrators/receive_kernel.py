@@ -47,6 +47,7 @@ import torch
 from .. import _nvcc
 from .._device import resolve_device
 from ..bsdf.tables import DIFFUSE
+from ..core.rng import MASK32, philox4x32_10
 from ..geometry import bvh as bvh_mod
 from ..geometry.bvh_kernel import PackedBVH, walk_ref, leaf_column, pack
 from ..geometry.shapes import RECTANGLE, TRIANGLE
@@ -359,33 +360,8 @@ def n_draws(max_depth: int) -> int:
 
 
 # ---------------------------------------------------------------------------
-# Philox4x32-10: the kernel's generator and its plain version
+# the kernel's generator, drawn on the host
 # ---------------------------------------------------------------------------
-
-_PHILOX_M0, _PHILOX_M1 = 0xD2511F53, 0xCD9E8D57
-_PHILOX_W0, _PHILOX_W1 = 0x9E3779B9, 0xBB67AE85
-_MASK32 = 0xFFFFFFFF
-
-
-def _mulhilo(a: int, b: torch.Tensor):
-    """(hi, lo) 32-bit halves of a * b for a < 2^32 and b an int64 tensor
-    of values < 2^32, without leaving int64."""
-    p0 = a * (b & 0xFFFF)
-    p1 = a * (b >> 16)
-    mid = (p0 >> 16) + p1
-    return mid >> 16, ((mid & 0xFFFF) << 16) | (p0 & 0xFFFF)
-
-
-def philox4x32_10(c0, c1, c2, c3, k0: int, k1: int):
-    """Philox4x32-10 on int64 tensors holding 32-bit words: returns the
-    four output words for counter (c0, c1, c2, c3) and key (k0, k1)."""
-    for _ in range(10):
-        hi0, lo0 = _mulhilo(_PHILOX_M0, c0)
-        hi1, lo1 = _mulhilo(_PHILOX_M1, c2)
-        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
-        k0 = (k0 + _PHILOX_W0) & _MASK32
-        k1 = (k1 + _PHILOX_W1) & _MASK32
-    return c0, c1, c2, c3
 
 
 def philox_uniforms(seed: int, n_rows: int, n_lanes: int, device='cpu',
@@ -396,10 +372,10 @@ def philox_uniforms(seed: int, n_rows: int, n_lanes: int, device='cpu',
     24 bits scaled by 2^-24."""
     lane = torch.arange(lane0, lane0 + n_lanes, dtype=torch.int64,
                         device=device)
-    k0, k1 = seed & _MASK32, (seed >> 32) & _MASK32
+    k0, k1 = seed & MASK32, (seed >> 32) & MASK32
     rows = []
     for g in range((n_rows + 3) // 4):
-        rows.extend(philox4x32_10(lane & _MASK32, lane >> 32,
+        rows.extend(philox4x32_10(lane & MASK32, lane >> 32,
                                   torch.full_like(lane, g),
                                   torch.zeros_like(lane), k0, k1))
     u = torch.stack(rows[:n_rows]) >> 8
@@ -995,6 +971,21 @@ class DeviceTables:
     mesh: PackedBVH | None
 
 
+def in_scope(scene, scene_data, rx, dev, reason: list) -> bool:
+    """`supported(scene_data, rx, reason)`, decided once per (scene_data,
+    rx) on `dev` and kept with the scene: the check reads tables back from
+    the card, which would stall every call."""
+    cache = scene.__dict__.setdefault('_receive_kernel_scope', {})
+    key = (rx.id, dev)
+    hit = cache.get(key)
+    if hit is None or hit[0] is not scene_data or hit[1] is not rx:
+        why: list = []
+        hit = (scene_data, rx, supported(scene_data, rx, why), why)
+        cache[key] = hit
+    reason.extend(hit[3])
+    return hit[2]
+
+
 def _device_tables(scene, scene_data, rx, dev) -> DeviceTables:
     """The kernel tables of (scene_data, rx) on `dev`.  The scope check
     and the pack (and a mesh's BVH build) read the tables back from the
@@ -1007,7 +998,7 @@ def _device_tables(scene, scene_data, rx, dev) -> DeviceTables:
     if hit is not None and hit[0] is scene_data and hit[1] is rx:
         return hit[2]
     why: list = []
-    if not supported(scene_data, rx, why):
+    if not in_scope(scene, scene_data, rx, dev, why):
         raise NotImplementedError(
             "scene outside the receive kernel's scope: " + '; '.join(why))
     packed = pack_scene(scene_data, rx,

@@ -18,6 +18,7 @@ import torch
 from ._device import resolve_device
 from .bsdf.tables import BSDFTable
 from .core.config import Band
+from .geometry.bvh import BVH
 from .geometry.intersect import TriData
 from .geometry.shapes import ShapeTable
 from .radar.endpoints import ReceiverTable, TransmitterTable
@@ -25,8 +26,9 @@ from .radar.waveform import Waveform
 from .scene import SceneData
 from .textures import TextureTable
 
-_PORTED_ELSEWHERE = {'.bvh': "the wavefront's BVH (ROADMAP A4)",
-                     '.medium': 'ambient media (ROADMAP A10)'}
+_PORTED_ELSEWHERE = {'.medium': 'ambient media (ROADMAP A10)',
+                     '.textures.face_attr': 'mesh-attribute textures '
+                     '(ROADMAP B7)'}
 
 
 def scene_data_from_numpy(leaves: dict, band: Band, device=None) -> SceneData:
@@ -49,9 +51,16 @@ def scene_data_from_numpy(leaves: dict, band: Band, device=None) -> SceneData:
                                       device=dev)
         return cls(**kw, **extra)
 
+    for key in ('.bsdfs.normalmap_idx', '.bsdfs.bumpmap_idx'):
+        if key in leaves and bool((np.asarray(leaves[key]) >= 0).any()):
+            raise NotImplementedError(f'{key}: normal and bump maps '
+                                      '(ROADMAP B7)')
     bsdf_types = np.asarray(leaves['.bsdfs.type'])
+    grid = leaves.get('.bsdfs.measured_grid')
     bsdfs = table(BSDFTable, '.bsdfs',
-                  present=tuple(sorted({int(t) for t in bsdf_types})))
+                  present=tuple(sorted({int(t) for t in bsdf_types})),
+                  measured_grid=None if grid is None
+                  else torch.tensor(np.array(grid), device=dev))
     tx = None
     if '.transmitters.kind' in leaves:
         wf = table(Waveform, '.transmitters.wf')
@@ -59,6 +68,9 @@ def scene_data_from_numpy(leaves: dict, band: Band, device=None) -> SceneData:
     rx = table(ReceiverTable, '.receivers') \
         if '.receivers.kind' in leaves else None
     tris = table(TriData, '.tris') if '.tris.v0' in leaves else None
+    bvh = BVH(**{f.name: np.array(leaves[f'.bvh.{f.name}'])
+                 for f in dataclasses.fields(BVH)}) \
+        if '.bvh.bb_min' in leaves else None
     return SceneData(band=band, shapes=table(ShapeTable, '.shapes'),
                      bsdfs=bsdfs, textures=table(TextureTable, '.textures'),
-                     transmitters=tx, receivers=rx, tris=tris)
+                     transmitters=tx, receivers=rx, tris=tris, bvh=bvh)

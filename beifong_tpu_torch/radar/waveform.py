@@ -57,6 +57,34 @@ class Waveform:
         return torch.where(self.kind == CW,
                            self.amplitude * self.amplitude, w_pulse)
 
+    def phase(self, time):
+        """Instantaneous carrier phase [rad] at absolute time."""
+        t, ti = self._fold(time)
+        slope = self.f_ext / torch.clamp(self.t_ext, min=1e-12)
+        ph_chirp = self.phi0 + TwoPi * (t - ti) * (
+            self.f_centre + 0.5 * slope * (t - ti))
+        ph_tone = self.phi0 + TwoPi * t * self.f_centre
+        return torch.where(self.kind == LINFMCW, ph_chirp, ph_tone)
+
+    def sample_frequency(self, time, u):
+        """An emission frequency at `time`: the instantaneous frequency for
+        delta waveforms (weight 1), else uniform over the band weighted by
+        the WDF.  Returns (freq, weight)."""
+        f_delta = self.inst_freq(time)
+        f_uni = (u - 0.5) * self.f_ext + self.f_centre
+        f = torch.where(self.is_delta, f_delta, f_uni)
+        w_uni = self.eval_wdf(time, f_uni)
+        return f, torch.where(self.is_delta, torch.ones_like(f), w_uni)
+
+    def to(self, device) -> "Waveform":
+        return Waveform(**{f.name: getattr(self, f.name).to(device)
+                           for f in dataclasses.fields(Waveform)})
+
+    def row(self, idx) -> "Waveform":
+        """The waveforms of rows idx of a stacked table."""
+        return Waveform(**{f.name: getattr(self, f.name)[idx]
+                           for f in dataclasses.fields(Waveform)})
+
 
 def _b(v) -> torch.Tensor:
     return torch.as_tensor(v, dtype=torch.float32)

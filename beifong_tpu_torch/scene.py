@@ -1,12 +1,13 @@
 """Scene builder and its compiled tensor tables (counterpart of
-`beifong_tpu/scene.py`, for rectangles and triangle meshes).
+`beifong_tpu/scene.py`).
 
 A `Scene` collects host-side specs; `compile()` flattens them into
 `SceneData`, a dataclass of tensors on one device, baking meshes into a
-world-space triangle table (`tris`).  The tables the port does not fill
-yet (emitters, medium) are `None`, and so is `bvh`: it is the JAX
-package's wavefront BVH (ROADMAP A4); the receive kernel builds its own
-from `tris`.
+world-space triangle table (`tris`).  Above `bvh_threshold` faces it also
+builds the eager wavefront's BVH (`bvh`, host tables; the K2 / K3 kernels
+read them packed, once per SceneData and device).  The receive kernel
+builds its own, leaf-aligned BVH from `tris`.  The tables the port does
+not fill yet (emitters, medium) are `None`.
 """
 
 from __future__ import annotations
@@ -20,7 +21,8 @@ import torch
 from ._device import resolve_device
 from .bsdf.tables import BSDFSpec, BSDFTable
 from .core.config import Band, ULTRASOUND_40K
-from .geometry.intersect import TriData
+from .geometry import bvh as bvh_mod
+from .geometry.intersect import TriData, closest_hit, any_hit
 from .geometry.mesh import MeshSpec
 from .geometry.shapes import ShapeSpec, ShapeTable
 from .radar.endpoints import ReceiverTable, TransmitterTable
@@ -40,7 +42,31 @@ class SceneData:
     tris: Optional[TriData] = None   # world-space faces of every mesh
     emitters: None = None    # optical emitters: ROADMAP A12
     medium: None = None      # ambient media: ROADMAP A10 / B7
-    bvh: None = None         # the wavefront's BVH: ROADMAP A4
+    bvh: Optional[bvh_mod.BVH] = None   # the wavefront's BVH over `tris`
+
+    # --- queries (the reference's Scene::ray_intersect / ray_test) ---
+
+    def ray_intersect(self, o, d):
+        return closest_hit(self.shapes, self.tris, o.contiguous(),
+                           d.contiguous(), bvh=self.bvh)
+
+    def ray_test(self, o, d, maxt):
+        return any_hit(self.shapes, self.tris, o.contiguous(),
+                       d.contiguous(), maxt.contiguous(), bvh=self.bvh)
+
+    # --- per-hit attribute gathers ---
+
+    def bsdf_of(self, shape_idx):
+        return torch.where(shape_idx >= 0, self.shapes.bsdf_idx[
+            torch.clamp(shape_idx, min=0).long()], -1)
+
+    def transmitter_of(self, shape_idx):
+        return torch.where(shape_idx >= 0, self.shapes.transmitter_idx[
+            torch.clamp(shape_idx, min=0).long()], -1)
+
+    def velocity_of(self, shape_idx):
+        return torch.where((shape_idx >= 0)[..., None], self.shapes.velocity[
+            torch.clamp(shape_idx, min=0).long()], 0.0)
 
 
 @dataclasses.dataclass
@@ -85,8 +111,11 @@ class Scene:
                 return i
         return -1
 
-    def compile(self, device=None) -> SceneData:
-        """Flatten the scene into tensors on `device` (`cuda` by default)."""
+    def compile(self, use_bvh: str | bool = 'auto', bvh_threshold: int = 1024,
+                device=None) -> SceneData:
+        """Flatten the scene into tensors on `device` (`cuda` by default).
+        `use_bvh`: True builds the wavefront's BVH over the mesh faces,
+        'auto' above `bvh_threshold` faces, False never."""
         dev = resolve_device(device)
         lists = {'bsdf': self.bsdfs, 'transmitter': self.transmitters,
                  'receiver': self.receivers}
@@ -128,8 +157,13 @@ class Scene:
             tris = TriData(*(torch.as_tensor(
                 c.astype(np.float32) if j < 4 else c, device=dev)
                 for j, c in enumerate(cols)))
+        bvh = None
+        if tris is not None and (use_bvh is True or (
+                use_bvh == 'auto' and tris.n_faces > bvh_threshold)):
+            bvh = bvh_mod.build(*(c.cpu().numpy()
+                                  for c in (tris.v0, tris.e1, tris.e2)))
         return SceneData(band=self.band, shapes=shapes,
                          bsdfs=BSDFTable.build(self.bsdfs, dev),
                          textures=TextureTable.empty(dev),
                          transmitters=tx_table, receivers=rx_table,
-                         tris=tris)
+                         tris=tris, bvh=bvh)

@@ -10,6 +10,13 @@ plate R metres out, a 40 m ground plane, a 2 ms pulse and a raw
 (`benchmarks/mesh_megakernel.py::build`): the same endpoints and ADC,
 no ground, and for the target a crumpled 1.2 m grid of 2 n_side^2
 triangles (9,800 at n_side = 71) R metres out.
+
+`multi_body_scene` is the JAX package's `examples/multi_body.py`: a
+40 kHz sonar with 25 mm apertures staring down-range at two crumpled
+162-triangle meshes, a stationary diffuse one at 3 m and a GGX rough
+conductor at 5.5 m (1.5 m up) closing at 3 m/s, on a 16 x 32 time x
+Doppler ADC.  Its 324 faces stay below the BVH threshold: the example
+compiles with `use_bvh=False`, and its triangle tests are dense.
 """
 
 from __future__ import annotations
@@ -17,7 +24,7 @@ from __future__ import annotations
 import numpy as np
 
 from . import scene as sc
-from .bsdf.tables import diffuse
+from .bsdf.tables import diffuse, rough_conductor
 from .core import transform as tf
 from .core.config import Band
 from .geometry import shapes as sh
@@ -84,6 +91,44 @@ def mesh_scene(R: float = 4.0, n_side: int = 71):
     m = np.asarray(tf.compose(tf.look_at([0, -R, 0], [0, 0, 0]),
                               tf.scale(0.6)))
     s.add(MeshSpec(v, f, bsdf='mat', to_world=m))
+    return s, rx
+
+
+MULTI_BODY = dict(R1=3.0, R2=5.5, v2=3.0, lift2=1.5)
+
+
+def multi_body_scene():
+    """Returns (scene, receiver spec); the bodies' parameters are
+    MULTI_BODY (ranges R1, R2 [m], closing speed v2 [m/s], lift2 [m])."""
+    fc, c = 40e3, 340.0
+    r1, r2, v2 = MULTI_BODY['R1'], MULTI_BODY['R2'], MULTI_BODY['v2']
+    s = sc.Scene(band=Band.from_freq(c, fc, 10e3))
+    s.add(diffuse('hull', reflectance=1.0, twosided=True))
+    s.add(rough_conductor('metal', specular_reflectance=1.0, alpha=0.3,
+                          eta=1.5, k=3.0, twosided=True))
+    wf = pulse(f_centre=fc, prf=10.0, pulse_len=2e-3, f_ext=2e3,
+               is_delta=True)
+    s.add(wigner_transmitter('tx', wf, resample_freq=True))
+    # small apertures: a wide beam covering both bodies
+    aim = np.asarray(tf.compose(tf.look_at([0.3, 0, 0], [0.3, -1, 0]),
+                                tf.scale([0.0125, 0.0125, 1.0])))
+    s.add(sh.rectangle(to_world=aim, transmitter='tx'))
+    adc = ADCConfig(n_time=16, n_freq=32, sampling_start=0.0,
+                    sampling_time=0.06, freq_lo=fc - 1e3, freq_hi=fc + 3e3)
+    rx = wigner_receiver('rx', adc, receive_type='raw')
+    s.add(rx)
+    aim_rx = np.asarray(tf.compose(tf.look_at([-0.3, 0, 0], [-0.3, -1, 0]),
+                                   tf.scale([0.0125, 0.0125, 1.0])))
+    s.add(sh.rectangle(to_world=aim_rx, receiver='rx'))
+    v, f = make_grid(9, 9)
+    v[:, 2] = 0.05 * np.sin(4 * v[:, 0]) * np.cos(3 * v[:, 1])
+    m1 = np.asarray(tf.compose(tf.look_at([0, -r1, 0], [0, 0, 0]),
+                               tf.scale(0.6)))
+    s.add(MeshSpec(v, f, bsdf='hull', to_world=m1))
+    m2 = np.asarray(tf.compose(tf.look_at([0.0, -r2, MULTI_BODY['lift2']],
+                                          [0, 0, 0]), tf.scale(0.6)))
+    s.add(MeshSpec(v, f, bsdf='metal', to_world=m2,
+                   velocity=np.asarray([0.0, v2, 0.0], np.float32)))
     return s, rx
 
 

@@ -30,6 +30,20 @@ Phases (any failure exits non-zero before the last line is printed):
              rays, bvh_any of their hits toward the transmitter.  Each
              path must have launched its kernels; the launch counts are
              set to 0 just before a path and read just after it;
+   wavefront - the eager receive wavefront: ray_triangle_closest /
+             ray_triangle_any (K4) against their plain versions at the
+             wavefront's shape (2^17 receiver rays x the multi_body
+             scene's 324 faces) and a query shape (2^18 rays x
+             mesh_scene's 10,082 faces); then the multi_body scene
+             (`scenes.multi_body_scene`, the JAX package's
+             examples/multi_body.py) through receive() at 2^22 samples,
+             gate sampling, depth 2 (one warm-up, five timed calls, one
+             profiled call), its two bodies checked in their range gates
+             at their Doppler; the same scene at 2^16 samples on the card
+             and on the CPU with one seed; the flagship through the kernel
+             and through the wavefront at 2^22 samples, depth 3; and
+             mesh_scene through the wavefront, whose BVH queries run K2 /
+             K3, at 2^20 samples;
 5. report  - one JSON line of every kernel ({"kernels": [...]}), then the
              last line {"ok": true, "device": {...}}.
 
@@ -63,6 +77,18 @@ TOL = 1e-4                 # x max|acc| per bin; relative on event counts
 EDGE_FLIPS = 1e-4          # rays whose face differs at a shared edge
 H100_FP32_FLOPS = 67e12    # dense FP32 outside the tensor cores, 700 W
 H100_BYTES_PER_S = 3.35e12
+WF_SAMPLES = 1 << 22       # wavefront samples per receive() call
+WF_DEPTH = 2
+WF_CPU_SAMPLES = 1 << 16   # the card-against-CPU comparison
+PROFILE_SAMPLES = 1 << 20  # the profiled wavefront call (8 passes)
+K4_RAYS = 1 << 17          # the wavefront's K4 shape (one pass of lanes)
+K4_QUERY_RAYS = 1 << 18    # the K4 query shape, on mesh_scene
+FLAG_SAMPLES = 1 << 22     # flagship: kernel against wavefront
+FLAG_DEPTH = 3
+BVH_WF_SAMPLES = 1 << 20   # mesh_scene through the wavefront (K2 / K3)
+# FP32 operations of one (ray, triangle) pair, counted from
+# pallas_intersect._kernel as csrc/intersect_kernels.cu computes them
+K4_PAIR_OPS = 47
 
 # FP32 arithmetic instructions (add, sub, mul, div, sqrt, rsqrt, exp, log,
 # min, max, abs, floor, ceil, rint, fmod) per lane and stage, counted by
@@ -209,7 +235,9 @@ def print_build(infos: dict, tag: str) -> None:
     names = {'receive_trace_kernelILb0E': 'receive_megakernel (flagship)',
              'receive_trace_kernelILb1E': 'receive_megakernel (mesh)',
              'receive_reduce_kernel': 'receive reduce',
-             'bvh_closest_kernel': 'bvh_closest', 'bvh_any_kernel': 'bvh_any'}
+             'bvh_closest_kernel': 'bvh_closest', 'bvh_any_kernel': 'bvh_any',
+             'ray_triangle_kernelILb0E': 'ray_triangle_closest',
+             'ray_triangle_kernelILb1E': 'ray_triangle_any'}
     for kname, info in infos.items():
         print(f'build {kname}: {info.seconds:.1f} s nvcc '
               f'({os.path.basename(info.path)}) {tag}')
@@ -622,6 +650,478 @@ def queries(torch, bt, dev, tag) -> list:
     ]
 
 
+class Patch:
+    """Replaces module attributes for the length of a `with` block (the
+    hooks below time and record the K4 launches of a receive() call)."""
+
+    def __init__(self, **targets):
+        self.targets = targets    # 'label': (module, attribute, wrapper)
+        self.saved = []
+
+    def __enter__(self):
+        for module, attr, make in self.targets.values():
+            orig = getattr(module, attr)
+            new = make(orig)
+            if hasattr(orig, 'launches'):
+                # the wrapped function counts its launches under its module
+                # name, which now names the wrapper
+                new.launches = orig.launches
+            self.saved.append((module, attr, orig, new))
+            setattr(module, attr, new)
+        return self
+
+    def __exit__(self, *exc):
+        for module, attr, orig, new in self.saved:
+            if hasattr(orig, 'launches'):
+                orig.launches = new.launches
+            setattr(module, attr, orig)
+        return False
+
+
+def _pairs_to_first_blocker(torch, ik, o, d, v0, e1, e2, maxt) -> int:
+    """(ray, triangle) pairs a shadow test needs on this data: each ray's
+    triangles in index order up to and including its first blocker, all of
+    them for a ray that nothing blocks."""
+    n, n_tris = int(o.shape[0]), int(v0.shape[0])
+    limit = (maxt * (1.0 - 1e-3))[:, None]
+    total = 0
+    step = 1 << 12
+    for r0 in range(0, n, step):
+        r1 = min(r0 + step, n)
+        first = torch.full((r1 - r0,), n_tris, dtype=torch.int64,
+                           device=o.device)
+        for f0 in range(0, n_tris, ik.CHUNK_F):
+            f1 = min(f0 + ik.CHUNK_F, n_tris)
+            det, u, v, t = ik.moller_trumbore(o[r0:r1], d[r0:r1], v0[f0:f1],
+                                              e1[f0:f1], e2[f0:f1])
+            blk = ik.is_hit(det, u, v, t) & (t < limit[r0:r1])
+            # argmax returns the first True of a row
+            at = torch.where(blk.any(1), blk.to(torch.float32).argmax(1) + f0 + 1,
+                             n_tris)
+            first = torch.minimum(first, at)
+        total += int(first.sum())
+    return total
+
+
+def k4_parity(torch, ik, dev, tag) -> list:
+    """K4 against its plain version on the card at the wavefront's shape
+    and at a query shape; the kernel's and the plain version's times."""
+    from beifong_tpu_torch.scenes import mesh_scene, multi_body_scene
+    out = {'ray_triangle_closest': {}, 'ray_triangle_any': {}}
+    for shape, (scene_fn, n_rays) in (
+            ('wavefront', (multi_body_scene, K4_RAYS)),
+            ('query', (mesh_scene, K4_QUERY_RAYS))):
+        s, rx = scene_fn()
+        sd = s.compile(use_bvh=False, device=dev)
+        v0, e1, e2 = (x.contiguous() for x in (sd.tris.v0, sd.tris.e1,
+                                               sd.tris.e2))
+        n_tris = int(v0.shape[0])
+        lo, hi = v0.min(0).values - 0.05, v0.max(0).values + 0.05
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        o, tgt = aperture_rays(torch, s, rx, lo, hi, n_rays, gen, dev)
+        # a quarter of the rays aim past the faces' box: misses
+        tgt[: n_rays // 4] += 3.0 * (hi - lo)
+        d = tgt - o
+        dist = d.norm(dim=1)
+        d = (d / dist[:, None]).contiguous()
+        o = o.contiguous()
+        maxt = (dist * (0.6 + 0.8 * torch.rand(n_rays, generator=gen,
+                                                device=dev))).contiguous()
+        t, idx, u, v = ik.ray_triangle_closest(o, d, v0, e1, e2)
+        occ = ik.ray_triangle_any(o, d, v0, e1, e2, maxt)
+        pc_ms, (rt, ri, ru, rv) = wall_ms(
+            lambda: ik.ray_triangle_closest_ref(o, d, v0, e1, e2))
+        pa_ms, ro = wall_ms(
+            lambda: ik.ray_triangle_any_ref(o, d, v0, e1, e2, maxt))
+        hit_flips = int(((idx >= 0) != (ri >= 0)).sum())
+        faces = int((idx != ri).sum())
+        same = (idx == ri) & (ri >= 0)
+        t_rel = float(((t - rt).abs() / rt.abs())[same].max())
+        t_abs = float((t - rt).abs()[same].max())
+        du = float((u - ru).abs()[same].max())
+        dv = float((v - rv).abs()[same].max())
+        occ_flips = int((occ != ro).sum())
+        print(f'parity K4 {shape} {n_rays} rays x {n_tris} faces: '
+              f'{int((ri >= 0).sum())} hits, hit presence differs on '
+              f'{hit_flips}, face on {faces}; same face: max t err {t_abs:.3e} '
+              f'({t_rel:.3e} relative), max |du| {du:.3e}, |dv| {dv:.3e}; '
+              f'any: {int(ro.sum())} blocked, {occ_flips} flags differ')
+        if hit_flips or faces > 1e-4 * n_rays or occ_flips > 1e-4 * n_rays:
+            fail(f'K4 {shape}: {hit_flips} / {faces} / {occ_flips} rays '
+                 'differ from the plain version')
+        if not (t_rel <= 2e-5 and du <= 1e-4 and dv <= 1e-4
+                and 0 < int(ro.sum()) < n_rays and int(same.sum()) > 0):
+            fail(f'K4 {shape}: t {t_rel:.3e} relative, u {du:.3e}, '
+                 f'v {dv:.3e}, or degenerate rays')
+        c_ms, _ = cuda_ms(lambda i: ik.ray_triangle_closest(o, d, v0, e1,
+                                                            e2), 6)
+        a_ms, _ = cuda_ms(lambda i: ik.ray_triangle_any(o, d, v0, e1, e2,
+                                                        maxt), 6)
+        c_med, a_med = statistics.median(c_ms[1:]), statistics.median(a_ms[1:])
+        print(f'K4 {shape} {n_rays} x {n_tris}: ray_triangle_closest median '
+              f'{c_med:.4f} ms, ray_triangle_any {a_med:.4f} ms; plain '
+              f'versions {pc_ms:.1f} / {pa_ms:.1f} ms {tag}')
+        b_c = bound(float(n_rays) * n_tris * K4_PAIR_OPS,
+                    n_rays * (24 + 16) + 36 * n_tris,
+                    f'ray_triangle_closest {shape}')
+        # the shadow test may stop at a ray's first blocker: count the pairs
+        # this data needs
+        pairs = _pairs_to_first_blocker(torch, ik, o, d, v0, e1, e2, maxt)
+        b_a = bound(float(pairs) * K4_PAIR_OPS,
+                    n_rays * (24 + 4 + 1) + 36 * n_tris,
+                    f'ray_triangle_any {shape} ({pairs / (n_rays * n_tris):.3f}'
+                    ' of the pairs: each ray up to its first blocker)')
+        for name, ms, p_ms, b, err in (
+                ('ray_triangle_closest', c_med, pc_ms, b_c, t_abs),
+                # max |flag - plain flag| over the rays: 0 or 1
+                ('ray_triangle_any', a_med, pa_ms, b_a,
+                 float(occ_flips > 0))):
+            key = '' if shape == 'wavefront' else '_query'
+            out[name].update({f'ms{key}': ms, f'plain_ms{key}': p_ms,
+                              f'bound_ms{key}': b['bound_ms'],
+                              f'bound_by{key}': b['bound_by'],
+                              f'max_abs_err{key}': err,
+                              f'shape{key}': [n_rays, n_tris]})
+    common = dict(route='cuda',
+                  source='beifong_tpu_torch/csrc/intersect_kernels.cu',
+                  replaces='beifong_tpu/geometry/pallas_intersect.py:109',
+                  library_ms=None)
+    return [dict(name='ray_triangle_closest', **common,
+                 tpu_function='_kernel (pallas_intersect.py:30) via '
+                 'ray_triangle_closest (:77)', **out['ray_triangle_closest']),
+            dict(name='ray_triangle_any', **common,
+                 tpu_function='_kernel (pallas_intersect.py:30) via '
+                 'ray_triangle_any (:130)', **out['ray_triangle_any'])]
+
+
+def _k4_timer(torch, ik, events: list):
+    """Wrappers of the K4 entry points that bracket each launch with CUDA
+    events (their sum is the K4 time inside a receive() call)."""
+    def wrap(orig):
+        def timed(*a):
+            s0 = torch.cuda.Event(enable_timing=True)
+            s1 = torch.cuda.Event(enable_timing=True)
+            s0.record()
+            res = orig(*a)
+            s1.record()
+            events.append((s0, s1))
+            return res
+        return timed
+    return Patch(c=(ik, 'ray_triangle_closest', wrap),
+                 a=(ik, 'ray_triangle_any', wrap))
+
+
+def _recorder(torch, ik, rp, rec: dict, n_lanes: int, dev):
+    """Wrappers that record, per lane, the sum of |value| splatted and
+    every K4 face and shadow flag (one pass of n_lanes lanes)."""
+    rec['lane'] = torch.zeros(n_lanes, dtype=torch.float64, device=dev)
+    rec['faces'], rec['flags'] = [], []
+
+    def splat(orig):
+        def hooked(adc, cfg, t_off, f_out, value, active, *a, **k):
+            rec['lane'] += torch.where(active, value.abs(), 0.0).double()
+            return orig(adc, cfg, t_off, f_out, value, active, *a, **k)
+        return hooked
+
+    def closest(orig):
+        def hooked(*a):
+            res = orig(*a)
+            rec['faces'].append(res[1].cpu())
+            return res
+        return hooked
+
+    def anyhit(orig):
+        def hooked(*a):
+            res = orig(*a)
+            rec['flags'].append(res.cpu())
+            return res
+        return hooked
+
+    return Patch(s=(rp, '_adc_splat', splat),
+                 c=(ik, 'ray_triangle_closest', closest),
+                 a=(ik, 'ray_triangle_any', anyhit))
+
+
+def _profile(torch, run, what, tag):
+    """One call under torch.profiler: device time by kernel, the device's
+    busy share of the call, the top kernels (the table goes to
+    chiprun_out/)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        wall, _ = wall_ms(run)
+    rows = prof.key_averages()
+
+    def dev_us(r):
+        for attr in ('self_device_time_total', 'self_cuda_time_total'):
+            if hasattr(r, attr):
+                return float(getattr(r, attr))
+        return 0.0
+
+    # kernel rows only: an operator's row repeats its kernels' device time
+    kern = [(r.key, dev_us(r), r.count) for r in rows
+            if str(getattr(r, 'device_type', '')).endswith('CUDA')
+            and dev_us(r) > 0]
+    busy = sum(k[1] for k in kern) / 1e3
+    if not kern:
+        print(f'profile {what}: no device time recorded (not measured)')
+        return None
+    groups = {'K4 ray_triangle': 0.0, 'K2/K3 bvh': 0.0,
+              'splat index_add': 0.0, 'gathers': 0.0, 'matmul': 0.0,
+              'elementwise and other': 0.0}
+    for name, us, _ in kern:
+        if 'ray_triangle' in name:
+            groups['K4 ray_triangle'] += us
+        elif 'bvh_' in name:
+            groups['K2/K3 bvh'] += us
+        elif 'indexFunc' in name:
+            groups['splat index_add'] += us
+        elif 'gather' in name or 'index_elementwise' in name:
+            groups['gathers'] += us
+        elif 'gemv' in name or 'gemm' in name or 'bmm' in name:
+            groups['matmul'] += us
+        else:
+            groups['elementwise and other'] += us
+    os.makedirs(os.path.join(HERE, 'chiprun_out'), exist_ok=True)
+    with open(os.path.join(HERE, 'chiprun_out',
+                           f'profile_{what}.txt'), 'w') as f:
+        f.write(rows.table(sort_by='self_device_time_total'
+                           if hasattr(rows[0], 'self_device_time_total')
+                           else 'self_cuda_time_total', row_limit=60))
+    top = sorted(kern, key=lambda k: -k[1])[:8]
+    print(f'profile {what}: wall {wall:.2f} ms, device busy {busy:.2f} ms '
+          f'({100 * busy / wall:.1f}%, idle {100 * (1 - busy / wall):.1f}%), '
+          f'{sum(k[2] for k in kern)} kernel launches; by group (ms): '
+          + json.dumps({k: round(v / 1e3, 3) for k, v in groups.items()})
+          + f' {tag}')
+    for name, us, cnt in top:
+        print(f'  {us / 1e3:9.3f} ms {cnt:6d}x {name[:90]}')
+    return dict(wall_ms=wall, busy_ms=busy, groups_ms={
+        k: v / 1e3 for k, v in groups.items()})
+
+
+def _layers(torch, run, tag):
+    """Host wall time of the wavefront's layers in one call, each call of
+    a layer ended by a synchronise: intersect (closest hit and shadow
+    test, K4 / K2 / K3 inside), BSDF (eval and sample), splat, sample
+    stream (Philox); the rest (ray generation, NEE sampling, waveforms,
+    Doppler) is the remainder."""
+    from beifong_tpu_torch import scene as sc_mod
+    from beifong_tpu_torch.core import rng
+    from beifong_tpu_torch.integrators import radar_path as rp
+    spent = {'intersect': 0.0, 'bsdf': 0.0, 'splat': 0.0, 'rng': 0.0}
+
+    def timed(key):
+        def make(orig):
+            def f(*a, **k):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = orig(*a, **k)
+                torch.cuda.synchronize()
+                spent[key] += (time.perf_counter() - t0) * 1e3
+                return res
+            return f
+        return make
+
+    patch = Patch(ri=(sc_mod.SceneData, 'ray_intersect', timed('intersect')),
+                  rt=(sc_mod.SceneData, 'ray_test', timed('intersect')),
+                  be=(rp, 'bsdf_eval_pdf', timed('bsdf')),
+                  bs=(rp, 'bsdf_sample', timed('bsdf')),
+                  sp=(rp, '_adc_splat', timed('splat')),
+                  rn=(rng.SampleStream, 'uniform', timed('rng')))
+    with patch:
+        wall, _ = wall_ms(run)
+    rest = wall - sum(spent.values())
+    print(f'layers of one wavefront call (host ms, synchronised): total '
+          f'{wall:.1f}; ' + ', '.join(f'{k} {v:.1f} ({100 * v / wall:.1f}%)'
+                                      for k, v in spent.items())
+          + f', rest {rest:.1f} ({100 * rest / wall:.1f}%) {tag}')
+    return dict(spent, total=wall)
+
+
+def _bin_coord(value, lo, hi, n):
+    """Continuous bin-centre coordinate of value on [lo, hi) in n bins."""
+    return (value - lo) / (hi - lo) * n - 0.5
+
+
+def wavefront(torch, bt, ik, bk, rk, dev, tag, pulse_compress):
+    """The eager wavefront's paths.  Returns (K4 launches on the
+    multi_body path, K2 / K3 launches on the BVH path)."""
+    import numpy as np
+    from beifong_tpu_torch.integrators import radar_path as rp
+    from beifong_tpu_torch.scenes import (MULTI_BODY, flagship_scene,
+                                          mesh_scene, multi_body_scene,
+                                          round_trip_bin)
+    s, rx = multi_body_scene()
+    sd = s.compile(use_bvh=False, device=dev)
+    cfg = rx.adc
+    kw = dict(max_depth=WF_DEPTH, time_sampling='gate', use_kernel='auto')
+    why: list = []
+    if rk.supported(sd, rx, why) or sd.bvh is not None:
+        fail('multi_body: expected outside the receive kernel, without BVH')
+    print(f'multi_body: {sd.tris.n_faces} faces, routed to the wavefront '
+          f'({why[0]})')
+
+    # ---- the main path: receive() at 2^22 samples ----
+    ik.ray_triangle_closest.launches = ik.ray_triangle_any.launches = 0
+    bk.bvh_closest.launches = bk.bvh_any.launches = 0
+    rk.receive_megakernel.launches = 0
+    bt.receive(s, sd, rx, seed=1, spp=WF_SAMPLES, device=dev, **kw)
+    events: list = []
+    with _k4_timer(torch, ik, events):
+        call_ms, (adc, n) = cuda_ms(lambda i: bt.receive(
+            s, sd, rx, seed=2 + i, spp=WF_SAMPLES, device=dev, **kw), 5)
+    torch.cuda.synchronize()
+    k4_ms = sum(a.elapsed_time(b) for a, b in events) / 5
+    k4 = {'ray_triangle_closest': ik.ray_triangle_closest.launches,
+          'ray_triangle_any': ik.ray_triangle_any.launches}
+    n_pass = WF_SAMPLES // (1 << 17)
+    want = 6 * n_pass * WF_DEPTH
+    if k4 != {'ray_triangle_closest': want, 'ray_triangle_any': want} \
+            or rk.receive_megakernel.launches or bk.bvh_closest.launches \
+            or n != WF_SAMPLES:
+        fail(f'multi_body path launched K4 {k4} times in 6 calls (want '
+             f'{want} each), K1 {rk.receive_megakernel.launches}, K2 '
+             f'{bk.bvh_closest.launches}; {n} samples')
+    med = statistics.median(call_ms)
+    print(f'receive() multi_body wavefront 2^22 samples depth 2: median '
+          f'{med:.2f} ms/call ({WF_SAMPLES / (med * 1e-3):.4e} samples/s), '
+          f'calls {[round(x, 2) for x in call_ms]}; K4 launches per call: '
+          f'{k4["ray_triangle_closest"] // 6} closest + '
+          f'{k4["ray_triangle_any"] // 6} any ({n_pass} passes) {tag}')
+    print(f'K4 inside the timed receive() calls: {len(events) // 5} launches '
+          f'and {k4_ms:.3f} ms per call, {100 * k4_ms / med:.2f}% of the '
+          f'median call (CUDA events around each launch) {tag}')
+    # the time by kernel, over one call of PROFILE_SAMPLES (the passes are
+    # alike; the profiler's own host cost would lengthen a full call)
+    _profile(torch, lambda: bt.receive(s, sd, rx, seed=10,
+                                       spp=PROFILE_SAMPLES, device=dev,
+                                       **kw),
+             'multi_body', tag)
+    _layers(torch, lambda: bt.receive(s, sd, rx, seed=11,
+                                      spp=PROFILE_SAMPLES, device=dev,
+                                      **kw), tag)
+
+    # the example's anchors: each body in its range gate at its Doppler
+    grid = bt.develop_signal(adc, n, cfg)[..., 0]
+    if tuple(grid.shape) != (cfg.n_time, cfg.n_freq) \
+            or not bool(torch.isfinite(grid).all()):
+        fail(f'multi_body grid {tuple(grid.shape)} not finite / wrong shape')
+    grid = grid.cpu().double().numpy()
+    tx_pos = np.array([0.3, 0.0, 0.0])
+    rx_pos = np.array([-0.3, 0.0, 0.0])
+    fc = 40e3
+    t_half = 1e-3        # half the 2 ms pulse: the echo's centre
+    for name, p, vel in (
+            ('body 1 (diffuse, static)', np.array([0.0, -MULTI_BODY['R1'],
+                                                   0.0]), np.zeros(3)),
+            ('body 2 (conductor, closing)',
+             np.array([0.0, -MULTI_BODY['R2'], MULTI_BODY['lift2']]),
+             np.array([0.0, MULTI_BODY['v2'], 0.0]))):
+        tau = (np.linalg.norm(p - tx_pos) + np.linalg.norm(p - rx_pos)) \
+            / s.band.c
+        u_tx = (tx_pos - p) / np.linalg.norm(tx_pos - p)
+        u_rx = (rx_pos - p) / np.linalg.norm(rx_pos - p)
+        f_dop = fc * (vel @ u_tx + vel @ u_rx) / s.band.c
+        t_bin = _bin_coord(tau + t_half, cfg.sampling_start,
+                           cfg.sampling_start + cfg.sampling_time,
+                           cfg.n_time)
+        f_bin = _bin_coord(fc + f_dop, cfg.freq_lo, cfg.freq_hi, cfg.n_freq)
+        tb = int(round(t_bin))
+        spec = grid[max(tb - 1, 0):tb + 2].sum(axis=0)
+        fpk = int(spec.argmax())
+        tpk = int(grid[:, fpk].argmax())
+        print(f'{name}: range gate {t_bin:.2f} (peak {tpk}), Doppler '
+              f'{f_dop:+.1f} Hz at bin {f_bin:.2f} (peak {fpk})')
+        if abs(fpk - f_bin) > 1 or abs(tpk - t_bin) > 1:
+            fail(f'multi_body {name}: peak at time {tpk} / Doppler {fpk}, '
+                 f'expected {t_bin:.2f} / {f_bin:.2f}')
+
+    # ---- the same scene on the card and on the CPU, one seed ----
+    rec_gpu: dict = {}
+    rec_cpu: dict = {}
+    kw1 = dict(kw, seed=4, spp=WF_CPU_SAMPLES)
+    with _recorder(torch, ik, rp, rec_gpu, WF_CPU_SAMPLES, dev):
+        a_gpu, _ = bt.receive(s, sd, rx, device=dev, **kw1)
+    sd_cpu = s.compile(use_bvh=False, device='cpu')
+    cpu_ms, a_cpu = wall_ms(lambda: _cpu_receive(torch, bt, ik, rp, s, sd_cpu,
+                                                 rx, rec_cpu, kw1))
+    moved = torch.zeros(WF_CPU_SAMPLES, dtype=torch.bool)
+    for a, b in zip(rec_gpu['faces'] + rec_gpu['flags'],
+                    rec_cpu['faces'] + rec_cpu['flags']):
+        moved |= a != b
+    n_moved = int(moved.sum())
+    lane = (rec_gpu['lane'].cpu() + rec_cpu['lane'])
+    slack = float(lane[moved].sum())
+    ref = a_cpu[..., 0].double()
+    err = float((a_gpu[..., 0].cpu().double() - ref).abs().max())
+    scale = float(ref.abs().max())
+    n_calls = len(rec_gpu['faces']) + len(rec_gpu['flags'])
+    print(f'wavefront card against CPU, {WF_CPU_SAMPLES} samples, seed 4: '
+          f'max|acc| {scale:.6e}, max abs err {err:.3e} ({err / scale:.3e} '
+          f'of max); {n_moved} lanes with another K4 face or flag in '
+          f'{n_calls} K4 calls (their |values| {slack:.3e}); CPU run '
+          f'{cpu_ms:.0f} ms')
+    if n_moved > 1e-4 * WF_CPU_SAMPLES * n_calls \
+            or not (scale > 0 and err <= TOL * scale + slack):
+        fail(f'wavefront: card and CPU differ ({err:.3e} > {TOL} x '
+             f'{scale:.3e} + {slack:.3e}; {n_moved} lanes moved)')
+
+    # ---- the flagship through the kernel and through the wavefront ----
+    fs, frx = flagship_scene()
+    fsd = fs.compile(device=dev)
+    profs = {}
+    for use in (True, False):
+        ms, (a, nn) = wall_ms(lambda: bt.receive(
+            fs, fsd, frx, seed=3, spp=FLAG_SAMPLES, max_depth=FLAG_DEPTH,
+            time_sampling='gate', use_kernel=use, device=dev))
+        profs[use] = bt.develop_signal(a, nn, frx.adc)[:, 0, 0].cpu().double()
+        print(f'flagship use_kernel={use}: {ms:.1f} ms for 2^22 samples, '
+              f'depth 3 {tag}')
+    tk, tw = profs[True], profs[False]
+    pk_k, pk_w = int(tk.argmax()), int(tw.argmax())
+    lo_, hi_ = max(pk_w - 3, 0), pk_w + 4
+    e_k, e_w = float(tk[lo_:hi_].sum()), float(tw[lo_:hi_].sum())
+    print(f'flagship kernel against wavefront: peak bins {pk_k} / {pk_w} '
+          f'(2R/c {round_trip_bin(fs, frx):.2f}), peak-window energy '
+          f'{e_k:.4e} / {e_w:.4e} ({e_k / e_w - 1:+.3f})')
+    if abs(pk_k - pk_w) > 1 or abs(e_k - e_w) > 0.6 * abs(e_w):
+        fail('flagship: kernel and wavefront disagree')
+
+    # ---- mesh_scene through the wavefront: BVH queries on K2 / K3 ----
+    ms_, mrx = mesh_scene()
+    t0 = time.perf_counter()
+    msd = ms_.compile(device=dev)
+    build_ms = (time.perf_counter() - t0) * 1e3
+    if msd.bvh is None:
+        fail('mesh_scene compiled without the wavefront BVH')
+    bk.bvh_closest.launches = bk.bvh_any.launches = 0
+    ik.ray_triangle_closest.launches = 0
+    bvh_ms, (a, nn) = wall_ms(lambda: bt.receive(
+        ms_, msd, mrx, seed=5, spp=BVH_WF_SAMPLES, max_depth=2,
+        time_sampling='gate', use_kernel=False, device=dev))
+    bvh_l = {'bvh_closest': bk.bvh_closest.launches,
+             'bvh_any': bk.bvh_any.launches}
+    n_pass = BVH_WF_SAMPLES // (1 << 17)
+    if bvh_l != {'bvh_closest': 2 * n_pass, 'bvh_any': 2 * n_pass} \
+            or ik.ray_triangle_closest.launches:
+        fail(f'BVH wavefront launched K2 / K3 {bvh_l}, K4 '
+             f'{ik.ray_triangle_closest.launches}')
+    print(f'mesh_scene wavefront ({msd.tris.n_faces} faces, BVH '
+          f'{msd.bvh.n_nodes} nodes, compile {build_ms:.0f} ms): 2^20 '
+          f'samples depth 2 in {bvh_ms:.1f} ms; K2 / K3 launches {bvh_l} '
+          f'{tag}')
+    check_profile(torch, bt, a, nn, mrx, round_trip_bin(ms_, mrx),
+                  pulse_compress, 'mesh_scene wavefront')
+    return k4, bvh_l
+
+
+def _cpu_receive(torch, bt, ik, rp, s, sd_cpu, rx, rec, kw1):
+    with _recorder(torch, ik, rp, rec, WF_CPU_SAMPLES, 'cpu'):
+        a, _ = bt.receive(s, sd_cpu, rx, device='cpu', **kw1)
+    return a
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -630,6 +1130,7 @@ def main() -> int:
     import beifong_tpu_torch as bt
     from beifong_tpu_torch.dsp.pulse import pulse_compress
     from beifong_tpu_torch.geometry import bvh_kernel as bk
+    from beifong_tpu_torch.geometry import intersect_kernel as ik
     from beifong_tpu_torch.integrators import receive_kernel as rk
 
     # ---- 1. device ----
@@ -644,7 +1145,8 @@ def main() -> int:
 
     # ---- 2. build: one nvcc per source, all started together ----
     builders = {'receive_megakernel': rk.build_library,
-                'bvh_kernels': bk.build_library}
+                'bvh_kernels': bk.build_library,
+                'intersect_kernels': ik.build_library}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(builders)) as ex:
         futures = {k: ex.submit(fn) for k, fn in builders.items()}
@@ -656,6 +1158,15 @@ def main() -> int:
     kernels = [flagship(torch, bt, rk, dev, tag, pulse_compress),
                mesh(torch, bt, rk, dev, tag, pulse_compress)]
     kernels += queries(torch, bt, dev, tag)
+    k4 = k4_parity(torch, ik, dev, tag)
+    k4_launches, bvh_launches = wavefront(torch, bt, ik, bk, rk, dev, tag,
+                                          pulse_compress)
+    for k in k4:
+        k['launches'] = k4_launches[k['name']]
+    for k in kernels:
+        if k['name'] in bvh_launches:
+            k['wavefront_launches'] = bvh_launches[k['name']]
+    kernels += k4
 
     # ---- 5. report ----
     for k in kernels:

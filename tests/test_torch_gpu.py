@@ -16,9 +16,10 @@ import torch
 from beifong_tpu_torch import receive, develop_signal
 from beifong_tpu_torch.geometry import bvh as bvh_mod
 from beifong_tpu_torch.geometry import bvh_kernel as bk
+from beifong_tpu_torch.geometry import intersect_kernel as ik
 from beifong_tpu_torch.integrators import receive_kernel as rk
 from beifong_tpu_torch.scenes import flagship_scene, mesh_scene, \
-    round_trip_bin
+    multi_body_scene, round_trip_bin
 
 torch.set_num_threads(1)
 
@@ -235,3 +236,88 @@ def test_mesh_receive_on_card_matches_cpu_for_one_seed(cuda):
     prof = develop_signal(a_gpu, n, rx.adc)[:, 0, 0]
     assert bool(torch.isfinite(prof).all())
     assert abs(int(prof.argmax()) - round_trip_bin(s, rx)) <= 2
+
+
+def _launches():
+    return (ik.ray_triangle_closest.launches, ik.ray_triangle_any.launches,
+            bk.bvh_closest.launches, bk.bvh_any.launches,
+            rk.receive_megakernel.launches)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('n_side', [9, 23])
+def test_ray_triangle_kernels_match_plain_versions(cuda, n_side):
+    # 162 and 1058 faces (a ragged last tile of 34); 5000 rays (a ragged
+    # last block); every operation rounded as in the plain version
+    s, _ = mesh_scene(n_side=n_side)
+    sd = s.compile(use_bvh=False, device='cpu')
+    v0, e1, e2 = (x.to(cuda).contiguous()
+                  for x in (sd.tris.v0, sd.tris.e1, sd.tris.e2))
+    o, d, maxt = _query_rays(sd, 5000, cuda, seed=n_side)
+    before = _launches()
+    t, idx, u, v = ik.ray_triangle_closest(o, d, v0, e1, e2)
+    occ = ik.ray_triangle_any(o, d, v0, e1, e2, maxt)
+    torch.cuda.synchronize()
+    assert _launches()[:2] == (before[0] + 1, before[1] + 1)
+    rt, ri, ru, rv = ik.ray_triangle_closest_ref(o, d, v0, e1, e2)
+    ro = ik.ray_triangle_any_ref(o, d, v0, e1, e2, maxt)
+    assert torch.equal((idx >= 0), (ri >= 0))
+    assert int((idx != ri).sum()) <= 1e-4 * idx.numel()
+    same = (idx == ri) & (ri >= 0)
+    assert 0.1 * idx.numel() < int(same.sum()) < idx.numel()
+    assert torch.allclose(t[same], rt[same], rtol=2e-5, atol=0)
+    assert torch.allclose(u[same], ru[same], rtol=0, atol=1e-4)
+    assert torch.allclose(v[same], rv[same], rtol=0, atol=1e-4)
+    assert bool(torch.isinf(t[ri < 0]).all()) and bool((u[ri < 0] == 0).all())
+    assert int((occ != ro).sum()) <= 1e-4 * occ.numel()
+    assert 0 < int(ro.sum()) < ro.numel()
+
+
+@pytest.mark.gpu
+def test_wavefront_triangle_tests_run_k4(cuda):
+    s, rx = multi_body_scene()
+    sd = s.compile(use_bvh=False)
+    before = _launches()
+    adc, n = receive(s, sd, rx, seed=3, spp=1 << 15, max_depth=2,
+                     time_sampling='gate')
+    torch.cuda.synchronize()
+    after = _launches()
+    # one pass, depth 2: two closest-hit and two shadow tests
+    assert (after[0] - before[0], after[1] - before[1]) == (2, 2)
+    assert after[2:] == before[2:]
+    grid = develop_signal(adc, n, rx.adc)[..., 0]
+    assert adc.device.type == 'cuda' and bool(torch.isfinite(grid).all())
+    # body 1 (3 m, static) fills range gate 4 / 5 at 0 Hz (bins 7 / 8)
+    assert int(grid[3:7].sum(0).argmax()) in (7, 8)
+
+
+@pytest.mark.gpu
+def test_wavefront_bvh_queries_run_k2_k3(cuda):
+    s, rx = mesh_scene(n_side=23)     # 1058 faces: compile builds a BVH
+    sd = s.compile()
+    assert sd.bvh is not None
+    before = _launches()
+    adc, n = receive(s, sd, rx, seed=3, spp=1 << 16, max_depth=2,
+                     time_sampling='gate', use_kernel=False)
+    torch.cuda.synchronize()
+    after = _launches()
+    assert (after[2] - before[2], after[3] - before[3]) == (2, 2)
+    assert after[:2] == before[:2] and after[4] == before[4]
+    prof = develop_signal(adc, n, rx.adc)[:, 0, 0]
+    assert bool(torch.isfinite(prof).all())
+    assert abs(int(prof.argmax()) - round_trip_bin(s, rx)) <= 2
+
+
+@pytest.mark.gpu
+def test_wavefront_on_card_matches_cpu_for_one_seed(cuda):
+    # both draw the port's Philox stream; the splat's atomic order and the
+    # devices' sin / exp differ in the last bits
+    s, rx = multi_body_scene()
+    kw = dict(seed=7, spp=1 << 14, max_depth=2, time_sampling='gate')
+    a_gpu, _ = receive(s, s.compile(use_bvh=False), rx, **kw)
+    a_cpu, _ = receive(s, s.compile(use_bvh=False, device='cpu'), rx,
+                       device='cpu', **kw)
+    ref = a_cpu[..., 0]
+    assert float(ref.abs().max()) > 0
+    assert float((a_gpu[..., 0].cpu() - ref).abs().max()) \
+        <= 1e-4 * float(ref.abs().max())

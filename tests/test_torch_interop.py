@@ -93,7 +93,10 @@ def test_import_loads_no_jax():
     code = ('import sys, beifong_tpu_torch, beifong_tpu_torch.interop, '
             'beifong_tpu_torch.dsp.pulse, beifong_tpu_torch.geometry.bvh, '
             'beifong_tpu_torch.geometry.bvh_kernel, '
-            'beifong_tpu_torch.geometry.mesh; '
+            'beifong_tpu_torch.geometry.mesh, '
+            'beifong_tpu_torch.geometry.intersect_kernel, '
+            'beifong_tpu_torch.integrators.radar_path, '
+            'beifong_tpu_torch.core.rng; '
             'bad = [m for m in sys.modules if m == "jax" '
             'or m.startswith("jax.") or m == "beifong_tpu" '
             'or m.startswith("beifong_tpu.")]; '
@@ -128,7 +131,8 @@ def test_out_of_scope_scene_raises(change, needle):
     assert not rk.supported(sd, rx, why) and needle in why[0]
     assert 'ROADMAP' in why[0]
     with pytest.raises(NotImplementedError, match=needle):
-        receive(s, sd, rx, spp=64, max_depth=1, device='cpu')
+        receive(s, sd, rx, spp=64, max_depth=1, use_kernel=True,
+                device='cpu')
 
 
 def test_out_of_scope_receive_type_raises():
@@ -144,3 +148,67 @@ def test_adc_config_fields_match():
     assert [f.name for f in dataclasses.fields(ADCConfig)] == \
         [f.name for f in dataclasses.fields(JaxADC)]
     assert ADCConfig() == ADCConfig(**dataclasses.asdict(JaxADC()))
+
+
+def test_multi_body_compiles_like_jax_leaf_for_leaf():
+    """`scenes.multi_body_scene` against the JAX package's
+    examples/multi_body.py scene: every table, the rough conductor and the
+    moving mesh's velocity included."""
+    from test_torch_wavefront import multi_body
+    s_j, _ = multi_body('jax')
+    s_t, _ = multi_body('port')
+    lj = jax_leaves(s_j.compile(use_bvh=False))
+    sd_t = s_t.compile(use_bvh=False, device='cpu')
+    lt = port_leaves(sd_t)
+    assert {'.tris.v0', '.shapes.velocity', '.bsdfs.alpha', '.bsdfs.k'} \
+        <= set(lt) <= set(lj)
+    for k, v in lt.items():
+        assert v.dtype == lj[k].dtype and v.shape == lj[k].shape, k
+        # the look_at of the lifted body rounds differently in the two
+        # packages: world vertices up to 6 m out differ by an ulp (4.8e-7),
+        # and so do the edges between them; over a 0.13 m edge that tilts
+        # a face normal by ~4e-6
+        atol = {'.tris.n': 1e-5, '.tris.v0': 1e-6, '.tris.e1': 1e-6,
+                '.tris.e2': 1e-6}.get(k, 1e-7)
+        np.testing.assert_allclose(v, lj[k], rtol=1e-6, atol=atol,
+                                   err_msg=k)
+    assert sd_t.tris.n_faces == 324 and sd_t.bvh is None
+    assert sd_t.bsdfs.present == tuple(s_j.compile().bsdfs.present)
+
+
+BVH_FIELDS = ('bb_min', 'bb_max', 'hit_link', 'miss_link', 'leaf_offset',
+              'leaf_count', 'v0', 'e1', 'e2', 'perm')
+
+
+def test_bvh_scene_compiles_like_jax_leaf_for_leaf():
+    """`compile(use_bvh=True)`: the tables leaf for leaf, and `.bvh` array
+    for array against the JAX package's Python builder (its native C++
+    builder, which the JAX compile takes when the library is built,
+    orders the faces of a leaf by std::nth_element and is not ported:
+    ROADMAP A7); `interop` carries the JAX BVH over as it is."""
+    from beifong_tpu.geometry import bvh as bvh_j
+    from test_torch_mesh import twin_scene
+    s_j, _ = twin_scene('jax', n_side=23)
+    s_t, _ = twin_scene('port', n_side=23)
+    sd_j = s_j.compile(use_bvh=True)
+    sd_t = s_t.compile(use_bvh=True, device='cpu')
+    lj, lt = jax_leaves(sd_j), port_leaves(sd_t)
+    assert set(lt) <= set(lj) and any(k.startswith('.bvh.') for k in lj)
+    for k, v in lt.items():
+        np.testing.assert_allclose(v, lj[k], rtol=1e-6, atol=1e-7,
+                                   err_msg=k)
+    ref = bvh_j.build(*(np.asarray(getattr(sd_j.tris, f))
+                        for f in ('v0', 'e1', 'e2')), use_native=False)
+    assert sd_t.bvh.n_nodes == ref.n_nodes
+    for f in BVH_FIELDS:
+        a, b = getattr(sd_t.bvh, f), np.asarray(getattr(ref, f))
+        assert a.dtype == b.dtype and a.shape == b.shape, f
+        np.testing.assert_array_equal(a, b, err_msg=f)
+    sd_i = scene_data_from_numpy(lj, port_band(sd_j.band), device='cpu')
+    for f in BVH_FIELDS:
+        np.testing.assert_array_equal(getattr(sd_i.bvh, f),
+                                      np.asarray(getattr(sd_j.bvh, f)),
+                                      err_msg=f)
+    # 'auto' builds it above bvh_threshold faces only
+    assert s_t.compile(device='cpu').bvh is not None
+    assert s_t.compile(bvh_threshold=5000, device='cpu').bvh is None

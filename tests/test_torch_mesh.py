@@ -187,12 +187,20 @@ def test_pack_with_meshes_bit_identical_to_jax(kw):
 
 
 def test_interop_still_refuses_bvh_and_medium():
+    """`.bvh` is carried over now (the eager wavefront walks it); an
+    ambient medium still raises."""
+    from beifong_tpu.media import HomogeneousMedium
     s_j, _ = twin_scene('jax')
     sd_j = s_j.compile(use_bvh=True)
     leaves = jax_leaves(sd_j)
     assert any(k.startswith('.bvh') for k in leaves)
-    with pytest.raises(NotImplementedError, match='bvh'):
-        scene_data_from_numpy(leaves, port_band(sd_j.band), device='cpu')
+    sd = scene_data_from_numpy(leaves, port_band(sd_j.band), device='cpu')
+    assert sd.bvh.n_nodes == int(np.asarray(sd_j.bvh.bb_min).shape[0])
+    s_j.medium = HomogeneousMedium.make(sigma_t=0.01)
+    sd_j = s_j.compile(use_bvh=False)
+    with pytest.raises(NotImplementedError, match='medium'):
+        scene_data_from_numpy(jax_leaves(sd_j), port_band(sd_j.band),
+                              device='cpu')
 
 
 @pytest.mark.parametrize('kw, needle', [
@@ -204,7 +212,8 @@ def test_out_of_scope_mesh_raises(kw, needle):
     why = []
     assert not rk.supported(sd, rx, why) and needle in why[0]
     with pytest.raises(NotImplementedError, match=needle):
-        receive(s, sd, rx, spp=1024, max_depth=1, device='cpu')
+        receive(s, sd, rx, spp=1024, max_depth=1, use_kernel=True,
+                device='cpu')
 
 
 def test_non_diffuse_mesh_is_out_of_scope():

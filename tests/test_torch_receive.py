@@ -117,18 +117,23 @@ def test_receive_draws_the_kernels_philox_stream():
 
 
 def test_receive_packs_tables_once_per_scene_data(monkeypatch):
-    calls = []
-    pack = rk.pack_scene
+    """The pack and the scope check (both read tables back from a card)
+    run once per SceneData, whatever the route asks."""
+    calls, checks = [], []
+    pack, supported = rk.pack_scene, rk.supported
     monkeypatch.setattr(rk, 'pack_scene',
                         lambda *a: calls.append(1) or pack(*a))
+    monkeypatch.setattr(rk, 'supported',
+                        lambda *a: checks.append(1) or supported(*a))
     s, rx = flagship_scene()
     sd = s.compile(device='cpu')
     kw = dict(spp=256, max_depth=1, device='cpu')
     bt.receive(s, sd, rx, seed=1, **kw)
     bt.receive(s, sd, rx, seed=2, **kw)
-    assert len(calls) == 1
+    bt.receive(s, sd, rx, seed=2, use_kernel=True, **kw)
+    assert len(calls) == 1 and len(checks) == 1
     bt.receive(s, s.compile(device='cpu'), rx, seed=1, **kw)
-    assert len(calls) == 2
+    assert len(calls) == 2 and len(checks) == 2
 
 
 def test_mesh_profile_matches_jax_wavefront():
