@@ -1,30 +1,48 @@
-// Radar receive megakernel for Hopper (sm_90a), in two configurations: the
-// flagship (analytic rectangles) and the mesh configuration (the same
-// lane plus a BVH walk over triangle meshes), two instantiations of one
-// template.
+// Radar receive megakernel for Hopper (sm_90a), in three configurations:
+// the flagship (analytic rectangles), the mesh configuration (the same
+// lane plus a BVH walk over triangle meshes) and the Doppler configuration
+// (either of them plus moving geometry, the GGX rough conductor and
+// time x frequency or wide fast-time grids), four instantiations of one
+// template <MESH, DOP>.
 //
 // Replaces the TPU kernel beifong_tpu/integrators/pallas_receive.py::
 // _make_kernel (launched by _run's pl.pallas_call) in its analytic /
-// diffuse / Wigner-aperture / raw / power / n_freq == 1 configuration,
-// with or without diffuse triangle meshes (has_mesh): per lane, the
-// receive ray from the Wigner (or omni) receiver, the closest hit over
-// <= 64 analytic rectangles and, in the mesh configuration, over the
-// triangles of the scene's BVH (bvh_walk.cuh, the walk of pallas_bvh.py::
-// traversal_body, pruned by the analytic best), direct transmitter hits at
-// depth 0, next-event estimation to the one Wigner transmitter with the
-// waveform and aperture Wigner weights, gate sampling and a shadow test
-// (rectangles, then the BVH any-hit walk), a tent splat into the
-// fast-time bins, and the diffuse bounce.  The arithmetic follows
-// beifong_tpu_torch/integrators/receive_kernel.py::receive_megakernel_ref
-// operation by operation (same association, same constants rounded from
-// double, no --use_fast_math), so the two differ only where nvcc contracts
-// a multiply and an add into one FMA (one rounding fewer) and in the
-// order in which sums are taken.
+// Wigner-aperture / raw / power configuration, with or without triangle
+// meshes (has_mesh): per lane, the receive ray from the Wigner (or omni)
+// receiver, the closest hit over <= 64 analytic rectangles and, in the
+// mesh configuration, over the triangles of the scene's BVH (bvh_walk.cuh,
+// the walk of pallas_bvh.py::traversal_body, pruned by the analytic best),
+// direct transmitter hits at depth 0, next-event estimation to the one
+// Wigner transmitter with the waveform and aperture Wigner weights, gate
+// sampling and a shadow test (rectangles, then the BVH any-hit walk), a
+// tent splat into the ADC bins, and the bounce.  The flagship and mesh
+// configurations take diffuse lobes, a static scene and a fast-time ADC of
+// at most 512 bins.  The Doppler configuration (DOP) adds what the JAX
+// kernel bakes as `moving`, `ggx` and its other splats:
+//  - the first-order Doppler chain: a cumulative factor `dop` from the
+//    receiver's velocity, times the vertex-bounce and transmitter factors
+//    at each NEE connection, and the bounce factor of each continued path
+//    (pallas_receive.py:624-629, 1740-1749, 2208-2211);
+//  - the GGX rough conductor beside the diffuse lobe, chosen per lane by
+//    the hit's type: the prim row's columns 15-21 on rectangles, the
+//    triangle's mesh-shape row (`msh`, second leaf payload) on meshes;
+//    its NEE evaluation (_fres_cond, _g1, bsdf_eval_cos :1137-1279) and
+//    its half-vector sample and weight (:1957-1984);
+//  - a per-lane receive frequency drawn over the ADC's window when
+//    n_freq > 1 (:450-452), splatted with the time tent over the
+//    frequency bins (:1757-1758, 1880-1905), and fast-time grids past 512
+//    bins (the TPU's wide 1-D splat, :1830-1879).
+// The arithmetic follows beifong_tpu_torch/integrators/receive_kernel.py::
+// receive_megakernel_ref operation by operation (same association, same
+// constants rounded from double, no --use_fast_math), so the two differ
+// only where nvcc contracts a multiply and an add into one FMA (one
+// rounding fewer), in rsqrtf's last bits and in the order in which sums
+// are taken.
 //
 // What bounds it on the H100: FP32 ALU and SFU work per lane.  A lane
 // reads ~9 KB of scene tables that every lane shares and writes nothing
 // but its splats, so there is no device-memory traffic to speak of
-// (the output is n_blocks x n_time floats).  The design therefore keeps
+// (the output is n_blocks x n_cells values).  The design therefore keeps
 // everything on chip: one thread per lane in a persistent grid-stride
 // loop (a few blocks per SM, whatever the sample count), the scene tables
 // copied once per block into shared memory, prims looped at run time,
@@ -33,7 +51,7 @@
 // shared memory; they stay in device memory behind the read-only cache and
 // L2.
 //
-// Direction strata (mesh configuration, patch_p > 0): the pallas kernel
+// Direction strata (mesh configurations, patch_p > 0): the pallas kernel
 // walks one node pointer per (8, 128) tile and keeps the tile's rays in
 // one cell of a P x P grid of the cosine-hemisphere square, so each tile
 // is a narrow beam.  Here lane L belongs to tile L / 1024 and takes cell
@@ -41,26 +59,42 @@
 // hands a warp 32 consecutive lanes, a warp traces one beam and its
 // per-thread walks stay coherent.
 //
-// Splat and determinism: a tent touches floor(yb) and floor(yb) + 1
-// only.  Each thread owns a private row of n_time floats in shared memory
-// (bin b of thread t at hist[b * T + t]: conflict-free for any b), so no
-// atomics are taken and the order of every float sum is fixed by the
-// launch geometry.  The block then sums its T rows in thread order, in
-// double, into an (n_blocks, n_time) partial buffer, and a second small
-// kernel sums the partials in block order, in double, and rounds once to
-// float.  A thread's own row sums a few thousand lanes in float; the
-// sums above it would otherwise add 10^5 rows of float at 2^28 lanes.
-// Event counts are integers.  The same inputs therefore give
-// bit-identical output on one card.
+// Splats.  A tent touches floor(yb) and floor(yb) + 1 only (and, on a 2-D
+// grid, floor(xb) and floor(xb) + 1: four cells).  The TPU splats with
+// one-hot MXU products because Mosaic has no scatter; a GPU scatters.
+//  - Flagship and mesh: each thread owns a private row of n_time floats in
+//    shared memory (bin b of thread t at hist[b * T + t]: conflict-free
+//    for any b), so no atomics are taken and the order of every float sum
+//    is fixed by the launch geometry.  The block then sums its T rows in
+//    thread order, in double, into an (n_blocks, n_time) partial buffer,
+//    and a second small kernel sums the partials in block order, in
+//    double, and rounds once to float.  A thread's own row sums a few
+//    thousand lanes in float; the sums above it would otherwise add 10^5
+//    rows of float at 2^28 lanes.  Event counts are integers.  The same
+//    inputs therefore give bit-identical output on one card.
+//  - Doppler: private rows do not scale past a few hundred cells (a 2-D
+//    grid of 1,024 cells would leave no thread a row), so the block keeps
+//    ONE (n_time, n_freq) float grid in shared memory and its threads add
+//    their taps with shared-memory atomics (mode 1, up to 16,384 cells:
+//    64 KB beside ~11 KB of tables still lets three blocks share an SM);
+//    the block's grid then goes to the partial buffer in double and the
+//    same fixed-order second kernel sums the blocks.  Larger grids (mode
+//    2, up to 2^20 cells) add their taps straight into one global float64
+//    grid with atomics (8 MB: it stays in L2), which the second kernel
+//    rounds to float.  Atomics add in the order the threads arrive, so
+//    this configuration gives up bit-identical repeats: two runs agree to
+//    the rounding of a float sum per cell (~1e-6 of max|acc|), not to the
+//    bit.
 //
 // Random numbers: PRNG mode runs Philox4x32-10 keyed by the 64-bit seed
 // with counter (lane, draw / 4), word draw % 4, top 24 bits scaled by
 // 2^-24, so a lane's stream does not depend on the launch geometry.
 // Injected mode reads u[draw * n_lanes + lane] from a (n_draws, n_lanes)
 // tensor instead (parity with the plain version and the JAX package).
-// Draw indices are positional (trace_lane: 0 time, then the ray draws,
-// then six per depth), so a lane that leaves the loop early skips its
-// remaining draws without shifting anyone's stream.
+// Draw indices are positional (trace_lane: 0 time, 1 frequency when
+// n_freq > 1, then the ray draws, then six per depth), so a lane that
+// leaves the loop early skips its remaining draws without shifting
+// anyone's stream.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -73,9 +107,12 @@ namespace {
 
 constexpr int PRIM_COLS = 34;
 constexpr int TXP_COLS = 32;
+constexpr int MSH_COLS = 8;
 constexpr int RECTANGLE = 0;
 constexpr float CW = 0.0f;
 constexpr float LINFMCW = 2.0f;
+constexpr float ROUGH_CONDUCTOR = 2.0f;
+constexpr int DOP_THREADS = 128;   // threads per block, Doppler config
 
 struct Cfg {
     long long n_lanes;
@@ -91,6 +128,13 @@ struct Cfg {
     float t_start;
     float t_window;
     float f_rx;
+    // Doppler configuration
+    int n_freq;
+    int n_msh;        // mesh-shape rows
+    int mode;         // 1 block-shared grid, 2 global float64 grid
+    float f_lo;       // ADC frequency window: low edge,
+    float f_span;     // f_hi - f_lo (the frequency draw)
+    float f_den;      // max(f_hi - f_lo, 1e-30) (the frequency bins)
 };
 
 __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
@@ -167,11 +211,69 @@ __device__ __forceinline__ float floor_mod(float a, float b) {
     return r;
 }
 
+// Smith GGX masking for |cos| ct (pallas_receive.py::_g1).
+__device__ __forceinline__ float g1(float ct, float a2) {
+    float t2 = (1.0f - ct * ct) / fmaxf(ct * ct, F(1e-12));
+    return 2.0f / (1.0f + sqrtf(1.0f + a2 * t2));
+}
+
+// Unpolarized conductor Fresnel (pallas_receive.py::_fres_cond).
+__device__ __forceinline__ float fres_cond(float ci, float eta, float k) {
+    float c2 = ci * ci;
+    float s2 = 1.0f - c2;
+    float e2 = eta * eta;
+    float k2 = k * k;
+    float t0 = e2 - k2 - s2;
+    float a2b2 = sqrtf(fmaxf(t0 * t0 + 4.0f * e2 * k2, 0.0f));
+    float t1 = a2b2 + c2;
+    float a_ = sqrtf(fmaxf(0.5f * (a2b2 + t0), 0.0f));
+    float t2 = 2.0f * a_ * ci;
+    float rs = (t1 - t2) / fmaxf(t1 + t2, F(1e-20));
+    float t3 = c2 * a2b2 + s2 * s2;
+    float t4 = t2 * s2;
+    float rp = rs * (t3 - t4) / fmaxf(t3 + t4, F(1e-20));
+    return 0.5f * (rs + rp);
+}
+
+// GGX rough-conductor f(wi, wo) |cos_o| in the frame flipped toward wi
+// (the GGX branch of pallas_receive.py::bsdf_eval_cos).
+__device__ __forceinline__ float ggx_fcos(float rb, float ab, float eb,
+                                          float kk, float nx, float ny,
+                                          float nz, float wix, float wiy,
+                                          float wiz, float wox, float woy,
+                                          float woz) {
+    float ci_raw = wix * nx + wiy * ny + wiz * nz;
+    float sg = sgn_ge(ci_raw);
+    float fx = nx * sg, fy = ny * sg, fz = nz * sg;
+    float ci = ci_raw * sg;
+    float co = wox * fx + woy * fy + woz * fz;
+    float hx = wix + wox, hy = wiy + woy, hz = wiz + woz;
+    float hn = rsqrtf(fmaxf(hx * hx + hy * hy + hz * hz, F(1e-20)));
+    hx = hx * hn;
+    hy = hy * hn;
+    hz = hz * hn;
+    float hc = hx * fx + hy * fy + hz * fz;
+    float hsg = sgn_ge(hc);
+    hx = hx * hsg;
+    hy = hy * hsg;
+    hz = hz * hsg;
+    hc = hc * hsg;
+    float a2 = ab * ab;
+    float dd = hc * hc * (a2 - 1.0f) + 1.0f;
+    float d_ = a2 / fmaxf(F(3.141592653589793) * dd * dd, F(1e-20));
+    float g_ = g1(fabsf(ci), a2) * g1(fabsf(co), a2);
+    float idoth = wix * hx + wiy * hy + wiz * hz;
+    float f_ = fres_cond(fabsf(idoth), eb, kk);
+    float f_rc = rb * f_ * d_ * g_ / fmaxf(4.0f * ci, F(1e-8));
+    return (co > 0.0f && ci > 0.0f) ? f_rc : 0.0f;
+}
+
 // The one transmitter: a rect aperture and its waveform.
 struct Tx {
     const float* m;   // to_world rows 0..2 (12 floats)
     float wx, wy, area, gain, wf, amp, prf, text, fc, fext;
     float nx, ny, nz;
+    float vx, vy, vz;  // velocity (Doppler configuration)
 
     __device__ float inst_freq(float t) const {
         float pri = 1.0f / fmaxf(prf, F(1e-12));
@@ -250,20 +352,22 @@ __device__ __forceinline__ bool rect_hit(const float* q, float cx, float cy,
 }
 
 // Mesh closest hit for the receive lane: the walk is pruned by the
-// analytic best `ta`; a winning triangle gives its geometric normal and
-// its reflectance payload (leaf column 80).  The normal is the edge cross
-// product rounded as the plain version rounds it (no FMA contraction):
-// on a face whose exact normal has z = 0 the rounding alone picks the
-// sign of z, and that sign picks the tangent frame of the diffuse bounce,
-// so one rounding fewer would send the bounce elsewhere.
+// analytic best `ta`; a winning triangle gives its geometric normal, its
+// reflectance payload (leaf column 80) and, with ROWS, its mesh-shape row
+// (column 88).  The normal is the edge cross product rounded as the plain
+// version rounds it (no FMA contraction): on a face whose exact normal has
+// z = 0 the rounding alone picks the sign of z, and that sign picks the
+// tangent frame of the bounce, so one rounding fewer would send the
+// bounce elsewhere.
 __device__ __forceinline__ float cross_rn(float a, float b, float c,
                                           float d) {   // a * b - c * d
     return __fsub_rn(__fmul_rn(a, b), __fmul_rn(c, d));
 }
 
+template <bool ROWS>
 struct MeshClosest {
     float t = F(3.4e38), ta;
-    float nx = 0.0f, ny = 0.0f, nz = 0.0f, rf = 0.0f;
+    float nx = 0.0f, ny = 0.0f, nz = 0.0f, rf = 0.0f, sid = 0.0f;
     __device__ float tbest() const { return fminf(t, ta); }
     __device__ void hit(const bvh::TriHit& h, const float* __restrict__ lr) {
         if (!(h.t < t)) return;
@@ -276,6 +380,7 @@ struct MeshClosest {
         ny = gny * rn;
         nz = gnz * rn;
         rf = __ldg(lr + 80 + h.slot);
+        if constexpr (ROWS) sid = __ldg(lr + 88 + h.slot);
         t = h.t;
     }
     __device__ bool done() const { return false; }
@@ -294,16 +399,66 @@ __device__ __forceinline__ void splat(float* hist, int T, int n_time,
         hist[(i0 + 1) * T] += val * fmaxf(1.0f - fabsf(yb - b1), 0.0f);
 }
 
-// Traces one lane.  In the mesh configuration it returns the sum of the
-// lane's contributions, which a parity run reads per lane (`lane_val`):
-// a ray that meets a triangle edge may, with one rounding fewer under FMA
-// contraction, take the neighbouring face or slip between the two, and
-// the per-lane sums show which lanes did.
-template <bool MESH>
+// The Doppler configuration's ADC grid: block-shared floats (mode 1) or
+// global doubles (mode 2), both added to with atomics.
+struct Grid {
+    float* s;
+    double* g;
+    __device__ void add(int cell, float v) const {
+        if (v == 0.0f) return;
+        if (s != nullptr)
+            atomicAdd(s + cell, v);
+        else
+            atomicAdd(g + cell, (double)v);
+    }
+};
+
+// Tent splat of `val` at time coordinate yb and, on a 2-D grid, at the
+// frequency coordinate of f_bin: (val * w_t) * w_f into up to four cells.
+__device__ __forceinline__ void grid_splat(const Grid& grid, const Cfg& cfg,
+                                           float val, float yb,
+                                           float f_bin) {
+    if (val == 0.0f) return;
+    float b0 = floorf(yb);
+    if (!(b0 >= -1.0f && b0 < (float)cfg.n_time)) return;  // drops NaN
+    float b1 = b0 + 1.0f;
+    float wt0 = fmaxf(1.0f - fabsf(yb - b0), 0.0f);
+    float wt1 = fmaxf(1.0f - fabsf(yb - b1), 0.0f);
+    int i0 = (int)b0;
+    if (cfg.n_freq == 1) {
+        if (i0 >= 0) grid.add(i0, val * wt0);
+        if (i0 + 1 < cfg.n_time) grid.add(i0 + 1, val * wt1);
+        return;
+    }
+    float xb = (f_bin - cfg.f_lo) / cfg.f_den * (float)cfg.n_freq - 0.5f;
+    float c0 = floorf(xb);
+    if (!(c0 >= -1.0f && c0 < (float)cfg.n_freq)) return;
+    float c1 = c0 + 1.0f;
+    float wf0 = fmaxf(1.0f - fabsf(xb - c0), 0.0f);
+    float wf1 = fmaxf(1.0f - fabsf(xb - c1), 0.0f);
+    int j0 = (int)c0;
+#pragma unroll
+    for (int a = 0; a < 2; ++a) {
+        int it = i0 + a;
+        if (it < 0 || it >= cfg.n_time) continue;
+        float vt = val * (a ? wt1 : wt0);
+        int row = it * cfg.n_freq;
+        if (j0 >= 0) grid.add(row + j0, vt * wf0);
+        if (j0 + 1 < cfg.n_freq) grid.add(row + j0 + 1, vt * wf1);
+    }
+}
+
+// Traces one lane.  In the mesh and Doppler configurations it returns the
+// sum of the lane's contributions, which a parity run reads per lane
+// (`lane_val`): a ray that meets a triangle edge may, with one rounding
+// fewer under FMA contraction, take the neighbouring face or slip between
+// the two, and the per-lane sums show which lanes did.
+template <bool MESH, bool DOP>
 __device__ float trace_lane(const Cfg& cfg, const float* sp,
-                            const float* prim, const Tx& tx,
-                            const bvh::Tables& mesh, Draws& dr, float* hist,
-                            int T, unsigned int* events) {
+                            const float* prim, const float* msh,
+                            const Tx& tx, const bvh::Tables& mesh,
+                            Draws& dr, float* hist, int T,
+                            const Grid& grid, unsigned int* events) {
     const float TP = F(6.283185307179586);
     const float cvel = sp[1];
     const float* rxm = sp + 2;
@@ -313,13 +468,22 @@ __device__ float trace_lane(const Cfg& cfg, const float* sp,
 
     // ---------------- receive-ray generation (draws 0..n_ray) ----------
     float t_rx0 = cfg.gate ? 0.0f : t_start + dr.get(0) * t_window;
+    // the frequency draw (2-D grids) comes before the ray draws
+    int r0 = 1;
+    float f_rx = cfg.f_rx;
+    if constexpr (DOP) {
+        if (cfg.n_freq > 1) {
+            f_rx = cfg.f_lo + dr.get(1) * cfg.f_span;
+            r0 = 2;
+        }
+    }
     float ox, oy, oz, dx, dy, dz, thr;
     int base;
     if (cfg.omni) {
         ox = rxm[3];
         oy = rxm[7];
         oz = rxm[11];
-        float u1 = dr.get(1), u2 = dr.get(2);
+        float u1 = dr.get(r0), u2 = dr.get(r0 + 1);
         float z = 1.0f - 2.0f * u1;
         float r = sqrtf(fmaxf(1.0f - z * z, 0.0f));
         float ph = TP * u2;
@@ -327,9 +491,9 @@ __device__ float trace_lane(const Cfg& cfg, const float* sp,
         dy = r * fast_sin(ph);
         dz = z;
         thr = F(4.0 * 3.141592653589793) * sp[32];
-        base = 3;
+        base = r0 + 2;
     } else {
-        float u1 = dr.get(1), u2 = dr.get(2);
+        float u1 = dr.get(r0), u2 = dr.get(r0 + 1);
         float lx = 2.0f * u1 - 1.0f, ly = 2.0f * u2 - 1.0f;
         ox = rxm[0] * lx + rxm[1] * ly + rxm[3];
         oy = rxm[4] * lx + rxm[5] * ly + rxm[7];
@@ -339,7 +503,7 @@ __device__ float trace_lane(const Cfg& cfg, const float* sp,
         nzx = nzx * nn;
         nzy = nzy * nn;
         nzz = nzz * nn;
-        float u3 = dr.get(3), u4 = dr.get(4);
+        float u3 = dr.get(r0 + 2), u4 = dr.get(r0 + 3);
         float area = 4.0f * rx_wx * rx_wy;
         float tx_, ty_, tz, w0;
         if (MESH && cfg.patch_p > 0) {
@@ -357,7 +521,7 @@ __device__ float trace_lane(const Cfg& cfg, const float* sp,
             tz = sqrtf(fmaxf(1.0f - u3, 0.0f));
             w0 = F(3.141592653589793) * area * sp[32];
         } else {
-            float lam0 = cvel / fmaxf(cfg.f_rx, F(1e-6));
+            float lam0 = cvel / fmaxf(f_rx, F(1e-6));
             float w_mn = fminf(rx_wx, rx_wy);
             float q = 2.0f * w_mn / (F(0.6) * lam0);
             float k_l = fmaxf(2.0f * (q * q) - 2.0f, 0.0f);
@@ -385,7 +549,7 @@ __device__ float trace_lane(const Cfg& cfg, const float* sp,
         dx = s1x * tx_ + s2x * ty_ + nzx * tz;
         dy = s1y * tx_ + s2y * ty_ + nzy * tz;
         dz = s1z * tx_ + s2z * ty_ + nzz * tz;
-        float lam = cvel / fmaxf(cfg.f_rx, F(1e-6));
+        float lam = cvel / fmaxf(f_rx, F(1e-6));
         float nu_x = (rxm[0] * dx + rxm[4] * dy + rxm[8] * dz)
                      / fmaxf(rx_wx, F(1e-9)) / lam;
         float nu_y = (rxm[1] * dx + rxm[5] * dy + rxm[9] * dz)
@@ -396,8 +560,14 @@ __device__ float trace_lane(const Cfg& cfg, const float* sp,
         ox = ox + F(1e-4) * nzx;
         oy = oy + F(1e-4) * nzy;
         oz = oz + F(1e-4) * nzz;
-        base = 5;
+        base = r0 + 4;
     }
+
+    // cumulative Doppler factor (f_received = f_emitted * dop), the
+    // receiver's motion first; exactly 1 in a static scene
+    float dop = 1.0f;
+    if constexpr (DOP) dop = 1.0f + (dx * sp[23] + dy * sp[24] + dz * sp[25])
+                                    / cvel;
 
     float cx = ox, cy = oy, cz = oz;
     float plen = 0.0f;
@@ -408,6 +578,9 @@ __device__ float trace_lane(const Cfg& cfg, const float* sp,
         // ---- closest hit over the rectangles ----
         float tb = F(3.4e38), nx = 0.0f, ny = 0.0f, nz = 0.0f, rb = 0.0f,
               txc = -1.0f;
+        // the hit's lobe (type, GGX alpha, conductor eta / k) and velocity
+        float kb = 0.0f, ab = F(0.1), eb = 0.0f, kk = 0.0f, vbx = 0.0f,
+              vby = 0.0f, vbz = 0.0f;
         for (int p = 0; p < cfg.n_prims; ++p) {
             const float* row = prim + p * PRIM_COLS;
             if ((int)row[0] != RECTANGLE) continue;
@@ -423,10 +596,19 @@ __device__ float trace_lane(const Cfg& cfg, const float* sp,
                 nz = q[10] * rnorm;
                 rb = row[13];
                 txc = row[14];
+                if constexpr (DOP) {
+                    kb = row[18];
+                    ab = row[15];
+                    eb = row[16];
+                    kk = row[17];
+                    vbx = row[19];
+                    vby = row[20];
+                    vbz = row[21];
+                }
             }
         }
         if constexpr (MESH) {
-            MeshClosest mc;
+            MeshClosest<DOP> mc;
             mc.ta = tb;
             bvh::walk(mesh, bvh::make_ray(cx, cy, cz, dx, dy, dz), mc);
             if (mc.t < tb) {
@@ -436,11 +618,23 @@ __device__ float trace_lane(const Cfg& cfg, const float* sp,
                 nz = mc.nz;
                 rb = mc.rf;
                 txc = -1.0f;
+                if constexpr (DOP) {
+                    int sid = min(max((int)mc.sid, 0), cfg.n_msh - 1);
+                    const float* r = msh + MSH_COLS * sid;
+                    kb = r[6];
+                    ab = r[3];
+                    eb = r[4];
+                    kk = r[5];
+                    vbx = r[0];
+                    vby = r[1];
+                    vbz = r[2];
+                }
             }
         }
         if (!(tb < F(3.4e37))) break;     // miss: the lane is dead
         plen = plen + tb;
         float hx = cx + tb * dx, hy = cy + tb * dy, hz = cz + tb * dz;
+        const bool is_ggx = DOP && kb == ROUGH_CONDUCTOR;
 
         // ---- direct transmitter hits (depth 0; NEE covers the rest) ----
         if (depth == 0) {
@@ -463,9 +657,12 @@ __device__ float trace_lane(const Cfg& cfg, const float* sp,
                 float w_dh = sig_h * tx.gain * ap_h * TP;
                 float val_h = thr * w_dh * wg_h;
                 float yb_h = (tr_h - t_start) / t_window * n_time_f - 0.5f;
-                splat(hist, T, cfg.n_time, val_h, yb_h);
+                if constexpr (DOP)
+                    grid_splat(grid, cfg, val_h, yb_h, fe_h * dop);
+                else
+                    splat(hist, T, cfg.n_time, val_h, yb_h);
                 *events += val_h != 0.0f;
-                if constexpr (MESH) lane_sum += val_h;
+                if constexpr (MESH || DOP) lane_sum += val_h;
             }
         }
 
@@ -487,10 +684,17 @@ __device__ float trace_lane(const Cfg& cfg, const float* sp,
                 float pdf_sa = (1.0f / fmaxf(tx.area, F(1e-12))) * dist2
                                / fmaxf(cos_tx, F(1e-6));
                 float cos_s = wx_ * nx + wy_ * ny + wz_ * nz;
-                float sg = sgn_ge(-dx * nx + -dy * ny + -dz * nz);
-                float co = wx_ * (nx * sg) + wy_ * (ny * sg) + wz_ * (nz * sg);
-                float f_cos = rb * F(1.0 / 3.141592653589793)
-                              * fmaxf(co, 0.0f);
+                float f_cos;
+                if (is_ggx) {
+                    f_cos = ggx_fcos(rb, ab, eb, kk, nx, ny, nz, -dx, -dy,
+                                     -dz, wx_, wy_, wz_);
+                } else {
+                    float sg = sgn_ge(-dx * nx + -dy * ny + -dz * nz);
+                    float co = wx_ * (nx * sg) + wy_ * (ny * sg)
+                               + wz_ * (nz * sg);
+                    f_cos = rb * F(1.0 / 3.141592653589793)
+                            * fmaxf(co, 0.0f);
+                }
                 float t_emit, t_recv, w_gate;
                 tx.emission((plen + dist) / cvel, dr.get(d0 + 3), t_rx0,
                             cfg.gate, t_start, t_window, &t_emit, &t_recv,
@@ -530,46 +734,119 @@ __device__ float trace_lane(const Cfg& cfg, const float* sp,
                                 / fmaxf(pdf_sa, F(1e-30));
                     float yb = (t_recv - t_start) / t_window * n_time_f
                                - 0.5f;
-                    splat(hist, T, cfg.n_time, val, yb);
+                    if constexpr (DOP) {
+                        // connection Doppler: the vertex's bounce and the
+                        // transmitter's motion
+                        float dop_vtx = 1.0f + ((wx_ - dx) * vbx
+                                                + (wy_ - dy) * vby
+                                                + (wz_ - dz) * vbz) / cvel;
+                        float dop_tx = 1.0f - (wx_ * tx.vx + wy_ * tx.vy
+                                               + wz_ * tx.vz) / cvel;
+                        grid_splat(grid, cfg, val, yb,
+                                   f_emit * dop * dop_vtx * dop_tx);
+                    } else {
+                        splat(hist, T, cfg.n_time, val, yb);
+                    }
                     *events += val != 0.0f;
-                    if constexpr (MESH) lane_sum += val;
+                    if constexpr (MESH || DOP) lane_sum += val;
                 }
             }
         }
 
         if (depth == cfg.max_depth - 1) break;
-        if (!(rb > 0.0f) || !(txc < 0.0f)) break;   // absorbed / on the tx
+        if constexpr (!DOP) {
+            if (!(rb > 0.0f) || !(txc < 0.0f)) break;   // absorbed / tx
 
-        // ---- diffuse bounce: cosine hemisphere about the flipped normal --
-        float u8 = dr.get(d0 + 4), u9 = dr.get(d0 + 5);
-        float face = -(dx * nx + dy * ny + dz * nz);
-        float sgn = sgn_ge(face);
-        float fx = nx * sgn, fy = ny * sgn, fz = nz * sgn;
-        float sign = sgn_ge(fz);
-        float a2 = -1.0f / (sign + fz);
-        float b2 = fx * fy * a2;
-        float s1x = 1.0f + sign * fx * fx * a2, s1y = sign * b2,
-              s1z = -sign * fx;
-        float s2x = b2, s2y = sign + fy * fy * a2, s2z = -fy;
-        float rr2 = sqrtf(u8);
-        float ph2 = TP * u9;
-        float bx = rr2 * fast_cos(ph2), by = rr2 * fast_sin(ph2);
-        float bz = sqrtf(fmaxf(1.0f - u8, 0.0f));
-        dx = s1x * bx + s2x * by + fx * bz;
-        dy = s1y * bx + s2y * by + fy * bz;
-        dz = s1z * bx + s2z * by + fz * bz;
-        thr = thr * rb;
-        cx = hx + F(1e-4) * fx;
-        cy = hy + F(1e-4) * fy;
-        cz = hz + F(1e-4) * fz;
+            // ---- diffuse bounce: cosine hemisphere about the flipped
+            //      normal ----
+            float u8 = dr.get(d0 + 4), u9 = dr.get(d0 + 5);
+            float face = -(dx * nx + dy * ny + dz * nz);
+            float sgn = sgn_ge(face);
+            float fx = nx * sgn, fy = ny * sgn, fz = nz * sgn;
+            float sign = sgn_ge(fz);
+            float a2 = -1.0f / (sign + fz);
+            float b2 = fx * fy * a2;
+            float s1x = 1.0f + sign * fx * fx * a2, s1y = sign * b2,
+                  s1z = -sign * fx;
+            float s2x = b2, s2y = sign + fy * fy * a2, s2z = -fy;
+            float rr2 = sqrtf(u8);
+            float ph2 = TP * u9;
+            float bx = rr2 * fast_cos(ph2), by = rr2 * fast_sin(ph2);
+            float bz = sqrtf(fmaxf(1.0f - u8, 0.0f));
+            dx = s1x * bx + s2x * by + fx * bz;
+            dy = s1y * bx + s2y * by + fy * bz;
+            dz = s1z * bx + s2z * by + fz * bz;
+            thr = thr * rb;
+            cx = hx + F(1e-4) * fx;
+            cy = hy + F(1e-4) * fy;
+            cz = hz + F(1e-4) * fz;
+        } else {
+            if (!(txc < 0.0f)) break;                   // on the tx
+            if (!is_ggx && !(rb > 0.0f)) break;         // absorbed
+
+            // ---- bounce: cosine hemisphere (diffuse) or a GGX half
+            //      vector about the flipped normal ----
+            float u8 = dr.get(d0 + 4), u9 = dr.get(d0 + 5);
+            float face = -(dx * nx + dy * ny + dz * nz);
+            float sgn = sgn_ge(face);
+            float fx = nx * sgn, fy = ny * sgn, fz = nz * sgn;
+            float sign = sgn_ge(fz);
+            float a2 = -1.0f / (sign + fz);
+            float b2 = fx * fy * a2;
+            float s1x = 1.0f + sign * fx * fx * a2, s1y = sign * b2,
+                  s1z = -sign * fx;
+            float s2x = b2, s2y = sign + fy * fy * a2, s2z = -fy;
+            float ph2 = TP * u9;
+            float ndx, ndy, ndz, w_b;
+            if (is_ggx) {
+                // weight refl F G (wi.h) / (cos_i h.n)
+                float ag2 = ab * ab;
+                float tan2 = ag2 * u8 / fmaxf(1.0f - u8, F(1e-12));
+                float cth = rsqrtf(1.0f + tan2);
+                float sth = sqrtf(fmaxf(1.0f - cth * cth, 0.0f));
+                float hlx = sth * fast_cos(ph2), hly = sth * fast_sin(ph2);
+                float hwx = s1x * hlx + s2x * hly + fx * cth;
+                float hwy = s1y * hlx + s2y * hly + fy * cth;
+                float hwz = s1z * hlx + s2z * hly + fz * cth;
+                float ci_b = fabsf(face);
+                float idoth = -dx * hwx + -dy * hwy + -dz * hwz;
+                ndx = 2.0f * idoth * hwx + dx;
+                ndy = 2.0f * idoth * hwy + dy;
+                ndz = 2.0f * idoth * hwz + dz;
+                float co_g = ndx * fx + ndy * fy + ndz * fz;
+                float f_b = fres_cond(fabsf(idoth), eb, kk);
+                float g_b = g1(ci_b, ag2) * g1(fabsf(co_g), ag2);
+                w_b = rb * f_b * g_b * idoth / fmaxf(ci_b * cth, F(1e-8));
+                if (!(co_g > 0.0f && idoth > 0.0f && w_b > 0.0f)) break;
+            } else {
+                float rr2 = sqrtf(u8);
+                float bx = rr2 * fast_cos(ph2), by = rr2 * fast_sin(ph2);
+                float bz = sqrtf(fmaxf(1.0f - u8, 0.0f));
+                ndx = s1x * bx + s2x * by + fx * bz;
+                ndy = s1y * bx + s2y * by + fy * bz;
+                ndz = s1z * bx + s2z * by + fz * bz;
+                w_b = rb;
+            }
+            // bounce Doppler of the continued path
+            dop = dop * (1.0f + ((ndx - dx) * vbx + (ndy - dy) * vby
+                                 + (ndz - dz) * vbz) / cvel);
+            dx = ndx;
+            dy = ndy;
+            dz = ndz;
+            thr = thr * w_b;
+            cx = hx + F(1e-4) * fx;
+            cy = hy + F(1e-4) * fy;
+            cz = hz + F(1e-4) * fz;
+        }
     }
     return lane_sum;
 }
 
-template <bool MESH>
+template <bool MESH, bool DOP>
 __global__ void receive_trace_kernel(const float* __restrict__ params,
                                      const float* __restrict__ prim,
                                      const float* __restrict__ txp,
+                                     const float* __restrict__ msh,
                                      const float* __restrict__ uniforms,
                                      bvh::Tables mesh,
                                      float* __restrict__ lane_val,
@@ -581,11 +858,20 @@ __global__ void receive_trace_kernel(const float* __restrict__ params,
     float* s_par = smem;
     float* s_prim = s_par + cfg.n_params;
     float* s_tx = s_prim + cfg.n_prims * PRIM_COLS;
-    float* hist = s_tx + TXP_COLS;
+    float* hist = s_tx + TXP_COLS;      // flagship / mesh: private rows
+    float* s_msh = s_tx + TXP_COLS;     // Doppler: mesh-shape rows, grid
+    float* s_grid = s_msh + cfg.n_msh * MSH_COLS;
+    const long long n_cells = (long long)cfg.n_time * cfg.n_freq;
     for (int i = tid; i < cfg.n_params; i += T) s_par[i] = params[i];
     for (int i = tid; i < cfg.n_prims * PRIM_COLS; i += T) s_prim[i] = prim[i];
     for (int i = tid; i < TXP_COLS; i += T) s_tx[i] = txp[i];
-    for (int i = tid; i < cfg.n_time * T; i += T) hist[i] = 0.0f;
+    if constexpr (DOP) {
+        for (int i = tid; i < cfg.n_msh * MSH_COLS; i += T) s_msh[i] = msh[i];
+        if (cfg.mode == 1)
+            for (int i = tid; i < n_cells; i += T) s_grid[i] = 0.0f;
+    } else {
+        for (int i = tid; i < cfg.n_time * T; i += T) hist[i] = 0.0f;
+    }
     __syncthreads();
 
     Tx tx;
@@ -608,6 +894,14 @@ __global__ void receive_trace_kernel(const float* __restrict__ params,
         tx.ny = m[6] * tnn;
         tx.nz = m[10] * tnn;
     }
+    if constexpr (DOP) {
+        tx.vx = s_tx[24];
+        tx.vy = s_tx[25];
+        tx.vz = s_tx[26];
+    }
+    Grid grid;
+    grid.s = cfg.mode == 1 ? s_grid : nullptr;
+    grid.g = partial;
 
     Draws dr;
     dr.u = uniforms;
@@ -621,20 +915,28 @@ __global__ void receive_trace_kernel(const float* __restrict__ params,
          lane += stride) {
         dr.lane = lane;
         dr.group = -1;
-        float v = trace_lane<MESH>(cfg, s_par, s_prim, tx, mesh, dr,
-                                   my_hist, T, &events);
-        if constexpr (MESH) {
+        float v = trace_lane<MESH, DOP>(cfg, s_par, s_prim, s_msh, tx, mesh,
+                                        dr, my_hist, T, grid, &events);
+        if constexpr (MESH || DOP) {
             if (lane_val != nullptr) lane_val[lane] = v;
         }
     }
     __syncthreads();
 
-    // block row: sum the T private rows in thread order
-    for (int b = tid; b < cfg.n_time; b += T) {
-        double s = 0.0;
-        const float* row = hist + b * T;
-        for (int t = 0; t < T; ++t) s += (double)row[t];
-        partial[(long long)blockIdx.x * cfg.n_time + b] = s;
+    if constexpr (DOP) {
+        // the block's grid, in double (mode 2 added to `partial` already)
+        if (cfg.mode == 1)
+            for (long long c = tid; c < n_cells; c += T)
+                partial[(long long)blockIdx.x * n_cells + c] =
+                    (double)s_grid[c];
+    } else {
+        // block row: sum the T private rows in thread order
+        for (int b = tid; b < cfg.n_time; b += T) {
+            double s = 0.0;
+            const float* row = hist + b * T;
+            for (int t = 0; t < T; ++t) s += (double)row[t];
+            partial[(long long)blockIdx.x * cfg.n_time + b] = s;
+        }
     }
     __syncthreads();
     unsigned long long ev = events;
@@ -650,21 +952,24 @@ __global__ void receive_trace_kernel(const float* __restrict__ params,
     }
 }
 
-// Fixed-order sum of the per-block partials.
+// Fixed-order sum of the per-block partials (n_rows of n_cells doubles),
+// one thread per cell; the events of the n_blocks trace blocks.
+constexpr int REDUCE_THREADS = 256;
+
 __global__ void receive_reduce_kernel(const double* __restrict__ partial,
                                       const unsigned long long* __restrict__
                                           part_ev,
-                                      int n_blocks, int n_time,
+                                      int n_rows, int n_blocks,
+                                      long long n_cells,
                                       float* __restrict__ out,
                                       long long* __restrict__ out_events) {
-    int b = threadIdx.x;
-    if (b < n_time) {
+    long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (c < n_cells) {
         double s = 0.0;
-        for (int k = 0; k < n_blocks; ++k)
-            s += partial[(long long)k * n_time + b];
-        out[b] = (float)s;
+        for (int k = 0; k < n_rows; ++k) s += partial[(long long)k * n_cells + c];
+        out[c] = (float)s;
     }
-    if (b == 0) {
+    if (c == 0) {
         unsigned long long e = 0;
         for (int k = 0; k < n_blocks; ++k) e += part_ev[k];
         out_events[0] = (long long)e;
@@ -678,19 +983,28 @@ int threads_for(int n_time) {
     return (t / 32) * 32;
 }
 
-template <bool MESH>
-int geometry(int n_time, long long n_lanes, int n_prims, int n_params,
-             int* blocks, int* threads, int* smem_bytes) {
-    int T = threads_for(n_time);
-    if (T < 32) return (int)cudaErrorInvalidValue;
-    int smem = 4 * (n_params + n_prims * PRIM_COLS + TXP_COLS + n_time * T);
+template <bool MESH, bool DOP>
+int geometry(int n_time, int n_freq, long long n_lanes, int n_prims,
+             int n_params, int n_msh, int mode, int* blocks, int* threads,
+             int* smem_bytes) {
+    int T, smem;
+    if (DOP) {
+        T = DOP_THREADS;
+        long long cells = mode == 1 ? (long long)n_time * n_freq : 0;
+        smem = (int)(4 * (n_params + n_prims * PRIM_COLS + TXP_COLS
+                          + n_msh * MSH_COLS + cells));
+    } else {
+        T = threads_for(n_time);
+        if (T < 32) return (int)cudaErrorInvalidValue;
+        smem = 4 * (n_params + n_prims * PRIM_COLS + TXP_COLS + n_time * T);
+    }
     cudaError_t err = cudaFuncSetAttribute(
-        receive_trace_kernel<MESH>,
+        receive_trace_kernel<MESH, DOP>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
     int per_sm = 0;
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, receive_trace_kernel<MESH>, T, smem);
+        &per_sm, receive_trace_kernel<MESH, DOP>, T, smem);
     if (err != cudaSuccess) return (int)err;
     if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
     int dev = 0, sms = 0;
@@ -709,31 +1023,45 @@ int geometry(int n_time, long long n_lanes, int n_prims, int n_params,
 
 extern "C" {
 
-// Launch geometry for one call of the flagship (mesh == 0) or the mesh
-// configuration: threads per block, dynamic shared bytes and the
-// persistent grid (resident blocks on every SM, fewer if the lanes run
-// out).  Returns a cudaError_t.
-int rk_geometry(int n_time, long long n_lanes, int n_prims, int n_params,
-                int mesh, int* blocks, int* threads, int* smem_bytes) {
-    return mesh ? geometry<true>(n_time, n_lanes, n_prims, n_params, blocks,
-                                 threads, smem_bytes)
-                : geometry<false>(n_time, n_lanes, n_prims, n_params, blocks,
-                                  threads, smem_bytes);
+// Launch geometry for one call: threads per block, dynamic shared bytes
+// and the persistent grid (resident blocks on every SM, fewer if the
+// lanes run out), for the flagship (mesh == 0, mode == 0), mesh (mesh ==
+// 1, mode == 0) or Doppler configuration (mode 1 block-shared grid, 2
+// global grid; analytic or mesh).  Returns a cudaError_t.
+int rk_geometry(int n_time, int n_freq, long long n_lanes, int n_prims,
+                int n_params, int n_msh, int mesh, int mode, int* blocks,
+                int* threads, int* smem_bytes) {
+    if (mode == 0)
+        return mesh ? geometry<true, false>(n_time, n_freq, n_lanes, n_prims,
+                                            n_params, n_msh, mode, blocks,
+                                            threads, smem_bytes)
+                    : geometry<false, false>(n_time, n_freq, n_lanes,
+                                             n_prims, n_params, n_msh, mode,
+                                             blocks, threads, smem_bytes);
+    return mesh ? geometry<true, true>(n_time, n_freq, n_lanes, n_prims,
+                                       n_params, n_msh, mode, blocks,
+                                       threads, smem_bytes)
+                : geometry<false, true>(n_time, n_freq, n_lanes, n_prims,
+                                        n_params, n_msh, mode, blocks,
+                                        threads, smem_bytes);
 }
 
 // Trace + reduce on `stream`.  `uniforms` is null in PRNG mode; `bbox`
-// is null for the flagship configuration, else the BVH tables of the
-// mesh configuration (leaf rows of `stride` floats), with `patch_p`
-// direction strata per side (0 = none) and, unless null, each lane's
-// contribution sum written to `lane_val` (n_lanes floats).
+// is null for an analytic scene, else the BVH tables of a mesh (leaf rows
+// of `stride` floats), with `patch_p` direction strata per side (0 =
+// none); `msh` the mesh's shape rows (Doppler configuration).  Unless
+// null, each lane's contribution sum goes to `lane_val` (n_lanes floats;
+// mesh and Doppler configurations).  `partial` holds blocks x n_cells
+// doubles (mode 0 / 1) or n_cells (mode 2, zeroed here).
 int rk_launch(const float* params, const float* prim, const float* txp,
-              const float* uniforms, double* partial,
+              const float* msh, const float* uniforms, double* partial,
               unsigned long long* part_ev, float* out, long long* out_events,
               const float* bbox, const int* links, const float* leaves,
               int stride, int patch_p, float* lane_val, long long n_lanes,
-              unsigned long long seed, int n_time, int max_depth, int gate,
-              int omni, int n_prims, int n_params, float t_start,
-              float t_window, float f_rx, int blocks, int threads,
+              unsigned long long seed, int n_time, int n_freq, int max_depth,
+              int gate, int omni, int n_prims, int n_params, int n_msh,
+              int mode, float t_start, float t_window, float f_rx,
+              float f_lo, float f_span, float f_den, int blocks, int threads,
               int smem_bytes, void* stream) {
     Cfg cfg;
     cfg.n_lanes = n_lanes;
@@ -749,21 +1077,48 @@ int rk_launch(const float* params, const float* prim, const float* txp,
     cfg.t_start = t_start;
     cfg.t_window = t_window;
     cfg.f_rx = f_rx;
+    cfg.n_freq = mode == 0 ? 1 : n_freq;
+    cfg.n_msh = n_msh;
+    cfg.mode = mode;
+    cfg.f_lo = f_lo;
+    cfg.f_span = f_span;
+    cfg.f_den = f_den;
+    long long n_cells = (long long)n_time * cfg.n_freq;
     bvh::Tables mesh{bbox, links, leaves, stride};
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (bbox != nullptr)
-        receive_trace_kernel<true><<<blocks, threads, smem_bytes, s>>>(
-            params, prim, txp, uniforms, mesh, lane_val, partial, part_ev,
-            cfg);
-    else
-        receive_trace_kernel<false><<<blocks, threads, smem_bytes, s>>>(
-            params, prim, txp, uniforms, mesh, nullptr, partial, part_ev,
-            cfg);
+    if (mode == 2) {
+        cudaError_t e = cudaMemsetAsync(partial, 0, 8 * n_cells, s);
+        if (e != cudaSuccess) return (int)e;
+    }
+    if (mode == 0) {
+        if (bbox != nullptr)
+            receive_trace_kernel<true, false><<<blocks, threads, smem_bytes,
+                                                s>>>(
+                params, prim, txp, msh, uniforms, mesh, lane_val, partial,
+                part_ev, cfg);
+        else
+            receive_trace_kernel<false, false><<<blocks, threads, smem_bytes,
+                                                 s>>>(
+                params, prim, txp, msh, uniforms, mesh, nullptr, partial,
+                part_ev, cfg);
+    } else {
+        if (bbox != nullptr)
+            receive_trace_kernel<true, true><<<blocks, threads, smem_bytes,
+                                               s>>>(
+                params, prim, txp, msh, uniforms, mesh, lane_val, partial,
+                part_ev, cfg);
+        else
+            receive_trace_kernel<false, true><<<blocks, threads, smem_bytes,
+                                                s>>>(
+                params, prim, txp, msh, uniforms, mesh, lane_val, partial,
+                part_ev, cfg);
+    }
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    int rt = ((n_time + 31) / 32) * 32;
-    receive_reduce_kernel<<<1, rt, 0, s>>>(partial, part_ev, blocks, n_time,
-                                           out, out_events);
+    int n_rows = mode == 2 ? 1 : blocks;
+    int rb = (int)((n_cells + REDUCE_THREADS - 1) / REDUCE_THREADS);
+    receive_reduce_kernel<<<rb, REDUCE_THREADS, 0, s>>>(
+        partial, part_ev, n_rows, blocks, n_cells, out, out_events);
     return (int)cudaGetLastError();
 }
 

@@ -1,33 +1,42 @@
 """Radar receive megakernel on Hopper: host side, plain PyTorch version and
 the wrapper of the CUDA kernel in `csrc/receive_megakernel.cu`.
 
-Counterpart of `beifong_tpu/integrators/pallas_receive.py` in two
+Counterpart of `beifong_tpu/integrators/pallas_receive.py` in three
 configurations.  The flagship one: analytic rectangles, diffuse BSDFs,
 one Wigner transmitter (CW / pulse / LFMCW), a Wigner or omni receiver,
 raw receive without LO, fixed or gate time sampling, power accumulation
-on a fast-time-only ADC (`n_freq == 1`), a static scene and no medium.
-The mesh one adds diffuse triangle meshes (and rectangles demoted into
-them past MAX_PRIMS) behind a BVH walk (`csrc/bvh_walk.cuh`) for the
-closest hit and the shadow test, and the per-tile direction strata of
-the receive rays.  Per lane the kernel generates the receive ray, finds
-the closest hit, counts direct transmitter hits at depth 0, connects to
-the transmitter (NEE) with the waveform and aperture Wigner weights and a
-shadow test, tent-splats into the fast-time bins and makes the diffuse
-bounce.
+on a fast-time-only ADC (`n_freq == 1`, n_time <= MAX_N_TIME_ROWS), a
+static scene and no medium.  The mesh one adds diffuse triangle meshes
+(and rectangles demoted into them past MAX_PRIMS) behind a BVH walk
+(`csrc/bvh_walk.cuh`) for the closest hit and the shadow test, and the
+per-tile direction strata of the receive rays.  The Doppler one, on
+rectangles and on meshes, adds what the JAX kernel bakes as `moving`,
+`ggx` and its other splats: the first-order Doppler chain of moving
+shapes, transmitter and receiver, the GGX rough conductor beside the
+diffuse lobe (per prim row, and per mesh-shape row `msh` on meshes), a
+per-lane frequency draw and the time x frequency tent splat for
+`n_freq > 1`, and fast-time grids past MAX_N_TIME_ROWS.  Per lane the
+kernel generates the receive ray, finds the closest hit, counts direct
+transmitter hits at depth 0, connects to the transmitter (NEE) with the
+waveform and aperture Wigner weights and a shadow test, tent-splats into
+the ADC grid and makes the BSDF bounce.
 
 `receive_megakernel_ref` holds that arithmetic as vectorised torch ops
 over lanes, in float32, consuming `uniforms (n_draws, n_lanes)` in the
 kernel's positional draw order:
 
 1. one time draw (a placeholder under gate sampling);
-2. two (omni) or four (Wigner) receive-ray draws;
-3. per depth: the direct-hit draw, then two transmitter-point draws and
+2. the frequency draw, for `n_freq > 1` only (as the JAX kernel draws it);
+3. two (omni) or four (Wigner) receive-ray draws;
+4. per depth: the direct-hit draw, then two transmitter-point draws and
    the emission-time draw (a placeholder under fixed sampling);
-4. per depth but the last: two bounce draws.
+5. per depth but the last: two bounce draws (the diffuse lobe and the
+   GGX half-vector share them, as the lane's type is one or the other).
 
-`n_draws` over-allocates (26 rows at depth 3, of which 21 are read) and is
-honoured as the layout stride.  `receive_megakernel` runs that plain
-version for tensors on the CPU and the CUDA kernel for tensors on a card.
+`n_draws` over-allocates (26 rows at depth 3, of which at most 22 are
+read) and is honoured as the layout stride.  `receive_megakernel` runs
+that plain version for tensors on the CPU and the CUDA kernel for tensors
+on a card.
 
 Direction strata (mesh scenes whose 1024-lane tiles tile a P x P grid,
 P = 32 or 16): the lanes of tile `lane // 1024` draw their cosine-
@@ -46,7 +55,7 @@ import torch
 
 from .. import _nvcc
 from .._device import resolve_device
-from ..bsdf.tables import DIFFUSE
+from ..bsdf.tables import DIFFUSE, ROUGH_CONDUCTOR
 from ..core.rng import MASK32, philox4x32_10
 from ..geometry import bvh as bvh_mod
 from ..geometry.bvh_kernel import PackedBVH, walk_ref, leaf_column, pack
@@ -55,7 +64,22 @@ from ..radar.endpoints import ADCConfig, OMNI, WIGNER
 from ..radar.waveform import CW, LINFMCW
 
 MAX_PRIMS = 64          # prim rows held in shared memory
-MAX_N_TIME = 512        # per-thread shared-memory histograms (see the .cu)
+# ADC caps on the H100 (the TPU's VMEM / MXU caps and its 128-multiple
+# rule do not apply; see the splat notes in the .cu):
+# - flagship / mesh configurations: a private shared-memory row of
+#   n_time floats per thread within 96 KB a block; at 512 bins that
+#   leaves one warp a block;
+MAX_N_TIME_ROWS = 512
+# - Doppler configuration: one block-shared (n_time, n_freq) float grid
+#   up to MAX_SMEM_CELLS (64 KB: with ~11 KB of tables, three blocks fit
+#   an SM's 228 KB), past it a global float64 grid of atomics up to
+#   MAX_ADC_CELLS (8 MB, which stays in the 50 MB L2);
+MAX_SMEM_CELLS = 16384
+MAX_ADC_CELLS = 1 << 20
+# - bin coordinates are float32: at 2^16 bins a tent weight keeps 7
+#   fraction bits (the JAX package's 1-D cap is the same 65,536)
+MAX_N_TIME = 65536
+MAX_N_FREQ = 65536
 MAX_MEDIA_LAYERS = 32   # params layout: 45 + MAX_MEDIA_LAYERS slots
 MAX_MESH_SHAPES = 64    # distinct mesh-shape rows (the JAX package's cap)
 MESH_STRIDE = 96        # leaf rows: 80 + reflectance + shape-row payloads
@@ -85,6 +109,27 @@ class PackedScene:
     rxph: np.ndarray     # (1, 8) phased receiver row (zeros here)
     msh: np.ndarray      # (n_mesh_shapes, 8) f32 mesh-shape rows
     mesh: PackedBVH | None = None   # BVH over the mesh triangles (CPU)
+
+    @property
+    def moving(self) -> bool:
+        """Any shape, transmitter or receiver velocity (the JAX kernel's
+        `moving` flag)."""
+        return bool(np.abs(self.prim[:, 19:22]).max(initial=0.0) > 0.0
+                    or np.abs(self.txp[:, 24:27]).max() > 0.0
+                    or np.abs(self.params[23:26]).max() > 0.0
+                    or np.abs(self.msh[:, 0:3]).max() > 0.0)
+
+    @property
+    def ggx(self) -> bool:
+        """A GGX rough conductor on a rectangle or a mesh shape."""
+        return bool((self.prim[:, 18] == ROUGH_CONDUCTOR).any()
+                    or (self.mesh is not None
+                        and (self.msh[:, 6] == ROUGH_CONDUCTOR).any()))
+
+    def doppler(self, adc: ADCConfig) -> bool:
+        """Does this scene and ADC need the Doppler configuration?"""
+        return (self.moving or self.ggx or adc.n_freq != 1
+                or adc.n_time > MAX_N_TIME_ROWS)
 
 
 def _demoted_rects(sd) -> list:
@@ -332,30 +377,35 @@ def supported(scene_data, rx, reason: list | None = None) -> bool:
         if len(rows) > MAX_MESH_SHAPES:
             return no(f'{len(rows)} distinct mesh-shape rows > '
                       f'{MAX_MESH_SHAPES} (per-shape resolution)')
-    if not set(sd.bsdfs.present) <= {DIFFUSE}:
-        return no('BSDFs beyond diffuse, on meshes as on rectangles '
-                  '(ROADMAP B5)')
+    if not set(sd.bsdfs.present) <= {DIFFUSE, ROUGH_CONDUCTOR}:
+        return no('BSDFs beyond diffuse and the GGX rough conductor, on '
+                  'meshes as on rectangles (ROADMAP B5)')
     if bool((sd.bsdfs.texture_idx >= 0).any()):
         return no('textured BSDFs (ROADMAP B7)')
-    if bool((sd.shapes.velocity != 0).any()) \
-            or bool((tx.velocity != 0).any()) \
-            or bool(np.any(np.asarray(rx.velocity) != 0)):
-        return no('moving scene or mesh: the Doppler chain is ROADMAP B7')
     if rx.kind not in (WIGNER, OMNI):
         return no(f'receiver kind {rx.kind} (ROADMAP B6)')
     if rx.receive_type != 'raw' or rx.lo_waveform is not None:
         return no(f'receive_type {rx.receive_type!r} / LO (ROADMAP B3)')
-    if rx.adc.n_freq != 1:
-        return no('n_freq > 1: the 2-D splat is ROADMAP B2')
-    if rx.adc.n_time > MAX_N_TIME:
-        return no(f'n_time {rx.adc.n_time} > {MAX_N_TIME} (per-thread '
-                  'shared histograms; the wide splat is ROADMAP B2)')
+    adc = rx.adc
+    if adc.n_freq > MAX_N_FREQ:
+        return no(f'n_freq {adc.n_freq} > {MAX_N_FREQ} (float32 bin '
+                  'coordinates; ROADMAP A5)')
+    if adc.n_time > MAX_N_TIME:
+        return no(f'n_time {adc.n_time} > {MAX_N_TIME} (float32 bin '
+                  'coordinates; ROADMAP A5)')
+    if adc.n_time * adc.n_freq > MAX_ADC_CELLS:
+        return no(f'ADC grid {adc.n_time} x {adc.n_freq} > {MAX_ADC_CELLS} '
+                  'cells (the global accumulator; ROADMAP A5)')
+    if adc.n_freq > 1 and not adc.freq_hi > adc.freq_lo:
+        return no(f'n_freq {adc.n_freq} over an empty frequency window '
+                  f'[{adc.freq_lo}, {adc.freq_hi}] (ROADMAP A5)')
     return True
 
 
 def n_draws(max_depth: int) -> int:
     """Uniform rows per lane (the layout stride of injected uniforms): the
-    JAX package's count for one transmitter and plain diffuse lobes."""
+    JAX package's count for one transmitter and diffuse or GGX lobes (its
+    eight head rows hold the time, frequency and ray draws)."""
     return 8 + 6 * max_depth
 
 
@@ -421,31 +471,98 @@ def _sign(x):
     return torch.where(x >= 0.0, 1.0, -1.0)
 
 
+def _g1(ct, a2):
+    """Smith GGX masking for |cos| ct."""
+    t2 = (1.0 - ct * ct) / torch.clamp(ct * ct, min=1e-12)
+    return 2.0 / (1.0 + torch.sqrt(1.0 + a2 * t2))
+
+
+def _fres_cond(ci, eta, k):
+    """Unpolarized conductor Fresnel (the JAX kernel's _fres_cond)."""
+    c2 = ci * ci
+    s2 = 1.0 - c2
+    e2 = eta * eta
+    k2 = k * k
+    t0 = e2 - k2 - s2
+    a2b2 = torch.sqrt(torch.clamp(t0 * t0 + 4.0 * e2 * k2, min=0.0))
+    t1 = a2b2 + c2
+    a_ = torch.sqrt(torch.clamp(0.5 * (a2b2 + t0), min=0.0))
+    t2 = 2.0 * a_ * ci
+    rs = (t1 - t2) / torch.clamp(t1 + t2, min=1e-20)
+    t3 = c2 * a2b2 + s2 * s2
+    t4 = t2 * s2
+    rp = rs * (t3 - t4) / torch.clamp(t3 + t4, min=1e-20)
+    return 0.5 * (rs + rp)
+
+
+def _ggx_fcos(rb, ab, eb, kk, nx, ny, nz, wix, wiy, wiz, wox, woy, woz):
+    """GGX rough-conductor f(wi, wo) |cos_o| in the frame flipped toward
+    wi (the GGX branch of the JAX kernel's bsdf_eval_cos)."""
+    ci_raw = wix * nx + wiy * ny + wiz * nz
+    sg = _sign(ci_raw)
+    fx, fy, fz = nx * sg, ny * sg, nz * sg
+    ci = ci_raw * sg
+    co = wox * fx + woy * fy + woz * fz
+    hx, hy, hz = wix + wox, wiy + woy, wiz + woz
+    hn = torch.rsqrt(torch.clamp(hx * hx + hy * hy + hz * hz, min=1e-20))
+    hx, hy, hz = hx * hn, hy * hn, hz * hn
+    hc = hx * fx + hy * fy + hz * fz
+    hsg = _sign(hc)
+    hx, hy, hz, hc = hx * hsg, hy * hsg, hz * hsg, hc * hsg
+    a2 = ab * ab
+    dd = hc * hc * (a2 - 1.0) + 1.0
+    d_ = a2 / torch.clamp(np.pi * dd * dd, min=1e-20)
+    g_ = _g1(ci.abs(), a2) * _g1(co.abs(), a2)
+    idoth = wix * hx + wiy * hy + wiz * hz
+    f_ = _fres_cond(idoth.abs(), eb, kk)
+    f_rc = rb * f_ * d_ * g_ / torch.clamp(4.0 * ci, min=1e-8)
+    return torch.where((co > 0.0) & (ci > 0.0), f_rc, 0.0)
+
+
+STAT_KEYS = ('lanes', 'strata', 'freq_draw', 'trace', 'hit', 'direct',
+             'nee_geom', 'nee', 'ggx_nee', 'occ_tests', 'nee_splat',
+             'splat_2d', 'bounce', 'ggx_bounce', 'dop_direct', 'dop_nee',
+             'dop_bounce', 'walks', 'node_tests', 'leaf_tests', 'mesh_hits')
+
+
 def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
                            max_depth: int, time_sampling: str, rx_kind: str,
-                           mesh: PackedBVH | None = None, patch_p: int = 0,
+                           mesh: PackedBVH | None = None, msh=None,
+                           doppler: bool = False, patch_p: int = 0,
                            lane0: int = 0, stats: dict | None = None,
                            lane_out=None):
-    """Plain version of the kernel.  Returns (acc (n_time,) float32,
-    n_events 0-d int64): the tent-splatted power and the count of nonzero
-    contributions.
+    """Plain version of the kernel, in every configuration.  Returns (acc
+    (n_time, n_freq) float32, n_events 0-d int64): the tent-splatted power
+    and the count of nonzero contributions.
 
     `mesh`: the BVH tables of a mesh scene (stride 96; `pack_scene`), on
-    the uniforms' device.  `patch_p` > 0 stratifies the Wigner receive
-    directions over patch_p^2 cells per 1024-lane tile; the first lane is
-    lane `lane0` of the call (tiles count from lane 0).  `lane_out`, if
-    given, receives each lane's contribution sum (n_lanes,) float32.
+    the uniforms' device; `msh` its (n_mesh_shapes, 8) mesh-shape rows
+    [vel(3), alpha, eta, k, type, 0] (None: diffuse, static).  `patch_p`
+    > 0 stratifies the Wigner receive directions over patch_p^2 cells per
+    1024-lane tile; the first lane is lane `lane0` of the call (tiles
+    count from lane 0).  `lane_out`, if given, receives each lane's
+    contribution sum (n_lanes,) float32.
+
+    `doppler` runs the Doppler configuration: there velocities (prim
+    columns 19-21, transmitter 24-26, receiver params 23-25, `msh` 0-2)
+    switch the Doppler chain on and a ROUGH_CONDUCTOR type (prim column
+    18, `msh` column 6) the GGX lobe, as the JAX kernel's static `moving`
+    and `ggx` flags do; a static diffuse scene comes out as in the
+    flagship and mesh configurations, which read neither (nor `msh`).
+    `n_freq > 1` draws the receive frequency and splats over time x
+    frequency.
 
     `stats`, if given, accumulates how many lanes reach each stage of the
-    kernel (the work a run's data needs): keys 'lanes', 'strata' (lanes
-    with stratified directions), 'trace', 'hit', 'direct', 'nee_geom',
-    'nee', 'occ_tests', 'nee_splat', 'bounce', each summed over depths;
-    with a mesh also 'walks', 'node_tests', 'leaf_tests' (BVH walks, slab
-    tests, leaves entered) and 'mesh_hits' (closest hits on a triangle)."""
-    counts = {k: 0 for k in ('lanes', 'strata', 'trace', 'hit', 'direct',
-                             'nee_geom', 'nee', 'occ_tests', 'nee_splat',
-                             'bounce', 'walks', 'node_tests', 'leaf_tests',
-                             'mesh_hits')}
+    kernel (the work a run's data needs), each summed over depths: keys
+    'lanes', 'strata' (lanes with stratified directions), 'freq_draw',
+    'trace', 'hit', 'direct', 'nee_geom', 'nee' (of which 'ggx_nee' with
+    the GGX lobe), 'occ_tests', 'nee_splat', 'splat_2d' (contributions
+    splatted over time x frequency), 'bounce' (diffuse), 'ggx_bounce',
+    'dop_direct', 'dop_nee', 'dop_bounce' (Doppler factors of a moving
+    scene); with a mesh also 'walks', 'node_tests', 'leaf_tests' (BVH
+    walks, slab tests, leaves entered) and 'mesh_hits' (closest hits on a
+    triangle)."""
+    counts = {k: 0 for k in STAT_KEYS}
 
     def count(key, mask):
         if stats is not None:
@@ -453,13 +570,16 @@ def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
     dev = uniforms.device
     n_lanes = int(uniforms.shape[1])
     gate = time_sampling == 'gate'
-    n_time = adc.n_time
+    n_time, n_freq = adc.n_time, adc.n_freq
+    grid2d = n_freq > 1
 
     def c(v):
         return torch.tensor(v, dtype=torch.float32, device=dev)
 
     t_start, t_window = c(adc.sampling_start), c(adc.sampling_time)
-    n_time_f = c(float(n_time))
+    n_time_f, n_freq_f = c(float(n_time)), c(float(n_freq))
+    f_lo, f_span = c(adc.freq_lo), c(adc.freq_hi - adc.freq_lo)
+    f_den = c(max(adc.freq_hi - adc.freq_lo, 1e-30))
     rows = iter(uniforms)
 
     def draw():
@@ -479,6 +599,15 @@ def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
     # the transmitter's own rectangle (transmitter index 0 in column 14)
     # never occludes its NEE; other geometry does
     blockers = [row for row in prims if float(row[14]) != 0.0]
+    rows_m = msh if doppler and mesh is not None else None
+    # the JAX kernel's static flags, read from the tables
+    moving = doppler and bool(
+        (prim[:, 19:22] != 0).any() or (tr[24:27] != 0).any()
+        or (sp[23:26] != 0).any()
+        or (rows_m is not None and (rows_m[:, 0:3] != 0).any()))
+    ggx = doppler and bool(
+        (prim[:, 18] == ROUGH_CONDUCTOR).any()
+        or (rows_m is not None and (rows_m[:, 6] == ROUGH_CONDUCTOR).any()))
 
     def inst_freq(t):
         pri = 1.0 / torch.clamp(prf, min=1e-12)
@@ -528,7 +657,11 @@ def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
         t_rx0 = torch.zeros(n_lanes, dtype=torch.float32, device=dev)
     else:
         t_rx0 = t_start + draw() * t_window
-    f_rx = c(0.5 * (adc.freq_lo + adc.freq_hi))
+    if grid2d:
+        counts['freq_draw'] += n_lanes
+        f_rx = f_lo + draw() * f_span
+    else:
+        f_rx = c(0.5 * (adc.freq_lo + adc.freq_hi))
     if rx_kind == 'omni':
         ox = rxm[3].expand(n_lanes)
         oy = rxm[7].expand(n_lanes)
@@ -607,24 +740,42 @@ def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
     tnn = torch.rsqrt(torch.clamp(m[2] * m[2] + m[6] * m[6] + m[10] * m[10],
                                   min=1e-20))
     tnx, tny, tnz = m[2] * tnn, m[6] * tnn, m[10] * tnn
+    # cumulative Doppler factor (f_received = f_emitted * dop), the
+    # receiver's motion first
+    dop = (1.0 + (dx * sp[23] + dy * sp[24] + dz * sp[25]) / cvel
+           if moving else None)
 
     # float64 sums: the plain version is the accurate side of the
     # comparison (each contribution is still computed in float32)
-    acc = torch.zeros(n_time, dtype=torch.float64, device=dev)
+    acc = torch.zeros(n_time * n_freq, dtype=torch.float64, device=dev)
     n_events = torch.zeros((), dtype=torch.int64, device=dev)
 
     lane_sum = torch.zeros(n_lanes, dtype=torch.float32, device=dev)
 
-    def splat(val, yb, ok):
+    def splat(val, yb, f_bin, ok):
+        """Tent splat at time coordinate yb (and, on a 2-D grid, at the
+        frequency coordinate of f_bin)."""
         nonlocal n_events, lane_sum
         n_events = n_events + (ok & (val != 0.0)).sum()
         lane_sum = lane_sum + val
+        nz = val != 0.0
         b0 = torch.floor(yb)
-        for b in (b0, b0 + 1.0):
-            w = torch.clamp(1.0 - (yb - b).abs(), min=0.0)
-            keep = (val != 0.0) & (b >= 0.0) & (b < n_time_f)
-            idx = torch.clamp(b, 0.0, n_time - 1.0).long()
-            acc.index_add_(0, idx[keep], (val * w)[keep].double())
+        if grid2d:
+            count('splat_2d', ok & nz)
+            xb = (f_bin - f_lo) / f_den * n_freq_f - 0.5
+            f0 = torch.floor(xb)
+        for bt in (b0, b0 + 1.0):
+            wt = torch.clamp(1.0 - (yb - bt).abs(), min=0.0)
+            keep_t = nz & (bt >= 0.0) & (bt < n_time_f)
+            it = torch.clamp(bt, 0.0, n_time - 1.0).long()
+            if not grid2d:
+                acc.index_add_(0, it[keep_t], (val * wt)[keep_t].double())
+                continue
+            for bf in (f0, f0 + 1.0):
+                wf_ = torch.clamp(1.0 - (xb - bf).abs(), min=0.0)
+                keep = keep_t & (bf >= 0.0) & (bf < n_freq_f)
+                idx = it * n_freq + torch.clamp(bf, 0.0, n_freq - 1.0).long()
+                acc.index_add_(0, idx[keep], (val * wt * wf_)[keep].double())
 
     def rect_t(p_row, cx, cy, cz, ddx, ddy, ddz):
         q = [p_row[1 + i] for i in range(12)]
@@ -654,6 +805,12 @@ def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
         nz = torch.zeros_like(tb)
         rb = torch.zeros_like(tb)
         txc = torch.full_like(tb, -1.0)
+        # the hit's lobe (type, GGX alpha, conductor eta / k) and velocity
+        kb = torch.zeros_like(tb)
+        ab = torch.full_like(tb, 0.1)
+        eb = torch.zeros_like(tb)
+        kk = torch.zeros_like(tb)
+        vb = [torch.zeros_like(tb) for _ in range(3)]
         for row in prims:
             t_p, hit_p, q = rect_t(row, cx, cy, cz, ddx, ddy, ddz)
             rnorm = torch.rsqrt(torch.clamp(
@@ -665,6 +822,14 @@ def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
             nz = torch.where(closer, q[10] * rnorm, nz)
             rb = torch.where(closer, row[13], rb)
             txc = torch.where(closer, row[14], txc)
+            if ggx:
+                kb = torch.where(closer, row[18], kb)
+                ab = torch.where(closer, row[15], ab)
+                eb = torch.where(closer, row[16], eb)
+                kk = torch.where(closer, row[17], kk)
+            if moving:
+                vb = [torch.where(closer, row[19 + i], vb[i])
+                      for i in range(3)]
         if mesh is not None:
             # mesh closest hit, pruned by the analytic best; the geometric
             # normal from the winner's edges, its reflectance from the leaf
@@ -689,6 +854,22 @@ def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
             nz[sel] = (gnz * rn)[m_closer]
             rb[sel] = leaf_column(mesh, w.leaf, w.slot, 80)[m_closer]
             txc[sel] = -1.0
+            # the triangle's shape row (second leaf payload): lobe and
+            # velocity of its mesh
+            if rows_m is not None:
+                sid = leaf_column(mesh, w.leaf, w.slot, 88)[m_closer].long()
+                row = rows_m[sid]
+                kb[sel] = row[:, 6]
+                if ggx:
+                    ab[sel], eb[sel], kk[sel] = row[:, 3], row[:, 4], \
+                        row[:, 5]
+                if moving:
+                    for i in range(3):
+                        vb[i][sel] = row[:, i]
+            else:
+                kb[sel] = float(DIFFUSE)
+                for i in range(3):
+                    vb[i][sel] = 0.0
         hit = tb < 3.4e37
         active = active & hit
         count('hit', active)
@@ -697,6 +878,7 @@ def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
         hx = cx + tb * ddx
         hy = cy + tb * ddy
         hz = cz + tb * ddz
+        is_ggx = kb == float(ROUGH_CONDUCTOR)
 
         # ---- direct transmitter hits (depth 0; NEE covers the rest) ----
         u_dh = draw()
@@ -716,7 +898,10 @@ def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
             count('direct', ok_h)
             val_h = torch.where(ok_h, throughput * w_dh * wg_h, 0.0)
             yb_h = (tr_h - t_start) / t_window * n_time_f - 0.5
-            splat(val_h, yb_h, ok_h)
+            if moving:
+                count('dop_direct', ok_h)
+                fe_h = fe_h * dop
+            splat(val_h, yb_h, fe_h, ok_h)
 
         # ---- NEE to the transmitter ----
         u5, u6 = draw(), draw()
@@ -743,6 +928,11 @@ def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
         sg = _sign(-ddx * nx + -ddy * ny + -ddz * nz)
         co = wx_ * (nx * sg) + wy_ * (ny * sg) + wz_ * (nz * sg)
         f_cos = rb * (1.0 / np.pi) * torch.clamp(co, min=0.0)
+        if ggx:
+            count('ggx_nee', shade & is_ggx)
+            f_cos = torch.where(is_ggx, _ggx_fcos(
+                rb, ab, eb, kk, nx, ny, nz, -ddx, -ddy, -ddz,
+                wx_, wy_, wz_), f_cos)
         u7 = draw()
         t_emit, t_recv, w_gate = emission((plen + dist) / cvel, u7, t_rx0)
         f_emit = inst_freq(t_emit)
@@ -770,14 +960,26 @@ def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
         val = torch.where(ok, throughput * f_cos * w_tx * w_gate
                           / torch.clamp(pdf_sa, min=1e-30), 0.0)
         yb = (t_recv - t_start) / t_window * n_time_f - 0.5
-        splat(val, yb, ok)
+        f_recv = f_emit
+        if moving:
+            # connection Doppler: the vertex's bounce and the
+            # transmitter's motion
+            count('dop_nee', ok)
+            dop_vtx = 1.0 + ((wx_ - ddx) * vb[0] + (wy_ - ddy) * vb[1]
+                             + (wz_ - ddz) * vb[2]) / cvel
+            dop_tx = 1.0 - (wx_ * tr[24] + wy_ * tr[25] + wz_ * tr[26]) \
+                / cvel
+            f_recv = f_emit * dop * dop_vtx * dop_tx
+        splat(val, yb, f_recv, ok)
 
         if depth == max_depth - 1:
             break
 
-        # ---- diffuse bounce: cosine hemisphere about the flipped normal ----
+        # ---- bounce: cosine hemisphere (diffuse) or a GGX half vector
+        #      about the flipped normal ----
         u8, u9 = draw(), draw()
-        count('bounce', active & (rb > 0.0) & (txc < 0.0))
+        cont = active & (txc < 0.0)
+        count('bounce', cont & (rb > 0.0) & ~is_ggx)
         face = -(ddx * nx + ddy * ny + ddz * nz)
         sgn = _sign(face)
         fx, fy, fz = nx * sgn, ny * sgn, nz * sgn
@@ -788,13 +990,46 @@ def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
         s2x, s2y, s2z = b2, sign + fy * fy * a2, -fy
         rr2 = torch.sqrt(u8)
         ph2 = TWO_PI * u9
-        bx_, by_ = rr2 * _fast_cos(ph2), rr2 * _fast_sin(ph2)
+        cos2, sin2 = _fast_cos(ph2), _fast_sin(ph2)
+        bx_, by_ = rr2 * cos2, rr2 * sin2
         bz_ = torch.sqrt(torch.clamp(1.0 - u8, min=0.0))
-        ddx = s1x * bx_ + s2x * by_ + fx * bz_
-        ddy = s1y * bx_ + s2y * by_ + fy * bz_
-        ddz = s1z * bx_ + s2z * by_ + fz * bz_
-        throughput = throughput * rb
-        active = active & (rb > 0.0) & (txc < 0.0)
+        ndx = s1x * bx_ + s2x * by_ + fx * bz_
+        ndy = s1y * bx_ + s2y * by_ + fy * bz_
+        ndz = s1z * bx_ + s2z * by_ + fz * bz_
+        w_b = rb
+        if ggx:
+            # GGX half-vector sample; weight refl F G (wi.h) / (cos_i h.n)
+            count('ggx_bounce', cont & is_ggx)
+            ag2 = ab * ab
+            tan2 = ag2 * u8 / torch.clamp(1.0 - u8, min=1e-12)
+            cth = torch.rsqrt(1.0 + tan2)
+            sth = torch.sqrt(torch.clamp(1.0 - cth * cth, min=0.0))
+            hlx, hly = sth * cos2, sth * sin2
+            hwx = s1x * hlx + s2x * hly + fx * cth
+            hwy = s1y * hlx + s2y * hly + fy * cth
+            hwz = s1z * hlx + s2z * hly + fz * cth
+            ci_b = face.abs()
+            idoth = -ddx * hwx + -ddy * hwy + -ddz * hwz
+            wgx = 2.0 * idoth * hwx + ddx
+            wgy = 2.0 * idoth * hwy + ddy
+            wgz = 2.0 * idoth * hwz + ddz
+            co_g = wgx * fx + wgy * fy + wgz * fz
+            f_b = _fres_cond(idoth.abs(), eb, kk)
+            g_b = _g1(ci_b, ag2) * _g1(co_g.abs(), ag2)
+            w_g = rb * f_b * g_b * idoth / torch.clamp(ci_b * cth, min=1e-8)
+            w_g = torch.where((co_g > 0.0) & (idoth > 0.0), w_g, 0.0)
+            ndx = torch.where(is_ggx, wgx, ndx)
+            ndy = torch.where(is_ggx, wgy, ndy)
+            ndz = torch.where(is_ggx, wgz, ndz)
+            w_b = torch.where(is_ggx, w_g, w_b)
+        if moving:
+            # bounce Doppler of the continued path
+            count('dop_bounce', cont & (w_b > 0.0))
+            dop = dop * (1.0 + ((ndx - ddx) * vb[0] + (ndy - ddy) * vb[1]
+                                + (ndz - ddz) * vb[2]) / cvel)
+        ddx, ddy, ddz = ndx, ndy, ndz
+        throughput = throughput * w_b
+        active = active & (w_b > 0.0) & (txc < 0.0)
         cx = hx + 1e-4 * fx
         cy = hy + 1e-4 * fy
         cz = hz + 1e-4 * fz
@@ -803,7 +1038,7 @@ def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
             stats[k] = stats.get(k, 0) + v
     if lane_out is not None:
         lane_out.copy_(lane_sum)
-    return acc.float(), n_events
+    return acc.float().reshape(n_time, n_freq), n_events
 
 
 # ---------------------------------------------------------------------------
@@ -816,11 +1051,10 @@ def _bind(lib):
                               ctypes.c_longlong, ctypes.c_ulonglong,
                               ctypes.c_float)
     ip = ctypes.POINTER(ctypes.c_int)
-    lib.rk_geometry.argtypes = [i32, i64, i32, i32, i32, ip, ip, ip]
+    lib.rk_geometry.argtypes = [i32] * 2 + [i64] + [i32] * 5 + [ip] * 3
     lib.rk_geometry.restype = i32
-    lib.rk_launch.argtypes = [vp] * 11 + [
-        i32, i32, vp, i64, u64, i32, i32, i32, i32, i32, i32, f32, f32, f32,
-        i32, i32, i32, vp]
+    lib.rk_launch.argtypes = [vp] * 12 + [i32, i32, vp, i64, u64] \
+        + [i32] * 9 + [f32] * 6 + [i32] * 3 + [vp]
     lib.rk_launch.restype = i32
 
 
@@ -831,18 +1065,31 @@ def build_library() -> _nvcc.BuildInfo:
     return _nvcc.build('receive_megakernel')
 
 
+def grid_mode(n_cells: int, doppler: bool) -> int:
+    """How the kernel accumulates an ADC grid of `n_cells`: 0 private
+    per-thread rows (flagship and mesh configurations), 1 a block-shared
+    grid of shared-memory atomics, 2 a global float64 grid of atomics
+    (Doppler configuration, by size)."""
+    if not doppler:
+        return 0
+    return 1 if n_cells <= MAX_SMEM_CELLS else 2
+
+
 def launch_geometry(n_time: int, n_lanes: int, n_prims: int,
                     n_params: int = 45 + MAX_MEDIA_LAYERS,
-                    mesh: bool = False):
+                    mesh: bool = False, n_freq: int = 1, n_msh: int = 0,
+                    doppler: bool = False):
     """(blocks, threads per block, dynamic shared bytes) of the trace
-    kernel (its mesh configuration if `mesh`) on the current card: a
-    persistent grid of as many blocks as fit on every SM at once, fewer
+    kernel (its mesh and / or Doppler configuration) on the current card:
+    a persistent grid of as many blocks as fit on every SM at once, fewer
     when the lanes run out."""
     lib = LIBRARY.get()
+    mode = grid_mode(n_time * n_freq, doppler)
     blocks, threads, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-    LIBRARY.check(lib.rk_geometry(n_time, n_lanes, n_prims, n_params,
-                                  int(mesh), ctypes.byref(blocks),
-                                  ctypes.byref(threads), ctypes.byref(smem)),
+    LIBRARY.check(lib.rk_geometry(n_time, n_freq, n_lanes, n_prims, n_params,
+                                  n_msh, int(mesh), mode,
+                                  ctypes.byref(blocks), ctypes.byref(threads),
+                                  ctypes.byref(smem)),
                   'receive_megakernel geometry')
     return blocks.value, threads.value, smem.value
 
@@ -855,39 +1102,72 @@ def patch_p_for(n_lanes: int) -> int:
     return next((p for p in (32, 16) if n_tiles % (p * p) == 0), 0)
 
 
+def _check_adc(adc: ADCConfig, doppler: bool):
+    if not doppler:
+        if adc.n_freq != 1 or not 1 <= adc.n_time <= MAX_N_TIME_ROWS:
+            raise ValueError(
+                f'ADC {adc.n_time}x{adc.n_freq}: the flagship and mesh '
+                f'configurations take n_freq == 1 and n_time <= '
+                f'{MAX_N_TIME_ROWS} (doppler=True takes more)')
+        return
+    if not (1 <= adc.n_time <= MAX_N_TIME and 1 <= adc.n_freq <= MAX_N_FREQ
+            and adc.n_time * adc.n_freq <= MAX_ADC_CELLS):
+        raise ValueError(f'ADC {adc.n_time}x{adc.n_freq}: the Doppler '
+                         f'configuration takes n_time <= {MAX_N_TIME}, '
+                         f'n_freq <= {MAX_N_FREQ}, <= {MAX_ADC_CELLS} cells')
+    if adc.n_freq > 1 and not adc.freq_hi > adc.freq_lo:
+        raise ValueError(f'n_freq {adc.n_freq} over an empty frequency '
+                         'window')
+
+
 def receive_megakernel(params, prim, txp, *, adc: ADCConfig, max_depth: int,
                        time_sampling: str, rx_kind: str, n_lanes: int,
                        seed: int = 0, uniforms=None,
-                       mesh: PackedBVH | None = None, patch_p: int = 0,
+                       mesh: PackedBVH | None = None, msh=None,
+                       doppler: bool = False, patch_p: int = 0,
                        lane_out=None):
-    """Trace `n_lanes` receive samples.  Returns (acc (n_time,) float32,
-    n_events 0-d int64) on the tables' device.
+    """Trace `n_lanes` receive samples.  Returns (acc (n_time, n_freq)
+    float32, n_events 0-d int64) on the tables' device.
 
     `uniforms` (n_draws(max_depth), n_lanes) float32 feeds the draws
     (injected mode); without it the lanes draw from Philox4x32-10 keyed by
     `seed`.  `mesh` (BVH tables of stride 96, on the tables' device)
     selects the mesh configuration; `patch_p` its direction strata (0 =
-    none; `patch_p_for`), read with the seed slot `params[0]`; a
-    `lane_out` (n_lanes,) float32 tensor receives each lane's contribution
-    sum there (parity runs: it shows which lanes a triangle edge flipped).
-    Tables on
-    the CPU run the plain version (`receive_megakernel_ref`, fed
-    `philox_uniforms` in PRNG mode); tables on a card launch the CUDA
-    kernel, which raises if it cannot build or launch."""
+    none; `patch_p_for`), read with the seed slot `params[0]`.
+    `doppler` selects the Doppler configuration (`PackedScene.doppler`
+    says which scenes need it), which takes a mesh's shape rows `msh`
+    (n_mesh_shapes, 8) float32; the flagship and mesh configurations read
+    no velocity, no lobe but the diffuse one and no `msh`.  A `lane_out`
+    (n_lanes,) float32 tensor receives each lane's contribution sum there
+    (parity runs: it shows which lanes a triangle edge flipped), in the
+    mesh and Doppler configurations.  Tables on the CPU run the plain
+    version (`receive_megakernel_ref`, fed `philox_uniforms` in PRNG
+    mode); tables on a card launch the CUDA kernel, which raises if it
+    cannot build or launch."""
     dev = params.device
     if time_sampling not in ('fixed', 'gate'):
         raise ValueError(f'time_sampling {time_sampling!r}')
     if rx_kind not in ('wigner', 'omni'):
         raise ValueError(f'rx_kind {rx_kind!r}')
-    if adc.n_freq != 1 or not 1 <= adc.n_time <= MAX_N_TIME:
-        raise ValueError(f'ADC {adc.n_time}x{adc.n_freq}: the kernel takes '
-                         f'n_freq == 1 and n_time <= {MAX_N_TIME}')
+    _check_adc(adc, doppler)
     n_prims = int(prim.shape[0])
     if not 1 <= n_prims <= MAX_PRIMS:
         raise ValueError(f'{n_prims} prim rows (1..{MAX_PRIMS})')
-    for name, t, shape in (('params', params, (45 + MAX_MEDIA_LAYERS,)),
-                           ('prim', prim, (n_prims, PRIM_COLS)),
-                           ('txp', txp, (1, TXP_COLS))):
+    tables = [('params', params, (45 + MAX_MEDIA_LAYERS,)),
+              ('prim', prim, (n_prims, PRIM_COLS)),
+              ('txp', txp, (1, TXP_COLS))]
+    n_msh = 0
+    if msh is not None:
+        n_msh = int(msh.shape[0])
+        if not (doppler and mesh is not None
+                and 1 <= n_msh <= MAX_MESH_SHAPES):
+            raise ValueError(f'msh: 1..{MAX_MESH_SHAPES} mesh-shape rows, '
+                             'read by the Doppler configuration of a mesh')
+        tables.append(('msh', msh, (n_msh, 8)))
+    elif doppler and mesh is not None:
+        raise ValueError('the Doppler configuration of a mesh needs its '
+                         'mesh-shape rows msh')
+    for name, t, shape in tables:
         if tuple(t.shape) != shape or t.dtype != torch.float32 \
                 or t.device != dev or not t.is_contiguous():
             raise ValueError(f'{name}: expected contiguous float32 {shape} '
@@ -907,10 +1187,11 @@ def receive_megakernel(params, prim, txp, *, adc: ADCConfig, max_depth: int,
             raise ValueError(f'mesh: expected contiguous stride-'
                              f'{MESH_STRIDE} tables on {dev}')
     if lane_out is not None and (
-            mesh is None or tuple(lane_out.shape) != (n_lanes,)
+            (mesh is None and not doppler)
+            or tuple(lane_out.shape) != (n_lanes,)
             or lane_out.dtype != torch.float32 or lane_out.device != dev):
         raise ValueError(f'lane_out: expected float32 ({n_lanes},) on {dev}, '
-                         'with a mesh')
+                         'with a mesh or in the Doppler configuration')
     if patch_p and (mesh is None or rx_kind != 'wigner'):
         raise ValueError('direction strata need a mesh and a Wigner '
                          'receiver')
@@ -920,40 +1201,58 @@ def receive_megakernel(params, prim, txp, *, adc: ADCConfig, max_depth: int,
         return receive_megakernel_ref(params, prim, txp, u, adc=adc,
                                       max_depth=max_depth,
                                       time_sampling=time_sampling,
-                                      rx_kind=rx_kind, mesh=mesh,
-                                      patch_p=patch_p, lane_out=lane_out)
+                                      rx_kind=rx_kind, mesh=mesh, msh=msh,
+                                      doppler=doppler, patch_p=patch_p,
+                                      lane_out=lane_out)
     if dev.type != 'cuda':
         raise ValueError(f'no receive kernel for device {dev}')
     lib = LIBRARY.get()
+    n_cells = adc.n_time * adc.n_freq
+    mode = grid_mode(n_cells, doppler)
     with torch.cuda.device(dev):
         blocks, threads, smem = launch_geometry(
             adc.n_time, n_lanes, n_prims, int(params.shape[0]),
-            mesh is not None)
-        partial = torch.empty((blocks, adc.n_time), dtype=torch.float64,
-                              device=dev)
+            mesh is not None, adc.n_freq, n_msh, doppler)
+        # per-block partial grids; one global grid of atomics in mode 2
+        partial = torch.empty((1 if mode == 2 else blocks, n_cells),
+                              dtype=torch.float64, device=dev)
         part_ev = torch.empty(blocks, dtype=torch.int64, device=dev)
-        acc = torch.empty(adc.n_time, dtype=torch.float32, device=dev)
+        acc = torch.empty((adc.n_time, adc.n_freq), dtype=torch.float32,
+                          device=dev)
         n_events = torch.empty((), dtype=torch.int64, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         m = (None, None, None, 0) if mesh is None else (
             mesh.bbox.data_ptr(), mesh.links.data_ptr(),
             mesh.leaves.data_ptr(), mesh.stride)
+        f_lo, f_hi = adc.freq_lo, adc.freq_hi
         err = lib.rk_launch(
             params.data_ptr(), prim.data_ptr(), txp.data_ptr(),
+            None if msh is None else msh.data_ptr(),
             None if uniforms is None else uniforms.data_ptr(),
             partial.data_ptr(), part_ev.data_ptr(), acc.data_ptr(),
             n_events.data_ptr(), *m, patch_p,
             None if lane_out is None else lane_out.data_ptr(), n_lanes,
-            seed & 0xFFFFFFFFFFFFFFFF, adc.n_time, max_depth,
+            seed & 0xFFFFFFFFFFFFFFFF, adc.n_time, adc.n_freq, max_depth,
             int(time_sampling == 'gate'), int(rx_kind == 'omni'), n_prims,
-            int(params.shape[0]), adc.sampling_start, adc.sampling_time,
-            0.5 * (adc.freq_lo + adc.freq_hi), blocks, threads, smem, stream)
+            int(params.shape[0]), n_msh, mode, adc.sampling_start,
+            adc.sampling_time, 0.5 * (f_lo + f_hi), f_lo, f_hi - f_lo,
+            max(f_hi - f_lo, 1e-30), blocks, threads, smem, stream)
         LIBRARY.check(err, 'receive_megakernel launch')
     receive_megakernel.launches += 1
+    receive_megakernel.by_config[config_name(mesh is not None, doppler)] += 1
     return acc, n_events
 
 
+CONFIGS = ('flagship', 'mesh', 'doppler', 'doppler_mesh')
+
+
+def config_name(mesh: bool, doppler: bool) -> str:
+    return CONFIGS[int(mesh) + 2 * int(doppler)]
+
+
+# launches of the CUDA kernel, in all and by configuration
 receive_megakernel.launches = 0
+receive_megakernel.by_config = dict.fromkeys(CONFIGS, 0)
 
 
 # ---------------------------------------------------------------------------
@@ -963,12 +1262,15 @@ receive_megakernel.launches = 0
 
 @dataclasses.dataclass(frozen=True)
 class DeviceTables:
-    """A scene's kernel tables on one device."""
+    """A scene's kernel tables on one device, and the configuration they
+    need."""
 
     params: torch.Tensor
     prim: torch.Tensor
     txp: torch.Tensor
+    msh: torch.Tensor | None      # mesh-shape rows (Doppler meshes only)
     mesh: PackedBVH | None
+    doppler: bool
 
 
 def in_scope(scene, scene_data, rx, dev, reason: list) -> bool:
@@ -1003,11 +1305,15 @@ def _device_tables(scene, scene_data, rx, dev) -> DeviceTables:
             "scene outside the receive kernel's scope: " + '; '.join(why))
     packed = pack_scene(scene_data, rx,
                         scene.shape_index_of_endpoint('receiver', rx.id))
+    doppler = packed.doppler(rx.adc)
     params, prim, txp = (torch.as_tensor(a, device=dev).contiguous()
                          for a in (packed.params, packed.prim, packed.txp))
-    tables = DeviceTables(params=params, prim=prim, txp=txp,
-                          mesh=None if packed.mesh is None
-                          else packed.mesh.to(dev))
+    tables = DeviceTables(
+        params=params, prim=prim, txp=txp,
+        msh=torch.as_tensor(packed.msh, device=dev).contiguous()
+        if doppler and packed.mesh is not None else None,
+        mesh=None if packed.mesh is None else packed.mesh.to(dev),
+        doppler=doppler)
     cache[key] = (scene_data, rx, tables)
     return tables
 
@@ -1021,8 +1327,9 @@ def seed_slot(seed: int) -> float:
 def receive_kernel(scene, scene_data, rx, spp: int, seed: int = 0,
                    max_depth: int = 3, time_sampling: str = 'gate',
                    device=None):
-    """Run the receive kernel on `scene_data`'s tables.  Returns
-    (signal (n_time, 1) float32 accumulated power, n_samples).
+    """Run the receive kernel on `scene_data`'s tables, in the
+    configuration they need.  Returns (signal (n_time, n_freq) float32
+    accumulated power, n_samples).
 
     n_samples is `spp`, rounded down to whole 1024-lane tiles (at least
     one) for mesh scenes, as the JAX package rounds its mesh lanes.  The
@@ -1043,5 +1350,6 @@ def receive_kernel(scene, scene_data, rx, spp: int, seed: int = 0,
     acc, _ = receive_megakernel(
         params, tab.prim, tab.txp, adc=rx.adc, max_depth=max_depth,
         time_sampling=time_sampling, rx_kind=rx_kind, n_lanes=n_lanes,
-        seed=seed, mesh=tab.mesh, patch_p=patch_p)
-    return acc.reshape(rx.adc.n_time, 1), n_lanes
+        seed=seed, mesh=tab.mesh, msh=tab.msh, doppler=tab.doppler,
+        patch_p=patch_p)
+    return acc, n_lanes

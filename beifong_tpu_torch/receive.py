@@ -2,9 +2,10 @@
 `beifong_tpu/receive.py`).
 
 A scene inside the receive kernel's scope (`integrators.receive_kernel.
-supported`: rectangles and diffuse triangle meshes, one resampling Wigner
-transmitter, raw power receive on a fast-time ADC, a static scene) runs
-the CUDA megakernel on a card, or its plain PyTorch version on the CPU.
+supported`: rectangles and triangle meshes with diffuse or GGX rough-
+conductor BSDFs, moving or not, one resampling Wigner transmitter, raw
+power receive on a fast-time or time x frequency ADC) runs the CUDA
+megakernel on a card, or its plain PyTorch version on the CPU.
 Every other scene runs the eager wavefront (`integrators/radar_path.py`)
 in passes of `lanes_per_pass` lanes, its triangle tests on the
 hand-written ray / triangle and BVH kernels.  `use_kernel` picks the

@@ -17,6 +17,11 @@ triangles (9,800 at n_side = 71) R metres out.
 conductor at 5.5 m (1.5 m up) closing at 3 m/s, on a 16 x 32 time x
 Doppler ADC.  Its 324 faces stay below the BVH threshold: the example
 compiles with `use_bvh=False`, and its triangle tests are dense.
+
+`range_doppler_scene` is one pulse of the JAX package's
+`examples/range_doppler.py`: a CW 40 kHz sonar, the flagship's apertures,
+a diffuse 1 m plate closing at 5 m/s from 4 m, on an 8 x 128 time x
+Doppler ADC over 38-42 kHz.
 """
 
 from __future__ import annotations
@@ -29,7 +34,7 @@ from .core import transform as tf
 from .core.config import Band
 from .geometry import shapes as sh
 from .geometry.mesh import MeshSpec, make_grid
-from .radar import (ADCConfig, omni_receiver, pulse, wigner_receiver,
+from .radar import (ADCConfig, cw, omni_receiver, pulse, wigner_receiver,
                     wigner_transmitter)
 
 
@@ -129,6 +134,35 @@ def multi_body_scene():
                                           [0, 0, 0]), tf.scale(0.6)))
     s.add(MeshSpec(v, f, bsdf='metal', to_world=m2,
                    velocity=np.asarray([0.0, v2, 0.0], np.float32)))
+    return s, rx
+
+
+RANGE_DOPPLER = dict(R0=4.0, v=5.0, prf=20.0)
+
+
+def range_doppler_scene(p: int = 0):
+    """Returns (scene, receiver spec) of pulse `p`: the plate at
+    R0 - v p / prf metres, closing at v m/s (RANGE_DOPPLER)."""
+    fc = 40e3
+    r0, v, prf = (RANGE_DOPPLER[k] for k in ('R0', 'v', 'prf'))
+    rp = r0 - v * p / prf
+    s = sc.Scene(band=Band.from_freq(340.0, fc, 10e3))
+    s.add(diffuse('mat', reflectance=1.0, twosided=True))
+    s.add(wigner_transmitter('tx', cw(f_centre=fc), resample_freq=True))
+    aim = np.asarray(tf.compose(tf.look_at([0.3, 0, 0], [0.3, -1, 0]),
+                                tf.scale([0.05, 0.05, 1.0])))
+    s.add(sh.rectangle(to_world=aim, transmitter='tx'))
+    adc = ADCConfig(n_time=8, n_freq=128, sampling_start=0.0,
+                    sampling_time=0.04, freq_lo=fc - 2e3, freq_hi=fc + 2e3)
+    rx = wigner_receiver('rx', adc, receive_type='raw')
+    s.add(rx)
+    aim_rx = np.asarray(tf.compose(tf.look_at([-0.3, 0, 0], [-0.3, -1, 0]),
+                                   tf.scale([0.05, 0.05, 1.0])))
+    s.add(sh.rectangle(to_world=aim_rx, receiver='rx'))
+    tgt = np.asarray(tf.compose(tf.look_at([0, -rp, 0], [0, 0, 0]),
+                                tf.scale(0.5)))
+    s.add(sh.rectangle(to_world=tgt, bsdf='mat',
+                       velocity=np.array([0, v, 0], np.float32)))
     return s, rx
 
 

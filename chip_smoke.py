@@ -21,25 +21,43 @@ Phases (any failure exits non-zero before the last line is printed):
              bit-identical, in both configurations; bvh_closest and
              bvh_any on 2^20 rays over the same mesh (half from the
              receiver aperture, half from around the mesh);
+   doppler - the receive megakernel's Doppler configuration (moving
+             geometry, the GGX rough conductor, time x frequency grids)
+             against its plain version: the multi_body scene lane by lane
+             on injected uniforms at 2^16 lanes, depth 2; one pulse of the
+             range-Doppler example per cell at 2^18 lanes; the flagship on
+             a 1,024-bin fast-time grid and the range-Doppler pulse on a
+             256 x 128 grid (the global accumulator); two Philox calls
+             with one seed of each main scene, which must agree per cell to
+             1e-6 of max|acc| (the configuration adds with atomics), and
+             the plain version on the same stream at 2^24 lanes;
 4. main    - the flagship receive at 2^28 samples, depth 3, and the mesh
              receive at 2^24 samples, depth 2, through `receive()` on the
              card (one warm-up, five timed calls each), then
              `develop_signal` and `pulse_compress`: finite output of the
              expected shape whose range profile peaks at the 2R/c delay;
-             then a ray query on the mesh: bvh_closest of 2^20 receiver
-             rays, bvh_any of their hits toward the transmitter.  Each
-             path must have launched its kernels; the launch counts are
-             set to 0 just before a path and read just after it;
+             multi_body and the range-Doppler pulse through `receive()` at
+             2^24 samples, depth 2, gate sampling (one warm-up, five timed
+             calls each), each launching the Doppler configuration of K1
+             and no K4, the bodies and the plate at their range gates and
+             Doppler bins; then a ray query on the mesh: bvh_closest of
+             2^20 receiver rays, bvh_any of their hits toward the
+             transmitter.  Each path must have launched its kernels; the
+             launch counts are set to 0 just before a path and read just
+             after it;
    wavefront - the eager receive wavefront: ray_triangle_closest /
              ray_triangle_any (K4) against their plain versions at the
              wavefront's shape (2^17 receiver rays x the multi_body
              scene's 324 faces) and a query shape (2^18 rays x
              mesh_scene's 10,082 faces); then the multi_body scene
              (`scenes.multi_body_scene`, the JAX package's
-             examples/multi_body.py) through receive() at 2^22 samples,
-             gate sampling, depth 2 (one warm-up, five timed calls, one
-             profiled call), its two bodies checked in their range gates
-             at their Doppler; the same scene at 2^16 samples on the card
+             examples/multi_body.py) through receive(use_kernel=False) at
+             2^22 samples, gate sampling, depth 2 (one warm-up, five timed
+             calls, one profiled call), its two bodies checked in their
+             range gates at their Doppler and against K1 at the same
+             sample count (peak cells within one bin, each body's window
+             energy within K1_WF_BOUND); the same scene at 2^16 samples on
+             the card
              and on the CPU with one seed; the flagship through the kernel
              and through the wavefront at 2^22 samples, depth 3; and
              mesh_scene through the wavefront, whose BVH queries run K2 /
@@ -86,6 +104,16 @@ K4_QUERY_RAYS = 1 << 18    # the K4 query shape, on mesh_scene
 FLAG_SAMPLES = 1 << 22     # flagship: kernel against wavefront
 FLAG_DEPTH = 3
 BVH_WF_SAMPLES = 1 << 20   # mesh_scene through the wavefront (K2 / K3)
+DOP_LANES = 1 << 24        # Doppler configuration: samples per receive()
+DOP_DEPTH = 2
+DOP_PLAIN_CHUNK = 1 << 20
+MB_PARITY_LANES = 1 << 16  # multi_body, lane by lane
+RD_PARITY_LANES = 1 << 18  # range-Doppler pulse, wide and global grids
+REPEAT_TOL = 1e-6          # x max|acc| per cell: two Philox calls, atomics
+# K1 against the wavefront on multi_body at 2^22 samples: each body's
+# window energy (two unbiased estimators of one expectation; a CPU
+# rehearsal at 2^17 samples differed by at most 8% over three seeds)
+K1_WF_BOUND = 0.25
 # FP32 operations of one (ray, triangle) pair, counted from
 # pallas_intersect._kernel as csrc/intersect_kernels.cu computes them
 K4_PAIR_OPS = 47
@@ -111,6 +139,15 @@ FP32_OPS = {
     'node_test': 23,     # slab test of one node
     'leaf_test': 8 * 47,  # Moller-Trumbore of a leaf's 8 triangles
     'mesh_hit': 19,      # geometric normal of the winning triangle
+    # Doppler configuration
+    'freq_draw': 2,      # receive frequency over the ADC window
+    'ggx_nee': 100,      # GGX f cos (half vector, D, G, Fresnel) beyond
+    #                      the diffuse one
+    'ggx_bounce': 166,   # frame + GGX half-vector sample, Fresnel, G
+    'dop_direct': 1,
+    'dop_nee': 20,       # vertex and transmitter factors
+    'dop_bounce': 11,
+    'splat_2d': 20,      # frequency coordinate, its tent, four taps
 }
 
 
@@ -220,7 +257,8 @@ def lane_ops(stats: dict, n_rect: int) -> float:
             + stats['occ_tests'] * FP32_OPS['rect_test']
             + sum(stats[k] * FP32_OPS[k] for k in
                   ('hit', 'direct', 'nee_geom', 'nee', 'nee_splat',
-                   'bounce'))
+                   'bounce', 'freq_draw', 'ggx_nee', 'ggx_bounce',
+                   'dop_direct', 'dop_nee', 'dop_bounce', 'splat_2d'))
             + walk_ops(stats))
 
 
@@ -232,8 +270,12 @@ def walk_ops(stats: dict) -> float:
 
 
 def print_build(infos: dict, tag: str) -> None:
-    names = {'receive_trace_kernelILb0E': 'receive_megakernel (flagship)',
-             'receive_trace_kernelILb1E': 'receive_megakernel (mesh)',
+    names = {'receive_trace_kernelILb0ELb0E':
+             'receive_megakernel (flagship)',
+             'receive_trace_kernelILb1ELb0E': 'receive_megakernel (mesh)',
+             'receive_trace_kernelILb0ELb1E': 'receive_megakernel (doppler)',
+             'receive_trace_kernelILb1ELb1E':
+             'receive_megakernel (doppler mesh)',
              'receive_reduce_kernel': 'receive reduce',
              'bvh_closest_kernel': 'bvh_closest', 'bvh_any_kernel': 'bvh_any',
              'ray_triangle_kernelILb0E': 'ray_triangle_closest',
@@ -320,6 +362,7 @@ def flagship(torch, bt, rk, dev, tag, pulse_compress) -> dict:
     # ---- 4. the main path ----
     anchor = round_trip_bin(s, rx)
     rk.receive_megakernel.launches = 0
+    rk.receive_megakernel.by_config = dict.fromkeys(rk.CONFIGS, 0)
 
     def run_main(seed):
         return bt.receive(s, sd, rx, seed=seed, spp=N_LANES,
@@ -329,9 +372,10 @@ def flagship(torch, bt, rk, dev, tag, pulse_compress) -> dict:
     run_main(1)
     call_ms, (adc, n) = cuda_ms(lambda i: run_main(2 + i), 5)
     launches = rk.receive_megakernel.launches
-    if launches < 6:
-        fail(f'the flagship path launched receive_megakernel {launches} '
-             f'times in 6 receive() calls')
+    if launches < 6 or rk.receive_megakernel.by_config['flagship'] \
+            != launches:
+        fail(f'the flagship path launched receive_megakernel '
+             f'{rk.receive_megakernel.by_config} in 6 receive() calls')
     check_profile(torch, bt, adc, n, rx, anchor, pulse_compress, 'flagship')
     med = statistics.median(call_ms)
     print(f'receive() flagship 2^28 samples depth 3: median {med:.2f} '
@@ -459,7 +503,7 @@ def mesh(torch, bt, rk, dev, tag, pulse_compress) -> dict:
     lane_ref = torch.empty(MESH_LANES, device=dev)
 
     def plain():
-        total, n_tot = torch.zeros(rx.adc.n_time, device=dev), 0
+        total, n_tot = torch.zeros((rx.adc.n_time, 1), device=dev), 0
         for lane0 in range(0, MESH_LANES, MESH_PLAIN_CHUNK):
             u = rk.philox_uniforms(SEED, nd, MESH_PLAIN_CHUNK, device=dev,
                                    lane0=lane0)
@@ -487,6 +531,7 @@ def mesh(torch, bt, rk, dev, tag, pulse_compress) -> dict:
     # ---- 4. the main path ----
     anchor = round_trip_bin(s, rx)
     rk.receive_megakernel.launches = 0
+    rk.receive_megakernel.by_config = dict.fromkeys(rk.CONFIGS, 0)
 
     def run_main(seed):
         return bt.receive(s, sd, rx, seed=seed, spp=MESH_LANES,
@@ -496,9 +541,11 @@ def mesh(torch, bt, rk, dev, tag, pulse_compress) -> dict:
     _, n0 = run_main(1)
     call_ms, (adc, n) = cuda_ms(lambda i: run_main(2 + i), 5)
     launches = rk.receive_megakernel.launches
-    if launches < 6 or n0 != MESH_LANES or n != MESH_LANES:
-        fail(f'the mesh path launched receive_megakernel {launches} times '
-             f'in 6 receive() calls ({n} samples)')
+    if launches < 6 or rk.receive_megakernel.by_config['mesh'] != launches \
+            or n0 != MESH_LANES or n != MESH_LANES:
+        fail(f'the mesh path launched receive_megakernel '
+             f'{rk.receive_megakernel.by_config} in 6 receive() calls ({n} '
+             'samples)')
     check_profile(torch, bt, adc, n, rx, anchor, pulse_compress, 'mesh')
     med = statistics.median(call_ms)
     print(f'receive() mesh 2^24 samples depth 2: median {med:.3f} ms/call '
@@ -533,6 +580,313 @@ def mesh(torch, bt, rk, dev, tag, pulse_compress) -> dict:
         'parity': max(rel_errs), 'lanes_on_another_path': flips,
         'ms': k_med, 'plain_ms': plain_ms, **b, 'library_ms': None,
     }
+
+
+def _bin_coord(value, lo, hi, n):
+    """Continuous bin-centre coordinate of value on [lo, hi) in n bins."""
+    return (value - lo) / (hi - lo) * n - 0.5
+
+
+def multi_body_anchors(s, cfg) -> list:
+    """(name, time bin, Doppler bin, Doppler Hz) of each multi_body body:
+    its bistatic delay plus half the 2 ms pulse, its bistatic Doppler."""
+    import numpy as np
+    from beifong_tpu_torch.scenes import MULTI_BODY
+    tx_pos = np.array([0.3, 0.0, 0.0])
+    rx_pos = np.array([-0.3, 0.0, 0.0])
+    fc = 40e3
+    t_half = 1e-3        # half the 2 ms pulse: the echo's centre
+    out = []
+    for name, p, vel in (
+            ('body 1 (diffuse, static)', np.array([0.0, -MULTI_BODY['R1'],
+                                                   0.0]), np.zeros(3)),
+            ('body 2 (conductor, closing)',
+             np.array([0.0, -MULTI_BODY['R2'], MULTI_BODY['lift2']]),
+             np.array([0.0, MULTI_BODY['v2'], 0.0]))):
+        tau = (np.linalg.norm(p - tx_pos) + np.linalg.norm(p - rx_pos)) \
+            / s.band.c
+        u_tx = (tx_pos - p) / np.linalg.norm(tx_pos - p)
+        u_rx = (rx_pos - p) / np.linalg.norm(rx_pos - p)
+        f_dop = fc * (vel @ u_tx + vel @ u_rx) / s.band.c
+        t_bin = _bin_coord(tau + t_half, cfg.sampling_start,
+                           cfg.sampling_start + cfg.sampling_time,
+                           cfg.n_time)
+        f_bin = _bin_coord(fc + f_dop, cfg.freq_lo, cfg.freq_hi, cfg.n_freq)
+        out.append((name, t_bin, f_bin, f_dop))
+    return out
+
+
+def _window(grid, t_bin):
+    """The body's range gate: time rows round(t_bin) - 1 .. + 1."""
+    tb = int(round(t_bin))
+    return slice(max(tb - 1, 0), tb + 2)
+
+
+def check_multi_body(torch, grid, s, cfg, what):
+    """Each body in its range gate at its Doppler (within one bin)."""
+    if tuple(grid.shape) != (cfg.n_time, cfg.n_freq) \
+            or not bool(torch.isfinite(grid).all()):
+        fail(f'{what}: multi_body grid {tuple(grid.shape)} not finite / '
+             'wrong shape')
+    g = grid.cpu().double().numpy()
+    for name, t_bin, f_bin, f_dop in multi_body_anchors(s, cfg):
+        fpk = int(g[_window(g, t_bin)].sum(axis=0).argmax())
+        tpk = int(g[:, fpk].argmax())
+        print(f'{what} {name}: range gate {t_bin:.2f} (peak {tpk}), Doppler '
+              f'{f_dop:+.1f} Hz at bin {f_bin:.2f} (peak {fpk})')
+        if abs(fpk - f_bin) > 1 or abs(tpk - t_bin) > 1:
+            fail(f'{what} multi_body {name}: peak at time {tpk} / Doppler '
+                 f'{fpk}, expected {t_bin:.2f} / {f_bin:.2f}')
+
+
+def check_range_doppler(torch, grid, s, cfg, what):
+    """The plate's echo at fc (1 + 2 v_r / c): the Doppler bin of the
+    spectrum summed over the (CW) fast-time bins, within one bin."""
+    import numpy as np
+    from beifong_tpu_torch.scenes import RANGE_DOPPLER
+    if tuple(grid.shape) != (cfg.n_time, cfg.n_freq) \
+            or not bool(torch.isfinite(grid).all()):
+        fail(f'{what}: grid {tuple(grid.shape)} not finite / wrong shape')
+    p = np.array([0.0, -RANGE_DOPPLER['R0'], 0.0])
+    vel = np.array([0.0, RANGE_DOPPLER['v'], 0.0])
+    fc = 40e3
+    f_dop = sum(fc * (vel @ ((e - p) / np.linalg.norm(e - p))) / s.band.c
+                for e in (np.array([0.3, 0, 0]), np.array([-0.3, 0, 0])))
+    f_bin = _bin_coord(fc + f_dop, cfg.freq_lo, cfg.freq_hi, cfg.n_freq)
+    spec = grid.cpu().double().sum(0)
+    fpk = int(spec.argmax())
+    f_2v = 2 * RANGE_DOPPLER['v'] / s.band.c * fc
+    print(f'{what} plate: Doppler {f_dop:+.1f} Hz (2v/c fc {f_2v:.1f} Hz) '
+          f'at bin {f_bin:.2f} (peak {fpk})')
+    if abs(fpk - f_bin) > 1:
+        fail(f'{what}: Doppler peak at bin {fpk}, expected {f_bin:.2f}')
+
+
+def _doppler_tables(torch, rk, scene_fn, dev):
+    s, rx = scene_fn()
+    sd = s.compile(use_bvh=False, device=dev)
+    packed = rk.pack_scene(sd, rx, s.shape_index_of_endpoint('receiver',
+                                                              rx.id))
+    if not packed.doppler(rx.adc):
+        fail(f'{scene_fn.__name__}: expected the Doppler configuration')
+    params = torch.tensor(packed.params, device=dev)
+    params[0] = rk.seed_slot(SEED)
+    mesh = None if packed.mesh is None else packed.mesh.to(dev)
+    kw = dict(adc=rx.adc, max_depth=DOP_DEPTH, time_sampling='gate',
+              rx_kind='wigner', mesh=mesh, doppler=True,
+              msh=None if mesh is None else torch.tensor(packed.msh,
+                                                         device=dev))
+    return (s, sd, rx, params, torch.tensor(packed.prim, device=dev),
+            torch.tensor(packed.txp, device=dev), kw)
+
+
+def doppler(torch, bt, rk, ik, dev, tag):
+    """The Doppler configuration of K1: parity, the main paths, the kernel
+    alone.  Returns (two kernel entries, K1's developed multi_body grid at
+    WF_SAMPLES for the comparison with the wavefront)."""
+    import dataclasses as dc
+    from beifong_tpu_torch.scenes import (flagship_scene, multi_body_scene,
+                                          range_doppler_scene)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    # ---- 3. parity on injected uniforms: multi_body lane by lane, the
+    #      range-Doppler pulse, a wide fast-time grid, the global grid ----
+    def variant(scene_fn, **adc):
+        def fn():
+            s, rx = scene_fn()
+            rx = dc.replace(rx, adc=dc.replace(rx.adc, **adc))
+            s.receivers[0] = rx
+            return s, rx
+        fn.__name__ = scene_fn.__name__
+        return fn
+
+    errs = {'doppler_mesh': [], 'doppler': []}
+    for what, fn, n_lanes, depth in (
+            ('multi_body', multi_body_scene, MB_PARITY_LANES, DOP_DEPTH),
+            ('range_doppler', range_doppler_scene, RD_PARITY_LANES,
+             DOP_DEPTH),
+            ('flagship 1024 bins', variant(flagship_scene, n_time=1024),
+             RD_PARITY_LANES, 3),
+            # past MAX_SMEM_CELLS; its cells still average ~10^2 taps: on
+            # a sparse grid one ulp of a float32 frequency (4 mHz at 41
+            # kHz) moves a tap weight by ~1e-4 at 256 bins over 4 kHz,
+            # and the per-cell tolerance would measure that, not the kernel
+            ('range_doppler 256 x 128 (global grid)',
+             variant(range_doppler_scene, n_time=256, n_freq=128),
+             RD_PARITY_LANES, DOP_DEPTH)):
+        s, sd, rx, params, prim, txp, kw = _doppler_tables(torch, rk, fn,
+                                                           dev)
+        kw = dict(kw, max_depth=depth)
+        u = torch.rand((rk.n_draws(depth), n_lanes), generator=gen,
+                       device=dev)
+        lane = torch.empty(n_lanes, device=dev)
+        lane_ref = torch.empty(n_lanes, device=dev)
+        acc, n_ev = rk.receive_megakernel(params, prim, txp, n_lanes=n_lanes,
+                                          uniforms=u, lane_out=lane, **kw)
+        ms, (ref, n_ref) = wall_ms(lambda: rk.receive_megakernel_ref(
+            params, prim, txp, u, lane_out=lane_ref, **kw))
+        mode = rk.grid_mode(rx.adc.n_time * rx.adc.n_freq, True)
+        name = f'doppler {what} injected 2^{n_lanes.bit_length() - 1} ' \
+            f'lanes (grid mode {mode})'
+        if kw['mesh'] is not None:
+            c = compare_lanes(acc, n_ev, lane, ref, n_ref, lane_ref, depth,
+                              name)
+            errs['doppler_mesh'].append(c)
+        else:
+            errs['doppler'].append(compare(acc, n_ev, ref, n_ref, name))
+        print(f'plain version {what}: {ms:.1f} ms {tag}')
+
+    entries, k1_grid = [], None
+    for cfg_name, what, fn, check in (
+            ('doppler_mesh', 'multi_body', multi_body_scene,
+             check_multi_body),
+            ('doppler', 'range_doppler', range_doppler_scene,
+             check_range_doppler)):
+        s, sd, rx, params, prim, txp, kw = _doppler_tables(torch, rk, fn,
+                                                           dev)
+        mesh = kw['mesh']
+        n_msh = 0 if kw['msh'] is None else int(kw['msh'].shape[0])
+        blocks, threads, smem = rk.launch_geometry(
+            rx.adc.n_time, DOP_LANES, int(prim.shape[0]),
+            mesh=mesh is not None, n_freq=rx.adc.n_freq, n_msh=n_msh,
+            doppler=True)
+        print(f'receive_megakernel ({cfg_name}) geometry at 2^24 lanes: '
+              f'{blocks} blocks x {threads} threads, {smem} B shared each, '
+              f'{blocks / sms:g} blocks per SM on {sms} SMs {tag}')
+        if mesh is not None:
+            kw['patch_p'] = rk.patch_p_for(DOP_LANES)
+        # two Philox calls with one seed: atomics add in arrival order
+        lane = torch.empty(DOP_LANES, device=dev)
+        acc1, n1 = rk.receive_megakernel(params, prim, txp,
+                                         n_lanes=DOP_LANES, seed=SEED,
+                                         lane_out=lane, **kw)
+        acc2, n2 = rk.receive_megakernel(params, prim, txp,
+                                         n_lanes=DOP_LANES, seed=SEED, **kw)
+        torch.cuda.synchronize()
+        scale = float(acc1.abs().max())
+        rep = float((acc1 - acc2).abs().max())
+        print(f'parity {what} philox 2^24 lanes: two calls differ by at most '
+              f'{rep:.3e} ({rep / max(scale, 1e-300):.3e} of max|acc|) per '
+              f'cell, events {int(n1)} / {int(n2)}')
+        if not (scale > 0 and rep <= REPEAT_TOL * scale
+                and int(n1) == int(n2)):
+            fail(f'{what}: two Philox-mode calls with one seed differ')
+        # the plain version on the kernel's Philox stream at the main
+        # path's shape, with its stage counts for the bound
+        stats: dict = {}
+        lane_ref = torch.empty(DOP_LANES, device=dev)
+        nd = rk.n_draws(DOP_DEPTH)
+
+        def plain():
+            total = torch.zeros((rx.adc.n_time, rx.adc.n_freq), device=dev)
+            n_tot = 0
+            for lane0 in range(0, DOP_LANES, DOP_PLAIN_CHUNK):
+                u = rk.philox_uniforms(SEED, nd, DOP_PLAIN_CHUNK, device=dev,
+                                       lane0=lane0)
+                a, n = rk.receive_megakernel_ref(
+                    params, prim, txp, u, lane0=lane0, stats=stats,
+                    lane_out=lane_ref[lane0:lane0 + DOP_PLAIN_CHUNK], **kw)
+                total += a
+                n_tot += int(n)
+            return total, n_tot
+
+        plain_ms, (ref, n_ref) = wall_ms(plain)
+        name = f'doppler {what} philox 2^24 lanes'
+        if mesh is not None:
+            c = compare_lanes(acc1, n1, lane, ref, n_ref, lane_ref, DOP_DEPTH,
+                              name + f', P {kw["patch_p"]}')
+        else:
+            c = compare(acc1, n1, ref, n_ref, name)
+        errs[cfg_name].append(c)
+        print(f'plain version {what}, 2^24 lanes in 2^20-lane chunks: '
+              f'{plain_ms:.1f} ms {tag}')
+        print(f'{what} stage lanes: ' + json.dumps(stats))
+
+        # ---- 4. the main path: receive() ----
+        rk.receive_megakernel.launches = 0
+        rk.receive_megakernel.by_config = dict.fromkeys(rk.CONFIGS, 0)
+        ik.ray_triangle_closest.launches = ik.ray_triangle_any.launches = 0
+
+        def run_main(seed):
+            return bt.receive(s, sd, rx, seed=seed, spp=DOP_LANES,
+                              max_depth=DOP_DEPTH, time_sampling='gate',
+                              device=dev)
+
+        _, n0 = run_main(1)
+        call_ms, (adc, n) = cuda_ms(lambda i: run_main(2 + i), 5)
+        launches = rk.receive_megakernel.launches
+        by_cfg = dict(rk.receive_megakernel.by_config)
+        k4 = (ik.ray_triangle_closest.launches, ik.ray_triangle_any.launches)
+        if launches < 6 or by_cfg[cfg_name] != launches or k4 != (0, 0) \
+                or n0 != DOP_LANES or n != DOP_LANES:
+            fail(f'the {what} path launched K1 {by_cfg}, K4 {k4} in 6 '
+                 f'receive() calls ({n} samples)')
+        med = statistics.median(call_ms)
+        print(f'receive() {what} 2^24 samples depth 2: median {med:.3f} '
+              f'ms/call ({DOP_LANES / (med * 1e-3):.4e} samples/s), calls '
+              f'{[round(x, 3) for x in call_ms]}; K1 launches {by_cfg}, K4 '
+              f'{k4} {tag}')
+        grid = bt.develop_signal(adc, n, rx.adc)[..., 0]
+        check(torch, grid, s, rx.adc, f'receive() {what}')
+
+        # the kernel alone (launches here do not count)
+        k_ms, _ = cuda_ms(lambda i: rk.receive_megakernel(
+            params, prim, txp, n_lanes=DOP_LANES, seed=SEED, **kw), 6)
+        k_med = statistics.median(k_ms[1:])
+        print(f'receive_megakernel ({cfg_name}) 2^24 lanes depth 2: median '
+              f'{k_med:.3f} ms ({DOP_LANES / (k_med * 1e-3):.4e} samples/s) '
+              f'{[round(x, 3) for x in k_ms[1:]]} {tag}')
+
+        if mesh is not None:
+            # K1 at the wavefront phase's sample count, for the comparison
+            a, nn = bt.receive(s, sd, rx, seed=3, spp=WF_SAMPLES,
+                               max_depth=WF_DEPTH, time_sampling='gate',
+                               device=dev)
+            k1_grid = bt.develop_signal(a, nn, rx.adc)[..., 0]
+
+        n_rect = int((prim[:, 0] == 0).sum())
+        tab = [params, prim, txp] + ([] if mesh is None else [
+            kw['msh'], mesh.bbox, mesh.links, mesh.leaves])
+        n_bytes = 4 * (sum(t.numel() for t in tab)
+                       + rx.adc.n_time * rx.adc.n_freq) + 8
+        b = bound(lane_ops(stats, n_rect), n_bytes, f'{what} 2^24 lanes')
+        entries.append({
+            'name': 'receive_megakernel',
+            'configuration': cfg_name.replace('_', ' '), 'route': 'cuda',
+            'source': 'beifong_tpu_torch/csrc/receive_megakernel.cu',
+            'replaces': 'beifong_tpu/integrators/pallas_receive.py:2983',
+            'tpu_function': '_make_kernel (pallas_receive.py:106), moving, '
+            'ggx, 2-D splat' + (', has_mesh' if mesh is not None else ''),
+            'main_path': f'receive({what}_scene()), 2^24 samples, depth 2',
+            'launches': launches,
+            'max_abs_err': max(c['err'] for c in errs[cfg_name]),
+            'parity': max(c['rel'] for c in errs[cfg_name]),
+            'repeat_rel': rep / scale, 'ms': k_med, 'plain_ms': plain_ms,
+            'receive_ms': med, **b, 'library_ms': None})
+    return entries, k1_grid
+
+
+def compare_k1_wavefront(torch, k1_grid, wf_grid, s, cfg):
+    """K1 and the wavefront on multi_body at the same sample count: each
+    body's peak cell within one bin, its window energy within
+    K1_WF_BOUND."""
+    g1 = k1_grid.cpu().double().numpy()
+    gw = wf_grid.cpu().double().numpy()
+    for name, t_bin, f_bin, _ in multi_body_anchors(s, cfg):
+        rows = _window(g1, t_bin)
+        p1 = divmod(int(g1[rows].argmax()), cfg.n_freq)
+        pw = divmod(int(gw[rows].argmax()), cfg.n_freq)
+        fc = int(round(f_bin))
+        cols = slice(max(fc - 2, 0), fc + 3)
+        e1, ew = float(g1[rows, cols].sum()), float(gw[rows, cols].sum())
+        print(f'K1 against the wavefront, {name}: peak cells (time, '
+              f'Doppler) {(rows.start + p1[0], p1[1])} / '
+              f'{(rows.start + pw[0], pw[1])}, window energy {e1:.4e} / '
+              f'{ew:.4e} ({e1 / ew - 1:+.3f}; bound +-{K1_WF_BOUND})')
+        if abs(p1[0] - pw[0]) > 1 or abs(p1[1] - pw[1]) > 1 \
+                or abs(e1 - ew) > K1_WF_BOUND * abs(ew):
+            fail(f'multi_body {name}: K1 and the wavefront disagree')
 
 
 def aperture_rays(torch, scene, rx, lo, hi, n, gen, dev):
@@ -939,28 +1293,22 @@ def _layers(torch, run, tag):
     return dict(spent, total=wall)
 
 
-def _bin_coord(value, lo, hi, n):
-    """Continuous bin-centre coordinate of value on [lo, hi) in n bins."""
-    return (value - lo) / (hi - lo) * n - 0.5
-
-
-def wavefront(torch, bt, ik, bk, rk, dev, tag, pulse_compress):
-    """The eager wavefront's paths.  Returns (K4 launches on the
-    multi_body path, K2 / K3 launches on the BVH path)."""
-    import numpy as np
+def wavefront(torch, bt, ik, bk, rk, dev, tag, pulse_compress, k1_grid):
+    """The eager wavefront's paths; `k1_grid` is K1's developed multi_body
+    grid at WF_SAMPLES.  Returns (K4 launches on the multi_body path, K2 /
+    K3 launches on the BVH path)."""
     from beifong_tpu_torch.integrators import radar_path as rp
-    from beifong_tpu_torch.scenes import (MULTI_BODY, flagship_scene,
-                                          mesh_scene, multi_body_scene,
-                                          round_trip_bin)
+    from beifong_tpu_torch.scenes import (flagship_scene, mesh_scene,
+                                          multi_body_scene, round_trip_bin)
     s, rx = multi_body_scene()
     sd = s.compile(use_bvh=False, device=dev)
     cfg = rx.adc
-    kw = dict(max_depth=WF_DEPTH, time_sampling='gate', use_kernel='auto')
-    why: list = []
-    if rk.supported(sd, rx, why) or sd.bvh is not None:
-        fail('multi_body: expected outside the receive kernel, without BVH')
-    print(f'multi_body: {sd.tris.n_faces} faces, routed to the wavefront '
-          f'({why[0]})')
+    # multi_body is in K1's scope: use_kernel=False keeps it, and K4, here
+    kw = dict(max_depth=WF_DEPTH, time_sampling='gate', use_kernel=False)
+    if sd.bvh is not None:
+        fail('multi_body: expected without the wavefront BVH')
+    print(f'multi_body: {sd.tris.n_faces} faces, routed to the wavefront by '
+          'use_kernel=False')
 
     # ---- the main path: receive() at 2^22 samples ----
     ik.ray_triangle_closest.launches = ik.ray_triangle_any.launches = 0
@@ -1002,40 +1350,11 @@ def wavefront(torch, bt, ik, bk, rk, dev, tag, pulse_compress):
                                       spp=PROFILE_SAMPLES, device=dev,
                                       **kw), tag)
 
-    # the example's anchors: each body in its range gate at its Doppler
+    # the example's anchors: each body in its range gate at its Doppler,
+    # and K1 at the same sample count
     grid = bt.develop_signal(adc, n, cfg)[..., 0]
-    if tuple(grid.shape) != (cfg.n_time, cfg.n_freq) \
-            or not bool(torch.isfinite(grid).all()):
-        fail(f'multi_body grid {tuple(grid.shape)} not finite / wrong shape')
-    grid = grid.cpu().double().numpy()
-    tx_pos = np.array([0.3, 0.0, 0.0])
-    rx_pos = np.array([-0.3, 0.0, 0.0])
-    fc = 40e3
-    t_half = 1e-3        # half the 2 ms pulse: the echo's centre
-    for name, p, vel in (
-            ('body 1 (diffuse, static)', np.array([0.0, -MULTI_BODY['R1'],
-                                                   0.0]), np.zeros(3)),
-            ('body 2 (conductor, closing)',
-             np.array([0.0, -MULTI_BODY['R2'], MULTI_BODY['lift2']]),
-             np.array([0.0, MULTI_BODY['v2'], 0.0]))):
-        tau = (np.linalg.norm(p - tx_pos) + np.linalg.norm(p - rx_pos)) \
-            / s.band.c
-        u_tx = (tx_pos - p) / np.linalg.norm(tx_pos - p)
-        u_rx = (rx_pos - p) / np.linalg.norm(rx_pos - p)
-        f_dop = fc * (vel @ u_tx + vel @ u_rx) / s.band.c
-        t_bin = _bin_coord(tau + t_half, cfg.sampling_start,
-                           cfg.sampling_start + cfg.sampling_time,
-                           cfg.n_time)
-        f_bin = _bin_coord(fc + f_dop, cfg.freq_lo, cfg.freq_hi, cfg.n_freq)
-        tb = int(round(t_bin))
-        spec = grid[max(tb - 1, 0):tb + 2].sum(axis=0)
-        fpk = int(spec.argmax())
-        tpk = int(grid[:, fpk].argmax())
-        print(f'{name}: range gate {t_bin:.2f} (peak {tpk}), Doppler '
-              f'{f_dop:+.1f} Hz at bin {f_bin:.2f} (peak {fpk})')
-        if abs(fpk - f_bin) > 1 or abs(tpk - t_bin) > 1:
-            fail(f'multi_body {name}: peak at time {tpk} / Doppler {fpk}, '
-                 f'expected {t_bin:.2f} / {f_bin:.2f}')
+    check_multi_body(torch, grid, s, cfg, 'wavefront')
+    compare_k1_wavefront(torch, k1_grid, grid, s, cfg)
 
     # ---- the same scene on the card and on the CPU, one seed ----
     rec_gpu: dict = {}
@@ -1157,10 +1476,12 @@ def main() -> int:
     # ---- 3-4. each path: parity, then the path itself ----
     kernels = [flagship(torch, bt, rk, dev, tag, pulse_compress),
                mesh(torch, bt, rk, dev, tag, pulse_compress)]
+    dop_kernels, k1_grid = doppler(torch, bt, rk, ik, dev, tag)
+    kernels += dop_kernels
     kernels += queries(torch, bt, dev, tag)
     k4 = k4_parity(torch, ik, dev, tag)
     k4_launches, bvh_launches = wavefront(torch, bt, ik, bk, rk, dev, tag,
-                                          pulse_compress)
+                                          pulse_compress, k1_grid)
     for k in k4:
         k['launches'] = k4_launches[k['name']]
     for k in kernels:

@@ -10,6 +10,8 @@ machine that has only PyTorch.  There, from the repository root:
 (`--noconftest` skips tests/conftest.py, which configures JAX.)
 """
 
+import dataclasses
+
 import pytest
 import torch
 
@@ -19,7 +21,7 @@ from beifong_tpu_torch.geometry import bvh_kernel as bk
 from beifong_tpu_torch.geometry import intersect_kernel as ik
 from beifong_tpu_torch.integrators import receive_kernel as rk
 from beifong_tpu_torch.scenes import flagship_scene, mesh_scene, \
-    multi_body_scene, round_trip_bin
+    multi_body_scene, range_doppler_scene, round_trip_bin
 
 torch.set_num_threads(1)
 
@@ -278,8 +280,10 @@ def test_wavefront_triangle_tests_run_k4(cuda):
     s, rx = multi_body_scene()
     sd = s.compile(use_bvh=False)
     before = _launches()
+    # multi_body is in the receive kernel's scope: use_kernel=False keeps
+    # it on the wavefront
     adc, n = receive(s, sd, rx, seed=3, spp=1 << 15, max_depth=2,
-                     time_sampling='gate')
+                     time_sampling='gate', use_kernel=False)
     torch.cuda.synchronize()
     after = _launches()
     # one pass, depth 2: two closest-hit and two shadow tests
@@ -313,7 +317,8 @@ def test_wavefront_on_card_matches_cpu_for_one_seed(cuda):
     # both draw the port's Philox stream; the splat's atomic order and the
     # devices' sin / exp differ in the last bits
     s, rx = multi_body_scene()
-    kw = dict(seed=7, spp=1 << 14, max_depth=2, time_sampling='gate')
+    kw = dict(seed=7, spp=1 << 14, max_depth=2, time_sampling='gate',
+              use_kernel=False)
     a_gpu, _ = receive(s, s.compile(use_bvh=False), rx, **kw)
     a_cpu, _ = receive(s, s.compile(use_bvh=False, device='cpu'), rx,
                        device='cpu', **kw)
@@ -321,3 +326,140 @@ def test_wavefront_on_card_matches_cpu_for_one_seed(cuda):
     assert float(ref.abs().max()) > 0
     assert float((a_gpu[..., 0].cpu() - ref).abs().max()) \
         <= 1e-4 * float(ref.abs().max())
+
+
+# ---------------------------------------------------------------------------
+# the receive kernel's Doppler configuration
+# ---------------------------------------------------------------------------
+
+
+def _variant(scene_fn, **adc):
+    s, rx = scene_fn()
+    if adc:
+        rx = dataclasses.replace(rx, adc=dataclasses.replace(rx.adc, **adc))
+        s.receivers[0] = rx
+    return s, rx
+
+
+DOPPLER_SCENES = {
+    'multi_body': lambda: _variant(multi_body_scene),
+    'range_doppler': lambda: _variant(range_doppler_scene),
+    'wide_1d': lambda: _variant(flagship_scene, n_time=1024),
+    # past the shared-memory grid's cap: the global accumulator
+    'global_grid': lambda: _variant(range_doppler_scene, n_time=256,
+                                    n_freq=128),
+}
+
+
+def _doppler_tables(device, scene, seed=0):
+    s, rx = DOPPLER_SCENES[scene]()
+    sd = s.compile(use_bvh=False, device='cpu')
+    p = rk.pack_scene(sd, rx, s.shape_index_of_endpoint('receiver', rx.id))
+    assert p.doppler(rx.adc)
+    params = torch.tensor(p.params, device=device)
+    params[0] = rk.seed_slot(seed)
+    mesh = None if p.mesh is None else p.mesh.to(device)
+    kw = dict(adc=rx.adc, max_depth=2, time_sampling='gate',
+              rx_kind='wigner', mesh=mesh, doppler=True,
+              msh=None if mesh is None else torch.tensor(p.msh,
+                                                         device=device))
+    return (params, torch.tensor(p.prim, device=device),
+            torch.tensor(p.txp, device=device), kw)
+
+
+def _assert_doppler_parity(acc, n_ev, lane, ref, n_ref, lane_ref, mesh):
+    if mesh:
+        _assert_mesh_parity(acc, n_ev, lane, ref, n_ref, lane_ref)
+        return
+    # same float32 operations; FMA contraction, rsqrtf and the order of
+    # the atomic sums differ
+    scale = float(ref.abs().max())
+    assert scale > 0 and int(n_ref) > 0
+    assert float((acc - ref).abs().max()) <= 1e-4 * scale
+    assert abs(int(n_ev) - int(n_ref)) <= 1e-4 * int(n_ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('scene', list(DOPPLER_SCENES))
+def test_doppler_kernel_matches_plain_version(cuda, scene):
+    params, prim, txp, kw = _doppler_tables(cuda, scene, seed=3)
+    n_lanes = 1 << 16
+    u = torch.rand((rk.n_draws(2), n_lanes),
+                   generator=torch.Generator(cuda).manual_seed(3),
+                   device=cuda)
+    before = dict(rk.receive_megakernel.by_config)
+    lane = torch.empty(n_lanes, device=cuda)
+    lane_ref = torch.empty(n_lanes, device=cuda)
+    acc, n_ev = rk.receive_megakernel(params, prim, txp, n_lanes=n_lanes,
+                                      uniforms=u, lane_out=lane, **kw)
+    torch.cuda.synchronize()
+    name = rk.config_name(kw['mesh'] is not None, True)
+    assert rk.receive_megakernel.by_config[name] == before[name] + 1
+    ref, n_ref = rk.receive_megakernel_ref(params, prim, txp, u,
+                                           lane_out=lane_ref, **kw)
+    assert acc.shape == ref.shape == (kw['adc'].n_time, kw['adc'].n_freq)
+    _assert_doppler_parity(acc, n_ev, lane, ref, n_ref, lane_ref,
+                           kw['mesh'] is not None)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('scene', ['multi_body', 'range_doppler'])
+def test_doppler_kernel_philox_mode(cuda, scene):
+    """Two calls with one seed agree per cell to 1e-6 of max|acc| (the
+    configuration adds with atomics, in arrival order) and with the plain
+    version on the same Philox stream."""
+    params, prim, txp, kw = _doppler_tables(cuda, scene, seed=11)
+    n_lanes = 1 << 18
+    if kw['mesh'] is not None:
+        kw['patch_p'] = rk.patch_p_for(n_lanes)
+    lane = torch.empty(n_lanes, device=cuda)
+    lane_ref = torch.empty(n_lanes, device=cuda)
+    a1, n1 = rk.receive_megakernel(params, prim, txp, n_lanes=n_lanes,
+                                   seed=11, lane_out=lane, **kw)
+    a2, n2 = rk.receive_megakernel(params, prim, txp, n_lanes=n_lanes,
+                                   seed=11, **kw)
+    scale = float(a1.abs().max())
+    assert scale > 0 and int(n1) == int(n2)
+    assert float((a1 - a2).abs().max()) <= 1e-6 * scale
+    u = rk.philox_uniforms(11, rk.n_draws(2), n_lanes, device=cuda)
+    ref, n_ref = rk.receive_megakernel_ref(params, prim, txp, u,
+                                           lane_out=lane_ref, **kw)
+    _assert_doppler_parity(a1, n1, lane, ref, n_ref, lane_ref,
+                           kw['mesh'] is not None)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('scene', ['multi_body', 'range_doppler'])
+def test_doppler_receive_on_card_matches_cpu_for_one_seed(cuda, scene):
+    """receive() launches the Doppler configuration once and no K4; the
+    card's grid matches the CPU's (one Philox stream) within 1e-3 of
+    max|acc| per cell: beyond the kernel parity's 1e-4, a lane at a
+    triangle edge may take another face under FMA contraction and move
+    its contribution, which `lane_out` shows in the tests above."""
+    s, rx = DOPPLER_SCENES[scene]()
+    kw = dict(seed=5, spp=1 << 16, max_depth=2, time_sampling='gate')
+    before = _launches()
+    by_cfg = dict(rk.receive_megakernel.by_config)
+    a_gpu, n = receive(s, s.compile(use_bvh=False), rx, **kw)
+    torch.cuda.synchronize()
+    after = _launches()
+    name = 'doppler_mesh' if scene == 'multi_body' else 'doppler'
+    assert after[4] == before[4] + 1 and after[:4] == before[:4]
+    assert rk.receive_megakernel.by_config[name] == by_cfg[name] + 1
+    a_cpu, n_cpu = receive(s, s.compile(use_bvh=False, device='cpu'), rx,
+                           device='cpu', **kw)
+    assert n == n_cpu == 1 << 16
+    ref = a_cpu[..., 0]
+    scale = float(ref.abs().max())
+    assert scale > 0
+    assert float((a_gpu[..., 0].cpu() - ref).abs().max()) <= 1e-3 * scale
+    grid = develop_signal(a_gpu, n, rx.adc)[..., 0]
+    assert bool(torch.isfinite(grid).all())
+    if scene == 'multi_body':
+        # body 1 (3 m, static) in range gate 4 / 5 at 0 Hz (bins 7 / 8),
+        # body 2 (5.7 m, closing) in gate 8 / 9 at +680 Hz (bin 12.9)
+        assert int(grid[3:7].sum(0).argmax()) in (7, 8)
+        assert int(grid[8:11].sum(0).argmax()) in (12, 13, 14)
+    else:
+        # the plate closing at 5 m/s: +1173 Hz, bin 101.0
+        assert int(grid.sum(0).argmax()) in (100, 101, 102)

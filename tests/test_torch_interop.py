@@ -120,7 +120,7 @@ def test_receive_without_device_needs_a_card():
 
 
 @pytest.mark.parametrize('change, needle', [
-    (dict(n_freq=2), 'n_freq'),
+    (dict(n_freq=rk.MAX_N_FREQ + 1), 'n_freq'),
     (dict(n_time=rk.MAX_N_TIME + 1), 'n_time'),
 ])
 def test_out_of_scope_scene_raises(change, needle):

@@ -204,11 +204,17 @@ def test_interop_still_refuses_bvh_and_medium():
 
 
 @pytest.mark.parametrize('kw, needle', [
-    (dict(mesh_velocity=(0.0, 1.0, 0.0)), 'ROADMAP B7'),
+    (dict(texture_idx=0), 'ROADMAP B7'),
 ])
 def test_out_of_scope_mesh_raises(kw, needle):
-    s, rx = twin_scene('port', **kw)
+    """A textured BSDF on the mesh stays outside the kernel; a moving mesh
+    is inside (the Doppler configuration)."""
+    s, rx = twin_scene('port', mesh_velocity=(0.0, 1.0, 0.0))
     sd = s.compile(device='cpu')
+    assert rk.supported(sd, rx)
+    b = sd.bsdfs
+    sd = dataclasses.replace(sd, bsdfs=dataclasses.replace(
+        b, texture_idx=torch.full_like(b.texture_idx, kw['texture_idx'])))
     why = []
     assert not rk.supported(sd, rx, why) and needle in why[0]
     with pytest.raises(NotImplementedError, match=needle):

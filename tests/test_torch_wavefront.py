@@ -540,7 +540,8 @@ def _count_routes(monkeypatch):
 
 @pytest.mark.parametrize('scene, use, route', [
     ('flagship', 'auto', 'kernel'), ('mesh', 'auto', 'kernel'),
-    ('multi_body', 'auto', 'wavefront'), ('flagship', False, 'wavefront')])
+    ('multi_body', 'auto', 'kernel'), ('multi_body', False, 'wavefront'),
+    ('flagship', False, 'wavefront')])
 def test_receive_routes_scenes(monkeypatch, scene, use, route):
     calls = _count_routes(monkeypatch)
     s, rx = {'flagship': bt.flagship_scene,
@@ -576,7 +577,11 @@ def test_receive_kernel_route_is_unchanged():
     (dict(sampler='stratified'), 'ROADMAP A2'),
 ])
 def test_out_of_scope_receive_raises(kw, needle):
+    """The multi_body scene with a sphere, which the receive kernel does
+    not take (ROADMAP B5) and the wavefront does."""
+    from beifong_tpu_torch.geometry import shapes as sh
     s, rx = bt.multi_body_scene()
+    s.add(sh.sphere(center=(2.0, -6.0, 0.0), radius=0.3, bsdf='hull'))
     with pytest.raises(NotImplementedError, match=needle):
         bt.receive(s, s.compile(device='cpu'), rx, spp=256, max_depth=1,
                    device='cpu', **kw)

@@ -1,0 +1,123 @@
+#!/usr/bin/env python3
+"""A/B of the receive megakernel's flagship and mesh configurations in two
+checkouts of the repository on one card: this tree against another (a
+parent commit unpacked with `git archive`).
+
+Run from the repository root:
+
+    python3 tools/tree_ab.py --other DIR [--pairs 3]
+
+Each tree runs in processes of its own, in pairs whose order alternates
+(other, this, this, other, ...).  A process imports `beifong_tpu_torch`
+from its tree, builds the kernel there, and times with CUDA events the
+kernel alone at the main paths' shapes: the flagship at 2^28 Philox
+lanes, depth 3, and the mesh scene at 2^24 lanes, depth 2 (one warm-up,
+then ten calls each).  Prints one JSON line per process, then a summary:
+per tree the median of the processes' medians and their spread, the
+ratio this / other, and the pairs this tree won.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+CALLS = 10
+
+
+def child(root: str) -> dict:
+    sys.path.insert(0, root)
+    import torch
+    if not torch.cuda.is_available():
+        sys.exit('needs a card')
+    import beifong_tpu_torch
+    from beifong_tpu_torch.integrators import receive_kernel as rk
+    from beifong_tpu_torch.scenes import flagship_scene, mesh_scene
+    assert os.path.dirname(beifong_tpu_torch.__file__).startswith(root)
+    sys.path.insert(0, HERE)
+    import chip_smoke  # noqa: E402  (cuda_ms, the main paths' sizes, SEED)
+
+    regs = [ln.strip() for ln in rk.build_library().log.splitlines()
+            if 'registers' in ln]
+    dev = torch.device('cuda')
+    out = dict(tree=root, ptxas=regs)
+    for name, scene, n_lanes, depth in (
+            ('flagship', flagship_scene, chip_smoke.N_LANES,
+             chip_smoke.MAX_DEPTH),
+            ('mesh', mesh_scene, chip_smoke.MESH_LANES,
+             chip_smoke.MESH_DEPTH)):
+        s, rx = scene()
+        sd = s.compile(device='cpu')
+        p = rk.pack_scene(sd, rx, s.shape_index_of_endpoint('receiver',
+                                                             rx.id))
+        params, prim, txp = (torch.tensor(a, device=dev)
+                             for a in (p.params, p.prim, p.txp))
+        kw = dict(adc=rx.adc, max_depth=depth, time_sampling='gate',
+                  rx_kind='wigner', n_lanes=n_lanes, seed=chip_smoke.SEED)
+        if p.mesh is not None:
+            params[0] = rk.seed_slot(chip_smoke.SEED)
+            kw.update(mesh=p.mesh.to(dev), patch_p=rk.patch_p_for(n_lanes))
+        ms, _ = chip_smoke.cuda_ms(
+            lambda i: rk.receive_megakernel(params, prim, txp, **kw),
+            CALLS + 1)
+        out[f'{name}_ms'] = ms[1:]
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument('--other', help='root of the other checkout')
+    ap.add_argument('--pairs', type=int, default=3)
+    ap.add_argument('--child', help='(internal) time the tree at this root')
+    args = ap.parse_args()
+    if args.child:
+        print('RESULT ' + json.dumps(child(os.path.abspath(args.child))))
+        return 0
+    if not args.other:
+        ap.error('--other DIR is required')
+    sys.path.insert(0, HERE)
+    import chip_smoke
+    card = chip_smoke.card_line()
+    print(card)
+    trees = {'other': os.path.abspath(args.other), 'this': HERE}
+    runs = {'other': [], 'this': []}
+    for i in range(args.pairs):
+        order = ('other', 'this') if i % 2 == 0 else ('this', 'other')
+        for which in order:
+            res = subprocess.run(
+                [sys.executable, os.path.abspath(__file__), '--child',
+                 trees[which]], capture_output=True, text=True, cwd=HERE,
+                timeout=600)
+            if res.returncode != 0:
+                print(res.stdout + res.stderr, file=sys.stderr)
+                return 1
+            line = [ln for ln in res.stdout.splitlines()
+                    if ln.startswith('RESULT ')][-1]
+            r = json.loads(line[len('RESULT '):])
+            r.update(pair=i, which=which)
+            print(json.dumps(r), flush=True)
+            runs[which].append(r)
+
+    summary = {'card': card, 'pairs': args.pairs}
+    for name in ('flagship', 'mesh'):
+        meds = {w: [statistics.median(r[f'{name}_ms']) for r in rs]
+                for w, rs in runs.items()}
+        for w, m in meds.items():
+            summary[f'{name}_{w}_ms'] = statistics.median(m)
+            summary[f'{name}_{w}_spread_ms'] = max(m) - min(m)
+        summary[f'{name}_this_over_other'] = (summary[f'{name}_this_ms']
+                                              / summary[f'{name}_other_ms'])
+        summary[f'{name}_pairs_won_by_this'] = sum(
+            b < a for a, b in zip(meds['other'], meds['this']))
+    print(json.dumps(summary))
+    return 0
+
+
+if __name__ == '__main__':
+    sys.exit(main())
