@@ -1,5 +1,6 @@
 """Radar math helpers on tensors (counterpart of `beifong_tpu/core/math.py`):
-sinc / tri / rect, the clamped square roots, the MIS power heuristic and
+sinc / tri / rect, the chirp's Wigner distribution wchirp, the clamped
+square roots, the MIS power heuristic and
 the double-single (two-float) arithmetic of the coherent phase.
 
 The double-single helpers are error-free transforms: they hold only when
@@ -42,6 +43,15 @@ def tri(x: torch.Tensor) -> torch.Tensor:
 def rect(x: torch.Tensor) -> torch.Tensor:
     """Rectangular window of width 1."""
     return torch.where(x.abs() < 0.5, torch.ones_like(x), torch.zeros_like(x))
+
+
+def wchirp(t, f, w, a):
+    """Wigner distribution of a linear chirp segment, 2 a^2 w tri(t / w)
+    sinc(2 pi f w tri(t / w)), at time offset t from the chirp centre and
+    frequency offset f from its instantaneous frequency (extent w,
+    amplitude a).  It may be negative."""
+    tw = tri(t / w)
+    return 2.0 * a * a * w * tw * sinc(TwoPi * f * w * tw)
 
 
 def safe_sqrt(x: torch.Tensor) -> torch.Tensor:

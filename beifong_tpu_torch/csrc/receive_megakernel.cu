@@ -1,9 +1,13 @@
-// Radar receive megakernel for Hopper (sm_90a), in three configurations:
+// Radar receive megakernel for Hopper (sm_90a), in four configurations:
 // the flagship (analytic rectangles), the mesh configuration (the same
-// lane plus a BVH walk over triangle meshes) and the Doppler configuration
-// (either of them plus moving geometry, the GGX rough conductor and
-// time x frequency or wide fast-time grids), four instantiations of one
-// template <MESH, DOP>.
+// lane plus a BVH walk over triangle meshes), the Doppler configuration
+// (either of them plus moving geometry, the GGX rough conductor, time x
+// frequency or wide fast-time grids and the receive types with a local
+// oscillator) and the coherent configuration (the Doppler one splatting
+// I / Q with the echo phase), six instantiations of one block body
+// trace_block<MESH, DOP, COH> (COH only with DOP), launched through
+// receive_trace_kernel<MESH> (flagship, mesh) and, with launch bounds,
+// receive_doppler_kernel<MESH, COH>.
 //
 // Replaces the TPU kernel beifong_tpu/integrators/pallas_receive.py::
 // _make_kernel (launched by _run's pl.pallas_call) in its analytic /
@@ -31,13 +35,36 @@
 //  - a per-lane receive frequency drawn over the ADC's window when
 //    n_freq > 1 (:450-452), splatted with the time tent over the
 //    frequency bins (:1757-1758, 1880-1905), and fast-time grids past 512
-//    bins (the TPU's wide 1-D splat, :1830-1879).
+//    bins (the TPU's wide 1-D splat, :1830-1879);
+//  - the receive types (:174-179, 429-452, 1615-1625, 1750-1758):
+//    mix_resample reads the receive frequency off the transmitter's chirp
+//    and bins the beat |f_recv - f_tx(t_recv)|; mixer draws a beat over
+//    the ADC window, f_rx = f_LO(t) - beat, and bins f_LO(t_recv) -
+//    f_recv; raw_resample with an LO reads f_rx off the LO.  The LO's
+//    waveform and phase pivots ride params[33:42].  The receive type is a
+//    field of Cfg (`rule`), not a template flag: every lane of a launch
+//    has the same one, so its branches never diverge, and a flag would
+//    double the Doppler instantiations for the handful of instructions
+//    they guard.
+// The coherent configuration (COH) splats sqrt(max(power, 0)) times
+// (fast_cos, fast_sin) of the connection's echo phase into two channels
+// (_coh_vals :1435-1455): the JAX kernel's float32 phase (_frac_cycles,
+// _h_cyc, echo_phase :327-397; the direct-hit phase :1626-1630, the NEE
+// phase with its boundary phase :1759-1763), from the path length, the
+// emission and receive times and the float64 pivots the host packs.
+// Those three functions are written with __fmul_rn / __fadd_rn /
+// __fsub_rn: _frac_cycles is a Dekker split and a compensated product,
+// which FMA contraction would make inexact (the phase would then drift by
+// far more than an ulp once f t >> 2^24 cycles), so they round as the
+// plain version and the JAX kernel round.  The rest of the kernel keeps
+// contraction on.
 // The arithmetic follows beifong_tpu_torch/integrators/receive_kernel.py::
 // receive_megakernel_ref operation by operation (same association, same
 // constants rounded from double, no --use_fast_math), so the two differ
 // only where nvcc contracts a multiply and an add into one FMA (one
 // rounding fewer), in rsqrtf's last bits and in the order in which sums
-// are taken.
+// are taken.  A phase inherits the contracted path length's last bits:
+// ~2 pi x a few ulps of the path over the wavelength.
 //
 // What bounds it on the H100: FP32 ALU and SFU work per lane.  A lane
 // reads ~9 KB of scene tables that every lane shares and writes nothing
@@ -85,16 +112,21 @@
 //    this configuration gives up bit-identical repeats: two runs agree to
 //    the rounding of a float sum per cell (~1e-6 of max|acc|), not to the
 //    bit.
+//  - Coherent: the same grids with I and Q interleaved per cell, so the
+//    shared grid holds half the cells (8,192 in 64 KB) and the global one
+//    2 x 2^20 doubles (16 MB, still in L2); the reduce kernel sums the
+//    2 n_cells values as it sums n_cells.
 //
 // Random numbers: PRNG mode runs Philox4x32-10 keyed by the 64-bit seed
 // with counter (lane, draw / 4), word draw % 4, top 24 bits scaled by
 // 2^-24, so a lane's stream does not depend on the launch geometry.
 // Injected mode reads u[draw * n_lanes + lane] from a (n_draws, n_lanes)
 // tensor instead (parity with the plain version and the JAX package).
-// Draw indices are positional (trace_lane: 0 time, 1 frequency when
-// n_freq > 1, then the ray draws, then six per depth), so a lane that
-// leaves the loop early skips its remaining draws without shifting
-// anyone's stream.
+// Draw indices are positional (trace_lane: 0 time, 1 the frequency draw
+// where the JAX kernel's sequential draws take one: raw receive with
+// n_freq > 1, or mixer's beat; then the ray draws, then six per depth),
+// so a lane that leaves the loop early skips its remaining draws without
+// shifting anyone's stream.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -113,6 +145,10 @@ constexpr float CW = 0.0f;
 constexpr float LINFMCW = 2.0f;
 constexpr float ROUGH_CONDUCTOR = 2.0f;
 constexpr int DOP_THREADS = 128;   // threads per block, Doppler config
+// receive-frequency rules (receive_kernel.py RX_*)
+constexpr int RX_MIX = 1;
+constexpr int RX_MIXER = 2;
+constexpr int RX_RAW_LO = 3;
 
 struct Cfg {
     long long n_lanes;
@@ -135,6 +171,8 @@ struct Cfg {
     float f_lo;       // ADC frequency window: low edge,
     float f_span;     // f_hi - f_lo (the frequency draw)
     float f_den;      // max(f_hi - f_lo, 1e-30) (the frequency bins)
+    int rule;         // receive-frequency rule (RX_*; 0 raw)
+    int has_lo;       // an LO waveform at params[33:42] (coherent dechirp)
 };
 
 __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
@@ -268,13 +306,139 @@ __device__ __forceinline__ float ggx_fcos(float rb, float ab, float eb,
     return (co > 0.0f && ci > 0.0f) ? f_rc : 0.0f;
 }
 
+// Instantaneous frequency of a waveform row (the chirp ridge; f_centre
+// otherwise).
+__device__ __forceinline__ float inst_freq_of(float wf, float prf,
+                                              float text, float fc,
+                                              float fext, float t) {
+    float pri = 1.0f / fmaxf(prf, F(1e-12));
+    float tm = floor_mod(t, pri);
+    float ti = 0.5f * text;
+    float fi = fc + (fext / fmaxf(text, F(1e-12))) * (tm - ti);
+    return wf == LINFMCW ? fi : fc;
+}
+
+// A waveform row in shared memory, read where it is used (held in
+// registers, the transmitter's and the LO's rows cost the Doppler
+// instantiations ~16 registers): r = [kind, amplitude, prf, t_ext,
+// f_centre, f_ext, fcpri, dfc] with the coherent phase pivots of the host's
+// float64 (fcpri = frac(fc_ref PRI), dfc = f_centre - fc_ref), and phi0 at
+// *p0.  The transmitter's row is txp[16:24] (phi0 at 28), the LO's
+// params[33:41] (phi0 at 41).
+struct Wave {
+    const float* r;
+    const float* p0;
+
+    __device__ float wf() const { return r[0]; }
+    __device__ float prf() const { return r[2]; }
+    __device__ float text() const { return r[3]; }
+    __device__ float fc() const { return r[4]; }
+    __device__ float fext() const { return r[5]; }
+    __device__ float fcpri() const { return r[6]; }
+    __device__ float dfc() const { return r[7]; }
+    __device__ float phi0() const { return *p0; }
+    __device__ float inst_freq(float t) const {
+        return inst_freq_of(r[0], r[2], r[3], r[4], r[5], t);
+    }
+};
+
+// The phase arithmetic below rounds every operation (no contraction), as
+// the plain version and the JAX kernel do.
+__device__ __forceinline__ float mul_rn(float a, float b) {
+    return __fmul_rn(a, b);
+}
+__device__ __forceinline__ float add_rn(float a, float b) {
+    return __fadd_rn(a, b);
+}
+__device__ __forceinline__ float sub_rn(float a, float b) {
+    return __fsub_rn(a, b);
+}
+
+// frac(f t) with a compensated product (f t may be >> 2^24): a Dekker
+// split of both factors (pallas_receive.py::_frac_cycles).
+__device__ float frac_cycles(float f, float t) {
+    float c_ = mul_rn(f, 4097.0f);
+    float fh = sub_rn(c_, sub_rn(c_, f));
+    float fl = sub_rn(f, fh);
+    float ct = mul_rn(t, 4097.0f);
+    float th = sub_rn(ct, sub_rn(ct, t));
+    float tl = sub_rn(t, th);
+    float pp = mul_rn(f, t);
+    float err = add_rn(add_rn(add_rn(sub_rn(mul_rn(fh, th), pp),
+                                     mul_rn(fh, tl)),
+                              mul_rn(fl, th)),
+                       mul_rn(fl, tl));
+    float fr = add_rn(sub_rn(pp, floorf(pp)), err);
+    return sub_rn(fr, floorf(fr));
+}
+
+// Small-argument waveform cycles h(tm) = g(tm) - fc_ref tm
+// (pallas_receive.py::_h_cyc).
+__device__ float h_cyc(const Wave& w, float tm) {
+    float cyc = frac_cycles(w.dfc(), tm);
+    if (w.wf() == LINFMCW) {
+        float ti = mul_rn(0.5f, w.text());
+        float s = w.fext() / fmaxf(w.text(), F(1e-12));
+        float dtc = sub_rn(tm, ti);
+        float extra = sub_rn(frac_cycles(mul_rn(mul_rn(0.5f, s), dtc), dtc),
+                             frac_cycles(w.fc(), ti));
+        cyc = add_rn(cyc, extra);
+    }
+    return cyc;
+}
+
+// Baseband phase [rad] of a connection of path length dtot
+// (pallas_receive.py::echo_phase): the transmitter's cycles at emission
+// less the fc_ref cycles of the delay (fc_ref / c as the double-single
+// sp[17] + sp[18]), less the receive side's: the transmitter's own chirp
+// under mix_resample, else the LO's dechirp, its fold rebuilt from the
+// delay when the dechirp is matched.
+__device__ float echo_phase(const Wave& tx, const Wave& lo, const Cfg& cfg,
+                            const float* sp, float dtot, float t_emit,
+                            float t_recv, float k_pri) {
+    const float INV_TP = F(1.0 / 6.283185307179586);
+    const float cvel = sp[1];
+    float pri = 1.0f / fmaxf(tx.prf(), F(1e-12));
+    float m_e = floorf(mul_rn(t_emit, tx.prf()));
+    float tm_e = sub_rn(t_emit, mul_rn(m_e, pri));
+    float ct = add_rn(frac_cycles(sp[17], dtot), mul_rn(dtot, sp[18]));
+    float cyc = sub_rn(sub_rn(add_rn(mul_rn(tx.phi0(), INV_TP),
+                                     h_cyc(tx, tm_e)),
+                              sub_rn(ct, floorf(ct))),
+                       mul_rn(add_rn(m_e, k_pri), tx.fcpri()));
+    if (cfg.rule == RX_MIX) {
+        float m_r = floorf(mul_rn(t_recv, tx.prf()));
+        float jj = sub_rn(sub_rn(m_r, m_e), k_pri);
+        float tm_r = sub_rn(add_rn(tm_e, dtot / cvel), mul_rn(jj, pri));
+        cyc = add_rn(sub_rn(sub_rn(cyc, mul_rn(tx.phi0(), INV_TP)),
+                            h_cyc(tx, tm_r)),
+                     mul_rn(m_r, tx.fcpri()));
+    } else if (cfg.has_lo) {
+        float pri_lo = 1.0f / fmaxf(lo.prf(), F(1e-12));
+        float m_r = floorf(mul_rn(t_recv, lo.prf()));
+        float tm_r0 = sub_rn(t_recv, mul_rn(m_r, pri_lo));
+        float tau = dtot / cvel;
+        float jr = mul_rn(sub_rn(add_rn(tau, tm_e), tm_r0), lo.prf());
+        float jj = rintf(jr);
+        float tm_hp = sub_rn(add_rn(tm_e, tau), mul_rn(jj, pri_lo));
+        float tm_r = fabsf(sub_rn(jr, jj)) < F(1e-3) ? tm_hp : tm_r0;
+        cyc = add_rn(sub_rn(sub_rn(cyc, mul_rn(lo.phi0(), INV_TP)),
+                            h_cyc(lo, tm_r)),
+                     mul_rn(m_r, lo.fcpri()));
+    }
+    return mul_rn(F(6.283185307179586), sub_rn(cyc, floorf(cyc)));
+}
+
 // The one transmitter: a rect aperture and its waveform.
 struct Tx {
     const float* m;   // to_world rows 0..2 (12 floats)
     float wx, wy, area, gain, wf, amp, prf, text, fc, fext;
     float nx, ny, nz;
     float vx, vy, vz;  // velocity (Doppler configuration)
+    Wave w;            // its row (Doppler and coherent configurations)
 
+    // the body of inst_freq_of, written out: calling it here costs the
+    // mesh instantiation two registers (110 to 112, ptxas on the card)
     __device__ float inst_freq(float t) const {
         float pri = 1.0f / fmaxf(prf, F(1e-12));
         float tm = floor_mod(t, pri);
@@ -296,14 +460,17 @@ struct Tx {
         return wf == CW ? amp * amp : w;
     }
 
-    // (t_emit, t_recv, gate weight) of a path of delay tau
+    // (t_emit, t_recv, gate weight) of a path of delay tau, and into
+    // k_pri, unless null, the whole PRIs t_recv was moved by
     __device__ void emission(float tau, float u, float t_rx0, int gate,
                              float t_start, float t_window, float* t_emit,
-                             float* t_recv, float* w_gate) const {
+                             float* t_recv, float* w_gate,
+                             float* k_pri = nullptr) const {
         if (!gate) {
             *t_emit = t_rx0 - tau;
             *t_recv = t_rx0;
             *w_gate = 1.0f;
+            if (k_pri != nullptr) *k_pri = 0.0f;
             return;
         }
         float pri = 1.0f / fmaxf(prf, F(1e-12));
@@ -316,6 +483,7 @@ struct Tx {
         *t_emit = te;
         *t_recv = tr + k * pri;
         *w_gate = sup / t_window;
+        if (k_pri != nullptr) *k_pri = k;
     }
 
     // rect-aperture Wigner weight at local (lx, ly), radiation leaving
@@ -413,12 +581,27 @@ struct Grid {
     }
 };
 
-// Tent splat of `val` at time coordinate yb and, on a 2-D grid, at the
-// frequency coordinate of f_bin: (val * w_t) * w_f into up to four cells.
+// One tap of weight w into `cell`: the power, or I and Q interleaved.
+template <bool COH>
+__device__ __forceinline__ void grid_tap(const Grid& grid, int cell,
+                                         float v0, float v1, float w) {
+    if constexpr (COH) {
+        grid.add(2 * cell, v0 * w);
+        grid.add(2 * cell + 1, v1 * w);
+    } else {
+        grid.add(cell, v0 * w);
+    }
+}
+
+// Tent splat of the power v0 (or, coherent, of I = v0 and Q = v1) at time
+// coordinate yb and, on a 2-D grid, at the frequency coordinate of the
+// bin frequency f_bin() (evaluated only there): (v * w_t) * w_f into up to
+// four cells.
+template <bool COH, class FBin>
 __device__ __forceinline__ void grid_splat(const Grid& grid, const Cfg& cfg,
-                                           float val, float yb,
-                                           float f_bin) {
-    if (val == 0.0f) return;
+                                           float v0, float v1, float yb,
+                                           FBin f_bin) {
+    if (v0 == 0.0f && (!COH || v1 == 0.0f)) return;
     float b0 = floorf(yb);
     if (!(b0 >= -1.0f && b0 < (float)cfg.n_time)) return;  // drops NaN
     float b1 = b0 + 1.0f;
@@ -426,11 +609,11 @@ __device__ __forceinline__ void grid_splat(const Grid& grid, const Cfg& cfg,
     float wt1 = fmaxf(1.0f - fabsf(yb - b1), 0.0f);
     int i0 = (int)b0;
     if (cfg.n_freq == 1) {
-        if (i0 >= 0) grid.add(i0, val * wt0);
-        if (i0 + 1 < cfg.n_time) grid.add(i0 + 1, val * wt1);
+        if (i0 >= 0) grid_tap<COH>(grid, i0, v0, v1, wt0);
+        if (i0 + 1 < cfg.n_time) grid_tap<COH>(grid, i0 + 1, v0, v1, wt1);
         return;
     }
-    float xb = (f_bin - cfg.f_lo) / cfg.f_den * (float)cfg.n_freq - 0.5f;
+    float xb = (f_bin() - cfg.f_lo) / cfg.f_den * (float)cfg.n_freq - 0.5f;
     float c0 = floorf(xb);
     if (!(c0 >= -1.0f && c0 < (float)cfg.n_freq)) return;
     float c1 = c0 + 1.0f;
@@ -441,10 +624,49 @@ __device__ __forceinline__ void grid_splat(const Grid& grid, const Cfg& cfg,
     for (int a = 0; a < 2; ++a) {
         int it = i0 + a;
         if (it < 0 || it >= cfg.n_time) continue;
-        float vt = val * (a ? wt1 : wt0);
+        float wt = a ? wt1 : wt0;
+        float vt0 = v0 * wt, vt1 = COH ? v1 * wt : 0.0f;
         int row = it * cfg.n_freq;
-        if (j0 >= 0) grid.add(row + j0, vt * wf0);
-        if (j0 + 1 < cfg.n_freq) grid.add(row + j0 + 1, vt * wf1);
+        if (j0 >= 0) grid_tap<COH>(grid, row + j0, vt0, vt1, wf0);
+        if (j0 + 1 < cfg.n_freq)
+            grid_tap<COH>(grid, row + j0 + 1, vt0, vt1, wf1);
+    }
+}
+
+// The frequency a contribution is binned at: the beat under mix_resample
+// (against the transmitter's chirp) and mixer (against the LO), else the
+// received frequency.
+__device__ __forceinline__ float bin_freq(const Cfg& cfg, const Wave& tx,
+                                          const Wave& lo, float f_recv,
+                                          float t_recv) {
+    if (cfg.rule == RX_MIX) return fabsf(f_recv - tx.inst_freq(t_recv));
+    if (cfg.rule == RX_MIXER) return lo.inst_freq(t_recv) - f_recv;
+    return f_recv;
+}
+
+// The Doppler family's splat of one connection of power `val`: the power,
+// or (COH) sqrt(max(val, 0)) (fast_cos, fast_sin) of its echo phase plus
+// n_bnd boundary phases (pallas_receive.py::_coh_vals).  Returns the lane
+// sum's share: the power, or the amplitude.
+template <bool COH>
+__device__ __forceinline__ float conn_splat(const Grid& grid, const Cfg& cfg,
+                                            const Tx& tx, const Wave& lo,
+                                            const float* sp, float val,
+                                            float yb, float f_recv,
+                                            float t_recv, float dtot,
+                                            float t_emit, float k_pri,
+                                            int n_bnd) {
+    auto f_bin = [&] { return bin_freq(cfg, tx.w, lo, f_recv, t_recv); };
+    if constexpr (COH) {
+        float ph = echo_phase(tx.w, lo, cfg, sp, dtot, t_emit, t_recv, k_pri);
+        if (n_bnd > 0) ph = add_rn(ph, mul_rn((float)n_bnd, sp[16]));
+        float amp = sqrtf(fmaxf(val, 0.0f));
+        grid_splat<true>(grid, cfg, amp * fast_cos(ph), amp * fast_sin(ph),
+                         yb, f_bin);
+        return amp;
+    } else {
+        grid_splat<false>(grid, cfg, val, 0.0f, yb, f_bin);
+        return val;
     }
 }
 
@@ -452,13 +674,15 @@ __device__ __forceinline__ void grid_splat(const Grid& grid, const Cfg& cfg,
 // sum of the lane's contributions, which a parity run reads per lane
 // (`lane_val`): a ray that meets a triangle edge may, with one rounding
 // fewer under FMA contraction, take the neighbouring face or slip between
-// the two, and the per-lane sums show which lanes did.
-template <bool MESH, bool DOP>
+// the two, and the per-lane sums show which lanes did.  In the coherent
+// configuration a lane's sum is of its amplitudes sqrt(max(power, 0)):
+// they bound how far a lane on another path can move a cell's I or Q.
+template <bool MESH, bool DOP, bool COH>
 __device__ float trace_lane(const Cfg& cfg, const float* sp,
                             const float* prim, const float* msh,
-                            const Tx& tx, const bvh::Tables& mesh,
-                            Draws& dr, float* hist, int T,
-                            const Grid& grid, unsigned int* events) {
+                            const Tx& tx, const Wave& lo,
+                            const bvh::Tables& mesh, Draws& dr, float* hist,
+                            int T, const Grid& grid, unsigned int* events) {
     const float TP = F(6.283185307179586);
     const float cvel = sp[1];
     const float* rxm = sp + 2;
@@ -468,11 +692,20 @@ __device__ float trace_lane(const Cfg& cfg, const float* sp,
 
     // ---------------- receive-ray generation (draws 0..n_ray) ----------
     float t_rx0 = cfg.gate ? 0.0f : t_start + dr.get(0) * t_window;
-    // the frequency draw (2-D grids) comes before the ray draws
+    // the receive frequency by receive type, read at mid-window under
+    // gate sampling; a frequency or beat draw comes before the ray draws
     int r0 = 1;
     float f_rx = cfg.f_rx;
     if constexpr (DOP) {
-        if (cfg.n_freq > 1) {
+        float t_mid = t_rx0 + (cfg.gate ? 0.5f * t_window : 0.0f);
+        if (cfg.rule == RX_MIX) {
+            f_rx = tx.w.inst_freq(t_mid);
+        } else if (cfg.rule == RX_RAW_LO) {
+            f_rx = lo.inst_freq(t_mid);
+        } else if (cfg.rule == RX_MIXER) {
+            f_rx = lo.inst_freq(t_mid) - (cfg.f_lo + dr.get(1) * cfg.f_span);
+            r0 = 2;
+        } else if (cfg.n_freq > 1) {
             f_rx = cfg.f_lo + dr.get(1) * cfg.f_span;
             r0 = 2;
         }
@@ -641,9 +874,10 @@ __device__ float trace_lane(const Cfg& cfg, const float* sp,
             float cos_dh = -(dx * tx.nx + dy * tx.ny + dz * tx.nz);
             if (txc == 0.0f && cos_dh > 0.0f) {
                 const float* m = tx.m;
-                float te_h, tr_h, wg_h;
+                float te_h, tr_h, wg_h, k_h = 0.0f;
                 tx.emission(plen / cvel, dr.get(d0), t_rx0, cfg.gate,
-                            t_start, t_window, &te_h, &tr_h, &wg_h);
+                            t_start, t_window, &te_h, &tr_h, &wg_h,
+                            COH ? &k_h : nullptr);
                 float fe_h = tx.inst_freq(te_h);
                 float sig_h = tx.eval_wdf(te_h, fe_h);
                 float lam_h = cvel / fmaxf(fe_h, F(1e-6));
@@ -657,12 +891,15 @@ __device__ float trace_lane(const Cfg& cfg, const float* sp,
                 float w_dh = sig_h * tx.gain * ap_h * TP;
                 float val_h = thr * w_dh * wg_h;
                 float yb_h = (tr_h - t_start) / t_window * n_time_f - 0.5f;
+                float lv = val_h;   // the lane sum's share
                 if constexpr (DOP)
-                    grid_splat(grid, cfg, val_h, yb_h, fe_h * dop);
+                    lv = conn_splat<COH>(grid, cfg, tx, lo, sp, val_h, yb_h,
+                                         fe_h * dop, tr_h, plen, te_h, k_h,
+                                         0);
                 else
                     splat(hist, T, cfg.n_time, val_h, yb_h);
                 *events += val_h != 0.0f;
-                if constexpr (MESH || DOP) lane_sum += val_h;
+                if constexpr (MESH || DOP) lane_sum += lv;
             }
         }
 
@@ -695,10 +932,10 @@ __device__ float trace_lane(const Cfg& cfg, const float* sp,
                     f_cos = rb * F(1.0 / 3.141592653589793)
                             * fmaxf(co, 0.0f);
                 }
-                float t_emit, t_recv, w_gate;
+                float t_emit, t_recv, w_gate, k_nee = 0.0f;
                 tx.emission((plen + dist) / cvel, dr.get(d0 + 3), t_rx0,
                             cfg.gate, t_start, t_window, &t_emit, &t_recv,
-                            &w_gate);
+                            &w_gate, COH ? &k_nee : nullptr);
                 float f_emit = tx.inst_freq(t_emit);
                 float sig = tx.eval_wdf(t_emit, f_emit);
                 float ap = tx.aperture(glx, gly, wx_, wy_, wz_,
@@ -734,21 +971,25 @@ __device__ float trace_lane(const Cfg& cfg, const float* sp,
                                 / fmaxf(pdf_sa, F(1e-30));
                     float yb = (t_recv - t_start) / t_window * n_time_f
                                - 0.5f;
+                    float lv = val;
                     if constexpr (DOP) {
                         // connection Doppler: the vertex's bounce and the
-                        // transmitter's motion
+                        // transmitter's motion; the phase adds the
+                        // boundary phase of depth + 1 vertices
                         float dop_vtx = 1.0f + ((wx_ - dx) * vbx
                                                 + (wy_ - dy) * vby
                                                 + (wz_ - dz) * vbz) / cvel;
                         float dop_tx = 1.0f - (wx_ * tx.vx + wy_ * tx.vy
                                                + wz_ * tx.vz) / cvel;
-                        grid_splat(grid, cfg, val, yb,
-                                   f_emit * dop * dop_vtx * dop_tx);
+                        lv = conn_splat<COH>(grid, cfg, tx, lo, sp, val, yb,
+                                             f_emit * dop * dop_vtx * dop_tx,
+                                             t_recv, plen + dist, t_emit,
+                                             k_nee, depth + 1);
                     } else {
                         splat(hist, T, cfg.n_time, val, yb);
                     }
                     *events += val != 0.0f;
-                    if constexpr (MESH || DOP) lane_sum += val;
+                    if constexpr (MESH || DOP) lane_sum += lv;
                 }
             }
         }
@@ -842,17 +1083,15 @@ __device__ float trace_lane(const Cfg& cfg, const float* sp,
     return lane_sum;
 }
 
-template <bool MESH, bool DOP>
-__global__ void receive_trace_kernel(const float* __restrict__ params,
-                                     const float* __restrict__ prim,
-                                     const float* __restrict__ txp,
-                                     const float* __restrict__ msh,
-                                     const float* __restrict__ uniforms,
-                                     bvh::Tables mesh,
-                                     float* __restrict__ lane_val,
-                                     double* __restrict__ partial,
-                                     unsigned long long* __restrict__ part_ev,
-                                     Cfg cfg) {
+// One block's work: tables into shared memory, the grid-stride loop over
+// lanes, the block's grid or rows into `partial`, its event count.
+template <bool MESH, bool DOP, bool COH>
+__device__ __forceinline__ void trace_block(
+    const float* __restrict__ params, const float* __restrict__ prim,
+    const float* __restrict__ txp, const float* __restrict__ msh,
+    const float* __restrict__ uniforms, const bvh::Tables& mesh,
+    float* __restrict__ lane_val, double* __restrict__ partial,
+    unsigned long long* __restrict__ part_ev, const Cfg& cfg) {
     extern __shared__ float smem[];
     const int T = blockDim.x, tid = threadIdx.x;
     float* s_par = smem;
@@ -861,7 +1100,9 @@ __global__ void receive_trace_kernel(const float* __restrict__ params,
     float* hist = s_tx + TXP_COLS;      // flagship / mesh: private rows
     float* s_msh = s_tx + TXP_COLS;     // Doppler: mesh-shape rows, grid
     float* s_grid = s_msh + cfg.n_msh * MSH_COLS;
-    const long long n_cells = (long long)cfg.n_time * cfg.n_freq;
+    // grid values: one a cell, or I and Q interleaved
+    const long long n_cells = (long long)cfg.n_time * cfg.n_freq * (COH ? 2
+                                                                       : 1);
     for (int i = tid; i < cfg.n_params; i += T) s_par[i] = params[i];
     for (int i = tid; i < cfg.n_prims * PRIM_COLS; i += T) s_prim[i] = prim[i];
     for (int i = tid; i < TXP_COLS; i += T) s_tx[i] = txp[i];
@@ -894,6 +1135,8 @@ __global__ void receive_trace_kernel(const float* __restrict__ params,
         tx.ny = m[6] * tnn;
         tx.nz = m[10] * tnn;
     }
+    tx.w = Wave{s_tx + 16, s_tx + 28};
+    const Wave lo{s_par + 33, s_par + 41};
     if constexpr (DOP) {
         tx.vx = s_tx[24];
         tx.vy = s_tx[25];
@@ -915,8 +1158,9 @@ __global__ void receive_trace_kernel(const float* __restrict__ params,
          lane += stride) {
         dr.lane = lane;
         dr.group = -1;
-        float v = trace_lane<MESH, DOP>(cfg, s_par, s_prim, s_msh, tx, mesh,
-                                        dr, my_hist, T, grid, &events);
+        float v = trace_lane<MESH, DOP, COH>(cfg, s_par, s_prim, s_msh, tx,
+                                             lo, mesh, dr, my_hist, T, grid,
+                                             &events);
         if constexpr (MESH || DOP) {
             if (lane_val != nullptr) lane_val[lane] = v;
         }
@@ -952,8 +1196,54 @@ __global__ void receive_trace_kernel(const float* __restrict__ params,
     }
 }
 
-// Fixed-order sum of the per-block partials (n_rows of n_cells doubles),
-// one thread per cell; the events of the n_blocks trace blocks.
+// The flagship and mesh kernels carry no launch bounds: a bound of 256
+// threads alone moves the flagship from 95 registers to 96.
+template <bool MESH>
+__global__ void receive_trace_kernel(const float* __restrict__ params,
+                                     const float* __restrict__ prim,
+                                     const float* __restrict__ txp,
+                                     const float* __restrict__ msh,
+                                     const float* __restrict__ uniforms,
+                                     bvh::Tables mesh,
+                                     float* __restrict__ lane_val,
+                                     double* __restrict__ partial,
+                                     unsigned long long* __restrict__ part_ev,
+                                     Cfg cfg) {
+    trace_block<MESH, false, false>(params, prim, txp, msh, uniforms, mesh,
+                                    lane_val, partial, part_ev, cfg);
+}
+
+// The Doppler family (power or coherent) runs 128-thread blocks held to
+// 128 registers, four blocks an SM: unbounded, the receive types took the
+// Doppler mesh instantiation to 135 registers, three blocks an SM, and
+// multi_body's kernel 13% slower (tools/tree_ab.py); bounded, it spills a
+// few bytes and runs as fast as before.
+template <bool MESH, bool COH>
+__global__ void __launch_bounds__(DOP_THREADS, 4)
+receive_doppler_kernel(const float* __restrict__ params,
+                       const float* __restrict__ prim,
+                       const float* __restrict__ txp,
+                       const float* __restrict__ msh,
+                       const float* __restrict__ uniforms, bvh::Tables mesh,
+                       float* __restrict__ lane_val,
+                       double* __restrict__ partial,
+                       unsigned long long* __restrict__ part_ev, Cfg cfg) {
+    trace_block<MESH, true, COH>(params, prim, txp, msh, uniforms, mesh,
+                                 lane_val, partial, part_ev, cfg);
+}
+
+// The kernel of a configuration.
+template <bool MESH, bool DOP, bool COH>
+constexpr auto kernel_of() {
+    if constexpr (DOP)
+        return receive_doppler_kernel<MESH, COH>;
+    else
+        return receive_trace_kernel<MESH>;
+}
+
+// Fixed-order sum of the per-block partials (n_rows of n_cells doubles;
+// a coherent grid's I and Q count as two cells), one thread per cell; the
+// events of the n_blocks trace blocks.
 constexpr int REDUCE_THREADS = 256;
 
 __global__ void receive_reduce_kernel(const double* __restrict__ partial,
@@ -983,14 +1273,16 @@ int threads_for(int n_time) {
     return (t / 32) * 32;
 }
 
-template <bool MESH, bool DOP>
+template <bool MESH, bool DOP, bool COH>
 int geometry(int n_time, int n_freq, long long n_lanes, int n_prims,
              int n_params, int n_msh, int mode, int* blocks, int* threads,
              int* smem_bytes) {
     int T, smem;
     if (DOP) {
         T = DOP_THREADS;
-        long long cells = mode == 1 ? (long long)n_time * n_freq : 0;
+        long long cells = mode == 1 ? (long long)n_time * n_freq
+                                          * (COH ? 2 : 1)
+                                    : 0;
         smem = (int)(4 * (n_params + n_prims * PRIM_COLS + TXP_COLS
                           + n_msh * MSH_COLS + cells));
     } else {
@@ -999,12 +1291,12 @@ int geometry(int n_time, int n_freq, long long n_lanes, int n_prims,
         smem = 4 * (n_params + n_prims * PRIM_COLS + TXP_COLS + n_time * T);
     }
     cudaError_t err = cudaFuncSetAttribute(
-        receive_trace_kernel<MESH, DOP>,
+        kernel_of<MESH, DOP, COH>(),
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
     int per_sm = 0;
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, receive_trace_kernel<MESH, DOP>, T, smem);
+        &per_sm, kernel_of<MESH, DOP, COH>(), T, smem);
     if (err != cudaSuccess) return (int)err;
     if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
     int dev = 0, sms = 0;
@@ -1026,33 +1318,35 @@ extern "C" {
 // Launch geometry for one call: threads per block, dynamic shared bytes
 // and the persistent grid (resident blocks on every SM, fewer if the
 // lanes run out), for the flagship (mesh == 0, mode == 0), mesh (mesh ==
-// 1, mode == 0) or Doppler configuration (mode 1 block-shared grid, 2
-// global grid; analytic or mesh).  Returns a cudaError_t.
+// 1, mode == 0), Doppler (mode 1 block-shared grid, 2 global grid;
+// analytic or mesh) or coherent configuration (coh == 1, mode 1 or 2).
+// Returns a cudaError_t.
 int rk_geometry(int n_time, int n_freq, long long n_lanes, int n_prims,
-                int n_params, int n_msh, int mesh, int mode, int* blocks,
-                int* threads, int* smem_bytes) {
+                int n_params, int n_msh, int mesh, int mode, int coh,
+                int* blocks, int* threads, int* smem_bytes) {
+    auto g = [&](auto fn) {
+        return fn(n_time, n_freq, n_lanes, n_prims, n_params, n_msh, mode,
+                  blocks, threads, smem_bytes);
+    };
     if (mode == 0)
-        return mesh ? geometry<true, false>(n_time, n_freq, n_lanes, n_prims,
-                                            n_params, n_msh, mode, blocks,
-                                            threads, smem_bytes)
-                    : geometry<false, false>(n_time, n_freq, n_lanes,
-                                             n_prims, n_params, n_msh, mode,
-                                             blocks, threads, smem_bytes);
-    return mesh ? geometry<true, true>(n_time, n_freq, n_lanes, n_prims,
-                                       n_params, n_msh, mode, blocks,
-                                       threads, smem_bytes)
-                : geometry<false, true>(n_time, n_freq, n_lanes, n_prims,
-                                        n_params, n_msh, mode, blocks,
-                                        threads, smem_bytes);
+        return mesh ? g(geometry<true, false, false>)
+                    : g(geometry<false, false, false>);
+    if (coh)
+        return mesh ? g(geometry<true, true, true>)
+                    : g(geometry<false, true, true>);
+    return mesh ? g(geometry<true, true, false>)
+                : g(geometry<false, true, false>);
 }
 
 // Trace + reduce on `stream`.  `uniforms` is null in PRNG mode; `bbox`
 // is null for an analytic scene, else the BVH tables of a mesh (leaf rows
 // of `stride` floats), with `patch_p` direction strata per side (0 =
-// none); `msh` the mesh's shape rows (Doppler configuration).  Unless
-// null, each lane's contribution sum goes to `lane_val` (n_lanes floats;
-// mesh and Doppler configurations).  `partial` holds blocks x n_cells
-// doubles (mode 0 / 1) or n_cells (mode 2, zeroed here).
+// none); `msh` the mesh's shape rows (Doppler and coherent
+// configurations).  Unless null, each lane's contribution sum goes to
+// `lane_val` (n_lanes floats; mesh, Doppler and coherent configurations).
+// `rule` is the receive-frequency rule, `has_lo` says whether params
+// carry an LO.  `partial` holds blocks x n_vals doubles (mode 0 / 1) or
+// n_vals (mode 2, zeroed here), n_vals = n_cells, or 2 n_cells coherent.
 int rk_launch(const float* params, const float* prim, const float* txp,
               const float* msh, const float* uniforms, double* partial,
               unsigned long long* part_ev, float* out, long long* out_events,
@@ -1060,9 +1354,10 @@ int rk_launch(const float* params, const float* prim, const float* txp,
               int stride, int patch_p, float* lane_val, long long n_lanes,
               unsigned long long seed, int n_time, int n_freq, int max_depth,
               int gate, int omni, int n_prims, int n_params, int n_msh,
-              int mode, float t_start, float t_window, float f_rx,
-              float f_lo, float f_span, float f_den, int blocks, int threads,
-              int smem_bytes, void* stream) {
+              int mode, int coh, int rule, int has_lo, float t_start,
+              float t_window, float f_rx, float f_lo, float f_span,
+              float f_den, int blocks, int threads, int smem_bytes,
+              void* stream) {
     Cfg cfg;
     cfg.n_lanes = n_lanes;
     cfg.seed = seed;
@@ -1083,42 +1378,37 @@ int rk_launch(const float* params, const float* prim, const float* txp,
     cfg.f_lo = f_lo;
     cfg.f_span = f_span;
     cfg.f_den = f_den;
-    long long n_cells = (long long)n_time * cfg.n_freq;
+    cfg.rule = rule;
+    cfg.has_lo = has_lo;
+    if (mode == 0 && (coh || rule != 0)) return (int)cudaErrorInvalidValue;
+    long long n_vals = (long long)n_time * cfg.n_freq * (coh ? 2 : 1);
     bvh::Tables mesh{bbox, links, leaves, stride};
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (mode == 2) {
-        cudaError_t e = cudaMemsetAsync(partial, 0, 8 * n_cells, s);
+        cudaError_t e = cudaMemsetAsync(partial, 0, 8 * n_vals, s);
         if (e != cudaSuccess) return (int)e;
     }
-    if (mode == 0) {
-        if (bbox != nullptr)
-            receive_trace_kernel<true, false><<<blocks, threads, smem_bytes,
-                                                s>>>(
-                params, prim, txp, msh, uniforms, mesh, lane_val, partial,
-                part_ev, cfg);
-        else
-            receive_trace_kernel<false, false><<<blocks, threads, smem_bytes,
-                                                 s>>>(
-                params, prim, txp, msh, uniforms, mesh, nullptr, partial,
-                part_ev, cfg);
-    } else {
-        if (bbox != nullptr)
-            receive_trace_kernel<true, true><<<blocks, threads, smem_bytes,
-                                               s>>>(
-                params, prim, txp, msh, uniforms, mesh, lane_val, partial,
-                part_ev, cfg);
-        else
-            receive_trace_kernel<false, true><<<blocks, threads, smem_bytes,
-                                                s>>>(
-                params, prim, txp, msh, uniforms, mesh, lane_val, partial,
-                part_ev, cfg);
-    }
+    auto launch = [&](auto kernel, float* lv) {
+        kernel<<<blocks, threads, smem_bytes, s>>>(
+            params, prim, txp, msh, uniforms, mesh, lv, partial, part_ev,
+            cfg);
+    };
+    const bool m = bbox != nullptr;
+    if (mode == 0)
+        m ? launch(receive_trace_kernel<true>, lane_val)
+          : launch(receive_trace_kernel<false>, nullptr);
+    else if (coh)
+        m ? launch(receive_doppler_kernel<true, true>, lane_val)
+          : launch(receive_doppler_kernel<false, true>, lane_val);
+    else
+        m ? launch(receive_doppler_kernel<true, false>, lane_val)
+          : launch(receive_doppler_kernel<false, false>, lane_val);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     int n_rows = mode == 2 ? 1 : blocks;
-    int rb = (int)((n_cells + REDUCE_THREADS - 1) / REDUCE_THREADS);
+    int rb = (int)((n_vals + REDUCE_THREADS - 1) / REDUCE_THREADS);
     receive_reduce_kernel<<<rb, REDUCE_THREADS, 0, s>>>(
-        partial, part_ev, n_rows, blocks, n_cells, out, out_events);
+        partial, part_ev, n_rows, blocks, n_vals, out, out_events);
     return (int)cudaGetLastError();
 }
 

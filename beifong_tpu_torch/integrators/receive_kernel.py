@@ -1,7 +1,7 @@
 """Radar receive megakernel on Hopper: host side, plain PyTorch version and
 the wrapper of the CUDA kernel in `csrc/receive_megakernel.cu`.
 
-Counterpart of `beifong_tpu/integrators/pallas_receive.py` in three
+Counterpart of `beifong_tpu/integrators/pallas_receive.py` in four
 configurations.  The flagship one: analytic rectangles, diffuse BSDFs,
 one Wigner transmitter (CW / pulse / LFMCW), a Wigner or omni receiver,
 raw receive without LO, fixed or gate time sampling, power accumulation
@@ -15,18 +15,26 @@ rectangles and on meshes, adds what the JAX kernel bakes as `moving`,
 shapes, transmitter and receiver, the GGX rough conductor beside the
 diffuse lobe (per prim row, and per mesh-shape row `msh` on meshes), a
 per-lane frequency draw and the time x frequency tent splat for
-`n_freq > 1`, and fast-time grids past MAX_N_TIME_ROWS.  Per lane the
-kernel generates the receive ray, finds the closest hit, counts direct
-transmitter hits at depth 0, connects to the transmitter (NEE) with the
-waveform and aperture Wigner weights and a shadow test, tent-splats into
-the ADC grid and makes the BSDF bounce.
+`n_freq > 1`, fast-time grids past MAX_N_TIME_ROWS, and the receive
+types with a local oscillator (LO): mix_resample, mixer and raw_resample
+(`rx_rule`).  The coherent one is the Doppler configuration with two
+channels: every connection splats sqrt(power) e^{i phase} as (I, Q),
+with the JAX kernel's own float32 echo phase (`_frac_cycles`, `_h_cyc`,
+`echo_phase`).  Per lane the kernel generates the receive ray, finds the
+closest hit, counts direct transmitter hits at depth 0, connects to the
+transmitter (NEE) with the waveform and aperture Wigner weights and a
+shadow test, tent-splats into the ADC grid and makes the BSDF bounce.
 
 `receive_megakernel_ref` holds that arithmetic as vectorised torch ops
 over lanes, in float32, consuming `uniforms (n_draws, n_lanes)` in the
 kernel's positional draw order:
 
 1. one time draw (a placeholder under gate sampling);
-2. the frequency draw, for `n_freq > 1` only (as the JAX kernel draws it);
+2. the frequency draw where the JAX kernel draws one: over the ADC's
+   frequency window for raw receive (and raw_resample without an LO)
+   when `n_freq > 1`, over the beat window for mixer whatever n_freq;
+   none for mix_resample and raw_resample with an LO, whose receive
+   frequency follows a waveform;
 3. two (omni) or four (Wigner) receive-ray draws;
 4. per depth: the direct-hit draw, then two transmitter-point draws and
    the emission-time draw (a placeholder under fixed sampling);
@@ -74,7 +82,11 @@ MAX_N_TIME_ROWS = 512
 #   up to MAX_SMEM_CELLS (64 KB: with ~11 KB of tables, three blocks fit
 #   an SM's 228 KB), past it a global float64 grid of atomics up to
 #   MAX_ADC_CELLS (8 MB, which stays in the 50 MB L2);
+# - coherent configuration: two floats (I, Q) a cell, so the same 64 KB
+#   of shared memory holds MAX_SMEM_COH_CELLS, and the global grid of
+#   MAX_ADC_CELLS cells takes 2 x 2^20 doubles (16 MB, still in L2);
 MAX_SMEM_CELLS = 16384
+MAX_SMEM_COH_CELLS = MAX_SMEM_CELLS // 2
 MAX_ADC_CELLS = 1 << 20
 # - bin coordinates are float32: at 2^16 bins a tent weight keeps 7
 #   fraction bits (the JAX package's 1-D cap is the same 65,536)
@@ -93,6 +105,30 @@ TXP_COLS = 32
 TWO_PI = 6.283185307179586
 HALF_PI_F32 = 0.5 * float(np.float32(np.pi))
 
+# How the receive frequency and the frequency bins follow the receive type
+# (the JAX kernel's `mix`, `mixer` and `rres_lo`, pallas_receive.py:
+# 174-179, 429-452, 1615-1625):
+RX_RAW = 0      # raw, and raw_resample without an LO: bin f_recv
+RX_MIX = 1      # mix_resample: f_rx from the transmitter's chirp, bin the
+#                 beat |f_recv - f_tx(t_recv)|
+RX_MIXER = 2    # mixer: a beat draw, f_rx = f_LO - beat, bin f_LO - f_recv
+RX_RAW_LO = 3   # raw_resample with an LO: f_rx from the LO, bin f_recv
+
+
+def rx_rule(receive_type: str, has_lo: bool) -> int:
+    """The kernel's receive-frequency rule of a receiver (RX_*)."""
+    if receive_type == 'mix_resample':
+        return RX_MIX
+    if receive_type == 'mixer':
+        if not has_lo:
+            raise ValueError('a mixer receiver needs an LO waveform')
+        return RX_MIXER
+    if receive_type == 'raw_resample' and has_lo:
+        return RX_RAW_LO
+    if receive_type not in ('raw', 'raw_resample'):
+        raise ValueError(f'receive_type {receive_type!r}')
+    return RX_RAW
+
 
 # ---------------------------------------------------------------------------
 # scene pack (numpy only; bit-identical with the JAX package's _pack_scene
@@ -109,6 +145,7 @@ class PackedScene:
     rxph: np.ndarray     # (1, 8) phased receiver row (zeros here)
     msh: np.ndarray      # (n_mesh_shapes, 8) f32 mesh-shape rows
     mesh: PackedBVH | None = None   # BVH over the mesh triangles (CPU)
+    rx_rule: int = RX_RAW           # the receiver's frequency rule
 
     @property
     def moving(self) -> bool:
@@ -127,9 +164,10 @@ class PackedScene:
                         and (self.msh[:, 6] == ROUGH_CONDUCTOR).any()))
 
     def doppler(self, adc: ADCConfig) -> bool:
-        """Does this scene and ADC need the Doppler configuration?"""
+        """Does this scene, receiver and ADC need the Doppler configuration
+        (its power mode; coherent calls take the coherent one)?"""
         return (self.moving or self.ggx or adc.n_freq != 1
-                or adc.n_time > MAX_N_TIME_ROWS)
+                or adc.n_time > MAX_N_TIME_ROWS or self.rx_rule != RX_RAW)
 
 
 def _demoted_rects(sd) -> list:
@@ -310,6 +348,19 @@ def pack_scene(scene_data, rx, shape_idx: int) -> PackedScene:
     params[18] = np.float32(fcc - np.float64(np.float32(fcc)))
     params[23:26] = np.asarray(rx.velocity, np.float32).reshape(3)
     params[32] = float(getattr(rx, 'gain', 1.0))
+    lo_wf = rx.lo_waveform
+    if lo_wf is not None:
+        # the LO waveform [33:39] and its coherent dechirp pivots, in
+        # float64 on the host as for the transmitter's row
+        for i, f in enumerate(('kind', 'amplitude', 'rep_freq', 't_ext',
+                               'f_centre', 'f_ext')):
+            params[33 + i] = float(getattr(lo_wf, f).reshape(-1)[0])
+        pri_lo32 = np.float32(1.0 / max(np.float32(params[35]),
+                                        np.float32(1e-12)))
+        params[39] = np.float32(np.float64(fc_ref) * np.float64(pri_lo32)
+                                % 1.0)
+        params[40] = np.float32(np.float64(params[37]) - np.float64(fc_ref))
+        params[41] = float(lo_wf.phi0.reshape(-1)[0])
 
     # meshes (and demoted rectangles): the aligned BVH, per-face
     # reflectance at leaf column 80, the owning shape's mesh-shape row at 88
@@ -326,7 +377,8 @@ def pack_scene(scene_data, rx, shape_idx: int) -> PackedScene:
                     payload2=payload2)
         msh = np.asarray(rows, np.float32)
     return PackedScene(params=params, prim=prim, txp=txp, php=php,
-                       rxph=rxph, msh=msh, mesh=mesh)
+                       rxph=rxph, msh=msh, mesh=mesh,
+                       rx_rule=rx_rule(rx.receive_type, lo_wf is not None))
 
 
 # ---------------------------------------------------------------------------
@@ -384,8 +436,11 @@ def supported(scene_data, rx, reason: list | None = None) -> bool:
         return no('textured BSDFs (ROADMAP B7)')
     if rx.kind not in (WIGNER, OMNI):
         return no(f'receiver kind {rx.kind} (ROADMAP B6)')
-    if rx.receive_type != 'raw' or rx.lo_waveform is not None:
-        return no(f'receive_type {rx.receive_type!r} / LO (ROADMAP B3)')
+    rt, has_lo = rx.receive_type, rx.lo_waveform is not None
+    if rt not in ('raw', 'raw_resample', 'mix_resample') \
+            and not (rt == 'mixer' and has_lo):
+        return no(f'receive_type {rt!r}' + (' without an LO waveform'
+                                             if rt == 'mixer' else ''))
     adc = rx.adc
     if adc.n_freq > MAX_N_FREQ:
         return no(f'n_freq {adc.n_freq} > {MAX_N_FREQ} (float32 bin '
@@ -395,11 +450,24 @@ def supported(scene_data, rx, reason: list | None = None) -> bool:
                   'coordinates; ROADMAP A5)')
     if adc.n_time * adc.n_freq > MAX_ADC_CELLS:
         return no(f'ADC grid {adc.n_time} x {adc.n_freq} > {MAX_ADC_CELLS} '
-                  'cells (the global accumulator; ROADMAP A5)')
+                  'cells (the global accumulator, power or I / Q; '
+                  'ROADMAP A5)')
     if adc.n_freq > 1 and not adc.freq_hi > adc.freq_lo:
         return no(f'n_freq {adc.n_freq} over an empty frequency window '
                   f'[{adc.freq_lo}, {adc.freq_hi}] (ROADMAP A5)')
     return True
+
+
+def phase_slack(band, adc: ADCConfig) -> float:
+    """Phase error [rad] one coherent connection may carry between two
+    float32 evaluations of the same path (the kernel and its plain version,
+    or the JAX package): 4 ulps of the longest path whose echo lands in
+    the ADC window, over the shortest wavelength.  The phase is 2 pi L /
+    lambda, and FMA contraction or another library's rsqrt moves the path
+    length L by ulps."""
+    l_max = band.c * (adc.sampling_start + adc.sampling_time)
+    return 2 * np.pi * 4 * float(np.spacing(np.float32(l_max))) \
+        / band.wavelength_min
 
 
 def n_draws(max_depth: int) -> int:
@@ -519,10 +587,37 @@ def _ggx_fcos(rb, ab, eb, kk, nx, ny, nz, wix, wiy, wiz, wox, woy, woz):
     return torch.where((co > 0.0) & (ci > 0.0), f_rc, 0.0)
 
 
-STAT_KEYS = ('lanes', 'strata', 'freq_draw', 'trace', 'hit', 'direct',
-             'nee_geom', 'nee', 'ggx_nee', 'occ_tests', 'nee_splat',
-             'splat_2d', 'bounce', 'ggx_bounce', 'dop_direct', 'dop_nee',
-             'dop_bounce', 'walks', 'node_tests', 'leaf_tests', 'mesh_hits')
+STAT_KEYS = ('lanes', 'strata', 'freq_draw', 'lo_freq', 'trace', 'hit',
+             'direct', 'nee_geom', 'nee', 'ggx_nee', 'occ_tests', 'nee_splat',
+             'splat_2d', 'lo_bin', 'phase', 'phase_lo', 'bounce',
+             'ggx_bounce', 'dop_direct', 'dop_nee', 'dop_bounce', 'walks',
+             'node_tests', 'leaf_tests', 'mesh_hits')
+
+
+def _frac_cycles(f, t):
+    """frac(f t) with a compensated product (f t may be >> 2^24): a
+    Dekker split of both factors (the JAX kernel's _frac_cycles)."""
+    c_ = f * 4097.0
+    fh = c_ - (c_ - f)
+    fl = f - fh
+    ct = t * 4097.0
+    th = ct - (ct - t)
+    tl = t - th
+    pp = f * t
+    err = ((fh * th - pp) + fh * tl + fl * th) + fl * tl
+    fr = (pp - torch.floor(pp)) + err
+    return fr - torch.floor(fr)
+
+
+def _h_cyc(w: dict, tm):
+    """Small-argument waveform cycles h(tm) = g(tm) - fc_ref tm of waveform
+    row `w` (keys wf, text, fc, fext, dfc; the JAX kernel's _h_cyc)."""
+    cyc = _frac_cycles(w['dfc'], tm)
+    ti = 0.5 * w['text']
+    s = w['fext'] / torch.clamp(w['text'], min=1e-12)
+    dtc = tm - ti
+    extra = _frac_cycles(0.5 * s * dtc, dtc) - _frac_cycles(w['fc'], ti)
+    return cyc + torch.where(w['wf'] == LINFMCW, extra, 0.0)
 
 
 def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
@@ -530,10 +625,13 @@ def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
                            mesh: PackedBVH | None = None, msh=None,
                            doppler: bool = False, patch_p: int = 0,
                            lane0: int = 0, stats: dict | None = None,
-                           lane_out=None):
+                           lane_out=None, receive_type: str = 'raw',
+                           has_lo: bool = False, coherent: bool = False,
+                           amp_out=None):
     """Plain version of the kernel, in every configuration.  Returns (acc
     (n_time, n_freq) float32, n_events 0-d int64): the tent-splatted power
-    and the count of nonzero contributions.
+    and the count of nonzero contributions; with `coherent` acc is
+    (n_time, n_freq, 2), the tent-splatted I and Q.
 
     `mesh`: the BVH tables of a mesh scene (stride 96; `pack_scene`), on
     the uniforms' device; `msh` its (n_mesh_shapes, 8) mesh-shape rows
@@ -550,18 +648,31 @@ def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
     and `ggx` flags do; a static diffuse scene comes out as in the
     flagship and mesh configurations, which read neither (nor `msh`).
     `n_freq > 1` draws the receive frequency and splats over time x
-    frequency.
+    frequency.  `receive_type` and `has_lo` (the receiver has an LO
+    waveform, packed at params[33:42]) pick the receive-frequency rule
+    (`rx_rule`; anything but RX_RAW needs `doppler`).  `coherent` (with
+    `doppler`) splats sqrt(max(power, 0)) times (cos, sin) of the echo
+    phase; `amp_out`, a (n_time, n_freq) float64 tensor, then receives
+    the same splat with every phase 0 (the per-cell sum of amplitudes
+    that scales a phase error).
 
     `stats`, if given, accumulates how many lanes reach each stage of the
     kernel (the work a run's data needs), each summed over depths: keys
     'lanes', 'strata' (lanes with stratified directions), 'freq_draw',
-    'trace', 'hit', 'direct', 'nee_geom', 'nee' (of which 'ggx_nee' with
-    the GGX lobe), 'occ_tests', 'nee_splat', 'splat_2d' (contributions
-    splatted over time x frequency), 'bounce' (diffuse), 'ggx_bounce',
-    'dop_direct', 'dop_nee', 'dop_bounce' (Doppler factors of a moving
-    scene); with a mesh also 'walks', 'node_tests', 'leaf_tests' (BVH
-    walks, slab tests, leaves entered) and 'mesh_hits' (closest hits on a
-    triangle)."""
+    'lo_freq' (receive frequencies read off a waveform), 'trace', 'hit',
+    'direct', 'nee_geom', 'nee' (of which 'ggx_nee' with the GGX lobe),
+    'occ_tests', 'nee_splat', 'splat_2d' (contributions splatted over time
+    x frequency), 'lo_bin' (of those, binned at a beat), 'phase' (echo
+    phases of coherent contributions), 'phase_lo' (of those, with the
+    receive-side fold of a mix or LO dechirp), 'bounce' (diffuse),
+    'ggx_bounce', 'dop_direct', 'dop_nee', 'dop_bounce' (Doppler factors
+    of a moving scene); with a mesh also 'walks', 'node_tests',
+    'leaf_tests' (BVH walks, slab tests, leaves entered) and 'mesh_hits'
+    (closest hits on a triangle)."""
+    rule = rx_rule(receive_type, has_lo)
+    if (rule != RX_RAW or coherent) and not doppler:
+        raise ValueError('LO receive types and coherent I / Q run in the '
+                         'Doppler configuration (doppler=True)')
     counts = {k: 0 for k in STAT_KEYS}
 
     def count(key, mask):
@@ -594,6 +705,11 @@ def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
     wx, wy, area_tx, gain = tr[12], tr[13], tr[14], tr[15]
     wf, amp, prf, text, fc, fext = tr[16], tr[17], tr[18], tr[19], tr[20], \
         tr[21]
+    # the transmitter's and the LO's waveform rows, with their phase pivots
+    tx_w = dict(wf=wf, prf=prf, text=text, fc=fc, fext=fext, fcpri=tr[22],
+                dfc=tr[23], phi0=tr[28])
+    lo_w = dict(wf=sp[33], prf=sp[35], text=sp[36], fc=sp[37], fext=sp[38],
+                fcpri=sp[39], dfc=sp[40], phi0=sp[41])
     prims = [prim[p] for p in range(prim.shape[0])
              if int(prim[p, 0]) == RECTANGLE]
     # the transmitter's own rectangle (transmitter index 0 in column 14)
@@ -609,12 +725,13 @@ def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
         (prim[:, 18] == ROUGH_CONDUCTOR).any()
         or (rows_m is not None and (rows_m[:, 6] == ROUGH_CONDUCTOR).any()))
 
-    def inst_freq(t):
-        pri = 1.0 / torch.clamp(prf, min=1e-12)
+    def inst_freq(t, w=tx_w):
+        pri = 1.0 / torch.clamp(w['prf'], min=1e-12)
         tm = _mod(t, pri)
-        ti = 0.5 * text
-        fi = fc + (fext / torch.clamp(text, min=1e-12)) * (tm - ti)
-        return torch.where(wf == LINFMCW, fi, fc)
+        ti = 0.5 * w['text']
+        fi = w['fc'] + (w['fext'] / torch.clamp(w['text'], min=1e-12)) \
+            * (tm - ti)
+        return torch.where(w['wf'] == LINFMCW, fi, w['fc'])
 
     def eval_wdf(t, f):
         pri = 1.0 / torch.clamp(prf, min=1e-12)
@@ -628,9 +745,10 @@ def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
         return torch.where(wf == CW, amp * amp, w)
 
     def emission(tau, u, t_rx0):
-        """(t_emit, t_recv, gate weight) of a path of delay `tau`."""
+        """(t_emit, t_recv, gate weight, whole PRIs the receive time was
+        moved by) of a path of delay `tau`."""
         if not gate:
-            return t_rx0 - tau, t_rx0, 1.0
+            return t_rx0 - tau, t_rx0, 1.0, 0.0
         pri = 1.0 / torch.clamp(prf, min=1e-12)
         is_cw = wf == CW
         sup = torch.where(is_cw, t_window, text)
@@ -638,7 +756,47 @@ def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
         t_recv = tau + t_emit
         k = torch.ceil((t_start - t_recv) * prf)
         k = torch.where(is_cw, 0.0, torch.clamp(k, min=0.0))
-        return t_emit, t_recv + k * pri, sup / t_window
+        return t_emit, t_recv + k * pri, sup / t_window, k
+
+    def echo_phase(dtot, t_emit, t_recv, k_pri):
+        """Baseband phase [rad] of a connection of path length dtot (the
+        JAX kernel's echo_phase): the transmitter's waveform cycles at
+        emission less the fc_ref cycles of the delay, less the receive
+        side's (the transmitter's chirp under mix_resample, else the LO's
+        dechirp, its fold rebuilt from the delay when matched)."""
+        pri = 1.0 / torch.clamp(prf, min=1e-12)
+        m_e = torch.floor(t_emit * prf)
+        tm_e = t_emit - m_e * pri
+        ct = _frac_cycles(sp[17], dtot) + dtot * sp[18]
+        cyc = tx_w['phi0'] * (1.0 / TWO_PI) + _h_cyc(tx_w, tm_e) \
+            - (ct - torch.floor(ct)) - (m_e + k_pri) * tx_w['fcpri']
+        if rule == RX_MIX:
+            m_r = torch.floor(t_recv * prf)
+            jj = m_r - m_e - k_pri
+            tm_r = tm_e + dtot / cvel - jj * pri
+            cyc = cyc - tx_w['phi0'] * (1.0 / TWO_PI) - _h_cyc(tx_w, tm_r) \
+                + m_r * tx_w['fcpri']
+        elif has_lo:
+            pri_lo = 1.0 / torch.clamp(lo_w['prf'], min=1e-12)
+            m_r = torch.floor(t_recv * lo_w['prf'])
+            tm_r0 = t_recv - m_r * pri_lo
+            tau = dtot / cvel
+            jr = (tau + tm_e - tm_r0) * lo_w['prf']
+            jj = torch.round(jr)
+            tm_hp = tm_e + tau - jj * pri_lo
+            tm_r = torch.where((jr - jj).abs() < 1e-3, tm_hp, tm_r0)
+            cyc = cyc - lo_w['phi0'] * (1.0 / TWO_PI) - _h_cyc(lo_w, tm_r) \
+                + m_r * lo_w['fcpri']
+        return TWO_PI * (cyc - torch.floor(cyc))
+
+    def bin_freq(f_recv, t_recv):
+        """The frequency a contribution is binned at: the beat under
+        mix_resample and mixer, else the received frequency."""
+        if rule == RX_MIX:
+            return (f_recv - inst_freq(t_recv)).abs()
+        if rule == RX_MIXER:
+            return inst_freq(t_recv, lo_w) - f_recv
+        return f_recv
 
     def tx_aperture(lx, ly, ex, ey, ez, lam):
         """Rect-aperture Wigner weight at local (lx, ly) in [-1, 1]^2 for
@@ -657,7 +815,19 @@ def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
         t_rx0 = torch.zeros(n_lanes, dtype=torch.float32, device=dev)
     else:
         t_rx0 = t_start + draw() * t_window
-    if grid2d:
+    # the receive frequency by receive type, read at mid-window under gate
+    # sampling
+    t_mid = t_rx0 + (0.5 * t_window if gate else 0.0)
+    if rule != RX_RAW:
+        counts['lo_freq'] += n_lanes
+    if rule == RX_MIX:
+        f_rx = inst_freq(t_mid)
+    elif rule == RX_MIXER:
+        counts['freq_draw'] += n_lanes
+        f_rx = inst_freq(t_mid, lo_w) - (f_lo + draw() * f_span)
+    elif rule == RX_RAW_LO:
+        f_rx = inst_freq(t_mid, lo_w)
+    elif grid2d:
         counts['freq_draw'] += n_lanes
         f_rx = f_lo + draw() * f_span
     else:
@@ -747,35 +917,60 @@ def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
 
     # float64 sums: the plain version is the accurate side of the
     # comparison (each contribution is still computed in float32)
-    acc = torch.zeros(n_time * n_freq, dtype=torch.float64, device=dev)
+    n_ch = 2 if coherent else 1
+    acc = torch.zeros(n_ch, n_time * n_freq, dtype=torch.float64,
+                      device=dev)
     n_events = torch.zeros((), dtype=torch.int64, device=dev)
 
     lane_sum = torch.zeros(n_lanes, dtype=torch.float32, device=dev)
+    amp_flat = None if amp_out is None else amp_out.view(-1)
 
-    def splat(val, yb, f_bin, ok):
+    def splat(val, yb, f_recv, t_recv, ok, ph=None):
         """Tent splat at time coordinate yb (and, on a 2-D grid, at the
-        frequency coordinate of f_bin)."""
+        frequency coordinate of the contribution's bin frequency): of the
+        power val, or of sqrt(max(val, 0)) (cos, sin)(ph) if coherent."""
         nonlocal n_events, lane_sum
-        n_events = n_events + (ok & (val != 0.0)).sum()
-        lane_sum = lane_sum + val
         nz = val != 0.0
+        n_events = n_events + (ok & nz).sum()
+        if coherent:
+            count('phase', ok & nz)
+            if rule == RX_MIX or has_lo:
+                count('phase_lo', ok & nz)
+            amp = torch.sqrt(torch.clamp(val, min=0.0))
+            chans = [torch.where(ok, amp * _fast_cos(ph), 0.0),
+                     torch.where(ok, amp * _fast_sin(ph), 0.0)]
+            lane_sum = lane_sum + torch.where(ok, amp, 0.0)
+            if amp_out is not None:
+                chans.append(torch.where(ok, amp, 0.0))
+        else:
+            chans = [val]
+            lane_sum = lane_sum + val
         b0 = torch.floor(yb)
         if grid2d:
             count('splat_2d', ok & nz)
-            xb = (f_bin - f_lo) / f_den * n_freq_f - 0.5
+            if rule in (RX_MIX, RX_MIXER):
+                count('lo_bin', ok & nz)
+            xb = (bin_freq(f_recv, t_recv) - f_lo) / f_den * n_freq_f - 0.5
             f0 = torch.floor(xb)
         for bt in (b0, b0 + 1.0):
             wt = torch.clamp(1.0 - (yb - bt).abs(), min=0.0)
             keep_t = nz & (bt >= 0.0) & (bt < n_time_f)
             it = torch.clamp(bt, 0.0, n_time - 1.0).long()
             if not grid2d:
-                acc.index_add_(0, it[keep_t], (val * wt)[keep_t].double())
-                continue
-            for bf in (f0, f0 + 1.0):
-                wf_ = torch.clamp(1.0 - (xb - bf).abs(), min=0.0)
-                keep = keep_t & (bf >= 0.0) & (bf < n_freq_f)
-                idx = it * n_freq + torch.clamp(bf, 0.0, n_freq - 1.0).long()
-                acc.index_add_(0, idx[keep], (val * wt * wf_)[keep].double())
+                taps = [(it, keep_t, wt)]
+            else:
+                taps = []
+                for bf in (f0, f0 + 1.0):
+                    wf_ = torch.clamp(1.0 - (xb - bf).abs(), min=0.0)
+                    keep = keep_t & (bf >= 0.0) & (bf < n_freq_f)
+                    idx = it * n_freq \
+                        + torch.clamp(bf, 0.0, n_freq - 1.0).long()
+                    taps.append((idx, keep, (wt, wf_)))
+            for idx, keep, w in taps:
+                for ch, v in enumerate(chans):
+                    v = v * w if not grid2d else v * w[0] * w[1]
+                    dst = acc[ch] if ch < n_ch else amp_flat
+                    dst.index_add_(0, idx[keep], v[keep].double())
 
     def rect_t(p_row, cx, cy, cz, ddx, ddy, ddz):
         q = [p_row[1 + i] for i in range(12)]
@@ -884,7 +1079,7 @@ def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
         u_dh = draw()
         if depth == 0:
             cos_dh = -(ddx * tnx + ddy * tny + ddz * tnz)
-            te_h, tr_h, wg_h = emission(plen / cvel, u_dh, t_rx0)
+            te_h, tr_h, wg_h, k_h = emission(plen / cvel, u_dh, t_rx0)
             fe_h = inst_freq(te_h)
             sig_h = eval_wdf(te_h, fe_h)
             lam_h = cvel / torch.clamp(fe_h, min=1e-6)
@@ -901,7 +1096,8 @@ def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
             if moving:
                 count('dop_direct', ok_h)
                 fe_h = fe_h * dop
-            splat(val_h, yb_h, fe_h, ok_h)
+            splat(val_h, yb_h, fe_h, tr_h, ok_h,
+                  echo_phase(plen, te_h, tr_h, k_h) if coherent else None)
 
         # ---- NEE to the transmitter ----
         u5, u6 = draw(), draw()
@@ -934,7 +1130,8 @@ def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
                 rb, ab, eb, kk, nx, ny, nz, -ddx, -ddy, -ddz,
                 wx_, wy_, wz_), f_cos)
         u7 = draw()
-        t_emit, t_recv, w_gate = emission((plen + dist) / cvel, u7, t_rx0)
+        t_emit, t_recv, w_gate, k_nee = emission((plen + dist) / cvel, u7,
+                                                 t_rx0)
         f_emit = inst_freq(t_emit)
         sig = eval_wdf(t_emit, f_emit)
         ap = tx_aperture(glx, gly, wx_, wy_, wz_,
@@ -970,7 +1167,10 @@ def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
             dop_tx = 1.0 - (wx_ * tr[24] + wy_ * tr[25] + wz_ * tr[26]) \
                 / cvel
             f_recv = f_emit * dop * dop_vtx * dop_tx
-        splat(val, yb, f_recv, ok)
+        # the NEE phase adds the boundary phase of depth + 1 vertices
+        splat(val, yb, f_recv, t_recv, ok,
+              echo_phase(plen + dist, t_emit, t_recv, k_nee)
+              + (depth + 1) * sp[16] if coherent else None)
 
         if depth == max_depth - 1:
             break
@@ -1038,7 +1238,9 @@ def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
             stats[k] = stats.get(k, 0) + v
     if lane_out is not None:
         lane_out.copy_(lane_sum)
-    return acc.float().reshape(n_time, n_freq), n_events
+    if coherent:
+        return acc.t().float().reshape(n_time, n_freq, 2), n_events
+    return acc[0].float().reshape(n_time, n_freq), n_events
 
 
 # ---------------------------------------------------------------------------
@@ -1051,10 +1253,10 @@ def _bind(lib):
                               ctypes.c_longlong, ctypes.c_ulonglong,
                               ctypes.c_float)
     ip = ctypes.POINTER(ctypes.c_int)
-    lib.rk_geometry.argtypes = [i32] * 2 + [i64] + [i32] * 5 + [ip] * 3
+    lib.rk_geometry.argtypes = [i32] * 2 + [i64] + [i32] * 6 + [ip] * 3
     lib.rk_geometry.restype = i32
     lib.rk_launch.argtypes = [vp] * 12 + [i32, i32, vp, i64, u64] \
-        + [i32] * 9 + [f32] * 6 + [i32] * 3 + [vp]
+        + [i32] * 12 + [f32] * 6 + [i32] * 3 + [vp]
     lib.rk_launch.restype = i32
 
 
@@ -1065,11 +1267,13 @@ def build_library() -> _nvcc.BuildInfo:
     return _nvcc.build('receive_megakernel')
 
 
-def grid_mode(n_cells: int, doppler: bool) -> int:
+def grid_mode(n_cells: int, doppler: bool, coherent: bool = False) -> int:
     """How the kernel accumulates an ADC grid of `n_cells`: 0 private
     per-thread rows (flagship and mesh configurations), 1 a block-shared
     grid of shared-memory atomics, 2 a global float64 grid of atomics
-    (Doppler configuration, by size)."""
+    (Doppler and coherent configurations, by size)."""
+    if coherent:
+        return 1 if n_cells <= MAX_SMEM_COH_CELLS else 2
     if not doppler:
         return 0
     return 1 if n_cells <= MAX_SMEM_CELLS else 2
@@ -1078,16 +1282,16 @@ def grid_mode(n_cells: int, doppler: bool) -> int:
 def launch_geometry(n_time: int, n_lanes: int, n_prims: int,
                     n_params: int = 45 + MAX_MEDIA_LAYERS,
                     mesh: bool = False, n_freq: int = 1, n_msh: int = 0,
-                    doppler: bool = False):
+                    doppler: bool = False, coherent: bool = False):
     """(blocks, threads per block, dynamic shared bytes) of the trace
-    kernel (its mesh and / or Doppler configuration) on the current card:
-    a persistent grid of as many blocks as fit on every SM at once, fewer
-    when the lanes run out."""
+    kernel (its mesh, Doppler and / or coherent configuration) on the
+    current card: a persistent grid of as many blocks as fit on every SM at
+    once, fewer when the lanes run out."""
     lib = LIBRARY.get()
-    mode = grid_mode(n_time * n_freq, doppler)
+    mode = grid_mode(n_time * n_freq, doppler, coherent)
     blocks, threads, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
     LIBRARY.check(lib.rk_geometry(n_time, n_freq, n_lanes, n_prims, n_params,
-                                  n_msh, int(mesh), mode,
+                                  n_msh, int(mesh), mode, int(coherent),
                                   ctypes.byref(blocks), ctypes.byref(threads),
                                   ctypes.byref(smem)),
                   'receive_megakernel geometry')
@@ -1125,9 +1329,11 @@ def receive_megakernel(params, prim, txp, *, adc: ADCConfig, max_depth: int,
                        seed: int = 0, uniforms=None,
                        mesh: PackedBVH | None = None, msh=None,
                        doppler: bool = False, patch_p: int = 0,
-                       lane_out=None):
+                       lane_out=None, receive_type: str = 'raw',
+                       has_lo: bool = False, coherent: bool = False):
     """Trace `n_lanes` receive samples.  Returns (acc (n_time, n_freq)
-    float32, n_events 0-d int64) on the tables' device.
+    float32, or (n_time, n_freq, 2) I / Q with `coherent`, n_events 0-d
+    int64) on the tables' device.
 
     `uniforms` (n_draws(max_depth), n_lanes) float32 feeds the draws
     (injected mode); without it the lanes draw from Philox4x32-10 keyed by
@@ -1140,7 +1346,12 @@ def receive_megakernel(params, prim, txp, *, adc: ADCConfig, max_depth: int,
     no velocity, no lobe but the diffuse one and no `msh`.  A `lane_out`
     (n_lanes,) float32 tensor receives each lane's contribution sum there
     (parity runs: it shows which lanes a triangle edge flipped), in the
-    mesh and Doppler configurations.  Tables on the CPU run the plain
+    mesh and Doppler configurations (in the coherent one the sum of the
+    lane's amplitudes sqrt(max(power, 0))).  `receive_type` and `has_lo`
+    (an LO waveform packed at params[33:42]) pick the receive-frequency
+    rule; a rule other than raw needs the Doppler configuration.
+    `coherent` (with `doppler`) selects the coherent configuration, which
+    splats I / Q with the echo phase.  Tables on the CPU run the plain
     version (`receive_megakernel_ref`, fed `philox_uniforms` in PRNG
     mode); tables on a card launch the CUDA kernel, which raises if it
     cannot build or launch."""
@@ -1149,6 +1360,10 @@ def receive_megakernel(params, prim, txp, *, adc: ADCConfig, max_depth: int,
         raise ValueError(f'time_sampling {time_sampling!r}')
     if rx_kind not in ('wigner', 'omni'):
         raise ValueError(f'rx_kind {rx_kind!r}')
+    rule = rx_rule(receive_type, has_lo)
+    if (rule != RX_RAW or coherent) and not doppler:
+        raise ValueError('LO receive types and coherent I / Q run in the '
+                         'Doppler configuration (doppler=True)')
     _check_adc(adc, doppler)
     n_prims = int(prim.shape[0])
     if not 1 <= n_prims <= MAX_PRIMS:
@@ -1203,22 +1418,27 @@ def receive_megakernel(params, prim, txp, *, adc: ADCConfig, max_depth: int,
                                       time_sampling=time_sampling,
                                       rx_kind=rx_kind, mesh=mesh, msh=msh,
                                       doppler=doppler, patch_p=patch_p,
-                                      lane_out=lane_out)
+                                      lane_out=lane_out,
+                                      receive_type=receive_type,
+                                      has_lo=has_lo, coherent=coherent)
     if dev.type != 'cuda':
         raise ValueError(f'no receive kernel for device {dev}')
     lib = LIBRARY.get()
+    n_ch = 2 if coherent else 1
     n_cells = adc.n_time * adc.n_freq
-    mode = grid_mode(n_cells, doppler)
+    mode = grid_mode(n_cells, doppler, coherent)
     with torch.cuda.device(dev):
         blocks, threads, smem = launch_geometry(
             adc.n_time, n_lanes, n_prims, int(params.shape[0]),
-            mesh is not None, adc.n_freq, n_msh, doppler)
-        # per-block partial grids; one global grid of atomics in mode 2
-        partial = torch.empty((1 if mode == 2 else blocks, n_cells),
+            mesh is not None, adc.n_freq, n_msh, doppler, coherent)
+        # per-block partial grids (I and Q interleaved per cell when
+        # coherent); one global grid of atomics in mode 2
+        partial = torch.empty((1 if mode == 2 else blocks, n_cells * n_ch),
                               dtype=torch.float64, device=dev)
         part_ev = torch.empty(blocks, dtype=torch.int64, device=dev)
-        acc = torch.empty((adc.n_time, adc.n_freq), dtype=torch.float32,
-                          device=dev)
+        acc = torch.empty((adc.n_time, adc.n_freq) + ((2,) if coherent
+                                                       else ()),
+                          dtype=torch.float32, device=dev)
         n_events = torch.empty((), dtype=torch.int64, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         m = (None, None, None, 0) if mesh is None else (
@@ -1234,20 +1454,23 @@ def receive_megakernel(params, prim, txp, *, adc: ADCConfig, max_depth: int,
             None if lane_out is None else lane_out.data_ptr(), n_lanes,
             seed & 0xFFFFFFFFFFFFFFFF, adc.n_time, adc.n_freq, max_depth,
             int(time_sampling == 'gate'), int(rx_kind == 'omni'), n_prims,
-            int(params.shape[0]), n_msh, mode, adc.sampling_start,
-            adc.sampling_time, 0.5 * (f_lo + f_hi), f_lo, f_hi - f_lo,
-            max(f_hi - f_lo, 1e-30), blocks, threads, smem, stream)
+            int(params.shape[0]), n_msh, mode, int(coherent), rule,
+            int(has_lo), adc.sampling_start, adc.sampling_time,
+            0.5 * (f_lo + f_hi), f_lo, f_hi - f_lo, max(f_hi - f_lo, 1e-30),
+            blocks, threads, smem, stream)
         LIBRARY.check(err, 'receive_megakernel launch')
     receive_megakernel.launches += 1
-    receive_megakernel.by_config[config_name(mesh is not None, doppler)] += 1
+    receive_megakernel.by_config[
+        config_name(mesh is not None, doppler, coherent)] += 1
     return acc, n_events
 
 
-CONFIGS = ('flagship', 'mesh', 'doppler', 'doppler_mesh')
+CONFIGS = ('flagship', 'mesh', 'doppler', 'doppler_mesh', 'coherent',
+           'coherent_mesh')
 
 
-def config_name(mesh: bool, doppler: bool) -> str:
-    return CONFIGS[int(mesh) + 2 * int(doppler)]
+def config_name(mesh: bool, doppler: bool, coherent: bool = False) -> str:
+    return CONFIGS[int(mesh) + (4 if coherent else 2 * int(doppler))]
 
 
 # launches of the CUDA kernel, in all and by configuration
@@ -1262,13 +1485,13 @@ receive_megakernel.by_config = dict.fromkeys(CONFIGS, 0)
 
 @dataclasses.dataclass(frozen=True)
 class DeviceTables:
-    """A scene's kernel tables on one device, and the configuration they
-    need."""
+    """A scene's kernel tables on one device, and the configuration their
+    power calls need (coherent calls take the coherent one)."""
 
     params: torch.Tensor
     prim: torch.Tensor
     txp: torch.Tensor
-    msh: torch.Tensor | None      # mesh-shape rows (Doppler meshes only)
+    msh: torch.Tensor | None      # mesh-shape rows (meshes only)
     mesh: PackedBVH | None
     doppler: bool
 
@@ -1311,7 +1534,7 @@ def _device_tables(scene, scene_data, rx, dev) -> DeviceTables:
     tables = DeviceTables(
         params=params, prim=prim, txp=txp,
         msh=torch.as_tensor(packed.msh, device=dev).contiguous()
-        if doppler and packed.mesh is not None else None,
+        if packed.mesh is not None else None,
         mesh=None if packed.mesh is None else packed.mesh.to(dev),
         doppler=doppler)
     cache[key] = (scene_data, rx, tables)
@@ -1326,10 +1549,11 @@ def seed_slot(seed: int) -> float:
 
 def receive_kernel(scene, scene_data, rx, spp: int, seed: int = 0,
                    max_depth: int = 3, time_sampling: str = 'gate',
-                   device=None):
+                   coherent: bool = False, device=None):
     """Run the receive kernel on `scene_data`'s tables, in the
-    configuration they need.  Returns (signal (n_time, n_freq) float32
-    accumulated power, n_samples).
+    configuration they and the call need.  Returns (signal (n_time,
+    n_freq) float32 accumulated power, or (n_time, n_freq, 2) I / Q with
+    `coherent`, n_samples).
 
     n_samples is `spp`, rounded down to whole 1024-lane tiles (at least
     one) for mesh scenes, as the JAX package rounds its mesh lanes.  The
@@ -1347,9 +1571,11 @@ def receive_kernel(scene, scene_data, rx, spp: int, seed: int = 0,
             patch_p = patch_p_for(n_lanes)
         params = params.clone()
         params[0] = seed_slot(seed)
+    doppler = tab.doppler or coherent
     acc, _ = receive_megakernel(
         params, tab.prim, tab.txp, adc=rx.adc, max_depth=max_depth,
         time_sampling=time_sampling, rx_kind=rx_kind, n_lanes=n_lanes,
-        seed=seed, mesh=tab.mesh, msh=tab.msh, doppler=tab.doppler,
-        patch_p=patch_p)
+        seed=seed, mesh=tab.mesh, msh=tab.msh if doppler else None,
+        doppler=doppler, patch_p=patch_p, receive_type=rx.receive_type,
+        has_lo=rx.lo_waveform is not None, coherent=coherent)
     return acc, n_lanes

@@ -11,7 +11,7 @@ import dataclasses
 
 import torch
 
-from ..core.math import TwoPi, sinc, tri, rect
+from ..core.math import TwoPi, rect, wchirp
 
 CW = 0
 PULSE = 1
@@ -47,11 +47,8 @@ class Waveform:
         """Wigner distribution W(t, f) in V^2/Hz (may be negative)."""
         t, ti = self._fold(time)
         fi = self.inst_freq(time)
-        w = self.t_ext
-        x = (t - ti) / torch.clamp(w, min=1e-12)
-        tw = tri((t - ti) / w)
-        w_chirp = 2.0 * self.amplitude * self.amplitude * w * tw \
-            * sinc(TwoPi * (freq - fi) * w * tw)
+        x = (t - ti) / torch.clamp(self.t_ext, min=1e-12)
+        w_chirp = wchirp(t - ti, freq - fi, self.t_ext, self.amplitude)
         w_pulse = torch.where(rect(x) > 0.0, w_chirp,
                               torch.zeros_like(w_chirp))
         return torch.where(self.kind == CW,

@@ -3,9 +3,10 @@
 
 A scene inside the receive kernel's scope (`integrators.receive_kernel.
 supported`: rectangles and triangle meshes with diffuse or GGX rough-
-conductor BSDFs, moving or not, one resampling Wigner transmitter, raw
-power receive on a fast-time or time x frequency ADC) runs the CUDA
-megakernel on a card, or its plain PyTorch version on the CPU.
+conductor BSDFs, moving or not, one resampling Wigner transmitter, raw,
+raw_resample, mix_resample or mixer receive, power or coherent I / Q, on
+a fast-time or time x frequency ADC) runs the CUDA megakernel on a card,
+or its plain PyTorch version on the CPU.
 Every other scene runs the eager wavefront (`integrators/radar_path.py`)
 in passes of `lanes_per_pass` lanes, its triangle tests on the
 hand-written ray / triangle and BVH kernels.  `use_kernel` picks the
@@ -80,11 +81,11 @@ def scene_mono(scene_data):
                                      atlas=t.atlas[..., :1]))
 
 
-def _kernel_scope(scene, scene_data, rx, dev, coherent: bool,
-                  polarized: bool, why: list) -> bool:
-    if coherent or polarized:
-        why.append('coherent I/Q and polarized receive are outside the '
-                   'receive kernel (ROADMAP B3 / B7)')
+def _kernel_scope(scene, scene_data, rx, dev, polarized: bool,
+                  why: list) -> bool:
+    if polarized:
+        why.append('polarized receive is outside the receive kernel '
+                   '(ROADMAP B7)')
         return False
     return rk.in_scope(scene, scene_data, rx, dev, why)
 
@@ -114,13 +115,16 @@ def receive(scene, scene_data=None, receiver=None, seed: int = 0,
     if use_kernel not in ('auto', True, False):
         raise ValueError(f'use_kernel {use_kernel!r}: auto, True or False')
     why: list = []
-    if use_kernel and _kernel_scope(scene, scene_data, rx, dev, coherent,
-                                    polarized, why):
+    if use_kernel and _kernel_scope(scene, scene_data, rx, dev, polarized,
+                                    why):
         out, n = rk.receive_kernel(scene, scene_data, rx, spp=spp, seed=seed,
                                    max_depth=max_depth,
-                                   time_sampling=time_sampling, device=dev)
-        adc = film_mod.film_new(rx.adc.n_time, rx.adc.n_freq, 1, device=dev)
-        adc[..., 0] = out
+                                   time_sampling=time_sampling,
+                                   coherent=coherent, device=dev)
+        n_ch = 2 if coherent else 1
+        adc = film_mod.film_new(rx.adc.n_time, rx.adc.n_freq, n_ch,
+                                device=dev)
+        adc[..., :n_ch] = out.reshape(rx.adc.n_time, rx.adc.n_freq, n_ch)
         return adc, n
     if use_kernel is True:
         raise NotImplementedError("scene outside the receive kernel's "

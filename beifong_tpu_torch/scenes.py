@@ -22,6 +22,13 @@ compiles with `use_bvh=False`, and its triangle tests are dense.
 `examples/range_doppler.py`: a CW 40 kHz sonar, the flagship's apertures,
 a diffuse 1 m plate closing at 5 m/s from 4 m, on an 8 x 128 time x
 Doppler ADC over 38-42 kHz.
+
+The FMCW and pulse-train scenes are the repository's golden ladder
+(`tests/golden/configs.py`): `fmcw_sonar_scene` is config 2 (and
+`examples/fmcw_sonar.py`), `pulse_train_scene(p)` pulse p of config 3,
+`fmcw_dechirp_scene` the single-pulse receive of config 4 with a plate
+in place of its trihedral; `fmcw_scene` is the FMCW point-target scene
+of the JAX package's receive-type tests (`tests/test_radar.py`).
 """
 
 from __future__ import annotations
@@ -34,8 +41,8 @@ from .core import transform as tf
 from .core.config import Band
 from .geometry import shapes as sh
 from .geometry.mesh import MeshSpec, make_grid
-from .radar import (ADCConfig, cw, omni_receiver, pulse, wigner_receiver,
-                    wigner_transmitter)
+from .radar import (ADCConfig, cw, linfmcw, omni_receiver, pulse,
+                    wigner_receiver, wigner_transmitter)
 
 
 def flagship_scene(R: float = 4.0, ground: bool = True,
@@ -163,6 +170,168 @@ def range_doppler_scene(p: int = 0):
                                 tf.scale(0.5)))
     s.add(sh.rectangle(to_world=tgt, bsdf='mat',
                        velocity=np.array([0, v, 0], np.float32)))
+    return s, rx
+
+
+C_SOUND = 340.0
+# the LFMCW sonar of the golden ladder's configs 2 and 4: 40 kHz, a 2 kHz
+# sweep over a 90 ms chirp
+FMCW = dict(fc=40e3, sweep=2e3, chirp=90e-3)
+
+
+def _plate(s, center, size, look_to=(0.0, 0.0, 0.0), **kw):
+    """A diffuse 'mat' plate of half-width `size` at `center`, facing
+    `look_to`."""
+    m = np.asarray(tf.compose(tf.look_at(list(center), list(look_to)),
+                              tf.scale(size)))
+    s.add(sh.rectangle(to_world=m, bsdf='mat', **kw))
+
+
+def _aperture(s, pos, aim, scale, **endpoint):
+    m = np.asarray(tf.compose(tf.look_at(list(pos), list(aim)),
+                              tf.scale(list(scale))))
+    s.add(sh.rectangle(to_world=m, **endpoint))
+
+
+def _lfmcw():
+    return linfmcw(f_centre=FMCW['fc'], crf=1.0 / FMCW['chirp'],
+                   chirp_len=FMCW['chirp'], freq_sweep=FMCW['sweep'],
+                   is_delta=True)
+
+
+def fmcw_beat_hz(r: float) -> float:
+    """The LFMCW's beat frequency slope 2R / c of a target R metres out."""
+    return FMCW['sweep'] / FMCW['chirp'] * 2.0 * r / C_SOUND
+
+
+FMCW_SONAR_R = 6.0
+
+
+def fmcw_sonar_scene():
+    """Golden config 2, `fmcw_sonar` (= examples/fmcw_sonar.py): the LFMCW
+    sonar, 20 x 50 mm apertures 0.2 m apart, a mix_resample receiver
+    dechirping against the transmitted chirp on a 16 x 256 time x beat
+    ADC over [0, 4 f_beat], a diffuse 1 m plate FMCW_SONAR_R metres out.
+    Returns (scene, receiver spec)."""
+    s = sc.Scene(band=Band.from_freq(C_SOUND, FMCW['fc'],
+                                     2 * FMCW['sweep']))
+    s.add(diffuse('mat', reflectance=1.0, twosided=True))
+    wf = _lfmcw()
+    s.add(wigner_transmitter('tx', wf, resample_freq=True))
+    _aperture(s, (0.1, 0, 0), (0.1, -1, 0), (0.01, 0.025, 1.0),
+              transmitter='tx')
+    adc = ADCConfig(n_time=16, n_freq=256, sampling_start=0.02,
+                    sampling_time=0.06, freq_lo=0.0,
+                    freq_hi=4 * fmcw_beat_hz(FMCW_SONAR_R))
+    rx = wigner_receiver('rx', adc, receive_type='mix_resample',
+                         lo_waveform=wf)
+    s.add(rx)
+    _aperture(s, (-0.1, 0, 0), (-0.1, -1, 0), (0.01, 0.025, 1.0),
+              receiver='rx')
+    _plate(s, (0, -FMCW_SONAR_R, 0), 0.5)
+    return s, rx
+
+
+def fmcw_scene(receive_type: str, dR: float = 0.0):
+    """The FMCW point-target scene of the JAX package's receive-type tests
+    (tests/test_radar.py `_fmcw_scene`): the LFMCW with the flagship's
+    apertures, a receiver of `receive_type` with the chirp as its LO, a
+    diffuse 1 m plate 6 + dR metres out, an 8 x 128 time x beat ADC over
+    [0, 4 f_beat].  raw_resample bins the received frequency, so it takes
+    the raw window of that file's raw_resample test instead (8 x 64 over
+    38-42 kHz).  Returns (scene, receiver spec)."""
+    r = 6.0 + dR
+    s = sc.Scene(band=Band.from_freq(C_SOUND, FMCW['fc'], 4e3))
+    s.add(diffuse('mat', reflectance=1.0, twosided=True))
+    wf = _lfmcw()
+    s.add(wigner_transmitter('tx', wf, resample_freq=True))
+    _aperture(s, (0.3, 0, 0), (0.3, -1, 0), (0.05, 0.05, 1.0),
+              transmitter='tx')
+    if receive_type == 'raw_resample':
+        adc = ADCConfig(n_time=8, n_freq=64, sampling_start=0.03,
+                        sampling_time=0.05, freq_lo=38e3, freq_hi=42e3)
+    else:
+        adc = ADCConfig(n_time=8, n_freq=128, sampling_start=0.03,
+                        sampling_time=0.05, freq_lo=0.0,
+                        freq_hi=4 * fmcw_beat_hz(r))
+    rx = wigner_receiver('rx', adc, receive_type=receive_type,
+                         lo_waveform=wf)
+    s.add(rx)
+    _aperture(s, (-0.3, 0, 0), (-0.3, -1, 0), (0.05, 0.05, 1.0),
+              receiver='rx')
+    _plate(s, (0, -r, 0), 0.5)
+    return s, rx
+
+
+# golden config 3: 8 CW pulses at 400 Hz PRF, a plate closing from 4 m at
+# 1.0625 m/s, so that the aliased Doppler lands on slow-time bin 5
+PULSE_TRAIN = dict(R0=4.0, v=1.0625, prf=400.0, n_pulses=8, fc=40e3)
+
+
+def pulse_train_scene(p: int = 0):
+    """Pulse `p` of golden config 3, `pulse_train_range_doppler`: a CW
+    40 kHz sonar, the flagship's apertures, a raw 8-bin fast-time ADC over
+    2 ms, a diffuse 1 m plate at R0 - v p / prf metres closing at v m/s
+    (PULSE_TRAIN).  Returns (scene, receiver spec)."""
+    pt = PULSE_TRAIN
+    rp = pt['R0'] - pt['v'] * p / pt['prf']
+    s = sc.Scene(band=Band.from_freq(C_SOUND, pt['fc'], 10e3))
+    s.add(diffuse('mat', reflectance=1.0, twosided=True))
+    s.add(wigner_transmitter('tx', cw(f_centre=pt['fc']),
+                             resample_freq=True))
+    _aperture(s, (0.3, 0, 0), (0.3, -1, 0), (0.05, 0.05, 1.0),
+              transmitter='tx')
+    adc = ADCConfig(n_time=8, n_freq=1, sampling_start=0.0,
+                    sampling_time=2e-3, freq_lo=pt['fc'] - 2e3,
+                    freq_hi=pt['fc'] + 2e3)
+    rx = wigner_receiver('rx', adc, receive_type='raw')
+    s.add(rx)
+    _aperture(s, (-0.3, 0, 0), (-0.3, -1, 0), (0.05, 0.05, 1.0),
+              receiver='rx')
+    _plate(s, (0, -rp, 0), 0.5,
+           velocity=np.array([0, pt['v'], 0], np.float32))
+    return s, rx
+
+
+# golden config 4's fast time: 1024 bins over 50 ms from 30 ms, decimated
+# by 8 to the ADC rate; its corner apex 4 m out, the receiver 0.1 m in front
+# of the transmitter
+DECHIRP = dict(n_fast=1024, window=50e-3, t0=30e-3, q=8, R=4.0,
+               rx_pos=(0.0, -0.1, 0.0), plate=0.25, tx=0.05)
+
+
+def fmcw_dechirp_scene():
+    """The single-pulse receive of golden config 4, `fmcw_dechirp_chain`:
+    the LFMCW, a 40 mm mix_resample receiver 0.1 m in front of the
+    transmitter looking at the apex, a 1024 x 1 fast-time ADC over 30-80
+    ms whose coherent I / Q is the dechirped beat signal.  Two cuts:
+    - a diffuse 0.5 m plate (DECHIRP['plate'] is its half-width) at the
+      apex, 4 m out and facing the receiver, replaces the trihedral
+      corner reflector, whose three mirror bounces need the kernel's
+      mirror chains (ROADMAP B5);
+    - the transmitter aperture is 0.1 m (the flagship's), not the config's
+      1.6 m: the corner's retro-reflection gave every path one length, but
+      a diffuse echo's NEE samples the aperture, and across 1.6 m at 4 m
+      the paths spread over ~19 Fresnel zones, so its I / Q averages away
+      (no beat line at 2^22 samples, where the 0.1 m aperture gives one
+      at 2^18).
+    The config's 64-pulse CPI is ROADMAP B8.  Returns (scene, receiver
+    spec)."""
+    d = DECHIRP
+    s = sc.Scene(band=Band.from_freq(C_SOUND, FMCW['fc'], 4 * FMCW['sweep']))
+    s.add(diffuse('mat', reflectance=1.0, twosided=True))
+    wf = _lfmcw()
+    s.add(wigner_transmitter('tx', wf, resample_freq=True))
+    _aperture(s, (0.0, 0, 0), (0.0, -1, 0), (d['tx'], d['tx'], 1.0),
+              transmitter='tx')
+    adc = ADCConfig(n_time=d['n_fast'], n_freq=1, sampling_start=d['t0'],
+                    sampling_time=d['window'], freq_lo=0.0, freq_hi=1.5e3)
+    rx = wigner_receiver('rx', adc, receive_type='mix_resample',
+                         lo_waveform=wf)
+    s.add(rx)
+    apex = (0.0, -d['R'], 0.0)
+    _aperture(s, d['rx_pos'], apex, (0.02, 0.02, 1.0), receiver='rx')
+    _plate(s, apex, d['plate'], look_to=d['rx_pos'])
     return s, rx
 
 

@@ -31,6 +31,15 @@ Phases (any failure exits non-zero before the last line is printed):
              with one seed of each main scene, which must agree per cell to
              1e-6 of max|acc| (the configuration adds with atomics), and
              the plain version on the same stream at 2^24 lanes;
+   coherent - K1's coherent configuration and its LO receive types
+             against the plain version on injected uniforms, depth 2:
+             fmcw_sonar (mix_resample, power), the FMCW mixer (I / Q) and
+             raw_resample (power) scenes, pulse 0 of the train (I / Q, a
+             moving plate), the flagship (I / Q) and the dechirp scene
+             (I / Q, 1,024 bins) at 2^18 lanes, mesh_scene (I / Q) lane by
+             lane at 2^16; I / Q per cell within TOL x max(|I|, |Q|) plus
+             the phase slack (`receive_kernel.phase_slack`) times the
+             cell's sum of amplitudes;
 4. main    - the flagship receive at 2^28 samples, depth 3, and the mesh
              receive at 2^24 samples, depth 2, through `receive()` on the
              card (one warm-up, five timed calls each), then
@@ -45,6 +54,21 @@ Phases (any failure exits non-zero before the last line is printed):
              transmitter.  Each path must have launched its kernels; the
              launch counts are set to 0 just before a path and read just
              after it;
+   coherent - through `receive()` at 2^24 samples, one warm-up and five
+             timed calls each, every call launching K1 and no wavefront
+             pass: golden config 2 (`fmcw_sonar_scene`, depth 2), whose
+             beat spectrum peaks within 2 bins of slope 2R / c; the pulse
+             train of golden config 3 (eight coherent calls of
+             `pulse_train_scene(p)`, depth 1, one seed), whose slow-time
+             FFT peaks on bin 5; the dechirp chain of golden config 4
+             (coherent `fmcw_dechirp_scene`, depth 2, then conj,
+             `decimate` by 8 and a Hann `range_fft`), whose beat lands
+             within 1 bin of the config's range bin; mesh_scene coherent,
+             whose |I + jQ| peaks within 2 bins of 2R / c.  Each beside its
+             kernel alone, a Philox repeat and the plain version at 2^24
+             lanes; then K1 against the wavefront on fmcw_sonar (peak bin,
+             window energy) and pulse 0 (the summed I / Q's magnitude and
+             phase);
    wavefront - the eager receive wavefront: ray_triangle_closest /
              ray_triangle_any (K4) against their plain versions at the
              wavefront's shape (2^17 receiver rays x the multi_body
@@ -117,6 +141,29 @@ K1_WF_BOUND = 0.25
 # FP32 operations of one (ray, triangle) pair, counted from
 # pallas_intersect._kernel as csrc/intersect_kernels.cu computes them
 K4_PAIR_OPS = 47
+# the coherent configuration and the LO receive types
+COH_PARITY_LANES = 1 << 18   # injected-uniform comparisons
+COH_MESH_PARITY_LANES = 1 << 16
+COH_LANES = 1 << 24          # samples per receive() call on the main paths
+COH_DEPTH = 2
+PULSE_DEPTH = 1              # golden config 3 traces one bounce
+COH_PLAIN_CHUNK = 1 << 20
+# lane flags of a coherent mesh run: the amplitude is the square root of a
+# power, so the power test's 1e-6 of the largest lane becomes 1e-3
+COH_LANE_FLOOR = 1e-3
+# K1 against the wavefront, two unbiased estimators of one expectation:
+# - fmcw_sonar (power) at 2^22 samples: the beat spectrum's peak bin and
+#   the energy of the five bins around it (a CPU rehearsal at 2^18 and
+#   2^20 samples, three seeds each, differed by at most 3.5%);
+# - pulse 0 of the train (I / Q) at 2^26 samples: the summed I / Q, its
+#   magnitude and its phase (the CW echo's fast-time profile is flat: its
+#   peak bin is noise).  The rehearsal at 2^22 samples differed by up to
+#   41% in magnitude and 0.43 rad in phase over three seeds; 16x the
+#   samples take a quarter of that spread.
+KW_SAMPLES = {'fmcw_sonar': 1 << 22, 'pulse_train': 1 << 26}
+KW_LANES_PER_PASS = 1 << 20  # the wavefront's passes (fewer host launches)
+K1_WF_COH_BOUND = 0.25
+K1_WF_PHASE_BOUND = 0.3      # rad, tests/test_pallas_receive.py's bound
 
 # FP32 arithmetic instructions (add, sub, mul, div, sqrt, rsqrt, exp, log,
 # min, max, abs, floor, ceil, rint, fmod) per lane and stage, counted by
@@ -148,6 +195,15 @@ FP32_OPS = {
     'dop_nee': 20,       # vertex and transmitter factors
     'dop_bounce': 11,
     'splat_2d': 20,      # frequency coordinate, its tent, four taps
+    # receive types and coherent I / Q
+    'lo_freq': 11,       # receive frequency off a waveform (inst_freq)
+    'lo_bin': 12,        # a beat: inst_freq, difference, |.|
+    'phase': 92,         # echo phase with the transmitter's h (a tone),
+    #                      boundary phase, sqrt, two fast sines, the second
+    #                      channel's taps
+    'phase_lo': 35,      # mix_resample's receive fold and its h (the LO
+    #                      dechirp's is 43)
+    'h_chirp': 52,       # the quadratic term of each h of a chirp
 }
 
 
@@ -255,10 +311,11 @@ def lane_ops(stats: dict, n_rect: int) -> float:
             + stats['strata'] * FP32_OPS['ray_strata']
             + stats['trace'] * n_rect * FP32_OPS['rect_test']
             + stats['occ_tests'] * FP32_OPS['rect_test']
-            + sum(stats[k] * FP32_OPS[k] for k in
+            + sum(stats.get(k, 0) * FP32_OPS[k] for k in
                   ('hit', 'direct', 'nee_geom', 'nee', 'nee_splat',
                    'bounce', 'freq_draw', 'ggx_nee', 'ggx_bounce',
-                   'dop_direct', 'dop_nee', 'dop_bounce', 'splat_2d'))
+                   'dop_direct', 'dop_nee', 'dop_bounce', 'splat_2d',
+                   'lo_freq', 'lo_bin', 'phase', 'phase_lo', 'h_chirp'))
             + walk_ops(stats))
 
 
@@ -270,12 +327,16 @@ def walk_ops(stats: dict) -> float:
 
 
 def print_build(infos: dict, tag: str) -> None:
-    names = {'receive_trace_kernelILb0ELb0E':
-             'receive_megakernel (flagship)',
-             'receive_trace_kernelILb1ELb0E': 'receive_megakernel (mesh)',
-             'receive_trace_kernelILb0ELb1E': 'receive_megakernel (doppler)',
-             'receive_trace_kernelILb1ELb1E':
+    names = {'receive_trace_kernelILb0E': 'receive_megakernel (flagship)',
+             'receive_trace_kernelILb1E': 'receive_megakernel (mesh)',
+             'receive_doppler_kernelILb0ELb0E':
+             'receive_megakernel (doppler)',
+             'receive_doppler_kernelILb1ELb0E':
              'receive_megakernel (doppler mesh)',
+             'receive_doppler_kernelILb0ELb1E':
+             'receive_megakernel (coherent)',
+             'receive_doppler_kernelILb1ELb1E':
+             'receive_megakernel (coherent mesh)',
              'receive_reduce_kernel': 'receive reduce',
              'bvh_closest_kernel': 'bvh_closest', 'bvh_any_kernel': 'bvh_any',
              'ray_triangle_kernelILb0E': 'ray_triangle_closest',
@@ -865,6 +926,513 @@ def doppler(torch, bt, rk, ik, dev, tag):
             'repeat_rel': rep / scale, 'ms': k_med, 'plain_ms': plain_ms,
             'receive_ms': med, **b, 'library_ms': None})
     return entries, k1_grid
+
+
+def compare_coherent(torch, acc, n_ev, ref, n_ref, amp, slack, what,
+                     lane=None, lane_ref=None, depth=COH_DEPTH) -> dict:
+    """I / Q parity per cell and channel: within TOL x max(|I|, |Q|) plus
+    the phase slack (`receive_kernel.phase_slack`) times the cell's sum of
+    amplitudes `amp` (the plain version's), since the kernel's contracted
+    path lengths move each phase by a few ulps of the path over the
+    wavelength.  With `lane`, lane by lane as `compare_lanes`, flagging
+    lanes beyond TOL of themselves and COH_LANE_FLOOR of the largest."""
+    scale = float(ref.abs().max())
+    bound = TOL * scale + slack * amp.float()[..., None]
+    flips, flip_slack = 0, 0.0
+    if lane is not None:
+        flipped = (lane - lane_ref).abs() > \
+            TOL * lane_ref.abs() + COH_LANE_FLOOR * float(lane_ref.abs().max())
+        flips = int(flipped.sum())
+        flip_slack = float((lane.abs() + lane_ref.abs())[flipped].sum())
+    diff = (acc - ref).abs()
+    err = float(diff.max())
+    worst = float((diff / (bound + flip_slack)).max())
+    ev, ev_ref = int(n_ev), int(n_ref)
+    print(f'parity {what}: max(|I|, |Q|) {scale:.6e}  max abs err {err:.3e} '
+          f'({err / max(scale, 1e-300):.3e} of max; worst cell at '
+          f'{worst:.3f} of its bound, phase slack {slack:.3e} rad, largest '
+          f'amplitude sum {float(amp.max()) / max(scale, 1e-300):.2f} x '
+          f'max)  events {ev} vs {ev_ref}'
+          + ('' if lane is None else f'; {flips} of {lane.numel()} lanes '
+             f'took another path'))
+    if lane is not None and flips > EDGE_FLIPS * lane.numel():
+        fail(f'{what}: {flips} lanes differ from the plain version')
+    if not (scale > 0 and worst <= 1.0):
+        fail(f'{what}: kernel differs from the plain version (worst cell '
+             f'{worst:.3f} of its bound)')
+    if abs(ev - ev_ref) > TOL * ev_ref + 2 * depth * flips:
+        fail(f'{what}: event counts {ev} vs {ev_ref}')
+    return dict(err=err, rel=err / scale, worst=worst, flips=flips)
+
+
+def _coh_tables(torch, rk, scene_fn, dev, coherent):
+    s, rx = scene_fn()
+    sd = s.compile(use_bvh=False, device=dev)
+    packed = rk.pack_scene(sd, rx, s.shape_index_of_endpoint('receiver',
+                                                              rx.id))
+    params = torch.tensor(packed.params, device=dev)
+    params[0] = rk.seed_slot(SEED)
+    mesh = None if packed.mesh is None else packed.mesh.to(dev)
+    kw = dict(adc=rx.adc, max_depth=COH_DEPTH, time_sampling='gate',
+              rx_kind='wigner', mesh=mesh, doppler=True,
+              msh=None if mesh is None else torch.tensor(packed.msh,
+                                                         device=dev),
+              receive_type=rx.receive_type,
+              has_lo=rx.lo_waveform is not None, coherent=coherent)
+    return (s, sd, rx, params, torch.tensor(packed.prim, device=dev),
+            torch.tensor(packed.txp, device=dev), kw)
+
+
+def _chirp_h(stats, txp):
+    """Each echo phase of a chirp adds the quadratic term to its h's."""
+    if float(txp[0, 16]) == 2.0:       # LINFMCW
+        stats['h_chirp'] = stats['phase'] + stats['phase_lo']
+    return stats
+
+
+class _Wavefront:
+    """Counts the wavefront passes of receive() calls (a path that runs
+    K1 must make none)."""
+
+    def __init__(self, bt):
+        import importlib
+        self.mod = importlib.import_module('beifong_tpu_torch.receive')
+        self.calls = 0
+
+    def __enter__(self):
+        self.orig = self.mod._receive_pass
+
+        def counted(*a, **k):
+            self.calls += 1
+            return self.orig(*a, **k)
+        self.mod._receive_pass = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._receive_pass = self.orig
+        return False
+
+
+def _kernel_entry(torch, rk, cfg_name, what, main_path, launches, errs,
+                  k_ms, plain_ms, recv_ms, stats, tables, n_cells, n_ch,
+                  extra=None) -> dict:
+    n_rect = int((tables[1][:, 0] == 0).sum())
+    n_bytes = 4 * (sum(t.numel() for t in tables) + n_cells * n_ch) + 8
+    b = bound(lane_ops(stats, n_rect), n_bytes, what)
+    entry = {
+        'name': 'receive_megakernel', 'configuration': cfg_name,
+        'route': 'cuda',
+        'source': 'beifong_tpu_torch/csrc/receive_megakernel.cu',
+        'replaces': 'beifong_tpu/integrators/pallas_receive.py:2983',
+        'tpu_function': '_make_kernel (pallas_receive.py:106), '
+        + cfg_name, 'main_path': main_path, 'launches': launches,
+        'max_abs_err': max(c['err'] for c in errs),
+        'parity': max(c['rel'] for c in errs), 'ms': k_ms,
+        'plain_ms': plain_ms, 'receive_ms': recv_ms, **b,
+        'library_ms': None}
+    entry.update(extra or {})
+    return entry
+
+
+def _plain_philox(torch, rk, params, prim, txp, kw, n_lanes, depth, dev,
+                  lane_ref=None):
+    """The plain version on the kernel's Philox stream at the main path's
+    shape, in chunks: (acc, events, amplitude sums, stage counts, ms)."""
+    stats: dict = {}
+    nd = rk.n_draws(depth)
+    cfg = kw['adc']
+    amp = torch.zeros((cfg.n_time, cfg.n_freq), dtype=torch.float64,
+                      device=dev)
+
+    def plain():
+        total, n_tot = None, 0
+        for lane0 in range(0, n_lanes, COH_PLAIN_CHUNK):
+            u = rk.philox_uniforms(SEED, nd, COH_PLAIN_CHUNK, device=dev,
+                                   lane0=lane0)
+            a, n = rk.receive_megakernel_ref(
+                params, prim, txp, u, lane0=lane0, stats=stats,
+                amp_out=amp if kw['coherent'] else None,
+                lane_out=None if lane_ref is None
+                else lane_ref[lane0:lane0 + COH_PLAIN_CHUNK], **kw)
+            total = a if total is None else total + a
+            n_tot += int(n)
+        return total, n_tot
+
+    ms, (ref, n_ref) = wall_ms(plain)
+    return ref, n_ref, amp, _chirp_h(stats, txp), ms
+
+
+def coherent(torch, bt, rk, ik, dev, tag) -> list:
+    """K1's coherent configuration and the LO receive types: parity, the
+    main paths (FMCW sonar, the pulse train, the dechirp chain, a coherent
+    mesh), the kernels alone, K1 against the wavefront."""
+    import numpy as np
+    from beifong_tpu_torch.dsp import rangedoppler as rd
+    from beifong_tpu_torch.dsp import resample, windows
+    from beifong_tpu_torch.scenes import (
+        DECHIRP, FMCW, FMCW_SONAR_R, PULSE_TRAIN, flagship_scene,
+        fmcw_beat_hz, fmcw_dechirp_scene, fmcw_scene, fmcw_sonar_scene,
+        mesh_scene, pulse_train_scene, round_trip_bin)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def reset():
+        rk.receive_megakernel.launches = 0
+        rk.receive_megakernel.by_config = dict.fromkeys(rk.CONFIGS, 0)
+        ik.ray_triangle_closest.launches = ik.ray_triangle_any.launches = 0
+
+    # ---- 3. parity on injected uniforms ----
+    errs = {'doppler': [], 'coherent': [], 'coherent_mesh': []}
+    for what, fn, ts, coh, n_lanes in (
+            ('fmcw_sonar (mix_resample, power)', fmcw_sonar_scene, 'fixed',
+             False, COH_PARITY_LANES),
+            ('fmcw mixer (I / Q)', lambda: fmcw_scene('mixer'), 'fixed',
+             True, COH_PARITY_LANES),
+            ('fmcw raw_resample (power)', lambda: fmcw_scene('raw_resample'),
+             'fixed', False, COH_PARITY_LANES),
+            ('pulse train p 0 (I / Q, moving)', pulse_train_scene, 'gate',
+             True, COH_PARITY_LANES),
+            ('flagship (I / Q)', flagship_scene, 'gate', True,
+             COH_PARITY_LANES),
+            ('dechirp 1024 bins (I / Q)', fmcw_dechirp_scene, 'gate', True,
+             COH_PARITY_LANES),
+            ('mesh_scene (I / Q)', mesh_scene, 'gate', True,
+             COH_MESH_PARITY_LANES)):
+        s, sd, rx, params, prim, txp, kw = _coh_tables(torch, rk, fn, dev,
+                                                       coh)
+        kw['time_sampling'] = ts
+        u = torch.rand((rk.n_draws(COH_DEPTH), n_lanes), generator=gen,
+                       device=dev)
+        lane = torch.empty(n_lanes, device=dev)
+        lane_ref = torch.empty(n_lanes, device=dev)
+        amp = torch.zeros((rx.adc.n_time, rx.adc.n_freq),
+                          dtype=torch.float64, device=dev)
+        acc, n_ev = rk.receive_megakernel(params, prim, txp, n_lanes=n_lanes,
+                                          uniforms=u, lane_out=lane, **kw)
+        ms, (ref, n_ref) = wall_ms(lambda: rk.receive_megakernel_ref(
+            params, prim, txp, u, lane_out=lane_ref,
+            amp_out=amp if coh else None, **kw))
+        mesh = kw['mesh'] is not None
+        name = (f'{what} injected 2^{n_lanes.bit_length() - 1} lanes, '
+                f'{ts} (grid mode '
+                f'{rk.grid_mode(rx.adc.n_time * rx.adc.n_freq, True, coh)})')
+        cfg_name = rk.config_name(mesh, True, coh)
+        if coh:
+            errs[cfg_name].append(compare_coherent(
+                torch, acc, n_ev, ref, n_ref, amp,
+                rk.phase_slack(s.band, rx.adc), name,
+                lane if mesh else None, lane_ref if mesh else None))
+        else:
+            errs[cfg_name].append(compare(acc, n_ev, ref, n_ref, name))
+        print(f'plain version {what}: {ms:.1f} ms {tag}')
+
+    entries = []
+
+    # ---- 4a. FMCW sonar (golden config 2): power, mix_resample ----
+    s, sd, rx, params, prim, txp, kw = _coh_tables(
+        torch, rk, fmcw_sonar_scene, dev, False)
+    kw['time_sampling'] = 'fixed'
+    f_beat = fmcw_beat_hz(FMCW_SONAR_R)
+    f_axis = (np.arange(rx.adc.n_freq) + 0.5) / rx.adc.n_freq * (4 * f_beat)
+    want = int(np.argmin(np.abs(f_axis - f_beat)))
+    reset()
+    with _Wavefront(bt) as wfc:
+        bt.receive(s, sd, rx, seed=1, spp=COH_LANES, max_depth=COH_DEPTH,
+                   device=dev)
+        call_ms, (adc, n) = cuda_ms(lambda i: bt.receive(
+            s, sd, rx, seed=2 + i, spp=COH_LANES, max_depth=COH_DEPTH,
+            device=dev), 5)
+    launches = rk.receive_megakernel.by_config['doppler']
+    if launches != 6 or rk.receive_megakernel.launches != 6 or wfc.calls:
+        fail(f'fmcw_sonar path launched K1 {rk.receive_megakernel.by_config}'
+             f', the wavefront {wfc.calls} times in 6 receive() calls')
+    spec = bt.develop_signal(adc, n, rx.adc).sum(0)[:, 0]
+    if tuple(adc.shape) != (16, 256, 3) or not bool(
+            torch.isfinite(adc).all()):
+        fail(f'fmcw_sonar: grid {tuple(adc.shape)} not finite / wrong shape')
+    pk = int(spec.argmax())
+    med = statistics.median(call_ms)
+    print(f'receive() fmcw_sonar (mix_resample, power) 2^24 samples depth 2,'
+          f' fixed: median {med:.3f} ms/call ({COH_LANES / (med * 1e-3):.4e}'
+          f' samples/s), calls {[round(x, 3) for x in call_ms]}; beat peak '
+          f'bin {pk}, slope 2R/c at bin {want} ({f_beat:.1f} Hz) {tag}')
+    if abs(pk - want) > 2:
+        fail(f'fmcw_sonar: beat peak at bin {pk}, expected {want}')
+    k_ms, _ = cuda_ms(lambda i: rk.receive_megakernel(
+        params, prim, txp, n_lanes=COH_LANES, seed=SEED, **kw), 6)
+    k_med = statistics.median(k_ms[1:])
+    acc1, n1 = rk.receive_megakernel(params, prim, txp, n_lanes=COH_LANES,
+                                     seed=SEED, **kw)
+    ref, n_ref, _, stats, plain_ms = _plain_philox(
+        torch, rk, params, prim, txp, kw, COH_LANES, COH_DEPTH, dev)
+    c = compare(acc1, n1, ref, n_ref, 'fmcw_sonar philox 2^24 lanes')
+    print(f'receive_megakernel (doppler, mix_resample) 2^24 lanes depth 2: '
+          f'median {k_med:.3f} ms ({COH_LANES / (k_med * 1e-3):.4e} '
+          f'samples/s) {[round(x, 3) for x in k_ms[1:]]}; plain version '
+          f'{plain_ms:.1f} ms {tag}')
+    print('fmcw_sonar stage lanes: ' + json.dumps(stats))
+    entries.append(_kernel_entry(
+        torch, rk, 'doppler, mix_resample', 'fmcw_sonar 2^24 lanes',
+        'receive(fmcw_sonar_scene()), 2^24 samples, depth 2, fixed',
+        launches, errs['doppler'] + [c], k_med, plain_ms, med, stats,
+        [params, prim, txp], 16 * 256, 1))
+    kw_grid = {'fmcw_sonar': (s, sd, rx)}
+
+    # ---- 4b. the pulse train (golden config 3): eight coherent pulses,
+    #      one seed (frozen speckle), the slow-time FFT ----
+    pt = PULSE_TRAIN
+    pulses = []
+    for p in range(pt['n_pulses']):
+        s_p, rx_p = pulse_train_scene(p)
+        pulses.append((s_p, s_p.compile(device=dev), rx_p))
+
+    def train():
+        iq = []
+        for s_p, sd_p, rx_p in pulses:
+            a, n = bt.receive(s_p, sd_p, rx_p, seed=11, spp=COH_LANES,
+                              max_depth=PULSE_DEPTH, coherent=True,
+                              time_sampling='gate', device=dev)
+            iq.append(torch.complex(a[..., 0].sum(), a[..., 1].sum()) / n)
+        return torch.stack(iq), a
+
+    reset()
+    with _Wavefront(bt) as wfc:
+        train()
+        train_ms, (iq, a_last) = cuda_ms(lambda i: train(), 5)
+    launches = rk.receive_megakernel.by_config['coherent']
+    n_calls = 6 * pt['n_pulses']
+    if launches != n_calls or rk.receive_megakernel.launches != n_calls \
+            or wfc.calls:
+        fail(f'pulse train launched K1 {rk.receive_megakernel.by_config}, '
+             f'the wavefront {wfc.calls} times in {n_calls} receive() calls')
+    if tuple(a_last.shape) != (8, 1, 4) or not bool(
+            torch.isfinite(iq).all()):
+        fail('pulse train: I / Q not finite / wrong shape')
+    dop = (torch.fft.fft(iq).abs() ** 2).cpu().numpy()
+    fd = 2 * pt['v'] * pt['fc'] / pulses[0][0].band.c
+    want = int(round((fd / pt['prf'] % 1.0) * pt['n_pulses'])) \
+        % pt['n_pulses']
+    med = statistics.median(train_ms)
+    print(f'pulse train: 8 coherent receive() calls of 2^24 samples, depth '
+          f'1, gate: median {med:.3f} ms per train ({8 * COH_LANES / (med * 1e-3):.4e} samples/s), trains '
+          f'{[round(x, 3) for x in train_ms]}; slow-time FFT peak bin '
+          f'{int(dop.argmax())}, fd {fd:.1f} Hz aliased to bin {want}; '
+          f'Doppler power {np.round(dop / dop.max(), 3).tolist()} {tag}')
+    if int(dop.argmax()) != want:
+        fail(f'pulse train: Doppler peak at bin {int(dop.argmax())}, '
+             f'expected {want}')
+    s, sd, rx = pulses[0]
+    _, _, _, params, prim, txp, kw = _coh_tables(
+        torch, rk, pulse_train_scene, dev, True)
+    kw['max_depth'] = PULSE_DEPTH
+    k_ms, _ = cuda_ms(lambda i: rk.receive_megakernel(
+        params, prim, txp, n_lanes=COH_LANES, seed=SEED, **kw), 6)
+    k_med = statistics.median(k_ms[1:])
+    acc1, n1 = rk.receive_megakernel(params, prim, txp, n_lanes=COH_LANES,
+                                     seed=SEED, **kw)
+    acc2, n2 = rk.receive_megakernel(params, prim, txp, n_lanes=COH_LANES,
+                                     seed=SEED, **kw)
+    ref, n_ref, amp, stats, plain_ms = _plain_philox(
+        torch, rk, params, prim, txp, kw, COH_LANES, PULSE_DEPTH, dev)
+    rep = float((acc1 - acc2).abs().max())
+    amp_max = float(amp.max())
+    print(f'parity pulse train philox 2^24 lanes: two calls differ by at '
+          f'most {rep:.3e} ({rep / amp_max:.3e} of the largest amplitude '
+          f'sum) per cell, events {int(n1)} / {int(n2)}')
+    if not (rep <= REPEAT_TOL * amp_max and int(n1) == int(n2)):
+        fail('pulse train: two Philox-mode calls with one seed differ')
+    c = compare_coherent(torch, acc1, n1, ref, n_ref, amp,
+                         rk.phase_slack(s.band, rx.adc),
+                         'pulse train philox 2^24 lanes', depth=PULSE_DEPTH)
+    print(f'receive_megakernel (coherent) pulse 0, 2^24 lanes depth 1: '
+          f'median {k_med:.3f} ms ({COH_LANES / (k_med * 1e-3):.4e} '
+          f'samples/s) {[round(x, 3) for x in k_ms[1:]]}; plain version '
+          f'{plain_ms:.1f} ms {tag}')
+    print('pulse train stage lanes: ' + json.dumps(stats))
+    entries.append(_kernel_entry(
+        torch, rk, 'coherent', 'pulse train pulse 0, 2^24 lanes',
+        'eight receive(pulse_train_scene(p), coherent=True) calls, 2^24 '
+        'samples each, depth 1, gate', launches, errs['coherent'] + [c],
+        k_med, plain_ms, med / pt['n_pulses'], stats, [params, prim, txp],
+        8, 2, dict(repeat_rel=rep / amp_max)))
+    kw_grid['pulse_train'] = (s, sd, rx)
+
+    # ---- 4c. the dechirp chain (golden config 4, one pulse) ----
+    s, sd, rx, params, prim, txp, kw = _coh_tables(
+        torch, rk, fmcw_dechirp_scene, dev, True)
+    d = DECHIRP
+
+    def chain(seed):
+        a, n = bt.receive(s, sd, rx, seed=seed, spp=COH_LANES,
+                          max_depth=COH_DEPTH, coherent=True,
+                          time_sampling='gate', device=dev)
+        return a, n
+
+    reset()
+    with _Wavefront(bt) as wfc:
+        chain(1)
+        call_ms, (adc, n) = cuda_ms(lambda i: chain(2 + i), 5)
+    launches = rk.receive_megakernel.by_config['coherent']
+    if launches != 6 or rk.receive_megakernel.launches != 6 or wfc.calls:
+        fail(f'dechirp path launched K1 {rk.receive_megakernel.by_config}, '
+             f'the wavefront {wfc.calls} times in 6 receive() calls')
+
+    def dsp():
+        iq = torch.complex(adc[:, 0, 0], adc[:, 0, 1]) * (d['n_fast'] / n)
+        dec = resample.decimate(torch.conj(iq), d['q'])
+        return rd.range_fft(dec, window=windows.hann(dec.shape[-1],
+                                                     device=dev))
+
+    dsp()   # cuFFT plans and the FIR bank: set-up
+    dsp_ms, rc = wall_ms(dsp)
+    n_adc = rc.shape[-1]
+    fs_adc = d['n_fast'] / d['window'] / d['q']
+    slope = FMCW['sweep'] / FMCW['chirp']
+    tau = 2 * (d['R'] - abs(d['rx_pos'][1])) / s.band.c
+    want = int(round(slope * tau / fs_adc * n_adc)) % n_adc
+    path = d['R'] + np.linalg.norm(np.array([0.0, -d['R'], 0.0])
+                                   - np.array(d['rx_pos']))
+    bistatic = slope * path / s.band.c / fs_adc * n_adc
+    p_rc = rc.abs()
+    pk = int(p_rc.argmax())
+    med = statistics.median(call_ms)
+    print(f'receive() dechirp 2^24 samples depth 2, I / Q: median {med:.3f} '
+          f'ms/call ({COH_LANES / (med * 1e-3):.4e} samples/s), calls '
+          f'{[round(x, 3) for x in call_ms]}; conj, decimate x{d["q"]} and '
+          f'Hann range FFT {dsp_ms:.2f} ms: beat peak bin {pk} of {n_adc} '
+          f'(peak / median {float(p_rc.max() / p_rc.median()):.1f}), the '
+          f'config\'s anchor {want}, the plate\'s bistatic path '
+          f'{bistatic:.2f} {tag}')
+    if not bool(torch.isfinite(rc).all()) or abs(pk - want) > 1:
+        fail(f'dechirp: beat at range bin {pk}, expected {want}')
+    k_ms, _ = cuda_ms(lambda i: rk.receive_megakernel(
+        params, prim, txp, n_lanes=COH_LANES, seed=SEED, **kw), 6)
+    k_med = statistics.median(k_ms[1:])
+    acc1, n1 = rk.receive_megakernel(params, prim, txp, n_lanes=COH_LANES,
+                                     seed=SEED, **kw)
+    ref, n_ref, amp, stats, plain_ms = _plain_philox(
+        torch, rk, params, prim, txp, kw, COH_LANES, COH_DEPTH, dev)
+    c = compare_coherent(torch, acc1, n1, ref, n_ref, amp,
+                         rk.phase_slack(s.band, rx.adc),
+                         'dechirp philox 2^24 lanes')
+    print(f'receive_megakernel (coherent) dechirp 2^24 lanes depth 2: median '
+          f'{k_med:.3f} ms ({COH_LANES / (k_med * 1e-3):.4e} samples/s) '
+          f'{[round(x, 3) for x in k_ms[1:]]}; plain version {plain_ms:.1f} '
+          f'ms {tag}')
+    print('dechirp stage lanes: ' + json.dumps(stats))
+    entries.append(_kernel_entry(
+        torch, rk, 'coherent (dechirp)', 'dechirp 2^24 lanes',
+        'receive(fmcw_dechirp_scene(), coherent=True), 2^24 samples, depth '
+        '2, gate; decimate, range_fft', launches, [c], k_med, plain_ms, med,
+        stats, [params, prim, txp], 1024, 2))
+
+    # ---- 4d. a coherent mesh: mesh_scene's I / Q profile ----
+    s, sd, rx, params, prim, txp, kw = _coh_tables(torch, rk, mesh_scene,
+                                                   dev, True)
+    kw['patch_p'] = rk.patch_p_for(COH_LANES)
+    blocks, threads, smem = rk.launch_geometry(
+        64, COH_LANES, int(prim.shape[0]), mesh=True,
+        n_msh=int(kw['msh'].shape[0]), doppler=True, coherent=True)
+    print(f'receive_megakernel (coherent mesh) geometry at 2^24 lanes: '
+          f'{blocks} blocks x {threads} threads, {smem} B shared each, '
+          f'{blocks / sms:g} blocks per SM on {sms} SMs {tag}')
+    reset()
+    with _Wavefront(bt) as wfc:
+        bt.receive(s, sd, rx, seed=1, spp=COH_LANES, max_depth=COH_DEPTH,
+                   coherent=True, time_sampling='gate', device=dev)
+        call_ms, (adc, n) = cuda_ms(lambda i: bt.receive(
+            s, sd, rx, seed=2 + i, spp=COH_LANES, max_depth=COH_DEPTH,
+            coherent=True, time_sampling='gate', device=dev), 5)
+    launches = rk.receive_megakernel.by_config['coherent_mesh']
+    k4 = (ik.ray_triangle_closest.launches, ik.ray_triangle_any.launches)
+    if launches != 6 or rk.receive_megakernel.launches != 6 or wfc.calls \
+            or k4 != (0, 0):
+        fail(f'coherent mesh path launched K1 '
+             f'{rk.receive_megakernel.by_config}, K4 {k4}, the wavefront '
+             f'{wfc.calls} times in 6 receive() calls')
+    mag = torch.complex(adc[:, 0, 0], adc[:, 0, 1]).abs()
+    anchor = round_trip_bin(s, rx)
+    med = statistics.median(call_ms)
+    print(f'receive() mesh_scene 2^24 samples depth 2, I / Q: median '
+          f'{med:.3f} ms/call ({COH_LANES / (med * 1e-3):.4e} samples/s), '
+          f'calls {[round(x, 3) for x in call_ms]}; |I + jQ| peak bin '
+          f'{int(mag.argmax())}, 2R/c anchor {anchor:.2f} {tag}')
+    if not bool(torch.isfinite(adc).all()) \
+            or abs(int(mag.argmax()) - anchor) > 2:
+        fail('coherent mesh: |I + jQ| not finite or off the 2R/c anchor')
+    k_ms, _ = cuda_ms(lambda i: rk.receive_megakernel(
+        params, prim, txp, n_lanes=COH_LANES, seed=SEED, **kw), 6)
+    k_med = statistics.median(k_ms[1:])
+    lane = torch.empty(COH_LANES, device=dev)
+    lane_ref = torch.empty(COH_LANES, device=dev)
+    acc1, n1 = rk.receive_megakernel(params, prim, txp, n_lanes=COH_LANES,
+                                     seed=SEED, lane_out=lane, **kw)
+    ref, n_ref, amp, stats, plain_ms = _plain_philox(
+        torch, rk, params, prim, txp, kw, COH_LANES, COH_DEPTH, dev,
+        lane_ref=lane_ref)
+    c = compare_coherent(torch, acc1, n1, ref, n_ref, amp,
+                         rk.phase_slack(s.band, rx.adc),
+                         'coherent mesh philox 2^24 lanes, P 32', lane,
+                         lane_ref)
+    print(f'receive_megakernel (coherent mesh) 2^24 lanes depth 2: median '
+          f'{k_med:.3f} ms ({COH_LANES / (k_med * 1e-3):.4e} samples/s) '
+          f'{[round(x, 3) for x in k_ms[1:]]}; plain version {plain_ms:.1f} '
+          f'ms {tag}')
+    print('coherent mesh stage lanes: ' + json.dumps(stats))
+    entries.append(_kernel_entry(
+        torch, rk, 'coherent mesh', 'mesh_scene 2^24 lanes',
+        'receive(mesh_scene(), coherent=True), 2^24 samples, depth 2, gate',
+        launches, errs['coherent_mesh'] + [c], k_med, plain_ms, med, stats,
+        [params, prim, txp, kw['msh'], kw['mesh'].bbox, kw['mesh'].links,
+         kw['mesh'].leaves], 64, 2, dict(lanes_on_another_path=c['flips'])))
+
+    # ---- K1 against the wavefront ----
+    compare_k1_wavefront_lo(torch, bt, dev, kw_grid, tag)
+    return entries
+
+
+def compare_k1_wavefront_lo(torch, bt, dev, grids, tag):
+    """K1 and the wavefront on fmcw_sonar (power: the beat spectrum summed
+    over fast time, its peak bin and the energy of the five bins around
+    the wavefront's peak) and pulse 0 of the train (I / Q: the summed
+    I / Q's magnitude and phase), each at KW_SAMPLES."""
+    import numpy as np
+    for what, coh, ts, depth in (('fmcw_sonar', False, 'fixed', COH_DEPTH),
+                                 ('pulse_train', True, 'gate', PULSE_DEPTH)):
+        s, sd, rx = grids[what]
+        n_s = KW_SAMPLES[what]
+        out = {}
+        for use in (True, False):
+            ms, (a, n) = wall_ms(lambda: bt.receive(
+                s, sd, rx, seed=3, spp=n_s, max_depth=depth, coherent=coh,
+                time_sampling=ts, use_kernel=use,
+                lanes_per_pass=KW_LANES_PER_PASS, device=dev))
+            g = bt.develop_signal(a, n, rx.adc).cpu().double().numpy()
+            out[use] = (g[..., 0] + 1j * g[..., 1]) if coh else g[..., 0]
+            print(f'{what} use_kernel={use}: {ms:.1f} ms for '
+                  f'2^{n_s.bit_length() - 1} samples {tag}')
+        g1, gw = out[True], out[False]
+        if coh:
+            z1, zw = g1.sum(), gw.sum()
+            mag = abs(z1) / abs(zw) - 1
+            dph = float(np.angle(z1 * np.conj(zw)))
+            print(f'K1 against the wavefront, {what}: summed I / Q '
+                  f'{z1:.4e} / {zw:.4e}, magnitude {mag:+.3f} (bound '
+                  f'+-{K1_WF_COH_BOUND}), phase {np.angle(z1):+.3f} / '
+                  f'{np.angle(zw):+.3f} rad (difference {dph:+.3f}, bound '
+                  f'{K1_WF_PHASE_BOUND})')
+            ok = abs(mag) <= K1_WF_COH_BOUND and abs(dph) <= K1_WF_PHASE_BOUND
+        else:
+            m1, mw = g1.sum(0), gw.sum(0)
+            p1, pw = int(m1.argmax()), int(mw.argmax())
+            win = slice(max(pw - 2, 0), pw + 3)
+            e1, ew = float(m1[win].sum()), float(mw[win].sum())
+            print(f'K1 against the wavefront, {what}: beat peak bins {p1} / '
+                  f'{pw}, window energy {e1:.4e} / {ew:.4e} '
+                  f'({e1 / ew - 1:+.3f}; bound +-{K1_WF_COH_BOUND})')
+            ok = abs(p1 - pw) <= 1 and abs(e1 - ew) <= K1_WF_COH_BOUND * ew
+        if not ok:
+            fail(f'{what}: K1 and the wavefront disagree')
 
 
 def compare_k1_wavefront(torch, k1_grid, wf_grid, s, cfg):
@@ -1478,6 +2046,7 @@ def main() -> int:
                mesh(torch, bt, rk, dev, tag, pulse_compress)]
     dop_kernels, k1_grid = doppler(torch, bt, rk, ik, dev, tag)
     kernels += dop_kernels
+    kernels += coherent(torch, bt, rk, ik, dev, tag)
     kernels += queries(torch, bt, dev, tag)
     k4 = k4_parity(torch, ik, dev, tag)
     k4_launches, bvh_launches = wavefront(torch, bt, ik, bk, rk, dev, tag,

@@ -194,3 +194,17 @@ def test_spawn_origin_matches_jax():
 def test_phased_aperture_gain_names_its_roadmap_item():
     with pytest.raises(NotImplementedError, match='ROADMAP B6'):
         wigner_t.phased_aperture_gain()
+
+
+def test_wchirp_matches_jax():
+    """The chirp's Wigner distribution (negative lobes included) on seeded
+    offsets, extents and amplitudes."""
+    g = np.random.default_rng(13)
+    t, f = g.uniform(-0.6, 0.6, N), g.uniform(-3e3, 3e3, N)
+    w, a = g.uniform(1e-3, 0.1, N), g.uniform(0.1, 2.0, N)
+    args = [x.astype(np.float32) for x in (t, f, w, a)]
+    got = m_t.wchirp(*map(torch.from_numpy, args))
+    ref = np.asarray(m_j.wchirp(*map(jnp.asarray, args)))
+    assert (ref < 0).any() and (ref > 0).any()
+    np.testing.assert_allclose(got.numpy(), ref, rtol=0,
+                               atol=1e-5 * np.abs(ref).max())

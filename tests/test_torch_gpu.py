@@ -20,8 +20,9 @@ from beifong_tpu_torch.geometry import bvh as bvh_mod
 from beifong_tpu_torch.geometry import bvh_kernel as bk
 from beifong_tpu_torch.geometry import intersect_kernel as ik
 from beifong_tpu_torch.integrators import receive_kernel as rk
-from beifong_tpu_torch.scenes import flagship_scene, mesh_scene, \
-    multi_body_scene, range_doppler_scene, round_trip_bin
+from beifong_tpu_torch.scenes import flagship_scene, fmcw_dechirp_scene, \
+    fmcw_scene, fmcw_sonar_scene, mesh_scene, multi_body_scene, \
+    pulse_train_scene, range_doppler_scene, round_trip_bin
 
 torch.set_num_threads(1)
 
@@ -463,3 +464,153 @@ def test_doppler_receive_on_card_matches_cpu_for_one_seed(cuda, scene):
     else:
         # the plate closing at 5 m/s: +1173 Hz, bin 101.0
         assert int(grid.sum(0).argmax()) in (100, 101, 102)
+
+
+# ---------------------------------------------------------------------------
+# the coherent configuration and the LO receive types
+# ---------------------------------------------------------------------------
+
+
+COHERENT_SCENES = {
+    # (scene, time sampling, coherent, depth)
+    'fmcw_sonar': (fmcw_sonar_scene, 'fixed', False, 2),
+    'mixer': (lambda: fmcw_scene('mixer'), 'fixed', True, 2),
+    'raw_resample': (lambda: fmcw_scene('raw_resample'), 'fixed', False, 2),
+    'pulse_train': (lambda: pulse_train_scene(0), 'gate', True, 2),
+    'flagship': (flagship_scene, 'gate', True, 2),
+    'dechirp': (fmcw_dechirp_scene, 'gate', True, 2),
+    'mesh': (lambda: mesh_scene(n_side=23), 'gate', True, 2),
+    # past the shared-memory grid's coherent cap: the global accumulator
+    'global_grid': (lambda: _variant(lambda: pulse_train_scene(0),
+                                     n_time=128, n_freq=128),
+                    'gate', True, 2),
+}
+
+
+def _coherent_tables(device, scene, seed=0):
+    fn, ts, coherent, depth = COHERENT_SCENES[scene]
+    s, rx = fn()
+    sd = s.compile(use_bvh=False, device='cpu')
+    p = rk.pack_scene(sd, rx, s.shape_index_of_endpoint('receiver', rx.id))
+    params = torch.tensor(p.params, device=device)
+    params[0] = rk.seed_slot(seed)
+    mesh = None if p.mesh is None else p.mesh.to(device)
+    kw = dict(adc=rx.adc, max_depth=depth, time_sampling=ts,
+              rx_kind='wigner', mesh=mesh, doppler=True,
+              msh=None if mesh is None else torch.tensor(p.msh,
+                                                         device=device),
+              receive_type=rx.receive_type,
+              has_lo=rx.lo_waveform is not None, coherent=coherent)
+    return (s, rx, params, torch.tensor(p.prim, device=device),
+            torch.tensor(p.txp, device=device), kw)
+
+
+def _assert_coherent_parity(acc, n_ev, ref, n_ref, amp, slack, lane=None,
+                            lane_ref=None, depth=2):
+    """Per cell and channel: 1e-4 x max(|I|, |Q|) plus the phase slack
+    times the cell's sum of amplitudes (the kernel's contracted path
+    lengths move each phase by a few ulps of the path over the
+    wavelength).  Lane by lane (meshes), the amplitude is the square root
+    of a power, so the power test's 1e-6 of the largest lane becomes 1e-3;
+    lanes beyond it took another path and bound the cells by their
+    amplitude sums."""
+    scale = float(ref.abs().max())
+    assert scale > 0 and int(n_ref) > 0
+    bound = 1e-4 * scale + slack * amp.float()[..., None]
+    flip_slack, n_flip = 0.0, 0
+    if lane is not None:
+        flipped = (lane - lane_ref).abs() > \
+            1e-4 * lane_ref.abs() + 1e-3 * float(lane_ref.abs().max())
+        n_flip = int(flipped.sum())
+        assert n_flip <= 1e-4 * lane.numel()
+        flip_slack = float((lane.abs() + lane_ref.abs())[flipped].sum())
+    assert bool(((acc - ref).abs() <= bound + flip_slack).all())
+    assert abs(int(n_ev) - int(n_ref)) <= 1e-4 * int(n_ref) \
+        + 2 * depth * n_flip
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('scene', list(COHERENT_SCENES))
+def test_coherent_and_lo_kernels_match_plain_version(cuda, scene):
+    """Each receive type, power and I / Q, on injected uniforms: the
+    kernel against its plain version (power to 1e-4 x max|acc|)."""
+    s, rx, params, prim, txp, kw = _coherent_tables(cuda, scene, seed=3)
+    n_lanes = 1 << 16
+    u = torch.rand((rk.n_draws(kw['max_depth']), n_lanes),
+                   generator=torch.Generator(cuda).manual_seed(3),
+                   device=cuda)
+    before = dict(rk.receive_megakernel.by_config)
+    lane = torch.empty(n_lanes, device=cuda)
+    lane_ref = torch.empty(n_lanes, device=cuda)
+    acc, n_ev = rk.receive_megakernel(params, prim, txp, n_lanes=n_lanes,
+                                      uniforms=u, lane_out=lane, **kw)
+    torch.cuda.synchronize()
+    name = rk.config_name(kw['mesh'] is not None, True, kw['coherent'])
+    assert rk.receive_megakernel.by_config[name] == before[name] + 1
+    amp = torch.zeros((rx.adc.n_time, rx.adc.n_freq), dtype=torch.float64,
+                      device=cuda)
+    ref, n_ref = rk.receive_megakernel_ref(
+        params, prim, txp, u, lane_out=lane_ref,
+        amp_out=amp if kw['coherent'] else None, **kw)
+    assert acc.shape == ref.shape
+    if not kw['coherent']:
+        scale = float(ref.abs().max())
+        assert scale > 0 and int(n_ref) > 0
+        assert float((acc - ref).abs().max()) <= 1e-4 * scale
+        assert abs(int(n_ev) - int(n_ref)) <= 1e-4 * int(n_ref)
+        return
+    mesh = kw['mesh'] is not None
+    _assert_coherent_parity(acc, n_ev, ref, n_ref, amp,
+                            rk.phase_slack(s.band, rx.adc),
+                            lane if mesh else None,
+                            lane_ref if mesh else None)
+    if scene == 'global_grid':
+        assert rk.grid_mode(rx.adc.n_time * rx.adc.n_freq, True, True) == 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('scene', ['pulse_train', 'mixer'])
+def test_coherent_kernel_philox_mode(cuda, scene):
+    """Two Philox calls with one seed agree per cell within 1e-6 of the
+    largest cell's sum of amplitudes (atomics add in arrival order, and
+    I / Q partial sums reach the amplitudes' scale before they cancel),
+    and with the plain version on the same stream."""
+    s, rx, params, prim, txp, kw = _coherent_tables(cuda, scene, seed=11)
+    n_lanes = 1 << 18
+    a1, n1 = rk.receive_megakernel(params, prim, txp, n_lanes=n_lanes,
+                                   seed=11, **kw)
+    a2, n2 = rk.receive_megakernel(params, prim, txp, n_lanes=n_lanes,
+                                   seed=11, **kw)
+    u = rk.philox_uniforms(11, rk.n_draws(kw['max_depth']), n_lanes,
+                           device=cuda)
+    amp = torch.zeros((rx.adc.n_time, rx.adc.n_freq), dtype=torch.float64,
+                      device=cuda)
+    ref, n_ref = rk.receive_megakernel_ref(params, prim, txp, u, amp_out=amp,
+                                           **kw)
+    assert int(n1) == int(n2)
+    assert float((a1 - a2).abs().max()) <= 1e-6 * float(amp.max())
+    _assert_coherent_parity(a1, n1, ref, n_ref, amp,
+                            rk.phase_slack(s.band, rx.adc))
+
+
+@pytest.mark.gpu
+def test_coherent_receive_on_card_launches_k1(cuda):
+    """receive(coherent=True) and the LO receivers launch K1 (its coherent
+    and Doppler configurations) and no wavefront kernel."""
+    for fn, coherent, name in ((lambda: pulse_train_scene(0), True,
+                                'coherent'),
+                               (fmcw_sonar_scene, False, 'doppler'),
+                               (lambda: mesh_scene(n_side=23), True,
+                                'coherent_mesh')):
+        s, rx = fn()
+        before = _launches()
+        by_cfg = dict(rk.receive_megakernel.by_config)
+        a, n = receive(s, seed=5, spp=1 << 16, max_depth=2,
+                       time_sampling='gate', coherent=coherent)
+        torch.cuda.synchronize()
+        after = _launches()
+        assert after[4] == before[4] + 1 and after[:4] == before[:4]
+        assert rk.receive_megakernel.by_config[name] == by_cfg[name] + 1
+        assert a.shape == (rx.adc.n_time, rx.adc.n_freq,
+                           4 if coherent else 3)
+        assert bool(torch.isfinite(a).all())

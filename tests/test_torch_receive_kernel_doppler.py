@@ -81,10 +81,12 @@ SCENES = {'multi_body': multi_body, 'range_doppler': range_doppler,
           'wide_1d': wide_flagship}
 
 
-def _jax_run(s, rx, n_lanes, max_depth, seed, time_sampling='gate'):
+def _jax_run(s, rx, n_lanes, max_depth, seed, time_sampling='gate',
+             coherent=False):
     """`_run(interpret=True)` called as `receive_pallas` calls it, plus
     the uniforms it drew as (n_draws, n_lanes) with lane = (tile * 8 +
-    row) * 128 + col, and its tables as the port's tensors."""
+    row) * 128 + col, and its tables as the port's tensors.  The output
+    is power, or (n_time, n_freq, 2) I / Q with `coherent`."""
     sd = s.compile(use_bvh=False)
     why = []
     assert pr.supported(sd, rx, why), why
@@ -101,15 +103,16 @@ def _jax_run(s, rx, n_lanes, max_depth, seed, time_sampling='gate'):
         bvh_bbox=mesh_pack.bbox, bvh_links=mesh_pack.links,
         bvh_leaves=mesh_pack.leaves)
     rx_kind = 'omni' if si < 0 else 'wigner'
-    out, _, _, _, cnt = pr._run(
+    out, out_q, _, _, cnt = pr._run(
         jnp.asarray(params), jnp.asarray(prim), jnp.asarray(txp),
         jnp.asarray(php), jnp.asarray(rxph), jax.random.key(seed),
         tuple(int(k) for k in prim[:, 0]), tuple(int(f) for f in prim[:, 14]),
         tuple(int(f) for f in prim[:, 18]), tuple(int(f) for f in prim[:, 26]),
         rx.adc, rx.receive_type, time_sampling, max_depth, rx_kind, n_lanes,
-        True, False, has_mesh=mesh_pack is not None, mesh_types=mesh_types,
-        moving=moving, absorbing=False,
-        tx_kinds=tuple(int(f) for f in txp[:, 27]), has_lo=False,
+        True, coherent, has_mesh=mesh_pack is not None,
+        mesh_types=mesh_types, moving=moving, absorbing=False,
+        tx_kinds=tuple(int(f) for f in txp[:, 27]),
+        has_lo=rx.lo_waveform is not None,
         polarized=False, bmp_meta=bmp_meta, layered=0, tex=jnp.asarray(tex),
         msh=jnp.asarray(msh), mimo_e=0, eoff=None,
         grid_meta=pr._grid_meta(params),
@@ -132,7 +135,8 @@ def _jax_run(s, rx, n_lanes, max_depth, seed, time_sampling='gate'):
     tables = dict(params=t(params), prim=t(prim), txp=t(txp),
                   msh=None if mesh is None else t(msh), mesh=mesh,
                   rx_kind=rx_kind, adc=adc)
-    return np.asarray(out), float(np.asarray(cnt)[0, 0]), t(u), tables
+    out = np.stack([out, out_q], -1) if coherent else np.asarray(out)
+    return out, float(np.asarray(cnt)[0, 0]), t(u), tables
 
 
 @pytest.mark.parametrize('scene, n_lanes, seed', [
@@ -245,16 +249,22 @@ def _with_sphere(s):
 
 
 @pytest.mark.parametrize('change, needle', [
-    ('coherent', 'ROADMAP B3'), ('two_tx', 'ROADMAP B6'),
-    ('sphere', 'ROADMAP B5'), ('n_freq', 'n_freq')])
+    # coherent I / Q is in the kernel's scope: the case holds a coherent
+    # grid past the global accumulator's cells (the ids are the cases')
+    pytest.param('coherent', 'ROADMAP A5', id='coherent-ROADMAP B3'),
+    ('two_tx', 'ROADMAP B6'), ('sphere', 'ROADMAP B5'),
+    ('n_freq', 'n_freq')])
 def test_scope_still_rejects(change, needle):
-    """Coherent I/Q, a second transmitter, a sphere in K1 and a grid past
-    the caps stay outside the kernel, and `use_kernel=True` raises with
-    the ROADMAP item that lifts them."""
+    """A coherent grid past the caps, a second transmitter, a sphere in K1
+    and a grid past the bin caps stay outside the kernel, and
+    `use_kernel=True` raises with the ROADMAP item that lifts them."""
     s, rx = bt.multi_body_scene()
     kw = {}
     if change == 'coherent':
         kw = dict(coherent=True)
+        rx = dc.replace(rx, adc=dc.replace(
+            rx.adc, n_time=1024, n_freq=rk.MAX_ADC_CELLS // 1024 + 1))
+        s.receivers[0] = rx
     elif change == 'two_tx':
         from beifong_tpu_torch.radar import pulse, wigner_transmitter
         s.add(wigner_transmitter('tx2', pulse(f_centre=40e3, prf=10.0,
@@ -269,9 +279,8 @@ def test_scope_still_rejects(change, needle):
                                            n_freq=rk.MAX_N_FREQ + 1))
         s.receivers[0] = rx
     sd = s.compile(use_bvh=False, device='cpu')
-    if change != 'coherent':
-        why = []
-        assert not rk.supported(sd, rx, why) and needle in why[0]
+    why = []
+    assert not rk.supported(sd, rx, why) and needle in why[0]
     with pytest.raises(NotImplementedError, match=needle):
         bt.receive(s, sd, rx, spp=1024, max_depth=1, use_kernel=True,
                    device='cpu', **kw)

@@ -572,7 +572,9 @@ def test_receive_kernel_route_is_unchanged():
 
 @pytest.mark.parametrize('kw, needle', [
     (dict(polarized=True), 'ROADMAP A10'),
-    (dict(coherent=True, use_kernel=True), 'ROADMAP B3'),
+    # coherent calls are in the kernel's scope: the sphere rejects this one
+    pytest.param(dict(coherent=True, use_kernel=True), 'ROADMAP B5',
+                 id='kw1-ROADMAP B3'),
     (dict(use_kernel=True), 'ROADMAP B5'),
     (dict(sampler='stratified'), 'ROADMAP A2'),
 ])

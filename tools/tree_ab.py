@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""A/B of the receive megakernel's flagship and mesh configurations in two
-checkouts of the repository on one card: this tree against another (a
-parent commit unpacked with `git archive`).
+"""A/B of the receive megakernel's flagship, mesh and Doppler
+configurations in two checkouts of the repository on one card: this tree
+against another (a parent commit unpacked with `git archive`).
 
 Run from the repository root:
 
@@ -11,8 +11,10 @@ Each tree runs in processes of its own, in pairs whose order alternates
 (other, this, this, other, ...).  A process imports `beifong_tpu_torch`
 from its tree, builds the kernel there, and times with CUDA events the
 kernel alone at the main paths' shapes: the flagship at 2^28 Philox
-lanes, depth 3, and the mesh scene at 2^24 lanes, depth 2 (one warm-up,
-then ten calls each).  Prints one JSON line per process, then a summary:
+lanes, depth 3, the mesh scene at 2^24 lanes, depth 2, and the Doppler
+configuration on multi_body (mesh) and the range-Doppler pulse
+(analytic), 2^24 lanes, depth 2 (one warm-up, then ten calls each).
+Prints one JSON line per process, then a summary:
 per tree the median of the processes' medians and their spread, the
 ratio this / other, and the pairs this tree won.
 """
@@ -38,7 +40,9 @@ def child(root: str) -> dict:
         sys.exit('needs a card')
     import beifong_tpu_torch
     from beifong_tpu_torch.integrators import receive_kernel as rk
-    from beifong_tpu_torch.scenes import flagship_scene, mesh_scene
+    from beifong_tpu_torch.scenes import (flagship_scene, mesh_scene,
+                                          multi_body_scene,
+                                          range_doppler_scene)
     assert os.path.dirname(beifong_tpu_torch.__file__).startswith(root)
     sys.path.insert(0, HERE)
     import chip_smoke  # noqa: E402  (cuda_ms, the main paths' sizes, SEED)
@@ -47,22 +51,30 @@ def child(root: str) -> dict:
             if 'registers' in ln]
     dev = torch.device('cuda')
     out = dict(tree=root, ptxas=regs)
-    for name, scene, n_lanes, depth in (
+    for name, scene, n_lanes, depth, doppler in (
             ('flagship', flagship_scene, chip_smoke.N_LANES,
-             chip_smoke.MAX_DEPTH),
+             chip_smoke.MAX_DEPTH, False),
             ('mesh', mesh_scene, chip_smoke.MESH_LANES,
-             chip_smoke.MESH_DEPTH)):
+             chip_smoke.MESH_DEPTH, False),
+            ('multi_body', multi_body_scene, chip_smoke.DOP_LANES,
+             chip_smoke.DOP_DEPTH, True),
+            ('range_doppler', range_doppler_scene, chip_smoke.DOP_LANES,
+             chip_smoke.DOP_DEPTH, True)):
         s, rx = scene()
-        sd = s.compile(device='cpu')
+        sd = s.compile(use_bvh=False, device='cpu')
         p = rk.pack_scene(sd, rx, s.shape_index_of_endpoint('receiver',
                                                              rx.id))
         params, prim, txp = (torch.tensor(a, device=dev)
                              for a in (p.params, p.prim, p.txp))
         kw = dict(adc=rx.adc, max_depth=depth, time_sampling='gate',
                   rx_kind='wigner', n_lanes=n_lanes, seed=chip_smoke.SEED)
+        if doppler:
+            kw['doppler'] = True
         if p.mesh is not None:
             params[0] = rk.seed_slot(chip_smoke.SEED)
             kw.update(mesh=p.mesh.to(dev), patch_p=rk.patch_p_for(n_lanes))
+            if doppler:
+                kw['msh'] = torch.tensor(p.msh, device=dev)
         ms, _ = chip_smoke.cuda_ms(
             lambda i: rk.receive_megakernel(params, prim, txp, **kw),
             CALLS + 1)
@@ -105,7 +117,7 @@ def main() -> int:
             runs[which].append(r)
 
     summary = {'card': card, 'pairs': args.pairs}
-    for name in ('flagship', 'mesh'):
+    for name in ('flagship', 'mesh', 'multi_body', 'range_doppler'):
         meds = {w: [statistics.median(r[f'{name}_ms']) for r in rs]
                 for w, rs in runs.items()}
         for w, m in meds.items():
