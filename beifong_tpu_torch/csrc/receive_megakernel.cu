@@ -45,7 +45,19 @@
 //    field of Cfg (`rule`), not a template flag: every lane of a launch
 //    has the same one, so its branches never diverge, and a flag would
 //    double the Doppler instantiations for the handful of instructions
-//    they guard.
+//    they guard;
+//  - the mirror chains of smooth conductors (`mirror` / `delta_any`
+//    :199-209, 1558-1614, 1715-1717, 2115-2129, 2189-2190), behind the
+//    warp-uniform `Cfg.mirror` in the same way: a mirror reflects the ray
+//    about the flipped normal with the conductor's Fresnel weight, no NEE
+//    leaves it, and the lane it continued (`wdel`) counts a direct
+//    transmitter hit at its next vertex.
+// A coherent processing interval (CPI) of P pulses is one launch with the
+// pulse as the grid's y axis (receive_cpi_pallas's lax.scan, :3164-3327):
+// block (x, p) reads pulse p's stacked tables, BVH, uniforms and Philox
+// key (seed + seed_step p; the counter stays the lane within its pulse)
+// and writes its own partials, which the reduce sums pulse by pulse.  One
+// receive call is the launch with P = 1.
 // The coherent configuration (COH) splats sqrt(max(power, 0)) times
 // (fast_cos, fast_sin) of the connection's echo phase into two channels
 // (_coh_vals :1435-1455): the JAX kernel's float32 phase (_frac_cycles,
@@ -143,6 +155,7 @@ constexpr int MSH_COLS = 8;
 constexpr int RECTANGLE = 0;
 constexpr float CW = 0.0f;
 constexpr float LINFMCW = 2.0f;
+constexpr float CONDUCTOR = 1.0f;
 constexpr float ROUGH_CONDUCTOR = 2.0f;
 constexpr int DOP_THREADS = 128;   // threads per block, Doppler config
 // receive-frequency rules (receive_kernel.py RX_*)
@@ -173,6 +186,14 @@ struct Cfg {
     float f_den;      // max(f_hi - f_lo, 1e-30) (the frequency bins)
     int rule;         // receive-frequency rule (RX_*; 0 raw)
     int has_lo;       // an LO waveform at params[33:42] (coherent dechirp)
+    int mirror;       // a smooth conductor in the tables: mirror chains
+    // the pulse axis (blockIdx.y): pulse p's tables sit p strides in, its
+    // Philox key is seed + seed_step * p; one pulse has blockIdx.y == 0
+    unsigned long long seed_step;
+    long long u_stride;       // injected uniforms of one pulse
+    long long bbox_stride;    // BVH tables of one pulse (floats / ints)
+    long long links_stride;
+    long long leaves_stride;
 };
 
 __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
@@ -189,23 +210,72 @@ __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
     return c;
 }
 
-// Uniform number `idx` of one lane, from the generator or the injected
-// tensor.  Philox words come four at a time; the last block is cached.
+// The pulse of a CPI launch, blockIdx.y, read anew at each use (a
+// volatile read is not hoisted).  The flagship and mesh kernels form
+// their pulse's uniforms, Philox key and BVH tables from it at each use,
+// so no pulse-offset pointer or key stays live across the lane loop: the
+// flagship runs at 79 registers (three blocks an SM, not two) and 6-8%
+// faster than with them held.  The Doppler family, whose occupancy its
+// launch bounds fix, holds them a block instead: reading the pulse at
+// each use cost it 5-8% (PERF.md, tools/tree_ab.py and tools/k1_probe.py).
+__device__ __forceinline__ long long pulse_id() {
+    unsigned p;
+    asm volatile("mov.u32 %0, %%ctaid.y;" : "=r"(p));
+    return p;
+}
+
+// The pulse's BVH tables of a CPI's stacked tables (one pulse: strides 0).
+__device__ __forceinline__ bvh::Tables pulse_tables(const bvh::Tables& m,
+                                                    const Cfg& cfg) {
+    const long long p = pulse_id();
+    return bvh::Tables{m.bbox + p * cfg.bbox_stride,
+                       m.links + p * cfg.links_stride,
+                       m.leaves + p * cfg.leaves_stride, m.stride};
+}
+
+// The tables a walk reads: the Doppler family's `m` is its pulse's
+// already (set once a block); the flagship and mesh kernels pass the
+// CPI's and find the pulse's at each walk.
+template <bool DOP>
+__device__ __forceinline__ bvh::Tables lane_tables(const bvh::Tables& m,
+                                                   const Cfg& cfg) {
+    if constexpr (DOP)
+        return m;
+    else
+        return pulse_tables(m, cfg);
+}
+
+// Uniform number `idx` of one lane, from the generator (keyed per pulse,
+// seed + seed_step p; the counter is the lane within its pulse) or the
+// injected tensor (one block of u_stride floats a pulse).  HOLD: `u` and
+// `seed` are the pulse's own, set once a block; else they are the CPI's
+// and the pulse is read at each use (see pulse_id).  Philox words come
+// four at a time; the last block is cached.
+template <bool HOLD>
 struct Draws {
     const float* u;
-    long long lane, n_lanes;
-    uint2 key;
+    long long lane, n_lanes, u_stride;
+    unsigned long long seed, seed_step;
     int use_prng;
     int group;
     uint4 words;
 
     __device__ float get(int idx) {
-        if (!use_prng) return u[(long long)idx * n_lanes + lane];
+        if (!use_prng) {
+            long long i = (long long)idx * n_lanes + lane;
+            if constexpr (!HOLD) i += pulse_id() * u_stride;
+            return u[i];
+        }
         int g = idx >> 2;
         if (g != group) {
+            unsigned long long k = seed;
+            if constexpr (!HOLD) {
+                if (seed_step != 0) k += seed_step * pulse_id();
+            }
             words = philox4x32_10(
                 make_uint4((uint32_t)lane, (uint32_t)(lane >> 32),
-                           (uint32_t)g, 0u), key);
+                           (uint32_t)g, 0u),
+                make_uint2((uint32_t)k, (uint32_t)(k >> 32)));
             group = g;
         }
         int w = idx & 3;
@@ -681,7 +751,8 @@ template <bool MESH, bool DOP, bool COH>
 __device__ float trace_lane(const Cfg& cfg, const float* sp,
                             const float* prim, const float* msh,
                             const Tx& tx, const Wave& lo,
-                            const bvh::Tables& mesh, Draws& dr, float* hist,
+                            const bvh::Tables& mesh, Draws<DOP>& dr,
+                            float* hist,
                             int T, const Grid& grid, unsigned int* events) {
     const float TP = F(6.283185307179586);
     const float cvel = sp[1];
@@ -805,6 +876,7 @@ __device__ float trace_lane(const Cfg& cfg, const float* sp,
     float cx = ox, cy = oy, cz = oz;
     float plen = 0.0f;
     float lane_sum = 0.0f;
+    bool wdel = false;   // the last bounce was a mirror (Doppler family)
     for (int depth = 0; depth < cfg.max_depth; ++depth) {
         // draws of this depth: u_dh, u5, u6, u7, then u8, u9
         const int d0 = base + 6 * depth;
@@ -843,7 +915,8 @@ __device__ float trace_lane(const Cfg& cfg, const float* sp,
         if constexpr (MESH) {
             MeshClosest<DOP> mc;
             mc.ta = tb;
-            bvh::walk(mesh, bvh::make_ray(cx, cy, cz, dx, dy, dz), mc);
+            bvh::walk(lane_tables<DOP>(mesh, cfg),
+                      bvh::make_ray(cx, cy, cz, dx, dy, dz), mc);
             if (mc.t < tb) {
                 tb = mc.t;
                 nx = mc.nx;
@@ -868,9 +941,11 @@ __device__ float trace_lane(const Cfg& cfg, const float* sp,
         plen = plen + tb;
         float hx = cx + tb * dx, hy = cy + tb * dy, hz = cz + tb * dz;
         const bool is_ggx = DOP && kb == ROUGH_CONDUCTOR;
+        const bool is_m = DOP && cfg.mirror && kb == CONDUCTOR;
 
-        // ---- direct transmitter hits (depth 0; NEE covers the rest) ----
-        if (depth == 0) {
+        // ---- direct transmitter hits: at depth 0, and after a mirror
+        //      bounce (NEE covers the rest) ----
+        if (depth == 0 || wdel) {
             float cos_dh = -(dx * tx.nx + dy * tx.ny + dz * tx.nz);
             if (txc == 0.0f && cos_dh > 0.0f) {
                 const float* m = tx.m;
@@ -903,8 +978,9 @@ __device__ float trace_lane(const Cfg& cfg, const float* sp,
             }
         }
 
-        // ---- NEE to the transmitter (only from non-transmitter hits) ----
-        if (txc < 0.0f) {
+        // ---- NEE to the transmitter (only from non-transmitter hits; a
+        //      mirror's delta lobe has no density toward it) ----
+        if (txc < 0.0f && !is_m) {
             const float* m = tx.m;
             float glx = 2.0f * dr.get(d0 + 1) - 1.0f;
             float gly = 2.0f * dr.get(d0 + 2) - 1.0f;
@@ -961,8 +1037,9 @@ __device__ float trace_lane(const Cfg& cfg, const float* sp,
                     if (!occ) {
                         bvh::Any sh;
                         sh.limit = limit;
-                        bvh::walk(mesh, bvh::make_ray(sx, sy, sz, wx_, wy_,
-                                                      wz_), sh);
+                        bvh::walk(lane_tables<DOP>(mesh, cfg),
+                                  bvh::make_ray(sx, sy, sz, wx_, wy_, wz_),
+                                  sh);
                         occ = sh.occ;
                     }
                 }
@@ -1023,7 +1100,7 @@ __device__ float trace_lane(const Cfg& cfg, const float* sp,
             cz = hz + F(1e-4) * fz;
         } else {
             if (!(txc < 0.0f)) break;                   // on the tx
-            if (!is_ggx && !(rb > 0.0f)) break;         // absorbed
+            if (!is_ggx && !is_m && !(rb > 0.0f)) break;   // absorbed
 
             // ---- bounce: cosine hemisphere (diffuse) or a GGX half
             //      vector about the flipped normal ----
@@ -1039,7 +1116,16 @@ __device__ float trace_lane(const Cfg& cfg, const float* sp,
             float s2x = b2, s2y = sign + fy * fy * a2, s2z = -fy;
             float ph2 = TP * u9;
             float ndx, ndy, ndz, w_b;
-            if (is_ggx) {
+            if (is_m) {
+                // smooth conductor: the specular reflection about the
+                // flipped normal, weight refl x conductor Fresnel
+                float dn = dx * fx + dy * fy + dz * fz;
+                ndx = dx - 2.0f * dn * fx;
+                ndy = dy - 2.0f * dn * fy;
+                ndz = dz - 2.0f * dn * fz;
+                w_b = rb * fres_cond(fabsf(dn), eb, kk);
+                if (!(w_b > 0.0f)) break;
+            } else if (is_ggx) {
                 // weight refl F G (wi.h) / (cos_i h.n)
                 float ag2 = ab * ab;
                 float tan2 = ag2 * u8 / fmaxf(1.0f - u8, F(1e-12));
@@ -1068,6 +1154,7 @@ __device__ float trace_lane(const Cfg& cfg, const float* sp,
                 ndz = s1z * bx + s2z * by + fz * bz;
                 w_b = rb;
             }
+            wdel = is_m;
             // bounce Doppler of the continued path
             dop = dop * (1.0f + ((ndx - dx) * vbx + (ndy - dy) * vby
                                  + (ndz - dz) * vbz) / cvel);
@@ -1083,8 +1170,12 @@ __device__ float trace_lane(const Cfg& cfg, const float* sp,
     return lane_sum;
 }
 
-// One block's work: tables into shared memory, the grid-stride loop over
-// lanes, the block's grid or rows into `partial`, its event count.
+// One block's work: its pulse's tables into shared memory, the
+// grid-stride loop over the pulse's lanes, the block's grid or rows into
+// `partial`, its event count.  Pulse p = blockIdx.y reads its tables,
+// uniforms, BVH and lane sums p strides in and writes its own partials, so
+// a CPI of P pulses is one launch of gridDim.x blocks a pulse; the
+// reduce then sums each pulse's rows apart.
 template <bool MESH, bool DOP, bool COH>
 __device__ __forceinline__ void trace_block(
     const float* __restrict__ params, const float* __restrict__ prim,
@@ -1094,6 +1185,11 @@ __device__ __forceinline__ void trace_block(
     unsigned long long* __restrict__ part_ev, const Cfg& cfg) {
     extern __shared__ float smem[];
     const int T = blockDim.x, tid = threadIdx.x;
+    const long long pulse = blockIdx.y;
+    params += pulse * cfg.n_params;
+    prim += pulse * cfg.n_prims * PRIM_COLS;
+    txp += pulse * TXP_COLS;
+    if (msh != nullptr) msh += pulse * cfg.n_msh * MSH_COLS;
     float* s_par = smem;
     float* s_prim = s_par + cfg.n_params;
     float* s_tx = s_prim + cfg.n_prims * PRIM_COLS;
@@ -1144,13 +1240,24 @@ __device__ __forceinline__ void trace_block(
     }
     Grid grid;
     grid.s = cfg.mode == 1 ? s_grid : nullptr;
-    grid.g = partial;
+    grid.g = partial + (cfg.mode == 2 ? pulse * n_cells : 0);  // its grid
 
-    Draws dr;
+    Draws<DOP> dr;
     dr.u = uniforms;
     dr.n_lanes = cfg.n_lanes;
-    dr.key = make_uint2((uint32_t)cfg.seed, (uint32_t)(cfg.seed >> 32));
+    dr.u_stride = cfg.u_stride;
+    dr.seed = cfg.seed;
+    dr.seed_step = cfg.seed_step;
     dr.use_prng = cfg.use_prng;
+    // the Doppler family holds its pulse's uniforms, key, BVH tables and
+    // lane sums a block (see pulse_id)
+    bvh::Tables mesh_b = mesh;
+    if constexpr (DOP) {
+        if (uniforms != nullptr) dr.u = uniforms + pulse * cfg.u_stride;
+        dr.seed = cfg.seed + cfg.seed_step * pulse;
+        if constexpr (MESH) mesh_b = pulse_tables(mesh, cfg);
+        if (lane_val != nullptr) lane_val += pulse * cfg.n_lanes;
+    }
     float* my_hist = hist + tid;
     unsigned int events = 0;
     const long long stride = (long long)gridDim.x * T;
@@ -1159,13 +1266,21 @@ __device__ __forceinline__ void trace_block(
         dr.lane = lane;
         dr.group = -1;
         float v = trace_lane<MESH, DOP, COH>(cfg, s_par, s_prim, s_msh, tx,
-                                             lo, mesh, dr, my_hist, T, grid,
-                                             &events);
-        if constexpr (MESH || DOP) {
+                                             lo, mesh_b, dr, my_hist, T,
+                                             grid, &events);
+        if constexpr (DOP) {
             if (lane_val != nullptr) lane_val[lane] = v;
+        } else if constexpr (MESH) {
+            if (lane_val != nullptr)
+                lane_val[lane + pulse_id() * cfg.n_lanes] = v;
         }
     }
     __syncthreads();
+
+    // the pulse's partial rows (mode 0 / 1) and event counts
+    partial += pulse_id() * gridDim.x
+               * (DOP ? n_cells : (long long)cfg.n_time);
+    part_ev += pulse_id() * gridDim.x;
 
     if constexpr (DOP) {
         // the block's grid, in double (mode 2 added to `partial` already)
@@ -1241,28 +1356,30 @@ constexpr auto kernel_of() {
         return receive_trace_kernel<MESH>;
 }
 
-// Fixed-order sum of the per-block partials (n_rows of n_cells doubles;
-// a coherent grid's I and Q count as two cells), one thread per cell; the
-// events of the n_blocks trace blocks.
+// Fixed-order sum of each pulse's per-block partials (n_rows of n_cells
+// doubles a pulse; a coherent grid's I and Q count as two cells), one
+// thread per cell of a pulse; the events of each pulse's n_blocks trace
+// blocks.  Pulse p's rows follow pulse p - 1's.
 constexpr int REDUCE_THREADS = 256;
 
 __global__ void receive_reduce_kernel(const double* __restrict__ partial,
                                       const unsigned long long* __restrict__
                                           part_ev,
                                       int n_rows, int n_blocks,
-                                      long long n_cells,
+                                      long long n_cells, int n_pulses,
                                       float* __restrict__ out,
                                       long long* __restrict__ out_events) {
-    long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (c < n_cells) {
-        double s = 0.0;
-        for (int k = 0; k < n_rows; ++k) s += partial[(long long)k * n_cells + c];
-        out[c] = (float)s;
-    }
+    long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= n_cells * n_pulses) return;
+    long long p = i / n_cells, c = i - p * n_cells;
+    const double* rows = partial + p * n_rows * n_cells;
+    double s = 0.0;
+    for (int k = 0; k < n_rows; ++k) s += rows[(long long)k * n_cells + c];
+    out[i] = (float)s;
     if (c == 0) {
         unsigned long long e = 0;
-        for (int k = 0; k < n_blocks; ++k) e += part_ev[k];
-        out_events[0] = (long long)e;
+        for (int k = 0; k < n_blocks; ++k) e += part_ev[p * n_blocks + k];
+        out_events[p] = (long long)e;
     }
 }
 
@@ -1275,8 +1392,8 @@ int threads_for(int n_time) {
 
 template <bool MESH, bool DOP, bool COH>
 int geometry(int n_time, int n_freq, long long n_lanes, int n_prims,
-             int n_params, int n_msh, int mode, int* blocks, int* threads,
-             int* smem_bytes) {
+             int n_params, int n_msh, int mode, int n_pulses, int* blocks,
+             int* threads, int* smem_bytes) {
     int T, smem;
     if (DOP) {
         T = DOP_THREADS;
@@ -1303,8 +1420,14 @@ int geometry(int n_time, int n_freq, long long n_lanes, int n_prims,
     cudaGetDevice(&dev);
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return (int)err;
+    // blocks a pulse, fewer when a pulse's lanes run out: the flagship and
+    // mesh configurations give each pulse the resident grid of one call
+    // (the pulses run in waves, and each sums its lanes in the order one
+    // call does); the Doppler family shares the resident grid among the
+    // pulses (one wave; its per-block grids would otherwise multiply)
     long long need = (n_lanes + T - 1) / T;
     long long nb = (long long)per_sm * sms;
+    if (DOP) nb = nb / n_pulses > 1 ? nb / n_pulses : 1;
     *blocks = (int)(nb < need ? nb : need);
     *threads = T;
     *smem_bytes = smem;
@@ -1316,17 +1439,19 @@ int geometry(int n_time, int n_freq, long long n_lanes, int n_prims,
 extern "C" {
 
 // Launch geometry for one call: threads per block, dynamic shared bytes
-// and the persistent grid (resident blocks on every SM, fewer if the
-// lanes run out), for the flagship (mesh == 0, mode == 0), mesh (mesh ==
-// 1, mode == 0), Doppler (mode 1 block-shared grid, 2 global grid;
-// analytic or mesh) or coherent configuration (coh == 1, mode 1 or 2).
-// Returns a cudaError_t.
+// and the persistent grid's blocks a pulse (the resident blocks on every
+// SM, shared by the n_pulses pulses in the Doppler family, fewer if a
+// pulse's lanes run out), for the
+// flagship (mesh == 0, mode == 0), mesh (mesh == 1, mode == 0), Doppler
+// (mode 1 block-shared grid, 2 global grid; analytic or mesh) or coherent
+// configuration (coh == 1, mode 1 or 2).  Returns a cudaError_t.
 int rk_geometry(int n_time, int n_freq, long long n_lanes, int n_prims,
                 int n_params, int n_msh, int mesh, int mode, int coh,
-                int* blocks, int* threads, int* smem_bytes) {
+                int n_pulses, int* blocks, int* threads, int* smem_bytes) {
+    if (n_pulses < 1) return (int)cudaErrorInvalidValue;
     auto g = [&](auto fn) {
         return fn(n_time, n_freq, n_lanes, n_prims, n_params, n_msh, mode,
-                  blocks, threads, smem_bytes);
+                  n_pulses, blocks, threads, smem_bytes);
     };
     if (mode == 0)
         return mesh ? g(geometry<true, false, false>)
@@ -1338,15 +1463,22 @@ int rk_geometry(int n_time, int n_freq, long long n_lanes, int n_prims,
                 : g(geometry<false, true, false>);
 }
 
-// Trace + reduce on `stream`.  `uniforms` is null in PRNG mode; `bbox`
-// is null for an analytic scene, else the BVH tables of a mesh (leaf rows
-// of `stride` floats), with `patch_p` direction strata per side (0 =
-// none); `msh` the mesh's shape rows (Doppler and coherent
-// configurations).  Unless null, each lane's contribution sum goes to
-// `lane_val` (n_lanes floats; mesh, Doppler and coherent configurations).
-// `rule` is the receive-frequency rule, `has_lo` says whether params
-// carry an LO.  `partial` holds blocks x n_vals doubles (mode 0 / 1) or
-// n_vals (mode 2, zeroed here), n_vals = n_cells, or 2 n_cells coherent.
+// Trace + reduce on `stream`, for n_pulses pulses (a CPI; 1 for one
+// receive call) of n_lanes lanes each.  The tables hold one row block a
+// pulse: params n_params floats, prim n_prims rows, txp one row, msh n_msh
+// rows, the BVH bbox / links / leaves the given strides, the injected
+// uniforms (null in PRNG mode) u_stride floats; pulse p draws Philox keyed
+// by seed + seed_step * p.  `bbox` is null for an analytic scene, else the
+// BVH tables of a mesh (leaf rows of `stride` floats), with `patch_p`
+// direction strata per side (0 = none); `msh` the mesh's shape rows
+// (Doppler and coherent configurations).  Unless null, each lane's
+// contribution sum goes to `lane_val` (n_pulses x n_lanes floats; mesh,
+// Doppler and coherent configurations).  `rule` is the receive-frequency
+// rule, `has_lo` says whether params carry an LO, `mirror` whether the
+// tables hold a smooth conductor (the Doppler family's mirror chains).
+// `partial` holds n_pulses x blocks x n_vals doubles (mode 0 / 1) or
+// n_pulses x n_vals (mode 2, zeroed here), n_vals = n_cells, or 2 n_cells
+// coherent; `out` n_pulses x n_vals floats, `out_events` n_pulses counts.
 int rk_launch(const float* params, const float* prim, const float* txp,
               const float* msh, const float* uniforms, double* partial,
               unsigned long long* part_ev, float* out, long long* out_events,
@@ -1354,10 +1486,12 @@ int rk_launch(const float* params, const float* prim, const float* txp,
               int stride, int patch_p, float* lane_val, long long n_lanes,
               unsigned long long seed, int n_time, int n_freq, int max_depth,
               int gate, int omni, int n_prims, int n_params, int n_msh,
-              int mode, int coh, int rule, int has_lo, float t_start,
-              float t_window, float f_rx, float f_lo, float f_span,
-              float f_den, int blocks, int threads, int smem_bytes,
-              void* stream) {
+              int mode, int coh, int rule, int has_lo, int mirror,
+              float t_start, float t_window, float f_rx, float f_lo, float f_span,
+              float f_den, int n_pulses, unsigned long long seed_step,
+              long long u_stride, long long bbox_stride,
+              long long links_stride, long long leaves_stride, int blocks,
+              int threads, int smem_bytes, void* stream) {
     Cfg cfg;
     cfg.n_lanes = n_lanes;
     cfg.seed = seed;
@@ -1380,16 +1514,25 @@ int rk_launch(const float* params, const float* prim, const float* txp,
     cfg.f_den = f_den;
     cfg.rule = rule;
     cfg.has_lo = has_lo;
-    if (mode == 0 && (coh || rule != 0)) return (int)cudaErrorInvalidValue;
+    cfg.mirror = mirror;
+    cfg.seed_step = seed_step;
+    cfg.u_stride = u_stride;
+    cfg.bbox_stride = bbox_stride;
+    cfg.links_stride = links_stride;
+    cfg.leaves_stride = leaves_stride;
+    if (mode == 0 && (coh || rule != 0 || mirror))
+        return (int)cudaErrorInvalidValue;
+    if (n_pulses < 1 || n_pulses > 65535) return (int)cudaErrorInvalidValue;
     long long n_vals = (long long)n_time * cfg.n_freq * (coh ? 2 : 1);
     bvh::Tables mesh{bbox, links, leaves, stride};
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (mode == 2) {
-        cudaError_t e = cudaMemsetAsync(partial, 0, 8 * n_vals, s);
+        cudaError_t e = cudaMemsetAsync(partial, 0, 8 * n_vals * n_pulses, s);
         if (e != cudaSuccess) return (int)e;
     }
+    const dim3 grid(blocks, n_pulses);
     auto launch = [&](auto kernel, float* lv) {
-        kernel<<<blocks, threads, smem_bytes, s>>>(
+        kernel<<<grid, threads, smem_bytes, s>>>(
             params, prim, txp, msh, uniforms, mesh, lv, partial, part_ev,
             cfg);
     };
@@ -1406,9 +1549,9 @@ int rk_launch(const float* params, const float* prim, const float* txp,
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     int n_rows = mode == 2 ? 1 : blocks;
-    int rb = (int)((n_vals + REDUCE_THREADS - 1) / REDUCE_THREADS);
+    int rb = (int)((n_vals * n_pulses + REDUCE_THREADS - 1) / REDUCE_THREADS);
     receive_reduce_kernel<<<rb, REDUCE_THREADS, 0, s>>>(
-        partial, part_ev, n_rows, blocks, n_vals, out, out_events);
+        partial, part_ev, n_rows, blocks, n_vals, n_pulses, out, out_events);
     return (int)cudaGetLastError();
 }
 

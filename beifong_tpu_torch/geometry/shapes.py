@@ -75,6 +75,39 @@ def cylinder(to_world=None, **kw) -> ShapeSpec:
     return ShapeSpec(kind=CYLINDER, to_world=_m4(to_world), **kw)
 
 
+def trihedral(apex, toward, size: float = 1.0, **kw) -> list:
+    """Trihedral corner reflector: three mutually perpendicular square
+    plates of side `size` meeting at `apex`, the corner's symmetry axis
+    (1, 1, 1) / sqrt(3) rotated onto `toward` (apex toward the radar).  No
+    face then faces the boresight, so the return is the triple-bounce
+    retro path, a point reflection through the apex.  Returns three
+    rectangle specs (pass a smooth `conductor` BSDF through **kw)."""
+    from ..core import transform as tfm
+    a = np.array([1.0, 1.0, 1.0]) / np.sqrt(3.0)
+    b = np.asarray(toward, np.float64)
+    b = b / np.linalg.norm(b)
+    vx = np.cross(a, b)
+    s = np.linalg.norm(vx)
+    cth = float(a.dot(b))
+    if s < 1e-12:
+        rot = np.eye(3) if cth > 0 else -np.eye(3)
+    else:
+        k = np.array([[0, -vx[2], vx[1]],
+                      [vx[2], 0, -vx[0]],
+                      [-vx[1], vx[0], 0]])
+        rot = np.eye(3) + k + k @ k * ((1 - cth) / s ** 2)
+    h = size / 2
+    faces = []
+    for i in range(3):
+        n_l = np.eye(3)[i]                    # face normal: local axis i
+        t1, t2 = np.eye(3)[(i + 1) % 3], np.eye(3)[(i + 2) % 3]
+        c = np.asarray(apex, np.float64) + rot @ (h * t1 + h * t2)
+        m = tfm.compose(tfm.look_at(c, c + rot @ n_l, up=tuple(rot @ t2)),
+                        tfm.scale(h))
+        faces.append(rectangle(to_world=m.numpy(), **kw))
+    return faces
+
+
 @dataclasses.dataclass(frozen=True)
 class ShapeTable:
     """Structure-of-arrays of analytic primitives."""

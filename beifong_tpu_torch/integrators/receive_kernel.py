@@ -17,7 +17,10 @@ diffuse lobe (per prim row, and per mesh-shape row `msh` on meshes), a
 per-lane frequency draw and the time x frequency tent splat for
 `n_freq > 1`, fast-time grids past MAX_N_TIME_ROWS, and the receive
 types with a local oscillator (LO): mix_resample, mixer and raw_resample
-(`rx_rule`).  The coherent one is the Doppler configuration with two
+(`rx_rule`), and the mirror chains of smooth conductors (the JAX
+kernel's `mirror`: specular bounces with the conductor's Fresnel weight,
+no NEE from a mirror, a direct transmitter hit at the vertex after
+one).  The coherent one is the Doppler configuration with two
 channels: every connection splats sqrt(power) e^{i phase} as (I, Q),
 with the JAX kernel's own float32 echo phase (`_frac_cycles`, `_h_cyc`,
 `echo_phase`).  Per lane the kernel generates the receive ray, finds the
@@ -44,7 +47,9 @@ kernel's positional draw order:
 `n_draws` over-allocates (26 rows at depth 3, of which at most 22 are
 read) and is honoured as the layout stride.  `receive_megakernel` runs
 that plain version for tensors on the CPU and the CUDA kernel for tensors
-on a card.
+on a card; `receive_megakernel_cpi` runs a coherent processing interval
+(CPI), the tables of every pulse stacked (`pack_cpi`), in one launch
+with the pulse a grid axis (the JAX package's `receive_cpi_pallas`).
 
 Direction strata (mesh scenes whose 1024-lane tiles tile a P x P grid,
 P = 32 or 16): the lanes of tile `lane // 1024` draw their cosine-
@@ -63,7 +68,7 @@ import torch
 
 from .. import _nvcc
 from .._device import resolve_device
-from ..bsdf.tables import DIFFUSE, ROUGH_CONDUCTOR
+from ..bsdf.tables import CONDUCTOR, DIFFUSE, ROUGH_CONDUCTOR
 from ..core.rng import MASK32, philox4x32_10
 from ..geometry import bvh as bvh_mod
 from ..geometry.bvh_kernel import PackedBVH, walk_ref, leaf_column, pack
@@ -103,6 +108,7 @@ PRIM_COLS = 34
 TXP_COLS = 32
 
 TWO_PI = 6.283185307179586
+MASK64 = 0xFFFFFFFFFFFFFFFF
 HALF_PI_F32 = 0.5 * float(np.float32(np.pi))
 
 # How the receive frequency and the frequency bins follow the receive type
@@ -156,18 +162,34 @@ class PackedScene:
                     or np.abs(self.params[23:26]).max() > 0.0
                     or np.abs(self.msh[:, 0:3]).max() > 0.0)
 
+    def _has_type(self, code: int) -> bool:
+        return bool((self.prim[:, 18] == code).any()
+                    or (self.mesh is not None
+                        and (self.msh[:, 6] == code).any()))
+
     @property
     def ggx(self) -> bool:
         """A GGX rough conductor on a rectangle or a mesh shape."""
-        return bool((self.prim[:, 18] == ROUGH_CONDUCTOR).any()
-                    or (self.mesh is not None
-                        and (self.msh[:, 6] == ROUGH_CONDUCTOR).any()))
+        return self._has_type(ROUGH_CONDUCTOR)
+
+    @property
+    def mirror(self) -> bool:
+        """A smooth conductor (a delta mirror) on a rectangle or a mesh
+        shape: the JAX kernel's `mirror` flag."""
+        return self._has_type(CONDUCTOR)
 
     def doppler(self, adc: ADCConfig) -> bool:
         """Does this scene, receiver and ADC need the Doppler configuration
-        (its power mode; coherent calls take the coherent one)?"""
-        return (self.moving or self.ggx or adc.n_freq != 1
-                or adc.n_time > MAX_N_TIME_ROWS or self.rx_rule != RX_RAW)
+        (its power mode; coherent calls take the coherent one)?  Mirror
+        chains run there only."""
+        return needs_doppler(self, adc)
+
+
+def needs_doppler(tables, adc: ADCConfig) -> bool:
+    """The Doppler configuration's condition on a pack's flags (one pulse's
+    or a CPI's) and the ADC."""
+    return (tables.moving or tables.ggx or tables.mirror or adc.n_freq != 1
+            or adc.n_time > MAX_N_TIME_ROWS or tables.rx_rule != RX_RAW)
 
 
 def _demoted_rects(sd) -> list:
@@ -402,10 +424,12 @@ def supported(scene_data, rx, reason: list | None = None) -> bool:
     if int(tx.kind[0]) != WIGNER:
         return no('non-Wigner transmitter (ROADMAP B6)')
     if not bool(tx.resample.all()):
-        return no('non-delta-resampled transmitter (ROADMAP B6)')
+        return no('non-delta-resampled transmitter: wavefront-only, in the '
+                  'JAX package as here (its kernel refuses it too)')
     if int(tx.shape_idx[0]) < 0:
         return no('free-standing transmitter: the kernel samples its '
-                  'rectangle (ROADMAP B6)')
+                  'rectangle; wavefront-only, in the JAX package as here '
+                  '(its kernel refuses it too)')
     kinds = set(sd.shapes.kind.tolist())
     if not kinds <= {-1, RECTANGLE, TRIANGLE}:
         return no(f'shape kinds {sorted(kinds)}: rectangles and triangle '
@@ -429,9 +453,9 @@ def supported(scene_data, rx, reason: list | None = None) -> bool:
         if len(rows) > MAX_MESH_SHAPES:
             return no(f'{len(rows)} distinct mesh-shape rows > '
                       f'{MAX_MESH_SHAPES} (per-shape resolution)')
-    if not set(sd.bsdfs.present) <= {DIFFUSE, ROUGH_CONDUCTOR}:
-        return no('BSDFs beyond diffuse and the GGX rough conductor, on '
-                  'meshes as on rectangles (ROADMAP B5)')
+    if not set(sd.bsdfs.present) <= {DIFFUSE, CONDUCTOR, ROUGH_CONDUCTOR}:
+        return no('BSDFs beyond diffuse, the smooth conductor and the GGX '
+                  'rough conductor, on meshes as on rectangles (ROADMAP B5)')
     if bool((sd.bsdfs.texture_idx >= 0).any()):
         return no('textured BSDFs (ROADMAP B7)')
     if rx.kind not in (WIGNER, OMNI):
@@ -468,6 +492,23 @@ def phase_slack(band, adc: ADCConfig) -> float:
     l_max = band.c * (adc.sampling_start + adc.sampling_time)
     return 2 * np.pi * 4 * float(np.spacing(np.float32(l_max))) \
         / band.wavelength_min
+
+
+def coord_slack(adc: ADCConfig) -> float:
+    """Share of a contribution by which a tent tap may move between two
+    float32 evaluations of one path (the kernel and its plain version): 4
+    ulps of the latest receive time in the ADC window over a time bin,
+    plus 4 ulps of the highest frequency over a frequency bin on a time x
+    frequency grid (a 2-D tap's weight is the product of the two).  On a
+    sparse grid, whose cells hold a few lanes' taps, that moves a cell by
+    more than 1e-4 of the largest one."""
+    t_end = np.float32(adc.sampling_start + adc.sampling_time)
+    s = 4 * float(np.spacing(t_end)) * adc.n_time / adc.sampling_time
+    if adc.n_freq > 1:
+        f_max = np.float32(max(abs(adc.freq_lo), abs(adc.freq_hi)))
+        s += 4 * float(np.spacing(f_max)) * adc.n_freq \
+            / (adc.freq_hi - adc.freq_lo)
+    return s
 
 
 def n_draws(max_depth: int) -> int:
@@ -590,8 +631,8 @@ def _ggx_fcos(rb, ab, eb, kk, nx, ny, nz, wix, wiy, wiz, wox, woy, woz):
 STAT_KEYS = ('lanes', 'strata', 'freq_draw', 'lo_freq', 'trace', 'hit',
              'direct', 'nee_geom', 'nee', 'ggx_nee', 'occ_tests', 'nee_splat',
              'splat_2d', 'lo_bin', 'phase', 'phase_lo', 'bounce',
-             'ggx_bounce', 'dop_direct', 'dop_nee', 'dop_bounce', 'walks',
-             'node_tests', 'leaf_tests', 'mesh_hits')
+             'ggx_bounce', 'mirror_bounce', 'dop_direct', 'dop_nee',
+             'dop_bounce', 'walks', 'node_tests', 'leaf_tests', 'mesh_hits')
 
 
 def _frac_cycles(f, t):
@@ -627,7 +668,7 @@ def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
                            lane0: int = 0, stats: dict | None = None,
                            lane_out=None, receive_type: str = 'raw',
                            has_lo: bool = False, coherent: bool = False,
-                           amp_out=None):
+                           amp_out=None, mirror: bool | None = None):
     """Plain version of the kernel, in every configuration.  Returns (acc
     (n_time, n_freq) float32, n_events 0-d int64): the tent-splatted power
     and the count of nonzero contributions; with `coherent` acc is
@@ -647,6 +688,11 @@ def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
     18, `msh` column 6) the GGX lobe, as the JAX kernel's static `moving`
     and `ggx` flags do; a static diffuse scene comes out as in the
     flagship and mesh configurations, which read neither (nor `msh`).
+    There a CONDUCTOR type is a smooth conductor, a delta mirror: the
+    bounce reflects specularly with the conductor's Fresnel weight, no NEE
+    leaves it, and the lane it continued counts a direct transmitter hit
+    at the next vertex (the JAX kernel's `mirror` flag).  `mirror` says
+    whether the tables hold one (None: read them).
     `n_freq > 1` draws the receive frequency and splats over time x
     frequency.  `receive_type` and `has_lo` (the receiver has an LO
     waveform, packed at params[33:42]) pick the receive-frequency rule
@@ -654,7 +700,10 @@ def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
     `doppler`) splats sqrt(max(power, 0)) times (cos, sin) of the echo
     phase; `amp_out`, a (n_time, n_freq) float64 tensor, then receives
     the same splat with every phase 0 (the per-cell sum of amplitudes
-    that scales a phase error).
+    that scales a phase error).  In power mode `amp_out` receives, per
+    cell, the sum of |power| of the contributions whose taps reach it,
+    whatever the tap's weight (a tap moved by `coord_slack` of a bin
+    changes the cell by up to that share of it).
 
     `stats`, if given, accumulates how many lanes reach each stage of the
     kernel (the work a run's data needs), each summed over depths: keys
@@ -724,6 +773,9 @@ def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
     ggx = doppler and bool(
         (prim[:, 18] == ROUGH_CONDUCTOR).any()
         or (rows_m is not None and (rows_m[:, 6] == ROUGH_CONDUCTOR).any()))
+    mirror = doppler and (has_mirror(prim, rows_m) if mirror is None
+                          else mirror)
+    lobes = ggx or mirror   # the hit's type, alpha, eta and k are read
 
     def inst_freq(t, w=tx_w):
         pri = 1.0 / torch.clamp(w['prf'], min=1e-12)
@@ -945,6 +997,8 @@ def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
         else:
             chans = [val]
             lane_sum = lane_sum + val
+            if amp_out is not None:
+                chans.append(val.abs())
         b0 = torch.floor(yb)
         if grid2d:
             count('splat_2d', ok & nz)
@@ -968,7 +1022,9 @@ def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
                     taps.append((idx, keep, (wt, wf_)))
             for idx, keep, w in taps:
                 for ch, v in enumerate(chans):
-                    v = v * w if not grid2d else v * w[0] * w[1]
+                    # power mode's amp_out counts |val| whole at each tap
+                    if ch < n_ch or coherent:
+                        v = v * w if not grid2d else v * w[0] * w[1]
                     dst = acc[ch] if ch < n_ch else amp_flat
                     dst.index_add_(0, idx[keep], v[keep].double())
 
@@ -989,6 +1045,7 @@ def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
     cx, cy, cz = ox, oy, oz
     ddx, ddy, ddz = dx, dy, dz
     active = torch.ones(n_lanes, dtype=torch.bool, device=dev)
+    wdel = torch.zeros_like(active)   # the last bounce was a mirror
     plen = torch.zeros(n_lanes, dtype=torch.float32, device=dev)
     count('lanes', active)
     for depth in range(max_depth):
@@ -1017,7 +1074,7 @@ def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
             nz = torch.where(closer, q[10] * rnorm, nz)
             rb = torch.where(closer, row[13], rb)
             txc = torch.where(closer, row[14], txc)
-            if ggx:
+            if lobes:
                 kb = torch.where(closer, row[18], kb)
                 ab = torch.where(closer, row[15], ab)
                 eb = torch.where(closer, row[16], eb)
@@ -1055,7 +1112,7 @@ def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
                 sid = leaf_column(mesh, w.leaf, w.slot, 88)[m_closer].long()
                 row = rows_m[sid]
                 kb[sel] = row[:, 6]
-                if ggx:
+                if lobes:
                     ab[sel], eb[sel], kk[sel] = row[:, 3], row[:, 4], \
                         row[:, 5]
                 if moving:
@@ -1074,10 +1131,12 @@ def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
         hy = cy + tb * ddy
         hz = cz + tb * ddz
         is_ggx = kb == float(ROUGH_CONDUCTOR)
+        is_m = (kb == float(CONDUCTOR)) if mirror else torch.zeros_like(hit)
 
-        # ---- direct transmitter hits (depth 0; NEE covers the rest) ----
+        # ---- direct transmitter hits: at depth 0, and on lanes whose last
+        #      bounce was a mirror (NEE covers the rest) ----
         u_dh = draw()
-        if depth == 0:
+        if depth == 0 or mirror:
             cos_dh = -(ddx * tnx + ddy * tny + ddz * tnz)
             te_h, tr_h, wg_h, k_h = emission(plen / cvel, u_dh, t_rx0)
             fe_h = inst_freq(te_h)
@@ -1090,6 +1149,8 @@ def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
             ap_h = tx_aperture(lxh, lyh, ddx, ddy, ddz, lam_h)
             w_dh = sig_h * gain * ap_h * TWO_PI
             ok_h = active & (txc == 0.0) & (cos_dh > 0.0)
+            if depth > 0:
+                ok_h = ok_h & wdel
             count('direct', ok_h)
             val_h = torch.where(ok_h, throughput * w_dh * wg_h, 0.0)
             yb_h = (tr_h - t_start) / t_window * n_time_f - 0.5
@@ -1111,7 +1172,9 @@ def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
         inv_d = 1.0 / dist
         wx_, wy_, wz_ = vx * inv_d, vy * inv_d, vz * inv_d
         cos_tx = -(wx_ * tnx + wy_ * tny + wz_ * tnz)
-        shade = active & (txc < 0.0)
+        # no NEE from a mirror: its delta lobe has no density toward the
+        # transmitter (the JAX kernel's f_cos is 0 there)
+        shade = active & (txc < 0.0) & ~is_m
         count('nee_geom', shade)
         shade = shade & (cos_tx > 1e-6)
         count('nee', shade)
@@ -1152,7 +1215,8 @@ def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
                          wy_[walk], wz_[walk], limit[walk], anyhit=True,
                          stats=counts if stats is not None else None)
             occ[walk] = w.occ
-        ok = active & ~occ & (pdf_sa > 0.0) & (cos_tx > 1e-6) & (txc < 0.0)
+        ok = active & ~occ & (pdf_sa > 0.0) & (cos_tx > 1e-6) & (txc < 0.0) \
+            & ~is_m
         count('nee_splat', ok)
         val = torch.where(ok, throughput * f_cos * w_tx * w_gate
                           / torch.clamp(pdf_sa, min=1e-30), 0.0)
@@ -1179,7 +1243,7 @@ def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
         #      about the flipped normal ----
         u8, u9 = draw(), draw()
         cont = active & (txc < 0.0)
-        count('bounce', cont & (rb > 0.0) & ~is_ggx)
+        count('bounce', cont & (rb > 0.0) & ~is_ggx & ~is_m)
         face = -(ddx * nx + ddy * ny + ddz * nz)
         sgn = _sign(face)
         fx, fy, fz = nx * sgn, ny * sgn, nz * sgn
@@ -1222,6 +1286,16 @@ def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
             ndy = torch.where(is_ggx, wgy, ndy)
             ndz = torch.where(is_ggx, wgz, ndz)
             w_b = torch.where(is_ggx, w_g, w_b)
+        if mirror:
+            # smooth conductor: the specular reflection about the flipped
+            # normal, weight refl x conductor Fresnel (a delta lobe)
+            count('mirror_bounce', cont & is_m)
+            dn_ = ddx * fx + ddy * fy + ddz * fz
+            ndx = torch.where(is_m, ddx - 2.0 * dn_ * fx, ndx)
+            ndy = torch.where(is_m, ddy - 2.0 * dn_ * fy, ndy)
+            ndz = torch.where(is_m, ddz - 2.0 * dn_ * fz, ndz)
+            w_b = torch.where(is_m, rb * _fres_cond(dn_.abs(), eb, kk), w_b)
+            wdel = is_m
         if moving:
             # bounce Doppler of the continued path
             count('dop_bounce', cont & (w_b > 0.0))
@@ -1253,10 +1327,10 @@ def _bind(lib):
                               ctypes.c_longlong, ctypes.c_ulonglong,
                               ctypes.c_float)
     ip = ctypes.POINTER(ctypes.c_int)
-    lib.rk_geometry.argtypes = [i32] * 2 + [i64] + [i32] * 6 + [ip] * 3
+    lib.rk_geometry.argtypes = [i32] * 2 + [i64] + [i32] * 7 + [ip] * 3
     lib.rk_geometry.restype = i32
     lib.rk_launch.argtypes = [vp] * 12 + [i32, i32, vp, i64, u64] \
-        + [i32] * 12 + [f32] * 6 + [i32] * 3 + [vp]
+        + [i32] * 13 + [f32] * 6 + [i32, u64] + [i64] * 4 + [i32] * 3 + [vp]
     lib.rk_launch.restype = i32
 
 
@@ -1282,18 +1356,22 @@ def grid_mode(n_cells: int, doppler: bool, coherent: bool = False) -> int:
 def launch_geometry(n_time: int, n_lanes: int, n_prims: int,
                     n_params: int = 45 + MAX_MEDIA_LAYERS,
                     mesh: bool = False, n_freq: int = 1, n_msh: int = 0,
-                    doppler: bool = False, coherent: bool = False):
-    """(blocks, threads per block, dynamic shared bytes) of the trace
-    kernel (its mesh, Doppler and / or coherent configuration) on the
+                    doppler: bool = False, coherent: bool = False,
+                    n_pulses: int = 1):
+    """(blocks a pulse, threads per block, dynamic shared bytes) of the
+    trace kernel (its mesh, Doppler and / or coherent configuration) on the
     current card: a persistent grid of as many blocks as fit on every SM at
-    once, fewer when the lanes run out."""
+    once, fewer when a pulse's lanes run out.  The `n_pulses` pulses of a
+    CPI share that grid in the Doppler family; in the flagship and mesh
+    configurations each pulse gets it (they run in waves, each summing in
+    the order of one call)."""
     lib = LIBRARY.get()
     mode = grid_mode(n_time * n_freq, doppler, coherent)
     blocks, threads, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
     LIBRARY.check(lib.rk_geometry(n_time, n_freq, n_lanes, n_prims, n_params,
                                   n_msh, int(mesh), mode, int(coherent),
-                                  ctypes.byref(blocks), ctypes.byref(threads),
-                                  ctypes.byref(smem)),
+                                  n_pulses, ctypes.byref(blocks),
+                                  ctypes.byref(threads), ctypes.byref(smem)),
                   'receive_megakernel geometry')
     return blocks.value, threads.value, smem.value
 
@@ -1324,37 +1402,12 @@ def _check_adc(adc: ADCConfig, doppler: bool):
                          'window')
 
 
-def receive_megakernel(params, prim, txp, *, adc: ADCConfig, max_depth: int,
-                       time_sampling: str, rx_kind: str, n_lanes: int,
-                       seed: int = 0, uniforms=None,
-                       mesh: PackedBVH | None = None, msh=None,
-                       doppler: bool = False, patch_p: int = 0,
-                       lane_out=None, receive_type: str = 'raw',
-                       has_lo: bool = False, coherent: bool = False):
-    """Trace `n_lanes` receive samples.  Returns (acc (n_time, n_freq)
-    float32, or (n_time, n_freq, 2) I / Q with `coherent`, n_events 0-d
-    int64) on the tables' device.
-
-    `uniforms` (n_draws(max_depth), n_lanes) float32 feeds the draws
-    (injected mode); without it the lanes draw from Philox4x32-10 keyed by
-    `seed`.  `mesh` (BVH tables of stride 96, on the tables' device)
-    selects the mesh configuration; `patch_p` its direction strata (0 =
-    none; `patch_p_for`), read with the seed slot `params[0]`.
-    `doppler` selects the Doppler configuration (`PackedScene.doppler`
-    says which scenes need it), which takes a mesh's shape rows `msh`
-    (n_mesh_shapes, 8) float32; the flagship and mesh configurations read
-    no velocity, no lobe but the diffuse one and no `msh`.  A `lane_out`
-    (n_lanes,) float32 tensor receives each lane's contribution sum there
-    (parity runs: it shows which lanes a triangle edge flipped), in the
-    mesh and Doppler configurations (in the coherent one the sum of the
-    lane's amplitudes sqrt(max(power, 0))).  `receive_type` and `has_lo`
-    (an LO waveform packed at params[33:42]) pick the receive-frequency
-    rule; a rule other than raw needs the Doppler configuration.
-    `coherent` (with `doppler`) selects the coherent configuration, which
-    splats I / Q with the echo phase.  Tables on the CPU run the plain
-    version (`receive_megakernel_ref`, fed `philox_uniforms` in PRNG
-    mode); tables on a card launch the CUDA kernel, which raises if it
-    cannot build or launch."""
+def _check_call(params, prim, txp, uniforms, mesh, msh, lane_out, lead, *,
+                adc, max_depth, time_sampling, rx_kind, n_lanes, doppler,
+                patch_p, receive_type, has_lo, coherent):
+    """Validate a call's arguments; `lead` is () for one pulse, (P,) for a
+    CPI of P pulses (every table, the uniforms and the lane sums then have
+    that leading axis, the BVH tables (P, n) rows)."""
     dev = params.device
     if time_sampling not in ('fixed', 'gate'):
         raise ValueError(f'time_sampling {time_sampling!r}')
@@ -1365,20 +1418,19 @@ def receive_megakernel(params, prim, txp, *, adc: ADCConfig, max_depth: int,
         raise ValueError('LO receive types and coherent I / Q run in the '
                          'Doppler configuration (doppler=True)')
     _check_adc(adc, doppler)
-    n_prims = int(prim.shape[0])
+    n_prims = int(prim.shape[-2]) if prim.dim() >= 2 else 0
     if not 1 <= n_prims <= MAX_PRIMS:
         raise ValueError(f'{n_prims} prim rows (1..{MAX_PRIMS})')
-    tables = [('params', params, (45 + MAX_MEDIA_LAYERS,)),
-              ('prim', prim, (n_prims, PRIM_COLS)),
-              ('txp', txp, (1, TXP_COLS))]
-    n_msh = 0
+    tables = [('params', params, lead + (45 + MAX_MEDIA_LAYERS,)),
+              ('prim', prim, lead + (n_prims, PRIM_COLS)),
+              ('txp', txp, lead + (1, TXP_COLS))]
     if msh is not None:
-        n_msh = int(msh.shape[0])
+        n_msh = int(msh.shape[-2])
         if not (doppler and mesh is not None
                 and 1 <= n_msh <= MAX_MESH_SHAPES):
             raise ValueError(f'msh: 1..{MAX_MESH_SHAPES} mesh-shape rows, '
                              'read by the Doppler configuration of a mesh')
-        tables.append(('msh', msh, (n_msh, 8)))
+        tables.append(('msh', msh, lead + (n_msh, 8)))
     elif doppler and mesh is not None:
         raise ValueError('the Doppler configuration of a mesh needs its '
                          'mesh-shape rows msh')
@@ -1390,60 +1442,83 @@ def receive_megakernel(params, prim, txp, *, adc: ADCConfig, max_depth: int,
                              f'{t.device}')
     nd = n_draws(max_depth)
     if uniforms is not None and (
-            tuple(uniforms.shape) != (nd, n_lanes)
+            tuple(uniforms.shape) != lead + (nd, n_lanes)
             or uniforms.dtype != torch.float32 or uniforms.device != dev
             or not uniforms.is_contiguous()):
         raise ValueError(f'uniforms: expected contiguous float32 '
-                         f'({nd}, {n_lanes}) on {dev}')
+                         f'{lead + (nd, n_lanes)} on {dev}')
     if mesh is not None:
         if mesh.stride != MESH_STRIDE or any(
                 x.device != dev or not x.is_contiguous()
+                or x.dim() != 1 + len(lead) or tuple(x.shape[:-1]) != lead
                 for x in (mesh.bbox, mesh.links, mesh.leaves)):
             raise ValueError(f'mesh: expected contiguous stride-'
-                             f'{MESH_STRIDE} tables on {dev}')
+                             f'{MESH_STRIDE} tables {lead + ("n",)} on '
+                             f'{dev}')
     if lane_out is not None and (
             (mesh is None and not doppler)
-            or tuple(lane_out.shape) != (n_lanes,)
-            or lane_out.dtype != torch.float32 or lane_out.device != dev):
-        raise ValueError(f'lane_out: expected float32 ({n_lanes},) on {dev}, '
-                         'with a mesh or in the Doppler configuration')
+            or tuple(lane_out.shape) != lead + (n_lanes,)
+            or lane_out.dtype != torch.float32 or lane_out.device != dev
+            or not lane_out.is_contiguous()):
+        raise ValueError(f'lane_out: expected float32 {lead + (n_lanes,)} '
+                         f'on {dev}, with a mesh or in the Doppler '
+                         'configuration')
     if patch_p and (mesh is None or rx_kind != 'wigner'):
         raise ValueError('direction strata need a mesh and a Wigner '
                          'receiver')
-    if dev.type == 'cpu':
-        u = uniforms if uniforms is not None else \
-            philox_uniforms(seed, nd, n_lanes)
-        return receive_megakernel_ref(params, prim, txp, u, adc=adc,
-                                      max_depth=max_depth,
-                                      time_sampling=time_sampling,
-                                      rx_kind=rx_kind, mesh=mesh, msh=msh,
-                                      doppler=doppler, patch_p=patch_p,
-                                      lane_out=lane_out,
-                                      receive_type=receive_type,
-                                      has_lo=has_lo, coherent=coherent)
-    if dev.type != 'cuda':
+    if dev.type not in ('cpu', 'cuda'):
         raise ValueError(f'no receive kernel for device {dev}')
+    return rule
+
+
+def has_mirror(prim, msh) -> bool:
+    """Do the tables (one pulse's or a CPI's) hold a smooth conductor,
+    on a prim row or a mesh-shape row?  Reads them back from a card."""
+    return bool((prim[..., 18] == CONDUCTOR).any()) or (
+        msh is not None and bool((msh[..., 6] == CONDUCTOR).any()))
+
+
+def _mirror_flag(mirror, prim, msh, doppler) -> bool:
+    """The kernel's mirror flag: only the Doppler family reads it, and
+    None reads the tables (a stall on a card)."""
+    if not doppler:
+        return False
+    return has_mirror(prim, msh) if mirror is None else bool(mirror)
+
+
+def _launch(params, prim, txp, msh, uniforms, mesh, lane_out, *, n_pulses,
+            adc, max_depth, time_sampling, rx_kind, n_lanes, seed, seed_step,
+            doppler, patch_p, rule, has_lo, coherent, mirror):
+    """The CUDA kernel and its reduce over `n_pulses` pulses of stacked
+    tables on a card: (acc (n_pulses, n_cells x n_ch) float32, n_events
+    (n_pulses,) int64)."""
+    dev = params.device
     lib = LIBRARY.get()
     n_ch = 2 if coherent else 1
     n_cells = adc.n_time * adc.n_freq
     mode = grid_mode(n_cells, doppler, coherent)
+    n_prims = int(prim.shape[-2])
+    n_msh = 0 if msh is None else int(msh.shape[-2])
     with torch.cuda.device(dev):
         blocks, threads, smem = launch_geometry(
-            adc.n_time, n_lanes, n_prims, int(params.shape[0]),
-            mesh is not None, adc.n_freq, n_msh, doppler, coherent)
-        # per-block partial grids (I and Q interleaved per cell when
-        # coherent); one global grid of atomics in mode 2
-        partial = torch.empty((1 if mode == 2 else blocks, n_cells * n_ch),
-                              dtype=torch.float64, device=dev)
-        part_ev = torch.empty(blocks, dtype=torch.int64, device=dev)
-        acc = torch.empty((adc.n_time, adc.n_freq) + ((2,) if coherent
-                                                       else ()),
-                          dtype=torch.float32, device=dev)
-        n_events = torch.empty((), dtype=torch.int64, device=dev)
+            adc.n_time, n_lanes, n_prims, int(params.shape[-1]),
+            mesh is not None, adc.n_freq, n_msh, doppler, coherent, n_pulses)
+        # per-block partial grids of each pulse (I and Q interleaved per
+        # cell when coherent); one global grid of atomics a pulse in mode 2
+        partial = torch.empty(
+            (n_pulses * (1 if mode == 2 else blocks), n_cells * n_ch),
+            dtype=torch.float64, device=dev)
+        part_ev = torch.empty(n_pulses * blocks, dtype=torch.int64,
+                              device=dev)
+        acc = torch.empty((n_pulses, n_cells * n_ch), dtype=torch.float32,
+                          device=dev)
+        n_events = torch.empty(n_pulses, dtype=torch.int64, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         m = (None, None, None, 0) if mesh is None else (
             mesh.bbox.data_ptr(), mesh.links.data_ptr(),
             mesh.leaves.data_ptr(), mesh.stride)
+        m_strides = (0, 0, 0) if mesh is None or n_pulses == 1 else tuple(
+            int(x.shape[-1]) for x in (mesh.bbox, mesh.links, mesh.leaves))
         f_lo, f_hi = adc.freq_lo, adc.freq_hi
         err = lib.rk_launch(
             params.data_ptr(), prim.data_ptr(), txp.data_ptr(),
@@ -1452,17 +1527,147 @@ def receive_megakernel(params, prim, txp, *, adc: ADCConfig, max_depth: int,
             partial.data_ptr(), part_ev.data_ptr(), acc.data_ptr(),
             n_events.data_ptr(), *m, patch_p,
             None if lane_out is None else lane_out.data_ptr(), n_lanes,
-            seed & 0xFFFFFFFFFFFFFFFF, adc.n_time, adc.n_freq, max_depth,
+            seed & MASK64, adc.n_time, adc.n_freq, max_depth,
             int(time_sampling == 'gate'), int(rx_kind == 'omni'), n_prims,
-            int(params.shape[0]), n_msh, mode, int(coherent), rule,
-            int(has_lo), adc.sampling_start, adc.sampling_time,
-            0.5 * (f_lo + f_hi), f_lo, f_hi - f_lo, max(f_hi - f_lo, 1e-30),
-            blocks, threads, smem, stream)
+            int(params.shape[-1]), n_msh, mode, int(coherent), rule,
+            int(has_lo), int(mirror), adc.sampling_start,
+            adc.sampling_time, 0.5 * (f_lo + f_hi), f_lo, f_hi - f_lo,
+            max(f_hi - f_lo, 1e-30),
+            n_pulses, seed_step & MASK64, n_draws(max_depth) * n_lanes,
+            *m_strides, blocks, threads, smem, stream)
         LIBRARY.check(err, 'receive_megakernel launch')
+    return acc, n_events
+
+
+def receive_megakernel(params, prim, txp, *, adc: ADCConfig, max_depth: int,
+                       time_sampling: str, rx_kind: str, n_lanes: int,
+                       seed: int = 0, uniforms=None,
+                       mesh: PackedBVH | None = None, msh=None,
+                       doppler: bool = False, patch_p: int = 0,
+                       lane_out=None, receive_type: str = 'raw',
+                       has_lo: bool = False, coherent: bool = False,
+                       mirror: bool | None = None):
+    """Trace `n_lanes` receive samples.  Returns (acc (n_time, n_freq)
+    float32, or (n_time, n_freq, 2) I / Q with `coherent`, n_events 0-d
+    int64) on the tables' device.
+
+    `uniforms` (n_draws(max_depth), n_lanes) float32 feeds the draws
+    (injected mode); without it the lanes draw from Philox4x32-10 keyed by
+    `seed`.  `mesh` (BVH tables of stride 96, on the tables' device)
+    selects the mesh configuration; `patch_p` its direction strata (0 =
+    none; `patch_p_for`), read with the seed slot `params[0]`.
+    `doppler` selects the Doppler configuration (`PackedScene.doppler`
+    says which scenes need it), which takes a mesh's shape rows `msh`
+    (n_mesh_shapes, 8) float32 and runs the mirror chains of smooth
+    conductors; the flagship and mesh configurations read no velocity, no
+    lobe but the diffuse one and no `msh`.  A `lane_out` (n_lanes,)
+    float32 tensor receives each lane's contribution sum there (parity
+    runs: it shows which lanes a triangle edge flipped), in the mesh and
+    Doppler configurations (in the coherent one the sum of the lane's
+    amplitudes sqrt(max(power, 0))).  `receive_type` and `has_lo` (an LO
+    waveform packed at params[33:42]) pick the receive-frequency rule; a
+    rule other than raw needs the Doppler configuration.  `coherent` (with
+    `doppler`) selects the coherent configuration, which splats I / Q with
+    the echo phase.  `mirror` says whether the tables hold a smooth
+    conductor (`PackedScene.mirror`); None reads it from them, a stall on
+    a card.  Tables on the CPU run the plain version
+    (`receive_megakernel_ref`, fed `philox_uniforms` in PRNG mode); tables
+    on a card launch the CUDA kernel, which raises if it cannot build or
+    launch."""
+    rule = _check_call(params, prim, txp, uniforms, mesh, msh, lane_out, (),
+                       adc=adc, max_depth=max_depth,
+                       time_sampling=time_sampling, rx_kind=rx_kind,
+                       n_lanes=n_lanes, doppler=doppler, patch_p=patch_p,
+                       receive_type=receive_type, has_lo=has_lo,
+                       coherent=coherent)
+    if params.device.type == 'cpu':
+        u = uniforms if uniforms is not None else \
+            philox_uniforms(seed, n_draws(max_depth), n_lanes)
+        return receive_megakernel_ref(params, prim, txp, u, adc=adc,
+                                      max_depth=max_depth,
+                                      time_sampling=time_sampling,
+                                      rx_kind=rx_kind, mesh=mesh, msh=msh,
+                                      doppler=doppler, patch_p=patch_p,
+                                      lane_out=lane_out,
+                                      receive_type=receive_type,
+                                      has_lo=has_lo, coherent=coherent,
+                                      mirror=mirror)
+    acc, n_events = _launch(
+        params, prim, txp, msh, uniforms, mesh, lane_out, n_pulses=1,
+        adc=adc, max_depth=max_depth, time_sampling=time_sampling,
+        rx_kind=rx_kind, n_lanes=n_lanes, seed=seed, seed_step=0,
+        doppler=doppler, patch_p=patch_p, rule=rule, has_lo=has_lo,
+        coherent=coherent, mirror=_mirror_flag(mirror, prim, msh, doppler))
     receive_megakernel.launches += 1
     receive_megakernel.by_config[
         config_name(mesh is not None, doppler, coherent)] += 1
-    return acc, n_events
+    shape = (adc.n_time, adc.n_freq) + ((2,) if coherent else ())
+    return acc.view(shape), n_events[0]
+
+
+def pulse_mesh(mesh: PackedBVH | None, p: int) -> PackedBVH | None:
+    """Pulse p's BVH of a CPI's stacked tables."""
+    if mesh is None:
+        return None
+    return dataclasses.replace(mesh, bbox=mesh.bbox[p], links=mesh.links[p],
+                               leaves=mesh.leaves[p])
+
+
+def receive_megakernel_cpi(params, prim, txp, *, adc: ADCConfig,
+                           max_depth: int, time_sampling: str, rx_kind: str,
+                           n_lanes: int, seed: int = 0, seed_step: int = 0,
+                           uniforms=None, mesh: PackedBVH | None = None,
+                           msh=None, doppler: bool = False, patch_p: int = 0,
+                           lane_out=None, receive_type: str = 'raw',
+                           has_lo: bool = False, coherent: bool = False,
+                           mirror: bool | None = None):
+    """A coherent processing interval (CPI) of P pulses in one launch: the
+    pulse is a grid axis of the kernel.  The tables carry a leading pulse
+    axis (params (P, 77), prim (P, n_prims, 34), txp (P, 1, 32), msh (P,
+    n_msh, 8), the BVH tables (P, n) rows: `pack_cpi`), as do `uniforms`
+    (P, n_draws, n_lanes) and `lane_out` (P, n_lanes).  Pulse p's lanes
+    0 .. n_lanes - 1 draw Philox keyed by seed + seed_step * p (seed_step
+    0: common random numbers, every pulse the same stream).  Otherwise as
+    `receive_megakernel`, per pulse.  Returns (acc (P, n_time, n_freq) or
+    (P, n_time, n_freq, 2), n_events (P,) int64).  On the CPU the plain
+    version runs pulse by pulse."""
+    n_pulses = int(params.shape[0]) if params.dim() == 2 else 0
+    if n_pulses < 1:
+        raise ValueError('params: expected (n_pulses, 77)')
+    rule = _check_call(params, prim, txp, uniforms, mesh, msh, lane_out,
+                       (n_pulses,), adc=adc, max_depth=max_depth,
+                       time_sampling=time_sampling, rx_kind=rx_kind,
+                       n_lanes=n_lanes, doppler=doppler, patch_p=patch_p,
+                       receive_type=receive_type, has_lo=has_lo,
+                       coherent=coherent)
+    shape = (n_pulses, adc.n_time, adc.n_freq) + ((2,) if coherent else ())
+    if params.device.type == 'cpu':
+        accs, evs = [], []
+        for p in range(n_pulses):
+            u = uniforms[p] if uniforms is not None else philox_uniforms(
+                seed + seed_step * p, n_draws(max_depth), n_lanes)
+            a, n = receive_megakernel_ref(
+                params[p], prim[p], txp[p], u, adc=adc, max_depth=max_depth,
+                time_sampling=time_sampling, rx_kind=rx_kind,
+                mesh=pulse_mesh(mesh, p),
+                msh=None if msh is None else msh[p], doppler=doppler,
+                patch_p=patch_p,
+                lane_out=None if lane_out is None else lane_out[p],
+                receive_type=receive_type, has_lo=has_lo, coherent=coherent,
+                mirror=mirror)
+            accs.append(a)
+            evs.append(n)
+        return torch.stack(accs).view(shape), torch.stack(evs)
+    acc, n_events = _launch(
+        params, prim, txp, msh, uniforms, mesh, lane_out, n_pulses=n_pulses,
+        adc=adc, max_depth=max_depth, time_sampling=time_sampling,
+        rx_kind=rx_kind, n_lanes=n_lanes, seed=seed, seed_step=seed_step,
+        doppler=doppler, patch_p=patch_p, rule=rule, has_lo=has_lo,
+        coherent=coherent, mirror=_mirror_flag(mirror, prim, msh, doppler))
+    receive_megakernel_cpi.launches += 1
+    receive_megakernel_cpi.by_config[
+        config_name(mesh is not None, doppler, coherent)] += 1
+    return acc.view(shape), n_events
 
 
 CONFIGS = ('flagship', 'mesh', 'doppler', 'doppler_mesh', 'coherent',
@@ -1473,9 +1678,12 @@ def config_name(mesh: bool, doppler: bool, coherent: bool = False) -> str:
     return CONFIGS[int(mesh) + (4 if coherent else 2 * int(doppler))]
 
 
-# launches of the CUDA kernel, in all and by configuration
+# launches of the CUDA kernel, in all and by configuration: one receive
+# call, and one CPI (every pulse in one launch)
 receive_megakernel.launches = 0
 receive_megakernel.by_config = dict.fromkeys(CONFIGS, 0)
+receive_megakernel_cpi.launches = 0
+receive_megakernel_cpi.by_config = dict.fromkeys(CONFIGS, 0)
 
 
 # ---------------------------------------------------------------------------
@@ -1494,6 +1702,7 @@ class DeviceTables:
     msh: torch.Tensor | None      # mesh-shape rows (meshes only)
     mesh: PackedBVH | None
     doppler: bool
+    mirror: bool      # a smooth conductor: the mirror chains
 
 
 def in_scope(scene, scene_data, rx, dev, reason: list) -> bool:
@@ -1536,7 +1745,7 @@ def _device_tables(scene, scene_data, rx, dev) -> DeviceTables:
         msh=torch.as_tensor(packed.msh, device=dev).contiguous()
         if packed.mesh is not None else None,
         mesh=None if packed.mesh is None else packed.mesh.to(dev),
-        doppler=doppler)
+        doppler=doppler, mirror=packed.mirror)
     cache[key] = (scene_data, rx, tables)
     return tables
 
@@ -1577,5 +1786,160 @@ def receive_kernel(scene, scene_data, rx, spp: int, seed: int = 0,
         time_sampling=time_sampling, rx_kind=rx_kind, n_lanes=n_lanes,
         seed=seed, mesh=tab.mesh, msh=tab.msh if doppler else None,
         doppler=doppler, patch_p=patch_p, receive_type=rx.receive_type,
-        has_lo=rx.lo_waveform is not None, coherent=coherent)
+        has_lo=rx.lo_waveform is not None, coherent=coherent,
+        mirror=tab.mirror)
+    return acc, n_lanes
+
+
+# ---------------------------------------------------------------------------
+# the coherent processing interval (CPI): every pulse in one launch
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class PackedCPI:
+    """The kernel tables of a CPI's pulse snapshots, stacked on a leading
+    pulse axis (numpy; `mesh` on the CPU), and the static flags ORed over
+    the pulses, as the JAX package's scan bakes them."""
+
+    params: np.ndarray   # (P, 77) f32; [p, 0] is pulse p's seed slot
+    prim: np.ndarray     # (P, n_prims, 34)
+    txp: np.ndarray      # (P, 1, 32)
+    msh: np.ndarray      # (P, n_mesh_shapes, 8)
+    mesh: PackedBVH | None   # BVH tables (P, n) rows
+    rx_rule: int
+    moving: bool
+    ggx: bool
+    mirror: bool
+
+    @property
+    def n_pulses(self) -> int:
+        return int(self.params.shape[0])
+
+    def doppler(self, adc: ADCConfig) -> bool:
+        return needs_doppler(self, adc)
+
+
+def stack_meshes(meshes: list) -> PackedBVH:
+    """One pulse axis over per-pulse BVH tables.  Rigid motion keeps a
+    tree's shape, so the tables stack; a change of topology raises."""
+    m0 = meshes[0]
+    for m in meshes[1:]:
+        if (m.bbox.shape != m0.bbox.shape or m.links.shape != m0.links.shape
+                or m.leaves.shape != m0.leaves.shape
+                or m.stride != m0.stride):
+            raise ValueError(
+                'per-pulse mesh BVH tables do not stack (topology changed '
+                "across the CPI) — use receive_cpi(engine='loop')")
+    return dataclasses.replace(
+        m0, bbox=torch.stack([m.bbox for m in meshes]),
+        links=torch.stack([m.links for m in meshes]),
+        leaves=torch.stack([m.leaves for m in meshes]))
+
+
+def pack_cpi_tables(snapshots: list, rx, shape_idx: int) -> PackedCPI:
+    """Pack each pulse's compiled snapshot (SceneData) with the receiver
+    `rx` and stack the tables.  The pulses must share their static scene
+    configuration (prim kinds and lobes, mesh presence and shape rows)."""
+    packs = [pack_scene(sd, rx, shape_idx) for sd in snapshots]
+    p0 = packs[0]
+    for pk in packs[1:]:
+        if pk.prim.shape != p0.prim.shape or pk.msh.shape != p0.msh.shape \
+                or not np.array_equal(pk.prim[:, [0, 14, 18]],
+                                      p0.prim[:, [0, 14, 18]]) \
+                or not np.array_equal(pk.msh[:, 6], p0.msh[:, 6]):
+            raise ValueError('pulse snapshots must share static scene config')
+        if (pk.mesh is None) != (p0.mesh is None):
+            raise ValueError('pulse snapshots must agree on mesh presence')
+    return PackedCPI(
+        params=np.stack([pk.params for pk in packs]),
+        prim=np.stack([pk.prim for pk in packs]),
+        txp=np.stack([pk.txp for pk in packs]),
+        msh=np.stack([pk.msh for pk in packs]),
+        mesh=None if p0.mesh is None else stack_meshes(
+            [pk.mesh for pk in packs]),
+        rx_rule=p0.rx_rule, moving=any(pk.moving for pk in packs),
+        ggx=any(pk.ggx for pk in packs),
+        mirror=any(pk.mirror for pk in packs))
+
+
+def cpi_receiver(snapshot, receiver_id: str | None):
+    rxs = snapshot.receivers
+    return rxs[0] if receiver_id is None else next(
+        r for r in rxs if r.id == receiver_id)
+
+
+def pack_cpi(scene, n_pulses: int, prf: float, t0: float = 0.0,
+             receiver_id: str | None = None):
+    """The CPI's tables: `scene.at_time(t0 + p / prf)` packed for every
+    pulse p with the first snapshot's receiver, stacked.  Returns
+    (PackedCPI, receiver spec, receiver shape row).  Cached on the scene
+    per (pulse grid, receiver), as the JAX package caches its packs: edit
+    a scene through its builders, which make new objects.  Raises
+    `NotImplementedError` outside the kernel's scope."""
+    cache = scene.__dict__.setdefault('_receive_cpi_pack', {})
+    key = (n_pulses, float(prf), float(t0), receiver_id)
+    if key not in cache:
+        snaps = [scene.at_time(t0 + p / prf) for p in range(n_pulses)]
+        rx = cpi_receiver(snaps[0], receiver_id)
+        sds = [sn.compile(use_bvh=False, device='cpu') for sn in snaps]
+        why: list = []
+        if not supported(sds[0], rx, why):
+            raise NotImplementedError(
+                "scene outside the receive kernel's scope: "
+                + '; '.join(why))
+        si = snaps[0].shape_index_of_endpoint('receiver', rx.id)
+        cache[key] = (pack_cpi_tables(sds, rx, si), rx, si)
+    return cache[key]
+
+
+def cpi_seeds(seed: int, n_pulses: int, common_random_numbers: bool):
+    """Each pulse's seed: `seed`, or seed + 7919 p without common random
+    numbers (the JAX package's rule)."""
+    step = 0 if common_random_numbers else 7919
+    return [seed + step * p for p in range(n_pulses)], step
+
+
+def receive_kernel_cpi(scene, n_pulses: int, prf: float, t0: float = 0.0,
+                       seed: int = 0, spp: int = 1 << 20,
+                       max_depth: int = 3, time_sampling: str = 'gate',
+                       coherent: bool = True,
+                       common_random_numbers: bool = True,
+                       receiver_id: str | None = None, device=None):
+    """A CPI through the kernel: `pack_cpi`, then every pulse in one launch
+    (`receive_megakernel_cpi`).  Returns (cube (n_pulses, n_time, n_freq)
+    power, or (n_pulses, n_time, n_freq, 2) I / Q with `coherent`,
+    samples a pulse); samples as in `receive_kernel`."""
+    dev = resolve_device(device)
+    packed, rx, si = pack_cpi(scene, n_pulses, prf, t0, receiver_id)
+    cache = scene.__dict__.setdefault('_receive_cpi_tables', {})
+    key = (n_pulses, float(prf), float(t0), receiver_id, dev)
+    tab = cache.get(key)
+    if tab is None or tab[0] is not packed:
+        tab = (packed, *(torch.as_tensor(a, device=dev).contiguous()
+                         for a in (packed.params, packed.prim, packed.txp,
+                                   packed.msh)),
+               None if packed.mesh is None else packed.mesh.to(dev))
+        cache[key] = tab
+    _, params, prim, txp, msh, mesh = tab
+    seeds, step = cpi_seeds(seed, n_pulses, common_random_numbers)
+    rx_kind = 'omni' if rx.kind == OMNI else 'wigner'
+    n_lanes, patch_p = spp, 0
+    if mesh is not None:
+        n_lanes = max(TILE, (spp // TILE) * TILE)
+        if rx_kind == 'wigner':
+            patch_p = patch_p_for(n_lanes)
+    # each pulse's seed slot (the direction strata's offset)
+    params = params.clone()
+    params[:, 0] = torch.tensor([seed_slot(s) for s in seeds],
+                                dtype=torch.float32, device=dev)
+    doppler = packed.doppler(rx.adc) or coherent
+    acc, _ = receive_megakernel_cpi(
+        params, prim, txp, adc=rx.adc, max_depth=max_depth,
+        time_sampling=time_sampling, rx_kind=rx_kind, n_lanes=n_lanes,
+        seed=seed, seed_step=step, mesh=mesh,
+        msh=msh if doppler and mesh is not None else None, doppler=doppler,
+        patch_p=patch_p, receive_type=rx.receive_type,
+        has_lo=rx.lo_waveform is not None, coherent=coherent,
+        mirror=packed.mirror)
     return acc, n_lanes

@@ -5,7 +5,10 @@ taken as numpy arrays and keyed by their pytree path ('.shapes.kind',
 '.transmitters.wf.f_centre', ...), into the port's `SceneData`, so both
 packages compute on the same tables.  The band is static metadata in the
 JAX pytree, not a leaf, so it comes separately.  Nothing here imports JAX:
-the caller flattens the pytree.
+the caller flattens the pytree.  `cpi_tables_from_numpy` does the same for
+the per-pulse snapshots of a coherent processing interval (CPI), the JAX
+scene's `at_time(t0 + p / prf).compile()` of each pulse p, and packs them
+for the receive kernel's one-launch CPI.
 """
 
 from __future__ import annotations
@@ -74,3 +77,15 @@ def scene_data_from_numpy(leaves: dict, band: Band, device=None) -> SceneData:
     return SceneData(band=band, shapes=table(ShapeTable, '.shapes'),
                      bsdfs=bsdfs, textures=table(TextureTable, '.textures'),
                      transmitters=tx, receivers=rx, tris=tris, bvh=bvh)
+
+
+def cpi_tables_from_numpy(pulse_leaves: list, band: Band, rx,
+                          shape_idx: int):
+    """The receive kernel's stacked CPI tables (`receive_kernel.PackedCPI`)
+    of a JAX scene's per-pulse snapshots: `pulse_leaves[p]` holds the
+    leaves of pulse p's compiled snapshot, `rx` is the port's receiver
+    spec and `shape_idx` the row of its shape.  Both packages then pack
+    the same CPI."""
+    from .integrators.receive_kernel import pack_cpi_tables
+    return pack_cpi_tables([scene_data_from_numpy(leaves, band, device='cpu')
+                            for leaves in pulse_leaves], rx, shape_idx)

@@ -2,18 +2,23 @@
 `beifong_tpu/receive.py`).
 
 A scene inside the receive kernel's scope (`integrators.receive_kernel.
-supported`: rectangles and triangle meshes with diffuse or GGX rough-
-conductor BSDFs, moving or not, one resampling Wigner transmitter, raw,
-raw_resample, mix_resample or mixer receive, power or coherent I / Q, on
-a fast-time or time x frequency ADC) runs the CUDA megakernel on a card,
-or its plain PyTorch version on the CPU.
-Every other scene runs the eager wavefront (`integrators/radar_path.py`)
-in passes of `lanes_per_pass` lanes, its triangle tests on the
-hand-written ray / triangle and BVH kernels.  `use_kernel` picks the
-route: 'auto' as above, True the kernel (raising outside its scope),
-False the wavefront.  Nothing falls back on its own: a failing build or
-launch raises, and a scene outside both scopes raises
-`NotImplementedError` naming the ROADMAP item that lifts it.
+supported`: rectangles and triangle meshes with diffuse, smooth-conductor
+or GGX rough-conductor BSDFs, moving or not, one resampling Wigner
+transmitter, raw, raw_resample, mix_resample or mixer receive, power or
+coherent I / Q, on a fast-time or time x frequency ADC) runs the CUDA
+megakernel on a card, or its plain PyTorch version on the CPU.  Every
+other scene runs the eager wavefront (`integrators/radar_path.py`) in
+passes of `lanes_per_pass` lanes, its triangle tests on the hand-written
+ray / triangle and BVH kernels.  `use_kernel` picks the route: 'auto' as
+above, True the kernel (raising outside its scope), False the wavefront.
+Nothing falls back on its own: a failing build or launch raises, and a
+scene outside both scopes raises `NotImplementedError` naming the
+ROADMAP item that lifts it.
+
+`receive_cpi` runs a coherent processing interval (CPI) of an animated
+scene: a snapshot per pulse (`Scene.at_time`), every pulse in one launch
+of the kernel when the scene is in its scope, else one `receive()` a
+pulse.
 """
 
 from __future__ import annotations
@@ -159,3 +164,68 @@ def develop_signal(adc: torch.Tensor, total_samples: int, cfg: ADCConfig,
     if mode != 'density':
         raise ValueError(f'mode {mode!r}: density or sum')
     return adc[..., :c] * (cfg.n_time / max(total_samples, 1))
+
+
+# receive() options the CPI launch takes; any other sends engine='scan' to
+# the per-pulse loop
+_CPI_KW = {'spp', 'max_depth', 'time_sampling'}
+
+
+def receive_cpi(scene, receiver_id: str | None = None, n_pulses: int = 16,
+                prf: float = 1000.0, t0: float = 0.0, seed: int = 0,
+                coherent: bool = True, common_random_numbers: bool = True,
+                engine: str = 'scan', device=None, **receive_kw):
+    """Coherent processing interval over an animated scene: the scene at
+    t = t0 + p / prf (`Scene.at_time`, quasistatic slow time) for each
+    pulse p.  Returns (cube (n_pulses, n_time, n_freq, C + 2), samples a
+    pulse), the film layout of `receive` with a leading pulse axis, ready
+    for `dsp.rangedoppler.doppler_fft`.
+
+    engine='pallas' runs every pulse in one launch of the receive kernel
+    (`receive_kernel.receive_kernel_cpi`; on the CPU its plain version) and
+    raises `NotImplementedError` outside the kernel's scope; its
+    time_sampling defaults to 'gate'.  'scan' (the default) does the same
+    when the first snapshot is in the kernel's scope and `receive_kw`
+    holds only spp, max_depth and time_sampling (default 'fixed'), else
+    runs the loop.  'loop' runs one `receive()` per pulse, routed by
+    scope.  `common_random_numbers` (default True) gives every pulse the
+    same sample stream, so the Monte Carlo noise cancels in slow-time
+    differences; False seeds pulse p with seed + 7919 p.  Runs on
+    `device` (`cuda` by default; raises without a card)."""
+    dev = resolve_device(device)
+    if engine not in ('scan', 'pallas', 'loop'):
+        raise ValueError(f'engine {engine!r}: scan, pallas or loop')
+    if engine == 'pallas' and not set(receive_kw) <= _CPI_KW:
+        raise ValueError(f"engine='pallas' takes {sorted(_CPI_KW)}, not "
+                         f'{sorted(set(receive_kw) - _CPI_KW)}')
+    kernel = False
+    if engine != 'loop' and set(receive_kw) <= _CPI_KW:
+        try:   # the scope check and the pack, cached on the scene
+            rk.pack_cpi(scene, n_pulses, prf, t0, receiver_id)
+            kernel = True
+        except NotImplementedError:
+            if engine == 'pallas':
+                raise
+    if kernel:
+        sig, n = rk.receive_kernel_cpi(
+            scene, n_pulses=n_pulses, prf=prf, t0=t0, seed=seed,
+            spp=receive_kw.get('spp', 4096),
+            max_depth=receive_kw.get('max_depth', 3),
+            time_sampling=receive_kw.get(
+                'time_sampling', 'gate' if engine == 'pallas' else 'fixed'),
+            coherent=coherent, common_random_numbers=common_random_numbers,
+            receiver_id=receiver_id, device=dev)
+        if not coherent:
+            sig = sig[..., None]
+        pad = torch.zeros(sig.shape[:-1] + (2,), dtype=sig.dtype,
+                          device=dev)
+        return torch.cat([sig, pad], dim=-1), n
+    seeds, _ = rk.cpi_seeds(seed, n_pulses, common_random_numbers)
+    cube, n = [], 0
+    for p in range(n_pulses):
+        snap = scene.at_time(t0 + p / prf)
+        rx = rk.cpi_receiver(snap, receiver_id)
+        adc, n = receive(snap, snap.compile(device=dev), rx, seed=seeds[p],
+                         coherent=coherent, device=dev, **receive_kw)
+        cube.append(adc)
+    return torch.stack(cube), n

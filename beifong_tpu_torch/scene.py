@@ -12,6 +12,7 @@ not fill yet (emitters, medium) are `None`.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Optional
 
@@ -21,6 +22,7 @@ import torch
 from ._device import resolve_device
 from .bsdf.tables import BSDFSpec, BSDFTable
 from .core.config import Band, ULTRASOUND_40K
+from .core.transform import AnimatedTransform
 from .geometry import bvh as bvh_mod
 from .geometry.intersect import TriData, closest_hit, any_hit
 from .geometry.mesh import MeshSpec
@@ -110,6 +112,44 @@ class Scene:
             if getattr(s, kind, None) == endpoint_id:
                 return i
         return -1
+
+    def at_time(self, t: float) -> "Scene":
+        """The scene at absolute time t: every `to_world` that is an
+        `AnimatedTransform` (shapes, free-standing endpoints) is evaluated
+        at t and the spec's `velocity` set from the keyframe derivative, so
+        the intra-pulse Doppler follows the animation; an endpoint carried
+        by an animated shape takes that shape's velocity.  Slow time is
+        quasistatic: one snapshot per pulse (`receive.receive_cpi`)."""
+
+        def snap(spec, vel_override=None):
+            anim = getattr(spec, 'to_world', None)
+            animated = isinstance(anim, AnimatedTransform)
+            if not animated and vel_override is None:
+                return spec, None
+            c = copy.copy(spec)
+            vel = vel_override
+            if animated:
+                c.to_world = anim.eval(t)
+                vel = anim.velocity(t)
+            if hasattr(c, 'velocity'):
+                c.velocity = np.asarray(vel, np.float32)
+            return c, vel
+
+        out = Scene(band=self.band, bsdfs=list(self.bsdfs))
+        endpoint_vel = {}   # endpoint id -> the carrying shape's velocity
+        for s in self.shapes:
+            c, vel = snap(s)
+            out.shapes.append(c)
+            if vel is not None:
+                for kind in ('transmitter', 'receiver'):
+                    eid = getattr(s, kind, None)
+                    if eid is not None:
+                        endpoint_vel[eid] = vel
+        for src, dst in ((self.transmitters, out.transmitters),
+                         (self.receivers, out.receivers)):
+            for e in src:
+                dst.append(snap(e, endpoint_vel.get(e.id))[0])
+        return out
 
     def compile(self, use_bvh: str | bool = 'auto', bvh_threshold: int = 1024,
                 device=None) -> SceneData:

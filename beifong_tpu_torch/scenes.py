@@ -26,17 +26,21 @@ Doppler ADC over 38-42 kHz.
 The FMCW and pulse-train scenes are the repository's golden ladder
 (`tests/golden/configs.py`): `fmcw_sonar_scene` is config 2 (and
 `examples/fmcw_sonar.py`), `pulse_train_scene(p)` pulse p of config 3,
-`fmcw_dechirp_scene` the single-pulse receive of config 4 with a plate
-in place of its trihedral; `fmcw_scene` is the FMCW point-target scene
-of the JAX package's receive-type tests (`tests/test_radar.py`).
+`corner_scene` config 4 (a trihedral of mirrors on keyframes, 64 pulses)
+and `micro_doppler_scene` config 5 (an orbiting plate, 64 pulses), both
+for `receive_cpi`, with their anchors and signal chains;
+`fmcw_dechirp_scene` is a single-pulse dechirp with a diffuse plate for
+the target; `fmcw_scene` is the FMCW point-target scene of the JAX
+package's receive-type tests (`tests/test_radar.py`).
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from . import scene as sc
-from .bsdf.tables import diffuse, rough_conductor
+from .bsdf.tables import conductor, diffuse, rough_conductor
 from .core import transform as tf
 from .core.config import Band
 from .geometry import shapes as sh
@@ -301,22 +305,17 @@ DECHIRP = dict(n_fast=1024, window=50e-3, t0=30e-3, q=8, R=4.0,
 
 
 def fmcw_dechirp_scene():
-    """The single-pulse receive of golden config 4, `fmcw_dechirp_chain`:
-    the LFMCW, a 40 mm mix_resample receiver 0.1 m in front of the
-    transmitter looking at the apex, a 1024 x 1 fast-time ADC over 30-80
-    ms whose coherent I / Q is the dechirped beat signal.  Two cuts:
-    - a diffuse 0.5 m plate (DECHIRP['plate'] is its half-width) at the
-      apex, 4 m out and facing the receiver, replaces the trihedral
-      corner reflector, whose three mirror bounces need the kernel's
-      mirror chains (ROADMAP B5);
-    - the transmitter aperture is 0.1 m (the flagship's), not the config's
-      1.6 m: the corner's retro-reflection gave every path one length, but
-      a diffuse echo's NEE samples the aperture, and across 1.6 m at 4 m
-      the paths spread over ~19 Fresnel zones, so its I / Q averages away
-      (no beat line at 2^22 samples, where the 0.1 m aperture gives one
-      at 2^18).
-    The config's 64-pulse CPI is ROADMAP B8.  Returns (scene, receiver
-    spec)."""
+    """A single-pulse dechirp scene after golden config 4's receive: the
+    LFMCW, a 40 mm mix_resample receiver 0.1 m in front of the transmitter
+    looking at a point 4 m out, a 1024 x 1 fast-time ADC over 30-80 ms
+    whose coherent I / Q is the dechirped beat signal, and for the target
+    a diffuse 0.5 m plate (DECHIRP['plate'] is its half-width) there,
+    facing the receiver.  Its transmitter aperture is 0.1 m: a diffuse
+    echo's NEE samples the aperture, and across the config's 1.6 m at 4 m
+    the paths spread over ~19 Fresnel zones, so its I / Q would average
+    away (no beat line at 2^22 samples, where 0.1 m gives one at 2^18).
+    The config itself, its trihedral and its 64-pulse CPI, is
+    `corner_scene`.  Returns (scene, receiver spec)."""
     d = DECHIRP
     s = sc.Scene(band=Band.from_freq(C_SOUND, FMCW['fc'], 4 * FMCW['sweep']))
     s.add(diffuse('mat', reflectance=1.0, twosided=True))
@@ -333,6 +332,146 @@ def fmcw_dechirp_scene():
     _aperture(s, d['rx_pos'], apex, (0.02, 0.02, 1.0), receiver='rx')
     _plate(s, apex, d['plate'], look_to=d['rx_pos'])
     return s, rx
+
+
+# golden config 4 (`fmcw_dechirp_chain`): 64 pulses, one a chirp; the
+# corner closes so that its aliased Doppler lands on slow-time bin 20 of 64
+CORNER = dict(n_pulses=64, prf=1.0 / FMCW['chirp'], R=4.0,
+              rx_pos=(0.0, -0.1, 0.0), tx=0.8, rx=0.02, seed=13,
+              spp=1 << 16, max_depth=4)
+CORNER['v'] = (20.0 / 64.0) * CORNER['prf'] * C_SOUND / (2 * FMCW['fc'])
+
+
+def corner_scene():
+    """Golden config 4, `fmcw_dechirp_chain` (`tests/golden/configs.py`
+    `_corner_scene`): the LFMCW with a 1.6 m transmitter aperture, a 40 mm
+    mix_resample receiver 0.1 m in front of it (the chirp as its LO) on
+    DECHIRP's 1024-bin fast-time ADC, and a trihedral corner reflector of
+    smooth-conductor plates (eta 0.2, k 3) with its apex CORNER['R'] m
+    out, pointed at the receiver.  The corner translates rigidly at
+    (0, v, 0): `AnimatedTransform` keyframes at every pulse time plus the
+    matching per-shape velocity, so one scene serves the whole CPI
+    through `receive_cpi`.  Its echo is the triple mirror bounce ending in
+    a direct transmitter hit.  Returns (scene, receiver spec)."""
+    d, c = DECHIRP, CORNER
+    s = sc.Scene(band=Band.from_freq(C_SOUND, FMCW['fc'], 4 * FMCW['sweep']))
+    s.add(conductor('m', eta=0.2, k=3.0, twosided=True))
+    wf = _lfmcw()
+    s.add(wigner_transmitter('tx', wf, resample_freq=True))
+    _aperture(s, (0.0, 0, 0), (0.0, -1, 0), (c['tx'], c['tx'], 1.0),
+              transmitter='tx')
+    adc = ADCConfig(n_time=d['n_fast'], n_freq=1, sampling_start=d['t0'],
+                    sampling_time=d['window'], freq_lo=0.0, freq_hi=1.5e3)
+    rx = wigner_receiver('rx', adc, receive_type='mix_resample',
+                         lo_waveform=wf)
+    s.add(rx)
+    rx_pos = np.asarray(c['rx_pos'])
+    apex = np.array([0.0, -c['R'], 0.0])
+    _aperture(s, rx_pos, apex, (c['rx'], c['rx'], 1.0), receiver='rx')
+    v, prf = c['v'], c['prf']
+    faces = sh.trihedral(apex, rx_pos - apex, bsdf='m',
+                         velocity=np.array([0.0, v, 0.0], np.float32))
+    for f in faces:
+        base = np.asarray(f.to_world)
+        f.to_world = tf.AnimatedTransform.from_keyframes(
+            [(p / prf, np.asarray(tf.compose(
+                tf.translate([0.0, v * p / prf, 0.0]), base)))
+             for p in range(c['n_pulses'] + 1)])
+        s.add(f)
+    return s, rx
+
+
+def corner_anchors() -> dict:
+    """Config 4's analytic range-Doppler cell from the geometry alone
+    (`configs.py:274-284`): the beat slope x the two-way delay on the
+    decimated range axis, and the slow-time bin of the closing apex's
+    phase progression (fftshifted)."""
+    d, c = DECHIRP, CORNER
+    rx_pos = np.asarray(c['rx_pos'])
+    apex0 = np.array([0.0, -c['R'], 0.0])
+    n_adc = d['n_fast'] // d['q']
+    fs_adc = d['n_fast'] / d['window'] / d['q']
+    tau = 2 * np.linalg.norm(apex0 - rx_pos) / C_SOUND
+    f_beat = FMCW['sweep'] / FMCW['chirp'] * tau
+    taus = [2 * np.linalg.norm(apex0 + [0, c['v'] * p / c['prf'], 0]
+                               - rx_pos) / C_SOUND
+            for p in range(c['n_pulses'])]
+    ph = np.exp(2j * np.pi * FMCW['fc'] * np.asarray(taus))
+    return dict(range_bin=int(round(f_beat / fs_adc * n_adc)) % n_adc,
+                doppler_bin=int(np.abs(np.fft.fftshift(np.fft.fft(ph)))
+                                .argmax()))
+
+
+def corner_rd_map(cube, n: int):
+    """Config 4's signal chain on a CPI cube (n_pulses, 1024, 1, 4) of n
+    samples a pulse: the dechirped beat I / Q, conjugated (the echo's beat
+    rotates at -slope x tau), decimated by 8 to the ADC rate, then Hann
+    range and Doppler FFTs.  Returns the (Doppler, range) complex map."""
+    from .dsp import rangedoppler as rd
+    from .dsp import resample, windows
+    d = DECHIRP
+    iq = torch.complex(cube[:, :, 0, 0], cube[:, :, 0, 1]) \
+        * (d['n_fast'] / max(n, 1))
+    dec = resample.decimate(torch.conj(iq), d['q'])
+    rc = rd.range_fft(dec, window=windows.hann(dec.shape[-1],
+                                               device=cube.device))
+    return rd.doppler_fft(rc, window=windows.hann(dec.shape[-2],
+                                                  device=cube.device))
+
+
+# golden config 5 (`micro_doppler_cpi`): a scatterer on a 25 Hz orbit of
+# modulation index 3 (its range swing r = 3 lambda / (4 pi)), 64 CW pulses
+# at 400 Hz, the rotation rate on slow-time bin 4
+MICRO_DOPPLER = dict(n_pulses=64, prf=400.0, m_rot=4, a_mod=3.0, R0=4.0,
+                     fc=40e3, seed=11, spp=1 << 13, max_depth=1)
+
+
+def micro_doppler_scene():
+    """Golden config 5, `micro_doppler_cpi` (`configs.py:291-350`): a CW
+    40 kHz sonar with the flagship's apertures, a raw 8-bin fast-time ADC
+    over 2 ms, and a diffuse 0.6 m plate R0 m out on `AnimatedTransform`
+    keyframes at every pulse time, orbiting so that its range swings by
+    r sin(2 pi f_rot t).  Returns (scene, receiver spec)."""
+    md = MICRO_DOPPLER
+    fc, n_pulses, prf = md['fc'], md['n_pulses'], md['prf']
+    f_rot = prf * md['m_rot'] / n_pulses
+    r_orb = md['a_mod'] * (C_SOUND / fc) / (4 * np.pi)
+    s = sc.Scene(band=Band.from_freq(C_SOUND, fc, 10e3))
+    s.add(diffuse('mat', reflectance=1.0, twosided=True))
+    s.add(wigner_transmitter('tx', cw(f_centre=fc), resample_freq=True))
+    _aperture(s, (0.3, 0, 0), (0.3, -1, 0), (0.05, 0.05, 1.0),
+              transmitter='tx')
+    adc = ADCConfig(n_time=8, n_freq=1, sampling_start=0.0,
+                    sampling_time=2e-3, freq_lo=fc - 2e3, freq_hi=fc + 2e3)
+    rx = wigner_receiver('rx', adc, receive_type='raw')
+    s.add(rx)
+    _aperture(s, (-0.3, 0, 0), (-0.3, -1, 0), (0.05, 0.05, 1.0),
+              receiver='rx')
+    frames = []
+    for p in range(n_pulses + 1):
+        t_p = p / prf
+        psi = 2 * np.pi * f_rot * t_p
+        pos = [r_orb * np.cos(psi), -(md['R0'] + r_orb * np.sin(psi)), 0.0]
+        frames.append((t_p, np.asarray(tf.compose(
+            tf.look_at(pos, [0.0, 0.0, 0.0]), tf.scale(0.3)))))
+    tgt = sh.rectangle(bsdf='mat')
+    tgt.to_world = tf.AnimatedTransform.from_keyframes(frames)
+    s.add(tgt)
+    return s, rx
+
+
+def micro_doppler_spectrum(cube, n: int):
+    """Config 5's slow-time spectrum: |FFT|^2 (fftshifted) of each pulse's
+    I / Q summed over the ADC, over n samples a pulse."""
+    iq = torch.complex(cube[..., 0], cube[..., 1]).sum(dim=(1, 2)) / max(n, 1)
+    return torch.fft.fftshift(torch.fft.fft(iq)).abs() ** 2
+
+
+def micro_doppler_comb_bins() -> list:
+    """The Bessel comb's bins: n_pulses / 2 + m_rot k, k = -4 .. 4."""
+    md = MICRO_DOPPLER
+    return sorted({(md['n_pulses'] // 2 + md['m_rot'] * k) % md['n_pulses']
+                   for k in range(-4, 5)})
 
 
 def round_trip_bin(scene, rx, target=(0.0, -4.0, 0.0)) -> float:

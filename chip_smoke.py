@@ -134,6 +134,7 @@ DOP_PLAIN_CHUNK = 1 << 20
 MB_PARITY_LANES = 1 << 16  # multi_body, lane by lane
 RD_PARITY_LANES = 1 << 18  # range-Doppler pulse, wide and global grids
 REPEAT_TOL = 1e-6          # x max|acc| per cell: two Philox calls, atomics
+LARGE_GRID_WHAT = 'range_doppler 4096 x 128 (2^19 cells, global grid)'
 # K1 against the wavefront on multi_body at 2^22 samples: each body's
 # window energy (two unbiased estimators of one expectation; a CPU
 # rehearsal at 2^17 samples differed by at most 8% over three seeds)
@@ -204,6 +205,7 @@ FP32_OPS = {
     'phase_lo': 35,      # mix_resample's receive fold and its h (the LO
     #                      dechirp's is 43)
     'h_chirp': 52,       # the quadratic term of each h of a chirp
+    'mirror_bounce': 56,  # flipped normal, d - 2 (d.n) n, conductor Fresnel
 }
 
 
@@ -263,31 +265,35 @@ def compare(acc, n_ev, ref, n_ref, what: str) -> dict:
 
 
 def compare_lanes(acc, n_ev, lane, ref, n_ref, lane_ref, max_depth,
-                  what: str) -> dict:
+                  what: str, cell_slack=0.0) -> dict:
     """Mesh parity, lane by lane: a lane whose contribution sum differs by
     more than TOL of itself (and 1e-6 of the largest lane) took another
     path, as a ray that meets a triangle edge may under FMA contraction;
     those lanes are counted, may be at most EDGE_FLIPS of all, and bound
     how far the sums may move beyond TOL x max|acc| (each can at most
     remove its own contributions from some bins and add them to others)
-    and the events (2 per depth)."""
+    and the events (2 per depth).  `cell_slack` (a tensor of the grid's
+    shape, or 0) widens each cell's bound beyond that."""
     tol_lane = TOL * lane_ref.abs() + 1e-6 * float(lane_ref.abs().max())
     flipped = (lane - lane_ref).abs() > tol_lane
     n_flip = int(flipped.sum())
     slack = float((lane.abs() + lane_ref.abs())[flipped].sum())
     scale = float(ref.abs().max())
-    err = float((acc - ref).abs().max())
+    diff = (acc - ref).abs()
+    err = float(diff.max())
+    worst = float((diff / (TOL * scale + slack + cell_slack)).max())
     ev, ev_ref = int(n_ev), int(n_ref)
     print(f'parity {what}: max|acc| {scale:.6e}  max abs err {err:.3e} '
           f'({err / max(scale, 1e-300):.3e} of max)  events {ev} vs '
           f'{ev_ref}; {n_flip} of {lane.numel()} lanes took another path '
           f'(their sums {slack:.3e} = {slack / max(scale, 1e-300):.3e} of '
-          f'max)')
+          f'max); worst cell at {worst:.3f} of its bound')
     if n_flip > EDGE_FLIPS * lane.numel():
         fail(f'{what}: {n_flip} lanes differ from the plain version')
-    if not (scale > 0 and err <= TOL * scale + slack):
-        fail(f'{what}: kernel differs from the plain version '
-             f'({err:.3e} > {TOL} x {scale:.3e} + {slack:.3e})')
+    if not (scale > 0 and worst <= 1.0):
+        fail(f'{what}: kernel differs from the plain version (worst cell '
+             f'{worst:.3f} of its bound; {err:.3e} against {TOL} x '
+             f'{scale:.3e} + {slack:.3e})')
     if abs(ev - ev_ref) > TOL * ev_ref + 2 * max_depth * n_flip:
         fail(f'{what}: event counts {ev} vs {ev_ref}')
     return dict(err=err, rel=err / scale, flips=n_flip)
@@ -315,7 +321,8 @@ def lane_ops(stats: dict, n_rect: int) -> float:
                   ('hit', 'direct', 'nee_geom', 'nee', 'nee_splat',
                    'bounce', 'freq_draw', 'ggx_nee', 'ggx_bounce',
                    'dop_direct', 'dop_nee', 'dop_bounce', 'splat_2d',
-                   'lo_freq', 'lo_bin', 'phase', 'phase_lo', 'h_chirp'))
+                   'lo_freq', 'lo_bin', 'phase', 'phase_lo', 'h_chirp',
+                   'mirror_bounce'))
             + walk_ops(stats))
 
 
@@ -736,7 +743,8 @@ def _doppler_tables(torch, rk, scene_fn, dev):
     kw = dict(adc=rx.adc, max_depth=DOP_DEPTH, time_sampling='gate',
               rx_kind='wigner', mesh=mesh, doppler=True,
               msh=None if mesh is None else torch.tensor(packed.msh,
-                                                         device=dev))
+                                                         device=dev),
+              mirror=packed.mirror)
     return (s, sd, rx, params, torch.tensor(packed.prim, device=dev),
             torch.tensor(packed.txp, device=dev), kw)
 
@@ -775,7 +783,13 @@ def doppler(torch, bt, rk, ik, dev, tag):
             # and the per-cell tolerance would measure that, not the kernel
             ('range_doppler 256 x 128 (global grid)',
              variant(range_doppler_scene, n_time=256, n_freq=128),
-             RD_PARITY_LANES, DOP_DEPTH)):
+             RD_PARITY_LANES, DOP_DEPTH),
+            # 2^19 cells: a cell holds a few lanes' taps, so ulps of a
+            # tap's coordinate move it past TOL of max|acc|; held lane by
+            # lane, each cell also within `coord_slack` of its |power|
+            (LARGE_GRID_WHAT, variant(range_doppler_scene, n_time=4096,
+                                      n_freq=128), RD_PARITY_LANES,
+             DOP_DEPTH)):
         s, sd, rx, params, prim, txp, kw = _doppler_tables(torch, rk, fn,
                                                            dev)
         kw = dict(kw, max_depth=depth)
@@ -783,10 +797,12 @@ def doppler(torch, bt, rk, ik, dev, tag):
                        device=dev)
         lane = torch.empty(n_lanes, device=dev)
         lane_ref = torch.empty(n_lanes, device=dev)
+        amp = torch.zeros((rx.adc.n_time, rx.adc.n_freq),
+                          dtype=torch.float64, device=dev)
         acc, n_ev = rk.receive_megakernel(params, prim, txp, n_lanes=n_lanes,
                                           uniforms=u, lane_out=lane, **kw)
         ms, (ref, n_ref) = wall_ms(lambda: rk.receive_megakernel_ref(
-            params, prim, txp, u, lane_out=lane_ref, **kw))
+            params, prim, txp, u, lane_out=lane_ref, amp_out=amp, **kw))
         mode = rk.grid_mode(rx.adc.n_time * rx.adc.n_freq, True)
         name = f'doppler {what} injected 2^{n_lanes.bit_length() - 1} ' \
             f'lanes (grid mode {mode})'
@@ -794,6 +810,10 @@ def doppler(torch, bt, rk, ik, dev, tag):
             c = compare_lanes(acc, n_ev, lane, ref, n_ref, lane_ref, depth,
                               name)
             errs['doppler_mesh'].append(c)
+        elif what == LARGE_GRID_WHAT:
+            errs['doppler'].append(compare_lanes(
+                acc, n_ev, lane, ref, n_ref, lane_ref, depth, name,
+                rk.coord_slack(rx.adc) * amp.float()))
         else:
             errs['doppler'].append(compare(acc, n_ev, ref, n_ref, name))
         print(f'plain version {what}: {ms:.1f} ms {tag}')
@@ -929,7 +949,8 @@ def doppler(torch, bt, rk, ik, dev, tag):
 
 
 def compare_coherent(torch, acc, n_ev, ref, n_ref, amp, slack, what,
-                     lane=None, lane_ref=None, depth=COH_DEPTH) -> dict:
+                     lane=None, lane_ref=None, depth=COH_DEPTH,
+                     quiet=False) -> dict:
     """I / Q parity per cell and channel: within TOL x max(|I|, |Q|) plus
     the phase slack (`receive_kernel.phase_slack`) times the cell's sum of
     amplitudes `amp` (the plain version's), since the kernel's contracted
@@ -948,13 +969,15 @@ def compare_coherent(torch, acc, n_ev, ref, n_ref, amp, slack, what,
     err = float(diff.max())
     worst = float((diff / (bound + flip_slack)).max())
     ev, ev_ref = int(n_ev), int(n_ref)
-    print(f'parity {what}: max(|I|, |Q|) {scale:.6e}  max abs err {err:.3e} '
-          f'({err / max(scale, 1e-300):.3e} of max; worst cell at '
-          f'{worst:.3f} of its bound, phase slack {slack:.3e} rad, largest '
-          f'amplitude sum {float(amp.max()) / max(scale, 1e-300):.2f} x '
-          f'max)  events {ev} vs {ev_ref}'
-          + ('' if lane is None else f'; {flips} of {lane.numel()} lanes '
-             f'took another path'))
+    if not quiet:
+        print(f'parity {what}: max(|I|, |Q|) {scale:.6e}  max abs err '
+              f'{err:.3e} ({err / max(scale, 1e-300):.3e} of max; worst '
+              f'cell at {worst:.3f} of its bound, phase slack {slack:.3e} '
+              f'rad, largest amplitude sum '
+              f'{float(amp.max()) / max(scale, 1e-300):.2f} x max)  events '
+              f'{ev} vs {ev_ref}'
+              + ('' if lane is None else f'; {flips} of {lane.numel()} '
+                 f'lanes took another path'))
     if lane is not None and flips > EDGE_FLIPS * lane.numel():
         fail(f'{what}: {flips} lanes differ from the plain version')
     if not (scale > 0 and worst <= 1.0):
@@ -978,7 +1001,8 @@ def _coh_tables(torch, rk, scene_fn, dev, coherent):
               msh=None if mesh is None else torch.tensor(packed.msh,
                                                          device=dev),
               receive_type=rx.receive_type,
-              has_lo=rx.lo_waveform is not None, coherent=coherent)
+              has_lo=rx.lo_waveform is not None, coherent=coherent,
+              mirror=packed.mirror)
     return (s, sd, rx, params, torch.tensor(packed.prim, device=dev),
             torch.tensor(packed.txp, device=dev), kw)
 
@@ -1390,6 +1414,296 @@ def coherent(torch, bt, rk, ik, dev, tag) -> list:
     compare_k1_wavefront_lo(torch, bt, dev, kw_grid, tag)
     return entries
 
+
+# the coherent processing interval (CPI): golden configs 5 and 4, each a
+# 64-pulse train through receive_cpi, every pulse in one K1 launch
+CPI_PULSES = 64
+CPI_CONFIGS = {
+    # config 5: a CW train over an orbiting plate; config 4: the LFMCW
+    # dechirp chain over a closing trihedral of mirrors
+    'micro_doppler': dict(spp=1 << 13, max_depth=1, time_sampling='gate'),
+    'corner': dict(spp=1 << 16, max_depth=4, time_sampling='fixed'),
+}
+CPI_RATE_SAMPLES = 1 << 20     # samples a pulse of the rate runs
+MIRROR_PARITY_LANES = 1 << 16  # one corner pulse, injected uniforms
+
+
+def _cpi_scene(sc_mod, name):
+    """(scene, prf, seed) of a CPI configuration."""
+    if name == 'micro_doppler':
+        s, _ = sc_mod.micro_doppler_scene()
+        return s, sc_mod.MICRO_DOPPLER['prf'], sc_mod.MICRO_DOPPLER['seed']
+    s, _ = sc_mod.corner_scene()
+    return s, sc_mod.CORNER['prf'], sc_mod.CORNER['seed']
+
+
+def _check_cpi_anchor(torch, sc_mod, name, cube, n, tag) -> float:
+    """Config 5's Bessel comb on its bins, the rest 12 dB down; config 4's
+    range-Doppler peak in its analytic cell.  Returns the DSP's ms (the
+    corner's decimate and two FFTs)."""
+    import numpy as np
+    if name == 'micro_doppler':
+        spec = sc_mod.micro_doppler_spectrum(cube, n).double().cpu().numpy()
+        comb = sc_mod.micro_doppler_comb_bins()
+        top = sorted(np.argsort(spec)[::-1][:len(comb)].tolist())
+        off = [b for b in range(len(spec)) if b not in comb]
+        floor_db = 10 * np.log10(spec[off].max() / spec.max())
+        print(f'micro_doppler anchor: top {len(comb)} slow-time bins {top}, '
+              f'comb {comb}; strongest bin off the comb {floor_db:.2f} dB '
+              f'{tag}')
+        if not np.isfinite(spec).all() or top != comb or floor_db > -12.0:
+            fail('micro_doppler: the Bessel comb is off its bins')
+        return 0.0
+    sc_mod.corner_rd_map(cube, n)      # cuFFT plans and the FIR bank
+    dsp_ms, rdm = wall_ms(lambda: sc_mod.corner_rd_map(cube, n))
+    mag = rdm.abs()
+    pk = divmod(int(mag.argmax()), mag.shape[1])
+    want = sc_mod.corner_anchors()
+    print(f'corner anchor: range-Doppler peak (Doppler, range) {pk} of '
+          f'{tuple(mag.shape)}, analytic cell ({want["doppler_bin"]}, '
+          f'{want["range_bin"]}), peak / median '
+          f'{float(mag.max() / mag.median()):.1f}; conj, decimate, range '
+          f'and Doppler FFTs {dsp_ms:.2f} ms {tag}')
+    if not bool(torch.isfinite(mag).all()) \
+            or abs(pk[0] - want['doppler_bin']) > 1 \
+            or abs(pk[1] - want['range_bin']) > 2:
+        fail('corner: the range-Doppler peak is off its analytic cell')
+    return dsp_ms
+
+
+def cpi(torch, bt, rk, ik, dev, tag) -> list:
+    """The CPI phase: the mirror chains against the plain version, then
+    configs 5 and 4 through receive_cpi (one K1 launch a train), their
+    anchors, the launch alone, against one launch a pulse and the plain
+    version, the loop engine, and each at CPI_RATE_SAMPLES a pulse."""
+    from beifong_tpu_torch import scenes as sc_mod
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def reset():
+        for fn in (rk.receive_megakernel, rk.receive_megakernel_cpi):
+            fn.launches = 0
+            fn.by_config = dict.fromkeys(rk.CONFIGS, 0)
+        ik.ray_triangle_closest.launches = ik.ray_triangle_any.launches = 0
+
+    # ---- 3. the mirror chains: a pulse of config 4's corner on injected
+    #      uniforms, lane by lane ----
+    def corner_pulse():
+        s_, rx_ = sc_mod.corner_scene()
+        return s_.at_time(0.0), rx_
+    cm = CPI_CONFIGS['corner']
+    s, sd, rx, params, prim, txp, kw = _coh_tables(torch, rk, corner_pulse,
+                                                   dev, True)
+    kw.update(max_depth=cm['max_depth'], time_sampling=cm['time_sampling'])
+    n_l = MIRROR_PARITY_LANES
+    u = torch.rand((rk.n_draws(cm['max_depth']), n_l), generator=gen,
+                   device=dev)
+    lane = torch.empty(n_l, device=dev)
+    lane_ref = torch.empty(n_l, device=dev)
+    amp = torch.zeros((rx.adc.n_time, 1), dtype=torch.float64, device=dev)
+    stats_m: dict = {}
+    acc, n_ev = rk.receive_megakernel(params, prim, txp, n_lanes=n_l,
+                                      uniforms=u, lane_out=lane, **kw)
+    m_plain_ms, (ref, n_ref) = wall_ms(lambda: rk.receive_megakernel_ref(
+        params, prim, txp, u, lane_out=lane_ref, amp_out=amp, stats=stats_m,
+        **kw))
+    c_mirror = compare_coherent(
+        torch, acc, n_ev, ref, n_ref, amp, rk.phase_slack(s.band, rx.adc),
+        'corner pulse 0 mirror chains (I / Q) injected 2^16 lanes, depth 4',
+        lane, lane_ref, depth=cm['max_depth'])
+    print(f'mirror chains: {stats_m["mirror_bounce"]} mirror bounces, '
+          f'{stats_m["direct"]} direct transmitter hits; plain version '
+          f'{m_plain_ms:.1f} ms {tag}')
+    if not (stats_m['mirror_bounce'] > 0 and stats_m['direct'] > 0):
+        fail('corner: no mirror chain reached the transmitter')
+    m_ms, _ = cuda_ms(lambda i: rk.receive_megakernel(
+        params, prim, txp, n_lanes=n_l, seed=SEED, **kw), 6)
+    m_med = statistics.median(m_ms[1:])
+    print(f'receive_megakernel (coherent, mirror chains) corner pulse 2^16 '
+          f'lanes depth 4: median {m_med:.3f} ms '
+          f'({n_l / (m_med * 1e-3):.4e} samples/s) '
+          f'{[round(x, 3) for x in m_ms[1:]]} {tag}')
+
+    entries, mirror_launches = [], 0
+    for name, cfg in CPI_CONFIGS.items():
+        s, prf, seed = _cpi_scene(sc_mod, name)
+        spp, depth, ts = cfg['spp'], cfg['max_depth'], cfg['time_sampling']
+
+        def run(engine='scan', n_spp=spp):
+            return bt.receive_cpi(s, n_pulses=CPI_PULSES, prf=prf, seed=seed,
+                                  coherent=True, spp=n_spp, max_depth=depth,
+                                  time_sampling=ts, engine=engine,
+                                  device=dev)
+
+        # set-up: the per-pulse snapshots, their packs and the tables on
+        # the card, cached on the scene
+        setup_ms, _ = wall_ms(run)
+        # ---- 4. the main path: one warm-up and five timed calls ----
+        reset()
+        with _Wavefront(bt) as wfc:
+            call_ms, (cube, n) = cuda_ms(lambda i: run(), 6)
+        launches = rk.receive_megakernel_cpi.launches
+        by_cfg = dict(rk.receive_megakernel_cpi.by_config)
+        if launches != 6 or by_cfg['coherent'] != 6 \
+                or rk.receive_megakernel.launches or wfc.calls:
+            fail(f'{name} CPI launched the CPI kernel {by_cfg}, K1 alone '
+                 f'{rk.receive_megakernel.launches}, the wavefront '
+                 f'{wfc.calls} times in 6 receive_cpi() calls')
+        if tuple(cube.shape) != (CPI_PULSES, rx_n_time(s), 1, 4) \
+                or n != spp or not bool(torch.isfinite(cube).all()):
+            fail(f'{name}: cube {tuple(cube.shape)} ({n} samples a pulse) '
+                 'not finite / wrong shape')
+        med = statistics.median(call_ms[1:])
+        total = CPI_PULSES * n
+        print(f'receive_cpi() {name} {CPI_PULSES} pulses x 2^'
+              f'{spp.bit_length() - 1} samples depth {depth}, {ts}: median '
+              f'{med:.3f} ms/call ({total / (med * 1e-3):.4e} samples/s), '
+              f'calls {[round(x, 3) for x in call_ms[1:]]}; set-up (at_time, '
+              f'pack, tables to the card) {setup_ms:.1f} ms {tag}')
+        dsp_ms = _check_cpi_anchor(torch, sc_mod, name, cube, n, tag)
+        if name == 'corner':
+            mirror_launches = launches
+
+        # the launch alone, on the main path's tables
+        packed, rx, _ = rk.pack_cpi(s, CPI_PULSES, prf)
+        params = torch.tensor(packed.params, device=dev)
+        params[:, 0] = rk.seed_slot(seed)
+        prim = torch.tensor(packed.prim, device=dev)
+        txp = torch.tensor(packed.txp, device=dev)
+        kw = dict(adc=rx.adc, max_depth=depth, time_sampling=ts,
+                  rx_kind='wigner', n_lanes=spp, doppler=True,
+                  receive_type=rx.receive_type,
+                  has_lo=rx.lo_waveform is not None, coherent=True,
+                  mirror=packed.mirror)
+        k_ms, _ = cuda_ms(lambda i: rk.receive_megakernel_cpi(
+            params, prim, txp, seed=seed, **kw), 6)
+        k_med = statistics.median(k_ms[1:])
+        blocks, threads, smem = rk.launch_geometry(
+            rx.adc.n_time, spp, int(prim.shape[1]), n_freq=1, doppler=True,
+            coherent=True, n_pulses=CPI_PULSES)
+        print(f'receive_megakernel_cpi {name}: median {k_med:.3f} ms '
+              f'({total / (k_med * 1e-3):.4e} samples/s) '
+              f'{[round(x, 3) for x in k_ms[1:]]}; {blocks} blocks a pulse '
+              f'x {CPI_PULSES} pulses x {threads} threads, {smem} B shared '
+              f'each (grid mode {rk.grid_mode(rx.adc.n_time, True, True)}) '
+              f'{tag}')
+
+        # parity: the launch against one launch a pulse (the atomics'
+        # order) and against the plain version on the Philox stream
+        lane = torch.empty((CPI_PULSES, spp), device=dev)
+        acc, n_ev = rk.receive_megakernel_cpi(params, prim, txp, seed=seed,
+                                              lane_out=lane, **kw)
+        stats: dict = {}
+        worst = {'err': 0.0, 'rel': 0.0, 'worst': 0.0, 'flips': 0,
+                 'per_pulse': 0.0}
+        kw1 = {k: v for k, v in kw.items() if k != 'n_lanes'}
+        u = rk.philox_uniforms(seed, rk.n_draws(depth), spp, device=dev)
+        slack = rk.phase_slack(s.band, rx.adc)
+        t_plain, amp_max = 0.0, 0.0
+        for p in range(CPI_PULSES):
+            one, n_one = rk.receive_megakernel(params[p], prim[p], txp[p],
+                                               n_lanes=spp, seed=seed, **kw1)
+            amp = torch.zeros((rx.adc.n_time, 1), dtype=torch.float64,
+                              device=dev)
+            lane_ref = torch.empty(spp, device=dev)
+            ms, (ref, n_ref) = wall_ms(lambda: rk.receive_megakernel_ref(
+                params[p], prim[p], txp[p], u, lane_out=lane_ref,
+                amp_out=amp, stats=stats, **kw1))
+            t_plain += ms
+            amp_max = max(amp_max, float(amp.max()))
+            per = float((acc[p] - one).abs().max()) / float(amp.max())
+            if int(n_one) != int(n_ev[p]) or not per <= REPEAT_TOL:
+                fail(f'{name} pulse {p}: the CPI launch and one launch '
+                     f'differ ({per:.3e} of the amplitude sum; events '
+                     f'{int(n_ev[p])} / {int(n_one)})')
+            c = compare_coherent(torch, acc[p], n_ev[p], ref, n_ref, amp,
+                                 slack, f'{name} pulse {p}', lane[p],
+                                 lane_ref, depth=depth, quiet=True)
+            worst = {k: max(worst[k], c[k]) for k in c} | {
+                'per_pulse': max(worst['per_pulse'], per),
+                'flips': worst['flips'] + c['flips']}
+        print(f'parity {name} CPI launch, {CPI_PULSES} pulses x 2^'
+              f'{spp.bit_length() - 1} philox lanes: against one launch a '
+              f'pulse at most {worst["per_pulse"]:.3e} of the amplitude sum '
+              f'per cell; against the plain version worst cell at '
+              f'{worst["worst"]:.3f} of its bound (max abs err '
+              f'{worst["err"]:.3e}, {worst["rel"]:.3e} of max), '
+              f'{worst["flips"]} of {CPI_PULSES * spp} lanes took another '
+              f'path; plain version {t_plain:.1f} ms {tag}')
+        print(f'{name} stage lanes: ' + json.dumps(stats))
+
+        # the loop engine: one receive() a pulse, timed the same way
+        reset()
+        loop_ms, (cube_l, _) = cuda_ms(lambda i: run('loop'), 6)
+        loop_med = statistics.median(loop_ms[1:])
+        if rk.receive_megakernel.launches != 6 * CPI_PULSES:
+            fail(f'{name} loop engine: K1 launched '
+                 f'{rk.receive_megakernel.launches} times')
+        # one stream a pulse either way: the cubes differ by the atomics
+        diff = float((cube_l - cube).abs().max()) / amp_max
+        print(f'receive_cpi(engine=\'loop\') {name}: median {loop_med:.3f} '
+              f'ms/call ({total / (loop_med * 1e-3):.4e} samples/s), calls '
+              f'{[round(x, 3) for x in loop_ms[1:]]}, {loop_med / med:.2f} x '
+              f'the CPI launch\'s; cubes differ by {diff:.3e} of the largest '
+              f'amplitude sum {tag}')
+        if not diff <= REPEAT_TOL:
+            fail(f'{name}: the loop engine and the CPI launch disagree')
+
+        # the rate at CPI_RATE_SAMPLES a pulse
+        run(n_spp=CPI_RATE_SAMPLES)
+        rate_ms, (cube_r, n_r) = cuda_ms(
+            lambda i: run(n_spp=CPI_RATE_SAMPLES), 5)
+        rate_med = statistics.median(rate_ms)
+        print(f'receive_cpi() {name} {CPI_PULSES} pulses x 2^20 samples: '
+              f'median {rate_med:.3f} ms/call '
+              f'({CPI_PULSES * n_r / (rate_med * 1e-3):.4e} samples/s), calls '
+              f'{[round(x, 3) for x in rate_ms]} {tag}')
+        _check_cpi_anchor(torch, sc_mod, name, cube_r, n_r, tag)
+
+        n_rect = int((prim[0, :, 0] == 0).sum())
+        n_bytes = 4 * (params.numel() + prim.numel() + txp.numel()
+                       + CPI_PULSES * rx.adc.n_time * 2) + 8 * CPI_PULSES
+        b = bound(lane_ops(_chirp_h(stats, txp[0]), n_rect), n_bytes,
+                  f'{name} CPI')
+        entries.append({
+            'name': 'receive_megakernel',
+            'configuration': 'coherent CPI (pulse axis)'
+            + (', mirror chains' if packed.mirror else ''),
+            'route': 'cuda',
+            'source': 'beifong_tpu_torch/csrc/receive_megakernel.cu',
+            'replaces': 'beifong_tpu/integrators/pallas_receive.py:2983',
+            'tpu_function': 'receive_cpi_pallas (pallas_receive.py:3164), '
+            'the lax.scan of _run over the pulses (_cpi_run_all :3289)',
+            'main_path': f'receive_cpi({name}_scene(), {CPI_PULSES} pulses '
+            f'x 2^{spp.bit_length() - 1} samples, depth {depth}, {ts})',
+            'launches': launches, 'max_abs_err': worst['err'],
+            'parity': worst['rel'], 'ms': k_med, 'plain_ms': t_plain,
+            'receive_cpi_ms': med, 'loop_engine_ms': loop_med,
+            'dsp_ms': dsp_ms, **b, 'library_ms': None,
+            'lanes_on_another_path': worst['flips'],
+            'per_pulse_launch_rel': worst['per_pulse']})
+
+    # the mirror form: one pulse of config 4 (its shape on the CPI path)
+    n_rect = int((prim[0, :, 0] == 0).sum())
+    b = bound(lane_ops(_chirp_h(stats_m, txp[0]), n_rect),
+              4 * (params[0].numel() + prim[0].numel() + txp[0].numel()
+                   + 2 * rx.adc.n_time) + 8, 'corner pulse, mirror chains')
+    entries.insert(0, {
+        'name': 'receive_megakernel',
+        'configuration': 'coherent + mirror chains', 'route': 'cuda',
+        'source': 'beifong_tpu_torch/csrc/receive_megakernel.cu',
+        'replaces': 'beifong_tpu/integrators/pallas_receive.py:2983',
+        'tpu_function': '_make_kernel (pallas_receive.py:106), mirror / '
+        'delta_any (:199-209, 1558-1614, 2115-2129)',
+        'main_path': 'receive_cpi(corner_scene()): every pulse runs the '
+        'mirror chains', 'launches': mirror_launches,
+        'max_abs_err': c_mirror['err'], 'parity': c_mirror['rel'],
+        'ms': m_med, 'plain_ms': m_plain_ms, **b, 'library_ms': None,
+        'lanes_on_another_path': c_mirror['flips']})
+    return entries
+
+
+def rx_n_time(scene) -> int:
+    return scene.receivers[0].adc.n_time
 
 def compare_k1_wavefront_lo(torch, bt, dev, grids, tag):
     """K1 and the wavefront on fmcw_sonar (power: the beat spectrum summed
@@ -2047,6 +2361,7 @@ def main() -> int:
     dop_kernels, k1_grid = doppler(torch, bt, rk, ik, dev, tag)
     kernels += dop_kernels
     kernels += coherent(torch, bt, rk, ik, dev, tag)
+    kernels += cpi(torch, bt, rk, ik, dev, tag)
     kernels += queries(torch, bt, dev, tag)
     k4 = k4_parity(torch, ik, dev, tag)
     k4_launches, bvh_launches = wavefront(torch, bt, ik, bk, rk, dev, tag,

@@ -31,7 +31,7 @@ def twin_scene(pkg: str, R=4.0, n_side=9, clutter=0, second_mesh=False,
     Returns (scene, receiver spec)."""
     if pkg == 'jax':
         from beifong_tpu import scene as sc
-        from beifong_tpu.bsdf import conductor, diffuse
+        from beifong_tpu.bsdf import conductor, dielectric, diffuse
         from beifong_tpu.core import transform as tf
         from beifong_tpu.core.config import Band as B
         from beifong_tpu.geometry import shapes as sh
@@ -40,7 +40,8 @@ def twin_scene(pkg: str, R=4.0, n_side=9, clutter=0, second_mesh=False,
                                        wigner_transmitter)
     else:
         from beifong_tpu_torch import scene as sc
-        from beifong_tpu_torch.bsdf.tables import diffuse
+        from beifong_tpu_torch.bsdf.tables import (conductor, dielectric,
+                                                   diffuse)
         from beifong_tpu_torch.core import transform as tf
         from beifong_tpu_torch.core.config import Band as B
         from beifong_tpu_torch.geometry import shapes as sh
@@ -48,12 +49,13 @@ def twin_scene(pkg: str, R=4.0, n_side=9, clutter=0, second_mesh=False,
         from beifong_tpu_torch.radar import (ADCConfig, pulse,
                                              wigner_receiver,
                                              wigner_transmitter)
-        conductor = None
     s = sc.Scene(band=B.from_freq(340.0, 40e3, 10e3))
     s.add(diffuse('mat', reflectance=1.0, twosided=True))
     s.add(diffuse('half', reflectance=0.5, twosided=True))
     if mesh_bsdf == 'metal':
         s.add(conductor('metal'))
+    elif mesh_bsdf == 'glass':
+        s.add(dielectric('glass'))
     wf = pulse(f_centre=40e3, prf=10.0, pulse_len=2e-3, f_ext=2e3,
                is_delta=True)
     s.add(wigner_transmitter('tx', wf, resample_freq=True))
@@ -223,17 +225,22 @@ def test_out_of_scope_mesh_raises(kw, needle):
 
 
 def test_non_diffuse_mesh_is_out_of_scope():
-    """A conductor on the mesh (through `interop`: the port builds diffuse
-    BSDFs only) is outside the kernel's scope, as in the JAX package's
-    diffuse-only scenes it is not."""
-    s_j, rx_j = twin_scene('jax', mesh_bsdf='metal')
-    _, rx_t = twin_scene('port')
-    sd_j = s_j.compile(use_bvh=False)
-    sd = scene_data_from_numpy(jax_leaves(sd_j), port_band(sd_j.band),
-                               device='cpu')
-    why = []
-    assert pr.supported(sd_j, rx_j)
-    assert not rk.supported(sd, rx_t, why) and 'ROADMAP B5' in why[0]
+    """A smooth dielectric on the mesh (carried over by `interop`) is
+    outside the port kernel's scope (ROADMAP B5), though the JAX package's
+    kernel takes it; a smooth conductor, whose mirror chains the port's
+    kernel runs, is inside, built by either package."""
+    for bsdf, inside in (('glass', False), ('metal', True)):
+        s_j, rx_j = twin_scene('jax', mesh_bsdf=bsdf)
+        s_t, rx_t = twin_scene('port', mesh_bsdf=bsdf)
+        sd_j = s_j.compile(use_bvh=False)
+        sd = scene_data_from_numpy(jax_leaves(sd_j), port_band(sd_j.band),
+                                   device='cpu')
+        why = []
+        assert pr.supported(sd_j, rx_j)
+        assert rk.supported(sd, rx_t, why) == inside
+        assert rk.supported(s_t.compile(device='cpu'), rx_t) == inside
+        if not inside:
+            assert 'ROADMAP B5' in why[0]
 
 
 @pytest.mark.parametrize('spp, n', [(500, 1024), (3000, 2048), (4096, 4096)])

@@ -22,6 +22,7 @@ ratio this / other, and the pairs this tree won.
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import os
 import statistics
@@ -70,6 +71,9 @@ def child(root: str) -> dict:
                   rx_kind='wigner', n_lanes=n_lanes, seed=chip_smoke.SEED)
         if doppler:
             kw['doppler'] = True
+            if 'mirror' in inspect.signature(
+                    rk.receive_megakernel).parameters:
+                kw['mirror'] = False   # these scenes hold no mirror
         if p.mesh is not None:
             params[0] = rk.seed_slot(chip_smoke.SEED)
             kw.update(mesh=p.mesh.to(dev), patch_p=rk.patch_p_for(n_lanes))
