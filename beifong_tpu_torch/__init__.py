@@ -8,10 +8,11 @@ there is no card.
 """
 
 from .core.config import Band  # noqa: F401
-from .receive import receive, receive_cpi, develop_signal  # noqa: F401
+from .receive import (receive, receive_cpi, develop_signal,  # noqa: F401
+                      receive_mimo, develop_mimo)
 from .scene import Scene, SceneData  # noqa: F401
 from .scenes import (flagship_scene, mesh_scene,  # noqa: F401
                      multi_body_scene, range_doppler_scene,
                      fmcw_sonar_scene, fmcw_scene, pulse_train_scene,
                      fmcw_dechirp_scene, corner_scene,
-                     micro_doppler_scene)
+                     micro_doppler_scene, mimo_beamform_scene)

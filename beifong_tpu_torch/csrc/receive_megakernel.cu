@@ -1,13 +1,15 @@
-// Radar receive megakernel for Hopper (sm_90a), in four configurations:
+// Radar receive megakernel for Hopper (sm_90a), in five configurations:
 // the flagship (analytic rectangles), the mesh configuration (the same
 // lane plus a BVH walk over triangle meshes), the Doppler configuration
 // (either of them plus moving geometry, the GGX rough conductor, time x
 // frequency or wide fast-time grids and the receive types with a local
-// oscillator) and the coherent configuration (the Doppler one splatting
-// I / Q with the echo phase), six instantiations of one block body
-// trace_block<MESH, DOP, COH> (COH only with DOP), launched through
+// oscillator), the coherent configuration (the Doppler one splatting
+// I / Q with the echo phase) and the MIMO configuration (the coherent one
+// of a phased receive array, one I / Q pair an element), seven
+// instantiations of one block body trace_block<MESH, DOP, COH, MIMO> (COH
+// only with DOP, MIMO only with COH and without MESH), launched through
 // receive_trace_kernel<MESH> (flagship, mesh) and, with launch bounds,
-// receive_doppler_kernel<MESH, COH>.
+// receive_doppler_kernel<MESH, COH> and receive_mimo_kernel.
 //
 // Replaces the TPU kernel beifong_tpu/integrators/pallas_receive.py::
 // _make_kernel (launched by _run's pl.pallas_call) in its analytic /
@@ -70,6 +72,20 @@
 // far more than an ulp once f t >> 2^24 cycles), so they round as the
 // plain version and the JAX kernel round.  The rest of the kernel keeps
 // contraction on.
+// The MIMO configuration (MIMO; the JAX kernel's mimo_e > 0 with
+// eoff_ref, :465-513, 1435-1452, 1533-1552, 1792-1809) is the coherent
+// one of a phased receive array on analytic scenes: the rays leave the
+// array's origin over the cosine hemisphere about its normal, weighted by
+// one element's pattern gain (its half-widths are the packed receiver
+// row's first two floats); the lane's first vertex x1 anchors each
+// element's path difference dd_e = |x1 - o - r_e| - |x1 - o|, and every
+// connection splats amp (fast_cos, fast_sin) of its echo phase less
+// 2 pi (f / c) dd_e into the element's I / Q pair of an (n_time, 2E)
+// float64 grid.  The lane keeps x1 - o and |x1 - o| (four floats) and
+// recomputes dd_e at each connection from the element offsets in shared
+// memory, rather than holding E of them over the lane's path; dd_e is a
+// difference of two ~4 m lengths, so its arithmetic rounds every
+// operation (__fmul_rn, __fadd_rn, __fsqrt_rn) as the plain version does.
 // The arithmetic follows beifong_tpu_torch/integrators/receive_kernel.py::
 // receive_megakernel_ref operation by operation (same association, same
 // constants rounded from double, no --use_fast_math), so the two differ
@@ -128,6 +144,13 @@
 //    shared grid holds half the cells (8,192 in 64 KB) and the global one
 //    2 x 2^20 doubles (16 MB, still in L2); the reduce kernel sums the
 //    2 n_cells values as it sums n_cells.
+//  - MIMO: an (n_time, 2E) grid of doubles, added to with float64
+//    atomics: block-shared up to 8,192 values (64 KB; golden config 6's
+//    64 x 16 is 8 KB), global past it (at most 8,192 x 16, 1 MB).  A
+//    target's echo lands in a few bins, so the adds of a warp whose lanes
+//    all hit would meet on a few dozen addresses; on config 6 0.3% of
+//    the lanes hit, the kernel is its rays' FP32 work, and the splat does
+//    not show (PERF.md).
 //
 // Random numbers: PRNG mode runs Philox4x32-10 keyed by the 64-bit seed
 // with counter (lane, draw / 4), word draw % 4, top 24 bits scaled by
@@ -158,6 +181,9 @@ constexpr float LINFMCW = 2.0f;
 constexpr float CONDUCTOR = 1.0f;
 constexpr float ROUGH_CONDUCTOR = 2.0f;
 constexpr int DOP_THREADS = 128;   // threads per block, Doppler config
+// The MIMO kernel's blocks an SM: at 4 it fits 127 registers with no
+// spill; 3 and 2 give it 137 and 139 (ptxas on the H100, PERF.md)
+constexpr int MIMO_MIN_BLOCKS = 4;
 // receive-frequency rules (receive_kernel.py RX_*)
 constexpr int RX_MIX = 1;
 constexpr int RX_MIXER = 2;
@@ -194,6 +220,7 @@ struct Cfg {
     long long bbox_stride;    // BVH tables of one pulse (floats / ints)
     long long links_stride;
     long long leaves_stride;
+    int n_elem;               // MIMO: receive elements (2E channels)
 };
 
 __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
@@ -651,6 +678,22 @@ struct Grid {
     }
 };
 
+// The MIMO configuration's (n_time, 2E) grid of doubles, block-shared (s)
+// or global (g), and the table its lanes read: the element half-widths
+// at tab[0:2], the element offsets (E, 3) from tab[2].
+struct MimoGrid {
+    const float* tab;
+    double* s;
+    double* g;
+    __device__ void add(int cell, float v) const {
+        if (v == 0.0f) return;
+        atomicAdd((s != nullptr ? s : g) + cell, (double)v);
+    }
+};
+
+template <bool MIMO> struct GridOf { using type = Grid; };
+template <> struct GridOf<true> { using type = MimoGrid; };
+
 // One tap of weight w into `cell`: the power, or I and Q interleaved.
 template <bool COH>
 __device__ __forceinline__ void grid_tap(const Grid& grid, int cell,
@@ -740,20 +783,68 @@ __device__ __forceinline__ float conn_splat(const Grid& grid, const Cfg& cfg,
     }
 }
 
+// The MIMO configuration's splat of one connection of power `val`: its
+// echo phase plus n_bnd boundary phases, then for each element e the
+// phase less 2 pi (f_recv / c) dd_e, dd_e = |v0 - r_e| - r0 from the
+// lane's first vertex (v0 = x1 - o, r0 = |v0|), into the element's I / Q
+// pair of both tent bins (pallas_receive.py::_coh_vals' MIMO branch and
+// its channel splat).  The element term rounds each operation, as the
+// plain version does.  Returns the lane sum's share, the amplitude.
+__device__ float mimo_splat(const MimoGrid& grid, const Cfg& cfg,
+                            const Tx& tx, const Wave& lo, const float* sp,
+                            float val, float yb, float f_recv, float t_recv,
+                            float dtot, float t_emit, float k_pri, int n_bnd,
+                            float v0x, float v0y, float v0z, float r0) {
+    float ph = echo_phase(tx.w, lo, cfg, sp, dtot, t_emit, t_recv, k_pri);
+    if (n_bnd > 0) ph = add_rn(ph, mul_rn((float)n_bnd, sp[16]));
+    float amp = sqrtf(fmaxf(val, 0.0f));
+    if (val == 0.0f) return amp;
+    float b0 = floorf(yb);
+    if (!(b0 >= -1.0f && b0 < (float)cfg.n_time)) return amp;  // drops NaN
+    float wt0 = fmaxf(1.0f - fabsf(yb - b0), 0.0f);
+    float wt1 = fmaxf(1.0f - fabsf(yb - (b0 + 1.0f)), 0.0f);
+    int i0 = (int)b0;
+    const int n_ch = 2 * cfg.n_elem;
+    const bool lo_ok = i0 >= 0, hi_ok = i0 + 1 < cfg.n_time;
+    float kf = mul_rn(F(6.283185307179586), f_recv / sp[1]);
+    const float* eo = grid.tab + 2;
+    for (int e = 0; e < cfg.n_elem; ++e) {
+        float vx = sub_rn(v0x, eo[3 * e]);
+        float vy = sub_rn(v0y, eo[3 * e + 1]);
+        float vz = sub_rn(v0z, eo[3 * e + 2]);
+        float re = __fsqrt_rn(fmaxf(add_rn(add_rn(mul_rn(vx, vx),
+                                                  mul_rn(vy, vy)),
+                                           mul_rn(vz, vz)), F(1e-20)));
+        float pe = sub_rn(ph, mul_rn(kf, sub_rn(re, r0)));
+        float ci = amp * fast_cos(pe), si = amp * fast_sin(pe);
+        if (lo_ok) {
+            grid.add(i0 * n_ch + 2 * e, ci * wt0);
+            grid.add(i0 * n_ch + 2 * e + 1, si * wt0);
+        }
+        if (hi_ok) {
+            grid.add((i0 + 1) * n_ch + 2 * e, ci * wt1);
+            grid.add((i0 + 1) * n_ch + 2 * e + 1, si * wt1);
+        }
+    }
+    return amp;
+}
+
 // Traces one lane.  In the mesh and Doppler configurations it returns the
 // sum of the lane's contributions, which a parity run reads per lane
 // (`lane_val`): a ray that meets a triangle edge may, with one rounding
 // fewer under FMA contraction, take the neighbouring face or slip between
 // the two, and the per-lane sums show which lanes did.  In the coherent
 // configuration a lane's sum is of its amplitudes sqrt(max(power, 0)):
-// they bound how far a lane on another path can move a cell's I or Q.
-template <bool MESH, bool DOP, bool COH>
+// they bound how far a lane on another path can move a cell's I or Q
+// (MIMO: the same amplitudes, shared by every element's pair).
+template <bool MESH, bool DOP, bool COH, bool MIMO = false>
 __device__ float trace_lane(const Cfg& cfg, const float* sp,
                             const float* prim, const float* msh,
                             const Tx& tx, const Wave& lo,
                             const bvh::Tables& mesh, Draws<DOP>& dr,
-                            float* hist,
-                            int T, const Grid& grid, unsigned int* events) {
+                            float* hist, int T,
+                            const typename GridOf<MIMO>::type& grid,
+                            unsigned int* events) {
     const float TP = F(6.283185307179586);
     const float cvel = sp[1];
     const float* rxm = sp + 2;
@@ -783,7 +874,45 @@ __device__ float trace_lane(const Cfg& cfg, const float* sp,
     }
     float ox, oy, oz, dx, dy, dz, thr;
     int base;
-    if (cfg.omni) {
+    if constexpr (MIMO) {
+        // the phased array: draws r0, r0 + 1 (a point on its rectangle)
+        // are not used, as MIMO rays leave the array's origin over the
+        // cosine hemisphere about its normal, weighted by one element's
+        // pattern gain x area (pallas_receive.py:465-513)
+        float nzx = rxm[2], nzy = rxm[6], nzz = rxm[10];
+        float nn = rsqrtf(nzx * nzx + nzy * nzy + nzz * nzz);
+        nzx = nzx * nn;
+        nzy = nzy * nn;
+        nzz = nzz * nn;
+        float u3 = dr.get(r0 + 2), u4 = dr.get(r0 + 3);
+        float rr = sqrtf(u3);
+        float ph = TP * u4;
+        float tx_ = rr * fast_cos(ph), ty_ = rr * fast_sin(ph);
+        float tz = sqrtf(fmaxf(1.0f - u3, 0.0f));
+        float sign = sgn_ge(nzz);
+        float a = -1.0f / (sign + nzz);
+        float b = nzx * nzy * a;
+        float s1x = 1.0f + sign * nzx * nzx * a, s1y = sign * b,
+              s1z = -sign * nzx;
+        float s2x = b, s2y = sign + nzy * nzy * a, s2z = -nzy;
+        dx = s1x * tx_ + s2x * ty_ + nzx * tz;
+        dy = s1y * tx_ + s2y * ty_ + nzy * tz;
+        dz = s1z * tx_ + s2z * ty_ + nzz * tz;
+        float iwx = 1.0f / fmaxf(rx_wx, F(1e-20));
+        float iwy = 1.0f / fmaxf(rx_wy, F(1e-20));
+        float lam = cvel / fmaxf(f_rx, F(1e-6));
+        float nu_x = (dx * (rxm[0] * iwx) + dy * (rxm[4] * iwx)
+                      + dz * (rxm[8] * iwx)) / lam;
+        float nu_y = (dx * (rxm[1] * iwy) + dy * (rxm[5] * iwy)
+                      + dz * (rxm[9] * iwy)) / lam;
+        float wex = grid.tab[0], wey = grid.tab[1];
+        thr = F(16.0 * 3.141592653589793) * wex * wey
+              * sinc_f(TP * nu_x * wex) * sinc_f(TP * nu_y * wey) * sp[32];
+        ox = rxm[3] + F(1e-4) * nzx;
+        oy = rxm[7] + F(1e-4) * nzy;
+        oz = rxm[11] + F(1e-4) * nzz;
+        base = r0 + 4;
+    } else if (cfg.omni) {
         ox = rxm[3];
         oy = rxm[7];
         oz = rxm[11];
@@ -877,6 +1006,8 @@ __device__ float trace_lane(const Cfg& cfg, const float* sp,
     float plen = 0.0f;
     float lane_sum = 0.0f;
     bool wdel = false;   // the last bounce was a mirror (Doppler family)
+    // MIMO: the first vertex less the origin, and its length
+    float v0x = 0.0f, v0y = 0.0f, v0z = 0.0f, r0m = 0.0f;
     for (int depth = 0; depth < cfg.max_depth; ++depth) {
         // draws of this depth: u_dh, u5, u6, u7, then u8, u9
         const int d0 = base + 6 * depth;
@@ -942,6 +1073,16 @@ __device__ float trace_lane(const Cfg& cfg, const float* sp,
         float hx = cx + tb * dx, hy = cy + tb * dy, hz = cz + tb * dz;
         const bool is_ggx = DOP && kb == ROUGH_CONDUCTOR;
         const bool is_m = DOP && cfg.mirror && kb == CONDUCTOR;
+        if constexpr (MIMO) {
+            if (depth == 0) {
+                v0x = hx - cx;
+                v0y = hy - cy;
+                v0z = hz - cz;
+                r0m = __fsqrt_rn(fmaxf(add_rn(add_rn(mul_rn(v0x, v0x),
+                                                     mul_rn(v0y, v0y)),
+                                              mul_rn(v0z, v0z)), F(1e-20)));
+            }
+        }
 
         // ---- direct transmitter hits: at depth 0, and after a mirror
         //      bounce (NEE covers the rest) ----
@@ -967,7 +1108,11 @@ __device__ float trace_lane(const Cfg& cfg, const float* sp,
                 float val_h = thr * w_dh * wg_h;
                 float yb_h = (tr_h - t_start) / t_window * n_time_f - 0.5f;
                 float lv = val_h;   // the lane sum's share
-                if constexpr (DOP)
+                if constexpr (MIMO)
+                    lv = mimo_splat(grid, cfg, tx, lo, sp, val_h, yb_h,
+                                    fe_h * dop, tr_h, plen, te_h, k_h, 0,
+                                    v0x, v0y, v0z, r0m);
+                else if constexpr (DOP)
                     lv = conn_splat<COH>(grid, cfg, tx, lo, sp, val_h, yb_h,
                                          fe_h * dop, tr_h, plen, te_h, k_h,
                                          0);
@@ -1058,10 +1203,17 @@ __device__ float trace_lane(const Cfg& cfg, const float* sp,
                                                 + (wz_ - dz) * vbz) / cvel;
                         float dop_tx = 1.0f - (wx_ * tx.vx + wy_ * tx.vy
                                                + wz_ * tx.vz) / cvel;
-                        lv = conn_splat<COH>(grid, cfg, tx, lo, sp, val, yb,
-                                             f_emit * dop * dop_vtx * dop_tx,
-                                             t_recv, plen + dist, t_emit,
-                                             k_nee, depth + 1);
+                        if constexpr (MIMO)
+                            lv = mimo_splat(grid, cfg, tx, lo, sp, val, yb,
+                                            f_emit * dop * dop_vtx * dop_tx,
+                                            t_recv, plen + dist, t_emit,
+                                            k_nee, depth + 1, v0x, v0y, v0z,
+                                            r0m);
+                        else
+                            lv = conn_splat<COH>(
+                                grid, cfg, tx, lo, sp, val, yb,
+                                f_emit * dop * dop_vtx * dop_tx, t_recv,
+                                plen + dist, t_emit, k_nee, depth + 1);
                     } else {
                         splat(hist, T, cfg.n_time, val, yb);
                     }
@@ -1175,14 +1327,18 @@ __device__ float trace_lane(const Cfg& cfg, const float* sp,
 // `partial`, its event count.  Pulse p = blockIdx.y reads its tables,
 // uniforms, BVH and lane sums p strides in and writes its own partials, so
 // a CPI of P pulses is one launch of gridDim.x blocks a pulse; the
-// reduce then sums each pulse's rows apart.
-template <bool MESH, bool DOP, bool COH>
+// reduce then sums each pulse's rows apart.  The MIMO configuration also
+// copies the receiver row's element half-widths and the element offsets
+// (rxph, eoff) into shared memory, before its grid of doubles.
+template <bool MESH, bool DOP, bool COH, bool MIMO = false>
 __device__ __forceinline__ void trace_block(
     const float* __restrict__ params, const float* __restrict__ prim,
     const float* __restrict__ txp, const float* __restrict__ msh,
     const float* __restrict__ uniforms, const bvh::Tables& mesh,
     float* __restrict__ lane_val, double* __restrict__ partial,
-    unsigned long long* __restrict__ part_ev, const Cfg& cfg) {
+    unsigned long long* __restrict__ part_ev, const Cfg& cfg,
+    const float* __restrict__ rxph = nullptr,
+    const float* __restrict__ eoff = nullptr) {
     extern __shared__ float smem[];
     const int T = blockDim.x, tid = threadIdx.x;
     const long long pulse = blockIdx.y;
@@ -1196,13 +1352,24 @@ __device__ __forceinline__ void trace_block(
     float* hist = s_tx + TXP_COLS;      // flagship / mesh: private rows
     float* s_msh = s_tx + TXP_COLS;     // Doppler: mesh-shape rows, grid
     float* s_grid = s_msh + cfg.n_msh * MSH_COLS;
-    // grid values: one a cell, or I and Q interleaved
-    const long long n_cells = (long long)cfg.n_time * cfg.n_freq * (COH ? 2
-                                                                       : 1);
+    // grid values: one a cell, I and Q interleaved, or (MIMO) an I / Q
+    // pair an element
+    const long long n_cells = (long long)cfg.n_time * cfg.n_freq
+                              * (MIMO ? 2 * cfg.n_elem : COH ? 2 : 1);
+    // MIMO: element half-widths and offsets, then the 8-byte aligned grid
+    float* s_mimo = s_grid;
+    double* s_dgrid = reinterpret_cast<double*>(
+        smem + (((s_mimo - smem) + 2 + 3 * cfg.n_elem + 1) & ~1));
     for (int i = tid; i < cfg.n_params; i += T) s_par[i] = params[i];
     for (int i = tid; i < cfg.n_prims * PRIM_COLS; i += T) s_prim[i] = prim[i];
     for (int i = tid; i < TXP_COLS; i += T) s_tx[i] = txp[i];
-    if constexpr (DOP) {
+    if constexpr (MIMO) {
+        for (int i = tid; i < cfg.n_msh * MSH_COLS; i += T) s_msh[i] = msh[i];
+        for (int i = tid; i < 2; i += T) s_mimo[i] = rxph[i];
+        for (int i = tid; i < 3 * cfg.n_elem; i += T) s_mimo[2 + i] = eoff[i];
+        if (cfg.mode == 1)
+            for (int i = tid; i < n_cells; i += T) s_dgrid[i] = 0.0;
+    } else if constexpr (DOP) {
         for (int i = tid; i < cfg.n_msh * MSH_COLS; i += T) s_msh[i] = msh[i];
         if (cfg.mode == 1)
             for (int i = tid; i < n_cells; i += T) s_grid[i] = 0.0f;
@@ -1238,8 +1405,13 @@ __device__ __forceinline__ void trace_block(
         tx.vy = s_tx[25];
         tx.vz = s_tx[26];
     }
-    Grid grid;
-    grid.s = cfg.mode == 1 ? s_grid : nullptr;
+    typename GridOf<MIMO>::type grid;
+    if constexpr (MIMO) {
+        grid.tab = s_mimo;
+        grid.s = cfg.mode == 1 ? s_dgrid : nullptr;
+    } else {
+        grid.s = cfg.mode == 1 ? s_grid : nullptr;
+    }
     grid.g = partial + (cfg.mode == 2 ? pulse * n_cells : 0);  // its grid
 
     Draws<DOP> dr;
@@ -1265,9 +1437,10 @@ __device__ __forceinline__ void trace_block(
          lane += stride) {
         dr.lane = lane;
         dr.group = -1;
-        float v = trace_lane<MESH, DOP, COH>(cfg, s_par, s_prim, s_msh, tx,
-                                             lo, mesh_b, dr, my_hist, T,
-                                             grid, &events);
+        float v = trace_lane<MESH, DOP, COH, MIMO>(cfg, s_par, s_prim, s_msh,
+                                                   tx, lo, mesh_b, dr,
+                                                   my_hist, T, grid,
+                                                   &events);
         if constexpr (DOP) {
             if (lane_val != nullptr) lane_val[lane] = v;
         } else if constexpr (MESH) {
@@ -1287,7 +1460,7 @@ __device__ __forceinline__ void trace_block(
         if (cfg.mode == 1)
             for (long long c = tid; c < n_cells; c += T)
                 partial[(long long)blockIdx.x * n_cells + c] =
-                    (double)s_grid[c];
+                    MIMO ? s_dgrid[c] : (double)s_grid[c];
     } else {
         // block row: sum the T private rows in thread order
         for (int b = tid; b < cfg.n_time; b += T) {
@@ -1347,10 +1520,30 @@ receive_doppler_kernel(const float* __restrict__ params,
                                  lane_val, partial, part_ev, cfg);
 }
 
+// The MIMO configuration: the coherent one of a phased array on analytic
+// scenes, in 128-thread blocks of its own launch bounds.
+__global__ void __launch_bounds__(DOP_THREADS, MIMO_MIN_BLOCKS)
+receive_mimo_kernel(const float* __restrict__ params,
+                    const float* __restrict__ prim,
+                    const float* __restrict__ txp,
+                    const float* __restrict__ msh,
+                    const float* __restrict__ uniforms, bvh::Tables mesh,
+                    float* __restrict__ lane_val,
+                    double* __restrict__ partial,
+                    unsigned long long* __restrict__ part_ev, Cfg cfg,
+                    const float* __restrict__ rxph,
+                    const float* __restrict__ eoff) {
+    trace_block<false, true, true, true>(params, prim, txp, msh, uniforms,
+                                         mesh, lane_val, partial, part_ev,
+                                         cfg, rxph, eoff);
+}
+
 // The kernel of a configuration.
-template <bool MESH, bool DOP, bool COH>
+template <bool MESH, bool DOP, bool COH, bool MIMO = false>
 constexpr auto kernel_of() {
-    if constexpr (DOP)
+    if constexpr (MIMO)
+        return receive_mimo_kernel;
+    else if constexpr (DOP)
         return receive_doppler_kernel<MESH, COH>;
     else
         return receive_trace_kernel<MESH>;
@@ -1390,12 +1583,21 @@ int threads_for(int n_time) {
     return (t / 32) * 32;
 }
 
-template <bool MESH, bool DOP, bool COH>
+template <bool MESH, bool DOP, bool COH, bool MIMO = false>
 int geometry(int n_time, int n_freq, long long n_lanes, int n_prims,
-             int n_params, int n_msh, int mode, int n_pulses, int* blocks,
-             int* threads, int* smem_bytes) {
+             int n_params, int n_msh, int mode, int n_pulses, int n_elem,
+             int* blocks, int* threads, int* smem_bytes) {
     int T, smem;
-    if (DOP) {
+    if (MIMO) {
+        // tables, element half-widths and offsets, padded to 8 bytes,
+        // then the grid of doubles
+        T = DOP_THREADS;
+        int floats = n_params + n_prims * PRIM_COLS + TXP_COLS
+                     + n_msh * MSH_COLS + 2 + 3 * n_elem;
+        floats = (floats + 1) & ~1;
+        long long vals = mode == 1 ? (long long)n_time * 2 * n_elem : 0;
+        smem = (int)(4 * floats + 8 * vals);
+    } else if (DOP) {
         T = DOP_THREADS;
         long long cells = mode == 1 ? (long long)n_time * n_freq
                                           * (COH ? 2 : 1)
@@ -1408,12 +1610,12 @@ int geometry(int n_time, int n_freq, long long n_lanes, int n_prims,
         smem = 4 * (n_params + n_prims * PRIM_COLS + TXP_COLS + n_time * T);
     }
     cudaError_t err = cudaFuncSetAttribute(
-        kernel_of<MESH, DOP, COH>(),
+        kernel_of<MESH, DOP, COH, MIMO>(),
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
     int per_sm = 0;
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, kernel_of<MESH, DOP, COH>(), T, smem);
+        &per_sm, kernel_of<MESH, DOP, COH, MIMO>(), T, smem);
     if (err != cudaSuccess) return (int)err;
     if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
     int dev = 0, sms = 0;
@@ -1444,15 +1646,23 @@ extern "C" {
 // pulse's lanes run out), for the
 // flagship (mesh == 0, mode == 0), mesh (mesh == 1, mode == 0), Doppler
 // (mode 1 block-shared grid, 2 global grid; analytic or mesh) or coherent
-// configuration (coh == 1, mode 1 or 2).  Returns a cudaError_t.
+// configuration (coh == 1, mode 1 or 2), or the MIMO configuration of
+// n_elem > 0 elements (analytic, coherent, mode 1 or 2).  Returns a
+// cudaError_t.
 int rk_geometry(int n_time, int n_freq, long long n_lanes, int n_prims,
                 int n_params, int n_msh, int mesh, int mode, int coh,
-                int n_pulses, int* blocks, int* threads, int* smem_bytes) {
+                int n_pulses, int n_elem, int* blocks, int* threads,
+                int* smem_bytes) {
     if (n_pulses < 1) return (int)cudaErrorInvalidValue;
     auto g = [&](auto fn) {
         return fn(n_time, n_freq, n_lanes, n_prims, n_params, n_msh, mode,
-                  n_pulses, blocks, threads, smem_bytes);
+                  n_pulses, n_elem, blocks, threads, smem_bytes);
     };
+    if (n_elem > 0) {
+        if (mesh || !coh || mode == 0 || n_freq != 1)
+            return (int)cudaErrorInvalidValue;
+        return g(geometry<false, true, true, true>);
+    }
     if (mode == 0)
         return mesh ? g(geometry<true, false, false>)
                     : g(geometry<false, false, false>);
@@ -1476,9 +1686,13 @@ int rk_geometry(int n_time, int n_freq, long long n_lanes, int n_prims,
 // Doppler and coherent configurations).  `rule` is the receive-frequency
 // rule, `has_lo` says whether params carry an LO, `mirror` whether the
 // tables hold a smooth conductor (the Doppler family's mirror chains).
+// n_elem > 0 launches the MIMO configuration (coh 1, no mesh, n_freq 1),
+// which reads the receiver row's element half-widths rxph[0:2] and the
+// (n_elem, 3) element offsets `eoff`.
 // `partial` holds n_pulses x blocks x n_vals doubles (mode 0 / 1) or
-// n_pulses x n_vals (mode 2, zeroed here), n_vals = n_cells, or 2 n_cells
-// coherent; `out` n_pulses x n_vals floats, `out_events` n_pulses counts.
+// n_pulses x n_vals (mode 2, zeroed here), n_vals = n_cells, 2 n_cells
+// coherent or 2 n_elem n_cells MIMO; `out` n_pulses x n_vals floats,
+// `out_events` n_pulses counts.
 int rk_launch(const float* params, const float* prim, const float* txp,
               const float* msh, const float* uniforms, double* partial,
               unsigned long long* part_ev, float* out, long long* out_events,
@@ -1491,7 +1705,8 @@ int rk_launch(const float* params, const float* prim, const float* txp,
               float f_den, int n_pulses, unsigned long long seed_step,
               long long u_stride, long long bbox_stride,
               long long links_stride, long long leaves_stride, int blocks,
-              int threads, int smem_bytes, void* stream) {
+              int threads, int smem_bytes, const float* rxph,
+              const float* eoff, int n_elem, void* stream) {
     Cfg cfg;
     cfg.n_lanes = n_lanes;
     cfg.seed = seed;
@@ -1520,10 +1735,16 @@ int rk_launch(const float* params, const float* prim, const float* txp,
     cfg.bbox_stride = bbox_stride;
     cfg.links_stride = links_stride;
     cfg.leaves_stride = leaves_stride;
+    cfg.n_elem = n_elem;
     if (mode == 0 && (coh || rule != 0 || mirror))
         return (int)cudaErrorInvalidValue;
     if (n_pulses < 1 || n_pulses > 65535) return (int)cudaErrorInvalidValue;
-    long long n_vals = (long long)n_time * cfg.n_freq * (coh ? 2 : 1);
+    if (n_elem > 0 && (mode == 0 || !coh || bbox != nullptr || n_freq != 1
+                       || n_pulses != 1 || rxph == nullptr
+                       || eoff == nullptr))
+        return (int)cudaErrorInvalidValue;
+    long long n_vals = (long long)n_time * cfg.n_freq
+                       * (n_elem > 0 ? 2 * n_elem : coh ? 2 : 1);
     bvh::Tables mesh{bbox, links, leaves, stride};
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (mode == 2) {
@@ -1537,7 +1758,11 @@ int rk_launch(const float* params, const float* prim, const float* txp,
             cfg);
     };
     const bool m = bbox != nullptr;
-    if (mode == 0)
+    if (n_elem > 0)
+        receive_mimo_kernel<<<grid, threads, smem_bytes, s>>>(
+            params, prim, txp, msh, uniforms, mesh, lane_val, partial,
+            part_ev, cfg, rxph, eoff);
+    else if (mode == 0)
         m ? launch(receive_trace_kernel<true>, lane_val)
           : launch(receive_trace_kernel<false>, nullptr);
     else if (coh)

@@ -8,8 +8,10 @@ It runs as plain PyTorch ops over a wavefront of lanes, on the CPU or on a
 card; its triangle closest-hit and shadow tests are the hand-written
 kernels (`geometry/intersect.py`).  Coherent I/Q phase comes from the
 double-single path length (`core/math.py`), exact to a small fraction of a
-cycle over long paths.  Polarized transport, ambient media and MIMO
-element channels are ROADMAP A10 / A8 and raise.
+cycle over long paths.  MIMO receive splats every connection into one
+I / Q pair an element, each with the exact spherical phase of its
+position.  Polarized transport and ambient media are ROADMAP A10 and
+raise.
 """
 
 from __future__ import annotations
@@ -27,15 +29,23 @@ from ..textures import texture_eval
 
 
 def _adc_splat(adc, cfg: ADCConfig, t_off, f_out, value, active, phase=None,
-               coherent: bool = False):
+               coherent: bool = False, elem_dphase=None):
     """Splat one batch of connections into adc (n_time, n_freq, C + 2) at
     receive-time offset t_off [s] and frequency f_out [Hz]; in coherent
-    mode two channels (I, Q) take sqrt(power) e^{i phase}."""
+    mode two channels (I, Q) take sqrt(power) e^{i phase}.  With
+    `elem_dphase` (n, E), the per-element phase offsets of MIMO receive,
+    2E channels [I_0, Q_0, I_1, Q_1, ...] take sqrt(power)
+    e^{i (phase + elem_dphase[:, e])}."""
     x = (f_out - cfg.freq_lo) / max(cfg.freq_hi - cfg.freq_lo, 1e-30) \
         * cfg.n_freq
     y = t_off / cfg.sampling_time * cfg.n_time
     pos = torch.stack([x, y], -1)
-    if coherent:
+    if elem_dphase is not None:
+        amp = torch.sqrt(torch.clamp(value, min=0.0))[:, None]
+        ph_e = phase[:, None] + elem_dphase
+        vals = torch.stack([amp * torch.cos(ph_e), amp * torch.sin(ph_e)],
+                           -1).reshape(value.shape[0], -1)
+    elif coherent:
         amp = torch.sqrt(torch.clamp(value, min=0.0))
         vals = torch.stack([amp * torch.cos(phase), amp * torch.sin(phase)],
                            -1)
@@ -173,13 +183,21 @@ def radar_receive_trace(scene, stream, o, d, t_rx, f_rx, ray_weight, adc,
     connection an emission time is drawn uniformly within the waveform's
     pulse support and the receive time follows as t_emit + delay (+ whole
     PRIs into the window); needs window <= PRI; the caller passes t_rx = 0.
+
+    `elem_offsets` (E, 3): world-frame offsets of the receive elements from
+    the ray origin (MIMO receive; needs `coherent`).  The adc then holds
+    2E channels: element e takes each contribution with the extra phase
+    of the exact spherical wavefront at its position.  Every connection of
+    a lane shares the first path vertex x1, so an element's path differs
+    only in its last segment, by |x1 - (o + r_e)| - |x1 - o| (the plane-
+    wave steering phase -k d.r_e in the far field).
     """
     if polarized:
         raise NotImplementedError('polarized (Stokes) receive (ROADMAP A10)')
     if scene.medium is not None:
         raise NotImplementedError('ambient media (ROADMAP A10)')
-    if elem_offsets is not None:
-        raise NotImplementedError('MIMO element channels (ROADMAP A8 / B6)')
+    if elem_offsets is not None and not coherent:
+        raise ValueError('MIMO element channels need coherent=True')
     n = int(o.shape[0])
     dev = o.device
     c = scene.band.c
@@ -197,6 +215,22 @@ def radar_receive_trace(scene, stream, o, d, t_rx, f_rx, ray_weight, adc,
     si = scene.ray_intersect(o, d)
     active = active & si.valid
     emission_weight = torch.ones(n, dtype=torch.float32, device=dev)
+
+    elem_dd = None
+    if elem_offsets is not None:
+        # each element's last-segment path difference, anchored at the
+        # lane's first vertex (shared by every connection of the lane)
+        eo = torch.as_tensor(elem_offsets, dtype=torch.float32, device=dev)
+        x1 = torch.where(si.valid[:, None], si.p, o + d)
+        r0 = torch.linalg.norm(x1 - o, dim=-1)
+        re = torch.linalg.norm(x1[:, None, :] - (o[:, None, :] + eo[None]),
+                               dim=-1)
+        elem_dd = re - r0[:, None]                        # (n, E) [m]
+
+    def elem_dphase(f_recv):
+        if elem_dd is None:
+            return None
+        return -m.TwoPi * (f_recv / c)[:, None] * elem_dd
 
     def lo_freq(t):
         return torch.zeros_like(t) if lo_wf is None else lo_wf.inst_freq(t)
@@ -257,7 +291,8 @@ def radar_receive_trace(scene, stream, o, d, t_rx, f_rx, ray_weight, adc,
             if coherent else None
         _adc_splat(adc, cfg, t_rx_hit - cfg.sampling_start,
                    bin_freq(f_recv_hit, t_rx_hit), val_hit,
-                   hit_tx & (val_hit != 0.0), ph_hit, coherent)
+                   hit_tx & (val_hit != 0.0), ph_hit, coherent,
+                   elem_dphase(f_recv_hit))
 
         # NEE toward the transmitters
         bsdf_idx = scene.bsdf_of(si.shape_idx)
@@ -306,7 +341,8 @@ def radar_receive_trace(scene, stream, o, d, t_rx, f_rx, ray_weight, adc,
             if coherent else None
         _adc_splat(adc, cfg, t_rx_nee - cfg.sampling_start,
                    bin_freq(f_recv_nee, t_rx_nee), val_nee,
-                   nee_ok & (val_nee != 0.0), ph_nee, coherent)
+                   nee_ok & (val_nee != 0.0), ph_nee, coherent,
+                   elem_dphase(f_recv_nee))
 
         if depth == max_depth - 1:
             break

@@ -23,7 +23,12 @@ no NEE from a mirror, a direct transmitter hit at the vertex after
 one).  The coherent one is the Doppler configuration with two
 channels: every connection splats sqrt(power) e^{i phase} as (I, Q),
 with the JAX kernel's own float32 echo phase (`_frac_cycles`, `_h_cyc`,
-`echo_phase`).  Per lane the kernel generates the receive ray, finds the
+`echo_phase`).  The MIMO one is the coherent configuration of a phased
+receive array, on analytic scenes: the rays leave the array's origin,
+weighted by one element's pattern, and every connection splats one I / Q
+pair an element, 2E channels, each element's phase moved by the exact
+spherical path difference of its position (the JAX kernel's `mimo_e`,
+`eoff_ref`).  Per lane the kernel generates the receive ray, finds the
 closest hit, counts direct transmitter hits at depth 0, connects to the
 transmitter (NEE) with the waveform and aperture Wigner weights and a
 shadow test, tent-splats into the ADC grid and makes the BSDF bounce.
@@ -38,7 +43,9 @@ kernel's positional draw order:
    when `n_freq > 1`, over the beat window for mixer whatever n_freq;
    none for mix_resample and raw_resample with an LO, whose receive
    frequency follows a waveform;
-3. two (omni) or four (Wigner) receive-ray draws;
+3. two (omni) or four (Wigner, phased) receive-ray draws (a phased
+   array's first two, a point on its rectangle, are drawn and not used:
+   MIMO rays leave the array's origin);
 4. per depth: the direct-hit draw, then two transmitter-point draws and
    the emission-time draw (a placeholder under fixed sampling);
 5. per depth but the last: two bounce draws (the diffuse lobe and the
@@ -73,7 +80,8 @@ from ..core.rng import MASK32, philox4x32_10
 from ..geometry import bvh as bvh_mod
 from ..geometry.bvh_kernel import PackedBVH, walk_ref, leaf_column, pack
 from ..geometry.shapes import RECTANGLE, TRIANGLE
-from ..radar.endpoints import ADCConfig, OMNI, WIGNER
+from ..radar.endpoints import (ADCConfig, OMNI, PHASED, WIGNER, _elem_locs,
+                               _phased_pairs, rx_elem_offsets)
 from ..radar.waveform import CW, LINFMCW
 
 MAX_PRIMS = 64          # prim rows held in shared memory
@@ -97,6 +105,13 @@ MAX_ADC_CELLS = 1 << 20
 #   fraction bits (the JAX package's 1-D cap is the same 65,536)
 MAX_N_TIME = 65536
 MAX_N_FREQ = 65536
+# - MIMO configuration: 2 <= E <= 8 elements (the JAX package's caps), a
+#   fast-time grid of n_time x 2E float64 values, block-shared up to
+#   MAX_SMEM_MIMO_VALS (64 KB, the other configurations' budget), past it
+#   global, up to MAX_MIMO_N_TIME bins (1 MB at E = 8)
+MAX_MIMO_ELEMS = 8
+MAX_MIMO_N_TIME = 8192
+MAX_SMEM_MIMO_VALS = 8192
 MAX_MEDIA_LAYERS = 32   # params layout: 45 + MAX_MEDIA_LAYERS slots
 MAX_MESH_SHAPES = 64    # distinct mesh-shape rows (the JAX package's cap)
 MESH_STRIDE = 96        # leaf rows: 80 + reflectance + shape-row payloads
@@ -148,7 +163,9 @@ class PackedScene:
     prim: np.ndarray     # (n_prims, 34) f32 prim rows
     txp: np.ndarray      # (n_tx, 32) f32 transmitter rows
     php: np.ndarray      # (n_tx, 2 + 6K) phased pair rows (zeros here)
-    rxph: np.ndarray     # (1, 8) phased receiver row (zeros here)
+    rxph: np.ndarray     # (1, 2 + 6K) phased receiver row: the element
+    #                      half-widths, then K = E^2 pairs (zeros (1, 8)
+    #                      for any other receiver)
     msh: np.ndarray      # (n_mesh_shapes, 8) f32 mesh-shape rows
     mesh: PackedBVH | None = None   # BVH over the mesh triangles (CPU)
     rx_rule: int = RX_RAW           # the receiver's frequency rule
@@ -356,7 +373,27 @@ def pack_scene(scene_data, rx, shape_idx: int) -> PackedScene:
     else:
         rxm = np.asarray(rx.to_world)[:3, :].astype(np.float32).reshape(-1)
         rx_wx = rx_wy = 0.0
+    # the phased receiver's row: element half-widths, then per virtual
+    # pair (mid_s, mid_t, base_s, base_t, psi, valid), and the array's
+    # in-plane half-extents
     rxph = np.zeros((1, 8), np.float32)
+    rx_hx = rx_hy = 0.0
+    if rx.kind == PHASED and rx.n_elems > 1:
+        mids, bases, psis = _phased_pairs(
+            rx, 0.5 * (sd.band.wavelength_min + sd.band.wavelength_max))
+        kr = mids.shape[0]
+        rxph = np.zeros((1, 2 + 6 * kr), np.float32)
+        rxph[0, 0] = float(np.asarray(rx.elem_wid)[0])
+        rxph[0, 1] = float(np.asarray(rx.elem_wid)[1])
+        for k in range(kr):
+            b = 2 + 6 * k
+            rxph[0, b:b + 6] = (mids[k, 0], mids[k, 1], bases[k, 0],
+                                bases[k, 1], psis[k], 1.0)
+        locs = _elem_locs(rx)
+        rx_hx = float(np.abs(locs[:, 0]).max()) \
+            + float(np.asarray(rx.elem_wid)[0])
+        rx_hy = float(np.abs(locs[:, 1]).max()) \
+            + float(np.asarray(rx.elem_wid)[1])
 
     params = np.zeros(45 + MAX_MEDIA_LAYERS, np.float32)
     params[0] = 0.0   # seed slot (set per call)
@@ -369,6 +406,7 @@ def pack_scene(scene_data, rx, shape_idx: int) -> PackedScene:
     params[17] = np.float32(fcc)
     params[18] = np.float32(fcc - np.float64(np.float32(fcc)))
     params[23:26] = np.asarray(rx.velocity, np.float32).reshape(3)
+    params[30], params[31] = rx_hx, rx_hy
     params[32] = float(getattr(rx, 'gain', 1.0))
     lo_wf = rx.lo_waveform
     if lo_wf is not None:
@@ -408,9 +446,11 @@ def pack_scene(scene_data, rx, shape_idx: int) -> PackedScene:
 # ---------------------------------------------------------------------------
 
 
-def supported(scene_data, rx, reason: list | None = None) -> bool:
-    """Can the port's kernel run this scene?  Appends the first rejection
-    reason, with the ROADMAP item that lifts it, to `reason`."""
+def supported(scene_data, rx, reason: list | None = None,
+              mimo: bool = False) -> bool:
+    """Can the port's kernel run this scene (in its MIMO configuration
+    with `mimo`)?  Appends the first rejection reason, with the ROADMAP
+    item that lifts it, to `reason`."""
 
     def no(why: str) -> bool:
         if reason is not None:
@@ -458,7 +498,26 @@ def supported(scene_data, rx, reason: list | None = None) -> bool:
                   'rough conductor, on meshes as on rectangles (ROADMAP B5)')
     if bool((sd.bsdfs.texture_idx >= 0).any()):
         return no('textured BSDFs (ROADMAP B7)')
-    if rx.kind not in (WIGNER, OMNI):
+    if mimo:
+        if rx.kind != PHASED or rx.n_elems < 2:
+            return no('MIMO receive needs a phased receiver with >= 2 '
+                      'elements')
+        if rx.n_elems > MAX_MIMO_ELEMS:
+            return no(f'{rx.n_elems} MIMO elements > {MAX_MIMO_ELEMS} '
+                      '(the JAX package\'s 2E-channel cap)')
+        if rx.adc.n_freq != 1:
+            return no('MIMO receive in the kernel is fast-time only '
+                      '(n_freq == 1), as in the JAX package')
+        if rx.adc.n_time > MAX_MIMO_N_TIME:
+            return no(f'MIMO fast-time extent {rx.adc.n_time} > '
+                      f'{MAX_MIMO_N_TIME} (the JAX package\'s cap)')
+        if sd.tris is not None or demote:
+            return no('MIMO receive of a mesh scene (ROADMAP B6): the '
+                      'wavefront runs it')
+    elif rx.kind == PHASED:
+        return no('phased receiver: its analog cross-WDF receive is '
+                  'ROADMAP B6; MIMO receive (receive_mimo) runs it')
+    elif rx.kind not in (WIGNER, OMNI):
         return no(f'receiver kind {rx.kind} (ROADMAP B6)')
     rt, has_lo = rx.receive_type, rx.lo_waveform is not None
     if rt not in ('raw', 'raw_resample', 'mix_resample') \
@@ -482,16 +541,20 @@ def supported(scene_data, rx, reason: list | None = None) -> bool:
     return True
 
 
-def phase_slack(band, adc: ADCConfig) -> float:
+def phase_slack(band, adc: ADCConfig, mimo: bool = False) -> float:
     """Phase error [rad] one coherent connection may carry between two
     float32 evaluations of the same path (the kernel and its plain version,
     or the JAX package): 4 ulps of the longest path whose echo lands in
     the ADC window, over the shortest wavelength.  The phase is 2 pi L /
     lambda, and FMA contraction or another library's rsqrt moves the path
-    length L by ulps."""
+    length L by ulps.  A MIMO channel adds its element's term, the
+    difference of two lengths from the first vertex, each shorter than
+    that path and each rounded from a vertex that moved by ulps: as much
+    again."""
     l_max = band.c * (adc.sampling_start + adc.sampling_time)
-    return 2 * np.pi * 4 * float(np.spacing(np.float32(l_max))) \
+    one = 2 * np.pi * 4 * float(np.spacing(np.float32(l_max))) \
         / band.wavelength_min
+    return 2 * one if mimo else one
 
 
 def coord_slack(adc: ADCConfig) -> float:
@@ -632,7 +695,8 @@ STAT_KEYS = ('lanes', 'strata', 'freq_draw', 'lo_freq', 'trace', 'hit',
              'direct', 'nee_geom', 'nee', 'ggx_nee', 'occ_tests', 'nee_splat',
              'splat_2d', 'lo_bin', 'phase', 'phase_lo', 'bounce',
              'ggx_bounce', 'mirror_bounce', 'dop_direct', 'dop_nee',
-             'dop_bounce', 'walks', 'node_tests', 'leaf_tests', 'mesh_hits')
+             'dop_bounce', 'walks', 'node_tests', 'leaf_tests', 'mesh_hits',
+             'phased_ray', 'mimo_vertex', 'mimo_elem')
 
 
 def _frac_cycles(f, t):
@@ -668,7 +732,8 @@ def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
                            lane0: int = 0, stats: dict | None = None,
                            lane_out=None, receive_type: str = 'raw',
                            has_lo: bool = False, coherent: bool = False,
-                           amp_out=None, mirror: bool | None = None):
+                           amp_out=None, mirror: bool | None = None,
+                           rxph=None, eoff=None):
     """Plain version of the kernel, in every configuration.  Returns (acc
     (n_time, n_freq) float32, n_events 0-d int64): the tent-splatted power
     and the count of nonzero contributions; with `coherent` acc is
@@ -705,6 +770,17 @@ def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
     whatever the tap's weight (a tap moved by `coord_slack` of a bin
     changes the cell by up to that share of it).
 
+    `eoff` (E, 3), the world offsets of a phased array's elements from its
+    origin, runs the MIMO configuration (with `doppler`, rx_kind
+    'phased', `rxph` the packed receiver row, n_freq == 1): the rays
+    leave the array's origin over the cosine hemisphere about its normal,
+    weighted by one element's pattern (half-widths rxph[0, 0:2]); the
+    first vertex x1 of the lane anchors each element's path difference
+    dd_e = |x1 - o - r_e| - |x1 - o|, and every connection splats
+    sqrt(max(power, 0)) (cos, sin) of its echo phase less 2 pi (f / c)
+    dd_e into channels (2e, 2e + 1) of a (n_time, 1, 2E) grid; `amp_out`
+    takes the amplitude sums as in the coherent configuration.
+
     `stats`, if given, accumulates how many lanes reach each stage of the
     kernel (the work a run's data needs), each summed over depths: keys
     'lanes', 'strata' (lanes with stratified directions), 'freq_draw',
@@ -717,8 +793,18 @@ def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
     'ggx_bounce', 'dop_direct', 'dop_nee', 'dop_bounce' (Doppler factors
     of a moving scene); with a mesh also 'walks', 'node_tests',
     'leaf_tests' (BVH walks, slab tests, leaves entered) and 'mesh_hits'
-    (closest hits on a triangle)."""
+    (closest hits on a triangle); in the MIMO configuration 'phased_ray'
+    (rays from the array), 'mimo_vertex' (lanes whose first vertex
+    anchors the element terms) and 'mimo_elem' (element channels of the
+    contributions splatted)."""
     rule = rx_rule(receive_type, has_lo)
+    mimo = eoff is not None
+    if mimo != (rx_kind == 'phased') or mimo and (coherent or not doppler):
+        raise ValueError("MIMO (eoff) is its own accumulation mode of the "
+                         "Doppler configuration: doppler=True, rx_kind "
+                         "'phased', coherent=False; a phased receiver "
+                         "runs only there")
+    coherent = coherent or mimo
     if (rule != RX_RAW or coherent) and not doppler:
         raise ValueError('LO receive types and coherent I / Q run in the '
                          'Doppler configuration (doppler=True)')
@@ -884,7 +970,46 @@ def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
         f_rx = f_lo + draw() * f_span
     else:
         f_rx = c(0.5 * (adc.freq_lo + adc.freq_hi))
-    if rx_kind == 'omni':
+    if rx_kind == 'phased':
+        # a point on the array's rectangle is drawn and not used: MIMO
+        # rays leave the array's origin, over the cosine hemisphere about
+        # its normal, weighted by one element's pattern
+        counts['phased_ray'] += n_lanes
+        draw(), draw()
+        iwxr = 1.0 / torch.clamp(rx_wx, min=1e-20)
+        iwyr = 1.0 / torch.clamp(rx_wy, min=1e-20)
+        snx, sny, snz = rxm[0] * iwxr, rxm[4] * iwxr, rxm[8] * iwxr
+        tnx_, tny_, tnz_ = rxm[1] * iwyr, rxm[5] * iwyr, rxm[9] * iwyr
+        ox = rxm[3].expand(n_lanes)
+        oy = rxm[7].expand(n_lanes)
+        oz = rxm[11].expand(n_lanes)
+        nzx, nzy, nzz = rxm[2], rxm[6], rxm[10]
+        nn = torch.rsqrt(nzx * nzx + nzy * nzy + nzz * nzz)
+        nzx, nzy, nzz = nzx * nn, nzy * nn, nzz * nn
+        u3, u4 = draw(), draw()
+        rr = torch.sqrt(u3)
+        ph = TWO_PI * u4
+        tx_, ty_ = rr * _fast_cos(ph), rr * _fast_sin(ph)
+        tz_ = torch.sqrt(torch.clamp(1.0 - u3, min=0.0))
+        sign = _sign(nzz)
+        a = -1.0 / (sign + nzz)
+        b = nzx * nzy * a
+        s1x, s1y, s1z = 1.0 + sign * nzx * nzx * a, sign * b, -sign * nzx
+        s2x, s2y, s2z = b, sign + nzy * nzy * a, -nzy
+        dx = s1x * tx_ + s2x * ty_ + nzx * tz_
+        dy = s1y * tx_ + s2y * ty_ + nzy * tz_
+        dz = s1z * tx_ + s2z * ty_ + nzz * tz_
+        lam_rx = cvel / torch.clamp(f_rx, min=1e-6)
+        wex, wey = rxph[0, 0], rxph[0, 1]
+        nu_ex = (dx * snx + dy * sny + dz * snz) / lam_rx
+        nu_ey = (dx * tnx_ + dy * tny_ + dz * tnz_) / lam_rx
+        throughput = c(np.pi * 16.0) * wex * wey \
+            * _sinc(TWO_PI * nu_ex * wex) * _sinc(TWO_PI * nu_ey * wey) \
+            * sp[32]
+        ox = ox + 1e-4 * nzx
+        oy = oy + 1e-4 * nzy
+        oz = oz + 1e-4 * nzz
+    elif rx_kind == 'omni':
         ox = rxm[3].expand(n_lanes)
         oy = rxm[7].expand(n_lanes)
         oz = rxm[11].expand(n_lanes)
@@ -969,7 +1094,9 @@ def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
 
     # float64 sums: the plain version is the accurate side of the
     # comparison (each contribution is still computed in float32)
-    n_ch = 2 if coherent else 1
+    n_elem = int(eoff.shape[0]) if mimo else 0
+    n_ch = 2 * n_elem if mimo else (2 if coherent else 1)
+    elem_dd = None     # (E, n_lanes) element path differences (MIMO)
     acc = torch.zeros(n_ch, n_time * n_freq, dtype=torch.float64,
                       device=dev)
     n_events = torch.zeros((), dtype=torch.int64, device=dev)
@@ -989,8 +1116,17 @@ def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
             if rule == RX_MIX or has_lo:
                 count('phase_lo', ok & nz)
             amp = torch.sqrt(torch.clamp(val, min=0.0))
-            chans = [torch.where(ok, amp * _fast_cos(ph), 0.0),
-                     torch.where(ok, amp * _fast_sin(ph), 0.0)]
+            if mimo:
+                count('mimo_elem', (ok & nz).unsqueeze(0).expand(n_elem, -1))
+                kf = TWO_PI * (f_recv / cvel)
+                chans = []
+                for dd in elem_dd:
+                    pe = ph - kf * dd
+                    chans += [torch.where(ok, amp * _fast_cos(pe), 0.0),
+                              torch.where(ok, amp * _fast_sin(pe), 0.0)]
+            else:
+                chans = [torch.where(ok, amp * _fast_cos(ph), 0.0),
+                         torch.where(ok, amp * _fast_sin(ph), 0.0)]
             lane_sum = lane_sum + torch.where(ok, amp, 0.0)
             if amp_out is not None:
                 chans.append(torch.where(ok, amp, 0.0))
@@ -1130,6 +1266,20 @@ def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
         hx = cx + tb * ddx
         hy = cy + tb * ddy
         hz = cz + tb * ddz
+        if mimo and depth == 0:
+            # each element's last-segment path difference from the first
+            # vertex (misses: the point one unit along the ray)
+            count('mimo_vertex', active)
+            v0x, v0y, v0z = hx - ox, hy - oy, hz - oz
+            r0 = torch.sqrt(torch.clamp(v0x * v0x + v0y * v0y + v0z * v0z,
+                                        min=1e-20))
+            elem_dd = []
+            for e in range(n_elem):
+                vex = v0x - eoff[e, 0]
+                vey = v0y - eoff[e, 1]
+                vez = v0z - eoff[e, 2]
+                elem_dd.append(torch.sqrt(torch.clamp(
+                    vex * vex + vey * vey + vez * vez, min=1e-20)) - r0)
         is_ggx = kb == float(ROUGH_CONDUCTOR)
         is_m = (kb == float(CONDUCTOR)) if mirror else torch.zeros_like(hit)
 
@@ -1313,7 +1463,7 @@ def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
     if lane_out is not None:
         lane_out.copy_(lane_sum)
     if coherent:
-        return acc.t().float().reshape(n_time, n_freq, 2), n_events
+        return acc.t().float().reshape(n_time, n_freq, n_ch), n_events
     return acc[0].float().reshape(n_time, n_freq), n_events
 
 
@@ -1327,10 +1477,11 @@ def _bind(lib):
                               ctypes.c_longlong, ctypes.c_ulonglong,
                               ctypes.c_float)
     ip = ctypes.POINTER(ctypes.c_int)
-    lib.rk_geometry.argtypes = [i32] * 2 + [i64] + [i32] * 7 + [ip] * 3
+    lib.rk_geometry.argtypes = [i32] * 2 + [i64] + [i32] * 8 + [ip] * 3
     lib.rk_geometry.restype = i32
     lib.rk_launch.argtypes = [vp] * 12 + [i32, i32, vp, i64, u64] \
-        + [i32] * 13 + [f32] * 6 + [i32, u64] + [i64] * 4 + [i32] * 3 + [vp]
+        + [i32] * 13 + [f32] * 6 + [i32, u64] + [i64] * 4 + [i32] * 3 \
+        + [vp, vp, i32, vp]
     lib.rk_launch.restype = i32
 
 
@@ -1341,11 +1492,15 @@ def build_library() -> _nvcc.BuildInfo:
     return _nvcc.build('receive_megakernel')
 
 
-def grid_mode(n_cells: int, doppler: bool, coherent: bool = False) -> int:
+def grid_mode(n_cells: int, doppler: bool, coherent: bool = False,
+              n_elem: int = 0) -> int:
     """How the kernel accumulates an ADC grid of `n_cells`: 0 private
     per-thread rows (flagship and mesh configurations), 1 a block-shared
     grid of shared-memory atomics, 2 a global float64 grid of atomics
-    (Doppler and coherent configurations, by size)."""
+    (Doppler, coherent and, with `n_elem` elements, MIMO configurations,
+    by size)."""
+    if n_elem:
+        return 1 if n_cells * 2 * n_elem <= MAX_SMEM_MIMO_VALS else 2
     if coherent:
         return 1 if n_cells <= MAX_SMEM_COH_CELLS else 2
     if not doppler:
@@ -1357,20 +1512,21 @@ def launch_geometry(n_time: int, n_lanes: int, n_prims: int,
                     n_params: int = 45 + MAX_MEDIA_LAYERS,
                     mesh: bool = False, n_freq: int = 1, n_msh: int = 0,
                     doppler: bool = False, coherent: bool = False,
-                    n_pulses: int = 1):
+                    n_pulses: int = 1, n_elem: int = 0):
     """(blocks a pulse, threads per block, dynamic shared bytes) of the
-    trace kernel (its mesh, Doppler and / or coherent configuration) on the
-    current card: a persistent grid of as many blocks as fit on every SM at
-    once, fewer when a pulse's lanes run out.  The `n_pulses` pulses of a
-    CPI share that grid in the Doppler family; in the flagship and mesh
-    configurations each pulse gets it (they run in waves, each summing in
-    the order of one call)."""
+    trace kernel (its mesh, Doppler and / or coherent configuration, or
+    the MIMO one of `n_elem` elements) on the current card: a persistent
+    grid of as many blocks as fit on every SM at once, fewer when a
+    pulse's lanes run out.  The `n_pulses` pulses of a CPI share that grid
+    in the Doppler family; in the flagship and mesh configurations each
+    pulse gets it (they run in waves, each summing in the order of one
+    call)."""
     lib = LIBRARY.get()
-    mode = grid_mode(n_time * n_freq, doppler, coherent)
+    mode = grid_mode(n_time * n_freq, doppler, coherent, n_elem)
     blocks, threads, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
     LIBRARY.check(lib.rk_geometry(n_time, n_freq, n_lanes, n_prims, n_params,
                                   n_msh, int(mesh), mode, int(coherent),
-                                  n_pulses, ctypes.byref(blocks),
+                                  n_pulses, n_elem, ctypes.byref(blocks),
                                   ctypes.byref(threads), ctypes.byref(smem)),
                   'receive_megakernel geometry')
     return blocks.value, threads.value, smem.value
@@ -1404,14 +1560,35 @@ def _check_adc(adc: ADCConfig, doppler: bool):
 
 def _check_call(params, prim, txp, uniforms, mesh, msh, lane_out, lead, *,
                 adc, max_depth, time_sampling, rx_kind, n_lanes, doppler,
-                patch_p, receive_type, has_lo, coherent):
+                patch_p, receive_type, has_lo, coherent, rxph=None,
+                eoff=None):
     """Validate a call's arguments; `lead` is () for one pulse, (P,) for a
     CPI of P pulses (every table, the uniforms and the lane sums then have
-    that leading axis, the BVH tables (P, n) rows)."""
+    that leading axis, the BVH tables (P, n) rows).  `eoff` (with `rxph`)
+    asks for the MIMO configuration (one pulse)."""
     dev = params.device
     if time_sampling not in ('fixed', 'gate'):
         raise ValueError(f'time_sampling {time_sampling!r}')
-    if rx_kind not in ('wigner', 'omni'):
+    if eoff is not None:
+        n_e = int(eoff.shape[0]) if eoff.dim() == 2 else 0
+        if (lead or not doppler or coherent or mesh is not None
+                or rx_kind != 'phased' or adc.n_freq != 1
+                or adc.n_time > MAX_MIMO_N_TIME
+                or not 2 <= n_e <= MAX_MIMO_ELEMS):
+            raise ValueError(
+                "MIMO (eoff): one pulse, doppler=True, coherent=False, no "
+                f"mesh, rx_kind 'phased', n_freq == 1, n_time <= "
+                f'{MAX_MIMO_N_TIME}, 2..{MAX_MIMO_ELEMS} elements')
+        for name, t, ok in (
+                ('eoff (E, 3)', eoff, tuple(eoff.shape) == (n_e, 3)),
+                ('rxph (1, 2 + 6K)', rxph, rxph is not None
+                 and rxph.dim() == 2 and rxph.shape[0] == 1
+                 and rxph.shape[1] >= 2)):
+            if not ok or t.dtype != torch.float32 or t.device != dev \
+                    or not t.is_contiguous():
+                raise ValueError(f'{name}: expected contiguous float32 on '
+                                 f'{dev}')
+    elif rx_kind not in ('wigner', 'omni'):
         raise ValueError(f'rx_kind {rx_kind!r}')
     rule = rx_rule(receive_type, has_lo)
     if (rule != RX_RAW or coherent) and not doppler:
@@ -1488,21 +1665,25 @@ def _mirror_flag(mirror, prim, msh, doppler) -> bool:
 
 def _launch(params, prim, txp, msh, uniforms, mesh, lane_out, *, n_pulses,
             adc, max_depth, time_sampling, rx_kind, n_lanes, seed, seed_step,
-            doppler, patch_p, rule, has_lo, coherent, mirror):
+            doppler, patch_p, rule, has_lo, coherent, mirror, rxph=None,
+            eoff=None):
     """The CUDA kernel and its reduce over `n_pulses` pulses of stacked
     tables on a card: (acc (n_pulses, n_cells x n_ch) float32, n_events
-    (n_pulses,) int64)."""
+    (n_pulses,) int64).  `eoff` launches the MIMO configuration."""
     dev = params.device
     lib = LIBRARY.get()
-    n_ch = 2 if coherent else 1
+    n_elem = 0 if eoff is None else int(eoff.shape[0])
+    coherent = coherent or n_elem > 0
+    n_ch = 2 * n_elem if n_elem else (2 if coherent else 1)
     n_cells = adc.n_time * adc.n_freq
-    mode = grid_mode(n_cells, doppler, coherent)
+    mode = grid_mode(n_cells, doppler, coherent, n_elem)
     n_prims = int(prim.shape[-2])
     n_msh = 0 if msh is None else int(msh.shape[-2])
     with torch.cuda.device(dev):
         blocks, threads, smem = launch_geometry(
             adc.n_time, n_lanes, n_prims, int(params.shape[-1]),
-            mesh is not None, adc.n_freq, n_msh, doppler, coherent, n_pulses)
+            mesh is not None, adc.n_freq, n_msh, doppler, coherent, n_pulses,
+            n_elem)
         # per-block partial grids of each pulse (I and Q interleaved per
         # cell when coherent); one global grid of atomics a pulse in mode 2
         partial = torch.empty(
@@ -1534,7 +1715,9 @@ def _launch(params, prim, txp, msh, uniforms, mesh, lane_out, *, n_pulses,
             adc.sampling_time, 0.5 * (f_lo + f_hi), f_lo, f_hi - f_lo,
             max(f_hi - f_lo, 1e-30),
             n_pulses, seed_step & MASK64, n_draws(max_depth) * n_lanes,
-            *m_strides, blocks, threads, smem, stream)
+            *m_strides, blocks, threads, smem,
+            None if rxph is None else rxph.data_ptr(),
+            None if eoff is None else eoff.data_ptr(), n_elem, stream)
         LIBRARY.check(err, 'receive_megakernel launch')
     return acc, n_events
 
@@ -1546,10 +1729,10 @@ def receive_megakernel(params, prim, txp, *, adc: ADCConfig, max_depth: int,
                        doppler: bool = False, patch_p: int = 0,
                        lane_out=None, receive_type: str = 'raw',
                        has_lo: bool = False, coherent: bool = False,
-                       mirror: bool | None = None):
+                       mirror: bool | None = None, rxph=None, eoff=None):
     """Trace `n_lanes` receive samples.  Returns (acc (n_time, n_freq)
-    float32, or (n_time, n_freq, 2) I / Q with `coherent`, n_events 0-d
-    int64) on the tables' device.
+    float32, (n_time, n_freq, 2) I / Q with `coherent`, or (n_time, 1, 2E)
+    with `eoff`, n_events 0-d int64) on the tables' device.
 
     `uniforms` (n_draws(max_depth), n_lanes) float32 feeds the draws
     (injected mode); without it the lanes draw from Philox4x32-10 keyed by
@@ -1570,16 +1753,19 @@ def receive_megakernel(params, prim, txp, *, adc: ADCConfig, max_depth: int,
     `doppler`) selects the coherent configuration, which splats I / Q with
     the echo phase.  `mirror` says whether the tables hold a smooth
     conductor (`PackedScene.mirror`); None reads it from them, a stall on
-    a card.  Tables on the CPU run the plain version
-    (`receive_megakernel_ref`, fed `philox_uniforms` in PRNG mode); tables
-    on a card launch the CUDA kernel, which raises if it cannot build or
-    launch."""
+    a card.  `eoff` (E, 3) float32, the element offsets of a phased
+    array, with its packed receiver row `rxph` (1, 2 + 6K), selects the
+    MIMO configuration (rx_kind 'phased', `doppler`, not `coherent`: it
+    is its own I / Q mode, 2E channels).  Tables on the CPU run the plain
+    version (`receive_megakernel_ref`, fed `philox_uniforms` in PRNG
+    mode); tables on a card launch the CUDA kernel, which raises if it
+    cannot build or launch."""
     rule = _check_call(params, prim, txp, uniforms, mesh, msh, lane_out, (),
                        adc=adc, max_depth=max_depth,
                        time_sampling=time_sampling, rx_kind=rx_kind,
                        n_lanes=n_lanes, doppler=doppler, patch_p=patch_p,
                        receive_type=receive_type, has_lo=has_lo,
-                       coherent=coherent)
+                       coherent=coherent, rxph=rxph, eoff=eoff)
     if params.device.type == 'cpu':
         u = uniforms if uniforms is not None else \
             philox_uniforms(seed, n_draws(max_depth), n_lanes)
@@ -1591,17 +1777,21 @@ def receive_megakernel(params, prim, txp, *, adc: ADCConfig, max_depth: int,
                                       lane_out=lane_out,
                                       receive_type=receive_type,
                                       has_lo=has_lo, coherent=coherent,
-                                      mirror=mirror)
+                                      mirror=mirror, rxph=rxph, eoff=eoff)
     acc, n_events = _launch(
         params, prim, txp, msh, uniforms, mesh, lane_out, n_pulses=1,
         adc=adc, max_depth=max_depth, time_sampling=time_sampling,
         rx_kind=rx_kind, n_lanes=n_lanes, seed=seed, seed_step=0,
         doppler=doppler, patch_p=patch_p, rule=rule, has_lo=has_lo,
-        coherent=coherent, mirror=_mirror_flag(mirror, prim, msh, doppler))
+        coherent=coherent, mirror=_mirror_flag(mirror, prim, msh, doppler),
+        rxph=rxph, eoff=eoff)
     receive_megakernel.launches += 1
-    receive_megakernel.by_config[
-        config_name(mesh is not None, doppler, coherent)] += 1
-    shape = (adc.n_time, adc.n_freq) + ((2,) if coherent else ())
+    receive_megakernel.by_config[config_name(
+        mesh is not None, doppler, coherent, eoff is not None)] += 1
+    if eoff is not None:
+        shape = (adc.n_time, adc.n_freq, 2 * int(eoff.shape[0]))
+    else:
+        shape = (adc.n_time, adc.n_freq) + ((2,) if coherent else ())
     return acc.view(shape), n_events[0]
 
 
@@ -1671,10 +1861,13 @@ def receive_megakernel_cpi(params, prim, txp, *, adc: ADCConfig,
 
 
 CONFIGS = ('flagship', 'mesh', 'doppler', 'doppler_mesh', 'coherent',
-           'coherent_mesh')
+           'coherent_mesh', 'mimo')
 
 
-def config_name(mesh: bool, doppler: bool, coherent: bool = False) -> str:
+def config_name(mesh: bool, doppler: bool, coherent: bool = False,
+                mimo: bool = False) -> str:
+    if mimo:
+        return 'mimo'
     return CONFIGS[int(mesh) + (4 if coherent else 2 * int(doppler))]
 
 
@@ -1703,36 +1896,47 @@ class DeviceTables:
     mesh: PackedBVH | None
     doppler: bool
     mirror: bool      # a smooth conductor: the mirror chains
+    rxph: torch.Tensor            # the receiver's phased row (1, 2 + 6K)
 
 
-def in_scope(scene, scene_data, rx, dev, reason: list) -> bool:
-    """`supported(scene_data, rx, reason)`, decided once per (scene_data,
-    rx) on `dev` and kept with the scene: the check reads tables back from
-    the card, which would stall every call."""
+def in_scope(scene, scene_data, rx, dev, reason: list,
+             mimo: bool = False) -> bool:
+    """`supported(scene_data, rx, reason, mimo)`, decided once per
+    (scene_data, rx) on `dev` and kept with the scene: the check reads
+    tables back from the card, which would stall every call.  MIMO also
+    needs the array on a shape (the kernel takes its frame from it)."""
     cache = scene.__dict__.setdefault('_receive_kernel_scope', {})
-    key = (rx.id, dev)
+    key = (rx.id, dev, mimo)
     hit = cache.get(key)
     if hit is None or hit[0] is not scene_data or hit[1] is not rx:
         why: list = []
-        hit = (scene_data, rx, supported(scene_data, rx, why), why)
+        ok = supported(scene_data, rx, why, mimo)
+        if ok and mimo and \
+                scene.shape_index_of_endpoint('receiver', rx.id) < 0:
+            ok = False
+            why.append('a free-standing phased receiver: the kernel takes '
+                       "the array's frame from its rectangle; the "
+                       'wavefront runs it')
+        hit = (scene_data, rx, ok, why)
         cache[key] = hit
     reason.extend(hit[3])
     return hit[2]
 
 
-def _device_tables(scene, scene_data, rx, dev) -> DeviceTables:
+def _device_tables(scene, scene_data, rx, dev,
+                   mimo: bool = False) -> DeviceTables:
     """The kernel tables of (scene_data, rx) on `dev`.  The scope check
     and the pack (and a mesh's BVH build) read the tables back from the
     card, so they run once per pair: the scene keeps the last pair of each
     receiver and device, and a call with the same objects launches without
     touching the host."""
     cache = scene.__dict__.setdefault('_receive_kernel_tables', {})
-    key = (rx.id, dev)
+    key = (rx.id, dev, mimo)
     hit = cache.get(key)
     if hit is not None and hit[0] is scene_data and hit[1] is rx:
         return hit[2]
     why: list = []
-    if not in_scope(scene, scene_data, rx, dev, why):
+    if not in_scope(scene, scene_data, rx, dev, why, mimo):
         raise NotImplementedError(
             "scene outside the receive kernel's scope: " + '; '.join(why))
     packed = pack_scene(scene_data, rx,
@@ -1745,7 +1949,8 @@ def _device_tables(scene, scene_data, rx, dev) -> DeviceTables:
         msh=torch.as_tensor(packed.msh, device=dev).contiguous()
         if packed.mesh is not None else None,
         mesh=None if packed.mesh is None else packed.mesh.to(dev),
-        doppler=doppler, mirror=packed.mirror)
+        doppler=doppler, mirror=packed.mirror,
+        rxph=torch.as_tensor(packed.rxph, device=dev).contiguous())
     cache[key] = (scene_data, rx, tables)
     return tables
 
@@ -1756,13 +1961,33 @@ def seed_slot(seed: int) -> float:
     return float(np.float32(seed * 1_000_003 % (1 << 30)))
 
 
+def array_offsets(scene, scene_data, rx, dev) -> torch.Tensor:
+    """(E, 3) float32 world offsets of the receive elements on `dev`
+    (`rx_elem_offsets`), cached per (scene_data, rx) as the JAX package
+    caches them: deriving them reads the receiver's shape back."""
+    cache = scene.__dict__.setdefault('_receive_kernel_eoff', {})
+    key = (rx.id, dev)
+    hit = cache.get(key)
+    if hit is None or hit[0] is not scene_data or hit[1] is not rx:
+        si = scene.shape_index_of_endpoint('receiver', rx.id)
+        eo = rx_elem_offsets(scene_data, rx, si)
+        hit = (scene_data, rx, eo.to(device=dev,
+                                     dtype=torch.float32).contiguous())
+        cache[key] = hit
+    return hit[2]
+
+
 def receive_kernel(scene, scene_data, rx, spp: int, seed: int = 0,
                    max_depth: int = 3, time_sampling: str = 'gate',
-                   coherent: bool = False, device=None):
+                   coherent: bool = False, mimo: bool = False,
+                   elem_offsets=None, device=None):
     """Run the receive kernel on `scene_data`'s tables, in the
     configuration they and the call need.  Returns (signal (n_time,
-    n_freq) float32 accumulated power, or (n_time, n_freq, 2) I / Q with
-    `coherent`, n_samples).
+    n_freq) float32 accumulated power, (n_time, n_freq, 2) I / Q with
+    `coherent`, or (n_time, 1, 2E) per-element I / Q with `mimo`,
+    n_samples).  `mimo` runs the MIMO configuration of a phased receiver,
+    its element offsets `elem_offsets` (E, 3) or, by default, the
+    receiver spec's grid (`array_offsets`, cached).
 
     n_samples is `spp`, rounded down to whole 1024-lane tiles (at least
     one) for mesh scenes, as the JAX package rounds its mesh lanes.  The
@@ -1771,7 +1996,20 @@ def receive_kernel(scene, scene_data, rx, spp: int, seed: int = 0,
     one stream on both.  Develop with `receive.develop_signal`
     (x n_time / n_samples)."""
     dev = resolve_device(device)
-    tab = _device_tables(scene, scene_data, rx, dev)
+    if mimo and coherent:
+        raise ValueError('mimo is its own I / Q mode: drop coherent')
+    tab = _device_tables(scene, scene_data, rx, dev, mimo)
+    if mimo:
+        eoff = array_offsets(scene, scene_data, rx, dev) if \
+            elem_offsets is None else torch.as_tensor(
+                elem_offsets, dtype=torch.float32, device=dev).contiguous()
+        acc, _ = receive_megakernel(
+            tab.params, tab.prim, tab.txp, adc=rx.adc, max_depth=max_depth,
+            time_sampling=time_sampling, rx_kind='phased', n_lanes=spp,
+            seed=seed, doppler=True, receive_type=rx.receive_type,
+            has_lo=rx.lo_waveform is not None, mirror=tab.mirror,
+            rxph=tab.rxph, eoff=eoff)
+        return acc, spp
     rx_kind = 'omni' if rx.kind == OMNI else 'wigner'
     n_lanes, patch_p, params = spp, 0, tab.params
     if tab.mesh is not None:

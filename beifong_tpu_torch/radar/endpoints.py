@@ -3,8 +3,11 @@ ops (counterpart of `beifong_tpu/radar/endpoints.py`).
 
 Transmitters compile into a tensor table (the receive kernel packs it; the
 eager wavefront samples and evaluates it per lane); the receiver stays a
-host spec whose ADC config sets the binning.  Phased arrays and MIMO
-element offsets follow in ROADMAP B6.
+host spec whose ADC config sets the binning.  A phased receive array
+keeps its elements apart for MIMO receive (`receive.receive_mimo`): its
+frame, per-element offsets and single-element pattern gain are here, and
+its pair table feeds the receive kernel.  The analog phased receive and
+transmit (the cross-WDF pair sums) are ROADMAP B6.
 """
 
 from __future__ import annotations
@@ -17,7 +20,7 @@ import torch
 
 from .. import film as film_mod
 from ..core import transform as tfm, warp
-from ..core.math import Pi, TwoPi
+from ..core.math import Pi, TwoPi, sinc
 from ..geometry.sample import sample_position
 from ..interaction import DirectionSample
 from .waveform import Waveform, stack as wf_stack
@@ -74,6 +77,15 @@ class ReceiverSpec:
         default_factory=lambda: np.eye(4, dtype=np.float32))
     velocity: np.ndarray = dataclasses.field(
         default_factory=lambda: np.zeros(3, np.float32))
+    # phased array: n_elems elements elem_spacing apart along elem_axis
+    # (in the attached shape's frame), each of half-widths elem_wid
+    n_elems: int = 1
+    elem_spacing: float = 0.0
+    elem_axis: np.ndarray = dataclasses.field(
+        default_factory=lambda: np.array([1.0, 0.0, 0.0], np.float32))
+    elem_wid: np.ndarray = dataclasses.field(
+        default_factory=lambda: np.array([0.01, 0.01], np.float32))
+    steer_deg: float = 0.0
     endpoint_kind: str = dataclasses.field(default='receiver', init=False)
 
 
@@ -85,6 +97,22 @@ def wigner_receiver(id, adc, receive_type='raw', lo_waveform=None,
                         gain=gain)
 
 
+def phased_receiver(id, adc, n_elems, elem_spacing, elem_wid, steer_deg=0.0,
+                    elem_axis=(1, 0, 0), receive_type='raw', lo_waveform=None,
+                    gain=1.0) -> ReceiverSpec:
+    """Phased receive array on a shape: `n_elems` elements along
+    `elem_axis`, `elem_spacing` apart, each of half-widths `elem_wid`.
+    It runs through `receive.receive_mimo` (one I / Q channel an
+    element)."""
+    return ReceiverSpec(id=id, kind=PHASED, adc=adc,
+                        receive_type=receive_type, lo_waveform=lo_waveform,
+                        gain=gain, n_elems=int(n_elems),
+                        elem_spacing=float(elem_spacing),
+                        elem_axis=np.asarray(elem_axis, np.float32),
+                        elem_wid=np.asarray(elem_wid, np.float32),
+                        steer_deg=float(steer_deg))
+
+
 def omni_receiver(id, adc, position=(0, 0, 0), receive_type='raw',
                   lo_waveform=None, gain=1.0) -> ReceiverSpec:
     """Isotropic point receiver."""
@@ -92,6 +120,38 @@ def omni_receiver(id, adc, position=(0, 0, 0), receive_type='raw',
     m[:3, 3] = position
     return ReceiverSpec(id=id, kind=OMNI, adc=adc, receive_type=receive_type,
                         lo_waveform=lo_waveform, gain=gain, to_world=m)
+
+
+def _elem_locs(spec) -> np.ndarray:
+    """(E, 3) element centres in the array's local frame [m], symmetric
+    about its origin along the normalised element axis."""
+    n = spec.n_elems
+    axis = spec.elem_axis / max(np.linalg.norm(spec.elem_axis), 1e-20)
+    if n % 2 == 0:
+        return np.stack([-spec.elem_spacing * axis * (i - n / 2.0 + 0.5)
+                         for i in range(n)]).astype(np.float32)
+    return np.stack([-spec.elem_spacing * axis * (i - (n - 1) / 2.0)
+                     for i in range(n)]).astype(np.float32)
+
+
+def _phased_pairs(spec, band_wl_centre: float):
+    """The E^2 virtual element pairs (i, j) in the array's local frame:
+    midpoints (E^2, 3), baselines r_i - r_j (E^2, 3) and steering phases
+    (E^2,), baked at the band-centre wavelength."""
+    n = spec.n_elems
+    axis = spec.elem_axis / max(np.linalg.norm(spec.elem_axis), 1e-20)
+    locs = _elem_locs(spec)
+    mids, bases, psis = [], [], []
+    steer = np.sin(np.deg2rad(spec.steer_deg))
+    k_steer = 2.0 * np.pi / band_wl_centre * steer
+    for i in range(n):
+        for j in range(n):
+            mids.append((locs[i] + locs[j]) / 2.0)
+            bases.append(locs[i] - locs[j])
+            # the conjugate pair's steering term exp(-i k (ri - rj) . axis)
+            psis.append(-k_steer * float(np.dot(locs[i] - locs[j], axis)))
+    return (np.asarray(mids, np.float32), np.asarray(bases, np.float32),
+            np.asarray(psis, np.float32))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -120,7 +180,9 @@ class TransmitterTable:
         for s in specs:
             if s.kind == PHASED:
                 raise NotImplementedError(
-                    'phased transmitters are not ported yet (ROADMAP B6)')
+                    'phased transmitters (the cross-WDF pair sums) are '
+                    'ROADMAP B6; a phased receiver runs through '
+                    'receive_mimo')
 
         def t(a):
             return torch.as_tensor(a, device=device)
@@ -267,8 +329,10 @@ def rx_sample_ray(scene, rx_spec: ReceiverSpec, shape_idx: int, time,
         d = warp.square_to_uniform_sphere(u_dir)
         return p, d, torch.full((n,), 4.0 * Pi, device=dev)
     if rx_spec.kind != WIGNER:
-        raise NotImplementedError(f'receiver kind {rx_spec.kind}: phased '
-                                  'receivers are ROADMAP B6')
+        raise NotImplementedError(
+            f'receiver kind {rx_spec.kind}: the analog phased receive (its '
+            'cross-WDF) is ROADMAP B6; a phased receiver runs through '
+            'receive_mimo')
     idxs = torch.full((n,), shape_idx, dtype=torch.long, device=dev)
     p, nrm, pdf_a, _ = sample_position(scene.shapes, idxs, u_pos)
     frame = tfm.frame_from_normal(nrm)
@@ -307,10 +371,51 @@ def rx_aperture_weight(scene, rx_spec: ReceiverSpec, shape_idx: int, p, d,
     if rx_spec.kind == OMNI:
         return torch.ones(n, device=p.device)
     if rx_spec.kind != WIGNER:
-        raise NotImplementedError(f'receiver kind {rx_spec.kind}: phased '
-                                  'receivers are ROADMAP B6')
+        raise NotImplementedError(
+            f'receiver kind {rx_spec.kind}: the analog phased receive (its '
+            'cross-WDF) is ROADMAP B6; a phased receiver runs through '
+            'receive_mimo')
     idxs = torch.full((n,), shape_idx, dtype=torch.long, device=p.device)
     return rect_aperture_gain(scene.shapes, idxs, p, d, wavelength)
+
+
+def rx_array_frame(scene, rx_spec: ReceiverSpec, shape_idx: int):
+    """Aperture frame of a receive array: (origin, s_n, t_n, normal), each
+    (3,), the normalised in-plane axes and the outward normal, from the
+    attached shape's to_world (the spec's own when free-standing)."""
+    if shape_idx >= 0:
+        tw = scene.shapes.to_world[shape_idx]
+    else:
+        tw = torch.as_tensor(np.asarray(rx_spec.to_world, np.float32),
+                             device=scene.shapes.to_world.device)
+    s_ax, t_ax = tw[:3, 0], tw[:3, 1]
+    sn = s_ax / torch.clamp(torch.linalg.norm(s_ax), min=1e-20)
+    tn = t_ax / torch.clamp(torch.linalg.norm(t_ax), min=1e-20)
+    nrm = torch.linalg.cross(sn, tn)
+    nrm = nrm / torch.clamp(torch.linalg.norm(nrm), min=1e-20)
+    return tw[:3, 3], sn, tn, nrm
+
+
+def rx_elem_offsets(scene, rx_spec: ReceiverSpec, shape_idx: int):
+    """(E, 3) world-frame offsets of the receive elements from the array
+    origin: MIMO channels need each element's own position."""
+    _, sn, tn, nrm = rx_array_frame(scene, rx_spec, shape_idx)
+    locs = torch.as_tensor(_elem_locs(rx_spec), device=sn.device)
+    return (locs[:, 0:1] * sn[None] + locs[:, 1:2] * tn[None]
+            + locs[:, 2:3] * nrm[None])
+
+
+def rx_elem_pattern_gain(rx_spec: ReceiverSpec, sn, tn, d, wavelength):
+    """One element's Wigner gain times its area toward directions d (n, 3)
+    at `wavelength` (n,): the aperture-centre cut of the rectangle WDF
+    (tri(0) = 1) with the spec's element half-widths.  Equal for every
+    element in the far field, so one factor serves every MIMO channel."""
+    wx = float(rx_spec.elem_wid[0])
+    wy = float(rx_spec.elem_wid[1])
+    nu_x = torch.einsum('nj,j->n', d, sn) / wavelength
+    nu_y = torch.einsum('nj,j->n', d, tn) / wavelength
+    area = 4.0 * wx * wy
+    return area * 4.0 * sinc(TwoPi * nu_x * wx) * sinc(TwoPi * nu_y * wy)
 
 
 def rx_sample_frequency(receive_type: str, lo_wf, band, time, u,

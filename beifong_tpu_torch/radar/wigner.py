@@ -8,7 +8,8 @@ to_world x and y columns; the unit rectangle spans [-1, 1]^2):
     nu     = (s_hat . d, t_hat . d) / wavelength
     W = 4 tri(rx) tri(ry) sinc(2 pi nu_x wx tri(rx)) sinc(2 pi nu_y wy tri(ry))
 
-The phased-array cross-WDF is ROADMAP B6.
+The phased-array cross-WDF is ROADMAP B6 (a phased receiver runs
+through `receive.receive_mimo`, one channel an element).
 """
 
 from __future__ import annotations
@@ -39,4 +40,5 @@ def rect_aperture_gain(shapes: ShapeTable, idx, p_world, d_world,
 
 
 def phased_aperture_gain(*args, **kw):
-    raise NotImplementedError('the phased-array cross-WDF is ROADMAP B6')
+    raise NotImplementedError('the phased-array cross-WDF is ROADMAP B6; '
+                              'a phased receiver runs through receive_mimo')

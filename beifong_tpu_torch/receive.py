@@ -19,6 +19,12 @@ ROADMAP item that lifts it.
 scene: a snapshot per pulse (`Scene.at_time`), every pulse in one launch
 of the kernel when the scene is in its scope, else one `receive()` a
 pulse.
+
+`receive_mimo` runs a phased receive array as one coherent I / Q channel
+an element (MIMO receive), through the kernel's MIMO configuration when
+the scene is in its scope (`supported(..., mimo=True)`), else through
+the wavefront; `develop_mimo` makes the channel cube `dsp.beamform`
+takes.
 """
 
 from __future__ import annotations
@@ -29,21 +35,21 @@ import torch
 
 from . import film as film_mod
 from ._device import resolve_device
+from .core import transform as tfm, warp
+from .core.math import Pi
 from .core.rng import make_stream
 from .integrators import receive_kernel as rk
 from .integrators.radar_path import radar_receive_trace
-from .radar.endpoints import (ADCConfig, rx_aperture_weight, rx_sample_ray,
-                              rx_sample_frequency)
+from .radar.endpoints import (ADCConfig, rx_aperture_weight, rx_array_frame,
+                              rx_elem_offsets, rx_elem_pattern_gain,
+                              rx_sample_ray, rx_sample_frequency)
 
 
-def _receive_pass(scene_data, rx, shape_idx: int, lo_wf, stream, adc,
-                  n_lanes: int, max_depth: int, coherent: bool = False,
-                  time_sampling: str = 'fixed'):
-    """One wavefront of `n_lanes` receive lanes drawing from `stream`,
-    splatted into `adc` in place; returns it."""
+def _time_and_frequency(scene_data, rx, lo_wf, stream, n: int, dev,
+                        time_sampling: str):
+    """A lane's receive time and frequency draws: (t_rx, f_rx, the
+    frequency's pdf weight, stream)."""
     cfg = rx.adc
-    n = n_lanes
-    dev = adc.device
     if time_sampling == 'gate':
         # emission times are drawn at the connections; t_rx only seeds the
         # frequency draw
@@ -59,6 +65,17 @@ def _receive_pass(scene_data, rx, shape_idx: int, lo_wf, stream, adc,
     u_f, stream = stream.next_1d()
     f_rx, f_w = rx_sample_frequency(rx.receive_type, lo_wf, scene_data.band,
                                     t_for_freq, u_f, cfg)
+    return t_rx, f_rx, f_w, stream
+
+
+def _receive_pass(scene_data, rx, shape_idx: int, lo_wf, stream, adc,
+                  n_lanes: int, max_depth: int, coherent: bool = False,
+                  time_sampling: str = 'fixed'):
+    """One wavefront of `n_lanes` receive lanes drawing from `stream`,
+    splatted into `adc` in place; returns it."""
+    cfg = rx.adc
+    t_rx, f_rx, f_w, stream = _time_and_frequency(
+        scene_data, rx, lo_wf, stream, n_lanes, adc.device, time_sampling)
     u_pos, stream = stream.next_2d()
     u_dir, stream = stream.next_2d()
     wl_rx = scene_data.band.c / torch.clamp(f_rx, min=1e-6)
@@ -229,3 +246,104 @@ def receive_cpi(scene, receiver_id: str | None = None, n_pulses: int = 16,
                          coherent=coherent, device=dev, **receive_kw)
         cube.append(adc)
     return torch.stack(cube), n
+
+
+# ---------------------------------------------------------------------------
+# MIMO receive: one coherent I / Q channel a receive-array element
+# ---------------------------------------------------------------------------
+
+
+def _receive_mimo_pass(scene_data, rx, shape_idx: int, lo_wf, stream, adc,
+                       elem_off, n_lanes: int, max_depth: int,
+                       time_sampling: str = 'fixed'):
+    """One wavefront of MIMO receive lanes, splatted into `adc` (n_time,
+    n_freq, 2E + 2) in place; returns it.  The rays leave the array's
+    origin (each element's position enters through its phase) over the
+    cosine hemisphere about the array's normal, weighted by one element's
+    pattern gain.  The stream keeps `_receive_pass`'s layout: its
+    position draw is taken and not used."""
+    cfg = rx.adc
+    n = n_lanes
+    t_rx, f_rx, f_w, stream = _time_and_frequency(
+        scene_data, rx, lo_wf, stream, n, adc.device, time_sampling)
+    _, stream = stream.next_2d()
+    u_dir, stream = stream.next_2d()
+    wl_rx = scene_data.band.c / torch.clamp(f_rx, min=1e-6)
+    origin, sn, tn, nrm = rx_array_frame(scene_data, rx, shape_idx)
+    o = (origin + 1e-4 * nrm).expand(n, 3)
+    frame = tfm.frame_from_normal(nrm.expand(n, 3))
+    d = tfm.to_world(frame, warp.square_to_cosine_hemisphere(u_dir))
+    w = Pi * rx_elem_pattern_gain(rx, sn, tn, d, wl_rx) * rx.gain
+    radar_receive_trace(
+        scene_data, stream, o, d, t_rx, f_rx, w * f_w, adc, cfg,
+        rx.receive_type, lo_wf, rx.velocity, max_depth=max_depth,
+        coherent=True, time_sampling=time_sampling, elem_offsets=elem_off)
+    return adc
+
+
+def receive_mimo(scene, scene_data=None, receiver=None, seed: int = 0,
+                 spp: int = 4096, max_depth: int = 3,
+                 lanes_per_pass: int = 1 << 17, sampler: str = 'independent',
+                 time_sampling: str = 'fixed', elem_offsets=None,
+                 use_kernel: str | bool = 'auto', device=None):
+    """MIMO receive of a phased receive array: returns (adc (n_time,
+    n_freq, 2E + 2), total_samples), the 2E channels interleaved I / Q a
+    receive element [I_0, Q_0, I_1, Q_1, ...], then the weight and count
+    channels.  Every connection splats into each element's pair with the
+    exact spherical phase of the element's position.  Feed `develop_mimo`,
+    then `dsp.beamform`.
+
+    `elem_offsets` (E, 3) overrides the world offsets of the elements from
+    the array origin (default: the receiver spec's element grid,
+    `rx_elem_offsets`).  `use_kernel`: 'auto' runs the kernel's MIMO
+    configuration (K1 on a card, its plain version on the CPU) when
+    `receive_kernel.supported(..., mimo=True)` holds, else the wavefront;
+    True the kernel, raising `NotImplementedError` with the reasons
+    outside its scope; False the wavefront.  Samples as in `receive`.
+    Runs on `device` (`cuda` by default; raises without a card)."""
+    dev = resolve_device(device)
+    if scene_data is None:
+        scene_data = scene.compile(device=dev)
+    rx = receiver or scene.receivers[0]
+    if use_kernel not in ('auto', True, False):
+        raise ValueError(f'use_kernel {use_kernel!r}: auto, True or False')
+    why: list = []
+    if use_kernel and rk.in_scope(scene, scene_data, rx, dev, why,
+                                  mimo=True):
+        out, n = rk.receive_kernel(scene, scene_data, rx, spp=spp, seed=seed,
+                                   max_depth=max_depth,
+                                   time_sampling=time_sampling, mimo=True,
+                                   elem_offsets=elem_offsets, device=dev)
+        n_ch = int(out.shape[-1])
+        adc = film_mod.film_new(rx.adc.n_time, rx.adc.n_freq, n_ch,
+                                device=dev)
+        adc[..., :n_ch] = out
+        return adc, n
+    if use_kernel is True:
+        raise NotImplementedError("scene outside the receive kernel's MIMO "
+                                  'scope: ' + '; '.join(why))
+    sd = scene_mono(scene_data)
+    shape_idx = scene.shape_index_of_endpoint('receiver', rx.id)
+    eoff = rx_elem_offsets(sd, rx, shape_idx) if elem_offsets is None \
+        else torch.as_tensor(elem_offsets, dtype=torch.float32, device=dev)
+    cfg = rx.adc
+    adc = film_mod.film_new(cfg.n_time, cfg.n_freq, 2 * int(eoff.shape[0]),
+                            device=dev)
+    n_pass = max(1, (spp + lanes_per_pass - 1) // lanes_per_pass)
+    lanes = min(spp, lanes_per_pass)
+    lo = None if rx.lo_waveform is None else rx.lo_waveform.to(dev)
+    for p in range(n_pass):
+        stream = make_stream(sampler, seed, lanes, p, device=dev)
+        _receive_mimo_pass(sd, rx, shape_idx, lo, stream, adc, eoff, lanes,
+                           max_depth, time_sampling)
+    return adc, lanes * n_pass
+
+
+def develop_mimo(adc: torch.Tensor, total_samples: int,
+                 cfg: ADCConfig) -> torch.Tensor:
+    """Normalise a MIMO accumulation into the complex channel cube (E,
+    n_time, n_freq) that `dsp.beamform` takes."""
+    n_e = (adc.shape[-1] - 2) // 2
+    iq = adc[..., :2 * n_e] * (cfg.n_time / max(int(total_samples), 1))
+    cube = torch.complex(iq[..., 0::2], iq[..., 1::2])
+    return torch.movedim(cube, -1, 0)

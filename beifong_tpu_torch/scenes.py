@@ -32,6 +32,9 @@ for `receive_cpi`, with their anchors and signal chains;
 `fmcw_dechirp_scene` is a single-pulse dechirp with a diffuse plate for
 the target; `fmcw_scene` is the FMCW point-target scene of the JAX
 package's receive-type tests (`tests/test_radar.py`).
+`mimo_beamform_scene` is config 6, an 8-element receive array for
+`receive_mimo` and digital beamforming, with its azimuth scan
+(`mimo_azimuth_scan`).
 """
 
 from __future__ import annotations
@@ -45,8 +48,8 @@ from .core import transform as tf
 from .core.config import Band
 from .geometry import shapes as sh
 from .geometry.mesh import MeshSpec, make_grid
-from .radar import (ADCConfig, cw, linfmcw, omni_receiver, pulse,
-                    wigner_receiver, wigner_transmitter)
+from .radar import (ADCConfig, cw, linfmcw, omni_receiver, phased_receiver,
+                    pulse, wigner_receiver, wigner_transmitter)
 
 
 def flagship_scene(R: float = 4.0, ground: bool = True,
@@ -472,6 +475,57 @@ def micro_doppler_comb_bins() -> list:
     md = MICRO_DOPPLER
     return sorted({(md['n_pulses'] // 2 + md['m_rot'] * k) % md['n_pulses']
                    for k in range(-4, 5)})
+
+
+# golden config 6 (`mimo_beamform`): an 8-element lambda / 2 receive array
+# and one target at azimuth az_deg, R metres out; the azimuth scan of its
+# beamformers
+MIMO = dict(az_deg=15.0, R=4.0, n_elems=8, fc=40e3, seed=3, spp=1 << 13,
+            max_depth=2, az_lo=-40.0, az_hi=40.0, n_az=81)
+
+
+def mimo_beamform_scene(az_deg: float = MIMO['az_deg'],
+                        r: float = MIMO['R']):
+    """Golden config 6, `mimo_beamform` (`configs.py:377-419`): a 40 kHz
+    pulse from an 8 x 8 mm transmitter 0.1 m off the array, a phased
+    receive array of 8 elements lambda / 2 apart along x (each lambda / 4
+    a side) on a 0.2 mm rectangle at the origin facing -y, a raw 64-bin
+    ADC over 60 ms, and a diffuse 0.4 m plate `r` metres out at azimuth
+    `az_deg` (from broadside toward +x), facing the array.  Returns
+    (scene, receiver spec)."""
+    fc = MIMO['fc']
+    band = Band.from_freq(C_SOUND, fc, 1e3)
+    wl = band.wavelength_centre
+    s = sc.Scene(band=band)
+    s.add(diffuse('mat', reflectance=1.0, twosided=True))
+    wf = pulse(f_centre=fc, prf=10.0, pulse_len=2e-3, f_ext=1e3,
+               is_delta=True)
+    s.add(wigner_transmitter('tx', wf, resample_freq=True))
+    _aperture(s, (0.1, 0, 0), (0.1, -1, 0), (0.004, 0.004, 1.0),
+              transmitter='tx')
+    adc = ADCConfig(n_time=64, n_freq=1, sampling_start=0.0,
+                    sampling_time=0.06, freq_lo=39.5e3, freq_hi=40.5e3)
+    rx = phased_receiver('rx', adc, n_elems=MIMO['n_elems'],
+                         elem_spacing=wl / 2, elem_wid=(wl / 4, wl / 4),
+                         receive_type='raw')
+    s.add(rx)
+    _aperture(s, (0.0, 0, 0), (0.0, -1, 0), (1e-4, 1e-4, 1.0),
+              receiver='rx')
+    az = np.radians(az_deg)
+    _plate(s, (r * np.sin(az), -r * np.cos(az), 0), 0.2)
+    return s, rx
+
+
+def mimo_azimuth_scan(az_deg: float = MIMO['az_deg'], device='cpu'):
+    """Config 6's azimuth scan: (azimuths [rad] (81,) over -40..40 deg,
+    the ULA look directions (81, 3) about broadside -y toward +x, the
+    grid bin nearest `az_deg`: the anchor both beamformers must peak
+    on)."""
+    from .dsp.beamform import ula_directions
+    az = np.radians(np.linspace(MIMO['az_lo'], MIMO['az_hi'], MIMO['n_az']))
+    dirs = ula_directions(az, axis=(1, 0, 0), normal=(0, -1, 0),
+                          device=device)
+    return az, dirs, int(np.abs(np.degrees(az) - az_deg).argmin())
 
 
 def round_trip_bin(scene, rx, target=(0.0, -4.0, 0.0)) -> float:

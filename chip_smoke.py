@@ -69,6 +69,20 @@ Phases (any failure exits non-zero before the last line is printed):
              lanes; then K1 against the wavefront on fmcw_sonar (peak bin,
              window energy) and pulse 0 (the summed I / Q's magnitude and
              phase);
+   mimo    - golden config 6 (`mimo_beamform_scene`: an 8-element
+             lambda / 2 receive array, one target at 15 degrees, 4 m out)
+             through K1's MIMO configuration: against its plain version on
+             injected uniforms (all 2E = 16 channels, 2^14 lanes) and on
+             the Philox stream at 2^24 lanes (per cell within TOL x
+             max|I, Q| plus the MIMO phase slack times the cell's
+             amplitude sum); receive_mimo() at 2^13 samples, depth 2,
+             gate, then develop_mimo, delay-and-sum and MVDR over 81
+             azimuths: both peak within 2 bins of the target's azimuth,
+             the beamformed profile at 2R / c within 2 bins; receive_mimo()
+             timed at 2^24 and 2^22 samples (bench.py's MIMO rate), every
+             call launching K1's MIMO configuration and no wavefront pass;
+             the beamformers timed; K1 against the MIMO wavefront at 2^20
+             samples (the DAS azimuth spectra correlated > 0.9);
    wavefront - the eager receive wavefront: ray_triangle_closest /
              ray_triangle_any (K4) against their plain versions at the
              wavefront's shape (2^17 receiver rays x the multi_body
@@ -206,6 +220,15 @@ FP32_OPS = {
     #                      dechirp's is 43)
     'h_chirp': 52,       # the quadratic term of each h of a chirp
     'mirror_bounce': 56,  # flipped normal, d - 2 (d.n) n, conductor Fresnel
+    # MIMO: a phased array's ray (origin, cosine hemisphere, one element's
+    # pattern gain) in place of ray_wigner; x1 - o and its length once a
+    # lane; per element of a connection: dd_e (10), its phase term (3),
+    # fast_cos + fast_sin (23), amplitude (2), four taps (4 mul, 4 adds).
+    # A MIMO connection still counts 'phase', whose two fast sines and
+    # second channel (~27) it does not run: < 8% of its 8 x 46
+    'ray_phased': 133,
+    'mimo_vertex': 10,
+    'mimo_elem': 46,
 }
 
 
@@ -313,8 +336,11 @@ def bound(ops: float, n_bytes: float, what: str) -> dict:
 def lane_ops(stats: dict, n_rect: int) -> float:
     """FP32 operations that the stage counts of a plain-version run say
     the receive kernel must do."""
-    return ((stats['lanes'] - stats['strata']) * FP32_OPS['ray_wigner']
+    phased = stats.get('phased_ray', 0)
+    return ((stats['lanes'] - stats['strata'] - phased)
+            * FP32_OPS['ray_wigner']
             + stats['strata'] * FP32_OPS['ray_strata']
+            + phased * FP32_OPS['ray_phased']
             + stats['trace'] * n_rect * FP32_OPS['rect_test']
             + stats['occ_tests'] * FP32_OPS['rect_test']
             + sum(stats.get(k, 0) * FP32_OPS[k] for k in
@@ -322,7 +348,7 @@ def lane_ops(stats: dict, n_rect: int) -> float:
                    'bounce', 'freq_draw', 'ggx_nee', 'ggx_bounce',
                    'dop_direct', 'dop_nee', 'dop_bounce', 'splat_2d',
                    'lo_freq', 'lo_bin', 'phase', 'phase_lo', 'h_chirp',
-                   'mirror_bounce'))
+                   'mirror_bounce', 'mimo_vertex', 'mimo_elem'))
             + walk_ops(stats))
 
 
@@ -344,6 +370,7 @@ def print_build(infos: dict, tag: str) -> None:
              'receive_megakernel (coherent)',
              'receive_doppler_kernelILb1ELb1E':
              'receive_megakernel (coherent mesh)',
+             'receive_mimo_kernel': 'receive_megakernel (mimo)',
              'receive_reduce_kernel': 'receive reduce',
              'bvh_closest_kernel': 'bvh_closest', 'bvh_any_kernel': 'bvh_any',
              'ray_triangle_kernelILb0E': 'ray_triangle_closest',
@@ -1015,25 +1042,27 @@ def _chirp_h(stats, txp):
 
 
 class _Wavefront:
-    """Counts the wavefront passes of receive() calls (a path that runs
-    K1 must make none)."""
+    """Counts the wavefront passes of receive() (or, `name`
+    '_receive_mimo_pass', receive_mimo()) calls: a path that runs K1 must
+    make none."""
 
-    def __init__(self, bt):
+    def __init__(self, bt, name='_receive_pass'):
         import importlib
         self.mod = importlib.import_module('beifong_tpu_torch.receive')
+        self.name = name
         self.calls = 0
 
     def __enter__(self):
-        self.orig = self.mod._receive_pass
+        self.orig = getattr(self.mod, self.name)
 
         def counted(*a, **k):
             self.calls += 1
             return self.orig(*a, **k)
-        self.mod._receive_pass = counted
+        setattr(self.mod, self.name, counted)
         return self
 
     def __exit__(self, *exc):
-        self.mod._receive_pass = self.orig
+        setattr(self.mod, self.name, self.orig)
         return False
 
 
@@ -1075,7 +1104,8 @@ def _plain_philox(torch, rk, params, prim, txp, kw, n_lanes, depth, dev,
                                    lane0=lane0)
             a, n = rk.receive_megakernel_ref(
                 params, prim, txp, u, lane0=lane0, stats=stats,
-                amp_out=amp if kw['coherent'] else None,
+                amp_out=amp if kw.get('coherent') or kw.get('eoff')
+                is not None else None,
                 lane_out=None if lane_ref is None
                 else lane_ref[lane0:lane0 + COH_PLAIN_CHUNK], **kw)
             total = a if total is None else total + a
@@ -1700,6 +1730,187 @@ def cpi(torch, bt, rk, ik, dev, tag) -> list:
         'ms': m_med, 'plain_ms': m_plain_ms, **b, 'library_ms': None,
         'lanes_on_another_path': c_mirror['flips']})
     return entries
+
+
+# MIMO receive: golden config 6 through K1's MIMO configuration
+MIMO_PARITY_LANES = 1 << 14   # injected uniforms, all 2E channels
+MIMO_LANES = 1 << 24          # receive_mimo() and the kernel alone
+MIMO_BENCH_LANES = 1 << 22    # bench.py's _mimo_rate size
+MIMO_WF_SAMPLES = 1 << 20     # K1 against the MIMO wavefront
+MIMO_WF_CORR = 0.9            # their DAS azimuth spectra, correlated
+
+
+def mimo(torch, bt, rk, dev, tag) -> list:
+    """K1's MIMO configuration on golden config 6: parity, the anchors of
+    receive_mimo() and the beamformers, the main path's times, the kernel
+    alone, K1 against the MIMO wavefront."""
+    import numpy as np
+    from beifong_tpu_torch import scenes
+    from beifong_tpu_torch.dsp import beamform as bf
+    m = scenes.MIMO
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    s, rx = scenes.mimo_beamform_scene()
+    sd = s.compile(device=dev)
+    packed = rk.pack_scene(sd, rx, s.shape_index_of_endpoint('receiver',
+                                                              rx.id))
+    params = torch.tensor(packed.params, device=dev)
+    params[0] = rk.seed_slot(SEED)
+    prim = torch.tensor(packed.prim, device=dev)
+    txp = torch.tensor(packed.txp, device=dev)
+    rxph = torch.tensor(packed.rxph, device=dev)
+    eoff = rk.array_offsets(s, sd, rx, dev)
+    n_e = int(eoff.shape[0])
+    depth = m['max_depth']
+    kw = dict(adc=rx.adc, max_depth=depth, time_sampling='gate',
+              rx_kind='phased', doppler=True, rxph=rxph, eoff=eoff)
+    slack = rk.phase_slack(s.band, rx.adc, mimo=True)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    blocks, threads, smem = rk.launch_geometry(
+        rx.adc.n_time, MIMO_LANES, int(prim.shape[0]), doppler=True,
+        coherent=True, n_elem=n_e)
+    print(f'receive_megakernel (mimo) geometry at 2^24 lanes: {blocks} '
+          f'blocks x {threads} threads, {smem} B shared each, '
+          f'{blocks / sms:g} blocks per SM on {sms} SMs; grid mode '
+          f'{rk.grid_mode(rx.adc.n_time, True, True, n_e)} '
+          f'({rx.adc.n_time} x {2 * n_e} float64) {tag}')
+
+    def reset():
+        rk.receive_megakernel.launches = 0
+        rk.receive_megakernel.by_config = dict.fromkeys(rk.CONFIGS, 0)
+
+    # ---- 3. parity on injected uniforms, lane by lane ----
+    n_l = MIMO_PARITY_LANES
+    u = torch.rand((rk.n_draws(depth), n_l), generator=gen, device=dev)
+    lane = torch.empty(n_l, device=dev)
+    lane_ref = torch.empty(n_l, device=dev)
+    amp = torch.zeros((rx.adc.n_time, 1), dtype=torch.float64, device=dev)
+    acc, n_ev = rk.receive_megakernel(params, prim, txp, n_lanes=n_l,
+                                      uniforms=u, lane_out=lane, **kw)
+    ref, n_ref = rk.receive_megakernel_ref(params, prim, txp, u,
+                                           lane_out=lane_ref, amp_out=amp,
+                                           **kw)
+    if tuple(acc.shape) != (rx.adc.n_time, 1, 2 * n_e):
+        fail(f'mimo: kernel grid {tuple(acc.shape)}')
+    errs = [compare_coherent(torch, acc, n_ev, ref, n_ref, amp, slack,
+                             'config 6 (MIMO, 16 channels) injected 2^14 '
+                             'lanes, gate', lane, lane_ref, depth=depth)]
+
+    # ---- 4. the main path: receive_mimo() and the beamformers ----
+    def beamform(cube):
+        B = bf.delay_and_sum(cube, eoff, dirs, m['fc'], s.band.c)
+        das = (B.abs() ** 2).sum(dim=(1, 2))
+        return B, das, bf.mvdr_spectrum(cube, eoff, dirs, m['fc'], s.band.c)
+
+    az, dirs, want = scenes.mimo_azimuth_scan(device=dev)
+    reset()
+    with _Wavefront(bt, '_receive_mimo_pass') as wfc:
+        adc, n = bt.receive_mimo(s, sd, rx, spp=m['spp'], max_depth=depth,
+                                 seed=m['seed'], time_sampling='gate',
+                                 device=dev)
+        cube = bt.develop_mimo(adc, n, rx.adc)
+        B, das, mvdr = beamform(cube)
+        rates = {}
+        for n_s in (MIMO_LANES, MIMO_BENCH_LANES):
+            bt.receive_mimo(s, sd, rx, spp=n_s, max_depth=depth, seed=1,
+                            time_sampling='gate', device=dev)
+            rates[n_s] = cuda_ms(lambda i: bt.receive_mimo(
+                s, sd, rx, spp=n_s, max_depth=depth, seed=2 + i,
+                time_sampling='gate', device=dev), 5)[0]
+    launches = rk.receive_megakernel.by_config['mimo']
+    if launches != 13 or rk.receive_megakernel.launches != 13 or wfc.calls:
+        fail(f'mimo path launched K1 {rk.receive_megakernel.by_config}, the '
+             f'wavefront {wfc.calls} times in 13 receive_mimo() calls')
+    if tuple(adc.shape) != (64, 1, 2 * n_e + 2) or not bool(
+            torch.isfinite(adc).all()):
+        fail(f'mimo: grid {tuple(adc.shape)} not finite / wrong shape')
+    pk_das, pk_mvdr = int(das.argmax()), int(mvdr.argmax())
+    sharp_das = float(das.max() / das.median())
+    sharp_mvdr = float(mvdr.max() / mvdr.median())
+    y = B[pk_das, :, 0].abs() ** 2
+    cfg = rx.adc
+    t_bin = int(y.argmax())
+    want_t = (2 * m['R'] / s.band.c - cfg.sampling_start) \
+        / cfg.sampling_time * cfg.n_time - 0.5
+    print(f'receive_mimo() config 6, 2^13 samples depth 2, gate: DAS peak '
+          f'bin {pk_das} ({np.degrees(az[pk_das]):.1f} deg), MVDR {pk_mvdr}, '
+          f'the target at bin {want} ({m["az_deg"]} deg); peak / median '
+          f'DAS {sharp_das:.1f}, MVDR {sharp_mvdr:.1f}; beamformed profile '
+          f'peak bin {t_bin}, 2R/c at {want_t:.2f} {tag}')
+    if abs(pk_das - want) > 2 or abs(pk_mvdr - want) > 2 \
+            or not sharp_das > 5.0 or not sharp_mvdr > sharp_das \
+            or abs(t_bin - want_t) > 2:
+        fail('mimo: config 6 anchors missed')
+    for n_s, times in rates.items():
+        med = statistics.median(times)
+        print(f'receive_mimo() config 6, 2^{n_s.bit_length() - 1} samples '
+              f'depth 2, gate: median {med:.3f} ms/call '
+              f'({n_s / (med * 1e-3):.4e} samples/s), calls '
+              f'{[round(x, 3) for x in times]} {tag}')
+    recv_ms = statistics.median(rates[MIMO_LANES])
+    bf_ms, _ = cuda_ms(lambda i: beamform(cube), 6)
+    bf_med = statistics.median(bf_ms[1:])
+    print(f'beamform config 6 (delay-and-sum + MVDR spectrum, 81 '
+          f'azimuths, 8 x 64 cube): median {bf_med:.3f} ms '
+          f'{[round(x, 3) for x in bf_ms[1:]]} {tag}')
+
+    # ---- the kernel alone and against the plain version on Philox ----
+    k_ms, _ = cuda_ms(lambda i: rk.receive_megakernel(
+        params, prim, txp, n_lanes=MIMO_LANES, seed=SEED, **kw), 6)
+    k_med = statistics.median(k_ms[1:])
+    lane = torch.empty(MIMO_LANES, device=dev)
+    lane_ref = torch.empty(MIMO_LANES, device=dev)
+    acc1, n1 = rk.receive_megakernel(params, prim, txp, n_lanes=MIMO_LANES,
+                                     seed=SEED, lane_out=lane, **kw)
+    acc2, n2 = rk.receive_megakernel(params, prim, txp, n_lanes=MIMO_LANES,
+                                     seed=SEED, **kw)
+    ref, n_ref, amp, stats, plain_ms = _plain_philox(
+        torch, rk, params, prim, txp, kw, MIMO_LANES, depth, dev,
+        lane_ref=lane_ref)
+    rep = float((acc1 - acc2).abs().max())
+    amp_max = float(amp.max())
+    print(f'parity config 6 philox 2^24 lanes: two calls differ by at most '
+          f'{rep:.3e} ({rep / amp_max:.3e} of the largest amplitude sum) '
+          f'per cell, events {int(n1)} / {int(n2)}')
+    if not (rep <= REPEAT_TOL * amp_max and int(n1) == int(n2)):
+        fail('mimo: two Philox-mode calls with one seed differ')
+    c = compare_coherent(torch, acc1, n1, ref, n_ref, amp, slack,
+                         'config 6 (MIMO) philox 2^24 lanes', lane, lane_ref,
+                         depth=depth)
+    print(f'receive_megakernel (mimo) 2^24 lanes depth 2: median '
+          f'{k_med:.3f} ms ({MIMO_LANES / (k_med * 1e-3):.4e} samples/s) '
+          f'{[round(x, 3) for x in k_ms[1:]]}; plain version {plain_ms:.1f} '
+          f'ms {tag}')
+    print('mimo stage lanes: ' + json.dumps(stats))
+
+    # ---- K1 against the MIMO wavefront ----
+    spec = {}
+    for use in (True, False):
+        ms, (a, n_w) = wall_ms(lambda: bt.receive_mimo(
+            s, sd, rx, spp=MIMO_WF_SAMPLES, max_depth=depth, seed=3,
+            time_sampling='gate', use_kernel=use,
+            lanes_per_pass=KW_LANES_PER_PASS, device=dev))
+        _, d_u, _ = beamform(bt.develop_mimo(a, n_w, rx.adc))
+        spec[use] = d_u.cpu().double().numpy()
+        print(f'receive_mimo config 6 use_kernel={use}: {ms:.1f} ms for '
+              f'2^20 samples, DAS peak bin {int(d_u.argmax())} {tag}')
+    corr = float(np.corrcoef(spec[True] / spec[True].max(),
+                             spec[False] / spec[False].max())[0, 1])
+    print(f'K1 against the MIMO wavefront, config 6 at 2^20 samples: DAS '
+          f'azimuth spectra correlated {corr:.4f} (bound > {MIMO_WF_CORR})')
+    if not corr > MIMO_WF_CORR:
+        fail('mimo: K1 and the MIMO wavefront disagree')
+    print(f'mimo phase wall {time.perf_counter() - t_phase:.1f} s {tag}')
+    return [_kernel_entry(
+        torch, rk, 'mimo', 'config 6 2^24 lanes',
+        'receive_mimo(mimo_beamform_scene()), 2^13 samples for the anchors '
+        'and 2^24 / 2^22 timed, depth 2, gate; develop_mimo, delay_and_sum, '
+        'mvdr_spectrum', launches, errs + [c], k_med, plain_ms, recv_ms,
+        stats, [params, prim, txp, rxph, eoff], rx.adc.n_time, 2 * n_e,
+        dict(row='K1 MIMO', repeat_rel=rep / amp_max,
+             lanes_on_another_path=c['flips'],
+             receive_ms_2_22=statistics.median(rates[MIMO_BENCH_LANES]),
+             beamform_ms=bf_med, k1_wavefront_corr=corr))]
 
 
 def rx_n_time(scene) -> int:
@@ -2362,6 +2573,7 @@ def main() -> int:
     kernels += dop_kernels
     kernels += coherent(torch, bt, rk, ik, dev, tag)
     kernels += cpi(torch, bt, rk, ik, dev, tag)
+    kernels += mimo(torch, bt, rk, dev, tag)
     kernels += queries(torch, bt, dev, tag)
     k4 = k4_parity(torch, ik, dev, tag)
     k4_launches, bvh_launches = wavefront(torch, bt, ik, bk, rk, dev, tag,

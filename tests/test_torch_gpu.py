@@ -20,11 +20,13 @@ from beifong_tpu_torch.geometry import bvh as bvh_mod
 from beifong_tpu_torch.geometry import bvh_kernel as bk
 from beifong_tpu_torch.geometry import intersect_kernel as ik
 from beifong_tpu_torch.integrators import receive_kernel as rk
-from beifong_tpu_torch import receive_cpi, scenes
+from beifong_tpu_torch import develop_mimo, receive_cpi, receive_mimo, \
+    scenes
+from beifong_tpu_torch.dsp import beamform as bf
 from beifong_tpu_torch.scenes import corner_scene, flagship_scene, \
     fmcw_dechirp_scene, fmcw_scene, fmcw_sonar_scene, mesh_scene, \
-    micro_doppler_scene, multi_body_scene, pulse_train_scene, \
-    range_doppler_scene, round_trip_bin
+    micro_doppler_scene, mimo_beamform_scene, multi_body_scene, \
+    pulse_train_scene, range_doppler_scene, round_trip_bin
 
 torch.set_num_threads(1)
 
@@ -799,3 +801,133 @@ def test_receive_cpi_on_card_is_one_launch_and_matches_cpu(cuda):
     loop, _ = receive_cpi(s, engine='loop', **kw)
     assert rk.receive_megakernel.launches == before[1] + 8
     assert float((loop - cube).abs().max()) <= 1e-6 * amp_max
+
+
+# ---------------------------------------------------------------------------
+# MIMO receive: golden config 6 through K1's MIMO configuration
+# ---------------------------------------------------------------------------
+
+
+def _mimo_config6(**adc):
+    s, rx = mimo_beamform_scene()
+    if adc:
+        rx.adc = dataclasses.replace(rx.adc, **adc)
+    return s, rx
+
+
+MIMO_SCENES = {
+    # (scene, time sampling, depth): config 6 (the shared grid), in fixed
+    # sampling at depth 3, and on 1,024 bins (the global grid)
+    'config6': (_mimo_config6, 'gate', 2),
+    'config6_fixed_d3': (_mimo_config6, 'fixed', 3),
+    'global_grid': (lambda: _mimo_config6(n_time=1024), 'gate', 2),
+}
+
+
+def _mimo_tables(device, scene, seed=0):
+    fn, ts, depth = MIMO_SCENES[scene]
+    s, rx = fn()
+    sd = s.compile(device='cpu')
+    p = rk.pack_scene(sd, rx, s.shape_index_of_endpoint('receiver', rx.id))
+    params = torch.tensor(p.params, device=device)
+    params[0] = rk.seed_slot(seed)
+    kw = dict(adc=rx.adc, max_depth=depth, time_sampling=ts,
+              rx_kind='phased', doppler=True,
+              rxph=torch.tensor(p.rxph, device=device),
+              eoff=rk.array_offsets(s, sd, rx, device))
+    return (s, rx, params, torch.tensor(p.prim, device=device),
+            torch.tensor(p.txp, device=device), kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('scene', list(MIMO_SCENES))
+def test_mimo_kernel_matches_plain_version(cuda, scene):
+    """Injected uniforms: all 2E channels per cell within 1e-4 x max|I, Q|
+    plus the MIMO phase slack (the echo phase's and the element term's)
+    times the cell's amplitude sum; lanes whose amplitude sums differ
+    (another path) at most 1e-4 of all, each bounding its cells."""
+    s, rx, params, prim, txp, kw = _mimo_tables(cuda, scene, seed=3)
+    n_lanes = 1 << 18
+    u = torch.rand((rk.n_draws(kw['max_depth']), n_lanes),
+                   generator=torch.Generator(cuda).manual_seed(3),
+                   device=cuda)
+    before = rk.receive_megakernel.by_config['mimo']
+    lane = torch.empty(n_lanes, device=cuda)
+    lane_ref = torch.empty(n_lanes, device=cuda)
+    acc, n_ev = rk.receive_megakernel(params, prim, txp, n_lanes=n_lanes,
+                                      uniforms=u, lane_out=lane, **kw)
+    torch.cuda.synchronize()
+    assert rk.receive_megakernel.by_config['mimo'] == before + 1
+    amp = torch.zeros((rx.adc.n_time, 1), dtype=torch.float64, device=cuda)
+    ref, n_ref = rk.receive_megakernel_ref(params, prim, txp, u,
+                                           lane_out=lane_ref, amp_out=amp,
+                                           **kw)
+    assert acc.shape == ref.shape == (rx.adc.n_time, 1, 16)
+    assert rk.grid_mode(rx.adc.n_time, True, True, 8) == \
+        (2 if scene == 'global_grid' else 1)
+    _assert_coherent_parity(acc, n_ev, ref, n_ref, amp,
+                            rk.phase_slack(s.band, rx.adc, mimo=True),
+                            lane, lane_ref, depth=kw['max_depth'])
+
+
+@pytest.mark.gpu
+def test_mimo_kernel_philox_mode(cuda):
+    """Two Philox calls with one seed agree per cell within 1e-6 of the
+    largest amplitude sum (float64 atomics add in arrival order), and
+    with the plain version on the same stream."""
+    s, rx, params, prim, txp, kw = _mimo_tables(cuda, 'config6', seed=11)
+    n_lanes = 1 << 18
+    a1, n1 = rk.receive_megakernel(params, prim, txp, n_lanes=n_lanes,
+                                   seed=11, **kw)
+    a2, n2 = rk.receive_megakernel(params, prim, txp, n_lanes=n_lanes,
+                                   seed=11, **kw)
+    u = rk.philox_uniforms(11, rk.n_draws(kw['max_depth']), n_lanes,
+                           device=cuda)
+    amp = torch.zeros((rx.adc.n_time, 1), dtype=torch.float64, device=cuda)
+    ref, n_ref = rk.receive_megakernel_ref(params, prim, txp, u, amp_out=amp,
+                                           **kw)
+    assert int(n1) == int(n2)
+    assert float((a1 - a2).abs().max()) <= 1e-6 * float(amp.max())
+    _assert_coherent_parity(a1, n1, ref, n_ref, amp,
+                            rk.phase_slack(s.band, rx.adc, mimo=True))
+
+
+@pytest.mark.gpu
+def test_receive_mimo_on_card_meets_config6_anchors(cuda, monkeypatch):
+    """receive_mimo on golden config 6 launches K1's MIMO configuration
+    once and no wavefront pass; delay-and-sum and MVDR peak within 2 bins
+    of the target's azimuth, the DAS mainlobe over 5x its median and
+    MVDR sharper, the beamformed profile at 2R / c within 2 bins."""
+    import importlib
+    recv = importlib.import_module('beifong_tpu_torch.receive')
+    passes = []
+    orig = recv._receive_mimo_pass
+    monkeypatch.setattr(recv, '_receive_mimo_pass',
+                        lambda *a, **k: passes.append(1) or orig(*a, **k))
+    s, rx = mimo_beamform_scene()
+    m = scenes.MIMO
+    before = rk.receive_megakernel.by_config['mimo']
+    adc, n = receive_mimo(s, spp=m['spp'], max_depth=m['max_depth'],
+                          seed=m['seed'], time_sampling='gate')
+    torch.cuda.synchronize()
+    assert rk.receive_megakernel.by_config['mimo'] == before + 1
+    assert not passes
+    assert adc.device.type == 'cuda' and adc.shape == (64, 1, 18)
+    cube = develop_mimo(adc, n, rx.adc)
+    assert cube.shape == (8, 64, 1) and bool(torch.isfinite(
+        torch.view_as_real(cube)).all())
+    az, dirs, want = scenes.mimo_azimuth_scan(device=cuda)
+    offs = rk.array_offsets(s, s.compile(device=cuda), rx, cuda)
+    B = bf.delay_and_sum(cube, offs, dirs, m['fc'], s.band.c)
+    das = (B.abs() ** 2).sum(dim=(1, 2))
+    mvdr = bf.mvdr_spectrum(cube, offs, dirs, m['fc'], s.band.c)
+    assert abs(int(das.argmax()) - want) <= 2
+    assert abs(int(mvdr.argmax()) - want) <= 2
+    sharp_das = float(das.max() / das.median())
+    assert sharp_das > 5.0
+    assert float(mvdr.max() / mvdr.median()) > sharp_das
+    y = B[int(das.argmax()), :, 0].abs() ** 2
+    cfg = rx.adc
+    t_pk = (int(y.argmax()) + 0.5) / cfg.n_time * cfg.sampling_time
+    assert abs(t_pk - 2 * m['R'] / s.band.c) <= 2 * cfg.sampling_time \
+        / cfg.n_time

@@ -589,14 +589,7 @@ def test_out_of_scope_receive_raises(kw, needle):
                    device='cpu', **kw)
 
 
-def test_mimo_and_media_raise():
-    s, rx = bt.multi_body_scene()
-    sd = s.compile(device='cpu')
-    o = torch.zeros(4, 3)
-    with pytest.raises(NotImplementedError, match='ROADMAP A8'):
-        rp_t.radar_receive_trace(sd, None, o, o, o[:, 0], o[:, 0], o[:, 0],
-                                 None, rx.adc, 'raw', None, np.zeros(3),
-                                 elem_offsets=np.zeros((2, 3)))
+def test_media_raises():
     from beifong_tpu.media import HomogeneousMedium
     s_j, _ = multi_body('jax')
     s_j.medium = HomogeneousMedium.make(sigma_t=0.01)

@@ -13,7 +13,9 @@ from its tree, builds the kernel there, and times with CUDA events the
 kernel alone at the main paths' shapes: the flagship at 2^28 Philox
 lanes, depth 3, the mesh scene at 2^24 lanes, depth 2, and the Doppler
 configuration on multi_body (mesh) and the range-Doppler pulse
-(analytic), 2^24 lanes, depth 2 (one warm-up, then ten calls each).
+(analytic), 2^24 lanes, depth 2, and the coherent configuration on pulse
+0 of the pulse train (analytic, depth 1) and the mesh scene (depth 2),
+2^24 lanes (one warm-up, then ten calls each).
 Prints one JSON line per process, then a summary:
 per tree the median of the processes' medians and their spread, the
 ratio this / other, and the pairs this tree won.
@@ -34,6 +36,21 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CALLS = 10
 
 
+def timed_configs(cs, flagship, mesh, multi_body, range_doppler, pulse_train):
+    """(name, scene, lanes, depth, Doppler family, coherent) of each timed
+    configuration."""
+    return (('flagship', flagship, cs.N_LANES, cs.MAX_DEPTH, False, False),
+            ('mesh', mesh, cs.MESH_LANES, cs.MESH_DEPTH, False, False),
+            ('multi_body', multi_body, cs.DOP_LANES, cs.DOP_DEPTH, True,
+             False),
+            ('range_doppler', range_doppler, cs.DOP_LANES, cs.DOP_DEPTH,
+             True, False),
+            ('coherent', pulse_train, cs.COH_LANES, cs.PULSE_DEPTH, True,
+             True),
+            ('coherent_mesh', mesh, cs.COH_LANES, cs.COH_DEPTH, True,
+             True))
+
+
 def child(root: str) -> dict:
     sys.path.insert(0, root)
     import torch
@@ -43,6 +60,7 @@ def child(root: str) -> dict:
     from beifong_tpu_torch.integrators import receive_kernel as rk
     from beifong_tpu_torch.scenes import (flagship_scene, mesh_scene,
                                           multi_body_scene,
+                                          pulse_train_scene,
                                           range_doppler_scene)
     assert os.path.dirname(beifong_tpu_torch.__file__).startswith(root)
     sys.path.insert(0, HERE)
@@ -52,15 +70,9 @@ def child(root: str) -> dict:
             if 'registers' in ln]
     dev = torch.device('cuda')
     out = dict(tree=root, ptxas=regs)
-    for name, scene, n_lanes, depth, doppler in (
-            ('flagship', flagship_scene, chip_smoke.N_LANES,
-             chip_smoke.MAX_DEPTH, False),
-            ('mesh', mesh_scene, chip_smoke.MESH_LANES,
-             chip_smoke.MESH_DEPTH, False),
-            ('multi_body', multi_body_scene, chip_smoke.DOP_LANES,
-             chip_smoke.DOP_DEPTH, True),
-            ('range_doppler', range_doppler_scene, chip_smoke.DOP_LANES,
-             chip_smoke.DOP_DEPTH, True)):
+    for name, scene, n_lanes, depth, doppler, coherent in timed_configs(
+            chip_smoke, flagship_scene, mesh_scene, multi_body_scene,
+            range_doppler_scene, pulse_train_scene):
         s, rx = scene()
         sd = s.compile(use_bvh=False, device='cpu')
         p = rk.pack_scene(sd, rx, s.shape_index_of_endpoint('receiver',
@@ -71,6 +83,7 @@ def child(root: str) -> dict:
                   rx_kind='wigner', n_lanes=n_lanes, seed=chip_smoke.SEED)
         if doppler:
             kw['doppler'] = True
+            kw['coherent'] = coherent
             if 'mirror' in inspect.signature(
                     rk.receive_megakernel).parameters:
                 kw['mirror'] = False   # these scenes hold no mirror
@@ -121,7 +134,8 @@ def main() -> int:
             runs[which].append(r)
 
     summary = {'card': card, 'pairs': args.pairs}
-    for name in ('flagship', 'mesh', 'multi_body', 'range_doppler'):
+    for name in ('flagship', 'mesh', 'multi_body', 'range_doppler',
+                 'coherent', 'coherent_mesh'):
         meds = {w: [statistics.median(r[f'{name}_ms']) for r in rs]
                 for w, rs in runs.items()}
         for w, m in meds.items():
