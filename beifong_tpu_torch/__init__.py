@@ -15,4 +15,5 @@ from .scenes import (flagship_scene, mesh_scene,  # noqa: F401
                      multi_body_scene, range_doppler_scene,
                      fmcw_sonar_scene, fmcw_scene, pulse_train_scene,
                      fmcw_dechirp_scene, corner_scene,
-                     micro_doppler_scene, mimo_beamform_scene)
+                     micro_doppler_scene, mimo_beamform_scene,
+                     stratified_medium_scene)

@@ -6,10 +6,21 @@
 // oscillator), the coherent configuration (the Doppler one splatting
 // I / Q with the echo phase) and the MIMO configuration (the coherent one
 // of a phased receive array, one I / Q pair an element), seven
-// instantiations of one block body trace_block<MESH, DOP, COH, MIMO> (COH
-// only with DOP, MIMO only with COH and without MESH), launched through
-// receive_trace_kernel<MESH> (flagship, mesh) and, with launch bounds,
-// receive_doppler_kernel<MESH, COH> and receive_mimo_kernel.
+// instantiations of one block body trace_block<MESH, DOP, COH, MIMO, MED>
+// (COH only with DOP, MIMO only with COH and without MESH), launched
+// through receive_trace_kernel<MESH, MED> (flagship, mesh) and, with
+// launch bounds, receive_doppler_kernel<MESH, COH, MED> and
+// receive_mimo_kernel<MED>.  Each has a media twin (MED): the same body
+// through the scene's ambient medium (the JAX kernel's `absorbing`,
+// `layered` and `grid_meta`, :139-145, 399-423, 1457-1490, 1516-1528,
+// 1731-1738), whose kind is the warp-uniform Cfg.medium (1 homogeneous,
+// 2 layered, 3 a sigma grid): every segment a lane crosses multiplies its
+// throughput, and every NEE connection its value, by exp(-tau) (seg_tau).
+// The vacuum instantiations (MED false) compile as they did without it.
+// The grid (at most 64 x 128 floats, 32 KB) stays in device memory behind
+// the read-only path (__ldg, L1), not in shared memory: the Doppler
+// family's four blocks an SM already hold their splat grids there, and a
+// lane reads 16 cells a segment and a connection only where it hits.
 //
 // Replaces the TPU kernel beifong_tpu/integrators/pallas_receive.py::
 // _make_kernel (launched by _run's pl.pallas_call) in its analytic /
@@ -166,6 +177,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "bvh_walk.cuh"
 
 #define F(x) ((float)(x))
@@ -221,6 +234,14 @@ struct Cfg {
     long long links_stride;
     long long leaves_stride;
     int n_elem;               // MIMO: receive elements (2E channels)
+    // ambient medium (the MED instantiations): 1 homogeneous, 2 layered,
+    // 3 a sigma grid of (g_d * g_h, g_w) cells at `grid`; its scalars ride
+    // params (sigma_t [29]; layered K [42], z_min [43], the layer
+    // thickness [44], the K steps from [45]; a grid's box minimum [43:46]
+    // and inverse extent [46:49])
+    int medium;
+    int g_d, g_h, g_w;
+    const float* grid;
 };
 
 __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
@@ -829,6 +850,62 @@ __device__ float mimo_splat(const MimoGrid& grid, const Cfg& cfg,
     return amp;
 }
 
+// Optical depth of the segment o + t d, t in [0, ln), through the
+// medium (pallas_receive.py's seg_tau :399-423 and seg_tau3 :1457-1490):
+// homogeneous sigma_t ln; layered, the closed form (T(z_b) - T(z_a)) / d_z
+// of the cumulative profile T(z) = c_0 (z - z_min) + sum_i c_i relu(z -
+// z_i), both T summed in one loop over the K steps in shared memory, or
+// sigma(z_a) ln where |d_z| <= 1e-5; a grid, the 16-point midpoint
+// quadrature of its nearest cells (zero outside the box), each cell one
+// read-only load (the grid, at most 32 KB, stays in L1).  Every operation
+// rounds as the plain version's does (no contraction): a near-horizontal
+// segment divides a difference of two ~K-term sums by d_z, and a sample
+// on a cell's edge picks its cell by the last bit of its coordinate.
+__device__ float seg_tau(const Cfg& cfg, const float* sp, float ox, float oy,
+                         float oz, float dx, float dy, float dz, float ln) {
+    if (cfg.medium == 1) return mul_rn(sp[29], ln);
+    if (cfg.medium == 2) {
+        const int k = (int)sp[42];
+        const float z0 = sp[43], dzl = sp[44];
+        if (fabsf(dz) > F(1e-5)) {
+            const float zb = add_rn(oz, mul_rn(dz, ln));
+            float ta = mul_rn(sp[45], sub_rn(oz, z0));
+            float tb = mul_rn(sp[45], sub_rn(zb, z0));
+            for (int i = 1; i < k; ++i) {
+                const float e = add_rn(z0, mul_rn((float)i, dzl));
+                ta = add_rn(ta, mul_rn(sp[45 + i], fmaxf(sub_rn(oz, e),
+                                                         0.0f)));
+                tb = add_rn(tb, mul_rn(sp[45 + i], fmaxf(sub_rn(zb, e),
+                                                         0.0f)));
+            }
+            return __fdiv_rn(sub_rn(tb, ta), dz);
+        }
+        float sg = sp[45];
+        for (int i = 1; i < k; ++i)
+            if (oz >= add_rn(z0, mul_rn((float)i, dzl)))
+                sg = add_rn(sg, sp[45 + i]);
+        return mul_rn(sg, ln);
+    }
+    const int gd = cfg.g_d, gh = cfg.g_h, gw = cfg.g_w;
+    const float* __restrict__ cells = cfg.grid;
+    const float sx = mul_rn(dx, ln), sy = mul_rn(dy, ln), sz = mul_rn(dz, ln);
+    float tot = 0.0f;
+    for (int j = 0; j < 16; ++j) {
+        const float tk = ((float)j + 0.5f) * 0.0625f;   // exact
+        float qx = mul_rn(sub_rn(add_rn(ox, mul_rn(sx, tk)), sp[43]), sp[46]);
+        float qy = mul_rn(sub_rn(add_rn(oy, mul_rn(sy, tk)), sp[44]), sp[47]);
+        float qz = mul_rn(sub_rn(add_rn(oz, mul_rn(sz, tk)), sp[45]), sp[48]);
+        if (qx >= 0.0f && qx <= 1.0f && qy >= 0.0f && qy <= 1.0f
+            && qz >= 0.0f && qz <= 1.0f) {
+            int ix = min((int)floorf(mul_rn(qx, (float)gw)), gw - 1);
+            int iy = min((int)floorf(mul_rn(qy, (float)gh)), gh - 1);
+            int iz = min((int)floorf(mul_rn(qz, (float)gd)), gd - 1);
+            tot = add_rn(tot, __ldg(cells + (iz * gh + iy) * gw + ix));
+        }
+    }
+    return mul_rn(mul_rn(tot, ln), 0.0625f);
+}
+
 // Traces one lane.  In the mesh and Doppler configurations it returns the
 // sum of the lane's contributions, which a parity run reads per lane
 // (`lane_val`): a ray that meets a triangle edge may, with one rounding
@@ -837,7 +914,7 @@ __device__ float mimo_splat(const MimoGrid& grid, const Cfg& cfg,
 // configuration a lane's sum is of its amplitudes sqrt(max(power, 0)):
 // they bound how far a lane on another path can move a cell's I or Q
 // (MIMO: the same amplitudes, shared by every element's pair).
-template <bool MESH, bool DOP, bool COH, bool MIMO = false>
+template <bool MESH, bool DOP, bool COH, bool MIMO = false, bool MED = false>
 __device__ float trace_lane(const Cfg& cfg, const float* sp,
                             const float* prim, const float* msh,
                             const Tx& tx, const Wave& lo,
@@ -1070,6 +1147,9 @@ __device__ float trace_lane(const Cfg& cfg, const float* sp,
         }
         if (!(tb < F(3.4e37))) break;     // miss: the lane is dead
         plen = plen + tb;
+        // ambient absorption along the segment
+        if constexpr (MED)
+            thr = thr * expf(-seg_tau(cfg, sp, cx, cy, cz, dx, dy, dz, tb));
         float hx = cx + tb * dx, hy = cy + tb * dy, hz = cz + tb * dz;
         const bool is_ggx = DOP && kb == ROUGH_CONDUCTOR;
         const bool is_m = DOP && cfg.mirror && kb == CONDUCTOR;
@@ -1191,6 +1271,10 @@ __device__ float trace_lane(const Cfg& cfg, const float* sp,
                 if (!occ && pdf_sa > 0.0f) {
                     float val = thr * f_cos * w_tx * w_gate
                                 / fmaxf(pdf_sa, F(1e-30));
+                    // ambient absorption along the connection
+                    if constexpr (MED)
+                        val = val * expf(-seg_tau(cfg, sp, hx, hy, hz, wx_,
+                                                  wy_, wz_, dist));
                     float yb = (t_recv - t_start) / t_window * n_time_f
                                - 0.5f;
                     float lv = val;
@@ -1330,7 +1414,7 @@ __device__ float trace_lane(const Cfg& cfg, const float* sp,
 // reduce then sums each pulse's rows apart.  The MIMO configuration also
 // copies the receiver row's element half-widths and the element offsets
 // (rxph, eoff) into shared memory, before its grid of doubles.
-template <bool MESH, bool DOP, bool COH, bool MIMO = false>
+template <bool MESH, bool DOP, bool COH, bool MIMO = false, bool MED = false>
 __device__ __forceinline__ void trace_block(
     const float* __restrict__ params, const float* __restrict__ prim,
     const float* __restrict__ txp, const float* __restrict__ msh,
@@ -1437,10 +1521,9 @@ __device__ __forceinline__ void trace_block(
          lane += stride) {
         dr.lane = lane;
         dr.group = -1;
-        float v = trace_lane<MESH, DOP, COH, MIMO>(cfg, s_par, s_prim, s_msh,
-                                                   tx, lo, mesh_b, dr,
-                                                   my_hist, T, grid,
-                                                   &events);
+        float v = trace_lane<MESH, DOP, COH, MIMO, MED>(
+            cfg, s_par, s_prim, s_msh, tx, lo, mesh_b, dr, my_hist, T, grid,
+            &events);
         if constexpr (DOP) {
             if (lane_val != nullptr) lane_val[lane] = v;
         } else if constexpr (MESH) {
@@ -1485,8 +1568,9 @@ __device__ __forceinline__ void trace_block(
 }
 
 // The flagship and mesh kernels carry no launch bounds: a bound of 256
-// threads alone moves the flagship from 95 registers to 96.
-template <bool MESH>
+// threads alone moves the flagship from 95 registers to 96.  Each kernel
+// below has a media twin (MED), the same body through an ambient medium.
+template <bool MESH, bool MED>
 __global__ void receive_trace_kernel(const float* __restrict__ params,
                                      const float* __restrict__ prim,
                                      const float* __restrict__ txp,
@@ -1497,8 +1581,9 @@ __global__ void receive_trace_kernel(const float* __restrict__ params,
                                      double* __restrict__ partial,
                                      unsigned long long* __restrict__ part_ev,
                                      Cfg cfg) {
-    trace_block<MESH, false, false>(params, prim, txp, msh, uniforms, mesh,
-                                    lane_val, partial, part_ev, cfg);
+    trace_block<MESH, false, false, false, MED>(
+        params, prim, txp, msh, uniforms, mesh, lane_val, partial, part_ev,
+        cfg);
 }
 
 // The Doppler family (power or coherent) runs 128-thread blocks held to
@@ -1506,7 +1591,7 @@ __global__ void receive_trace_kernel(const float* __restrict__ params,
 // Doppler mesh instantiation to 135 registers, three blocks an SM, and
 // multi_body's kernel 13% slower (tools/tree_ab.py); bounded, it spills a
 // few bytes and runs as fast as before.
-template <bool MESH, bool COH>
+template <bool MESH, bool COH, bool MED>
 __global__ void __launch_bounds__(DOP_THREADS, 4)
 receive_doppler_kernel(const float* __restrict__ params,
                        const float* __restrict__ prim,
@@ -1516,12 +1601,14 @@ receive_doppler_kernel(const float* __restrict__ params,
                        float* __restrict__ lane_val,
                        double* __restrict__ partial,
                        unsigned long long* __restrict__ part_ev, Cfg cfg) {
-    trace_block<MESH, true, COH>(params, prim, txp, msh, uniforms, mesh,
-                                 lane_val, partial, part_ev, cfg);
+    trace_block<MESH, true, COH, false, MED>(params, prim, txp, msh,
+                                             uniforms, mesh, lane_val,
+                                             partial, part_ev, cfg);
 }
 
 // The MIMO configuration: the coherent one of a phased array on analytic
 // scenes, in 128-thread blocks of its own launch bounds.
+template <bool MED>
 __global__ void __launch_bounds__(DOP_THREADS, MIMO_MIN_BLOCKS)
 receive_mimo_kernel(const float* __restrict__ params,
                     const float* __restrict__ prim,
@@ -1533,20 +1620,21 @@ receive_mimo_kernel(const float* __restrict__ params,
                     unsigned long long* __restrict__ part_ev, Cfg cfg,
                     const float* __restrict__ rxph,
                     const float* __restrict__ eoff) {
-    trace_block<false, true, true, true>(params, prim, txp, msh, uniforms,
-                                         mesh, lane_val, partial, part_ev,
-                                         cfg, rxph, eoff);
+    trace_block<false, true, true, true, MED>(params, prim, txp, msh,
+                                              uniforms, mesh, lane_val,
+                                              partial, part_ev, cfg, rxph,
+                                              eoff);
 }
 
 // The kernel of a configuration.
-template <bool MESH, bool DOP, bool COH, bool MIMO = false>
+template <bool MESH, bool DOP, bool COH, bool MIMO, bool MED>
 constexpr auto kernel_of() {
     if constexpr (MIMO)
-        return receive_mimo_kernel;
+        return receive_mimo_kernel<MED>;
     else if constexpr (DOP)
-        return receive_doppler_kernel<MESH, COH>;
+        return receive_doppler_kernel<MESH, COH, MED>;
     else
-        return receive_trace_kernel<MESH>;
+        return receive_trace_kernel<MESH, MED>;
 }
 
 // Fixed-order sum of each pulse's per-block partials (n_rows of n_cells
@@ -1583,7 +1671,7 @@ int threads_for(int n_time) {
     return (t / 32) * 32;
 }
 
-template <bool MESH, bool DOP, bool COH, bool MIMO = false>
+template <bool MESH, bool DOP, bool COH, bool MIMO, bool MED>
 int geometry(int n_time, int n_freq, long long n_lanes, int n_prims,
              int n_params, int n_msh, int mode, int n_pulses, int n_elem,
              int* blocks, int* threads, int* smem_bytes) {
@@ -1610,12 +1698,12 @@ int geometry(int n_time, int n_freq, long long n_lanes, int n_prims,
         smem = 4 * (n_params + n_prims * PRIM_COLS + TXP_COLS + n_time * T);
     }
     cudaError_t err = cudaFuncSetAttribute(
-        kernel_of<MESH, DOP, COH, MIMO>(),
+        kernel_of<MESH, DOP, COH, MIMO, MED>(),
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
     int per_sm = 0;
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, kernel_of<MESH, DOP, COH, MIMO>(), T, smem);
+        &per_sm, kernel_of<MESH, DOP, COH, MIMO, MED>(), T, smem);
     if (err != cudaSuccess) return (int)err;
     if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
     int dev = 0, sms = 0;
@@ -1636,10 +1724,6 @@ int geometry(int n_time, int n_freq, long long n_lanes, int n_prims,
     return (int)cudaSuccess;
 }
 
-}  // namespace
-
-extern "C" {
-
 // Launch geometry for one call: threads per block, dynamic shared bytes
 // and the persistent grid's blocks a pulse (the resident blocks on every
 // SM, shared by the n_pulses pulses in the Doppler family, fewer if a
@@ -1647,13 +1731,13 @@ extern "C" {
 // flagship (mesh == 0, mode == 0), mesh (mesh == 1, mode == 0), Doppler
 // (mode 1 block-shared grid, 2 global grid; analytic or mesh) or coherent
 // configuration (coh == 1, mode 1 or 2), or the MIMO configuration of
-// n_elem > 0 elements (analytic, coherent, mode 1 or 2).  Returns a
-// cudaError_t.
-int rk_geometry(int n_time, int n_freq, long long n_lanes, int n_prims,
+// n_elem > 0 elements (analytic, coherent, mode 1 or 2), of the
+// configuration's media twin with MED.  Returns a cudaError_t.
+template <bool MED>
+int geometry_of(int n_time, int n_freq, long long n_lanes, int n_prims,
                 int n_params, int n_msh, int mesh, int mode, int coh,
                 int n_pulses, int n_elem, int* blocks, int* threads,
                 int* smem_bytes) {
-    if (n_pulses < 1) return (int)cudaErrorInvalidValue;
     auto g = [&](auto fn) {
         return fn(n_time, n_freq, n_lanes, n_prims, n_params, n_msh, mode,
                   n_pulses, n_elem, blocks, threads, smem_bytes);
@@ -1661,16 +1745,32 @@ int rk_geometry(int n_time, int n_freq, long long n_lanes, int n_prims,
     if (n_elem > 0) {
         if (mesh || !coh || mode == 0 || n_freq != 1)
             return (int)cudaErrorInvalidValue;
-        return g(geometry<false, true, true, true>);
+        return g(geometry<false, true, true, true, MED>);
     }
     if (mode == 0)
-        return mesh ? g(geometry<true, false, false>)
-                    : g(geometry<false, false, false>);
+        return mesh ? g(geometry<true, false, false, false, MED>)
+                    : g(geometry<false, false, false, false, MED>);
     if (coh)
-        return mesh ? g(geometry<true, true, true>)
-                    : g(geometry<false, true, true>);
-    return mesh ? g(geometry<true, true, false>)
-                : g(geometry<false, true, false>);
+        return mesh ? g(geometry<true, true, true, false, MED>)
+                    : g(geometry<false, true, true, false, MED>);
+    return mesh ? g(geometry<true, true, false, false, MED>)
+                : g(geometry<false, true, false, false, MED>);
+}
+
+}  // namespace
+
+extern "C" {
+
+// Launch geometry (geometry_of) of a configuration, or of its media twin
+// when `medium` != 0.
+int rk_geometry(int n_time, int n_freq, long long n_lanes, int n_prims,
+                int n_params, int n_msh, int mesh, int mode, int coh,
+                int n_pulses, int n_elem, int medium, int* blocks,
+                int* threads, int* smem_bytes) {
+    if (n_pulses < 1) return (int)cudaErrorInvalidValue;
+    return (medium ? geometry_of<true> : geometry_of<false>)(
+        n_time, n_freq, n_lanes, n_prims, n_params, n_msh, mesh, mode, coh,
+        n_pulses, n_elem, blocks, threads, smem_bytes);
 }
 
 // Trace + reduce on `stream`, for n_pulses pulses (a CPI; 1 for one
@@ -1688,7 +1788,10 @@ int rk_geometry(int n_time, int n_freq, long long n_lanes, int n_prims,
 // tables hold a smooth conductor (the Doppler family's mirror chains).
 // n_elem > 0 launches the MIMO configuration (coh 1, no mesh, n_freq 1),
 // which reads the receiver row's element half-widths rxph[0:2] and the
-// (n_elem, 3) element offsets `eoff`.
+// (n_elem, 3) element offsets `eoff`.  `medium` != 0 launches the
+// configuration's media twin (1 homogeneous, 2 layered, its scalars in
+// params; 3 a grid of g_d x g_h x g_w float cells at `grid`, which every
+// pulse reads).
 // `partial` holds n_pulses x blocks x n_vals doubles (mode 0 / 1) or
 // n_pulses x n_vals (mode 2, zeroed here), n_vals = n_cells, 2 n_cells
 // coherent or 2 n_elem n_cells MIMO; `out` n_pulses x n_vals floats,
@@ -1706,7 +1809,8 @@ int rk_launch(const float* params, const float* prim, const float* txp,
               long long u_stride, long long bbox_stride,
               long long links_stride, long long leaves_stride, int blocks,
               int threads, int smem_bytes, const float* rxph,
-              const float* eoff, int n_elem, void* stream) {
+              const float* eoff, int n_elem, int medium, const float* grid,
+              int g_d, int g_h, int g_w, void* stream) {
     Cfg cfg;
     cfg.n_lanes = n_lanes;
     cfg.seed = seed;
@@ -1736,6 +1840,14 @@ int rk_launch(const float* params, const float* prim, const float* txp,
     cfg.links_stride = links_stride;
     cfg.leaves_stride = leaves_stride;
     cfg.n_elem = n_elem;
+    cfg.medium = medium;
+    cfg.g_d = g_d;
+    cfg.g_h = g_h;
+    cfg.g_w = g_w;
+    cfg.grid = grid;
+    if (medium < 0 || medium > 3 || (medium == 3) != (grid != nullptr)
+        || (medium == 3 && (g_d < 1 || g_h < 1 || g_w < 1)))
+        return (int)cudaErrorInvalidValue;
     if (mode == 0 && (coh || rule != 0 || mirror))
         return (int)cudaErrorInvalidValue;
     if (n_pulses < 1 || n_pulses > 65535) return (int)cudaErrorInvalidValue;
@@ -1751,26 +1863,34 @@ int rk_launch(const float* params, const float* prim, const float* txp,
         cudaError_t e = cudaMemsetAsync(partial, 0, 8 * n_vals * n_pulses, s);
         if (e != cudaSuccess) return (int)e;
     }
-    const dim3 grid(blocks, n_pulses);
+    const dim3 blocks_grid(blocks, n_pulses);
     auto launch = [&](auto kernel, float* lv) {
-        kernel<<<grid, threads, smem_bytes, s>>>(
+        kernel<<<blocks_grid, threads, smem_bytes, s>>>(
             params, prim, txp, msh, uniforms, mesh, lv, partial, part_ev,
             cfg);
     };
     const bool m = bbox != nullptr;
-    if (n_elem > 0)
-        receive_mimo_kernel<<<grid, threads, smem_bytes, s>>>(
-            params, prim, txp, msh, uniforms, mesh, lane_val, partial,
-            part_ev, cfg, rxph, eoff);
-    else if (mode == 0)
-        m ? launch(receive_trace_kernel<true>, lane_val)
-          : launch(receive_trace_kernel<false>, nullptr);
-    else if (coh)
-        m ? launch(receive_doppler_kernel<true, true>, lane_val)
-          : launch(receive_doppler_kernel<false, true>, lane_val);
+    // the configuration, or (MED) its media twin
+    auto pick = [&](auto med) {
+        constexpr bool MED = decltype(med)::value;
+        if (n_elem > 0)
+            receive_mimo_kernel<MED><<<blocks_grid, threads, smem_bytes, s>>>(
+                params, prim, txp, msh, uniforms, mesh, lane_val, partial,
+                part_ev, cfg, rxph, eoff);
+        else if (mode == 0)
+            m ? launch(receive_trace_kernel<true, MED>, lane_val)
+              : launch(receive_trace_kernel<false, MED>, nullptr);
+        else if (coh)
+            m ? launch(receive_doppler_kernel<true, true, MED>, lane_val)
+              : launch(receive_doppler_kernel<false, true, MED>, lane_val);
+        else
+            m ? launch(receive_doppler_kernel<true, false, MED>, lane_val)
+              : launch(receive_doppler_kernel<false, false, MED>, lane_val);
+    };
+    if (medium)
+        pick(std::true_type{});
     else
-        m ? launch(receive_doppler_kernel<true, false>, lane_val)
-          : launch(receive_doppler_kernel<false, false>, lane_val);
+        pick(std::false_type{});
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     int n_rows = mode == 2 ? 1 : blocks;

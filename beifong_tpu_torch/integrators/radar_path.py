@@ -10,8 +10,9 @@ kernels (`geometry/intersect.py`).  Coherent I/Q phase comes from the
 double-single path length (`core/math.py`), exact to a small fraction of a
 cycle over long paths.  MIMO receive splats every connection into one
 I / Q pair an element, each with the exact spherical phase of its
-position.  Polarized transport and ambient media are ROADMAP A10 and
-raise.
+position.  The scene's ambient medium (`media.py`) attenuates every
+segment and every transmitter connection by exp(-tau).  Polarized
+transport is ROADMAP A10 and raises.
 """
 
 from __future__ import annotations
@@ -194,8 +195,6 @@ def radar_receive_trace(scene, stream, o, d, t_rx, f_rx, ray_weight, adc,
     """
     if polarized:
         raise NotImplementedError('polarized (Stokes) receive (ROADMAP A10)')
-    if scene.medium is not None:
-        raise NotImplementedError('ambient media (ROADMAP A10)')
     if elem_offsets is not None and not coherent:
         raise ValueError('MIMO element channels need coherent=True')
     n = int(o.shape[0])
@@ -215,6 +214,7 @@ def radar_receive_trace(scene, stream, o, d, t_rx, f_rx, ray_weight, adc,
     si = scene.ray_intersect(o, d)
     active = active & si.valid
     emission_weight = torch.ones(n, dtype=torch.float32, device=dev)
+    med = scene.medium
 
     elem_dd = None
     if elem_offsets is not None:
@@ -267,6 +267,11 @@ def radar_receive_trace(scene, stream, o, d, t_rx, f_rx, ray_weight, adc,
         dt = torch.where(active, si.t, 0.0)
         time = time - dt / c
         plen = m.ds_add_f(plen, dt)
+        if med is not None:
+            # ambient absorption along the segment (dead lanes: dt = 0,
+            # exp(0))
+            throughput = throughput * med.attenuation(
+                si.p - d_cur * dt[:, None], d_cur, dt)
         bnd = scene.band.boundary_phase
 
         # direct transmitter hit
@@ -336,6 +341,8 @@ def radar_receive_trace(scene, stream, o, d, t_rx, f_rx, ray_weight, adc,
         mis = m.mis_weight(ds.pdf, pdf_b_nee)
         nee_ok = active & has_bsdf & ~occluded & (ds.pdf > 0.0)
         val_nee = throughput * f_b[:, 0] * w_nee * mis * w_gate_nee
+        if med is not None:
+            val_nee = val_nee * med.attenuation(si.p, ds.d, ds.dist)
         ph_nee = _echo_phase(scene, tx_row, lo_wf, plen, ds.dist, t_emit,
                              k_nee, t_rx_nee, depth + 1, bnd) \
             if coherent else None

@@ -1,7 +1,7 @@
 """Radar receive megakernel on Hopper: host side, plain PyTorch version and
 the wrapper of the CUDA kernel in `csrc/receive_megakernel.cu`.
 
-Counterpart of `beifong_tpu/integrators/pallas_receive.py` in four
+Counterpart of `beifong_tpu/integrators/pallas_receive.py` in its
 configurations.  The flagship one: analytic rectangles, diffuse BSDFs,
 one Wigner transmitter (CW / pulse / LFMCW), a Wigner or omni receiver,
 raw receive without LO, fixed or gate time sampling, power accumulation
@@ -28,7 +28,12 @@ receive array, on analytic scenes: the rays leave the array's origin,
 weighted by one element's pattern, and every connection splats one I / Q
 pair an element, 2E channels, each element's phase moved by the exact
 spherical path difference of its position (the JAX kernel's `mimo_e`,
-`eoff_ref`).  Per lane the kernel generates the receive ray, finds the
+`eoff_ref`).  Every configuration has a media twin, which runs it
+through the scene's ambient medium (homogeneous, z-layered or a 3-D sigma
+grid; `pack_medium`, `medium_tau`): every segment a lane crosses
+multiplies its throughput, and every NEE connection its value, by
+exp(-tau), as the JAX kernel's `absorbing`, `layered` and `grid_meta`
+do.  Per lane the kernel generates the receive ray, finds the
 closest hit, counts direct transmitter hits at depth 0, connects to the
 transmitter (NEE) with the waveform and aperture Wigner weights and a
 shadow test, tent-splats into the ADC grid and makes the BSDF bounce.
@@ -80,6 +85,8 @@ from ..core.rng import MASK32, philox4x32_10
 from ..geometry import bvh as bvh_mod
 from ..geometry.bvh_kernel import PackedBVH, walk_ref, leaf_column, pack
 from ..geometry.shapes import RECTANGLE, TRIANGLE
+from ..media import (GRID, HOMOGENEOUS, LAYERED, HeterogeneousMedium,
+                     HomogeneousMedium, LayeredMedium)
 from ..radar.endpoints import (ADCConfig, OMNI, PHASED, WIGNER, _elem_locs,
                                _phased_pairs, rx_elem_offsets)
 from ..radar.waveform import CW, LINFMCW
@@ -112,7 +119,16 @@ MAX_N_FREQ = 65536
 MAX_MIMO_ELEMS = 8
 MAX_MIMO_N_TIME = 8192
 MAX_SMEM_MIMO_VALS = 8192
-MAX_MEDIA_LAYERS = 32   # params layout: 45 + MAX_MEDIA_LAYERS slots
+# - ambient media, the JAX package's caps (kept, so that both packages
+#   route a scene alike): a layered medium's K steps ride params[45:45+K]
+#   (45 + MAX_MEDIA_LAYERS slots), a sigma grid of at most MAX_GRID3_ROWS
+#   (D x H) rows of MAX_GRID3_W cells (32 KB, read through L1)
+MAX_MEDIA_LAYERS = 32
+MAX_GRID3_ROWS = 64
+MAX_GRID3_W = 128
+# the row at which the JAX package's texture table holds the sigma grid of
+# an untextured scene (its table's 8 rows of zeros come first): params[52]
+GRID3_TEX_ROW = 8
 MAX_MESH_SHAPES = 64    # distinct mesh-shape rows (the JAX package's cap)
 MESH_STRIDE = 96        # leaf rows: 80 + reflectance + shape-row payloads
 # the BVH tables live in device memory and are indexed with int32: a leaf
@@ -169,6 +185,8 @@ class PackedScene:
     msh: np.ndarray      # (n_mesh_shapes, 8) f32 mesh-shape rows
     mesh: PackedBVH | None = None   # BVH over the mesh triangles (CPU)
     rx_rule: int = RX_RAW           # the receiver's frequency rule
+    medium: int = 0                 # media.HOMOGENEOUS / LAYERED / GRID
+    grid: np.ndarray | None = None  # (D, H, W) f32 sigma cells (GRID)
 
     @property
     def moving(self) -> bool:
@@ -422,6 +440,8 @@ def pack_scene(scene_data, rx, shape_idx: int) -> PackedScene:
         params[40] = np.float32(np.float64(params[37]) - np.float64(fc_ref))
         params[41] = float(lo_wf.phi0.reshape(-1)[0])
 
+    medium, grid = pack_medium(sd.medium, params)
+
     # meshes (and demoted rectangles): the aligned BVH, per-face
     # reflectance at leaf column 80, the owning shape's mesh-shape row at 88
     mesh = None
@@ -438,7 +458,46 @@ def pack_scene(scene_data, rx, shape_idx: int) -> PackedScene:
         msh = np.asarray(rows, np.float32)
     return PackedScene(params=params, prim=prim, txp=txp, php=php,
                        rxph=rxph, msh=msh, mesh=mesh,
-                       rx_rule=rx_rule(rx.receive_type, lo_wf is not None))
+                       rx_rule=rx_rule(rx.receive_type, lo_wf is not None),
+                       medium=medium, grid=grid)
+
+
+def pack_medium(med, params: np.ndarray):
+    """Write a scene's ambient medium into `params` as the JAX package's
+    `_pack_scene` does, bit for bit, and return (kind, grid): 0 and None
+    in vacuum; homogeneous sigma_t at [29]; layered K at [42], z_min and
+    the layer thickness at [43:45], the K steps of the profile (taken in
+    float64, then rounded) from [45]; a grid's box minimum [43:46],
+    inverse extent [46:49], D, H, W [49:52] and its texture row [52],
+    with its (D, H, W) float32 cells returned apart (the rows the JAX
+    package appends to its texture table).  The kind goes to the kernel
+    on its own: params[49] > 0 does not tell a grid (a layered medium's
+    fifth step sits there)."""
+    if med is None:
+        return 0, None
+    if isinstance(med, HomogeneousMedium):
+        params[29] = float(med.sigma_t.reshape(-1)[0])
+        return HOMOGENEOUS, None
+    if isinstance(med, LayeredMedium):
+        k = med.n_layers
+        sig = med.sigma.cpu().numpy().astype(np.float64).reshape(-1)
+        z_min, z_max = float(med.z_min), float(med.z_max)
+        params[42] = float(k)
+        params[43] = z_min
+        params[44] = (z_max - z_min) / k
+        params[45] = sig[0]
+        params[46:45 + k] = sig[1:] - sig[:-1]
+        return LAYERED, None
+    if isinstance(med, HeterogeneousMedium):
+        grid = med.sigma_grid.cpu().numpy().astype(np.float32)
+        bmn = med.box_min.cpu().numpy().astype(np.float32)
+        bmx = med.box_max.cpu().numpy().astype(np.float32)
+        params[43:46] = bmn
+        params[46:49] = 1.0 / np.maximum(bmx - bmn, 1e-12)
+        params[49:52] = grid.shape
+        params[52] = GRID3_TEX_ROW
+        return GRID, np.ascontiguousarray(grid)
+    raise NotImplementedError(f'ambient medium {type(med).__name__}')
 
 
 # ---------------------------------------------------------------------------
@@ -519,6 +578,20 @@ def supported(scene_data, rx, reason: list | None = None,
                   'ROADMAP B6; MIMO receive (receive_mimo) runs it')
     elif rx.kind not in (WIGNER, OMNI):
         return no(f'receiver kind {rx.kind} (ROADMAP B6)')
+    med = sd.medium
+    if isinstance(med, LayeredMedium):
+        if med.n_layers > MAX_MEDIA_LAYERS:
+            return no(f'{med.n_layers} medium layers > {MAX_MEDIA_LAYERS} '
+                      '(params slots, the JAX package\'s cap; ROADMAP B7)')
+    elif isinstance(med, HeterogeneousMedium):
+        gd, gh, gw = med.sigma_grid.shape
+        if gd * gh > MAX_GRID3_ROWS or gw > MAX_GRID3_W:
+            return no(f'3-D medium grid {gd}x{gh}x{gw} beyond the kernel\'s '
+                      f'cap (D*H <= {MAX_GRID3_ROWS}, W <= {MAX_GRID3_W}, '
+                      'the JAX package\'s; ROADMAP B7)')
+    elif med is not None and not isinstance(med, HomogeneousMedium):
+        return no(f'unknown ambient medium type {type(med).__name__}: the '
+                  'kernel takes media.py\'s three')
     rt, has_lo = rx.receive_type, rx.lo_waveform is not None
     if rt not in ('raw', 'raw_resample', 'mix_resample') \
             and not (rt == 'mixer' and has_lo):
@@ -696,7 +769,7 @@ STAT_KEYS = ('lanes', 'strata', 'freq_draw', 'lo_freq', 'trace', 'hit',
              'splat_2d', 'lo_bin', 'phase', 'phase_lo', 'bounce',
              'ggx_bounce', 'mirror_bounce', 'dop_direct', 'dop_nee',
              'dop_bounce', 'walks', 'node_tests', 'leaf_tests', 'mesh_hits',
-             'phased_ray', 'mimo_vertex', 'mimo_elem')
+             'phased_ray', 'mimo_vertex', 'mimo_elem', 'med_seg', 'med_conn')
 
 
 def _frac_cycles(f, t):
@@ -725,6 +798,92 @@ def _h_cyc(w: dict, tm):
     return cyc + torch.where(w['wf'] == LINFMCW, extra, 0.0)
 
 
+ULPS4 = 4.0 * float(np.finfo(np.float32).eps)
+
+
+def medium_tau(sp, medium: int, grid=None, ill=None):
+    """The kernel's optical depth of a segment, as a function tau(ox, oy,
+    oz, dx, dy, dz, length, live) of lane tensors, for the medium packed in
+    the params `sp` (None in vacuum), in the JAX kernel's float32
+    arithmetic: homogeneous sigma_t length (sp[29]); layered, the closed
+    form of the cumulative profile T(z) = c_0 (z - z_min) + sum_i c_i
+    relu(z - z_i) from the steps c_i at sp[45:45+K] (`seg_tau`), or
+    sigma(z_a) length where |d_z| <= 1e-5; a grid, the 16-point midpoint
+    quadrature of its nearest cells, zero outside the box (`seg_tau3`).
+    `ill(mask)`, if given, takes the `live` lanes whose evaluation 4 ulps
+    of its inputs move by more than 1e-4: layered ones
+    whose d_z is below 4 ulps of the two cumulative depths over 1e-4 (the
+    closed form divides their difference by d_z), and grid samples whose
+    cell coordinate lies within 4 ulps of its inputs of a cell's edge (an
+    ulp moves them to the next cell)."""
+    if medium == 0:
+        return None
+    ill = ill or (lambda mask: None)
+    if medium == HOMOGENEOUS:
+        return lambda ox, oy, oz, dx, dy, dz, ln, live: sp[29] * ln
+    if medium == LAYERED:
+        k, z0, dz_l = int(sp[42]), sp[43], sp[44]
+
+        def tau_z(z):
+            t = sp[45] * (z - z0)
+            for i in range(1, k):
+                t = t + sp[45 + i] * torch.clamp(z - (z0 + float(i) * dz_l),
+                                                 min=0.0)
+            return t
+
+        def sigma_z(z):
+            s = torch.zeros_like(z) + sp[45]
+            for i in range(1, k):
+                s = s + sp[45 + i] * torch.where(
+                    z >= z0 + float(i) * dz_l, 1.0, 0.0)
+            return s
+
+        def layered(ox, oy, oz, dx, dy, dz, ln, live):
+            steep = dz.abs() > 1e-5
+            t_b, t_a = tau_z(oz + dz * ln), tau_z(oz)
+            ill(live & steep & (
+                ULPS4 * (t_a.abs() + t_b.abs()) > 1e-4 * dz.abs()))
+            dtau = (t_b - t_a) / torch.where(steep, dz, 1.0)
+            return torch.where(steep, dtau, sigma_z(oz) * ln)
+        return layered
+    if medium != GRID or grid is None or grid.dim() != 3:
+        raise ValueError(f'medium {medium}: 1 homogeneous, 2 layered or 3 a '
+                         'grid with its (D, H, W) cells')
+    g_d, g_h, g_w = (int(x) for x in grid.shape)
+    cells = grid.reshape(g_d * g_h, g_w)
+
+    def near_edge(c, a, s, inv, n):
+        # c = (a + s t - box_min) inv n, its inputs moved by 4 ulps
+        tol = ULPS4 * ((a.abs() + s.abs()) * inv * n + c.abs())
+        return (c - torch.round(c)).abs() <= tol
+
+    def grid3(ax, ay, az, dx, dy, dz, ln, live):
+        tot = torch.zeros_like(ln)
+        for k in range(16):
+            tk = (k + 0.5) * (1.0 / 16)
+            qx = (ax + dx * ln * tk - sp[43]) * sp[46]
+            qy = (ay + dy * ln * tk - sp[44]) * sp[47]
+            qz = (az + dz * ln * tk - sp[45]) * sp[48]
+            inside = ((qx >= 0.0) & (qx <= 1.0) & (qy >= 0.0) & (qy <= 1.0)
+                      & (qz >= 0.0) & (qz <= 1.0))
+            cx, cy, cz = qx * float(g_w), qy * float(g_h), qz * float(g_d)
+            ill(live & inside & (
+                near_edge(cx, ax, dx * ln, sp[46], g_w)
+                | near_edge(cy, ay, dy * ln, sp[47], g_h)
+                | near_edge(cz, az, dz * ln, sp[48], g_d)))
+            ix = torch.clamp(torch.floor(cx), max=g_w - 1.0)
+            iy = torch.clamp(torch.floor(cy), max=g_h - 1.0)
+            iz = torch.clamp(torch.floor(cz), max=g_d - 1.0)
+            row = iz * float(g_h) + iy
+            sv = cells[torch.clamp(torch.where(inside, row, 0.0), 0.0,
+                                   g_d * g_h - 1.0).long(),
+                       torch.clamp(torch.where(inside, ix, 0.0), 0.0,
+                                   g_w - 1.0).long()]
+            tot = tot + torch.where(inside, sv, 0.0)
+        return tot * ln * (1.0 / 16)
+    return grid3
+
+
 def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
                            max_depth: int, time_sampling: str, rx_kind: str,
                            mesh: PackedBVH | None = None, msh=None,
@@ -733,7 +892,8 @@ def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
                            lane_out=None, receive_type: str = 'raw',
                            has_lo: bool = False, coherent: bool = False,
                            amp_out=None, mirror: bool | None = None,
-                           rxph=None, eoff=None):
+                           rxph=None, eoff=None, medium: int = 0, grid=None,
+                           ill_out=None):
     """Plain version of the kernel, in every configuration.  Returns (acc
     (n_time, n_freq) float32, n_events 0-d int64): the tent-splatted power
     and the count of nonzero contributions; with `coherent` acc is
@@ -781,6 +941,17 @@ def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
     dd_e into channels (2e, 2e + 1) of a (n_time, 1, 2E) grid; `amp_out`
     takes the amplitude sums as in the coherent configuration.
 
+    `medium` (media.HOMOGENEOUS, LAYERED or GRID; 0 vacuum) runs any
+    configuration through the ambient medium packed in `params`
+    (`pack_medium`), the (D, H, W) sigma cells `grid` for GRID: every
+    segment a live lane crosses multiplies its throughput, and every NEE
+    connection its value, by exp(-tau) (`medium_tau`).  It takes no
+    draws.  `ill_out`, if given, an (n_lanes,) bool tensor, is set on
+    every lane with an optical depth that an ulp of its inputs moves by
+    more than 1e-4 (see `medium_tau`): such a lane may differ from the
+    kernel's, whose inputs FMA contraction moves by ulps, by more than
+    1e-4 of itself.
+
     `stats`, if given, accumulates how many lanes reach each stage of the
     kernel (the work a run's data needs), each summed over depths: keys
     'lanes', 'strata' (lanes with stratified directions), 'freq_draw',
@@ -796,7 +967,8 @@ def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
     (closest hits on a triangle); in the MIMO configuration 'phased_ray'
     (rays from the array), 'mimo_vertex' (lanes whose first vertex
     anchors the element terms) and 'mimo_elem' (element channels of the
-    contributions splatted)."""
+    contributions splatted); through a medium 'med_seg' and 'med_conn'
+    (optical depths of segments and of connections)."""
     rule = rx_rule(receive_type, has_lo)
     mimo = eoff is not None
     if mimo != (rx_kind == 'phased') or mimo and (coherent or not doppler):
@@ -862,6 +1034,8 @@ def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
     mirror = doppler and (has_mirror(prim, rows_m) if mirror is None
                           else mirror)
     lobes = ggx or mirror   # the hit's type, alpha, eta and k are read
+    tau = medium_tau(sp, medium, grid, None if ill_out is None
+                     else ill_out.logical_or_)
 
     def inst_freq(t, w=tx_w):
         pri = 1.0 / torch.clamp(w['prf'], min=1e-12)
@@ -1263,6 +1437,12 @@ def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
         count('hit', active)
         tb = torch.where(hit, tb, 1.0)   # misses: keep dead lanes finite
         plen = plen + torch.where(active, tb, 0.0)
+        if tau is not None:
+            # ambient absorption along the segment (dead lanes: exp(0))
+            count('med_seg', active)
+            throughput = throughput * torch.exp(-tau(
+                cx, cy, cz, ddx, ddy, ddz, torch.where(active, tb, 0.0),
+                active))
         hx = cx + tb * ddx
         hy = cy + tb * ddy
         hz = cz + tb * ddz
@@ -1370,6 +1550,9 @@ def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
         count('nee_splat', ok)
         val = torch.where(ok, throughput * f_cos * w_tx * w_gate
                           / torch.clamp(pdf_sa, min=1e-30), 0.0)
+        if tau is not None:
+            count('med_conn', ok)
+            val = val * torch.exp(-tau(hx, hy, hz, wx_, wy_, wz_, dist, ok))
         yb = (t_recv - t_start) / t_window * n_time_f - 0.5
         f_recv = f_emit
         if moving:
@@ -1477,11 +1660,11 @@ def _bind(lib):
                               ctypes.c_longlong, ctypes.c_ulonglong,
                               ctypes.c_float)
     ip = ctypes.POINTER(ctypes.c_int)
-    lib.rk_geometry.argtypes = [i32] * 2 + [i64] + [i32] * 8 + [ip] * 3
+    lib.rk_geometry.argtypes = [i32] * 2 + [i64] + [i32] * 9 + [ip] * 3
     lib.rk_geometry.restype = i32
     lib.rk_launch.argtypes = [vp] * 12 + [i32, i32, vp, i64, u64] \
         + [i32] * 13 + [f32] * 6 + [i32, u64] + [i64] * 4 + [i32] * 3 \
-        + [vp, vp, i32, vp]
+        + [vp, vp, i32] + [i32, vp, i32, i32, i32] + [vp]
     lib.rk_launch.restype = i32
 
 
@@ -1512,10 +1695,11 @@ def launch_geometry(n_time: int, n_lanes: int, n_prims: int,
                     n_params: int = 45 + MAX_MEDIA_LAYERS,
                     mesh: bool = False, n_freq: int = 1, n_msh: int = 0,
                     doppler: bool = False, coherent: bool = False,
-                    n_pulses: int = 1, n_elem: int = 0):
+                    n_pulses: int = 1, n_elem: int = 0, medium: int = 0):
     """(blocks a pulse, threads per block, dynamic shared bytes) of the
     trace kernel (its mesh, Doppler and / or coherent configuration, or
-    the MIMO one of `n_elem` elements) on the current card: a persistent
+    the MIMO one of `n_elem` elements; its media twin with `medium`) on
+    the current card: a persistent
     grid of as many blocks as fit on every SM at once, fewer when a
     pulse's lanes run out.  The `n_pulses` pulses of a CPI share that grid
     in the Doppler family; in the flagship and mesh configurations each
@@ -1526,7 +1710,8 @@ def launch_geometry(n_time: int, n_lanes: int, n_prims: int,
     blocks, threads, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
     LIBRARY.check(lib.rk_geometry(n_time, n_freq, n_lanes, n_prims, n_params,
                                   n_msh, int(mesh), mode, int(coherent),
-                                  n_pulses, n_elem, ctypes.byref(blocks),
+                                  n_pulses, n_elem, int(medium > 0),
+                                  ctypes.byref(blocks),
                                   ctypes.byref(threads), ctypes.byref(smem)),
                   'receive_megakernel geometry')
     return blocks.value, threads.value, smem.value
@@ -1561,12 +1746,28 @@ def _check_adc(adc: ADCConfig, doppler: bool):
 def _check_call(params, prim, txp, uniforms, mesh, msh, lane_out, lead, *,
                 adc, max_depth, time_sampling, rx_kind, n_lanes, doppler,
                 patch_p, receive_type, has_lo, coherent, rxph=None,
-                eoff=None):
+                eoff=None, medium=0, grid=None):
     """Validate a call's arguments; `lead` is () for one pulse, (P,) for a
     CPI of P pulses (every table, the uniforms and the lane sums then have
     that leading axis, the BVH tables (P, n) rows).  `eoff` (with `rxph`)
-    asks for the MIMO configuration (one pulse)."""
+    asks for the MIMO configuration (one pulse).  `medium` and `grid`: the
+    medium's kind and, for a grid, its (D, H, W) cells, one tensor every
+    pulse of a CPI shares."""
     dev = params.device
+    if medium not in (0, HOMOGENEOUS, LAYERED, GRID):
+        raise ValueError(f'medium {medium}: 0 vacuum, {HOMOGENEOUS} '
+                         f'homogeneous, {LAYERED} layered, {GRID} grid')
+    if (grid is not None) != (medium == GRID):
+        raise ValueError('a grid medium takes its (D, H, W) cells `grid`, '
+                         'no other medium one')
+    if grid is not None and (
+            grid.dim() != 3 or grid.dtype != torch.float32
+            or grid.device != dev or not grid.is_contiguous()
+            or grid.shape[0] * grid.shape[1] > MAX_GRID3_ROWS
+            or not 1 <= grid.shape[2] <= MAX_GRID3_W or grid.numel() < 1):
+        raise ValueError(f'grid: expected contiguous float32 (D, H, W) on '
+                         f'{dev}, D * H <= {MAX_GRID3_ROWS}, W <= '
+                         f'{MAX_GRID3_W}')
     if time_sampling not in ('fixed', 'gate'):
         raise ValueError(f'time_sampling {time_sampling!r}')
     if eoff is not None:
@@ -1666,10 +1867,11 @@ def _mirror_flag(mirror, prim, msh, doppler) -> bool:
 def _launch(params, prim, txp, msh, uniforms, mesh, lane_out, *, n_pulses,
             adc, max_depth, time_sampling, rx_kind, n_lanes, seed, seed_step,
             doppler, patch_p, rule, has_lo, coherent, mirror, rxph=None,
-            eoff=None):
+            eoff=None, medium=0, grid=None):
     """The CUDA kernel and its reduce over `n_pulses` pulses of stacked
     tables on a card: (acc (n_pulses, n_cells x n_ch) float32, n_events
-    (n_pulses,) int64).  `eoff` launches the MIMO configuration."""
+    (n_pulses,) int64).  `eoff` launches the MIMO configuration, `medium`
+    a configuration's media twin."""
     dev = params.device
     lib = LIBRARY.get()
     n_elem = 0 if eoff is None else int(eoff.shape[0])
@@ -1683,7 +1885,7 @@ def _launch(params, prim, txp, msh, uniforms, mesh, lane_out, *, n_pulses,
         blocks, threads, smem = launch_geometry(
             adc.n_time, n_lanes, n_prims, int(params.shape[-1]),
             mesh is not None, adc.n_freq, n_msh, doppler, coherent, n_pulses,
-            n_elem)
+            n_elem, medium)
         # per-block partial grids of each pulse (I and Q interleaved per
         # cell when coherent); one global grid of atomics a pulse in mode 2
         partial = torch.empty(
@@ -1717,7 +1919,9 @@ def _launch(params, prim, txp, msh, uniforms, mesh, lane_out, *, n_pulses,
             n_pulses, seed_step & MASK64, n_draws(max_depth) * n_lanes,
             *m_strides, blocks, threads, smem,
             None if rxph is None else rxph.data_ptr(),
-            None if eoff is None else eoff.data_ptr(), n_elem, stream)
+            None if eoff is None else eoff.data_ptr(), n_elem, medium,
+            None if grid is None else grid.data_ptr(),
+            *((0, 0, 0) if grid is None else grid.shape), stream)
         LIBRARY.check(err, 'receive_megakernel launch')
     return acc, n_events
 
@@ -1729,7 +1933,8 @@ def receive_megakernel(params, prim, txp, *, adc: ADCConfig, max_depth: int,
                        doppler: bool = False, patch_p: int = 0,
                        lane_out=None, receive_type: str = 'raw',
                        has_lo: bool = False, coherent: bool = False,
-                       mirror: bool | None = None, rxph=None, eoff=None):
+                       mirror: bool | None = None, rxph=None, eoff=None,
+                       medium: int = 0, grid=None):
     """Trace `n_lanes` receive samples.  Returns (acc (n_time, n_freq)
     float32, (n_time, n_freq, 2) I / Q with `coherent`, or (n_time, 1, 2E)
     with `eoff`, n_events 0-d int64) on the tables' device.
@@ -1756,16 +1961,20 @@ def receive_megakernel(params, prim, txp, *, adc: ADCConfig, max_depth: int,
     a card.  `eoff` (E, 3) float32, the element offsets of a phased
     array, with its packed receiver row `rxph` (1, 2 + 6K), selects the
     MIMO configuration (rx_kind 'phased', `doppler`, not `coherent`: it
-    is its own I / Q mode, 2E channels).  Tables on the CPU run the plain
-    version (`receive_megakernel_ref`, fed `philox_uniforms` in PRNG
-    mode); tables on a card launch the CUDA kernel, which raises if it
-    cannot build or launch."""
+    is its own I / Q mode, 2E channels).  `medium` (media.HOMOGENEOUS,
+    LAYERED or GRID, packed in `params` by `pack_medium`; 0 vacuum)
+    launches the configuration's media twin, which takes a GRID's (D, H,
+    W) float32 cells `grid` on the tables' device.  Tables on the CPU run
+    the plain version (`receive_megakernel_ref`, fed `philox_uniforms` in
+    PRNG mode); tables on a card launch the CUDA kernel, which raises if
+    it cannot build or launch."""
     rule = _check_call(params, prim, txp, uniforms, mesh, msh, lane_out, (),
                        adc=adc, max_depth=max_depth,
                        time_sampling=time_sampling, rx_kind=rx_kind,
                        n_lanes=n_lanes, doppler=doppler, patch_p=patch_p,
                        receive_type=receive_type, has_lo=has_lo,
-                       coherent=coherent, rxph=rxph, eoff=eoff)
+                       coherent=coherent, rxph=rxph, eoff=eoff,
+                       medium=medium, grid=grid)
     if params.device.type == 'cpu':
         u = uniforms if uniforms is not None else \
             philox_uniforms(seed, n_draws(max_depth), n_lanes)
@@ -1777,17 +1986,19 @@ def receive_megakernel(params, prim, txp, *, adc: ADCConfig, max_depth: int,
                                       lane_out=lane_out,
                                       receive_type=receive_type,
                                       has_lo=has_lo, coherent=coherent,
-                                      mirror=mirror, rxph=rxph, eoff=eoff)
+                                      mirror=mirror, rxph=rxph, eoff=eoff,
+                                      medium=medium, grid=grid)
     acc, n_events = _launch(
         params, prim, txp, msh, uniforms, mesh, lane_out, n_pulses=1,
         adc=adc, max_depth=max_depth, time_sampling=time_sampling,
         rx_kind=rx_kind, n_lanes=n_lanes, seed=seed, seed_step=0,
         doppler=doppler, patch_p=patch_p, rule=rule, has_lo=has_lo,
         coherent=coherent, mirror=_mirror_flag(mirror, prim, msh, doppler),
-        rxph=rxph, eoff=eoff)
+        rxph=rxph, eoff=eoff, medium=medium, grid=grid)
     receive_megakernel.launches += 1
     receive_megakernel.by_config[config_name(
-        mesh is not None, doppler, coherent, eoff is not None)] += 1
+        mesh is not None, doppler, coherent, eoff is not None,
+        medium > 0)] += 1
     if eoff is not None:
         shape = (adc.n_time, adc.n_freq, 2 * int(eoff.shape[0]))
     else:
@@ -1810,7 +2021,8 @@ def receive_megakernel_cpi(params, prim, txp, *, adc: ADCConfig,
                            msh=None, doppler: bool = False, patch_p: int = 0,
                            lane_out=None, receive_type: str = 'raw',
                            has_lo: bool = False, coherent: bool = False,
-                           mirror: bool | None = None):
+                           mirror: bool | None = None, medium: int = 0,
+                           grid=None):
     """A coherent processing interval (CPI) of P pulses in one launch: the
     pulse is a grid axis of the kernel.  The tables carry a leading pulse
     axis (params (P, 77), prim (P, n_prims, 34), txp (P, 1, 32), msh (P,
@@ -1819,7 +2031,9 @@ def receive_megakernel_cpi(params, prim, txp, *, adc: ADCConfig,
     0 .. n_lanes - 1 draw Philox keyed by seed + seed_step * p (seed_step
     0: common random numbers, every pulse the same stream).  Otherwise as
     `receive_megakernel`, per pulse.  Returns (acc (P, n_time, n_freq) or
-    (P, n_time, n_freq, 2), n_events (P,) int64).  On the CPU the plain
+    (P, n_time, n_freq, 2), n_events (P,) int64).  The medium is one
+    scene-wide row, the same in every pulse's params, and every pulse
+    reads the one (D, H, W) `grid` of a GRID medium.  On the CPU the plain
     version runs pulse by pulse."""
     n_pulses = int(params.shape[0]) if params.dim() == 2 else 0
     if n_pulses < 1:
@@ -1829,7 +2043,7 @@ def receive_megakernel_cpi(params, prim, txp, *, adc: ADCConfig,
                        time_sampling=time_sampling, rx_kind=rx_kind,
                        n_lanes=n_lanes, doppler=doppler, patch_p=patch_p,
                        receive_type=receive_type, has_lo=has_lo,
-                       coherent=coherent)
+                       coherent=coherent, medium=medium, grid=grid)
     shape = (n_pulses, adc.n_time, adc.n_freq) + ((2,) if coherent else ())
     if params.device.type == 'cpu':
         accs, evs = [], []
@@ -1844,7 +2058,7 @@ def receive_megakernel_cpi(params, prim, txp, *, adc: ADCConfig,
                 patch_p=patch_p,
                 lane_out=None if lane_out is None else lane_out[p],
                 receive_type=receive_type, has_lo=has_lo, coherent=coherent,
-                mirror=mirror)
+                mirror=mirror, medium=medium, grid=grid)
             accs.append(a)
             evs.append(n)
         return torch.stack(accs).view(shape), torch.stack(evs)
@@ -1853,22 +2067,25 @@ def receive_megakernel_cpi(params, prim, txp, *, adc: ADCConfig,
         adc=adc, max_depth=max_depth, time_sampling=time_sampling,
         rx_kind=rx_kind, n_lanes=n_lanes, seed=seed, seed_step=seed_step,
         doppler=doppler, patch_p=patch_p, rule=rule, has_lo=has_lo,
-        coherent=coherent, mirror=_mirror_flag(mirror, prim, msh, doppler))
+        coherent=coherent, mirror=_mirror_flag(mirror, prim, msh, doppler),
+        medium=medium, grid=grid)
     receive_megakernel_cpi.launches += 1
-    receive_megakernel_cpi.by_config[
-        config_name(mesh is not None, doppler, coherent)] += 1
+    receive_megakernel_cpi.by_config[config_name(
+        mesh is not None, doppler, coherent, medium=medium > 0)] += 1
     return acc.view(shape), n_events
 
 
-CONFIGS = ('flagship', 'mesh', 'doppler', 'doppler_mesh', 'coherent',
-           'coherent_mesh', 'mimo')
+VACUUM_CONFIGS = ('flagship', 'mesh', 'doppler', 'doppler_mesh', 'coherent',
+                  'coherent_mesh', 'mimo')
+# every configuration has a media twin (the kernel's MED instantiations)
+CONFIGS = VACUUM_CONFIGS + tuple(c + '_media' for c in VACUUM_CONFIGS)
 
 
 def config_name(mesh: bool, doppler: bool, coherent: bool = False,
-                mimo: bool = False) -> str:
-    if mimo:
-        return 'mimo'
-    return CONFIGS[int(mesh) + (4 if coherent else 2 * int(doppler))]
+                mimo: bool = False, medium: bool = False) -> str:
+    name = 'mimo' if mimo else VACUUM_CONFIGS[
+        int(mesh) + (4 if coherent else 2 * int(doppler))]
+    return name + '_media' if medium else name
 
 
 # launches of the CUDA kernel, in all and by configuration: one receive
@@ -1897,6 +2114,8 @@ class DeviceTables:
     doppler: bool
     mirror: bool      # a smooth conductor: the mirror chains
     rxph: torch.Tensor            # the receiver's phased row (1, 2 + 6K)
+    medium: int = 0               # the ambient medium's kind (0: vacuum)
+    grid: torch.Tensor | None = None   # a grid medium's (D, H, W) cells
 
 
 def in_scope(scene, scene_data, rx, dev, reason: list,
@@ -1950,7 +2169,9 @@ def _device_tables(scene, scene_data, rx, dev,
         if packed.mesh is not None else None,
         mesh=None if packed.mesh is None else packed.mesh.to(dev),
         doppler=doppler, mirror=packed.mirror,
-        rxph=torch.as_tensor(packed.rxph, device=dev).contiguous())
+        rxph=torch.as_tensor(packed.rxph, device=dev).contiguous(),
+        medium=packed.medium, grid=None if packed.grid is None
+        else torch.as_tensor(packed.grid, device=dev).contiguous())
     cache[key] = (scene_data, rx, tables)
     return tables
 
@@ -2008,7 +2229,7 @@ def receive_kernel(scene, scene_data, rx, spp: int, seed: int = 0,
             time_sampling=time_sampling, rx_kind='phased', n_lanes=spp,
             seed=seed, doppler=True, receive_type=rx.receive_type,
             has_lo=rx.lo_waveform is not None, mirror=tab.mirror,
-            rxph=tab.rxph, eoff=eoff)
+            rxph=tab.rxph, eoff=eoff, medium=tab.medium, grid=tab.grid)
         return acc, spp
     rx_kind = 'omni' if rx.kind == OMNI else 'wigner'
     n_lanes, patch_p, params = spp, 0, tab.params
@@ -2025,7 +2246,7 @@ def receive_kernel(scene, scene_data, rx, spp: int, seed: int = 0,
         seed=seed, mesh=tab.mesh, msh=tab.msh if doppler else None,
         doppler=doppler, patch_p=patch_p, receive_type=rx.receive_type,
         has_lo=rx.lo_waveform is not None, coherent=coherent,
-        mirror=tab.mirror)
+        mirror=tab.mirror, medium=tab.medium, grid=tab.grid)
     return acc, n_lanes
 
 
@@ -2049,6 +2270,8 @@ class PackedCPI:
     moving: bool
     ggx: bool
     mirror: bool
+    medium: int = 0                 # the scene's medium, as in every pulse
+    grid: np.ndarray | None = None  # its (D, H, W) cells, shared (GRID)
 
     @property
     def n_pulses(self) -> int:
@@ -2089,6 +2312,11 @@ def pack_cpi_tables(snapshots: list, rx, shape_idx: int) -> PackedCPI:
             raise ValueError('pulse snapshots must share static scene config')
         if (pk.mesh is None) != (p0.mesh is None):
             raise ValueError('pulse snapshots must agree on mesh presence')
+        if pk.medium != p0.medium or pk.params[29] != p0.params[29] \
+                or not np.array_equal(pk.params[42:], p0.params[42:]) \
+                or (pk.grid is not None
+                    and not np.array_equal(pk.grid, p0.grid)):
+            raise ValueError('pulse snapshots must share the medium')
     return PackedCPI(
         params=np.stack([pk.params for pk in packs]),
         prim=np.stack([pk.prim for pk in packs]),
@@ -2098,7 +2326,8 @@ def pack_cpi_tables(snapshots: list, rx, shape_idx: int) -> PackedCPI:
             [pk.mesh for pk in packs]),
         rx_rule=p0.rx_rule, moving=any(pk.moving for pk in packs),
         ggx=any(pk.ggx for pk in packs),
-        mirror=any(pk.mirror for pk in packs))
+        mirror=any(pk.mirror for pk in packs), medium=p0.medium,
+        grid=p0.grid)
 
 
 def cpi_receiver(snapshot, receiver_id: str | None):
@@ -2113,11 +2342,14 @@ def pack_cpi(scene, n_pulses: int, prf: float, t0: float = 0.0,
     pulse p with the first snapshot's receiver, stacked.  Returns
     (PackedCPI, receiver spec, receiver shape row).  Cached on the scene
     per (pulse grid, receiver), as the JAX package caches its packs: edit
-    a scene through its builders, which make new objects.  Raises
-    `NotImplementedError` outside the kernel's scope."""
+    a scene through its builders, which make new objects.  The medium, a
+    plain field of the scene, is checked on every call: a pack of another
+    medium is made anew.  Raises `NotImplementedError` outside the
+    kernel's scope."""
     cache = scene.__dict__.setdefault('_receive_cpi_pack', {})
     key = (n_pulses, float(prf), float(t0), receiver_id)
-    if key not in cache:
+    hit = cache.get(key)
+    if hit is None or hit[3] is not scene.medium:
         snaps = [scene.at_time(t0 + p / prf) for p in range(n_pulses)]
         rx = cpi_receiver(snaps[0], receiver_id)
         sds = [sn.compile(use_bvh=False, device='cpu') for sn in snaps]
@@ -2127,8 +2359,9 @@ def pack_cpi(scene, n_pulses: int, prf: float, t0: float = 0.0,
                 "scene outside the receive kernel's scope: "
                 + '; '.join(why))
         si = snaps[0].shape_index_of_endpoint('receiver', rx.id)
-        cache[key] = (pack_cpi_tables(sds, rx, si), rx, si)
-    return cache[key]
+        hit = cache[key] = (pack_cpi_tables(sds, rx, si), rx, si,
+                            scene.medium)
+    return hit[:3]
 
 
 def cpi_seeds(seed: int, n_pulses: int, common_random_numbers: bool):
@@ -2157,9 +2390,11 @@ def receive_kernel_cpi(scene, n_pulses: int, prf: float, t0: float = 0.0,
         tab = (packed, *(torch.as_tensor(a, device=dev).contiguous()
                          for a in (packed.params, packed.prim, packed.txp,
                                    packed.msh)),
-               None if packed.mesh is None else packed.mesh.to(dev))
+               None if packed.mesh is None else packed.mesh.to(dev),
+               None if packed.grid is None
+               else torch.as_tensor(packed.grid, device=dev).contiguous())
         cache[key] = tab
-    _, params, prim, txp, msh, mesh = tab
+    _, params, prim, txp, msh, mesh, grid = tab
     seeds, step = cpi_seeds(seed, n_pulses, common_random_numbers)
     rx_kind = 'omni' if rx.kind == OMNI else 'wigner'
     n_lanes, patch_p = spp, 0
@@ -2179,5 +2414,5 @@ def receive_kernel_cpi(scene, n_pulses: int, prf: float, t0: float = 0.0,
         msh=msh if doppler and mesh is not None else None, doppler=doppler,
         patch_p=patch_p, receive_type=rx.receive_type,
         has_lo=rx.lo_waveform is not None, coherent=coherent,
-        mirror=packed.mirror)
+        mirror=packed.mirror, medium=packed.medium, grid=grid)
     return acc, n_lanes

@@ -24,21 +24,41 @@ from .core.config import Band
 from .geometry.bvh import BVH
 from .geometry.intersect import TriData
 from .geometry.shapes import ShapeTable
+from .media import HeterogeneousMedium, HomogeneousMedium, LayeredMedium
 from .radar.endpoints import ReceiverTable, TransmitterTable
 from .radar.waveform import Waveform
 from .scene import SceneData
 from .textures import TextureTable
 
-_PORTED_ELSEWHERE = {'.medium': 'ambient media (ROADMAP A10)',
-                     '.textures.face_attr': 'mesh-attribute textures '
+_PORTED_ELSEWHERE = {'.textures.face_attr': 'mesh-attribute textures '
                      '(ROADMAP B7)'}
+# a JAX medium's kind, told by the leaves it has
+_MEDIA = ((('sigma_t',), HomogeneousMedium),
+          (('sigma', 'z_min', 'z_max'), LayeredMedium),
+          (('sigma_grid', 'box_min', 'box_max'), HeterogeneousMedium))
+
+
+def _medium(leaves: dict, dev):
+    """The port's medium of the JAX `.medium.*` leaves (None if absent)."""
+    names = {k[len('.medium.'):] for k in leaves if k.startswith('.medium.')}
+    if not names:
+        return None
+    for keys, cls in _MEDIA:
+        if set(keys) <= names:
+            return cls(**{f.name: torch.tensor(
+                np.array(leaves[f'.medium.{f.name}'], np.float32),
+                device=dev) for f in dataclasses.fields(cls)})
+    raise NotImplementedError(f'ambient medium with leaves {sorted(names)}: '
+                              'not one of the three media')
 
 
 def scene_data_from_numpy(leaves: dict, band: Band, device=None) -> SceneData:
     """Build the port's `SceneData` from JAX `SceneData` leaves.  Leaves of
     tables the port does not hold yet raise `NotImplementedError`; the
     optical emitter table, which the receive path never reads, is
-    skipped."""
+    skipped.  The ambient medium's kind follows from its leaves:
+    `sigma_t` homogeneous, `sigma` / `z_min` / `z_max` layered,
+    `sigma_grid` / `box_min` / `box_max` the 3-D grid."""
     dev = resolve_device(device)
     for key in leaves:
         for prefix, what in _PORTED_ELSEWHERE.items():
@@ -76,7 +96,8 @@ def scene_data_from_numpy(leaves: dict, band: Band, device=None) -> SceneData:
         if '.bvh.bb_min' in leaves else None
     return SceneData(band=band, shapes=table(ShapeTable, '.shapes'),
                      bsdfs=bsdfs, textures=table(TextureTable, '.textures'),
-                     transmitters=tx, receivers=rx, tris=tris, bvh=bvh)
+                     transmitters=tx, receivers=rx, tris=tris, bvh=bvh,
+                     medium=_medium(leaves, dev))
 
 
 def cpi_tables_from_numpy(pulse_leaves: list, band: Band, rx,

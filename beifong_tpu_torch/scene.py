@@ -6,15 +6,16 @@ A `Scene` collects host-side specs; `compile()` flattens them into
 world-space triangle table (`tris`).  Above `bvh_threshold` faces it also
 builds the eager wavefront's BVH (`bvh`, host tables; the K2 / K3 kernels
 read them packed, once per SceneData and device).  The receive kernel
-builds its own, leaf-aligned BVH from `tris`.  The tables the port does
-not fill yet (emitters, medium) are `None`.
+builds its own, leaf-aligned BVH from `tris`.  The ambient medium
+(`media.py`, or None for vacuum) moves to the scene's device.  The
+optical emitter table, which the port does not fill, is `None`.
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
-from typing import Optional
+from typing import Optional, Union
 
 import numpy as np
 import torch
@@ -27,8 +28,12 @@ from .geometry import bvh as bvh_mod
 from .geometry.intersect import TriData, closest_hit, any_hit
 from .geometry.mesh import MeshSpec
 from .geometry.shapes import ShapeSpec, ShapeTable
+from .media import HeterogeneousMedium, HomogeneousMedium, LayeredMedium
 from .radar.endpoints import ReceiverTable, TransmitterTable
 from .textures import TextureTable
+
+
+Medium = Union[HomogeneousMedium, LayeredMedium, HeterogeneousMedium]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,7 +48,7 @@ class SceneData:
     receivers: Optional[ReceiverTable]
     tris: Optional[TriData] = None   # world-space faces of every mesh
     emitters: None = None    # optical emitters: ROADMAP A12
-    medium: None = None      # ambient media: ROADMAP A10 / B7
+    medium: Optional[Medium] = None   # ambient medium; None: vacuum
     bvh: Optional[bvh_mod.BVH] = None   # the wavefront's BVH over `tris`
 
     # --- queries (the reference's Scene::ray_intersect / ray_test) ---
@@ -80,6 +85,7 @@ class Scene:
     bsdfs: list = dataclasses.field(default_factory=list)
     transmitters: list = dataclasses.field(default_factory=list)
     receivers: list = dataclasses.field(default_factory=list)
+    medium: Optional[Medium] = None   # ambient absorption of every path
 
     def add(self, *objs) -> "Scene":
         for o in objs:
@@ -119,7 +125,8 @@ class Scene:
         at t and the spec's `velocity` set from the keyframe derivative, so
         the intra-pulse Doppler follows the animation; an endpoint carried
         by an animated shape takes that shape's velocity.  Slow time is
-        quasistatic: one snapshot per pulse (`receive.receive_cpi`)."""
+        quasistatic: one snapshot per pulse (`receive.receive_cpi`).  The
+        medium is the same in every snapshot."""
 
         def snap(spec, vel_override=None):
             anim = getattr(spec, 'to_world', None)
@@ -135,7 +142,8 @@ class Scene:
                 c.velocity = np.asarray(vel, np.float32)
             return c, vel
 
-        out = Scene(band=self.band, bsdfs=list(self.bsdfs))
+        out = Scene(band=self.band, bsdfs=list(self.bsdfs),
+                    medium=self.medium)
         endpoint_vel = {}   # endpoint id -> the carrying shape's velocity
         for s in self.shapes:
             c, vel = snap(s)
@@ -206,4 +214,6 @@ class Scene:
                          bsdfs=BSDFTable.build(self.bsdfs, dev),
                          textures=TextureTable.empty(dev),
                          transmitters=tx_table, receivers=rx_table,
-                         tris=tris, bvh=bvh)
+                         tris=tris, bvh=bvh,
+                         medium=None if self.medium is None
+                         else self.medium.to(dev))

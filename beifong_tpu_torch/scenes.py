@@ -35,6 +35,13 @@ package's receive-type tests (`tests/test_radar.py`).
 `mimo_beamform_scene` is config 6, an 8-element receive array for
 `receive_mimo` and digital beamforming, with its azimuth scan
 (`mimo_azimuth_scan`).
+
+`stratified_medium_scene(med)` is the JAX package's
+`examples/stratified_medium.py`: a sonar looking down through an
+absorbing slab (`stratified_layers`) at a target on the floor, with the
+closed-form echo attenuation (`two_leg_transmittance`) and the
+example's own reading of it (`echo_attenuation`); `stratified_homogeneous`
+and `medium_grid` give the other two media over the same scene.
 """
 
 from __future__ import annotations
@@ -48,6 +55,7 @@ from .core import transform as tf
 from .core.config import Band
 from .geometry import shapes as sh
 from .geometry.mesh import MeshSpec, make_grid
+from .media import HeterogeneousMedium, HomogeneousMedium, LayeredMedium
 from .radar import (ADCConfig, cw, linfmcw, omni_receiver, phased_receiver,
                     pulse, wigner_receiver, wigner_transmitter)
 
@@ -545,3 +553,118 @@ def _endpoint_position(scene, kind, spec) -> np.ndarray:
     i = scene.shape_index_of_endpoint(kind, spec.id)
     m = scene.shapes[i].to_world if i >= 0 else spec.to_world
     return np.asarray(m, np.float64)[:3, 3]
+
+
+# examples/stratified_medium.py: a 40 kHz sonar 3 m up, a diffuse 1 m
+# target on the floor 4 m out, a 1 m absorbing slab (sigma_t 0.4 / m for z
+# in [1, 2]) between; the grids span the box the scene's paths stay in
+STRATIFIED = dict(target=(0.0, -4.0, 0.0), slab=(1.0, 2.0), sigma=0.4,
+                  z_min=0.0, z_max=4.0, sigma_t=0.05,
+                  box_min=(-1.0, -5.0, -1.0), box_max=(1.0, 1.0, 4.0),
+                  spp=1 << 14, max_depth=2, seed=1)
+
+
+def stratified_medium_scene(med=None):
+    """`examples/stratified_medium.py`'s scene, built as its `build(med)`
+    builds it: a 2 ms, 40 kHz pulse from a 0.1 x 0.1 m Wigner transmitter
+    at (0.3, 0, 3) aimed at the target, an omni receiver at (-0.3, 0, 3),
+    raw 64 bins over 60 ms, a diffuse 1 m plate at (0, -4, 0) facing the
+    sonar, and `med` (a `media.py` medium, or None) as the scene's
+    ambient medium.  Returns (scene, receiver spec)."""
+    s = sc.Scene(band=Band.from_freq(C_SOUND, 40e3, 10e3))
+    s.add(diffuse('mat', reflectance=1.0, twosided=True))
+    wf = pulse(f_centre=40e3, prf=10.0, pulse_len=2e-3, f_ext=2e3,
+               is_delta=True)
+    s.add(wigner_transmitter('tx', wf, resample_freq=True))
+    tgt_pos = list(STRATIFIED['target'])
+    aim = np.asarray(tf.compose(tf.look_at([0.3, 0, 3], tgt_pos),
+                                tf.scale([0.05, 0.05, 1.0])))
+    s.add(sh.rectangle(to_world=aim, transmitter='tx'))
+    adc = ADCConfig(n_time=64, n_freq=1, sampling_start=0.0,
+                    sampling_time=0.06, freq_lo=35e3, freq_hi=45e3)
+    rx = omni_receiver('rx', adc, position=(-0.3, 0, 3), receive_type='raw')
+    s.add(rx)
+    tgt = np.asarray(tf.compose(tf.look_at(tgt_pos, [0, 0, 3]),
+                                tf.scale(0.5)))
+    s.add(sh.rectangle(to_world=tgt, bsdf='mat'))
+    s.medium = med
+    return s, rx
+
+
+def stratified_layers(k: int = 4):
+    """The example's absorbing slab as a `LayeredMedium` of k equal layers
+    over [z_min, z_max] = [0, 4]: k = 4 is the example's
+    `LayeredMedium.make([0, 0.4, 0, 0], 0, 4)`; k a multiple of 4 the same
+    slab in finer layers (k = 32, the kernel's cap)."""
+    st = STRATIFIED
+    z = st['z_min'] + (np.arange(k) + 0.5) * (st['z_max'] - st['z_min']) / k
+    lo, hi = st['slab']
+    sigma = np.where((z > lo) & (z < hi), st['sigma'], 0.0)
+    return LayeredMedium.make(sigma, st['z_min'], st['z_max'])
+
+
+def stratified_homogeneous():
+    """A homogeneous water column of extinction sigma_t 0.05 / m."""
+    return HomogeneousMedium.make(sigma_t=STRATIFIED['sigma_t'])
+
+
+def medium_grid(half: bool = False):
+    """An 8 x 8 x 128 `HeterogeneousMedium` over the scene's box, sigma_t
+    0.05 / m in every cell, or with `half` only in the half-space below
+    the box's mid-height (the lower four layers of cells)."""
+    cells = np.full((8, 8, 128), STRATIFIED['sigma_t'], np.float32)
+    if half:
+        cells[4:] = 0.0
+    return HeterogeneousMedium.make(cells, box_min=STRATIFIED['box_min'],
+                                    box_max=STRATIFIED['box_max'])
+
+
+def seeded_medium(kind: str):
+    """A medium of each kind at its full size that the port's other scenes
+    cross too (they lie about z = 0): homogeneous sigma_t 0.05; 32 layers
+    of seeded sigma_t in [0, 0.5] over z in [-1, 4]; an 8 x 8 x 128 grid
+    of seeded cells in [0, 0.2] over x in [-2, 2], y in [-7, 1], z in
+    [-1, 2]."""
+    g = np.random.default_rng(8)
+    if kind == 'homogeneous':
+        return stratified_homogeneous()
+    if kind == 'layered':
+        return LayeredMedium.make(g.uniform(0.0, 0.5, 32), -1.0, 4.0)
+    if kind == 'grid':
+        return HeterogeneousMedium.make(g.uniform(0.0, 0.2, (8, 8, 128)),
+                                        box_min=(-2.0, -7.0, -1.0),
+                                        box_max=(2.0, 1.0, 2.0))
+    raise ValueError(f'kind {kind!r}: homogeneous, layered or grid')
+
+
+def two_leg_transmittance(scene, rx, med) -> float:
+    """exp(-tau) of the transmitter -> target -> receiver path through
+    the target's centre in `med`: the echo attenuation a range profile
+    shows against vacuum (0.263 for the example's slab, 1 m crossed at
+    |d_z| = 3 / 5.009 on each leg)."""
+    tgt = np.asarray(STRATIFIED['target'], np.float64)
+    tau = 0.0
+    for end in (_endpoint_position(scene, 'transmitter',
+                                   scene.transmitters[0]),
+                _endpoint_position(scene, 'receiver', rx)):
+        v = end - tgt
+        dist = float(np.linalg.norm(v))
+        o = torch.tensor(tgt[None], dtype=torch.float32)
+        d = torch.tensor((v / dist)[None], dtype=torch.float32)
+        med_cpu = med.to('cpu')
+        if isinstance(med_cpu, HomogeneousMedium):
+            tau += float(med_cpu.sigma_t) * dist
+        else:
+            tau += float(med_cpu.optical_depth(
+                o, d, torch.tensor([dist], dtype=torch.float32))[0])
+    return float(np.exp(-tau))
+
+
+def echo_attenuation(vac, lay) -> float:
+    """The example's reading of two range profiles (vacuum, medium): the
+    echo's energy in 5 bins about the vacuum profile's peak past bin 10
+    (the direct blast comes first), medium over vacuum."""
+    vac = np.asarray(vac, np.float64)
+    lay = np.asarray(lay, np.float64)
+    pk = 10 + int(vac[10:].argmax())
+    return float(lay[pk - 2:pk + 3].sum() / vac[pk - 2:pk + 3].sum())

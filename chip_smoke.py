@@ -83,6 +83,18 @@ Phases (any failure exits non-zero before the last line is printed):
              call launching K1's MIMO configuration and no wavefront pass;
              the beamformers timed; K1 against the MIMO wavefront at 2^20
              samples (the DAS azimuth spectra correlated > 0.9);
+   media   - examples/stratified_medium.py (`stratified_medium_scene`)
+             through receive() and K1's media twins: the echo attenuation
+             through the example's slab at 2^14 and 2^24 samples within
+             10% of its closed form (`two_leg_transmittance`, 0.263), a
+             uniform 8 x 8 x 128 grid equal to the homogeneous medium to
+             1e-3 of max|acc|, a half-space grid's attenuation within 10%
+             of the wavefront's; each medium kind in the flagship and
+             coherent twins against the plain version on injected
+             uniforms (the point target) and on Philox at 2^24 (the
+             example); config 5's CPI through a medium in one launch
+             against the plain version; the times of vacuum, K = 4,
+             K = 32, homogeneous and the grid at 2^24 samples;
    wavefront - the eager receive wavefront: ray_triangle_closest /
              ray_triangle_any (K4) against their plain versions at the
              wavefront's shape (2^17 receiver rays x the multi_body
@@ -333,12 +345,13 @@ def bound(ops: float, n_bytes: float, what: str) -> dict:
                 bound_by='operations' if t_ops >= t_bytes else 'bytes')
 
 
-def lane_ops(stats: dict, n_rect: int) -> float:
+def lane_ops(stats: dict, n_rect: int, ray: str = 'ray_wigner') -> float:
     """FP32 operations that the stage counts of a plain-version run say
-    the receive kernel must do."""
+    the receive kernel must do; `ray` the cost of an unstratified ray
+    ('ray_omni' for an omni receiver)."""
     phased = stats.get('phased_ray', 0)
     return ((stats['lanes'] - stats['strata'] - phased)
-            * FP32_OPS['ray_wigner']
+            * FP32_OPS[ray]
             + stats['strata'] * FP32_OPS['ray_strata']
             + phased * FP32_OPS['ray_phased']
             + stats['trace'] * n_rect * FP32_OPS['rect_test']
@@ -360,21 +373,23 @@ def walk_ops(stats: dict) -> float:
 
 
 def print_build(infos: dict, tag: str) -> None:
-    names = {'receive_trace_kernelILb0E': 'receive_megakernel (flagship)',
-             'receive_trace_kernelILb1E': 'receive_megakernel (mesh)',
-             'receive_doppler_kernelILb0ELb0E':
-             'receive_megakernel (doppler)',
-             'receive_doppler_kernelILb1ELb0E':
-             'receive_megakernel (doppler mesh)',
-             'receive_doppler_kernelILb0ELb1E':
-             'receive_megakernel (coherent)',
-             'receive_doppler_kernelILb1ELb1E':
-             'receive_megakernel (coherent mesh)',
-             'receive_mimo_kernel': 'receive_megakernel (mimo)',
+    # K1's configurations by their mangled template arguments (each ends
+    # in Lb0EE, or Lb1EE for its media twin)
+    k1 = {'receive_trace_kernelILb0E': 'flagship',
+          'receive_trace_kernelILb1E': 'mesh',
+          'receive_doppler_kernelILb0ELb0E': 'doppler',
+          'receive_doppler_kernelILb1ELb0E': 'doppler mesh',
+          'receive_doppler_kernelILb0ELb1E': 'coherent',
+          'receive_doppler_kernelILb1ELb1E': 'coherent mesh',
+          'receive_mimo_kernelI': 'mimo'}
+    names = {f'{k}Lb{int(m)}EE': f'receive_megakernel ({v}'
+             + (' media)' if m else ')')
+             for k, v in k1.items() for m in (False, True)}
+    names.update({
              'receive_reduce_kernel': 'receive reduce',
              'bvh_closest_kernel': 'bvh_closest', 'bvh_any_kernel': 'bvh_any',
              'ray_triangle_kernelILb0E': 'ray_triangle_closest',
-             'ray_triangle_kernelILb1E': 'ray_triangle_any'}
+             'ray_triangle_kernelILb1E': 'ray_triangle_any'})
     for kname, info in infos.items():
         print(f'build {kname}: {info.seconds:.1f} s nvcc '
               f'({os.path.basename(info.path)}) {tag}')
@@ -1913,6 +1928,302 @@ def mimo(torch, bt, rk, dev, tag) -> list:
              beamform_ms=bf_med, k1_wavefront_corr=corr))]
 
 
+MEDIA_PARITY_LANES = 1 << 14   # injected uniforms, each medium kind
+MEDIA_LANES = 1 << 24          # Philox parity, receive() and the kernel
+MEDIA_ANCHOR = 0.10            # attenuation against its closed form
+MEDIA_WF_SAMPLES = 1 << 20     # the half-space grid through the wavefront
+MEDIA_DEPTH = 2
+# FP32 operations of one optical depth and its exp (counted by hand from
+# seg_tau in csrc/receive_megakernel.cu as FP32_OPS is): homogeneous a
+# product, its exp and the throughput's product; layered 10 a step (the
+# edge, then sub, max, mul, add for each end) plus the ends and the
+# division; a grid 19 a sample (coordinates, floors, the add) x 16
+MEDIA_OPS = {'homogeneous': 3, 'grid': 16 * 19 + 7}
+
+
+def media_ops(stats: dict, kind: str, k_layers: int = 0) -> float:
+    per = 10 * k_layers + 1 if kind == 'layered' else MEDIA_OPS[kind]
+    return (stats.get('med_seg', 0) + stats.get('med_conn', 0)) * per
+
+
+def media(torch, bt, rk, dev, tag) -> list:
+    """K1's media configuration on examples/stratified_medium.py's scene:
+    the echo attenuation against its closed form (receive() at 2^14 and
+    2^24), a uniform grid against the homogeneous medium, the half-space
+    grid against the wavefront, each medium kind in the flagship and the
+    coherent instantiations against the plain version (injected uniforms
+    on the point target, Philox at 2^24 on the example), one receive_cpi
+    through a medium, and the times of vacuum, K = 4, K = 32, homogeneous
+    and the 8 x 8 x 128 grid at 2^24 samples."""
+    import numpy as np
+    from beifong_tpu_torch import scenes
+    from beifong_tpu_torch import media as mt
+    st = scenes.STRATIFIED
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    kinds = {'homogeneous': scenes.stratified_homogeneous(),
+             'layered': scenes.stratified_layers(4),
+             'grid': scenes.medium_grid()}
+
+    def reset():
+        for fn in (rk.receive_megakernel, rk.receive_megakernel_cpi):
+            fn.launches = 0
+            fn.by_config = dict.fromkeys(rk.CONFIGS, 0)
+
+    def media_launches():
+        return sum(v for fn in (rk.receive_megakernel,
+                                rk.receive_megakernel_cpi)
+                   for k, v in fn.by_config.items() if k.endswith('_media'))
+
+    def tables(s, rx, sd=None):
+        sd = sd or s.compile(device=dev)
+        p = rk.pack_scene(sd, rx, s.shape_index_of_endpoint('receiver',
+                                                            rx.id))
+        params = torch.tensor(p.params, device=dev)
+        params[0] = rk.seed_slot(SEED)
+        grid = None if p.grid is None else torch.tensor(p.grid, device=dev)
+        return (params, torch.tensor(p.prim, device=dev),
+                torch.tensor(p.txp, device=dev),
+                dict(medium=p.medium, grid=grid))
+
+    def profile(med, spp, **kw):
+        s, rx = bt.stratified_medium_scene(med)
+        a, n = bt.receive(s, receiver=rx, spp=spp, max_depth=MEDIA_DEPTH,
+                          seed=st['seed'], device=dev, **kw)
+        return bt.develop_signal(a, n, rx.adc)[:, 0, 0].cpu().numpy()
+
+    s0, rx0 = bt.stratified_medium_scene()
+    want = scenes.two_leg_transmittance(s0, rx0, kinds['layered'])
+    # ---- 4. the main path: the example through receive(), its anchors ----
+    reset()
+    anchors = {}
+    for spp in (st['spp'], MEDIA_LANES):
+        att = scenes.echo_attenuation(profile(None, spp),
+                                      profile(kinds['layered'], spp))
+        anchors[spp] = att
+        print(f'stratified_medium receive() 2^{spp.bit_length() - 1} '
+              f'samples depth 2, fixed: echo attenuation {att:.4f}, the '
+              f'closed form {want:.4f} ({att / want - 1:+.2%}) {tag}')
+        if not (0.05 < att < 0.9 and abs(att / want - 1) < MEDIA_ANCHOR):
+            fail(f'media: the example\'s attenuation {att:.4f} at {spp} '
+                 f'samples misses {want:.4f}')
+    out = {}
+    for name, med in (('homogeneous', kinds['homogeneous']),
+                      ('uniform grid', kinds['grid'])):
+        s, rx = bt.stratified_medium_scene(med)
+        out[name], _ = bt.receive(s, receiver=rx, spp=MEDIA_LANES,
+                                  max_depth=MEDIA_DEPTH, seed=st['seed'],
+                                  time_sampling='gate', device=dev)
+    scale = float(out['homogeneous'][..., 0].abs().max())
+    d_u = float((out['uniform grid'] - out['homogeneous'])[..., 0].abs()
+                .max()) / scale
+    print(f'uniform 8 x 8 x 128 grid against homogeneous sigma_t '
+          f'{st["sigma_t"]}, 2^24 samples, gate: max cell difference '
+          f'{d_u:.3e} of max (bound 1e-3)')
+    if not d_u <= 1e-3:
+        fail('media: a uniform grid differs from the homogeneous medium')
+    half = scenes.medium_grid(half=True)
+    ratios = {}
+    for use, spp in ((True, MEDIA_LANES), (False, MEDIA_WF_SAMPLES)):
+        ratios[use] = scenes.echo_attenuation(
+            profile(None, spp, time_sampling='gate', use_kernel=use),
+            profile(half, spp, time_sampling='gate', use_kernel=use))
+    want_h = scenes.two_leg_transmittance(s0, rx0, half)
+    print(f'half-space grid: K1 {ratios[True]:.4f} at 2^24, the wavefront '
+          f'{ratios[False]:.4f} at 2^20, closed form {want_h:.4f}')
+    if abs(ratios[True] / ratios[False] - 1) > MEDIA_ANCHOR:
+        fail('media: the half-space grid differs between K1 and the '
+             'wavefront')
+    # vacuum twice at each anchor's size and once beside the half-space
+    # grid; the medium in the other five calls
+    path_launches = media_launches()
+    if path_launches != 5 or rk.receive_megakernel.by_config['flagship'] \
+            != 3 or rk.receive_megakernel.launches != 8:
+        fail(f'media: the main path launched K1 '
+             f'{rk.receive_megakernel.by_config} in 8 receive() calls')
+
+    # ---- 3. each kind against the plain version ----
+    errs, philox_stats, plain_ms = [], {}, {}
+    sf, rxf = bt.flagship_scene(ground=False)
+    se, rxe = bt.stratified_medium_scene()
+    for kind, med in kinds.items():
+        for coh in (False, True):
+            what = f'{kind} {"coherent" if coh else "flagship"}'
+            # the point target lies about z = 0: media it crosses
+            sf.medium = scenes.seeded_medium(kind)
+            params, prim, txp, mkw = tables(sf, rxf)
+            kw = dict(adc=rxf.adc, max_depth=MEDIA_DEPTH,
+                      time_sampling='gate', rx_kind='wigner',
+                      doppler=coh, coherent=coh, **mkw)
+            u = torch.rand((rk.n_draws(MEDIA_DEPTH), MEDIA_PARITY_LANES),
+                           generator=gen, device=dev)
+            acc, n_ev = rk.receive_megakernel(
+                params, prim, txp, n_lanes=MEDIA_PARITY_LANES, uniforms=u,
+                **kw)
+            amp = torch.zeros((rxf.adc.n_time, 1), dtype=torch.float64,
+                              device=dev)
+            ref, n_ref = rk.receive_megakernel_ref(
+                params, prim, txp, u, amp_out=amp if coh else None, **kw)
+            slack = rk.phase_slack(sf.band, rxf.adc)
+            errs.append(compare_coherent(
+                torch, acc, n_ev, ref, n_ref, amp, slack,
+                f'media {what}, point target, injected 2^14 lanes',
+                depth=MEDIA_DEPTH) if coh else compare(
+                acc, n_ev, ref, n_ref, f'media {what}, point target, '
+                'injected 2^14 lanes'))
+            # Philox at 2^24 on the example's scene: the flagship
+            # instantiation in the example's fixed sampling (its stage
+            # counts bound the timed runs below), the coherent one gated
+            se.medium = med
+            params, prim, txp, mkw = tables(se, rxe)
+            kw = dict(adc=rxe.adc, max_depth=MEDIA_DEPTH,
+                      time_sampling='gate' if coh else 'fixed',
+                      rx_kind='omni', doppler=coh, coherent=coh, **mkw)
+            lane = torch.empty(MEDIA_LANES, device=dev) if coh else None
+            lane_ref = torch.empty(MEDIA_LANES, device=dev) if coh else None
+            acc, n_ev = rk.receive_megakernel(
+                params, prim, txp, n_lanes=MEDIA_LANES, seed=SEED,
+                lane_out=lane, **kw)
+            ref, n_ref, amp, stats, ms = _plain_philox(
+                torch, rk, params, prim, txp, kw, MEDIA_LANES, MEDIA_DEPTH,
+                dev, lane_ref=lane_ref)
+            plain_ms[what] = ms
+            if not coh:
+                philox_stats[kind] = stats
+            errs.append(compare_coherent(
+                torch, acc, n_ev, ref, n_ref, amp,
+                rk.phase_slack(se.band, rxe.adc), f'media {what}, example, '
+                'philox 2^24 lanes', lane, lane_ref, depth=MEDIA_DEPTH)
+                if coh else compare(acc, n_ev, ref, n_ref,
+                                    f'media {what}, example, philox 2^24 '
+                                    'lanes'))
+
+    # one receive_cpi through a medium: config 5 with the homogeneous
+    # medium, the launch against the plain version pulse by pulse
+    md = scenes.MICRO_DOPPLER
+    s5, _ = bt.micro_doppler_scene()
+    s5.medium = kinds['homogeneous']
+    reset()
+    cube, n5 = bt.receive_cpi(s5, n_pulses=md['n_pulses'], prf=md['prf'],
+                              seed=md['seed'], spp=md['spp'],
+                              max_depth=md['max_depth'],
+                              time_sampling='gate', device=dev)
+    cpi_launches = rk.receive_megakernel_cpi.by_config['coherent_media']
+    if cpi_launches != 1 or rk.receive_megakernel.launches:
+        fail(f'media: receive_cpi launched '
+             f'{rk.receive_megakernel_cpi.by_config}, receive '
+             f'{rk.receive_megakernel.launches}')
+    spec = scenes.micro_doppler_spectrum(cube, n5).double().cpu().numpy()
+    comb = scenes.micro_doppler_comb_bins()
+    if sorted(np.argsort(spec)[::-1][:len(comb)].tolist()) != comb:
+        fail('media: config 5 through a medium left its comb')
+    packed, rx5, _ = rk.pack_cpi(s5, md['n_pulses'], md['prf'])
+    p_t = torch.tensor(packed.params, device=dev)
+    p_t[:, 0] = rk.seed_slot(md['seed'])
+    pr_t = torch.tensor(packed.prim, device=dev)
+    tx_t = torch.tensor(packed.txp, device=dev)
+    kw5 = dict(adc=rx5.adc, max_depth=md['max_depth'], time_sampling='gate',
+               rx_kind='wigner', doppler=True, coherent=True,
+               medium=packed.medium)
+    acc5, ev5 = rk.receive_megakernel_cpi(p_t, pr_t, tx_t, n_lanes=md['spp'],
+                                          seed=md['seed'], **kw5)
+    worst5 = 0.0
+    for p in range(md['n_pulses']):
+        u = rk.philox_uniforms(md['seed'], rk.n_draws(md['max_depth']),
+                               md['spp'], device=dev)
+        amp = torch.zeros((rx5.adc.n_time, 1), dtype=torch.float64,
+                          device=dev)
+        ref, n_ref = rk.receive_megakernel_ref(p_t[p], pr_t[p], tx_t[p], u,
+                                               amp_out=amp, **kw5)
+        c = compare_coherent(torch, acc5[p], ev5[p], ref, n_ref, amp,
+                             rk.phase_slack(s5.band, rx5.adc),
+                             f'media config 5 pulse {p}', depth=1,
+                             quiet=True)
+        worst5 = max(worst5, c['worst'])
+    print(f'parity media config 5 (homogeneous) receive_cpi: 64 pulses x '
+          f'2^13 lanes in one launch, worst cell at {worst5:.3f} of its '
+          f'bound; the comb on its bins')
+
+    # ---- times at 2^24 samples, depth 2, on the example's scene: the
+    #      five media in turn, then again in reverse order (each medium's
+    #      calls from both passes), so that none is timed only first ----
+    rows = {}
+    runs = (('vacuum', None), ('layered K=4', kinds['layered']),
+            ('layered K=32', scenes.stratified_layers(32)),
+            ('homogeneous', kinds['homogeneous']),
+            ('grid 8x8x128', kinds['grid']))
+    base = philox_stats['layered']
+    calls = {name: ([], []) for name, _ in runs}
+    prepared = {}
+    for name, med in runs:
+        s, rx = bt.stratified_medium_scene(med)
+        sd = s.compile(device=dev)
+        params, prim, txp, mkw = tables(s, rx, sd)
+        prepared[name] = (s, sd, rx, params, prim, txp, mkw)
+        bt.receive(s, sd, rx, spp=MEDIA_LANES, max_depth=MEDIA_DEPTH, seed=1,
+                   device=dev)
+    for order in (runs, runs[::-1]):
+        for name, _ in order:
+            s, sd, rx, params, prim, txp, mkw = prepared[name]
+            calls[name][0].extend(cuda_ms(lambda i: bt.receive(
+                s, sd, rx, spp=MEDIA_LANES, max_depth=MEDIA_DEPTH,
+                seed=2 + i, device=dev), 5)[0])
+            kw = dict(adc=rx.adc, max_depth=MEDIA_DEPTH,
+                      time_sampling='fixed', rx_kind='omni', **mkw)
+            calls[name][1].extend(cuda_ms(lambda i: rk.receive_megakernel(
+                params, prim, txp, n_lanes=MEDIA_LANES, seed=SEED, **kw),
+                6)[0][1:])
+    for name, med in runs:
+        _, _, rx, params, prim, txp, mkw = prepared[name]
+        call_ms, k_ms = calls[name]
+        med_kind = None if med is None else {
+            mt.HOMOGENEOUS: 'homogeneous', mt.LAYERED: 'layered',
+            mt.GRID: 'grid'}[med.kind]
+        ops = lane_ops(base, 2, 'ray_omni') + (
+            0 if med is None
+            else media_ops(base, med_kind, getattr(med, 'n_layers', 0)))
+        n_bytes = 4 * (params.numel() + prim.numel() + txp.numel()
+                       + rx.adc.n_time) + 8 + (
+            0 if mkw['grid'] is None else 4 * mkw['grid'].numel())
+        b = bound(ops, n_bytes, f'stratified {name} 2^24 lanes')
+        k_med = statistics.median(k_ms)
+        r_med = statistics.median(call_ms)
+        rows[name] = dict(receive_ms=r_med, kernel_ms=k_med,
+                          samples_per_s=MEDIA_LANES / (r_med * 1e-3),
+                          bound_share=b['bound_ms'] / k_med,
+                          grid_bytes=0 if mkw['grid'] is None
+                          else 4 * mkw['grid'].numel(), **b)
+        print(f'stratified {name}: receive() 2^24 samples depth 2, fixed: '
+              f'median {r_med:.3f} ms ({MEDIA_LANES / (r_med * 1e-3):.4e} '
+              f'samples/s); kernel {k_med:.3f} ms (both passes '
+              f'{[round(x, 3) for x in k_ms]}), '
+              f'{b["bound_ms"] / k_med:.1%} of its FP32 bound; grid '
+              f'{rows[name]["grid_bytes"]} B {tag}')
+    print('media stage lanes: ' + json.dumps(base))
+    print(f'media phase wall {time.perf_counter() - t_phase:.1f} s {tag}')
+    lay = rows['layered K=4']
+    return [{
+        'name': 'receive_megakernel', 'configuration': 'media',
+        'route': 'cuda',
+        'source': 'beifong_tpu_torch/csrc/receive_megakernel.cu',
+        'replaces': 'beifong_tpu/integrators/pallas_receive.py:2983',
+        'tpu_function': '_make_kernel (pallas_receive.py:106), absorbing '
+        '/ layered / grid_meta', 'row': 'K1 media',
+        'main_path': 'receive(stratified_medium_scene(med)), vacuum and '
+        'K = 4 at 2^14 and 2^24 samples, homogeneous and a uniform grid at '
+        '2^24, the half-space grid at 2^24, depth 2',
+        'launches': path_launches,
+        'max_abs_err': max(c['err'] for c in errs),
+        'parity': max(c['rel'] for c in errs), 'ms': lay['kernel_ms'],
+        'plain_ms': plain_ms['layered flagship'],
+        'receive_ms': lay['receive_ms'], 'bound_ms': lay['bound_ms'],
+        'bound_by': lay['bound_by'], 'library_ms': None,
+        'anchors': {str(k): v for k, v in anchors.items()},
+        'closed_form': want, 'uniform_grid_rel': d_u,
+        'half_grid_k1': ratios[True], 'half_grid_wavefront': ratios[False],
+        'cpi_worst': worst5, 'times': rows}]
+
+
 def rx_n_time(scene) -> int:
     return scene.receivers[0].adc.n_time
 
@@ -2574,6 +2885,7 @@ def main() -> int:
     kernels += coherent(torch, bt, rk, ik, dev, tag)
     kernels += cpi(torch, bt, rk, ik, dev, tag)
     kernels += mimo(torch, bt, rk, dev, tag)
+    kernels += media(torch, bt, rk, dev, tag)
     kernels += queries(torch, bt, dev, tag)
     k4 = k4_parity(torch, ik, dev, tag)
     k4_launches, bvh_launches = wavefront(torch, bt, ik, bk, rk, dev, tag,

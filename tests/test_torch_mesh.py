@@ -188,21 +188,27 @@ def test_pack_with_meshes_bit_identical_to_jax(kw):
         assert mesh_types == tuple(int(r[6]) for r in got.msh)
 
 
-def test_interop_still_refuses_bvh_and_medium():
-    """`.bvh` is carried over now (the eager wavefront walks it); an
-    ambient medium still raises."""
+def test_interop_carries_bvh_and_medium():
+    """`.bvh` is carried over (the eager wavefront walks it), and so is an
+    ambient medium: `SceneData.medium` is the port's medium of the JAX
+    medium's kind, with its values."""
     from beifong_tpu.media import HomogeneousMedium
+    from beifong_tpu_torch import media as mt
     s_j, _ = twin_scene('jax')
     sd_j = s_j.compile(use_bvh=True)
     leaves = jax_leaves(sd_j)
     assert any(k.startswith('.bvh') for k in leaves)
     sd = scene_data_from_numpy(leaves, port_band(sd_j.band), device='cpu')
     assert sd.bvh.n_nodes == int(np.asarray(sd_j.bvh.bb_min).shape[0])
+    assert sd.medium is None
     s_j.medium = HomogeneousMedium.make(sigma_t=0.01)
     sd_j = s_j.compile(use_bvh=False)
-    with pytest.raises(NotImplementedError, match='medium'):
-        scene_data_from_numpy(jax_leaves(sd_j), port_band(sd_j.band),
-                              device='cpu')
+    sd = scene_data_from_numpy(jax_leaves(sd_j), port_band(sd_j.band),
+                               device='cpu')
+    assert isinstance(sd.medium, mt.HomogeneousMedium)
+    assert sd.medium.kind == mt.HOMOGENEOUS
+    assert sd.medium.sigma_t.dtype == torch.float32
+    assert float(sd.medium.sigma_t) == float(np.float32(0.01))
 
 
 @pytest.mark.parametrize('kw, needle', [

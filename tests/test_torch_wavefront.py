@@ -589,14 +589,27 @@ def test_out_of_scope_receive_raises(kw, needle):
                    device='cpu', **kw)
 
 
-def test_media_raises():
-    from beifong_tpu.media import HomogeneousMedium
+def test_media_carried_across():
+    """A JAX scene's medium reaches the wavefront: `SceneData.medium` is
+    the port's medium of the same kind and values, which the trace
+    applies (tests/test_torch_media.py holds the trace against JAX)."""
+    from beifong_tpu.media import HomogeneousMedium, LayeredMedium
+    from beifong_tpu_torch import media as mt
     s_j, _ = multi_body('jax')
-    s_j.medium = HomogeneousMedium.make(sigma_t=0.01)
-    sd_j = s_j.compile(use_bvh=False)
-    with pytest.raises(NotImplementedError, match='ROADMAP A10'):
-        scene_data_from_numpy(jax_leaves(sd_j), port_band(sd_j.band),
-                              device='cpu')
+    for med_j, cls in ((HomogeneousMedium.make(sigma_t=0.01),
+                        mt.HomogeneousMedium),
+                       (LayeredMedium.make([0.0, 0.2, 0.1], -1.0, 2.0),
+                        mt.LayeredMedium)):
+        s_j.medium = med_j
+        sd_j = s_j.compile(use_bvh=False)
+        sd = scene_data_from_numpy(jax_leaves(sd_j), port_band(sd_j.band),
+                                   device='cpu')
+        assert type(sd.medium) is cls and sd.medium.kind == cls.kind
+        for f in ('sigma_t', 'sigma', 'z_min', 'z_max', 'albedo', 'g'):
+            if hasattr(med_j, f):
+                np.testing.assert_array_equal(
+                    getattr(sd.medium, f).numpy(), np.asarray(getattr(med_j,
+                                                                       f)))
 
 
 def test_sample_stream_is_keyed_philox():

@@ -19,6 +19,14 @@ configuration on multi_body (mesh) and the range-Doppler pulse
 Prints one JSON line per process, then a summary:
 per tree the median of the processes' medians and their spread, the
 ratio this / other, and the pairs this tree won.
+
+    python3 tools/tree_ab.py --other DIR --sass
+
+compares instead the machine code of K1's vacuum kernels in the two trees
+(`cuobjdump -sass` of each tree's library; a kernel that gained a
+template flag is matched to its old name) and prints, per kernel, the
+instruction counts and the instructions that differ once addresses and
+encodings are dropped.
 """
 
 from __future__ import annotations
@@ -27,6 +35,7 @@ import argparse
 import inspect
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -99,17 +108,84 @@ def child(root: str) -> dict:
     return out
 
 
+def library(root: str) -> str:
+    """The receive kernel's library built from the tree at `root`."""
+    sys.path.insert(0, root)
+    from beifong_tpu_torch.integrators import receive_kernel as rk
+    return rk.build_library().path
+
+
+def sass_of(path: str, strip_flag: bool = False) -> dict:
+    """{kernel: [instructions]} of a library's K1 kernels, without
+    addresses or encodings, keyed by name and template flags (the
+    mangled name carries a hash of the source's path); with `strip_flag`
+    a trailing false flag (the media twins' `MED`) is dropped, giving the
+    key the kernel had without the flag."""
+    cuda = os.environ.get('CUDA_HOME', '/usr/local/cuda')
+    out = subprocess.run([os.path.join(cuda, 'bin', 'cuobjdump'), '-sass',
+                          path], capture_output=True, text=True,
+                         check=True).stdout
+    funcs, key = {}, None
+    for line in out.splitlines():
+        m = re.search(r'Function : \S*?(receive_[a-z_]+_kernel)'
+                      r'(I((?:Lb[01]E)+)E)?', line)
+        if m:
+            flags = re.findall(r'Lb([01])E', m.group(3) or '')
+            if strip_flag and flags and flags[-1] == '0':
+                flags = flags[:-1]
+            key = f'{m.group(1)}<{",".join(flags)}>'
+            funcs[key] = []
+            continue
+        if 'Function :' in line:
+            key = None
+            continue
+        m = re.search(r'/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;', line)
+        if m and key is not None:
+            funcs[key].append(m.group(1))
+    return funcs
+
+
+def sass_compare(other: str) -> dict:
+    paths = {}
+    for which, root in (('other', other), ('this', HERE)):
+        res = subprocess.run([sys.executable, os.path.abspath(__file__),
+                              '--lib', root], capture_output=True,
+                             text=True, cwd=HERE, timeout=900, check=True)
+        paths[which] = [ln for ln in res.stdout.splitlines()
+                        if ln.startswith('LIB ')][-1][4:]
+    a, b = sass_of(paths['other']), sass_of(paths['this'], strip_flag=True)
+    out = {}
+    for name in sorted(set(a) & set(b)):
+        diff = [(x, y) for x, y in zip(a[name], b[name]) if x != y]
+        out[name] = dict(other=len(a[name]), this=len(b[name]),
+                         differ=len(diff) + abs(len(a[name]) - len(b[name])),
+                         first=diff[:5])
+    out['only_this'] = sorted(set(b) - set(a))
+    out['only_other'] = sorted(set(a) - set(b))
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--other', help='root of the other checkout')
     ap.add_argument('--pairs', type=int, default=3)
+    ap.add_argument('--sass', action='store_true',
+                    help="compare K1's machine code instead of timing")
     ap.add_argument('--child', help='(internal) time the tree at this root')
+    ap.add_argument('--lib', help="(internal) build the tree's K1 library")
     args = ap.parse_args()
     if args.child:
         print('RESULT ' + json.dumps(child(os.path.abspath(args.child))))
         return 0
+    if args.lib:
+        print('LIB ' + library(os.path.abspath(args.lib)))
+        return 0
     if not args.other:
         ap.error('--other DIR is required')
+    if args.sass:
+        for name, d in sass_compare(os.path.abspath(args.other)).items():
+            print(f'SASS {name}: {json.dumps(d)}')
+        return 0
     sys.path.insert(0, HERE)
     import chip_smoke
     card = chip_smoke.card_line()
