@@ -16,4 +16,5 @@ from .scenes import (flagship_scene, mesh_scene,  # noqa: F401
                      fmcw_sonar_scene, fmcw_scene, pulse_train_scene,
                      fmcw_dechirp_scene, corner_scene,
                      micro_doppler_scene, mimo_beamform_scene,
-                     stratified_medium_scene)
+                     stratified_medium_scene, phased_tx_scene,
+                     phased_rx_scene, four_tx_scene)

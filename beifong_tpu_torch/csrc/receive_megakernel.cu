@@ -21,6 +21,20 @@
 // the read-only path (__ldg, L1), not in shared memory: the Doppler
 // family's four blocks an SM already hold their splat grids there, and a
 // lane reads 16 cells a segment and a connection only where it hits.
+// Each vacuum instantiation also has an endpoint twin (EP; the JAX
+// kernel's n_tx > 1, tx_kinds and rx_kind 'phased' without mimo_e,
+// :1066-1119, 1558-1720, 2703-2722, 2816-2820): up to MAX_TX transmitter
+// rows of mixed kinds (Wigner, phased, area; Cfg.n_tx, the kind read off
+// each row, warp-uniform) in shared memory, a direct hit counted for the
+// transmitter the lane hit, NEE to every transmitter in row order with its
+// own three draws (the draw stride of a depth is 3 + 3 n_tx), its own
+// shadow test (its own rectangle never blocks it; the others' do) and its
+// own phase pivots; a phased transmitter's aperture weight and an analog
+// phased receiver's ray weight are the cross-WDF pair sums (pair_sum), in
+// ascending pair order, over pair rows read through the read-only path
+// (Cfg.php, Cfg.rxph).  The EP twins run in vacuum: a scene with these
+// endpoints and a medium runs on the wavefront.  The vacuum and media
+// instantiations (EP false) compile as they did without it.
 //
 // Replaces the TPU kernel beifong_tpu/integrators/pallas_receive.py::
 // _make_kernel (launched by _run's pl.pallas_call) in its analytic /
@@ -170,7 +184,8 @@
 // tensor instead (parity with the plain version and the JAX package).
 // Draw indices are positional (trace_lane: 0 time, 1 the frequency draw
 // where the JAX kernel's sequential draws take one: raw receive with
-// n_freq > 1, or mixer's beat; then the ray draws, then six per depth),
+// n_freq > 1, or mixer's beat; then the ray draws, then 3 + 3 n_tx per
+// depth: six with one transmitter),
 // so a lane that leaves the loop early skips its remaining draws without
 // shifting anyone's stream.
 
@@ -193,6 +208,11 @@ constexpr float CW = 0.0f;
 constexpr float LINFMCW = 2.0f;
 constexpr float CONDUCTOR = 1.0f;
 constexpr float ROUGH_CONDUCTOR = 2.0f;
+// transmitter kinds (txp column 27) and the endpoint twins' table: up to
+// MAX_TX transmitter rows in shared memory
+constexpr float TX_PHASED = 1.0f;
+constexpr float TX_AREA = 2.0f;
+constexpr int MAX_TX = 4;
 constexpr int DOP_THREADS = 128;   // threads per block, Doppler config
 // The MIMO kernel's blocks an SM: at 4 it fits 127 registers with no
 // spill; 3 and 2 give it 137 and 139 (ptxas on the H100, PERF.md)
@@ -242,6 +262,19 @@ struct Cfg {
     int medium;
     int g_d, g_h, g_w;
     const float* grid;
+    // the endpoint twins (EP): n_tx transmitter rows (txp[:, 27] their
+    // kinds); a phased transmitter's pair rows php, n_tx x php_cols floats
+    // (the element half-widths, then n_pairs x (mid_s, mid_t, base_s,
+    // base_t, psi, valid)); an analog phased receiver (rx_phased) and its
+    // pair row rxph (2 + 6 n_rx_pairs floats).  Both tables stay in device
+    // memory behind the read-only path, as the media grid does.
+    int n_tx;
+    int rx_phased;
+    const float* php;
+    int php_cols;
+    int n_pairs;
+    const float* rxph;
+    int n_rx_pairs;
 };
 
 __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
@@ -619,6 +652,99 @@ struct Tx {
     }
 };
 
+// Transmitter row r of the endpoint twins' table in shared memory: the
+// fields the lane reads, loaded where it reads them (the block wrote each
+// row's unit normal into its free columns 29-31).
+__device__ __forceinline__ Tx tx_row(const float* r) {
+    Tx t;
+    t.m = r;
+    t.wx = r[12];
+    t.wy = r[13];
+    t.area = r[14];
+    t.gain = r[15];
+    t.wf = r[16];
+    t.amp = r[17];
+    t.prf = r[18];
+    t.text = r[19];
+    t.fc = r[20];
+    t.fext = r[21];
+    t.nx = r[29];
+    t.ny = r[30];
+    t.nz = r[31];
+    t.vx = r[24];
+    t.vy = r[25];
+    t.vz = r[26];
+    t.w = Wave{r + 16, r + 28};
+    return t;
+}
+
+// A phased array's cross-WDF gain at p toward (dex, dey, dez) at
+// wavelength lam (pallas_receive.py::_pair_sum :1066-1104): over its pair
+// row `row` (the element half-widths, then per pair (mid_s, mid_t, base_s,
+// base_t, psi, valid) along the unit in-plane axes s, t from the array
+// centre o), in ascending pair order, each pair's element rectangle WDF
+// inside its footprint times fast_cos of its interference phase.  The row
+// is read through the read-only path; the loop is not unrolled (up to 64
+// pairs), and a pair whose footprint does not hold p adds nothing, so its
+// WDF and phase are skipped (the plain version adds its 0).
+__device__ float pair_sum(const float* __restrict__ row, int n_k, float snx,
+                          float sny, float snz, float tnx, float tny,
+                          float tnz, float ox, float oy, float oz, float px,
+                          float py, float pz, float dex, float dey,
+                          float dez, float lam) {
+    const float TP = F(6.283185307179586);
+    float nu_x = (dex * snx + dey * sny + dez * snz) / lam;
+    float nu_y = (dex * tnx + dey * tny + dez * tnz) / lam;
+    const float wid_s = __ldg(row), wid_t = __ldg(row + 1);
+    const float iws = 1.0f / fmaxf(2.0f * wid_s, F(1e-20));
+    const float iwt = 1.0f / fmaxf(2.0f * wid_t, F(1e-20));
+    float total = 0.0f;
+#pragma unroll 1
+    for (int k = 0; k < n_k; ++k) {
+        const float* q = row + 2 + 6 * k;
+        const float mid_s = __ldg(q), mid_t = __ldg(q + 1);
+        float mx = ox + mid_s * snx + mid_t * tnx;
+        float my = oy + mid_s * sny + mid_t * tny;
+        float mz = oz + mid_s * snz + mid_t * tnz;
+        float rlx = px - mx, rly = py - my, rlz = pz - mz;
+        float rx_ = (rlx * snx + rly * sny + rlz * snz) * iws;
+        float ry_ = (rlx * tnx + rly * tny + rlz * tnz) * iwt;
+        if (!(fabsf(rx_) <= 0.5f && fabsf(ry_) <= 0.5f)) continue;
+        const float val_k = __ldg(q + 5);
+        if (val_k == 0.0f) continue;
+        float txr = tri_f(rx_), tyr = tri_f(ry_);
+        float w_rect = 4.0f * wid_s * wid_t * txr * tyr
+                       * sinc_f(TP * nu_x * wid_s * txr)
+                       * sinc_f(TP * nu_y * wid_t * tyr);
+        float ph = TP * (nu_x * __ldg(q + 2) + nu_y * __ldg(q + 3))
+                   + __ldg(q + 4);
+        total = total + w_rect * fast_cos(ph) * val_k;
+    }
+    return total;
+}
+
+// Transmitter t's aperture weight for radiation leaving its point p
+// (local (lx, ly) in [-1, 1]^2) along (ex, ey, ez) at wavelength lam, by
+// its kind: the rect Wigner weight, the phased cross-WDF over its pair row
+// (toward -e, its frame from its rectangle) or 1 (area).
+__device__ __forceinline__ float tx_gain(const Tx& tr, int t, const Cfg& cfg,
+                                         float lx, float ly, float px,
+                                         float py, float pz, float ex,
+                                         float ey, float ez, float lam) {
+    const float kind = tr.m[27];
+    if (kind == TX_AREA) return 1.0f;
+    if (kind == TX_PHASED) {
+        const float* m = tr.m;
+        float iwx = 1.0f / fmaxf(tr.wx, F(1e-20));
+        float iwy = 1.0f / fmaxf(tr.wy, F(1e-20));
+        return pair_sum(cfg.php + t * cfg.php_cols, cfg.n_pairs, m[0] * iwx,
+                        m[4] * iwx, m[8] * iwx, m[1] * iwy, m[5] * iwy,
+                        m[9] * iwy, m[3], m[7], m[11], px, py, pz, -ex, -ey,
+                        -ez, lam);
+    }
+    return tr.aperture(lx, ly, ex, ey, ez, lam);
+}
+
 // Ray against the unit rectangle of one prim row (to_object at cols 1..12).
 __device__ __forceinline__ bool rect_hit(const float* q, float cx, float cy,
                                          float cz, float dx, float dy,
@@ -914,7 +1040,8 @@ __device__ float seg_tau(const Cfg& cfg, const float* sp, float ox, float oy,
 // configuration a lane's sum is of its amplitudes sqrt(max(power, 0)):
 // they bound how far a lane on another path can move a cell's I or Q
 // (MIMO: the same amplitudes, shared by every element's pair).
-template <bool MESH, bool DOP, bool COH, bool MIMO = false, bool MED = false>
+template <bool MESH, bool DOP, bool COH, bool MIMO = false, bool MED = false,
+          bool EP = false>
 __device__ float trace_lane(const Cfg& cfg, const float* sp,
                             const float* prim, const float* msh,
                             const Tx& tx, const Wave& lo,
@@ -988,6 +1115,49 @@ __device__ float trace_lane(const Cfg& cfg, const float* sp,
         ox = rxm[3] + F(1e-4) * nzx;
         oy = rxm[7] + F(1e-4) * nzy;
         oz = rxm[11] + F(1e-4) * nzz;
+        base = r0 + 4;
+    } else if (EP && cfg.rx_phased) {
+        // the analog phased array (pallas_receive.py:465-513, 1111-1119):
+        // a point uniform over its bounding rectangle (half-extents
+        // sp[30:32]), the cosine hemisphere about its normal, weighted by
+        // pi x its area and its cross-WDF at the ray
+        float u1 = dr.get(r0), u2 = dr.get(r0 + 1);
+        float iwx = 1.0f / fmaxf(rx_wx, F(1e-20));
+        float iwy = 1.0f / fmaxf(rx_wy, F(1e-20));
+        float snx = rxm[0] * iwx, sny = rxm[4] * iwx, snz = rxm[8] * iwx;
+        float tnx = rxm[1] * iwy, tny = rxm[5] * iwy, tnz = rxm[9] * iwy;
+        float lxr = (2.0f * u1 - 1.0f) * sp[30];
+        float lyr = (2.0f * u2 - 1.0f) * sp[31];
+        ox = rxm[3] + lxr * snx + lyr * tnx;
+        oy = rxm[7] + lxr * sny + lyr * tny;
+        oz = rxm[11] + lxr * snz + lyr * tnz;
+        float nzx = rxm[2], nzy = rxm[6], nzz = rxm[10];
+        float nn = rsqrtf(nzx * nzx + nzy * nzy + nzz * nzz);
+        nzx = nzx * nn;
+        nzy = nzy * nn;
+        nzz = nzz * nn;
+        float u3 = dr.get(r0 + 2), u4 = dr.get(r0 + 3);
+        float rr = sqrtf(u3);
+        float ph = TP * u4;
+        float tx_ = rr * fast_cos(ph), ty_ = rr * fast_sin(ph);
+        float tz = sqrtf(fmaxf(1.0f - u3, 0.0f));
+        float sign = sgn_ge(nzz);
+        float a = -1.0f / (sign + nzz);
+        float b = nzx * nzy * a;
+        float s1x = 1.0f + sign * nzx * nzx * a, s1y = sign * b,
+              s1z = -sign * nzx;
+        float s2x = b, s2y = sign + nzy * nzy * a, s2z = -nzy;
+        dx = s1x * tx_ + s2x * ty_ + nzx * tz;
+        dy = s1y * tx_ + s2y * ty_ + nzy * tz;
+        dz = s1z * tx_ + s2z * ty_ + nzz * tz;
+        float lam = cvel / fmaxf(f_rx, F(1e-6));
+        float w0 = F(4.0 * 3.141592653589793) * sp[30] * sp[31] * sp[32];
+        ox = ox + F(1e-4) * nzx;
+        oy = oy + F(1e-4) * nzy;
+        oz = oz + F(1e-4) * nzz;
+        thr = w0 * pair_sum(cfg.rxph, cfg.n_rx_pairs, snx, sny, snz, tnx,
+                            tny, tnz, rxm[3], rxm[7], rxm[11], ox, oy, oz, dx,
+                            dy, dz, lam);
         base = r0 + 4;
     } else if (cfg.omni) {
         ox = rxm[3];
@@ -1086,8 +1256,9 @@ __device__ float trace_lane(const Cfg& cfg, const float* sp,
     // MIMO: the first vertex less the origin, and its length
     float v0x = 0.0f, v0y = 0.0f, v0z = 0.0f, r0m = 0.0f;
     for (int depth = 0; depth < cfg.max_depth; ++depth) {
-        // draws of this depth: u_dh, u5, u6, u7, then u8, u9
-        const int d0 = base + 6 * depth;
+        // draws of this depth: u_dh, u5, u6, u7 (EP: three a
+        // transmitter), then u8, u9
+        const int d0 = base + (EP ? 3 + 3 * cfg.n_tx : 6) * depth;
         // ---- closest hit over the rectangles ----
         float tb = F(3.4e38), nx = 0.0f, ny = 0.0f, nz = 0.0f, rb = 0.0f,
               txc = -1.0f;
@@ -1165,8 +1336,49 @@ __device__ float trace_lane(const Cfg& cfg, const float* sp,
         }
 
         // ---- direct transmitter hits: at depth 0, and after a mirror
-        //      bounce (NEE covers the rest) ----
-        if (depth == 0 || wdel) {
+        //      bounce (NEE covers the rest); EP: the transmitter the lane
+        //      hit, with its kind's aperture weight ----
+        if constexpr (EP) {
+            if ((depth == 0 || wdel) && txc >= 0.0f) {
+              const int t = (int)txc;
+              const Tx tr = tx_row(tx.m + t * TXP_COLS);
+              float cos_dh = -(dx * tr.nx + dy * tr.ny + dz * tr.nz);
+              if (cos_dh > 0.0f) {
+                const float* m = tr.m;
+                float te_h, tr_h, wg_h, k_h = 0.0f;
+                tr.emission(plen / cvel, dr.get(d0), t_rx0, cfg.gate,
+                            t_start, t_window, &te_h, &tr_h, &wg_h,
+                            COH ? &k_h : nullptr);
+                float fe_h = tr.inst_freq(te_h);
+                float sig_h = tr.eval_wdf(te_h, fe_h);
+                float lam_h = cvel / fmaxf(fe_h, F(1e-6));
+                float lxh = ((hx - m[3]) * m[0] + (hy - m[7]) * m[4]
+                             + (hz - m[11]) * m[8])
+                            / fmaxf(tr.wx * tr.wx, F(1e-12));
+                float lyh = ((hx - m[3]) * m[1] + (hy - m[7]) * m[5]
+                             + (hz - m[11]) * m[9])
+                            / fmaxf(tr.wy * tr.wy, F(1e-12));
+                float ap_h = tx_gain(tr, t, cfg, lxh, lyh, hx, hy, hz, dx, dy,
+                                     dz, lam_h);
+                float w_dh = sig_h * tr.gain * ap_h * TP;
+                float val_h = thr * w_dh * wg_h;
+                float yb_h = (tr_h - t_start) / t_window * n_time_f - 0.5f;
+                float lv = val_h;   // the lane sum's share
+                if constexpr (MIMO)
+                    lv = mimo_splat(grid, cfg, tr, lo, sp, val_h, yb_h,
+                                    fe_h * dop, tr_h, plen, te_h, k_h, 0,
+                                    v0x, v0y, v0z, r0m);
+                else if constexpr (DOP)
+                    lv = conn_splat<COH>(grid, cfg, tr, lo, sp, val_h, yb_h,
+                                         fe_h * dop, tr_h, plen, te_h, k_h,
+                                         0);
+                else
+                    splat(hist, T, cfg.n_time, val_h, yb_h);
+                *events += val_h != 0.0f;
+                if constexpr (MESH || DOP) lane_sum += lv;
+              }
+            }
+        } else if (depth == 0 || wdel) {
             float cos_dh = -(dx * tx.nx + dy * tx.ny + dz * tx.nz);
             if (txc == 0.0f && cos_dh > 0.0f) {
                 const float* m = tx.m;
@@ -1204,8 +1416,112 @@ __device__ float trace_lane(const Cfg& cfg, const float* sp,
         }
 
         // ---- NEE to the transmitter (only from non-transmitter hits; a
-        //      mirror's delta lobe has no density toward it) ----
-        if (txc < 0.0f && !is_m) {
+        //      mirror's delta lobe has no density toward it); EP: to every
+        //      transmitter in row order, each with its three draws, its
+        //      kind's aperture weight and its own shadow test ----
+        if constexpr (EP) {
+#pragma unroll 1
+            for (int t = 0; t < cfg.n_tx && txc < 0.0f && !is_m; ++t) {
+                const Tx tr = tx_row(tx.m + t * TXP_COLS);
+                const float* m = tr.m;
+                const int dn = d0 + 1 + 3 * t;
+                float glx = 2.0f * dr.get(dn) - 1.0f;
+                float gly = 2.0f * dr.get(dn + 1) - 1.0f;
+                float qx = m[0] * glx + m[1] * gly + m[3];
+                float qy = m[4] * glx + m[5] * gly + m[7];
+                float qz = m[8] * glx + m[9] * gly + m[11];
+                float vx = qx - hx, vy = qy - hy, vz = qz - hz;
+                float dist2 = vx * vx + vy * vy + vz * vz;
+                float dist = sqrtf(fmaxf(dist2, F(1e-20)));
+                float inv_d = 1.0f / dist;
+                float wx_ = vx * inv_d, wy_ = vy * inv_d, wz_ = vz * inv_d;
+                float cos_tx = -(wx_ * tr.nx + wy_ * tr.ny + wz_ * tr.nz);
+                if (cos_tx > F(1e-6)) {
+                    float pdf_sa = (1.0f / fmaxf(tr.area, F(1e-12))) * dist2
+                                   / fmaxf(cos_tx, F(1e-6));
+                    float cos_s = wx_ * nx + wy_ * ny + wz_ * nz;
+                    float f_cos;
+                    if (is_ggx) {
+                        f_cos = ggx_fcos(rb, ab, eb, kk, nx, ny, nz, -dx, -dy,
+                                         -dz, wx_, wy_, wz_);
+                    } else {
+                        float sg = sgn_ge(-dx * nx + -dy * ny + -dz * nz);
+                        float co = wx_ * (nx * sg) + wy_ * (ny * sg)
+                                   + wz_ * (nz * sg);
+                        f_cos = rb * F(1.0 / 3.141592653589793)
+                                * fmaxf(co, 0.0f);
+                    }
+                    float t_emit, t_recv, w_gate, k_nee = 0.0f;
+                    tr.emission((plen + dist) / cvel, dr.get(dn + 2), t_rx0,
+                                cfg.gate, t_start, t_window, &t_emit, &t_recv,
+                                &w_gate, COH ? &k_nee : nullptr);
+                    float f_emit = tr.inst_freq(t_emit);
+                    float sig = tr.eval_wdf(t_emit, f_emit);
+                    float ap = tx_gain(tr, t, cfg, glx, gly, qx, qy, qz, wx_,
+                                       wy_, wz_,
+                                       cvel / fmaxf(f_emit, F(1e-6)));
+                    float w_tx = sig * tr.gain * ap * TP;
+                    float off = F(1e-4) * sign0(cos_s);
+                    float sx = hx + off * nx, sy = hy + off * ny,
+                          sz = hz + off * nz;
+                    float limit = dist * F(0.999);
+                    bool occ = false;
+                    for (int p = 0; p < cfg.n_prims && !occ; ++p) {
+                        const float* row = prim + p * PRIM_COLS;
+                        // transmitter t's own rectangle (t in column 14)
+                        // never occludes its NEE; the others' do
+                        if (row[14] == (float)t || (int)row[0] != RECTANGLE)
+                            continue;
+                        float t_p;
+                        bool hit_p = rect_hit(row + 1, sx, sy, sz, wx_, wy_,
+                                              wz_, &t_p);
+                        occ = hit_p && t_p > F(1e-4) && t_p < limit;
+                    }
+                    if constexpr (MESH) {
+                        if (!occ) {
+                            bvh::Any sh;
+                            sh.limit = limit;
+                            bvh::walk(lane_tables<DOP>(mesh, cfg),
+                                      bvh::make_ray(sx, sy, sz, wx_, wy_, wz_),
+                                      sh);
+                            occ = sh.occ;
+                        }
+                    }
+                    if (!occ && pdf_sa > 0.0f) {
+                        float val = thr * f_cos * w_tx * w_gate
+                                    / fmaxf(pdf_sa, F(1e-30));
+                        float yb = (t_recv - t_start) / t_window * n_time_f
+                                   - 0.5f;
+                        float lv = val;
+                        if constexpr (DOP) {
+                            // connection Doppler: the vertex's bounce and the
+                            // transmitter's motion; the phase adds the
+                            // boundary phase of depth + 1 vertices
+                            float dop_vtx = 1.0f + ((wx_ - dx) * vbx
+                                                    + (wy_ - dy) * vby
+                                                    + (wz_ - dz) * vbz) / cvel;
+                            float dop_tx = 1.0f - (wx_ * tr.vx + wy_ * tr.vy
+                                                   + wz_ * tr.vz) / cvel;
+                            if constexpr (MIMO)
+                                lv = mimo_splat(
+                                    grid, cfg, tr, lo, sp, val, yb,
+                                    f_emit * dop * dop_vtx * dop_tx, t_recv,
+                                    plen + dist, t_emit, k_nee, depth + 1,
+                                    v0x, v0y, v0z, r0m);
+                            else
+                                lv = conn_splat<COH>(
+                                    grid, cfg, tr, lo, sp, val, yb,
+                                    f_emit * dop * dop_vtx * dop_tx, t_recv,
+                                    plen + dist, t_emit, k_nee, depth + 1);
+                        } else {
+                            splat(hist, T, cfg.n_time, val, yb);
+                        }
+                        *events += val != 0.0f;
+                        if constexpr (MESH || DOP) lane_sum += lv;
+                    }
+                }
+            }
+        } else if (txc < 0.0f && !is_m) {
             const float* m = tx.m;
             float glx = 2.0f * dr.get(d0 + 1) - 1.0f;
             float gly = 2.0f * dr.get(d0 + 2) - 1.0f;
@@ -1313,7 +1629,9 @@ __device__ float trace_lane(const Cfg& cfg, const float* sp,
 
             // ---- diffuse bounce: cosine hemisphere about the flipped
             //      normal ----
-            float u8 = dr.get(d0 + 4), u9 = dr.get(d0 + 5);
+            // (EP: after each transmitter's three NEE draws)
+            const int db = EP ? d0 + 1 + 3 * cfg.n_tx : d0 + 4;
+            float u8 = dr.get(db), u9 = dr.get(db + 1);
             float face = -(dx * nx + dy * ny + dz * nz);
             float sgn = sgn_ge(face);
             float fx = nx * sgn, fy = ny * sgn, fz = nz * sgn;
@@ -1340,7 +1658,9 @@ __device__ float trace_lane(const Cfg& cfg, const float* sp,
 
             // ---- bounce: cosine hemisphere (diffuse) or a GGX half
             //      vector about the flipped normal ----
-            float u8 = dr.get(d0 + 4), u9 = dr.get(d0 + 5);
+            // (EP: after each transmitter's three NEE draws)
+            const int db = EP ? d0 + 1 + 3 * cfg.n_tx : d0 + 4;
+            float u8 = dr.get(db), u9 = dr.get(db + 1);
             float face = -(dx * nx + dy * ny + dz * nz);
             float sgn = sgn_ge(face);
             float fx = nx * sgn, fy = ny * sgn, fz = nz * sgn;
@@ -1413,8 +1733,11 @@ __device__ float trace_lane(const Cfg& cfg, const float* sp,
 // a CPI of P pulses is one launch of gridDim.x blocks a pulse; the
 // reduce then sums each pulse's rows apart.  The MIMO configuration also
 // copies the receiver row's element half-widths and the element offsets
-// (rxph, eoff) into shared memory, before its grid of doubles.
-template <bool MESH, bool DOP, bool COH, bool MIMO = false, bool MED = false>
+// (rxph, eoff) into shared memory, before its grid of doubles.  The
+// endpoint twins (EP) hold up to MAX_TX transmitter rows there, each with
+// its unit normal written into its free columns 29-31.
+template <bool MESH, bool DOP, bool COH, bool MIMO = false, bool MED = false,
+          bool EP = false>
 __device__ __forceinline__ void trace_block(
     const float* __restrict__ params, const float* __restrict__ prim,
     const float* __restrict__ txp, const float* __restrict__ msh,
@@ -1423,18 +1746,23 @@ __device__ __forceinline__ void trace_block(
     unsigned long long* __restrict__ part_ev, const Cfg& cfg,
     const float* __restrict__ rxph = nullptr,
     const float* __restrict__ eoff = nullptr) {
+    static_assert(!(EP && MED), "the endpoint twins run in vacuum");
+    constexpr int TX_FLOATS = EP ? MAX_TX * TXP_COLS : TXP_COLS;
     extern __shared__ float smem[];
     const int T = blockDim.x, tid = threadIdx.x;
     const long long pulse = blockIdx.y;
     params += pulse * cfg.n_params;
     prim += pulse * cfg.n_prims * PRIM_COLS;
-    txp += pulse * TXP_COLS;
+    if constexpr (EP)
+        txp += pulse * cfg.n_tx * TXP_COLS;
+    else
+        txp += pulse * TXP_COLS;
     if (msh != nullptr) msh += pulse * cfg.n_msh * MSH_COLS;
     float* s_par = smem;
     float* s_prim = s_par + cfg.n_params;
     float* s_tx = s_prim + cfg.n_prims * PRIM_COLS;
-    float* hist = s_tx + TXP_COLS;      // flagship / mesh: private rows
-    float* s_msh = s_tx + TXP_COLS;     // Doppler: mesh-shape rows, grid
+    float* hist = s_tx + TX_FLOATS;      // flagship / mesh: private rows
+    float* s_msh = s_tx + TX_FLOATS;     // Doppler: mesh-shape rows, grid
     float* s_grid = s_msh + cfg.n_msh * MSH_COLS;
     // grid values: one a cell, I and Q interleaved, or (MIMO) an I / Q
     // pair an element
@@ -1446,7 +1774,10 @@ __device__ __forceinline__ void trace_block(
         smem + (((s_mimo - smem) + 2 + 3 * cfg.n_elem + 1) & ~1));
     for (int i = tid; i < cfg.n_params; i += T) s_par[i] = params[i];
     for (int i = tid; i < cfg.n_prims * PRIM_COLS; i += T) s_prim[i] = prim[i];
-    for (int i = tid; i < TXP_COLS; i += T) s_tx[i] = txp[i];
+    if constexpr (EP)
+        for (int i = tid; i < cfg.n_tx * TXP_COLS; i += T) s_tx[i] = txp[i];
+    else
+        for (int i = tid; i < TXP_COLS; i += T) s_tx[i] = txp[i];
     if constexpr (MIMO) {
         for (int i = tid; i < cfg.n_msh * MSH_COLS; i += T) s_msh[i] = msh[i];
         for (int i = tid; i < 2; i += T) s_mimo[i] = rxph[i];
@@ -1461,6 +1792,18 @@ __device__ __forceinline__ void trace_block(
         for (int i = tid; i < cfg.n_time * T; i += T) hist[i] = 0.0f;
     }
     __syncthreads();
+    if constexpr (EP) {
+        // each transmitter row's unit normal (to_world column 2)
+        for (int t = tid; t < cfg.n_tx; t += T) {
+            float* r = s_tx + t * TXP_COLS;
+            float tnn = rsqrtf(fmaxf(r[2] * r[2] + r[6] * r[6]
+                                     + r[10] * r[10], F(1e-20)));
+            r[29] = r[2] * tnn;
+            r[30] = r[6] * tnn;
+            r[31] = r[10] * tnn;
+        }
+        __syncthreads();
+    }
 
     Tx tx;
     tx.m = s_tx;
@@ -1521,7 +1864,7 @@ __device__ __forceinline__ void trace_block(
          lane += stride) {
         dr.lane = lane;
         dr.group = -1;
-        float v = trace_lane<MESH, DOP, COH, MIMO, MED>(
+        float v = trace_lane<MESH, DOP, COH, MIMO, MED, EP>(
             cfg, s_par, s_prim, s_msh, tx, lo, mesh_b, dr, my_hist, T, grid,
             &events);
         if constexpr (DOP) {
@@ -1569,8 +1912,10 @@ __device__ __forceinline__ void trace_block(
 
 // The flagship and mesh kernels carry no launch bounds: a bound of 256
 // threads alone moves the flagship from 95 registers to 96.  Each kernel
-// below has a media twin (MED), the same body through an ambient medium.
-template <bool MESH, bool MED>
+// below has a media twin (MED), the same body through an ambient medium,
+// and an endpoint twin (EP), the same body with up to MAX_TX transmitters
+// of mixed kinds and an analog phased receiver, in vacuum.
+template <bool MESH, bool MED, bool EP = false>
 __global__ void receive_trace_kernel(const float* __restrict__ params,
                                      const float* __restrict__ prim,
                                      const float* __restrict__ txp,
@@ -1581,7 +1926,7 @@ __global__ void receive_trace_kernel(const float* __restrict__ params,
                                      double* __restrict__ partial,
                                      unsigned long long* __restrict__ part_ev,
                                      Cfg cfg) {
-    trace_block<MESH, false, false, false, MED>(
+    trace_block<MESH, false, false, false, MED, EP>(
         params, prim, txp, msh, uniforms, mesh, lane_val, partial, part_ev,
         cfg);
 }
@@ -1591,7 +1936,7 @@ __global__ void receive_trace_kernel(const float* __restrict__ params,
 // Doppler mesh instantiation to 135 registers, three blocks an SM, and
 // multi_body's kernel 13% slower (tools/tree_ab.py); bounded, it spills a
 // few bytes and runs as fast as before.
-template <bool MESH, bool COH, bool MED>
+template <bool MESH, bool COH, bool MED, bool EP = false>
 __global__ void __launch_bounds__(DOP_THREADS, 4)
 receive_doppler_kernel(const float* __restrict__ params,
                        const float* __restrict__ prim,
@@ -1601,14 +1946,14 @@ receive_doppler_kernel(const float* __restrict__ params,
                        float* __restrict__ lane_val,
                        double* __restrict__ partial,
                        unsigned long long* __restrict__ part_ev, Cfg cfg) {
-    trace_block<MESH, true, COH, false, MED>(params, prim, txp, msh,
-                                             uniforms, mesh, lane_val,
-                                             partial, part_ev, cfg);
+    trace_block<MESH, true, COH, false, MED, EP>(params, prim, txp, msh,
+                                                 uniforms, mesh, lane_val,
+                                                 partial, part_ev, cfg);
 }
 
 // The MIMO configuration: the coherent one of a phased array on analytic
 // scenes, in 128-thread blocks of its own launch bounds.
-template <bool MED>
+template <bool MED, bool EP = false>
 __global__ void __launch_bounds__(DOP_THREADS, MIMO_MIN_BLOCKS)
 receive_mimo_kernel(const float* __restrict__ params,
                     const float* __restrict__ prim,
@@ -1620,21 +1965,21 @@ receive_mimo_kernel(const float* __restrict__ params,
                     unsigned long long* __restrict__ part_ev, Cfg cfg,
                     const float* __restrict__ rxph,
                     const float* __restrict__ eoff) {
-    trace_block<false, true, true, true, MED>(params, prim, txp, msh,
-                                              uniforms, mesh, lane_val,
-                                              partial, part_ev, cfg, rxph,
-                                              eoff);
+    trace_block<false, true, true, true, MED, EP>(params, prim, txp, msh,
+                                                  uniforms, mesh, lane_val,
+                                                  partial, part_ev, cfg, rxph,
+                                                  eoff);
 }
 
 // The kernel of a configuration.
-template <bool MESH, bool DOP, bool COH, bool MIMO, bool MED>
+template <bool MESH, bool DOP, bool COH, bool MIMO, bool MED, bool EP>
 constexpr auto kernel_of() {
     if constexpr (MIMO)
-        return receive_mimo_kernel<MED>;
+        return receive_mimo_kernel<MED, EP>;
     else if constexpr (DOP)
-        return receive_doppler_kernel<MESH, COH, MED>;
+        return receive_doppler_kernel<MESH, COH, MED, EP>;
     else
-        return receive_trace_kernel<MESH, MED>;
+        return receive_trace_kernel<MESH, MED, EP>;
 }
 
 // Fixed-order sum of each pulse's per-block partials (n_rows of n_cells
@@ -1671,16 +2016,17 @@ int threads_for(int n_time) {
     return (t / 32) * 32;
 }
 
-template <bool MESH, bool DOP, bool COH, bool MIMO, bool MED>
+template <bool MESH, bool DOP, bool COH, bool MIMO, bool MED, bool EP>
 int geometry(int n_time, int n_freq, long long n_lanes, int n_prims,
              int n_params, int n_msh, int mode, int n_pulses, int n_elem,
              int* blocks, int* threads, int* smem_bytes) {
+    constexpr int TX_FLOATS = EP ? MAX_TX * TXP_COLS : TXP_COLS;
     int T, smem;
     if (MIMO) {
         // tables, element half-widths and offsets, padded to 8 bytes,
         // then the grid of doubles
         T = DOP_THREADS;
-        int floats = n_params + n_prims * PRIM_COLS + TXP_COLS
+        int floats = n_params + n_prims * PRIM_COLS + TX_FLOATS
                      + n_msh * MSH_COLS + 2 + 3 * n_elem;
         floats = (floats + 1) & ~1;
         long long vals = mode == 1 ? (long long)n_time * 2 * n_elem : 0;
@@ -1690,20 +2036,20 @@ int geometry(int n_time, int n_freq, long long n_lanes, int n_prims,
         long long cells = mode == 1 ? (long long)n_time * n_freq
                                           * (COH ? 2 : 1)
                                     : 0;
-        smem = (int)(4 * (n_params + n_prims * PRIM_COLS + TXP_COLS
+        smem = (int)(4 * (n_params + n_prims * PRIM_COLS + TX_FLOATS
                           + n_msh * MSH_COLS + cells));
     } else {
         T = threads_for(n_time);
         if (T < 32) return (int)cudaErrorInvalidValue;
-        smem = 4 * (n_params + n_prims * PRIM_COLS + TXP_COLS + n_time * T);
+        smem = 4 * (n_params + n_prims * PRIM_COLS + TX_FLOATS + n_time * T);
     }
     cudaError_t err = cudaFuncSetAttribute(
-        kernel_of<MESH, DOP, COH, MIMO, MED>(),
+        kernel_of<MESH, DOP, COH, MIMO, MED, EP>(),
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
     int per_sm = 0;
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, kernel_of<MESH, DOP, COH, MIMO, MED>(), T, smem);
+        &per_sm, kernel_of<MESH, DOP, COH, MIMO, MED, EP>(), T, smem);
     if (err != cudaSuccess) return (int)err;
     if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
     int dev = 0, sms = 0;
@@ -1732,8 +2078,9 @@ int geometry(int n_time, int n_freq, long long n_lanes, int n_prims,
 // (mode 1 block-shared grid, 2 global grid; analytic or mesh) or coherent
 // configuration (coh == 1, mode 1 or 2), or the MIMO configuration of
 // n_elem > 0 elements (analytic, coherent, mode 1 or 2), of the
-// configuration's media twin with MED.  Returns a cudaError_t.
-template <bool MED>
+// configuration's media twin with MED, its endpoint twin with EP.  Returns
+// a cudaError_t.
+template <bool MED, bool EP>
 int geometry_of(int n_time, int n_freq, long long n_lanes, int n_prims,
                 int n_params, int n_msh, int mesh, int mode, int coh,
                 int n_pulses, int n_elem, int* blocks, int* threads,
@@ -1745,30 +2092,32 @@ int geometry_of(int n_time, int n_freq, long long n_lanes, int n_prims,
     if (n_elem > 0) {
         if (mesh || !coh || mode == 0 || n_freq != 1)
             return (int)cudaErrorInvalidValue;
-        return g(geometry<false, true, true, true, MED>);
+        return g(geometry<false, true, true, true, MED, EP>);
     }
     if (mode == 0)
-        return mesh ? g(geometry<true, false, false, false, MED>)
-                    : g(geometry<false, false, false, false, MED>);
+        return mesh ? g(geometry<true, false, false, false, MED, EP>)
+                    : g(geometry<false, false, false, false, MED, EP>);
     if (coh)
-        return mesh ? g(geometry<true, true, true, false, MED>)
-                    : g(geometry<false, true, true, false, MED>);
-    return mesh ? g(geometry<true, true, false, false, MED>)
-                : g(geometry<false, true, false, false, MED>);
+        return mesh ? g(geometry<true, true, true, false, MED, EP>)
+                    : g(geometry<false, true, true, false, MED, EP>);
+    return mesh ? g(geometry<true, true, false, false, MED, EP>)
+                : g(geometry<false, true, false, false, MED, EP>);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launch geometry (geometry_of) of a configuration, or of its media twin
-// when `medium` != 0.
+// Launch geometry (geometry_of) of a configuration, of its media twin
+// when `medium` != 0, of its endpoint twin when `ep` != 0 (not both).
 int rk_geometry(int n_time, int n_freq, long long n_lanes, int n_prims,
                 int n_params, int n_msh, int mesh, int mode, int coh,
-                int n_pulses, int n_elem, int medium, int* blocks,
+                int n_pulses, int n_elem, int medium, int ep, int* blocks,
                 int* threads, int* smem_bytes) {
-    if (n_pulses < 1) return (int)cudaErrorInvalidValue;
-    return (medium ? geometry_of<true> : geometry_of<false>)(
+    if (n_pulses < 1 || (medium && ep)) return (int)cudaErrorInvalidValue;
+    return (medium ? geometry_of<true, false>
+                   : ep ? geometry_of<false, true>
+                        : geometry_of<false, false>)(
         n_time, n_freq, n_lanes, n_prims, n_params, n_msh, mesh, mode, coh,
         n_pulses, n_elem, blocks, threads, smem_bytes);
 }
@@ -1791,7 +2140,11 @@ int rk_geometry(int n_time, int n_freq, long long n_lanes, int n_prims,
 // (n_elem, 3) element offsets `eoff`.  `medium` != 0 launches the
 // configuration's media twin (1 homogeneous, 2 layered, its scalars in
 // params; 3 a grid of g_d x g_h x g_w float cells at `grid`, which every
-// pulse reads).
+// pulse reads).  `ep` != 0 launches its endpoint twin (not with a medium):
+// txp then holds n_tx rows a pulse (1 <= n_tx <= MAX_TX), `php` the
+// n_tx x php_cols pair rows of its phased transmitters (every pulse's),
+// and `rx_phased` an analog phased receiver whose pair row of n_rx_pairs
+// pairs is `rxph`.
 // `partial` holds n_pulses x blocks x n_vals doubles (mode 0 / 1) or
 // n_pulses x n_vals (mode 2, zeroed here), n_vals = n_cells, 2 n_cells
 // coherent or 2 n_elem n_cells MIMO; `out` n_pulses x n_vals floats,
@@ -1810,7 +2163,8 @@ int rk_launch(const float* params, const float* prim, const float* txp,
               long long links_stride, long long leaves_stride, int blocks,
               int threads, int smem_bytes, const float* rxph,
               const float* eoff, int n_elem, int medium, const float* grid,
-              int g_d, int g_h, int g_w, void* stream) {
+              int g_d, int g_h, int g_w, int n_tx, int ep, const float* php,
+              int php_cols, int rx_phased, int n_rx_pairs, void* stream) {
     Cfg cfg;
     cfg.n_lanes = n_lanes;
     cfg.seed = seed;
@@ -1845,6 +2199,17 @@ int rk_launch(const float* params, const float* prim, const float* txp,
     cfg.g_h = g_h;
     cfg.g_w = g_w;
     cfg.grid = grid;
+    cfg.n_tx = n_tx;
+    cfg.rx_phased = rx_phased;
+    cfg.php = php;
+    cfg.php_cols = php_cols;
+    cfg.n_pairs = php == nullptr ? 0 : (php_cols - 2) / 6;
+    cfg.rxph = rxph;
+    cfg.n_rx_pairs = n_rx_pairs;
+    if (n_tx < 1 || n_tx > MAX_TX || (!ep && (n_tx != 1 || rx_phased))
+        || (ep && medium) || (php != nullptr && php_cols < 8)
+        || (rx_phased && (rxph == nullptr || n_rx_pairs < 1 || n_elem > 0)))
+        return (int)cudaErrorInvalidValue;
     if (medium < 0 || medium > 3 || (medium == 3) != (grid != nullptr)
         || (medium == 3 && (g_d < 1 || g_h < 1 || g_w < 1)))
         return (int)cudaErrorInvalidValue;
@@ -1870,27 +2235,33 @@ int rk_launch(const float* params, const float* prim, const float* txp,
             cfg);
     };
     const bool m = bbox != nullptr;
-    // the configuration, or (MED) its media twin
-    auto pick = [&](auto med) {
+    // the configuration, or (MED) its media twin, or (EP) its endpoint twin
+    auto pick = [&](auto med, auto ep_) {
         constexpr bool MED = decltype(med)::value;
+        constexpr bool EP = decltype(ep_)::value;
         if (n_elem > 0)
-            receive_mimo_kernel<MED><<<blocks_grid, threads, smem_bytes, s>>>(
-                params, prim, txp, msh, uniforms, mesh, lane_val, partial,
-                part_ev, cfg, rxph, eoff);
+            receive_mimo_kernel<MED, EP>
+                <<<blocks_grid, threads, smem_bytes, s>>>(
+                    params, prim, txp, msh, uniforms, mesh, lane_val,
+                    partial, part_ev, cfg, rxph, eoff);
         else if (mode == 0)
-            m ? launch(receive_trace_kernel<true, MED>, lane_val)
-              : launch(receive_trace_kernel<false, MED>, nullptr);
+            m ? launch(receive_trace_kernel<true, MED, EP>, lane_val)
+              : launch(receive_trace_kernel<false, MED, EP>, nullptr);
         else if (coh)
-            m ? launch(receive_doppler_kernel<true, true, MED>, lane_val)
-              : launch(receive_doppler_kernel<false, true, MED>, lane_val);
+            m ? launch(receive_doppler_kernel<true, true, MED, EP>, lane_val)
+              : launch(receive_doppler_kernel<false, true, MED, EP>,
+                       lane_val);
         else
-            m ? launch(receive_doppler_kernel<true, false, MED>, lane_val)
-              : launch(receive_doppler_kernel<false, false, MED>, lane_val);
+            m ? launch(receive_doppler_kernel<true, false, MED, EP>, lane_val)
+              : launch(receive_doppler_kernel<false, false, MED, EP>,
+                       lane_val);
     };
     if (medium)
-        pick(std::true_type{});
+        pick(std::true_type{}, std::false_type{});
+    else if (ep)
+        pick(std::false_type{}, std::true_type{});
     else
-        pick(std::false_type{});
+        pick(std::false_type{}, std::false_type{});
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     int n_rows = mode == 2 ? 1 : blocks;

@@ -28,7 +28,13 @@ receive array, on analytic scenes: the rays leave the array's origin,
 weighted by one element's pattern, and every connection splats one I / Q
 pair an element, 2E channels, each element's phase moved by the exact
 spherical path difference of its position (the JAX kernel's `mimo_e`,
-`eoff_ref`).  Every configuration has a media twin, which runs it
+`eoff_ref`).  Every configuration has an endpoint twin, which runs it
+with up to MAX_TX transmitters of mixed kinds (Wigner, phased arrays
+whose aperture weight is the cross-WDF pair sum `_pair_sum`, and plain
+area transmitters), a direct hit for the transmitter a lane hits and NEE
+to each in row order, and, outside MIMO, an analog phased receiver
+weighted by its own cross-WDF (the JAX kernel's n_tx, tx_kinds and
+rx_kind 'phased').  Every configuration has a media twin, which runs it
 through the scene's ambient medium (homogeneous, z-layered or a 3-D sigma
 grid; `pack_medium`, `medium_tau`): every segment a lane crosses
 multiplies its throughput, and every NEE connection its value, by
@@ -51,13 +57,15 @@ kernel's positional draw order:
 3. two (omni) or four (Wigner, phased) receive-ray draws (a phased
    array's first two, a point on its rectangle, are drawn and not used:
    MIMO rays leave the array's origin);
-4. per depth: the direct-hit draw, then two transmitter-point draws and
-   the emission-time draw (a placeholder under fixed sampling);
+4. per depth: the direct-hit draw, then for each transmitter in row
+   order two transmitter-point draws and the emission-time draw (a
+   placeholder under fixed sampling);
 5. per depth but the last: two bounce draws (the diffuse lobe and the
    GGX half-vector share them, as the lane's type is one or the other).
 
-`n_draws` over-allocates (26 rows at depth 3, of which at most 22 are
-read) and is honoured as the layout stride.  `receive_megakernel` runs
+`n_draws(max_depth, n_tx)` over-allocates (26 rows at depth 3 with one
+transmitter, of which at most 22 are read) and is honoured as the layout
+stride.  `receive_megakernel` runs
 that plain version for tensors on the CPU and the CUDA kernel for tensors
 on a card; `receive_megakernel_cpi` runs a coherent processing interval
 (CPI), the tables of every pulse stacked (`pack_cpi`), in one launch
@@ -74,6 +82,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import weakref
 
 import numpy as np
 import torch
@@ -87,11 +96,17 @@ from ..geometry.bvh_kernel import PackedBVH, walk_ref, leaf_column, pack
 from ..geometry.shapes import RECTANGLE, TRIANGLE
 from ..media import (GRID, HOMOGENEOUS, LAYERED, HeterogeneousMedium,
                      HomogeneousMedium, LayeredMedium)
-from ..radar.endpoints import (ADCConfig, OMNI, PHASED, WIGNER, _elem_locs,
-                               _phased_pairs, rx_elem_offsets)
+from ..radar.endpoints import (ADCConfig, AREA, OMNI, PHASED, WIGNER,
+                               _elem_locs, _phased_pairs, rx_elem_offsets)
 from ..radar.waveform import CW, LINFMCW
 
 MAX_PRIMS = 64          # prim rows held in shared memory
+# the endpoint configuration's caps, the JAX package's (its NEE and its
+# cross-WDF pair sums are unrolled): transmitters, a phased transmitter's
+# n_tx x K pairs, a phased receiver's E^2 pairs
+MAX_TX = 4
+MAX_TX_PAIRS = 128
+MAX_RX_PAIRS = 64
 # ADC caps on the H100 (the TPU's VMEM / MXU caps and its 128-multiple
 # rule do not apply; see the splat notes in the .cu):
 # - flagship / mesh configurations: a private shared-memory row of
@@ -178,7 +193,8 @@ class PackedScene:
     params: np.ndarray   # (77,) f32 scalars; [0] is the seed slot
     prim: np.ndarray     # (n_prims, 34) f32 prim rows
     txp: np.ndarray      # (n_tx, 32) f32 transmitter rows
-    php: np.ndarray      # (n_tx, 2 + 6K) phased pair rows (zeros here)
+    php: np.ndarray      # (n_tx, 2 + 6K) phased pair rows: the element
+    #                      half-widths, then K = max E^2 pairs
     rxph: np.ndarray     # (1, 2 + 6K) phased receiver row: the element
     #                      half-widths, then K = E^2 pairs (zeros (1, 8)
     #                      for any other receiver)
@@ -378,11 +394,17 @@ def pack_scene(scene_data, rx, shape_idx: int) -> PackedScene:
         txp[t, 27] = float(tx_kind[t])
         txp[t, 28] = float(wf['phi0'][t])
 
+    # the phased pair rows: element half-widths, then per virtual pair
+    # (mid_s, mid_t, base_s, base_t, psi, valid) in the array's local frame
     K = int(tx.pair_mask.shape[1])
     php = np.zeros((n_tx, 2 + 6 * K), np.float32)
-    e_wid = tx.elem_wid.cpu().numpy()
-    for t in range(n_tx):
-        php[t, 0], php[t, 1] = e_wid[t, 0], e_wid[t, 1]
+    php[:, 0:2] = tx.elem_wid.cpu().numpy()
+    e_mid = tx.elem_mid.cpu().numpy()
+    e_base = tx.elem_baseline.cpu().numpy()
+    php[:, 2:].reshape(n_tx, K, 6)[:] = np.stack(
+        [e_mid[..., 0], e_mid[..., 1], e_base[..., 0], e_base[..., 1],
+         tx.psi.cpu().numpy(), tx.pair_mask.cpu().numpy().astype(np.float32)],
+        -1)
 
     if shape_idx >= 0:
         rxm = to_world[shape_idx][:3, :].reshape(-1)
@@ -518,17 +540,31 @@ def supported(scene_data, rx, reason: list | None = None,
 
     sd = scene_data
     tx = sd.transmitters
-    if tx is None or tx.n != 1:
-        return no('the kernel takes exactly one transmitter (ROADMAP B6)')
-    if int(tx.kind[0]) != WIGNER:
-        return no('non-Wigner transmitter (ROADMAP B6)')
+    if tx is None:
+        return no('no transmitters')
+    if tx.n > MAX_TX:
+        return no(f'{tx.n} transmitters > {MAX_TX} (unrolled NEE, the JAX '
+                  'package\'s cap; the wavefront runs it)')
     if not bool(tx.resample.all()):
         return no('non-delta-resampled transmitter: wavefront-only, in the '
                   'JAX package as here (its kernel refuses it too)')
-    if int(tx.shape_idx[0]) < 0:
+    kinds = set(tx.kind.tolist())
+    if not kinds <= {WIGNER, PHASED, AREA}:
+        return no(f'transmitter kinds {sorted(kinds)}: Wigner, phased or '
+                  'area only')
+    n_pairs = int(tx.pair_mask.shape[1])
+    if PHASED in kinds and tx.n * n_pairs > MAX_TX_PAIRS:
+        return no(f'phased pair unroll {tx.n}x{n_pairs} > {MAX_TX_PAIRS} '
+                  '(in-kernel cross-WDF sum, the JAX package\'s cap; the '
+                  'wavefront runs it)')
+    if bool((tx.shape_idx < 0).any()):
         return no('free-standing transmitter: the kernel samples its '
                   'rectangle; wavefront-only, in the JAX package as here '
                   '(its kernel refuses it too)')
+    if tx.n > 1 and rx.receive_type == 'mix_resample':
+        return no('mix_resample with multiple transmitters (the LO is the '
+                  'transmitter\'s chirp: ambiguous), in the JAX package as '
+                  'here')
     kinds = set(sd.shapes.kind.tolist())
     if not kinds <= {-1, RECTANGLE, TRIANGLE}:
         return no(f'shape kinds {sorted(kinds)}: rectangles and triangle '
@@ -574,11 +610,22 @@ def supported(scene_data, rx, reason: list | None = None,
             return no('MIMO receive of a mesh scene (ROADMAP B6): the '
                       'wavefront runs it')
     elif rx.kind == PHASED:
-        return no('phased receiver: its analog cross-WDF receive is '
-                  'ROADMAP B6; MIMO receive (receive_mimo) runs it')
+        if rx.n_elems ** 2 > MAX_RX_PAIRS:
+            return no(f'phased rx pair unroll {rx.n_elems ** 2} > '
+                      f'{MAX_RX_PAIRS} (in-kernel cross-WDF sum, the JAX '
+                      'package\'s cap; the wavefront runs it)')
     elif rx.kind not in (WIGNER, OMNI):
-        return no(f'receiver kind {rx.kind} (ROADMAP B6)')
+        return no(f'receiver kind {rx.kind}')
     med = sd.medium
+    # several transmitters, a phased or area one, an analog phased receiver
+    endpoints = (tx.n > 1 or bool((tx.kind != WIGNER).any())
+                 or (not mimo and rx.kind == PHASED and rx.n_elems > 1))
+    if med is not None and endpoints:
+        return no('these endpoints (several transmitters, a phased or '
+                  'area transmitter, an analog phased receiver) through an '
+                  'ambient medium: the kernel has no media twin of its '
+                  'endpoint configuration (ROADMAP B6); the wavefront '
+                  'runs it')
     if isinstance(med, LayeredMedium):
         if med.n_layers > MAX_MEDIA_LAYERS:
             return no(f'{med.n_layers} medium layers > {MAX_MEDIA_LAYERS} '
@@ -647,11 +694,13 @@ def coord_slack(adc: ADCConfig) -> float:
     return s
 
 
-def n_draws(max_depth: int) -> int:
+def n_draws(max_depth: int, n_tx: int = 1) -> int:
     """Uniform rows per lane (the layout stride of injected uniforms): the
-    JAX package's count for one transmitter and diffuse or GGX lobes (its
-    eight head rows hold the time, frequency and ray draws)."""
-    return 8 + 6 * max_depth
+    JAX package's count for `n_tx` transmitters and diffuse, GGX or mirror
+    lobes: eight head rows (the time, frequency and ray draws), then per
+    depth the direct-hit draw, three per transmitter and two bounce
+    draws."""
+    return 8 + (3 + 3 * n_tx) * max_depth
 
 
 # ---------------------------------------------------------------------------
@@ -769,7 +818,8 @@ STAT_KEYS = ('lanes', 'strata', 'freq_draw', 'lo_freq', 'trace', 'hit',
              'splat_2d', 'lo_bin', 'phase', 'phase_lo', 'bounce',
              'ggx_bounce', 'mirror_bounce', 'dop_direct', 'dop_nee',
              'dop_bounce', 'walks', 'node_tests', 'leaf_tests', 'mesh_hits',
-             'phased_ray', 'mimo_vertex', 'mimo_elem', 'med_seg', 'med_conn')
+             'phased_ray', 'mimo_vertex', 'mimo_elem', 'med_seg', 'med_conn',
+             'pair_tests', 'pair_terms')
 
 
 def _frac_cycles(f, t):
@@ -884,6 +934,64 @@ def medium_tau(sp, medium: int, grid=None, ill=None):
     return grid3
 
 
+def _pair_sum(row, n_k: int, sn, tn, orig, px, py, pz, dex, dey, dez, lam,
+              count=None, live=None):
+    """A phased array's cross-WDF gain at points (px, py, pz) toward (dex,
+    dey, dez) at wavelength lam (the JAX kernel's `_pair_sum`): over its
+    pair row `row` (the element half-widths, then per pair (mid_s, mid_t,
+    base_s, base_t, psi, valid) along the unit in-plane axes sn, tn from
+    the array centre orig), in ascending pair order, each pair's element
+    rectangle WDF inside its footprint times fast_cos of its interference
+    phase.  `count(inside, live)` takes each pair's lanes inside its
+    footprint, of the lanes `live` (None: all) on which the kernel
+    evaluates the sum."""
+    snx, sny, snz = sn
+    tnx, tny, tnz = tn
+    oxp, oyp, ozp = orig
+    nu_x = (dex * snx + dey * sny + dez * snz) / lam
+    nu_y = (dex * tnx + dey * tny + dez * tnz) / lam
+    wid_s, wid_t = row[0], row[1]
+    iws = 1.0 / torch.clamp(2.0 * wid_s, min=1e-20)
+    iwt = 1.0 / torch.clamp(2.0 * wid_t, min=1e-20)
+    total = torch.zeros_like(px)
+    for k in range(n_k):
+        mid_s, mid_t, base_s, base_t, psi_k, val_k = row[2 + 6 * k:8 + 6 * k]
+        mx = oxp + mid_s * snx + mid_t * tnx
+        my = oyp + mid_s * sny + mid_t * tny
+        mz = ozp + mid_s * snz + mid_t * tnz
+        rlx, rly, rlz = px - mx, py - my, pz - mz
+        rx_ = (rlx * snx + rly * sny + rlz * snz) * iws
+        ry_ = (rlx * tnx + rly * tny + rlz * tnz) * iwt
+        inside = (rx_.abs() <= 0.5) & (ry_.abs() <= 0.5)
+        if count is not None:
+            count(inside & (val_k != 0.0), live)
+        txr, tyr = _tri(rx_), _tri(ry_)
+        w_rect = (4.0 * wid_s * wid_t * txr * tyr
+                  * _sinc(TWO_PI * nu_x * wid_s * txr)
+                  * _sinc(TWO_PI * nu_y * wid_t * tyr))
+        ph_k = TWO_PI * (nu_x * base_s + nu_y * base_t) + psi_k
+        total = total + torch.where(inside, w_rect * _fast_cos(ph_k),
+                                    0.0) * val_k
+    return total
+
+
+def _tx_rows(txp) -> list:
+    """Each transmitter row of `txp` as the fields the kernel reads: its
+    to_world rows `m`, half-widths, area, gain, the waveform row (and its
+    phase pivots), velocity, kind and unit normal."""
+    out = []
+    for tr in txp:
+        m = [tr[i] for i in range(12)]
+        tnn = torch.rsqrt(torch.clamp(
+            m[2] * m[2] + m[6] * m[6] + m[10] * m[10], min=1e-20))
+        out.append(dict(m=m, wx=tr[12], wy=tr[13], area=tr[14], gain=tr[15],
+                        wf=tr[16], amp=tr[17], prf=tr[18], text=tr[19],
+                        fc=tr[20], fext=tr[21], fcpri=tr[22], dfc=tr[23],
+                        vel=tr[24:27], kind=int(tr[27]), phi0=tr[28],
+                        n=(m[2] * tnn, m[6] * tnn, m[10] * tnn)))
+    return out
+
+
 def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
                            max_depth: int, time_sampling: str, rx_kind: str,
                            mesh: PackedBVH | None = None, msh=None,
@@ -893,7 +1001,7 @@ def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
                            has_lo: bool = False, coherent: bool = False,
                            amp_out=None, mirror: bool | None = None,
                            rxph=None, eoff=None, medium: int = 0, grid=None,
-                           ill_out=None):
+                           ill_out=None, php=None):
     """Plain version of the kernel, in every configuration.  Returns (acc
     (n_time, n_freq) float32, n_events 0-d int64): the tent-splatted power
     and the count of nonzero contributions; with `coherent` acc is
@@ -952,6 +1060,17 @@ def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
     kernel's, whose inputs FMA contraction moves by ulps, by more than
     1e-4 of itself.
 
+    The endpoint configuration: `txp` (n_tx, 32) rows of up to MAX_TX
+    transmitters of mixed kinds (txp[:, 27]: Wigner, phased or area),
+    each with its direct hits and its own NEE (its draws, its shadow test,
+    which its own rectangle never blocks, and its phase pivots); a phased
+    transmitter's cross-WDF (`_pair_sum`) over its row of `php` (n_tx, 2
+    + 6K).  rx_kind 'phased' without `eoff` is an
+    analog phased receiver: the ray leaves a point uniform over the
+    array's bounding rectangle (half-extents params[30:32]) over the
+    cosine hemisphere, weighted by the array's cross-WDF over `rxph` (1,
+    2 + 6K_rx).
+
     `stats`, if given, accumulates how many lanes reach each stage of the
     kernel (the work a run's data needs), each summed over depths: keys
     'lanes', 'strata' (lanes with stratified directions), 'freq_draw',
@@ -968,14 +1087,19 @@ def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
     (rays from the array), 'mimo_vertex' (lanes whose first vertex
     anchors the element terms) and 'mimo_elem' (element channels of the
     contributions splatted); through a medium 'med_seg' and 'med_conn'
-    (optical depths of segments and of connections)."""
+    (optical depths of segments and of connections); 'pair_tests' and
+    'pair_terms' (phased pair terms evaluated, and of those inside their
+    footprint), with 'phased_ray' also for an analog phased receiver's
+    rays."""
     rule = rx_rule(receive_type, has_lo)
     mimo = eoff is not None
-    if mimo != (rx_kind == 'phased') or mimo and (coherent or not doppler):
+    if mimo and (rx_kind != 'phased' or coherent or not doppler):
         raise ValueError("MIMO (eoff) is its own accumulation mode of the "
                          "Doppler configuration: doppler=True, rx_kind "
-                         "'phased', coherent=False; a phased receiver "
-                         "runs only there")
+                         "'phased', coherent=False")
+    if rx_kind == 'phased' and rxph is None:
+        raise ValueError("rx_kind 'phased' needs the receiver's pair row "
+                         'rxph')
     coherent = coherent or mimo
     if (rule != RX_RAW or coherent) and not doppler:
         raise ValueError('LO receive types and coherent I / Q run in the '
@@ -1007,25 +1131,33 @@ def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
     cvel = sp[1]
     rxm = [sp[2 + i] for i in range(12)]
     rx_wx, rx_wy = sp[14], sp[15]
-    tr = txp[0]
-    m = [tr[i] for i in range(12)]
-    wx, wy, area_tx, gain = tr[12], tr[13], tr[14], tr[15]
-    wf, amp, prf, text, fc, fext = tr[16], tr[17], tr[18], tr[19], tr[20], \
-        tr[21]
-    # the transmitter's and the LO's waveform rows, with their phase pivots
-    tx_w = dict(wf=wf, prf=prf, text=text, fc=fc, fext=fext, fcpri=tr[22],
-                dfc=tr[23], phi0=tr[28])
+    # the transmitters' rows (waveform rows with their phase pivots) and
+    # the LO's
+    txs = _tx_rows(txp)
+    n_pairs = (int(php.shape[1]) - 2) // 6 if php is not None else 0
+    if any(w['kind'] == PHASED for w in txs) and php is None:
+        raise ValueError('a phased transmitter needs its pair rows php')
+    pair_count = None
+    if stats is not None:
+        def pair_count(inside, live):
+            if live is None:
+                counts['pair_tests'] += int(inside.numel())
+                counts['pair_terms'] += int(inside.sum())
+            else:
+                counts['pair_tests'] += int(live.sum())
+                counts['pair_terms'] += int((inside & live).sum())
     lo_w = dict(wf=sp[33], prf=sp[35], text=sp[36], fc=sp[37], fext=sp[38],
                 fcpri=sp[39], dfc=sp[40], phi0=sp[41])
     prims = [prim[p] for p in range(prim.shape[0])
              if int(prim[p, 0]) == RECTANGLE]
-    # the transmitter's own rectangle (transmitter index 0 in column 14)
-    # never occludes its NEE; other geometry does
-    blockers = [row for row in prims if float(row[14]) != 0.0]
+    # transmitter t's own rectangle (t in column 14) never occludes its
+    # NEE; other geometry, the other transmitters' rectangles included, does
+    blockers = [[row for row in prims if float(row[14]) != float(t)]
+                for t in range(len(txs))]
     rows_m = msh if doppler and mesh is not None else None
     # the JAX kernel's static flags, read from the tables
     moving = doppler and bool(
-        (prim[:, 19:22] != 0).any() or (tr[24:27] != 0).any()
+        (prim[:, 19:22] != 0).any() or (txp[:, 24:27] != 0).any()
         or (sp[23:26] != 0).any()
         or (rows_m is not None and (rows_m[:, 0:3] != 0).any()))
     ggx = doppler and bool(
@@ -1037,7 +1169,7 @@ def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
     tau = medium_tau(sp, medium, grid, None if ill_out is None
                      else ill_out.logical_or_)
 
-    def inst_freq(t, w=tx_w):
+    def inst_freq(t, w):
         pri = 1.0 / torch.clamp(w['prf'], min=1e-12)
         tm = _mod(t, pri)
         ti = 0.5 * w['text']
@@ -1045,37 +1177,41 @@ def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
             * (tm - ti)
         return torch.where(w['wf'] == LINFMCW, fi, w['fc'])
 
-    def eval_wdf(t, f):
+    def eval_wdf(w, t, f):
+        prf, text, amp = w['prf'], w['text'], w['amp']
         pri = 1.0 / torch.clamp(prf, min=1e-12)
         tm = _mod(t, pri)
         ti = 0.5 * text
-        fi = inst_freq(t)
+        fi = inst_freq(t, w)
         x = (tm - ti) / torch.clamp(text, min=1e-12)
         tw = _tri(x)
-        w = 2.0 * amp * amp * text * tw * _sinc(TWO_PI * (f - fi) * text * tw)
-        w = torch.where(x.abs() < 0.5, w, 0.0)
-        return torch.where(wf == CW, amp * amp, w)
+        v = 2.0 * amp * amp * text * tw * _sinc(TWO_PI * (f - fi) * text * tw)
+        v = torch.where(x.abs() < 0.5, v, 0.0)
+        return torch.where(w['wf'] == CW, amp * amp, v)
 
-    def emission(tau, u, t_rx0):
+    def emission(w, tau, u, t_rx0):
         """(t_emit, t_recv, gate weight, whole PRIs the receive time was
-        moved by) of a path of delay `tau`."""
+        moved by) of a path of delay `tau` from transmitter row `w`."""
         if not gate:
             return t_rx0 - tau, t_rx0, 1.0, 0.0
+        prf = w['prf']
         pri = 1.0 / torch.clamp(prf, min=1e-12)
-        is_cw = wf == CW
-        sup = torch.where(is_cw, t_window, text)
+        is_cw = w['wf'] == CW
+        sup = torch.where(is_cw, t_window, w['text'])
         t_emit = torch.where(is_cw, t_start - tau, 0.0) + u * sup
         t_recv = tau + t_emit
         k = torch.ceil((t_start - t_recv) * prf)
         k = torch.where(is_cw, 0.0, torch.clamp(k, min=0.0))
         return t_emit, t_recv + k * pri, sup / t_window, k
 
-    def echo_phase(dtot, t_emit, t_recv, k_pri):
-        """Baseband phase [rad] of a connection of path length dtot (the
-        JAX kernel's echo_phase): the transmitter's waveform cycles at
-        emission less the fc_ref cycles of the delay, less the receive
-        side's (the transmitter's chirp under mix_resample, else the LO's
-        dechirp, its fold rebuilt from the delay when matched)."""
+    def echo_phase(tx_w, dtot, t_emit, t_recv, k_pri):
+        """Baseband phase [rad] of a connection of path length dtot from
+        transmitter row `tx_w` (the JAX kernel's echo_phase): the
+        transmitter's waveform cycles at emission less the fc_ref cycles of
+        the delay, less the receive side's (the transmitter's chirp under
+        mix_resample, else the LO's dechirp, its fold rebuilt from the
+        delay when matched)."""
+        prf = tx_w['prf']
         pri = 1.0 / torch.clamp(prf, min=1e-12)
         m_e = torch.floor(t_emit * prf)
         tm_e = t_emit - m_e * pri
@@ -1101,18 +1237,33 @@ def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
                 + m_r * lo_w['fcpri']
         return TWO_PI * (cyc - torch.floor(cyc))
 
-    def bin_freq(f_recv, t_recv):
-        """The frequency a contribution is binned at: the beat under
-        mix_resample and mixer, else the received frequency."""
+    def bin_freq(w, f_recv, t_recv):
+        """The frequency a contribution from transmitter row `w` is binned
+        at: the beat under mix_resample and mixer, else the received
+        frequency."""
         if rule == RX_MIX:
-            return (f_recv - inst_freq(t_recv)).abs()
+            return (f_recv - inst_freq(t_recv, w)).abs()
         if rule == RX_MIXER:
             return inst_freq(t_recv, lo_w) - f_recv
         return f_recv
 
-    def tx_aperture(lx, ly, ex, ey, ez, lam):
-        """Rect-aperture Wigner weight at local (lx, ly) in [-1, 1]^2 for
-        radiation leaving along (ex, ey, ez)."""
+    def tx_aperture(t, lx, ly, px, py, pz, ex, ey, ez, lam, live):
+        """Aperture weight of transmitter t for radiation leaving its point
+        p = (px, py, pz), local (lx, ly) in [-1, 1]^2, along (ex, ey, ez):
+        the rect Wigner weight, the phased cross-WDF or 1 (area); `live`
+        the lanes the kernel evaluates it on (the stage counts)."""
+        w = txs[t]
+        m, wx, wy = w['m'], w['wx'], w['wy']
+        if w['kind'] == AREA:
+            return torch.ones_like(lx)
+        if w['kind'] == PHASED:
+            iwx = 1.0 / torch.clamp(wx, min=1e-20)
+            iwy = 1.0 / torch.clamp(wy, min=1e-20)
+            return _pair_sum(php[t], n_pairs,
+                             (m[0] * iwx, m[4] * iwx, m[8] * iwx),
+                             (m[1] * iwy, m[5] * iwy, m[9] * iwy),
+                             (m[3], m[7], m[11]), px, py, pz, -ex, -ey, -ez,
+                             lam, pair_count, live)
         nu_x = -(m[0] * ex + m[4] * ey + m[8] * ez) \
             / torch.clamp(wx, min=1e-9) / lam
         nu_y = -(m[1] * ex + m[5] * ey + m[9] * ez) \
@@ -1133,7 +1284,7 @@ def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
     if rule != RX_RAW:
         counts['lo_freq'] += n_lanes
     if rule == RX_MIX:
-        f_rx = inst_freq(t_mid)
+        f_rx = inst_freq(t_mid, txs[0])
     elif rule == RX_MIXER:
         counts['freq_draw'] += n_lanes
         f_rx = inst_freq(t_mid, lo_w) - (f_lo + draw() * f_span)
@@ -1145,18 +1296,26 @@ def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
     else:
         f_rx = c(0.5 * (adc.freq_lo + adc.freq_hi))
     if rx_kind == 'phased':
-        # a point on the array's rectangle is drawn and not used: MIMO
-        # rays leave the array's origin, over the cosine hemisphere about
-        # its normal, weighted by one element's pattern
+        # a point uniform over the array's bounding rectangle; MIMO draws
+        # it and does not use it: its rays leave the array's origin.  The
+        # cosine hemisphere about the array's normal, weighted by one
+        # element's pattern (MIMO) or by the array's cross-WDF (analog)
         counts['phased_ray'] += n_lanes
-        draw(), draw()
+        u1, u2 = draw(), draw()
         iwxr = 1.0 / torch.clamp(rx_wx, min=1e-20)
         iwyr = 1.0 / torch.clamp(rx_wy, min=1e-20)
         snx, sny, snz = rxm[0] * iwxr, rxm[4] * iwxr, rxm[8] * iwxr
         tnx_, tny_, tnz_ = rxm[1] * iwyr, rxm[5] * iwyr, rxm[9] * iwyr
-        ox = rxm[3].expand(n_lanes)
-        oy = rxm[7].expand(n_lanes)
-        oz = rxm[11].expand(n_lanes)
+        if mimo:
+            ox = rxm[3].expand(n_lanes)
+            oy = rxm[7].expand(n_lanes)
+            oz = rxm[11].expand(n_lanes)
+        else:
+            lxr = (2.0 * u1 - 1.0) * sp[30]
+            lyr = (2.0 * u2 - 1.0) * sp[31]
+            ox = rxm[3] + lxr * snx + lyr * tnx_
+            oy = rxm[7] + lxr * sny + lyr * tny_
+            oz = rxm[11] + lxr * snz + lyr * tnz_
         nzx, nzy, nzz = rxm[2], rxm[6], rxm[10]
         nn = torch.rsqrt(nzx * nzx + nzy * nzy + nzz * nzz)
         nzx, nzy, nzz = nzx * nn, nzy * nn, nzz * nn
@@ -1174,15 +1333,24 @@ def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
         dy = s1y * tx_ + s2y * ty_ + nzy * tz_
         dz = s1z * tx_ + s2z * ty_ + nzz * tz_
         lam_rx = cvel / torch.clamp(f_rx, min=1e-6)
-        wex, wey = rxph[0, 0], rxph[0, 1]
-        nu_ex = (dx * snx + dy * sny + dz * snz) / lam_rx
-        nu_ey = (dx * tnx_ + dy * tny_ + dz * tnz_) / lam_rx
-        throughput = c(np.pi * 16.0) * wex * wey \
-            * _sinc(TWO_PI * nu_ex * wex) * _sinc(TWO_PI * nu_ey * wey) \
-            * sp[32]
+        if mimo:
+            wex, wey = rxph[0, 0], rxph[0, 1]
+            nu_ex = (dx * snx + dy * sny + dz * snz) / lam_rx
+            nu_ey = (dx * tnx_ + dy * tny_ + dz * tnz_) / lam_rx
+            throughput = c(np.pi * 16.0) * wex * wey \
+                * _sinc(TWO_PI * nu_ex * wex) * _sinc(TWO_PI * nu_ey * wey) \
+                * sp[32]
+        else:
+            w0 = c(np.pi * 4.0) * sp[30] * sp[31] * sp[32]
         ox = ox + 1e-4 * nzx
         oy = oy + 1e-4 * nzy
         oz = oz + 1e-4 * nzz
+        if not mimo:
+            # the receiver's cross-WDF at the ray (signed)
+            throughput = w0 * _pair_sum(
+                rxph[0], (int(rxph.shape[1]) - 2) // 6, (snx, sny, snz),
+                (tnx_, tny_, tnz_), (rxm[3], rxm[7], rxm[11]), ox, oy, oz,
+                dx, dy, dz, lam_rx, pair_count)
     elif rx_kind == 'omni':
         ox = rxm[3].expand(n_lanes)
         oy = rxm[7].expand(n_lanes)
@@ -1257,10 +1425,6 @@ def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
         oy = oy + 1e-4 * nzy
         oz = oz + 1e-4 * nzz
 
-    # transmitter normal (to_world column 2, normalized)
-    tnn = torch.rsqrt(torch.clamp(m[2] * m[2] + m[6] * m[6] + m[10] * m[10],
-                                  min=1e-20))
-    tnx, tny, tnz = m[2] * tnn, m[6] * tnn, m[10] * tnn
     # cumulative Doppler factor (f_received = f_emitted * dop), the
     # receiver's motion first
     dop = (1.0 + (dx * sp[23] + dy * sp[24] + dz * sp[25]) / cvel
@@ -1278,10 +1442,11 @@ def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
     lane_sum = torch.zeros(n_lanes, dtype=torch.float32, device=dev)
     amp_flat = None if amp_out is None else amp_out.view(-1)
 
-    def splat(val, yb, f_recv, t_recv, ok, ph=None):
+    def splat(w, val, yb, f_recv, t_recv, ok, ph=None):
         """Tent splat at time coordinate yb (and, on a 2-D grid, at the
-        frequency coordinate of the contribution's bin frequency): of the
-        power val, or of sqrt(max(val, 0)) (cos, sin)(ph) if coherent."""
+        frequency coordinate of the bin frequency of a contribution from
+        transmitter row `w`): of the power val, or of sqrt(max(val, 0))
+        (cos, sin)(ph) if coherent."""
         nonlocal n_events, lane_sum
         nz = val != 0.0
         n_events = n_events + (ok & nz).sum()
@@ -1314,7 +1479,8 @@ def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
             count('splat_2d', ok & nz)
             if rule in (RX_MIX, RX_MIXER):
                 count('lo_bin', ok & nz)
-            xb = (bin_freq(f_recv, t_recv) - f_lo) / f_den * n_freq_f - 0.5
+            xb = (bin_freq(w, f_recv, t_recv) - f_lo) / f_den * n_freq_f \
+                - 0.5
             f0 = torch.floor(xb)
         for bt in (b0, b0 + 1.0):
             wt = torch.clamp(1.0 - (yb - bt).abs(), min=0.0)
@@ -1464,110 +1630,121 @@ def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
         is_m = (kb == float(CONDUCTOR)) if mirror else torch.zeros_like(hit)
 
         # ---- direct transmitter hits: at depth 0, and on lanes whose last
-        #      bounce was a mirror (NEE covers the rest) ----
+        #      bounce was a mirror (NEE covers the rest); the transmitter
+        #      the lane hit ----
         u_dh = draw()
-        if depth == 0 or mirror:
+        for t, w in enumerate(txs if depth == 0 or mirror else ()):
+            m, tnx, tny, tnz = w['m'], *w['n']
             cos_dh = -(ddx * tnx + ddy * tny + ddz * tnz)
-            te_h, tr_h, wg_h, k_h = emission(plen / cvel, u_dh, t_rx0)
-            fe_h = inst_freq(te_h)
-            sig_h = eval_wdf(te_h, fe_h)
+            te_h, tr_h, wg_h, k_h = emission(w, plen / cvel, u_dh, t_rx0)
+            fe_h = inst_freq(te_h, w)
+            sig_h = eval_wdf(w, te_h, fe_h)
             lam_h = cvel / torch.clamp(fe_h, min=1e-6)
             lxh = ((hx - m[3]) * m[0] + (hy - m[7]) * m[4]
-                   + (hz - m[11]) * m[8]) / torch.clamp(wx * wx, min=1e-12)
+                   + (hz - m[11]) * m[8]) / torch.clamp(w['wx'] * w['wx'],
+                                                        min=1e-12)
             lyh = ((hx - m[3]) * m[1] + (hy - m[7]) * m[5]
-                   + (hz - m[11]) * m[9]) / torch.clamp(wy * wy, min=1e-12)
-            ap_h = tx_aperture(lxh, lyh, ddx, ddy, ddz, lam_h)
-            w_dh = sig_h * gain * ap_h * TWO_PI
-            ok_h = active & (txc == 0.0) & (cos_dh > 0.0)
+                   + (hz - m[11]) * m[9]) / torch.clamp(w['wy'] * w['wy'],
+                                                        min=1e-12)
+            ok_h = active & (txc == float(t)) & (cos_dh > 0.0)
             if depth > 0:
                 ok_h = ok_h & wdel
+            ap_h = tx_aperture(t, lxh, lyh, hx, hy, hz, ddx, ddy, ddz, lam_h,
+                               ok_h)
+            w_dh = sig_h * w['gain'] * ap_h * TWO_PI
             count('direct', ok_h)
             val_h = torch.where(ok_h, throughput * w_dh * wg_h, 0.0)
             yb_h = (tr_h - t_start) / t_window * n_time_f - 0.5
             if moving:
                 count('dop_direct', ok_h)
                 fe_h = fe_h * dop
-            splat(val_h, yb_h, fe_h, tr_h, ok_h,
-                  echo_phase(plen, te_h, tr_h, k_h) if coherent else None)
+            splat(w, val_h, yb_h, fe_h, tr_h, ok_h,
+                  echo_phase(w, plen, te_h, tr_h, k_h) if coherent else None)
 
-        # ---- NEE to the transmitter ----
-        u5, u6 = draw(), draw()
-        glx, gly = 2.0 * u5 - 1.0, 2.0 * u6 - 1.0
-        qx = m[0] * glx + m[1] * gly + m[3]
-        qy = m[4] * glx + m[5] * gly + m[7]
-        qz = m[8] * glx + m[9] * gly + m[11]
-        vx, vy, vz = qx - hx, qy - hy, qz - hz
-        dist2 = vx * vx + vy * vy + vz * vz
-        dist = torch.sqrt(torch.clamp(dist2, min=1e-20))
-        inv_d = 1.0 / dist
-        wx_, wy_, wz_ = vx * inv_d, vy * inv_d, vz * inv_d
-        cos_tx = -(wx_ * tnx + wy_ * tny + wz_ * tnz)
-        # no NEE from a mirror: its delta lobe has no density toward the
+        # ---- NEE to every transmitter, in row order: its point, direction
+        #      and gate draws, its own shadow test ----
+        # no NEE from a mirror: its delta lobe has no density toward a
         # transmitter (the JAX kernel's f_cos is 0 there)
-        shade = active & (txc < 0.0) & ~is_m
-        count('nee_geom', shade)
-        shade = shade & (cos_tx > 1e-6)
-        count('nee', shade)
-        pdf_sa = torch.where(
-            cos_tx > 1e-6,
-            (1.0 / torch.clamp(area_tx, min=1e-12)) * dist2
-            / torch.clamp(cos_tx, min=1e-6), 0.0)
-        cos_s = wx_ * nx + wy_ * ny + wz_ * nz
-        # diffuse f * cos toward the transmitter (wi = toward the receiver)
-        sg = _sign(-ddx * nx + -ddy * ny + -ddz * nz)
-        co = wx_ * (nx * sg) + wy_ * (ny * sg) + wz_ * (nz * sg)
-        f_cos = rb * (1.0 / np.pi) * torch.clamp(co, min=0.0)
-        if ggx:
-            count('ggx_nee', shade & is_ggx)
-            f_cos = torch.where(is_ggx, _ggx_fcos(
-                rb, ab, eb, kk, nx, ny, nz, -ddx, -ddy, -ddz,
-                wx_, wy_, wz_), f_cos)
-        u7 = draw()
-        t_emit, t_recv, w_gate, k_nee = emission((plen + dist) / cvel, u7,
-                                                 t_rx0)
-        f_emit = inst_freq(t_emit)
-        sig = eval_wdf(t_emit, f_emit)
-        ap = tx_aperture(glx, gly, wx_, wy_, wz_,
-                         cvel / torch.clamp(f_emit, min=1e-6))
-        w_tx = sig * gain * ap * TWO_PI
-        off = 1e-4 * torch.sign(cos_s)
-        sx, sy, sz = hx + off * nx, hy + off * ny, hz + off * nz
-        occ = torch.zeros_like(active)
-        limit = dist * 0.999
-        for row in blockers:
-            count('occ_tests', shade & ~occ)
-            t_p, hit_p, _ = rect_t(row, sx, sy, sz, wx_, wy_, wz_)
-            occ = occ | (hit_p & (t_p > 1e-4) & (t_p < limit))
-        if mesh is not None:
-            # mesh any hit for the lanes the rectangles left unblocked
-            walk = (shade & ~occ).nonzero().squeeze(1)
-            w = walk_ref(mesh, sx[walk], sy[walk], sz[walk], wx_[walk],
-                         wy_[walk], wz_[walk], limit[walk], anyhit=True,
-                         stats=counts if stats is not None else None)
-            occ[walk] = w.occ
-        ok = active & ~occ & (pdf_sa > 0.0) & (cos_tx > 1e-6) & (txc < 0.0) \
-            & ~is_m
-        count('nee_splat', ok)
-        val = torch.where(ok, throughput * f_cos * w_tx * w_gate
-                          / torch.clamp(pdf_sa, min=1e-30), 0.0)
-        if tau is not None:
-            count('med_conn', ok)
-            val = val * torch.exp(-tau(hx, hy, hz, wx_, wy_, wz_, dist, ok))
-        yb = (t_recv - t_start) / t_window * n_time_f - 0.5
-        f_recv = f_emit
-        if moving:
-            # connection Doppler: the vertex's bounce and the
-            # transmitter's motion
-            count('dop_nee', ok)
-            dop_vtx = 1.0 + ((wx_ - ddx) * vb[0] + (wy_ - ddy) * vb[1]
-                             + (wz_ - ddz) * vb[2]) / cvel
-            dop_tx = 1.0 - (wx_ * tr[24] + wy_ * tr[25] + wz_ * tr[26]) \
-                / cvel
-            f_recv = f_emit * dop * dop_vtx * dop_tx
-        # the NEE phase adds the boundary phase of depth + 1 vertices
-        splat(val, yb, f_recv, t_recv, ok,
-              echo_phase(plen + dist, t_emit, t_recv, k_nee)
-              + (depth + 1) * sp[16] if coherent else None)
+        shade0 = active & (txc < 0.0) & ~is_m
+        for t, w in enumerate(txs):
+            m, tnx, tny, tnz = w['m'], *w['n']
+            u5, u6 = draw(), draw()
+            glx, gly = 2.0 * u5 - 1.0, 2.0 * u6 - 1.0
+            qx = m[0] * glx + m[1] * gly + m[3]
+            qy = m[4] * glx + m[5] * gly + m[7]
+            qz = m[8] * glx + m[9] * gly + m[11]
+            vx, vy, vz = qx - hx, qy - hy, qz - hz
+            dist2 = vx * vx + vy * vy + vz * vz
+            dist = torch.sqrt(torch.clamp(dist2, min=1e-20))
+            inv_d = 1.0 / dist
+            wx_, wy_, wz_ = vx * inv_d, vy * inv_d, vz * inv_d
+            cos_tx = -(wx_ * tnx + wy_ * tny + wz_ * tnz)
+            count('nee_geom', shade0)
+            shade = shade0 & (cos_tx > 1e-6)
+            count('nee', shade)
+            pdf_sa = torch.where(
+                cos_tx > 1e-6,
+                (1.0 / torch.clamp(w['area'], min=1e-12)) * dist2
+                / torch.clamp(cos_tx, min=1e-6), 0.0)
+            cos_s = wx_ * nx + wy_ * ny + wz_ * nz
+            # diffuse f * cos toward the transmitter (wi = toward the
+            # receiver)
+            sg = _sign(-ddx * nx + -ddy * ny + -ddz * nz)
+            co = wx_ * (nx * sg) + wy_ * (ny * sg) + wz_ * (nz * sg)
+            f_cos = rb * (1.0 / np.pi) * torch.clamp(co, min=0.0)
+            if ggx:
+                count('ggx_nee', shade & is_ggx)
+                f_cos = torch.where(is_ggx, _ggx_fcos(
+                    rb, ab, eb, kk, nx, ny, nz, -ddx, -ddy, -ddz,
+                    wx_, wy_, wz_), f_cos)
+            u7 = draw()
+            t_emit, t_recv, w_gate, k_nee = emission(
+                w, (plen + dist) / cvel, u7, t_rx0)
+            f_emit = inst_freq(t_emit, w)
+            sig = eval_wdf(w, t_emit, f_emit)
+            ap = tx_aperture(t, glx, gly, qx, qy, qz, wx_, wy_, wz_,
+                             cvel / torch.clamp(f_emit, min=1e-6), shade)
+            w_tx = sig * w['gain'] * ap * TWO_PI
+            off = 1e-4 * torch.sign(cos_s)
+            sx, sy, sz = hx + off * nx, hy + off * ny, hz + off * nz
+            occ = torch.zeros_like(active)
+            limit = dist * 0.999
+            for row in blockers[t]:
+                count('occ_tests', shade & ~occ)
+                t_p, hit_p, _ = rect_t(row, sx, sy, sz, wx_, wy_, wz_)
+                occ = occ | (hit_p & (t_p > 1e-4) & (t_p < limit))
+            if mesh is not None:
+                # mesh any hit for the lanes the rectangles left unblocked
+                walk = (shade & ~occ).nonzero().squeeze(1)
+                wk = walk_ref(mesh, sx[walk], sy[walk], sz[walk], wx_[walk],
+                              wy_[walk], wz_[walk], limit[walk], anyhit=True,
+                              stats=counts if stats is not None else None)
+                occ[walk] = wk.occ
+            ok = active & ~occ & (pdf_sa > 0.0) & (cos_tx > 1e-6) \
+                & (txc < 0.0) & ~is_m
+            count('nee_splat', ok)
+            val = torch.where(ok, throughput * f_cos * w_tx * w_gate
+                              / torch.clamp(pdf_sa, min=1e-30), 0.0)
+            if tau is not None:
+                count('med_conn', ok)
+                val = val * torch.exp(-tau(hx, hy, hz, wx_, wy_, wz_, dist,
+                                           ok))
+            yb = (t_recv - t_start) / t_window * n_time_f - 0.5
+            f_recv = f_emit
+            if moving:
+                # connection Doppler: the vertex's bounce and the
+                # transmitter's motion
+                count('dop_nee', ok)
+                dop_vtx = 1.0 + ((wx_ - ddx) * vb[0] + (wy_ - ddy) * vb[1]
+                                 + (wz_ - ddz) * vb[2]) / cvel
+                vel = w['vel']
+                dop_tx = 1.0 - (wx_ * vel[0] + wy_ * vel[1]
+                                + wz_ * vel[2]) / cvel
+                f_recv = f_emit * dop * dop_vtx * dop_tx
+            # the NEE phase adds the boundary phase of depth + 1 vertices
+            splat(w, val, yb, f_recv, t_recv, ok,
+                  echo_phase(w, plen + dist, t_emit, t_recv, k_nee)
+                  + (depth + 1) * sp[16] if coherent else None)
 
         if depth == max_depth - 1:
             break
@@ -1660,11 +1837,12 @@ def _bind(lib):
                               ctypes.c_longlong, ctypes.c_ulonglong,
                               ctypes.c_float)
     ip = ctypes.POINTER(ctypes.c_int)
-    lib.rk_geometry.argtypes = [i32] * 2 + [i64] + [i32] * 9 + [ip] * 3
+    lib.rk_geometry.argtypes = [i32] * 2 + [i64] + [i32] * 10 + [ip] * 3
     lib.rk_geometry.restype = i32
     lib.rk_launch.argtypes = [vp] * 12 + [i32, i32, vp, i64, u64] \
         + [i32] * 13 + [f32] * 6 + [i32, u64] + [i64] * 4 + [i32] * 3 \
-        + [vp, vp, i32] + [i32, vp, i32, i32, i32] + [vp]
+        + [vp, vp, i32] + [i32, vp, i32, i32, i32] + [i32, i32, vp, i32] \
+        + [i32, i32] + [vp]
     lib.rk_launch.restype = i32
 
 
@@ -1695,11 +1873,12 @@ def launch_geometry(n_time: int, n_lanes: int, n_prims: int,
                     n_params: int = 45 + MAX_MEDIA_LAYERS,
                     mesh: bool = False, n_freq: int = 1, n_msh: int = 0,
                     doppler: bool = False, coherent: bool = False,
-                    n_pulses: int = 1, n_elem: int = 0, medium: int = 0):
+                    n_pulses: int = 1, n_elem: int = 0, medium: int = 0,
+                    ep: bool = False):
     """(blocks a pulse, threads per block, dynamic shared bytes) of the
     trace kernel (its mesh, Doppler and / or coherent configuration, or
-    the MIMO one of `n_elem` elements; its media twin with `medium`) on
-    the current card: a persistent
+    the MIMO one of `n_elem` elements; its media twin with `medium`, its
+    endpoint twin with `ep`) on the current card: a persistent
     grid of as many blocks as fit on every SM at once, fewer when a
     pulse's lanes run out.  The `n_pulses` pulses of a CPI share that grid
     in the Doppler family; in the flagship and mesh configurations each
@@ -1710,7 +1889,7 @@ def launch_geometry(n_time: int, n_lanes: int, n_prims: int,
     blocks, threads, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
     LIBRARY.check(lib.rk_geometry(n_time, n_freq, n_lanes, n_prims, n_params,
                                   n_msh, int(mesh), mode, int(coherent),
-                                  n_pulses, n_elem, int(medium > 0),
+                                  n_pulses, n_elem, int(medium > 0), int(ep),
                                   ctypes.byref(blocks),
                                   ctypes.byref(threads), ctypes.byref(smem)),
                   'receive_megakernel geometry')
@@ -1743,17 +1922,59 @@ def _check_adc(adc: ADCConfig, doppler: bool):
                          'window')
 
 
+# the transmitter kinds read back from a table, kept by the tensor's id
+# while it lives and until it changes in place (its version counter moves)
+_TX_KINDS: dict = {}
+
+
+def _table_tx_kinds(txp, n_tx: int) -> tuple:
+    """The kinds txp[..., 27] of a table's (first pulse's) transmitter
+    rows: read back once a tensor (a stall on a card), then kept."""
+    hit = _TX_KINDS.get(id(txp))
+    if hit is None or hit[0]() is not txp or hit[1] != txp._version:
+        for k in [k for k, v in _TX_KINDS.items() if v[0]() is None]:
+            del _TX_KINDS[k]
+        kinds = tuple(int(k) for k in
+                      txp.reshape(-1, n_tx, TXP_COLS)[0, :, 27].tolist())
+        hit = _TX_KINDS[id(txp)] = (weakref.ref(txp), txp._version, kinds)
+    return hit[2]
+
+
 def _check_call(params, prim, txp, uniforms, mesh, msh, lane_out, lead, *,
                 adc, max_depth, time_sampling, rx_kind, n_lanes, doppler,
                 patch_p, receive_type, has_lo, coherent, rxph=None,
-                eoff=None, medium=0, grid=None):
+                eoff=None, medium=0, grid=None, php=None):
     """Validate a call's arguments; `lead` is () for one pulse, (P,) for a
     CPI of P pulses (every table, the uniforms and the lane sums then have
     that leading axis, the BVH tables (P, n) rows).  `eoff` (with `rxph`)
     asks for the MIMO configuration (one pulse).  `medium` and `grid`: the
     medium's kind and, for a grid, its (D, H, W) cells, one tensor every
-    pulse of a CPI shares."""
+    pulse of a CPI shares; so do `php`, the phased pair rows, and `rxph`.
+    Returns (the receive-frequency rule, the transmitters' kinds (read
+    from txp, `_table_tx_kinds`), whether the call needs the endpoint
+    configuration)."""
     dev = params.device
+    n_tx = int(txp.shape[-2]) if txp.dim() >= 2 else 0
+    if not 1 <= n_tx <= MAX_TX:
+        raise ValueError(f'{n_tx} transmitter rows (1..{MAX_TX})')
+    tx_kinds = _table_tx_kinds(txp, n_tx)
+    if not set(tx_kinds) <= {WIGNER, PHASED, AREA}:
+        raise ValueError(f'txp[:, 27] {tx_kinds}: one of Wigner {WIGNER}, '
+                         f'phased {PHASED}, area {AREA} a transmitter row')
+    ep = n_tx > 1 or set(tx_kinds) != {WIGNER} or (
+        rx_kind == 'phased' and eoff is None)
+    if ep and medium:
+        raise ValueError('the endpoint configuration has no media twin '
+                         '(ROADMAP B6)')
+    if PHASED in tx_kinds:
+        k = (int(php.shape[1]) - 2) // 6 if php is not None \
+            and php.dim() == 2 else 0
+        if (k < 1 or tuple(php.shape) != (n_tx, 2 + 6 * k)
+                or n_tx * k > MAX_TX_PAIRS or php.dtype != torch.float32
+                or php.device != dev or not php.is_contiguous()):
+            raise ValueError(f'php: a phased transmitter needs contiguous '
+                             f'float32 (n_tx, 2 + 6K) pair rows on {dev}, '
+                             f'n_tx K <= {MAX_TX_PAIRS}')
     if medium not in (0, HOMOGENEOUS, LAYERED, GRID):
         raise ValueError(f'medium {medium}: 0 vacuum, {HOMOGENEOUS} '
                          f'homogeneous, {LAYERED} layered, {GRID} grid')
@@ -1789,6 +2010,15 @@ def _check_call(params, prim, txp, uniforms, mesh, msh, lane_out, lead, *,
                     or not t.is_contiguous():
                 raise ValueError(f'{name}: expected contiguous float32 on '
                                  f'{dev}')
+    elif rx_kind == 'phased':
+        k = (int(rxph.shape[1]) - 2) // 6 if rxph is not None \
+            and rxph.dim() == 2 else 0
+        if (k < 1 or tuple(rxph.shape) != (1, 2 + 6 * k)
+                or k > MAX_RX_PAIRS or rxph.dtype != torch.float32
+                or rxph.device != dev or not rxph.is_contiguous()):
+            raise ValueError(f'rxph: an analog phased receiver needs its '
+                             f'contiguous float32 (1, 2 + 6K) pair row on '
+                             f'{dev}, K <= {MAX_RX_PAIRS}')
     elif rx_kind not in ('wigner', 'omni'):
         raise ValueError(f'rx_kind {rx_kind!r}')
     rule = rx_rule(receive_type, has_lo)
@@ -1801,7 +2031,7 @@ def _check_call(params, prim, txp, uniforms, mesh, msh, lane_out, lead, *,
         raise ValueError(f'{n_prims} prim rows (1..{MAX_PRIMS})')
     tables = [('params', params, lead + (45 + MAX_MEDIA_LAYERS,)),
               ('prim', prim, lead + (n_prims, PRIM_COLS)),
-              ('txp', txp, lead + (1, TXP_COLS))]
+              ('txp', txp, lead + (n_tx, TXP_COLS))]
     if msh is not None:
         n_msh = int(msh.shape[-2])
         if not (doppler and mesh is not None
@@ -1818,7 +2048,7 @@ def _check_call(params, prim, txp, uniforms, mesh, msh, lane_out, lead, *,
             raise ValueError(f'{name}: expected contiguous float32 {shape} '
                              f'on {dev}, got {t.dtype} {tuple(t.shape)} on '
                              f'{t.device}')
-    nd = n_draws(max_depth)
+    nd = n_draws(max_depth, n_tx)
     if uniforms is not None and (
             tuple(uniforms.shape) != lead + (nd, n_lanes)
             or uniforms.dtype != torch.float32 or uniforms.device != dev
@@ -1846,7 +2076,7 @@ def _check_call(params, prim, txp, uniforms, mesh, msh, lane_out, lead, *,
                          'receiver')
     if dev.type not in ('cpu', 'cuda'):
         raise ValueError(f'no receive kernel for device {dev}')
-    return rule
+    return rule, tx_kinds, ep
 
 
 def has_mirror(prim, msh) -> bool:
@@ -1867,11 +2097,13 @@ def _mirror_flag(mirror, prim, msh, doppler) -> bool:
 def _launch(params, prim, txp, msh, uniforms, mesh, lane_out, *, n_pulses,
             adc, max_depth, time_sampling, rx_kind, n_lanes, seed, seed_step,
             doppler, patch_p, rule, has_lo, coherent, mirror, rxph=None,
-            eoff=None, medium=0, grid=None):
+            eoff=None, medium=0, grid=None, ep=False, php=None):
     """The CUDA kernel and its reduce over `n_pulses` pulses of stacked
     tables on a card: (acc (n_pulses, n_cells x n_ch) float32, n_events
     (n_pulses,) int64).  `eoff` launches the MIMO configuration, `medium`
-    a configuration's media twin."""
+    a configuration's media twin, `ep` its endpoint twin (the pair rows
+    `php` of its phased transmitters, the pair row `rxph` of an analog
+    phased receiver)."""
     dev = params.device
     lib = LIBRARY.get()
     n_elem = 0 if eoff is None else int(eoff.shape[0])
@@ -1880,12 +2112,14 @@ def _launch(params, prim, txp, msh, uniforms, mesh, lane_out, *, n_pulses,
     n_cells = adc.n_time * adc.n_freq
     mode = grid_mode(n_cells, doppler, coherent, n_elem)
     n_prims = int(prim.shape[-2])
+    n_tx = int(txp.shape[-2])
     n_msh = 0 if msh is None else int(msh.shape[-2])
+    analog = rx_kind == 'phased' and eoff is None
     with torch.cuda.device(dev):
         blocks, threads, smem = launch_geometry(
             adc.n_time, n_lanes, n_prims, int(params.shape[-1]),
             mesh is not None, adc.n_freq, n_msh, doppler, coherent, n_pulses,
-            n_elem, medium)
+            n_elem, medium, ep)
         # per-block partial grids of each pulse (I and Q interleaved per
         # cell when coherent); one global grid of atomics a pulse in mode 2
         partial = torch.empty(
@@ -1916,12 +2150,16 @@ def _launch(params, prim, txp, msh, uniforms, mesh, lane_out, *, n_pulses,
             int(has_lo), int(mirror), adc.sampling_start,
             adc.sampling_time, 0.5 * (f_lo + f_hi), f_lo, f_hi - f_lo,
             max(f_hi - f_lo, 1e-30),
-            n_pulses, seed_step & MASK64, n_draws(max_depth) * n_lanes,
+            n_pulses, seed_step & MASK64,
+            n_draws(max_depth, n_tx) * n_lanes,
             *m_strides, blocks, threads, smem,
             None if rxph is None else rxph.data_ptr(),
             None if eoff is None else eoff.data_ptr(), n_elem, medium,
             None if grid is None else grid.data_ptr(),
-            *((0, 0, 0) if grid is None else grid.shape), stream)
+            *((0, 0, 0) if grid is None else grid.shape), n_tx, int(ep),
+            None if php is None else php.data_ptr(),
+            0 if php is None else int(php.shape[1]), int(analog),
+            (int(rxph.shape[1]) - 2) // 6 if analog else 0, stream)
         LIBRARY.check(err, 'receive_megakernel launch')
     return acc, n_events
 
@@ -1934,7 +2172,7 @@ def receive_megakernel(params, prim, txp, *, adc: ADCConfig, max_depth: int,
                        lane_out=None, receive_type: str = 'raw',
                        has_lo: bool = False, coherent: bool = False,
                        mirror: bool | None = None, rxph=None, eoff=None,
-                       medium: int = 0, grid=None):
+                       medium: int = 0, grid=None, php=None):
     """Trace `n_lanes` receive samples.  Returns (acc (n_time, n_freq)
     float32, (n_time, n_freq, 2) I / Q with `coherent`, or (n_time, 1, 2E)
     with `eoff`, n_events 0-d int64) on the tables' device.
@@ -1964,20 +2202,26 @@ def receive_megakernel(params, prim, txp, *, adc: ADCConfig, max_depth: int,
     is its own I / Q mode, 2E channels).  `medium` (media.HOMOGENEOUS,
     LAYERED or GRID, packed in `params` by `pack_medium`; 0 vacuum)
     launches the configuration's media twin, which takes a GRID's (D, H,
-    W) float32 cells `grid` on the tables' device.  Tables on the CPU run
-    the plain version (`receive_megakernel_ref`, fed `philox_uniforms` in
-    PRNG mode); tables on a card launch the CUDA kernel, which raises if
-    it cannot build or launch."""
-    rule = _check_call(params, prim, txp, uniforms, mesh, msh, lane_out, (),
-                       adc=adc, max_depth=max_depth,
-                       time_sampling=time_sampling, rx_kind=rx_kind,
-                       n_lanes=n_lanes, doppler=doppler, patch_p=patch_p,
-                       receive_type=receive_type, has_lo=has_lo,
-                       coherent=coherent, rxph=rxph, eoff=eoff,
-                       medium=medium, grid=grid)
+    W) float32 cells `grid` on the tables' device.  `txp` (n_tx, 32)
+    holds up to MAX_TX transmitter rows; several of them, a phased or area
+    transmitter (their kinds txp[:, 27], read back from a card the first
+    time a tensor is seen), or
+    rx_kind 'phased' without `eoff` (an analog phased receiver, its pair
+    row `rxph` (1, 2 + 6K)) launch the configuration's endpoint twin; a
+    phased transmitter needs its pair rows `php` (n_tx, 2 + 6K).  Tables
+    on the CPU run the plain version (`receive_megakernel_ref`, fed
+    `philox_uniforms` in PRNG mode); tables on a card launch the CUDA
+    kernel, which raises if it cannot build or launch."""
+    rule, tx_kinds, ep = _check_call(
+        params, prim, txp, uniforms, mesh, msh, lane_out, (), adc=adc,
+        max_depth=max_depth, time_sampling=time_sampling, rx_kind=rx_kind,
+        n_lanes=n_lanes, doppler=doppler, patch_p=patch_p,
+        receive_type=receive_type, has_lo=has_lo, coherent=coherent,
+        rxph=rxph, eoff=eoff, medium=medium, grid=grid, php=php)
+    n_tx = len(tx_kinds)
     if params.device.type == 'cpu':
         u = uniforms if uniforms is not None else \
-            philox_uniforms(seed, n_draws(max_depth), n_lanes)
+            philox_uniforms(seed, n_draws(max_depth, n_tx), n_lanes)
         return receive_megakernel_ref(params, prim, txp, u, adc=adc,
                                       max_depth=max_depth,
                                       time_sampling=time_sampling,
@@ -1987,18 +2231,18 @@ def receive_megakernel(params, prim, txp, *, adc: ADCConfig, max_depth: int,
                                       receive_type=receive_type,
                                       has_lo=has_lo, coherent=coherent,
                                       mirror=mirror, rxph=rxph, eoff=eoff,
-                                      medium=medium, grid=grid)
+                                      medium=medium, grid=grid, php=php)
     acc, n_events = _launch(
         params, prim, txp, msh, uniforms, mesh, lane_out, n_pulses=1,
         adc=adc, max_depth=max_depth, time_sampling=time_sampling,
         rx_kind=rx_kind, n_lanes=n_lanes, seed=seed, seed_step=0,
         doppler=doppler, patch_p=patch_p, rule=rule, has_lo=has_lo,
         coherent=coherent, mirror=_mirror_flag(mirror, prim, msh, doppler),
-        rxph=rxph, eoff=eoff, medium=medium, grid=grid)
+        rxph=rxph, eoff=eoff, medium=medium, grid=grid, ep=ep, php=php)
     receive_megakernel.launches += 1
     receive_megakernel.by_config[config_name(
         mesh is not None, doppler, coherent, eoff is not None,
-        medium > 0)] += 1
+        medium > 0, ep)] += 1
     if eoff is not None:
         shape = (adc.n_time, adc.n_freq, 2 * int(eoff.shape[0]))
     else:
@@ -2022,10 +2266,10 @@ def receive_megakernel_cpi(params, prim, txp, *, adc: ADCConfig,
                            lane_out=None, receive_type: str = 'raw',
                            has_lo: bool = False, coherent: bool = False,
                            mirror: bool | None = None, medium: int = 0,
-                           grid=None):
+                           grid=None, rxph=None, php=None):
     """A coherent processing interval (CPI) of P pulses in one launch: the
     pulse is a grid axis of the kernel.  The tables carry a leading pulse
-    axis (params (P, 77), prim (P, n_prims, 34), txp (P, 1, 32), msh (P,
+    axis (params (P, 77), prim (P, n_prims, 34), txp (P, n_tx, 32), msh (P,
     n_msh, 8), the BVH tables (P, n) rows: `pack_cpi`), as do `uniforms`
     (P, n_draws, n_lanes) and `lane_out` (P, n_lanes).  Pulse p's lanes
     0 .. n_lanes - 1 draw Philox keyed by seed + seed_step * p (seed_step
@@ -2033,23 +2277,26 @@ def receive_megakernel_cpi(params, prim, txp, *, adc: ADCConfig,
     `receive_megakernel`, per pulse.  Returns (acc (P, n_time, n_freq) or
     (P, n_time, n_freq, 2), n_events (P,) int64).  The medium is one
     scene-wide row, the same in every pulse's params, and every pulse
-    reads the one (D, H, W) `grid` of a GRID medium.  On the CPU the plain
-    version runs pulse by pulse."""
+    reads the one (D, H, W) `grid` of a GRID medium; so do the pair rows
+    `php` of phased transmitters and `rxph` of an analog phased receiver
+    (they follow from the specs, the same in every pulse).  On the CPU
+    the plain version runs pulse by pulse."""
     n_pulses = int(params.shape[0]) if params.dim() == 2 else 0
     if n_pulses < 1:
         raise ValueError('params: expected (n_pulses, 77)')
-    rule = _check_call(params, prim, txp, uniforms, mesh, msh, lane_out,
-                       (n_pulses,), adc=adc, max_depth=max_depth,
-                       time_sampling=time_sampling, rx_kind=rx_kind,
-                       n_lanes=n_lanes, doppler=doppler, patch_p=patch_p,
-                       receive_type=receive_type, has_lo=has_lo,
-                       coherent=coherent, medium=medium, grid=grid)
+    rule, tx_kinds, ep = _check_call(
+        params, prim, txp, uniforms, mesh, msh, lane_out, (n_pulses,),
+        adc=adc, max_depth=max_depth, time_sampling=time_sampling,
+        rx_kind=rx_kind, n_lanes=n_lanes, doppler=doppler, patch_p=patch_p,
+        receive_type=receive_type, has_lo=has_lo, coherent=coherent,
+        medium=medium, grid=grid, rxph=rxph, php=php)
+    n_tx = len(tx_kinds)
     shape = (n_pulses, adc.n_time, adc.n_freq) + ((2,) if coherent else ())
     if params.device.type == 'cpu':
         accs, evs = [], []
         for p in range(n_pulses):
             u = uniforms[p] if uniforms is not None else philox_uniforms(
-                seed + seed_step * p, n_draws(max_depth), n_lanes)
+                seed + seed_step * p, n_draws(max_depth, n_tx), n_lanes)
             a, n = receive_megakernel_ref(
                 params[p], prim[p], txp[p], u, adc=adc, max_depth=max_depth,
                 time_sampling=time_sampling, rx_kind=rx_kind,
@@ -2058,7 +2305,7 @@ def receive_megakernel_cpi(params, prim, txp, *, adc: ADCConfig,
                 patch_p=patch_p,
                 lane_out=None if lane_out is None else lane_out[p],
                 receive_type=receive_type, has_lo=has_lo, coherent=coherent,
-                mirror=mirror, medium=medium, grid=grid)
+                mirror=mirror, medium=medium, grid=grid, rxph=rxph, php=php)
             accs.append(a)
             evs.append(n)
         return torch.stack(accs).view(shape), torch.stack(evs)
@@ -2068,24 +2315,28 @@ def receive_megakernel_cpi(params, prim, txp, *, adc: ADCConfig,
         rx_kind=rx_kind, n_lanes=n_lanes, seed=seed, seed_step=seed_step,
         doppler=doppler, patch_p=patch_p, rule=rule, has_lo=has_lo,
         coherent=coherent, mirror=_mirror_flag(mirror, prim, msh, doppler),
-        medium=medium, grid=grid)
+        medium=medium, grid=grid, rxph=rxph, ep=ep, php=php)
     receive_megakernel_cpi.launches += 1
     receive_megakernel_cpi.by_config[config_name(
-        mesh is not None, doppler, coherent, medium=medium > 0)] += 1
+        mesh is not None, doppler, coherent, medium=medium > 0, ep=ep)] += 1
     return acc.view(shape), n_events
 
 
 VACUUM_CONFIGS = ('flagship', 'mesh', 'doppler', 'doppler_mesh', 'coherent',
                   'coherent_mesh', 'mimo')
 # every configuration has a media twin (the kernel's MED instantiations)
-CONFIGS = VACUUM_CONFIGS + tuple(c + '_media' for c in VACUUM_CONFIGS)
+# and an endpoint twin (EP: several transmitters, phased or area ones, an
+# analog phased receiver), in vacuum
+CONFIGS = VACUUM_CONFIGS + tuple(c + '_media' for c in VACUUM_CONFIGS) \
+    + tuple(c + '_ep' for c in VACUUM_CONFIGS)
 
 
 def config_name(mesh: bool, doppler: bool, coherent: bool = False,
-                mimo: bool = False, medium: bool = False) -> str:
+                mimo: bool = False, medium: bool = False,
+                ep: bool = False) -> str:
     name = 'mimo' if mimo else VACUUM_CONFIGS[
         int(mesh) + (4 if coherent else 2 * int(doppler))]
-    return name + '_media' if medium else name
+    return name + ('_media' if medium else '') + ('_ep' if ep else '')
 
 
 # launches of the CUDA kernel, in all and by configuration: one receive
@@ -2114,6 +2365,7 @@ class DeviceTables:
     doppler: bool
     mirror: bool      # a smooth conductor: the mirror chains
     rxph: torch.Tensor            # the receiver's phased row (1, 2 + 6K)
+    php: torch.Tensor             # the transmitters' pair rows (n_tx, 2 + 6K)
     medium: int = 0               # the ambient medium's kind (0: vacuum)
     grid: torch.Tensor | None = None   # a grid medium's (D, H, W) cells
 
@@ -2122,15 +2374,16 @@ def in_scope(scene, scene_data, rx, dev, reason: list,
              mimo: bool = False) -> bool:
     """`supported(scene_data, rx, reason, mimo)`, decided once per
     (scene_data, rx) on `dev` and kept with the scene: the check reads
-    tables back from the card, which would stall every call.  MIMO also
-    needs the array on a shape (the kernel takes its frame from it)."""
+    tables back from the card, which would stall every call.  A phased
+    receive array (MIMO or analog) also needs a shape (the kernel takes
+    its frame from it)."""
     cache = scene.__dict__.setdefault('_receive_kernel_scope', {})
     key = (rx.id, dev, mimo)
     hit = cache.get(key)
     if hit is None or hit[0] is not scene_data or hit[1] is not rx:
         why: list = []
         ok = supported(scene_data, rx, why, mimo)
-        if ok and mimo and \
+        if ok and rx_kind_of(rx) == 'phased' and \
                 scene.shape_index_of_endpoint('receiver', rx.id) < 0:
             ok = False
             why.append('a free-standing phased receiver: the kernel takes '
@@ -2161,8 +2414,9 @@ def _device_tables(scene, scene_data, rx, dev,
     packed = pack_scene(scene_data, rx,
                         scene.shape_index_of_endpoint('receiver', rx.id))
     doppler = packed.doppler(rx.adc)
-    params, prim, txp = (torch.as_tensor(a, device=dev).contiguous()
-                         for a in (packed.params, packed.prim, packed.txp))
+    params, prim, txp, php = (torch.as_tensor(a, device=dev).contiguous()
+                              for a in (packed.params, packed.prim,
+                                        packed.txp, packed.php))
     tables = DeviceTables(
         params=params, prim=prim, txp=txp,
         msh=torch.as_tensor(packed.msh, device=dev).contiguous()
@@ -2170,10 +2424,20 @@ def _device_tables(scene, scene_data, rx, dev,
         mesh=None if packed.mesh is None else packed.mesh.to(dev),
         doppler=doppler, mirror=packed.mirror,
         rxph=torch.as_tensor(packed.rxph, device=dev).contiguous(),
+        php=php,
         medium=packed.medium, grid=None if packed.grid is None
         else torch.as_tensor(packed.grid, device=dev).contiguous())
     cache[key] = (scene_data, rx, tables)
     return tables
+
+
+def rx_kind_of(rx) -> str:
+    """The kernel's receiver kind of a spec: 'omni', 'phased' (an array of
+    more than one element: MIMO, or analog with its cross-WDF) or
+    'wigner'."""
+    if rx.kind == OMNI:
+        return 'omni'
+    return 'phased' if rx.kind == PHASED and rx.n_elems > 1 else 'wigner'
 
 
 def seed_slot(seed: int) -> float:
@@ -2229,9 +2493,10 @@ def receive_kernel(scene, scene_data, rx, spp: int, seed: int = 0,
             time_sampling=time_sampling, rx_kind='phased', n_lanes=spp,
             seed=seed, doppler=True, receive_type=rx.receive_type,
             has_lo=rx.lo_waveform is not None, mirror=tab.mirror,
-            rxph=tab.rxph, eoff=eoff, medium=tab.medium, grid=tab.grid)
+            rxph=tab.rxph, eoff=eoff, medium=tab.medium, grid=tab.grid,
+            php=tab.php)
         return acc, spp
-    rx_kind = 'omni' if rx.kind == OMNI else 'wigner'
+    rx_kind = rx_kind_of(rx)
     n_lanes, patch_p, params = spp, 0, tab.params
     if tab.mesh is not None:
         n_lanes = max(TILE, (spp // TILE) * TILE)
@@ -2246,7 +2511,8 @@ def receive_kernel(scene, scene_data, rx, spp: int, seed: int = 0,
         seed=seed, mesh=tab.mesh, msh=tab.msh if doppler else None,
         doppler=doppler, patch_p=patch_p, receive_type=rx.receive_type,
         has_lo=rx.lo_waveform is not None, coherent=coherent,
-        mirror=tab.mirror, medium=tab.medium, grid=tab.grid)
+        mirror=tab.mirror, medium=tab.medium, grid=tab.grid,
+        rxph=tab.rxph if rx_kind == 'phased' else None, php=tab.php)
     return acc, n_lanes
 
 
@@ -2263,8 +2529,10 @@ class PackedCPI:
 
     params: np.ndarray   # (P, 77) f32; [p, 0] is pulse p's seed slot
     prim: np.ndarray     # (P, n_prims, 34)
-    txp: np.ndarray      # (P, 1, 32)
+    txp: np.ndarray      # (P, n_tx, 32)
     msh: np.ndarray      # (P, n_mesh_shapes, 8)
+    php: np.ndarray      # (n_tx, 2 + 6K) pair rows, every pulse's
+    rxph: np.ndarray     # (1, 2 + 6K_rx) the receiver's pair row
     mesh: PackedBVH | None   # BVH tables (P, n) rows
     rx_rule: int
     moving: bool
@@ -2312,6 +2580,11 @@ def pack_cpi_tables(snapshots: list, rx, shape_idx: int) -> PackedCPI:
             raise ValueError('pulse snapshots must share static scene config')
         if (pk.mesh is None) != (p0.mesh is None):
             raise ValueError('pulse snapshots must agree on mesh presence')
+        if pk.txp.shape != p0.txp.shape \
+                or not np.array_equal(pk.txp[:, 27], p0.txp[:, 27]) \
+                or not np.array_equal(pk.php, p0.php):
+            raise ValueError('pulse snapshots must share their transmitters '
+                             '(kinds and pair rows)')
         if pk.medium != p0.medium or pk.params[29] != p0.params[29] \
                 or not np.array_equal(pk.params[42:], p0.params[42:]) \
                 or (pk.grid is not None
@@ -2321,7 +2594,7 @@ def pack_cpi_tables(snapshots: list, rx, shape_idx: int) -> PackedCPI:
         params=np.stack([pk.params for pk in packs]),
         prim=np.stack([pk.prim for pk in packs]),
         txp=np.stack([pk.txp for pk in packs]),
-        msh=np.stack([pk.msh for pk in packs]),
+        msh=np.stack([pk.msh for pk in packs]), php=p0.php, rxph=p0.rxph,
         mesh=None if p0.mesh is None else stack_meshes(
             [pk.mesh for pk in packs]),
         rx_rule=p0.rx_rule, moving=any(pk.moving for pk in packs),
@@ -2389,14 +2662,14 @@ def receive_kernel_cpi(scene, n_pulses: int, prf: float, t0: float = 0.0,
     if tab is None or tab[0] is not packed:
         tab = (packed, *(torch.as_tensor(a, device=dev).contiguous()
                          for a in (packed.params, packed.prim, packed.txp,
-                                   packed.msh)),
+                                   packed.msh, packed.php, packed.rxph)),
                None if packed.mesh is None else packed.mesh.to(dev),
                None if packed.grid is None
                else torch.as_tensor(packed.grid, device=dev).contiguous())
         cache[key] = tab
-    _, params, prim, txp, msh, mesh, grid = tab
+    _, params, prim, txp, msh, php, rxph, mesh, grid = tab
     seeds, step = cpi_seeds(seed, n_pulses, common_random_numbers)
-    rx_kind = 'omni' if rx.kind == OMNI else 'wigner'
+    rx_kind = rx_kind_of(rx)
     n_lanes, patch_p = spp, 0
     if mesh is not None:
         n_lanes = max(TILE, (spp // TILE) * TILE)
@@ -2414,5 +2687,6 @@ def receive_kernel_cpi(scene, n_pulses: int, prf: float, t0: float = 0.0,
         msh=msh if doppler and mesh is not None else None, doppler=doppler,
         patch_p=patch_p, receive_type=rx.receive_type,
         has_lo=rx.lo_waveform is not None, coherent=coherent,
-        mirror=packed.mirror, medium=packed.medium, grid=grid)
+        mirror=packed.mirror, medium=packed.medium, grid=grid,
+        rxph=rxph if rx_kind == 'phased' else None, php=php)
     return acc, n_lanes

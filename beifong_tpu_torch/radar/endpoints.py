@@ -2,12 +2,13 @@
 ops (counterpart of `beifong_tpu/radar/endpoints.py`).
 
 Transmitters compile into a tensor table (the receive kernel packs it; the
-eager wavefront samples and evaluates it per lane); the receiver stays a
-host spec whose ADC config sets the binning.  A phased receive array
-keeps its elements apart for MIMO receive (`receive.receive_mimo`): its
-frame, per-element offsets and single-element pattern gain are here, and
-its pair table feeds the receive kernel.  The analog phased receive and
-transmit (the cross-WDF pair sums) are ROADMAP B6.
+eager wavefront samples and evaluates it per lane): Wigner apertures,
+phased arrays (their virtual element pairs, steered at the band-centre
+wavelength) and plain area transmitters.  The receiver stays a host spec
+whose ADC config sets the binning.  A phased receive array is analog
+(its cross-WDF weights each receive ray, `rx_sample_ray` /
+`rx_aperture_weight`) or, through `receive.receive_mimo`, digital: its
+frame, per-element offsets and single-element pattern gain are here.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ from ..core.math import Pi, TwoPi, sinc
 from ..geometry.sample import sample_position
 from ..interaction import DirectionSample
 from .waveform import Waveform, stack as wf_stack
-from .wigner import rect_aperture_gain
+from .wigner import phased_aperture_gain, rect_aperture_gain
 
 WIGNER = 0
 PHASED = 1
@@ -54,6 +55,16 @@ class TransmitterSpec:
     resample_freq: bool = False
     velocity: np.ndarray = dataclasses.field(
         default_factory=lambda: np.zeros(3, np.float32))
+    # phased array (kind PHASED): n_elems elements elem_spacing apart along
+    # elem_axis (in the attached shape's frame), each of half-widths
+    # elem_wid, steered steer_deg off the normal toward +elem_axis
+    n_elems: int = 1
+    elem_spacing: float = 0.0
+    elem_axis: np.ndarray = dataclasses.field(
+        default_factory=lambda: np.array([1.0, 0.0, 0.0], np.float32))
+    elem_wid: np.ndarray = dataclasses.field(
+        default_factory=lambda: np.array([0.01, 0.01], np.float32))
+    steer_deg: float = 0.0
     endpoint_kind: str = dataclasses.field(default='transmitter', init=False)
 
 
@@ -62,6 +73,27 @@ def wigner_transmitter(id, waveform, gain=1.0,
     """Aperture transmitter on a rectangle shape; directional gain from the
     shape's Wigner distribution."""
     return TransmitterSpec(id=id, kind=WIGNER, waveform=waveform, gain=gain,
+                           resample_freq=resample_freq)
+
+
+def phased_transmitter(id, waveform, n_elems, elem_spacing, elem_wid,
+                       steer_deg=0.0, elem_axis=(1, 0, 0), gain=1.0,
+                       resample_freq=False) -> TransmitterSpec:
+    """Phased-array transmitter on a rectangle shape: `n_elems` elements
+    along `elem_axis`, `elem_spacing` apart, each of half-widths
+    `elem_wid`, its beam steered `steer_deg` degrees."""
+    return TransmitterSpec(id=id, kind=PHASED, waveform=waveform, gain=gain,
+                           resample_freq=resample_freq, n_elems=int(n_elems),
+                           elem_spacing=float(elem_spacing),
+                           elem_axis=np.asarray(elem_axis, np.float32),
+                           elem_wid=np.asarray(elem_wid, np.float32),
+                           steer_deg=float(steer_deg))
+
+
+def area_transmitter(id, waveform, gain=1.0,
+                     resample_freq=False) -> TransmitterSpec:
+    """Plain diffuse area transmitter on a shape (no directivity)."""
+    return TransmitterSpec(id=id, kind=AREA, waveform=waveform, gain=gain,
                            resample_freq=resample_freq)
 
 
@@ -174,15 +206,25 @@ class TransmitterTable:
         return int(self.kind.shape[0])
 
     @staticmethod
-    def build(specs: list[TransmitterSpec], shape_of,
-              device) -> "TransmitterTable":
+    def build(specs: list[TransmitterSpec], shape_of, device,
+              band_wl_centre: float) -> "TransmitterTable":
+        """The table of `specs`; a phased array's K = n_elems^2 pairs
+        (padded to the largest K, one empty pair if none) are steered at
+        `band_wl_centre` [m]."""
         n = len(specs)
-        for s in specs:
+        K = max(max((s.n_elems ** 2 for s in specs), default=1), 1)
+        mids = np.zeros((n, K, 3), np.float32)
+        bases = np.zeros((n, K, 3), np.float32)
+        psis = np.zeros((n, K), np.float32)
+        mask = np.zeros((n, K), bool)
+        wid = np.full((n, 2), 0.01, np.float32)
+        for i, s in enumerate(specs):
             if s.kind == PHASED:
-                raise NotImplementedError(
-                    'phased transmitters (the cross-WDF pair sums) are '
-                    'ROADMAP B6; a phased receiver runs through '
-                    'receive_mimo')
+                m, b, p = _phased_pairs(s, band_wl_centre)
+                k = len(m)
+                mids[i, :k], bases[i, :k], psis[i, :k] = m, b, p
+                mask[i, :k] = True
+                wid[i] = s.elem_wid
 
         def t(a):
             return torch.as_tensor(a, device=device)
@@ -197,11 +239,8 @@ class TransmitterTable:
             wf=wf.to(device),
             velocity=t(np.stack([np.asarray(s.velocity, np.float32)
                                  for s in specs])),
-            elem_mid=t(np.zeros((n, 1, 3), np.float32)),
-            elem_baseline=t(np.zeros((n, 1, 3), np.float32)),
-            psi=t(np.zeros((n, 1), np.float32)),
-            pair_mask=t(np.zeros((n, 1), bool)),
-            elem_wid=t(np.full((n, 2), 0.01, np.float32)))
+            elem_mid=t(mids), elem_baseline=t(bases), psi=t(psis),
+            pair_mask=t(mask), elem_wid=t(wid))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -229,15 +268,32 @@ class ReceiverTable:
 
 def tx_aperture_gain(scene, tx_idx, p_world, d_world, wavelength):
     """Directional aperture gain of transmitter rows tx_idx for radiation
-    leaving p_world along d_world: the rectangle WDF of a Wigner
-    transmitter, 1 for an area transmitter."""
+    leaving p_world along d_world at `wavelength` (n,): the rectangle WDF
+    of a Wigner transmitter, the cross-WDF of a phased array's pairs, 1
+    for an area transmitter."""
     tx = scene.transmitters
     i = torch.clamp(tx_idx, min=0).long()
     kind = tx.kind[i]
     sidx = torch.clamp(tx.shape_idx[i], min=0).long()
-    g_wig = rect_aperture_gain(scene.shapes, sidx, p_world, d_world,
-                               wavelength)
-    return torch.where(kind == WIGNER, g_wig, 1.0)
+    g = torch.where(kind == WIGNER, rect_aperture_gain(
+        scene.shapes, sidx, p_world, d_world, wavelength), 1.0)
+    ph = (kind == PHASED).nonzero().squeeze(1)
+    if ph.numel():
+        # the array's frame from its shape; the pairs' local (s, t)
+        # offsets along it
+        tw = scene.shapes.to_world[sidx[ph]]
+        s_ax, t_ax = tw[:, :3, 0], tw[:, :3, 1]
+        sn = s_ax / torch.clamp(s_ax.norm(dim=-1, keepdim=True), min=1e-20)
+        tn = t_ax / torch.clamp(t_ax.norm(dim=-1, keepdim=True), min=1e-20)
+        ip = i[ph]
+
+        def world(local):
+            return local[..., 0:1] * sn[:, None] + local[..., 1:2] * tn[:, None]
+        g[ph] = phased_aperture_gain(
+            world(tx.elem_mid[ip]), world(tx.elem_baseline[ip]), tx.psi[ip],
+            tx.pair_mask[ip], sn, tn, tx.elem_wid[ip], tw[:, :3, 3],
+            p_world[ph], d_world[ph], wavelength[ph])
+    return g
 
 
 def tx_eval(scene, tx_idx, p_world, d_out_world, cos_theta, time_at_tx,
@@ -319,8 +375,10 @@ def rx_sample_ray(scene, rx_spec: ReceiverSpec, shape_idx: int, time,
     importance weight.  A rectangle aperture draws from a 50/50 mixture of
     the cosine hemisphere and a power-cosine lobe as wide as the WDF main
     lobe (first null at sin(theta) = lambda / 2w); u_dir[:, 0] picks the
-    branch and is rescaled.  An omni receiver samples the sphere.  Returns
-    (o, d, weight)."""
+    branch and is rescaled.  A phased array (of more than one element)
+    draws a point over its bounding rectangle and a cosine-hemisphere
+    direction.  An omni receiver samples the sphere.  Returns (o, d,
+    weight)."""
     n = int(time.shape[0])
     dev = time.device
     if rx_spec.kind == OMNI:
@@ -328,11 +386,24 @@ def rx_sample_ray(scene, rx_spec: ReceiverSpec, shape_idx: int, time,
                             dtype=torch.float32, device=dev).expand(n, 3)
         d = warp.square_to_uniform_sphere(u_dir)
         return p, d, torch.full((n,), 4.0 * Pi, device=dev)
-    if rx_spec.kind != WIGNER:
-        raise NotImplementedError(
-            f'receiver kind {rx_spec.kind}: the analog phased receive (its '
-            'cross-WDF) is ROADMAP B6; a phased receiver runs through '
-            'receive_mimo')
+    if rx_spec.kind == PHASED and rx_spec.n_elems > 1:
+        # a position uniform over the array's bounding rectangle (the
+        # support of its pairs' footprints, however small the attached
+        # shape) and a cosine-hemisphere direction about its normal; the
+        # cross-WDF weight comes from rx_aperture_weight
+        origin, sn, tn, nrm = rx_array_frame(scene, rx_spec, shape_idx)
+        locs = _elem_locs(rx_spec)
+        hx = float(np.abs(locs[:, 0]).max()) + float(rx_spec.elem_wid[0])
+        hy = float(np.abs(locs[:, 1]).max()) + float(rx_spec.elem_wid[1])
+        lx = (u_pos[:, 0] * 2.0 - 1.0) * hx
+        ly = (u_pos[:, 1] * 2.0 - 1.0) * hy
+        p = origin[None] + lx[:, None] * sn[None] + ly[:, None] * tn[None]
+        frame = tfm.frame_from_normal(nrm.expand(n, 3))
+        d = tfm.to_world(frame, warp.square_to_cosine_hemisphere(u_dir))
+        return p + 1e-4 * nrm[None], d, \
+            torch.full((n,), Pi * (4.0 * hx * hy) * rx_spec.gain, device=dev)
+    if rx_spec.kind not in (WIGNER, PHASED):
+        raise ValueError(f'receiver kind {rx_spec.kind}')
     idxs = torch.full((n,), shape_idx, dtype=torch.long, device=dev)
     p, nrm, pdf_a, _ = sample_position(scene.shapes, idxs, u_pos)
     frame = tfm.frame_from_normal(nrm)
@@ -365,16 +436,29 @@ def rx_sample_ray(scene, rx_spec: ReceiverSpec, shape_idx: int, time,
 
 def rx_aperture_weight(scene, rx_spec: ReceiverSpec, shape_idx: int, p, d,
                        wavelength):
-    """Directional WDF weight of the receive aperture at (p, d); may be
-    negative.  1 for an omni receiver."""
+    """Directional WDF weight of the receive aperture at (p, d): the
+    rectangle WDF, or a phased array's cross-WDF; may be negative.  1 for
+    an omni receiver."""
     n = int(p.shape[0])
     if rx_spec.kind == OMNI:
         return torch.ones(n, device=p.device)
-    if rx_spec.kind != WIGNER:
-        raise NotImplementedError(
-            f'receiver kind {rx_spec.kind}: the analog phased receive (its '
-            'cross-WDF) is ROADMAP B6; a phased receiver runs through '
-            'receive_mimo')
+    if rx_spec.kind == PHASED and rx_spec.n_elems > 1:
+        # the pairs steered at the band-centre wavelength, in world
+        # offsets along the attached shape's frame
+        mids, bases, psis = _phased_pairs(rx_spec,
+                                          scene.band.wavelength_centre)
+        origin, sn, tn, _ = rx_array_frame(scene, rx_spec, shape_idx)
+
+        def world(local):
+            loc = torch.as_tensor(local, device=p.device)
+            return loc[:, 0:1] * sn[None] + loc[:, 1:2] * tn[None]
+        return phased_aperture_gain(
+            world(mids), world(bases), torch.as_tensor(psis, device=p.device),
+            torch.ones(len(mids), dtype=torch.bool, device=p.device), sn, tn,
+            torch.as_tensor(np.asarray(rx_spec.elem_wid, np.float32),
+                            device=p.device), origin, p, d, wavelength)
+    if rx_spec.kind not in (WIGNER, PHASED):
+        raise ValueError(f'receiver kind {rx_spec.kind}')
     idxs = torch.full((n,), shape_idx, dtype=torch.long, device=p.device)
     return rect_aperture_gain(scene.shapes, idxs, p, d, wavelength)
 

@@ -8,8 +8,10 @@ to_world x and y columns; the unit rectangle spans [-1, 1]^2):
     nu     = (s_hat . d, t_hat . d) / wavelength
     W = 4 tri(rx) tri(ry) sinc(2 pi nu_x wx tri(rx)) sinc(2 pi nu_y wy tri(ry))
 
-The phased-array cross-WDF is ROADMAP B6 (a phased receiver runs
-through `receive.receive_mimo`, one channel an element).
+A phased array's gain is the cross-WDF: a sum over its virtual element
+pairs (midpoint, baseline) of each element's rectangle WDF at the point
+relative to the pair's midpoint, times the interference term
+cos(2 pi nu . baseline + psi) of the pair's steering phase psi.
 """
 
 from __future__ import annotations
@@ -39,6 +41,31 @@ def rect_aperture_gain(shapes: ShapeTable, idx, p_world, d_world,
             * sinc(TwoPi * nu_y * wy * ty))
 
 
-def phased_aperture_gain(*args, **kw):
-    raise NotImplementedError('the phased-array cross-WDF is ROADMAP B6; '
-                              'a phased receiver runs through receive_mimo')
+def phased_aperture_gain(elem_mid, elem_baseline, psi, pair_mask, frame_s,
+                         frame_t, elem_wid, array_origin, p_world, d_world,
+                         wavelength):
+    """Cross-WDF gain of a phased array at points p_world (n, 3) toward
+    unit directions d_world (n, 3), wavelength (n,) [m].  The array: pair
+    midpoints and baselines in world offsets (K, 3), steering phases psi
+    (K,), the valid-pair mask (K,), the normalised in-plane axes frame_s /
+    frame_t (3,), the element half-widths elem_wid (2,) and the array
+    centre (3,); each may carry a leading lane axis (n, ...).  Signed:
+    the pair terms cancel."""
+    fs = frame_s.unsqueeze(-2)                          # (..., 1, 3)
+    ft = frame_t.unsqueeze(-2)
+    rel = p_world[:, None, :] - (array_origin.unsqueeze(-2) + elem_mid)
+    ws, wt = elem_wid[..., 0:1], elem_wid[..., 1:2]     # (..., 1)
+    rx = (rel * fs).sum(-1) / torch.clamp(2.0 * ws, min=1e-20)
+    ry = (rel * ft).sum(-1) / torch.clamp(2.0 * wt, min=1e-20)
+    inside = (rx.abs() <= 0.5) & (ry.abs() <= 0.5)
+    nu_x = (d_world * frame_s).sum(-1) / wavelength
+    nu_y = (d_world * frame_t).sum(-1) / wavelength
+    tx, ty = tri(rx), tri(ry)
+    w_rect = (4.0 * ws * wt * tx * ty
+              * sinc(TwoPi * nu_x[:, None] * ws * tx)
+              * sinc(TwoPi * nu_y[:, None] * wt * ty))
+    nu_dot = (nu_x[:, None] * (elem_baseline * fs).sum(-1)
+              + nu_y[:, None] * (elem_baseline * ft).sum(-1))
+    contrib = torch.where(inside & pair_mask, w_rect
+                          * torch.cos(TwoPi * nu_dot + psi), 0.0)
+    return contrib.sum(-1)

@@ -176,7 +176,7 @@ class Scene:
             tx_table = TransmitterTable.build(
                 self.transmitters,
                 lambda tid: self.shape_index_of_endpoint('transmitter', tid),
-                dev)
+                dev, self.band.wavelength_centre)
         if self.receivers:
             rx_table = ReceiverTable.build(
                 self.receivers,

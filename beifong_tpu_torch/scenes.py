@@ -36,6 +36,12 @@ package's receive-type tests (`tests/test_radar.py`).
 `receive_mimo` and digital beamforming, with its azimuth scan
 (`mimo_azimuth_scan`).
 
+`phased_tx_scene`, `phased_rx_scene` and `four_tx_scene` are the JAX
+package's kernel tests of the endpoints (`tests/test_pallas_receive.py`):
+a steered phased transmitter, a steered analog phased receiver between
+two targets at different ranges, and four transmitters of three kinds at
+staggered ranges, with their anchors (`round_trip_bin`, `steer_toward`).
+
 `stratified_medium_scene(med)` is the JAX package's
 `examples/stratified_medium.py`: a sonar looking down through an
 absorbing slab (`stratified_layers`) at a target on the floor, with the
@@ -56,8 +62,9 @@ from .core.config import Band
 from .geometry import shapes as sh
 from .geometry.mesh import MeshSpec, make_grid
 from .media import HeterogeneousMedium, HomogeneousMedium, LayeredMedium
-from .radar import (ADCConfig, cw, linfmcw, omni_receiver, phased_receiver,
-                    pulse, wigner_receiver, wigner_transmitter)
+from .radar import (ADCConfig, area_transmitter, cw, linfmcw, omni_receiver,
+                    phased_receiver, phased_transmitter, pulse,
+                    wigner_receiver, wigner_transmitter)
 
 
 def flagship_scene(R: float = 4.0, ground: bool = True,
@@ -536,11 +543,12 @@ def mimo_azimuth_scan(az_deg: float = MIMO['az_deg'], device='cpu'):
     return az, dirs, int(np.abs(np.degrees(az) - az_deg).argmin())
 
 
-def round_trip_bin(scene, rx, target=(0.0, -4.0, 0.0)) -> float:
+def round_trip_bin(scene, rx, target=(0.0, -4.0, 0.0), tx=None) -> float:
     """Fast-time bin (continuous, bin centres at integers) of the
-    transmitter -> target -> receiver delay: the 2R/c anchor a range
-    profile must peak at."""
-    tx_pos = _endpoint_position(scene, 'transmitter', scene.transmitters[0])
+    transmitter (`tx`, a spec; the first by default) -> target ->
+    receiver delay: the 2R/c anchor a range profile must peak at."""
+    tx_pos = _endpoint_position(scene, 'transmitter',
+                                tx or scene.transmitters[0])
     rx_pos = _endpoint_position(scene, 'receiver', rx)
     tgt = np.asarray(target, np.float64)
     path = np.linalg.norm(tx_pos - tgt) + np.linalg.norm(tgt - rx_pos)
@@ -553,6 +561,145 @@ def _endpoint_position(scene, kind, spec) -> np.ndarray:
     i = scene.shape_index_of_endpoint(kind, spec.id)
     m = scene.shapes[i].to_world if i >= 0 else spec.to_world
     return np.asarray(m, np.float64)[:3, 3]
+
+
+# the endpoint scenes: a 40 kHz pulse in a 1 kHz band (a steered array's
+# phases are baked at its centre wavelength), 64 raw bins over 60 ms
+PHASED = dict(fc=40e3, n_elems=8, R=4.0, tx=(0.3, 0.0, 0.0),
+              tgt_off=1.2, rx_az=16.7, rx_ranges=(4.0, 5.0))
+
+
+def _endpoint_base(band_hz: float):
+    """A scene with the band, the diffuse 'mat', the 2 ms pulse and the raw
+    64-bin ADC of the endpoint scenes: (scene, waveform, ADC)."""
+    s = sc.Scene(band=Band.from_freq(C_SOUND, PHASED['fc'], band_hz))
+    s.add(diffuse('mat', reflectance=1.0, twosided=True))
+    wf = pulse(f_centre=PHASED['fc'], prf=10.0, pulse_len=2e-3,
+               f_ext=min(band_hz, 2e3), is_delta=True)
+    f_lo, f_hi = PHASED['fc'] - 0.5 * band_hz, PHASED['fc'] + 0.5 * band_hz
+    adc = ADCConfig(n_time=64, n_freq=1, sampling_start=0.0,
+                    sampling_time=0.06, freq_lo=f_lo, freq_hi=f_hi)
+    return s, wf, adc
+
+
+def steer_toward(array_pos, target) -> float:
+    """The steer angle [deg] that points an array at `array_pos`, its
+    normal -y and its element axis along +x, at `target` (positive toward
+    +x)."""
+    v = np.asarray(target, np.float64) - np.asarray(array_pos, np.float64)
+    return float(np.degrees(np.arcsin(v[0] / np.linalg.norm(v))))
+
+
+def phased_tx_scene(steer_deg: float, n_elems: int = PHASED['n_elems']):
+    """The JAX package's phased-transmitter kernel test
+    (`tests/test_pallas_receive.py:1137-1178`) with `n_elems` elements:
+    a phased transmitter at (0.3, 0, 0) facing -y, elements lambda / 2
+    apart along x, each lambda / 4 a side, steered `steer_deg` (the
+    target's angle: `steer_toward(PHASED['tx'], phased_tx_target())`),
+    on a rectangle that spans the array (2 lambda a side at least); a
+    20 mm Wigner receiver at (-0.3, 0, 0) aimed at the target, a diffuse
+    0.8 m plate 4 m out and 1.2 m to +x, facing the transmitter.  Returns
+    (scene, receiver spec)."""
+    s, wf, adc = _endpoint_base(1e3)
+    wl = s.band.wavelength_centre
+    p = PHASED
+    s.add(phased_transmitter('tx', wf, n_elems=n_elems, elem_spacing=wl / 2,
+                             elem_wid=(wl / 4, wl / 4), steer_deg=steer_deg,
+                             resample_freq=True))
+    half = max(2.0, 0.25 * (n_elems + 1)) * wl
+    tx = p['tx']
+    _aperture(s, tx, (tx[0], -1.0, 0.0), (half, half, 1.0),
+              transmitter='tx')
+    rx = wigner_receiver('rx', adc, receive_type='raw')
+    s.add(rx)
+    tgt = phased_tx_target()
+    _aperture(s, (-0.3, 0.0, 0.0), tgt, (0.02, 0.02, 1.0), receiver='rx')
+    _plate(s, tgt, 0.4, look_to=tx)
+    return s, rx
+
+
+def phased_tx_target():
+    return (PHASED['tgt_off'], -PHASED['R'], 0.0)
+
+
+def phased_rx_targets():
+    """The two targets of `phased_rx_scene`: at azimuth +rx_az from -y
+    toward +x, rx_ranges[0] out, and at -rx_az, rx_ranges[1] out."""
+    az = np.radians(PHASED['rx_az'])
+    return [(sg * r * np.sin(az), -r * np.cos(az), 0.0)
+            for sg, r in zip((1.0, -1.0), PHASED['rx_ranges'])]
+
+
+def phased_rx_scene(steer_deg: float, n_elems: int = PHASED['n_elems']):
+    """The JAX package's analog phased-receiver kernel test
+    (`tests/test_pallas_receive.py:1222-1268`) with `n_elems` elements:
+    a small (8 mm, wide-beam) Wigner transmitter at (0.3, 0, 0) facing
+    -y lights two diffuse 0.8 m plates (`phased_rx_targets`: 4 m out at
+    +16.7 degrees, 5 m out at -16.7), a phased receiver at the origin
+    facing -y, elements lambda / 2 apart along x, each lambda / 4 a side,
+    steered `steer_deg`, on a 0.2 mm rectangle.  Steered at one target,
+    its echo's bin peaks.  Returns (scene, receiver spec)."""
+    s, wf, adc = _endpoint_base(1e3)
+    wl = s.band.wavelength_centre
+    s.add(wigner_transmitter('tx', wf, resample_freq=True))
+    tx = PHASED['tx']
+    _aperture(s, tx, (tx[0], -1.0, 0.0), (0.004, 0.004, 1.0),
+              transmitter='tx')
+    rx = phased_receiver('rx', adc, n_elems=n_elems, elem_spacing=wl / 2,
+                         elem_wid=(wl / 4, wl / 4), steer_deg=steer_deg,
+                         receive_type='raw')
+    s.add(rx)
+    _aperture(s, (0.0, 0.0, 0.0), (0.0, -1.0, 0.0), (1e-4, 1e-4, 1.0),
+              receiver='rx')
+    for tgt in phased_rx_targets():
+        _plate(s, tgt, 0.4)
+    return s, rx
+
+
+# four transmitters of three kinds, each further behind the receiver's
+# plane than the last, so that each echo off the one target falls in its
+# own fast-time bins (~4.7 bins apart); the phased one has 5 elements (K =
+# 25 pairs, 4 x 25 = 100 <= 128) and stands nearest, its 22 mm array the
+# size of the others' 20 mm apertures
+FOUR_TX = (('phased', (0.3, 0.0, 0.0)), ('wigner', (0.6, 1.5, 0.3)),
+           ('area', (0.9, 3.0, -0.3)), ('wigner', (1.2, 4.5, 0.0)))
+
+
+def four_tx_scene():
+    """After the JAX package's two-transmitter kernel test
+    (`tests/test_pallas_receive.py:368-400`): the transmitters of
+    `FOUR_TX` (a 5-element lambda / 2 phased array at broadside, two 20 mm
+    Wigner apertures and a 20 mm area transmitter), each facing -y, one
+    2 ms pulse, a 0.1 m Wigner receiver at (-0.3, 0, 0), a diffuse 1 m
+    plate 4 m out facing the origin, raw 64 bins over 60 ms in a 10 kHz
+    band.  Returns (scene, receiver spec)."""
+    s, wf, adc = _endpoint_base(10e3)
+    wl = s.band.wavelength_centre
+    for i, (kind, pos) in enumerate(FOUR_TX):
+        tid = f'tx{i + 1}'
+        if kind == 'phased':
+            # its cross-WDF carries its elements' area 4 w_s w_t (the JAX
+            # package's pair term); a gain of its inverse levels its echo
+            # with the others'
+            s.add(phased_transmitter(tid, wf, n_elems=5, elem_spacing=wl / 2,
+                                     elem_wid=(wl / 4, wl / 4),
+                                     gain=1.0 / (4.0 * (wl / 4) ** 2),
+                                     resample_freq=True))
+            size = 1.25 * wl
+        elif kind == 'area':
+            s.add(area_transmitter(tid, wf, resample_freq=True))
+            size = 0.01
+        else:
+            s.add(wigner_transmitter(tid, wf, resample_freq=True))
+            size = 0.01
+        _aperture(s, pos, (pos[0], pos[1] - 1.0, pos[2]), (size, size, 1.0),
+                  transmitter=tid)
+    rx = wigner_receiver('rx', adc, receive_type='raw')
+    s.add(rx)
+    _aperture(s, (-0.3, 0.0, 0.0), (-0.3, -1.0, 0.0), (0.05, 0.05, 1.0),
+              receiver='rx')
+    _plate(s, (0.0, -4.0, 0.0), 0.5)
+    return s, rx
 
 
 # examples/stratified_medium.py: a 40 kHz sonar 3 m up, a diffuse 1 m

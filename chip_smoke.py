@@ -95,6 +95,20 @@ Phases (any failure exits non-zero before the last line is printed):
              example); config 5's CPI through a medium in one launch
              against the plain version; the times of vacuum, K = 4,
              K = 32, homogeneous and the grid at 2^24 samples;
+   phased  - K1's endpoint twins at full width: phased_tx_scene (an
+             8-element phased transmitter steered at its target, then
+             away), phased_rx_scene (an analog 8-element phased receiver
+             steered at the 4 m target, then at the 5 m one) and
+             four_tx_scene (four transmitters of three kinds) through
+             receive() at 2^24 samples, depth 2, gate, and phased_tx
+             coherent: each twin against its plain version on injected
+             uniforms (2^16 lanes) and on Philox (2^24), the anchors (the
+             echo within 2 bins of its round trip, off-steer window < 0.5
+             of on-steer, the other target's window < 0.5 of the steered
+             one's, each transmitter's echo within 2 bins of its own round
+             trip), the kernel alone, K1 against the wavefront at 2^20
+             (peak bins within 2, window energies within 0.2-5x; the
+             coherent case averaged over 16 seeds on each route);
    wavefront - the eager receive wavefront: ray_triangle_closest /
              ray_triangle_any (K4) against their plain versions at the
              wavefront's shape (2^17 receiver rays x the multi_body
@@ -241,6 +255,12 @@ FP32_OPS = {
     'ray_phased': 133,
     'mimo_vertex': 10,
     'mimo_elem': 46,
+    # a phased array's cross-WDF (pair_sum): per pair, its midpoint, the
+    # point's footprint coordinates and the inside test; per pair whose
+    # footprint holds the point, two tents, two sincs (fast_sin and a
+    # divide each), the rectangle weight, the phase, fast_cos and the sum
+    'pair_tests': 29,
+    'pair_terms': 55,
 }
 
 
@@ -361,7 +381,8 @@ def lane_ops(stats: dict, n_rect: int, ray: str = 'ray_wigner') -> float:
                    'bounce', 'freq_draw', 'ggx_nee', 'ggx_bounce',
                    'dop_direct', 'dop_nee', 'dop_bounce', 'splat_2d',
                    'lo_freq', 'lo_bin', 'phase', 'phase_lo', 'h_chirp',
-                   'mirror_bounce', 'mimo_vertex', 'mimo_elem'))
+                   'mirror_bounce', 'mimo_vertex', 'mimo_elem',
+                   'pair_tests', 'pair_terms'))
             + walk_ops(stats))
 
 
@@ -374,7 +395,8 @@ def walk_ops(stats: dict) -> float:
 
 def print_build(infos: dict, tag: str) -> None:
     # K1's configurations by their mangled template arguments (each ends
-    # in Lb0EE, or Lb1EE for its media twin)
+    # in Lb0ELb0EE, Lb1ELb0EE for its media twin, Lb0ELb1EE for its
+    # endpoint twin)
     k1 = {'receive_trace_kernelILb0E': 'flagship',
           'receive_trace_kernelILb1E': 'mesh',
           'receive_doppler_kernelILb0ELb0E': 'doppler',
@@ -382,9 +404,9 @@ def print_build(infos: dict, tag: str) -> None:
           'receive_doppler_kernelILb0ELb1E': 'coherent',
           'receive_doppler_kernelILb1ELb1E': 'coherent mesh',
           'receive_mimo_kernelI': 'mimo'}
-    names = {f'{k}Lb{int(m)}EE': f'receive_megakernel ({v}'
-             + (' media)' if m else ')')
-             for k, v in k1.items() for m in (False, True)}
+    names = {f'{k}Lb{int(m)}ELb{int(e)}EE': f'receive_megakernel ({v}'
+             + (' media)' if m else ' endpoints)' if e else ')')
+             for k, v in k1.items() for m, e in ((0, 0), (1, 0), (0, 1))}
     names.update({
              'receive_reduce_kernel': 'receive reduce',
              'bvh_closest_kernel': 'bvh_closest', 'bvh_any_kernel': 'bvh_any',
@@ -1107,7 +1129,7 @@ def _plain_philox(torch, rk, params, prim, txp, kw, n_lanes, depth, dev,
     """The plain version on the kernel's Philox stream at the main path's
     shape, in chunks: (acc, events, amplitude sums, stage counts, ms)."""
     stats: dict = {}
-    nd = rk.n_draws(depth)
+    nd = rk.n_draws(depth, int(txp.shape[-2]))
     cfg = kw['adc']
     amp = torch.zeros((cfg.n_time, cfg.n_freq), dtype=torch.float64,
                       device=dev)
@@ -2224,6 +2246,244 @@ def media(torch, bt, rk, dev, tag) -> list:
         'cpi_worst': worst5, 'times': rows}]
 
 
+PHASED_LANES = 1 << 24          # receive() and the kernel alone, Philox parity
+PHASED_PARITY_LANES = 1 << 16   # injected uniforms
+PHASED_DEPTH = 2
+PHASED_WF_SAMPLES = 1 << 20     # K1 against the wavefront
+PHASED_WF_BOUND = (0.2, 5.0)    # their window energies' ratio (the JAX
+#                                 package's test_pallas_receive.py:1208)
+PHASED_WF_SEEDS = 16            # coherent: seeds averaged on each route
+
+
+def _range_profile(torch, bt, a, n, rx, coherent):
+    """The range profile of a receive() grid: power, or |I + jQ|^2."""
+    p = bt.develop_signal(a, n, rx.adc)[:, 0]
+    p = (p[:, 0] ** 2 + p[:, 1] ** 2) if coherent else p[:, 0]
+    return p.double().cpu().numpy()
+
+
+def _bin_energy(p, centre, half=2):
+    import numpy as np
+    lo = max(int(centre) - half, 0)
+    return float(np.abs(p[lo:int(centre) + half + 1]).sum())
+
+
+def phased(torch, bt, rk, dev, tag) -> list:
+    """K1's endpoint twins on the endpoint scenes at full width (8-element
+    phased arrays, four transmitters of three kinds): parity on injected
+    uniforms and on Philox, receive() at 2^24 samples with the anchors of
+    the JAX package's kernel tests, the kernel alone, K1 against the
+    wavefront."""
+    import numpy as np
+    from beifong_tpu_torch import scenes
+    P = scenes.PHASED
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    st = scenes.steer_toward(P['tx'], scenes.phased_tx_target())
+    cases = (('phased_tx', lambda sg=1.0: scenes.phased_tx_scene(sg * st),
+              False),
+             ('phased_rx',
+              lambda sg=1.0: scenes.phased_rx_scene(sg * P['rx_az']), False),
+             ('four_tx', lambda sg=1.0: scenes.four_tx_scene(), False),
+             ('phased_tx coherent',
+              lambda sg=1.0: scenes.phased_tx_scene(sg * st), True))
+
+    def reset():
+        rk.receive_megakernel.launches = 0
+        rk.receive_megakernel.by_config = dict.fromkeys(rk.CONFIGS, 0)
+
+    def tables(s, rx):
+        sd = s.compile(device=dev)
+        p = rk.pack_scene(sd, rx, s.shape_index_of_endpoint('receiver',
+                                                            rx.id))
+        t = [torch.tensor(a, device=dev) for a in (p.params, p.prim, p.txp,
+                                                   p.php, p.rxph)]
+        rx_kind = rk.rx_kind_of(rx)
+        return sd, t, rx_kind, tuple(int(k) for k in p.txp[:, 27])
+
+    out = []
+    for name, make, coh in cases:
+        s, rx = make()
+        sd, (params, prim, txp, php, rxph), rx_kind, kinds = tables(s, rx)
+        params[0] = rk.seed_slot(SEED)
+        n_tx = len(kinds)
+        cfg_name = 'coherent_ep' if coh else 'flagship_ep'
+        kw = dict(adc=rx.adc, max_depth=PHASED_DEPTH, time_sampling='gate',
+                  rx_kind=rx_kind, doppler=coh, coherent=coh, php=php,
+                  rxph=rxph if rx_kind == 'phased' else None)
+        slack = rk.phase_slack(s.band, rx.adc)
+
+        # ---- 3. parity on injected uniforms ----
+        n_l = PHASED_PARITY_LANES
+        u = torch.rand((rk.n_draws(PHASED_DEPTH, n_tx), n_l), generator=gen,
+                       device=dev)
+        lane = torch.empty(n_l, device=dev) if coh else None
+        lane_ref = torch.empty(n_l, device=dev) if coh else None
+        amp = torch.zeros((rx.adc.n_time, 1), dtype=torch.float64,
+                          device=dev)
+        acc, n_ev = rk.receive_megakernel(params, prim, txp, n_lanes=n_l,
+                                          uniforms=u, lane_out=lane, **kw)
+        ref, n_ref = rk.receive_megakernel_ref(
+            params, prim, txp, u, lane_out=lane_ref,
+            amp_out=amp if coh else None, **kw)
+        what = f'{name} ({cfg_name}, {n_tx} transmitter'
+        what += 's' if n_tx > 1 else ''
+        what += f', kinds {kinds}, rx {rx_kind})'
+        errs = [compare_coherent(torch, acc, n_ev, ref, n_ref, amp, slack,
+                                 f'{what} injected 2^16 lanes', lane,
+                                 lane_ref, depth=PHASED_DEPTH) if coh
+                else compare(acc, n_ev, ref, n_ref,
+                             f'{what} injected 2^16 lanes')]
+
+        # ---- 4. the main path: receive() at 2^24, its anchors ----
+        sds = {}
+
+        def call(sg, seed, spp=PHASED_LANES, **k):
+            if sg not in sds:
+                sds[sg] = make(sg)
+                sds[sg] = sds[sg] + (sds[sg][0].compile(device=dev),)
+            s_, rx_, sd_ = sds[sg]
+            return bt.receive(s_, sd_, rx_, spp=spp, max_depth=PHASED_DEPTH,
+                              seed=seed, time_sampling='gate', coherent=coh,
+                              device=dev, **k)
+        reset()
+        with _Wavefront(bt) as wfc:
+            a, n = call(1.0, 1)
+            prof = _range_profile(torch, bt, a, n, rx, coh)
+            times = cuda_ms(lambda i: call(1.0, 2 + i), 5)[0]
+            prof_off = None
+            if name in ('phased_tx', 'phased_rx'):
+                a2, n2 = call(-1.0, 1)
+                prof_off = _range_profile(torch, bt, a2, n2, rx, coh)
+        n_calls = 6 + (prof_off is not None)
+        launches = rk.receive_megakernel.by_config[cfg_name]
+        if launches != n_calls or rk.receive_megakernel.launches != n_calls \
+                or wfc.calls:
+            fail(f'phased {name}: {n_calls} receive() calls launched '
+                 f'{rk.receive_megakernel.by_config}, the wavefront '
+                 f'{wfc.calls} times')
+        if tuple(a.shape) != (rx.adc.n_time, 1, (2 if coh else 1) + 2) \
+                or not np.isfinite(prof).all():
+            fail(f'phased {name}: grid {tuple(a.shape)} not finite / wrong '
+                 'shape')
+        pk = int(np.abs(prof).argmax())
+        anchor = {}
+        if name.startswith('phased_tx'):
+            want = scenes.round_trip_bin(s, rx, scenes.phased_tx_target())
+            anchor = dict(peak=pk, round_trip=want)
+            ok = abs(pk - want) <= 2
+            if prof_off is not None:
+                lo, hi = max(pk - 3, 0), pk + 4
+                on = float(np.abs(prof[lo:hi]).sum())
+                off = float(np.abs(prof_off[lo:hi]).sum())
+                anchor['off_over_on'] = off / on
+                ok = ok and off < 0.5 * on
+        elif name == 'phased_rx':
+            tgts = scenes.phased_rx_targets()
+            want = [scenes.round_trip_bin(s, rx, t) for t in tgts]
+            pk_off = int(np.abs(prof_off).argmax())
+            r_on = _bin_energy(prof, round(want[1]) + 1) \
+                / _bin_energy(prof, pk)
+            r_off = _bin_energy(prof_off, round(want[0]) + 1) \
+                / _bin_energy(prof_off, pk_off)
+            anchor = dict(peaks=[pk, pk_off], round_trips=want,
+                          other_over_steered=[r_on, r_off])
+            ok = (abs(pk - want[0]) <= 2 and abs(pk_off - want[1]) <= 2
+                  and r_on < 0.5 and r_off < 0.5)
+        else:
+            want = [scenes.round_trip_bin(s, rx, (0.0, -4.0, 0.0), t)
+                    for t in s.transmitters]
+            pks = []
+            for w in want:
+                lo = int(round(w)) - 2
+                pks.append(lo + int(np.abs(prof[lo:lo + 5]).argmax()))
+            anchor = dict(peaks=pks, round_trips=want)
+            ok = all(abs(p_ - w) <= 2 and _bin_energy(prof, p_)
+                     > 0.05 * float(np.abs(prof).max())
+                     for p_, w in zip(pks, want))
+        print(f'receive() {name} 2^24 samples depth 2, gate: anchors '
+              f'{json.dumps(anchor)} {tag}')
+        if not ok:
+            fail(f'phased {name}: anchors missed')
+        recv_ms = statistics.median(times)
+
+        # ---- the kernel alone and the plain version on Philox ----
+        k_ms, _ = cuda_ms(lambda i: rk.receive_megakernel(
+            params, prim, txp, n_lanes=PHASED_LANES, seed=SEED, **kw), 6)
+        k_med = statistics.median(k_ms[1:])
+        lane = torch.empty(PHASED_LANES, device=dev) if coh else None
+        lane_ref = torch.empty(PHASED_LANES, device=dev) if coh else None
+        acc1, n1 = rk.receive_megakernel(params, prim, txp,
+                                         n_lanes=PHASED_LANES, seed=SEED,
+                                         lane_out=lane, **kw)
+        ref, n_ref, amp, stats, plain_ms = _plain_philox(
+            torch, rk, params, prim, txp, kw, PHASED_LANES, PHASED_DEPTH,
+            dev, lane_ref=lane_ref)
+        errs.append(compare_coherent(
+            torch, acc1, n1, ref, n_ref, amp, slack,
+            f'{name} philox 2^24 lanes', lane, lane_ref,
+            depth=PHASED_DEPTH) if coh else compare(
+            acc1, n1, ref, n_ref, f'{name} philox 2^24 lanes'))
+
+        # ---- K1 against the wavefront: the power profile of one seed;
+        #      the coherent |I + jQ|^2 averaged over PHASED_WF_SEEDS seeds
+        #      (the plate spans many wavelengths, so one seed's coherent
+        #      echo is a speckle draw: its window energy varies ~10x
+        #      between seeds on the CPU) ----
+        prof_k = None
+        n_seeds = PHASED_WF_SEEDS if coh else 1
+        for use in (True, False):
+            p_u = 0.0
+            t_wf = 0.0
+            for seed in range(3, 3 + n_seeds):
+                ms, (a_u, n_u) = wall_ms(lambda: call(
+                    1.0, seed, spp=PHASED_WF_SAMPLES, use_kernel=use,
+                    lanes_per_pass=KW_LANES_PER_PASS))
+                t_wf += ms
+                p_u = p_u + _range_profile(torch, bt, a_u, n_u, rx,
+                                           coh) / n_seeds
+            print(f'receive() {name} use_kernel={use}: {t_wf:.1f} ms for '
+                  f'{n_seeds} x 2^{PHASED_WF_SAMPLES.bit_length() - 1} '
+                  f'samples, peak bin {int(np.abs(p_u).argmax())} {tag}')
+            if use:
+                prof_k = p_u
+        pk_k, pk_w = int(np.abs(prof_k).argmax()), int(np.abs(p_u).argmax())
+        ratio = _bin_energy(prof_k, pk_w, 3) / max(_bin_energy(p_u, pk_w, 3), 1e-300)
+        print(f'K1 against the wavefront, {name} at {n_seeds} x '
+              f'2^{PHASED_WF_SAMPLES.bit_length() - 1} samples: peak bins '
+              f'{pk_k} / {pk_w}, window energy ratio {ratio:.3f} (bound '
+              f'{PHASED_WF_BOUND})')
+        if abs(pk_k - pk_w) > 2 or not (PHASED_WF_BOUND[0] < ratio
+                                         < PHASED_WF_BOUND[1]):
+            fail(f'phased {name}: K1 and the wavefront disagree')
+        pair_share = (stats['pair_tests'] * FP32_OPS['pair_tests']
+                      + stats['pair_terms'] * FP32_OPS['pair_terms']) \
+            / lane_ops(stats, int((prim[:, 0] == 0).sum()))
+        n_rect = int((prim[:, 0] == 0).sum())
+        print(f'receive_megakernel ({cfg_name}) {name} 2^24 lanes depth 2: '
+              f'median {k_med:.3f} ms ({PHASED_LANES / (k_med * 1e-3):.4e} '
+              f'samples/s) {[round(x, 3) for x in k_ms[1:]]}; receive() '
+              f'{recv_ms:.3f} ms; plain version {plain_ms:.1f} ms; pair sums '
+              f'{pair_share:.1%} of the lanes\' FP32 operations; {n_rect} '
+              f'rectangles {tag}')
+        print(f'{name} stage lanes: ' + json.dumps(stats))
+        entry = _kernel_entry(
+            torch, rk, cfg_name, f'{name} 2^24 lanes',
+            f'receive({name}_scene()), 2^24 samples, depth 2, gate'
+            + (', coherent' if coh else ''), launches, errs, k_med,
+            plain_ms, recv_ms, stats,
+            [params, prim, txp, php] + ([rxph] if rx_kind == 'phased'
+                                         else []),
+            rx.adc.n_time, 2 if coh else 1,
+            dict(row='K1 endpoints', scene=name, anchors=anchor,
+                 k1_wavefront_ratio=ratio, pair_share=pair_share))
+        print(f'share of the FP32 bound {name}: '
+              f'{entry["bound_ms"] / k_med:.1%} {tag}')
+        out.append(entry)
+    print(f'phased phase wall {time.perf_counter() - t_phase:.1f} s {tag}')
+    return out
+
+
 def rx_n_time(scene) -> int:
     return scene.receivers[0].adc.n_time
 
@@ -2886,6 +3146,7 @@ def main() -> int:
     kernels += cpi(torch, bt, rk, ik, dev, tag)
     kernels += mimo(torch, bt, rk, dev, tag)
     kernels += media(torch, bt, rk, dev, tag)
+    kernels += phased(torch, bt, rk, dev, tag)
     kernels += queries(torch, bt, dev, tag)
     k4 = k4_parity(torch, ik, dev, tag)
     k4_launches, bvh_launches = wavefront(torch, bt, ik, bk, rk, dev, tag,

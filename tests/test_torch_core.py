@@ -192,8 +192,29 @@ def test_spawn_origin_matches_jax():
 
 
 def test_phased_aperture_gain_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match='ROADMAP B6'):
-        wigner_t.phased_aperture_gain()
+    """ROADMAP B6's cross-WDF is ported: a two-element array's gain on its
+    pair midpoints, toward broadside, equals the JAX package's."""
+    from beifong_tpu.radar import wigner as wigner_j
+    g = np.random.default_rng(2)
+    mid = np.array([[0.01, 0, 0], [0, 0, 0], [0, 0, 0], [-0.01, 0, 0]],
+                   np.float32)
+    base = np.array([[0, 0, 0], [0.02, 0, 0], [-0.02, 0, 0], [0, 0, 0]],
+                    np.float32)
+    psi = np.array([0.0, 0.3, -0.3, 0.0], np.float32)
+    tabs = [mid, base, psi, np.ones(4, bool),
+            np.array([1, 0, 0], np.float32), np.array([0, 1, 0], np.float32),
+            np.array([0.005, 0.005], np.float32), np.zeros(3, np.float32)]
+    p = np.stack([g.uniform(-0.015, 0.015, N), g.uniform(-0.004, 0.004, N),
+                  np.zeros(N)], -1).astype(np.float32)
+    d = _dirs(g, N)
+    lam = np.full(N, 0.0085, np.float32)
+    ref = np.asarray(wigner_j.phased_aperture_gain(
+        *(jnp.asarray(x) for x in tabs + [p, d, lam])))
+    got = wigner_t.phased_aperture_gain(
+        *(torch.from_numpy(x) for x in tabs + [p, d, lam])).numpy()
+    assert np.abs(ref).max() > 0
+    np.testing.assert_allclose(got, ref, rtol=0,
+                               atol=1e-5 * np.abs(ref).max())
 
 
 def test_wchirp_matches_jax():

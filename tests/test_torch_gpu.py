@@ -1078,3 +1078,202 @@ def test_example_attenuation_on_card(cuda):
     want = scenes.two_leg_transmittance(s, rx, scenes.stratified_layers())
     att = scenes.echo_attenuation(*prof)
     assert abs(att / want - 1.0) < 0.10, (att, want)
+
+
+# ---------------------------------------------------------------------------
+# the endpoint twins: several transmitters, phased and area transmitters,
+# an analog phased receiver
+# ---------------------------------------------------------------------------
+
+
+def _ep_scene(name, mesh=False):
+    """The endpoint scenes (`scenes.py`), with a crumpled 5 x 5 grid of
+    triangles added beside the target for the mesh twins."""
+    if name == 'phased_tx':
+        s, rx = scenes.phased_tx_scene(scenes.steer_toward(
+            scenes.PHASED['tx'], scenes.phased_tx_target()))
+    elif name == 'phased_rx':
+        s, rx = scenes.phased_rx_scene(scenes.PHASED['rx_az'])
+    else:
+        s, rx = scenes.four_tx_scene()
+    if mesh:
+        import numpy as np
+        from beifong_tpu_torch.core import transform as tf
+        from beifong_tpu_torch.geometry.mesh import MeshSpec, make_grid
+        v, f = make_grid(5, 5)
+        v = np.asarray(v, np.float32)
+        v[:, 2] += 0.05 * np.sin(7.0 * v[:, 0] + 3.0 * v[:, 1])
+        s.add(MeshSpec(v, np.asarray(f), bsdf='mat', to_world=np.asarray(
+            tf.compose(tf.look_at([-0.6, -3.5, 0.2], [0.0, 0.0, 0.0]),
+                       tf.scale(0.4)))))
+    return s, rx
+
+
+# configuration: (mesh, doppler, coherent)
+EP_CONFIGS = {'flagship': (False, False, False), 'mesh': (True, False, False),
+              'doppler': (False, True, False),
+              'doppler_mesh': (True, True, False),
+              'coherent': (False, True, True),
+              'coherent_mesh': (True, True, True)}
+
+
+def _ep_tables(device, scene, config, seed=3):
+    mesh, doppler, coherent = EP_CONFIGS[config]
+    s, rx = _ep_scene(scene, mesh)
+    sd = s.compile(use_bvh=False, device='cpu')
+    p = rk.pack_scene(sd, rx, s.shape_index_of_endpoint('receiver', rx.id))
+    assert (p.mesh is not None) == mesh
+    params = torch.tensor(p.params, device=device)
+    params[0] = rk.seed_slot(seed)
+    m = None if p.mesh is None else p.mesh.to(device)
+    rx_kind = rk.rx_kind_of(rx)
+    kw = dict(adc=rx.adc, max_depth=2, time_sampling='gate', rx_kind=rx_kind,
+              mesh=m, doppler=doppler,
+              msh=torch.tensor(p.msh, device=device)
+              if m is not None and doppler else None, coherent=coherent,
+              receive_type=rx.receive_type, has_lo=False,
+              php=torch.tensor(p.php, device=device),
+              rxph=torch.tensor(p.rxph, device=device)
+              if rx_kind == 'phased' else None)
+    return (s, rx, params, torch.tensor(p.prim, device=device),
+            torch.tensor(p.txp, device=device), kw)
+
+
+def _assert_ep_parity(s, rx, kw, acc, n_ev, ref, n_ref, amp, lane, lane_ref):
+    """The configuration's own bound: I / Q with the phase slack, lane by
+    lane where the kernel reports lane sums, power to 1e-4 x max|acc|."""
+    if kw['coherent']:
+        _assert_coherent_parity(acc, n_ev, ref, n_ref, amp,
+                                rk.phase_slack(s.band, rx.adc), lane,
+                                lane_ref)
+    elif lane is not None:
+        _assert_mesh_parity(acc, n_ev, lane, ref, n_ref, lane_ref)
+    else:
+        scale = float(ref.abs().max())
+        assert scale > 0 and int(n_ref) > 0
+        assert float((acc - ref).abs().max()) <= 1e-4 * scale
+        assert abs(int(n_ev) - int(n_ref)) <= 1e-4 * int(n_ref)
+
+
+EP_SCENES = ('phased_tx', 'four_tx', 'phased_rx')
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('config', list(EP_CONFIGS))
+@pytest.mark.parametrize('scene', EP_SCENES)
+def test_endpoint_kernels_match_plain_version(cuda, scene, config):
+    """Each configuration's endpoint twin on injected uniforms (n_draws of
+    the scene's transmitters) against the plain version, with the
+    configuration's own bound (lane by lane where the kernel reports lane
+    sums)."""
+    s, rx, params, prim, txp, kw = _ep_tables(cuda, scene, config)
+    n_lanes = 1 << 16
+    u = torch.rand((rk.n_draws(2, int(txp.shape[0])), n_lanes),
+                   generator=torch.Generator(cuda).manual_seed(5),
+                   device=cuda)
+    lanes = kw['doppler'] or kw['mesh'] is not None
+    lane = torch.empty(n_lanes, device=cuda) if lanes else None
+    lane_ref = torch.empty(n_lanes, device=cuda) if lanes else None
+    name = rk.config_name(kw['mesh'] is not None, kw['doppler'],
+                          kw['coherent'], ep=True)
+    assert name == config + '_ep'
+    before = rk.receive_megakernel.by_config[name]
+    acc, n_ev = rk.receive_megakernel(params, prim, txp, n_lanes=n_lanes,
+                                      uniforms=u, lane_out=lane, **kw)
+    torch.cuda.synchronize()
+    assert rk.receive_megakernel.by_config[name] == before + 1
+    amp = torch.zeros((rx.adc.n_time, rx.adc.n_freq), dtype=torch.float64,
+                      device=cuda)
+    stats = {}
+    ref, n_ref = rk.receive_megakernel_ref(
+        params, prim, txp, u, lane_out=lane_ref, stats=stats,
+        amp_out=amp if kw['coherent'] else None, **kw)
+    assert stats['nee'] > 0
+    if scene != 'four_tx':
+        assert stats['pair_terms'] > 0
+    _assert_ep_parity(s, rx, kw, acc, n_ev, ref, n_ref, amp, lane, lane_ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('scene', EP_SCENES)
+def test_endpoint_kernels_philox_mode(cuda, scene):
+    """The coherent endpoint twin on the Philox stream (its stride of
+    n_draws(depth, n_tx) rows) against the plain version on the same
+    stream, lane by lane."""
+    s, rx, params, prim, txp, kw = _ep_tables(cuda, scene, 'coherent')
+    n_lanes = 1 << 18
+    lane = torch.empty(n_lanes, device=cuda)
+    lane_ref = torch.empty(n_lanes, device=cuda)
+    acc, n_ev = rk.receive_megakernel(params, prim, txp, n_lanes=n_lanes,
+                                      seed=13, lane_out=lane, **kw)
+    u = rk.philox_uniforms(13, rk.n_draws(2, int(txp.shape[0])), n_lanes,
+                           device=cuda)
+    amp = torch.zeros((rx.adc.n_time, 1), dtype=torch.float64, device=cuda)
+    ref, n_ref = rk.receive_megakernel_ref(params, prim, txp, u,
+                                           lane_out=lane_ref, amp_out=amp,
+                                           **kw)
+    _assert_ep_parity(s, rx, kw, acc, n_ev, ref, n_ref, amp, lane, lane_ref)
+
+
+@pytest.mark.gpu
+def test_endpoint_mimo_kernel_matches_plain_version(cuda):
+    """Config 6's array with a second (area) transmitter: the MIMO
+    configuration's endpoint twin against the plain version, all 16
+    channels, lane by lane."""
+    import numpy as np
+    from beifong_tpu_torch.core import transform as tf
+    from beifong_tpu_torch.geometry import shapes as sh
+    from beifong_tpu_torch.radar import area_transmitter
+    s, rx = mimo_beamform_scene()
+    s.add(area_transmitter('tx2', s.transmitters[0].waveform,
+                           resample_freq=True))
+    s.add(sh.rectangle(to_world=np.asarray(tf.compose(
+        tf.look_at([-0.1, 0, 0], [-0.1, -1, 0]),
+        tf.scale([0.004, 0.004, 1.0]))), transmitter='tx2'))
+    sd = s.compile(device='cpu')
+    p = rk.pack_scene(sd, rx, s.shape_index_of_endpoint('receiver', rx.id))
+    t = lambda a: torch.tensor(a, device=cuda)   # noqa: E731
+    kw = dict(adc=rx.adc, max_depth=2, time_sampling='gate',
+              rx_kind='phased', doppler=True, rxph=t(p.rxph),
+              eoff=rk.array_offsets(s, sd, rx, cuda), php=t(p.php))
+    n_lanes = 1 << 16
+    u = torch.rand((rk.n_draws(2, 2), n_lanes),
+                   generator=torch.Generator(cuda).manual_seed(7),
+                   device=cuda)
+    lane = torch.empty(n_lanes, device=cuda)
+    lane_ref = torch.empty(n_lanes, device=cuda)
+    before = rk.receive_megakernel.by_config['mimo_ep']
+    acc, n_ev = rk.receive_megakernel(t(p.params), t(p.prim), t(p.txp),
+                                      n_lanes=n_lanes, uniforms=u,
+                                      lane_out=lane, **kw)
+    torch.cuda.synchronize()
+    assert rk.receive_megakernel.by_config['mimo_ep'] == before + 1
+    amp = torch.zeros((rx.adc.n_time, 1), dtype=torch.float64, device=cuda)
+    ref, n_ref = rk.receive_megakernel_ref(t(p.params), t(p.prim), t(p.txp),
+                                           u, lane_out=lane_ref, amp_out=amp,
+                                           **kw)
+    _assert_coherent_parity(acc, n_ev, ref, n_ref, amp,
+                            rk.phase_slack(s.band, rx.adc, mimo=True), lane,
+                            lane_ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('scene', EP_SCENES)
+def test_receive_of_endpoint_scenes_on_card_launches_k1(cuda, scene):
+    """receive() on the card runs the endpoint twin once and no wavefront
+    pass, and agrees with the CPU's plain version on one seed (peak bin,
+    window energy within 1e-3)."""
+    s, rx = _ep_scene(scene)
+    before = dict(rk.receive_megakernel.by_config)
+    a, n = receive(s, s.compile(device=cuda), rx, spp=1 << 16, max_depth=2,
+                   seed=4, time_sampling='gate', device=cuda)
+    torch.cuda.synchronize()
+    assert rk.receive_megakernel.by_config['flagship_ep'] \
+        == before['flagship_ep'] + 1
+    b, m = receive(s, s.compile(device='cpu'), rx, spp=1 << 16,
+                   max_depth=2, seed=4, time_sampling='gate', device='cpu')
+    p_gpu = develop_signal(a, n, rx.adc)[:, 0, 0].cpu()
+    p_cpu = develop_signal(b, m, rx.adc)[:, 0, 0]
+    assert int(p_gpu.abs().argmax()) == int(p_cpu.abs().argmax())
+    assert float((p_gpu - p_cpu).abs().max()) \
+        <= 1e-3 * float(p_cpu.abs().max())

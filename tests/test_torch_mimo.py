@@ -407,14 +407,23 @@ def test_mimo_scope_rejects_with_reason(make, needle):
 
 
 def test_mimo_scope_admits_config6_and_power_scope_refuses_it():
+    """Config 6's array in the MIMO scope; in the power scope (its analog
+    cross-WDF receive, ROADMAP B6's endpoints) up to the JAX package's cap
+    of 64 pairs: an 8-element array is in it, a 9-element one is refused
+    and receive() runs it on the wavefront."""
     s, rx = bt.mimo_beamform_scene()
     sd = s.compile(device='cpu')
     why = []
     assert rk.supported(sd, rx, why, mimo=True), why
-    assert not rk.supported(sd, rx, why)
-    assert 'receive_mimo' in why[0] and 'ROADMAP B6' in why[0]
-    with pytest.raises(NotImplementedError, match='receive_mimo'):
-        bt.receive(s, sd, rx, spp=256, max_depth=1, device='cpu')
+    assert rk.supported(sd, rx, why), why
+    rx9 = dc.replace(rx, n_elems=9)
+    assert not rk.supported(sd, rx9, why)
+    assert 'phased rx pair unroll 81 > 64' in why[0]
+    with pytest.raises(NotImplementedError, match='81 > 64'):
+        bt.receive(s, sd, rx9, spp=256, max_depth=1, use_kernel=True,
+                   device='cpu')
+    a, n = bt.receive(s, sd, rx9, spp=256, max_depth=1, device='cpu')
+    assert n == 256 and bool(torch.isfinite(a).all())
 
 
 def test_receive_mimo_routes_by_scope(monkeypatch):
