@@ -17,4 +17,6 @@ from .scenes import (flagship_scene, mesh_scene,  # noqa: F401
                      fmcw_dechirp_scene, corner_scene,
                      micro_doppler_scene, mimo_beamform_scene,
                      stratified_medium_scene, phased_tx_scene,
-                     phased_rx_scene, four_tx_scene)
+                     phased_rx_scene, four_tx_scene, window_corner_scene,
+                     plastic_scene, rough_dielectric_scene,
+                     composite_scene)

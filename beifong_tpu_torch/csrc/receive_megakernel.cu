@@ -9,7 +9,8 @@
 // instantiations of one block body trace_block<MESH, DOP, COH, MIMO, MED>
 // (COH only with DOP, MIMO only with COH and without MESH), launched
 // through receive_trace_kernel<MESH, MED> (flagship, mesh) and, with
-// launch bounds, receive_doppler_kernel<MESH, COH, MED> and
+// launch bounds, receive_doppler_kernel<MESH, COH, MED> (and its twins'
+// flags, EP and LOB, below) and
 // receive_mimo_kernel<MED>.  Each has a media twin (MED): the same body
 // through the scene's ambient medium (the JAX kernel's `absorbing`,
 // `layered` and `grid_meta`, :139-145, 399-423, 1457-1490, 1516-1528,
@@ -35,6 +36,23 @@
 // (Cfg.php, Cfg.rxph).  The EP twins run in vacuum: a scene with these
 // endpoints and a medium runs on the wavefront.  The vacuum and media
 // instantiations (EP false) compile as they did without it.
+// The Doppler family's four vacuum kernels have a lobe twin (LOB; the JAX
+// kernel's diel, thin, plas, rplas, rdiel, has_blend and has_mask,
+// :187-225, 819-835, 1122-1297, 1663-1671, 1912-2226), whose flags are
+// the warp-uniform Cfg.lobes: the hit's lobe by its type, its NEE through
+// lobe_fcos (0 from a delta lobe), a composite's second lobe read from
+// its prim row (columns 27-33) where it is used, the NEE mix w f0 + (1 -
+// w) f1, the lobe-mix pick, and the bounce of each lobe (a mask's pass,
+// the mirror, the smooth and thin dielectric by the Fresnel of u8, the
+// GGX half vector of the rough conductor, the rough plastic's coat and GGX
+// glass, the cosine hemisphere of the diffuse and plastic bases); a
+// refracted or passed ray spawns behind the face, and a delta bounce (a
+// mirror, a dielectric, a mask's pass, where the tables hold a delta
+// lobe) counts a direct hit at the next vertex.  A depth's draws are
+// then 6, plus a lobe pick (plastics, GGX glass), plus a lobe-mix pick
+// (composites).  The lobe twins run in vacuum with one Wigner
+// transmitter; the other instantiations (LOB false) compile as they did
+// without it.
 //
 // Replaces the TPU kernel beifong_tpu/integrators/pallas_receive.py::
 // _make_kernel (launched by _run's pl.pallas_call) in its analytic /
@@ -206,8 +224,24 @@ constexpr int MSH_COLS = 8;
 constexpr int RECTANGLE = 0;
 constexpr float CW = 0.0f;
 constexpr float LINFMCW = 2.0f;
+constexpr float DIFFUSE = 0.0f;
 constexpr float CONDUCTOR = 1.0f;
 constexpr float ROUGH_CONDUCTOR = 2.0f;
+constexpr float DIELECTRIC = 3.0f;
+constexpr float THIN_DIELECTRIC = 4.0f;
+constexpr float PLASTIC = 5.0f;
+constexpr float ROUGH_PLASTIC = 6.0f;
+constexpr float ROUGH_DIELECTRIC = 10.0f;
+// the lobe twins' flags (Cfg.lobes; receive_kernel.py LOBE_*)
+constexpr int LOBE_DIEL = 1;
+constexpr int LOBE_THIN = 2;
+constexpr int LOBE_PLAS = 4;
+constexpr int LOBE_RPLAS = 8;
+constexpr int LOBE_RDIEL = 16;
+constexpr int LOBE_BLEND = 32;
+constexpr int LOBE_MASK = 64;
+// the lobes whose bounce draws a lobe pick (the JAX kernel's lobe_mix)
+constexpr int LOBE_PICK = LOBE_PLAS | LOBE_RPLAS | LOBE_RDIEL;
 // transmitter kinds (txp column 27) and the endpoint twins' table: up to
 // MAX_TX transmitter rows in shared memory
 constexpr float TX_PHASED = 1.0f;
@@ -275,6 +309,12 @@ struct Cfg {
     int n_pairs;
     const float* rxph;
     int n_rx_pairs;
+    // the lobe twins (LOB): the lobe flags (LOBE_*); a bounce draws a
+    // lobe pick where they hold a plastic or GGX glass (LOBE_PICK), then a
+    // lobe-mix pick where they hold a composite (LOBE_BLEND).  One int in
+    // the struct's tail padding: the other kernels' parameters keep their
+    // offsets
+    int lobes;
 };
 
 __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
@@ -455,6 +495,139 @@ __device__ __forceinline__ float ggx_fcos(float rb, float ab, float eb,
     float f_ = fres_cond(fabsf(idoth), eb, kk);
     float f_rc = rb * f_ * d_ * g_ / fmaxf(4.0f * ci, F(1e-8));
     return (co > 0.0f && ci > 0.0f) ? f_rc : 0.0f;
+}
+
+// ---- the lobe twins' lobes (LOB) -------------------------------------
+
+// Unpolarized dielectric Fresnel for the signed cos_i ci
+// (pallas_receive.py::_fres_diel :1122): the relative IOR eta from the
+// side ci >= 0, its inverse from the other; total internal reflection
+// gives 1.  Also returns the relative IOR it used and cos_t.
+__device__ __forceinline__ float fres_diel_full(float ci, float eta,
+                                                float* eta_it_out,
+                                                float* cos_t_out) {
+    float eta_s = fmaxf(eta, F(1e-6));
+    float eta_it = ci >= 0.0f ? eta_s : 1.0f / eta_s;
+    float c2t = 1.0f - (1.0f - ci * ci) / (eta_it * eta_it);
+    float cos_t = sqrtf(fmaxf(c2t, 0.0f));
+    float aci = fabsf(ci);
+    float rs = (aci - eta_it * cos_t) / fmaxf(aci + eta_it * cos_t, F(1e-20));
+    float rp = (eta_it * aci - cos_t) / fmaxf(eta_it * aci + cos_t, F(1e-20));
+    *eta_it_out = eta_it;
+    *cos_t_out = cos_t;
+    return c2t <= 0.0f ? 1.0f : 0.5f * (rs * rs + rp * rp);
+}
+
+__device__ __forceinline__ float fres_diel(float ci, float eta) {
+    float e, c;
+    return fres_diel_full(ci, eta, &e, &c);
+}
+
+// h normalised and flipped onto f's side; returns h.f (>= 0).
+__device__ __forceinline__ float half_toward(float* hx, float* hy,
+                                             float* hz, float fx, float fy,
+                                             float fz) {
+    float hn = rsqrtf(fmaxf(*hx * *hx + *hy * *hy + *hz * *hz, F(1e-20)));
+    *hx = *hx * hn;
+    *hy = *hy * hn;
+    *hz = *hz * hn;
+    float hc = *hx * fx + *hy * fy + *hz * fz;
+    float hs = sgn_ge(hc);
+    *hx = *hx * hs;
+    *hy = *hy * hs;
+    *hz = *hz * hs;
+    return hc * hs;
+}
+
+// Rough-dielectric (GGX glass) f(wi, wo) |cos_o| and its pdf (into *pdf)
+// in the frame f flipped toward wi, ci_raw the unflipped cosine
+// (pallas_receive.py::_rd_fcos_pdf :1160-1228): Walter 2007's reflection
+// and transmission lobes through their half vector, chi+ sidedness, the
+// 1 / eta^2 radiance compression; k carries the transmittance.
+__device__ float rd_fcos_pdf(float ci_raw, float fx, float fy, float fz,
+                             float eb, float kk, float rb, float ab,
+                             float wix, float wiy, float wiz, float wox,
+                             float woy, float woz, float* pdf) {
+    float sgr = sgn_ge(ci_raw);
+    float ci = fabsf(ci_raw);
+    float co = wox * fx + woy * fy + woz * fz;
+    bool same = co > 0.0f;
+    float eta_s = fmaxf(eb, F(1e-6));
+    float eta_it = ci_raw >= 0.0f ? eta_s : 1.0f / eta_s;
+    float hx, hy, hz;
+    if (same) {
+        hx = wix + wox;
+        hy = wiy + woy;
+        hz = wiz + woz;
+    } else {
+        hx = -(wix + eta_it * wox);
+        hy = -(wiy + eta_it * woy);
+        hz = -(wiz + eta_it * woz);
+    }
+    float hc = half_toward(&hx, &hy, &hz, fx, fy, fz);
+    float a2 = ab * ab;
+    float dd = hc * hc * (a2 - 1.0f) + 1.0f;
+    float d_ = a2 / fmaxf(F(3.141592653589793) * dd * dd, F(1e-20));
+    float g_ = g1(ci, a2) * g1(fabsf(co), a2);
+    float idh = wix * hx + wiy * hy + wiz * hz;
+    float odh = wox * hx + woy * hy + woz * hz;
+    float f_d = fres_diel(idh * sgr, eb);
+    float aci = fmaxf(ci, F(1e-6));
+    float den_t = idh + eta_it * odh;
+    float jac_t = eta_it * eta_it * fabsf(odh) / fmaxf(den_t * den_t,
+                                                       F(1e-12));
+    bool live = ci > F(1e-6) && idh > 0.0f && odh * co > 0.0f;
+    float pdf_h = d_ * hc;
+    float f, p;
+    if (same) {
+        f = f_d * d_ * g_ / (4.0f * aci) * rb;
+        p = f_d * pdf_h / fmaxf(4.0f * fabsf(odh), F(1e-8));
+    } else {
+        f = ((1.0f - f_d) * d_ * g_ * fabsf(idh) * jac_t / aci)
+            / (eta_it * eta_it) * kk;
+        p = (1.0f - f_d) * pdf_h * jac_t;
+    }
+    *pdf = live ? p : 0.0f;
+    return live ? f : 0.0f;
+}
+
+// f(wi, wo) |cos_o| of the hit's lobe, by its type (pallas_receive.py::
+// bsdf_eval_cos :1230-1297): 0 for the delta lobes (mirror, smooth and
+// thin dielectric), the GGX rough conductor, GGX glass, the plastic base
+// (1 - Fi)(1 - Fo) x diffuse, the rough plastic's GGX coat with the
+// dielectric Fresnel at the half vector, else diffuse.
+__device__ float lobe_fcos(float kb, float rb, float ab, float eb, float kk,
+                           float nx, float ny, float nz, float wix,
+                           float wiy, float wiz, float wox, float woy,
+                           float woz) {
+    if (kb == CONDUCTOR || kb == DIELECTRIC || kb == THIN_DIELECTRIC)
+        return 0.0f;
+    if (kb == ROUGH_CONDUCTOR)
+        return ggx_fcos(rb, ab, eb, kk, nx, ny, nz, wix, wiy, wiz, wox, woy,
+                        woz);
+    float ci_raw = wix * nx + wiy * ny + wiz * nz;
+    float sg = sgn_ge(ci_raw);
+    float fx = nx * sg, fy = ny * sg, fz = nz * sg;
+    if (kb == ROUGH_DIELECTRIC) {
+        float pdf;
+        return rd_fcos_pdf(ci_raw, fx, fy, fz, eb, kk, rb, ab, wix, wiy, wiz,
+                           wox, woy, woz, &pdf);
+    }
+    float ci = ci_raw * sg;
+    float co = wox * fx + woy * fy + woz * fz;
+    float f_d = rb * F(1.0 / 3.141592653589793) * fmaxf(co, 0.0f);
+    if (kb != PLASTIC && kb != ROUGH_PLASTIC) return f_d;
+    float f_pl = f_d * (1.0f - fres_diel(ci, eb)) * (1.0f - fres_diel(co, eb));
+    if (kb == PLASTIC || !(co > 0.0f && ci > 0.0f)) return f_pl;
+    float hx = wix + wox, hy = wiy + woy, hz = wiz + woz;
+    float hc = half_toward(&hx, &hy, &hz, fx, fy, fz);
+    float a2 = ab * ab;
+    float dd = hc * hc * (a2 - 1.0f) + 1.0f;
+    float d_ = a2 / fmaxf(F(3.141592653589793) * dd * dd, F(1e-20));
+    float g_ = g1(fabsf(ci), a2) * g1(fabsf(co), a2);
+    float idoth = wix * hx + wiy * hy + wiz * hz;
+    return f_pl + fres_diel(fabsf(idoth), eb) * d_ * g_
+                  / fmaxf(4.0f * ci, F(1e-8));
 }
 
 // Instantaneous frequency of a waveform row (the chirp ridge; f_centre
@@ -1041,7 +1214,7 @@ __device__ float seg_tau(const Cfg& cfg, const float* sp, float ox, float oy,
 // they bound how far a lane on another path can move a cell's I or Q
 // (MIMO: the same amplitudes, shared by every element's pair).
 template <bool MESH, bool DOP, bool COH, bool MIMO = false, bool MED = false,
-          bool EP = false>
+          bool EP = false, bool LOB = false>
 __device__ float trace_lane(const Cfg& cfg, const float* sp,
                             const float* prim, const float* msh,
                             const Tx& tx, const Wave& lo,
@@ -1257,14 +1430,21 @@ __device__ float trace_lane(const Cfg& cfg, const float* sp,
     float v0x = 0.0f, v0y = 0.0f, v0z = 0.0f, r0m = 0.0f;
     for (int depth = 0; depth < cfg.max_depth; ++depth) {
         // draws of this depth: u_dh, u5, u6, u7 (EP: three a
-        // transmitter), then u8, u9
-        const int d0 = base + (EP ? 3 + 3 * cfg.n_tx : 6) * depth;
+        // transmitter), then u8, u9 (LOB: then the lobe pick, the
+        // lobe-mix pick)
+        const int d0 = base + (EP ? 3 + 3 * cfg.n_tx
+                                  : LOB ? 6 + ((cfg.lobes & LOBE_PICK) != 0)
+                                              + ((cfg.lobes & LOBE_BLEND) != 0)
+                                        : 6) * depth;
         // ---- closest hit over the rectangles ----
         float tb = F(3.4e38), nx = 0.0f, ny = 0.0f, nz = 0.0f, rb = 0.0f,
               txc = -1.0f;
         // the hit's lobe (type, GGX alpha, conductor eta / k) and velocity
         float kb = 0.0f, ab = F(0.1), eb = 0.0f, kk = 0.0f, vbx = 0.0f,
               vby = 0.0f, vbz = 0.0f;
+        // LOB: the winning prim row, whose columns 27-33 hold a
+        // composite's second lobe (-1: a mesh hit, one lobe)
+        int pw = -1;
         for (int p = 0; p < cfg.n_prims; ++p) {
             const float* row = prim + p * PRIM_COLS;
             if ((int)row[0] != RECTANGLE) continue;
@@ -1289,6 +1469,7 @@ __device__ float trace_lane(const Cfg& cfg, const float* sp,
                     vby = row[20];
                     vbz = row[21];
                 }
+                if constexpr (LOB) pw = p;
             }
         }
         if constexpr (MESH) {
@@ -1314,6 +1495,7 @@ __device__ float trace_lane(const Cfg& cfg, const float* sp,
                     vby = r[1];
                     vbz = r[2];
                 }
+                if constexpr (LOB) pw = -1;
             }
         }
         if (!(tb < F(3.4e37))) break;     // miss: the lane is dead
@@ -1324,6 +1506,17 @@ __device__ float trace_lane(const Cfg& cfg, const float* sp,
         float hx = cx + tb * dx, hy = cy + tb * dy, hz = cz + tb * dz;
         const bool is_ggx = DOP && kb == ROUGH_CONDUCTOR;
         const bool is_m = DOP && cfg.mirror && kb == CONDUCTOR;
+        // LOB: a composite's first-lobe weight (1 on a plain row), and
+        // whether NEE leaves the hit: not from a delta lobe, unless a
+        // composite's other lobe may connect
+        float wmx = 1.0f;
+        bool lobe_nee = false;
+        if constexpr (LOB) {
+            if (pw >= 0) wmx = prim[pw * PRIM_COLS + 33];
+            lobe_nee = txc < 0.0f
+                       && !((is_m || kb == DIELECTRIC
+                             || kb == THIN_DIELECTRIC) && !(wmx < 1.0f));
+        }
         if constexpr (MIMO) {
             if (depth == 0) {
                 v0x = hx - cx;
@@ -1521,7 +1714,7 @@ __device__ float trace_lane(const Cfg& cfg, const float* sp,
                     }
                 }
             }
-        } else if (txc < 0.0f && !is_m) {
+        } else if (LOB ? lobe_nee : (txc < 0.0f && !is_m)) {
             const float* m = tx.m;
             float glx = 2.0f * dr.get(d0 + 1) - 1.0f;
             float gly = 2.0f * dr.get(d0 + 2) - 1.0f;
@@ -1539,7 +1732,20 @@ __device__ float trace_lane(const Cfg& cfg, const float* sp,
                                / fmaxf(cos_tx, F(1e-6));
                 float cos_s = wx_ * nx + wy_ * ny + wz_ * nz;
                 float f_cos;
-                if (is_ggx) {
+                if constexpr (LOB) {
+                    // the hit's lobe; a composite's mix w f0 + (1 - w) f1
+                    // with its second lobe read from the prim row (a
+                    // mask's is a zero diffuse one)
+                    f_cos = lobe_fcos(kb, rb, ab, eb, kk, nx, ny, nz, -dx,
+                                      -dy, -dz, wx_, wy_, wz_);
+                    if (wmx < 1.0f) {
+                        const float* r1 = prim + pw * PRIM_COLS;
+                        float f1 = lobe_fcos(r1[28], r1[29], r1[30], r1[31],
+                                             r1[32], nx, ny, nz, -dx, -dy,
+                                             -dz, wx_, wy_, wz_);
+                        f_cos = wmx * f_cos + (1.0f - wmx) * f1;
+                    }
+                } else if (is_ggx) {
                     f_cos = ggx_fcos(rb, ab, eb, kk, nx, ny, nz, -dx, -dy,
                                      -dz, wx_, wy_, wz_);
                 } else {
@@ -1575,7 +1781,11 @@ __device__ float trace_lane(const Cfg& cfg, const float* sp,
                     occ = hit_p && t_p > F(1e-4) && t_p < limit;
                 }
                 if constexpr (MESH) {
-                    if (!occ) {
+                    // LOB: as the JAX kernel's walk, none from a delta
+                    // lobe (a composite's other lobe connects unshadowed
+                    // by the mesh there)
+                    if (!occ && !(LOB && (is_m || kb == DIELECTRIC
+                                          || kb == THIN_DIELECTRIC))) {
                         bvh::Any sh;
                         sh.limit = limit;
                         bvh::walk(lane_tables<DOP>(mesh, cfg),
@@ -1652,6 +1862,224 @@ __device__ float trace_lane(const Cfg& cfg, const float* sp,
             cx = hx + F(1e-4) * fx;
             cy = hy + F(1e-4) * fy;
             cz = hz + F(1e-4) * fz;
+        } else if constexpr (LOB) {
+            if (!(txc < 0.0f)) break;                   // on the tx
+
+            // ---- bounce of the hit's lobe (pallas_receive.py:1912-2226):
+            //      a composite first picks its lobe; then a mask's pass, a
+            //      mirror, a smooth or thin dielectric's reflection or
+            //      refraction, a GGX half vector (rough conductor, rough
+            //      plastic's coat, GGX glass) or the cosine hemisphere
+            //      (diffuse, plastic's base) about the flipped normal ----
+            const int db = d0 + 4;
+            float u8 = dr.get(db), u9 = dr.get(db + 1);
+            bool pass = false;
+            if (wmx < 1.0f
+                && !(dr.get(db + 2 + ((cfg.lobes & LOBE_PICK) != 0)) < wmx)) {
+                // the second lobe; a mask's passes the ray straight on (a
+                // delta null transmission, weight 1)
+                const float* r1 = prim + pw * PRIM_COLS;
+                pass = r1[27] == 2.0f;
+                kb = r1[28];
+                rb = r1[29];
+                ab = r1[30];
+                eb = r1[31];
+                kk = r1[32];
+            }
+            float face = -(dx * nx + dy * ny + dz * nz);
+            float sgn = sgn_ge(face);
+            float fx = nx * sgn, fy = ny * sgn, fz = nz * sgn;
+            float sign = sgn_ge(fz);
+            float a2 = -1.0f / (sign + fz);
+            float b2 = fx * fy * a2;
+            float s1x = 1.0f + sign * fx * fx * a2, s1y = sign * b2,
+                  s1z = -sign * fx;
+            float s2x = b2, s2y = sign + fy * fy * a2, s2z = -fy;
+            float ph2 = TP * u9;
+            float ndx, ndy, ndz, w_b;
+            bool del = false;   // a delta bounce: direct hits at the next
+            if (pass) {
+                ndx = dx;
+                ndy = dy;
+                ndz = dz;
+                w_b = 1.0f;
+                del = true;
+            } else if (cfg.mirror && kb == CONDUCTOR) {
+                float dn = dx * fx + dy * fy + dz * fz;
+                ndx = dx - 2.0f * dn * fx;
+                ndy = dy - 2.0f * dn * fy;
+                ndz = dz - 2.0f * dn * fz;
+                w_b = rb * fres_cond(fabsf(dn), eb, kk);
+                del = true;
+            } else if (kb == DIELECTRIC || kb == THIN_DIELECTRIC) {
+                // the Fresnel of the unflipped cosine picks by u8: reflect
+                // about n, or refract (thin: pass straight on)
+                float eta_it, cos_t;
+                float f_d = fres_diel_full(face, eb, &eta_it, &cos_t);
+                bool refl = kb == DIELECTRIC
+                                ? u8 < f_d
+                                : u8 < (f_d < 1.0f ? 2.0f * f_d / (1.0f + f_d)
+                                                   : 1.0f);
+                if (refl) {
+                    ndx = dx + 2.0f * face * nx;
+                    ndy = dy + 2.0f * face * ny;
+                    ndz = dz + 2.0f * face * nz;
+                    w_b = kb == DIELECTRIC ? rb : 1.0f;
+                } else if (kb == DIELECTRIC) {
+                    // the refraction: transmittance (k) x the radiance
+                    // compression 1 / eta^2
+                    float scl = 1.0f / eta_it;
+                    float coef = scl * face - sgn_ge(face) * cos_t;
+                    ndx = scl * dx + coef * nx;
+                    ndy = scl * dy + coef * ny;
+                    ndz = scl * dz + coef * nz;
+                    w_b = kk * scl * scl;
+                } else {
+                    ndx = dx;
+                    ndy = dy;
+                    ndz = dz;
+                    w_b = 1.0f;
+                }
+                del = true;
+            } else if (kb == ROUGH_CONDUCTOR || kb == ROUGH_PLASTIC
+                       || kb == ROUGH_DIELECTRIC) {
+                // the GGX half vector hw about the flipped normal and its
+                // reflection wg of the ray
+                float ag2 = ab * ab;
+                float tan2 = ag2 * u8 / fmaxf(1.0f - u8, F(1e-12));
+                float cth = rsqrtf(1.0f + tan2);
+                float sth = sqrtf(fmaxf(1.0f - cth * cth, 0.0f));
+                float hlx = sth * fast_cos(ph2), hly = sth * fast_sin(ph2);
+                float hwx = s1x * hlx + s2x * hly + fx * cth;
+                float hwy = s1y * hlx + s2y * hly + fy * cth;
+                float hwz = s1z * hlx + s2z * hly + fz * cth;
+                float ci_b = fabsf(face);
+                float idoth = -dx * hwx + -dy * hwy + -dz * hwz;
+                ndx = 2.0f * idoth * hwx + dx;
+                ndy = 2.0f * idoth * hwy + dy;
+                ndz = 2.0f * idoth * hwz + dz;
+                if (kb == ROUGH_CONDUCTOR) {
+                    // weight refl F G (wi.h) / (cos_i h.n)
+                    float co_g = ndx * fx + ndy * fy + ndz * fz;
+                    float f_b = fres_cond(fabsf(idoth), eb, kk);
+                    float g_b = g1(ci_b, ag2) * g1(fabsf(co_g), ag2);
+                    w_b = rb * f_b * g_b * idoth / fmaxf(ci_b * cth,
+                                                         F(1e-8));
+                    if (!(co_g > 0.0f && idoth > 0.0f)) w_b = 0.0f;
+                } else if (kb == ROUGH_PLASTIC) {
+                    // the coat (wg) with probability spec_w, else the
+                    // diffuse base; the weight is f / pdf of both lobes
+                    float fi = fres_diel(ci_b, eb);
+                    float spec_w = fminf(fmaxf(fi, F(0.05)), F(0.95));
+                    if (!(dr.get(db + 2) < spec_w)) {
+                        float rr2 = sqrtf(u8);
+                        float bx = rr2 * fast_cos(ph2),
+                              by = rr2 * fast_sin(ph2);
+                        float bz = sqrtf(fmaxf(1.0f - u8, 0.0f));
+                        ndx = s1x * bx + s2x * by + fx * bz;
+                        ndy = s1y * bx + s2y * by + fy * bz;
+                        ndz = s1z * bx + s2z * by + fz * bz;
+                    }
+                    float co_r = ndx * fx + ndy * fy + ndz * fz;
+                    float h2x = -dx + ndx, h2y = -dy + ndy, h2z = -dz + ndz;
+                    float hc2 = half_toward(&h2x, &h2y, &h2z, fx, fy, fz);
+                    float dd2 = hc2 * hc2 * (ag2 - 1.0f) + 1.0f;
+                    float d_r = ag2 / fmaxf(F(3.141592653589793) * dd2 * dd2,
+                                            F(1e-20));
+                    float g_r = g1(ci_b, ag2) * g1(fabsf(co_r), ag2);
+                    float idoth2 = -dx * h2x + -dy * h2y + -dz * h2z;
+                    float f_val = rb * F(1.0 / 3.141592653589793)
+                                      * fmaxf(co_r, 0.0f) * (1.0f - fi)
+                                      * (1.0f - fres_diel(co_r, eb))
+                                  + fres_diel(fabsf(idoth2), eb) * d_r * g_r
+                                        / fmaxf(4.0f * ci_b, F(1e-8));
+                    float odoth2 = fabsf(ndx * h2x + ndy * h2y + ndz * h2z);
+                    float pdf_r = (1.0f - spec_w) * fmaxf(co_r, 0.0f)
+                                      * F(1.0 / 3.141592653589793)
+                                  + spec_w * d_r * hc2
+                                        / fmaxf(4.0f * odoth2, F(1e-8));
+                    w_b = (co_r > 0.0f && ci_b > F(1e-6))
+                              ? f_val / fmaxf(pdf_r, F(1e-20))
+                              : 0.0f;
+                } else {
+                    // GGX glass: reflect (wg) or refract through hw by its
+                    // Fresnel, the relative IOR by the side the ray came
+                    // from; the weight is the eval-consistent f cos / pdf
+                    float eta_i2, cost_h;
+                    float f_h = fres_diel_full(idoth * sgn, eb, &eta_i2,
+                                               &cost_h);
+                    bool pick_rf = dr.get(db + 2) < f_h;
+                    if (!pick_rf) {
+                        float inv_e2 = 1.0f / eta_i2;
+                        float coef_t = (inv_e2 * fabsf(idoth) - cost_h)
+                                       * sgn_ge(idoth);
+                        float ttx = coef_t * hwx - (-dx) * inv_e2;
+                        float tty = coef_t * hwy - (-dy) * inv_e2;
+                        float ttz = coef_t * hwz - (-dz) * inv_e2;
+                        float ttn = rsqrtf(fmaxf(ttx * ttx + tty * tty
+                                                 + ttz * ttz, F(1e-20)));
+                        ndx = ttx * ttn;
+                        ndy = tty * ttn;
+                        ndz = ttz * ttn;
+                    }
+                    float p_c;
+                    float f_c = rd_fcos_pdf(face, fx, fy, fz, eb, kk, rb, ab,
+                                            -dx, -dy, -dz, ndx, ndy, ndz,
+                                            &p_c);
+                    float co_rd = ndx * fx + ndy * fy + ndz * fz;
+                    float odh_s = ndx * hwx + ndy * hwy + ndz * hwz;
+                    bool ok = (pick_rf ? co_rd : -co_rd) > 0.0f
+                              && idoth > 0.0f && odh_s * co_rd > 0.0f;
+                    w_b = ok && p_c > 0.0f ? f_c / fmaxf(p_c, F(1e-20))
+                                           : 0.0f;
+                }
+            } else {
+                // the cosine hemisphere: diffuse, and the plastic's base
+                float rr2 = sqrtf(u8);
+                float bx = rr2 * fast_cos(ph2), by = rr2 * fast_sin(ph2);
+                float bz = sqrtf(fmaxf(1.0f - u8, 0.0f));
+                ndx = s1x * bx + s2x * by + fx * bz;
+                ndy = s1y * bx + s2y * by + fy * bz;
+                ndz = s1z * bx + s2z * by + fz * bz;
+                w_b = rb;
+                if (kb == PLASTIC) {
+                    // the smooth coat's mirror direction with probability
+                    // spec_w; both share the base's ratio
+                    float fi = fres_diel(fabsf(face), eb);
+                    float spec_w = fminf(fmaxf(fi, F(0.05)), F(0.95));
+                    if (dr.get(db + 2) < spec_w) {
+                        float dn2 = dx * fx + dy * fy + dz * fz;
+                        ndx = dx - 2.0f * dn2 * fx;
+                        ndy = dy - 2.0f * dn2 * fy;
+                        ndz = dz - 2.0f * dn2 * fz;
+                    }
+                    float co_p = ndx * fx + ndy * fy + ndz * fz;
+                    w_b = rb * (1.0f - fi) * (1.0f - fres_diel(co_p, eb))
+                          / fmaxf(1.0f - spec_w, F(1e-6));
+                    if (!(co_p > 0.0f)) w_b = 0.0f;
+                }
+            }
+            if (!(w_b > 0.0f)) break;                   // absorbed
+            // direct hits at the next vertex follow a delta bounce only
+            // where the tables hold a delta lobe (the JAX kernel's
+            // delta_any; a mask's pass alone counts none)
+            wdel = del && (cfg.mirror
+                           || (cfg.lobes & (LOBE_DIEL | LOBE_THIN)) != 0);
+            // bounce Doppler of the continued path
+            dop = dop * (1.0f + ((ndx - dx) * vbx + (ndy - dy) * vby
+                                 + (ndz - dz) * vbz) / cvel);
+            // a refracted or passed ray leaves through the back face
+            float off = F(1e-4);
+            if ((cfg.lobes & (LOBE_DIEL | LOBE_THIN | LOBE_RDIEL | LOBE_MASK))
+                && !(ndx * fx + ndy * fy + ndz * fz >= 0.0f))
+                off = F(-1e-4);
+            dx = ndx;
+            dy = ndy;
+            dz = ndz;
+            thr = thr * w_b;
+            cx = hx + off * fx;
+            cy = hy + off * fy;
+            cz = hz + off * fz;
         } else {
             if (!(txc < 0.0f)) break;                   // on the tx
             if (!is_ggx && !is_m && !(rb > 0.0f)) break;   // absorbed
@@ -1737,7 +2165,7 @@ __device__ float trace_lane(const Cfg& cfg, const float* sp,
 // endpoint twins (EP) hold up to MAX_TX transmitter rows there, each with
 // its unit normal written into its free columns 29-31.
 template <bool MESH, bool DOP, bool COH, bool MIMO = false, bool MED = false,
-          bool EP = false>
+          bool EP = false, bool LOB = false>
 __device__ __forceinline__ void trace_block(
     const float* __restrict__ params, const float* __restrict__ prim,
     const float* __restrict__ txp, const float* __restrict__ msh,
@@ -1747,6 +2175,9 @@ __device__ __forceinline__ void trace_block(
     const float* __restrict__ rxph = nullptr,
     const float* __restrict__ eoff = nullptr) {
     static_assert(!(EP && MED), "the endpoint twins run in vacuum");
+    static_assert(!LOB || (DOP && !MIMO && !MED && !EP),
+                  "the lobe twins: the Doppler family, in vacuum, one "
+                  "Wigner transmitter");
     constexpr int TX_FLOATS = EP ? MAX_TX * TXP_COLS : TXP_COLS;
     extern __shared__ float smem[];
     const int T = blockDim.x, tid = threadIdx.x;
@@ -1864,7 +2295,7 @@ __device__ __forceinline__ void trace_block(
          lane += stride) {
         dr.lane = lane;
         dr.group = -1;
-        float v = trace_lane<MESH, DOP, COH, MIMO, MED, EP>(
+        float v = trace_lane<MESH, DOP, COH, MIMO, MED, EP, LOB>(
             cfg, s_par, s_prim, s_msh, tx, lo, mesh_b, dr, my_hist, T, grid,
             &events);
         if constexpr (DOP) {
@@ -1936,7 +2367,7 @@ __global__ void receive_trace_kernel(const float* __restrict__ params,
 // Doppler mesh instantiation to 135 registers, three blocks an SM, and
 // multi_body's kernel 13% slower (tools/tree_ab.py); bounded, it spills a
 // few bytes and runs as fast as before.
-template <bool MESH, bool COH, bool MED, bool EP = false>
+template <bool MESH, bool COH, bool MED, bool EP = false, bool LOB = false>
 __global__ void __launch_bounds__(DOP_THREADS, 4)
 receive_doppler_kernel(const float* __restrict__ params,
                        const float* __restrict__ prim,
@@ -1946,9 +2377,10 @@ receive_doppler_kernel(const float* __restrict__ params,
                        float* __restrict__ lane_val,
                        double* __restrict__ partial,
                        unsigned long long* __restrict__ part_ev, Cfg cfg) {
-    trace_block<MESH, true, COH, false, MED, EP>(params, prim, txp, msh,
-                                                 uniforms, mesh, lane_val,
-                                                 partial, part_ev, cfg);
+    trace_block<MESH, true, COH, false, MED, EP, LOB>(params, prim, txp, msh,
+                                                      uniforms, mesh,
+                                                      lane_val, partial,
+                                                      part_ev, cfg);
 }
 
 // The MIMO configuration: the coherent one of a phased array on analytic
@@ -1972,12 +2404,13 @@ receive_mimo_kernel(const float* __restrict__ params,
 }
 
 // The kernel of a configuration.
-template <bool MESH, bool DOP, bool COH, bool MIMO, bool MED, bool EP>
+template <bool MESH, bool DOP, bool COH, bool MIMO, bool MED, bool EP,
+          bool LOB = false>
 constexpr auto kernel_of() {
     if constexpr (MIMO)
         return receive_mimo_kernel<MED, EP>;
     else if constexpr (DOP)
-        return receive_doppler_kernel<MESH, COH, MED, EP>;
+        return receive_doppler_kernel<MESH, COH, MED, EP, LOB>;
     else
         return receive_trace_kernel<MESH, MED, EP>;
 }
@@ -2016,7 +2449,8 @@ int threads_for(int n_time) {
     return (t / 32) * 32;
 }
 
-template <bool MESH, bool DOP, bool COH, bool MIMO, bool MED, bool EP>
+template <bool MESH, bool DOP, bool COH, bool MIMO, bool MED, bool EP,
+          bool LOB = false>
 int geometry(int n_time, int n_freq, long long n_lanes, int n_prims,
              int n_params, int n_msh, int mode, int n_pulses, int n_elem,
              int* blocks, int* threads, int* smem_bytes) {
@@ -2044,12 +2478,12 @@ int geometry(int n_time, int n_freq, long long n_lanes, int n_prims,
         smem = 4 * (n_params + n_prims * PRIM_COLS + TX_FLOATS + n_time * T);
     }
     cudaError_t err = cudaFuncSetAttribute(
-        kernel_of<MESH, DOP, COH, MIMO, MED, EP>(),
+        kernel_of<MESH, DOP, COH, MIMO, MED, EP, LOB>(),
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
     int per_sm = 0;
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, kernel_of<MESH, DOP, COH, MIMO, MED, EP>(), T, smem);
+        &per_sm, kernel_of<MESH, DOP, COH, MIMO, MED, EP, LOB>(), T, smem);
     if (err != cudaSuccess) return (int)err;
     if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
     int dev = 0, sms = 0;
@@ -2104,17 +2538,42 @@ int geometry_of(int n_time, int n_freq, long long n_lanes, int n_prims,
                 : g(geometry<false, true, false, false, MED, EP>);
 }
 
+// Launch geometry of a Doppler configuration's lobe twin (mode 1 or 2; in
+// vacuum, no MIMO).
+int geometry_lobes(int n_time, int n_freq, long long n_lanes, int n_prims,
+                   int n_params, int n_msh, int mesh, int mode, int coh,
+                   int n_pulses, int n_elem, int* blocks, int* threads,
+                   int* smem_bytes) {
+    if (mode == 0 || n_elem > 0) return (int)cudaErrorInvalidValue;
+    auto g = [&](auto fn) {
+        return fn(n_time, n_freq, n_lanes, n_prims, n_params, n_msh, mode,
+                  n_pulses, n_elem, blocks, threads, smem_bytes);
+    };
+    if (coh)
+        return mesh
+                   ? g(geometry<true, true, true, false, false, false, true>)
+                   : g(geometry<false, true, true, false, false, false, true>);
+    return mesh ? g(geometry<true, true, false, false, false, false, true>)
+                : g(geometry<false, true, false, false, false, false, true>);
+}
+
 }  // namespace
 
 extern "C" {
 
 // Launch geometry (geometry_of) of a configuration, of its media twin
-// when `medium` != 0, of its endpoint twin when `ep` != 0 (not both).
+// when `medium` != 0, of its endpoint twin when `ep` != 0, of a Doppler
+// configuration's lobe twin when `lob` != 0 (one of the three at most).
 int rk_geometry(int n_time, int n_freq, long long n_lanes, int n_prims,
                 int n_params, int n_msh, int mesh, int mode, int coh,
-                int n_pulses, int n_elem, int medium, int ep, int* blocks,
-                int* threads, int* smem_bytes) {
-    if (n_pulses < 1 || (medium && ep)) return (int)cudaErrorInvalidValue;
+                int n_pulses, int n_elem, int medium, int ep, int lob,
+                int* blocks, int* threads, int* smem_bytes) {
+    if (n_pulses < 1 || (medium && ep) || (lob && (medium || ep)))
+        return (int)cudaErrorInvalidValue;
+    if (lob)
+        return geometry_lobes(n_time, n_freq, n_lanes, n_prims, n_params,
+                              n_msh, mesh, mode, coh, n_pulses, n_elem,
+                              blocks, threads, smem_bytes);
     return (medium ? geometry_of<true, false>
                    : ep ? geometry_of<false, true>
                         : geometry_of<false, false>)(
@@ -2144,7 +2603,10 @@ int rk_geometry(int n_time, int n_freq, long long n_lanes, int n_prims,
 // txp then holds n_tx rows a pulse (1 <= n_tx <= MAX_TX), `php` the
 // n_tx x php_cols pair rows of its phased transmitters (every pulse's),
 // and `rx_phased` an analog phased receiver whose pair row of n_rx_pairs
-// pairs is `rxph`.
+// pairs is `rxph`.  `lobes` != 0 (LOBE_* flags) launches a Doppler
+// configuration's lobe twin (in vacuum, one Wigner transmitter, no MIMO):
+// the draw stride of a depth is then 6, plus one for a lobe pick
+// (plastics, GGX glass), plus one for a composite's pick.
 // `partial` holds n_pulses x blocks x n_vals doubles (mode 0 / 1) or
 // n_pulses x n_vals (mode 2, zeroed here), n_vals = n_cells, 2 n_cells
 // coherent or 2 n_elem n_cells MIMO; `out` n_pulses x n_vals floats,
@@ -2164,7 +2626,8 @@ int rk_launch(const float* params, const float* prim, const float* txp,
               int threads, int smem_bytes, const float* rxph,
               const float* eoff, int n_elem, int medium, const float* grid,
               int g_d, int g_h, int g_w, int n_tx, int ep, const float* php,
-              int php_cols, int rx_phased, int n_rx_pairs, void* stream) {
+              int php_cols, int rx_phased, int n_rx_pairs, int lobes,
+              void* stream) {
     Cfg cfg;
     cfg.n_lanes = n_lanes;
     cfg.seed = seed;
@@ -2206,6 +2669,9 @@ int rk_launch(const float* params, const float* prim, const float* txp,
     cfg.n_pairs = php == nullptr ? 0 : (php_cols - 2) / 6;
     cfg.rxph = rxph;
     cfg.n_rx_pairs = n_rx_pairs;
+    cfg.lobes = lobes;
+    if (lobes && (mode == 0 || ep || medium || n_elem > 0 || lobes > 127))
+        return (int)cudaErrorInvalidValue;
     if (n_tx < 1 || n_tx > MAX_TX || (!ep && (n_tx != 1 || rx_phased))
         || (ep && medium) || (php != nullptr && php_cols < 8)
         || (rx_phased && (rxph == nullptr || n_rx_pairs < 1 || n_elem > 0)))
@@ -2256,7 +2722,22 @@ int rk_launch(const float* params, const float* prim, const float* txp,
               : launch(receive_doppler_kernel<false, false, MED, EP>,
                        lane_val);
     };
-    if (medium)
+    if (lobes) {
+        // the lobe twins (LOB) of the Doppler and coherent configurations
+        if (coh)
+            m ? launch(receive_doppler_kernel<true, true, false, false, true>,
+                       lane_val)
+              : launch(receive_doppler_kernel<false, true, false, false,
+                                              true>,
+                       lane_val);
+        else
+            m ? launch(receive_doppler_kernel<true, false, false, false,
+                                              true>,
+                       lane_val)
+              : launch(receive_doppler_kernel<false, false, false, false,
+                                              true>,
+                       lane_val);
+    } else if (medium)
         pick(std::true_type{}, std::false_type{});
     else if (ep)
         pick(std::false_type{}, std::true_type{});

@@ -39,7 +39,17 @@ through the scene's ambient medium (homogeneous, z-layered or a 3-D sigma
 grid; `pack_medium`, `medium_tau`): every segment a lane crosses
 multiplies its throughput, and every NEE connection its value, by
 exp(-tau), as the JAX kernel's `absorbing`, `layered` and `grid_meta`
-do.  Per lane the kernel generates the receive ray, finds the
+do.  The Doppler family's configurations have a lobe twin, which adds
+the JAX kernel's `diel`, `thin`, `plas`, `rplas`, `rdiel`, `has_blend`
+and `has_mask` lobes (`lobe_flags`): delta reflection or refraction by
+the dielectric Fresnel (a thin sheet passes the ray), the plastics'
+diffuse base under a smooth or GGX coat, GGX glass (Walter's reflection
+and transmission lobes), and one level of blend or mask over them on a
+rectangle (the second lobe in prim columns 27-33; NEE evaluates the mix,
+the bounce picks a lobe, a mask's other lobe passes the ray on); a
+refracted or passed ray leaves through the back face, and a lane a
+delta lobe continued counts a direct transmitter hit at its next
+vertex.  Per lane the kernel generates the receive ray, finds the
 closest hit, counts direct transmitter hits at depth 0, connects to the
 transmitter (NEE) with the waveform and aperture Wigner weights and a
 shadow test, tent-splats into the ADC grid and makes the BSDF bounce.
@@ -61,11 +71,14 @@ kernel's positional draw order:
    order two transmitter-point draws and the emission-time draw (a
    placeholder under fixed sampling);
 5. per depth but the last: two bounce draws (the diffuse lobe and the
-   GGX half-vector share them, as the lane's type is one or the other).
+   GGX half-vector share them, as the lane's type is one or the other;
+   a dielectric picks its reflection by the first), then the lobe pick
+   of plastics and GGX glass and the lobe-mix pick of composites where
+   the tables hold them (`lobe_draws`).
 
-`n_draws(max_depth, n_tx)` over-allocates (26 rows at depth 3 with one
-transmitter, of which at most 22 are read) and is honoured as the layout
-stride.  `receive_megakernel` runs
+`n_draws(max_depth, n_tx, lobe_mix, blend_mix)` over-allocates (26 rows
+at depth 3 with one transmitter, of which at most 22 are read) and is
+honoured as the layout stride.  `receive_megakernel` runs
 that plain version for tensors on the CPU and the CUDA kernel for tensors
 on a card; `receive_megakernel_cpi` runs a coherent processing interval
 (CPI), the tables of every pulse stacked (`pack_cpi`), in one launch
@@ -89,7 +102,9 @@ import torch
 
 from .. import _nvcc
 from .._device import resolve_device
-from ..bsdf.tables import CONDUCTOR, DIFFUSE, ROUGH_CONDUCTOR
+from ..bsdf.tables import (BLEND, CONDUCTOR, DIELECTRIC, DIFFUSE, MASK,
+                           PLASTIC, ROUGH_CONDUCTOR, ROUGH_DIELECTRIC,
+                           ROUGH_PLASTIC, THIN_DIELECTRIC)
 from ..core.rng import MASK32, philox4x32_10
 from ..geometry import bvh as bvh_mod
 from ..geometry.bvh_kernel import PackedBVH, walk_ref, leaf_column, pack
@@ -166,6 +181,22 @@ RX_MIX = 1      # mix_resample: f_rx from the transmitter's chirp, bin the
 RX_MIXER = 2    # mixer: a beat draw, f_rx = f_LO - beat, bin f_LO - f_recv
 RX_RAW_LO = 3   # raw_resample with an LO: f_rx from the LO, bin f_recv
 
+# The lobe twins' flags, a bit mask (`lobe_flags`): the JAX kernel's static
+# lobe flags beyond the diffuse, GGX-conductor and mirror lobes
+# (pallas_receive.py:187-225), read from the packed tables
+LOBE_DIEL = 1       # smooth dielectric: delta reflect / refract
+LOBE_THIN = 2       # thin dielectric: delta reflect / pass
+LOBE_PLAS = 4       # plastic: diffuse base under a smooth coat
+LOBE_RPLAS = 8      # rough plastic: diffuse base plus a GGX coat
+LOBE_RDIEL = 16     # rough dielectric: GGX glass (Walter 2007)
+LOBE_BLEND = 32     # a blend or mask composite: a second lobe a prim
+LOBE_MASK = 64      # a mask: its other lobe passes the ray straight on
+LOBE_OF_TYPE = {DIELECTRIC: LOBE_DIEL, THIN_DIELECTRIC: LOBE_THIN,
+                PLASTIC: LOBE_PLAS, ROUGH_PLASTIC: LOBE_RPLAS,
+                ROUGH_DIELECTRIC: LOBE_RDIEL}
+# the lobes that draw a lobe pick a bounce (the JAX kernel's `lobe_mix`)
+LOBE_PICK = LOBE_PLAS | LOBE_RPLAS | LOBE_RDIEL
+
 
 def rx_rule(receive_type: str, has_lo: bool) -> int:
     """The kernel's receive-frequency rule of a receiver (RX_*)."""
@@ -214,7 +245,7 @@ class PackedScene:
                     or np.abs(self.msh[:, 0:3]).max() > 0.0)
 
     def _has_type(self, code: int) -> bool:
-        return bool((self.prim[:, 18] == code).any()
+        return bool((self.prim[:, [18, 28]] == code).any()
                     or (self.mesh is not None
                         and (self.msh[:, 6] == code).any()))
 
@@ -229,6 +260,12 @@ class PackedScene:
         shape: the JAX kernel's `mirror` flag."""
         return self._has_type(CONDUCTOR)
 
+    @property
+    def lobes(self) -> int:
+        """The lobe twins' flags of the tables (`lobe_flags`)."""
+        return lobe_flags(self.prim, self.msh if self.mesh is not None
+                          else None)
+
     def doppler(self, adc: ADCConfig) -> bool:
         """Does this scene, receiver and ADC need the Doppler configuration
         (its power mode; coherent calls take the coherent one)?  Mirror
@@ -238,9 +275,30 @@ class PackedScene:
 
 def needs_doppler(tables, adc: ADCConfig) -> bool:
     """The Doppler configuration's condition on a pack's flags (one pulse's
-    or a CPI's) and the ADC."""
-    return (tables.moving or tables.ggx or tables.mirror or adc.n_freq != 1
-            or adc.n_time > MAX_N_TIME_ROWS or tables.rx_rule != RX_RAW)
+    or a CPI's) and the ADC.  The lobe twins are twins of the Doppler
+    family."""
+    return (tables.moving or tables.ggx or tables.mirror or bool(tables.lobes)
+            or adc.n_freq != 1 or adc.n_time > MAX_N_TIME_ROWS
+            or tables.rx_rule != RX_RAW)
+
+
+def lobe_flags(prim, msh=None) -> int:
+    """The lobe twins' flags (LOBE_*) of packed tables, numpy arrays or
+    tensors, one pulse's or a CPI's stacked ones: the lobe types of the
+    prim rows' two lobes (columns 18 and 28) and of the mesh-shape rows
+    `msh` (column 6; None without a mesh), and the composites of the mix
+    column 27 (1 blend, 2 mask).  Reads a card's tables back."""
+    prim = torch.as_tensor(prim)
+    types = set(prim[..., [18, 28]].reshape(-1).tolist())
+    if msh is not None:
+        types |= set(torch.as_tensor(msh)[..., 6].reshape(-1).tolist())
+    flags = sum(bit for code, bit in LOBE_OF_TYPE.items() if code in types)
+    mix = set(prim[..., 27].reshape(-1).tolist())
+    if mix - {0.0}:
+        flags |= LOBE_BLEND
+    if 2.0 in mix:
+        flags |= LOBE_MASK
+    return flags
 
 
 def _demoted_rects(sd) -> list:
@@ -335,6 +393,9 @@ def pack_scene(scene_data, rx, shape_idx: int) -> PackedScene:
     b_alpha = sd.bsdfs.alpha.cpu().numpy()
     b_eta = sd.bsdfs.eta.cpu().numpy()
     b_k = sd.bsdfs.k.cpu().numpy()
+    nested0 = sd.bsdfs.nested0.cpu().numpy()
+    nested1 = sd.bsdfs.nested1.cpu().numpy()
+    b_wt = sd.bsdfs.weight.cpu().numpy()
     shape_vel = shapes.velocity.cpu().numpy()
 
     tx = sd.transmitters
@@ -353,11 +414,37 @@ def pack_scene(scene_data, rx, shape_idx: int) -> PackedScene:
         prim[r, 16] = b_eta[b, 0] if b >= 0 else 0.0
         prim[r, 17] = b_k[b, 0] if b >= 0 else 0.0
         prim[r, 18] = float(b_type[b]) if b >= 0 else 0.0
-        # second-lobe columns of blend/mask composites: a plain lobe here
+        # blend / mask composites: column 27 the mix code (0 plain, 1
+        # blend, 2 mask), 28 the second lobe's type, 29-32 its reflectance,
+        # alpha, eta and k, 33 the weight of the first lobe (a blend's
+        # weight, a mask's opacity); the first lobe, nested0, takes columns
+        # 13 and 15-18.  A plain row repeats its lobe there with weight 1
         prim[r, 28] = prim[r, 18]
         prim[r, 29] = prim[r, 13]
         prim[r, 30:33] = prim[r, 15:18]
         prim[r, 33] = 1.0
+        if b >= 0 and int(b_type[b]) in (MASK, BLEND):
+            n0 = int(nested0[b])
+            prim[r, 13] = refl[n0, 0]
+            prim[r, 15] = b_alpha[n0]
+            prim[r, 16] = b_eta[n0, 0]
+            prim[r, 17] = b_k[n0, 0]
+            prim[r, 18] = float(b_type[n0])
+            prim[r, 33] = float(b_wt[b])
+            if int(b_type[b]) == BLEND:
+                n1 = int(nested1[b])
+                prim[r, 27] = 1.0
+                prim[r, 28] = float(b_type[n1])
+                prim[r, 29] = refl[n1, 0]
+                prim[r, 30] = b_alpha[n1]
+                prim[r, 31] = b_eta[n1, 0]
+                prim[r, 32] = b_k[n1, 0]
+            else:
+                # a mask's second lobe is a zero diffuse one: the kernel
+                # passes the ray on where it picks it
+                prim[r, 27] = 2.0
+                prim[r, 28] = float(DIFFUSE)
+                prim[r, 29:33] = 0.0
         prim[r, 19:22] = shape_vel[i]
 
     # per-tx rows; the phase pivots are computed in float64 on the host
@@ -568,13 +655,13 @@ def supported(scene_data, rx, reason: list | None = None,
     kinds = set(sd.shapes.kind.tolist())
     if not kinds <= {-1, RECTANGLE, TRIANGLE}:
         return no(f'shape kinds {sorted(kinds)}: rectangles and triangle '
-                  'meshes only (ROADMAP B5)')
+                  'meshes only (ROADMAP B1)')
     demote = _demoted_rects(sd)
     n_prims = int(sd.shapes.kind.shape[0]) - len(demote)
     if n_prims > MAX_PRIMS:
         return no(f'{n_prims} analytic shape rows > {MAX_PRIMS} after '
                   'demoting plain rectangles into the BVH (shared-memory '
-                  'prim table; ROADMAP B5)')
+                  'prim table; ROADMAP A5)')
     if sd.tris is not None or demote:
         n_tris = (sd.tris.n_faces if sd.tris is not None else 0) \
             + 2 * len(demote)
@@ -588,11 +675,32 @@ def supported(scene_data, rx, reason: list | None = None,
         if len(rows) > MAX_MESH_SHAPES:
             return no(f'{len(rows)} distinct mesh-shape rows > '
                       f'{MAX_MESH_SHAPES} (per-shape resolution)')
-    if not set(sd.bsdfs.present) <= {DIFFUSE, CONDUCTOR, ROUGH_CONDUCTOR}:
-        return no('BSDFs beyond diffuse, the smooth conductor and the GGX '
-                  'rough conductor, on meshes as on rectangles (ROADMAP B5)')
+    present = set(sd.bsdfs.present)
+    if not present <= BASE_BSDFS | {MASK, BLEND}:
+        return no(f'BSDF types {sorted(present - BASE_BSDFS - {MASK, BLEND})}'
+                  ': null and measured BSDFs are wavefront-only, in the JAX '
+                  'package as here (its kernel refuses them too)')
+    b_type = sd.bsdfs.type.tolist()
+    if present & {MASK, BLEND}:
+        # one level of blend / mask over the base lobes, on analytic
+        # rectangles only (the JAX kernel's rules, pallas_receive.py:
+        # 2760-2779)
+        n0s, n1s = sd.bsdfs.nested0.tolist(), sd.bsdfs.nested1.tolist()
+        for bi, t in enumerate(b_type):
+            if t in (MASK, BLEND) and not (
+                    b_type[n0s[bi]] in BASE_BSDFS
+                    and (t == MASK or b_type[n1s[bi]] in BASE_BSDFS)):
+                return no('blend / mask over a composite or a null or '
+                          'measured BSDF: one level over the base lobes, '
+                          'in the JAX package as here')
+        for k, b in zip(sd.shapes.kind.tolist(), sd.shapes.bsdf_idx.tolist()):
+            if k == TRIANGLE and b >= 0 and b_type[b] in (MASK, BLEND):
+                return no('blend / mask on a triangle-mesh shape: the '
+                          'kernels take composites on rectangles only, in '
+                          'the JAX package as here')
     if bool((sd.bsdfs.texture_idx >= 0).any()):
         return no('textured BSDFs (ROADMAP B7)')
+    lobes = bool(_lobe_types(sd) - {DIFFUSE, CONDUCTOR, ROUGH_CONDUCTOR})
     if mimo:
         if rx.kind != PHASED or rx.n_elems < 2:
             return no('MIMO receive needs a phased receiver with >= 2 '
@@ -609,6 +717,10 @@ def supported(scene_data, rx, reason: list | None = None,
         if sd.tris is not None or demote:
             return no('MIMO receive of a mesh scene (ROADMAP B6): the '
                       'wavefront runs it')
+        if lobes:
+            return no('MIMO receive of dielectric, plastic or composite '
+                      'lobes: the MIMO configuration has no lobe twin '
+                      '(ROADMAP B5); the wavefront runs it')
     elif rx.kind == PHASED:
         if rx.n_elems ** 2 > MAX_RX_PAIRS:
             return no(f'phased rx pair unroll {rx.n_elems ** 2} > '
@@ -626,6 +738,16 @@ def supported(scene_data, rx, reason: list | None = None,
                   'ambient medium: the kernel has no media twin of its '
                   'endpoint configuration (ROADMAP B6); the wavefront '
                   'runs it')
+    if lobes and med is not None:
+        return no('dielectric, plastic or composite lobes through an '
+                  'ambient medium: the lobe twins run in vacuum (ROADMAP '
+                  'B5); the wavefront runs it')
+    if lobes and endpoints:
+        return no('dielectric, plastic or composite lobes with these '
+                  'endpoints (several transmitters, a phased or area '
+                  'transmitter, an analog phased receiver): the lobe twins '
+                  'have no endpoint twin (ROADMAP B5); the wavefront runs '
+                  'it')
     if isinstance(med, LayeredMedium):
         if med.n_layers > MAX_MEDIA_LAYERS:
             return no(f'{med.n_layers} medium layers > {MAX_MEDIA_LAYERS} '
@@ -661,6 +783,26 @@ def supported(scene_data, rx, reason: list | None = None,
     return True
 
 
+# the lobes the kernel takes, and over which it takes one level of blend or
+# mask (the JAX kernel's base set)
+BASE_BSDFS = {DIFFUSE, CONDUCTOR, ROUGH_CONDUCTOR, DIELECTRIC,
+              THIN_DIELECTRIC, PLASTIC, ROUGH_PLASTIC, ROUGH_DIELECTRIC}
+
+
+def _lobe_types(sd) -> set:
+    """The BSDF types on the scene's shapes, a composite's nested lobes
+    and the composite's own type among them."""
+    b_type = sd.bsdfs.type.tolist()
+    n0s, n1s = sd.bsdfs.nested0.tolist(), sd.bsdfs.nested1.tolist()
+    out = set()
+    for b in set(sd.shapes.bsdf_idx.tolist()) - {-1}:
+        out.add(b_type[b])
+        for n in (n0s[b], n1s[b]) if b_type[b] in (MASK, BLEND) else ():
+            if n >= 0:
+                out.add(b_type[n])
+    return out
+
+
 def phase_slack(band, adc: ADCConfig, mimo: bool = False) -> float:
     """Phase error [rad] one coherent connection may carry between two
     float32 evaluations of the same path (the kernel and its plain version,
@@ -694,13 +836,22 @@ def coord_slack(adc: ADCConfig) -> float:
     return s
 
 
-def n_draws(max_depth: int, n_tx: int = 1) -> int:
+def n_draws(max_depth: int, n_tx: int = 1, lobe_mix: bool = False,
+            blend_mix: bool = False) -> int:
     """Uniform rows per lane (the layout stride of injected uniforms): the
-    JAX package's count for `n_tx` transmitters and diffuse, GGX or mirror
-    lobes: eight head rows (the time, frequency and ray draws), then per
-    depth the direct-hit draw, three per transmitter and two bounce
-    draws."""
-    return 8 + (3 + 3 * n_tx) * max_depth
+    JAX package's count (pallas_receive.py:2893-2899) for `n_tx`
+    transmitters: eight head rows (the time, frequency and ray draws),
+    then per depth the direct-hit draw, three per transmitter, two bounce
+    draws, the lobe pick of plastics and GGX glass (`lobe_mix`) and the
+    composite pick of blends and masks (`blend_mix`)."""
+    return 8 + ((4 if lobe_mix else 3) + (1 if blend_mix else 0)
+                + 3 * n_tx) * max_depth
+
+
+def lobe_draws(lobes: int) -> dict:
+    """`n_draws`' lobe_mix and blend_mix of the lobe twins' flags."""
+    return dict(lobe_mix=bool(lobes & LOBE_PICK),
+                blend_mix=bool(lobes & LOBE_BLEND))
 
 
 # ---------------------------------------------------------------------------
@@ -813,13 +964,144 @@ def _ggx_fcos(rb, ab, eb, kk, nx, ny, nz, wix, wiy, wiz, wox, woy, woz):
     return torch.where((co > 0.0) & (ci > 0.0), f_rc, 0.0)
 
 
+def _fres_diel_full(ci, eta):
+    """Unpolarized dielectric Fresnel for the signed cos_i ci (the JAX
+    kernel's _fres_diel, and its inline copies in the dielectric and GGX
+    glass bounces): the relative IOR eta from the side ci >= 0, its
+    inverse from the other; total internal reflection (cos_t^2 <= 0)
+    gives 1.  Returns (F, the relative IOR, cos_t, cos_t^2)."""
+    eta_s = torch.clamp(eta, min=1e-6)
+    eta_it = torch.where(ci >= 0.0, eta_s, 1.0 / eta_s)
+    c2t = 1.0 - (1.0 - ci * ci) / (eta_it * eta_it)
+    cos_t = torch.sqrt(torch.clamp(c2t, min=0.0))
+    aci = ci.abs()
+    rs = (aci - eta_it * cos_t) / torch.clamp(aci + eta_it * cos_t,
+                                              min=1e-20)
+    rp = (eta_it * aci - cos_t) / torch.clamp(eta_it * aci + cos_t,
+                                              min=1e-20)
+    return (torch.where(c2t <= 0.0, 1.0, 0.5 * (rs * rs + rp * rp)),
+            eta_it, cos_t, c2t)
+
+
+def _fres_diel(ci, eta):
+    return _fres_diel_full(ci, eta)[0]
+
+
+def _unit(x, y, z):
+    n = torch.rsqrt(torch.clamp(x * x + y * y + z * z, min=1e-20))
+    return x * n, y * n, z * n
+
+
+def _toward(x, y, z, fx, fy, fz):
+    """(x, y, z) and its cosine with f, flipped onto f's side."""
+    c = x * fx + y * fy + z * fz
+    s = _sign(c)
+    return x * s, y * s, z * s, c * s
+
+
+def _rd_fcos_pdf(ci_raw, fx, fy, fz, eb, kk, rb, ab, wi, wo):
+    """Rough-dielectric (GGX glass) f(wi, wo) |cos_o| and pdf in the
+    frame f flipped toward wi, ci_raw the unflipped cosine (the JAX
+    kernel's _rd_fcos_pdf): Walter 2007's reflection and transmission
+    microfacet lobes with chi+ sidedness and the 1 / eta^2 radiance
+    compression; k carries the transmittance."""
+    wix, wiy, wiz = wi
+    wox, woy, woz = wo
+    sgr = _sign(ci_raw)
+    ci = ci_raw.abs()
+    co = wox * fx + woy * fy + woz * fz
+    same = co > 0.0
+    eta_s = torch.clamp(eb, min=1e-6)
+    eta_it = torch.where(ci_raw >= 0.0, eta_s, 1.0 / eta_s)
+    rhx, rhy, rhz, rhc = _toward(*_unit(wix + wox, wiy + woy, wiz + woz),
+                                 fx, fy, fz)
+    thx, thy, thz, thc = _toward(*_unit(-(wix + eta_it * wox),
+                                        -(wiy + eta_it * woy),
+                                        -(wiz + eta_it * woz)), fx, fy, fz)
+    hdx = torch.where(same, rhx, thx)
+    hdy = torch.where(same, rhy, thy)
+    hdz = torch.where(same, rhz, thz)
+    hdc = torch.where(same, rhc, thc)
+    a2 = ab * ab
+    dd = hdc * hdc * (a2 - 1.0) + 1.0
+    d_ = a2 / torch.clamp(np.pi * dd * dd, min=1e-20)
+    g_ = _g1(ci, a2) * _g1(co.abs(), a2)
+    idh = wix * hdx + wiy * hdy + wiz * hdz
+    odh = wox * hdx + woy * hdy + woz * hdz
+    f_d = _fres_diel(idh * sgr, eb)
+    aci = torch.clamp(ci, min=1e-6)
+    den_t = idh + eta_it * odh
+    jac_t = eta_it * eta_it * odh.abs() / torch.clamp(den_t * den_t,
+                                                       min=1e-12)
+    f_r = f_d * d_ * g_ / (4.0 * aci) * rb
+    f_t = ((1.0 - f_d) * d_ * g_ * idh.abs() * jac_t / aci) \
+        / (eta_it * eta_it) * kk
+    live = (ci > 1e-6) & (idh > 0.0) & (odh * co > 0.0)
+    f_cos = torch.where(live, torch.where(same, f_r, f_t), 0.0)
+    pdf_h = d_ * hdc
+    pdf = torch.where(same, f_d * pdf_h / torch.clamp(4.0 * odh.abs(),
+                                                      min=1e-8),
+                      (1.0 - f_d) * pdf_h * jac_t)
+    return f_cos, torch.where(live, pdf, 0.0)
+
+
+def _lobe_fcos(kb, rb, ab, eb, kk, nx, ny, nz, wi, wo, flags: dict):
+    """f(wi, wo) |cos_o| of each lane's lobe, dispatched on its type (the
+    JAX kernel's bsdf_eval_cos): diffuse, the GGX rough conductor, the
+    plastic base (1 - Fi)(1 - Fo) x diffuse, the rough plastic's GGX coat
+    with the dielectric Fresnel, GGX glass (`_rd_fcos_pdf`), and 0 for the
+    delta lobes (mirror, smooth and thin dielectric); `flags` the table's
+    static lobe flags (ggx, mirror, diel, thin, plas, rplas, rdiel)."""
+    wix, wiy, wiz = wi
+    wox, woy, woz = wo
+    ci_raw = wix * nx + wiy * ny + wiz * nz
+    sg = _sign(ci_raw)
+    fx, fy, fz = nx * sg, ny * sg, nz * sg
+    ci = ci_raw * sg
+    co = wox * fx + woy * fy + woz * fz
+    f_d = rb * (1.0 / np.pi) * torch.clamp(co, min=0.0)
+    if flags['plas'] or flags['rplas']:
+        f_pl = f_d * (1.0 - _fres_diel(ci, eb)) * (1.0 - _fres_diel(co, eb))
+    out = f_d
+    if flags['ggx']:
+        hx, hy, hz, hc = _toward(*_unit(wix + wox, wiy + woy, wiz + woz),
+                                 fx, fy, fz)
+        a2 = ab * ab
+        dd = hc * hc * (a2 - 1.0) + 1.0
+        d_ = a2 / torch.clamp(np.pi * dd * dd, min=1e-20)
+        g_ = _g1(ci.abs(), a2) * _g1(co.abs(), a2)
+        idoth = wix * hx + wiy * hy + wiz * hz
+        both = (co > 0.0) & (ci > 0.0)
+        f_rc = rb * _fres_cond(idoth.abs(), eb, kk) * d_ * g_ \
+            / torch.clamp(4.0 * ci, min=1e-8)
+        out = torch.where(kb == float(ROUGH_CONDUCTOR),
+                          torch.where(both, f_rc, 0.0), out)
+    if flags['plas']:
+        out = torch.where(kb == float(PLASTIC), f_pl, out)
+    if flags['rplas']:
+        coat = _fres_diel(idoth.abs(), eb) * d_ * g_ \
+            / torch.clamp(4.0 * ci, min=1e-8)
+        out = torch.where(kb == float(ROUGH_PLASTIC),
+                          f_pl + torch.where(both, coat, 0.0), out)
+    if flags['rdiel']:
+        f_rd, _ = _rd_fcos_pdf(ci_raw, fx, fy, fz, eb, kk, rb, ab, wi, wo)
+        out = torch.where(kb == float(ROUGH_DIELECTRIC), f_rd, out)
+    for key, code in (('mirror', CONDUCTOR), ('diel', DIELECTRIC),
+                      ('thin', THIN_DIELECTRIC)):
+        if flags[key]:
+            out = torch.where(kb == float(code), 0.0, out)
+    return out
+
+
 STAT_KEYS = ('lanes', 'strata', 'freq_draw', 'lo_freq', 'trace', 'hit',
              'direct', 'nee_geom', 'nee', 'ggx_nee', 'occ_tests', 'nee_splat',
              'splat_2d', 'lo_bin', 'phase', 'phase_lo', 'bounce',
              'ggx_bounce', 'mirror_bounce', 'dop_direct', 'dop_nee',
              'dop_bounce', 'walks', 'node_tests', 'leaf_tests', 'mesh_hits',
              'phased_ray', 'mimo_vertex', 'mimo_elem', 'med_seg', 'med_conn',
-             'pair_tests', 'pair_terms')
+             'pair_tests', 'pair_terms', 'plas_nee', 'rplas_nee',
+             'rdiel_nee', 'blend_nee', 'blend_pick', 'diel_bounce',
+             'plas_bounce', 'rplas_bounce', 'rdiel_bounce', 'pass_bounce')
 
 
 def _frac_cycles(f, t):
@@ -849,6 +1131,10 @@ def _h_cyc(w: dict, tm):
 
 
 ULPS4 = 4.0 * float(np.finfo(np.float32).eps)
+# a lobe's branch (a Fresnel pick, total internal reflection, a cosine's
+# sign) whose two sides lie within LOBE_TIE of each other: the kernel's
+# contracted roundings may take the other side (`ill_out`)
+LOBE_TIE = 1e-5
 
 
 def medium_tau(sp, medium: int, grid=None, ill=None):
@@ -1001,7 +1287,7 @@ def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
                            has_lo: bool = False, coherent: bool = False,
                            amp_out=None, mirror: bool | None = None,
                            rxph=None, eoff=None, medium: int = 0, grid=None,
-                           ill_out=None, php=None):
+                           ill_out=None, php=None, lobes: int | None = None):
     """Plain version of the kernel, in every configuration.  Returns (acc
     (n_time, n_freq) float32, n_events 0-d int64): the tent-splatted power
     and the count of nonzero contributions; with `coherent` acc is
@@ -1161,11 +1447,25 @@ def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
         or (sp[23:26] != 0).any()
         or (rows_m is not None and (rows_m[:, 0:3] != 0).any()))
     ggx = doppler and bool(
-        (prim[:, 18] == ROUGH_CONDUCTOR).any()
+        (prim[:, 18:29:10] == ROUGH_CONDUCTOR).any()
         or (rows_m is not None and (rows_m[:, 6] == ROUGH_CONDUCTOR).any()))
     mirror = doppler and (has_mirror(prim, rows_m) if mirror is None
                           else mirror)
-    lobes = ggx or mirror   # the hit's type, alpha, eta and k are read
+    # the lobe twins' flags (LOBE_*), the JAX kernel's static lobe flags
+    lob = (lobe_flags(prim, rows_m) if lobes is None else lobes) \
+        if doppler else 0
+    fl = dict(ggx=ggx or bool(lob & (LOBE_RPLAS | LOBE_RDIEL)),
+              mirror=mirror, diel=bool(lob & LOBE_DIEL),
+              thin=bool(lob & LOBE_THIN), plas=bool(lob & LOBE_PLAS),
+              rplas=bool(lob & LOBE_RPLAS), rdiel=bool(lob & LOBE_RDIEL))
+    ggx = fl['ggx']
+    blend, mask = bool(lob & LOBE_BLEND), bool(lob & LOBE_MASK)
+    # direct hits after a delta bounce (the JAX kernel's `delta_any`), and
+    # continuations that may leave through the back face
+    delta_any = mirror or fl['diel'] or fl['thin']
+    back_face = bool(lob & (LOBE_DIEL | LOBE_THIN | LOBE_RDIEL | LOBE_MASK))
+    read_lobe = ggx or mirror or bool(lob)   # the hit's type, alpha, eta, k
+    mark = None if ill_out is None else ill_out.logical_or_
     tau = medium_tau(sp, medium, grid, None if ill_out is None
                      else ill_out.logical_or_)
 
@@ -1539,6 +1839,14 @@ def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
         eb = torch.zeros_like(tb)
         kk = torch.zeros_like(tb)
         vb = [torch.zeros_like(tb) for _ in range(3)]
+        if blend:
+            # a composite's second lobe (type, reflectance, alpha, eta, k),
+            # the first lobe's weight and the mask mark
+            lobe1 = [torch.zeros_like(tb), torch.zeros_like(tb),
+                     torch.full_like(tb, 0.1), torch.zeros_like(tb),
+                     torch.zeros_like(tb)]
+            wmx = torch.ones_like(tb)
+            mskf = torch.zeros(n_lanes, dtype=torch.bool, device=dev)
         for row in prims:
             t_p, hit_p, q = rect_t(row, cx, cy, cz, ddx, ddy, ddz)
             rnorm = torch.rsqrt(torch.clamp(
@@ -1550,11 +1858,16 @@ def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
             nz = torch.where(closer, q[10] * rnorm, nz)
             rb = torch.where(closer, row[13], rb)
             txc = torch.where(closer, row[14], txc)
-            if lobes:
+            if read_lobe:
                 kb = torch.where(closer, row[18], kb)
                 ab = torch.where(closer, row[15], ab)
                 eb = torch.where(closer, row[16], eb)
                 kk = torch.where(closer, row[17], kk)
+            if blend:
+                lobe1 = [torch.where(closer, row[28 + i], v)
+                         for i, v in enumerate(lobe1)]
+                wmx = torch.where(closer, row[33], wmx)
+                mskf = torch.where(closer, row[27] == 2.0, mskf)
             if moving:
                 vb = [torch.where(closer, row[19 + i], vb[i])
                       for i in range(3)]
@@ -1588,9 +1901,14 @@ def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
                 sid = leaf_column(mesh, w.leaf, w.slot, 88)[m_closer].long()
                 row = rows_m[sid]
                 kb[sel] = row[:, 6]
-                if lobes:
+                if read_lobe:
                     ab[sel], eb[sel], kk[sel] = row[:, 3], row[:, 4], \
                         row[:, 5]
+                if blend:
+                    # mesh lobes are plain: one lobe of weight 1
+                    lobe1[0][sel] = row[:, 6]
+                    wmx[sel] = 1.0
+                    mskf[sel] = False
                 if moving:
                     for i in range(3):
                         vb[i][sel] = row[:, i]
@@ -1628,12 +1946,19 @@ def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
                     vex * vex + vey * vey + vez * vez, min=1e-20)) - r0)
         is_ggx = kb == float(ROUGH_CONDUCTOR)
         is_m = (kb == float(CONDUCTOR)) if mirror else torch.zeros_like(hit)
+        # the delta lobes: no NEE leaves them (their f is 0 toward a
+        # transmitter; a composite's other lobe may still connect)
+        is_delta = is_m
+        for key, code in (('diel', DIELECTRIC), ('thin', THIN_DIELECTRIC)):
+            if fl[key]:
+                is_delta = is_delta | (kb == float(code))
+        one_lobe = (wmx >= 1.0) if blend else torch.ones_like(hit)
 
         # ---- direct transmitter hits: at depth 0, and on lanes whose last
-        #      bounce was a mirror (NEE covers the rest); the transmitter
-        #      the lane hit ----
+        #      bounce was a delta one (a mirror, a dielectric, a mask's
+        #      pass; NEE covers the rest); the transmitter the lane hit ----
         u_dh = draw()
-        for t, w in enumerate(txs if depth == 0 or mirror else ()):
+        for t, w in enumerate(txs if depth == 0 or delta_any else ()):
             m, tnx, tny, tnz = w['m'], *w['n']
             cos_dh = -(ddx * tnx + ddy * tny + ddz * tnz)
             te_h, tr_h, wg_h, k_h = emission(w, plen / cvel, u_dh, t_rx0)
@@ -1663,9 +1988,9 @@ def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
 
         # ---- NEE to every transmitter, in row order: its point, direction
         #      and gate draws, its own shadow test ----
-        # no NEE from a mirror: its delta lobe has no density toward a
-        # transmitter (the JAX kernel's f_cos is 0 there)
-        shade0 = active & (txc < 0.0) & ~is_m
+        # no NEE from a mirror or a dielectric: a delta lobe has no
+        # density toward a transmitter (the JAX kernel's f_cos is 0 there)
+        shade0 = active & (txc < 0.0) & ~(is_delta & one_lobe)
         for t, w in enumerate(txs):
             m, tnx, tny, tnz = w['m'], *w['n']
             u5, u6 = draw(), draw()
@@ -1692,7 +2017,27 @@ def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
             sg = _sign(-ddx * nx + -ddy * ny + -ddz * nz)
             co = wx_ * (nx * sg) + wy_ * (ny * sg) + wz_ * (nz * sg)
             f_cos = rb * (1.0 / np.pi) * torch.clamp(co, min=0.0)
-            if ggx:
+            if lob:
+                # every lobe of the table, and a composite's mix w f0 +
+                # (1 - w) f1 (a mask's f1 is 0)
+                count('ggx_nee', shade & is_ggx)
+                count('plas_nee', shade & (kb == float(PLASTIC)))
+                count('rplas_nee', shade & (kb == float(ROUGH_PLASTIC)))
+                count('rdiel_nee', shade & (kb == float(ROUGH_DIELECTRIC)))
+                wi_, wo_ = (-ddx, -ddy, -ddz), (wx_, wy_, wz_)
+                f_cos = _lobe_fcos(kb, rb, ab, eb, kk, nx, ny, nz, wi_, wo_,
+                                   fl)
+                if blend:
+                    two = shade & ~one_lobe
+                    count('blend_nee', two)
+                    for key, code in (('ggx_nee', ROUGH_CONDUCTOR),
+                                      ('plas_nee', PLASTIC),
+                                      ('rplas_nee', ROUGH_PLASTIC),
+                                      ('rdiel_nee', ROUGH_DIELECTRIC)):
+                        count(key, two & (lobe1[0] == float(code)))
+                    f_cos = wmx * f_cos + (1.0 - wmx) * _lobe_fcos(
+                        *lobe1, nx, ny, nz, wi_, wo_, fl)
+            elif ggx:
                 count('ggx_nee', shade & is_ggx)
                 f_cos = torch.where(is_ggx, _ggx_fcos(
                     rb, ab, eb, kk, nx, ny, nz, -ddx, -ddy, -ddz,
@@ -1715,13 +2060,14 @@ def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
                 occ = occ | (hit_p & (t_p > 1e-4) & (t_p < limit))
             if mesh is not None:
                 # mesh any hit for the lanes the rectangles left unblocked
-                walk = (shade & ~occ).nonzero().squeeze(1)
+                # (not from a delta lobe: the JAX kernel's walk skips them)
+                walk = (shade & ~occ & ~is_delta).nonzero().squeeze(1)
                 wk = walk_ref(mesh, sx[walk], sy[walk], sz[walk], wx_[walk],
                               wy_[walk], wz_[walk], limit[walk], anyhit=True,
                               stats=counts if stats is not None else None)
                 occ[walk] = wk.occ
             ok = active & ~occ & (pdf_sa > 0.0) & (cos_tx > 1e-6) \
-                & (txc < 0.0) & ~is_m
+                & (txc < 0.0) & ~(is_delta & one_lobe)
             count('nee_splat', ok)
             val = torch.where(ok, throughput * f_cos * w_tx * w_gate
                               / torch.clamp(pdf_sa, min=1e-30), 0.0)
@@ -1749,11 +2095,47 @@ def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
         if depth == max_depth - 1:
             break
 
-        # ---- bounce: cosine hemisphere (diffuse) or a GGX half vector
-        #      about the flipped normal ----
+        # ---- bounce: cosine hemisphere (diffuse), a GGX half vector, a
+        #      delta reflection or refraction, about the flipped normal; a
+        #      composite first picks its lobe ----
         u8, u9 = draw(), draw()
+        u_pick = draw() if lob & LOBE_PICK else None
+        pass_thru = None
+        if blend:
+            # lobe 0 with probability w, else lobe 1; a mask's lobe 1 passes
+            # the ray straight on (a delta null transmission, weight 1)
+            u_mix = draw()
+            pick0 = u_mix < wmx
+            count('blend_pick', active & (txc < 0.0) & ~one_lobe)
+            pass_thru = mskf & ~pick0
+            kb, rb, ab, eb, kk = (torch.where(pick0, a, b) for a, b in
+                                  zip((kb, rb, ab, eb, kk), lobe1))
+            is_ggx = kb == float(ROUGH_CONDUCTOR)
+            is_m = (kb == float(CONDUCTOR)) if mirror else is_m
         cont = active & (txc < 0.0)
-        count('bounce', cont & (rb > 0.0) & ~is_ggx & ~is_m)
+
+        def tie(mask, *gaps):
+            # lanes whose branch a few roundings may flip (`ill_out`)
+            if mark is not None:
+                for g in gaps:
+                    mark(cont & mask & (g.abs() <= LOBE_TIE))
+        if lob:
+            other = is_ggx | is_m
+            for key, code in (('diel_bounce', DIELECTRIC),
+                              ('diel_bounce', THIN_DIELECTRIC),
+                              ('plas_bounce', PLASTIC),
+                              ('rplas_bounce', ROUGH_PLASTIC),
+                              ('rdiel_bounce', ROUGH_DIELECTRIC)):
+                lane_k = (kb == float(code)) & ~(pass_thru if mask
+                                                 else torch.zeros_like(hit))
+                count(key, cont & lane_k)
+                other = other | lane_k
+            if mask:
+                count('pass_bounce', cont & pass_thru)
+                other = other | pass_thru
+            count('bounce', cont & (rb > 0.0) & ~other)
+        else:
+            count('bounce', cont & (rb > 0.0) & ~is_ggx & ~is_m)
         face = -(ddx * nx + ddy * ny + ddz * nz)
         sgn = _sign(face)
         fx, fy, fz = nx * sgn, ny * sgn, nz * sgn
@@ -1767,9 +2149,10 @@ def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
         cos2, sin2 = _fast_cos(ph2), _fast_sin(ph2)
         bx_, by_ = rr2 * cos2, rr2 * sin2
         bz_ = torch.sqrt(torch.clamp(1.0 - u8, min=0.0))
-        ndx = s1x * bx_ + s2x * by_ + fx * bz_
-        ndy = s1y * bx_ + s2y * by_ + fy * bz_
-        ndz = s1z * bx_ + s2z * by_ + fz * bz_
+        wdx = s1x * bx_ + s2x * by_ + fx * bz_
+        wdy = s1y * bx_ + s2y * by_ + fy * bz_
+        wdz = s1z * bx_ + s2z * by_ + fz * bz_
+        ndx, ndy, ndz = wdx, wdy, wdz
         w_b = rb
         if ggx:
             # GGX half-vector sample; weight refl F G (wi.h) / (cos_i h.n)
@@ -1796,6 +2179,88 @@ def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
             ndy = torch.where(is_ggx, wgy, ndy)
             ndz = torch.where(is_ggx, wgz, ndz)
             w_b = torch.where(is_ggx, w_g, w_b)
+        if fl['plas'] or fl['rplas']:
+            # plastics: the coat with probability spec_w, else the diffuse
+            # base; the weight is f / pdf of the two-lobe model
+            ci_b2 = face.abs()
+            fi_p = _fres_diel(ci_b2, eb)
+            spec_w = torch.clamp(fi_p, 0.05, 0.95)
+            pick_s = u_pick < spec_w
+        if fl['plas']:
+            # smooth coat: the mirror direction about the flipped normal
+            is_p = kb == float(PLASTIC)
+            dn2 = ddx * fx + ddy * fy + ddz * fz
+            pxd = torch.where(pick_s, ddx - 2.0 * dn2 * fx, wdx)
+            pyd = torch.where(pick_s, ddy - 2.0 * dn2 * fy, wdy)
+            pzd = torch.where(pick_s, ddz - 2.0 * dn2 * fz, wdz)
+            co_p = pxd * fx + pyd * fy + pzd * fz
+            w_p = rb * (1.0 - fi_p) * (1.0 - _fres_diel(co_p, eb)) \
+                / torch.clamp(1.0 - spec_w, min=1e-6)
+            tie(is_p, u_pick - spec_w, co_p)
+            ndx = torch.where(is_p, pxd, ndx)
+            ndy = torch.where(is_p, pyd, ndy)
+            ndz = torch.where(is_p, pzd, ndz)
+            w_b = torch.where(is_p, torch.where(co_p > 0.0, w_p, 0.0), w_b)
+        if fl['rplas']:
+            # GGX coat: the rough conductor's sample direction
+            is_rp = kb == float(ROUGH_PLASTIC)
+            rx2 = torch.where(pick_s, wgx, wdx)
+            ry2 = torch.where(pick_s, wgy, wdy)
+            rz2 = torch.where(pick_s, wgz, wdz)
+            co_r = rx2 * fx + ry2 * fy + rz2 * fz
+            hx2, hy2, hz2, hc2 = _toward(*_unit(-ddx + rx2, -ddy + ry2,
+                                                -ddz + rz2), fx, fy, fz)
+            ar2 = ab * ab
+            dd2 = hc2 * hc2 * (ar2 - 1.0) + 1.0
+            d_r = ar2 / torch.clamp(np.pi * dd2 * dd2, min=1e-20)
+            g_r = _g1(ci_b2, ar2) * _g1(co_r.abs(), ar2)
+            idoth2 = -ddx * hx2 + -ddy * hy2 + -ddz * hz2
+            f_val = (rb * (1.0 / np.pi) * torch.clamp(co_r, min=0.0)
+                     * (1.0 - fi_p) * (1.0 - _fres_diel(co_r, eb))
+                     + _fres_diel(idoth2.abs(), eb) * d_r * g_r
+                     / torch.clamp(4.0 * ci_b2, min=1e-8))
+            odoth2 = (rx2 * hx2 + ry2 * hy2 + rz2 * hz2).abs()
+            pdf_r = ((1.0 - spec_w) * torch.clamp(co_r, min=0.0)
+                     * (1.0 / np.pi)
+                     + spec_w * d_r * hc2 / torch.clamp(4.0 * odoth2,
+                                                        min=1e-8))
+            w_rp = torch.where((co_r > 0.0) & (ci_b2 > 1e-6),
+                               f_val / torch.clamp(pdf_r, min=1e-20), 0.0)
+            tie(is_rp, u_pick - spec_w, co_r)
+            ndx = torch.where(is_rp, rx2, ndx)
+            ndy = torch.where(is_rp, ry2, ndy)
+            ndz = torch.where(is_rp, rz2, ndz)
+            w_b = torch.where(is_rp, w_rp, w_b)
+        if fl['rdiel']:
+            # GGX glass: reflect or refract through the sampled half vector
+            # by its Fresnel; the weight is the eval-consistent f cos / pdf
+            is_rd = kb == float(ROUGH_DIELECTRIC)
+            # the relative IOR by the side the ray came from (idoth rides
+            # the flipped frame; sgn carries the side)
+            f_h, eta_i2, cost_h, c2t_h = _fres_diel_full(idoth * sgn, eb)
+            inv_e2 = 1.0 / eta_i2
+            coef_t = (inv_e2 * idoth.abs() - cost_h) * _sign(idoth)
+            ttx, tty, ttz = _unit(coef_t * hwx - (-ddx) * inv_e2,
+                                  coef_t * hwy - (-ddy) * inv_e2,
+                                  coef_t * hwz - (-ddz) * inv_e2)
+            pick_rf = u_pick < f_h
+            rdx = torch.where(pick_rf, wgx, ttx)
+            rdy = torch.where(pick_rf, wgy, tty)
+            rdz = torch.where(pick_rf, wgz, ttz)
+            f_c, p_c = _rd_fcos_pdf(face, fx, fy, fz, eb, kk, rb, ab,
+                                    (-ddx, -ddy, -ddz), (rdx, rdy, rdz))
+            co_rd = rdx * fx + rdy * fy + rdz * fz
+            odh_s = rdx * hwx + rdy * hwy + rdz * hwz
+            rd_ok = ((torch.where(pick_rf, co_rd, -co_rd) > 0.0)
+                     & (idoth > 0.0) & (odh_s * co_rd > 0.0))
+            tie(is_rd, u_pick - f_h, c2t_h, idoth, co_rd, odh_s)
+            ndx = torch.where(is_rd, rdx, ndx)
+            ndy = torch.where(is_rd, rdy, ndy)
+            ndz = torch.where(is_rd, rdz, ndz)
+            w_b = torch.where(is_rd, torch.where(
+                rd_ok & (p_c > 0.0), f_c / torch.clamp(p_c, min=1e-20), 0.0),
+                w_b)
+        new_wdel = torch.zeros_like(active)
         if mirror:
             # smooth conductor: the specular reflection about the flipped
             # normal, weight refl x conductor Fresnel (a delta lobe)
@@ -1805,18 +2270,67 @@ def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
             ndy = torch.where(is_m, ddy - 2.0 * dn_ * fy, ndy)
             ndz = torch.where(is_m, ddz - 2.0 * dn_ * fz, ndz)
             w_b = torch.where(is_m, rb * _fres_cond(dn_.abs(), eb, kk), w_b)
-            wdel = is_m
+            new_wdel = new_wdel | is_m
+        if fl['diel'] or fl['thin']:
+            # smooth / thin dielectric: reflect or refract (thin: pass) by
+            # the dielectric Fresnel of the unflipped cosine, picked by u8
+            ci_u = face
+            f_d, eta_it, cos_t, c2t = _fres_diel_full(ci_u, eb)
+            rxd = ddx + 2.0 * ci_u * nx
+            ryd = ddy + 2.0 * ci_u * ny
+            rzd = ddz + 2.0 * ci_u * nz
+        if fl['diel']:
+            is_d = kb == float(DIELECTRIC)
+            scl = 1.0 / eta_it
+            coef = scl * ci_u - _sign(ci_u) * cos_t
+            pick_r = u8 < f_d
+            tie(is_d, u8 - f_d, c2t)
+            ndx = torch.where(is_d, torch.where(pick_r, rxd, scl * ddx
+                                                + coef * nx), ndx)
+            ndy = torch.where(is_d, torch.where(pick_r, ryd, scl * ddy
+                                                + coef * ny), ndy)
+            ndz = torch.where(is_d, torch.where(pick_r, rzd, scl * ddz
+                                                + coef * nz), ndz)
+            # refraction: the transmittance (k) x the radiance compression
+            w_b = torch.where(is_d, torch.where(pick_r, rb, kk * scl * scl),
+                              w_b)
+            new_wdel = new_wdel | is_d
+        if fl['thin']:
+            # the interference-free internal series: R' = 2F / (1 + F)
+            is_t = kb == float(THIN_DIELECTRIC)
+            r_p = torch.where(f_d < 1.0, 2.0 * f_d / (1.0 + f_d), 1.0)
+            pick_rt = u8 < r_p
+            tie(is_t, u8 - r_p, c2t)
+            ndx = torch.where(is_t, torch.where(pick_rt, rxd, ddx), ndx)
+            ndy = torch.where(is_t, torch.where(pick_rt, ryd, ddy), ndy)
+            ndz = torch.where(is_t, torch.where(pick_rt, rzd, ddz), ndz)
+            w_b = torch.where(is_t, 1.0, w_b)
+            new_wdel = new_wdel | is_t
+        if mask:
+            ndx = torch.where(pass_thru, ddx, ndx)
+            ndy = torch.where(pass_thru, ddy, ndy)
+            ndz = torch.where(pass_thru, ddz, ndz)
+            w_b = torch.where(pass_thru, 1.0, w_b)
+            new_wdel = new_wdel | pass_thru
+        if delta_any or mask:
+            wdel = new_wdel
         if moving:
             # bounce Doppler of the continued path
             count('dop_bounce', cont & (w_b > 0.0))
             dop = dop * (1.0 + ((ndx - ddx) * vb[0] + (ndy - ddy) * vb[1]
                                 + (ndz - ddz) * vb[2]) / cvel)
+        off = 1e-4
+        if back_face:
+            # a refracted or passed ray leaves through the back face
+            cos_n = ndx * fx + ndy * fy + ndz * fz
+            tie(w_b > 0.0, cos_n)
+            off = torch.where(cos_n >= 0.0, 1e-4, -1e-4)
         ddx, ddy, ddz = ndx, ndy, ndz
         throughput = throughput * w_b
         active = active & (w_b > 0.0) & (txc < 0.0)
-        cx = hx + 1e-4 * fx
-        cy = hy + 1e-4 * fy
-        cz = hz + 1e-4 * fz
+        cx = hx + off * fx
+        cy = hy + off * fy
+        cz = hz + off * fz
     if stats is not None:
         for k, v in counts.items():
             stats[k] = stats.get(k, 0) + v
@@ -1837,12 +2351,12 @@ def _bind(lib):
                               ctypes.c_longlong, ctypes.c_ulonglong,
                               ctypes.c_float)
     ip = ctypes.POINTER(ctypes.c_int)
-    lib.rk_geometry.argtypes = [i32] * 2 + [i64] + [i32] * 10 + [ip] * 3
+    lib.rk_geometry.argtypes = [i32] * 2 + [i64] + [i32] * 11 + [ip] * 3
     lib.rk_geometry.restype = i32
     lib.rk_launch.argtypes = [vp] * 12 + [i32, i32, vp, i64, u64] \
         + [i32] * 13 + [f32] * 6 + [i32, u64] + [i64] * 4 + [i32] * 3 \
         + [vp, vp, i32] + [i32, vp, i32, i32, i32] + [i32, i32, vp, i32] \
-        + [i32, i32] + [vp]
+        + [i32, i32] + [i32] + [vp]
     lib.rk_launch.restype = i32
 
 
@@ -1874,11 +2388,12 @@ def launch_geometry(n_time: int, n_lanes: int, n_prims: int,
                     mesh: bool = False, n_freq: int = 1, n_msh: int = 0,
                     doppler: bool = False, coherent: bool = False,
                     n_pulses: int = 1, n_elem: int = 0, medium: int = 0,
-                    ep: bool = False):
+                    ep: bool = False, lobes: bool = False):
     """(blocks a pulse, threads per block, dynamic shared bytes) of the
     trace kernel (its mesh, Doppler and / or coherent configuration, or
     the MIMO one of `n_elem` elements; its media twin with `medium`, its
-    endpoint twin with `ep`) on the current card: a persistent
+    endpoint twin with `ep`, a Doppler configuration's lobe twin with
+    `lobes`) on the current card: a persistent
     grid of as many blocks as fit on every SM at once, fewer when a
     pulse's lanes run out.  The `n_pulses` pulses of a CPI share that grid
     in the Doppler family; in the flagship and mesh configurations each
@@ -1890,7 +2405,7 @@ def launch_geometry(n_time: int, n_lanes: int, n_prims: int,
     LIBRARY.check(lib.rk_geometry(n_time, n_freq, n_lanes, n_prims, n_params,
                                   n_msh, int(mesh), mode, int(coherent),
                                   n_pulses, n_elem, int(medium > 0), int(ep),
-                                  ctypes.byref(blocks),
+                                  int(bool(lobes)), ctypes.byref(blocks),
                                   ctypes.byref(threads), ctypes.byref(smem)),
                   'receive_megakernel geometry')
     return blocks.value, threads.value, smem.value
@@ -1922,28 +2437,40 @@ def _check_adc(adc: ADCConfig, doppler: bool):
                          'window')
 
 
-# the transmitter kinds read back from a table, kept by the tensor's id
-# while it lives and until it changes in place (its version counter moves)
-_TX_KINDS: dict = {}
+# values read back from tables, kept by the tensors' ids while they live
+# and until one changes in place (its version counter moves)
+_READ_BACK: dict = {}
+
+
+def _read_back(what: str, tensors: tuple, fn):
+    """fn(*tensors) (None among them allowed), computed once for these
+    tensors (on a card, a read-back: a stall before the launch), then
+    kept."""
+    key = (what,) + tuple(id(t) for t in tensors)
+    ver = tuple(None if t is None else t._version for t in tensors)
+    hit = _READ_BACK.get(key)
+    if hit is None or hit[1] != ver or any(
+            (r is None) != (t is None) or (r is not None and r() is not t)
+            for r, t in zip(hit[0], tensors)):
+        for k in [k for k, v in _READ_BACK.items()
+                  if any(r is not None and r() is None for r in v[0])]:
+            del _READ_BACK[k]
+        refs = tuple(None if t is None else weakref.ref(t) for t in tensors)
+        hit = _READ_BACK[key] = (refs, ver, fn(*tensors))
+    return hit[2]
 
 
 def _table_tx_kinds(txp, n_tx: int) -> tuple:
     """The kinds txp[..., 27] of a table's (first pulse's) transmitter
     rows: read back once a tensor (a stall on a card), then kept."""
-    hit = _TX_KINDS.get(id(txp))
-    if hit is None or hit[0]() is not txp or hit[1] != txp._version:
-        for k in [k for k, v in _TX_KINDS.items() if v[0]() is None]:
-            del _TX_KINDS[k]
-        kinds = tuple(int(k) for k in
-                      txp.reshape(-1, n_tx, TXP_COLS)[0, :, 27].tolist())
-        hit = _TX_KINDS[id(txp)] = (weakref.ref(txp), txp._version, kinds)
-    return hit[2]
+    return _read_back('tx_kinds', (txp,), lambda t: tuple(
+        int(k) for k in t.reshape(-1, n_tx, TXP_COLS)[0, :, 27].tolist()))
 
 
 def _check_call(params, prim, txp, uniforms, mesh, msh, lane_out, lead, *,
                 adc, max_depth, time_sampling, rx_kind, n_lanes, doppler,
                 patch_p, receive_type, has_lo, coherent, rxph=None,
-                eoff=None, medium=0, grid=None, php=None):
+                eoff=None, medium=0, grid=None, php=None, lobes=0):
     """Validate a call's arguments; `lead` is () for one pulse, (P,) for a
     CPI of P pulses (every table, the uniforms and the lane sums then have
     that leading axis, the BVH tables (P, n) rows).  `eoff` (with `rxph`)
@@ -1952,7 +2479,8 @@ def _check_call(params, prim, txp, uniforms, mesh, msh, lane_out, lead, *,
     pulse of a CPI shares; so do `php`, the phased pair rows, and `rxph`.
     Returns (the receive-frequency rule, the transmitters' kinds (read
     from txp, `_table_tx_kinds`), whether the call needs the endpoint
-    configuration)."""
+    configuration).  `lobes`, the call's lobe twins' flags (`_lobe_flag`),
+    set the uniforms' stride."""
     dev = params.device
     n_tx = int(txp.shape[-2]) if txp.dim() >= 2 else 0
     if not 1 <= n_tx <= MAX_TX:
@@ -1966,6 +2494,9 @@ def _check_call(params, prim, txp, uniforms, mesh, msh, lane_out, lead, *,
     if ep and medium:
         raise ValueError('the endpoint configuration has no media twin '
                          '(ROADMAP B6)')
+    if lobes and (medium or ep or eoff is not None):
+        raise ValueError('the lobe twins run in vacuum, with one Wigner '
+                         'transmitter and no phased receiver (ROADMAP B5)')
     if PHASED in tx_kinds:
         k = (int(php.shape[1]) - 2) // 6 if php is not None \
             and php.dim() == 2 else 0
@@ -2048,7 +2579,7 @@ def _check_call(params, prim, txp, uniforms, mesh, msh, lane_out, lead, *,
             raise ValueError(f'{name}: expected contiguous float32 {shape} '
                              f'on {dev}, got {t.dtype} {tuple(t.shape)} on '
                              f'{t.device}')
-    nd = n_draws(max_depth, n_tx)
+    nd = n_draws(max_depth, n_tx, **lobe_draws(lobes))
     if uniforms is not None and (
             tuple(uniforms.shape) != lead + (nd, n_lanes)
             or uniforms.dtype != torch.float32 or uniforms.device != dev
@@ -2081,8 +2612,10 @@ def _check_call(params, prim, txp, uniforms, mesh, msh, lane_out, lead, *,
 
 def has_mirror(prim, msh) -> bool:
     """Do the tables (one pulse's or a CPI's) hold a smooth conductor,
-    on a prim row or a mesh-shape row?  Reads them back from a card."""
-    return bool((prim[..., 18] == CONDUCTOR).any()) or (
+    on a prim row (either lobe of a composite: columns 18 and 28, a
+    strided view, so a card runs one compare) or a mesh-shape row?
+    Reads them back from a card."""
+    return bool((prim[..., 18:29:10] == CONDUCTOR).any()) or (
         msh is not None and bool((msh[..., 6] == CONDUCTOR).any()))
 
 
@@ -2094,16 +2627,27 @@ def _mirror_flag(mirror, prim, msh, doppler) -> bool:
     return has_mirror(prim, msh) if mirror is None else bool(mirror)
 
 
+def _lobe_flag(lobes, prim, msh, doppler) -> int:
+    """The lobe twins' flags of a call: only the Doppler family runs them,
+    and None reads the tables, once while they live (`_read_back`)."""
+    if not doppler:
+        return 0
+    if lobes is None:
+        return _read_back('lobes', (prim, msh), lobe_flags)
+    return int(lobes)
+
+
 def _launch(params, prim, txp, msh, uniforms, mesh, lane_out, *, n_pulses,
             adc, max_depth, time_sampling, rx_kind, n_lanes, seed, seed_step,
             doppler, patch_p, rule, has_lo, coherent, mirror, rxph=None,
-            eoff=None, medium=0, grid=None, ep=False, php=None):
+            eoff=None, medium=0, grid=None, ep=False, php=None, lobes=0):
     """The CUDA kernel and its reduce over `n_pulses` pulses of stacked
     tables on a card: (acc (n_pulses, n_cells x n_ch) float32, n_events
     (n_pulses,) int64).  `eoff` launches the MIMO configuration, `medium`
     a configuration's media twin, `ep` its endpoint twin (the pair rows
     `php` of its phased transmitters, the pair row `rxph` of an analog
-    phased receiver)."""
+    phased receiver), `lobes` (LOBE_* flags) a Doppler configuration's
+    lobe twin."""
     dev = params.device
     lib = LIBRARY.get()
     n_elem = 0 if eoff is None else int(eoff.shape[0])
@@ -2119,7 +2663,7 @@ def _launch(params, prim, txp, msh, uniforms, mesh, lane_out, *, n_pulses,
         blocks, threads, smem = launch_geometry(
             adc.n_time, n_lanes, n_prims, int(params.shape[-1]),
             mesh is not None, adc.n_freq, n_msh, doppler, coherent, n_pulses,
-            n_elem, medium, ep)
+            n_elem, medium, ep, lobes)
         # per-block partial grids of each pulse (I and Q interleaved per
         # cell when coherent); one global grid of atomics a pulse in mode 2
         partial = torch.empty(
@@ -2151,7 +2695,7 @@ def _launch(params, prim, txp, msh, uniforms, mesh, lane_out, *, n_pulses,
             adc.sampling_time, 0.5 * (f_lo + f_hi), f_lo, f_hi - f_lo,
             max(f_hi - f_lo, 1e-30),
             n_pulses, seed_step & MASK64,
-            n_draws(max_depth, n_tx) * n_lanes,
+            n_draws(max_depth, n_tx, **lobe_draws(lobes)) * n_lanes,
             *m_strides, blocks, threads, smem,
             None if rxph is None else rxph.data_ptr(),
             None if eoff is None else eoff.data_ptr(), n_elem, medium,
@@ -2159,7 +2703,7 @@ def _launch(params, prim, txp, msh, uniforms, mesh, lane_out, *, n_pulses,
             *((0, 0, 0) if grid is None else grid.shape), n_tx, int(ep),
             None if php is None else php.data_ptr(),
             0 if php is None else int(php.shape[1]), int(analog),
-            (int(rxph.shape[1]) - 2) // 6 if analog else 0, stream)
+            (int(rxph.shape[1]) - 2) // 6 if analog else 0, lobes, stream)
         LIBRARY.check(err, 'receive_megakernel launch')
     return acc, n_events
 
@@ -2172,7 +2716,8 @@ def receive_megakernel(params, prim, txp, *, adc: ADCConfig, max_depth: int,
                        lane_out=None, receive_type: str = 'raw',
                        has_lo: bool = False, coherent: bool = False,
                        mirror: bool | None = None, rxph=None, eoff=None,
-                       medium: int = 0, grid=None, php=None):
+                       medium: int = 0, grid=None, php=None,
+                       lobes: int | None = None):
     """Trace `n_lanes` receive samples.  Returns (acc (n_time, n_freq)
     float32, (n_time, n_freq, 2) I / Q with `coherent`, or (n_time, 1, 2E)
     with `eoff`, n_events 0-d int64) on the tables' device.
@@ -2208,20 +2753,26 @@ def receive_megakernel(params, prim, txp, *, adc: ADCConfig, max_depth: int,
     time a tensor is seen), or
     rx_kind 'phased' without `eoff` (an analog phased receiver, its pair
     row `rxph` (1, 2 + 6K)) launch the configuration's endpoint twin; a
-    phased transmitter needs its pair rows `php` (n_tx, 2 + 6K).  Tables
-    on the CPU run the plain version (`receive_megakernel_ref`, fed
+    phased transmitter needs its pair rows `php` (n_tx, 2 + 6K).  `lobes`
+    (LOBE_* flags, `PackedScene.lobes`; None reads them from the tables, a
+    stall on a card) launches the Doppler configuration's lobe twin: the
+    dielectric, plastic, GGX glass and composite lobes, and the draw
+    stride `n_draws(max_depth, 1, **lobe_draws(lobes))`.  Tables on the
+    CPU run the plain version (`receive_megakernel_ref`, fed
     `philox_uniforms` in PRNG mode); tables on a card launch the CUDA
     kernel, which raises if it cannot build or launch."""
+    lobes = _lobe_flag(lobes, prim, msh, doppler)
     rule, tx_kinds, ep = _check_call(
         params, prim, txp, uniforms, mesh, msh, lane_out, (), adc=adc,
         max_depth=max_depth, time_sampling=time_sampling, rx_kind=rx_kind,
         n_lanes=n_lanes, doppler=doppler, patch_p=patch_p,
         receive_type=receive_type, has_lo=has_lo, coherent=coherent,
-        rxph=rxph, eoff=eoff, medium=medium, grid=grid, php=php)
+        rxph=rxph, eoff=eoff, medium=medium, grid=grid, php=php,
+        lobes=lobes)
     n_tx = len(tx_kinds)
     if params.device.type == 'cpu':
-        u = uniforms if uniforms is not None else \
-            philox_uniforms(seed, n_draws(max_depth, n_tx), n_lanes)
+        u = uniforms if uniforms is not None else philox_uniforms(
+            seed, n_draws(max_depth, n_tx, **lobe_draws(lobes)), n_lanes)
         return receive_megakernel_ref(params, prim, txp, u, adc=adc,
                                       max_depth=max_depth,
                                       time_sampling=time_sampling,
@@ -2231,18 +2782,20 @@ def receive_megakernel(params, prim, txp, *, adc: ADCConfig, max_depth: int,
                                       receive_type=receive_type,
                                       has_lo=has_lo, coherent=coherent,
                                       mirror=mirror, rxph=rxph, eoff=eoff,
-                                      medium=medium, grid=grid, php=php)
+                                      medium=medium, grid=grid, php=php,
+                                      lobes=lobes)
     acc, n_events = _launch(
         params, prim, txp, msh, uniforms, mesh, lane_out, n_pulses=1,
         adc=adc, max_depth=max_depth, time_sampling=time_sampling,
         rx_kind=rx_kind, n_lanes=n_lanes, seed=seed, seed_step=0,
         doppler=doppler, patch_p=patch_p, rule=rule, has_lo=has_lo,
         coherent=coherent, mirror=_mirror_flag(mirror, prim, msh, doppler),
-        rxph=rxph, eoff=eoff, medium=medium, grid=grid, ep=ep, php=php)
+        rxph=rxph, eoff=eoff, medium=medium, grid=grid, ep=ep, php=php,
+        lobes=lobes)
     receive_megakernel.launches += 1
     receive_megakernel.by_config[config_name(
         mesh is not None, doppler, coherent, eoff is not None,
-        medium > 0, ep)] += 1
+        medium > 0, ep, lobes > 0)] += 1
     if eoff is not None:
         shape = (adc.n_time, adc.n_freq, 2 * int(eoff.shape[0]))
     else:
@@ -2266,7 +2819,8 @@ def receive_megakernel_cpi(params, prim, txp, *, adc: ADCConfig,
                            lane_out=None, receive_type: str = 'raw',
                            has_lo: bool = False, coherent: bool = False,
                            mirror: bool | None = None, medium: int = 0,
-                           grid=None, rxph=None, php=None):
+                           grid=None, rxph=None, php=None,
+                           lobes: int | None = None):
     """A coherent processing interval (CPI) of P pulses in one launch: the
     pulse is a grid axis of the kernel.  The tables carry a leading pulse
     axis (params (P, 77), prim (P, n_prims, 34), txp (P, n_tx, 32), msh (P,
@@ -2284,19 +2838,21 @@ def receive_megakernel_cpi(params, prim, txp, *, adc: ADCConfig,
     n_pulses = int(params.shape[0]) if params.dim() == 2 else 0
     if n_pulses < 1:
         raise ValueError('params: expected (n_pulses, 77)')
+    lobes = _lobe_flag(lobes, prim, msh, doppler)
     rule, tx_kinds, ep = _check_call(
         params, prim, txp, uniforms, mesh, msh, lane_out, (n_pulses,),
         adc=adc, max_depth=max_depth, time_sampling=time_sampling,
         rx_kind=rx_kind, n_lanes=n_lanes, doppler=doppler, patch_p=patch_p,
         receive_type=receive_type, has_lo=has_lo, coherent=coherent,
-        medium=medium, grid=grid, rxph=rxph, php=php)
+        medium=medium, grid=grid, rxph=rxph, php=php, lobes=lobes)
     n_tx = len(tx_kinds)
+    nd = n_draws(max_depth, n_tx, **lobe_draws(lobes))
     shape = (n_pulses, adc.n_time, adc.n_freq) + ((2,) if coherent else ())
     if params.device.type == 'cpu':
         accs, evs = [], []
         for p in range(n_pulses):
             u = uniforms[p] if uniforms is not None else philox_uniforms(
-                seed + seed_step * p, n_draws(max_depth, n_tx), n_lanes)
+                seed + seed_step * p, nd, n_lanes)
             a, n = receive_megakernel_ref(
                 params[p], prim[p], txp[p], u, adc=adc, max_depth=max_depth,
                 time_sampling=time_sampling, rx_kind=rx_kind,
@@ -2305,7 +2861,8 @@ def receive_megakernel_cpi(params, prim, txp, *, adc: ADCConfig,
                 patch_p=patch_p,
                 lane_out=None if lane_out is None else lane_out[p],
                 receive_type=receive_type, has_lo=has_lo, coherent=coherent,
-                mirror=mirror, medium=medium, grid=grid, rxph=rxph, php=php)
+                mirror=mirror, medium=medium, grid=grid, rxph=rxph, php=php,
+                lobes=lobes)
             accs.append(a)
             evs.append(n)
         return torch.stack(accs).view(shape), torch.stack(evs)
@@ -2315,10 +2872,11 @@ def receive_megakernel_cpi(params, prim, txp, *, adc: ADCConfig,
         rx_kind=rx_kind, n_lanes=n_lanes, seed=seed, seed_step=seed_step,
         doppler=doppler, patch_p=patch_p, rule=rule, has_lo=has_lo,
         coherent=coherent, mirror=_mirror_flag(mirror, prim, msh, doppler),
-        medium=medium, grid=grid, rxph=rxph, ep=ep, php=php)
+        medium=medium, grid=grid, rxph=rxph, ep=ep, php=php, lobes=lobes)
     receive_megakernel_cpi.launches += 1
     receive_megakernel_cpi.by_config[config_name(
-        mesh is not None, doppler, coherent, medium=medium > 0, ep=ep)] += 1
+        mesh is not None, doppler, coherent, medium=medium > 0, ep=ep,
+        lobes=lobes > 0)] += 1
     return acc.view(shape), n_events
 
 
@@ -2326,17 +2884,21 @@ VACUUM_CONFIGS = ('flagship', 'mesh', 'doppler', 'doppler_mesh', 'coherent',
                   'coherent_mesh', 'mimo')
 # every configuration has a media twin (the kernel's MED instantiations)
 # and an endpoint twin (EP: several transmitters, phased or area ones, an
-# analog phased receiver), in vacuum
+# analog phased receiver), in vacuum; the Doppler family has a lobe twin
+# (LOB: the dielectric, plastic, GGX glass and composite lobes), in vacuum
+LOBE_CONFIGS = ('doppler', 'doppler_mesh', 'coherent', 'coherent_mesh')
 CONFIGS = VACUUM_CONFIGS + tuple(c + '_media' for c in VACUUM_CONFIGS) \
-    + tuple(c + '_ep' for c in VACUUM_CONFIGS)
+    + tuple(c + '_ep' for c in VACUUM_CONFIGS) \
+    + tuple(c + '_lobes' for c in LOBE_CONFIGS)
 
 
 def config_name(mesh: bool, doppler: bool, coherent: bool = False,
                 mimo: bool = False, medium: bool = False,
-                ep: bool = False) -> str:
+                ep: bool = False, lobes: bool = False) -> str:
     name = 'mimo' if mimo else VACUUM_CONFIGS[
         int(mesh) + (4 if coherent else 2 * int(doppler))]
-    return name + ('_media' if medium else '') + ('_ep' if ep else '')
+    return name + ('_media' if medium else '') + ('_ep' if ep else '') \
+        + ('_lobes' if lobes else '')
 
 
 # launches of the CUDA kernel, in all and by configuration: one receive
@@ -2368,6 +2930,7 @@ class DeviceTables:
     php: torch.Tensor             # the transmitters' pair rows (n_tx, 2 + 6K)
     medium: int = 0               # the ambient medium's kind (0: vacuum)
     grid: torch.Tensor | None = None   # a grid medium's (D, H, W) cells
+    lobes: int = 0                # the lobe twins' flags (LOBE_*)
 
 
 def in_scope(scene, scene_data, rx, dev, reason: list,
@@ -2426,7 +2989,8 @@ def _device_tables(scene, scene_data, rx, dev,
         rxph=torch.as_tensor(packed.rxph, device=dev).contiguous(),
         php=php,
         medium=packed.medium, grid=None if packed.grid is None
-        else torch.as_tensor(packed.grid, device=dev).contiguous())
+        else torch.as_tensor(packed.grid, device=dev).contiguous(),
+        lobes=packed.lobes)
     cache[key] = (scene_data, rx, tables)
     return tables
 
@@ -2494,7 +3058,7 @@ def receive_kernel(scene, scene_data, rx, spp: int, seed: int = 0,
             seed=seed, doppler=True, receive_type=rx.receive_type,
             has_lo=rx.lo_waveform is not None, mirror=tab.mirror,
             rxph=tab.rxph, eoff=eoff, medium=tab.medium, grid=tab.grid,
-            php=tab.php)
+            php=tab.php, lobes=tab.lobes)
         return acc, spp
     rx_kind = rx_kind_of(rx)
     n_lanes, patch_p, params = spp, 0, tab.params
@@ -2512,7 +3076,8 @@ def receive_kernel(scene, scene_data, rx, spp: int, seed: int = 0,
         doppler=doppler, patch_p=patch_p, receive_type=rx.receive_type,
         has_lo=rx.lo_waveform is not None, coherent=coherent,
         mirror=tab.mirror, medium=tab.medium, grid=tab.grid,
-        rxph=tab.rxph if rx_kind == 'phased' else None, php=tab.php)
+        rxph=tab.rxph if rx_kind == 'phased' else None, php=tab.php,
+        lobes=tab.lobes if doppler else 0)
     return acc, n_lanes
 
 
@@ -2540,6 +3105,7 @@ class PackedCPI:
     mirror: bool
     medium: int = 0                 # the scene's medium, as in every pulse
     grid: np.ndarray | None = None  # its (D, H, W) cells, shared (GRID)
+    lobes: int = 0                  # the lobe twins' flags (LOBE_*)
 
     @property
     def n_pulses(self) -> int:
@@ -2574,8 +3140,8 @@ def pack_cpi_tables(snapshots: list, rx, shape_idx: int) -> PackedCPI:
     p0 = packs[0]
     for pk in packs[1:]:
         if pk.prim.shape != p0.prim.shape or pk.msh.shape != p0.msh.shape \
-                or not np.array_equal(pk.prim[:, [0, 14, 18]],
-                                      p0.prim[:, [0, 14, 18]]) \
+                or not np.array_equal(pk.prim[:, [0, 14, 18, 27, 28]],
+                                      p0.prim[:, [0, 14, 18, 27, 28]]) \
                 or not np.array_equal(pk.msh[:, 6], p0.msh[:, 6]):
             raise ValueError('pulse snapshots must share static scene config')
         if (pk.mesh is None) != (p0.mesh is None):
@@ -2600,7 +3166,7 @@ def pack_cpi_tables(snapshots: list, rx, shape_idx: int) -> PackedCPI:
         rx_rule=p0.rx_rule, moving=any(pk.moving for pk in packs),
         ggx=any(pk.ggx for pk in packs),
         mirror=any(pk.mirror for pk in packs), medium=p0.medium,
-        grid=p0.grid)
+        grid=p0.grid, lobes=p0.lobes)
 
 
 def cpi_receiver(snapshot, receiver_id: str | None):
@@ -2688,5 +3254,6 @@ def receive_kernel_cpi(scene, n_pulses: int, prf: float, t0: float = 0.0,
         patch_p=patch_p, receive_type=rx.receive_type,
         has_lo=rx.lo_waveform is not None, coherent=coherent,
         mirror=packed.mirror, medium=packed.medium, grid=grid,
-        rxph=rxph if rx_kind == 'phased' else None, php=php)
+        rxph=rxph if rx_kind == 'phased' else None, php=php,
+        lobes=packed.lobes if doppler else 0)
     return acc, n_lanes

@@ -42,6 +42,16 @@ a steered phased transmitter, a steered analog phased receiver between
 two targets at different ranges, and four transmitters of three kinds at
 staggered ranges, with their anchors (`round_trip_bin`, `steer_toward`).
 
+`window_corner_scene`, `plastic_scene`, `rough_dielectric_scene` and
+`composite_scene` are the JAX package's kernel tests of its lobes
+(`tests/test_pallas_receive.py:1669-2043`): a radome (a thin or smooth
+dielectric window) in front of a trihedral corner, plastic and rough
+plastic plates, GGX glass in backscatter and in transmission between
+the transmitter and the receiver, and blend and mask composites, with
+their anchors (`thin_window_transmittance`, `lobe_bin`);
+`mesh_scene(material='rough_plastic')` is the mesh scene with the
+rough plastic on its triangles.
+
 `stratified_medium_scene(med)` is the JAX package's
 `examples/stratified_medium.py`: a sonar looking down through an
 absorbing slab (`stratified_layers`) at a target on the floor, with the
@@ -56,7 +66,9 @@ import numpy as np
 import torch
 
 from . import scene as sc
-from .bsdf.tables import conductor, diffuse, rough_conductor
+from .bsdf.tables import (blend, conductor, dielectric, diffuse, mask,
+                          plastic, rough_conductor, rough_dielectric,
+                          rough_plastic, thin_dielectric)
 from .core import transform as tf
 from .core.config import Band
 from .geometry import shapes as sh
@@ -102,11 +114,12 @@ def flagship_scene(R: float = 4.0, ground: bool = True,
     return s, rx
 
 
-def mesh_scene(R: float = 4.0, n_side: int = 71):
-    """Returns (scene, receiver spec)."""
+def mesh_scene(R: float = 4.0, n_side: int = 71, material: str = 'diffuse'):
+    """Returns (scene, receiver spec); `material` 'rough_plastic' puts
+    `plastic_scene`'s rough plastic on the mesh."""
     band = Band.from_freq(340.0, 40e3, 10e3)
     s = sc.Scene(band=band)
-    s.add(diffuse('mat', reflectance=1.0, twosided=True))
+    s.add(_lobe_material('mat', material))
     wf = pulse(f_centre=40e3, prf=10.0, pulse_len=2e-3, f_ext=2e3,
                is_delta=True)
     s.add(wigner_transmitter('tx', wf, resample_freq=True))
@@ -815,3 +828,158 @@ def echo_attenuation(vac, lay) -> float:
     lay = np.asarray(lay, np.float64)
     pk = 10 + int(vac[10:].argmax())
     return float(lay[pk - 2:pk + 3].sum() / vac[pk - 2:pk + 3].sum())
+
+
+# ---------------------------------------------------------------------------
+# the lobes: the JAX package's kernel tests of its dielectric, plastic,
+# GGX glass and composite lobes (tests/test_pallas_receive.py:1669-2043),
+# the flagship's 40 kHz pulse and 64 raw bins over 60 ms
+# ---------------------------------------------------------------------------
+
+LOBES = dict(fc=40e3, R=4.0, ior=1.5, window_at=2.0, window=2.0,
+             blend_weight=0.6)
+
+
+def _lobe_material(mid: str, material: str):
+    """The lobe tests' materials: 'diffuse' (the flagship's), 'plastic' and
+    'rough_plastic' (diffuse reflectance 0.8, n = 1.49, alpha 0.4)."""
+    if material == 'plastic':
+        return plastic(mid, diffuse_reflectance=0.8, int_ior=1.49,
+                       twosided=True)
+    if material == 'rough_plastic':
+        return rough_plastic(mid, diffuse_reflectance=0.8, alpha=0.4,
+                             int_ior=1.49, twosided=True)
+    if material != 'diffuse':
+        raise ValueError(f'material {material!r}')
+    return diffuse(mid, reflectance=1.0, twosided=True)
+
+
+def _lobe_base(tx_pos=(0.3, 0.0, 0.0), rx_pos=(-0.3, 0.0, 0.0)):
+    """The lobe tests' sonar: the band, the pulse on a Wigner transmitter of
+    half-width 0.05 m at `tx_pos` facing -y, and an omni receiver at
+    `rx_pos` on the 64-bin ADC.  Returns (scene, receiver spec)."""
+    s = sc.Scene(band=Band.from_freq(C_SOUND, LOBES['fc'], 10e3))
+    wf = pulse(f_centre=LOBES['fc'], prf=10.0, pulse_len=2e-3, f_ext=2e3,
+               is_delta=True)
+    s.add(wigner_transmitter('tx', wf, resample_freq=True))
+    _aperture(s, tx_pos, (tx_pos[0], tx_pos[1] - 1.0, tx_pos[2]),
+              (0.05, 0.05, 1.0), transmitter='tx')
+    adc = ADCConfig(n_time=64, n_freq=1, sampling_start=0.0,
+                    sampling_time=0.06, freq_lo=35e3, freq_hi=45e3)
+    rx = omni_receiver('rx', adc, position=rx_pos, receive_type='raw')
+    s.add(rx)
+    return s, rx
+
+
+def window_corner_scene(window: str | None = None):
+    """The radome (`test_megakernel_dielectric_window`): golden config 4's
+    corner geometry with a pulse, a trihedral of smooth conductors (eta
+    0.2, k 3) with its apex 4 m out, pointed at a 20 mm Wigner receiver
+    0.1 m in front of a 1.6 m transmitter, and `window` None, 'thin' (a
+    thin dielectric, n = 1.5) or 'dielectric' (a smooth one, transmittance
+    1) on a 4 m square 2 m out, between them and the corner.  Its echo is
+    a delta chain: through the window, three mirror bounces, back through
+    the window and a direct transmitter hit; run it at depth
+    LOBES['corner_depth'].  Returns (scene, receiver spec)."""
+    s = sc.Scene(band=Band.from_freq(C_SOUND, LOBES['fc'], 10e3))
+    s.add(conductor('m', eta=0.2, k=3.0, twosided=True))
+    wf = pulse(f_centre=LOBES['fc'], prf=10.0, pulse_len=2e-3, f_ext=2e3,
+               is_delta=True)
+    s.add(wigner_transmitter('tx', wf, resample_freq=True))
+    _aperture(s, (0.0, 0.0, 0.0), (0.0, -1.0, 0.0), (0.8, 0.8, 1.0),
+              transmitter='tx')
+    adc = ADCConfig(n_time=64, n_freq=1, sampling_start=0.0,
+                    sampling_time=0.06, freq_lo=35e3, freq_hi=45e3)
+    rx = wigner_receiver('rx', adc, receive_type='raw')
+    s.add(rx)
+    rx_pos = np.array([0.0, -0.1, 0.0])
+    apex = np.array([0.0, -LOBES['R'], 0.0])
+    _aperture(s, rx_pos, apex, (0.02, 0.02, 1.0), receiver='rx')
+    for f in sh.trihedral(apex, rx_pos - apex, bsdf='m'):
+        s.add(f)
+    if window is not None:
+        if window == 'thin':
+            s.add(thin_dielectric('win', int_ior=LOBES['ior']))
+        elif window == 'dielectric':
+            s.add(dielectric('win', int_ior=LOBES['ior'],
+                             specular_transmittance=1.0))
+        else:
+            raise ValueError(f'window {window!r}')
+        m = np.asarray(tf.compose(tf.look_at([0.0, -LOBES['window_at'], 0],
+                                             [0.0, 0.0, 0.0]),
+                                  tf.scale(LOBES['window'])))
+        s.add(sh.rectangle(to_world=m, bsdf='win'))
+    return s, rx
+
+
+def thin_window_transmittance() -> float:
+    """The closed form of the thin window's round trip at normal
+    incidence: with n = LOBES['ior'], R = ((n - 1) / (n + 1))^2, the
+    internal series R' = 2R / (1 + R), T = 1 - R', and the echo crosses
+    it twice: T^2 (0.852 at n = 1.5)."""
+    n = LOBES['ior']
+    r = ((n - 1.0) / (n + 1.0)) ** 2
+    return (1.0 - 2.0 * r / (1.0 + r)) ** 2
+
+
+def plastic_scene(kind: str = 'plastic'):
+    """`test_megakernel_plastic`: a 1 m `kind` ('plastic' or
+    'rough_plastic') plate 4 m out before the lobe tests' sonar (omni
+    receiver 0.6 m from the transmitter).  Returns (scene, receiver
+    spec)."""
+    if kind not in ('plastic', 'rough_plastic'):
+        raise ValueError(f'kind {kind!r}')
+    s, rx = _lobe_base()
+    s.add(_lobe_material('mat', kind))
+    _plate(s, (0.0, -LOBES['R'], 0.0), 0.5)
+    return s, rx
+
+
+def rough_dielectric_scene(case: str = 'target'):
+    """`test_megakernel_rough_dielectric`: GGX glass (alpha 0.4, n = 1.5).
+    'target': a 1 m plate 4 m out in backscatter; 'through': a 2 m sheet
+    2 m out between the transmitter (at the origin) and the omni receiver
+    4 m out on its far side, whose only echo is the transmission lobe's,
+    at the one-way delay.  Returns (scene, receiver spec)."""
+    if case == 'target':
+        s, rx = _lobe_base()
+        size, at = 0.5, LOBES['R']
+    elif case == 'through':
+        s, rx = _lobe_base(tx_pos=(0.0, 0.0, 0.0),
+                           rx_pos=(0.0, -LOBES['R'], 0.0))
+        size, at = 1.0, 0.5 * LOBES['R']
+    else:
+        raise ValueError(f'case {case!r}')
+    s.add(rough_dielectric('mat', alpha=0.4, int_ior=LOBES['ior']))
+    _plate(s, (0.0, -at, 0.0), size)
+    return s, rx
+
+
+def composite_scene(kind: str = 'blend', opacity: float = 0.8):
+    """`test_megakernel_blend_mask`: a 1 m plate 4 m out of a blend of the
+    diffuse 'd0' (weight 0.6) and a GGX rough conductor 'm1' (alpha 0.3),
+    or ('mask') 'd0' under a mask of `opacity`.  Returns (scene, receiver
+    spec)."""
+    s, rx = _lobe_base()
+    s.add(diffuse('d0', reflectance=1.0, twosided=True))
+    if kind == 'blend':
+        s.add(rough_conductor('m1', alpha=0.3, eta=0.2, k=3.0,
+                              twosided=True),
+              blend('mat', 'd0', 'm1', weight=LOBES['blend_weight']))
+    elif kind == 'mask':
+        s.add(mask('mat', 'd0', opacity=opacity))
+    else:
+        raise ValueError(f'kind {kind!r}')
+    _plate(s, (0.0, -LOBES['R'], 0.0), 0.5)
+    return s, rx
+
+
+def lobe_bin(scene, rx, case: str = 'target') -> float:
+    """The fast-time bin a lobe scene's echo must peak at: the round trip
+    to the plate 4 m out, or ('through') the one-way transmitter ->
+    receiver delay across the sheet."""
+    if case != 'through':
+        return round_trip_bin(scene, rx, (0.0, -LOBES['R'], 0.0))
+    a = rx.adc
+    return ((LOBES['R'] / scene.band.c - a.sampling_start)
+            / a.sampling_time * a.n_time - 0.5)

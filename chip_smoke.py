@@ -261,6 +261,27 @@ FP32_OPS = {
     # divide each), the rectangle weight, the phase, fast_cos and the sum
     'pair_tests': 29,
     'pair_terms': 55,
+    # the lobe twins, beyond the diffuse NEE and bounce (the cosine
+    # hemisphere's 73 operations; fres_diel is 24: the relative IOR, cos_t,
+    # rs, rp and their mean square): the plastic base's two Fresnels; the
+    # rough plastic's too, plus its GGX coat (half vector, D, two g1,
+    # the coat's Fresnel); GGX glass's rd_fcos_pdf (its half vector, D,
+    # G, Fresnel, Jacobian, f and pdf); a composite's second lobe (a
+    # diffuse f cos, the mix; its type's own extra counted by type)
+    'plas_nee': 52,
+    'rplas_nee': 134,
+    'rdiel_nee': 100,
+    'blend_nee': 21,
+    # bounces, each in place of the diffuse one (not counted in 'bounce'):
+    # a dielectric's Fresnel and reflection or refraction, a plastic's
+    # cosine sample, coat pick and two Fresnels, a rough plastic's GGX
+    # sample, coat weight and pdf, GGX glass's sample, refraction and
+    # rd_fcos_pdf, a mask's pass (the back-face spawn)
+    'diel_bounce': 40,
+    'plas_bounce': 143,
+    'rplas_bounce': 300,
+    'rdiel_bounce': 295,
+    'pass_bounce': 5,
 }
 
 
@@ -319,8 +340,25 @@ def compare(acc, n_ev, ref, n_ref, what: str) -> dict:
     return dict(err=err, rel=err / scale)
 
 
+def lane_bound(acc, lane, ref, lane_ref, cell_slack=0.0,
+               floor=1e-6) -> dict:
+    """`compare_lanes`' bound without its verdict: the lanes that took
+    another path (beyond TOL of themselves and `floor` of the largest
+    lane), their sums, and the worst cell against TOL x max|acc| plus
+    those sums plus `cell_slack`."""
+    tol_lane = TOL * lane_ref.abs() + floor * float(lane_ref.abs().max())
+    flipped = (lane - lane_ref).abs() > tol_lane
+    slack = float((lane.abs() + lane_ref.abs())[flipped].sum())
+    scale = float(ref.abs().max())
+    diff = (acc - ref).abs()
+    return dict(flipped=flipped, n_flip=int(flipped.sum()), slack=slack,
+                scale=scale, err=float(diff.max()),
+                worst=float((diff / (TOL * scale + slack + cell_slack))
+                            .max()))
+
+
 def compare_lanes(acc, n_ev, lane, ref, n_ref, lane_ref, max_depth,
-                  what: str, cell_slack=0.0) -> dict:
+                  what: str, cell_slack=0.0, floor=1e-6, ill=None) -> dict:
     """Mesh parity, lane by lane: a lane whose contribution sum differs by
     more than TOL of itself (and 1e-6 of the largest lane) took another
     path, as a ray that meets a triangle edge may under FMA contraction;
@@ -328,22 +366,22 @@ def compare_lanes(acc, n_ev, lane, ref, n_ref, lane_ref, max_depth,
     how far the sums may move beyond TOL x max|acc| (each can at most
     remove its own contributions from some bins and add them to others)
     and the events (2 per depth).  `cell_slack` (a tensor of the grid's
-    shape, or 0) widens each cell's bound beyond that."""
-    tol_lane = TOL * lane_ref.abs() + 1e-6 * float(lane_ref.abs().max())
-    flipped = (lane - lane_ref).abs() > tol_lane
-    n_flip = int(flipped.sum())
-    slack = float((lane.abs() + lane_ref.abs())[flipped].sum())
-    scale = float(ref.abs().max())
-    diff = (acc - ref).abs()
-    err = float(diff.max())
-    worst = float((diff / (TOL * scale + slack + cell_slack)).max())
+    shape, or 0) widens each cell's bound beyond that; `floor` replaces
+    the 1e-6 of the largest lane; lanes of the mask `ill` (the plain
+    version's `ill_out`) may take another path beside the EDGE_FLIPS
+    share."""
+    b = lane_bound(acc, lane, ref, lane_ref, cell_slack, floor)
+    flipped, n_flip, slack, scale, err, worst = (
+        b[k] for k in ('flipped', 'n_flip', 'slack', 'scale', 'err',
+                       'worst'))
+    n_out = n_flip if ill is None else int((flipped & ~ill).sum())
     ev, ev_ref = int(n_ev), int(n_ref)
     print(f'parity {what}: max|acc| {scale:.6e}  max abs err {err:.3e} '
           f'({err / max(scale, 1e-300):.3e} of max)  events {ev} vs '
           f'{ev_ref}; {n_flip} of {lane.numel()} lanes took another path '
           f'(their sums {slack:.3e} = {slack / max(scale, 1e-300):.3e} of '
           f'max); worst cell at {worst:.3f} of its bound')
-    if n_flip > EDGE_FLIPS * lane.numel():
+    if n_out > EDGE_FLIPS * lane.numel():
         fail(f'{what}: {n_flip} lanes differ from the plain version')
     if not (scale > 0 and worst <= 1.0):
         fail(f'{what}: kernel differs from the plain version (worst cell '
@@ -382,7 +420,9 @@ def lane_ops(stats: dict, n_rect: int, ray: str = 'ray_wigner') -> float:
                    'dop_direct', 'dop_nee', 'dop_bounce', 'splat_2d',
                    'lo_freq', 'lo_bin', 'phase', 'phase_lo', 'h_chirp',
                    'mirror_bounce', 'mimo_vertex', 'mimo_elem',
-                   'pair_tests', 'pair_terms'))
+                   'pair_tests', 'pair_terms', 'plas_nee', 'rplas_nee',
+                   'rdiel_nee', 'blend_nee', 'diel_bounce', 'plas_bounce',
+                   'rplas_bounce', 'rdiel_bounce', 'pass_bounce'))
             + walk_ops(stats))
 
 
@@ -396,7 +436,8 @@ def walk_ops(stats: dict) -> float:
 def print_build(infos: dict, tag: str) -> None:
     # K1's configurations by their mangled template arguments (each ends
     # in Lb0ELb0EE, Lb1ELb0EE for its media twin, Lb0ELb1EE for its
-    # endpoint twin)
+    # endpoint twin; the Doppler family's in a third flag, Lb1E for its
+    # lobe twin)
     k1 = {'receive_trace_kernelILb0E': 'flagship',
           'receive_trace_kernelILb1E': 'mesh',
           'receive_doppler_kernelILb0ELb0E': 'doppler',
@@ -404,9 +445,16 @@ def print_build(infos: dict, tag: str) -> None:
           'receive_doppler_kernelILb0ELb1E': 'coherent',
           'receive_doppler_kernelILb1ELb1E': 'coherent mesh',
           'receive_mimo_kernelI': 'mimo'}
-    names = {f'{k}Lb{int(m)}ELb{int(e)}EE': f'receive_megakernel ({v}'
-             + (' media)' if m else ' endpoints)' if e else ')')
-             for k, v in k1.items() for m, e in ((0, 0), (1, 0), (0, 1))}
+    names = {}
+    for k, v in k1.items():
+        for m, e, lob in ((0, 0, 0), (1, 0, 0), (0, 1, 0), (0, 0, 1)):
+            if lob and 'doppler' not in k:
+                continue
+            tail = f'Lb{lob}E' if 'doppler' in k else ''
+            names[f'{k}Lb{m}ELb{e}E{tail}E'] = (
+                f'receive_megakernel ({v}' + (' media)' if m else
+                                              ' endpoints)' if e else
+                                              ' lobes)' if lob else ')'))
     names.update({
              'receive_reduce_kernel': 'receive reduce',
              'bvh_closest_kernel': 'bvh_closest', 'bvh_any_kernel': 'bvh_any',
@@ -1014,7 +1062,7 @@ def doppler(torch, bt, rk, ik, dev, tag):
 
 def compare_coherent(torch, acc, n_ev, ref, n_ref, amp, slack, what,
                      lane=None, lane_ref=None, depth=COH_DEPTH,
-                     quiet=False) -> dict:
+                     quiet=False, ill=None) -> dict:
     """I / Q parity per cell and channel: within TOL x max(|I|, |Q|) plus
     the phase slack (`receive_kernel.phase_slack`) times the cell's sum of
     amplitudes `amp` (the plain version's), since the kernel's contracted
@@ -1028,6 +1076,8 @@ def compare_coherent(torch, acc, n_ev, ref, n_ref, amp, slack, what,
         flipped = (lane - lane_ref).abs() > \
             TOL * lane_ref.abs() + COH_LANE_FLOOR * float(lane_ref.abs().max())
         flips = int(flipped.sum())
+        if ill is not None:
+            flipped_out = int((flipped & ~ill).sum())
         flip_slack = float((lane.abs() + lane_ref.abs())[flipped].sum())
     diff = (acc - ref).abs()
     err = float(diff.max())
@@ -1042,7 +1092,8 @@ def compare_coherent(torch, acc, n_ev, ref, n_ref, amp, slack, what,
               f'{ev} vs {ev_ref}'
               + ('' if lane is None else f'; {flips} of {lane.numel()} '
                  f'lanes took another path'))
-    if lane is not None and flips > EDGE_FLIPS * lane.numel():
+    if lane is not None and (flips if ill is None else flipped_out) \
+            > EDGE_FLIPS * lane.numel():
         fail(f'{what}: {flips} lanes differ from the plain version')
     if not (scale > 0 and worst <= 1.0):
         fail(f'{what}: kernel differs from the plain version (worst cell '
@@ -1125,11 +1176,13 @@ def _kernel_entry(torch, rk, cfg_name, what, main_path, launches, errs,
 
 
 def _plain_philox(torch, rk, params, prim, txp, kw, n_lanes, depth, dev,
-                  lane_ref=None):
+                  lane_ref=None, power_amp=False):
     """The plain version on the kernel's Philox stream at the main path's
-    shape, in chunks: (acc, events, amplitude sums, stage counts, ms)."""
+    shape, in chunks: (acc, events, amplitude sums (of |power| with
+    `power_amp`), stage counts, ms)."""
     stats: dict = {}
-    nd = rk.n_draws(depth, int(txp.shape[-2]))
+    nd = rk.n_draws(depth, int(txp.shape[-2]),
+                    **rk.lobe_draws(kw.get('lobes') or 0))
     cfg = kw['adc']
     amp = torch.zeros((cfg.n_time, cfg.n_freq), dtype=torch.float64,
                       device=dev)
@@ -1141,8 +1194,8 @@ def _plain_philox(torch, rk, params, prim, txp, kw, n_lanes, depth, dev,
                                    lane0=lane0)
             a, n = rk.receive_megakernel_ref(
                 params, prim, txp, u, lane0=lane0, stats=stats,
-                amp_out=amp if kw.get('coherent') or kw.get('eoff')
-                is not None else None,
+                amp_out=amp if kw.get('coherent') or power_amp
+                or kw.get('eoff') is not None else None,
                 lane_out=None if lane_ref is None
                 else lane_ref[lane0:lane0 + COH_PLAIN_CHUNK], **kw)
             total = a if total is None else total + a
@@ -2484,6 +2537,393 @@ def phased(torch, bt, rk, dev, tag) -> list:
     return out
 
 
+LOBE_LANES = 1 << 24          # receive(), the kernel alone, Philox parity
+LOBE_PARITY_LANES = 1 << 16   # injected uniforms
+LOBE_WF_SAMPLES = 1 << 18     # K1 against the wavefront: samples a seed
+LOBE_WF_SEEDS = 16            # seeds averaged on each route
+LOBE_WF_BOUND = (0.2, 5.0)    # their window energies' ratio
+LOBE_MASK_RATIO = (0.5, 0.3)  # e(0.4) / e(0.8): 0.5 +- 30%
+LOBE_CPI_PULSES = 16
+LOBE_CPI_SAMPLES = 1 << 20    # a pulse of the windowed corner's CPI
+CORNER_FLOOR = 1e-4           # x the largest lane, the corner's chains
+CORNER_FLOORS = (1e-6, 1e-5, 1e-4, 1e-3)
+
+
+def _gate(acc, lane, ref, lane_ref, cell_slack, floor, ill=None):
+    """(`compare_lanes`' verdict: passes?, the share of the lanes that
+    took another path outside `ill`, the worst cell)."""
+    b = lane_bound(acc, lane, ref, lane_ref, cell_slack, floor)
+    out = b['flipped'] if ill is None else b['flipped'] & ~ill
+    share = int(out.sum()) / lane.numel()
+    return share <= EDGE_FLIPS and b['worst'] <= 1.0, share, b['worst']
+
+
+def corner_readings(torch, acc, ref, amp, lane, lane_ref, ill, what,
+                    controls=None) -> dict:
+    """The corner's power bound read on both sides.  Three gates: the one
+    held (lanes past TOL of themselves and CORNER_FLOOR of the largest
+    lane took another path; each cell within TOL x max|acc|, those
+    lanes' sums and TOL of its own |power| sum), the same with floor
+    1e-3, and the unwidened one (floor 1e-6, no per-cell slack).  For
+    each: does the kernel pass, its worst cell, and the least uniform
+    scale error of its result (every lane and cell times 1 + delta, delta
+    on a quarter-decade ladder from 1e-5) that the gate refuses.  Beside
+    them the lanes each floor of CORNER_FLOORS counts, the worst cell
+    against TOL x max|acc| alone, the largest share of its |power| sum
+    that a cell moved; and `controls` {name: (acc, lane)}, the plain
+    version on other inputs, against the held gate (the share of their
+    lanes past its floor, its worst cell, and its worst cell without the
+    sums of those lanes)."""
+    slack = TOL * amp.float()
+    diff = (acc - ref).abs()
+    live = amp > 0
+    scale = float(ref.abs().max())
+    r = dict(
+        flips={f'{f:g}': lane_bound(acc, lane, ref, lane_ref, 0.0,
+                                    f)['n_flip'] for f in CORNER_FLOORS},
+        worst_tol_max_only=float(diff.max()) / (TOL * scale),
+        max_err_over_abs_power_sum=float((diff[live] / amp[live]).max()),
+        abs_power_sum_over_peak_cell=float(amp.max()) / scale)
+    for name, cs, floor in (('gate', slack, CORNER_FLOOR),
+                            ('floor_1e-3', slack, 1e-3),
+                            ('unwidened', 0.0, 1e-6)):
+        ok, _, worst = _gate(acc, lane, ref, lane_ref, cs, floor, ill)
+        r[name] = dict(kernel_passes=ok, worst_cell=worst,
+                       scale_error_refused=next(
+                           (d for d in (10.0 ** (-q / 4)
+                                        for q in range(20, 3, -1))
+                            if not _gate(acc * (1 + d), lane * (1 + d), ref,
+                                         lane_ref, cs, floor, ill)[0]),
+                           None))
+    for name, (c_acc, c_lane) in (controls or {}).items():
+        ok, share, worst = _gate(c_acc, c_lane, ref, lane_ref, slack,
+                                 CORNER_FLOOR)
+        r[f'control_{name}'] = dict(
+            passes=ok, lanes_out=share, worst_cell=worst,
+            worst_cell_without_lane_sums=float(
+                ((c_acc - ref).abs() / (TOL * scale + slack)).max()))
+    print(f'corner bound readings {what}: {json.dumps(r)}')
+    return r
+
+
+def lobes(torch, bt, rk, dev, tag) -> list:
+    """K1's lobe twins (the Doppler family's LOB instantiations) on the
+    JAX package's lobe kernel tests' scenes at full width: parity of each
+    twin against its plain version on injected uniforms and on Philox
+    (2^24), each through receive() at 2^24 samples with the anchors (the
+    windowed corner on the bare corner's peak, the thin window's energy
+    ratio beside its closed form, the plastics and GGX glass on their
+    round-trip or one-way bins, a mask's echo in proportion to its
+    opacity), the windowed corner's CPI in one launch, the kernel alone,
+    and K1 against the wavefront on the windowed corner over 16 seeds."""
+    import numpy as np
+    from beifong_tpu_torch import scenes as S
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    # (twin, scene, the function that makes it, depth, coherent, a delta
+    # chain)
+    twins = (('doppler_lobes', 'window_corner_scene(thin)',
+              lambda: S.window_corner_scene('thin'), 6, False, True),
+             ('coherent_lobes', 'window_corner_scene(dielectric)',
+              lambda: S.window_corner_scene('dielectric'), 6, True, True),
+             ('doppler_mesh_lobes', 'mesh_scene(rough_plastic)',
+              lambda: S.mesh_scene(material='rough_plastic'), 2, False,
+              False),
+             ('coherent_mesh_lobes', 'mesh_scene(rough_plastic)',
+              lambda: S.mesh_scene(material='rough_plastic'), 2, True,
+              False))
+
+    def reset():
+        for fn in (rk.receive_megakernel, rk.receive_megakernel_cpi):
+            fn.launches = 0
+            fn.by_config = dict.fromkeys(rk.CONFIGS, 0)
+
+    def tables(s, rx, depth, coh):
+        sd = s.compile(device=dev)
+        p = rk.pack_scene(sd, rx, s.shape_index_of_endpoint('receiver',
+                                                            rx.id))
+        params = torch.tensor(p.params, device=dev)
+        params[0] = rk.seed_slot(SEED)
+        mesh = None if p.mesh is None else p.mesh.to(dev)
+        kw = dict(adc=rx.adc, max_depth=depth, time_sampling='gate',
+                  rx_kind=rk.rx_kind_of(rx), mesh=mesh, doppler=True,
+                  msh=None if mesh is None else torch.tensor(p.msh,
+                                                             device=dev),
+                  coherent=coh, mirror=p.mirror, lobes=p.lobes)
+        return sd, params, torch.tensor(p.prim, device=dev), \
+            torch.tensor(p.txp, device=dev), kw
+
+    def check(acc, n_ev, ref, n_ref, amp, lane, lane_ref, ill, kw, chain,
+              s, rx, what):
+        depth = kw['max_depth']
+        if kw['coherent']:
+            return compare_coherent(torch, acc, n_ev, ref, n_ref, amp,
+                                    rk.phase_slack(s.band, rx.adc), what,
+                                    lane, lane_ref, depth=depth, ill=ill)
+        # a corner's power cells sum signed WDF contributions that cancel
+        # to 1/8-1/80 of their magnitudes: each cell may also move by TOL
+        # of its own sum of |power|, the share a contribution may, and a
+        # lane past CORNER_FLOOR of the largest took another path
+        # (corner_readings reads this bound on both sides)
+        return compare_lanes(acc, n_ev, lane, ref, n_ref, lane_ref, depth,
+                             what, floor=CORNER_FLOOR if chain else 1e-6,
+                             ill=ill,
+                             cell_slack=TOL * amp.float() if chain else 0.0)
+
+    def injected(s, rx, params, prim, txp, kw, chain, what):
+        """Parity on LOBE_PARITY_LANES injected uniforms, lane by lane;
+        on a corner's power chains also its bound's readings, with the
+        plain version on the draws rounded to float16 and bfloat16 as
+        controls."""
+        n_l = LOBE_PARITY_LANES
+        nd = rk.n_draws(kw['max_depth'], 1, **rk.lobe_draws(kw['lobes']))
+        u = torch.rand((nd, n_l), generator=gen, device=dev)
+        lane = torch.empty(n_l, device=dev)
+        lane_ref = torch.empty(n_l, device=dev)
+        ill = torch.zeros(n_l, dtype=torch.bool, device=dev)
+        amp = torch.zeros((rx.adc.n_time, 1), dtype=torch.float64,
+                          device=dev)
+        acc, n_ev = rk.receive_megakernel(params, prim, txp, n_lanes=n_l,
+                                          uniforms=u, lane_out=lane, **kw)
+        ref, n_ref = rk.receive_megakernel_ref(
+            params, prim, txp, u, lane_out=lane_ref, amp_out=amp,
+            ill_out=ill, **kw)
+        print(f'{what}: {int(ill.sum())} of {n_l} lanes at a lobe branch '
+              f'tie (ill_out)')
+        err = check(acc, n_ev, ref, n_ref, amp, lane, lane_ref, ill, kw,
+                    chain, s, rx, f'{what} injected 2^16 lanes')
+        if chain and not kw['coherent']:
+            controls = {}
+            for dt in (torch.float16, torch.bfloat16):
+                c_lane = torch.empty(n_l, device=dev)
+                c_acc, _ = rk.receive_megakernel_ref(
+                    params, prim, txp,
+                    u.to(dt).float().clamp(max=1.0 - 2.0 ** -24),
+                    lane_out=c_lane, **kw)
+                controls[f'plain_on_{str(dt)[6:]}_draws'] = (c_acc, c_lane)
+            corner_readings(torch, acc, ref, amp, lane, lane_ref, ill,
+                            f'{what} injected 2^16 lanes', controls)
+        return err
+
+    def profile(a, n, rx, coh):
+        return _range_profile(torch, bt, a, n, rx, coh)
+
+    out = []
+    for cfg_name, scene, make, depth, coh, chain in twins:
+        s, rx = make()
+        sd, params, prim, txp, kw = tables(s, rx, depth, coh)
+        what = f'{scene} ({cfg_name}, lobes {kw["lobes"]}, depth {depth})'
+
+        # ---- 3. parity on injected uniforms, lane by lane ----
+        errs = [injected(s, rx, params, prim, txp, kw, chain, what)]
+
+        # ---- 4. the main path: receive() at 2^24, one warm-up, five
+        #      timed calls ----
+        def call(seed, spp=LOBE_LANES, **k):
+            return bt.receive(s, sd, rx, spp=spp, max_depth=depth,
+                              seed=seed, time_sampling='gate',
+                              coherent=coh, device=dev, **k)
+        reset()
+        with _Wavefront(bt) as wfc:
+            a, n = call(1)
+            times = cuda_ms(lambda i: call(2 + i), 5)[0]
+        launches = rk.receive_megakernel.by_config[cfg_name]
+        if launches != 6 or rk.receive_megakernel.launches != 6 \
+                or wfc.calls:
+            fail(f'lobes {scene}: 6 receive() calls launched '
+                 f'{rk.receive_megakernel.by_config}, the wavefront '
+                 f'{wfc.calls} times')
+        prof = profile(a, n, rx, coh)
+        if tuple(a.shape) != (rx.adc.n_time, 1, (2 if coh else 1) + 2) \
+                or not np.isfinite(prof).all():
+            fail(f'lobes {scene}: grid {tuple(a.shape)} not finite / wrong '
+                 'shape')
+        recv_ms = statistics.median(times)
+
+        # ---- the kernel alone, and the plain version on Philox ----
+        k_kw = dict(kw)
+        if kw['mesh'] is not None:
+            k_kw['patch_p'] = rk.patch_p_for(LOBE_LANES)
+        k_ms, _ = cuda_ms(lambda i: rk.receive_megakernel(
+            params, prim, txp, n_lanes=LOBE_LANES, seed=SEED, **k_kw), 6)
+        k_med = statistics.median(k_ms[1:])
+        lane = torch.empty(LOBE_LANES, device=dev)
+        lane_ref = torch.empty(LOBE_LANES, device=dev)
+        acc1, n1 = rk.receive_megakernel(params, prim, txp,
+                                         n_lanes=LOBE_LANES, seed=SEED,
+                                         lane_out=lane, **k_kw)
+        ref, n_ref, amp, stats, plain_ms = _plain_philox(
+            torch, rk, params, prim, txp, k_kw, LOBE_LANES, depth, dev,
+            lane_ref=lane_ref, power_amp=chain)
+        errs.append(check(acc1, n1, ref, n_ref, amp, lane, lane_ref, None,
+                          k_kw, chain, s, rx, f'{scene} philox 2^24 lanes'))
+        if chain and not coh:
+            corner_readings(torch, acc1, ref, amp, lane, lane_ref, None,
+                            f'{scene} philox 2^24 lanes')
+        n_rect = int((prim[:, 0] == 0).sum())
+        print(f'receive_megakernel ({cfg_name}) {scene} 2^24 lanes depth '
+              f'{depth}: median {k_med:.3f} ms '
+              f'({LOBE_LANES / (k_med * 1e-3):.4e} samples/s) '
+              f'{[round(x, 3) for x in k_ms[1:]]}; receive() '
+              f'{recv_ms:.3f} ms; plain version {plain_ms:.1f} ms; '
+              f'{n_rect} rectangles {tag}')
+        print(f'{scene} ({cfg_name}) stage lanes: ' + json.dumps(stats))
+        entry = _kernel_entry(
+            torch, rk, cfg_name, f'{scene} 2^24 lanes',
+            f'receive({scene}), 2^24 samples, depth {depth}, gate'
+            + (', coherent' if coh else ''), launches, errs, k_med,
+            plain_ms, recv_ms, stats,
+            [params, prim, txp] + ([] if kw['mesh'] is None else
+                                   [kw['msh'], kw['mesh'].bbox,
+                                    kw['mesh'].links, kw['mesh'].leaves]),
+            rx.adc.n_time, 2 if coh else 1,
+            dict(row='K1 lobes', scene=scene,
+                 tpu_flags='diel/thin/plas/rplas/rdiel/has_blend/has_mask '
+                 '(pallas_receive.py:188-224)'))
+        print(f'share of the FP32 bound {scene} ({cfg_name}): '
+              f'{entry["bound_ms"] / k_med:.1%} {tag}')
+        out.append(entry)
+
+    # ---- 3. the analytic twins' other lobes (the smooth dielectric
+    #      window in power, plastic, GGX glass, blend, mask) against the
+    #      plain version on injected uniforms ----
+    for scene, make, chain in (
+            ('window_corner_scene(dielectric)',
+             lambda: S.window_corner_scene('dielectric'), True),
+            ('plastic_scene(plastic)', lambda: S.plastic_scene('plastic'),
+             False),
+            ('rough_dielectric_scene(through)',
+             lambda: S.rough_dielectric_scene('through'), False),
+            ('composite_scene(blend)', lambda: S.composite_scene('blend'),
+             False),
+            ('composite_scene(mask, 0.4)',
+             lambda: S.composite_scene('mask', 0.4), False)):
+        s, rx = make()
+        depth = 6 if chain else 2
+        _, params, prim, txp, kw = tables(s, rx, depth, False)
+        injected(s, rx, params, prim, txp, kw, chain,
+                 f'{scene} (doppler_lobes, lobes {kw["lobes"]}, depth '
+                 f'{depth})')
+
+    # ---- 4. the other lobe scenes through receive() at 2^24: anchors;
+    #      each launches the power lobe twin once, no wavefront pass ----
+    anchors = {}
+    reset()
+    with _Wavefront(bt) as wfc:
+        def run(s, rx, depth=2, seed=1, coh=False, spp=LOBE_LANES):
+            a, n = bt.receive(s, s.compile(device=dev), rx, spp=spp,
+                              max_depth=depth, seed=seed,
+                              time_sampling='gate', coherent=coh,
+                              device=dev)
+            return profile(a, n, rx, coh)
+        for name, make, case in (
+                ('plastic', lambda: S.plastic_scene('plastic'), 'target'),
+                ('rough_plastic', lambda: S.plastic_scene('rough_plastic'),
+                 'target'),
+                ('rough_dielectric target',
+                 lambda: S.rough_dielectric_scene('target'), 'target'),
+                ('rough_dielectric through',
+                 lambda: S.rough_dielectric_scene('through'), 'through'),
+                ('blend', lambda: S.composite_scene('blend'), 'target')):
+            s, rx = make()
+            p = run(s, rx)
+            want = S.lobe_bin(s, rx, case)
+            pk = int(np.abs(p).argmax())
+            anchors[name] = dict(peak=pk, bin=round(want, 2))
+            if not round(want) - 1 <= pk <= round(want) + 3:
+                fail(f'lobes {name}: peak bin {pk}, its echo at {want:.2f}')
+        e = {}
+        for op in (0.8, 0.4):
+            s, rx = S.composite_scene('mask', op)
+            p = run(s, rx)
+            e[op] = _bin_energy(p, int(p.argmax()), 3)
+        mask_ratio = e[0.4] / e[0.8]
+        anchors['mask'] = dict(e_04_over_08=mask_ratio)
+        win = {}
+        for w in ('thin', 'dielectric'):
+            s, rx = S.window_corner_scene(w)
+            win[w] = run(s, rx, depth=6)
+        n_k1 = rk.receive_megakernel.by_config['doppler_lobes']
+        k1_ok = n_k1 == 9 and not wfc.calls
+    # the bare corner (the mirror chains, no lobe) for the window anchors
+    s0, rx0 = S.window_corner_scene()
+    bare = run(s0, rx0, depth=6)
+    pk0 = int(np.abs(bare).argmax())
+    ratio_thin = _bin_energy(win['thin'], pk0, 3) / _bin_energy(bare, pk0, 3)
+    t_thin = S.thin_window_transmittance()
+    anchors['window'] = dict(bare_peak=pk0, thin_peak=int(np.abs(
+        win['thin']).argmax()), dielectric_peak=int(np.abs(
+            win['dielectric']).argmax()), thin_energy_ratio=ratio_thin,
+        closed_form_T2=t_thin)
+    print(f'receive() lobe anchors at 2^24 samples: {json.dumps(anchors)}; '
+          f'the thin window keeps {ratio_thin:.3f} of the bare corner\'s '
+          f'window energy (closed form T^2 = {t_thin:.3f}, normal '
+          f'incidence) {tag}')
+    if not k1_ok:
+        fail(f'lobes: the anchor scenes launched {n_k1} power lobe twins '
+             f'(want 9), the wavefront {wfc.calls} times')
+    if abs(anchors['window']['thin_peak'] - pk0) > 1 \
+            or abs(anchors['window']['dielectric_peak'] - pk0) > 1:
+        fail(f'lobes: windowed corner peaks {anchors["window"]} off the '
+             f'bare corner\'s {pk0}')
+    if abs(mask_ratio - LOBE_MASK_RATIO[0]) \
+            > LOBE_MASK_RATIO[1] * LOBE_MASK_RATIO[0]:
+        fail(f'lobes: mask e(0.4) / e(0.8) = {mask_ratio:.3f}')
+
+    # ---- the windowed corner's CPI: one launch of the coherent twin ----
+    s, rx = S.window_corner_scene('thin')
+    reset()
+    with _Wavefront(bt) as wfc:
+        cpi_ms, (cube, n) = wall_ms(lambda: bt.receive_cpi(
+            s, n_pulses=LOBE_CPI_PULSES, prf=10.0, seed=3,
+            spp=LOBE_CPI_SAMPLES, max_depth=6, time_sampling='gate',
+            device=dev))
+    by = rk.receive_megakernel_cpi.by_config
+    e_cpi = (cube[..., 0] ** 2 + cube[..., 1] ** 2).sum(0)[:, 0]
+    pk_cpi = int(e_cpi.argmax())
+    print(f'receive_cpi() windowed corner (thin) {LOBE_CPI_PULSES} pulses x '
+          f'2^{LOBE_CPI_SAMPLES.bit_length() - 1} samples depth 6: '
+          f'{cpi_ms:.1f} ms (set-up included), {by["coherent_lobes"]} '
+          f'launch, peak bin {pk_cpi} (bare corner {pk0}) {tag}')
+    if by['coherent_lobes'] != 1 or rk.receive_megakernel_cpi.launches != 1 \
+            or wfc.calls or abs(pk_cpi - pk0) > 1 \
+            or not bool(torch.isfinite(cube).all()):
+        fail(f'lobes CPI: launches {by}, wavefront {wfc.calls}, peak '
+             f'{pk_cpi}')
+
+    # ---- K1 against the wavefront: the thin window's profile averaged
+    #      over LOBE_WF_SEEDS seeds on each route ----
+    s, rx = S.window_corner_scene('thin')
+    sd = s.compile(device=dev)
+    prof = {}
+    for use in (True, False):
+        acc_p, t_wf = 0.0, 0.0
+        for seed in range(3, 3 + LOBE_WF_SEEDS):
+            ms, (a, n) = wall_ms(lambda: bt.receive(
+                s, sd, rx, spp=LOBE_WF_SAMPLES, max_depth=6, seed=seed,
+                time_sampling='gate', use_kernel=use, device=dev,
+                lanes_per_pass=KW_LANES_PER_PASS))
+            t_wf += ms
+            acc_p = acc_p + profile(a, n, rx, False) / LOBE_WF_SEEDS
+        prof[use] = acc_p
+        print(f'receive() windowed corner use_kernel={use}: {t_wf:.1f} ms '
+              f'for {LOBE_WF_SEEDS} x 2^{LOBE_WF_SAMPLES.bit_length() - 1} '
+              f'samples, peak bin {int(np.abs(acc_p).argmax())} {tag}')
+    pk_w = int(np.abs(prof[False]).argmax())
+    ratio = _bin_energy(prof[True], pk_w, 3) \
+        / max(_bin_energy(prof[False], pk_w, 3), 1e-300)
+    print(f'K1 against the wavefront, windowed corner (thin) at '
+          f'{LOBE_WF_SEEDS} x 2^{LOBE_WF_SAMPLES.bit_length() - 1} samples: '
+          f'peak bins {int(np.abs(prof[True]).argmax())} / {pk_w}, window '
+          f'energy ratio {ratio:.3f} (bound {LOBE_WF_BOUND})')
+    if not LOBE_WF_BOUND[0] < ratio < LOBE_WF_BOUND[1]:
+        fail('lobes: K1 and the wavefront disagree on the windowed corner')
+    for e_ in out:
+        e_.update(anchors=anchors, k1_wavefront_ratio=ratio)
+    print(f'lobes phase wall {time.perf_counter() - t_phase:.1f} s {tag}')
+    return out
+
+
 def rx_n_time(scene) -> int:
     return scene.receivers[0].adc.n_time
 
@@ -3147,6 +3587,7 @@ def main() -> int:
     kernels += mimo(torch, bt, rk, dev, tag)
     kernels += media(torch, bt, rk, dev, tag)
     kernels += phased(torch, bt, rk, dev, tag)
+    kernels += lobes(torch, bt, rk, dev, tag)
     kernels += queries(torch, bt, dev, tag)
     k4 = k4_parity(torch, ik, dev, tag)
     k4_launches, bvh_launches = wavefront(torch, bt, ik, bk, rk, dev, tag,

@@ -352,7 +352,7 @@ def test_cpi_launch_counts_and_scope(monkeypatch):
     bt.receive_cpi(s, n_pulses=3, spp=1024, max_depth=1, device='cpu')
     assert calls == [3]
     s.add(sh_t.sphere(center=(2.0, -6.0, 0.0), radius=0.3, bsdf='mat'))
-    with pytest.raises(NotImplementedError, match='ROADMAP B5'):
+    with pytest.raises(NotImplementedError, match='ROADMAP B1'):
         bt.receive_cpi(s, n_pulses=2, spp=256, max_depth=1, engine='pallas',
                        device='cpu')
     cube, n = bt.receive_cpi(s, n_pulses=2, spp=256, max_depth=1,

@@ -1277,3 +1277,195 @@ def test_receive_of_endpoint_scenes_on_card_launches_k1(cuda, scene):
     assert int(p_gpu.abs().argmax()) == int(p_cpu.abs().argmax())
     assert float((p_gpu - p_cpu).abs().max()) \
         <= 1e-3 * float(p_cpu.abs().max())
+
+
+# ---------------------------------------------------------------------------
+# the lobe twins: smooth and thin dielectric, plastic, rough plastic, GGX
+# glass, blend and mask in the Doppler family
+# ---------------------------------------------------------------------------
+
+
+# scene, depth, and whether its echo is the corner's delta chain (whose
+# lanes are flagged past 1e-3 of the largest, as the mirror corner's)
+LOBE_SCENES = {
+    'window_thin': (lambda: scenes.window_corner_scene('thin'), 6, True),
+    'window_dielectric': (lambda: scenes.window_corner_scene('dielectric'),
+                          6, True),
+    'plastic': (lambda: scenes.plastic_scene('plastic'), 2, False),
+    'rough_plastic': (lambda: scenes.plastic_scene('rough_plastic'), 2,
+                      False),
+    'rough_dielectric': (lambda: scenes.rough_dielectric_scene('target'), 2,
+                         False),
+    'through': (lambda: scenes.rough_dielectric_scene('through'), 2, False),
+    'blend': (lambda: scenes.composite_scene('blend'), 2, False),
+    'mask': (lambda: scenes.composite_scene('mask', 0.4), 2, False),
+    'mesh': (lambda: mesh_scene(n_side=23, material='rough_plastic'), 2,
+             False),
+}
+
+
+def _lobe_tables(device, scene, coherent, seed=3):
+    fn, depth, chain = LOBE_SCENES[scene]
+    s, rx = fn()
+    sd = s.compile(use_bvh=False, device='cpu')
+    p = rk.pack_scene(sd, rx, s.shape_index_of_endpoint('receiver', rx.id))
+    assert p.lobes and p.doppler(rx.adc)
+    params = torch.tensor(p.params, device=device)
+    params[0] = rk.seed_slot(seed)
+    mesh = None if p.mesh is None else p.mesh.to(device)
+    kw = dict(adc=rx.adc, max_depth=depth, time_sampling='gate',
+              rx_kind=rk.rx_kind_of(rx), mesh=mesh, doppler=True,
+              msh=None if mesh is None else torch.tensor(p.msh,
+                                                         device=device),
+              coherent=coherent, mirror=p.mirror, lobes=p.lobes)
+    return (s, rx, params, torch.tensor(p.prim, device=device),
+            torch.tensor(p.txp, device=device), kw, chain)
+
+
+def _assert_lobe_parity(s, rx, kw, chain, acc, n_ev, ref, n_ref, amp, lane,
+                        lane_ref, ill):
+    """Lane by lane: a lane beyond 1e-4 of itself (and 1e-6 of the largest
+    lane; 1e-4 on the corner's delta chains, whose transmitter aperture
+    sinc moves near its zeros; 1e-3 for I / Q) took another path; lanes
+    of `ill` (a Fresnel pick, total internal reflection or a cosine's
+    sign within LOBE_TIE) may besides the 1e-4 of the lanes any lane may,
+    and every such lane bounds its cells.  A corner's power cell sums
+    signed WDF contributions that cancel to 1/8-1/80 of their magnitudes,
+    so each cell may also move by 1e-4 of its own sum of |power| (`amp`,
+    the plain version's), the share each contribution may move by
+    (chip_smoke.py's corner_readings reads this bound on both sides)."""
+    if kw['coherent']:
+        _assert_coherent_parity(acc, n_ev, ref, n_ref, amp,
+                                rk.phase_slack(s.band, rx.adc), lane,
+                                lane_ref, depth=kw['max_depth'], ill=ill)
+    else:
+        _assert_mesh_parity(acc, n_ev, lane, ref, n_ref, lane_ref,
+                            depth=kw['max_depth'],
+                            floor=1e-4 if chain else 1e-6, ill=ill,
+                            cell_slack=1e-4 * amp.float() if chain else 0.0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('coherent', [False, True], ids=['power', 'iq'])
+@pytest.mark.parametrize('scene', list(LOBE_SCENES))
+def test_lobe_kernels_match_plain_version(cuda, scene, coherent):
+    """Each lobe scene through its lobe twin (doppler / coherent, analytic
+    or mesh) on injected uniforms of the lobe draw stride, against the
+    plain version, lane by lane."""
+    s, rx, params, prim, txp, kw, chain = _lobe_tables(cuda, scene,
+                                                       coherent)
+    n_lanes = 1 << 16
+    nd = rk.n_draws(kw['max_depth'], 1, **rk.lobe_draws(kw['lobes']))
+    u = torch.rand((nd, n_lanes),
+                   generator=torch.Generator(cuda).manual_seed(5),
+                   device=cuda)
+    name = rk.config_name(kw['mesh'] is not None, True, coherent,
+                          lobes=True)
+    before = rk.receive_megakernel.by_config[name]
+    lane = torch.empty(n_lanes, device=cuda)
+    acc, n_ev = rk.receive_megakernel(params, prim, txp, n_lanes=n_lanes,
+                                      uniforms=u, lane_out=lane, **kw)
+    torch.cuda.synchronize()
+    assert rk.receive_megakernel.by_config[name] == before + 1
+    lane_ref = torch.empty(n_lanes, device=cuda)
+    ill = torch.zeros(n_lanes, dtype=torch.bool, device=cuda)
+    amp = torch.zeros((rx.adc.n_time, 1), dtype=torch.float64, device=cuda)
+    ref, n_ref = rk.receive_megakernel_ref(
+        params, prim, txp, u, lane_out=lane_ref, ill_out=ill, amp_out=amp,
+        **kw)
+    _assert_lobe_parity(s, rx, kw, chain, acc, n_ev, ref, n_ref, amp, lane,
+                        lane_ref, ill)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('scene, coherent', [
+    ('window_dielectric', False), ('through', True), ('mesh', False),
+    ('mesh', True)])
+def test_lobe_kernels_philox_mode(cuda, scene, coherent):
+    """The four lobe twins on the Philox stream at 2^20 lanes (its stride
+    of the lobe draws) against the plain version on the same stream, lane
+    by lane."""
+    s, rx, params, prim, txp, kw, chain = _lobe_tables(cuda, scene,
+                                                       coherent, seed=13)
+    n_lanes = 1 << 20
+    if kw['mesh'] is not None:
+        kw['patch_p'] = rk.patch_p_for(n_lanes)
+    lane = torch.empty(n_lanes, device=cuda)
+    acc, n_ev = rk.receive_megakernel(params, prim, txp, n_lanes=n_lanes,
+                                      seed=13, lane_out=lane, **kw)
+    nd = rk.n_draws(kw['max_depth'], 1, **rk.lobe_draws(kw['lobes']))
+    u = rk.philox_uniforms(13, nd, n_lanes, device=cuda)
+    lane_ref = torch.empty(n_lanes, device=cuda)
+    ill = torch.zeros(n_lanes, dtype=torch.bool, device=cuda)
+    amp = torch.zeros((rx.adc.n_time, 1), dtype=torch.float64, device=cuda)
+    ref, n_ref = rk.receive_megakernel_ref(
+        params, prim, txp, u, lane_out=lane_ref, ill_out=ill, amp_out=amp,
+        **kw)
+    _assert_lobe_parity(s, rx, kw, chain, acc, n_ev, ref, n_ref, amp, lane,
+                        lane_ref, ill)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('scene', ['window_thin', 'plastic', 'through',
+                                   'mask'])
+def test_receive_of_lobe_scenes_on_card_launches_k1(cuda, scene):
+    """receive() on the card runs the lobe twin once and no wavefront
+    pass, and agrees with the CPU's plain version on one seed: the peak
+    bin, and each bin within 1e-3 of the largest (the windowed corner:
+    its peak window's energy within 1e-2)."""
+    fn, depth, _ = LOBE_SCENES[scene]
+    s, rx = fn()
+    before = dict(rk.receive_megakernel.by_config)
+    a, n = receive(s, s.compile(device=cuda), rx, spp=1 << 16,
+                   max_depth=depth, seed=4, time_sampling='gate',
+                   device=cuda)
+    torch.cuda.synchronize()
+    assert rk.receive_megakernel.by_config['doppler_lobes'] \
+        == before['doppler_lobes'] + 1
+    b, m = receive(s, s.compile(device='cpu'), rx, spp=1 << 16,
+                   max_depth=depth, seed=4, time_sampling='gate',
+                   device='cpu')
+    p_gpu = develop_signal(a, n, rx.adc)[:, 0, 0].cpu()
+    p_cpu = develop_signal(b, m, rx.adc)[:, 0, 0]
+    pk = int(p_cpu.abs().argmax())
+    assert int(p_gpu.abs().argmax()) == pk
+    if LOBE_SCENES[scene][2]:
+        # the corner's bins sum signed WDF contributions that cancel to
+        # 1/8-1/80 of their magnitudes (test_lobe_kernels_match_plain_
+        # version holds them lane by lane): its peak window's energy
+        e_gpu = float(p_gpu[max(pk - 3, 0):pk + 4].abs().sum())
+        e_cpu = float(p_cpu[max(pk - 3, 0):pk + 4].abs().sum())
+        bins = float((p_gpu - p_cpu).abs().max()) \
+            / float(p_cpu.abs().max())
+        print(f'{scene}: card against CPU, peak window energy '
+              f'{abs(e_gpu - e_cpu) / e_cpu:.3e} of itself, bins '
+              f'{bins:.3e} of the largest')
+        assert abs(e_gpu - e_cpu) <= 1e-2 * e_cpu
+        return
+    assert float((p_gpu - p_cpu).abs().max()) \
+        <= 1e-3 * float(p_cpu.abs().max())
+
+
+@pytest.mark.gpu
+def test_windowed_corner_cpi_is_one_lobe_launch(cuda):
+    """A CPI of the windowed corner through receive_cpi on the card: one
+    launch of the coherent lobe twin, equal to the plain version's CPI
+    within the coherent bound, its peak on the unwindowed corner's."""
+    s, rx = scenes.window_corner_scene('thin')
+    before = rk.receive_megakernel_cpi.by_config['coherent_lobes']
+    kw = dict(n_pulses=4, prf=10.0, seed=9, spp=1 << 16, max_depth=6,
+              time_sampling='gate')
+    cube, n = receive_cpi(s, device=cuda, **kw)
+    torch.cuda.synchronize()
+    assert rk.receive_megakernel_cpi.by_config['coherent_lobes'] \
+        == before + 1
+    ref, m = receive_cpi(s, device='cpu', **kw)
+    assert n == m and cube.shape == ref.shape == (4, 64, 1, 4)
+    e_gpu = (cube[..., 0] ** 2 + cube[..., 1] ** 2).sum(0)[:, 0].cpu()
+    e_cpu = (ref[..., 0] ** 2 + ref[..., 1] ** 2).sum(0)[:, 0]
+    assert int(e_gpu.argmax()) == int(e_cpu.argmax())
+    s0, rx0 = scenes.window_corner_scene()
+    a, n0 = receive(s0, s0.compile(device=cuda), rx0, spp=1 << 16,
+                    max_depth=6, seed=9, time_sampling='gate', device=cuda)
+    assert abs(int(e_gpu.argmax())
+               - int(develop_signal(a, n0, rx0.adc)[:, 0, 0].argmax())) <= 1

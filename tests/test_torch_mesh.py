@@ -31,7 +31,8 @@ def twin_scene(pkg: str, R=4.0, n_side=9, clutter=0, second_mesh=False,
     Returns (scene, receiver spec)."""
     if pkg == 'jax':
         from beifong_tpu import scene as sc
-        from beifong_tpu.bsdf import conductor, dielectric, diffuse
+        from beifong_tpu.bsdf import (conductor, dielectric, diffuse, mask,
+                                      rough_plastic)
         from beifong_tpu.core import transform as tf
         from beifong_tpu.core.config import Band as B
         from beifong_tpu.geometry import shapes as sh
@@ -41,7 +42,8 @@ def twin_scene(pkg: str, R=4.0, n_side=9, clutter=0, second_mesh=False,
     else:
         from beifong_tpu_torch import scene as sc
         from beifong_tpu_torch.bsdf.tables import (conductor, dielectric,
-                                                   diffuse)
+                                                   diffuse, mask,
+                                                   rough_plastic)
         from beifong_tpu_torch.core import transform as tf
         from beifong_tpu_torch.core.config import Band as B
         from beifong_tpu_torch.geometry import shapes as sh
@@ -56,6 +58,12 @@ def twin_scene(pkg: str, R=4.0, n_side=9, clutter=0, second_mesh=False,
         s.add(conductor('metal'))
     elif mesh_bsdf == 'glass':
         s.add(dielectric('glass'))
+    elif mesh_bsdf == 'masked':
+        s.add(mask('masked', 'mat', opacity=0.5))
+    elif mesh_bsdf == 'rough_plastic':
+        # the rough plastic of the JAX package's plastic kernel test
+        s.add(rough_plastic('rough_plastic', diffuse_reflectance=0.8,
+                            alpha=0.4, int_ior=1.49, twosided=True))
     wf = pulse(f_centre=40e3, prf=10.0, pulse_len=2e-3, f_ext=2e3,
                is_delta=True)
     s.add(wigner_transmitter('tx', wf, resample_freq=True))
@@ -231,22 +239,24 @@ def test_out_of_scope_mesh_raises(kw, needle):
 
 
 def test_non_diffuse_mesh_is_out_of_scope():
-    """A smooth dielectric on the mesh (carried over by `interop`) is
-    outside the port kernel's scope (ROADMAP B5), though the JAX package's
-    kernel takes it; a smooth conductor, whose mirror chains the port's
-    kernel runs, is inside, built by either package."""
-    for bsdf, inside in (('glass', False), ('metal', True)):
+    """A smooth dielectric on the mesh (the lobe twins) and a smooth
+    conductor (the mirror chains), carried over by `interop` or built by
+    the port, are inside the port kernel's scope, as inside the JAX
+    package's kernel; a mask on the mesh is outside both (composites ride
+    rectangles only)."""
+    for bsdf, inside in (('glass', True), ('metal', True),
+                         ('masked', False)):
         s_j, rx_j = twin_scene('jax', mesh_bsdf=bsdf)
         s_t, rx_t = twin_scene('port', mesh_bsdf=bsdf)
         sd_j = s_j.compile(use_bvh=False)
         sd = scene_data_from_numpy(jax_leaves(sd_j), port_band(sd_j.band),
                                    device='cpu')
         why = []
-        assert pr.supported(sd_j, rx_j)
+        assert pr.supported(sd_j, rx_j) == inside
         assert rk.supported(sd, rx_t, why) == inside
         assert rk.supported(s_t.compile(device='cpu'), rx_t) == inside
         if not inside:
-            assert 'ROADMAP B5' in why[0]
+            assert 'triangle-mesh' in why[0]
 
 
 @pytest.mark.parametrize('spp, n', [(500, 1024), (3000, 2048), (4096, 4096)])

@@ -573,14 +573,14 @@ def test_receive_kernel_route_is_unchanged():
 @pytest.mark.parametrize('kw, needle', [
     (dict(polarized=True), 'ROADMAP A10'),
     # coherent calls are in the kernel's scope: the sphere rejects this one
-    pytest.param(dict(coherent=True, use_kernel=True), 'ROADMAP B5',
+    pytest.param(dict(coherent=True, use_kernel=True), 'ROADMAP B1',
                  id='kw1-ROADMAP B3'),
-    (dict(use_kernel=True), 'ROADMAP B5'),
+    pytest.param(dict(use_kernel=True), 'ROADMAP B1', id='kw2-ROADMAP B5'),
     (dict(sampler='stratified'), 'ROADMAP A2'),
 ])
 def test_out_of_scope_receive_raises(kw, needle):
     """The multi_body scene with a sphere, which the receive kernel does
-    not take (ROADMAP B5) and the wavefront does."""
+    not take (ROADMAP B1) and the wavefront does."""
     from beifong_tpu_torch.geometry import shapes as sh
     s, rx = bt.multi_body_scene()
     s.add(sh.sphere(center=(2.0, -6.0, 0.0), radius=0.3, bsdf='hull'))

@@ -15,10 +15,12 @@ lanes, depth 3, the mesh scene at 2^24 lanes, depth 2, and the Doppler
 configuration on multi_body (mesh) and the range-Doppler pulse
 (analytic), 2^24 lanes, depth 2, and the coherent configuration on pulse
 0 of the pulse train (analytic, depth 1) and the mesh scene (depth 2),
-2^24 lanes (one warm-up, then ten calls each).
+2^24 lanes (one warm-up, then ten calls each), and the host time of ten
+more calls of the wrapper, each from an idle card (the Python and launch
+work inside the timed window).
 Prints one JSON line per process, then a summary:
 per tree the median of the processes' medians and their spread, the
-ratio this / other, and the pairs this tree won.
+ratio this / other, the pairs this tree won, and the host times.
 
     python3 tools/tree_ab.py --other DIR --sass
 
@@ -39,6 +41,7 @@ import re
 import statistics
 import subprocess
 import sys
+import time
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -105,6 +108,14 @@ def child(root: str) -> dict:
             lambda i: rk.receive_megakernel(params, prim, txp, **kw),
             CALLS + 1)
         out[f'{name}_ms'] = ms[1:]
+        # the wrapper's host time a call, the card idle before each
+        host = []
+        for _ in range(CALLS):
+            t0 = time.perf_counter()
+            rk.receive_megakernel(params, prim, txp, **kw)
+            host.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+        out[f'{name}_host_ms'] = host
     return out
 
 
@@ -115,12 +126,10 @@ def library(root: str) -> str:
     return rk.build_library().path
 
 
-def sass_of(path: str, strip_flag: bool = False) -> dict:
+def sass_of(path: str) -> dict:
     """{kernel: [instructions]} of a library's K1 kernels, without
     addresses or encodings, keyed by name and template flags (the
-    mangled name carries a hash of the source's path); with `strip_flag`
-    a trailing false flag (the media twins' `MED`) is dropped, giving the
-    key the kernel had without the flag."""
+    mangled name carries a hash of the source's path)."""
     cuda = os.environ.get('CUDA_HOME', '/usr/local/cuda')
     out = subprocess.run([os.path.join(cuda, 'bin', 'cuobjdump'), '-sass',
                           path], capture_output=True, text=True,
@@ -131,8 +140,6 @@ def sass_of(path: str, strip_flag: bool = False) -> dict:
                       r'(I((?:Lb[01]E)+)E)?', line)
         if m:
             flags = re.findall(r'Lb([01])E', m.group(3) or '')
-            if strip_flag and flags and flags[-1] == '0':
-                flags = flags[:-1]
             key = f'{m.group(1)}<{",".join(flags)}>'
             funcs[key] = []
             continue
@@ -153,7 +160,12 @@ def sass_compare(other: str) -> dict:
                              text=True, cwd=HERE, timeout=900, check=True)
         paths[which] = [ln for ln in res.stdout.splitlines()
                         if ln.startswith('LIB ')][-1][4:]
-    a, b = sass_of(paths['other']), sass_of(paths['this'], strip_flag=True)
+    a, b = sass_of(paths['other']), sass_of(paths['this'])
+    # a kernel that gained a trailing template flag (the media twins' MED,
+    # the endpoint twins' EP, the lobe twins' LOB) keeps its old key where
+    # the flag is false
+    b = {(k if k in a or not k.endswith(',0>') or k[:-3] + '>' not in a
+          else k[:-3] + '>'): v for k, v in b.items()}
     out = {}
     for name in sorted(set(a) & set(b)):
         diff = [(x, y) for x, y in zip(a[name], b[name]) if x != y]
@@ -221,6 +233,9 @@ def main() -> int:
                                               / summary[f'{name}_other_ms'])
         summary[f'{name}_pairs_won_by_this'] = sum(
             b < a for a, b in zip(meds['other'], meds['this']))
+        for w, rs in runs.items():
+            summary[f'{name}_{w}_host_ms'] = statistics.median(
+                statistics.median(r[f'{name}_host_ms']) for r in rs)
     print(json.dumps(summary))
     return 0
 
