@@ -2362,6 +2362,682 @@ __global__ void receive_trace_kernel(const float* __restrict__ params,
         cfg);
 }
 
+// ---- the flagship kernel --------------------------------------------------
+//
+// The flagship configuration (analytic rectangles, one Wigner transmitter,
+// a Wigner or omni receiver, power, vacuum; receive_trace_kernel<false,
+// false, false> before) runs a kernel of its own.  Its lane is
+// trace_lane's, operation by operation; what differs is which thread runs
+// which part of which lane, and when.  Its parts were chosen by
+// tools/k1_mix.py (the SIMT models, the instruction mix),
+// tools/k1_clock.py (where a warp's cycles go) and tools/tree_ab.py pair
+// runs against the grid-stride kernel and ablations (PERF.md):
+//  - A wavefront inside each warp.  A lane is a receive ray, then
+//    vertices: a closest hit over the rectangles, and at a hit the direct
+//    hit or the NEE, the splat and the bounce.  Half of the traces miss and
+//    28% of the lanes end at depth 0, so a thread that follows one lane to
+//    its end, as the grid-stride loop does, leaves a warp issuing each
+//    stage for the few of its 32 lanes that need it: ~53% of the slots do
+//    work.  Here a warp keeps a pool of FLAG_POOL paths waiting to be
+//    shaded, in shared memory, and each turn of its loop runs one of two
+//    stages over 32 threads: SHADE (32 waiting paths, in slot order:
+//    direct hit or NEE, splat, bounce) when 32 wait, else RAY (the warp's
+//    next 32 lanes, lane = first + j + k stride as in the grid-stride
+//    loop), else the rest of SHADE; either traces the rays it made, and a
+//    hit waits in its slot (origin, throughput, direction, path length,
+//    receive time, hit, depth, lane: 16 floats) while a miss frees it.  The
+//    waiting set is two masks of 32 bits that every thread holds the same,
+//    updated with __reduce_or_sync.  A warp takes ~2 turns for 32 lanes,
+//    each 97-100% full.
+//  - Warp rows in a fixed order.  SHADE is a point that all 32 threads
+//    reach together, so the warp splats there: every tent tap goes to the
+//    warp's row of n_time doubles, the taps on one bin summed in lane order
+//    by one lane (flag_splat).  A warp's turns, and so every sum, follow
+//    from the data and the launch geometry alone: repeats are
+//    bit-identical.  A block's rows take 2 KB at 64 bins (the thread rows
+//    took 64 KB), so shared memory no longer sets occupancy.
+//  - Draws a stage at a time.  The Philox blocks a stage needs are
+//    computed at its start by every thread (FlagDraws), not at the draw
+//    site where a thread's cached block ran out, which differs by depth.
+//  - Tables laid out for the card.  Each rectangle is five float4s: its
+//    world-to-local rows, then its unit normal and reflectance, then its
+//    transmitter column; a test reads three LDS.128, and the normal's
+//    rsqrtf is taken once a block with trace_lane's expression.  The
+//    rectangles that can shadow an NEE (all but the transmitter's) have a
+//    list of their own.  The Wigner receiver's frame and lobe constants are
+//    computed once a block, with trace_lane's expressions.
+// The packed tables, the positional draws, the tent, the partial rows and
+// the reduce are the other configurations', so the plain version and the
+// CPI's pulse axis hold as they did.  The tags "[k1 stage: ...]" name each
+// stage for tools/k1_mix.py.
+constexpr int FLAG_THREADS = 128;   // four warps a block
+constexpr int FLAG_POOL = 64;       // paths a warp
+constexpr int FLAG_SLOT = 16;       // floats a path: four float4s
+constexpr int FLAG_REC = 5;         // float4s a rectangle
+constexpr unsigned FULL_MASK = 0xffffffffu;
+
+// Shared bytes of one warp's area: its paths, a turn's slots, the
+// splat's staging (two taps a lane), then its row of n_time doubles and
+// the splat's two bin masks of n_time words.
+__host__ __device__ constexpr int flag_row_offset() {
+    return 4 * (FLAG_POOL * FLAG_SLOT + 32 + 64);
+}
+__host__ __device__ constexpr int flag_warp_bytes(int n_time) {
+    return (flag_row_offset() + 16 * n_time + 15) & ~15;
+}
+constexpr int FLAG_RXC = 16;        // the Wigner receiver's constants
+// Shared bytes of a block's tables, ahead of the warps' areas: the
+// rectangles, the shadowing rectangles' rows, params, the transmitter row
+// and its unit normal, the receiver's constants, the prim rows, two
+// counts.
+__host__ __device__ constexpr int flag_table_bytes(int n_prims,
+                                                   int n_params) {
+    return (16 * (FLAG_REC + 3) * n_prims
+            + 4 * (n_params + TXP_COLS + 4 + FLAG_RXC + n_prims * PRIM_COLS
+                   + 4) + 15)
+           & ~15;
+}
+
+// Philox4x32-10 block g of a lane: Draws<false>'s key (the pulse read at
+// use) and counter.
+__device__ __forceinline__ uint4 flag_block(const Cfg& cfg, long long lane,
+                                            int g) {
+    unsigned long long k = cfg.seed;
+    if (cfg.seed_step != 0) k += cfg.seed_step * pulse_id();
+    return philox4x32_10(
+        make_uint4((uint32_t)lane, (uint32_t)(lane >> 32), (uint32_t)g, 0u),
+        make_uint2((uint32_t)k, (uint32_t)(k >> 32)));
+}
+
+// Uniform number x of a Philox word (Draws' top 24 bits).
+__device__ __forceinline__ float flag_unit(uint32_t x) {
+    return (float)(x >> 8) * F(1.0 / 16777216.0);
+}
+
+// The flagship kernel's draws: the positional stream of Draws<false>, word
+// for word, five draws a stage (RAY draws 0-4, SHADE d0 + 1 .. d0 + 5: its
+// NEE's three and its bounce's two), taken from the two Philox blocks
+// that hold them at the stage's start, where every thread of the warp
+// computes them.  Draws<false> caches the last block and computes one
+// where a draw leaves it, at the draw's own site: a SHADE turn mixes
+// depths, whose draws leave their blocks at different sites, so a warp ran
+// up to three Philox blocks a turn, each for some of its threads.
+// Injected uniforms are read as there.
+__device__ __forceinline__ void flag_draws5(const Cfg& cfg, const float* u,
+                                            long long lane, int first,
+                                            float* out) {
+    if (!cfg.use_prng) {
+#pragma unroll
+        for (int k = 0; k < 5; ++k)
+            out[k] = u[(long long)(first + k) * cfg.n_lanes + lane
+                       + pulse_id() * cfg.u_stride];
+        return;
+    }
+    const uint4 a = flag_block(cfg, lane, first >> 2);
+    const uint4 b = flag_block(cfg, lane, (first >> 2) + 1);
+    const uint32_t w[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+    const int o = first & 3;
+#pragma unroll
+    for (int k = 0; k < 5; ++k)
+        out[k] = flag_unit(o == 0 ? w[k] : o == 1 ? w[k + 1]
+                           : o == 2 ? w[k + 2] : w[k + 3]);
+}
+
+// One draw of a lane, its block computed here (the direct hit's draw d0,
+// at depth 0 only).
+__device__ __forceinline__ float flag_draw1(const Cfg& cfg, const float* u,
+                                            long long lane, int idx) {
+    if (!cfg.use_prng)
+        return u[(long long)idx * cfg.n_lanes + lane
+                 + pulse_id() * cfg.u_stride];
+    const uint4 w = flag_block(cfg, lane, idx >> 2);
+    const int k = idx & 3;
+    return flag_unit(k == 0 ? w.x : k == 1 ? w.y : k == 2 ? w.z : w.w);
+}
+
+// rect_hit on a rectangle's world-to-local rows held as float4s.
+__device__ __forceinline__ bool rect_hit4(const float4* q, float cx,
+                                          float cy, float cz, float dx,
+                                          float dy, float dz, float* t_out) {
+    const float4 a = q[0], b = q[1], c = q[2];
+    float oox = a.x * cx + a.y * cy + a.z * cz + a.w;
+    float ooy = b.x * cx + b.y * cy + b.z * cz + b.w;
+    float ooz = c.x * cx + c.y * cy + c.z * cz + c.w;
+    float odx = a.x * dx + a.y * dy + a.z * dz;
+    float ody = b.x * dx + b.y * dy + b.z * dz;
+    float odz = c.x * dx + c.y * dy + c.z * dz;
+    bool big = fabsf(odz) > F(1e-12);
+    float t_p = -ooz / (big ? odz : F(1e-12));
+    float px = oox + t_p * odx;
+    float py = ooy + t_p * ody;
+    *t_out = t_p;
+    return big && fabsf(px) <= 1.0f && fabsf(py) <= 1.0f;
+}
+
+// The sum of the values of a (nonempty) group of lanes, in lane order,
+// four loads in flight.
+__device__ __forceinline__ float group_sum(const float* vals, unsigned g) {
+    float s = vals[__ffs(g) - 1];
+    g &= g - 1u;
+    while (g != 0u) {
+        int l[4];
+        int n = 0;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+            l[q] = 0;
+            if (g != 0u) {
+                l[q] = __ffs(g) - 1;
+                g &= g - 1u;
+                n = q + 1;
+            }
+        }
+        float v[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) v[q] = vals[l[q]];
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+            if (q < n) s += v[q];
+    }
+    return s;
+}
+
+// The warp's tent splat of each thread's (val, yb) into its row (val 0:
+// nothing); every thread of the warp calls it.  Tap 0 of a lane goes to
+// bin floor(yb), tap 1 to floor(yb) + 1.  Each lane ORs its bit into the
+// mask of each tap's bin (a mask array a tap), so a bin's two masks are
+// its two groups of lanes, whatever order the ORs took.  One lane a bin
+// then adds to the row, in double, the sum of the bin's tap-0 group and
+// then that of its tap-1 group, each in lane order: the lowest lane of the
+// tap-0 group, or of the tap-1 group where the bin has no tap 0; it clears
+// the bin's masks.  The masks, not __match_any_sync (the same groups, the
+// same time: PERF.md), hold both taps' groups of a bin for that one lane.
+// [k1 splat]
+__device__ __forceinline__ void flag_splat(double* row, unsigned* masks,
+                                           float* vals, int n_time,
+                                           float val, float yb, int j) {
+    int i0 = -2;
+    float v0 = 0.0f, v1 = 0.0f;
+    if (val != 0.0f) {
+        float b0 = floorf(yb);
+        if (b0 >= -1.0f && b0 < (float)n_time) {   // also drops NaN
+            float b1 = b0 + 1.0f;
+            i0 = (int)b0;
+            v0 = val * fmaxf(1.0f - fabsf(yb - b0), 0.0f);
+            v1 = val * fmaxf(1.0f - fabsf(yb - b1), 0.0f);
+        }
+    }
+    if (!__any_sync(FULL_MASK, i0 != -2)) return;
+    const bool ok0 = i0 >= 0, ok1 = i0 != -2 && i0 + 1 < n_time;
+    unsigned* tap0 = masks;              // bin b's tap-0 group at tap0[b]
+    unsigned* tap1 = masks + n_time;     // and its tap-1 group at tap1[b]
+    if (ok0) atomicOr(tap0 + i0, 1u << j);
+    if (ok1) atomicOr(tap1 + i0 + 1, 1u << j);
+    vals[j] = v0;
+    vals[32 + j] = v1;
+    __syncwarp();
+    const unsigned lt = (1u << j) - 1u;
+    // bin i0 through tap 0, bin i0 + 1 through tap 1 where it has no tap 0
+    const unsigned g00 = ok0 ? tap0[i0] : 0u;
+    const unsigned g01 = ok0 ? tap1[i0] : 0u;
+    const unsigned g11 = ok1 ? tap1[i0 + 1] : 0u;
+    const bool lead0 = ok0 && (g00 & lt) == 0u;
+    const bool lead1 = ok1 && (g11 & lt) == 0u && tap0[i0 + 1] == 0u;
+    __syncwarp();
+    if (lead0) {
+        double r = row[i0] + (double)group_sum(vals, g00);
+        if (g01 != 0u) r = r + (double)group_sum(vals + 32, g01);
+        row[i0] = r;
+        tap0[i0] = 0u;
+        tap1[i0] = 0u;
+    }
+    if (lead1) {
+        row[i0 + 1] = row[i0 + 1] + (double)group_sum(vals + 32, g11);
+        tap1[i0 + 1] = 0u;
+    }
+}
+
+__global__ void __launch_bounds__(FLAG_THREADS)
+receive_flagship_kernel(const float* __restrict__ params,
+                        const float* __restrict__ prim,
+                        const float* __restrict__ txp,
+                        const float* __restrict__ msh,
+                        const float* __restrict__ uniforms, bvh::Tables mesh,
+                        float* __restrict__ lane_val,
+                        double* __restrict__ partial,
+                        unsigned long long* __restrict__ part_ev, Cfg cfg) {
+    extern __shared__ float4 fsm[];
+    const int T = blockDim.x, tid = threadIdx.x, j = tid & 31;
+    const long long pulse = blockIdx.y;
+    const int np = cfg.n_prims;
+    params += pulse * cfg.n_params;
+    prim += pulse * np * PRIM_COLS;
+    txp += pulse * TXP_COLS;
+    float4* s_rec = fsm;
+    float4* s_blk = s_rec + FLAG_REC * np;
+    float* s_par = reinterpret_cast<float*>(s_blk + 3 * np);
+    float* s_tx = s_par + cfg.n_params;      // its row, then its unit normal
+    float* s_rxc = s_tx + TXP_COLS + 4;      // the receiver's constants
+    float* s_prim = s_rxc + FLAG_RXC;
+    int* s_cnt = reinterpret_cast<int*>(s_prim + np * PRIM_COLS);
+    char* s_warps = reinterpret_cast<char*>(fsm)
+                    + flag_table_bytes(np, cfg.n_params);
+    const int wbytes = flag_warp_bytes(cfg.n_time);
+    float* w_slots = reinterpret_cast<float*>(s_warps + (tid >> 5) * wbytes);
+    int* w_take = reinterpret_cast<int*>(w_slots + FLAG_POOL * FLAG_SLOT);
+    float* w_vals = reinterpret_cast<float*>(w_take + 32);
+    double* w_row = reinterpret_cast<double*>(
+        reinterpret_cast<char*>(w_slots) + flag_row_offset());
+    unsigned* w_mask = reinterpret_cast<unsigned*>(w_row + cfg.n_time);
+
+    for (int i = tid; i < cfg.n_params; i += T) s_par[i] = params[i];
+    for (int i = tid; i < TXP_COLS; i += T) s_tx[i] = txp[i];
+    for (int i = tid; i < np * PRIM_COLS; i += T) s_prim[i] = prim[i];
+    for (int i = j; i < cfg.n_time; i += 32) w_row[i] = 0.0;
+    for (int i = j; i < 2 * cfg.n_time; i += 32) w_mask[i] = 0u;
+    __syncthreads();
+    if (tid == 0) {
+        // the rectangles in prim order, and those that can shadow an NEE
+        // (the transmitter's own, tx index 0 in column 14, never does)
+        int nr = 0, nb = 0;
+        for (int p = 0; p < np; ++p) {
+            const float* row = s_prim + p * PRIM_COLS;
+            if ((int)row[0] != RECTANGLE) continue;
+            const float* q = row + 1;
+            float rnorm = rsqrtf(fmaxf(q[8] * q[8] + q[9] * q[9]
+                                       + q[10] * q[10], F(1e-20)));
+            float4* r = s_rec + FLAG_REC * nr++;
+            r[0] = make_float4(q[0], q[1], q[2], q[3]);
+            r[1] = make_float4(q[4], q[5], q[6], q[7]);
+            r[2] = make_float4(q[8], q[9], q[10], q[11]);
+            r[3] = make_float4(q[8] * rnorm, q[9] * rnorm, q[10] * rnorm,
+                               row[13]);
+            r[4] = make_float4(row[14], 0.0f, 0.0f, 0.0f);
+            if (row[14] != 0.0f) {
+                float4* b = s_blk + 3 * nb++;
+                b[0] = r[0];
+                b[1] = r[1];
+                b[2] = r[2];
+            }
+        }
+        s_cnt[0] = nr;
+        s_cnt[1] = nb;
+        const float* m = s_tx;
+        float tnn = rsqrtf(fmaxf(m[2] * m[2] + m[6] * m[6] + m[10] * m[10],
+                                 F(1e-20)));
+        s_tx[TXP_COLS] = m[2] * tnn;
+        s_tx[TXP_COLS + 1] = m[6] * tnn;
+        s_tx[TXP_COLS + 2] = m[10] * tnn;
+        // the Wigner receiver's frame and lobe mixture, trace_lane's
+        // expressions: they depend on the tables alone
+        const float* rxm = s_par + 2;
+        const float rx_wx = s_par[14], rx_wy = s_par[15];
+        float nzx = rxm[2], nzy = rxm[6], nzz = rxm[10];
+        float nn = rsqrtf(nzx * nzx + nzy * nzy + nzz * nzz);
+        nzx = nzx * nn;
+        nzy = nzy * nn;
+        nzz = nzz * nn;
+        float lam0 = s_par[1] / fmaxf(cfg.f_rx, F(1e-6));
+        float w_mn = fminf(rx_wx, rx_wy);
+        float q = 2.0f * w_mn / (F(0.6) * lam0);
+        float k_l = fmaxf(2.0f * (q * q) - 2.0f, 0.0f);
+        float sign = sgn_ge(nzz);
+        float a = -1.0f / (sign + nzz);
+        float b = nzx * nzy * a;
+        float* rc = s_rxc;
+        rc[0] = nzx;
+        rc[1] = nzy;
+        rc[2] = nzz;
+        rc[3] = 4.0f * rx_wx * rx_wy;                         // area
+        rc[4] = k_l;
+        rc[5] = k_l + 1.0f;
+        rc[6] = 0.5f * (k_l + 1.0f) * F(1.0 / 6.283185307179586);
+        rc[7] = lam0;
+        rc[8] = 1.0f + sign * nzx * nzx * a;                  // s1
+        rc[9] = sign * b;
+        rc[10] = -sign * nzx;
+        rc[11] = b;                                           // s2
+        rc[12] = sign + nzy * nzy * a;
+        rc[13] = -nzy;
+    }
+    __syncthreads();
+
+    const float TP = F(6.283185307179586);
+    const float* sp = s_par;
+    const int n_rect = s_cnt[0], n_blk = s_cnt[1];
+    const int base = cfg.omni ? 3 : 5;        // trace_lane's r0 + 2 or r0 + 4
+    unsigned int events = 0;
+    const long long stride = (long long)gridDim.x * T;
+    long long next = (long long)blockIdx.x * T + (tid & ~31);
+    const unsigned lt = (1u << j) - 1u;
+    // the slots whose paths wait for SHADE, the same in every thread (bit
+    // s of the pair: slot s); the others are free
+    unsigned sh_lo = 0u, sh_hi = 0u;
+    for (;;) {
+        // [k1 stage: sched]  the turn: SHADE when 32 paths wait for it,
+        // else RAY for the warp's next lanes (at most 31 paths wait, so
+        // 33 slots are free), else the rest of SHADE, else done
+        __syncwarp();
+        const int n_sh = __popc(sh_lo) + __popc(sh_hi);
+        const int n_new = next < cfg.n_lanes
+                              ? (int)min(32LL, cfg.n_lanes - next) : 0;
+        const bool shade = n_sh >= 32 || (n_new == 0 && n_sh > 0);
+        if (!shade && n_new == 0) break;
+        // thread j's slots j and j + 32 in the turn's set (SHADE: the
+        // waiting paths, RAY: the free slots) and their ranks in slot
+        // order: the turn's k-th slot goes to thread k
+        const unsigned m0 = shade ? sh_lo : ~sh_lo;
+        const unsigned m1 = shade ? sh_hi : ~sh_hi;
+        if ((m0 >> j) & 1u) w_take[__popc(m0 & lt)] = j;
+        const int r1 = __popc(m0) + __popc(m1 & lt);
+        if (((m1 >> j) & 1u) && r1 < 32) w_take[r1] = j + 32;
+        __syncwarp();
+        const int n_go = shade ? min(32, n_sh) : n_new;
+        const int slot = j < n_go ? w_take[j] : -1;
+        float* sl = w_slots + FLAG_SLOT * (slot < 0 ? 0 : slot);
+        float4* sl4 = reinterpret_cast<float4*>(sl);
+        // the turn's lane and its five draws: RAY a new lane's draws 0-4,
+        // SHADE its path's d0 + 1 .. d0 + 5 (the slot's lane and depth)
+        long long lane = next + j;
+        int depth = 0;
+        if (shade && slot >= 0) {
+            const float4 e = sl4[3];
+            lane = (long long)(((unsigned long long)__float_as_uint(e.y)
+                                << 32)
+                               | __float_as_uint(e.x));
+            depth = __float_as_int(sl4[2].w);
+        }
+        const int d0 = base + 6 * depth;
+        float u5[5];
+        // [k1 stage: draws]
+        if (slot >= 0)
+            flag_draws5(cfg, uniforms, lane, shade ? d0 + 1 : 0, u5);
+        // [k1 stage: sched]
+
+        // the path this turn traces: a new lane's ray (RAY) or the bounce
+        // of a shaded one (SHADE); its state
+        bool live = false;
+        float ox = 0.0f, oy = 0.0f, oz = 0.0f, dx = 0.0f, dy = 0.0f,
+              dz = 0.0f, thr = 0.0f, plen = 0.0f, t_rx0 = 0.0f;
+        float val = 0.0f, yb = 0.0f;       // SHADE: the contribution
+        if (!shade) {
+            if (slot >= 0) {
+                // [k1 stage: ray]  trace_lane's receive ray (draws 0..4)
+                const float* rxm = sp + 2;
+                const float rx_wx = sp[14], rx_wy = sp[15];
+                t_rx0 = cfg.gate ? 0.0f
+                                 : cfg.t_start + u5[0] * cfg.t_window;
+                const int r0 = 1;
+                if (cfg.omni) {
+                    ox = rxm[3];
+                    oy = rxm[7];
+                    oz = rxm[11];
+                    float u1 = u5[r0], u2 = u5[r0 + 1];
+                    float z = 1.0f - 2.0f * u1;
+                    float r = sqrtf(fmaxf(1.0f - z * z, 0.0f));
+                    float ph = TP * u2;
+                    dx = r * fast_cos(ph);
+                    dy = r * fast_sin(ph);
+                    dz = z;
+                    thr = F(4.0 * 3.141592653589793) * sp[32];
+                } else {
+                    float u1 = u5[r0], u2 = u5[r0 + 1];
+                    float lx = 2.0f * u1 - 1.0f, ly = 2.0f * u2 - 1.0f;
+                    ox = rxm[0] * lx + rxm[1] * ly + rxm[3];
+                    oy = rxm[4] * lx + rxm[5] * ly + rxm[7];
+                    oz = rxm[8] * lx + rxm[9] * ly + rxm[11];
+                    const float* rc = s_rxc;
+                    const float nzx = rc[0], nzy = rc[1], nzz = rc[2];
+                    float u3 = u5[r0 + 2], u4 = u5[r0 + 3];
+                    bool pick = u3 >= 0.5f;
+                    float u0m = pick ? 2.0f * u3 - 1.0f : 2.0f * u3;
+                    float ph = TP * u4;
+                    float ct_c = sqrtf(fmaxf(1.0f - u0m, 0.0f));
+                    float ct_l = expf(logf(fmaxf(u0m, F(1e-12))) / rc[5]);
+                    float tz = pick ? ct_l : ct_c;
+                    float st = sqrtf(fmaxf(1.0f - tz * tz, 0.0f));
+                    float tx_ = st * fast_cos(ph);
+                    float ty_ = st * fast_sin(ph);
+                    float cosk = expf(rc[4] * logf(fmaxf(tz, F(1e-12))));
+                    float pdf_d = 0.5f * tz * F(1.0 / 3.141592653589793)
+                                  + rc[6] * cosk;
+                    float w0 = (tz / fmaxf(pdf_d, F(1e-30))) * rc[3] * sp[32];
+                    dx = rc[8] * tx_ + rc[11] * ty_ + nzx * tz;
+                    dy = rc[9] * tx_ + rc[12] * ty_ + nzy * tz;
+                    dz = rc[10] * tx_ + rc[13] * ty_ + nzz * tz;
+                    float lam = rc[7];
+                    float nu_x = (rxm[0] * dx + rxm[4] * dy + rxm[8] * dz)
+                                 / fmaxf(rx_wx, F(1e-9)) / lam;
+                    float nu_y = (rxm[1] * dx + rxm[5] * dy + rxm[9] * dz)
+                                 / fmaxf(rx_wy, F(1e-9)) / lam;
+                    float trx = tri_f(lx * 0.5f), try_ = tri_f(ly * 0.5f);
+                    thr = w0 * (4.0f * trx * try_
+                                * sinc_f(TP * nu_x * rx_wx * trx)
+                                * sinc_f(TP * nu_y * rx_wy * try_));
+                    ox = ox + F(1e-4) * nzx;
+                    oy = oy + F(1e-4) * nzy;
+                    oz = oz + F(1e-4) * nzz;
+                }
+                live = true;
+            }
+            next += stride;
+        } else if (slot >= 0) {
+            // [k1 stage: hit]  the path from its slot, the hit point
+            const float4 a = sl4[0], b = sl4[1], c = sl4[2];
+            const float cx = a.x, cy = a.y, cz = a.z;
+            thr = a.w;
+            dx = b.x;
+            dy = b.y;
+            dz = b.z;
+            t_rx0 = c.x;
+            const float tb = c.y;
+            const int pw = __float_as_int(c.z);
+            const float4 nrb = s_rec[FLAG_REC * pw + 3];
+            const float nx = nrb.x, ny = nrb.y, nz = nrb.z, rb = nrb.w;
+            const float txc = s_rec[FLAG_REC * pw + 4].x;
+            const float cvel = sp[1];
+            const float n_time_f = (float)cfg.n_time;
+            const float t_start = cfg.t_start, t_window = cfg.t_window;
+            Tx tx;
+            tx.m = s_tx;
+            tx.wx = s_tx[12];
+            tx.wy = s_tx[13];
+            tx.area = s_tx[14];
+            tx.gain = s_tx[15];
+            tx.wf = s_tx[16];
+            tx.amp = s_tx[17];
+            tx.prf = s_tx[18];
+            tx.text = s_tx[19];
+            tx.fc = s_tx[20];
+            tx.fext = s_tx[21];
+            tx.nx = s_tx[TXP_COLS];
+            tx.ny = s_tx[TXP_COLS + 1];
+            tx.nz = s_tx[TXP_COLS + 2];
+            const float* m = tx.m;
+            plen = b.w + tb;
+            float hx = cx + tb * dx, hy = cy + tb * dy, hz = cz + tb * dz;
+
+            // [k1 stage: direct]  direct transmitter hits at depth 0
+            if (depth == 0) {
+                float cos_dh = -(dx * tx.nx + dy * tx.ny + dz * tx.nz);
+                if (txc == 0.0f && cos_dh > 0.0f) {
+                    float te_h, tr_h, wg_h;
+                    tx.emission(plen / cvel,
+                                flag_draw1(cfg, uniforms, lane, d0), t_rx0,
+                                cfg.gate,
+                                t_start, t_window, &te_h, &tr_h, &wg_h,
+                                nullptr);
+                    float fe_h = tx.inst_freq(te_h);
+                    float sig_h = tx.eval_wdf(te_h, fe_h);
+                    float lam_h = cvel / fmaxf(fe_h, F(1e-6));
+                    float lxh = ((hx - m[3]) * m[0] + (hy - m[7]) * m[4]
+                                 + (hz - m[11]) * m[8])
+                                / fmaxf(tx.wx * tx.wx, F(1e-12));
+                    float lyh = ((hx - m[3]) * m[1] + (hy - m[7]) * m[5]
+                                 + (hz - m[11]) * m[9])
+                                / fmaxf(tx.wy * tx.wy, F(1e-12));
+                    float ap_h = tx.aperture(lxh, lyh, dx, dy, dz, lam_h);
+                    float w_dh = sig_h * tx.gain * ap_h * TP;
+                    val = thr * w_dh * wg_h;
+                    yb = (tr_h - t_start) / t_window * n_time_f - 0.5f;
+                    events += val != 0.0f;
+                }
+            }
+
+            // [k1 stage: nee]  NEE to the transmitter (only from
+            // non-transmitter hits)
+            if (txc < 0.0f) {
+                float glx = 2.0f * u5[0] - 1.0f;
+                float gly = 2.0f * u5[1] - 1.0f;
+                float qx = m[0] * glx + m[1] * gly + m[3];
+                float qy = m[4] * glx + m[5] * gly + m[7];
+                float qz = m[8] * glx + m[9] * gly + m[11];
+                float vx = qx - hx, vy = qy - hy, vz = qz - hz;
+                float dist2 = vx * vx + vy * vy + vz * vz;
+                float dist = sqrtf(fmaxf(dist2, F(1e-20)));
+                float inv_d = 1.0f / dist;
+                float wx_ = vx * inv_d, wy_ = vy * inv_d,
+                      wz_ = vz * inv_d;
+                float cos_tx = -(wx_ * tx.nx + wy_ * tx.ny + wz_ * tx.nz);
+                if (cos_tx > F(1e-6)) {
+                    float pdf_sa = (1.0f / fmaxf(tx.area, F(1e-12)))
+                                   * dist2 / fmaxf(cos_tx, F(1e-6));
+                    float cos_s = wx_ * nx + wy_ * ny + wz_ * nz;
+                    float sg = sgn_ge(-dx * nx + -dy * ny + -dz * nz);
+                    float co = wx_ * (nx * sg) + wy_ * (ny * sg)
+                               + wz_ * (nz * sg);
+                    float f_cos = rb * F(1.0 / 3.141592653589793)
+                                  * fmaxf(co, 0.0f);
+                    float t_emit, t_recv, w_gate;
+                    tx.emission((plen + dist) / cvel, u5[2],
+                                t_rx0, cfg.gate, t_start, t_window,
+                                &t_emit, &t_recv, &w_gate, nullptr);
+                    float f_emit = tx.inst_freq(t_emit);
+                    float sig = tx.eval_wdf(t_emit, f_emit);
+                    float ap = tx.aperture(glx, gly, wx_, wy_, wz_,
+                                           cvel / fmaxf(f_emit, F(1e-6)));
+                    float w_tx = sig * tx.gain * ap * TP;
+                    float off = F(1e-4) * sign0(cos_s);
+                    float sx = hx + off * nx, sy = hy + off * ny,
+                          sz = hz + off * nz;
+                    float limit = dist * F(0.999);
+                    // [k1 stage: shadow]
+                    bool occ = false;
+                    for (int r = 0; r < n_blk && !occ; ++r) {
+                        float t_p;
+                        bool hit_p = rect_hit4(s_blk + 3 * r, sx, sy, sz,
+                                               wx_, wy_, wz_, &t_p);
+                        occ = hit_p && t_p > F(1e-4) && t_p < limit;
+                    }
+                    // [k1 stage: nee]
+                    if (!occ && pdf_sa > 0.0f) {
+                        val = thr * f_cos * w_tx * w_gate
+                              / fmaxf(pdf_sa, F(1e-30));
+                        yb = (t_recv - t_start) / t_window * n_time_f
+                             - 0.5f;
+                        events += val != 0.0f;
+                    }
+                }
+            }
+
+            // [k1 stage: bounce]  the diffuse bounce: cosine
+            // hemisphere about the flipped normal (none after the
+            // last depth, from an absorbing hit or on the transmitter)
+            if (depth < cfg.max_depth - 1 && rb > 0.0f && txc < 0.0f) {
+                float u8 = u5[3], u9 = u5[4];           // draws d0 + 4, 5
+                float face = -(dx * nx + dy * ny + dz * nz);
+                float sgn = sgn_ge(face);
+                float fx = nx * sgn, fy = ny * sgn, fz = nz * sgn;
+                float sign = sgn_ge(fz);
+                float a2 = -1.0f / (sign + fz);
+                float b2 = fx * fy * a2;
+                float s1x = 1.0f + sign * fx * fx * a2, s1y = sign * b2,
+                      s1z = -sign * fx;
+                float s2x = b2, s2y = sign + fy * fy * a2, s2z = -fy;
+                float rr2 = sqrtf(u8);
+                float ph2 = TP * u9;
+                float bx = rr2 * fast_cos(ph2), by = rr2 * fast_sin(ph2);
+                float bz = sqrtf(fmaxf(1.0f - u8, 0.0f));
+                dx = s1x * bx + s2x * by + fx * bz;
+                dy = s1y * bx + s2y * by + fy * bz;
+                dz = s1z * bx + s2z * by + fz * bz;
+                thr = thr * rb;
+                ox = hx + F(1e-4) * fx;
+                oy = hy + F(1e-4) * fy;
+                oz = hz + F(1e-4) * fz;
+                depth = depth + 1;
+                live = true;
+            }
+        }
+
+        // [k1 stage: trace]  the closest rectangle of the turn's rays; a
+        // hit waits in its slot for SHADE, a miss frees it
+        bool hit = false;
+        if (live) {
+            float tb = F(3.4e38);
+            int pw = -1;
+            for (int r = 0; r < n_rect; ++r) {
+                // [k1 stage: closest]
+                float t_p;
+                bool hit_p = rect_hit4(s_rec + FLAG_REC * r, ox, oy, oz, dx,
+                                       dy, dz, &t_p);
+                if (hit_p && t_p > F(1e-4) && t_p < tb) {
+                    tb = t_p;
+                    pw = r;
+                }
+            }
+            // [k1 stage: trace]
+            hit = tb < F(3.4e37);
+            if (hit) {
+                const unsigned long long ln = (unsigned long long)lane;
+                sl4[0] = make_float4(ox, oy, oz, thr);
+                sl4[1] = make_float4(dx, dy, dz, plen);
+                sl4[2] = make_float4(t_rx0, tb, __int_as_float(pw),
+                                     __int_as_float(depth));
+                sl4[3] = make_float4(__uint_as_float((unsigned)ln),
+                                     __uint_as_float((unsigned)(ln >> 32)),
+                                     0.0f, 0.0f);
+            }
+        }
+        // [k1 stage: sched]  the waiting set: the turn's slots leave it,
+        // those whose ray hit join it
+        const bool lo = slot >= 0 && slot < 32, hi = slot >= 32;
+        const unsigned bit = 1u << (slot & 31);
+        sh_lo = (sh_lo & ~__reduce_or_sync(FULL_MASK, lo ? bit : 0u))
+                | __reduce_or_sync(FULL_MASK, lo && hit ? bit : 0u);
+        sh_hi = (sh_hi & ~__reduce_or_sync(FULL_MASK, hi ? bit : 0u))
+                | __reduce_or_sync(FULL_MASK, hi && hit ? bit : 0u);
+        if (shade) {
+            // [k1 stage: splat]
+            flag_splat(w_row, w_mask, w_vals, cfg.n_time, val, yb, j);
+        }
+    }
+    // [k1 stage: end]
+    __syncthreads();
+
+    // the block's row: its warps' rows summed in warp order; its events
+    partial += pulse * gridDim.x * (long long)cfg.n_time;
+    part_ev += pulse * gridDim.x;
+    for (int b = tid; b < cfg.n_time; b += T) {
+        double s = 0.0;
+        for (int w = 0; w < T / 32; ++w)
+            s += reinterpret_cast<const double*>(
+                s_warps + w * wbytes + flag_row_offset())[b];
+        partial[(long long)blockIdx.x * cfg.n_time + b] = s;
+    }
+    __syncthreads();
+    unsigned long long ev = events;
+    for (int off = 16; off > 0; off >>= 1)
+        ev += __shfl_down_sync(FULL_MASK, ev, off);
+    unsigned long long* s_ev = reinterpret_cast<unsigned long long*>(fsm);
+    if (j == 0) s_ev[tid >> 5] = ev;
+    __syncthreads();
+    if (tid == 0) {
+        unsigned long long tot = 0;
+        for (int w = 0; w < T / 32; ++w) tot += s_ev[w];
+        part_ev[blockIdx.x] = tot;
+    }
+}
+
 // The Doppler family (power or coherent) runs 128-thread blocks held to
 // 128 registers, four blocks an SM: unbounded, the receive types took the
 // Doppler mesh instantiation to 135 registers, three blocks an SM, and
@@ -2411,6 +3087,8 @@ constexpr auto kernel_of() {
         return receive_mimo_kernel<MED, EP>;
     else if constexpr (DOP)
         return receive_doppler_kernel<MESH, COH, MED, EP, LOB>;
+    else if constexpr (!MESH && !MED && !EP)
+        return receive_flagship_kernel;
     else
         return receive_trace_kernel<MESH, MED, EP>;
 }
@@ -2472,6 +3150,11 @@ int geometry(int n_time, int n_freq, long long n_lanes, int n_prims,
                                     : 0;
         smem = (int)(4 * (n_params + n_prims * PRIM_COLS + TX_FLOATS
                           + n_msh * MSH_COLS + cells));
+    } else if (!MESH && !MED && !EP) {
+        // the flagship kernel: its tables, then each warp's paths and row
+        T = FLAG_THREADS;
+        smem = flag_table_bytes(n_prims, n_params)
+               + (T / 32) * flag_warp_bytes(n_time);
     } else {
         T = threads_for(n_time);
         if (T < 32) return (int)cudaErrorInvalidValue;
@@ -2710,9 +3393,14 @@ int rk_launch(const float* params, const float* prim, const float* txp,
                 <<<blocks_grid, threads, smem_bytes, s>>>(
                     params, prim, txp, msh, uniforms, mesh, lane_val,
                     partial, part_ev, cfg, rxph, eoff);
-        else if (mode == 0)
-            m ? launch(receive_trace_kernel<true, MED, EP>, lane_val)
-              : launch(receive_trace_kernel<false, MED, EP>, nullptr);
+        else if (mode == 0) {
+            if (m)
+                launch(receive_trace_kernel<true, MED, EP>, lane_val);
+            else if constexpr (!MED && !EP)
+                launch(receive_flagship_kernel, nullptr);
+            else
+                launch(receive_trace_kernel<false, MED, EP>, nullptr);
+        }
         else if (coh)
             m ? launch(receive_doppler_kernel<true, true, MED, EP>, lane_val)
               : launch(receive_doppler_kernel<false, true, MED, EP>,

@@ -7,13 +7,18 @@ Phases (any failure exits non-zero before the last line is printed):
 
 1. device  - a CUDA card must be present; prints its name and power limit;
 2. build   - compiles every CUDA source of the main paths from `csrc/`
-             (one nvcc per source, all started together) and prints the
-             build times and ptxas' registers and spills of every kernel
-             and configuration;
+             (one nvcc per source, all started together, and a -lineinfo
+             cubin of the receive kernel for the flagship's instruction
+             mix) and prints the build times and ptxas' registers and
+             spills of every kernel and configuration;
 3. parity  - each kernel against its plain PyTorch version on the card:
              the receive megakernel's flagship configuration on seeded
              (n_draws, 2^18) uniforms at depth 3 in gate and fixed time
-             sampling and in Philox mode at 2^28 lanes; its mesh
+             sampling and in Philox mode at 2^28 lanes, its launch
+             geometry, registers, SASS mix by class and stage and the
+             issue-slot bound of the lane stages' fewest instructions
+             beside the FP32 bound (`tools/k1_mix.py`);
+             its mesh
              configuration on the 10,082-triangle mesh scene, depth 2, on
              injected uniforms at 2^16 lanes (no strata) and 2^20 lanes
              (1024 tiles, 32 x 32 strata) and in Philox mode at 2^20
@@ -438,7 +443,8 @@ def print_build(infos: dict, tag: str) -> None:
     # in Lb0ELb0EE, Lb1ELb0EE for its media twin, Lb0ELb1EE for its
     # endpoint twin; the Doppler family's in a third flag, Lb1E for its
     # lobe twin)
-    k1 = {'receive_trace_kernelILb0E': 'flagship',
+    k1 = {'receive_flagship_kernel': 'flagship',
+          'receive_trace_kernelILb0E': 'flagship',
           'receive_trace_kernelILb1E': 'mesh',
           'receive_doppler_kernelILb0ELb0E': 'doppler',
           'receive_doppler_kernelILb1ELb0E': 'doppler mesh',
@@ -447,6 +453,8 @@ def print_build(infos: dict, tag: str) -> None:
           'receive_mimo_kernelI': 'mimo'}
     names = {}
     for k, v in k1.items():
+        if k == 'receive_flagship_kernel':
+            continue
         for m, e, lob in ((0, 0, 0), (1, 0, 0), (0, 1, 0), (0, 0, 1)):
             if lob and 'doppler' not in k:
                 continue
@@ -455,6 +463,7 @@ def print_build(infos: dict, tag: str) -> None:
                 f'receive_megakernel ({v}' + (' media)' if m else
                                               ' endpoints)' if e else
                                               ' lobes)' if lob else ')'))
+    names['receive_flagship_kernel'] = 'receive_megakernel (flagship)'
     names.update({
              'receive_reduce_kernel': 'receive reduce',
              'bvh_closest_kernel': 'bvh_closest', 'bvh_any_kernel': 'bvh_any',
@@ -473,7 +482,60 @@ def print_build(infos: dict, tag: str) -> None:
                 print(f'  ptxas {fn}: {line.strip()}')
 
 
-def flagship(torch, bt, rk, dev, tag, pulse_compress) -> dict:
+def flagship_mix(dev, tag, build_log: str, cubin: str, n_rect: int,
+                 blocks: int, threads: int, sms: int) -> dict:
+    """The flagship kernel's registers and spills (ptxas), its SASS
+    instruction mix by class and stage (`tools/k1_mix.py`, the stage
+    entries of the plain version at 2^16 lanes) and the function's
+    issue-slot bound at the main path's lanes: the fewest thread-
+    instructions a lane measured for the lane stages alone, so that the
+    kernel's own bookkeeping (its turns) does not raise its bound."""
+    sys.path.insert(0, os.path.join(HERE, 'tools'))
+    import k1_mix
+    fn, regs = '?', []
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            fn = m.group(1)
+        elif 'receive_flagship_kernel' in fn and (
+                'registers' in line or 'spill' in line):
+            regs.append(line.strip())
+    print(f'receive_megakernel (flagship) ptxas: {" | ".join(regs)} {tag}')
+    print(f'receive_megakernel (flagship) occupancy: {blocks / sms:g} '
+          f'blocks, {blocks * threads / 32 / sms:g} warps an SM {tag}')
+    assert (k1_mix.DEPTH, k1_mix.SEED) == (MAX_DEPTH, SEED)
+    masks, _ = k1_mix.stage_masks(1 << 16, device=dev.type)
+    a = k1_mix.per_lane(masks, 1 << 16)
+    mix = k1_mix.sass_mix(cubin, k1_mix.source_of(HERE),
+                          'receive_flagship_kernel', a, n_rect,
+                          os.path.join(HERE, 'chiprun_out',
+                                       'k1_sass_flagship.txt'))
+    _, _, mhz, _ = k1_mix.card_clock_mhz()
+    ti = mix['thread_instructions_a_lane']
+    bi = mix['bound_instructions_a_lane']
+    issue_ms = k1_mix.issue_slot_bound_ms(bi, N_LANES, mhz, sms)
+    print(f'receive_megakernel (flagship) SASS: {mix["instructions"]} '
+          f'instructions; by class a lane ' + json.dumps(
+              {k: round(v, 1) for k, v in
+               mix['thread_instructions_a_lane_by_class'].items()}))
+    print('receive_megakernel (flagship) SASS by stage a lane ' + json.dumps(
+        {k: round(v, 1) for k, v in
+         mix['thread_instructions_a_lane_by_stage'].items()}))
+    print(f'receive_megakernel (flagship) issues {ti:.1f} '
+          f'thread-instructions a lane, '
+          f'{mix["stage_instructions_a_lane"]:.1f} in the lane stages '
+          f'{tag}')
+    print(f'bound flagship 2^28 lanes, issue slots: {bi:.1f} '
+          f'thread-instructions a lane (the fewest measured for the lane '
+          f'stages) / 32 over {sms} SMs x 4 schedulers at {mhz:g} MHz = '
+          f'{issue_ms:.4f} ms {tag}')
+    return {'issue_slot_bound_ms': float(issue_ms),
+            'thread_instructions_a_lane': float(ti),
+            'bound_instructions_a_lane': float(bi)}
+
+
+def flagship(torch, bt, rk, dev, tag, pulse_compress, build_log: str,
+             cubin: str) -> dict:
     from beifong_tpu_torch.scenes import flagship_scene, round_trip_bin
     s, rx = flagship_scene()
     sd = s.compile(device=dev)
@@ -486,7 +548,8 @@ def flagship(torch, bt, rk, dev, tag, pulse_compress) -> dict:
     blocks, threads, smem = rk.launch_geometry(64, N_LANES, 4)
     print(f'receive_megakernel (flagship) geometry at 2^28 lanes: {blocks} '
           f'blocks x {threads} threads, {smem} B shared each, '
-          f'{blocks / sms:g} blocks per SM on {sms} SMs {tag}')
+          f'{blocks / sms:g} blocks ({blocks * threads / 32 / sms:g} warps) '
+          f'per SM on {sms} SMs {tag}')
 
     # ---- 3. the kernel against its plain version ----
     nd = rk.n_draws(MAX_DEPTH)
@@ -573,6 +636,11 @@ def flagship(torch, bt, rk, dev, tag, pulse_compress) -> dict:
     n_bytes = 4 * (params_t.numel() + prim_t.numel() + txp_t.numel()
                    + rx.adc.n_time) + 8
     b = bound(lane_ops(stats, n_rect), n_bytes, 'flagship 2^28 lanes')
+    mix = flagship_mix(dev, tag, build_log, cubin, n_rect, blocks, threads,
+                       sms)
+    print(f'flagship bounds: FP32 {b["bound_ms"]:.4f} ms, issue slots '
+          f'{mix["issue_slot_bound_ms"]:.4f} ms; kernel {k_med:.3f} ms '
+          f'{tag}')
     return {
         'name': 'receive_megakernel', 'configuration': 'flagship',
         'route': 'cuda',
@@ -581,7 +649,7 @@ def flagship(torch, bt, rk, dev, tag, pulse_compress) -> dict:
         'tpu_function': '_make_kernel (pallas_receive.py:106)',
         'launches': launches, 'max_abs_err': max(abs_errs),
         'parity': max(rel_errs), 'ms': k_med, 'plain_ms': plain_ms,
-        **b, 'library_ms': None,
+        **b, 'library_ms': None, **mix,
     }
 
 
@@ -3571,14 +3639,20 @@ def main() -> int:
                 'bvh_kernels': bk.build_library,
                 'intersect_kernels': ik.build_library}
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(builders)) as ex:
+    sys.path.insert(0, os.path.join(HERE, 'tools'))
+    import k1_mix
+    with ThreadPoolExecutor(len(builders) + 1) as ex:
         futures = {k: ex.submit(fn) for k, fn in builders.items()}
+        # the flagship's -lineinfo cubin for its instruction mix
+        cubin = ex.submit(k1_mix.build_cubin, HERE)
         infos = {k: f.result() for k, f in futures.items()}
+        cubin = cubin.result()
     print_build(infos, tag)
     print(f'build wall {time.perf_counter() - t0:.1f} s {tag}')
 
     # ---- 3-4. each path: parity, then the path itself ----
-    kernels = [flagship(torch, bt, rk, dev, tag, pulse_compress),
+    kernels = [flagship(torch, bt, rk, dev, tag, pulse_compress,
+                        infos['receive_megakernel'].log, cubin),
                mesh(torch, bt, rk, dev, tag, pulse_compress)]
     dop_kernels, k1_grid = doppler(torch, bt, rk, ik, dev, tag)
     kernels += dop_kernels

@@ -12,6 +12,7 @@ machine that has only PyTorch.  There, from the repository root:
 
 import dataclasses
 
+import numpy as np
 import pytest
 import torch
 
@@ -48,22 +49,31 @@ def _flagship_tables(device, rx_kind='wigner'):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize('n_time', [16, 64, 512])
 @pytest.mark.parametrize('rx_kind, ts', [('wigner', 'gate'),
                                          ('wigner', 'fixed'),
                                          ('omni', 'gate'),
                                          ('omni', 'fixed')])
-def test_cuda_kernel_matches_plain_version(cuda, rx_kind, ts):
+def test_cuda_kernel_matches_plain_version(cuda, rx_kind, ts, n_time):
+    """The flagship kernel (a wavefront in each warp, fixed-order warp
+    rows) against the plain version: every cell within 1e-4 of max|acc|,
+    the event counts within 1e-4 (FMA contraction can move a lane across
+    a test: on these uniforms one lane of wigner / gate loses its NEE
+    event in this kernel and in the grid-stride kernel before it)."""
     params, prim, txp, adc = _flagship_tables(cuda, rx_kind=rx_kind)
+    adc = dataclasses.replace(adc, n_time=n_time)
     n_lanes = 1 << 16
     u = torch.rand((rk.n_draws(3), n_lanes),
                    generator=torch.Generator(cuda).manual_seed(3),
                    device=cuda)
     kw = dict(adc=adc, max_depth=3, time_sampling=ts, rx_kind=rx_kind)
     before = rk.receive_megakernel.launches
+    flagship_before = rk.receive_megakernel.by_config['flagship']
     acc, n_ev = rk.receive_megakernel(params, prim, txp, n_lanes=n_lanes,
                                       uniforms=u, **kw)
     torch.cuda.synchronize()
     assert rk.receive_megakernel.launches == before + 1
+    assert rk.receive_megakernel.by_config['flagship'] == flagship_before + 1
     ref, n_ref = rk.receive_megakernel_ref(params, prim, txp, u, **kw)
     scale = float(ref.abs().max())
     assert scale > 0 and int(n_ref) > 0
@@ -87,6 +97,54 @@ def test_cuda_prng_mode_is_deterministic_philox(cuda):
         rx_kind='wigner')
     assert float((a1 - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
     assert abs(int(n1) - int(n_ref)) <= 1e-4 * int(n_ref)
+
+
+def _injected(device, n_rows, n_lanes, seed, lead=()):
+    g = np.random.default_rng(seed)
+    return torch.tensor(g.random(lead + (n_rows, n_lanes), dtype=np.float32),
+                        device=device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('n_lanes', [1, 31, 128 * 37 + 45])
+def test_flagship_kernel_ragged_tail(cuda, n_lanes):
+    """Lane counts that fill no warp or block: the lanes past n_lanes add
+    nothing, the ones before it all count."""
+    params, prim, txp, adc = _flagship_tables(cuda)
+    u = _injected(cuda, rk.n_draws(3), n_lanes, n_lanes)
+    kw = dict(adc=adc, max_depth=3, time_sampling='gate', rx_kind='wigner')
+    acc, n_ev = rk.receive_megakernel(params, prim, txp, n_lanes=n_lanes,
+                                      uniforms=u, **kw)
+    ref, n_ref = rk.receive_megakernel_ref(params, prim, txp, u, **kw)
+    assert int(n_ev) == int(n_ref)
+    assert float((acc - ref).abs().max()) <= 1e-4 * max(
+        float(ref.abs().max()), 1e-30)
+
+
+@pytest.mark.gpu
+def test_flagship_cpi_of_four_pulses_is_four_calls(cuda):
+    """A CPI of four pulses, each with its own uniforms, equals four
+    single calls pulse by pulse, bit for bit, and each the plain
+    version."""
+    params, prim, txp, adc = _flagship_tables(cuda)
+    n_pulses, n_lanes = 4, (1 << 14) + 5
+    u = _injected(cuda, rk.n_draws(3), n_lanes, 4, lead=(n_pulses,))
+
+    def stack(x):
+        return x.unsqueeze(0).expand(n_pulses, *x.shape).contiguous()
+    kw = dict(adc=adc, max_depth=3, time_sampling='gate', rx_kind='wigner')
+    acc, n_ev = rk.receive_megakernel_cpi(stack(params), stack(prim),
+                                          stack(txp), n_lanes=n_lanes,
+                                          uniforms=u, **kw)
+    for p in range(n_pulses):
+        one, n_one = rk.receive_megakernel(params, prim, txp,
+                                           n_lanes=n_lanes, uniforms=u[p],
+                                           **kw)
+        assert torch.equal(acc[p], one) and int(n_ev[p]) == int(n_one)
+        ref, n_ref = rk.receive_megakernel_ref(params, prim, txp, u[p], **kw)
+        assert float((one - ref).abs().max()) <= 1e-4 * float(
+            ref.abs().max())
+        assert int(n_one) == int(n_ref)
 
 
 @pytest.mark.gpu

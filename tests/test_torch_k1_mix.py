@@ -1,0 +1,106 @@
+"""tools/k1_mix.py on the CPU: the stage masks it reads from the plain
+version's counts, the SIMT models built on them, and the stage tags of
+the flagship kernel's source that its instruction mix reads; and the
+anchors by which tools/k1_clock.py instruments that source."""
+
+import os
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.join(ROOT, 'tools'))
+
+import k1_clock  # noqa: E402
+import k1_mix  # noqa: E402
+from beifong_tpu_torch.integrators import receive_kernel as rk  # noqa: E402
+from beifong_tpu_torch.scenes import flagship_scene  # noqa: E402
+
+N = 1 << 10
+
+
+@pytest.fixture(scope='module')
+def lanes():
+    masks, n_rect = k1_mix.stage_masks(N)
+    return masks, n_rect, k1_mix.per_lane(masks, N)
+
+
+def test_stage_masks_sum_to_the_plain_versions_stats(lanes):
+    masks, n_rect, a = lanes
+    s, rx = flagship_scene()
+    p = rk.pack_scene(s.compile(device='cpu'), rx,
+                      s.shape_index_of_endpoint('receiver', rx.id))
+    params, prim, txp = (torch.tensor(x) for x in (p.params, p.prim, p.txp))
+    stats: dict = {}
+    rk.receive_megakernel_ref(params, prim, txp,
+                              rk.philox_uniforms(7, rk.n_draws(3), N),
+                              adc=rx.adc, max_depth=3, time_sampling='gate',
+                              rx_kind='wigner', stats=stats)
+    assert n_rect == int((prim[:, 0] == 0).sum())
+    for key, v in a.items():
+        assert int(v.sum()) == stats[key], key
+    # one trace a depth at most, a hit only where a trace was
+    assert int(a['trace'].max()) == 1
+    assert bool((a['hit'] <= a['trace']).all())
+
+
+def test_philox_blocks_follow_the_positional_draws(lanes):
+    _, _, a = lanes
+    phx = k1_mix.philox_blocks(a)
+    # the ray's draws 1-4 span blocks 0 and 1; three depths of six draws
+    # from 5 reach block 5 at most
+    assert phx.min() >= 2 and phx.max() <= 6
+    dead = a['hit'][:, 0] == 0
+    assert bool((phx[dead] == 2).all())
+
+
+def test_simt_models_bound_their_work(lanes):
+    _, n_rect, a = lanes
+    w = k1_mix.stage_weights_fp32(n_rect)
+    m = k1_mix.simt(a, w, lanes_per_thread=8)
+    assert 0 < m['grid_stride_efficiency'] <= 1
+    assert 0 < m['refill_efficiency'] <= 1
+    assert m['grid_stride_slots_a_lane'] >= m['used_slots_a_lane']
+    p = k1_mix.pool_model(a, w, lanes_per_thread=8)
+    assert p['efficiency'] <= 1
+    # a pool of 64 paths fills its turns better than one lane a thread
+    assert p['slots_a_lane'] < m['grid_stride_slots_a_lane']
+    assert p['turns']['ray'] == N // 32
+
+
+@pytest.mark.parametrize('splat', [False, True])
+def test_clock_probe_anchors_appear_once(splat):
+    """k1_clock patches the kernel's source by exact text: each of its
+    anchors lies in the current source once (else it raises)."""
+    with open(k1_mix.source_of(ROOT)) as f:
+        src = f.read()
+    out = k1_clock.instrument(src, splat)
+    assert out.count('__device__ unsigned long long k1_clk[16];') == 1
+    assert out.count('clock64()') > src.count('clock64()')
+
+
+def test_flagship_source_carries_every_stage_tag():
+    src = k1_mix.source_of(ROOT)
+    stages = set(k1_mix.line_stages(src).values())
+    assert {'ray', 'closest', 'hit', 'direct', 'nee', 'shadow', 'bounce',
+            'sched'} <= stages
+    helpers = k1_mix.func_ranges(src)
+    assert {'draws', 'draws_get', 'splat', 'splat_w'} <= set(helpers)
+
+
+@pytest.mark.parametrize('op, cls', [('FFMA', 'fp32'), ('FADD.FTZ', 'fp32'),
+                                     ('MUFU.RSQ', 'mufu'),
+                                     ('IMAD.WIDE.U32', 'imad'),
+                                     ('LDS.128', 'lds'), ('BRA', 'branch'),
+                                     ('F2I.FLOOR.NTZ', 'convert'),
+                                     ('MATCH.ANY', 'move_select')])
+def test_classify(op, cls):
+    assert k1_mix.classify(op) == cls
+
+
+def test_issue_slot_bound():
+    # 32 thread-instructions a lane: one warp instruction a lane
+    ms = k1_mix.issue_slot_bound_ms(32.0, 132 * 4 * 1e6, 1000.0)
+    assert np.isclose(ms, 1.0)

@@ -1,0 +1,206 @@
+#!/usr/bin/env python3
+"""Where the flagship kernel's time goes, by the SM's clock: a copy of the
+receive kernel whose warp loop reads clock64() at each turn's boundaries
+(lane 0 of each warp, after a __syncwarp), summed over the warps, at the
+main path's shape (2^28 Philox lanes, depth 3).
+
+Run from the repository root on the card's machine:
+
+    python3 tools/k1_clock.py [DIR] [--splat]
+
+It copies DIR's (default: this checkout's) `beifong_tpu_torch` into
+`beifong_tpu_torch/_build/k1_clock/` (ignored by git), adds the clocks to
+`receive_flagship_kernel` there (the turn's choice and slot hand-out, RAY's
+ray, SHADE's shading and bounce, the trace after each, the waiting-set
+update, the splat), builds it, times one call after a warm-up, and prints
+one line `CLK {json}`: each part's share of the warps' cycles, the turns
+and how full SHADE's were; with --splat also the cycles a SHADE turn of
+the splat's phases (lane 0's clock, added to global counters).  The added __syncwarp()s and clock reads cost
+time of their own: read the shares, not the call's time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import json
+import os
+import shutil
+import subprocess
+import sys
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+NAMES = ('turn', 'ray', 'shade', 'trace_of_ray', 'trace_of_shade', 'masks',
+         'splat')
+
+# (anchor in the source, text that replaces it)
+PATCH = (
+    ('// rect_hit on a rectangle\'s world-to-local rows held as float4s.',
+     '__device__ unsigned long long k1_clk[16];\n\n'
+     '// rect_hit on a rectangle\'s world-to-local rows held as float4s.'),
+    ('    unsigned sh_lo = 0u, sh_hi = 0u;\n    for (;;) {',
+     '    unsigned sh_lo = 0u, sh_hi = 0u;\n'
+     '    unsigned long long ck[16] = {0};\n'
+     '    for (;;) {\n'
+     '        const long long c0 = clock64();'),
+    ('        const int slot = j < n_go ? w_take[j] : -1;',
+     '        const int slot = j < n_go ? w_take[j] : -1;\n'
+     '        const long long c1 = clock64();\n'
+     '        ck[0] += c1 - c0;\n'
+     '        ck[shade ? 9 : 8] += 1;\n'
+     '        ck[10] += shade ? n_go : 0;'),
+    ('        // [k1 stage: trace]  the closest rectangle of the turn\'s rays',
+     '        __syncwarp();\n'
+     '        const long long c2 = clock64();\n'
+     '        ck[shade ? 2 : 1] += c2 - c1;\n'
+     '        ck[11] += __popc(__ballot_sync(FULL_MASK, live));\n'
+     '        // [k1 stage: trace]  the closest rectangle of the turn\'s rays'),
+    ('        // [k1 stage: sched]  the waiting set:',
+     '        __syncwarp();\n'
+     '        const long long c3 = clock64();\n'
+     '        ck[shade ? 4 : 3] += c3 - c2;\n'
+     '        // [k1 stage: sched]  the waiting set:'),
+    ('        if (shade) {\n            // [k1 stage: splat]\n'
+     '            flag_splat(w_row, w_mask, w_vals, cfg.n_time, val, yb, j);'
+     '\n        }\n    }',
+     '        const long long c4 = clock64();\n'
+     '        ck[5] += c4 - c3;\n'
+     '        if (shade) {\n'
+     '            flag_splat(w_row, w_mask, w_vals, cfg.n_time, val, yb, j);'
+     '\n'
+     '        }\n'
+     '        ck[6] += clock64() - c4;\n'
+     '    }\n'
+     '    if (j == 0)\n'
+     '        for (int k = 0; k < 16; ++k) atomicAdd(&k1_clk[k], ck[k]);'),
+    ('const char* rk_error_string(int err) {',
+     'int rk_clock(unsigned long long* out, int reset) {\n'
+     '    cudaError_t e = cudaMemcpyFromSymbol(out, k1_clk, sizeof(k1_clk));\n'
+     '    if (e != cudaSuccess || !reset) return (int)e;\n'
+     '    unsigned long long z[16] = {0};\n'
+     '    return (int)cudaMemcpyToSymbol(k1_clk, z, sizeof(z));\n'
+     '}\n\n'
+     'const char* rk_error_string(int err) {'),
+)
+
+
+# with --splat: the splat's own phases (lane 0 of each warp adds to global
+# counters 12-15 after each: the groups' ORs and staging, the mask reads,
+# the bins of lanes' tap 0, those of tap 1 alone)
+SPLAT_PATCH = (
+    ('    if (!__any_sync(FULL_MASK, i0 != -2)) return;\n'
+     '    const bool ok0',
+     '    if (!__any_sync(FULL_MASK, i0 != -2)) return;\n'
+     '    long long q0 = clock64();\n'
+     '    const bool ok0'),
+    ('    vals[32 + j] = v1;\n    __syncwarp();\n',
+     '    vals[32 + j] = v1;\n    __syncwarp();\n'
+     '    long long q1 = clock64();\n'
+     '    if (j == 0) atomicAdd(&k1_clk[12], (unsigned long long)(q1 - q0));\n'),
+    ('    const bool lead1 = ok1 && (g11 & lt) == 0u && tap0[i0 + 1] == 0u;\n'
+     '    __syncwarp();\n',
+     '    const bool lead1 = ok1 && (g11 & lt) == 0u && tap0[i0 + 1] == 0u;\n'
+     '    __syncwarp();\n'
+     '    long long q2 = clock64();\n'
+     '    if (j == 0) atomicAdd(&k1_clk[13], (unsigned long long)(q2 - q1));\n'),
+    ('        tap1[i0] = 0u;\n    }\n',
+     '        tap1[i0] = 0u;\n    }\n    __syncwarp();\n'
+     '    long long q3 = clock64();\n'
+     '    if (j == 0) atomicAdd(&k1_clk[14], (unsigned long long)(q3 - q2));\n'),
+    ('        tap1[i0 + 1] = 0u;\n    }\n}',
+     '        tap1[i0 + 1] = 0u;\n    }\n    __syncwarp();\n'
+     '    if (j == 0) atomicAdd(&k1_clk[15], '
+     '(unsigned long long)(clock64() - q3));\n}'),
+)
+
+
+def instrument(s: str, splat: bool = False) -> str:
+    """The receive kernel's source `s` with the clock reads added; each
+    anchor must appear exactly once."""
+    patch = PATCH
+    if splat:
+        # k1_clk must be declared before flag_splat: move its declaration
+        decl = '// The sum of the values of a (nonempty) group of lanes,'
+        patch = (((decl, '__device__ unsigned long long k1_clk[16];\n\n'
+                   + decl), (PATCH[0][0], PATCH[0][0]))
+                 + PATCH[1:] + SPLAT_PATCH)
+    for old, new in patch:
+        if s.count(old) != 1:
+            raise SystemExit(f'anchor not found once: {old[:60]!r}')
+        s = s.replace(old, new)
+    return s
+
+
+def instrumented_copy(root: str, splat: bool = False) -> str:
+    dst = os.path.join(HERE, 'beifong_tpu_torch', '_build', 'k1_clock')
+    shutil.rmtree(dst, ignore_errors=True)
+    shutil.copytree(os.path.join(root, 'beifong_tpu_torch'),
+                    os.path.join(dst, 'beifong_tpu_torch'),
+                    ignore=shutil.ignore_patterns('_build', '__pycache__'))
+    src = os.path.join(dst, 'beifong_tpu_torch', 'csrc',
+                       'receive_megakernel.cu')
+    with open(src) as f:
+        s = f.read()
+    with open(src, 'w') as f:
+        f.write(instrument(s, splat))
+    return dst
+
+
+def run(tree: str) -> dict:
+    sys.path.insert(0, tree)
+    import torch
+    from beifong_tpu_torch.integrators import receive_kernel as rk
+    from beifong_tpu_torch.scenes import flagship_scene
+    assert rk.__file__.startswith(tree)
+    dev = torch.device('cuda')
+    s, rx = flagship_scene()
+    p = rk.pack_scene(s.compile(device='cpu'), rx,
+                      s.shape_index_of_endpoint('receiver', rx.id))
+    params, prim, txp = (torch.tensor(a, device=dev)
+                         for a in (p.params, p.prim, p.txp))
+    kw = dict(adc=rx.adc, max_depth=3, time_sampling='gate',
+              rx_kind='wigner', n_lanes=1 << 28, seed=7)
+    lib = rk.LIBRARY.get()
+    lib.rk_clock.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    buf = (ctypes.c_ulonglong * 16)()
+    rk.receive_megakernel(params, prim, txp, **kw)
+    torch.cuda.synchronize()
+    rk.LIBRARY.check(lib.rk_clock(buf, 1), 'rk_clock')
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    rk.receive_megakernel(params, prim, txp, **kw)
+    b.record()
+    torch.cuda.synchronize()
+    rk.LIBRARY.check(lib.rk_clock(buf, 1), 'rk_clock')
+    v = list(buf)
+    tot = sum(v[:len(NAMES)])
+    card = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
+                           '--format=csv,noheader'], capture_output=True,
+                          text=True).stdout.strip()
+    return {'card': card, 'instrumented_ms': a.elapsed_time(b),
+            'share': {n: v[i] / tot for i, n in enumerate(NAMES)},
+            'warp_cycles_a_lane': tot * 32 / kw['n_lanes'],
+            'splat_phases': {n: v[12 + i] / max(1, v[9]) for i, n in
+                             enumerate(('ors_and_staging', 'mask_reads',
+                                        'tap0_bins', 'tap1_bins'))},
+            'ray_turns': v[8], 'shade_turns': v[9],
+            'shade_fill': v[10] / max(1, 32 * v[9]),
+            'traced_a_turn': v[11] / max(1, v[8] + v[9])}
+
+
+def main() -> int:
+    if len(sys.argv) > 1 and sys.argv[1] == '--child':
+        print('CLK ' + json.dumps(run(sys.argv[2])), flush=True)
+        return 0
+    args = [a for a in sys.argv[1:] if a != '--splat']
+    root = os.path.abspath(args[0] if args else HERE)
+    tree = instrumented_copy(root, '--splat' in sys.argv)
+    res = subprocess.run([sys.executable, os.path.abspath(__file__),
+                          '--child', tree], capture_output=True, text=True)
+    sys.stdout.write(res.stdout)
+    sys.stderr.write(res.stderr[-4000:])
+    return res.returncode
+
+
+if __name__ == '__main__':
+    sys.exit(main())

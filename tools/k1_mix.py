@@ -1,0 +1,642 @@
+#!/usr/bin/env python3
+"""What the flagship configuration of the receive megakernel (K1) spends
+its issue slots on: the instruction mix of its machine code by stage, the
+thread-instructions a lane that the plain version's stage counts imply,
+the issue-slot bound beside the FP32 bound, and the SIMT efficiency of a
+warp's 32 lanes (arithmetic from the plain version, not a device reading).
+
+Run from the repository root:
+
+    python3 tools/k1_mix.py --simt [--lanes 16]
+        (CPU or card) the SIMT efficiency of the grid-stride loop (a warp
+        traces 32 consecutive lanes, each to its end) and of a warp-uniform
+        vertex loop that refills a thread whose path ended with its next
+        lane, from per-lane stage masks of the plain version at 2^lanes
+        lanes, weighted by chip_smoke.FP32_OPS;
+
+    python3 tools/k1_mix.py --sass DIR [--listing FILE]
+        (the card's machine: nvcc, nvdisasm, nvidia-smi) compiles DIR's
+        csrc/receive_megakernel.cu to a cubin with -lineinfo (the library's
+        flags otherwise), attributes each instruction of the flagship kernel
+        to the stage of the lane its source line lies in (the tags
+        "[k1 stage: NAME]" in the source, or the parent's section
+        comments), counts them by class, weights each stage by its
+        executions a lane (the same plain-version masks; Philox by the
+        blocks a lane draws), and prints thread-instructions a lane and the
+        issue-slot bound at 2^28 lanes: 132 SMs x 4 schedulers x one warp
+        instruction a cycle at the card's maximum SM clock, for the fewest
+        thread-instructions a lane measured for the lane stages alone
+        (`bound_instructions`: the loops' and turns' bookkeeping left out,
+        so a kernel that issues more does not raise its own bound).  The
+        full disassembly of the kernel goes to
+        chiprun_out/k1_sass_<tree>.txt.
+
+The lanes' stage masks come from the plain version on the flagship scene
+(Wigner receiver, gate sampling) at depth 3 with Philox seed 7, the main
+path's; the pool model is the flagship kernel's pool of 64 paths a warp.
+
+Each mode prints one line `RESULT {json}`.  Estimates, stated as such:
+every instruction of a stage is counted once per entry of the stage (the
+rectangle loops once per rectangle tested), and the SIMT models charge a
+warp a stage's cost whenever any of its threads runs the stage.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import re
+import subprocess
+import sys
+
+import numpy as np
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+DEPTH = 3
+SEED = 7
+MAIN_LANES = 1 << 28
+POOL = 64                    # paths a warp in the flagship kernel
+# the flagship kernel of a tree: the grid-stride instantiation or the
+# warp-wavefront kernel that replaced it
+KERNEL = r'receive_trace_kernelILb0ELb0ELb0E|receive_flagship_kernel'
+# the stages that are bookkeeping, not a lane's work: the warp wavefront's
+# turns, the grid-stride loop, the block's set-up
+BOOKKEEPING = ('sched', 'lane', 'block')
+# the fewest thread-instructions a lane measured for the lane stages of
+# the flagship function (stage masks above): receive_flagship_kernel's
+# 2,399.0; the grid-stride kernel before it 2,507.2
+LEAST_STAGE_INSTRUCTIONS = 2399.0
+
+# the stages of a flagship lane and the plain version's stat key that counts
+# the entries of each ('rect' and 'occ' per rectangle tested)
+STAGES = ('ray', 'trace', 'closest', 'hit', 'direct', 'nee', 'shadow',
+          'splat', 'bounce', 'draws', 'sched', 'lane', 'block')
+# the parent's section comments inside trace_lane, in source order, and
+# the tags of a body written with them
+MARKERS = ((r'-- receive-ray generation', 'ray'),
+           (r'-- closest hit over the rectangles', 'closest'),
+           (r'if \(!\(tb < F\(3\.4e37\)\)\) break;', 'hit'),
+           (r'-- direct transmitter hits', 'direct'),
+           (r'-- NEE to the transmitter', 'nee'),
+           (r'bool occ = false;', 'shadow'),
+           (r'if \(!occ && pdf_sa > 0\.0f\)', 'nee'),
+           (r'if \(depth == cfg\.max_depth - 1\) break;', 'bounce'),
+           (r'return lane_sum;', None),
+           (r'for \(long long lane = \(long long\)blockIdx\.x \* T \+ tid;',
+            'lane'),
+           (r"// the pulse's partial rows", None),
+           (r'\[k1 stage: (\w+)\]', 'tag'))
+CLASSES = (('fp32', r'^(FFMA|FADD|FMUL)(\.|$)'),
+           ('fp32_other', r'^(FSETP|FMNMX|FSEL|FCHK|FSET|FSWZADD)'),
+           ('mufu', r'^MUFU'),
+           ('imad', r'^IMAD'),
+           ('int_other', r'^(IADD3|LOP3|SHF|ISETP|LEA|IABS|IMNMX|POPC|FLO|'
+                         r'BREV|PRMT|SGXT|VIADD|VIMNMX|BMSK|ULOP|UIADD|UMOV|'
+                         r'USHF|UISETP|UIMAD|ULEA|USEL|UPRMT|UFLO|UPOPC|'
+                         r'UBMSK|USGXT|UBREV|ULDC|S2UR|R2UR|VOTEU|IDP)'),
+           ('lds', r'^LDS'),
+           ('sts', r'^STS'),
+           ('global_const_local', r'^(LDG|STG|LDC|LDL|STL|LD\b|ST\b|RED|ATOM)'),
+           ('branch', r'^(BRA|BSSY|BSYNC|CALL|RET|EXIT|WARPSYNC|BREAK|JMP|'
+                      r'BAR|BPT|NANOSLEEP|YIELD|KILL)'),
+           ('convert', r'^(F2I|I2F|F2F|FRND|I2I|F2FP)'),
+           ('move_select', r'^(MOV|SEL|P2R|R2P|S2R|CS2R|PLOP3|SHFL|VOTE|'
+                           r'MATCH|REDUX|FMNMX)'),
+           ('other', r'.'))
+
+
+def stage_masks(n_lanes: int, device: str = 'cpu'):
+    """[(key, depth, bool mask (n_lanes,))] of every stage count the plain
+    version takes on the flagship scene, read from its `count` calls, and
+    the number of rectangles."""
+    import torch
+    from torch.overrides import TorchFunctionMode
+    sys.path.insert(0, HERE)
+    from beifong_tpu_torch.integrators import receive_kernel as rk
+    from beifong_tpu_torch.scenes import flagship_scene
+
+    out = []
+    d = [-1]
+
+    class Capture(TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            if func is torch.Tensor.sum and not kwargs and len(args) == 1:
+                f = sys._getframe(1)
+                while f is not None and f.f_code.co_name != 'count':
+                    f = f.f_back
+                if f is not None and 'key' in f.f_locals:
+                    key = f.f_locals['key']
+                    if key == 'trace':
+                        d[0] += 1
+                    out.append((key, d[0], args[0].detach().cpu().numpy()
+                                .astype(bool).copy()))
+            return func(*args, **(kwargs or {}))
+
+    s, rx = flagship_scene()
+    sd = s.compile(device='cpu')
+    p = rk.pack_scene(sd, rx, s.shape_index_of_endpoint('receiver', rx.id))
+    params, prim, txp = (torch.tensor(a, device=device)
+                         for a in (p.params, p.prim, p.txp))
+    u = rk.philox_uniforms(SEED, rk.n_draws(DEPTH), n_lanes, device=device)
+    stats: dict = {}
+    with Capture():
+        rk.receive_megakernel_ref(params, prim, txp, u, adc=rx.adc,
+                                  max_depth=DEPTH, time_sampling='gate',
+                                  rx_kind='wigner', stats=stats)
+    n_rect = int((prim[:, 0] == 0).sum())
+    return out, n_rect
+
+
+def per_lane(masks, n_lanes: int):
+    """(n_lanes, depth) arrays of each stage's entries: trace, hit,
+    direct, nee_geom, nee, occ_tests, nee_splat, bounce."""
+    keys = ('trace', 'hit', 'direct', 'nee_geom', 'nee', 'occ_tests',
+            'nee_splat', 'bounce')
+    a = {k: np.zeros((n_lanes, DEPTH), np.int32) for k in keys}
+    for key, d, m in masks:
+        if key in a and m.shape == (n_lanes,):
+            a[key][:, d] += m
+    return a
+
+
+def philox_blocks(a: dict) -> np.ndarray:
+    """Philox4x32-10 blocks each lane computes: the kernel's Draws caches
+    one block of four words, so a block is computed where a draw's index /
+    4 differs from the last one's (gate sampling: ray draws 1-4, then six
+    a depth from 5: direct d0, NEE d0+1, d0+2 (+ d0+3 past the cosine
+    test), bounce d0+4, d0+5)."""
+    n, depth = a['trace'].shape
+    seqs = []
+    for lane in range(n):
+        idx = [1, 2, 3, 4]
+        for d in range(depth):
+            d0 = 5 + 6 * d
+            if a['direct'][lane, d]:
+                idx.append(d0)
+            if a['nee_geom'][lane, d]:
+                idx += [d0 + 1, d0 + 2]
+            if a['nee'][lane, d]:
+                idx.append(d0 + 3)
+            if a['bounce'][lane, d]:
+                idx += [d0 + 4, d0 + 5]
+        g = [i >> 2 for i in idx]
+        seqs.append(1 + sum(x != y for x, y in zip(g, g[1:])))
+    return np.asarray(seqs, np.float64)
+
+
+def stage_blocks(a: dict) -> np.ndarray:
+    """Philox blocks each lane computes in the flagship kernel, whose
+    stages take their draws' two blocks at their start: two for the ray,
+    two at each hit."""
+    return 2.0 + 2.0 * a['hit'].sum(axis=1).astype(np.float64)
+
+
+def stage_weights_fp32(n_rect: int) -> dict:
+    sys.path.insert(0, HERE)
+    import chip_smoke as cs
+    f = cs.FP32_OPS
+    return {'ray': f['ray_wigner'], 'trace': n_rect * f['rect_test'],
+            'hit': f['hit'], 'direct': f['direct'], 'nee_geom': f['nee_geom'],
+            'nee': f['nee'], 'occ_tests': f['rect_test'],
+            'nee_splat': f['nee_splat'], 'bounce': f['bounce']}
+
+
+def _vertex_table(a: dict, w: dict):
+    """(n_lanes, depth, 9) per-vertex costs of each stage (the ray's cost
+    at depth 0), and the used cost of each lane."""
+    keys = ('trace', 'hit', 'direct', 'nee_geom', 'nee', 'occ_tests',
+            'nee_splat', 'bounce')
+    n, depth = a['trace'].shape
+    t = np.zeros((n, depth, len(keys) + 1))
+    t[:, 0, 0] = w['ray']
+    for j, k in enumerate(keys):
+        t[:, :, j + 1] = a[k] * w[k]
+    return t
+
+
+def simt(a: dict, w: dict, lanes_per_thread: int = 64) -> dict:
+    """Used over issued slots of the grid-stride loop (a warp's 32
+    consecutive lanes each to its end, every stage of a depth issued if
+    any lane needs it, the shadow loop as long as its longest lane) and of
+    a warp-uniform vertex loop with lane refill (every thread one vertex
+    an iteration; a thread whose path ended starts its next lane, ray
+    included, in the next iteration)."""
+    t = _vertex_table(a, w)
+    n, depth, ns = t.shape
+    used = t.sum()
+    # grid-stride: warps of 32 consecutive lanes; a stage's issue is the
+    # max over the warp (the shadow loop's length too)
+    nw = n // 32
+    tw = t[: nw * 32].reshape(nw, 32, depth, ns)
+    issued_gs = 32 * tw.max(axis=1).sum()
+    # refill: thread j of warp g takes lanes g * 32 + j + k * stride
+    n_threads = n // lanes_per_thread
+    n_threads -= n_threads % 32
+    stride = n_threads
+    alive = t[:, :, 1] > 0                       # a vertex that traces
+    issued_rf, used_rf = 0.0, 0.0
+    for g in range(n_threads // 32):
+        seqs = []
+        for j in range(32):
+            rows = []
+            for k in range(lanes_per_thread):
+                lane = g * 32 + j + k * stride
+                for d in range(depth):
+                    if alive[lane, d]:
+                        rows.append(t[lane, d])
+            seqs.append(np.asarray(rows).reshape(-1, ns))
+        L = max(len(s) for s in seqs)
+        pad = np.zeros((32, L, ns))
+        for j, s in enumerate(seqs):
+            pad[j, : len(s)] = s
+        issued_rf += 32 * pad.max(axis=0).sum()
+        used_rf += pad.sum()
+    return {'used_slots_a_lane': used / n,
+            'grid_stride_slots_a_lane': issued_gs / (nw * 32),
+            'grid_stride_efficiency': used / issued_gs * (nw * 32) / n,
+            'refill_slots_a_lane': issued_rf / (n_threads * lanes_per_thread),
+            'refill_efficiency': used_rf / issued_rf,
+            'refill_over_grid_stride': (issued_rf / used_rf)
+            / (issued_gs / (t[: nw * 32].sum()))}
+
+
+def pool_model(a: dict, w: dict, lanes_per_thread: int = 64,
+               fused: bool = False) -> dict:
+    """Used over issued slots of a warp-level wavefront: each warp keeps
+    POOL paths and each turn runs one stage over 32 of them in slot
+    order (SHADE when 32 wait for it, else TRACE when 32 do, else RAY for
+    the warp's next 32 lanes when they fit, else the fuller of SHADE and
+    TRACE), a stage's sub-stages issued if any of its paths needs them.
+    `fused`: a turn traces the rays it makes, RAY its new lanes' and
+    SHADE its bounces', so the pool holds only paths waiting for SHADE
+    (SHADE when 32 wait, else RAY, else the rest).  The turns' own
+    bookkeeping is not counted."""
+    t = _vertex_table(a, w)
+    n, depth, ns = t.shape
+    n_threads = n // lanes_per_thread
+    n_threads -= n_threads % 32
+    stride = n_threads
+    trace = t[:, :, 1] > 0
+    hit = a['hit'] > 0
+    used = issued = 0.0
+    turns = {'ray': 0, 'trace': 0, 'shade': 0}
+    full = dict.fromkeys(turns, 0)
+
+    def trace_cost(go):
+        """issued and used slots of tracing the paths `go`"""
+        return (32 * w['trace'] if go else 0.0), len(go) * w['trace']
+
+    for g in range(n_threads // 32):
+        lanes = [g * 32 + j + k * stride for k in range(lanes_per_thread)
+                 for j in range(32)]
+        qi, tr, sh = 0, [], []
+        while True:
+            free = POOL - len(tr) - len(sh)
+            n_new = min(32, len(lanes) - qi)
+            if len(sh) >= 32:
+                st = 'shade'
+            elif len(tr) >= 32:
+                st = 'trace'
+            elif n_new > 0 and free >= n_new:
+                st = 'ray'
+            elif not tr and not sh:
+                break
+            else:
+                st = 'shade' if len(sh) >= len(tr) else 'trace'
+            turns[st] += 1
+            if st == 'ray':
+                new = [(ln, 0) for ln in lanes[qi:qi + n_new]]
+                qi += n_new
+                issued += 32 * t[0, 0, 0]
+                used += n_new * t[0, 0, 0]
+                full[st] += n_new
+                if fused:
+                    i_, u_ = trace_cost(new)
+                    issued, used = issued + i_, used + u_
+                    sh += [(ln, d) for ln, d in new if hit[ln, d]]
+                else:
+                    tr += new
+            elif st == 'trace':
+                go, tr = tr[:32], tr[32:]
+                i_, u_ = trace_cost(go)
+                issued, used = issued + i_, used + u_
+                full[st] += len(go)
+                sh += [(ln, d) for ln, d in go if hit[ln, d]]
+            else:
+                go, sh = sh[:32], sh[32:]
+                rows = np.asarray([t[ln, d, 2:] for ln, d in go])
+                issued += 32 * rows.max(axis=0).sum()
+                used += rows.sum()
+                full[st] += len(go)
+                cont = [(ln, d + 1) for ln, d in go
+                        if d + 1 < depth and trace[ln, d + 1]]
+                if fused:
+                    i_, u_ = trace_cost(cont)
+                    issued, used = issued + i_, used + u_
+                    sh += [(ln, d) for ln, d in cont if hit[ln, d]]
+                else:
+                    tr += cont
+    return {'pool': POOL, 'fused': fused,
+            'slots_a_lane': issued / (n_threads * lanes_per_thread),
+            'efficiency': used / issued, 'turns': turns,
+            'turns_a_lane': sum(turns.values()) / (n_threads
+                                                   * lanes_per_thread),
+            'turn_fill': {k: full[k] / (32 * max(turns[k], 1))
+                          for k in turns}}
+
+
+# ---------------------------------------------------------------------------
+# machine code
+
+
+def line_stages(source: str) -> dict:
+    """{line: stage} of the lines inside the marked sections of a lane's
+    work, from the first parent marker (the ray's) or tag on: each marker
+    or tag opens its stage, 'end' (or a closing marker) closes it."""
+    out, cur, started = {}, None, False
+    with open(source) as f:
+        lines = f.read().splitlines()
+    for i, ln in enumerate(lines, 1):
+        for pat, st in MARKERS:
+            m = re.search(pat, ln)
+            if not m:
+                continue
+            if st == 'tag':
+                st = None if m.group(1) == 'end' else m.group(1)
+                started = True
+            if st == 'ray':
+                started = True
+            if started:
+                cur = st
+            break
+        if cur is not None:
+            out[i] = cur
+    return out
+
+
+def func_ranges(source: str) -> dict:
+    """{name: (first, last)} lines of the helpers whose inlined code is
+    its own stage: Philox and the draws, the tent splat."""
+    with open(source) as f:
+        lines = f.read().splitlines()
+    out = {}
+    for name, pat in (('draws', r'uint4 philox4x32_10\('),
+                      ('draws_flag', r'uint4 flag_block\('),
+                      ('draws_get', r'__device__ float get\(int idx\)'),
+                      ('splat', r'void splat\(float\* hist'),
+                      ('splat_w', r'\[k1 splat\]')):
+        for i, ln in enumerate(lines, 1):
+            if re.search(pat, ln):
+                depth, j = 0, i
+                while j <= len(lines):
+                    depth += lines[j - 1].count('{') - lines[j - 1].count('}')
+                    if depth == 0 and '}' in lines[j - 1]:
+                        break
+                    j += 1
+                out[name] = (i, j)
+                break
+    return out
+
+
+def classify(op: str) -> str:
+    for name, pat in CLASSES:
+        if re.search(pat, op):
+            return name
+    return 'other'
+
+
+def source_of(tree: str) -> str:
+    return os.path.join(tree, 'beifong_tpu_torch', 'csrc',
+                        'receive_megakernel.cu')
+
+
+def build_cubin(tree: str) -> str:
+    """A cubin of the tree's receive kernel with -lineinfo and otherwise
+    the library's flags (-lineinfo leaves the machine code as it is)."""
+    sys.path.insert(0, tree)
+    from beifong_tpu_torch import _nvcc
+    cubin = os.path.join(tree, 'beifong_tpu_torch', '_build', 'k1_mix.cubin')
+    os.makedirs(os.path.dirname(cubin), exist_ok=True)
+    flags = [f for f in _nvcc.NVCC_FLAGS
+             if f not in ('-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')]
+    subprocess.run([_nvcc._nvcc(), *flags, '-cubin', '-lineinfo', '-o', cubin,
+                    source_of(tree)], check=True, capture_output=True,
+                   text=True)
+    return cubin
+
+
+def parse_functions(text: str) -> dict:
+    """{function: [(opcode, [source lines of its inline chain])]} of an
+    nvdisasm listing with line info (each instruction takes the '//##'
+    lines above it, or its predecessor's where none are)."""
+    funcs, cur, chain, fresh = {}, None, [], False
+    for ln in text.splitlines():
+        m = re.match(r'\s*\.text\.(\S+):', ln)
+        if m:
+            cur, chain, fresh = m.group(1), [], False
+            funcs[cur] = []
+            continue
+        if cur is None:
+            continue
+        if '//##' in ln:
+            if not fresh:
+                chain, fresh = [], True
+            chain = chain + [int(x) for x in re.findall(r'line (\d+)', ln)]
+            continue
+        m = re.search(r'/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;', ln)
+        if m:
+            ins = re.sub(r'^@!?U?P\w+\s+', '', m.group(1))
+            funcs[cur].append((ins.split()[0] if ins else '', chain))
+            fresh = False
+    return funcs
+
+
+def disassemble(cubin: str, kernel: str, out_txt: str):
+    """(name, [(opcode, [source lines])]) of the kernel's instructions in
+    a -lineinfo cubin (or, for a .txt, a listing saved by this function);
+    its listing goes to out_txt."""
+    if cubin.endswith('.txt'):
+        with open(cubin) as f:
+            text = f.read()
+    else:
+        home = os.environ.get('CUDA_HOME', '/usr/local/cuda')
+        nvd = os.path.join(home, 'bin', 'nvdisasm')
+        res = subprocess.run([nvd, '-g', '-gi', '-c', cubin],
+                             capture_output=True, text=True)
+        if res.returncode != 0:
+            res = subprocess.run([nvd, '-g', '-c', cubin],
+                                 capture_output=True, text=True, check=True)
+        text = res.stdout
+    funcs = parse_functions(text)
+    names = [k for k in funcs if re.search(kernel, k)]
+    if len(names) != 1:
+        raise SystemExit(f'kernel {kernel!r}: {len(names)} matches among '
+                         f'{list(funcs)[:40]}')
+    name = names[0]
+    if out_txt != cubin:
+        os.makedirs(os.path.dirname(out_txt), exist_ok=True)
+        keep, on = [], False
+        for ln in text.splitlines():
+            if re.match(r'\s*\.text\.', ln):
+                on = name in ln
+            if on:
+                keep.append(ln)
+        with open(out_txt, 'w') as f:
+            f.write('\n'.join(keep))
+    return name, funcs[name]
+
+
+def sass_mix(cubin: str, src: str, kernel: str, a: dict, n_rect: int,
+             out_txt: str) -> dict:
+    """The kernel's instruction mix by stage and class, and its
+    thread-instructions a lane under the stage entries `a`."""
+    name, ins = disassemble(cubin, kernel, out_txt)
+    # the Philox blocks a lane computes: the grid-stride kernel's Draws
+    # cache one block, the flagship kernel's stages take two
+    phx = stage_blocks(a) if 'receive_flagship_kernel' in name \
+        else philox_blocks(a)
+    stages = line_stages(src)
+    helpers = func_ranges(src)
+
+    def in_helper(ln, h):
+        r = helpers.get(h)
+        return r is not None and r[0] <= ln <= r[1]
+
+    by = {s: {} for s in STAGES}
+    rcp = dict.fromkeys(STAGES, 0)   # division sequences (MUFU.RCP) a stage
+    for op, chain in ins:
+        if any(in_helper(x, 'draws') or in_helper(x, 'draws_get')
+               or in_helper(x, 'draws_flag') for x in chain):
+            st = 'draws'
+        elif any(in_helper(x, 'splat') or in_helper(x, 'splat_w')
+                 for x in chain):
+            st = 'splat'
+        else:
+            st = next((stages[x] for x in chain if x in stages), 'block')
+            if st not in by:
+                st = 'block'
+        c = classify(op)
+        by[st][c] = by[st].get(c, 0) + 1
+        rcp[st] += op.startswith('MUFU.RCP')
+    n = a['trace'].shape[0]
+    # entries of each stage a lane
+    ex = {'ray': 1.0,
+          'trace': a['trace'].sum() / n,
+          'closest': a['trace'].sum() * n_rect / n,
+          'hit': a['hit'].sum() / n,
+          'direct': a['direct'].sum() / n,
+          'nee': a['nee_geom'].sum() / n,
+          'shadow': a['occ_tests'].sum() / n,
+          'splat': (a['nee_splat'].sum() + a['direct'].sum()) / n,
+          'bounce': a['bounce'].sum() / n,
+          # the warp wavefront's turns for 32 lanes: one RAY, and a SHADE
+          # for every 32 hits (each turn traces the rays it makes)
+          'sched': (n + a['hit'].sum()) / n,
+          # the grid-stride loop's own instructions, once a lane; the
+          # block's set-up and row sums, once a block (none a lane)
+          'lane': 1.0,
+          'block': 0.0}
+    # Philox: the blocks a lane computes, each one inlined copy's length
+    draws_static = sum(by['draws'].values())
+    copies = max(1, round(draws_static / 110))   # ~110 instructions a block
+    ex['draws'] = float(phx.mean()) / copies
+    # a rectangle loop the compiler unrolled holds one division (rect_hit's
+    # t) a copy of its body: each copy runs for a part of the tests
+    for st in ('closest', 'shadow'):
+        ex[st] /= max(1, rcp[st])
+    totals = {s: sum(v.values()) for s, v in by.items()}
+    per_lane = {s: totals[s] * ex[s] for s in STAGES}
+    stage_ti = sum(v for s, v in per_lane.items() if s not in BOOKKEEPING)
+    cls = {}
+    for s in STAGES:
+        for c, k in by[s].items():
+            cls[c] = cls.get(c, 0.0) + k * ex[s]
+    return {'kernel': name, 'instructions': len(ins),
+            'loop_copies': {st: max(1, rcp[st]) for st in ('closest',
+                                                             'shadow')},
+            'static_by_stage': totals, 'static_by_stage_class': by,
+            'entries_a_lane': ex, 'philox_blocks_a_lane': float(phx.mean()),
+            'philox_copies': copies,
+            'thread_instructions_a_lane_by_stage': per_lane,
+            'thread_instructions_a_lane_by_class': cls,
+            'thread_instructions_a_lane': sum(per_lane.values()),
+            'stage_instructions_a_lane': stage_ti,
+            'bound_instructions_a_lane': min(stage_ti,
+                                             LEAST_STAGE_INSTRUCTIONS),
+            'disassembly': os.path.relpath(out_txt, HERE)}
+
+
+def issue_slot_bound_ms(thread_instr_a_lane: float, lanes: float,
+                        clock_mhz: float, sms: int = 132) -> float:
+    """The least time to issue the lanes' warp instructions (a full warp
+    each) at one a cycle on each of an SM's four schedulers."""
+    return lanes * thread_instr_a_lane / 32 / (sms * 4 * clock_mhz * 1e6) \
+        * 1e3
+
+
+def card_clock_mhz() -> tuple:
+    out = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit,'
+                          'clocks.max.sm,clocks.sm', '--format=csv,noheader,'
+                          'nounits'], capture_output=True, text=True,
+                         check=True).stdout.splitlines()[0]
+    name, limit, mx, now = [x.strip() for x in out.split(',')]
+    return name, limit, float(mx), float(now)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument('--simt', action='store_true')
+    ap.add_argument('--sass', metavar='DIR')
+    ap.add_argument('--listing', help='a listing saved by --sass (in '
+                    'chiprun_out/) to read instead of compiling DIR')
+    ap.add_argument('--lanes', type=int, default=16, help='log2 lanes')
+    ap.add_argument('--clock-mhz', type=float, default=1980.0,
+                    help="with --listing: the card's maximum SM clock")
+    args = ap.parse_args()
+    n = 1 << args.lanes
+    masks, n_rect = stage_masks(n)
+    a = per_lane(masks, n)
+    phx = philox_blocks(a)
+    res = {'lanes': n, 'depth': DEPTH, 'seed': SEED,
+           'n_rect': n_rect,
+           'per_lane': {k: float(v.sum()) / n for k, v in a.items()},
+           'philox_blocks_a_lane': float(phx.mean())}
+    if args.simt:
+        res['fp32_weights'] = w = stage_weights_fp32(n_rect)
+        res['simt_fp32'] = simt(a, w)
+        res['pool_fp32'] = pool_model(a, w)
+        res['pool_fused_fp32'] = pool_model(a, w, fused=True)
+    if args.sass:
+        tag = os.path.basename(os.path.abspath(args.sass)) or 'tree'
+        mix = sass_mix(args.listing or build_cubin(args.sass),
+                       source_of(args.sass),
+                       KERNEL, a, n_rect,
+                       os.path.join(HERE, 'chiprun_out', f'k1_sass_{tag}.txt'))
+        res['sass'] = mix
+        name, limit, mx, now = card_clock_mhz() if not args.listing \
+            else ('(listing)', '?', args.clock_mhz, args.clock_mhz)
+        res['card'] = f'{name}, {limit} W, SM clock max {mx:g} MHz (now '\
+                      f'{now:g})'
+        res['issue_slot_bound_ms'] = issue_slot_bound_ms(
+            mix['bound_instructions_a_lane'], MAIN_LANES, mx)
+        # the SIMT model weighted by this kernel's own stage lengths
+        st = mix['thread_instructions_a_lane_by_stage']
+        ex = mix['entries_a_lane']
+        per = {s: (st[s] / ex[s] if ex[s] else 0.0) for s in st}
+        w = {'ray': per['ray'],
+             'trace': per['trace'] + per['closest'] * n_rect,
+             'hit': per['hit'], 'direct': per['direct'],
+             'nee_geom': per['nee'], 'nee': 0.0,
+             'occ_tests': per['shadow'], 'nee_splat': per['splat'],
+             'bounce': per['bounce']}
+        res['simt_sass'] = simt(a, w)
+        res['pool_sass'] = pool_model(a, w)
+        res['pool_fused_sass'] = pool_model(a, w, fused=True)
+    print('RESULT ' + json.dumps(res), flush=True)
+    return 0
+
+
+if __name__ == '__main__':
+    sys.exit(main())

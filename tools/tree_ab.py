@@ -17,10 +17,17 @@ configuration on multi_body (mesh) and the range-Doppler pulse
 0 of the pulse train (analytic, depth 1) and the mesh scene (depth 2),
 2^24 lanes (one warm-up, then ten calls each), and the host time of ten
 more calls of the wrapper, each from an idle card (the Python and launch
-work inside the timed window).
+work inside the timed window), and for the Doppler family the host time of
+its table lookups alone (the lobe flags and the transmitter kinds, read
+back once a tensor and then kept).
 Prints one JSON line per process, then a summary:
 per tree the median of the processes' medians and their spread, the
 ratio this / other, the pairs this tree won, and the host times.
+
+    python3 tools/tree_ab.py --other DIR --this DIR2 --only flagship
+
+times DIR2 in place of this tree, and only the named configurations
+(comma-separated; an ablation's pairs need only the flagship).
 
     python3 tools/tree_ab.py --other DIR --sass
 
@@ -46,6 +53,7 @@ import time
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 CALLS = 10
+LOOKUPS = 400
 
 
 def timed_configs(cs, flagship, mesh, multi_body, range_doppler, pulse_train):
@@ -63,7 +71,11 @@ def timed_configs(cs, flagship, mesh, multi_body, range_doppler, pulse_train):
              True))
 
 
-def child(root: str) -> dict:
+NAMES = ('flagship', 'mesh', 'multi_body', 'range_doppler', 'coherent',
+         'coherent_mesh')
+
+
+def child(root: str, only: tuple = NAMES) -> dict:
     sys.path.insert(0, root)
     import torch
     if not torch.cuda.is_available():
@@ -85,6 +97,8 @@ def child(root: str) -> dict:
     for name, scene, n_lanes, depth, doppler, coherent in timed_configs(
             chip_smoke, flagship_scene, mesh_scene, multi_body_scene,
             range_doppler_scene, pulse_train_scene):
+        if name not in only:
+            continue
         s, rx = scene()
         sd = s.compile(use_bvh=False, device='cpu')
         p = rk.pack_scene(sd, rx, s.shape_index_of_endpoint('receiver',
@@ -116,6 +130,15 @@ def child(root: str) -> dict:
             host.append((time.perf_counter() - t0) * 1e3)
             torch.cuda.synchronize()
         out[f'{name}_host_ms'] = host
+        if doppler:
+            msh = kw.get('msh')
+            look = []
+            for _ in range(LOOKUPS):
+                t0 = time.perf_counter()
+                rk._lobe_flag(None, prim, msh, True)
+                rk._table_tx_kinds(txp, 1)
+                look.append((time.perf_counter() - t0) * 1e3)
+            out[f'{name}_lookup_ms'] = look
     return out
 
 
@@ -152,9 +175,9 @@ def sass_of(path: str) -> dict:
     return funcs
 
 
-def sass_compare(other: str) -> dict:
+def sass_compare(other: str, this: str = HERE) -> dict:
     paths = {}
-    for which, root in (('other', other), ('this', HERE)):
+    for which, root in (('other', other), ('this', this)):
         res = subprocess.run([sys.executable, os.path.abspath(__file__),
                               '--lib', root], capture_output=True,
                              text=True, cwd=HERE, timeout=900, check=True)
@@ -180,14 +203,23 @@ def sass_compare(other: str) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--other', help='root of the other checkout')
+    ap.add_argument('--this', default=HERE,
+                    help='root of the checkout timed as this (default: '
+                    'the one the script lies in)')
+    ap.add_argument('--only', default=','.join(NAMES),
+                    help='comma-separated configurations to time')
     ap.add_argument('--pairs', type=int, default=3)
     ap.add_argument('--sass', action='store_true',
                     help="compare K1's machine code instead of timing")
     ap.add_argument('--child', help='(internal) time the tree at this root')
     ap.add_argument('--lib', help="(internal) build the tree's K1 library")
     args = ap.parse_args()
+    only = tuple(args.only.split(','))
+    if not set(only) <= set(NAMES):
+        ap.error(f'--only: configurations among {NAMES}')
     if args.child:
-        print('RESULT ' + json.dumps(child(os.path.abspath(args.child))))
+        print('RESULT ' + json.dumps(child(os.path.abspath(args.child),
+                                           only)))
         return 0
     if args.lib:
         print('LIB ' + library(os.path.abspath(args.lib)))
@@ -195,21 +227,24 @@ def main() -> int:
     if not args.other:
         ap.error('--other DIR is required')
     if args.sass:
-        for name, d in sass_compare(os.path.abspath(args.other)).items():
+        for name, d in sass_compare(os.path.abspath(args.other),
+                                     os.path.abspath(args.this)).items():
             print(f'SASS {name}: {json.dumps(d)}')
         return 0
     sys.path.insert(0, HERE)
     import chip_smoke
     card = chip_smoke.card_line()
     print(card)
-    trees = {'other': os.path.abspath(args.other), 'this': HERE}
+    trees = {'other': os.path.abspath(args.other),
+             'this': os.path.abspath(args.this)}
     runs = {'other': [], 'this': []}
     for i in range(args.pairs):
         order = ('other', 'this') if i % 2 == 0 else ('this', 'other')
         for which in order:
             res = subprocess.run(
                 [sys.executable, os.path.abspath(__file__), '--child',
-                 trees[which]], capture_output=True, text=True, cwd=HERE,
+                 trees[which], '--only', ','.join(only)],
+                capture_output=True, text=True, cwd=HERE,
                 timeout=600)
             if res.returncode != 0:
                 print(res.stdout + res.stderr, file=sys.stderr)
@@ -222,8 +257,7 @@ def main() -> int:
             runs[which].append(r)
 
     summary = {'card': card, 'pairs': args.pairs}
-    for name in ('flagship', 'mesh', 'multi_body', 'range_doppler',
-                 'coherent', 'coherent_mesh'):
+    for name in only:
         meds = {w: [statistics.median(r[f'{name}_ms']) for r in rs]
                 for w, rs in runs.items()}
         for w, m in meds.items():
@@ -234,8 +268,10 @@ def main() -> int:
         summary[f'{name}_pairs_won_by_this'] = sum(
             b < a for a, b in zip(meds['other'], meds['this']))
         for w, rs in runs.items():
-            summary[f'{name}_{w}_host_ms'] = statistics.median(
-                statistics.median(r[f'{name}_host_ms']) for r in rs)
+            for k in ('host', 'lookup'):
+                if f'{name}_{k}_ms' in rs[0]:
+                    summary[f'{name}_{w}_{k}_ms'] = statistics.median(
+                        statistics.median(r[f'{name}_{k}_ms']) for r in rs)
     print(json.dumps(summary))
     return 0
 
