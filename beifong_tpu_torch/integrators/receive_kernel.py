@@ -138,6 +138,12 @@ MAX_N_TIME_ROWS = 512
 MAX_SMEM_CELLS = 16384
 MAX_SMEM_COH_CELLS = MAX_SMEM_CELLS // 2
 MAX_ADC_CELLS = 1 << 20
+# - the coherent kernel on analytic scenes (receive_coherent_kernel) sums
+#   a 1-D grid of at most COH_ROW_VALS values (I and Q of n_time bins)
+#   into a row of doubles a warp, each bin's taps in lane order: its
+#   repeats are bit-identical; larger grids keep the block's or the
+#   global grid of atomics (coh_rows in the .cu)
+COH_ROW_VALS = 512
 # - bin coordinates are float32: at 2^16 bins a tent weight keeps 7
 #   fraction bits (the JAX package's 1-D cap is the same 65,536)
 MAX_N_TIME = 65536
@@ -2381,6 +2387,13 @@ def grid_mode(n_cells: int, doppler: bool, coherent: bool = False,
     if not doppler:
         return 0
     return 1 if n_cells <= MAX_SMEM_CELLS else 2
+
+
+def coherent_warp_rows(adc: ADCConfig) -> bool:
+    """Whether a coherent call on an analytic scene sums its grid in warp
+    rows (bit-identical repeats): a 1-D grid of at most COH_ROW_VALS / 2
+    bins."""
+    return adc.n_freq == 1 and 2 * adc.n_time <= COH_ROW_VALS
 
 
 def launch_geometry(n_time: int, n_lanes: int, n_prims: int,

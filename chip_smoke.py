@@ -8,8 +8,8 @@ Phases (any failure exits non-zero before the last line is printed):
 1. device  - a CUDA card must be present; prints its name and power limit;
 2. build   - compiles every CUDA source of the main paths from `csrc/`
              (one nvcc per source, all started together, and a -lineinfo
-             cubin of the receive kernel for the flagship's instruction
-             mix) and prints the build times and ptxas' registers and
+             cubin of the receive kernel for the flagship's and the
+             coherent kernel's instruction mixes) and prints the build times and ptxas' registers and
              spills of every kernel and configuration;
 3. parity  - each kernel against its plain PyTorch version on the card:
              the receive megakernel's flagship configuration on seeded
@@ -71,9 +71,14 @@ Phases (any failure exits non-zero before the last line is printed):
              within 1 bin of the config's range bin; mesh_scene coherent,
              whose |I + jQ| peaks within 2 bins of 2R / c.  Each beside its
              kernel alone, a Philox repeat and the plain version at 2^24
-             lanes; then K1 against the wavefront on fmcw_sonar (peak bin,
-             window energy) and pulse 0 (the summed I / Q's magnitude and
-             phase);
+             lanes (the pulse train's bit-identical: its 8 bins sum in the
+             coherent kernel's warp rows); for the pulse train and the
+             dechirp the coherent kernel's (`receive_coherent_kernel`)
+             launch geometry, registers, SASS mix by class and stage and
+             issue-slot bound (`tools/k1_mix.py`), as the CPI phase prints
+             them for the corner; then K1 against the wavefront on
+             fmcw_sonar (peak bin, window energy) and pulse 0 (the summed
+             I / Q's magnitude and phase);
    mimo    - golden config 6 (`mimo_beamform_scene`: an 8-element
              lambda / 2 receive array, one target at 15 degrees, 4 m out)
              through K1's MIMO configuration: against its plain version on
@@ -464,6 +469,7 @@ def print_build(infos: dict, tag: str) -> None:
                                               ' endpoints)' if e else
                                               ' lobes)' if lob else ')'))
     names['receive_flagship_kernel'] = 'receive_megakernel (flagship)'
+    names['receive_coherent_kernel'] = 'receive_megakernel (coherent)'
     names.update({
              'receive_reduce_kernel': 'receive reduce',
              'bvh_closest_kernel': 'bvh_closest', 'bvh_any_kernel': 'bvh_any',
@@ -482,56 +488,72 @@ def print_build(infos: dict, tag: str) -> None:
                 print(f'  ptxas {fn}: {line.strip()}')
 
 
-def flagship_mix(dev, tag, build_log: str, cubin: str, n_rect: int,
-                 blocks: int, threads: int, sms: int) -> dict:
-    """The flagship kernel's registers and spills (ptxas), its SASS
-    instruction mix by class and stage (`tools/k1_mix.py`, the stage
-    entries of the plain version at 2^16 lanes) and the function's
-    issue-slot bound at the main path's lanes: the fewest thread-
-    instructions a lane measured for the lane stages alone, so that the
-    kernel's own bookkeeping (its turns) does not raise its bound."""
+# the warp-wavefront kernel of each configuration `tools/k1_mix.py` reads
+MIX_KERNEL = {'flagship': 'receive_flagship_kernel',
+              'pulse_train': 'receive_coherent_kernel',
+              'dechirp': 'receive_coherent_kernel',
+              'corner': 'receive_coherent_kernel'}
+
+
+def kernel_mix(dev, tag, build_log: str, cubin: str, config: str,
+               geometry: tuple, sms: int, n_pulses: int = 1) -> dict:
+    """A warp-wavefront kernel on one of its main paths (`tools/k1_mix.py`
+    CONFIGS: the flagship kernel's, or the coherent kernel's pulse train,
+    dechirp and corner CPI): its launch geometry (`geometry`, a pulse's of
+    `n_pulses`), its registers and spills (ptxas, from a fresh build's
+    log), its SASS instruction mix by class and stage under the plain
+    version's stage entries at 2^16 lanes, and the function's issue-slot
+    bound at the path's lanes: the fewest lane-stage thread-instructions
+    measured (`k1_mix.LEAST_STAGE_INSTRUCTIONS`), so that a kernel's own
+    bookkeeping (its turns) does not raise its bound."""
     sys.path.insert(0, os.path.join(HERE, 'tools'))
     import k1_mix
+    kernel = MIX_KERNEL[config]
+    blocks, threads, smem = geometry
     fn, regs = '?', []
     for line in build_log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
             fn = m.group(1)
-        elif 'receive_flagship_kernel' in fn and (
-                'registers' in line or 'spill' in line):
+        elif kernel in fn and ('registers' in line or 'spill' in line):
             regs.append(line.strip())
-    print(f'receive_megakernel (flagship) ptxas: {" | ".join(regs)} {tag}')
-    print(f'receive_megakernel (flagship) occupancy: {blocks / sms:g} '
-          f'blocks, {blocks * threads / 32 / sms:g} warps an SM {tag}')
-    assert (k1_mix.DEPTH, k1_mix.SEED) == (MAX_DEPTH, SEED)
-    masks, _ = k1_mix.stage_masks(1 << 16, device=dev.type)
-    a = k1_mix.per_lane(masks, 1 << 16)
-    mix = k1_mix.sass_mix(cubin, k1_mix.source_of(HERE),
-                          'receive_flagship_kernel', a, n_rect,
+    what = f'receive_megakernel ({kernel}, {config})'
+    print(f'{what} ptxas: {" | ".join(regs)} {tag}')
+    print(f'{what} geometry: {blocks} blocks a pulse x {n_pulses} pulses x '
+          f'{threads} threads, {smem} B shared each; '
+          f'{blocks * n_pulses / sms:g} blocks, '
+          f'{blocks * n_pulses * threads / 32 / sms:g} warps an SM {tag}')
+    if config == 'flagship':
+        assert (k1_mix.DEPTH, k1_mix.SEED) == (MAX_DEPTH, SEED)
+    n = 1 << 16
+    masks, n_rect = k1_mix.stage_masks(n, device=dev.type, config=config)
+    a = k1_mix.per_lane(masks, n)
+    mix = k1_mix.sass_mix(cubin, k1_mix.source_of(HERE), kernel, a, n_rect,
                           os.path.join(HERE, 'chiprun_out',
-                                       'k1_sass_flagship.txt'))
+                                       f'k1_sass_{config}.txt'), config)
     _, _, mhz, _ = k1_mix.card_clock_mhz()
-    ti = mix['thread_instructions_a_lane']
+    lanes = k1_mix.CONFIGS[config]['lanes']
     bi = mix['bound_instructions_a_lane']
-    issue_ms = k1_mix.issue_slot_bound_ms(bi, N_LANES, mhz, sms)
-    print(f'receive_megakernel (flagship) SASS: {mix["instructions"]} '
-          f'instructions; by class a lane ' + json.dumps(
+    issue_ms = k1_mix.issue_slot_bound_ms(bi, lanes, mhz, sms)
+    print(f'{what} SASS: {mix["instructions"]} instructions; by class a '
+          f'lane ' + json.dumps(
               {k: round(v, 1) for k, v in
                mix['thread_instructions_a_lane_by_class'].items()}))
-    print('receive_megakernel (flagship) SASS by stage a lane ' + json.dumps(
+    print(f'{what} SASS by stage a lane ' + json.dumps(
         {k: round(v, 1) for k, v in
          mix['thread_instructions_a_lane_by_stage'].items()}))
-    print(f'receive_megakernel (flagship) issues {ti:.1f} '
-          f'thread-instructions a lane, '
-          f'{mix["stage_instructions_a_lane"]:.1f} in the lane stages '
-          f'{tag}')
-    print(f'bound flagship 2^28 lanes, issue slots: {bi:.1f} '
-          f'thread-instructions a lane (the fewest measured for the lane '
-          f'stages) / 32 over {sms} SMs x 4 schedulers at {mhz:g} MHz = '
+    print(f'bound {config}, issue slots: {bi:.1f} thread-instructions a '
+          f'lane (the fewest measured for the lane stages; this kernel '
+          f'{mix["stage_instructions_a_lane"]:.1f} there and '
+          f'{mix["thread_instructions_a_lane"]:.1f} in all) over {lanes} '
+          f'lanes / 32 over {sms} SMs x 4 schedulers at {mhz:g} MHz = '
           f'{issue_ms:.4f} ms {tag}')
-    return {'issue_slot_bound_ms': float(issue_ms),
-            'thread_instructions_a_lane': float(ti),
-            'bound_instructions_a_lane': float(bi)}
+    return {'kernel': kernel, 'issue_slot_bound_ms': float(issue_ms),
+            'thread_instructions_a_lane': float(
+                mix['thread_instructions_a_lane']),
+            'bound_instructions_a_lane': float(bi),
+            'registers': ' | '.join(regs),
+            'geometry': [blocks, threads, smem]}
 
 
 def flagship(torch, bt, rk, dev, tag, pulse_compress, build_log: str,
@@ -636,8 +658,8 @@ def flagship(torch, bt, rk, dev, tag, pulse_compress, build_log: str,
     n_bytes = 4 * (params_t.numel() + prim_t.numel() + txp_t.numel()
                    + rx.adc.n_time) + 8
     b = bound(lane_ops(stats, n_rect), n_bytes, 'flagship 2^28 lanes')
-    mix = flagship_mix(dev, tag, build_log, cubin, n_rect, blocks, threads,
-                       sms)
+    mix = kernel_mix(dev, tag, build_log, cubin, 'flagship',
+                     (blocks, threads, smem), sms)
     print(f'flagship bounds: FP32 {b["bound_ms"]:.4f} ms, issue slots '
           f'{mix["issue_slot_bound_ms"]:.4f} ms; kernel {k_med:.3f} ms '
           f'{tag}')
@@ -1274,7 +1296,8 @@ def _plain_philox(torch, rk, params, prim, txp, kw, n_lanes, depth, dev,
     return ref, n_ref, amp, _chirp_h(stats, txp), ms
 
 
-def coherent(torch, bt, rk, ik, dev, tag) -> list:
+def coherent(torch, bt, rk, ik, dev, tag, build_log: str,
+             cubin: str) -> list:
     """K1's coherent configuration and the LO receive types: parity, the
     main paths (FMCW sonar, the pulse train, the dechirp chain, a coherent
     mesh), the kernels alone, K1 against the wavefront."""
@@ -1448,10 +1471,15 @@ def coherent(torch, bt, rk, ik, dev, tag) -> list:
         torch, rk, params, prim, txp, kw, COH_LANES, PULSE_DEPTH, dev)
     rep = float((acc1 - acc2).abs().max())
     amp_max = float(amp.max())
+    # the warp rows sum every bin in a fixed order: repeats are
+    # bit-identical there
+    rows = rk.coherent_warp_rows(rx.adc)
     print(f'parity pulse train philox 2^24 lanes: two calls differ by at '
           f'most {rep:.3e} ({rep / amp_max:.3e} of the largest amplitude '
-          f'sum) per cell, events {int(n1)} / {int(n2)}')
-    if not (rep <= REPEAT_TOL * amp_max and int(n1) == int(n2)):
+          f'sum) per cell, events {int(n1)} / {int(n2)}; warp rows {rows}, '
+          f'bit-identical {bool(torch.equal(acc1, acc2))}')
+    if not ((torch.equal(acc1, acc2) if rows
+             else rep <= REPEAT_TOL * amp_max) and int(n1) == int(n2)):
         fail('pulse train: two Philox-mode calls with one seed differ')
     c = compare_coherent(torch, acc1, n1, ref, n_ref, amp,
                          rk.phase_slack(s.band, rx.adc),
@@ -1461,12 +1489,18 @@ def coherent(torch, bt, rk, ik, dev, tag) -> list:
           f'samples/s) {[round(x, 3) for x in k_ms[1:]]}; plain version '
           f'{plain_ms:.1f} ms {tag}')
     print('pulse train stage lanes: ' + json.dumps(stats))
+    mix = kernel_mix(dev, tag, build_log, cubin, 'pulse_train',
+                     rk.launch_geometry(rx.adc.n_time, COH_LANES,
+                                        int(prim.shape[0]), doppler=True,
+                                        coherent=True), sms)
     entries.append(_kernel_entry(
         torch, rk, 'coherent', 'pulse train pulse 0, 2^24 lanes',
         'eight receive(pulse_train_scene(p), coherent=True) calls, 2^24 '
         'samples each, depth 1, gate', launches, errs['coherent'] + [c],
         k_med, plain_ms, med / pt['n_pulses'], stats, [params, prim, txp],
-        8, 2, dict(repeat_rel=rep / amp_max)))
+        8, 2, dict(repeat_rel=rep / amp_max,
+                   repeat_bit_identical=bool(torch.equal(acc1, acc2)),
+                   **mix)))
     kw_grid['pulse_train'] = (s, sd, rx)
 
     # ---- 4c. the dechirp chain (golden config 4, one pulse) ----
@@ -1532,11 +1566,15 @@ def coherent(torch, bt, rk, ik, dev, tag) -> list:
           f'{[round(x, 3) for x in k_ms[1:]]}; plain version {plain_ms:.1f} '
           f'ms {tag}')
     print('dechirp stage lanes: ' + json.dumps(stats))
+    mix = kernel_mix(dev, tag, build_log, cubin, 'dechirp',
+                     rk.launch_geometry(rx.adc.n_time, COH_LANES,
+                                        int(prim.shape[0]), doppler=True,
+                                        coherent=True), sms)
     entries.append(_kernel_entry(
         torch, rk, 'coherent (dechirp)', 'dechirp 2^24 lanes',
         'receive(fmcw_dechirp_scene(), coherent=True), 2^24 samples, depth '
         '2, gate; decimate, range_fft', launches, [c], k_med, plain_ms, med,
-        stats, [params, prim, txp], 1024, 2))
+        stats, [params, prim, txp], 1024, 2, mix))
 
     # ---- 4d. a coherent mesh: mesh_scene's I / Q profile ----
     s, sd, rx, params, prim, txp, kw = _coh_tables(torch, rk, mesh_scene,
@@ -1659,7 +1697,7 @@ def _check_cpi_anchor(torch, sc_mod, name, cube, n, tag) -> float:
     return dsp_ms
 
 
-def cpi(torch, bt, rk, ik, dev, tag) -> list:
+def cpi(torch, bt, rk, ik, dev, tag, build_log: str, cubin: str) -> list:
     """The CPI phase: the mirror chains against the plain version, then
     configs 5 and 4 through receive_cpi (one K1 launch a train), their
     anchors, the launch alone, against one launch a pulse and the plain
@@ -1852,6 +1890,14 @@ def cpi(torch, bt, rk, ik, dev, tag) -> list:
                        + CPI_PULSES * rx.adc.n_time * 2) + 8 * CPI_PULSES
         b = bound(lane_ops(_chirp_h(stats, txp[0]), n_rect), n_bytes,
                   f'{name} CPI')
+        mix = {'kernel': 'receive_coherent_kernel'}
+        if name == 'corner':
+            mix = kernel_mix(
+                dev, tag, build_log, cubin, 'corner', rk.launch_geometry(
+                    rx.adc.n_time, spp, int(prim.shape[1]), doppler=True,
+                    coherent=True, n_pulses=CPI_PULSES),
+                torch.cuda.get_device_properties(0).multi_processor_count,
+                CPI_PULSES)
         entries.append({
             'name': 'receive_megakernel',
             'configuration': 'coherent CPI (pulse axis)'
@@ -1868,7 +1914,7 @@ def cpi(torch, bt, rk, ik, dev, tag) -> list:
             'receive_cpi_ms': med, 'loop_engine_ms': loop_med,
             'dsp_ms': dsp_ms, **b, 'library_ms': None,
             'lanes_on_another_path': worst['flips'],
-            'per_pulse_launch_rel': worst['per_pulse']})
+            'per_pulse_launch_rel': worst['per_pulse'], **mix})
 
     # the mirror form: one pulse of config 4 (its shape on the CPI path)
     n_rect = int((prim[0, :, 0] == 0).sum())
@@ -1886,7 +1932,8 @@ def cpi(torch, bt, rk, ik, dev, tag) -> list:
         'mirror chains', 'launches': mirror_launches,
         'max_abs_err': c_mirror['err'], 'parity': c_mirror['rel'],
         'ms': m_med, 'plain_ms': m_plain_ms, **b, 'library_ms': None,
-        'lanes_on_another_path': c_mirror['flips']})
+        'lanes_on_another_path': c_mirror['flips'],
+        'kernel': 'receive_coherent_kernel'})
     return entries
 
 
@@ -3656,8 +3703,10 @@ def main() -> int:
                mesh(torch, bt, rk, dev, tag, pulse_compress)]
     dop_kernels, k1_grid = doppler(torch, bt, rk, ik, dev, tag)
     kernels += dop_kernels
-    kernels += coherent(torch, bt, rk, ik, dev, tag)
-    kernels += cpi(torch, bt, rk, ik, dev, tag)
+    kernels += coherent(torch, bt, rk, ik, dev, tag,
+                        infos['receive_megakernel'].log, cubin)
+    kernels += cpi(torch, bt, rk, ik, dev, tag,
+                   infos['receive_megakernel'].log, cubin)
     kernels += mimo(torch, bt, rk, dev, tag)
     kernels += media(torch, bt, rk, dev, tag)
     kernels += phased(torch, bt, rk, dev, tag)

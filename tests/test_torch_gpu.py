@@ -676,10 +676,12 @@ def test_coherent_and_lo_kernels_match_plain_version(cuda, scene):
 @pytest.mark.gpu
 @pytest.mark.parametrize('scene', ['pulse_train', 'mixer'])
 def test_coherent_kernel_philox_mode(cuda, scene):
-    """Two Philox calls with one seed agree per cell within 1e-6 of the
-    largest cell's sum of amplitudes (atomics add in arrival order, and
-    I / Q partial sums reach the amplitudes' scale before they cancel),
-    and with the plain version on the same stream."""
+    """Two Philox calls with one seed agree bit for bit where the coherent
+    kernel sums warp rows (the pulse train's 8 bins), else per cell within
+    1e-6 of the largest cell's sum of amplitudes (the mixer's 2-D grid:
+    atomics add in arrival order, and I / Q partial sums reach the
+    amplitudes' scale before they cancel); and with the plain version on
+    the same stream."""
     s, rx, params, prim, txp, kw = _coherent_tables(cuda, scene, seed=11)
     n_lanes = 1 << 18
     a1, n1 = rk.receive_megakernel(params, prim, txp, n_lanes=n_lanes,
@@ -693,9 +695,43 @@ def test_coherent_kernel_philox_mode(cuda, scene):
     ref, n_ref = rk.receive_megakernel_ref(params, prim, txp, u, amp_out=amp,
                                            **kw)
     assert int(n1) == int(n2)
+    assert rk.coherent_warp_rows(rx.adc) == (scene == 'pulse_train')
+    if rk.coherent_warp_rows(rx.adc):
+        assert torch.equal(a1, a2)
     assert float((a1 - a2).abs().max()) <= 1e-6 * float(amp.max())
     _assert_coherent_parity(a1, n1, ref, n_ref, amp,
                             rk.phase_slack(s.band, rx.adc))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('scene', ['pulse_train', 'dechirp'])
+@pytest.mark.parametrize('n_lanes', [1, 31, 4781])
+def test_coherent_kernel_ragged_tail(cuda, scene, n_lanes):
+    """Lane counts that fill no warp or block, on injected uniforms: the
+    coherent kernel's events equal the plain version's, each lane's sum of
+    amplitudes within 1e-4 of itself plus 1e-3 of the largest lane (the
+    coherent lane gate: an amplitude is the square root of a power, which
+    FMA contraction moves by ulps where the aperture WDF cancels), and
+    every cell within the coherent bound (of at least 1e-30)."""
+    s, rx, params, prim, txp, kw = _coherent_tables(cuda, scene, seed=3)
+    u = _injected(cuda, rk.n_draws(kw['max_depth']), n_lanes, n_lanes)
+    lane = torch.full((n_lanes,), float('nan'), device=cuda)
+    lane_ref = torch.empty(n_lanes, device=cuda)
+    acc, n_ev = rk.receive_megakernel(params, prim, txp, n_lanes=n_lanes,
+                                      uniforms=u, lane_out=lane, **kw)
+    amp = torch.zeros((rx.adc.n_time, rx.adc.n_freq), dtype=torch.float64,
+                      device=cuda)
+    ref, n_ref = rk.receive_megakernel_ref(params, prim, txp, u,
+                                           lane_out=lane_ref, amp_out=amp,
+                                           **kw)
+    assert int(n_ev) == int(n_ref)
+    assert bool(torch.isfinite(lane).all())
+    assert bool(((lane - lane_ref).abs()
+                 <= 1e-4 * lane_ref.abs()
+                 + 1e-3 * float(lane_ref.abs().max())).all())
+    bound = 1e-4 * max(float(ref.abs().max()), 1e-30) \
+        + rk.phase_slack(s.band, rx.adc) * amp.float()[..., None]
+    assert bool(((acc - ref).abs() <= bound).all())
 
 
 @pytest.mark.gpu
@@ -794,6 +830,42 @@ def test_cpi_launch_matches_launches_per_pulse_and_plain(cuda, scene, crn):
     if crn:
         # one stream: the pulses differ by the target's motion alone
         assert float((acc[0] - acc[1]).abs().max()) > 0
+
+
+@pytest.mark.gpu
+def test_coherent_cpi_of_four_pulses_is_four_calls(cuda):
+    """A coherent CPI of four pulses, each with its own injected uniforms,
+    against four single calls: each lane's sum of amplitudes and each
+    pulse's events bit for bit (they do not depend on the launch
+    geometry), each cell within 1e-6 of the pulse's largest amplitude sum
+    (the CPI shares the resident blocks among its pulses, so a pulse's
+    warp rows sum its lanes in another grouping), and each pulse against
+    the plain version."""
+    s, rx, seeds, step, params, prim, txp, kw = _cpi_tables(
+        cuda, 'micro_doppler', 11, False)
+    params, prim, txp = params[:4], prim[:4], txp[:4]
+    n_pulses, n_lanes = 4, (1 << 14) + 5
+    u = _injected(cuda, rk.n_draws(kw['max_depth']), n_lanes, 9,
+                  lead=(n_pulses,))
+    lane = torch.empty((n_pulses, n_lanes), device=cuda)
+    before = rk.receive_megakernel_cpi.by_config['coherent']
+    acc, n_ev = rk.receive_megakernel_cpi(params, prim, txp, n_lanes=n_lanes,
+                                          uniforms=u, lane_out=lane, **kw)
+    torch.cuda.synchronize()
+    assert rk.receive_megakernel_cpi.by_config['coherent'] == before + 1
+    slack = rk.phase_slack(s.band, rx.adc)
+    for p in range(n_pulses):
+        lane1 = torch.empty(n_lanes, device=cuda)
+        one, n_one = rk.receive_megakernel(params[p], prim[p], txp[p],
+                                           n_lanes=n_lanes, uniforms=u[p],
+                                           lane_out=lane1, **kw)
+        amp = torch.zeros((rx.adc.n_time, rx.adc.n_freq),
+                          dtype=torch.float64, device=cuda)
+        ref, n_ref = rk.receive_megakernel_ref(params[p], prim[p], txp[p],
+                                               u[p], amp_out=amp, **kw)
+        assert torch.equal(lane[p], lane1) and int(n_ev[p]) == int(n_one)
+        assert float((acc[p] - one).abs().max()) <= 1e-6 * float(amp.max())
+        _assert_coherent_parity(acc[p], n_ev[p], ref, n_ref, amp, slack)
 
 
 @pytest.mark.gpu

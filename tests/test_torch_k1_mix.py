@@ -1,7 +1,8 @@
 """tools/k1_mix.py on the CPU: the stage masks it reads from the plain
-version's counts, the SIMT models built on them, and the stage tags of
-the flagship kernel's source that its instruction mix reads; and the
-anchors by which tools/k1_clock.py instruments that source."""
+version's counts (the flagship's and the coherent configuration's main
+paths), the SIMT models built on them, and the stage tags of the
+flagship and coherent kernels' source that its instruction mix reads; and
+the anchors by which tools/k1_clock.py instruments that source."""
 
 import os
 import sys
@@ -70,15 +71,64 @@ def test_simt_models_bound_their_work(lanes):
     assert p['turns']['ray'] == N // 32
 
 
-@pytest.mark.parametrize('splat', [False, True])
-def test_clock_probe_anchors_appear_once(splat):
+@pytest.mark.parametrize('splat, kernel', [
+    (False, 'receive_flagship_kernel'), (True, 'receive_flagship_kernel'),
+    (False, 'receive_coherent_kernel')])
+def test_clock_probe_anchors_appear_once(splat, kernel):
     """k1_clock patches the kernel's source by exact text: each of its
-    anchors lies in the current source once (else it raises)."""
+    anchors lies in the current source once (the warp loop's in the
+    kernel's body; else it raises)."""
     with open(k1_mix.source_of(ROOT)) as f:
         src = f.read()
-    out = k1_clock.instrument(src, splat)
+    out = k1_clock.instrument(src, splat, kernel)
     assert out.count('__device__ unsigned long long k1_clk[16];') == 1
     assert out.count('clock64()') > src.count('clock64()')
+
+
+@pytest.mark.parametrize('config', ['pulse_train', 'dechirp'])
+def test_coherent_masks_sum_to_the_plain_versions_stats(config):
+    """The coherent configuration's masks: each stat key's per-lane counts
+    sum to the plain version's, the SIMT models take them, and a pool of
+    64 paths a warp issues fewer slots than the grid-stride loop."""
+    n = 1 << 10
+    masks, n_rect = k1_mix.stage_masks(n, config=config)
+    a = k1_mix.per_lane(masks, n)
+    s, rx = k1_mix.scene_of(config)
+    p = rk.pack_scene(s.compile(device='cpu'), rx,
+                      s.shape_index_of_endpoint('receiver', rx.id))
+    params, prim, txp = (torch.tensor(x) for x in (p.params, p.prim, p.txp))
+    kw = k1_mix.ref_kw(config, rx, p)
+    assert a['trace'].shape == (n, kw['max_depth'])
+    stats: dict = {}
+    rk.receive_megakernel_ref(params, prim, txp,
+                              rk.philox_uniforms(7, rk.n_draws(
+                                  kw['max_depth']), n), stats=stats, **kw)
+    for key, v in a.items():
+        assert int(v.sum()) == stats[key], key
+    assert int(a['phase'].sum()) > 0
+    w = k1_mix.stage_weights_fp32(n_rect, config)
+    m = k1_mix.simt(a, w, lanes_per_thread=8)
+    assert 0 < m['grid_stride_efficiency'] <= 1
+    pm = k1_mix.pool_model(a, w, lanes_per_thread=8, fused=True)
+    assert pm['efficiency'] <= 1
+    assert pm['slots_a_lane'] < m['grid_stride_slots_a_lane']
+
+
+def test_coherent_source_carries_every_stage_tag():
+    """The coherent kernel's tags: each stage that k1_mix reads lies in
+    its body, and the helpers of its draws, phase and splats are found."""
+    src = k1_mix.source_of(ROOT)
+    with open(src) as f:
+        lines = f.read().splitlines()
+    a = next(i for i, ln in enumerate(lines, 1)
+             if ln.startswith('receive_coherent_kernel('))
+    b = next(i for i, ln in enumerate(lines, 1) if i > a and ln == '}')
+    stages = {st for ln, st in k1_mix.line_stages(src).items() if a < ln < b}
+    assert {'draws', 'sched', 'ray', 'hit', 'direct', 'nee', 'shadow',
+            'phase', 'splat', 'bounce', 'trace', 'closest'} <= stages
+    helpers = k1_mix.func_ranges(src)
+    assert {'draws_coh', 'splat_c', 'splat_g', 'phase', 'phase_f',
+            'phase_h', 'phase_c'} <= set(helpers)
 
 
 def test_flagship_source_carries_every_stage_tag():

@@ -242,3 +242,35 @@ def test_wrapper_rejects_bad_tables():
     with pytest.raises(ValueError, match='time_sampling'):
         rk.receive_megakernel(params, prim, txp,
                               **{**kw, 'time_sampling': 'stratified'})
+
+
+@pytest.mark.parametrize('scene', ['flagship', 'pulse_train'])
+def test_plain_version_does_not_depend_on_the_thread_count(scene):
+    """The plain version on the kernel's Philox stream (5013 lanes, seed
+    11) at one torch thread and at four, in one process: the totals, the
+    event counts and every lane's sum bit for bit."""
+    from beifong_tpu_torch.scenes import pulse_train_scene
+    s, rx = flagship_scene() if scene == 'flagship' else pulse_train_scene(0)
+    p = rk.pack_scene(s.compile(device='cpu'), rx,
+                      s.shape_index_of_endpoint('receiver', rx.id))
+    params, prim, txp = (torch.tensor(x) for x in (p.params, p.prim, p.txp))
+    kw = dict(adc=rx.adc, max_depth=3, time_sampling='gate',
+              rx_kind='wigner')
+    if scene == 'pulse_train':
+        kw.update(max_depth=1, doppler=True, coherent=True)
+    n = 5013
+    u = rk.philox_uniforms(11, rk.n_draws(kw['max_depth']), n)
+    out = []
+    try:
+        for threads in (1, 4, 1):
+            torch.set_num_threads(threads)
+            lane = torch.empty(n)
+            acc, n_ev = rk.receive_megakernel_ref(params, prim, txp, u,
+                                                  lane_out=lane, **kw)
+            out.append((acc, int(n_ev), lane))
+    finally:
+        torch.set_num_threads(1)
+    assert float(out[0][0].abs().max()) > 0 and out[0][1] > 0
+    for acc, n_ev, lane in out[1:]:
+        assert torch.equal(acc, out[0][0]) and n_ev == out[0][1]
+        assert torch.equal(lane, out[0][2])

@@ -1,21 +1,27 @@
 #!/usr/bin/env python3
-"""Where the flagship kernel's time goes, by the SM's clock: a copy of the
-receive kernel whose warp loop reads clock64() at each turn's boundaries
-(lane 0 of each warp, after a __syncwarp), summed over the warps, at the
-main path's shape (2^28 Philox lanes, depth 3).
+"""Where a warp-wavefront kernel's time goes, by the SM's clock: a copy of
+the receive kernel whose warp loop reads clock64() at each turn's
+boundaries (lane 0 of each warp, after a __syncwarp), summed over the
+warps, at a main path's shape: the flagship (receive_flagship_kernel,
+2^28 Philox lanes, depth 3) or the coherent kernel
+(receive_coherent_kernel) on pulse 0 of the pulse train (2^24 lanes,
+depth 1) or the dechirp (2^24, depth 2).
 
 Run from the repository root on the card's machine:
 
-    python3 tools/k1_clock.py [DIR] [--splat]
+    python3 tools/k1_clock.py [DIR] [--splat] [--config NAME]
 
 It copies DIR's (default: this checkout's) `beifong_tpu_torch` into
 `beifong_tpu_torch/_build/k1_clock/` (ignored by git), adds the clocks to
-`receive_flagship_kernel` there (the turn's choice and slot hand-out, RAY's
-ray, SHADE's shading and bounce, the trace after each, the waiting-set
-update, the splat), builds it, times one call after a warm-up, and prints
+the configuration's kernel there (the turn's choice and slot hand-out,
+RAY's ray, SHADE's shading (the coherent kernel's echo phase and, past
+its warp rows, its grid splat) and bounce, the trace after each, the
+waiting-set update, the warp splat), builds it, times one call after a
+warm-up, and prints
 one line `CLK {json}`: each part's share of the warps' cycles, the turns
 and how full SHADE's were; with --splat also the cycles a SHADE turn of
-the splat's phases (lane 0's clock, added to global counters).  The added __syncwarp()s and clock reads cost
+the splat's phases (lane 0's clock, added to global counters; the
+flagship's splat only).  The added __syncwarp()s and clock reads cost
 time of their own: read the shares, not the call's time.
 """
 
@@ -31,17 +37,30 @@ import sys
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NAMES = ('turn', 'ray', 'shade', 'trace_of_ray', 'trace_of_shade', 'masks',
          'splat')
+# each configuration's kernel and the warp splat's call in its loop
+KERNELS = {'flagship': 'receive_flagship_kernel',
+           'pulse_train': 'receive_coherent_kernel',
+           'dechirp': 'receive_coherent_kernel'}
+SPLAT_CALL = {
+    'receive_flagship_kernel':
+        '        if (shade) {\n            // [k1 stage: splat]\n'
+        '            flag_splat(w_row, w_mask, w_vals, cfg.n_time, val, yb, '
+        'j);\n',
+    'receive_coherent_kernel':
+        '        if (shade && rows) {\n            // [k1 stage: splat]\n'
+        '            coh_splat_rows(w_row, w_vals, cfg.n_time, ci, si, yb, '
+        'j);\n'}
 
 # (anchor in the source, text that replaces it)
 PATCH = (
     ('// rect_hit on a rectangle\'s world-to-local rows held as float4s.',
      '__device__ unsigned long long k1_clk[16];\n\n'
      '// rect_hit on a rectangle\'s world-to-local rows held as float4s.'),
-    ('    unsigned sh_lo = 0u, sh_hi = 0u;\n    for (;;) {',
-     '    unsigned sh_lo = 0u, sh_hi = 0u;\n'
+    ('    for (;;) {\n        // [k1 stage: sched]  the turn:',
      '    unsigned long long ck[16] = {0};\n'
      '    for (;;) {\n'
-     '        const long long c0 = clock64();'),
+     '        const long long c0 = clock64();\n'
+     '        // [k1 stage: sched]  the turn:'),
     ('        const int slot = j < n_go ? w_take[j] : -1;',
      '        const int slot = j < n_go ? w_take[j] : -1;\n'
      '        const long long c1 = clock64();\n'
@@ -59,17 +78,13 @@ PATCH = (
      '        const long long c3 = clock64();\n'
      '        ck[shade ? 4 : 3] += c3 - c2;\n'
      '        // [k1 stage: sched]  the waiting set:'),
-    ('        if (shade) {\n            // [k1 stage: splat]\n'
-     '            flag_splat(w_row, w_mask, w_vals, cfg.n_time, val, yb, j);'
-     '\n        }\n    }',
+    ('{splat}        }}\n    }}',
      '        const long long c4 = clock64();\n'
      '        ck[5] += c4 - c3;\n'
-     '        if (shade) {\n'
-     '            flag_splat(w_row, w_mask, w_vals, cfg.n_time, val, yb, j);'
-     '\n'
-     '        }\n'
+     '{splat}'
+     '        }}\n'
      '        ck[6] += clock64() - c4;\n'
-     '    }\n'
+     '    }}\n'
      '    if (j == 0)\n'
      '        for (int k = 0; k < 16; ++k) atomicAdd(&k1_clk[k], ck[k]);'),
     ('const char* rk_error_string(int err) {',
@@ -113,24 +128,49 @@ SPLAT_PATCH = (
 )
 
 
-def instrument(s: str, splat: bool = False) -> str:
-    """The receive kernel's source `s` with the clock reads added; each
-    anchor must appear exactly once."""
-    patch = PATCH
+def _patch_body(s: str, head: str, patch) -> str:
+    """`s` with `patch` applied inside the function whose definition
+    starts at `head` (each anchor once there)."""
+    if s.count(head) != 1:
+        raise SystemExit(f'{head!r} not found once')
+    a = s.index(head)
+    b = s.index('\n}\n', a) + 3
+    body = s[a:b]
+    for old, new in patch:
+        if body.count(old) != 1:
+            raise SystemExit(f'anchor not found once: {old[:60]!r}')
+        body = body.replace(old, new)
+    return s[:a] + body + s[b:]
+
+
+def instrument(s: str, splat: bool = False,
+               kernel: str = 'receive_flagship_kernel') -> str:
+    """The receive kernel's source `s` with the clock reads added to the
+    warp loop of `kernel`; each anchor must appear exactly once (the
+    loop's within the kernel's body)."""
+    loop = tuple((old.format(splat=SPLAT_CALL[kernel]),
+                  new.format(splat=SPLAT_CALL[kernel]))
+                 if '{splat}' in old else (old, new)
+                 for old, new in PATCH[1:-1])
+    glob = (PATCH[0], PATCH[-1])
     if splat:
+        if kernel != 'receive_flagship_kernel':
+            raise SystemExit('--splat reads the flagship splat alone')
         # k1_clk must be declared before flag_splat: move its declaration
         decl = '// The sum of the values of a (nonempty) group of lanes,'
-        patch = (((decl, '__device__ unsigned long long k1_clk[16];\n\n'
-                   + decl), (PATCH[0][0], PATCH[0][0]))
-                 + PATCH[1:] + SPLAT_PATCH)
-    for old, new in patch:
+        glob = ((decl, '__device__ unsigned long long k1_clk[16];\n\n'
+                 + decl), PATCH[-1])
+        s = _patch_body(s, 'void flag_splat(double* row', SPLAT_PATCH)
+    s = _patch_body(s, f'{kernel}(const float* __restrict__ params,', loop)
+    for old, new in glob:
         if s.count(old) != 1:
             raise SystemExit(f'anchor not found once: {old[:60]!r}')
         s = s.replace(old, new)
     return s
 
 
-def instrumented_copy(root: str, splat: bool = False) -> str:
+def instrumented_copy(root: str, splat: bool = False,
+                      kernel: str = 'receive_flagship_kernel') -> str:
     dst = os.path.join(HERE, 'beifong_tpu_torch', '_build', 'k1_clock')
     shutil.rmtree(dst, ignore_errors=True)
     shutil.copytree(os.path.join(root, 'beifong_tpu_torch'),
@@ -141,24 +181,31 @@ def instrumented_copy(root: str, splat: bool = False) -> str:
     with open(src) as f:
         s = f.read()
     with open(src, 'w') as f:
-        f.write(instrument(s, splat))
+        f.write(instrument(s, splat, kernel))
     return dst
 
 
-def run(tree: str) -> dict:
+def run(tree: str, config: str = 'flagship') -> dict:
     sys.path.insert(0, tree)
     import torch
+    from beifong_tpu_torch import scenes
     from beifong_tpu_torch.integrators import receive_kernel as rk
-    from beifong_tpu_torch.scenes import flagship_scene
     assert rk.__file__.startswith(tree)
     dev = torch.device('cuda')
-    s, rx = flagship_scene()
-    p = rk.pack_scene(s.compile(device='cpu'), rx,
+    s, rx = {'flagship': scenes.flagship_scene,
+             'pulse_train': lambda: scenes.pulse_train_scene(0),
+             'dechirp': scenes.fmcw_dechirp_scene}[config]()
+    p = rk.pack_scene(s.compile(use_bvh=False, device='cpu'), rx,
                       s.shape_index_of_endpoint('receiver', rx.id))
     params, prim, txp = (torch.tensor(a, device=dev)
                          for a in (p.params, p.prim, p.txp))
     kw = dict(adc=rx.adc, max_depth=3, time_sampling='gate',
               rx_kind='wigner', n_lanes=1 << 28, seed=7)
+    if config != 'flagship':
+        kw.update(max_depth=1 if config == 'pulse_train' else 2,
+                  n_lanes=1 << 24, doppler=True, coherent=True,
+                  receive_type=rx.receive_type,
+                  has_lo=rx.lo_waveform is not None, mirror=bool(p.mirror))
     lib = rk.LIBRARY.get()
     lib.rk_clock.argtypes = [ctypes.c_void_p, ctypes.c_int]
     buf = (ctypes.c_ulonglong * 16)()
@@ -177,7 +224,8 @@ def run(tree: str) -> dict:
     card = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                            '--format=csv,noheader'], capture_output=True,
                           text=True).stdout.strip()
-    return {'card': card, 'instrumented_ms': a.elapsed_time(b),
+    return {'card': card, 'config': config,
+            'instrumented_ms': a.elapsed_time(b),
             'share': {n: v[i] / tot for i, n in enumerate(NAMES)},
             'warp_cycles_a_lane': tot * 32 / kw['n_lanes'],
             'splat_phases': {n: v[12 + i] / max(1, v[9]) for i, n in
@@ -190,13 +238,20 @@ def run(tree: str) -> dict:
 
 def main() -> int:
     if len(sys.argv) > 1 and sys.argv[1] == '--child':
-        print('CLK ' + json.dumps(run(sys.argv[2])), flush=True)
+        print('CLK ' + json.dumps(run(sys.argv[2], sys.argv[3])), flush=True)
         return 0
-    args = [a for a in sys.argv[1:] if a != '--splat']
+    argv = sys.argv[1:]
+    config = 'flagship'
+    if '--config' in argv:
+        i = argv.index('--config')
+        config = argv[i + 1]
+        del argv[i:i + 2]
+    args = [a for a in argv if a != '--splat']
     root = os.path.abspath(args[0] if args else HERE)
-    tree = instrumented_copy(root, '--splat' in sys.argv)
+    tree = instrumented_copy(root, '--splat' in argv, KERNELS[config])
     res = subprocess.run([sys.executable, os.path.abspath(__file__),
-                          '--child', tree], capture_output=True, text=True)
+                          '--child', tree, config], capture_output=True,
+                         text=True)
     sys.stdout.write(res.stdout)
     sys.stderr.write(res.stderr[-4000:])
     return res.returncode

@@ -1,20 +1,21 @@
 #!/usr/bin/env python3
-"""What the flagship configuration of the receive megakernel (K1) spends
-its issue slots on: the instruction mix of its machine code by stage, the
+"""What the flagship and coherent configurations of the receive megakernel
+(K1) spend their issue slots on: the instruction mix of its machine code by stage, the
 thread-instructions a lane that the plain version's stage counts imply,
 the issue-slot bound beside the FP32 bound, and the SIMT efficiency of a
 warp's 32 lanes (arithmetic from the plain version, not a device reading).
 
 Run from the repository root:
 
-    python3 tools/k1_mix.py --simt [--lanes 16]
+    python3 tools/k1_mix.py --simt [--lanes 16] [--config NAME]
         (CPU or card) the SIMT efficiency of the grid-stride loop (a warp
         traces 32 consecutive lanes, each to its end) and of a warp-uniform
         vertex loop that refills a thread whose path ended with its next
-        lane, from per-lane stage masks of the plain version at 2^lanes
-        lanes, weighted by chip_smoke.FP32_OPS;
+        lane, and of a pool of 64 paths a warp, from per-lane stage masks
+        of the plain version at 2^lanes lanes, weighted by
+        chip_smoke.FP32_OPS;
 
-    python3 tools/k1_mix.py --sass DIR [--listing FILE]
+    python3 tools/k1_mix.py --sass DIR [--listing FILE] [--config NAME]
         (the card's machine: nvcc, nvdisasm, nvidia-smi) compiles DIR's
         csrc/receive_megakernel.cu to a cubin with -lineinfo (the library's
         flags otherwise), attributes each instruction of the flagship kernel
@@ -23,17 +24,24 @@ Run from the repository root:
         comments), counts them by class, weights each stage by its
         executions a lane (the same plain-version masks; Philox by the
         blocks a lane draws), and prints thread-instructions a lane and the
-        issue-slot bound at 2^28 lanes: 132 SMs x 4 schedulers x one warp
+        issue-slot bound at the main path's lanes: 132 SMs x 4 schedulers x one warp
         instruction a cycle at the card's maximum SM clock, for the fewest
         thread-instructions a lane measured for the lane stages alone
         (`bound_instructions`: the loops' and turns' bookkeeping left out,
         so a kernel that issues more does not raise its own bound).  The
         full disassembly of the kernel goes to
-        chiprun_out/k1_sass_<tree>.txt.
+        chiprun_out/k1_sass_<tree>_<config>.txt.
 
-The lanes' stage masks come from the plain version on the flagship scene
-(Wigner receiver, gate sampling) at depth 3 with Philox seed 7, the main
-path's; the pool model is the flagship kernel's pool of 64 paths a warp.
+NAME is one of CONFIGS: the flagship (its scene, depth 3, 2^28 lanes:
+the grid-stride receive_trace_kernel<false> or receive_flagship_kernel
+that replaced it) or the coherent configuration's main paths (the
+grid-stride receive_doppler_kernel<false, true, ...> or
+receive_coherent_kernel that replaced it): the pulse train
+(pulse 0, depth 1, 2^24 lanes), the dechirp (depth 2, 2^24) and the
+corner CPI's pulse 0 (mirror chains, depth 4, fixed sampling, 64 x 2^16
+lanes).  The lanes' stage masks come from the plain version on the
+configuration's scene (Wigner receiver) with Philox seed 7; the pool model
+is the kernels' pool of 64 paths a warp.
 
 Each mode prints one line `RESULT {json}`.  Estimates, stated as such:
 every instruction of a stage is counted once per entry of the stage (the
@@ -59,20 +67,47 @@ SEED = 7
 MAIN_LANES = 1 << 28
 POOL = 64                    # paths a warp in the flagship kernel
 # the flagship kernel of a tree: the grid-stride instantiation or the
-# warp-wavefront kernel that replaced it
+# warp-wavefront kernel that replaced it; the same for the coherent one
 KERNEL = r'receive_trace_kernelILb0ELb0ELb0E|receive_flagship_kernel'
+COH_KERNEL = (r'receive_doppler_kernelILb0ELb1ELb0ELb0ELb0E|'
+              r'receive_coherent_kernel')
+# each configuration: depth, time sampling, the main path's lanes, its
+# kernels
+CONFIGS = {'flagship': dict(depth=DEPTH, ts='gate', lanes=MAIN_LANES,
+                            kernel=KERNEL),
+           'pulse_train': dict(depth=1, ts='gate', lanes=1 << 24,
+                               kernel=COH_KERNEL),
+           'dechirp': dict(depth=2, ts='gate', lanes=1 << 24,
+                           kernel=COH_KERNEL),
+           'corner': dict(depth=4, ts='fixed', lanes=64 << 16,
+                          kernel=COH_KERNEL)}
 # the stages that are bookkeeping, not a lane's work: the warp wavefront's
 # turns, the grid-stride loop, the block's set-up
 BOOKKEEPING = ('sched', 'lane', 'block')
 # the fewest thread-instructions a lane measured for the lane stages of
-# the flagship function (stage masks above): receive_flagship_kernel's
-# 2,399.0; the grid-stride kernel before it 2,507.2
-LEAST_STAGE_INSTRUCTIONS = 2399.0
+# each configuration's function (stage masks above): the flagship's
+# receive_flagship_kernel 2,399.0 (the grid-stride kernel before it
+# 2,507.2); the coherent configuration's, receive_coherent_kernel's
+# second design (the grid-stride instantiation before it 2,974.0,
+# 1,954.9, 4,170.8)
+LEAST_STAGE_INSTRUCTIONS = {'flagship': 2399.0, 'pulse_train': 2341.9,
+                            'dechirp': 1639.5, 'corner': 3462.6}
 
 # the stages of a flagship lane and the plain version's stat key that counts
 # the entries of each ('rect' and 'occ' per rectangle tested)
 STAGES = ('ray', 'trace', 'closest', 'hit', 'direct', 'nee', 'shadow',
-          'splat', 'bounce', 'draws', 'sched', 'lane', 'block')
+          'phase', 'splat', 'bounce', 'draws', 'sched', 'lane', 'block')
+# the plain version's stat keys a lane's masks are read for (its receive
+# frequency's, counted for every lane, are the ray's: stage_weights_fp32)
+KEYS = ('trace', 'hit', 'direct', 'nee_geom', 'nee', 'occ_tests',
+        'nee_splat', 'bounce', 'ggx_nee', 'ggx_bounce', 'mirror_bounce',
+        'dop_direct', 'dop_nee', 'dop_bounce', 'splat_2d', 'lo_bin', 'phase',
+        'phase_lo')
+# the SIMT models' stage columns after the ray's: each a sum of stat keys
+COLUMNS = (('trace',), ('hit',), ('direct', 'dop_direct'), ('nee_geom',),
+           ('nee', 'ggx_nee', 'dop_nee'), ('occ_tests',),
+           ('nee_splat', 'splat_2d', 'lo_bin'), ('phase', 'phase_lo'),
+           ('bounce', 'ggx_bounce', 'dop_bounce'), ('mirror_bounce',))
 # the parent's section comments inside trace_lane, in source order, and
 # the tags of a body written with them
 MARKERS = ((r'-- receive-ray generation', 'ray'),
@@ -107,15 +142,41 @@ CLASSES = (('fp32', r'^(FFMA|FADD|FMUL)(\.|$)'),
            ('other', r'.'))
 
 
-def stage_masks(n_lanes: int, device: str = 'cpu'):
+def scene_of(config: str):
+    """(scene, receiver) of a configuration: a snapshot for the corner."""
+    sys.path.insert(0, HERE)
+    from beifong_tpu_torch import scenes
+    if config == 'flagship':
+        return scenes.flagship_scene()
+    if config == 'pulse_train':
+        return scenes.pulse_train_scene(0)
+    if config == 'dechirp':
+        return scenes.fmcw_dechirp_scene()
+    s, rx = scenes.corner_scene()
+    return s.at_time(0.0), rx
+
+
+def ref_kw(config: str, rx, packed) -> dict:
+    """The plain version's keywords of a configuration (the Wigner
+    receiver)."""
+    kw = dict(adc=rx.adc, max_depth=CONFIGS[config]['depth'],
+              time_sampling=CONFIGS[config]['ts'], rx_kind='wigner')
+    if config != 'flagship':
+        kw.update(doppler=True, receive_type=rx.receive_type,
+                  has_lo=rx.lo_waveform is not None, coherent=True,
+                  mirror=packed.mirror)
+    return kw
+
+
+def stage_masks(n_lanes: int, device: str = 'cpu',
+                config: str = 'flagship'):
     """[(key, depth, bool mask (n_lanes,))] of every stage count the plain
-    version takes on the flagship scene, read from its `count` calls, and
-    the number of rectangles."""
+    version takes on the configuration's scene, read from its `count`
+    calls, and the number of rectangles."""
     import torch
     from torch.overrides import TorchFunctionMode
     sys.path.insert(0, HERE)
     from beifong_tpu_torch.integrators import receive_kernel as rk
-    from beifong_tpu_torch.scenes import flagship_scene
 
     out = []
     d = [-1]
@@ -134,43 +195,43 @@ def stage_masks(n_lanes: int, device: str = 'cpu'):
                                 .astype(bool).copy()))
             return func(*args, **(kwargs or {}))
 
-    s, rx = flagship_scene()
-    sd = s.compile(device='cpu')
+    s, rx = scene_of(config)
+    sd = s.compile(use_bvh=False, device='cpu')
     p = rk.pack_scene(sd, rx, s.shape_index_of_endpoint('receiver', rx.id))
     params, prim, txp = (torch.tensor(a, device=device)
                          for a in (p.params, p.prim, p.txp))
-    u = rk.philox_uniforms(SEED, rk.n_draws(DEPTH), n_lanes, device=device)
+    kw = ref_kw(config, rx, p)
+    u = rk.philox_uniforms(SEED, rk.n_draws(kw['max_depth']), n_lanes,
+                           device=device)
     stats: dict = {}
     with Capture():
-        rk.receive_megakernel_ref(params, prim, txp, u, adc=rx.adc,
-                                  max_depth=DEPTH, time_sampling='gate',
-                                  rx_kind='wigner', stats=stats)
+        rk.receive_megakernel_ref(params, prim, txp, u, stats=stats, **kw)
     n_rect = int((prim[:, 0] == 0).sum())
     return out, n_rect
 
 
 def per_lane(masks, n_lanes: int):
-    """(n_lanes, depth) arrays of each stage's entries: trace, hit,
-    direct, nee_geom, nee, occ_tests, nee_splat, bounce."""
-    keys = ('trace', 'hit', 'direct', 'nee_geom', 'nee', 'occ_tests',
-            'nee_splat', 'bounce')
-    a = {k: np.zeros((n_lanes, DEPTH), np.int32) for k in keys}
+    """(n_lanes, depth) arrays of each stage's entries (KEYS)."""
+    depth = max(1, max(d for _, d, _ in masks) + 1)
+    a = {k: np.zeros((n_lanes, depth), np.int32) for k in KEYS}
     for key, d, m in masks:
         if key in a and m.shape == (n_lanes,):
             a[key][:, d] += m
     return a
 
 
-def philox_blocks(a: dict) -> np.ndarray:
+def philox_blocks(a: dict, fixed: bool = False) -> np.ndarray:
     """Philox4x32-10 blocks each lane computes: the kernel's Draws caches
     one block of four words, so a block is computed where a draw's index /
-    4 differs from the last one's (gate sampling: ray draws 1-4, then six
-    a depth from 5: direct d0, NEE d0+1, d0+2 (+ d0+3 past the cosine
-    test), bounce d0+4, d0+5)."""
+    4 differs from the last one's (gate sampling: ray draws 1-4, `fixed`
+    the time draw 0 first; then six a depth from 5: direct d0, NEE d0+1,
+    d0+2 (+ d0+3 past the cosine test), bounce d0+4, d0+5, a mirror's
+    too)."""
     n, depth = a['trace'].shape
+    bounce = a['bounce'] + a['ggx_bounce'] + a['mirror_bounce']
     seqs = []
     for lane in range(n):
-        idx = [1, 2, 3, 4]
+        idx = [0, 1, 2, 3, 4] if fixed else [1, 2, 3, 4]
         for d in range(depth):
             d0 = 5 + 6 * d
             if a['direct'][lane, d]:
@@ -179,40 +240,63 @@ def philox_blocks(a: dict) -> np.ndarray:
                 idx += [d0 + 1, d0 + 2]
             if a['nee'][lane, d]:
                 idx.append(d0 + 3)
-            if a['bounce'][lane, d]:
+            if bounce[lane, d]:
                 idx += [d0 + 4, d0 + 5]
         g = [i >> 2 for i in idx]
         seqs.append(1 + sum(x != y for x, y in zip(g, g[1:])))
     return np.asarray(seqs, np.float64)
 
 
-def stage_blocks(a: dict) -> np.ndarray:
-    """Philox blocks each lane computes in the flagship kernel, whose
-    stages take their draws' two blocks at their start: two for the ray,
-    two at each hit."""
-    return 2.0 + 2.0 * a['hit'].sum(axis=1).astype(np.float64)
+def stage_blocks(a: dict, direct: bool = False) -> np.ndarray:
+    """Philox blocks each lane computes in the flagship and coherent
+    kernels, whose stages take their draws' two blocks at their start: two
+    for the ray, two at each hit; with `direct`, one more for each direct
+    hit's draw (the coherent kernel's, at depth 0 and after a mirror)."""
+    b = 2.0 + 2.0 * a['hit'].sum(axis=1).astype(np.float64)
+    if direct:
+        b += a['direct'].sum(axis=1)
+    return b
 
 
-def stage_weights_fp32(n_rect: int) -> dict:
+def stage_weights_fp32(n_rect: int, config: str = 'flagship') -> dict:
+    """FP32 operations of each stat key's entry (chip_smoke.FP32_OPS, as
+    chip_smoke.lane_ops counts them); 'ray' the receive ray's, with its
+    receive frequency read off a waveform or drawn."""
     sys.path.insert(0, HERE)
     import chip_smoke as cs
+    from beifong_tpu_torch.integrators import receive_kernel as rk
     f = cs.FP32_OPS
-    return {'ray': f['ray_wigner'], 'trace': n_rect * f['rect_test'],
-            'hit': f['hit'], 'direct': f['direct'], 'nee_geom': f['nee_geom'],
-            'nee': f['nee'], 'occ_tests': f['rect_test'],
-            'nee_splat': f['nee_splat'], 'bounce': f['bounce']}
+    w = {'ray': f['ray_wigner'], 'trace': n_rect * f['rect_test'],
+         'hit': f['hit'], 'direct': f['direct'], 'nee_geom': f['nee_geom'],
+         'nee': f['nee'], 'occ_tests': f['rect_test'],
+         'nee_splat': f['nee_splat'], 'bounce': f['bounce']}
+    if config != 'flagship':
+        w.update({k: f[k] for k in (
+            'ggx_nee', 'ggx_bounce', 'mirror_bounce', 'dop_direct',
+            'dop_nee', 'dop_bounce', 'splat_2d', 'lo_bin', 'phase',
+            'phase_lo')})
+        _, rx = scene_of(config)
+        rule = rk.rx_rule(rx.receive_type, rx.lo_waveform is not None)
+        if rule in (rk.RX_MIX, rk.RX_MIXER, rk.RX_RAW_LO):
+            w['ray'] += f['lo_freq']
+        if rule == rk.RX_MIXER or (rule == rk.RX_RAW
+                                   and rx.adc.n_freq > 1):
+            w['ray'] += f['freq_draw']
+        if config in ('dechirp', 'corner'):
+            # a chirp's echo phase adds the quadratic term to each h
+            w['phase'] += f['h_chirp']
+            w['phase_lo'] += f['h_chirp']
+    return w
 
 
 def _vertex_table(a: dict, w: dict):
-    """(n_lanes, depth, 9) per-vertex costs of each stage (the ray's cost
-    at depth 0), and the used cost of each lane."""
-    keys = ('trace', 'hit', 'direct', 'nee_geom', 'nee', 'occ_tests',
-            'nee_splat', 'bounce')
+    """(n_lanes, depth, 1 + len(COLUMNS)) per-vertex costs of each stage
+    (the ray's at depth 0)."""
     n, depth = a['trace'].shape
-    t = np.zeros((n, depth, len(keys) + 1))
+    t = np.zeros((n, depth, len(COLUMNS) + 1))
     t[:, 0, 0] = w['ray']
-    for j, k in enumerate(keys):
-        t[:, :, j + 1] = a[k] * w[k]
+    for j, keys in enumerate(COLUMNS):
+        t[:, :, j + 1] = sum(a[k] * w.get(k, 0.0) for k in keys)
     return t
 
 
@@ -378,15 +462,24 @@ def line_stages(source: str) -> dict:
 
 def func_ranges(source: str) -> dict:
     """{name: (first, last)} lines of the helpers whose inlined code is
-    its own stage: Philox and the draws, the tent splat."""
+    its own stage: Philox and the draws, the tent splats, the echo phase
+    (conn_splat's, less its grid splat)."""
     with open(source) as f:
         lines = f.read().splitlines()
     out = {}
     for name, pat in (('draws', r'uint4 philox4x32_10\('),
                       ('draws_flag', r'uint4 flag_block\('),
+                      ('draws_coh', r'uint4 coh_block\('),
                       ('draws_get', r'__device__ float get\(int idx\)'),
                       ('splat', r'void splat\(float\* hist'),
-                      ('splat_w', r'\[k1 splat\]')):
+                      ('splat_w', r'\[k1 splat\]'),
+                      ('splat_c', r'void coh_splat_rows\('),
+                      ('splat_g', r'void grid_splat\('),
+                      ('splat_a', r'void add\(int cell, float v\) const'),
+                      ('phase', r'float echo_phase\('),
+                      ('phase_f', r'float frac_cycles\('),
+                      ('phase_h', r'float h_cyc\('),
+                      ('phase_c', r'float conn_splat\(')):
         for i, ln in enumerate(lines, 1):
             if re.search(pat, ln):
                 depth, j = 0, i
@@ -489,14 +582,18 @@ def disassemble(cubin: str, kernel: str, out_txt: str):
 
 
 def sass_mix(cubin: str, src: str, kernel: str, a: dict, n_rect: int,
-             out_txt: str) -> dict:
+             out_txt: str, config: str = 'flagship') -> dict:
     """The kernel's instruction mix by stage and class, and its
     thread-instructions a lane under the stage entries `a`."""
     name, ins = disassemble(cubin, kernel, out_txt)
     # the Philox blocks a lane computes: the grid-stride kernel's Draws
-    # cache one block, the flagship kernel's stages take two
-    phx = stage_blocks(a) if 'receive_flagship_kernel' in name \
-        else philox_blocks(a)
+    # cache one block, the flagship and coherent kernels' stages take two
+    if 'receive_flagship_kernel' in name:
+        phx = stage_blocks(a)
+    elif 'receive_coherent_kernel' in name:
+        phx = stage_blocks(a, direct=True)
+    else:
+        phx = philox_blocks(a, CONFIGS[config]['ts'] == 'fixed')
     stages = line_stages(src)
     helpers = func_ranges(src)
 
@@ -507,12 +604,16 @@ def sass_mix(cubin: str, src: str, kernel: str, a: dict, n_rect: int,
     by = {s: {} for s in STAGES}
     rcp = dict.fromkeys(STAGES, 0)   # division sequences (MUFU.RCP) a stage
     for op, chain in ins:
-        if any(in_helper(x, 'draws') or in_helper(x, 'draws_get')
-               or in_helper(x, 'draws_flag') for x in chain):
+        if any(in_helper(x, h) for x in chain
+               for h in ('draws', 'draws_get', 'draws_flag', 'draws_coh')):
             st = 'draws'
-        elif any(in_helper(x, 'splat') or in_helper(x, 'splat_w')
-                 for x in chain):
+        elif any(in_helper(x, h) for x in chain
+                 for h in ('splat', 'splat_w', 'splat_c', 'splat_g',
+                           'splat_a')):
             st = 'splat'
+        elif any(in_helper(x, h) for x in chain
+                 for h in ('phase', 'phase_f', 'phase_h', 'phase_c')):
+            st = 'phase'
         else:
             st = next((stages[x] for x in chain if x in stages), 'block')
             if st not in by:
@@ -521,6 +622,8 @@ def sass_mix(cubin: str, src: str, kernel: str, a: dict, n_rect: int,
         by[st][c] = by[st].get(c, 0) + 1
         rcp[st] += op.startswith('MUFU.RCP')
     n = a['trace'].shape[0]
+    # a lane's connections (each one echo phase and tent splat)
+    conns = (a['nee_splat'].sum() + a['direct'].sum()) / n
     # entries of each stage a lane
     ex = {'ray': 1.0,
           'trace': a['trace'].sum() / n,
@@ -529,8 +632,10 @@ def sass_mix(cubin: str, src: str, kernel: str, a: dict, n_rect: int,
           'direct': a['direct'].sum() / n,
           'nee': a['nee_geom'].sum() / n,
           'shadow': a['occ_tests'].sum() / n,
-          'splat': (a['nee_splat'].sum() + a['direct'].sum()) / n,
-          'bounce': a['bounce'].sum() / n,
+          'phase': conns,
+          'splat': conns,
+          'bounce': (a['bounce'] + a['ggx_bounce']
+                     + a['mirror_bounce']).sum() / n,
           # the warp wavefront's turns for 32 lanes: one RAY, and a SHADE
           # for every 32 hits (each turn traces the rays it makes)
           'sched': (n + a['hit'].sum()) / n,
@@ -563,8 +668,8 @@ def sass_mix(cubin: str, src: str, kernel: str, a: dict, n_rect: int,
             'thread_instructions_a_lane_by_class': cls,
             'thread_instructions_a_lane': sum(per_lane.values()),
             'stage_instructions_a_lane': stage_ti,
-            'bound_instructions_a_lane': min(stage_ti,
-                                             LEAST_STAGE_INSTRUCTIONS),
+            'bound_instructions_a_lane': min(
+                stage_ti, LEAST_STAGE_INSTRUCTIONS.get(config, stage_ti)),
             'disassembly': os.path.relpath(out_txt, HERE)}
 
 
@@ -592,35 +697,39 @@ def main() -> int:
     ap.add_argument('--listing', help='a listing saved by --sass (in '
                     'chiprun_out/) to read instead of compiling DIR')
     ap.add_argument('--lanes', type=int, default=16, help='log2 lanes')
+    ap.add_argument('--config', default='flagship', choices=tuple(CONFIGS))
     ap.add_argument('--clock-mhz', type=float, default=1980.0,
                     help="with --listing: the card's maximum SM clock")
     args = ap.parse_args()
     n = 1 << args.lanes
-    masks, n_rect = stage_masks(n)
+    cfg = CONFIGS[args.config]
+    masks, n_rect = stage_masks(n, config=args.config)
     a = per_lane(masks, n)
     phx = philox_blocks(a)
-    res = {'lanes': n, 'depth': DEPTH, 'seed': SEED,
+    res = {'config': args.config, 'lanes': n, 'depth': cfg['depth'],
+           'seed': SEED,
            'n_rect': n_rect,
            'per_lane': {k: float(v.sum()) / n for k, v in a.items()},
            'philox_blocks_a_lane': float(phx.mean())}
     if args.simt:
-        res['fp32_weights'] = w = stage_weights_fp32(n_rect)
+        res['fp32_weights'] = w = stage_weights_fp32(n_rect, args.config)
         res['simt_fp32'] = simt(a, w)
         res['pool_fp32'] = pool_model(a, w)
         res['pool_fused_fp32'] = pool_model(a, w, fused=True)
     if args.sass:
         tag = os.path.basename(os.path.abspath(args.sass)) or 'tree'
         mix = sass_mix(args.listing or build_cubin(args.sass),
-                       source_of(args.sass),
-                       KERNEL, a, n_rect,
-                       os.path.join(HERE, 'chiprun_out', f'k1_sass_{tag}.txt'))
+                       source_of(args.sass), cfg['kernel'], a, n_rect,
+                       os.path.join(HERE, 'chiprun_out',
+                                    f'k1_sass_{tag}_{args.config}.txt'),
+                       args.config)
         res['sass'] = mix
         name, limit, mx, now = card_clock_mhz() if not args.listing \
             else ('(listing)', '?', args.clock_mhz, args.clock_mhz)
         res['card'] = f'{name}, {limit} W, SM clock max {mx:g} MHz (now '\
                       f'{now:g})'
         res['issue_slot_bound_ms'] = issue_slot_bound_ms(
-            mix['bound_instructions_a_lane'], MAIN_LANES, mx)
+            mix['bound_instructions_a_lane'], cfg['lanes'], mx)
         # the SIMT model weighted by this kernel's own stage lengths
         st = mix['thread_instructions_a_lane_by_stage']
         ex = mix['entries_a_lane']
@@ -629,8 +738,10 @@ def main() -> int:
              'trace': per['trace'] + per['closest'] * n_rect,
              'hit': per['hit'], 'direct': per['direct'],
              'nee_geom': per['nee'], 'nee': 0.0,
-             'occ_tests': per['shadow'], 'nee_splat': per['splat'],
-             'bounce': per['bounce']}
+             'occ_tests': per['shadow'],
+             'nee_splat': per['splat'] + per['phase'],
+             'bounce': per['bounce'], 'ggx_bounce': per['bounce'],
+             'mirror_bounce': per['bounce']}
         res['simt_sass'] = simt(a, w)
         res['pool_sass'] = pool_model(a, w)
         res['pool_fused_sass'] = pool_model(a, w, fused=True)

@@ -15,7 +15,10 @@ lanes, depth 3, the mesh scene at 2^24 lanes, depth 2, and the Doppler
 configuration on multi_body (mesh) and the range-Doppler pulse
 (analytic), 2^24 lanes, depth 2, and the coherent configuration on pulse
 0 of the pulse train (analytic, depth 1) and the mesh scene (depth 2),
-2^24 lanes (one warm-up, then ten calls each), and the host time of ten
+2^24 lanes, on the dechirp and the FMCW mixer (analytic, depth 2, 2^24
+lanes) and on the CPIs of the corner (64 pulses x 2^16 lanes, depth 4,
+fixed sampling) and of the micro-Doppler plate (64 x 2^13, depth 1) in
+one launch each (one warm-up, then ten calls each), and the host time of ten
 more calls of the wrapper, each from an idle card (the Python and launch
 work inside the timed window), and for the Doppler family the host time of
 its table lookups alone (the lobe flags and the transmitter kinds, read
@@ -71,8 +74,14 @@ def timed_configs(cs, flagship, mesh, multi_body, range_doppler, pulse_train):
              True))
 
 
+# the coherent configuration's other main paths (one receive call each)
+# and its CPIs (64 pulses in one launch), timed by child()
+COH_PATHS = ('dechirp', 'mixer')
+CPI_PATHS = ('corner_cpi', 'micro_cpi')
+CPI_PULSES = 64
+
 NAMES = ('flagship', 'mesh', 'multi_body', 'range_doppler', 'coherent',
-         'coherent_mesh')
+         'coherent_mesh') + COH_PATHS + CPI_PATHS
 
 
 def child(root: str, only: tuple = NAMES) -> dict:
@@ -86,6 +95,7 @@ def child(root: str, only: tuple = NAMES) -> dict:
                                           multi_body_scene,
                                           pulse_train_scene,
                                           range_doppler_scene)
+    from beifong_tpu_torch import scenes
     assert os.path.dirname(beifong_tpu_torch.__file__).startswith(root)
     sys.path.insert(0, HERE)
     import chip_smoke  # noqa: E402  (cuda_ms, the main paths' sizes, SEED)
@@ -94,6 +104,40 @@ def child(root: str, only: tuple = NAMES) -> dict:
             if 'registers' in ln]
     dev = torch.device('cuda')
     out = dict(tree=root, ptxas=regs)
+    cs = chip_smoke   # the main paths' sizes
+    paths = {'dechirp': (scenes.fmcw_dechirp_scene, cs.COH_LANES,
+                         cs.COH_DEPTH, 'gate'),
+             'mixer': (lambda: scenes.fmcw_scene('mixer'), cs.COH_LANES,
+                       cs.COH_DEPTH, 'gate')}
+    cpis = {'corner_cpi': (scenes.corner_scene, scenes.CORNER['prf'],
+                           cs.CPI_CONFIGS['corner']),
+            'micro_cpi': (scenes.micro_doppler_scene,
+                          scenes.MICRO_DOPPLER['prf'],
+                          cs.CPI_CONFIGS['micro_doppler'])}
+    for name in only:
+        if name not in paths and name not in cpis:
+            continue
+        if name in paths:
+            scene, n_lanes, depth, ts = paths[name]
+            s, rx = scene()
+            p = rk.pack_scene(s.compile(use_bvh=False, device='cpu'), rx,
+                              s.shape_index_of_endpoint('receiver', rx.id))
+            fn, lead = rk.receive_megakernel, {}
+        else:
+            scene, prf, c = cpis[name]
+            s, _ = scene()
+            p, rx, _ = rk.pack_cpi(s, CPI_PULSES, prf)
+            n_lanes, depth, ts = c['spp'], c['max_depth'], c['time_sampling']
+            fn, lead = rk.receive_megakernel_cpi, {'seed_step': 7919}
+        params, prim, txp = (torch.tensor(a, device=dev)
+                             for a in (p.params, p.prim, p.txp))
+        kw = dict(adc=rx.adc, max_depth=depth, time_sampling=ts,
+                  rx_kind='wigner', n_lanes=n_lanes, seed=cs.SEED,
+                  doppler=True, coherent=True, receive_type=rx.receive_type,
+                  has_lo=rx.lo_waveform is not None, mirror=bool(p.mirror),
+                  **lead)
+        ms, _ = cs.cuda_ms(lambda i: fn(params, prim, txp, **kw), CALLS + 1)
+        out[f'{name}_ms'] = ms[1:]
     for name, scene, n_lanes, depth, doppler, coherent in timed_configs(
             chip_smoke, flagship_scene, mesh_scene, multi_body_scene,
             range_doppler_scene, pulse_train_scene):
