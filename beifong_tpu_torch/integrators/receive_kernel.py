@@ -138,10 +138,11 @@ MAX_N_TIME_ROWS = 512
 MAX_SMEM_CELLS = 16384
 MAX_SMEM_COH_CELLS = MAX_SMEM_CELLS // 2
 MAX_ADC_CELLS = 1 << 20
-# - the coherent kernel on analytic scenes (receive_coherent_kernel) sums
-#   a 1-D grid of at most COH_ROW_VALS values (I and Q of n_time bins)
-#   into a row of doubles a warp, each bin's taps in lane order: its
-#   repeats are bit-identical; larger grids keep the block's or the
+# - the coherent kernel on analytic scenes (receive_coherent_kernel) and
+#   the analytic lobe twins' kernel (receive_lobe_kernel) sum a 1-D grid
+#   of at most COH_ROW_VALS values (I and Q, or the power, of n_time
+#   bins) into a row of doubles a warp, each bin's taps in lane order:
+#   their repeats are bit-identical; larger grids keep the block's or the
 #   global grid of atomics (coh_rows in the .cu)
 COH_ROW_VALS = 512
 # - bin coordinates are float32: at 2^16 bins a tent weight keeps 7
@@ -2364,6 +2365,10 @@ def _bind(lib):
         + [vp, vp, i32] + [i32, vp, i32, i32, i32] + [i32, i32, vp, i32] \
         + [i32, i32] + [i32] + [vp]
     lib.rk_launch.restype = i32
+    lib.rk_last_kernel.argtypes = []
+    lib.rk_last_kernel.restype = vp
+    lib.rk_lobe_kernel.argtypes = [i32]
+    lib.rk_lobe_kernel.restype = vp
 
 
 LIBRARY = _nvcc.Library('receive_megakernel', 'rk', _bind)
@@ -2371,6 +2376,14 @@ LIBRARY = _nvcc.Library('receive_megakernel', 'rk', _bind)
 
 def build_library() -> _nvcc.BuildInfo:
     return _nvcc.build('receive_megakernel')
+
+
+def launched_lobe_kernel(coherent: bool) -> bool:
+    """Whether the last launch on a card ran the analytic lobe twins'
+    kernel (receive_lobe_kernel) of the power or the I / Q configuration:
+    the library's launch record."""
+    lib = LIBRARY.get()
+    return lib.rk_last_kernel() == lib.rk_lobe_kernel(int(coherent))
 
 
 def grid_mode(n_cells: int, doppler: bool, coherent: bool = False,
@@ -2389,11 +2402,13 @@ def grid_mode(n_cells: int, doppler: bool, coherent: bool = False,
     return 1 if n_cells <= MAX_SMEM_CELLS else 2
 
 
-def coherent_warp_rows(adc: ADCConfig) -> bool:
-    """Whether a coherent call on an analytic scene sums its grid in warp
-    rows (bit-identical repeats): a 1-D grid of at most COH_ROW_VALS / 2
-    bins."""
-    return adc.n_freq == 1 and 2 * adc.n_time <= COH_ROW_VALS
+def coherent_warp_rows(adc: ADCConfig, coherent: bool = True) -> bool:
+    """Whether a coherent call on an analytic scene, or (`coherent` False)
+    a power call of an analytic lobe twin, sums its grid in warp rows
+    (bit-identical repeats): a 1-D grid of at most COH_ROW_VALS / 2 bins
+    (COH_ROW_VALS in power)."""
+    return adc.n_freq == 1 \
+        and (2 if coherent else 1) * adc.n_time <= COH_ROW_VALS
 
 
 def launch_geometry(n_time: int, n_lanes: int, n_prims: int,

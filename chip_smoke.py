@@ -470,6 +470,9 @@ def print_build(infos: dict, tag: str) -> None:
                                               ' lobes)' if lob else ')'))
     names['receive_flagship_kernel'] = 'receive_megakernel (flagship)'
     names['receive_coherent_kernel'] = 'receive_megakernel (coherent)'
+    names['receive_lobe_kernelILb0E'] = 'receive_megakernel (doppler lobes)'
+    names['receive_lobe_kernelILb1E'] = \
+        'receive_megakernel (coherent lobes)'
     names.update({
              'receive_reduce_kernel': 'receive reduce',
              'bvh_closest_kernel': 'bvh_closest', 'bvh_any_kernel': 'bvh_any',
@@ -492,14 +495,17 @@ def print_build(infos: dict, tag: str) -> None:
 MIX_KERNEL = {'flagship': 'receive_flagship_kernel',
               'pulse_train': 'receive_coherent_kernel',
               'dechirp': 'receive_coherent_kernel',
-              'corner': 'receive_coherent_kernel'}
+              'corner': 'receive_coherent_kernel',
+              'window_thin': 'receive_lobe_kernelILb0E',
+              'window_dielectric': 'receive_lobe_kernelILb1E'}
 
 
 def kernel_mix(dev, tag, build_log: str, cubin: str, config: str,
                geometry: tuple, sms: int, n_pulses: int = 1) -> dict:
     """A warp-wavefront kernel on one of its main paths (`tools/k1_mix.py`
-    CONFIGS: the flagship kernel's, or the coherent kernel's pulse train,
-    dechirp and corner CPI): its launch geometry (`geometry`, a pulse's of
+    CONFIGS: the flagship kernel's, the coherent kernel's pulse train,
+    dechirp and corner CPI, or the lobe kernel's windowed corner in power
+    and I / Q): its launch geometry (`geometry`, a pulse's of
     `n_pulses`), its registers and spills (ptxas, from a fresh build's
     log), its SASS instruction mix by class and stage under the plain
     version's stage entries at 2^16 lanes, and the function's issue-slot
@@ -2721,11 +2727,14 @@ def corner_readings(torch, acc, ref, amp, lane, lane_ref, ill, what,
     return r
 
 
-def lobes(torch, bt, rk, dev, tag) -> list:
-    """K1's lobe twins (the Doppler family's LOB instantiations) on the
-    JAX package's lobe kernel tests' scenes at full width: parity of each
-    twin against its plain version on injected uniforms and on Philox
-    (2^24), each through receive() at 2^24 samples with the anchors (the
+def lobes(torch, bt, rk, dev, tag, build_log: str, cubin: str) -> list:
+    """K1's lobe twins (the analytic ones' receive_lobe_kernel<COH>, the
+    mesh ones' LOB instantiations) on the JAX package's lobe kernel tests'
+    scenes at full width: parity of each twin against its plain version on
+    injected uniforms and on Philox (2^24; the analytic twins' repeats
+    bit-identical, their launch record the lobe kernel's, their registers,
+    warps an SM and SASS mix), each through receive() at 2^24 samples
+    with the anchors (the
     windowed corner on the bare corner's peak, the thin window's energy
     ratio beside its closed form, the plastics and GGX glass on their
     round-trip or one-way bins, a mask's echo in proportion to its
@@ -2867,11 +2876,31 @@ def lobes(torch, bt, rk, dev, tag) -> list:
         acc1, n1 = rk.receive_megakernel(params, prim, txp,
                                          n_lanes=LOBE_LANES, seed=SEED,
                                          lane_out=lane, **k_kw)
+        analytic = kw['mesh'] is None
+        record = rk.launched_lobe_kernel(coh)
+        acc2, n2 = rk.receive_megakernel(params, prim, txp,
+                                         n_lanes=LOBE_LANES, seed=SEED,
+                                         **k_kw)
         ref, n_ref, amp, stats, plain_ms = _plain_philox(
             torch, rk, params, prim, txp, k_kw, LOBE_LANES, depth, dev,
             lane_ref=lane_ref, power_amp=chain)
         errs.append(check(acc1, n1, ref, n_ref, amp, lane, lane_ref, None,
                           k_kw, chain, s, rx, f'{scene} philox 2^24 lanes'))
+        # the analytic twins run receive_lobe_kernel (the launch record),
+        # whose warp rows make Philox repeats bit-identical (the mesh
+        # twins' atomics add in arrival order: printed only)
+        rows = analytic and rk.coherent_warp_rows(rx.adc, coh)
+        rep = float((acc1 - acc2).abs().max())
+        same = bool(torch.equal(acc1, acc2)) and int(n1) == int(n2)
+        print(f'{scene} ({cfg_name}) philox repeat: lobe kernel launched '
+              f'{record}, warp rows {rows}, bit-identical {same}, max '
+              f'difference {rep:.3e} of {float(acc1.abs().max()):.3e}, '
+              f'events {int(n1)} / {int(n2)}')
+        if record != analytic:
+            fail(f'lobes {scene}: receive_lobe_kernel launched {record}')
+        if rows and not same:
+            fail(f'lobes {scene}: two Philox-mode calls with one seed '
+                 'differ')
         if chain and not coh:
             corner_readings(torch, acc1, ref, amp, lane, lane_ref, None,
                             f'{scene} philox 2^24 lanes')
@@ -2883,6 +2912,17 @@ def lobes(torch, bt, rk, dev, tag) -> list:
               f'{recv_ms:.3f} ms; plain version {plain_ms:.1f} ms; '
               f'{n_rect} rectangles {tag}')
         print(f'{scene} ({cfg_name}) stage lanes: ' + json.dumps(stats))
+        mix = {}
+        if analytic:
+            mix = kernel_mix(
+                dev, tag, build_log, cubin,
+                'window_dielectric' if coh else 'window_thin',
+                rk.launch_geometry(rx.adc.n_time, LOBE_LANES,
+                                   int(prim.shape[0]),
+                                   int(params.shape[-1]), doppler=True,
+                                   coherent=coh, lobes=True),
+                torch.cuda.get_device_properties(0).multi_processor_count)
+            mix['kernel'] = f'receive_lobe_kernel<{str(coh).lower()}>'
         entry = _kernel_entry(
             torch, rk, cfg_name, f'{scene} 2^24 lanes',
             f'receive({scene}), 2^24 samples, depth {depth}, gate'
@@ -2894,7 +2934,8 @@ def lobes(torch, bt, rk, dev, tag) -> list:
             rx.adc.n_time, 2 if coh else 1,
             dict(row='K1 lobes', scene=scene,
                  tpu_flags='diel/thin/plas/rplas/rdiel/has_blend/has_mask '
-                 '(pallas_receive.py:188-224)'))
+                 '(pallas_receive.py:188-224)', repeat_bit_identical=same,
+                 **mix))
         print(f'share of the FP32 bound {scene} ({cfg_name}): '
               f'{entry["bound_ms"] / k_med:.1%} {tag}')
         out.append(entry)
@@ -3710,7 +3751,8 @@ def main() -> int:
     kernels += mimo(torch, bt, rk, dev, tag)
     kernels += media(torch, bt, rk, dev, tag)
     kernels += phased(torch, bt, rk, dev, tag)
-    kernels += lobes(torch, bt, rk, dev, tag)
+    kernels += lobes(torch, bt, rk, dev, tag,
+                     infos['receive_megakernel'].log, cubin)
     kernels += queries(torch, bt, dev, tag)
     k4 = k4_parity(torch, ik, dev, tag)
     k4_launches, bvh_launches = wavefront(torch, bt, ik, bk, rk, dev, tag,

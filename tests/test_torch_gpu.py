@@ -11,6 +11,7 @@ machine that has only PyTorch.  There, from the repository root:
 """
 
 import dataclasses
+import types
 
 import numpy as np
 import pytest
@@ -1599,3 +1600,91 @@ def test_windowed_corner_cpi_is_one_lobe_launch(cuda):
                     max_depth=6, seed=9, time_sampling='gate', device=cuda)
     assert abs(int(e_gpu.argmax())
                - int(develop_signal(a, n0, rx0.adc)[:, 0, 0].argmax())) <= 1
+
+
+# the analytic lobe twins' kernel of their own (receive_lobe_kernel<COH>):
+# its warp rows, its launch record, its grids
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('scene, coherent', [
+    ('window_thin', False), ('window_dielectric', True), ('plastic', False)])
+def test_lobe_kernel_philox_repeats_are_bit_identical(cuda, scene, coherent):
+    """Two Philox calls of an analytic lobe twin with one seed give the
+    same bits and events: the 1-D grid sums in warp rows, each bin's taps
+    in lane order."""
+    s, rx, params, prim, txp, kw, _ = _lobe_tables(cuda, scene, coherent,
+                                                   seed=17)
+    assert rk.coherent_warp_rows(rx.adc, coherent)
+    n_lanes = 1 << 20
+    a1, n1 = rk.receive_megakernel(params, prim, txp, n_lanes=n_lanes,
+                                   seed=17, **kw)
+    a2, n2 = rk.receive_megakernel(params, prim, txp, n_lanes=n_lanes,
+                                   seed=17, **kw)
+    torch.cuda.synchronize()
+    assert rk.launched_lobe_kernel(coherent)
+    assert int(n1) == int(n2) > 0
+    assert torch.equal(a1, a2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('coherent', [False, True], ids=['power', 'iq'])
+def test_lobe_scenes_launch_the_lobe_kernel(cuda, coherent):
+    """Analytic lobe scenes launch receive_lobe_kernel<COH> (the library's
+    launch record), a mesh lobe scene its LOB instantiation; the library
+    holds the lobe kernel and no analytic grid-stride lobe twin
+    (its functions, as `tools/tree_ab.py --sass` reads them)."""
+    import os
+    import sys
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), 'tools'))
+    import tree_ab
+    for scene, analytic in (('window_thin', True), ('blend', True),
+                            ('mesh', False)):
+        s, rx, params, prim, txp, kw, _ = _lobe_tables(cuda, scene,
+                                                       coherent)
+        rk.receive_megakernel(params, prim, txp, n_lanes=1 << 12, seed=3,
+                              **kw)
+        torch.cuda.synchronize()
+        assert rk.launched_lobe_kernel(coherent) == analytic, scene
+        assert rk.launched_lobe_kernel(not coherent) is False
+    names = set(tree_ab.sass_of(rk.build_library().path))
+    c = int(coherent)
+    assert 'receive_coherent_kernel<>' in names, sorted(names)
+    assert f'receive_lobe_kernel<{c}>' in names
+    assert f'receive_doppler_kernel<0,{c},0,0,1>' not in names
+    assert f'receive_doppler_kernel<1,{c},0,0,1>' in names
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('n_freq, coherent', [(8, False), (8, True),
+                                              (300, False)])
+def test_lobe_kernel_grids_match_plain_version(cuda, n_freq, coherent):
+    """The thin windowed corner on a 2-D grid (n_freq 8: the block's grid
+    of atomics) and on a global one (n_freq 300: mode 2), against the
+    plain version on injected uniforms, lane by lane."""
+    s, rx, params, prim, txp, kw, chain = _lobe_tables(cuda, 'window_thin',
+                                                       coherent)
+    adc = dataclasses.replace(rx.adc, n_freq=n_freq)
+    kw['adc'] = adc
+    mode = rk.grid_mode(adc.n_time * n_freq, True, coherent)
+    assert mode == (2 if n_freq == 300 else 1)
+    n_lanes = 1 << 16
+    nd = rk.n_draws(kw['max_depth'], 1, **rk.lobe_draws(kw['lobes']))
+    u = torch.rand((nd, n_lanes),
+                   generator=torch.Generator(cuda).manual_seed(11),
+                   device=cuda)
+    lane = torch.empty(n_lanes, device=cuda)
+    acc, n_ev = rk.receive_megakernel(params, prim, txp, n_lanes=n_lanes,
+                                      uniforms=u, lane_out=lane, **kw)
+    torch.cuda.synchronize()
+    assert rk.launched_lobe_kernel(coherent)
+    lane_ref = torch.empty(n_lanes, device=cuda)
+    ill = torch.zeros(n_lanes, dtype=torch.bool, device=cuda)
+    amp = torch.zeros((adc.n_time, n_freq), dtype=torch.float64,
+                      device=cuda)
+    ref, n_ref = rk.receive_megakernel_ref(
+        params, prim, txp, u, lane_out=lane_ref, ill_out=ill, amp_out=amp,
+        **kw)
+    _assert_lobe_parity(s, types.SimpleNamespace(adc=adc), kw, chain, acc,
+                        n_ev, ref, n_ref, amp, lane, lane_ref, ill)

@@ -1,8 +1,9 @@
 """tools/k1_mix.py on the CPU: the stage masks it reads from the plain
-version's counts (the flagship's and the coherent configuration's main
-paths), the SIMT models built on them, and the stage tags of the
-flagship and coherent kernels' source that its instruction mix reads; and
-the anchors by which tools/k1_clock.py instruments that source."""
+version's counts (the flagship's, the coherent configuration's and the
+analytic lobe twins' main paths), the SIMT models built on them, and the
+stage tags of the flagship, coherent and lobe kernels' source that its
+instruction mix reads; the anchors by which tools/k1_clock.py
+instruments that source, and the edits of tools/k1_ablate.py."""
 
 import os
 import sys
@@ -14,6 +15,7 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, 'tools'))
 
+import k1_ablate  # noqa: E402
 import k1_clock  # noqa: E402
 import k1_mix  # noqa: E402
 from beifong_tpu_torch.integrators import receive_kernel as rk  # noqa: E402
@@ -73,7 +75,7 @@ def test_simt_models_bound_their_work(lanes):
 
 @pytest.mark.parametrize('splat, kernel', [
     (False, 'receive_flagship_kernel'), (True, 'receive_flagship_kernel'),
-    (False, 'receive_coherent_kernel')])
+    (False, 'receive_coherent_kernel'), (False, 'receive_lobe_kernel')])
 def test_clock_probe_anchors_appear_once(splat, kernel):
     """k1_clock patches the kernel's source by exact text: each of its
     anchors lies in the current source once (the warp loop's in the
@@ -112,6 +114,14 @@ def test_coherent_masks_sum_to_the_plain_versions_stats(config):
     pm = k1_mix.pool_model(a, w, lanes_per_thread=8, fused=True)
     assert pm['efficiency'] <= 1
     assert pm['slots_a_lane'] < m['grid_stride_slots_a_lane']
+
+
+def _body_lines(lines, head):
+    """(first, last) lines of the function whose definition starts with
+    `head` at a line's start."""
+    a = next(i for i, ln in enumerate(lines, 1) if ln.startswith(head))
+    b = next(i for i, ln in enumerate(lines, 1) if i > a and ln == '}')
+    return a, b
 
 
 def test_coherent_source_carries_every_stage_tag():
@@ -154,3 +164,88 @@ def test_issue_slot_bound():
     # 32 thread-instructions a lane: one warp instruction a lane
     ms = k1_mix.issue_slot_bound_ms(32.0, 132 * 4 * 1e6, 1000.0)
     assert np.isclose(ms, 1.0)
+
+
+def _window(config, n):
+    masks, n_rect = k1_mix.stage_masks(n, config=config)
+    a = k1_mix.per_lane(masks, n)
+    s, rx = k1_mix.scene_of(config)
+    p = rk.pack_scene(s.compile(device='cpu'), rx,
+                      s.shape_index_of_endpoint('receiver', rx.id))
+    return a, n_rect, p, k1_mix.ref_kw(config, rx, p)
+
+
+@pytest.mark.parametrize('config', ['window_thin', 'window_dielectric'])
+def test_window_masks_sum_to_the_plain_versions_stats(config):
+    """The analytic lobe twins' windowed corner (depth 6, the thin window
+    in power, the smooth one in I / Q): each stat key's per-lane counts
+    sum to the plain version's, its lanes run delta chains (mirror and
+    dielectric bounces, direct hits), and both Philox models count their
+    blocks."""
+    n = 1 << 10
+    a, _, p, kw = _window(config, n)
+    assert kw['lobes'] == p.lobes and kw['max_depth'] == 6
+    assert kw['coherent'] == (config == 'window_dielectric')
+    params, prim, txp = (torch.tensor(x) for x in (p.params, p.prim, p.txp))
+    stats: dict = {}
+    nd = rk.n_draws(6, 1, **rk.lobe_draws(p.lobes))
+    rk.receive_megakernel_ref(params, prim, txp,
+                              rk.philox_uniforms(7, nd, n), stats=stats,
+                              **kw)
+    for key, v in a.items():
+        assert int(v.sum()) == stats[key], key
+    for key in ('mirror_bounce', 'diel_bounce', 'direct'):
+        assert int(a[key].sum()) > 0, key
+    stride, pick = k1_mix.draw_stride(kw)
+    assert (stride, pick) == (6, 0)
+    phx = k1_mix.philox_blocks(a, False, stride, pick)
+    blocks = k1_mix.stage_blocks(a, direct=True, stride=stride)
+    assert phx.min() >= 2 and blocks.min() >= 2
+    assert bool((blocks == 2 + 2 * a['hit'].sum(1) + a['direct'].sum(1))
+                .all())
+
+
+def test_simt_models_bound_their_work_on_a_window_scene():
+    """The SIMT models weigh the lobe keys on the thin windowed corner:
+    the grid-stride loop and the pool issue at least what they use, and a
+    pool of 64 paths a warp fewer slots than the grid-stride loop."""
+    a, n_rect, _, _ = _window('window_thin', 1 << 10)
+    w = k1_mix.stage_weights_fp32(n_rect, 'window_thin')
+    assert w['diel_bounce'] > 0 and w['mirror_bounce'] > 0
+    m = k1_mix.simt(a, w, lanes_per_thread=8)
+    assert 0 < m['grid_stride_efficiency'] <= 1
+    assert m['grid_stride_slots_a_lane'] >= m['used_slots_a_lane']
+    pm = k1_mix.pool_model(a, w, lanes_per_thread=8, fused=True)
+    assert 0 < pm['efficiency'] <= 1
+    assert pm['slots_a_lane'] < m['grid_stride_slots_a_lane']
+
+
+def test_lobe_source_carries_every_stage_tag():
+    """Every stage k1_mix reads lies in the lobe kernel's body, the lobe
+    stages also in trace_lane's lobe path (the mesh lobe twins'), and the
+    power splat's helper is found."""
+    src = k1_mix.source_of(ROOT)
+    with open(src) as f:
+        lines = f.read().splitlines()
+    a, b = _body_lines(lines, 'receive_lobe_kernel(')
+    st = k1_mix.line_stages(src)
+    assert {'draws', 'sched', 'ray', 'hit', 'direct', 'nee', 'shadow',
+            'phase', 'splat', 'trace', 'closest'} \
+        <= {v for ln, v in st.items() if a < ln < b}
+    lobe = {'lobe_nee', 'pick', 'mirror', 'diel', 'ggx', 'diffuse',
+            'bounce'}
+    for head in ('receive_lobe_kernel(', '__device__ float trace_lane('):
+        a, b = _body_lines(lines, head)
+        assert lobe <= {v for ln, v in st.items() if a < ln < b}, head
+    assert 'splat_p' in k1_mix.func_ranges(src)
+
+
+def test_ablations_apply_to_the_source():
+    """Each edit of tools/k1_ablate.py finds its text once in the source
+    (the grid-stride lobe twins' code stays for the mesh twins); the
+    stage tags, which the source already carries, once as edited."""
+    with open(k1_mix.source_of(ROOT)) as f:
+        src = f.read()
+    for name, edits in k1_ablate.ABLATIONS.items():
+        for old, new in edits:
+            assert src.count(new if name == 'tags' else old) == 1, name

@@ -3,9 +3,11 @@
 the receive kernel whose warp loop reads clock64() at each turn's
 boundaries (lane 0 of each warp, after a __syncwarp), summed over the
 warps, at a main path's shape: the flagship (receive_flagship_kernel,
-2^28 Philox lanes, depth 3) or the coherent kernel
+2^28 Philox lanes, depth 3), the coherent kernel
 (receive_coherent_kernel) on pulse 0 of the pulse train (2^24 lanes,
-depth 1) or the dechirp (2^24, depth 2).
+depth 1) or the dechirp (2^24, depth 2), or the analytic lobe twins'
+kernel (receive_lobe_kernel) on the windowed corner (2^24 lanes, depth
+6; window_thin in power, window_dielectric in I / Q).
 
 Run from the repository root on the card's machine:
 
@@ -40,7 +42,9 @@ NAMES = ('turn', 'ray', 'shade', 'trace_of_ray', 'trace_of_shade', 'masks',
 # each configuration's kernel and the warp splat's call in its loop
 KERNELS = {'flagship': 'receive_flagship_kernel',
            'pulse_train': 'receive_coherent_kernel',
-           'dechirp': 'receive_coherent_kernel'}
+           'dechirp': 'receive_coherent_kernel',
+           'window_thin': 'receive_lobe_kernel',
+           'window_dielectric': 'receive_lobe_kernel'}
 SPLAT_CALL = {
     'receive_flagship_kernel':
         '        if (shade) {\n            // [k1 stage: splat]\n'
@@ -49,7 +53,15 @@ SPLAT_CALL = {
     'receive_coherent_kernel':
         '        if (shade && rows) {\n            // [k1 stage: splat]\n'
         '            coh_splat_rows(w_row, w_vals, cfg.n_time, ci, si, yb, '
-        'j);\n'}
+        'j);\n',
+    'receive_lobe_kernel':
+        '        if (shade && rows) {\n            // [k1 stage: splat]\n'
+        '            if constexpr (COH)\n'
+        '                coh_splat_rows(w_row, w_vals, cfg.n_time, ci, si, yb, '
+        'j);\n'
+        '            else\n'
+        '                pow_splat_rows(w_row, w_vals, cfg.n_time, ci, yb, j);'
+        '\n'}
 
 # (anchor in the source, text that replaces it)
 PATCH = (
@@ -194,7 +206,10 @@ def run(tree: str, config: str = 'flagship') -> dict:
     dev = torch.device('cuda')
     s, rx = {'flagship': scenes.flagship_scene,
              'pulse_train': lambda: scenes.pulse_train_scene(0),
-             'dechirp': scenes.fmcw_dechirp_scene}[config]()
+             'dechirp': scenes.fmcw_dechirp_scene,
+             'window_thin': lambda: scenes.window_corner_scene('thin'),
+             'window_dielectric':
+                 lambda: scenes.window_corner_scene('dielectric')}[config]()
     p = rk.pack_scene(s.compile(use_bvh=False, device='cpu'), rx,
                       s.shape_index_of_endpoint('receiver', rx.id))
     params, prim, txp = (torch.tensor(a, device=dev)
@@ -206,6 +221,9 @@ def run(tree: str, config: str = 'flagship') -> dict:
                   n_lanes=1 << 24, doppler=True, coherent=True,
                   receive_type=rx.receive_type,
                   has_lo=rx.lo_waveform is not None, mirror=bool(p.mirror))
+    if config.startswith('window_'):
+        kw.update(max_depth=6, coherent=config == 'window_dielectric',
+                  lobes=p.lobes)
     lib = rk.LIBRARY.get()
     lib.rk_clock.argtypes = [ctypes.c_void_p, ctypes.c_int]
     buf = (ctypes.c_ulonglong * 16)()

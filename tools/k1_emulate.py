@@ -1,0 +1,189 @@
+#!/usr/bin/env python3
+"""The receive megakernel (K1) of two checkouts on the CPU, in a g++
+emulation of the CUDA runtime, held lane by lane against each other:
+the check of a redesign's arithmetic before its first chip call.
+
+Run from the repository root (g++ with C++20; no card, no nvcc):
+
+    python3 tools/k1_emulate.py --other DIR [--this DIR2] [--lanes 4096]
+                                [--cases window_thin,...] [--grids]
+
+Each tree's `csrc/receive_megakernel.cu` is compiled by g++ against the
+stub `tools/emu/cuda_runtime.h`, which runs each block as blockDim.x
+std::threads (a barrier a block for __syncthreads, one a warp for
+__syncwarp and the warp votes, real atomics), with -ffp-contract=off;
+the `<<<...>>>` launches, `extern __shared__` arrays and the pulse's asm
+read are rewritten for it.  The library is called through
+`receive_kernel._launch` with CPU tensors (two SMs of one block each).
+For each lobe scene (CASES), power and I / Q, on injected uniforms and
+on Philox, it prints whether every lane's sum (`lane_out`) is equal bit
+for bit, the event counts and the largest grid difference over max|acc|
+(the grids sum in another order); `--grids` runs the thin windowed
+corner on a 2-D grid (n_freq 8, the block's grid), a global one (n_freq
+300) and a 4-pulse CPI instead.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import ctypes
+import dataclasses
+import os
+import re
+import subprocess
+import sys
+import types
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+STUB = os.path.join(HERE, 'tools', 'emu')
+
+
+def emulate(tree: str, out: str) -> str:
+    """A shared library of the tree's K1 source built by g++ with the
+    stub runtime."""
+    csrc = os.path.join(tree, 'beifong_tpu_torch', 'csrc')
+    with open(os.path.join(csrc, 'receive_megakernel.cu')) as f:
+        cu = f.read()
+    cu = cu.replace('asm volatile("mov.u32 %0, %%ctaid.y;" : "=r"(p));',
+                    'p = blockIdx.y;')
+    cu = re.sub(r'extern __shared__ (\w+) (\w+)\[\];',
+                r'\1* \2 = reinterpret_cast<\1*>(emu::cur_smem());', cu)
+    cu = re.sub(r'(receive_mimo_kernel<MED, EP>)\s*<<<([^>]*)>>>\(',
+                r'emu::launch(\1, \2, ', cu)
+    cu = re.sub(r'(\bkernel|receive_reduce_kernel)<<<([^>]*)>>>\(',
+                r'emu::launch(\1, \2, ', cu)
+    if '<<<' in cu:
+        raise SystemExit(f'{tree}: a launch the emulation does not rewrite')
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    with open(out + '.cpp', 'w') as f:
+        f.write(cu)
+    subprocess.run(['g++', '-std=c++20', '-O2', '-pthread', '-shared',
+                    '-fPIC', '-ffp-contract=off', '-w', '-I', STUB, '-I',
+                    csrc, '-o', out, out + '.cpp'], check=True)
+    return out
+
+
+def _library(path: str):
+    sys.path.insert(0, HERE)
+    from beifong_tpu_torch import _nvcc
+    from beifong_tpu_torch.integrators import receive_kernel as rk
+
+    class Emulated(_nvcc.Library):
+        def get(self):
+            if self._lib is None:
+                lib = ctypes.CDLL(path)
+                lib.rk_error_string.argtypes = [ctypes.c_int]
+                lib.rk_error_string.restype = ctypes.c_char_p
+                try:
+                    rk._bind(lib)
+                except AttributeError:   # a tree without the launch record
+                    pass
+                self._lib = lib
+            return self._lib
+    return Emulated('receive_megakernel', 'rk', rk._bind)
+
+
+# each lobe scene: (scenes' function, its argument, depth)
+CASES = {'window_thin': ('window_corner_scene', 'thin', 6),
+         'window_dielectric': ('window_corner_scene', 'dielectric', 6),
+         'plastic': ('plastic_scene', 'plastic', 2),
+         'rough_plastic': ('plastic_scene', 'rough_plastic', 2),
+         'rough_dielectric': ('rough_dielectric_scene', 'target', 2),
+         'through': ('rough_dielectric_scene', 'through', 2),
+         'blend': ('composite_scene', 'blend', 2),
+         'mask': ('composite_scene', 'mask', 2)}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument('--other', required=True)
+    ap.add_argument('--this', default=HERE)
+    ap.add_argument('--lanes', type=int, default=4096)
+    ap.add_argument('--cases', default=','.join(CASES))
+    ap.add_argument('--grids', action='store_true')
+    args = ap.parse_args()
+    import torch
+    sys.path.insert(0, HERE)
+    from beifong_tpu_torch import scenes as S
+    from beifong_tpu_torch.integrators import receive_kernel as rk
+    # the wrapper's CUDA calls, on CPU tensors
+    torch.cuda.device = lambda d: contextlib.nullcontext()
+    torch.cuda.current_stream = \
+        lambda d=None: types.SimpleNamespace(cuda_stream=0)
+    build = os.path.join(HERE, 'beifong_tpu_torch', '_build', 'k1_emulate')
+    libs = {w: _library(emulate(os.path.abspath(t),
+                                os.path.join(build, f'{w}.so')))
+            for w, t in (('other', args.other), ('this', args.this))}
+    n = args.lanes
+    gen = torch.Generator().manual_seed(5)
+
+    def tables(scene, arg, depth, coh, adc=None):
+        s, rx = getattr(S, scene)(arg)
+        p = rk.pack_scene(s.compile(use_bvh=False, device='cpu'), rx,
+                          s.shape_index_of_endpoint('receiver', rx.id))
+        params = torch.tensor(p.params)
+        params[0] = rk.seed_slot(3)
+        kw = dict(adc=adc or rx.adc, max_depth=depth, time_sampling='gate',
+                  rx_kind=rk.rx_kind_of(rx), coherent=coh, mirror=p.mirror,
+                  lobes=p.lobes,
+                  rule=rk.rx_rule(rx.receive_type,
+                                  rx.lo_waveform is not None),
+                  has_lo=rx.lo_waveform is not None)
+        return params, torch.tensor(p.prim), torch.tensor(p.txp), kw
+
+    def run(which, params, prim, txp, kw, u, n_pulses=1, seed=13):
+        rk.LIBRARY = libs[which]
+        lane = torch.zeros((n_pulses, n) if n_pulses > 1 else n)
+        acc, ev = rk._launch(
+            params, prim, txp, None, u, None, lane, n_pulses=n_pulses,
+            n_lanes=n, seed=seed, seed_step=7919 if n_pulses > 1 else 0,
+            doppler=True, patch_p=0, **kw)
+        return acc, ev, lane
+
+    def compare(what, args_, u, **k):
+        (a0, e0, l0), (a1, e1, l1) = (run(w, *args_, u, **k)
+                                      for w in ('other', 'this'))
+        scale = float(a0.abs().max()) or 1.0
+        print(f'{what} {"injected" if u is not None else "philox"}: '
+              f'lanes bit-equal {torch.equal(l0, l1)} '
+              f'({int((l0 != l1).sum())} of {l0.numel()} differ), events '
+              f'{e0.tolist()} / {e1.tolist()}, grid max diff '
+              f'{float((a0 - a1).abs().max()) / scale:.3e} of max|acc|',
+              flush=True)
+
+    if args.grids:
+        for n_freq in (8, 300):
+            for coh in (False, True):
+                p = tables('window_corner_scene', 'thin', 6, coh)
+                p[3]['adc'] = dataclasses.replace(p[3]['adc'], n_freq=n_freq)
+                nd = rk.n_draws(6, 1, **rk.lobe_draws(p[3]['lobes']))
+                for u in (torch.rand((nd, n), generator=gen), None):
+                    compare(f'window_thin n_freq {n_freq} '
+                            f'{"iq" if coh else "power"}', p, u)
+        s, _ = S.window_corner_scene('thin')
+        pc, rx, _ = rk.pack_cpi(s, 4, 10.0)
+        kw = dict(adc=rx.adc, max_depth=6, time_sampling='gate',
+                  rx_kind=rk.rx_kind_of(rx), coherent=True,
+                  mirror=bool(pc.mirror), lobes=pc.lobes,
+                  rule=rk.rx_rule(rx.receive_type,
+                                  rx.lo_waveform is not None),
+                  has_lo=rx.lo_waveform is not None)
+        p = tuple(torch.tensor(a) for a in (pc.params, pc.prim, pc.txp)) \
+            + (kw,)
+        nd = rk.n_draws(6, 1, **rk.lobe_draws(kw['lobes']))
+        for u in (torch.rand((4, nd, n), generator=gen), None):
+            compare('window_thin CPI 4 pulses', p, u, n_pulses=4, seed=3)
+        return 0
+    for name in args.cases.split(','):
+        scene, arg, depth = CASES[name]
+        for coh in (False, True):
+            p = tables(scene, arg, depth, coh)
+            nd = rk.n_draws(depth, 1, **rk.lobe_draws(p[3]['lobes']))
+            for u in (torch.rand((nd, n), generator=gen), None):
+                compare(f'{name} {"iq" if coh else "power"}', p, u)
+    return 0
+
+
+if __name__ == '__main__':
+    sys.exit(main())

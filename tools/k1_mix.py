@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""What the flagship and coherent configurations of the receive megakernel
-(K1) spend their issue slots on: the instruction mix of its machine code by stage, the
+"""What the flagship, coherent and lobe configurations of the receive
+megakernel (K1) spend their issue slots on: the instruction mix of its
+machine code by stage, the
 thread-instructions a lane that the plain version's stage counts imply,
 the issue-slot bound beside the FP32 bound, and the SIMT efficiency of a
 warp's 32 lanes (arithmetic from the plain version, not a device reading).
@@ -34,14 +35,18 @@ Run from the repository root:
 
 NAME is one of CONFIGS: the flagship (its scene, depth 3, 2^28 lanes:
 the grid-stride receive_trace_kernel<false> or receive_flagship_kernel
-that replaced it) or the coherent configuration's main paths (the
+that replaced it), the coherent configuration's main paths (the
 grid-stride receive_doppler_kernel<false, true, ...> or
 receive_coherent_kernel that replaced it): the pulse train
 (pulse 0, depth 1, 2^24 lanes), the dechirp (depth 2, 2^24) and the
 corner CPI's pulse 0 (mirror chains, depth 4, fixed sampling, 64 x 2^16
-lanes).  The lanes' stage masks come from the plain version on the
-configuration's scene (Wigner receiver) with Philox seed 7; the pool model
-is the kernels' pool of 64 paths a warp.
+lanes), or the analytic lobe twins' windowed corner (depth 6, gate, 2^24
+lanes: the grid-stride receive_doppler_kernel<false, COH, false, false,
+true> or receive_lobe_kernel<COH> that replaced it): window_thin (the
+thin window, power) and window_dielectric (the smooth one, I / Q).  The
+lanes' stage masks come from the plain version on the configuration's
+scene (Wigner receiver) with Philox seed 7; the pool model is the
+kernels' pool of 64 paths a warp.
 
 Each mode prints one line `RESULT {json}`.  Estimates, stated as such:
 every instruction of a stage is counted once per entry of the stage (the
@@ -73,6 +78,10 @@ COH_KERNEL = (r'receive_doppler_kernelILb0ELb1ELb0ELb0ELb0E|'
               r'receive_coherent_kernel')
 # each configuration: depth, time sampling, the main path's lanes, its
 # kernels
+LOBE_KERNEL = (r'receive_doppler_kernelILb0ELb0ELb0ELb0ELb1E|'
+               r'receive_lobe_kernelILb0E')
+LOBE_COH_KERNEL = (r'receive_doppler_kernelILb0ELb1ELb0ELb0ELb1E|'
+                   r'receive_lobe_kernelILb1E')
 CONFIGS = {'flagship': dict(depth=DEPTH, ts='gate', lanes=MAIN_LANES,
                             kernel=KERNEL),
            'pulse_train': dict(depth=1, ts='gate', lanes=1 << 24,
@@ -80,7 +89,13 @@ CONFIGS = {'flagship': dict(depth=DEPTH, ts='gate', lanes=MAIN_LANES,
            'dechirp': dict(depth=2, ts='gate', lanes=1 << 24,
                            kernel=COH_KERNEL),
            'corner': dict(depth=4, ts='fixed', lanes=64 << 16,
-                          kernel=COH_KERNEL)}
+                          kernel=COH_KERNEL),
+           'window_thin': dict(depth=6, ts='gate', lanes=1 << 24,
+                               kernel=LOBE_KERNEL),
+           'window_dielectric': dict(depth=6, ts='gate', lanes=1 << 24,
+                                     kernel=LOBE_COH_KERNEL)}
+# the configurations of the lobe twins, and whether each is the I / Q twin
+LOBE_COHERENT = {'window_thin': False, 'window_dielectric': True}
 # the stages that are bookkeeping, not a lane's work: the warp wavefront's
 # turns, the grid-stride loop, the block's set-up
 BOOKKEEPING = ('sched', 'lane', 'block')
@@ -89,25 +104,40 @@ BOOKKEEPING = ('sched', 'lane', 'block')
 # receive_flagship_kernel 2,399.0 (the grid-stride kernel before it
 # 2,507.2); the coherent configuration's, receive_coherent_kernel's
 # second design (the grid-stride instantiation before it 2,974.0,
-# 1,954.9, 4,170.8)
+# 1,954.9, 4,170.8); the lobe twins' windowed corner, the second design
+# of receive_lobe_kernel (Philox blocks by need; the grid-stride
+# instantiations before it 4,987.8, 5,765.2)
 LEAST_STAGE_INSTRUCTIONS = {'flagship': 2399.0, 'pulse_train': 2341.9,
-                            'dechirp': 1639.5, 'corner': 3462.6}
+                            'dechirp': 1639.5, 'corner': 3462.6,
+                            'window_thin': 3461.6,
+                            'window_dielectric': 3904.9}
 
 # the stages of a flagship lane and the plain version's stat key that counts
 # the entries of each ('rect' and 'occ' per rectangle tested)
+# (the lobe twins': the hit's lobe f cos in NEE, a composite's pick, and
+# the bounce's branches by lobe, beside its common frame and spawn)
 STAGES = ('ray', 'trace', 'closest', 'hit', 'direct', 'nee', 'shadow',
-          'phase', 'splat', 'bounce', 'draws', 'sched', 'lane', 'block')
+          'phase', 'splat', 'bounce', 'draws', 'sched', 'lane', 'block',
+          'lobe_nee', 'pick', 'mirror', 'diel', 'ggx', 'diffuse')
 # the plain version's stat keys a lane's masks are read for (its receive
 # frequency's, counted for every lane, are the ray's: stage_weights_fp32)
 KEYS = ('trace', 'hit', 'direct', 'nee_geom', 'nee', 'occ_tests',
         'nee_splat', 'bounce', 'ggx_nee', 'ggx_bounce', 'mirror_bounce',
         'dop_direct', 'dop_nee', 'dop_bounce', 'splat_2d', 'lo_bin', 'phase',
-        'phase_lo')
+        'phase_lo', 'plas_nee', 'rplas_nee', 'rdiel_nee', 'blend_nee',
+        'blend_pick', 'diel_bounce', 'plas_bounce', 'rplas_bounce',
+        'rdiel_bounce', 'pass_bounce')
+# the lobe twins' bounce keys, each in place of the diffuse bounce
+LOBE_BOUNCES = ('diel_bounce', 'plas_bounce', 'rplas_bounce', 'rdiel_bounce',
+                'pass_bounce')
 # the SIMT models' stage columns after the ray's: each a sum of stat keys
 COLUMNS = (('trace',), ('hit',), ('direct', 'dop_direct'), ('nee_geom',),
            ('nee', 'ggx_nee', 'dop_nee'), ('occ_tests',),
            ('nee_splat', 'splat_2d', 'lo_bin'), ('phase', 'phase_lo'),
-           ('bounce', 'ggx_bounce', 'dop_bounce'), ('mirror_bounce',))
+           ('bounce', 'ggx_bounce', 'dop_bounce'), ('mirror_bounce',),
+           ('plas_nee', 'rplas_nee', 'rdiel_nee', 'blend_nee'),
+           ('blend_pick',), ('diel_bounce',), ('plas_bounce',),
+           ('rplas_bounce',), ('rdiel_bounce',), ('pass_bounce',))
 # the parent's section comments inside trace_lane, in source order, and
 # the tags of a body written with them
 MARKERS = ((r'-- receive-ray generation', 'ray'),
@@ -146,6 +176,8 @@ def scene_of(config: str):
     """(scene, receiver) of a configuration: a snapshot for the corner."""
     sys.path.insert(0, HERE)
     from beifong_tpu_torch import scenes
+    if config in LOBE_COHERENT:
+        return scenes.window_corner_scene(config[len('window_'):])
     if config == 'flagship':
         return scenes.flagship_scene()
     if config == 'pulse_train':
@@ -165,7 +197,32 @@ def ref_kw(config: str, rx, packed) -> dict:
         kw.update(doppler=True, receive_type=rx.receive_type,
                   has_lo=rx.lo_waveform is not None, coherent=True,
                   mirror=packed.mirror)
+    if config in LOBE_COHERENT:
+        kw.update(coherent=LOBE_COHERENT[config], lobes=packed.lobes)
     return kw
+
+
+def draw_stride(kw: dict) -> tuple:
+    """(draws a depth, the offset of a composite's pick after the lobe
+    pick's) of the plain version's keywords: six, plus the lobe pick and
+    the composite pick where the lobe twins' flags hold them."""
+    sys.path.insert(0, HERE)
+    from beifong_tpu_torch.integrators import receive_kernel as rk
+    d = rk.lobe_draws(kw.get('lobes') or 0)
+    return 6 + d['lobe_mix'] + d['blend_mix'], int(d['lobe_mix'])
+
+
+def lobe_kw(config: str) -> dict:
+    """{'lobes': the lobe twins' flags} of a configuration's tables (0
+    outside the lobe twins)."""
+    if config not in LOBE_COHERENT:
+        return {}
+    sys.path.insert(0, HERE)
+    from beifong_tpu_torch.integrators import receive_kernel as rk
+    s, rx = scene_of(config)
+    p = rk.pack_scene(s.compile(use_bvh=False, device='cpu'), rx,
+                      s.shape_index_of_endpoint('receiver', rx.id))
+    return {'lobes': p.lobes}
 
 
 def stage_masks(n_lanes: int, device: str = 'cpu',
@@ -201,8 +258,10 @@ def stage_masks(n_lanes: int, device: str = 'cpu',
     params, prim, txp = (torch.tensor(a, device=device)
                          for a in (p.params, p.prim, p.txp))
     kw = ref_kw(config, rx, p)
-    u = rk.philox_uniforms(SEED, rk.n_draws(kw['max_depth']), n_lanes,
-                           device=device)
+    u = rk.philox_uniforms(SEED, rk.n_draws(kw['max_depth'], 1,
+                                            **rk.lobe_draws(kw.get('lobes')
+                                                            or 0)),
+                           n_lanes, device=device)
     stats: dict = {}
     with Capture():
         rk.receive_megakernel_ref(params, prim, txp, u, stats=stats, **kw)
@@ -220,39 +279,54 @@ def per_lane(masks, n_lanes: int):
     return a
 
 
-def philox_blocks(a: dict, fixed: bool = False) -> np.ndarray:
+def philox_blocks(a: dict, fixed: bool = False, stride: int = 6,
+                  pick: int = 0) -> np.ndarray:
     """Philox4x32-10 blocks each lane computes: the kernel's Draws caches
     one block of four words, so a block is computed where a draw's index /
     4 differs from the last one's (gate sampling: ray draws 1-4, `fixed`
-    the time draw 0 first; then six a depth from 5: direct d0, NEE d0+1,
-    d0+2 (+ d0+3 past the cosine test), bounce d0+4, d0+5, a mirror's
-    too)."""
+    the time draw 0 first; then `stride` a depth from 5: direct d0, NEE
+    d0+1, d0+2 (+ d0+3 past the cosine test), bounce d0+4, d0+5, a
+    mirror's too; the lobe twins' composite pick d0+6+`pick`, then a
+    plastic's or GGX glass's lobe pick d0+6)."""
     n, depth = a['trace'].shape
-    bounce = a['bounce'] + a['ggx_bounce'] + a['mirror_bounce']
+    bounce = a['bounce'] + a['ggx_bounce'] + a['mirror_bounce'] \
+        + sum(a[k] for k in LOBE_BOUNCES)
+    lobe_pick = a['plas_bounce'] + a['rplas_bounce'] + a['rdiel_bounce']
     seqs = []
     for lane in range(n):
         idx = [0, 1, 2, 3, 4] if fixed else [1, 2, 3, 4]
         for d in range(depth):
-            d0 = 5 + 6 * d
+            d0 = 5 + stride * d
             if a['direct'][lane, d]:
                 idx.append(d0)
             if a['nee_geom'][lane, d]:
                 idx += [d0 + 1, d0 + 2]
             if a['nee'][lane, d]:
                 idx.append(d0 + 3)
-            if bounce[lane, d]:
+            if bounce[lane, d] or a['blend_pick'][lane, d]:
                 idx += [d0 + 4, d0 + 5]
+            if a['blend_pick'][lane, d]:
+                idx.append(d0 + 6 + pick)
+            if lobe_pick[lane, d]:
+                idx.append(d0 + 6)
         g = [i >> 2 for i in idx]
         seqs.append(1 + sum(x != y for x, y in zip(g, g[1:])))
     return np.asarray(seqs, np.float64)
 
 
-def stage_blocks(a: dict, direct: bool = False) -> np.ndarray:
-    """Philox blocks each lane computes in the flagship and coherent
-    kernels, whose stages take their draws' two blocks at their start: two
-    for the ray, two at each hit; with `direct`, one more for each direct
-    hit's draw (the coherent kernel's, at depth 0 and after a mirror)."""
-    b = 2.0 + 2.0 * a['hit'].sum(axis=1).astype(np.float64)
+def stage_blocks(a: dict, direct: bool = False,
+                 stride: int = 6) -> np.ndarray:
+    """Philox blocks each lane computes in the flagship, coherent and lobe
+    kernels, whose stages take their draws' blocks at their start: two
+    for the ray, two at each hit (the lobe kernel's: those of draws d0+1
+    .. d0+stride-1, three where they span three); with `direct`, one more
+    for each direct hit's draw (at depth 0 and after a delta bounce)."""
+    n, depth = a['hit'].shape
+    per = np.asarray([2.0 if stride == 6 else
+                      float(((5 + stride * d + stride - 1) >> 2)
+                            - ((6 + stride * d) >> 2) + 1)
+                      for d in range(depth)])
+    b = 2.0 + (a['hit'] * per).sum(axis=1).astype(np.float64)
     if direct:
         b += a['direct'].sum(axis=1)
     return b
@@ -275,6 +349,9 @@ def stage_weights_fp32(n_rect: int, config: str = 'flagship') -> dict:
             'ggx_nee', 'ggx_bounce', 'mirror_bounce', 'dop_direct',
             'dop_nee', 'dop_bounce', 'splat_2d', 'lo_bin', 'phase',
             'phase_lo')})
+        w.update({k: f.get(k, 0.0) for k in KEYS
+                  if k.startswith(('plas_', 'rplas_', 'rdiel_', 'blend_',
+                                   'diel_', 'pass_'))})
         _, rx = scene_of(config)
         rule = rk.rx_rule(rx.receive_type, rx.lo_waveform is not None)
         if rule in (rk.RX_MIX, rk.RX_MIXER, rk.RX_RAW_LO):
@@ -474,6 +551,7 @@ def func_ranges(source: str) -> dict:
                       ('splat', r'void splat\(float\* hist'),
                       ('splat_w', r'\[k1 splat\]'),
                       ('splat_c', r'void coh_splat_rows\('),
+                      ('splat_p', r'void pow_splat_rows\('),
                       ('splat_g', r'void grid_splat\('),
                       ('splat_a', r'void add\(int cell, float v\) const'),
                       ('phase', r'float echo_phase\('),
@@ -507,17 +585,66 @@ def source_of(tree: str) -> str:
 
 def build_cubin(tree: str) -> str:
     """A cubin of the tree's receive kernel with -lineinfo and otherwise
-    the library's flags (-lineinfo leaves the machine code as it is)."""
+    the library's flags (-lineinfo leaves the machine code as it is);
+    ptxas's report goes to the cubin's path + '.log'."""
     sys.path.insert(0, tree)
     from beifong_tpu_torch import _nvcc
     cubin = os.path.join(tree, 'beifong_tpu_torch', '_build', 'k1_mix.cubin')
     os.makedirs(os.path.dirname(cubin), exist_ok=True)
     flags = [f for f in _nvcc.NVCC_FLAGS
-             if f not in ('-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')]
-    subprocess.run([_nvcc._nvcc(), *flags, '-cubin', '-lineinfo', '-o', cubin,
-                    source_of(tree)], check=True, capture_output=True,
-                   text=True)
+             if f not in ('-shared', '-Xcompiler', '-fPIC')]
+    res = subprocess.run([_nvcc._nvcc(), *flags, '-cubin', '-lineinfo', '-o',
+                          cubin, source_of(tree)], check=True,
+                         capture_output=True, text=True)
+    with open(cubin + '.log', 'w') as f:
+        f.write(res.stdout + res.stderr)
     return cubin
+
+
+def ptxas_of(log: str, kernel: str) -> list:
+    """ptxas's lines (registers, spills) of the kernels that match the
+    regex `kernel` in a build's report."""
+    fn, out = '?', []
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            fn = m.group(1)
+        elif re.search(kernel, fn) and ('registers' in line
+                                        or 'spill' in line):
+            out.append(line.strip())
+    return out
+
+
+def tree_geometry(tree: str, config: str) -> dict:
+    """The launch geometry of a configuration's kernel in the tree (its
+    own wrapper, in a process of its own): blocks a pulse, threads,
+    shared bytes, and blocks and warps an SM (the card)."""
+    code = f"""
+import json, sys
+sys.path.insert(0, {tree!r})
+sys.path.insert(0, {os.path.join(HERE, 'tools')!r})
+import torch, k1_mix
+from beifong_tpu_torch.integrators import receive_kernel as rk
+s, rx = k1_mix.scene_of({config!r})
+p = rk.pack_scene(s.compile(use_bvh=False, device='cpu'), rx,
+                  s.shape_index_of_endpoint('receiver', rx.id))
+kw = k1_mix.ref_kw({config!r}, rx, p)
+lob = {{'lobes': True}} if kw.get('lobes') else {{}}
+n_pulses = 64 if {config!r} == 'corner' else 1
+g = rk.launch_geometry(rx.adc.n_time, k1_mix.CONFIGS[{config!r}]['lanes']
+                       // n_pulses, p.prim.shape[0], p.params.shape[-1],
+                       doppler=kw.get('doppler', False),
+                       coherent=kw.get('coherent', False),
+                       n_pulses=n_pulses, **lob)
+sms = torch.cuda.get_device_properties(0).multi_processor_count
+print('GEOM ' + json.dumps(dict(blocks=g[0], threads=g[1], smem=g[2],
+      blocks_an_sm=g[0] * n_pulses / sms,
+      warps_an_sm=g[0] * n_pulses * g[1] / 32 / sms)))
+"""
+    res = subprocess.run([sys.executable, '-c', code], capture_output=True,
+                         text=True, cwd=HERE)
+    line = [ln for ln in res.stdout.splitlines() if ln.startswith('GEOM ')]
+    return json.loads(line[-1][5:]) if line else {'error': res.stderr[-800:]}
 
 
 def parse_functions(text: str) -> dict:
@@ -587,13 +714,18 @@ def sass_mix(cubin: str, src: str, kernel: str, a: dict, n_rect: int,
     thread-instructions a lane under the stage entries `a`."""
     name, ins = disassemble(cubin, kernel, out_txt)
     # the Philox blocks a lane computes: the grid-stride kernel's Draws
-    # cache one block, the flagship and coherent kernels' stages take two
+    # cache one block, the flagship, coherent and lobe kernels' stages
+    # take theirs at their start
+    stride, pick = draw_stride(lobe_kw(config))
     if 'receive_flagship_kernel' in name:
         phx = stage_blocks(a)
     elif 'receive_coherent_kernel' in name:
         phx = stage_blocks(a, direct=True)
+    elif 'receive_lobe_kernel' in name:
+        phx = stage_blocks(a, direct=True, stride=stride)
     else:
-        phx = philox_blocks(a, CONFIGS[config]['ts'] == 'fixed')
+        phx = philox_blocks(a, CONFIGS[config]['ts'] == 'fixed', stride,
+                            pick)
     stages = line_stages(src)
     helpers = func_ranges(src)
 
@@ -608,8 +740,8 @@ def sass_mix(cubin: str, src: str, kernel: str, a: dict, n_rect: int,
                for h in ('draws', 'draws_get', 'draws_flag', 'draws_coh')):
             st = 'draws'
         elif any(in_helper(x, h) for x in chain
-                 for h in ('splat', 'splat_w', 'splat_c', 'splat_g',
-                           'splat_a')):
+                 for h in ('splat', 'splat_w', 'splat_c', 'splat_p',
+                           'splat_g', 'splat_a')):
             st = 'splat'
         elif any(in_helper(x, h) for x in chain
                  for h in ('phase', 'phase_f', 'phase_h', 'phase_c')):
@@ -634,8 +766,17 @@ def sass_mix(cubin: str, src: str, kernel: str, a: dict, n_rect: int,
           'shadow': a['occ_tests'].sum() / n,
           'phase': conns,
           'splat': conns,
-          'bounce': (a['bounce'] + a['ggx_bounce']
-                     + a['mirror_bounce']).sum() / n,
+          'bounce': (a['bounce'] + a['ggx_bounce'] + a['mirror_bounce']
+                     + sum(a[k] for k in LOBE_BOUNCES)).sum() / n,
+          # the lobe twins: the hit's lobe f cos past the cosine test, a
+          # composite's pick, the bounce's branch by lobe
+          'lobe_nee': a['nee'].sum() / n,
+          'pick': a['blend_pick'].sum() / n,
+          'mirror': a['mirror_bounce'].sum() / n,
+          'diel': a['diel_bounce'].sum() / n,
+          'ggx': (a['ggx_bounce'] + a['rplas_bounce']
+                  + a['rdiel_bounce']).sum() / n,
+          'diffuse': (a['bounce'] + a['plas_bounce']).sum() / n,
           # the warp wavefront's turns for 32 lanes: one RAY, and a SHADE
           # for every 32 hits (each turn traces the rays it makes)
           'sched': (n + a['hit'].sum()) / n,
@@ -705,7 +846,8 @@ def main() -> int:
     cfg = CONFIGS[args.config]
     masks, n_rect = stage_masks(n, config=args.config)
     a = per_lane(masks, n)
-    phx = philox_blocks(a)
+    stride, pick = draw_stride(lobe_kw(args.config))
+    phx = philox_blocks(a, stride=stride, pick=pick)
     res = {'config': args.config, 'lanes': n, 'depth': cfg['depth'],
            'seed': SEED,
            'n_rect': n_rect,
@@ -724,6 +866,12 @@ def main() -> int:
                                     f'k1_sass_{tag}_{args.config}.txt'),
                        args.config)
         res['sass'] = mix
+        if not args.listing:
+            with open(os.path.join(args.sass, 'beifong_tpu_torch', '_build',
+                                   'k1_mix.cubin.log')) as f:
+                res['ptxas'] = ptxas_of(f.read(), cfg['kernel'])
+            res['geometry'] = tree_geometry(os.path.abspath(args.sass),
+                                            args.config)
         name, limit, mx, now = card_clock_mhz() if not args.listing \
             else ('(listing)', '?', args.clock_mhz, args.clock_mhz)
         res['card'] = f'{name}, {limit} W, SM clock max {mx:g} MHz (now '\
@@ -740,8 +888,17 @@ def main() -> int:
              'nee_geom': per['nee'], 'nee': 0.0,
              'occ_tests': per['shadow'],
              'nee_splat': per['splat'] + per['phase'],
-             'bounce': per['bounce'], 'ggx_bounce': per['bounce'],
-             'mirror_bounce': per['bounce']}
+             'bounce': per['bounce'] + per['diffuse'],
+             'ggx_bounce': per['bounce'] + per['ggx'],
+             'mirror_bounce': per['bounce'] + per['mirror'],
+             'plas_nee': per['lobe_nee'], 'rplas_nee': per['lobe_nee'],
+             'rdiel_nee': per['lobe_nee'], 'blend_nee': per['lobe_nee'],
+             'blend_pick': per['pick'],
+             'diel_bounce': per['bounce'] + per['diel'],
+             'plas_bounce': per['bounce'] + per['diffuse'],
+             'rplas_bounce': per['bounce'] + per['ggx'],
+             'rdiel_bounce': per['bounce'] + per['ggx'],
+             'pass_bounce': per['bounce']}
         res['simt_sass'] = simt(a, w)
         res['pool_sass'] = pool_model(a, w)
         res['pool_fused_sass'] = pool_model(a, w, fused=True)

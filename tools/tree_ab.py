@@ -18,7 +18,12 @@ configuration on multi_body (mesh) and the range-Doppler pulse
 2^24 lanes, on the dechirp and the FMCW mixer (analytic, depth 2, 2^24
 lanes) and on the CPIs of the corner (64 pulses x 2^16 lanes, depth 4,
 fixed sampling) and of the micro-Doppler plate (64 x 2^13, depth 1) in
-one launch each (one warm-up, then ten calls each), and the host time of ten
+one launch each, and the analytic lobe twins on the lobe scenes at 2^24
+lanes: the windowed corner (depth 6; the thin window in power, the
+smooth one in I / Q), the depth-2 plastic, rough plastic, GGX glass
+(target and through, the latter also in I / Q), blend and mask scenes in
+power, and the windowed corner's 16-pulse CPI (2^20 lanes a pulse) in
+one launch (one warm-up, then ten calls each), and the host time of ten
 more calls of the wrapper, each from an idle card (the Python and launch
 work inside the timed window), and for the Doppler family the host time of
 its table lookups alone (the lobe flags and the transmitter kinds, read
@@ -30,7 +35,10 @@ ratio this / other, the pairs this tree won, and the host times.
     python3 tools/tree_ab.py --other DIR --this DIR2 --only flagship
 
 times DIR2 in place of this tree, and only the named configurations
-(comma-separated; an ablation's pairs need only the flagship).
+(comma-separated; an ablation's pairs need only the flagship; the lobe
+twins' are window_thin, window_dielectric, lobe_plastic,
+lobe_rough_plastic, lobe_rough_dielectric, lobe_through,
+lobe_through_iq, lobe_blend, lobe_mask and window_cpi).
 
     python3 tools/tree_ab.py --other DIR --sass
 
@@ -79,9 +87,27 @@ def timed_configs(cs, flagship, mesh, multi_body, range_doppler, pulse_train):
 COH_PATHS = ('dechirp', 'mixer')
 CPI_PATHS = ('corner_cpi', 'micro_cpi')
 CPI_PULSES = 64
+# the analytic lobe twins' scenes: (scenes' function, its argument,
+# depth, coherent), and the windowed corner's CPI
+LOBE_PATHS = {'window_thin': ('window_corner_scene', 'thin', 6, False),
+              'window_dielectric': ('window_corner_scene', 'dielectric', 6,
+                                    True),
+              'lobe_plastic': ('plastic_scene', 'plastic', 2, False),
+              'lobe_rough_plastic': ('plastic_scene', 'rough_plastic', 2,
+                                     False),
+              'lobe_rough_dielectric': ('rough_dielectric_scene', 'target',
+                                        2, False),
+              'lobe_through': ('rough_dielectric_scene', 'through', 2,
+                               False),
+              'lobe_through_iq': ('rough_dielectric_scene', 'through', 2,
+                                  True),
+              'lobe_blend': ('composite_scene', 'blend', 2, False),
+              'lobe_mask': ('composite_scene', 'mask', 2, False)}
+WINDOW_CPI_PULSES = 16
 
 NAMES = ('flagship', 'mesh', 'multi_body', 'range_doppler', 'coherent',
-         'coherent_mesh') + COH_PATHS + CPI_PATHS
+         'coherent_mesh') + COH_PATHS + CPI_PATHS + tuple(LOBE_PATHS) \
+    + ('window_cpi',)
 
 
 def child(root: str, only: tuple = NAMES) -> dict:
@@ -136,6 +162,29 @@ def child(root: str, only: tuple = NAMES) -> dict:
                   doppler=True, coherent=True, receive_type=rx.receive_type,
                   has_lo=rx.lo_waveform is not None, mirror=bool(p.mirror),
                   **lead)
+        ms, _ = cs.cuda_ms(lambda i: fn(params, prim, txp, **kw), CALLS + 1)
+        out[f'{name}_ms'] = ms[1:]
+    for name in only:
+        if name not in LOBE_PATHS and name != 'window_cpi':
+            continue
+        fn_name, arg, depth, coh = LOBE_PATHS.get(
+            name, ('window_corner_scene', 'thin', 6, True))
+        s, rx = getattr(scenes, fn_name)(arg)
+        if name == 'window_cpi':
+            p, rx, _ = rk.pack_cpi(s, WINDOW_CPI_PULSES, 10.0)
+            fn, lead = rk.receive_megakernel_cpi, {'seed_step': 7919}
+            n_lanes = cs.LOBE_CPI_SAMPLES
+        else:
+            p = rk.pack_scene(s.compile(use_bvh=False, device='cpu'), rx,
+                              s.shape_index_of_endpoint('receiver', rx.id))
+            fn, lead, n_lanes = rk.receive_megakernel, {}, cs.LOBE_LANES
+        params, prim, txp = (torch.tensor(a, device=dev)
+                             for a in (p.params, p.prim, p.txp))
+        kw = dict(adc=rx.adc, max_depth=depth, time_sampling='gate',
+                  rx_kind=rk.rx_kind_of(rx), n_lanes=n_lanes, seed=cs.SEED,
+                  doppler=True, coherent=coh, receive_type=rx.receive_type,
+                  has_lo=rx.lo_waveform is not None, mirror=bool(p.mirror),
+                  lobes=p.lobes, **lead)
         ms, _ = cs.cuda_ms(lambda i: fn(params, prim, txp, **kw), CALLS + 1)
         out[f'{name}_ms'] = ms[1:]
     for name, scene, n_lanes, depth, doppler, coherent in timed_configs(
