@@ -109,6 +109,8 @@ def _bind(lib):
     lib.ik_closest_launch.restype = i32
     lib.ik_any_launch.argtypes = [vp, vp, vp, vp, vp, vp, i32, i32, vp, vp]
     lib.ik_any_launch.restype = i32
+    lib.ik_shared_bytes.argtypes = [i32]
+    lib.ik_shared_bytes.restype = i32
 
 
 LIBRARY = _nvcc.Library('intersect_kernels', 'ik', _bind)
@@ -116,6 +118,12 @@ LIBRARY = _nvcc.Library('intersect_kernels', 'ik', _bind)
 
 def build_library() -> _nvcc.BuildInfo:
     return _nvcc.build('intersect_kernels')
+
+
+def shared_bytes(n_tris: int) -> int:
+    """Dynamic shared memory a block of either kernel asks for over a soup
+    of n_tris triangles."""
+    return int(LIBRARY.get().ik_shared_bytes(n_tris))
 
 
 def _check(tensors: dict):

@@ -120,10 +120,13 @@ Phases (any failure exits non-zero before the last line is printed):
              (peak bins within 2, window energies within 0.2-5x; the
              coherent case averaged over 16 seeds on each route);
    wavefront - the eager receive wavefront: ray_triangle_closest /
-             ray_triangle_any (K4) against their plain versions at the
-             wavefront's shape (2^17 receiver rays x the multi_body
-             scene's 324 faces) and a query shape (2^18 rays x
-             mesh_scene's 10,082 faces); then the multi_body scene
+             ray_triangle_any (K4) against their plain versions, bit for
+             bit, at the wavefront's shape (2^17 receiver rays x the
+             multi_body scene's 324 faces), a query shape (2^18 rays x
+             mesh_scene's 10,082 faces) and the largest soup that
+             use_bvh='auto' leaves to K4 (2^17 rays x mesh_scene(n_side=
+             22)'s 968 faces), with their registers, shared memory, both
+             bounds and the pairs the cull keeps; then the multi_body scene
              (`scenes.multi_body_scene`, the JAX package's
              examples/multi_body.py) through receive(use_kernel=False) at
              2^22 samples, gate sampling, depth 2 (one warm-up, five timed
@@ -175,6 +178,8 @@ WF_CPU_SAMPLES = 1 << 16   # the card-against-CPU comparison
 PROFILE_SAMPLES = 1 << 20  # the profiled wavefront call (8 passes)
 K4_RAYS = 1 << 17          # the wavefront's K4 shape (one pass of lanes)
 K4_QUERY_RAYS = 1 << 18    # the K4 query shape, on mesh_scene
+K4_QUEUED = 20             # K4 calls a timed run, queued behind a sleep
+K4_SLEEP_CYCLES = 4_000_000  # ~2 ms at 1980 MHz: longer than 20 enqueues
 FLAG_SAMPLES = 1 << 22     # flagship: kernel against wavefront
 FLAG_DEPTH = 3
 BVH_WF_SAMPLES = 1 << 20   # mesh_scene through the wavefront (K2 / K3)
@@ -192,6 +197,10 @@ K1_WF_BOUND = 0.25
 # FP32 operations of one (ray, triangle) pair, counted from
 # pallas_intersect._kernel as csrc/intersect_kernels.cu computes them
 K4_PAIR_OPS = 47
+# and of the cull in front of it (csrc/intersect_kernels.cu cull_rejects):
+# 3 subtractions, 3 dot products of 5 (a product and two FMAs), a max and
+# 5 FMAs, an FMA counted as two
+K4_CULL_OPS = 3 + 3 * 5 + 1 + 5 * 2
 # the coherent configuration and the LO receive types
 COH_PARITY_LANES = 1 << 18   # injected-uniform comparisons
 COH_MESH_PARITY_LANES = 1 << 16
@@ -3292,18 +3301,35 @@ class Patch:
         return False
 
 
-def _pairs_to_first_blocker(torch, ik, o, d, v0, e1, e2, maxt) -> int:
-    """(ray, triangle) pairs a shadow test needs on this data: each ray's
-    triangles in index order up to and including its first blocker, all of
-    them for a ray that nothing blocks."""
+def _k4_cull_records(torch, v0, e1, e2):
+    """The cull records that csrc/intersect_kernels.cu stages (centre,
+    lambda^2 R^2, scaled normal, K R^2), in float32 tensor arithmetic
+    (unfused: a count of kept pairs, not the kernel's own rounding)."""
+    m = v0 + (e1 + e2) * (1.0 / 3.0)
+    p = v0 - m
+    r2 = torch.stack([(p * p).sum(1), ((p + e1) ** 2).sum(1),
+                      ((p + e2) ** 2).sum(1)]).max(0).values * 1.0001
+    nrm = (torch.linalg.cross(e1, e2)
+           / (e1.norm(dim=1) * e2.norm(dim=1))[:, None])
+    return m, 1.0405 * r2, nrm, 4e-8 * r2
+
+
+def _k4_pair_counts(torch, ik, o, d, v0, e1, e2, maxt) -> dict:
+    """(ray, triangle) pairs on this data: all of them and those the cull
+    keeps (closest hit); each ray's triangles in index order up to and
+    including its first blocker, all of them for a ray that nothing
+    blocks, and those of them the cull keeps (shadow test)."""
     n, n_tris = int(o.shape[0]), int(v0.shape[0])
     limit = (maxt * (1.0 - 1e-3))[:, None]
-    total = 0
+    c, cw, nrm, nw = _k4_cull_records(torch, v0, e1, e2)
+    h = d / d.norm(dim=1, keepdim=True)
+    out = dict(pairs=n * n_tris, kept=0, any_pairs=0, any_kept=0)
     step = 1 << 12
     for r0 in range(0, n, step):
         r1 = min(r0 + step, n)
         first = torch.full((r1 - r0,), n_tris, dtype=torch.int64,
                            device=o.device)
+        keeps = []
         for f0 in range(0, n_tris, ik.CHUNK_F):
             f1 = min(f0 + ik.CHUNK_F, n_tris)
             det, u, v, t = ik.moller_trumbore(o[r0:r1], d[r0:r1], v0[f0:f1],
@@ -3313,97 +3339,204 @@ def _pairs_to_first_blocker(torch, ik, o, d, v0, e1, e2, maxt) -> int:
             at = torch.where(blk.any(1), blk.to(torch.float32).argmax(1) + f0 + 1,
                              n_tris)
             first = torch.minimum(first, at)
-        total += int(first.sum())
-    return total
+            w = c[None, f0:f1] - o[r0:r1, None]
+            b = (w * h[r0:r1, None]).sum(-1)
+            ww = (w * w).sum(-1)
+            rho2 = ww - b.clamp(min=0) ** 2
+            g2 = (nrm[None, f0:f1] * h[r0:r1, None]).sum(-1) ** 2 \
+                - 64 * 2.0 ** -24
+            lo = rho2 - 2e-6 * ww
+            far = lo > cw[None, f0:f1]
+            steep = g2 * lo > 4e-8 * ww + nw[None, f0:f1]
+            keeps.append(~(far & steep))
+        keep = torch.cat(keeps, 1)
+        out['kept'] += int(keep.sum())
+        out['any_pairs'] += int(first.sum())
+        upto = torch.arange(n_tris, device=o.device)[None] < first[:, None]
+        out['any_kept'] += int((keep & upto).sum())
+    return out
 
 
-def k4_parity(torch, ik, dev, tag) -> list:
-    """K4 against its plain version on the card at the wavefront's shape
-    and at a query shape; the kernel's and the plain version's times."""
+def k4_inputs(torch, dev, shape: str):
+    """(o, d, v0, e1, e2, maxt) of K4 at one of K4_SHAPES: rays from
+    uniform points of the receiver aperture toward uniform points of the
+    soup's box (a quarter aimed past it: misses), shadow lengths 0.6-1.4x
+    the distance to the target."""
     from beifong_tpu_torch.scenes import mesh_scene, multi_body_scene
+    scene_fn, n_rays = {
+        'wavefront': (multi_body_scene, K4_RAYS),
+        'query': (mesh_scene, K4_QUERY_RAYS),
+        'faces968': (lambda: mesh_scene(n_side=22), K4_RAYS)}[shape]
+    s, rx = scene_fn()
+    sd = s.compile(use_bvh=False, device=dev)
+    v0, e1, e2 = (x.contiguous() for x in (sd.tris.v0, sd.tris.e1,
+                                           sd.tris.e2))
+    lo, hi = v0.min(0).values - 0.05, v0.max(0).values + 0.05
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    o, tgt = aperture_rays(torch, s, rx, lo, hi, n_rays, gen, dev)
+    tgt[: n_rays // 4] += 3.0 * (hi - lo)
+    d = tgt - o
+    dist = d.norm(dim=1)
+    d = (d / dist[:, None]).contiguous()
+    maxt = (dist * (0.6 + 0.8 * torch.rand(n_rays, generator=gen,
+                                            device=dev))).contiguous()
+    return o.contiguous(), d, v0, e1, e2, maxt
+
+
+# the wavefront's shape, the query shape, and the largest soup that
+# Scene.compile(use_bvh='auto') leaves to K4 (scene.py: up to 1,024 faces)
+K4_SHAPES = ('wavefront', 'query', 'faces968')
+
+
+def queued_ms(torch, fn, n: int = K4_QUEUED, reps: int = 5) -> list:
+    """Device ms a call of fn(): n calls queued behind a sleeping kernel,
+    so that the card runs them back to back and the host's enqueue time
+    stays out, CUDA events around the n; one number for each of `reps`
+    runs."""
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(K4_SLEEP_CYCLES)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(n):
+            fn()
+        b.record()
+        b.synchronize()
+        out.append(a.elapsed_time(b) / n)
+    return out
+
+
+def _bits(torch, x):
+    return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+
+def k4_parity(torch, ik, dev, tag, build_log: str) -> list:
+    """K4 against its plain version on the card, bit for bit, at
+    K4_SHAPES; the kernels' times (queued, and a call with its wrapper),
+    registers, shared memory, both bounds and the pairs the cull keeps,
+    and the plain version's times."""
+    regs, fn = {}, None
+    for line in build_log.splitlines():
+        if 'Compiling entry function' in line:
+            fn = ('ray_triangle_any' if 'ILb1E' in line
+                  else 'ray_triangle_closest')
+        elif 'registers' in line and fn:
+            regs[fn] = int(re.search(r'(\d+) registers', line).group(1))
+    # thread-instructions of a culled triangle and of an exact test, read
+    # from the library's SASS, and the card's top SM clock: the issue-slot
+    # bound
+    sys.path.insert(0, os.path.join(HERE, 'tools'))
+    import k1_mix
+    import k4_mix
+    mix = {('ray_triangle_any' if k == 'any' else 'ray_triangle_closest'):
+           k4_mix.per_pair(v) for k, v in k4_mix.parse(k4_mix.listing(
+               ik.build_library().path)).items()}
+    clock = k1_mix.card_clock_mhz()[2]
+    per = {k: {'cull': v['cull'], 'exact': v['exact']}
+           for k, v in mix.items()}
+    print(f'K4 SASS, thread-instructions a culled triangle and an exact '
+          f'test: {json.dumps(per)}; SM clock {clock:.0f} MHz {tag}')
     out = {'ray_triangle_closest': {}, 'ray_triangle_any': {}}
-    for shape, (scene_fn, n_rays) in (
-            ('wavefront', (multi_body_scene, K4_RAYS)),
-            ('query', (mesh_scene, K4_QUERY_RAYS))):
-        s, rx = scene_fn()
-        sd = s.compile(use_bvh=False, device=dev)
-        v0, e1, e2 = (x.contiguous() for x in (sd.tris.v0, sd.tris.e1,
-                                               sd.tris.e2))
-        n_tris = int(v0.shape[0])
-        lo, hi = v0.min(0).values - 0.05, v0.max(0).values + 0.05
-        gen = torch.Generator(device=dev).manual_seed(SEED)
-        o, tgt = aperture_rays(torch, s, rx, lo, hi, n_rays, gen, dev)
-        # a quarter of the rays aim past the faces' box: misses
-        tgt[: n_rays // 4] += 3.0 * (hi - lo)
-        d = tgt - o
-        dist = d.norm(dim=1)
-        d = (d / dist[:, None]).contiguous()
-        o = o.contiguous()
-        maxt = (dist * (0.6 + 0.8 * torch.rand(n_rays, generator=gen,
-                                                device=dev))).contiguous()
-        t, idx, u, v = ik.ray_triangle_closest(o, d, v0, e1, e2)
-        occ = ik.ray_triangle_any(o, d, v0, e1, e2, maxt)
-        pc_ms, (rt, ri, ru, rv) = wall_ms(
+    for shape in K4_SHAPES:
+        o, d, v0, e1, e2, maxt = k4_inputs(torch, dev, shape)
+        n_rays, n_tris = int(o.shape[0]), int(v0.shape[0])
+        got = (*ik.ray_triangle_closest(o, d, v0, e1, e2),
+               ik.ray_triangle_any(o, d, v0, e1, e2, maxt))
+        pc_ms, ref = wall_ms(
             lambda: ik.ray_triangle_closest_ref(o, d, v0, e1, e2))
         pa_ms, ro = wall_ms(
             lambda: ik.ray_triangle_any_ref(o, d, v0, e1, e2, maxt))
-        hit_flips = int(((idx >= 0) != (ri >= 0)).sum())
-        faces = int((idx != ri).sum())
-        same = (idx == ri) & (ri >= 0)
-        t_rel = float(((t - rt).abs() / rt.abs())[same].max())
-        t_abs = float((t - rt).abs()[same].max())
-        du = float((u - ru).abs()[same].max())
-        dv = float((v - rv).abs()[same].max())
-        occ_flips = int((occ != ro).sum())
-        print(f'parity K4 {shape} {n_rays} rays x {n_tris} faces: '
-              f'{int((ri >= 0).sum())} hits, hit presence differs on '
-              f'{hit_flips}, face on {faces}; same face: max t err {t_abs:.3e} '
-              f'({t_rel:.3e} relative), max |du| {du:.3e}, |dv| {dv:.3e}; '
-              f'any: {int(ro.sum())} blocked, {occ_flips} flags differ')
-        if hit_flips or faces > 1e-4 * n_rays or occ_flips > 1e-4 * n_rays:
-            fail(f'K4 {shape}: {hit_flips} / {faces} / {occ_flips} rays '
-                 'differ from the plain version')
-        if not (t_rel <= 2e-5 and du <= 1e-4 and dv <= 1e-4
-                and 0 < int(ro.sum()) < n_rays and int(same.sum()) > 0):
-            fail(f'K4 {shape}: t {t_rel:.3e} relative, u {du:.3e}, '
-                 f'v {dv:.3e}, or degenerate rays')
-        c_ms, _ = cuda_ms(lambda i: ik.ray_triangle_closest(o, d, v0, e1,
-                                                            e2), 6)
-        a_ms, _ = cuda_ms(lambda i: ik.ray_triangle_any(o, d, v0, e1, e2,
-                                                        maxt), 6)
-        c_med, a_med = statistics.median(c_ms[1:]), statistics.median(a_ms[1:])
-        print(f'K4 {shape} {n_rays} x {n_tris}: ray_triangle_closest median '
-              f'{c_med:.4f} ms, ray_triangle_any {a_med:.4f} ms; plain '
-              f'versions {pc_ms:.1f} / {pa_ms:.1f} ms {tag}')
-        b_c = bound(float(n_rays) * n_tris * K4_PAIR_OPS,
+        ref = (*ref, ro)
+        differ = {k: int((_bits(torch, a) != _bits(torch, b)).sum())
+                  for k, a, b in zip(('t', 'idx', 'u', 'v', 'any'), got,
+                                     ref)}
+        hits, blocked = int((ref[1] >= 0).sum()), int(ro.sum())
+        print(f'parity K4 {shape} {n_rays} rays x {n_tris} faces: {hits} '
+              f'hits, {blocked} blocked; rays whose bits differ from the '
+              f'plain version: {differ}')
+        if any(differ.values()) or not (0 < hits < n_rays
+                                        and 0 < blocked < n_rays):
+            fail(f'K4 {shape}: the kernels differ from the plain version '
+                 f'({differ}) or the rays are degenerate')
+        c_ms = queued_ms(torch, lambda: ik.ray_triangle_closest(
+            o, d, v0, e1, e2))
+        a_ms = queued_ms(torch, lambda: ik.ray_triangle_any(
+            o, d, v0, e1, e2, maxt))
+        cc_ms, _ = cuda_ms(lambda i: ik.ray_triangle_closest(o, d, v0, e1,
+                                                             e2), 6)
+        ac_ms, _ = cuda_ms(lambda i: ik.ray_triangle_any(o, d, v0, e1, e2,
+                                                         maxt), 6)
+        c_med, a_med = statistics.median(c_ms), statistics.median(a_ms)
+        cc_med, ac_med = (statistics.median(cc_ms[1:]),
+                          statistics.median(ac_ms[1:]))
+        smem = ik.shared_bytes(n_tris)
+        print(f'K4 {shape} {n_rays} x {n_tris}: ray_triangle_closest '
+              f'{c_med:.4f} ms ({K4_QUEUED} calls queued; {cc_med:.4f} ms a '
+              f'call with its wrapper, CUDA events around each), '
+              f'ray_triangle_any {a_med:.4f} ms ({ac_med:.4f}); plain '
+              f'versions {pc_ms:.1f} / {pa_ms:.1f} ms; registers {regs}, '
+              f'{smem} B of shared memory a block {tag}')
+        cnt = _k4_pair_counts(torch, ik, o, d, v0, e1, e2, maxt)
+        print(f'K4 {shape} pairs: {cnt["pairs"]} in all, {cnt["kept"]} kept '
+              f'by the cull ({cnt["kept"] / cnt["pairs"]:.5f}); shadow test '
+              f'up to each first blocker {cnt["any_pairs"]} '
+              f'({cnt["any_pairs"] / cnt["pairs"]:.3f} of all), '
+              f'{cnt["any_kept"]} kept')
+        b_c = bound(float(cnt['pairs']) * K4_PAIR_OPS,
                     n_rays * (24 + 16) + 36 * n_tris,
-                    f'ray_triangle_closest {shape}')
-        # the shadow test may stop at a ray's first blocker: count the pairs
-        # this data needs
-        pairs = _pairs_to_first_blocker(torch, ik, o, d, v0, e1, e2, maxt)
-        b_a = bound(float(pairs) * K4_PAIR_OPS,
+                    f'ray_triangle_closest {shape} (every pair tested)')
+        b_cc = bound(float(cnt['pairs']) * K4_CULL_OPS
+                     + float(cnt['kept']) * K4_PAIR_OPS,
+                     n_rays * (24 + 16) + 36 * n_tris,
+                     f'ray_triangle_closest {shape} (the cull on every '
+                     'pair, the test on the kept ones)')
+        b_a = bound(float(cnt['any_pairs']) * K4_PAIR_OPS,
                     n_rays * (24 + 4 + 1) + 36 * n_tris,
-                    f'ray_triangle_any {shape} ({pairs / (n_rays * n_tris):.3f}'
-                    ' of the pairs: each ray up to its first blocker)')
-        for name, ms, p_ms, b, err in (
-                ('ray_triangle_closest', c_med, pc_ms, b_c, t_abs),
-                # max |flag - plain flag| over the rays: 0 or 1
-                ('ray_triangle_any', a_med, pa_ms, b_a,
-                 float(occ_flips > 0))):
-            key = '' if shape == 'wavefront' else '_query'
-            out[name].update({f'ms{key}': ms, f'plain_ms{key}': p_ms,
+                    f'ray_triangle_any {shape} (each ray up to its first '
+                    'blocker)')
+        b_ac = bound(float(cnt['any_pairs']) * K4_CULL_OPS
+                     + float(cnt['any_kept']) * K4_PAIR_OPS,
+                     n_rays * (24 + 4 + 1) + 36 * n_tris,
+                     f'ray_triangle_any {shape} (the cull up to the first '
+                     'blocker, the test on the kept pairs)')
+        for name, ms, call, p_ms, b, bc, pairs, kept in (
+                ('ray_triangle_closest', c_med, cc_med, pc_ms, b_c, b_cc,
+                 cnt['pairs'], cnt['kept']),
+                ('ray_triangle_any', a_med, ac_med, pa_ms, b_a, b_ac,
+                 cnt['any_pairs'], cnt['any_kept'])):
+            # every pair culled, the kept ones tested (a kernel without a
+            # cull tests every pair)
+            m = mix[name]
+            instr = (pairs * m['cull'] + kept * m['exact'] if m['cull']
+                     else pairs * m['exact'])
+            slots = k4_mix.issue_slot_bound_ms(instr, clock)
+            print(f'K4 {name} {shape}: {100 * b["bound_ms"] / ms:.1f}% of '
+                  f'the 47-operation bound, {100 * bc["bound_ms"] / ms:.1f}% '
+                  f'of the cull bound, {100 * slots / ms:.1f}% of the '
+                  f'issue-slot bound ({slots:.4f} ms) {tag}')
+            key = '' if shape == 'wavefront' else f'_{shape}'
+            out[name].update({f'ms{key}': ms, f'call_ms{key}': call,
+                              f'plain_ms{key}': p_ms,
                               f'bound_ms{key}': b['bound_ms'],
                               f'bound_by{key}': b['bound_by'],
-                              f'max_abs_err{key}': err,
+                              f'cull_bound_ms{key}': bc['bound_ms'],
+                              f'issue_slot_bound_ms{key}': slots,
+                              f'kept_pairs{key}': kept,
+                              f'max_abs_err{key}': 0.0,
+                              f'shared_bytes{key}': smem,
                               f'shape{key}': [n_rays, n_tris]})
     common = dict(route='cuda',
                   source='beifong_tpu_torch/csrc/intersect_kernels.cu',
                   replaces='beifong_tpu/geometry/pallas_intersect.py:109',
                   library_ms=None)
     return [dict(name='ray_triangle_closest', **common,
+                 registers=regs.get('ray_triangle_closest'),
                  tpu_function='_kernel (pallas_intersect.py:30) via '
                  'ray_triangle_closest (:77)', **out['ray_triangle_closest']),
             dict(name='ray_triangle_any', **common,
+                 registers=regs.get('ray_triangle_any'),
                  tpu_function='_kernel (pallas_intersect.py:30) via '
                  'ray_triangle_any (:130)', **out['ray_triangle_any'])]
 
@@ -3754,7 +3887,7 @@ def main() -> int:
     kernels += lobes(torch, bt, rk, dev, tag,
                      infos['receive_megakernel'].log, cubin)
     kernels += queries(torch, bt, dev, tag)
-    k4 = k4_parity(torch, ik, dev, tag)
+    k4 = k4_parity(torch, ik, dev, tag, infos['intersect_kernels'].log)
     k4_launches, bvh_launches = wavefront(torch, bt, ik, bk, rk, dev, tag,
                                           pulse_compress, k1_grid)
     for k in k4:

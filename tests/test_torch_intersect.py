@@ -68,6 +68,32 @@ def test_k4_plain_version_matches_pallas_interpret(n_tris, n_rays):
     assert 0 < occ_t.sum() < n_rays
 
 
+def test_k4_plain_version_ties_match_pallas_interpret():
+    """Duplicate faces inside a TPU tile, across its 512-face boundary and
+    across two: the lowest index wins in the Pallas kernel (jnp.argmin in
+    a tile, the strict `better` across tiles) and in the plain version."""
+    v0, e1, e2 = _soup(1100, seed=4)
+    copies = ((300, 301), (10, 520), (511, 512), (600, 1030), (40, 1099))
+    for src, dst in copies:
+        v0[dst], e1[dst], e2[dst] = v0[src], e1[src], e2[src]
+    rng = np.random.default_rng(5)
+    faces = rng.choice([s for s, _ in copies], 384)
+    a, b = rng.uniform(0.1, 0.45, (2, 384))
+    tgt = v0[faces] + a[:, None] * e1[faces] + b[:, None] * e2[faces]
+    o = rng.uniform(-3, 3, (384, 3)).astype(np.float32)
+    d = tgt - o
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    t_j, i_j, _, _ = (np.asarray(x) for x in pi_j.ray_triangle_closest(
+        *(jnp.asarray(x) for x in (o, d, v0, e1, e2)), interpret=True))
+    t_t, i_t, _, _ = (x.numpy() for x in ik.ray_triangle_closest(
+        *_t(o, d, v0, e1, e2)))
+    np.testing.assert_array_equal(i_t, i_j)
+    hit = i_j >= 0
+    np.testing.assert_allclose(t_t[hit], t_j[hit], rtol=2e-5)
+    assert not set(i_t.tolist()) & {d for _, d in copies}
+    assert {s for s, _ in copies} <= set(i_t.tolist())
+
+
 def test_k4_plain_version_matches_chunked_dense_test():
     """Above CHUNK_F faces: the JAX package's `_triangle_closest_chunked`
     gives the same faces; its dense `any_hit` the same flags."""

@@ -1,5 +1,6 @@
 // A g++ emulation of the CUDA runtime for the receive megakernel
-// (tools/k1_emulate.py): each block runs as blockDim.x std::threads;
+// (tools/k1_emulate.py) and the ray / triangle kernels
+// (tools/k4_emulate.py): each block runs as blockDim.x std::threads;
 // __syncthreads a block barrier, the warp votes and __syncwarp a barrier a
 // warp; atomics are real atomics (a plain |= loses bits when two threads
 // race); the occupancy query gives one block an SM on two SMs.
@@ -48,6 +49,7 @@ struct Block {
     std::vector<std::unique_ptr<std::barrier<>>> wbar;
     std::vector<unsigned long long> vote;   // 32 a warp
     std::vector<char> smem;
+    std::atomic<int> all{1};                // __syncthreads_and
 };
 inline thread_local dim3 t_idx, b_idx, b_dim, g_dim;
 inline thread_local Block* blk = nullptr;
@@ -93,6 +95,19 @@ void launch(K kernel, dim3 g, dim3 b, int smem, void*, A... args) {
 
 inline void __syncthreads() { emu::blk->bar->arrive_and_wait(); }
 inline void __syncwarp(unsigned = 0xffffffffu) { emu::warp_wait(); }
+// barriers around the reset, the votes and the read, so that no thread
+// resets the value of the next call before every thread has read this one
+inline int __syncthreads_and(int p) {
+    emu::Block* b = emu::blk;
+    b->bar->arrive_and_wait();
+    if (emu::t_idx.x == 0) b->all = 1;
+    b->bar->arrive_and_wait();
+    if (!p) b->all = 0;
+    b->bar->arrive_and_wait();
+    const int r = b->all;
+    b->bar->arrive_and_wait();
+    return r;
+}
 template <class T>
 inline unsigned long long emu_vote(T v, unsigned long long (*op)(
                                             unsigned long long*, int, int)) {
@@ -113,6 +128,9 @@ inline unsigned __ballot_sync(unsigned, int p) {
     });
 }
 inline int __any_sync(unsigned m, int p) { return __ballot_sync(m, p) != 0; }
+inline int __all_sync(unsigned m, int p) {
+    return __ballot_sync(m, p) == 0xffffffffu;
+}
 inline unsigned __reduce_or_sync(unsigned, unsigned x) {
     return (unsigned)emu_vote(x, [](unsigned long long* v, int, int n) {
         unsigned long long r = 0;
@@ -137,8 +155,32 @@ inline T __shfl_down_sync(unsigned, T x, int off) {
     emu::warp_wait();
     return r;
 }
+// a value's bits through the warp's vote slots (any type of up to 8 bytes)
+template <class T>
+inline T emu_shfl(T x, int src) {
+    unsigned long long* vo = emu::warp_votes();
+    int j = emu::t_idx.x % 32;
+    unsigned long long b = 0;
+    memcpy(&b, &x, sizeof(T));
+    vo[j] = b;
+    emu::warp_wait();
+    b = vo[((src % 32) + 32) % 32];
+    emu::warp_wait();
+    T r;
+    memcpy(&r, &b, sizeof(T));
+    return r;
+}
+template <class T>
+inline T __shfl_sync(unsigned, T x, int src) { return emu_shfl(x, src); }
+template <class T>
+inline T __shfl_up_sync(unsigned, T x, unsigned off) {
+    int j = emu::t_idx.x % 32;
+    T r = emu_shfl(x, j >= (int)off ? j - (int)off : j);
+    return r;
+}
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
 inline int __ffs(unsigned x) { return __builtin_ffs((int)x); }
+inline int __ffsll(unsigned long long x) { return __builtin_ffsll((long long)x); }
 inline uint32_t __umulhi(uint32_t a, uint32_t b) {
     return (uint32_t)(((uint64_t)a * b) >> 32);
 }
@@ -146,6 +188,7 @@ inline float __fmul_rn(float a, float b) { volatile float r = a * b; return r; }
 inline float __fadd_rn(float a, float b) { volatile float r = a + b; return r; }
 inline float __fsub_rn(float a, float b) { volatile float r = a - b; return r; }
 inline float __fdiv_rn(float a, float b) { volatile float r = a / b; return r; }
+inline float __frcp_rn(float a) { volatile float r = 1.0f / a; return r; }
 inline float __fsqrt_rn(float a) { volatile float r = std::sqrt(a); return r; }
 inline float rsqrtf(float x) { return 1.0f / sqrtf(x); }
 inline int __float_as_int(float x) { int r; memcpy(&r, &x, 4); return r; }
@@ -169,6 +212,15 @@ inline unsigned long long atomicAdd(unsigned long long* p,
 }
 inline unsigned atomicOr(unsigned* p, unsigned v) {
     return __atomic_fetch_or(p, v, __ATOMIC_SEQ_CST);
+}
+inline unsigned long long atomicMin(unsigned long long* p,
+                                    unsigned long long v) {
+    unsigned long long old = __atomic_load_n(p, __ATOMIC_SEQ_CST);
+    while (v < old && !__atomic_compare_exchange_n(
+                          p, &old, v, false, __ATOMIC_SEQ_CST,
+                          __ATOMIC_SEQ_CST)) {
+    }
+    return old;
 }
 inline long long clock64() { return 0; }
 template <class A, class B> inline auto min(A a, B b) -> decltype(a + b) {

@@ -23,7 +23,10 @@ lanes: the windowed corner (depth 6; the thin window in power, the
 smooth one in I / Q), the depth-2 plastic, rough plastic, GGX glass
 (target and through, the latter also in I / Q), blend and mask scenes in
 power, and the windowed corner's 16-pulse CPI (2^20 lanes a pulse) in
-one launch (one warm-up, then ten calls each), and the host time of ten
+one launch (one warm-up, then ten calls each), K4's closest-hit and
+shadow kernels at chip_smoke.K4_SHAPES (the wavefront's 2^17 rays x 324
+faces, the query's 2^18 x 10,082 and 2^17 x 968: twenty calls queued
+behind a sleeping kernel, five times), and the host time of ten
 more calls of the wrapper, each from an idle card (the Python and launch
 work inside the timed window), and for the Doppler family the host time of
 its table lookups alone (the lobe flags and the transmitter kinds, read
@@ -38,7 +41,8 @@ times DIR2 in place of this tree, and only the named configurations
 (comma-separated; an ablation's pairs need only the flagship; the lobe
 twins' are window_thin, window_dielectric, lobe_plastic,
 lobe_rough_plastic, lobe_rough_dielectric, lobe_through,
-lobe_through_iq, lobe_blend, lobe_mask and window_cpi).
+lobe_through_iq, lobe_blend, lobe_mask and window_cpi; K4's are
+k4_closest and k4_any, which build only K4's library).
 
     python3 tools/tree_ab.py --other DIR --sass
 
@@ -105,9 +109,30 @@ LOBE_PATHS = {'window_thin': ('window_corner_scene', 'thin', 6, False),
               'lobe_mask': ('composite_scene', 'mask', 2, False)}
 WINDOW_CPI_PULSES = 16
 
+K4_NAMES = ('k4_closest', 'k4_any')
 NAMES = ('flagship', 'mesh', 'multi_body', 'range_doppler', 'coherent',
          'coherent_mesh') + COH_PATHS + CPI_PATHS + tuple(LOBE_PATHS) \
-    + ('window_cpi',)
+    + ('window_cpi',) + K4_NAMES
+
+
+def k4_child(cs, only: tuple) -> dict:
+    """K4's kernels of the imported tree at chip_smoke.K4_SHAPES."""
+    import torch
+    from beifong_tpu_torch.geometry import intersect_kernel as ik
+    out = dict(k4_ptxas=[ln.strip() for ln in ik.build_library().log
+                         .splitlines() if 'registers' in ln])
+    dev = torch.device('cuda')
+    for shape in cs.K4_SHAPES:
+        o, d, v0, e1, e2, maxt = cs.k4_inputs(torch, dev, shape)
+        calls = {'k4_closest': lambda: ik.ray_triangle_closest(o, d, v0, e1,
+                                                               e2),
+                 'k4_any': lambda: ik.ray_triangle_any(o, d, v0, e1, e2,
+                                                       maxt)}
+        for name in only:
+            if name in calls:
+                calls[name]()    # warm-up
+                out[f'{name}_{shape}_ms'] = cs.queued_ms(torch, calls[name])
+    return out
 
 
 def child(root: str, only: tuple = NAMES) -> dict:
@@ -126,11 +151,15 @@ def child(root: str, only: tuple = NAMES) -> dict:
     sys.path.insert(0, HERE)
     import chip_smoke  # noqa: E402  (cuda_ms, the main paths' sizes, SEED)
 
-    regs = [ln.strip() for ln in rk.build_library().log.splitlines()
-            if 'registers' in ln]
     dev = torch.device('cuda')
-    out = dict(tree=root, ptxas=regs)
+    out = dict(tree=root)
     cs = chip_smoke   # the main paths' sizes
+    if set(only) & set(K4_NAMES):
+        out.update(k4_child(cs, only))
+    if set(only) <= set(K4_NAMES):
+        return out
+    out['ptxas'] = [ln.strip() for ln in rk.build_library().log.splitlines()
+                    if 'registers' in ln]
     paths = {'dechirp': (scenes.fmcw_dechirp_scene, cs.COH_LANES,
                          cs.COH_DEPTH, 'gate'),
              'mixer': (lambda: scenes.fmcw_scene('mixer'), cs.COH_LANES,
@@ -350,7 +379,10 @@ def main() -> int:
             runs[which].append(r)
 
     summary = {'card': card, 'pairs': args.pairs}
-    for name in only:
+    # one timed number a configuration (K4: a configuration and shape)
+    metrics = [k[:-3] for k in runs['this'][0] if k.endswith('_ms')
+               and not k.endswith(('_host_ms', '_lookup_ms'))]
+    for name in metrics:
         meds = {w: [statistics.median(r[f'{name}_ms']) for r in rs]
                 for w, rs in runs.items()}
         for w, m in meds.items():
