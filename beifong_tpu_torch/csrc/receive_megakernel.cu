@@ -35,7 +35,12 @@
 // ascending pair order, over pair rows read through the read-only path
 // (Cfg.php, Cfg.rxph).  The EP twins run in vacuum: a scene with these
 // endpoints and a medium runs on the wavefront.  The vacuum and media
-// instantiations (EP false) compile as they did without it.
+// instantiations (EP false) compile as they did without it.  On analytic
+// scenes the power and coherent endpoint twins run kernels of their own
+// (receive_endpoint_kernel, receive_endpoint_coherent_kernel, below: the
+// flagship's and the coherent kernel's warp wavefronts, and a footprint
+// index over each phased array's pairs); the mesh twins and the Doppler
+// power twin run the EP instantiations of the block body.
 // The Doppler family's four vacuum configurations have a lobe twin (the
 // mesh ones LOB, the analytic ones receive_lobe_kernel<COH>, below; the
 // JAX kernel's diel, thin, plas, rplas, rdiel, has_blend and has_mask,
@@ -916,6 +921,328 @@ __device__ __forceinline__ float tx_gain(const Tx& tr, int t, const Cfg& cfg,
                         m[9] * iwy, m[3], m[7], m[11], px, py, pz, -ex, -ey,
                         -ez, lam);
     }
+    return tr.aperture(lx, ly, ex, ey, ez, lam);
+}
+
+// ---- the endpoint kernels' footprint index ------------------------------
+//
+// receive_endpoint_kernel and receive_endpoint_coherent_kernel (below) sum
+// a phased array's pairs over the pairs whose footprint may hold the point
+// in place of all of them.  A pair's footprint is an element rectangle at
+// its midpoint, so a point lies in few of them (an 8-element line array
+// has 15 midpoints along s, one along t, and up to 8 pairs share one).
+// Each block stages every array's pair rows in shared memory as two float4
+// records a pair and builds an index a separable one: EPX_CELLS cells along
+// s and along t, each with a mask of the pairs whose footprint, widened by
+// a margin, meets it.  A lane maps its point to its cell on each axis, ANDs
+// the two masks and runs the unchanged per-pair test and term on the set
+// bits in ascending pair order.  The sum is bit for bit the full loop's:
+// a pair the loop skips adds nothing to it, and the visited set holds
+// every pair the rounded test accepts, because
+//  - an accepted pair has |qs - mid_s| <= W_s + delta_s, with qs the
+//    point's rounded coordinate (p - o).s, W_s = 0.5 / iws the test's
+//    half-width and delta_s the margin: 2^-16 (256 float epsilons) of the
+//    magnitudes the test and qs round (|o|_1 + max |mid| + the point bound,
+//    against ~40 epsilons they can lose), plus twice the frame's distance
+//    from orthonormal (|s.s - 1| max|mid_s| + |s.t| max|mid_t|: the test
+//    reads (p - o - mid_s s - mid_t t).s, qs - mid_s its orthonormal form);
+//  - a cell is floor((x - lo) inv) in rounded arithmetic, monotone in x, so
+//    a point inside the widened interval [a, b] of a pair has its cell in
+//    [cell(a), cell(b)], the cells whose masks hold the pair; lo is the
+//    least a, so no such point falls below cell 0 or past the last cell.
+// A point beyond the bound the margin assumes (|p|_1 > the header's), and
+// an array whose index would not be finite, run the full loop over the
+// staged records.  Pairs with valid == 0 are in no mask (the loop skips
+// them after its test).  tests/test_torch_endpoint_emulate.py holds the
+// indexed sum to the full loop on points on and one ulp about footprint
+// edges.
+constexpr int EPX_CELLS = 64;      // cells an axis
+constexpr int EPX_HDR = 32;        // floats of an array's header
+// An array's header: floats 0-2 its axis s and 3-5 t (pair_sum's snx ..
+// tnz), 6-8 its centre o, 9-10 the element half-widths, 11-12 iws, iwt,
+// 13-14 s's first edge and inverse cell width, 15-16 t's, 17 the point
+// bound, 24-25 the widened half-widths; as ints 18-19 the cells along s
+// and t, 20 the pairs, 21 whether the index holds (else the full loop),
+// 22 its first record, 23 its first mask word.
+
+// Mask words a cell (pairs up to 64 each), at least one.
+__host__ __device__ constexpr int epx_words(int n_pairs, int n_rx_pairs) {
+    return ((n_pairs > n_rx_pairs ? n_pairs : n_rx_pairs) + 63) / 64 > 0
+               ? ((n_pairs > n_rx_pairs ? n_pairs : n_rx_pairs) + 63) / 64
+               : 1;
+}
+// Floats of a block's index: a header an array (the n_tx transmitters',
+// then the receiver's), two float4 records a pair, then each array's
+// masks (two axes of EPX_CELLS cells, epx_words 64-bit words each).
+__host__ __device__ constexpr int epx_floats(int n_tx, int n_pairs,
+                                             int n_rx_pairs) {
+    return EPX_HDR * (n_tx + 1) + 8 * (n_tx * n_pairs + n_rx_pairs)
+           + 4 * EPX_CELLS * epx_words(n_pairs, n_rx_pairs) * (n_tx + 1);
+}
+
+// Whether x is finite (not an infinity, not a NaN).
+__device__ __forceinline__ bool fin_f(float x) {
+    return fabsf(x) <= F(3.4028234663852886e38);
+}
+
+// The cell of coordinate x on an axis of first edge lo and inverse cell
+// width inv (rounded as written: monotone in x).
+__device__ __forceinline__ float epx_cell(float x, float lo, float inv) {
+    return floorf(__fmul_rn(__fsub_rn(x, lo), inv));
+}
+
+// Array a's header (one thread): transmitter a < n_tx (its pair row
+// php + a php_cols; a phased one only) or the analog receiver (a ==
+// n_tx; rxph), the frame as trace_lane's callers of pair_sum form it.
+__device__ void epx_header(const Cfg& cfg, const float* sp, const float* s_tx,
+                           float* h, int a) {
+    int* hi = reinterpret_cast<int*>(h);
+    const bool tx = a < cfg.n_tx;
+    const float* r = s_tx + a * TXP_COLS;
+    const int n_k = tx ? (r[27] == TX_PHASED ? cfg.n_pairs : 0)
+                       : (cfg.rx_phased ? cfg.n_rx_pairs : 0);
+    hi[18] = hi[19] = 0;
+    hi[20] = n_k;
+    hi[21] = 0;
+    hi[22] = tx ? a * cfg.n_pairs : cfg.n_tx * cfg.n_pairs;
+    hi[23] = 2 * EPX_CELLS * epx_words(cfg.n_pairs, cfg.n_rx_pairs) * a;
+    if (n_k == 0) return;
+    // to_world rows: the axes in columns 0 and 1, the centre in column 3
+    const float* m = tx ? r : sp + 2;
+    const float wx = tx ? r[12] : sp[14], wy = tx ? r[13] : sp[15];
+    const float iwx = 1.0f / fmaxf(wx, F(1e-20));
+    const float iwy = 1.0f / fmaxf(wy, F(1e-20));
+    const float reach = tx ? fabsf(r[12]) + fabsf(r[13])
+                           : fabsf(sp[30]) + fabsf(sp[31]);
+    const float* row = tx ? cfg.php + a * cfg.php_cols : cfg.rxph;
+    const float snx = m[0] * iwx, sny = m[4] * iwx, snz = m[8] * iwx;
+    const float tnx = m[1] * iwy, tny = m[5] * iwy, tnz = m[9] * iwy;
+    const float ox = m[3], oy = m[7], oz = m[11];
+    const float wid_s = __ldg(row), wid_t = __ldg(row + 1);
+    const float iws = 1.0f / fmaxf(2.0f * wid_s, F(1e-20));
+    const float iwt = 1.0f / fmaxf(2.0f * wid_t, F(1e-20));
+    h[0] = snx; h[1] = sny; h[2] = snz;
+    h[3] = tnx; h[4] = tny; h[5] = tnz;
+    h[6] = ox; h[7] = oy; h[8] = oz;
+    h[9] = wid_s; h[10] = wid_t; h[11] = iws; h[12] = iwt;
+    // the test's half-widths, the largest |mid|, the midpoints' span
+    const float w_s = __fdiv_rn(0.5f, iws), w_t = __fdiv_rn(0.5f, iwt);
+    float ms = 0.0f, mt = 0.0f;
+    float s0 = F(3.4e38), s1 = -F(3.4e38), t0 = F(3.4e38), t1 = -F(3.4e38);
+    bool fin = true;
+    for (int k = 0; k < n_k; ++k) {
+        const float* q = row + 2 + 6 * k;
+        const float a_s = __ldg(q), a_t = __ldg(q + 1);
+        fin = fin && fin_f(a_s) && fin_f(a_t);
+        ms = fmaxf(ms, fabsf(a_s));
+        mt = fmaxf(mt, fabsf(a_t));
+        if (__ldg(q + 5) == 0.0f) continue;
+        s0 = fminf(s0, a_s);
+        s1 = fmaxf(s1, a_s);
+        t0 = fminf(t0, a_t);
+        t1 = fmaxf(t1, a_t);
+    }
+    // rounded as written (no contraction), as the plain version's count of
+    // the visited pairs rounds them
+    auto add = [](float x, float y) { return __fadd_rn(x, y); };
+    auto mul = [](float x, float y) { return __fmul_rn(x, y); };
+    auto dot = [&](float a0, float a1, float a2, float b0, float b1,
+                   float b2) {
+        return add(add(mul(a0, b0), mul(a1, b1)), mul(a2, b2));
+    };
+    const float o1 = add(add(fabsf(ox), fabsf(oy)), fabsf(oz));
+    const float big = add(add(o1, ms), mt);
+    const float plim = add(add(o1, mul(4.0f, add(add(add(ms, mt), w_s), w_t))),
+                           mul(4.0f, reach));
+    const float ss = dot(snx, sny, snz, snx, sny, snz);
+    const float tt = dot(tnx, tny, tnz, tnx, tny, tnz);
+    const float st = dot(snx, sny, snz, tnx, tny, tnz);
+    const float e16 = F(1.0 / 65536.0), e20 = F(1.0 / 1048576.0);
+    const float dst = add(fabsf(st), e20);
+    const float ext_s =
+        add(add(w_s, mul(e16, add(add(plim, big), w_s))),
+            mul(2.0f, add(mul(ms, add(fabsf(__fsub_rn(ss, 1.0f)), e20)),
+                          mul(mt, dst))));
+    const float ext_t =
+        add(add(w_t, mul(e16, add(add(plim, big), w_t))),
+            mul(2.0f, add(mul(mt, add(fabsf(__fsub_rn(tt, 1.0f)), e20)),
+                          mul(ms, dst))));
+    h[17] = plim;
+    h[24] = ext_s;
+    h[25] = ext_t;
+    if (!(s0 <= s1)) {   // no valid pair: the sum is 0 at every point
+        hi[21] = 1;
+        return;
+    }
+    const float lo_s = __fsub_rn(s0, ext_s), hi_s = __fadd_rn(s1, ext_s);
+    const float lo_t = __fsub_rn(t0, ext_t), hi_t = __fadd_rn(t1, ext_t);
+    const float inv_s = __fdiv_rn((float)(EPX_CELLS - 2),
+                                  __fsub_rn(hi_s, lo_s));
+    const float inv_t = __fdiv_rn((float)(EPX_CELLS - 2),
+                                  __fsub_rn(hi_t, lo_t));
+    if (!(fin && fin_f(plim) && fin_f(ext_s) && fin_f(ext_t)
+          && fin_f(inv_s) && fin_f(inv_t) && inv_s > 0.0f
+          && inv_t > 0.0f))
+        return;   // the full loop
+    h[13] = lo_s;
+    h[14] = inv_s;
+    h[15] = lo_t;
+    h[16] = inv_t;
+    hi[18] = (int)epx_cell(hi_s, lo_s, inv_s) + 1;   // <= EPX_CELLS - 1
+    hi[19] = (int)epx_cell(hi_t, lo_t, inv_t) + 1;
+    hi[21] = 1;
+}
+
+// Block set-up of the index (every thread; syncs the block): records,
+// headers, then each (array, axis, cell)'s mask, one thread each.
+__device__ void epx_build(const Cfg& cfg, const float* sp, const float* s_tx,
+                          float* s_epx, int tid, int T) {
+    const int n_arr = cfg.n_tx + 1;
+    const int n_txp = cfg.n_tx * cfg.n_pairs;
+    const int W = epx_words(cfg.n_pairs, cfg.n_rx_pairs);
+    float4* rec = reinterpret_cast<float4*>(s_epx + EPX_HDR * n_arr);
+    unsigned long long* masks = reinterpret_cast<unsigned long long*>(
+        s_epx + EPX_HDR * n_arr + 8 * (n_txp + cfg.n_rx_pairs));
+    for (int i = tid; i < n_txp + cfg.n_rx_pairs; i += T) {
+        const float* q = i < n_txp
+                             ? cfg.php + (i / cfg.n_pairs) * cfg.php_cols + 2
+                                   + 6 * (i % cfg.n_pairs)
+                             : cfg.rxph + 2 + 6 * (i - n_txp);
+        rec[2 * i] = make_float4(__ldg(q), __ldg(q + 1), __ldg(q + 2),
+                                 __ldg(q + 3));
+        rec[2 * i + 1] = make_float4(__ldg(q + 4), __ldg(q + 5), 0.0f, 0.0f);
+    }
+    for (int a = tid; a < n_arr; a += T)
+        epx_header(cfg, sp, s_tx, s_epx + EPX_HDR * a, a);
+    __syncthreads();
+    for (int i = tid; i < n_arr * 2 * EPX_CELLS; i += T) {
+        const int a = i / (2 * EPX_CELLS), c = i % EPX_CELLS;
+        const int ax = (i / EPX_CELLS) & 1;   // 0 along s, 1 along t
+        const float* h = s_epx + EPX_HDR * a;
+        const int* hi = reinterpret_cast<const int*>(h);
+        unsigned long long* mk = masks + hi[23] + W * (ax * EPX_CELLS + c);
+        for (int w = 0; w < W; ++w) mk[w] = 0ull;
+        if (!hi[21] || c >= hi[18 + ax]) continue;
+        const float lo = h[13 + 2 * ax], inv = h[14 + 2 * ax];
+        const float ext = h[24 + ax];
+        const float4* r = rec + 2 * hi[22];
+        for (int k = 0; k < hi[20]; ++k) {
+            if (r[2 * k + 1].y == 0.0f) continue;
+            const float mid = ax ? r[2 * k].y : r[2 * k].x;
+            const float ca = epx_cell(__fsub_rn(mid, ext), lo, inv);
+            const float cb = epx_cell(__fadd_rn(mid, ext), lo, inv);
+            if (ca <= (float)c && (float)c <= cb)
+                mk[k >> 6] |= 1ull << (k & 63);
+        }
+    }
+    __syncthreads();
+}
+
+// A block's index as a lane reads it: the headers, records and masks.
+struct Epx {
+    const float* hdr;
+    const float4* rec;
+    const unsigned long long* masks;
+    int W;
+    __device__ Epx(const Cfg& cfg, const float* base)
+        : hdr(base),
+          rec(reinterpret_cast<const float4*>(base + EPX_HDR * (cfg.n_tx + 1))),
+          masks(reinterpret_cast<const unsigned long long*>(
+              base + EPX_HDR * (cfg.n_tx + 1)
+              + 8 * (cfg.n_tx * cfg.n_pairs + cfg.n_rx_pairs))),
+          W(epx_words(cfg.n_pairs, cfg.n_rx_pairs)) {}
+};
+
+// pair_sum over array a's staged records: the pairs of the point's cells
+// (ascending), or all of them where the index does not hold; the per-pair
+// test and term are pair_sum's, operation by operation.  COUNT: the pairs
+// it tested into *visits (the index check, rk_epx_check).
+template <bool COUNT = false>
+__device__ float pair_sum_epx(const Epx& ix, int a, float px, float py,
+                              float pz, float dex, float dey, float dez,
+                              float lam, int* visits = nullptr) {
+    const float TP = F(6.283185307179586);
+    const float* h = ix.hdr + EPX_HDR * a;
+    const int* hi = reinterpret_cast<const int*>(h);
+    const float snx = h[0], sny = h[1], snz = h[2];
+    const float tnx = h[3], tny = h[4], tnz = h[5];
+    const float ox = h[6], oy = h[7], oz = h[8];
+    float nu_x = (dex * snx + dey * sny + dez * snz) / lam;
+    float nu_y = (dex * tnx + dey * tny + dez * tnz) / lam;
+    const float wid_s = h[9], wid_t = h[10];
+    const float iws = h[11], iwt = h[12];
+    const float4* rec = ix.rec + 2 * hi[22];
+    float total = 0.0f;
+    // [k1 stage: pairs]
+    auto term = [&](int k) {
+        if constexpr (COUNT) ++*visits;
+        const float4 q = rec[2 * k];
+        const float mid_s = q.x, mid_t = q.y;
+        float mx = ox + mid_s * snx + mid_t * tnx;
+        float my = oy + mid_s * sny + mid_t * tny;
+        float mz = oz + mid_s * snz + mid_t * tnz;
+        float rlx = px - mx, rly = py - my, rlz = pz - mz;
+        float rx_ = (rlx * snx + rly * sny + rlz * snz) * iws;
+        float ry_ = (rlx * tnx + rly * tny + rlz * tnz) * iwt;
+        if (!(fabsf(rx_) <= 0.5f && fabsf(ry_) <= 0.5f)) return;
+        // [k1 stage: pair_terms]
+        const float4 q1 = rec[2 * k + 1];
+        const float val_k = q1.y;
+        if (val_k == 0.0f) return;
+        float txr = tri_f(rx_), tyr = tri_f(ry_);
+        float w_rect = 4.0f * wid_s * wid_t * txr * tyr
+                       * sinc_f(TP * nu_x * wid_s * txr)
+                       * sinc_f(TP * nu_y * wid_t * tyr);
+        float ph = TP * (nu_x * q.z + nu_y * q.w) + q1.x;
+        total = total + w_rect * fast_cos(ph) * val_k;
+    };
+    if (hi[21] && fabsf(px) + fabsf(py) + fabsf(pz) <= h[17]) {
+        // [k1 stage: pair_index]
+        const float ex = __fsub_rn(px, ox), ey = __fsub_rn(py, oy),
+                    ez = __fsub_rn(pz, oz);
+        const float qs = __fadd_rn(__fadd_rn(__fmul_rn(ex, snx),
+                                             __fmul_rn(ey, sny)),
+                                   __fmul_rn(ez, snz));
+        const float qt = __fadd_rn(__fadd_rn(__fmul_rn(ex, tnx),
+                                             __fmul_rn(ey, tny)),
+                                   __fmul_rn(ez, tnz));
+        const float cs = epx_cell(qs, h[13], h[14]);
+        const float ct = epx_cell(qt, h[15], h[16]);
+        if (!(cs >= 0.0f && cs < (float)hi[18] && ct >= 0.0f
+              && ct < (float)hi[19]))
+            return total;   // in no footprint
+        const unsigned long long* ms = ix.masks + hi[23] + ix.W * (int)cs;
+        const unsigned long long* mt =
+            ix.masks + hi[23] + ix.W * (EPX_CELLS + (int)ct);
+        // [k1 stage: pairs]
+#pragma unroll 1
+        for (int w = 0; w < ix.W; ++w) {
+            unsigned long long b = ms[w] & mt[w];
+            while (b != 0ull) {
+                const int k = 64 * w + __ffsll((long long)b) - 1;
+                b &= b - 1ull;
+                term(k);
+            }
+        }
+        return total;
+    }
+#pragma unroll 1
+    for (int k = 0; k < hi[20]; ++k) term(k);
+    return total;
+    // [k1 stage: end]
+}
+
+// Transmitter t's aperture weight as tx_gain, the phased cross-WDF through
+// the index.
+__device__ __forceinline__ float tx_gain_epx(const Tx& tr, int t,
+                                             const Epx& ix, float lx,
+                                             float ly, float px, float py,
+                                             float pz, float ex, float ey,
+                                             float ez, float lam) {
+    const float kind = tr.m[27];
+    if (kind == TX_AREA) return 1.0f;
+    if (kind == TX_PHASED)
+        return pair_sum_epx(ix, t, px, py, pz, -ex, -ey, -ez, lam);
     return tr.aperture(lx, ly, ex, ey, ez, lam);
 }
 
@@ -3048,6 +3375,550 @@ receive_flagship_kernel(const float* __restrict__ params,
     }
 }
 
+// ---- the power endpoint kernel: a warp wavefront -------------------------
+//
+// The power endpoint twin on analytic scenes (receive_trace_kernel<false,
+// false, true> before) runs the flagship kernel's turns: a pool of
+// FLAG_POOL paths a warp, RAY over the warp's next 32 lanes and SHADE over
+// 32 waiting paths, each tracing the rays it makes, warp rows of doubles
+// in a fixed order (flag_splat).  Its lane is trace_lane's endpoint path,
+// operation by operation:
+//  - RAY: the Wigner, omni or analog phased receiver's ray; the phased
+//    one's cross-WDF through the footprint index (pair_sum_epx), at a
+//    point where all 32 threads run it together;
+//  - SHADE: a path on transmitter t (a direct hit, depth 0) or NEE to
+//    every transmitter in row order, each with its three draws (taken at
+//    its start from the blocks that hold them), its kind's aperture
+//    weight (the phased cross-WDF through the index) and its shadow test
+//    over its own list of rectangles (all but its own, as float4
+//    records); each transmitter's contribution splats in its own warp
+//    splat, then the bounce (draws d0 + 1 + 3 n_tx, + 2).
+// The tables: the flagship's rectangles, MAX_TX transmitter rows with
+// their normals in columns 29-31 (trace_block's), the footprint index.
+// [k1 stage: block]
+
+// Shared bytes of an endpoint kernel's tables up to its index: the
+// rectangles (`rec` float4s each), each transmitter's shadowing
+// rectangles, params, the transmitter rows, the receiver's `rxc`
+// constants, counts; then the index, ahead of the warps' areas.
+__host__ __device__ constexpr int ep_index_offset(int n_prims, int n_params,
+                                                  int n_tx, int rec,
+                                                  int rxc) {
+    return (16 * (rec + 3 * n_tx) * n_prims
+            + 4 * (n_params + MAX_TX * TXP_COLS + rxc + 1 + MAX_TX) + 15)
+           & ~15;
+}
+__host__ __device__ constexpr int ep_table_bytes(int n_prims, int n_params,
+                                                 int n_tx, int n_pairs,
+                                                 int n_rx_pairs, int rec,
+                                                 int rxc) {
+    return ep_index_offset(n_prims, n_params, n_tx, rec, rxc)
+           + ((4 * epx_floats(n_tx, n_pairs, n_rx_pairs) + 15) & ~15);
+}
+
+// Blocks an SM the power endpoint kernel is held to: six (80 registers,
+// ~160 B spilled) ran 0.92-0.96 of no bound (119 registers, four blocks),
+// five 0.93-0.96 (PERF.md)
+constexpr int EPW_MIN_BLOCKS = 6;
+
+// Draws first .. first + 2 of a lane (an NEE's three), from the one or two
+// Philox blocks that hold them.
+__device__ __forceinline__ void epw_draws3(const Cfg& cfg, const float* u,
+                                           long long lane, int first,
+                                           float* out) {
+    if (!cfg.use_prng) {
+#pragma unroll
+        for (int k = 0; k < 3; ++k)
+            out[k] = u[(long long)(first + k) * cfg.n_lanes + lane
+                       + pulse_id() * cfg.u_stride];
+        return;
+    }
+    const int o = first & 3;
+    const uint4 a = flag_block(cfg, lane, first >> 2);
+    uint4 b = a;
+    if (o > 1) b = flag_block(cfg, lane, (first >> 2) + 1);
+    const uint32_t w[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+#pragma unroll
+    for (int k = 0; k < 3; ++k)
+        out[k] = flag_unit(o == 0 ? w[k] : o == 1 ? w[k + 1]
+                           : o == 2 ? w[k + 2] : w[k + 3]);
+}
+
+__global__ void __launch_bounds__(FLAG_THREADS, EPW_MIN_BLOCKS)
+receive_endpoint_kernel(const float* __restrict__ params,
+                        const float* __restrict__ prim,
+                        const float* __restrict__ txp,
+                        const float* __restrict__ msh,
+                        const float* __restrict__ uniforms, bvh::Tables mesh,
+                        float* __restrict__ lane_val,
+                        double* __restrict__ partial,
+                        unsigned long long* __restrict__ part_ev, Cfg cfg) {
+    extern __shared__ float4 fsm[];
+    const int T = blockDim.x, tid = threadIdx.x, j = tid & 31;
+    const long long pulse = blockIdx.y;
+    const int np = cfg.n_prims, n_tx = cfg.n_tx;
+    params += pulse * cfg.n_params;
+    prim += pulse * np * PRIM_COLS;
+    txp += pulse * n_tx * TXP_COLS;
+    float4* s_rec = fsm;
+    float4* s_blk = s_rec + FLAG_REC * np;    // transmitter t's at t np
+    float* s_par = reinterpret_cast<float*>(s_blk + 3 * n_tx * np);
+    float* s_tx = s_par + cfg.n_params;       // rows, normals in 29-31
+    float* s_rxc = s_tx + MAX_TX * TXP_COLS;  // the receiver's constants
+    int* s_cnt = reinterpret_cast<int*>(s_rxc + FLAG_RXC);
+    float* s_epx = reinterpret_cast<float*>(
+        reinterpret_cast<char*>(fsm)
+        + ep_index_offset(np, cfg.n_params, n_tx, FLAG_REC, FLAG_RXC));
+    char* s_warps = reinterpret_cast<char*>(fsm)
+                    + ep_table_bytes(np, cfg.n_params, n_tx, cfg.n_pairs,
+                                     cfg.n_rx_pairs, FLAG_REC, FLAG_RXC);
+    const int wbytes = flag_warp_bytes(cfg.n_time);
+    float* w_slots = reinterpret_cast<float*>(s_warps + (tid >> 5) * wbytes);
+    int* w_take = reinterpret_cast<int*>(w_slots + FLAG_POOL * FLAG_SLOT);
+    float* w_vals = reinterpret_cast<float*>(w_take + 32);
+    double* w_row = reinterpret_cast<double*>(
+        reinterpret_cast<char*>(w_slots) + flag_row_offset());
+    unsigned* w_mask = reinterpret_cast<unsigned*>(w_row + cfg.n_time);
+
+    for (int i = tid; i < cfg.n_params; i += T) s_par[i] = params[i];
+    for (int i = tid; i < n_tx * TXP_COLS; i += T) s_tx[i] = txp[i];
+    for (int i = j; i < cfg.n_time; i += 32) w_row[i] = 0.0;
+    for (int i = j; i < 2 * cfg.n_time; i += 32) w_mask[i] = 0u;
+    __syncthreads();
+    // each transmitter row's unit normal (trace_block's)
+    for (int t = tid; t < n_tx; t += T) {
+        float* r = s_tx + t * TXP_COLS;
+        float tnn = rsqrtf(fmaxf(r[2] * r[2] + r[6] * r[6] + r[10] * r[10],
+                                 F(1e-20)));
+        r[29] = r[2] * tnn;
+        r[30] = r[6] * tnn;
+        r[31] = r[10] * tnn;
+    }
+    if (tid == 0) {
+        // the rectangles in prim order, and those that can shadow an NEE
+        // to transmitter t (all but its own, t in column 14)
+        int nr = 0;
+        int nb[MAX_TX] = {0, 0, 0, 0};
+        for (int p = 0; p < np; ++p) {
+            const float* row = prim + p * PRIM_COLS;
+            if ((int)row[0] != RECTANGLE) continue;
+            const float* q = row + 1;
+            float rnorm = rsqrtf(fmaxf(q[8] * q[8] + q[9] * q[9]
+                                       + q[10] * q[10], F(1e-20)));
+            float4* r = s_rec + FLAG_REC * nr++;
+            r[0] = make_float4(q[0], q[1], q[2], q[3]);
+            r[1] = make_float4(q[4], q[5], q[6], q[7]);
+            r[2] = make_float4(q[8], q[9], q[10], q[11]);
+            r[3] = make_float4(q[8] * rnorm, q[9] * rnorm, q[10] * rnorm,
+                               row[13]);
+            r[4] = make_float4(row[14], 0.0f, 0.0f, 0.0f);
+            for (int t = 0; t < n_tx; ++t) {
+                if (row[14] == (float)t) continue;
+                float4* b = s_blk + 3 * (t * np + nb[t]++);
+                b[0] = r[0];
+                b[1] = r[1];
+                b[2] = r[2];
+            }
+        }
+        s_cnt[0] = nr;
+        for (int t = 0; t < MAX_TX; ++t) s_cnt[1 + t] = nb[t];
+        // the Wigner receiver's frame and lobe mixture (the flagship's)
+        const float* rxm = s_par + 2;
+        const float rx_wx = s_par[14], rx_wy = s_par[15];
+        float nzx = rxm[2], nzy = rxm[6], nzz = rxm[10];
+        float nn = rsqrtf(nzx * nzx + nzy * nzy + nzz * nzz);
+        nzx = nzx * nn;
+        nzy = nzy * nn;
+        nzz = nzz * nn;
+        float lam0 = s_par[1] / fmaxf(cfg.f_rx, F(1e-6));
+        float w_mn = fminf(rx_wx, rx_wy);
+        float q = 2.0f * w_mn / (F(0.6) * lam0);
+        float k_l = fmaxf(2.0f * (q * q) - 2.0f, 0.0f);
+        float sign = sgn_ge(nzz);
+        float a = -1.0f / (sign + nzz);
+        float b = nzx * nzy * a;
+        float* rc = s_rxc;
+        rc[0] = nzx;
+        rc[1] = nzy;
+        rc[2] = nzz;
+        rc[3] = 4.0f * rx_wx * rx_wy;                         // area
+        rc[4] = k_l;
+        rc[5] = k_l + 1.0f;
+        rc[6] = 0.5f * (k_l + 1.0f) * F(1.0 / 6.283185307179586);
+        rc[7] = lam0;
+        rc[8] = 1.0f + sign * nzx * nzx * a;                  // s1
+        rc[9] = sign * b;
+        rc[10] = -sign * nzx;
+        rc[11] = b;                                           // s2
+        rc[12] = sign + nzy * nzy * a;
+        rc[13] = -nzy;
+    }
+    __syncthreads();
+    epx_build(cfg, s_par, s_tx, s_epx, tid, T);
+    const Epx ix(cfg, s_epx);
+
+    const float TP = F(6.283185307179586);
+    const float* sp = s_par;
+    const int n_rect = s_cnt[0];
+    const int base = cfg.omni ? 3 : 5;        // trace_lane's r0 + 2 or r0 + 4
+    const int stride_d = 3 + 3 * n_tx;        // draws a depth
+    unsigned int events = 0;
+    const long long stride = (long long)gridDim.x * T;
+    long long next = (long long)blockIdx.x * T + (tid & ~31);
+    const unsigned lt = (1u << j) - 1u;
+    unsigned sh_lo = 0u, sh_hi = 0u;
+    for (;;) {
+        // [k1 stage: sched]  the turn: the flagship kernel's
+        __syncwarp();
+        const int n_sh = __popc(sh_lo) + __popc(sh_hi);
+        const int n_new = next < cfg.n_lanes
+                              ? (int)min(32LL, cfg.n_lanes - next) : 0;
+        const bool shade = n_sh >= 32 || (n_new == 0 && n_sh > 0);
+        if (!shade && n_new == 0) break;
+        const unsigned m0 = shade ? sh_lo : ~sh_lo;
+        const unsigned m1 = shade ? sh_hi : ~sh_hi;
+        if ((m0 >> j) & 1u) w_take[__popc(m0 & lt)] = j;
+        const int r1 = __popc(m0) + __popc(m1 & lt);
+        if (((m1 >> j) & 1u) && r1 < 32) w_take[r1] = j + 32;
+        __syncwarp();
+        const int n_go = shade ? min(32, n_sh) : n_new;
+        const int slot = j < n_go ? w_take[j] : -1;
+        float* sl = w_slots + FLAG_SLOT * (slot < 0 ? 0 : slot);
+        float4* sl4 = reinterpret_cast<float4*>(sl);
+        long long lane = next + j;
+        int depth = 0;
+        if (shade && slot >= 0) {
+            const float4 e = sl4[3];
+            lane = (long long)(((unsigned long long)__float_as_uint(e.y)
+                                << 32)
+                               | __float_as_uint(e.x));
+            depth = __float_as_int(sl4[2].w);
+        }
+        const int d0 = base + stride_d * depth;
+        float u5[5];
+        // [k1 stage: draws]  RAY's draws 0-4
+        if (slot >= 0 && !shade) flag_draws5(cfg, uniforms, lane, 0, u5);
+        // [k1 stage: sched]
+
+        bool live = false;
+        float ox = 0.0f, oy = 0.0f, oz = 0.0f, dx = 0.0f, dy = 0.0f,
+              dz = 0.0f, thr = 0.0f, plen = 0.0f, t_rx0 = 0.0f;
+        if (!shade) {
+            if (slot >= 0) {
+                // [k1 stage: ray]  trace_lane's receive ray (draws 0..4)
+                const float* rxm = sp + 2;
+                const float rx_wx = sp[14], rx_wy = sp[15];
+                const float cvel = sp[1];
+                t_rx0 = cfg.gate ? 0.0f
+                                 : cfg.t_start + u5[0] * cfg.t_window;
+                const int r0 = 1;
+                if (cfg.rx_phased) {
+                    // the analog phased array (trace_lane's)
+                    float u1 = u5[r0], u2 = u5[r0 + 1];
+                    float iwx = 1.0f / fmaxf(rx_wx, F(1e-20));
+                    float iwy = 1.0f / fmaxf(rx_wy, F(1e-20));
+                    float snx = rxm[0] * iwx, sny = rxm[4] * iwx,
+                          snz = rxm[8] * iwx;
+                    float tnx = rxm[1] * iwy, tny = rxm[5] * iwy,
+                          tnz = rxm[9] * iwy;
+                    float lxr = (2.0f * u1 - 1.0f) * sp[30];
+                    float lyr = (2.0f * u2 - 1.0f) * sp[31];
+                    ox = rxm[3] + lxr * snx + lyr * tnx;
+                    oy = rxm[7] + lxr * sny + lyr * tny;
+                    oz = rxm[11] + lxr * snz + lyr * tnz;
+                    const float nzx = s_rxc[0], nzy = s_rxc[1],
+                                nzz = s_rxc[2];
+                    float u3 = u5[r0 + 2], u4 = u5[r0 + 3];
+                    float rr = sqrtf(u3);
+                    float ph = TP * u4;
+                    float tx_ = rr * fast_cos(ph), ty_ = rr * fast_sin(ph);
+                    float tz = sqrtf(fmaxf(1.0f - u3, 0.0f));
+                    dx = s_rxc[8] * tx_ + s_rxc[11] * ty_ + nzx * tz;
+                    dy = s_rxc[9] * tx_ + s_rxc[12] * ty_ + nzy * tz;
+                    dz = s_rxc[10] * tx_ + s_rxc[13] * ty_ + nzz * tz;
+                    float lam = cvel / fmaxf(cfg.f_rx, F(1e-6));
+                    float w0 = F(4.0 * 3.141592653589793) * sp[30] * sp[31]
+                               * sp[32];
+                    ox = ox + F(1e-4) * nzx;
+                    oy = oy + F(1e-4) * nzy;
+                    oz = oz + F(1e-4) * nzz;
+                    thr = w0 * pair_sum_epx(ix, n_tx, ox, oy, oz, dx, dy, dz,
+                                            lam);
+                } else if (cfg.omni) {
+                    ox = rxm[3];
+                    oy = rxm[7];
+                    oz = rxm[11];
+                    float u1 = u5[r0], u2 = u5[r0 + 1];
+                    float z = 1.0f - 2.0f * u1;
+                    float r = sqrtf(fmaxf(1.0f - z * z, 0.0f));
+                    float ph = TP * u2;
+                    dx = r * fast_cos(ph);
+                    dy = r * fast_sin(ph);
+                    dz = z;
+                    thr = F(4.0 * 3.141592653589793) * sp[32];
+                } else {
+                    float u1 = u5[r0], u2 = u5[r0 + 1];
+                    float lx = 2.0f * u1 - 1.0f, ly = 2.0f * u2 - 1.0f;
+                    ox = rxm[0] * lx + rxm[1] * ly + rxm[3];
+                    oy = rxm[4] * lx + rxm[5] * ly + rxm[7];
+                    oz = rxm[8] * lx + rxm[9] * ly + rxm[11];
+                    const float* rc = s_rxc;
+                    const float nzx = rc[0], nzy = rc[1], nzz = rc[2];
+                    float u3 = u5[r0 + 2], u4 = u5[r0 + 3];
+                    bool pick = u3 >= 0.5f;
+                    float u0m = pick ? 2.0f * u3 - 1.0f : 2.0f * u3;
+                    float ph = TP * u4;
+                    float ct_c = sqrtf(fmaxf(1.0f - u0m, 0.0f));
+                    float ct_l = expf(logf(fmaxf(u0m, F(1e-12))) / rc[5]);
+                    float tz = pick ? ct_l : ct_c;
+                    float st = sqrtf(fmaxf(1.0f - tz * tz, 0.0f));
+                    float tx_ = st * fast_cos(ph);
+                    float ty_ = st * fast_sin(ph);
+                    float cosk = expf(rc[4] * logf(fmaxf(tz, F(1e-12))));
+                    float pdf_d = 0.5f * tz * F(1.0 / 3.141592653589793)
+                                  + rc[6] * cosk;
+                    float w0 = (tz / fmaxf(pdf_d, F(1e-30))) * rc[3] * sp[32];
+                    dx = rc[8] * tx_ + rc[11] * ty_ + nzx * tz;
+                    dy = rc[9] * tx_ + rc[12] * ty_ + nzy * tz;
+                    dz = rc[10] * tx_ + rc[13] * ty_ + nzz * tz;
+                    float lam = rc[7];
+                    float nu_x = (rxm[0] * dx + rxm[4] * dy + rxm[8] * dz)
+                                 / fmaxf(rx_wx, F(1e-9)) / lam;
+                    float nu_y = (rxm[1] * dx + rxm[5] * dy + rxm[9] * dz)
+                                 / fmaxf(rx_wy, F(1e-9)) / lam;
+                    float trx = tri_f(lx * 0.5f), try_ = tri_f(ly * 0.5f);
+                    thr = w0 * (4.0f * trx * try_
+                                * sinc_f(TP * nu_x * rx_wx * trx)
+                                * sinc_f(TP * nu_y * rx_wy * try_));
+                    ox = ox + F(1e-4) * nzx;
+                    oy = oy + F(1e-4) * nzy;
+                    oz = oz + F(1e-4) * nzz;
+                }
+                live = true;
+            }
+            next += stride;
+        } else {
+            // [k1 stage: hit]  the path from its slot, the hit point
+            float nx = 0.0f, ny = 0.0f, nz = 0.0f, rb = 0.0f, txc = 0.0f,
+                  hx = 0.0f, hy = 0.0f, hz = 0.0f;
+            const float cvel = sp[1];
+            const float n_time_f = (float)cfg.n_time;
+            const float t_start = cfg.t_start, t_window = cfg.t_window;
+            if (slot >= 0) {
+                const float4 a = sl4[0], b = sl4[1], c = sl4[2];
+                thr = a.w;
+                dx = b.x;
+                dy = b.y;
+                dz = b.z;
+                t_rx0 = c.x;
+                const float tb = c.y;
+                const int pw = __float_as_int(c.z);
+                const float4 nrb = s_rec[FLAG_REC * pw + 3];
+                nx = nrb.x;
+                ny = nrb.y;
+                nz = nrb.z;
+                rb = nrb.w;
+                txc = s_rec[FLAG_REC * pw + 4].x;
+                plen = b.w + tb;
+                hx = a.x + tb * dx;
+                hy = a.y + tb * dy;
+                hz = a.z + tb * dz;
+            }
+            // each transmitter in row order: the direct hit of the one the
+            // path is on (depth 0), or the NEE from a hit off them; each
+            // contribution splats in its own warp splat
+            for (int t = 0; t < n_tx; ++t) {
+                float val = 0.0f, yb = 0.0f;
+                const Tx tr = tx_row(s_tx + t * TXP_COLS);
+                const float* m = tr.m;
+                if (slot >= 0 && txc < 0.0f) {
+                    // [k1 stage: nee]
+                    float u3[3];
+                    epw_draws3(cfg, uniforms, lane, d0 + 1 + 3 * t, u3);
+                    float glx = 2.0f * u3[0] - 1.0f;
+                    float gly = 2.0f * u3[1] - 1.0f;
+                    float qx = m[0] * glx + m[1] * gly + m[3];
+                    float qy = m[4] * glx + m[5] * gly + m[7];
+                    float qz = m[8] * glx + m[9] * gly + m[11];
+                    float vx = qx - hx, vy = qy - hy, vz = qz - hz;
+                    float dist2 = vx * vx + vy * vy + vz * vz;
+                    float dist = sqrtf(fmaxf(dist2, F(1e-20)));
+                    float inv_d = 1.0f / dist;
+                    float wx_ = vx * inv_d, wy_ = vy * inv_d,
+                          wz_ = vz * inv_d;
+                    float cos_tx = -(wx_ * tr.nx + wy_ * tr.ny
+                                     + wz_ * tr.nz);
+                    if (cos_tx > F(1e-6)) {
+                        float pdf_sa = (1.0f / fmaxf(tr.area, F(1e-12)))
+                                       * dist2 / fmaxf(cos_tx, F(1e-6));
+                        float cos_s = wx_ * nx + wy_ * ny + wz_ * nz;
+                        float sg = sgn_ge(-dx * nx + -dy * ny + -dz * nz);
+                        float co = wx_ * (nx * sg) + wy_ * (ny * sg)
+                                   + wz_ * (nz * sg);
+                        float f_cos = rb * F(1.0 / 3.141592653589793)
+                                      * fmaxf(co, 0.0f);
+                        float t_emit, t_recv, w_gate;
+                        tr.emission((plen + dist) / cvel, u3[2], t_rx0,
+                                    cfg.gate, t_start, t_window, &t_emit,
+                                    &t_recv, &w_gate, nullptr);
+                        float f_emit = tr.inst_freq(t_emit);
+                        float sig = tr.eval_wdf(t_emit, f_emit);
+                        // [k1 stage: nee_pairs]
+                        float ap = tx_gain_epx(tr, t, ix, glx, gly, qx, qy,
+                                               qz, wx_, wy_, wz_,
+                                               cvel / fmaxf(f_emit,
+                                                            F(1e-6)));
+                        // [k1 stage: nee]
+                        float w_tx = sig * tr.gain * ap * TP;
+                        float off = F(1e-4) * sign0(cos_s);
+                        float sx = hx + off * nx, sy = hy + off * ny,
+                              sz = hz + off * nz;
+                        float limit = dist * F(0.999);
+                        // [k1 stage: shadow]
+                        bool occ = false;
+                        const float4* blk = s_blk + 3 * t * np;
+                        for (int r = 0; r < s_cnt[1 + t] && !occ; ++r) {
+                            float t_p;
+                            bool hit_p = rect_hit4(blk + 3 * r, sx, sy, sz,
+                                                   wx_, wy_, wz_, &t_p);
+                            occ = hit_p && t_p > F(1e-4) && t_p < limit;
+                        }
+                        // [k1 stage: nee]
+                        if (!occ && pdf_sa > 0.0f) {
+                            val = thr * f_cos * w_tx * w_gate
+                                  / fmaxf(pdf_sa, F(1e-30));
+                            yb = (t_recv - t_start) / t_window * n_time_f
+                                 - 0.5f;
+                            events += val != 0.0f;
+                        }
+                    }
+                } else if (slot >= 0 && depth == 0 && txc == (float)t) {
+                    // [k1 stage: direct]
+                    float cos_dh = -(dx * tr.nx + dy * tr.ny + dz * tr.nz);
+                    if (cos_dh > 0.0f) {
+                        float te_h, tr_h, wg_h;
+                        tr.emission(plen / cvel,
+                                    flag_draw1(cfg, uniforms, lane, d0),
+                                    t_rx0, cfg.gate, t_start, t_window,
+                                    &te_h, &tr_h, &wg_h, nullptr);
+                        float fe_h = tr.inst_freq(te_h);
+                        float sig_h = tr.eval_wdf(te_h, fe_h);
+                        float lam_h = cvel / fmaxf(fe_h, F(1e-6));
+                        float lxh = ((hx - m[3]) * m[0] + (hy - m[7]) * m[4]
+                                     + (hz - m[11]) * m[8])
+                                    / fmaxf(tr.wx * tr.wx, F(1e-12));
+                        float lyh = ((hx - m[3]) * m[1] + (hy - m[7]) * m[5]
+                                     + (hz - m[11]) * m[9])
+                                    / fmaxf(tr.wy * tr.wy, F(1e-12));
+                        float ap_h = tx_gain_epx(tr, t, ix, lxh, lyh, hx, hy,
+                                                 hz, dx, dy, dz, lam_h);
+                        float w_dh = sig_h * tr.gain * ap_h * TP;
+                        val = thr * w_dh * wg_h;
+                        yb = (tr_h - t_start) / t_window * n_time_f - 0.5f;
+                        events += val != 0.0f;
+                    }
+                }
+                // [k1 stage: splat]
+                flag_splat(w_row, w_mask, w_vals, cfg.n_time, val, yb, j);
+                // [k1 stage: hit]
+            }
+            // [k1 stage: bounce]  the diffuse bounce (draws d0 + 1 + 3
+            // n_tx, + 2; none after the last depth, from an absorbing hit
+            // or on a transmitter)
+            if (slot >= 0 && depth < cfg.max_depth - 1 && rb > 0.0f
+                && txc < 0.0f) {
+                float u2[3];
+                epw_draws3(cfg, uniforms, lane, d0 + 1 + 3 * n_tx, u2);
+                float u8 = u2[0], u9 = u2[1];
+                float face = -(dx * nx + dy * ny + dz * nz);
+                float sgn = sgn_ge(face);
+                float fx = nx * sgn, fy = ny * sgn, fz = nz * sgn;
+                float sign = sgn_ge(fz);
+                float a2 = -1.0f / (sign + fz);
+                float b2 = fx * fy * a2;
+                float s1x = 1.0f + sign * fx * fx * a2, s1y = sign * b2,
+                      s1z = -sign * fx;
+                float s2x = b2, s2y = sign + fy * fy * a2, s2z = -fy;
+                float rr2 = sqrtf(u8);
+                float ph2 = TP * u9;
+                float bx = rr2 * fast_cos(ph2), by = rr2 * fast_sin(ph2);
+                float bz = sqrtf(fmaxf(1.0f - u8, 0.0f));
+                dx = s1x * bx + s2x * by + fx * bz;
+                dy = s1y * bx + s2y * by + fy * bz;
+                dz = s1z * bx + s2z * by + fz * bz;
+                thr = thr * rb;
+                ox = hx + F(1e-4) * fx;
+                oy = hy + F(1e-4) * fy;
+                oz = hz + F(1e-4) * fz;
+                depth = depth + 1;
+                live = true;
+            }
+        }
+
+        // [k1 stage: trace]  the closest rectangle of the turn's rays
+        bool hit = false;
+        if (live) {
+            float tb = F(3.4e38);
+            int pw = -1;
+            for (int r = 0; r < n_rect; ++r) {
+                // [k1 stage: closest]
+                float t_p;
+                bool hit_p = rect_hit4(s_rec + FLAG_REC * r, ox, oy, oz, dx,
+                                       dy, dz, &t_p);
+                if (hit_p && t_p > F(1e-4) && t_p < tb) {
+                    tb = t_p;
+                    pw = r;
+                }
+            }
+            // [k1 stage: trace]
+            hit = tb < F(3.4e37);
+            if (hit) {
+                const unsigned long long ln = (unsigned long long)lane;
+                sl4[0] = make_float4(ox, oy, oz, thr);
+                sl4[1] = make_float4(dx, dy, dz, plen);
+                sl4[2] = make_float4(t_rx0, tb, __int_as_float(pw),
+                                     __int_as_float(depth));
+                sl4[3] = make_float4(__uint_as_float((unsigned)ln),
+                                     __uint_as_float((unsigned)(ln >> 32)),
+                                     0.0f, 0.0f);
+            }
+        }
+        // [k1 stage: sched]  the waiting set: the turn's slots leave it,
+        // those whose ray hit join it
+        const bool lo = slot >= 0 && slot < 32, hi = slot >= 32;
+        const unsigned bit = 1u << (slot & 31);
+        sh_lo = (sh_lo & ~__reduce_or_sync(FULL_MASK, lo ? bit : 0u))
+                | __reduce_or_sync(FULL_MASK, lo && hit ? bit : 0u);
+        sh_hi = (sh_hi & ~__reduce_or_sync(FULL_MASK, hi ? bit : 0u))
+                | __reduce_or_sync(FULL_MASK, hi && hit ? bit : 0u);
+    }
+    // [k1 stage: end]
+    __syncthreads();
+
+    // the block's row: its warps' rows summed in warp order; its events
+    partial += pulse * gridDim.x * (long long)cfg.n_time;
+    part_ev += pulse * gridDim.x;
+    for (int b = tid; b < cfg.n_time; b += T) {
+        double s = 0.0;
+        for (int w = 0; w < T / 32; ++w)
+            s += reinterpret_cast<const double*>(
+                s_warps + w * wbytes + flag_row_offset())[b];
+        partial[(long long)blockIdx.x * cfg.n_time + b] = s;
+    }
+    __syncthreads();
+    unsigned long long ev = events;
+    for (int off = 16; off > 0; off >>= 1)
+        ev += __shfl_down_sync(FULL_MASK, ev, off);
+    unsigned long long* s_ev = reinterpret_cast<unsigned long long*>(fsm);
+    if (j == 0) s_ev[tid >> 5] = ev;
+    __syncthreads();
+    if (tid == 0) {
+        unsigned long long tot = 0;
+        for (int w = 0; w < T / 32; ++w) tot += s_ev[w];
+        part_ev[blockIdx.x] = tot;
+    }
+}
+
 // The Doppler family (power or coherent) runs 128-thread blocks held to
 // 128 registers, four blocks an SM: unbounded, the receive types took the
 // Doppler mesh instantiation to 135 registers, three blocks an SM, and
@@ -3828,6 +4699,709 @@ receive_coherent_kernel(const float* __restrict__ params,
             // [k1 stage: splat]
             coh_splat_rows(w_row, w_vals, cfg.n_time, ci, si, yb, j);
         }
+    }
+    // [k1 stage: end]
+    __syncthreads();
+
+    // the block's grid: its warps' rows summed in warp order, or its
+    // float grid (mode 2 added to `partial` already); its events
+    partial += pulse * gridDim.x * n_vals;
+    part_ev += pulse * gridDim.x;
+    if (rows) {
+        for (int v = tid; v < n_vals; v += T) {
+            double s = 0.0;
+            for (int w = 0; w < T / 32; ++w)
+                s += reinterpret_cast<const double*>(
+                    s_warps + w * wbytes + coh_row_offset())[v];
+            partial[(long long)blockIdx.x * n_vals + v] = s;
+        }
+    } else if (cfg.mode == 1) {
+        for (long long v = tid; v < n_vals; v += T)
+            partial[(long long)blockIdx.x * n_vals + v] = (double)s_grid[v];
+    }
+    __syncthreads();
+    unsigned long long ev = events;
+    for (int off = 16; off > 0; off >>= 1)
+        ev += __shfl_down_sync(FULL_MASK, ev, off);
+    unsigned long long* s_ev = reinterpret_cast<unsigned long long*>(csm);
+    if (j == 0) s_ev[tid >> 5] = ev;
+    __syncthreads();
+    if (tid == 0) {
+        unsigned long long tot = 0;
+        for (int w = 0; w < T / 32; ++w) tot += s_ev[w];
+        part_ev[blockIdx.x] = tot;
+    }
+}
+
+// ---- the coherent endpoint kernel: the coherent kernel's turns ----------
+//
+// The coherent endpoint twin on analytic scenes (receive_doppler_kernel<
+// false, true, false, true> before) runs the coherent kernel's turns, warp
+// rows and draws, with the power endpoint kernel's transmitter loop: its
+// lane is trace_lane's coherent endpoint path, operation by operation
+// (the receive frequency by receive type, the Wigner, omni or analog
+// phased receiver's ray, the Doppler factors, the mirror chains and GGX
+// lobes, the echo phase of each connection with its transmitter's
+// waveform).  A SHADE turn runs every transmitter in row order over all 32
+// threads: the direct hit of the one a path is on, or its NEE (three draws
+// taken where it starts, the kind's aperture weight through the footprint
+// index, its own list of shadowing rectangles), each connection's I and Q
+// splatting in turn: in the warp's row (coh_splat_rows, bit-identical
+// repeats) on a 1-D grid of at most COH_ROW_VALS values, else the block's
+// or the global grid.  The bounce's draws are d0 + 1 + 3 n_tx, + 2.
+
+// Blocks an SM the coherent endpoint kernel is held to: six (80 registers,
+// ~330 B spilled) ran 0.95 of four (128), five 0.96, three 1.13 (PERF.md)
+constexpr int EPC_MIN_BLOCKS = 6;
+
+// Draws first .. first + 2 of a lane (an NEE's three, or the bounce's
+// two and the next), from the one or two blocks that hold them, or the
+// injected pulse's `u`.
+__device__ __forceinline__ void epc_draws3(const Cfg& cfg, const float* u,
+                                           unsigned long long key,
+                                           long long lane, int first,
+                                           float* out) {
+    if (!cfg.use_prng) {
+#pragma unroll
+        for (int k = 0; k < 3; ++k)
+            out[k] = u[(long long)(first + k) * cfg.n_lanes + lane];
+        return;
+    }
+    const int o = first & 3;
+    const uint4 a = coh_block(key, lane, first >> 2);
+    uint4 b = a;
+    if (o > 1) b = coh_block(key, lane, (first >> 2) + 1);
+    const uint32_t w[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+#pragma unroll
+    for (int k = 0; k < 3; ++k)
+        out[k] = flag_unit(o == 0 ? w[k] : o == 1 ? w[k + 1]
+                           : o == 2 ? w[k + 2] : w[k + 3]);
+}
+
+__global__ void __launch_bounds__(COH_THREADS, EPC_MIN_BLOCKS)
+receive_endpoint_coherent_kernel(const float* __restrict__ params,
+                        const float* __restrict__ prim,
+                        const float* __restrict__ txp,
+                        const float* __restrict__ msh,
+                        const float* __restrict__ uniforms, bvh::Tables mesh,
+                        float* __restrict__ lane_val,
+                        double* __restrict__ partial,
+                        unsigned long long* __restrict__ part_ev, Cfg cfg) {
+    extern __shared__ float4 csm[];
+    const int T = blockDim.x, tid = threadIdx.x, j = tid & 31;
+    const long long pulse = blockIdx.y;
+    const int np = cfg.n_prims, n_tx = cfg.n_tx;
+    params += pulse * cfg.n_params;
+    prim += pulse * np * PRIM_COLS;
+    txp += pulse * n_tx * TXP_COLS;
+    float4* s_rec = csm;
+    float4* s_blk = s_rec + COH_REC * np;    // transmitter t's at t np
+    float* s_par = reinterpret_cast<float*>(s_blk + 3 * n_tx * np);
+    float* s_tx = s_par + cfg.n_params;      // rows, normals in 29-31
+    float* s_rxc = s_tx + MAX_TX * TXP_COLS; // the receiver's frame
+    int* s_cnt = reinterpret_cast<int*>(s_rxc + COH_RXC);
+    float* s_epx = reinterpret_cast<float*>(
+        reinterpret_cast<char*>(csm)
+        + ep_index_offset(np, cfg.n_params, n_tx, COH_REC, COH_RXC));
+    const bool rows = coh_rows(cfg.n_time, cfg.n_freq, cfg.mode);
+    char* s_warps = reinterpret_cast<char*>(csm)
+                    + ep_table_bytes(np, cfg.n_params, n_tx, cfg.n_pairs,
+                                     cfg.n_rx_pairs, COH_REC, COH_RXC);
+    const int wbytes = coh_warp_bytes(cfg.n_time, rows);
+    float* w_slots = reinterpret_cast<float*>(s_warps + (tid >> 5) * wbytes);
+    int* w_take = reinterpret_cast<int*>(w_slots + COH_POOL * COH_SLOT);
+    float* w_vals = reinterpret_cast<float*>(w_take + 32);
+    double* w_row = reinterpret_cast<double*>(
+        reinterpret_cast<char*>(w_slots) + coh_row_offset());
+    // the values of a pulse's grid: I and Q of each cell
+    const long long n_vals = 2LL * cfg.n_time * cfg.n_freq;
+    // mode 1 without warp rows: the block's float grid after the warps'
+    float* s_grid = reinterpret_cast<float*>(s_warps + (T / 32) * wbytes);
+
+    for (int i = tid; i < cfg.n_params; i += T) s_par[i] = params[i];
+    for (int i = tid; i < n_tx * TXP_COLS; i += T) s_tx[i] = txp[i];
+    if (rows) {
+        for (int i = j; i < 2 * cfg.n_time; i += 32) w_row[i] = 0.0;
+    } else if (cfg.mode == 1) {
+        for (long long i = tid; i < n_vals; i += T) s_grid[i] = 0.0f;
+    }
+    if (tid == 0) {
+        // the rectangles in prim order, and those that can shadow an NEE
+        // to transmitter t (all but its own, t in column 14)
+        int nr = 0;
+        int nb[MAX_TX] = {0, 0, 0, 0};
+        for (int p = 0; p < np; ++p) {
+            const float* row = prim + p * PRIM_COLS;
+            if ((int)row[0] != RECTANGLE) continue;
+            const float* q = row + 1;
+            float rnorm = rsqrtf(fmaxf(q[8] * q[8] + q[9] * q[9]
+                                       + q[10] * q[10], F(1e-20)));
+            float4* r = s_rec + COH_REC * nr++;
+            r[0] = make_float4(q[0], q[1], q[2], q[3]);
+            r[1] = make_float4(q[4], q[5], q[6], q[7]);
+            r[2] = make_float4(q[8], q[9], q[10], q[11]);
+            r[3] = make_float4(q[8] * rnorm, q[9] * rnorm, q[10] * rnorm,
+                               row[13]);
+            r[4] = make_float4(row[14], row[18], row[15], row[16]);
+            r[5] = make_float4(row[17], row[19], row[20], row[21]);
+            for (int t = 0; t < n_tx; ++t) {
+                if (row[14] == (float)t) continue;
+                float4* b = s_blk + 3 * (t * np + nb[t]++);
+                b[0] = r[0];
+                b[1] = r[1];
+                b[2] = r[2];
+            }
+        }
+        s_cnt[0] = nr;
+        for (int t = 0; t < MAX_TX; ++t) s_cnt[1 + t] = nb[t];
+    }
+    __syncthreads();
+    // each transmitter row's unit normal (trace_block's)
+    for (int t = tid; t < n_tx; t += T) {
+        float* r = s_tx + t * TXP_COLS;
+        float tnn = rsqrtf(fmaxf(r[2] * r[2] + r[6] * r[6] + r[10] * r[10],
+                                 F(1e-20)));
+        r[29] = r[2] * tnn;
+        r[30] = r[6] * tnn;
+        r[31] = r[10] * tnn;
+    }
+    if (tid == 0) {
+        // the receiver's frame, trace_lane's expressions
+        const float* rxm = s_par + 2;
+        float nzx = rxm[2], nzy = rxm[6], nzz = rxm[10];
+        float nn = rsqrtf(nzx * nzx + nzy * nzy + nzz * nzz);
+        nzx = nzx * nn;
+        nzy = nzy * nn;
+        nzz = nzz * nn;
+        float sign = sgn_ge(nzz);
+        float a = -1.0f / (sign + nzz);
+        float b = nzx * nzy * a;
+        float* rc = s_rxc;
+        rc[0] = nzx;
+        rc[1] = nzy;
+        rc[2] = nzz;
+        rc[3] = 4.0f * s_par[14] * s_par[15];                 // area
+        rc[8] = 1.0f + sign * nzx * nzx * a;                  // s1
+        rc[9] = sign * b;
+        rc[10] = -sign * nzx;
+        rc[11] = b;                                           // s2
+        rc[12] = sign + nzy * nzy * a;
+        rc[13] = -nzy;
+        // the lobe mixture of a receive frequency every lane shares (raw
+        // receive on a 1-D grid; mix_resample and the LO's raw_resample
+        // under gate sampling, read at mid-window): RAY's expressions
+        float t_mid = 0.0f + (cfg.gate ? 0.5f * cfg.t_window : 0.0f);
+        float f_rx = cfg.rule == RX_MIX ? Wave{s_tx + 16, s_tx + 28}
+                                              .inst_freq(t_mid)
+                     : cfg.rule == RX_RAW_LO
+                         ? Wave{s_par + 33, s_par + 41}.inst_freq(t_mid)
+                         : cfg.f_rx;
+        float lam0 = s_par[1] / fmaxf(f_rx, F(1e-6));
+        float w_mn = fminf(s_par[14], s_par[15]);
+        float q = 2.0f * w_mn / (F(0.6) * lam0);
+        float k_l = fmaxf(2.0f * (q * q) - 2.0f, 0.0f);
+        rc[4] = k_l;
+        rc[5] = k_l + 1.0f;
+        rc[6] = 0.5f * (k_l + 1.0f) * F(1.0 / 6.283185307179586);
+        rc[7] = lam0;
+    }
+    __syncthreads();
+    epx_build(cfg, s_par, s_tx, s_epx, tid, T);
+    const Epx ix(cfg, s_epx);
+
+    const float TP = F(6.283185307179586);
+    const float* sp = s_par;
+    const float cvel = sp[1];
+    const int n_rect = s_cnt[0];
+    // the pulse's uniforms, Philox key and lane sums, held a block
+    const float* u_p = uniforms == nullptr ? nullptr
+                                           : uniforms + pulse * cfg.u_stride;
+    const unsigned long long key = cfg.seed + cfg.seed_step * pulse;
+    float* lv_p = lane_val == nullptr ? nullptr : lane_val + pulse * cfg.n_lanes;
+    // trace_lane's r0: a frequency or beat draw comes before the ray's
+    const int r0 = (cfg.rule == RX_MIXER
+                    || (cfg.rule == 0 && cfg.n_freq > 1)) ? 2 : 1;
+    const int base = r0 + (cfg.omni ? 2 : 4);
+    // every lane's receive frequency is the block's (s_rxc[4:8])
+    const bool f_call = r0 == 1 && (cfg.gate || cfg.rule == 0);
+    Grid grid;
+    grid.s = cfg.mode == 1 ? s_grid : nullptr;
+    grid.g = partial + (cfg.mode == 2 ? pulse * n_vals : 0);
+    const Wave lo{s_par + 33, s_par + 41};
+    unsigned int events = 0;
+    const long long stride = (long long)gridDim.x * T;
+    long long next = (long long)blockIdx.x * T + (tid & ~31);
+    const unsigned lt = (1u << j) - 1u;
+    // the slots whose paths wait for SHADE, the same in every thread (bit
+    // s of the pair: slot s); the others are free
+    unsigned sh_lo = 0u, sh_hi = 0u;
+    for (;;) {
+        // [k1 stage: sched]  the turn: SHADE when 32 paths wait for it,
+        // else RAY for the warp's next lanes, else the rest of SHADE,
+        // else done
+        __syncwarp();
+        const int n_sh = __popc(sh_lo) + __popc(sh_hi);
+        const int n_new = next < cfg.n_lanes
+                              ? (int)min(32LL, cfg.n_lanes - next) : 0;
+        const bool shade = n_sh >= 32 || (n_new == 0 && n_sh > 0);
+        if (!shade && n_new == 0) break;
+        const unsigned m0 = shade ? sh_lo : ~sh_lo;
+        const unsigned m1 = shade ? sh_hi : ~sh_hi;
+        if ((m0 >> j) & 1u) w_take[__popc(m0 & lt)] = j;
+        const int rk1 = __popc(m0) + __popc(m1 & lt);
+        if (((m1 >> j) & 1u) && rk1 < 32) w_take[rk1] = j + 32;
+        __syncwarp();
+        const int n_go = shade ? min(32, n_sh) : n_new;
+        const int slot = j < n_go ? w_take[j] : -1;
+        float4* sl4 = reinterpret_cast<float4*>(
+            w_slots + COH_SLOT * (slot < 0 ? 0 : slot));
+        long long lane = next + j;
+        int depth = 0;
+        bool wdel = false;
+        float dop = 1.0f, lsum = 0.0f;
+        if (shade && slot >= 0) {
+            const float4 e = sl4[3];
+            lane = (long long)(((unsigned long long)__float_as_uint(e.y)
+                                << 32)
+                               | __float_as_uint(e.x));
+            dop = e.z;
+            lsum = e.w;
+            const int dw = __float_as_int(sl4[2].w);
+            depth = dw & 0xffff;
+            wdel = (dw >> 16) != 0;
+        }
+        const int d0 = base + (3 + 3 * n_tx) * depth;
+        float ud[6];
+        // [k1 stage: draws]  RAY's six (SHADE's where they are used)
+        if (slot >= 0 && !shade) coh_ray_draws(cfg, u_p, key, lane, ud);
+        // [k1 stage: sched]
+
+        bool live = false;
+        float ox = 0.0f, oy = 0.0f, oz = 0.0f, dx = 0.0f, dy = 0.0f,
+              dz = 0.0f, thr = 0.0f, plen = 0.0f, t_rx0 = 0.0f;
+        // SHADE: the contribution's I, Q and time coordinate, and its
+        // frequency and receive time (the frequency bin of a 2-D grid)
+        float ci = 0.0f, si = 0.0f, yb = 0.0f, f_recv = 0.0f, t_recv = 0.0f;
+        if (!shade) {
+            if (slot >= 0) {
+                // [k1 stage: ray]  trace_lane's receive frequency and ray
+                const float* rxm = sp + 2;
+                const float rx_wx = sp[14], rx_wy = sp[15];
+                t_rx0 = cfg.gate ? 0.0f : cfg.t_start + ud[0] * cfg.t_window;
+                float f_rx = cfg.f_rx;
+                {
+                    float t_mid = t_rx0 + (cfg.gate ? 0.5f * cfg.t_window
+                                                    : 0.0f);
+                    if (cfg.rule == RX_MIX) {
+                        f_rx = Wave{s_tx + 16, s_tx + 28}.inst_freq(t_mid);
+                    } else if (cfg.rule == RX_RAW_LO) {
+                        f_rx = lo.inst_freq(t_mid);
+                    } else if (cfg.rule == RX_MIXER) {
+                        f_rx = lo.inst_freq(t_mid)
+                               - (cfg.f_lo + ud[1] * cfg.f_span);
+                    } else if (cfg.n_freq > 1) {
+                        f_rx = cfg.f_lo + ud[1] * cfg.f_span;
+                    }
+                }
+                if (cfg.rx_phased) {
+                    // the analog phased array (trace_lane's): a point on
+                    // its bounding rectangle, the cosine hemisphere, its
+                    // cross-WDF through the footprint index
+                    float u1 = ud[r0], u2 = ud[r0 + 1];
+                    float iwx = 1.0f / fmaxf(rx_wx, F(1e-20));
+                    float iwy = 1.0f / fmaxf(rx_wy, F(1e-20));
+                    float snx = rxm[0] * iwx, sny = rxm[4] * iwx,
+                          snz = rxm[8] * iwx;
+                    float tnx = rxm[1] * iwy, tny = rxm[5] * iwy,
+                          tnz = rxm[9] * iwy;
+                    float lxr = (2.0f * u1 - 1.0f) * sp[30];
+                    float lyr = (2.0f * u2 - 1.0f) * sp[31];
+                    ox = rxm[3] + lxr * snx + lyr * tnx;
+                    oy = rxm[7] + lxr * sny + lyr * tny;
+                    oz = rxm[11] + lxr * snz + lyr * tnz;
+                    const float* rc = s_rxc;
+                    const float nzx = rc[0], nzy = rc[1], nzz = rc[2];
+                    float u3 = ud[r0 + 2], u4 = ud[r0 + 3];
+                    float rr = sqrtf(u3);
+                    float ph = TP * u4;
+                    float tx_ = rr * fast_cos(ph), ty_ = rr * fast_sin(ph);
+                    float tz = sqrtf(fmaxf(1.0f - u3, 0.0f));
+                    dx = rc[8] * tx_ + rc[11] * ty_ + nzx * tz;
+                    dy = rc[9] * tx_ + rc[12] * ty_ + nzy * tz;
+                    dz = rc[10] * tx_ + rc[13] * ty_ + nzz * tz;
+                    float lam = cvel / fmaxf(f_rx, F(1e-6));
+                    float w0 = F(4.0 * 3.141592653589793) * sp[30] * sp[31]
+                               * sp[32];
+                    ox = ox + F(1e-4) * nzx;
+                    oy = oy + F(1e-4) * nzy;
+                    oz = oz + F(1e-4) * nzz;
+                    // [k1 stage: rx_pairs]
+                    thr = w0 * pair_sum_epx(ix, n_tx, ox, oy, oz, dx, dy, dz,
+                                            lam);
+                    // [k1 stage: ray]
+                } else if (cfg.omni) {
+                    ox = rxm[3];
+                    oy = rxm[7];
+                    oz = rxm[11];
+                    float u1 = ud[r0], u2 = ud[r0 + 1];
+                    float z = 1.0f - 2.0f * u1;
+                    float r = sqrtf(fmaxf(1.0f - z * z, 0.0f));
+                    float ph = TP * u2;
+                    dx = r * fast_cos(ph);
+                    dy = r * fast_sin(ph);
+                    dz = z;
+                    thr = F(4.0 * 3.141592653589793) * sp[32];
+                } else {
+                    float u1 = ud[r0], u2 = ud[r0 + 1];
+                    float lx = 2.0f * u1 - 1.0f, ly = 2.0f * u2 - 1.0f;
+                    ox = rxm[0] * lx + rxm[1] * ly + rxm[3];
+                    oy = rxm[4] * lx + rxm[5] * ly + rxm[7];
+                    oz = rxm[8] * lx + rxm[9] * ly + rxm[11];
+                    const float* rc = s_rxc;
+                    const float nzx = rc[0], nzy = rc[1], nzz = rc[2];
+                    float u3 = ud[r0 + 2], u4 = ud[r0 + 3];
+                    // the lobe mixture: the block's, or this lane's
+                    float lam0 = rc[7], k_l = rc[4], k_l1 = rc[5],
+                          kc = rc[6];
+                    if (!f_call) {
+                        lam0 = cvel / fmaxf(f_rx, F(1e-6));
+                        float w_mn = fminf(rx_wx, rx_wy);
+                        float q = 2.0f * w_mn / (F(0.6) * lam0);
+                        k_l = fmaxf(2.0f * (q * q) - 2.0f, 0.0f);
+                        k_l1 = k_l + 1.0f;
+                        kc = 0.5f * (k_l + 1.0f)
+                             * F(1.0 / 6.283185307179586);
+                    }
+                    bool pick = u3 >= 0.5f;
+                    float u0m = pick ? 2.0f * u3 - 1.0f : 2.0f * u3;
+                    float ph = TP * u4;
+                    float ct_c = sqrtf(fmaxf(1.0f - u0m, 0.0f));
+                    float ct_l = expf(logf(fmaxf(u0m, F(1e-12))) / k_l1);
+                    float tz = pick ? ct_l : ct_c;
+                    float st = sqrtf(fmaxf(1.0f - tz * tz, 0.0f));
+                    float tx_ = st * fast_cos(ph);
+                    float ty_ = st * fast_sin(ph);
+                    float cosk = expf(k_l * logf(fmaxf(tz, F(1e-12))));
+                    float pdf_d = 0.5f * tz * F(1.0 / 3.141592653589793)
+                                  + kc * cosk;
+                    float w0 = (tz / fmaxf(pdf_d, F(1e-30))) * rc[3] * sp[32];
+                    dx = rc[8] * tx_ + rc[11] * ty_ + nzx * tz;
+                    dy = rc[9] * tx_ + rc[12] * ty_ + nzy * tz;
+                    dz = rc[10] * tx_ + rc[13] * ty_ + nzz * tz;
+                    float lam = lam0;
+                    float nu_x = (rxm[0] * dx + rxm[4] * dy + rxm[8] * dz)
+                                 / fmaxf(rx_wx, F(1e-9)) / lam;
+                    float nu_y = (rxm[1] * dx + rxm[5] * dy + rxm[9] * dz)
+                                 / fmaxf(rx_wy, F(1e-9)) / lam;
+                    float trx = tri_f(lx * 0.5f), try_ = tri_f(ly * 0.5f);
+                    thr = w0 * (4.0f * trx * try_
+                                * sinc_f(TP * nu_x * rx_wx * trx)
+                                * sinc_f(TP * nu_y * rx_wy * try_));
+                    ox = ox + F(1e-4) * nzx;
+                    oy = oy + F(1e-4) * nzy;
+                    oz = oz + F(1e-4) * nzz;
+                }
+                // cumulative Doppler factor, the receiver's motion first
+                dop = 1.0f + (dx * sp[23] + dy * sp[24] + dz * sp[25]) / cvel;
+                live = true;
+            }
+            next += stride;
+        } else {
+            // [k1 stage: hit]  the path from its slot (slot >= 0), the hit
+            // point and the hit rectangle's lobe; every thread of the warp
+            // runs SHADE's transmitter loop, whose splats it shares
+            const bool on = slot >= 0;
+            const float4 a = sl4[0], b = sl4[1], c = sl4[2];
+            const float cx = a.x, cy = a.y, cz = a.z;
+            thr = a.w;
+            dx = b.x;
+            dy = b.y;
+            dz = b.z;
+            t_rx0 = c.x;
+            const float tb = c.y;
+            const float4* rec = s_rec + COH_REC * (on ? __float_as_int(c.z)
+                                                      : 0);
+            const float4 nrb = rec[3], lob = rec[4], kv = rec[5];
+            const float nx = nrb.x, ny = nrb.y, nz = nrb.z, rb = nrb.w;
+            // off a slot, no transmitter's index and no NEE
+            const float txc = on ? lob.x : -2.0f;
+            const float kb = lob.y, ab = lob.z, eb = lob.w;
+            const float kk = kv.x, vbx = kv.y, vby = kv.z, vbz = kv.w;
+            const float n_time_f = (float)cfg.n_time;
+            const float t_start = cfg.t_start, t_window = cfg.t_window;
+            plen = b.w + tb;
+            float hx = cx + tb * dx, hy = cy + tb * dy, hz = cz + tb * dz;
+            const bool is_ggx = kb == ROUGH_CONDUCTOR;
+            const bool is_m = cfg.mirror && kb == CONDUCTOR;
+            // each transmitter in row order: the direct hit of the one the
+            // path is on (at depth 0 and after a mirror bounce), or the NEE
+            // from a hit off them (none from a mirror); each connection's
+            // I and Q splat in turn
+            for (int t = 0; t < n_tx; ++t) {
+                const Tx tr = tx_row(s_tx + t * TXP_COLS);
+                const float* m = tr.m;
+                bool conn = false;
+                float val = 0.0f, dtot = 0.0f, t_emit = 0.0f, k_c = 0.0f;
+                int n_bnd = 0;
+                ci = 0.0f;
+                si = 0.0f;
+                // [k1 stage: direct]
+                if ((depth == 0 || wdel) && txc == (float)t) {
+                    float cos_dh = -(dx * tr.nx + dy * tr.ny + dz * tr.nz);
+                    if (cos_dh > 0.0f) {
+                        float te_h, tr_h, wg_h, k_h = 0.0f;
+                        tr.emission(plen / cvel,
+                                    coh_draw1(cfg, u_p, key, lane, d0),
+                                    t_rx0, cfg.gate, t_start, t_window,
+                                    &te_h, &tr_h, &wg_h, &k_h);
+                        float fe_h = tr.inst_freq(te_h);
+                        float sig_h = tr.eval_wdf(te_h, fe_h);
+                        float lam_h = cvel / fmaxf(fe_h, F(1e-6));
+                        float lxh = ((hx - m[3]) * m[0] + (hy - m[7]) * m[4]
+                                     + (hz - m[11]) * m[8])
+                                    / fmaxf(tr.wx * tr.wx, F(1e-12));
+                        float lyh = ((hx - m[3]) * m[1] + (hy - m[7]) * m[5]
+                                     + (hz - m[11]) * m[9])
+                                    / fmaxf(tr.wy * tr.wy, F(1e-12));
+                        float ap_h = tx_gain_epx(tr, t, ix, lxh, lyh, hx, hy,
+                                                 hz, dx, dy, dz, lam_h);
+                        float w_dh = sig_h * tr.gain * ap_h * TP;
+                        val = thr * w_dh * wg_h;
+                        yb = (tr_h - t_start) / t_window * n_time_f - 0.5f;
+                        f_recv = fe_h * dop;
+                        t_recv = tr_h;
+                        dtot = plen;
+                        t_emit = te_h;
+                        k_c = k_h;
+                        conn = true;
+                    }
+                }
+                // [k1 stage: nee]
+                if (on && txc < 0.0f && !is_m) {
+                    float u3[3];
+                    epc_draws3(cfg, u_p, key, lane, d0 + 1 + 3 * t, u3);
+                    float glx = 2.0f * u3[0] - 1.0f;
+                    float gly = 2.0f * u3[1] - 1.0f;
+                    float qx = m[0] * glx + m[1] * gly + m[3];
+                    float qy = m[4] * glx + m[5] * gly + m[7];
+                    float qz = m[8] * glx + m[9] * gly + m[11];
+                    float vx = qx - hx, vy = qy - hy, vz = qz - hz;
+                    float dist2 = vx * vx + vy * vy + vz * vz;
+                    float dist = sqrtf(fmaxf(dist2, F(1e-20)));
+                    float inv_d = 1.0f / dist;
+                    float wx_ = vx * inv_d, wy_ = vy * inv_d,
+                          wz_ = vz * inv_d;
+                    float cos_tx = -(wx_ * tr.nx + wy_ * tr.ny
+                                     + wz_ * tr.nz);
+                    if (cos_tx > F(1e-6)) {
+                        float pdf_sa = (1.0f / fmaxf(tr.area, F(1e-12)))
+                                       * dist2 / fmaxf(cos_tx, F(1e-6));
+                        float cos_s = wx_ * nx + wy_ * ny + wz_ * nz;
+                        float f_cos;
+                        if (is_ggx) {
+                            f_cos = ggx_fcos(rb, ab, eb, kk, nx, ny, nz, -dx,
+                                             -dy, -dz, wx_, wy_, wz_);
+                        } else {
+                            float sg = sgn_ge(-dx * nx + -dy * ny
+                                              + -dz * nz);
+                            float co = wx_ * (nx * sg) + wy_ * (ny * sg)
+                                       + wz_ * (nz * sg);
+                            f_cos = rb * F(1.0 / 3.141592653589793)
+                                    * fmaxf(co, 0.0f);
+                        }
+                        float te_n, tr_n, w_gate, k_nee = 0.0f;
+                        tr.emission((plen + dist) / cvel, u3[2], t_rx0,
+                                    cfg.gate, t_start, t_window, &te_n,
+                                    &tr_n, &w_gate, &k_nee);
+                        float f_emit = tr.inst_freq(te_n);
+                        float sig = tr.eval_wdf(te_n, f_emit);
+                        // [k1 stage: nee_pairs]
+                        float ap = tx_gain_epx(tr, t, ix, glx, gly, qx, qy,
+                                               qz, wx_, wy_, wz_,
+                                               cvel / fmaxf(f_emit,
+                                                            F(1e-6)));
+                        // [k1 stage: nee]
+                        float w_tx = sig * tr.gain * ap * TP;
+                        float off = F(1e-4) * sign0(cos_s);
+                        float sx = hx + off * nx, sy = hy + off * ny,
+                              sz = hz + off * nz;
+                        float limit = dist * F(0.999);
+                        // [k1 stage: shadow]
+                        bool occ = false;
+                        const float4* blk = s_blk + 3 * t * np;
+                        for (int r = 0; r < s_cnt[1 + t] && !occ; ++r) {
+                            float t_p;
+                            bool hit_p = rect_hit4(blk + 3 * r, sx, sy, sz,
+                                                   wx_, wy_, wz_, &t_p);
+                            occ = hit_p && t_p > F(1e-4) && t_p < limit;
+                        }
+                        // [k1 stage: nee]
+                        if (!occ && pdf_sa > 0.0f) {
+                            val = thr * f_cos * w_tx * w_gate
+                                  / fmaxf(pdf_sa, F(1e-30));
+                            yb = (tr_n - t_start) / t_window * n_time_f
+                                 - 0.5f;
+                            // connection Doppler: the vertex's bounce and
+                            // the transmitter's motion; the phase adds the
+                            // boundary phase of depth + 1 vertices
+                            float dop_vtx = 1.0f + ((wx_ - dx) * vbx
+                                                    + (wy_ - dy) * vby
+                                                    + (wz_ - dz) * vbz)
+                                                   / cvel;
+                            float dop_tx = 1.0f - (wx_ * tr.vx + wy_ * tr.vy
+                                                   + wz_ * tr.vz) / cvel;
+                            f_recv = f_emit * dop * dop_vtx * dop_tx;
+                            t_recv = tr_n;
+                            dtot = plen + dist;
+                            t_emit = te_n;
+                            k_c = k_nee;
+                            n_bnd = depth + 1;
+                            conn = true;
+                        }
+                    }
+                }
+                if (conn) {
+                    // [k1 stage: phase]  the echo phase, I and Q
+                    // (conn_splat)
+                    float ph = echo_phase(tr.w, lo, cfg, sp, dtot, t_emit,
+                                          t_recv, k_c);
+                    if (n_bnd > 0)
+                        ph = add_rn(ph, mul_rn((float)n_bnd, sp[16]));
+                    float amp = sqrtf(fmaxf(val, 0.0f));
+                    ci = amp * fast_cos(ph);
+                    si = amp * fast_sin(ph);
+                    lsum += amp;
+                    events += val != 0.0f;
+                    if (!rows) {
+                        // [k1 stage: splat]
+                        const Wave txw = tr.w;
+                        grid_splat<true>(grid, cfg, ci, si, yb, [&] {
+                            return bin_freq(cfg, txw, lo, f_recv, t_recv);
+                        });
+                    }
+                }
+                if (rows) {
+                    // [k1 stage: splat]
+                    coh_splat_rows(w_row, w_vals, cfg.n_time, ci, si, yb, j);
+                }
+                // [k1 stage: hit]
+            }
+
+            // [k1 stage: bounce]  a diffuse cosine, a GGX half vector or a
+            // mirror about the flipped normal (none after the last depth,
+            // on the transmitter, or from an absorbing hit)
+            if (on && depth < cfg.max_depth - 1 && txc < 0.0f
+                && (is_ggx || is_m || rb > 0.0f)) {
+                // draws d0 + 1 + 3 n_tx, + 2
+                float u3[3];
+                epc_draws3(cfg, u_p, key, lane, d0 + 1 + 3 * n_tx, u3);
+                float u8 = u3[0], u9 = u3[1];
+                float face = -(dx * nx + dy * ny + dz * nz);
+                float sgn = sgn_ge(face);
+                float fx = nx * sgn, fy = ny * sgn, fz = nz * sgn;
+                float sign = sgn_ge(fz);
+                float a2 = -1.0f / (sign + fz);
+                float b2 = fx * fy * a2;
+                float s1x = 1.0f + sign * fx * fx * a2, s1y = sign * b2,
+                      s1z = -sign * fx;
+                float s2x = b2, s2y = sign + fy * fy * a2, s2z = -fy;
+                float ph2 = TP * u9;
+                float ndx, ndy, ndz, w_b;
+                bool go = true;
+                if (is_m) {
+                    float dn = dx * fx + dy * fy + dz * fz;
+                    ndx = dx - 2.0f * dn * fx;
+                    ndy = dy - 2.0f * dn * fy;
+                    ndz = dz - 2.0f * dn * fz;
+                    w_b = rb * fres_cond(fabsf(dn), eb, kk);
+                    go = w_b > 0.0f;
+                } else if (is_ggx) {
+                    float ag2 = ab * ab;
+                    float tan2 = ag2 * u8 / fmaxf(1.0f - u8, F(1e-12));
+                    float cth = rsqrtf(1.0f + tan2);
+                    float sth = sqrtf(fmaxf(1.0f - cth * cth, 0.0f));
+                    float hlx = sth * fast_cos(ph2),
+                          hly = sth * fast_sin(ph2);
+                    float hwx = s1x * hlx + s2x * hly + fx * cth;
+                    float hwy = s1y * hlx + s2y * hly + fy * cth;
+                    float hwz = s1z * hlx + s2z * hly + fz * cth;
+                    float ci_b = fabsf(face);
+                    float idoth = -dx * hwx + -dy * hwy + -dz * hwz;
+                    ndx = 2.0f * idoth * hwx + dx;
+                    ndy = 2.0f * idoth * hwy + dy;
+                    ndz = 2.0f * idoth * hwz + dz;
+                    float co_g = ndx * fx + ndy * fy + ndz * fz;
+                    float f_b = fres_cond(fabsf(idoth), eb, kk);
+                    float g_b = g1(ci_b, ag2) * g1(fabsf(co_g), ag2);
+                    w_b = rb * f_b * g_b * idoth / fmaxf(ci_b * cth, F(1e-8));
+                    go = co_g > 0.0f && idoth > 0.0f && w_b > 0.0f;
+                } else {
+                    float rr2 = sqrtf(u8);
+                    float bx = rr2 * fast_cos(ph2), by = rr2 * fast_sin(ph2);
+                    float bz = sqrtf(fmaxf(1.0f - u8, 0.0f));
+                    ndx = s1x * bx + s2x * by + fx * bz;
+                    ndy = s1y * bx + s2y * by + fy * bz;
+                    ndz = s1z * bx + s2z * by + fz * bz;
+                    w_b = rb;
+                }
+                if (go) {
+                    wdel = is_m;
+                    // bounce Doppler of the continued path
+                    dop = dop * (1.0f + ((ndx - dx) * vbx + (ndy - dy) * vby
+                                         + (ndz - dz) * vbz) / cvel);
+                    dx = ndx;
+                    dy = ndy;
+                    dz = ndz;
+                    thr = thr * w_b;
+                    ox = hx + F(1e-4) * fx;
+                    oy = hy + F(1e-4) * fy;
+                    oz = hz + F(1e-4) * fz;
+                    depth = depth + 1;
+                    live = true;
+                }
+            }
+        }
+
+        // [k1 stage: trace]  the closest rectangle of the turn's rays; a
+        // hit waits in its slot for SHADE, a miss ends the lane
+        bool hit = false;
+        if (live) {
+            float tb = F(3.4e38);
+            int pw = -1;
+            for (int r = 0; r < n_rect; ++r) {
+                // [k1 stage: closest]
+                float t_p;
+                bool hit_p = rect_hit4(s_rec + COH_REC * r, ox, oy, oz, dx,
+                                       dy, dz, &t_p);
+                if (hit_p && t_p > F(1e-4) && t_p < tb) {
+                    tb = t_p;
+                    pw = r;
+                }
+            }
+            // [k1 stage: trace]
+            hit = tb < F(3.4e37);
+            if (hit) {
+                const unsigned long long ln = (unsigned long long)lane;
+                sl4[0] = make_float4(ox, oy, oz, thr);
+                sl4[1] = make_float4(dx, dy, dz, plen);
+                sl4[2] = make_float4(t_rx0, tb, __int_as_float(pw),
+                                     __int_as_float(depth
+                                                    | (wdel ? 1 << 16 : 0)));
+                sl4[3] = make_float4(__uint_as_float((unsigned)ln),
+                                     __uint_as_float((unsigned)(ln >> 32)),
+                                     dop, lsum);
+            }
+        }
+        // the lane's sum of amplitudes, where its path ended
+        if (slot >= 0 && !hit && lv_p != nullptr) lv_p[lane] = lsum;
+        // [k1 stage: sched]  the waiting set: the turn's slots leave it,
+        // those whose ray hit join it
+        const bool lo_s = slot >= 0 && slot < 32, hi_s = slot >= 32;
+        const unsigned bit = 1u << (slot & 31);
+        sh_lo = (sh_lo & ~__reduce_or_sync(FULL_MASK, lo_s ? bit : 0u))
+                | __reduce_or_sync(FULL_MASK, lo_s && hit ? bit : 0u);
+        sh_hi = (sh_hi & ~__reduce_or_sync(FULL_MASK, hi_s ? bit : 0u))
+                | __reduce_or_sync(FULL_MASK, hi_s && hit ? bit : 0u);
     }
     // [k1 stage: end]
     __syncthreads();
@@ -4864,6 +6438,10 @@ constexpr auto kernel_of() {
         return receive_coherent_kernel;
     else if constexpr (DOP && !MESH && !MED && !EP && LOB)
         return receive_lobe_kernel<COH>;
+    else if constexpr (EP && !MESH && !MED && !LOB && !DOP)
+        return receive_endpoint_kernel;
+    else if constexpr (EP && !MESH && !MED && !LOB && DOP && COH)
+        return receive_endpoint_coherent_kernel;
     else if constexpr (DOP)
         return receive_doppler_kernel<MESH, COH, MED, EP, LOB>;
     else if constexpr (!MESH && !MED && !EP)
@@ -4899,6 +6477,44 @@ __global__ void receive_reduce_kernel(const double* __restrict__ partial,
     }
 }
 
+// The footprint index check's kernel (rk_epx_check): the index of one
+// phased transmitter built as a block of the endpoint kernels builds it.
+__global__ void epx_check_kernel(const float* __restrict__ row, int n_k,
+                                 const float* __restrict__ m, float wx,
+                                 float wy, const float* __restrict__ pts,
+                                 int n, float* __restrict__ out,
+                                 int* __restrict__ visits) {
+    extern __shared__ float smem[];
+    const int tid = threadIdx.x, T = blockDim.x;
+    float* s_tx = smem;
+    float* s_epx = smem + TXP_COLS;
+    Cfg cfg{};
+    cfg.n_tx = 1;
+    cfg.php = row;
+    cfg.php_cols = 2 + 6 * n_k;
+    cfg.n_pairs = n_k;
+    for (int i = tid; i < TXP_COLS; i += T)
+        s_tx[i] = i < 12 ? m[i] : i == 12 ? wx : i == 13 ? wy
+                  : i == 27 ? TX_PHASED : 0.0f;
+    __syncthreads();
+    epx_build(cfg, nullptr, s_tx, s_epx, tid, T);
+    const Epx ix(cfg, s_epx);
+    const float iwx = 1.0f / fmaxf(wx, F(1e-20));
+    const float iwy = 1.0f / fmaxf(wy, F(1e-20));
+    for (int i = tid; i < n; i += T) {
+        const float* q = pts + 7 * i;
+        int v = 0;
+        out[2 * i] = pair_sum_epx<true>(ix, 0, q[0], q[1], q[2], q[3], q[4],
+                                        q[5], q[6], &v);
+        out[2 * i + 1] = pair_sum(row, n_k, m[0] * iwx, m[4] * iwx,
+                                  m[8] * iwx, m[1] * iwy, m[5] * iwy,
+                                  m[9] * iwy, m[3], m[7], m[11], q[0], q[1],
+                                  q[2], q[3], q[4], q[5], q[6]);
+        visits[i] = v;
+    }
+}
+
+
 int threads_for(int n_time) {
     // per-thread histogram rows: keep them within ~96 KB per block
     int t = (96 * 1024) / (4 * n_time);
@@ -4910,7 +6526,8 @@ template <bool MESH, bool DOP, bool COH, bool MIMO, bool MED, bool EP,
           bool LOB = false>
 int geometry(int n_time, int n_freq, long long n_lanes, int n_prims,
              int n_params, int n_msh, int mode, int n_pulses, int n_elem,
-             int* blocks, int* threads, int* smem_bytes) {
+             int n_tx, int n_pairs, int n_rx_pairs, int* blocks,
+             int* threads, int* smem_bytes) {
     constexpr int TX_FLOATS = EP ? MAX_TX * TXP_COLS : TXP_COLS;
     int T, smem;
     if (MIMO) {
@@ -4922,6 +6539,23 @@ int geometry(int n_time, int n_freq, long long n_lanes, int n_prims,
         floats = (floats + 1) & ~1;
         long long vals = mode == 1 ? (long long)n_time * 2 * n_elem : 0;
         smem = (int)(4 * floats + 8 * vals);
+    } else if (EP && !MESH && !MED && !LOB && !DOP) {
+        // the power endpoint kernel: its tables and index, then each
+        // warp's paths and row
+        T = FLAG_THREADS;
+        smem = ep_table_bytes(n_prims, n_params, n_tx, n_pairs, n_rx_pairs,
+                              FLAG_REC, FLAG_RXC)
+               + (T / 32) * flag_warp_bytes(n_time);
+    } else if (EP && !MESH && !MED && !LOB && DOP && COH) {
+        // the coherent endpoint kernel: its tables and index, each warp's
+        // paths (and row), then the block's float grid where there are no
+        // warp rows (mode 1)
+        T = COH_THREADS;
+        const bool rows = coh_rows(n_time, n_freq, mode);
+        smem = ep_table_bytes(n_prims, n_params, n_tx, n_pairs, n_rx_pairs,
+                              COH_REC, COH_RXC)
+               + (T / 32) * coh_warp_bytes(n_time, rows)
+               + (mode == 1 && !rows ? 8 * n_time * n_freq : 0);
     } else if (DOP && !MESH && COH && !MED && !EP && !LOB) {
         // the coherent kernel: its tables, each warp's paths (and row), then
         // the block's float grid where there are no warp rows (mode 1)
@@ -4996,11 +6630,13 @@ int geometry(int n_time, int n_freq, long long n_lanes, int n_prims,
 template <bool MED, bool EP>
 int geometry_of(int n_time, int n_freq, long long n_lanes, int n_prims,
                 int n_params, int n_msh, int mesh, int mode, int coh,
-                int n_pulses, int n_elem, int* blocks, int* threads,
+                int n_pulses, int n_elem, int n_tx, int n_pairs,
+                int n_rx_pairs, int* blocks, int* threads,
                 int* smem_bytes) {
     auto g = [&](auto fn) {
         return fn(n_time, n_freq, n_lanes, n_prims, n_params, n_msh, mode,
-                  n_pulses, n_elem, blocks, threads, smem_bytes);
+                  n_pulses, n_elem, n_tx, n_pairs, n_rx_pairs, blocks,
+                  threads, smem_bytes);
     };
     if (n_elem > 0) {
         if (mesh || !coh || mode == 0 || n_freq != 1)
@@ -5030,7 +6666,7 @@ int geometry_lobes(int n_time, int n_freq, long long n_lanes, int n_prims,
     if (mode == 0 || n_elem > 0) return (int)cudaErrorInvalidValue;
     auto g = [&](auto fn) {
         return fn(n_time, n_freq, n_lanes, n_prims, n_params, n_msh, mode,
-                  n_pulses, n_elem, blocks, threads, smem_bytes);
+                  n_pulses, n_elem, 1, 0, 0, blocks, threads, smem_bytes);
     };
     if (coh)
         return mesh
@@ -5045,13 +6681,17 @@ int geometry_lobes(int n_time, int n_freq, long long n_lanes, int n_prims,
 extern "C" {
 
 // Launch geometry (geometry_of) of a configuration, of its media twin
-// when `medium` != 0, of its endpoint twin when `ep` != 0, of a Doppler
+// when `medium` != 0, of its endpoint twin when `ep` != 0 (n_tx
+// transmitters, n_pairs pairs a phased transmitter's row, n_rx_pairs an
+// analog phased receiver's: the endpoint kernels' index), of a Doppler
 // configuration's lobe twin when `lob` != 0 (one of the three at most).
 int rk_geometry(int n_time, int n_freq, long long n_lanes, int n_prims,
                 int n_params, int n_msh, int mesh, int mode, int coh,
                 int n_pulses, int n_elem, int medium, int ep, int lob,
-                int* blocks, int* threads, int* smem_bytes) {
-    if (n_pulses < 1 || (medium && ep) || (lob && (medium || ep)))
+                int n_tx, int n_pairs, int n_rx_pairs, int* blocks,
+                int* threads, int* smem_bytes) {
+    if (n_pulses < 1 || (medium && ep) || (lob && (medium || ep))
+        || n_tx < 1 || n_tx > MAX_TX || n_pairs < 0 || n_rx_pairs < 0)
         return (int)cudaErrorInvalidValue;
     if (lob)
         return geometry_lobes(n_time, n_freq, n_lanes, n_prims, n_params,
@@ -5061,7 +6701,8 @@ int rk_geometry(int n_time, int n_freq, long long n_lanes, int n_prims,
                    : ep ? geometry_of<false, true>
                         : geometry_of<false, false>)(
         n_time, n_freq, n_lanes, n_prims, n_params, n_msh, mesh, mode, coh,
-        n_pulses, n_elem, blocks, threads, smem_bytes);
+        n_pulses, n_elem, n_tx, n_pairs, n_rx_pairs, blocks, threads,
+        smem_bytes);
 }
 
 // Trace + reduce on `stream`, for n_pulses pulses (a CPI; 1 for one
@@ -5201,6 +6842,8 @@ int rk_launch(const float* params, const float* prim, const float* txp,
                 launch(receive_trace_kernel<true, MED, EP>, lane_val);
             else if constexpr (!MED && !EP)
                 launch(receive_flagship_kernel, nullptr);
+            else if constexpr (EP)
+                launch(receive_endpoint_kernel, nullptr);
             else
                 launch(receive_trace_kernel<false, MED, EP>, nullptr);
         }
@@ -5209,6 +6852,8 @@ int rk_launch(const float* params, const float* prim, const float* txp,
                 launch(receive_doppler_kernel<true, true, MED, EP>, lane_val);
             else if constexpr (!MED && !EP)
                 launch(receive_coherent_kernel, lane_val);
+            else if constexpr (EP)
+                launch(receive_endpoint_coherent_kernel, lane_val);
             else
                 launch(receive_doppler_kernel<false, true, MED, EP>,
                        lane_val);
@@ -5253,6 +6898,32 @@ const void* rk_last_kernel() { return last_kernel; }
 const void* rk_lobe_kernel(int coh) {
     return coh ? reinterpret_cast<const void*>(receive_lobe_kernel<true>)
                : reinterpret_cast<const void*>(receive_lobe_kernel<false>);
+}
+
+// The footprint index check: a phased transmitter of frame `m` (12 floats,
+// a to_world's rows: its axes in columns 0 and 1 over the half-widths
+// wx, wy, its centre in column 3) and pair row `row` (2 + 6 n_k floats),
+// at n points (px, py, pz, dex, dey, dez, lam: 7 floats each): into
+// out[2 i] the indexed sum, out[2 i + 1] pair_sum's full loop over `row`,
+// visits[i] the pairs the index tested.  One block of 32 threads; the
+// pointers are the device's (host memory in the CPU emulation).
+int rk_epx_check(const float* row, int n_k, const float* m, float wx,
+                 float wy, const float* pts, int n, float* out, int* visits,
+                 void* stream) {
+    if (n_k < 1 || n_k > 128 || n < 0) return (int)cudaErrorInvalidValue;
+    auto kernel = epx_check_kernel;
+    const int smem = 4 * (TXP_COLS + epx_floats(1, n_k, 0));
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    kernel<<<1, 32, smem, st>>>(row, n_k, m, wx, wy, pts, n, out, visits);
+    return (int)cudaGetLastError();
+}
+
+// The endpoint kernel of the power (coh 0) or I / Q configuration, to
+// compare with the launch record.
+const void* rk_endpoint_kernel(int coh) {
+    return coh ? reinterpret_cast<const void*>(
+                     receive_endpoint_coherent_kernel)
+               : reinterpret_cast<const void*>(receive_endpoint_kernel);
 }
 
 const char* rk_error_string(int err) {

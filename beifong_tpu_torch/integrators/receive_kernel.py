@@ -1108,7 +1108,105 @@ STAT_KEYS = ('lanes', 'strata', 'freq_draw', 'lo_freq', 'trace', 'hit',
              'phased_ray', 'mimo_vertex', 'mimo_elem', 'med_seg', 'med_conn',
              'pair_tests', 'pair_terms', 'plas_nee', 'rplas_nee',
              'rdiel_nee', 'blend_nee', 'blend_pick', 'diel_bounce',
-             'plas_bounce', 'rplas_bounce', 'rdiel_bounce', 'pass_bounce')
+             'plas_bounce', 'rplas_bounce', 'rdiel_bounce', 'pass_bounce',
+             'pair_sums', 'pair_visits')
+
+# the endpoint kernels' footprint index (csrc epx_header / epx_build):
+# cells an axis
+EPX_CELLS = 64
+
+
+def pair_index(row, n_k: int, sn, tn, orig, reach):
+    """The footprint index the analytic endpoint kernels build for a
+    phased array of pair row `row` (the element half-widths, then n_k x
+    (mid_s, mid_t, base_s, base_t, psi, valid)), frame `sn`, `tn`, centre
+    `orig` (pair_sum's) and rectangle half-extents summing to `reach`,
+    rounded as csrc/receive_megakernel.cu's epx_header rounds it: None
+    where the kernel runs the full loop, else dict(lo, inv, n (cells
+    along s and t), mask (2, EPX_CELLS, n_k) bool: the pairs each cell
+    visits, plim: the point bound), with `sn`, `tn`, `orig`."""
+    f = np.float32
+    if isinstance(row, torch.Tensor):
+        row = row.detach().cpu().numpy()
+    row = np.asarray(row, np.float32)
+    sn, tn, orig = (tuple(f(float(v)) for v in x) for x in (sn, tn, orig))
+    if n_k == 0:
+        return None
+    wid_s, wid_t = f(row[0]), f(row[1])
+    iws = f(1.0) / max(f(2.0) * wid_s, f(1e-20))
+    iwt = f(1.0) / max(f(2.0) * wid_t, f(1e-20))
+    w_s, w_t = f(0.5) / iws, f(0.5) / iwt
+    pr = row[2:2 + 6 * n_k].reshape(n_k, 6)
+    mid = pr[:, 0:2]
+    valid = pr[:, 5] != 0.0
+    with np.errstate(invalid='ignore', over='ignore'):
+        fin = bool(np.isfinite(mid).all())
+        ms, mt = (f(np.abs(mid[:, i]).max()) for i in (0, 1))
+        o1 = (abs(orig[0]) + abs(orig[1])) + abs(orig[2])
+        big = (o1 + ms) + mt
+        plim = (o1 + f(4.0) * (((ms + mt) + w_s) + w_t)) + f(4.0) * f(reach)
+
+        def dot(a, b):
+            return (a[0] * b[0] + a[1] * b[1]) + a[2] * b[2]
+        ss, tt, st = dot(sn, sn), dot(tn, tn), dot(sn, tn)
+        e16, e20 = f(1.0 / 65536.0), f(1.0 / 1048576.0)
+        dst = abs(st) + e20
+        ext = (((w_s + e16 * ((plim + big) + w_s))
+                + f(2.0) * (ms * (abs(ss - f(1.0)) + e20) + mt * dst)),
+               ((w_t + e16 * ((plim + big) + w_t))
+                + f(2.0) * (mt * (abs(tt - f(1.0)) + e20) + ms * dst)))
+        out = dict(sn=sn, tn=tn, orig=orig, plim=plim)
+        if not valid.any():
+            out.update(n=(0, 0), mask=np.zeros((2, EPX_CELLS, n_k), bool))
+            return out
+        lo, inv, n = [], [], []
+        for a in (0, 1):
+            m_a = mid[valid, a]
+            lo_a, hi_a = m_a.min() - ext[a], m_a.max() + ext[a]
+            lo.append(f(lo_a))
+            inv.append(f(EPX_CELLS - 2) / f(hi_a - lo_a))
+        if not (fin and all(np.isfinite(x) for x in (plim, *ext, *inv))
+                and inv[0] > 0 and inv[1] > 0):
+            return None
+        mask = np.zeros((2, EPX_CELLS, n_k), bool)
+        for a in (0, 1):
+            m_a = mid[valid, a]
+            hi_a = m_a.max() + ext[a]
+            n.append(int(np.floor((f(hi_a) - lo[a]) * inv[a])) + 1)
+            ca = np.floor(((mid[:, a] - ext[a]) - lo[a]) * inv[a])
+            cb = np.floor(((mid[:, a] + ext[a]) - lo[a]) * inv[a])
+            c = np.arange(EPX_CELLS, dtype=np.float32)[:, None]
+            mask[a] = (ca <= c) & (c <= cb) & valid \
+                & (np.arange(EPX_CELLS) < n[a])[:, None]
+    out.update(lo=tuple(lo), inv=tuple(inv), n=tuple(n), mask=mask)
+    return out
+
+
+def pair_visits(ix, n_k: int, px, py, pz):
+    """The pairs the endpoint kernels' cross-WDF tests at each point (px,
+    py, pz) (float32 tensors) through index `ix` (`pair_index`): those of
+    the point's two cells, n_k where the full loop runs (no index, or a
+    point past its bound)."""
+    if ix is None:
+        return torch.full_like(px, n_k, dtype=torch.int64)
+    ox, oy, oz = (float(v) for v in ix['orig'])
+    ex, ey, ez = px - ox, py - oy, pz - oz
+    out = torch.full_like(px, n_k, dtype=torch.int64)
+    near = (px.abs() + py.abs()) + pz.abs() <= float(ix['plim'])
+    if ix['n'] == (0, 0):
+        return torch.where(near, 0, out)
+    cells = []
+    for a, ax in enumerate((ix['sn'], ix['tn'])):
+        q = (ex * float(ax[0]) + ey * float(ax[1])) + ez * float(ax[2])
+        cells.append(torch.floor((q - float(ix['lo'][a]))
+                                 * float(ix['inv'][a])))
+    ok = near & (cells[0] >= 0) & (cells[0] < ix['n'][0]) \
+        & (cells[1] >= 0) & (cells[1] < ix['n'][1])
+    m = torch.from_numpy(ix['mask']).to(px.device)
+    cs = torch.where(ok, cells[0], 0).long()
+    ct = torch.where(ok, cells[1], 0).long()
+    hits = (m[0][cs] & m[1][ct]).sum(-1)
+    return torch.where(ok, hits, torch.where(near, 0, out))
 
 
 def _frac_cycles(f, t):
@@ -1228,7 +1326,7 @@ def medium_tau(sp, medium: int, grid=None, ill=None):
 
 
 def _pair_sum(row, n_k: int, sn, tn, orig, px, py, pz, dex, dey, dez, lam,
-              count=None, live=None):
+              count=None, live=None, visit=None, reach=None):
     """A phased array's cross-WDF gain at points (px, py, pz) toward (dex,
     dey, dez) at wavelength lam (the JAX kernel's `_pair_sum`): over its
     pair row `row` (the element half-widths, then per pair (mid_s, mid_t,
@@ -1237,7 +1335,12 @@ def _pair_sum(row, n_k: int, sn, tn, orig, px, py, pz, dex, dey, dez, lam,
     rectangle WDF inside its footprint times fast_cos of its interference
     phase.  `count(inside, live)` takes each pair's lanes inside its
     footprint, of the lanes `live` (None: all) on which the kernel
-    evaluates the sum."""
+    evaluates the sum; `visit(pairs, live)` each lane's count of the pairs
+    the endpoint kernels' index tests (`pair_visits`, the rectangle's
+    half-extents summing to `reach`)."""
+    if visit is not None:
+        visit(pair_visits(pair_index(row, n_k, sn, tn, orig, reach), n_k,
+                          px, py, pz), live)
     snx, sny, snz = sn
     tnx, tny, tnz = tn
     oxp, oyp, ozp = orig
@@ -1430,7 +1533,7 @@ def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
     n_pairs = (int(php.shape[1]) - 2) // 6 if php is not None else 0
     if any(w['kind'] == PHASED for w in txs) and php is None:
         raise ValueError('a phased transmitter needs its pair rows php')
-    pair_count = None
+    pair_count = pair_visit = None
     if stats is not None:
         def pair_count(inside, live):
             if live is None:
@@ -1439,6 +1542,14 @@ def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
             else:
                 counts['pair_tests'] += int(live.sum())
                 counts['pair_terms'] += int((inside & live).sum())
+
+        def pair_visit(pairs, live):
+            if live is None:
+                counts['pair_sums'] += int(pairs.numel())
+                counts['pair_visits'] += int(pairs.sum())
+            else:
+                counts['pair_sums'] += int(live.sum())
+                counts['pair_visits'] += int(pairs[live].sum())
     lo_w = dict(wf=sp[33], prf=sp[35], text=sp[36], fc=sp[37], fext=sp[38],
                 fcpri=sp[39], dfc=sp[40], phi0=sp[41])
     prims = [prim[p] for p in range(prim.shape[0])
@@ -1570,7 +1681,8 @@ def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
                              (m[0] * iwx, m[4] * iwx, m[8] * iwx),
                              (m[1] * iwy, m[5] * iwy, m[9] * iwy),
                              (m[3], m[7], m[11]), px, py, pz, -ex, -ey, -ez,
-                             lam, pair_count, live)
+                             lam, pair_count, live, pair_visit,
+                             float(wx.abs() + wy.abs()))
         nu_x = -(m[0] * ex + m[4] * ey + m[8] * ez) \
             / torch.clamp(wx, min=1e-9) / lam
         nu_y = -(m[1] * ex + m[5] * ey + m[9] * ez) \
@@ -1657,7 +1769,8 @@ def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
             throughput = w0 * _pair_sum(
                 rxph[0], (int(rxph.shape[1]) - 2) // 6, (snx, sny, snz),
                 (tnx_, tny_, tnz_), (rxm[3], rxm[7], rxm[11]), ox, oy, oz,
-                dx, dy, dz, lam_rx, pair_count)
+                dx, dy, dz, lam_rx, pair_count, None, pair_visit,
+                float(sp[30].abs() + sp[31].abs()))
     elif rx_kind == 'omni':
         ox = rxm[3].expand(n_lanes)
         oy = rxm[7].expand(n_lanes)
@@ -2358,7 +2471,7 @@ def _bind(lib):
                               ctypes.c_longlong, ctypes.c_ulonglong,
                               ctypes.c_float)
     ip = ctypes.POINTER(ctypes.c_int)
-    lib.rk_geometry.argtypes = [i32] * 2 + [i64] + [i32] * 11 + [ip] * 3
+    lib.rk_geometry.argtypes = [i32] * 2 + [i64] + [i32] * 14 + [ip] * 3
     lib.rk_geometry.restype = i32
     lib.rk_launch.argtypes = [vp] * 12 + [i32, i32, vp, i64, u64] \
         + [i32] * 13 + [f32] * 6 + [i32, u64] + [i64] * 4 + [i32] * 3 \
@@ -2369,6 +2482,8 @@ def _bind(lib):
     lib.rk_last_kernel.restype = vp
     lib.rk_lobe_kernel.argtypes = [i32]
     lib.rk_lobe_kernel.restype = vp
+    lib.rk_endpoint_kernel.argtypes = [i32]
+    lib.rk_endpoint_kernel.restype = vp
 
 
 LIBRARY = _nvcc.Library('receive_megakernel', 'rk', _bind)
@@ -2384,6 +2499,15 @@ def launched_lobe_kernel(coherent: bool) -> bool:
     the library's launch record."""
     lib = LIBRARY.get()
     return lib.rk_last_kernel() == lib.rk_lobe_kernel(int(coherent))
+
+
+def launched_endpoint_kernel(coherent: bool) -> bool:
+    """Whether the last launch on a card ran the analytic endpoint twins'
+    kernel (receive_endpoint_kernel, power, or
+    receive_endpoint_coherent_kernel, I / Q): the library's launch
+    record."""
+    lib = LIBRARY.get()
+    return lib.rk_last_kernel() == lib.rk_endpoint_kernel(int(coherent))
 
 
 def grid_mode(n_cells: int, doppler: bool, coherent: bool = False,
@@ -2416,7 +2540,8 @@ def launch_geometry(n_time: int, n_lanes: int, n_prims: int,
                     mesh: bool = False, n_freq: int = 1, n_msh: int = 0,
                     doppler: bool = False, coherent: bool = False,
                     n_pulses: int = 1, n_elem: int = 0, medium: int = 0,
-                    ep: bool = False, lobes: bool = False):
+                    ep: bool = False, lobes: bool = False, n_tx: int = 1,
+                    n_pairs: int = 0, n_rx_pairs: int = 0):
     """(blocks a pulse, threads per block, dynamic shared bytes) of the
     trace kernel (its mesh, Doppler and / or coherent configuration, or
     the MIMO one of `n_elem` elements; its media twin with `medium`, its
@@ -2426,14 +2551,17 @@ def launch_geometry(n_time: int, n_lanes: int, n_prims: int,
     pulse's lanes run out.  The `n_pulses` pulses of a CPI share that grid
     in the Doppler family; in the flagship and mesh configurations each
     pulse gets it (they run in waves, each summing in the order of one
-    call)."""
+    call).  The endpoint twin's analytic kernels size their footprint
+    index by `n_tx`, the pairs a phased transmitter's row `n_pairs` and an
+    analog phased receiver's `n_rx_pairs`."""
     lib = LIBRARY.get()
     mode = grid_mode(n_time * n_freq, doppler, coherent, n_elem)
     blocks, threads, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
     LIBRARY.check(lib.rk_geometry(n_time, n_freq, n_lanes, n_prims, n_params,
                                   n_msh, int(mesh), mode, int(coherent),
                                   n_pulses, n_elem, int(medium > 0), int(ep),
-                                  int(bool(lobes)), ctypes.byref(blocks),
+                                  int(bool(lobes)), n_tx, n_pairs,
+                                  n_rx_pairs, ctypes.byref(blocks),
                                   ctypes.byref(threads), ctypes.byref(smem)),
                   'receive_megakernel geometry')
     return blocks.value, threads.value, smem.value
@@ -2687,11 +2815,13 @@ def _launch(params, prim, txp, msh, uniforms, mesh, lane_out, *, n_pulses,
     n_tx = int(txp.shape[-2])
     n_msh = 0 if msh is None else int(msh.shape[-2])
     analog = rx_kind == 'phased' and eoff is None
+    n_pairs = 0 if php is None else (int(php.shape[1]) - 2) // 6
+    n_rx_pairs = (int(rxph.shape[1]) - 2) // 6 if analog else 0
     with torch.cuda.device(dev):
         blocks, threads, smem = launch_geometry(
             adc.n_time, n_lanes, n_prims, int(params.shape[-1]),
             mesh is not None, adc.n_freq, n_msh, doppler, coherent, n_pulses,
-            n_elem, medium, ep, lobes)
+            n_elem, medium, ep, lobes, n_tx, n_pairs, n_rx_pairs)
         # per-block partial grids of each pulse (I and Q interleaved per
         # cell when coherent); one global grid of atomics a pulse in mode 2
         partial = torch.empty(
@@ -2731,7 +2861,7 @@ def _launch(params, prim, txp, msh, uniforms, mesh, lane_out, *, n_pulses,
             *((0, 0, 0) if grid is None else grid.shape), n_tx, int(ep),
             None if php is None else php.data_ptr(),
             0 if php is None else int(php.shape[1]), int(analog),
-            (int(rxph.shape[1]) - 2) // 6 if analog else 0, lobes, stream)
+            n_rx_pairs, lobes, stream)
         LIBRARY.check(err, 'receive_megakernel launch')
     return acc, n_events
 

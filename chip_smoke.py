@@ -280,6 +280,10 @@ FP32_OPS = {
     # divide each), the rectangle weight, the phase, fast_cos and the sum
     'pair_tests': 29,
     'pair_terms': 55,
+    # the endpoint kernels' footprint index, a cross-WDF's look-up: the
+    # point's offset (3), its two coordinates (10), the point bound (5), two
+    # cells (6); then 'pair_tests' for each pair it visits ('pair_visits')
+    'pair_index': 24,
     # the lobe twins, beyond the diffuse NEE and bounce (the cosine
     # hemisphere's 73 operations; fres_diel is 24: the relative IOR, cos_t,
     # rs, rp and their mean square): the plastic base's two Fresnels; the
@@ -482,6 +486,10 @@ def print_build(infos: dict, tag: str) -> None:
     names['receive_lobe_kernelILb0E'] = 'receive_megakernel (doppler lobes)'
     names['receive_lobe_kernelILb1E'] = \
         'receive_megakernel (coherent lobes)'
+    names['receive_endpoint_kernel'] = \
+        'receive_megakernel (flagship endpoints)'
+    names['receive_endpoint_coherent_kernel'] = \
+        'receive_megakernel (coherent endpoints)'
     names.update({
              'receive_reduce_kernel': 'receive reduce',
              'bvh_closest_kernel': 'bvh_closest', 'bvh_any_kernel': 'bvh_any',
@@ -506,15 +514,20 @@ MIX_KERNEL = {'flagship': 'receive_flagship_kernel',
               'dechirp': 'receive_coherent_kernel',
               'corner': 'receive_coherent_kernel',
               'window_thin': 'receive_lobe_kernelILb0E',
-              'window_dielectric': 'receive_lobe_kernelILb1E'}
+              'window_dielectric': 'receive_lobe_kernelILb1E',
+              'ep_phased_tx': 'receive_endpoint_kernel',
+              'ep_phased_rx': 'receive_endpoint_kernel',
+              'ep_four_tx': 'receive_endpoint_kernel',
+              'ep_phased_tx_coh': 'receive_endpoint_coherent_kernel'}
 
 
 def kernel_mix(dev, tag, build_log: str, cubin: str, config: str,
                geometry: tuple, sms: int, n_pulses: int = 1) -> dict:
     """A warp-wavefront kernel on one of its main paths (`tools/k1_mix.py`
     CONFIGS: the flagship kernel's, the coherent kernel's pulse train,
-    dechirp and corner CPI, or the lobe kernel's windowed corner in power
-    and I / Q): its launch geometry (`geometry`, a pulse's of
+    dechirp and corner CPI, the lobe kernel's windowed corner in power
+    and I / Q, or the endpoint kernels on the endpoint scenes): its
+    launch geometry (`geometry`, a pulse's of
     `n_pulses`), its registers and spills (ptxas, from a fresh build's
     log), its SASS instruction mix by class and stage under the plain
     version's stage entries at 2^16 lanes, and the function's issue-slot
@@ -545,7 +558,8 @@ def kernel_mix(dev, tag, build_log: str, cubin: str, config: str,
     a = k1_mix.per_lane(masks, n)
     mix = k1_mix.sass_mix(cubin, k1_mix.source_of(HERE), kernel, a, n_rect,
                           os.path.join(HERE, 'chiprun_out',
-                                       f'k1_sass_{config}.txt'), config)
+                                       f'k1_sass_{config}.txt'), config,
+                          k1_mix.pair_totals(masks))
     _, _, mhz, _ = k1_mix.card_clock_mhz()
     lanes = k1_mix.CONFIGS[config]['lanes']
     bi = mix['bound_instructions_a_lane']
@@ -2451,12 +2465,27 @@ def _bin_energy(p, centre, half=2):
     return float(np.abs(p[lo:int(centre) + half + 1]).sum())
 
 
-def phased(torch, bt, rk, dev, tag) -> list:
+def indexed_ops(stats: dict, n_rect: int) -> float:
+    """lane_ops with the endpoint kernels' footprint index: its look-up a
+    cross-WDF and the per-pair test on the pairs it visits, in place of
+    the test on every pair."""
+    return lane_ops(stats, n_rect) + FP32_OPS['pair_tests'] * (
+        stats['pair_visits'] - stats['pair_tests']) \
+        + FP32_OPS['pair_index'] * stats['pair_sums']
+
+
+def phased(torch, bt, rk, dev, tag, build_log: str = '',
+           cubin: str = '') -> list:
     """K1's endpoint twins on the endpoint scenes at full width (8-element
     phased arrays, four transmitters of three kinds): parity on injected
     uniforms and on Philox, receive() at 2^24 samples with the anchors of
     the JAX package's kernel tests, the kernel alone, K1 against the
-    wavefront."""
+    wavefront.  Each scene must run the analytic endpoint kernels
+    (receive_endpoint_kernel, receive_endpoint_coherent_kernel: the launch
+    record), whose registers, shared memory, spills, geometry and SASS mix
+    it prints, with both FP32 bounds (every pair tested, and the
+    footprint index's look-up and visited pairs) and the issue-slot
+    bound."""
     import numpy as np
     from beifong_tpu_torch import scenes
     P = scenes.PHASED
@@ -2484,6 +2513,7 @@ def phased(torch, bt, rk, dev, tag) -> list:
         rx_kind = rk.rx_kind_of(rx)
         return sd, t, rx_kind, tuple(int(k) for k in p.txp[:, 27])
 
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     out = []
     for name, make, coh in cases:
         s, rx = make()
@@ -2599,6 +2629,21 @@ def phased(torch, bt, rk, dev, tag) -> list:
         acc1, n1 = rk.receive_megakernel(params, prim, txp,
                                          n_lanes=PHASED_LANES, seed=SEED,
                                          lane_out=lane, **kw)
+        lib = rk.LIBRARY.get()
+        ran = rk.launched_endpoint_kernel(coh)
+        want_k = 'receive_endpoint_' + ('coherent_' if coh else '') + 'kernel'
+        geo = rk.launch_geometry(
+            rx.adc.n_time, PHASED_LANES, int(prim.shape[0]),
+            int(params.shape[0]), doppler=coh, coherent=coh, ep=True,
+            n_tx=n_tx, n_pairs=(int(php.shape[1]) - 2) // 6,
+            n_rx_pairs=(int(rxph.shape[1]) - 2) // 6
+            if rx_kind == 'phased' else 0)
+        print(f'{name}: rk_last_kernel {lib.rk_last_kernel():#x}, '
+              f'{want_k} {lib.rk_endpoint_kernel(int(coh)):#x}; geometry '
+              f'{geo[0]} blocks ({geo[0] / sms:.2f} an SM) x {geo[1]} '
+              f'threads, {geo[2]} B of dynamic shared memory {tag}')
+        if not ran:
+            fail(f'phased {name}: the launch did not run {want_k}')
         ref, n_ref, amp, stats, plain_ms = _plain_philox(
             torch, rk, params, prim, txp, kw, PHASED_LANES, PHASED_DEPTH,
             dev, lane_ref=lane_ref)
@@ -2660,8 +2705,34 @@ def phased(torch, bt, rk, dev, tag) -> list:
             rx.adc.n_time, 2 if coh else 1,
             dict(row='K1 endpoints', scene=name, anchors=anchor,
                  k1_wavefront_ratio=ratio, pair_share=pair_share))
+        n_bytes = 4 * (sum(t.numel() for t in [params, prim, txp, php]
+                           + ([rxph] if rx_kind == 'phased' else []))
+                       + rx.adc.n_time * (2 if coh else 1)) + 8
+        b_ix = bound(indexed_ops(stats, n_rect), n_bytes,
+                     f'{name} with the footprint index')
+        lanes = stats['lanes']
+        entry.update(bound_indexed_ms=b_ix['bound_ms'],
+                     pair_tests_per_lane=stats['pair_tests'] / lanes,
+                     pair_visits_per_lane=stats['pair_visits'] / lanes,
+                     pair_terms_per_lane=stats['pair_terms'] / lanes,
+                     kernel=want_k)
+        config = 'ep_' + name.replace(' coherent', '_coh')
+        mix = kernel_mix(dev, tag, build_log, cubin, config, geo, sms) \
+            if cubin else {}
+        entry.update({k: mix[k] for k in ('issue_slot_bound_ms',
+                                          'thread_instructions_a_lane',
+                                          'bound_instructions_a_lane')
+                      if k in mix})
+        issue = (f'; of the issue-slot bound '
+                 f'({mix["issue_slot_bound_ms"]:.4f} ms) '
+                 f'{mix["issue_slot_bound_ms"] / k_med:.1%}') if mix else ''
         print(f'share of the FP32 bound {name}: '
-              f'{entry["bound_ms"] / k_med:.1%} {tag}')
+              f'{entry["bound_ms"] / k_med:.1%}; of the indexed bound '
+              f'({b_ix["bound_ms"]:.4f} ms) {b_ix["bound_ms"] / k_med:.1%}'
+              f'{issue}; pair tests a lane '
+              f'{entry["pair_tests_per_lane"]:.3f}, visited '
+              f'{entry["pair_visits_per_lane"]:.3f}, inside '
+              f'{entry["pair_terms_per_lane"]:.3f} {tag}')
         out.append(entry)
     print(f'phased phase wall {time.perf_counter() - t_phase:.1f} s {tag}')
     return out
@@ -3883,7 +3954,8 @@ def main() -> int:
                    infos['receive_megakernel'].log, cubin)
     kernels += mimo(torch, bt, rk, dev, tag)
     kernels += media(torch, bt, rk, dev, tag)
-    kernels += phased(torch, bt, rk, dev, tag)
+    kernels += phased(torch, bt, rk, dev, tag,
+                      infos['receive_megakernel'].log, cubin)
     kernels += lobes(torch, bt, rk, dev, tag,
                      infos['receive_megakernel'].log, cubin)
     kernels += queries(torch, bt, dev, tag)

@@ -1347,6 +1347,19 @@ def test_endpoint_kernels_match_plain_version(cuda, scene, config):
                                       uniforms=u, lane_out=lane, **kw)
     torch.cuda.synchronize()
     assert rk.receive_megakernel.by_config[name] == before + 1
+    # the analytic power and I / Q twins run the endpoint kernels, whose
+    # repeats are bit-identical (private rows summed in thread order)
+    ep_kernel = config in ('flagship', 'coherent')
+    assert rk.launched_endpoint_kernel(kw['coherent']) == ep_kernel
+    assert rk.launched_endpoint_kernel(not kw['coherent']) is False
+    if ep_kernel:
+        lane2 = torch.empty(n_lanes, device=cuda) if lanes else None
+        acc2, n_ev2 = rk.receive_megakernel(params, prim, txp,
+                                            n_lanes=n_lanes, uniforms=u,
+                                            lane_out=lane2, **kw)
+        assert torch.equal(acc, acc2) and int(n_ev) == int(n_ev2)
+        if lanes:
+            assert torch.equal(lane, lane2)
     amp = torch.zeros((rx.adc.n_time, rx.adc.n_freq), dtype=torch.float64,
                       device=cuda)
     stats = {}
@@ -1371,6 +1384,7 @@ def test_endpoint_kernels_philox_mode(cuda, scene):
     lane_ref = torch.empty(n_lanes, device=cuda)
     acc, n_ev = rk.receive_megakernel(params, prim, txp, n_lanes=n_lanes,
                                       seed=13, lane_out=lane, **kw)
+    assert rk.launched_endpoint_kernel(True)
     u = rk.philox_uniforms(13, rk.n_draws(2, int(txp.shape[0])), n_lanes,
                            device=cuda)
     amp = torch.zeros((rx.adc.n_time, 1), dtype=torch.float64, device=cuda)
@@ -1378,6 +1392,40 @@ def test_endpoint_kernels_philox_mode(cuda, scene):
                                            lane_out=lane_ref, amp_out=amp,
                                            **kw)
     _assert_ep_parity(s, rx, kw, acc, n_ev, ref, n_ref, amp, lane, lane_ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('coherent', (False, True))
+def test_endpoint_cpi_runs_the_endpoint_kernel(cuda, coherent):
+    """A 4-pulse CPI of the phased transmitter through
+    receive_megakernel_cpi: one launch of the endpoint kernel (the pulse a
+    grid axis) against the plain version pulse by pulse."""
+    s, rx = _ep_scene('phased_tx')
+    pc, rx, _ = rk.pack_cpi(s, 4, 10.0)
+    t = lambda a: torch.tensor(a, device=cuda)   # noqa: E731
+    kw = dict(adc=rx.adc, max_depth=2, time_sampling='gate',
+              rx_kind=rk.rx_kind_of(rx), doppler=coherent,
+              coherent=coherent, php=t(pc.php))
+    n_lanes = 1 << 16
+    u = torch.rand((4, rk.n_draws(2, int(pc.txp.shape[1])), n_lanes),
+                   generator=torch.Generator(cuda).manual_seed(9),
+                   device=cuda)
+    name = rk.config_name(False, coherent, coherent, ep=True)
+    before = rk.receive_megakernel_cpi.by_config[name]
+    acc, n_ev = rk.receive_megakernel_cpi(t(pc.params), t(pc.prim),
+                                          t(pc.txp), n_lanes=n_lanes,
+                                          uniforms=u, **kw)
+    torch.cuda.synchronize()
+    assert rk.receive_megakernel_cpi.by_config[name] == before + 1
+    assert rk.launched_endpoint_kernel(coherent)
+    for p in range(4):
+        amp = torch.zeros((rx.adc.n_time, 1), dtype=torch.float64,
+                          device=cuda)
+        ref, n_ref = rk.receive_megakernel_ref(
+            t(pc.params[p]), t(pc.prim[p]), t(pc.txp[p]), u[p],
+            amp_out=amp if coherent else None, **kw)
+        _assert_ep_parity(s, rx, kw, acc[p], n_ev[p], ref, n_ref, amp,
+                          None, None)
 
 
 @pytest.mark.gpu
@@ -1435,6 +1483,7 @@ def test_receive_of_endpoint_scenes_on_card_launches_k1(cuda, scene):
     torch.cuda.synchronize()
     assert rk.receive_megakernel.by_config['flagship_ep'] \
         == before['flagship_ep'] + 1
+    assert rk.launched_endpoint_kernel(False)
     b, m = receive(s, s.compile(device='cpu'), rx, spp=1 << 16,
                    max_depth=2, seed=4, time_sampling='gate', device='cpu')
     p_gpu = develop_signal(a, n, rx.adc)[:, 0, 0].cpu()

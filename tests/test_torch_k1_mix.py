@@ -75,7 +75,9 @@ def test_simt_models_bound_their_work(lanes):
 
 @pytest.mark.parametrize('splat, kernel', [
     (False, 'receive_flagship_kernel'), (True, 'receive_flagship_kernel'),
-    (False, 'receive_coherent_kernel'), (False, 'receive_lobe_kernel')])
+    (False, 'receive_coherent_kernel'), (False, 'receive_lobe_kernel'),
+    (False, 'receive_endpoint_kernel'),
+    (False, 'receive_endpoint_coherent_kernel')])
 def test_clock_probe_anchors_appear_once(splat, kernel):
     """k1_clock patches the kernel's source by exact text: each of its
     anchors lies in the current source once (the warp loop's in the
@@ -249,3 +251,52 @@ def test_ablations_apply_to_the_source():
     for name, edits in k1_ablate.ABLATIONS.items():
         for old, new in edits:
             assert src.count(new if name == 'tags' else old) == 1, name
+
+
+@pytest.mark.parametrize('config', ['ep_phased_tx', 'ep_phased_rx',
+                                    'ep_four_tx', 'ep_phased_tx_coh'])
+def test_endpoint_masks_sum_to_the_plain_versions_stats(config):
+    """The endpoint configurations' masks sum to the plain version's stage
+    counts (n_draws of the scene's transmitters), their cross-WDF totals
+    come with them (the index visits at most the pairs tested, at least
+    those inside), and both Philox models count the ray's two blocks."""
+    n = 1 << 10
+    masks, n_rect = k1_mix.stage_masks(n, config=config)
+    a = k1_mix.per_lane(masks, n)
+    pairs = k1_mix.pair_totals(masks)
+    s, rx = k1_mix.scene_of(config)
+    p = rk.pack_scene(s.compile(device='cpu'), rx,
+                      s.shape_index_of_endpoint('receiver', rx.id))
+    params, prim, txp = (torch.tensor(x) for x in (p.params, p.prim, p.txp))
+    kw = k1_mix.ref_kw(config, rx, p)
+    stats: dict = {}
+    rk.receive_megakernel_ref(params, prim, txp, rk.philox_uniforms(
+        7, rk.n_draws(2, int(txp.shape[0])), n), stats=stats, **kw)
+    for key, v in a.items():
+        assert int(v.sum()) == stats[key], key
+    assert pairs['n_tx'] == int(txp.shape[0])
+    assert pairs['pair_terms'] <= pairs['pair_visits'] <= pairs['pair_tests']
+    assert pairs['pair_tests'] > 0
+    for turns in (False, True):
+        b = k1_mix.ep_blocks(a, pairs['n_tx'], turns)
+        assert b.shape == (n,) and b.min() >= 2
+
+
+def test_endpoint_source_carries_every_stage_tag():
+    """The endpoint kernels' tags: each stage that k1_mix reads lies in
+    their bodies, and the footprint index's in pair_sum_epx."""
+    src = k1_mix.source_of(ROOT)
+    with open(src) as f:
+        lines = f.read().splitlines()
+    tags = k1_mix.line_stages(src)
+    for kernel in ('receive_endpoint_kernel(',
+                   'receive_endpoint_coherent_kernel('):
+        a, b = _body_lines(lines, kernel)
+        stages = {st for ln, st in tags.items() if a < ln < b}
+        assert {'draws', 'sched', 'ray', 'hit', 'direct', 'nee', 'shadow',
+                'nee_pairs', 'splat', 'bounce', 'trace',
+                'closest'} <= stages, kernel
+    a, b = _body_lines(lines, '__device__ float pair_sum_epx(')
+    assert {'pairs', 'pair_index'} <= {st for ln, st in tags.items()
+                                       if a < ln < b}
+    assert 'pairs' in k1_mix.func_ranges(src)

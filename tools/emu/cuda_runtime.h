@@ -20,6 +20,9 @@
 #define __host__
 #define __forceinline__ inline
 #define __launch_bounds__(...)
+// a __shared__ variable at namespace scope (an instrumented build): one
+// copy for every block (a compile check only; its sums race)
+#define __shared__
 
 struct dim3 {
     unsigned x, y, z;
@@ -27,11 +30,13 @@ struct dim3 {
 };
 struct uint4 { uint32_t x, y, z, w; };
 struct uint2 { uint32_t x, y; };
+struct float2 { float x, y; };
 struct float4 { float x, y, z, w; };
 inline uint4 make_uint4(uint32_t a, uint32_t b, uint32_t c, uint32_t d) {
     return uint4{a, b, c, d};
 }
 inline uint2 make_uint2(uint32_t a, uint32_t b) { return uint2{a, b}; }
+inline float2 make_float2(float a, float b) { return float2{a, b}; }
 inline float4 make_float4(float a, float b, float c, float d) {
     return float4{a, b, c, d};
 }
@@ -179,6 +184,7 @@ inline T __shfl_up_sync(unsigned, T x, unsigned off) {
     return r;
 }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
+inline int __popcll(unsigned long long x) { return __builtin_popcountll(x); }
 inline int __ffs(unsigned x) { return __builtin_ffs((int)x); }
 inline int __ffsll(unsigned long long x) { return __builtin_ffsll((long long)x); }
 inline uint32_t __umulhi(uint32_t a, uint32_t b) {
@@ -245,6 +251,17 @@ inline cudaError_t cudaDeviceGetAttribute(int* v, int, int) {
 }
 inline cudaError_t cudaMemsetAsync(void* p, int v, size_t n, cudaStream_t) {
     memset(p, v, n);
+    return 0;
+}
+// the symbol copies of an instrumented build (tools/k1_clock.py)
+template <class T, class S>
+inline cudaError_t cudaMemcpyFromSymbol(T* dst, const S& sym, size_t n) {
+    memcpy(dst, &sym, n);
+    return 0;
+}
+template <class S, class T>
+inline cudaError_t cudaMemcpyToSymbol(S& sym, const T* src, size_t n) {
+    memcpy(&sym, src, n);
     return 0;
 }
 inline cudaError_t cudaGetLastError() { return 0; }

@@ -25,6 +25,27 @@ receive_lobe_kernel):
 and of receive_lobe_kernel:
   lob_lb5, lob_lb6  its blocks an SM, 5 / 6 in place of 4;
   lob_mixed    its SHADE turns of mixed kinds (no turn by kind);
+of the grid-stride endpoint twins (receive_trace_kernel<false, false,
+true>, receive_doppler_kernel<false, true, false, true>: the parents of
+the endpoint kernels; time them with --only ep_phased_tx,...):
+  ep_smem      the pair rows in shared memory (a block's copy after the
+               transmitter rows) in place of the read-only path;
+  ep_union     the pair loop behind a pre-test: a point outside the
+               union of the array's footprints (a box, widened) skips it;
+  ep_unroll4   the pair loop unrolled by 4;
+  ep_gain1     the pair loop skipped (every cross-WDF 1: what the pair
+               sums cost; not exact);
+  ep_noshadow  the NEE shadow loop skipped (four_tx; not exact);
+and of the endpoint kernels:
+  epx_full     the full loop over the staged records (no footprint index:
+               the same sums bit for bit);
+  epw_lb4, epw_lb5  the power kernel held to 4 / 5 blocks an SM (not 6);
+  epc_lb3, epc_lb4, epc_lb5  the coherent kernel's, 3 / 4 / 5 (not 6);
+  epx_cells32  the footprint index with 32 cells an axis (not 64);
+  epx_pairs2   the indexed pair loop two pairs at a time (their terms
+               independent, added in pair order: the same sums);
+  epx_warp     the receiver's cross-WDF for a whole warp (its (lane,
+               pair) items spread over the warp's threads; the same sums);
 and, no ablation, `tags`: the stage tags of trace_lane's lobe path added
 to a parent that predates them (comments only: its machine code is the
 parent's), for tools/k1_mix.py --sass.
@@ -551,6 +572,224 @@ K4_ABLATIONS['k4_queue_lb5'] = K4_ABLATIONS['k4_queue'] + ((
     'ray_triangle_kernel(',
     'template <bool ANY>\n__global__ void __launch_bounds__(THREADS, 5)\n'
     'ray_triangle_kernel('),)
+# the grid-stride endpoint twins' ablations (a parent before the endpoint
+# kernels)
+EP_PAIR_FLOATS = 4 * 2 + 6 * 128 + 2 + 6 * 64   # php's caps, then rxph's
+EP_RXPH_AT = 4 * 2 + 6 * 128
+ABLATIONS['ep_smem'] = (
+    ('    constexpr int TX_FLOATS = EP ? MAX_TX * TXP_COLS : TXP_COLS;\n'
+     '    extern __shared__ float smem[];',
+     f'    constexpr int TX_FLOATS = EP ? MAX_TX * TXP_COLS + {EP_PAIR_FLOATS}'
+     ' : TXP_COLS;\n    extern __shared__ float smem[];'),
+    ('    constexpr int TX_FLOATS = EP ? MAX_TX * TXP_COLS : TXP_COLS;\n'
+     '    int T, smem;',
+     f'    constexpr int TX_FLOATS = EP ? MAX_TX * TXP_COLS + {EP_PAIR_FLOATS}'
+     ' : TXP_COLS;\n    int T, smem;'),
+    ('            r[31] = r[10] * tnn;\n        }\n        __syncthreads();\n'
+     '    }\n',
+     '            r[31] = r[10] * tnn;\n        }\n'
+     '        float* s_pair = s_tx + MAX_TX * TXP_COLS;\n'
+     '        if (cfg.php != nullptr)\n'
+     '            for (int i = tid; i < cfg.n_tx * cfg.php_cols; i += T)\n'
+     '                s_pair[i] = cfg.php[i];\n'
+     '        if (cfg.rx_phased)\n'
+     '            for (int i = tid; i < 2 + 6 * cfg.n_rx_pairs; i += T)\n'
+     f'                s_pair[{EP_RXPH_AT} + i] = cfg.rxph[i];\n'
+     '        __syncthreads();\n    }\n'
+     '    Cfg cfg2 = cfg;\n'
+     '    if constexpr (EP) {\n'
+     '        if (cfg.php != nullptr) cfg2.php = s_tx + MAX_TX * TXP_COLS;\n'
+     '        if (cfg.rx_phased)\n'
+     f'            cfg2.rxph = s_tx + MAX_TX * TXP_COLS + {EP_RXPH_AT};\n'
+     '    }\n'),
+    ('            cfg, s_par, s_prim, s_msh, tx, lo, mesh_b, dr, my_hist, T, '
+     'grid,',
+     '            cfg2, s_par, s_prim, s_msh, tx, lo, mesh_b, dr, my_hist, T, '
+     'grid,'),
+    ('__device__ float pair_sum(const float* __restrict__ row, int n_k,',
+     '#define __ldg(p) (*(p))\n'
+     '__device__ float pair_sum(const float* __restrict__ row, int n_k,'),
+    ('        total = total + w_rect * fast_cos(ph) * val_k;\n    }\n'
+     '    return total;\n}\n',
+     '        total = total + w_rect * fast_cos(ph) * val_k;\n    }\n'
+     '    return total;\n}\n#undef __ldg\n'))
+# the pair loop behind a pre-test: a point outside the union of an
+# array's footprints (a box in its s, t coordinates, widened by 1% of the
+# element and 1e-5 m) skips it (the same sums where no accepted pair lies
+# outside the box)
+ABLATIONS['ep_union'] = (
+    ('__device__ float pair_sum(const float* __restrict__ row, int n_k, '
+     'float snx,',
+     '__shared__ float ep_union[MAX_TX + 1][4];\n'
+     '__shared__ const float* ep_union_row[MAX_TX + 1];\n\n'
+     '__device__ float pair_sum(const float* __restrict__ row, int n_k, '
+     'float snx,'),
+    ('''    const float iwt = 1.0f / fmaxf(2.0f * wid_t, F(1e-20));
+    float total = 0.0f;
+#pragma unroll 1
+    for (int k = 0; k < n_k; ++k) {''',
+     '''    const float iwt = 1.0f / fmaxf(2.0f * wid_t, F(1e-20));
+    float total = 0.0f;
+    for (int a = 0; a < MAX_TX + 1; ++a) {
+        if (ep_union_row[a] != row) continue;
+        const float qs = (px - ox) * snx + (py - oy) * sny + (pz - oz) * snz;
+        const float qt = (px - ox) * tnx + (py - oy) * tny + (pz - oz) * tnz;
+        const float* u = ep_union[a];
+        if (!(qs >= u[0] && qs <= u[1] && qt >= u[2] && qt <= u[3]))
+            return total;
+        break;
+    }
+#pragma unroll 1
+    for (int k = 0; k < n_k; ++k) {'''),
+    ('''            r[31] = r[10] * tnn;
+        }
+        __syncthreads();
+    }
+''',
+     '''            r[31] = r[10] * tnn;
+        }
+        for (int a = tid; a < MAX_TX + 1; a += T) {
+            const float* row = a < cfg.n_tx && cfg.php != nullptr
+                                   ? cfg.php + a * cfg.php_cols
+                               : a == MAX_TX && cfg.rx_phased ? cfg.rxph
+                                                              : nullptr;
+            const int n_k = a < cfg.n_tx ? cfg.n_pairs : cfg.n_rx_pairs;
+            ep_union_row[a] = row;
+            if (row == nullptr) continue;
+            float s0 = F(3.4e38), s1 = -F(3.4e38), t0 = F(3.4e38),
+                  t1 = -F(3.4e38);
+            for (int k = 0; k < n_k; ++k) {
+                s0 = fminf(s0, row[2 + 6 * k]);
+                s1 = fmaxf(s1, row[2 + 6 * k]);
+                t0 = fminf(t0, row[3 + 6 * k]);
+                t1 = fmaxf(t1, row[3 + 6 * k]);
+            }
+            const float ms = 1.01f * row[0] + F(1e-5),
+                        mt = 1.01f * row[1] + F(1e-5);
+            ep_union[a][0] = s0 - ms;
+            ep_union[a][1] = s1 + ms;
+            ep_union[a][2] = t0 - mt;
+            ep_union[a][3] = t1 + mt;
+        }
+        __syncthreads();
+    }
+'''))
+ABLATIONS['ep_unroll4'] = ((
+    '#pragma unroll 1\n    for (int k = 0; k < n_k; ++k) {\n'
+    '        const float* q = row + 2 + 6 * k;',
+    '#pragma unroll 4\n    for (int k = 0; k < n_k; ++k) {\n'
+    '        const float* q = row + 2 + 6 * k;'),)
+ABLATIONS['ep_gain1'] = ((
+    '    const float TP = F(6.283185307179586);\n'
+    '    float nu_x = (dex * snx + dey * sny + dez * snz) / lam;\n'
+    '    float nu_y = (dex * tnx + dey * tny + dez * tnz) / lam;\n'
+    '    const float wid_s = __ldg(row), wid_t = __ldg(row + 1);',
+    '    return 1.0f;\n'
+    '    const float TP = F(6.283185307179586);\n'
+    '    float nu_x = (dex * snx + dey * sny + dez * snz) / lam;\n'
+    '    float nu_y = (dex * tnx + dey * tny + dez * tnz) / lam;\n'
+    '    const float wid_s = __ldg(row), wid_t = __ldg(row + 1);'),)
+ABLATIONS['ep_noshadow'] = ((
+    '                        if (row[14] == (float)t || (int)row[0] != '
+    'RECTANGLE)',
+    '                        if (true)'),)
+# the endpoint kernels' ablations
+ABLATIONS['epx_full'] = ((
+    '    };\n    if (hi[21] && fabsf(px) + fabsf(py) + fabsf(pz) <= h[17]) {',
+    '    };\n    if (false && hi[21] && fabsf(px) + fabsf(py) + fabsf(pz) '
+    '<= h[17]) {'),)
+# the endpoint kernels' blocks an SM
+for _n in (4, 5):
+    ABLATIONS[f'epw_lb{_n}'] = (('constexpr int EPW_MIN_BLOCKS = 6;',
+                                 f'constexpr int EPW_MIN_BLOCKS = {_n};'),)
+for _n in (3, 4, 5):
+    ABLATIONS[f'epc_lb{_n}'] = (('constexpr int EPC_MIN_BLOCKS = 6;',
+                                 f'constexpr int EPC_MIN_BLOCKS = {_n};'),)
+# the footprint index with 32 cells an axis (the sums stay bit for bit)
+ABLATIONS['epx_cells32'] = (('constexpr int EPX_CELLS = 64;      // cells an axis',
+                             'constexpr int EPX_CELLS = 32;      // cells an axis'),)
+# the indexed pair loop two pairs at a time (their terms independent,
+# their sums in pair order: the same bits)
+ABLATIONS['epx_pairs2'] = (
+    ('''    auto term = [&](int k) {
+        if constexpr (COUNT) ++*visits;
+        const float4 q = rec[2 * k];''',
+     '''    auto value = [&](int k, bool* in, float* val_k) {
+        if constexpr (COUNT) ++*visits;
+        const float4 q = rec[2 * k];'''),
+    ('''        float ry_ = (rlx * tnx + rly * tny + rlz * tnz) * iwt;
+        if (!(fabsf(rx_) <= 0.5f && fabsf(ry_) <= 0.5f)) return;
+        // [k1 stage: pair_terms]
+        const float4 q1 = rec[2 * k + 1];
+        const float val_k = q1.y;
+        if (val_k == 0.0f) return;
+        float txr = tri_f(rx_), tyr = tri_f(ry_);''',
+     '''        float ry_ = (rlx * tnx + rly * tny + rlz * tnz) * iwt;
+        const float4 q1 = rec[2 * k + 1];
+        *val_k = q1.y;
+        *in = fabsf(rx_) <= 0.5f && fabsf(ry_) <= 0.5f && q1.y != 0.0f;
+        // [k1 stage: pair_terms]
+        float txr = tri_f(rx_), tyr = tri_f(ry_);'''),
+    ('''        float ph = TP * (nu_x * q.z + nu_y * q.w) + q1.x;
+        total = total + w_rect * fast_cos(ph) * val_k;
+    };''',
+     '''        float ph = TP * (nu_x * q.z + nu_y * q.w) + q1.x;
+        return w_rect * fast_cos(ph);
+    };
+    auto term = [&](int k) {
+        bool in;
+        float v;
+        const float a = value(k, &in, &v);
+        if (in) total = total + a * v;
+    };
+    auto term2 = [&](int k1, int k2) {
+        bool in1, in2;
+        float v1, v2;
+        const float a1 = value(k1, &in1, &v1), a2 = value(k2, &in2, &v2);
+        if (in1) total = total + a1 * v1;
+        if (in2) total = total + a2 * v2;
+    };'''),
+    ('''                const int k = 64 * w + __ffsll((long long)b) - 1;
+                b &= b - 1ull;
+                term(k);''',
+     '''                const int k = 64 * w + __ffsll((long long)b) - 1;
+                b &= b - 1ull;
+                if (b == 0ull) {
+                    term(k);
+                    break;
+                }
+                const int k2 = 64 * w + __ffsll((long long)b) - 1;
+                b &= b - 1ull;
+                term2(k, k2);'''),
+    ('''#pragma unroll 1
+    for (int k = 0; k < hi[20]; ++k) term(k);
+    return total;''',
+     '''#pragma unroll 1
+    for (int k = 0; k + 1 < hi[20]; k += 2) term2(k, k + 1);
+    if (hi[20] & 1) term(hi[20] - 1);
+    return total;'''))
+
+
+# the receiver's cross-WDF for a whole warp (pair_sum_warp): the warp's
+# (lane, pair) items spread over its threads, each lane's terms staged in
+# the warp's splat area and added in pair order (the same sums)
+ABLATIONS['epx_warp'] = (
+    ('// ---- the power endpoint kernel: a warp wavefront',
+     "// The receiver's cross-WDF for a whole warp (every thread calls it;\n// `active` the lanes with a ray): pair_sum_epx's sums, bit for bit, with\n// the work spread over the warp.  A lane's visits depend on its point's\n// cells (0-16 on an 8-element line), so a warp running each lane's own\n// loop waits for its busiest lane; here each lane finds its pairs (the\n// cells' mask, or every pair where the index does not hold), the warp\n// numbers the (lane, pair) items by a prefix sum of their counts, and\n// each round the 32 threads take 32 consecutive items: a thread finds its\n// item's lane (a binary search over the lanes' first items) and pair (the\n// rank-th set bit of that lane's mask), fetches the lane's point and\n// frequencies by shuffles, and runs pair_sum_epx's test and term; then\n// every lane adds, in item order, the terms of its own items (staged\n// from the threads that made them through `stage`, 32 float2s of the\n// warp's, which RAY turns leave free).  A lane's items are consecutive and\n// in ascending pair order, so its sum takes the same terms in the same\n// order as pair_sum_epx's, with the same expression.\n__device__ float pair_sum_warp(const Epx& ix, int a, bool active, float px,\n                               float py, float pz, float dex, float dey,\n                               float dez, float lam, float2* stage, int j) {\n    const float TP = F(6.283185307179586);\n    const float* h = ix.hdr + EPX_HDR * a;\n    const int* hi = reinterpret_cast<const int*>(h);\n    const float snx = h[0], sny = h[1], snz = h[2];\n    const float tnx = h[3], tny = h[4], tnz = h[5];\n    const float ox = h[6], oy = h[7], oz = h[8];\n    const float wid_s = h[9], wid_t = h[10];\n    const float iws = h[11], iwt = h[12];\n    const float4* rec = ix.rec + 2 * hi[22];\n    const int n_k = hi[20];\n    // [k1 stage: pair_index]  this lane's pairs\n    float nu_x = 0.0f, nu_y = 0.0f;\n    unsigned long long m0 = 0ull, m1 = 0ull;\n    if (active) {\n        nu_x = (dex * snx + dey * sny + dez * snz) / lam;\n        nu_y = (dex * tnx + dey * tny + dez * tnz) / lam;\n        if (hi[21] && fabsf(px) + fabsf(py) + fabsf(pz) <= h[17]) {\n            const float ex = __fsub_rn(px, ox), ey = __fsub_rn(py, oy),\n                        ez = __fsub_rn(pz, oz);\n            const float qs = __fadd_rn(__fadd_rn(__fmul_rn(ex, snx),\n                                                 __fmul_rn(ey, sny)),\n                                       __fmul_rn(ez, snz));\n            const float qt = __fadd_rn(__fadd_rn(__fmul_rn(ex, tnx),\n                                                 __fmul_rn(ey, tny)),\n                                       __fmul_rn(ez, tnz));\n            const float cs = epx_cell(qs, h[13], h[14]);\n            const float ct = epx_cell(qt, h[15], h[16]);\n            if (cs >= 0.0f && cs < (float)hi[18] && ct >= 0.0f\n                && ct < (float)hi[19]) {\n                const unsigned long long* ms =\n                    ix.masks + hi[23] + ix.W * (int)cs;\n                const unsigned long long* mt =\n                    ix.masks + hi[23] + ix.W * (EPX_CELLS + (int)ct);\n                m0 = ms[0] & mt[0];\n                if (ix.W > 1) m1 = ms[1] & mt[1];\n            }\n        } else {\n            // the full loop: every pair\n            m0 = n_k >= 64 ? ~0ull : (1ull << n_k) - 1ull;\n            m1 = n_k >= 128 ? ~0ull\n                 : n_k > 64 ? (1ull << (n_k - 64)) - 1ull : 0ull;\n        }\n    }\n    const int cnt = __popcll(m0) + __popcll(m1);\n    // the lanes' first items: an exclusive prefix sum\n    int incl = cnt;\n#pragma unroll\n    for (int d = 1; d < 32; d <<= 1) {\n        const int y = __shfl_up_sync(FULL_MASK, incl, d);\n        if (j >= d) incl += y;\n    }\n    const int off = incl - cnt;\n    const int n_items = __shfl_sync(FULL_MASK, incl, 31);\n    float total = 0.0f;\n    // [k1 stage: pairs]\n    for (int base = 0; base < n_items; base += 32) {\n        const int item = base + j;\n        // the item's lane: the last lane whose first item is <= item\n        int lane = 0;\n#pragma unroll\n        for (int step = 16; step > 0; step >>= 1) {\n            const int o = __shfl_sync(FULL_MASK, off, lane + step);\n            if (lane + step < 32 && o <= item) lane += step;\n        }\n        const int rank = item - __shfl_sync(FULL_MASK, off, lane);\n        unsigned long long w0 = __shfl_sync(FULL_MASK, m0, lane);\n        unsigned long long w1 = __shfl_sync(FULL_MASK, m1, lane);\n        const float lpx = __shfl_sync(FULL_MASK, px, lane);\n        const float lpy = __shfl_sync(FULL_MASK, py, lane);\n        const float lpz = __shfl_sync(FULL_MASK, pz, lane);\n        const float lnx = __shfl_sync(FULL_MASK, nu_x, lane);\n        const float lny = __shfl_sync(FULL_MASK, nu_y, lane);\n        float a_t = 0.0f, v_t = 0.0f;\n        if (item < n_items) {\n            // the rank-th set bit of the lane's mask\n            int r = rank, k = 0;\n            const int c0 = __popcll(w0);\n            if (r >= c0) {\n                r -= c0;\n                w0 = w1;\n                k = 64;\n            }\n            for (int q = 0; q < r; ++q) w0 &= w0 - 1ull;\n            k += __ffsll((long long)w0) - 1;\n            // pair_sum_epx's test and term for the item's lane\n            const float4 q4 = rec[2 * k];\n            const float mid_s = q4.x, mid_t = q4.y;\n            float mx = ox + mid_s * snx + mid_t * tnx;\n            float my = oy + mid_s * sny + mid_t * tny;\n            float mz = oz + mid_s * snz + mid_t * tnz;\n            float rlx = lpx - mx, rly = lpy - my, rlz = lpz - mz;\n            float rx_ = (rlx * snx + rly * sny + rlz * snz) * iws;\n            float ry_ = (rlx * tnx + rly * tny + rlz * tnz) * iwt;\n            if (fabsf(rx_) <= 0.5f && fabsf(ry_) <= 0.5f) {\n                // [k1 stage: pair_terms]\n                const float4 q1 = rec[2 * k + 1];\n                const float val_k = q1.y;\n                if (val_k != 0.0f) {\n                    float txr = tri_f(rx_), tyr = tri_f(ry_);\n                    float w_rect = 4.0f * wid_s * wid_t * txr * tyr\n                                   * sinc_f(TP * lnx * wid_s * txr)\n                                   * sinc_f(TP * lny * wid_t * tyr);\n                    float ph = TP * (lnx * q4.z + lny * q4.w) + q1.x;\n                    a_t = w_rect * fast_cos(ph);\n                    v_t = val_k;\n                }\n            }\n        }\n        // [k1 stage: pairs]  each lane's terms of the round, in item order\n        stage[j] = make_float2(a_t, v_t);\n        __syncwarp();\n        const int i1 = min(off + cnt, base + 32);\n        for (int i = max(off, base); i < i1; ++i) {\n            const float2 e = stage[i - base];\n            if (e.y != 0.0f) total = total + e.x * e.y;\n        }\n        __syncwarp();\n    }\n    return total;\n    // [k1 stage: end]\n}\n\n// ---- the power endpoint kernel: a warp wavefront"),
+    ("              dz = 0.0f, thr = 0.0f, plen = 0.0f, t_rx0 = 0.0f;\n        if (!shade) {\n            if (slot >= 0) {\n                // [k1 stage: ray]  trace_lane's receive ray (draws 0..4)",
+     "              dz = 0.0f, thr = 0.0f, plen = 0.0f, t_rx0 = 0.0f;\n        float rx_lam = 0.0f;   // the analog phased receiver's wavelength\n        if (!shade) {\n            if (slot >= 0) {\n                // [k1 stage: ray]  trace_lane's receive ray (draws 0..4)"),
+    ('                    float lam = cvel / fmaxf(cfg.f_rx, F(1e-6));\n                    float w0 = F(4.0 * 3.141592653589793) * sp[30] * sp[31]\n                               * sp[32];\n                    ox = ox + F(1e-4) * nzx;\n                    oy = oy + F(1e-4) * nzy;\n                    oz = oz + F(1e-4) * nzz;\n                    thr = w0 * pair_sum_epx(ix, n_tx, ox, oy, oz, dx, dy, dz,\n                                            lam);\n                } else if (cfg.omni) {',
+     '                    rx_lam = cvel / fmaxf(cfg.f_rx, F(1e-6));\n                    // its weight, times its cross-WDF below\n                    thr = F(4.0 * 3.141592653589793) * sp[30] * sp[31]\n                          * sp[32];\n                    ox = ox + F(1e-4) * nzx;\n                    oy = oy + F(1e-4) * nzy;\n                    oz = oz + F(1e-4) * nzz;\n                } else if (cfg.omni) {'),
+    ('                live = true;\n            }\n            next += stride;\n        } else {\n            // [k1 stage: hit]  the path from its slot, the hit point',
+     "                live = true;\n            }\n            if (cfg.rx_phased) {\n                // [k1 stage: rx_pairs]  the analog phased receiver's\n                // cross-WDF, the warp's together\n                const float w = pair_sum_warp(\n                    ix, n_tx, slot >= 0, ox, oy, oz, dx, dy, dz, rx_lam,\n                    reinterpret_cast<float2*>(w_vals), j);\n                thr = thr * w;\n                // [k1 stage: ray]\n            }\n            next += stride;\n        } else {\n            // [k1 stage: hit]  the path from its slot, the hit point"),
+    ('        const int d0 = base + (3 + 3 * n_tx) * depth;\n        float ud[6];\n',
+     "        const int d0 = base + (3 + 3 * n_tx) * depth;\n        float ud[6];\n        float rx_lam = 0.0f;   // the analog phased receiver's wavelength\n"),
+    ('                    float lam = cvel / fmaxf(f_rx, F(1e-6));\n                    float w0 = F(4.0 * 3.141592653589793) * sp[30] * sp[31]\n                               * sp[32];\n                    ox = ox + F(1e-4) * nzx;\n                    oy = oy + F(1e-4) * nzy;\n                    oz = oz + F(1e-4) * nzz;\n                    // [k1 stage: rx_pairs]\n                    thr = w0 * pair_sum_epx(ix, n_tx, ox, oy, oz, dx, dy, dz,\n                                            lam);\n                    // [k1 stage: ray]\n                } else if (cfg.omni) {',
+     '                    rx_lam = cvel / fmaxf(f_rx, F(1e-6));\n                    // its weight, times its cross-WDF below\n                    thr = F(4.0 * 3.141592653589793) * sp[30] * sp[31]\n                          * sp[32];\n                    ox = ox + F(1e-4) * nzx;\n                    oy = oy + F(1e-4) * nzy;\n                    oz = oz + F(1e-4) * nzz;\n                } else if (cfg.omni) {'),
+    ('                dop = 1.0f + (dx * sp[23] + dy * sp[24] + dz * sp[25]) / cvel;\n                live = true;\n            }\n            next += stride;\n        } else {\n            // [k1 stage: hit]  the path from its slot (slot >= 0), the hit',
+     "                dop = 1.0f + (dx * sp[23] + dy * sp[24] + dz * sp[25]) / cvel;\n                live = true;\n            }\n            if (cfg.rx_phased) {\n                // [k1 stage: rx_pairs]  the analog phased receiver's\n                // cross-WDF, the warp's together\n                const float w = pair_sum_warp(\n                    ix, n_tx, slot >= 0, ox, oy, oz, dx, dy, dz, rx_lam,\n                    reinterpret_cast<float2*>(w_vals), j);\n                thr = thr * w;\n                // [k1 stage: ray]\n            }\n            next += stride;\n        } else {\n            // [k1 stage: hit]  the path from its slot (slot >= 0), the hit"),
+)
+
 # the ablations of the kernel that tested every pair, whose source only a
 # checkout of it (unpacked with git archive) carries
 K4_PARENT = ('k4_rcp', 'k4_lds128', 'k4_warp_any', 'k4_cull')

@@ -5,9 +5,19 @@ boundaries (lane 0 of each warp, after a __syncwarp), summed over the
 warps, at a main path's shape: the flagship (receive_flagship_kernel,
 2^28 Philox lanes, depth 3), the coherent kernel
 (receive_coherent_kernel) on pulse 0 of the pulse train (2^24 lanes,
-depth 1) or the dechirp (2^24, depth 2), or the analytic lobe twins'
+depth 1) or the dechirp (2^24, depth 2), the analytic lobe twins'
 kernel (receive_lobe_kernel) on the windowed corner (2^24 lanes, depth
-6; window_thin in power, window_dielectric in I / Q).
+6; window_thin in power, window_dielectric in I / Q), or the endpoint
+kernels (receive_endpoint_kernel, receive_endpoint_coherent_kernel) on
+the endpoint scenes (2^24 lanes, depth 2: ep_phased_tx, ep_phased_rx,
+ep_four_tx in power, ep_phased_tx_coh in I / Q), where SHADE's
+sub-stages are also read: each thread's cycles in the NEE's and the
+receiver's cross-WDFs and the shadow loops (over 32: warp cycles where
+a whole warp runs them), and the warp's cycles in the splats.  In a
+tree before the endpoint kernels the endpoint configurations read the
+grid-stride twins instead: each thread's cycles in its lanes and, of
+them, in the cross-WDFs (pair_sum), the NEEs, the shadow loops and the
+splats.
 
 Run from the repository root on the card's machine:
 
@@ -44,7 +54,11 @@ KERNELS = {'flagship': 'receive_flagship_kernel',
            'pulse_train': 'receive_coherent_kernel',
            'dechirp': 'receive_coherent_kernel',
            'window_thin': 'receive_lobe_kernel',
-           'window_dielectric': 'receive_lobe_kernel'}
+           'window_dielectric': 'receive_lobe_kernel',
+           'ep_phased_tx': 'receive_endpoint_kernel',
+           'ep_phased_rx': 'receive_endpoint_kernel',
+           'ep_four_tx': 'receive_endpoint_kernel',
+           'ep_phased_tx_coh': 'receive_endpoint_coherent_kernel'}
 SPLAT_CALL = {
     'receive_flagship_kernel':
         '        if (shade) {\n            // [k1 stage: splat]\n'
@@ -140,6 +154,176 @@ SPLAT_PATCH = (
 )
 
 
+# the endpoint kernels' warp loops: their ends (no warp splat there: each
+# transmitter's splats inside SHADE), and their sub-stages' clocks: the
+# NEE's cross-WDF (12), the shadow loop (13), the receiver's cross-WDF
+# (15), per thread; the splats inside SHADE (14), per warp
+EP_KERNELS = ('receive_endpoint_kernel', 'receive_endpoint_coherent_kernel')
+EP_LOOP_END = {
+    'receive_endpoint_kernel':
+        '                | __reduce_or_sync(FULL_MASK, hi && hit ? bit : '
+        '0u);\n    }\n',
+    'receive_endpoint_coherent_kernel':
+        '                | __reduce_or_sync(FULL_MASK, hi_s && hit ? bit : '
+        '0u);\n    }\n'}
+EP_SPLAT = {
+    'receive_endpoint_kernel':
+        '                flag_splat(w_row, w_mask, w_vals, cfg.n_time, val, '
+        'yb, j);\n',
+    'receive_endpoint_coherent_kernel':
+        '                    coh_splat_rows(w_row, w_vals, cfg.n_time, ci, '
+        'si, yb, j);\n'}
+
+
+def ep_patch(kernel: str) -> tuple:
+    """(anchor, text) of an endpoint kernel's loop: the turn clocks of
+    PATCH, its loop's end, and its sub-stages'."""
+    end = EP_LOOP_END[kernel]
+    splat = EP_SPLAT[kernel]
+    return PATCH[1:5] + (
+        (end,
+         end[:-6] + '\n        ck[5] += clock64() - c3;\n    }\n'
+         '    for (int k = 0; k < 16; ++k)\n'
+         '        if (j == 0 || k == 12 || k == 13 || k == 15)\n'
+         '            atomicAdd(&k1_clk[k], ck[k]);\n'),
+        ('thr = w0 * pair_sum_epx(ix, n_tx, ox, oy, oz, dx, dy, dz,\n'
+         '                                            lam);',
+         '{ const long long q0 = clock64();\n'
+         'thr = w0 * pair_sum_epx(ix, n_tx, ox, oy, oz, dx, dy, dz, lam);\n'
+         'ck[15] += clock64() - q0; }'),
+        ('                        // [k1 stage: nee_pairs]\n',
+         '                        // [k1 stage: nee_pairs]\n'
+         '                        const long long q1 = clock64();\n'),
+        ('                        // [k1 stage: nee]\n'
+         '                        float w_tx = sig * tr.gain * ap * TP;',
+         '                        ck[12] += clock64() - q1;\n'
+         '                        // [k1 stage: nee]\n'
+         '                        float w_tx = sig * tr.gain * ap * TP;'),
+        ('                        // [k1 stage: shadow]\n'
+         '                        bool occ = false;\n',
+         '                        // [k1 stage: shadow]\n'
+         '                        const long long q2 = clock64();\n'
+         '                        bool occ = false;\n'),
+        ('                            occ = hit_p && t_p > F(1e-4) && t_p < '
+         'limit;\n                        }\n',
+         '                            occ = hit_p && t_p > F(1e-4) && t_p < '
+         'limit;\n                        }\n'
+         '                        ck[13] += clock64() - q2;\n'),
+        (splat,
+         '                __syncwarp();\n'
+         '                const long long q3 = clock64();\n' + splat
+         + '                __syncwarp();\n'
+         '                ck[14] += clock64() - q3;\n'))
+
+
+# the grid-stride endpoint twins (a parent before the endpoint kernels):
+# each thread's cycles in its lanes (0), their cross-WDFs (1), NEEs (2),
+# shadow loops (3) and splats (4), summed per thread in shared memory
+# and added to the counters at the block's end
+GRID_NAMES = ('lane', 'pairs', 'nee', 'shadow', 'splat')
+GRID_PATCH = (
+    ('__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {',
+     '__device__ unsigned long long k1_clk[16];\n'
+     '__shared__ unsigned k1_acc[5][256];\n\n'
+     '__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {'),
+    ('    if (i0 >= 0) hist[i0 * T] += val * fmaxf(1.0f - fabsf(yb - b0), '
+     '0.0f);\n',
+     '    const long long k1_s0 = clock64();\n'
+     '    if (i0 >= 0) hist[i0 * T] += val * fmaxf(1.0f - fabsf(yb - b0), '
+     '0.0f);\n'),
+    ('        hist[(i0 + 1) * T] += val * fmaxf(1.0f - fabsf(yb - b1), '
+     '0.0f);\n}',
+     '        hist[(i0 + 1) * T] += val * fmaxf(1.0f - fabsf(yb - b1), '
+     '0.0f);\n'
+     '    k1_acc[4][threadIdx.x] += (unsigned)(clock64() - k1_s0);\n}'),
+    ('        if (v == 0.0f) return;\n        if (s != nullptr)\n'
+     '            atomicAdd(s + cell, v);\n        else\n'
+     '            atomicAdd(g + cell, (double)v);\n',
+     '        if (v == 0.0f) return;\n'
+     '        const long long k1_a0 = clock64();\n'
+     '        if (s != nullptr)\n'
+     '            atomicAdd(s + cell, v);\n        else\n'
+     '            atomicAdd(g + cell, (double)v);\n'
+     '        k1_acc[4][threadIdx.x] += (unsigned)(clock64() - k1_a0);\n'),
+    ('        return pair_sum(cfg.php + t * cfg.php_cols, cfg.n_pairs, '
+     'm[0] * iwx,',
+     '        const long long k1_p0 = clock64();\n'
+     '        const float k1_v = pair_sum(cfg.php + t * cfg.php_cols, '
+     'cfg.n_pairs, m[0] * iwx,'),
+    ('                        -ez, lam);\n    }\n    return tr.aperture(',
+     '                        -ez, lam);\n'
+     '        k1_acc[1][threadIdx.x] += (unsigned)(clock64() - k1_p0);\n'
+     '        return k1_v;\n    }\n    return tr.aperture('),
+    ('        thr = w0 * pair_sum(cfg.rxph, cfg.n_rx_pairs, snx, sny, snz, '
+     'tnx,',
+     '        const long long k1_r0 = clock64();\n'
+     '        thr = w0 * pair_sum(cfg.rxph, cfg.n_rx_pairs, snx, sny, snz, '
+     'tnx,'),
+    ('                            dy, dz, lam);\n        base = r0 + 4;\n',
+     '                            dy, dz, lam);\n'
+     '        k1_acc[1][threadIdx.x] += (unsigned)(clock64() - k1_r0);\n'
+     '        base = r0 + 4;\n'),
+    ('                const int dn = d0 + 1 + 3 * t;\n',
+     '                const int dn = d0 + 1 + 3 * t;\n'
+     '                const long long k1_n0 = clock64();\n'),
+    ('                        if constexpr (MESH || DOP) lane_sum += lv;\n'
+     '                    }\n                }\n            }\n'
+     '        } else if (LOB ? lobe_nee',
+     '                        if constexpr (MESH || DOP) lane_sum += lv;\n'
+     '                    }\n                }\n'
+     '                k1_acc[2][threadIdx.x] += '
+     '(unsigned)(clock64() - k1_n0);\n'
+     '            }\n        } else if (LOB ? lobe_nee'),
+    ('                    bool occ = false;\n'
+     '                    for (int p = 0; p < cfg.n_prims && !occ; ++p) {\n'
+     '                        const float* row = prim + p * PRIM_COLS;\n'
+     '                        // transmitter t\'s own rectangle',
+     '                    const long long k1_o0 = clock64();\n'
+     '                    bool occ = false;\n'
+     '                    for (int p = 0; p < cfg.n_prims && !occ; ++p) {\n'
+     '                        const float* row = prim + p * PRIM_COLS;\n'
+     '                        // transmitter t\'s own rectangle'),
+    ('                        occ = hit_p && t_p > F(1e-4) && t_p < limit;\n'
+     '                    }\n                    if constexpr (MESH) {\n'
+     '                        if (!occ) {',
+     '                        occ = hit_p && t_p > F(1e-4) && t_p < limit;\n'
+     '                    }\n'
+     '                    k1_acc[3][threadIdx.x] += '
+     '(unsigned)(clock64() - k1_o0);\n'
+     '                    if constexpr (MESH) {\n'
+     '                        if (!occ) {'),
+    ('    static_assert(!(EP && MED), "the endpoint twins run in vacuum");\n',
+     '    static_assert(!(EP && MED), "the endpoint twins run in vacuum");\n'
+     '    for (int k = 0; k < 5; ++k) k1_acc[k][threadIdx.x] = 0u;\n'),
+    ('        float v = trace_lane<MESH, DOP, COH, MIMO, MED, EP, LOB>(\n'
+     '            cfg, s_par, s_prim, s_msh, tx, lo, mesh_b, dr, my_hist, '
+     'T, grid,\n            &events);\n',
+     '        const long long k1_l0 = clock64();\n'
+     '        float v = trace_lane<MESH, DOP, COH, MIMO, MED, EP, LOB>(\n'
+     '            cfg, s_par, s_prim, s_msh, tx, lo, mesh_b, dr, my_hist, '
+     'T, grid,\n            &events);\n'
+     '        k1_acc[0][threadIdx.x] += (unsigned)(clock64() - k1_l0);\n'),
+    ('    unsigned long long ev = events;\n'
+     '    for (int off = 16; off > 0; off >>= 1)\n'
+     '        ev += __shfl_down_sync(0xffffffffu, ev, off);\n',
+     '    for (int k = 0; k < 5; ++k)\n'
+     '        atomicAdd(&k1_clk[k], (unsigned long long)k1_acc[k][tid]);\n'
+     '    unsigned long long ev = events;\n'
+     '    for (int off = 16; off > 0; off >>= 1)\n'
+     '        ev += __shfl_down_sync(0xffffffffu, ev, off);\n'),
+    PATCH[-1])
+
+
+def instrument_grid(s: str) -> str:
+    """The receive kernel's source `s` with each thread's clocks in the
+    grid-stride endpoint twins' stages (GRID_NAMES)."""
+    for old, new in GRID_PATCH:
+        if s.count(old) != 1:
+            raise SystemExit(f'anchor not found once: {old[:60]!r}')
+        s = s.replace(old, new)
+    return s
+
+
 def _patch_body(s: str, head: str, patch) -> str:
     """`s` with `patch` applied inside the function whose definition
     starts at `head` (each anchor once there)."""
@@ -160,10 +344,23 @@ def instrument(s: str, splat: bool = False,
     """The receive kernel's source `s` with the clock reads added to the
     warp loop of `kernel`; each anchor must appear exactly once (the
     loop's within the kernel's body)."""
-    loop = tuple((old.format(splat=SPLAT_CALL[kernel]),
-                  new.format(splat=SPLAT_CALL[kernel]))
-                 if '{splat}' in old else (old, new)
-                 for old, new in PATCH[1:-1])
+    if kernel in EP_KERNELS and kernel + '(const float' not in s:
+        # a tree before the endpoint kernels: its grid-stride twins
+        return instrument_grid(s)
+    if kernel in EP_KERNELS:
+        # both endpoint kernels: one build serves the four scenes
+        for k in EP_KERNELS:
+            s = _patch_body(s, f'{k}(const float* __restrict__ params,',
+                            ep_patch(k))
+        for old, new in (PATCH[0], PATCH[-1]):
+            if s.count(old) != 1:
+                raise SystemExit(f'anchor not found once: {old[:60]!r}')
+            s = s.replace(old, new)
+        return s
+    loop = tuple(
+        (old.format(splat=SPLAT_CALL[kernel]),
+         new.format(splat=SPLAT_CALL[kernel]))
+        if '{splat}' in old else (old, new) for old, new in PATCH[1:-1])
     glob = (PATCH[0], PATCH[-1])
     if splat:
         if kernel != 'receive_flagship_kernel':
@@ -183,17 +380,28 @@ def instrument(s: str, splat: bool = False,
 
 def instrumented_copy(root: str, splat: bool = False,
                       kernel: str = 'receive_flagship_kernel') -> str:
+    """DIR's package with `kernel` instrumented under _build/k1_clock/;
+    a copy of the same tree and instrumentation (and its library) is
+    kept."""
     dst = os.path.join(HERE, 'beifong_tpu_torch', '_build', 'k1_clock')
+    with open(os.path.join(root, 'beifong_tpu_torch', 'csrc',
+                           'receive_megakernel.cu')) as f:
+        text = instrument(f.read(), splat, kernel)
+    src = os.path.join(dst, 'beifong_tpu_torch', 'csrc',
+                       'receive_megakernel.cu')
+    tag = os.path.join(dst, 'tree')
+    if os.path.exists(src) and os.path.exists(tag):
+        with open(src) as f, open(tag) as g:
+            if f.read() == text and g.read() == root:
+                return dst
     shutil.rmtree(dst, ignore_errors=True)
     shutil.copytree(os.path.join(root, 'beifong_tpu_torch'),
                     os.path.join(dst, 'beifong_tpu_torch'),
                     ignore=shutil.ignore_patterns('_build', '__pycache__'))
-    src = os.path.join(dst, 'beifong_tpu_torch', 'csrc',
-                       'receive_megakernel.cu')
-    with open(src) as f:
-        s = f.read()
     with open(src, 'w') as f:
-        f.write(instrument(s, splat, kernel))
+        f.write(text)
+    with open(tag, 'w') as f:
+        f.write(root)
     return dst
 
 
@@ -204,6 +412,8 @@ def run(tree: str, config: str = 'flagship') -> dict:
     from beifong_tpu_torch.integrators import receive_kernel as rk
     assert rk.__file__.startswith(tree)
     dev = torch.device('cuda')
+    if config.startswith('ep_'):
+        return run_ep(tree, config, rk, scenes, dev)
     s, rx = {'flagship': scenes.flagship_scene,
              'pulse_train': lambda: scenes.pulse_train_scene(0),
              'dechirp': scenes.fmcw_dechirp_scene,
@@ -252,6 +462,56 @@ def run(tree: str, config: str = 'flagship') -> dict:
             'ray_turns': v[8], 'shade_turns': v[9],
             'shade_fill': v[10] / max(1, 32 * v[9]),
             'traced_a_turn': v[11] / max(1, v[8] + v[9])}
+
+
+def run_ep(tree: str, config: str, rk, scenes, dev) -> dict:
+    """An endpoint scene (tools/tree_ab.py's shapes): the endpoint kernels'
+    turn shares and their sub-stages (per thread: the NEE's and the
+    receiver's cross-WDFs, the shadow loops, over 32; per warp: the
+    splats inside SHADE), or a tree's grid-stride twins' per-thread stage
+    shares (GRID_NAMES, of the lanes' cycles)."""
+    import torch
+    sys.path.insert(0, os.path.join(HERE, 'tools'))
+    import tree_ab
+    params, prim, txp, kw = tree_ab.endpoint_call(rk, scenes, config, dev)
+    lib = rk.LIBRARY.get()
+    lib.rk_clock.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    buf = (ctypes.c_ulonglong * 16)()
+    rk.receive_megakernel(params, prim, txp, seed=7, **kw)
+    torch.cuda.synchronize()
+    rk.LIBRARY.check(lib.rk_clock(buf, 1), 'rk_clock')
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    rk.receive_megakernel(params, prim, txp, seed=7, **kw)
+    b.record()
+    torch.cuda.synchronize()
+    rk.LIBRARY.check(lib.rk_clock(buf, 1), 'rk_clock')
+    v = list(buf)
+    card = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
+                           '--format=csv,noheader'], capture_output=True,
+                          text=True).stdout.strip()
+    out = {'card': card, 'config': config,
+           'instrumented_ms': a.elapsed_time(b)}
+    if not hasattr(rk, 'launched_endpoint_kernel'):
+        lane = max(1, v[0])
+        out.update(kernel='grid-stride twin',
+                   share_of_lane_cycles={n: v[i] / lane for i, n in
+                                         enumerate(GRID_NAMES)},
+                   thread_cycles_a_lane=v[0] / kw['n_lanes'])
+        return out
+    tot = sum(v[:len(NAMES)])
+    out.update(kernel=KERNELS[config],
+               share={n: v[i] / tot for i, n in enumerate(NAMES)},
+               within={'nee_pairs': v[12] / 32 / tot,
+                       'shadow': v[13] / 32 / tot,
+                       'rx_pairs': v[15] / 32 / tot,
+                       'splat_in_shade': v[14] / tot},
+               warp_cycles_a_lane=tot * 32 / kw['n_lanes'],
+               ray_turns=v[8], shade_turns=v[9],
+               shade_fill=v[10] / max(1, 32 * v[9]),
+               traced_a_turn=v[11] / max(1, v[8] + v[9]))
+    return out
 
 
 def main() -> int:

@@ -20,7 +20,12 @@ on Philox, it prints whether every lane's sum (`lane_out`) is equal bit
 for bit, the event counts and the largest grid difference over max|acc|
 (the grids sum in another order); `--grids` runs the thin windowed
 corner on a 2-D grid (n_freq 8, the block's grid), a global one (n_freq
-300) and a 4-pulse CPI instead.
+300) and a 4-pulse CPI instead.  The endpoint scenes (EP_CASES: the
+phased transmitter, the analog phased receiver and four transmitters in
+power, the three in I / Q, the phased transmitter's 4-pulse CPI, and the
+phased transmitter on a 2-D grid and a global one in I / Q) run the endpoint
+twins: `--cases ep_phased_tx,...` (depth 2, gate); the power twin
+writes no lane sums, so its grids are compared bit for bit.
 """
 
 from __future__ import annotations
@@ -79,6 +84,15 @@ def _library(path: str):
                     rk._bind(lib)
                 except AttributeError:   # a tree without the launch record
                     pass
+                try:
+                    lib.rk_endpoint_kernel
+                except AttributeError:
+                    # a tree before the endpoint kernels: rk_geometry
+                    # without the index's three sizes
+                    geo = lib.rk_geometry
+                    geo.argtypes = geo.argtypes[:14] + geo.argtypes[17:]
+                    lib.rk_geometry = \
+                        lambda *a: geo(*(a[:14] + a[17:]))
                 self._lib = lib
             return self._lib
     return Emulated('receive_megakernel', 'rk', rk._bind)
@@ -95,12 +109,87 @@ CASES = {'window_thin': ('window_corner_scene', 'thin', 6),
          'mask': ('composite_scene', 'mask', 2)}
 
 
+# the endpoint scenes: (scenes' function, coherent, pulses, n_freq)
+EP_CASES = {'ep_phased_tx': ('phased_tx_scene', False, 1, 1),
+            'ep_phased_rx': ('phased_rx_scene', False, 1, 1),
+            'ep_four_tx': ('four_tx_scene', False, 1, 1),
+            'ep_phased_tx_coh': ('phased_tx_scene', True, 1, 1),
+            'ep_phased_rx_coh': ('phased_rx_scene', True, 1, 1),
+            'ep_four_tx_coh': ('four_tx_scene', True, 1, 1),
+            'ep_phased_tx_cpi': ('phased_tx_scene', True, 4, 1),
+            'ep_phased_tx_2d': ('phased_tx_scene', True, 1, 8),
+            'ep_phased_tx_global': ('phased_tx_scene', True, 1, 300)}
+
+
+def endpoint_tables(name: str, device='cpu'):
+    """(params, prim, txp, keyword arguments of receive_megakernel(_cpi)
+    less the lanes, pulses, the scene's band) of an endpoint case."""
+    import torch
+    from beifong_tpu_torch import scenes as S
+    from beifong_tpu_torch.integrators import receive_kernel as rk
+    fn, coh, n_p, n_freq = EP_CASES[name]
+    P = S.PHASED
+    arg = {'phased_tx_scene': S.steer_toward(P['tx'], S.phased_tx_target()),
+           'phased_rx_scene': P['rx_az']}.get(fn)
+    s, rx = getattr(S, fn)(*(() if arg is None else (arg,)))
+    if n_p > 1:
+        p, rx, _ = rk.pack_cpi(s, n_p, 10.0)
+    else:
+        p = rk.pack_scene(s.compile(use_bvh=False, device='cpu'), rx,
+                          s.shape_index_of_endpoint('receiver', rx.id))
+    adc = dataclasses.replace(rx.adc, n_freq=n_freq)
+    rx_kind = rk.rx_kind_of(rx)
+    params = torch.tensor(p.params, device=device)
+    if n_p == 1:
+        params[0] = rk.seed_slot(3)
+    kw = dict(adc=adc, max_depth=2, time_sampling='gate', rx_kind=rx_kind,
+              doppler=coh, coherent=coh,
+              php=None if p.php is None else torch.tensor(p.php,
+                                                          device=device),
+              rxph=torch.tensor(p.rxph, device=device)
+              if rx_kind == 'phased' else None)
+    return (params, torch.tensor(p.prim, device=device),
+            torch.tensor(p.txp, device=device), kw, n_p, s.band)
+
+
+def compare_endpoint(libs, name: str, n: int, gen) -> dict:
+    """One endpoint case in both trees on injected uniforms and on Philox:
+    {'injected' / 'philox': (lanes equal, events equal, grids equal,
+    largest grid difference over max|acc|)}."""
+    import torch
+    from beifong_tpu_torch.integrators import receive_kernel as rk
+    params, prim, txp, kw, n_p, _ = endpoint_tables(name)
+    n_tx = int(txp.shape[-2])
+    out = {}
+    for mode in ('injected', 'philox'):
+        shape = (n_p, rk.n_draws(2, n_tx), n) if n_p > 1 \
+            else (rk.n_draws(2, n_tx), n)
+        u = torch.rand(shape, generator=gen) if mode == 'injected' else None
+        res = []
+        for which in ('other', 'this'):
+            rk.LIBRARY = libs[which]
+            lane = torch.zeros((n_p, n) if n_p > 1 else n)
+            acc, ev = rk._launch(
+                params, prim, txp, None, u, None,
+                lane if kw['doppler'] else None, n_pulses=n_p, n_lanes=n,
+                seed=13, seed_step=7919 if n_p > 1 else 0, patch_p=0,
+                rule=0, has_lo=False, mirror=False, ep=True, **kw)
+            res.append((acc, ev, lane))
+        (a0, e0, l0), (a1, e1, l1) = res
+        scale = float(a0.abs().max()) or 1.0
+        out[mode] = (torch.equal(l0, l1), torch.equal(e0, e1),
+                     torch.equal(a0, a1),
+                     float((a0 - a1).abs().max()) / scale)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--other', required=True)
     ap.add_argument('--this', default=HERE)
     ap.add_argument('--lanes', type=int, default=4096)
-    ap.add_argument('--cases', default=','.join(CASES))
+    ap.add_argument('--cases', default=','.join(CASES),
+                    help=f'of {tuple(CASES) + tuple(EP_CASES)}')
     ap.add_argument('--grids', action='store_true')
     args = ap.parse_args()
     import torch
@@ -176,6 +265,13 @@ def main() -> int:
             compare('window_thin CPI 4 pulses', p, u, n_pulses=4, seed=3)
         return 0
     for name in args.cases.split(','):
+        if name in EP_CASES:
+            for mode, (lanes, evs, grids, diff) in compare_endpoint(
+                    libs, name, n, gen).items():
+                print(f'{name} {mode}: lanes bit-equal {lanes}, events '
+                      f'equal {evs}, grids bit-equal {grids}, grid max diff '
+                      f'{diff:.3e} of max|acc|', flush=True)
+            continue
         scene, arg, depth = CASES[name]
         for coh in (False, True):
             p = tables(scene, arg, depth, coh)

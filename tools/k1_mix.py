@@ -57,6 +57,7 @@ warp a stage's cost whenever any of its threads runs the stage.
 from __future__ import annotations
 
 import argparse
+import glob
 import json
 import os
 import re
@@ -82,6 +83,11 @@ LOBE_KERNEL = (r'receive_doppler_kernelILb0ELb0ELb0ELb0ELb1E|'
                r'receive_lobe_kernelILb0E')
 LOBE_COH_KERNEL = (r'receive_doppler_kernelILb0ELb1ELb0ELb0ELb1E|'
                    r'receive_lobe_kernelILb1E')
+# the endpoint twins on analytic scenes: the grid-stride instantiations or
+# the endpoint kernels that replaced them
+EP_KERNEL = r'receive_trace_kernelILb0ELb0ELb1EE|receive_endpoint_kernel'
+EP_COH_KERNEL = (r'receive_doppler_kernelILb0ELb1ELb0ELb1ELb0E|'
+                 r'receive_endpoint_coherent_kernel')
 CONFIGS = {'flagship': dict(depth=DEPTH, ts='gate', lanes=MAIN_LANES,
                             kernel=KERNEL),
            'pulse_train': dict(depth=1, ts='gate', lanes=1 << 24,
@@ -93,7 +99,20 @@ CONFIGS = {'flagship': dict(depth=DEPTH, ts='gate', lanes=MAIN_LANES,
            'window_thin': dict(depth=6, ts='gate', lanes=1 << 24,
                                kernel=LOBE_KERNEL),
            'window_dielectric': dict(depth=6, ts='gate', lanes=1 << 24,
-                                     kernel=LOBE_COH_KERNEL)}
+                                     kernel=LOBE_COH_KERNEL),
+           'ep_phased_tx': dict(depth=2, ts='gate', lanes=1 << 24,
+                                kernel=EP_KERNEL),
+           'ep_phased_rx': dict(depth=2, ts='gate', lanes=1 << 24,
+                                kernel=EP_KERNEL),
+           'ep_four_tx': dict(depth=2, ts='gate', lanes=1 << 24,
+                              kernel=EP_KERNEL),
+           'ep_phased_tx_coh': dict(depth=2, ts='gate', lanes=1 << 24,
+                                    kernel=EP_COH_KERNEL)}
+# the endpoint configurations: (scenes' function, coherent)
+EP_SCENES = {'ep_phased_tx': ('phased_tx_scene', False),
+             'ep_phased_rx': ('phased_rx_scene', False),
+             'ep_four_tx': ('four_tx_scene', False),
+             'ep_phased_tx_coh': ('phased_tx_scene', True)}
 # the configurations of the lobe twins, and whether each is the I / Q twin
 LOBE_COHERENT = {'window_thin': False, 'window_dielectric': True}
 # the stages that are bookkeeping, not a lane's work: the warp wavefront's
@@ -106,11 +125,16 @@ BOOKKEEPING = ('sched', 'lane', 'block')
 # second design (the grid-stride instantiation before it 2,974.0,
 # 1,954.9, 4,170.8); the lobe twins' windowed corner, the second design
 # of receive_lobe_kernel (Philox blocks by need; the grid-stride
-# instantiations before it 4,987.8, 5,765.2)
+# instantiations before it 4,987.8, 5,765.2); the endpoint scenes', the
+# endpoint kernels held to six blocks an SM with 64 cells an axis (the
+# grid-stride twins before them 2,194.4, 4,377.7, 4,716.2, 3,329.6)
 LEAST_STAGE_INSTRUCTIONS = {'flagship': 2399.0, 'pulse_train': 2341.9,
                             'dechirp': 1639.5, 'corner': 3462.6,
                             'window_thin': 3461.6,
-                            'window_dielectric': 3904.9}
+                            'window_dielectric': 3904.9,
+                            'ep_phased_tx': 1545.0, 'ep_phased_rx': 3638.7,
+                            'ep_four_tx': 4014.8,
+                            'ep_phased_tx_coh': 2336.7}
 
 # the stages of a flagship lane and the plain version's stat key that counts
 # the entries of each ('rect' and 'occ' per rectangle tested)
@@ -118,7 +142,9 @@ LEAST_STAGE_INSTRUCTIONS = {'flagship': 2399.0, 'pulse_train': 2341.9,
 # the bounce's branches by lobe, beside its common frame and spawn)
 STAGES = ('ray', 'trace', 'closest', 'hit', 'direct', 'nee', 'shadow',
           'phase', 'splat', 'bounce', 'draws', 'sched', 'lane', 'block',
-          'lobe_nee', 'pick', 'mirror', 'diel', 'ggx', 'diffuse')
+          'lobe_nee', 'pick', 'mirror', 'diel', 'ggx', 'diffuse',
+          'rx_pairs', 'rx_terms', 'rx_calls', 'nee_pairs', 'nee_terms',
+          'nee_calls', 'direct_pairs', 'direct_terms', 'direct_calls')
 # the plain version's stat keys a lane's masks are read for (its receive
 # frequency's, counted for every lane, are the ray's: stage_weights_fp32)
 KEYS = ('trace', 'hit', 'direct', 'nee_geom', 'nee', 'occ_tests',
@@ -176,6 +202,13 @@ def scene_of(config: str):
     """(scene, receiver) of a configuration: a snapshot for the corner."""
     sys.path.insert(0, HERE)
     from beifong_tpu_torch import scenes
+    if config in EP_SCENES:
+        fn = EP_SCENES[config][0]
+        P = scenes.PHASED
+        arg = {'phased_tx_scene': (scenes.steer_toward(
+            P['tx'], scenes.phased_tx_target()),),
+            'phased_rx_scene': (P['rx_az'],)}.get(fn, ())
+        return getattr(scenes, fn)(*arg)
     if config in LOBE_COHERENT:
         return scenes.window_corner_scene(config[len('window_'):])
     if config == 'flagship':
@@ -193,6 +226,16 @@ def ref_kw(config: str, rx, packed) -> dict:
     receiver)."""
     kw = dict(adc=rx.adc, max_depth=CONFIGS[config]['depth'],
               time_sampling=CONFIGS[config]['ts'], rx_kind='wigner')
+    if config in EP_SCENES:
+        import torch
+        sys.path.insert(0, HERE)
+        from beifong_tpu_torch.integrators import receive_kernel as rk
+        coh = EP_SCENES[config][1]
+        kw.update(rx_kind=rk.rx_kind_of(rx), doppler=coh, coherent=coh,
+                  php=torch.tensor(packed.php),
+                  rxph=torch.tensor(packed.rxph)
+                  if rk.rx_kind_of(rx) == 'phased' else None)
+        return kw
     if config != 'flagship':
         kw.update(doppler=True, receive_type=rx.receive_type,
                   has_lo=rx.lo_waveform is not None, coherent=True,
@@ -257,8 +300,10 @@ def stage_masks(n_lanes: int, device: str = 'cpu',
     p = rk.pack_scene(sd, rx, s.shape_index_of_endpoint('receiver', rx.id))
     params, prim, txp = (torch.tensor(a, device=device)
                          for a in (p.params, p.prim, p.txp))
-    kw = ref_kw(config, rx, p)
-    u = rk.philox_uniforms(SEED, rk.n_draws(kw['max_depth'], 1,
+    kw = {k: v.to(device) if isinstance(v, torch.Tensor) else v
+          for k, v in ref_kw(config, rx, p).items()}
+    u = rk.philox_uniforms(SEED, rk.n_draws(kw['max_depth'],
+                                            int(txp.shape[0]),
                                             **rk.lobe_draws(kw.get('lobes')
                                                             or 0)),
                            n_lanes, device=device)
@@ -266,6 +311,11 @@ def stage_masks(n_lanes: int, device: str = 'cpu',
     with Capture():
         rk.receive_megakernel_ref(params, prim, txp, u, stats=stats, **kw)
     n_rect = int((prim[:, 0] == 0).sum())
+    # the cross-WDFs' totals (not masks): pair sums, pairs tested, pairs
+    # the endpoint kernels' index visits
+    out.append(('_pairs', -1, dict({k: stats.get(k, 0) for k in (
+        'pair_sums', 'pair_tests', 'pair_visits', 'pair_terms',
+        'phased_ray')}, n_tx=int(txp.shape[0]))))
     return out, n_rect
 
 
@@ -277,6 +327,12 @@ def per_lane(masks, n_lanes: int):
         if key in a and m.shape == (n_lanes,):
             a[key][:, d] += m
     return a
+
+
+def pair_totals(masks) -> dict:
+    """The plain version's cross-WDF totals of a stage_masks run (pair
+    sums, tests, visits, terms, phased rays) and its transmitters."""
+    return next((m for key, _, m in masks if key == '_pairs'), {})
 
 
 def philox_blocks(a: dict, fixed: bool = False, stride: int = 6,
@@ -330,6 +386,49 @@ def stage_blocks(a: dict, direct: bool = False,
     if direct:
         b += a['direct'].sum(axis=1)
     return b
+
+
+def ep_blocks(a: dict, n_tx: int, turns: bool) -> np.ndarray:
+    """Philox blocks each lane computes in the endpoint twins (gate
+    sampling, draws 5 + (3 + 3 n_tx) d on at depth d): the grid-stride
+    twins' cached block (a block where a draw's index / 4 differs from the
+    last one's: direct d0, transmitter t's NEE d0 + 1 + 3 t, + 2 (+ 3 past
+    its cosine test), the bounce d0 + 1 + 3 n_tx, + 2), or (`turns`) the
+    endpoint kernels': two for the ray, one or two for each NEE's three
+    draws and for the bounce's, one for a direct hit.  The plain version
+    counts a depth's NEEs, not which transmitters: the first ones are
+    taken."""
+    n, depth = a['trace'].shape
+    stride = 3 + 3 * n_tx
+    bounce = a['bounce'] + a['ggx_bounce'] + a['mirror_bounce']
+
+    def span(first, k):
+        return 1 + ((first + k - 1) >> 2) - (first >> 2)
+    if turns:
+        b = np.full(n, 2.0)
+        for d in range(depth):
+            d0 = 5 + stride * d
+            b += a['direct'][:, d]
+            for t in range(n_tx):
+                b += (a['nee_geom'][:, d] > t) * span(d0 + 1 + 3 * t, 3)
+            b += bounce[:, d] * span(d0 + 1 + 3 * n_tx, 3)
+        return b
+    seqs = []
+    for lane in range(n):
+        idx = [1, 2, 3, 4]
+        for d in range(depth):
+            d0 = 5 + stride * d
+            if a['direct'][lane, d]:
+                idx.append(d0)
+            for t in range(min(n_tx, int(a['nee_geom'][lane, d]))):
+                idx += [d0 + 1 + 3 * t, d0 + 2 + 3 * t]
+                if t < a['nee'][lane, d]:
+                    idx.append(d0 + 3 + 3 * t)
+            if bounce[lane, d]:
+                idx += [d0 + 1 + 3 * n_tx, d0 + 2 + 3 * n_tx]
+        g = [i >> 2 for i in idx]
+        seqs.append(1 + sum(x != y for x, y in zip(g, g[1:])))
+    return np.asarray(seqs, np.float64)
 
 
 def stage_weights_fp32(n_rect: int, config: str = 'flagship') -> dict:
@@ -540,11 +639,17 @@ def line_stages(source: str) -> dict:
 def func_ranges(source: str) -> dict:
     """{name: (first, last)} lines of the helpers whose inlined code is
     its own stage: Philox and the draws, the tent splats, the echo phase
-    (conn_splat's, less its grid splat)."""
+    (conn_splat's, less its grid splat), the cross-WDFs (pair_sum, its
+    loop over the pairs, pair_sum_epx, pair_sum_warp)."""
     with open(source) as f:
         lines = f.read().splitlines()
     out = {}
-    for name, pat in (('draws', r'uint4 philox4x32_10\('),
+    for name, pat in (('pairs', r'float pair_sum\(const float'),
+                      ('pairs_loop', r'for \(int k = 0; k < n_k; \+\+k\) \{'),
+                      ('pairs_term', r'const float val_k = __ldg\(q \+ 5\);'),
+                      ('pairs_x', r'float pair_sum_epx\('),
+                      ('pairs_w', r'float pair_sum_warp\('),
+                      ('draws', r'uint4 philox4x32_10\('),
                       ('draws_flag', r'uint4 flag_block\('),
                       ('draws_coh', r'uint4 coh_block\('),
                       ('draws_get', r'__device__ float get\(int idx\)'),
@@ -586,13 +691,23 @@ def source_of(tree: str) -> str:
 def build_cubin(tree: str) -> str:
     """A cubin of the tree's receive kernel with -lineinfo and otherwise
     the library's flags (-lineinfo leaves the machine code as it is);
-    ptxas's report goes to the cubin's path + '.log'."""
+    ptxas's report goes to the cubin's path + '.log'.  A cubin of the same
+    source and flags is reused."""
+    import hashlib
     sys.path.insert(0, tree)
     from beifong_tpu_torch import _nvcc
-    cubin = os.path.join(tree, 'beifong_tpu_torch', '_build', 'k1_mix.cubin')
-    os.makedirs(os.path.dirname(cubin), exist_ok=True)
     flags = [f for f in _nvcc.NVCC_FLAGS
              if f not in ('-shared', '-Xcompiler', '-fPIC')]
+    digest = hashlib.sha256(' '.join(flags).encode())
+    for path in [source_of(tree)] + sorted(glob.glob(os.path.join(
+            os.path.dirname(source_of(tree)), '*.cuh'))):
+        with open(path, 'rb') as f:
+            digest.update(f.read())
+    cubin = os.path.join(tree, 'beifong_tpu_torch', '_build',
+                         f'k1_mix_{digest.hexdigest()[:16]}.cubin')
+    if os.path.exists(cubin) and os.path.exists(cubin + '.log'):
+        return cubin
+    os.makedirs(os.path.dirname(cubin), exist_ok=True)
     res = subprocess.run([_nvcc._nvcc(), *flags, '-cubin', '-lineinfo', '-o',
                           cubin, source_of(tree)], check=True,
                          capture_output=True, text=True)
@@ -630,6 +745,13 @@ p = rk.pack_scene(s.compile(use_bvh=False, device='cpu'), rx,
                   s.shape_index_of_endpoint('receiver', rx.id))
 kw = k1_mix.ref_kw({config!r}, rx, p)
 lob = {{'lobes': True}} if kw.get('lobes') else {{}}
+if {config!r} in k1_mix.EP_SCENES:
+    import inspect
+    lob = {{'ep': True}}
+    if 'n_pairs' in inspect.signature(rk.launch_geometry).parameters:
+        lob.update(n_tx=p.txp.shape[0], n_pairs=(p.php.shape[1] - 2) // 6,
+                   n_rx_pairs=(p.rxph.shape[1] - 2) // 6
+                   if kw['rx_kind'] == 'phased' else 0)
 n_pulses = 64 if {config!r} == 'corner' else 1
 g = rk.launch_geometry(rx.adc.n_time, k1_mix.CONFIGS[{config!r}]['lanes']
                        // n_pulses, p.prim.shape[0], p.params.shape[-1],
@@ -709,15 +831,19 @@ def disassemble(cubin: str, kernel: str, out_txt: str):
 
 
 def sass_mix(cubin: str, src: str, kernel: str, a: dict, n_rect: int,
-             out_txt: str, config: str = 'flagship') -> dict:
+             out_txt: str, config: str = 'flagship',
+             pairs: dict | None = None) -> dict:
     """The kernel's instruction mix by stage and class, and its
     thread-instructions a lane under the stage entries `a`."""
     name, ins = disassemble(cubin, kernel, out_txt)
+    ep = config in EP_SCENES
     # the Philox blocks a lane computes: the grid-stride kernel's Draws
     # cache one block, the flagship, coherent and lobe kernels' stages
     # take theirs at their start
     stride, pick = draw_stride(lobe_kw(config))
-    if 'receive_flagship_kernel' in name:
+    if ep:
+        phx = ep_blocks(a, pairs['n_tx'], 'endpoint' in name)
+    elif 'receive_flagship_kernel' in name:
         phx = stage_blocks(a)
     elif 'receive_coherent_kernel' in name:
         phx = stage_blocks(a, direct=True)
@@ -733,6 +859,33 @@ def sass_mix(cubin: str, src: str, kernel: str, a: dict, n_rect: int,
         r = helpers.get(h)
         return r is not None and r[0] <= ln <= r[1]
 
+    def in_pairs(x):
+        return in_helper(x, 'pairs') or in_helper(x, 'pairs_x') \
+            or in_helper(x, 'pairs_w')
+
+    def pair_stage(chain):
+        """A cross-WDF's instruction: its copy's site (the receiver's ray,
+        a direct hit, an NEE) and part (a pair's test and term, or the
+        sum's set-up and, in the endpoint kernels, the index's look-up)."""
+        if not any(in_pairs(x) for x in chain):
+            return None
+        up = next((stages[x] for x in chain if x in stages
+                   and not in_pairs(x)), 'ray')
+        site = 'rx' if up in ('ray', 'rx_pairs') else \
+            'direct' if up == 'direct' else 'nee'
+        if any(in_helper(x, 'pairs') for x in chain):
+            part = 'terms' if any(in_helper(x, 'pairs_term')
+                                  and in_helper(x, 'pairs_loop')
+                                  for x in chain) else \
+                'pairs' if any(in_helper(x, 'pairs_loop')
+                               for x in chain) else 'calls'
+        else:
+            tag = next((stages[x] for x in chain if x in stages and (
+                in_helper(x, 'pairs_x') or in_helper(x, 'pairs_w'))), None)
+            part = {'pairs': 'pairs', 'pair_terms': 'terms'}.get(tag,
+                                                                 'calls')
+        return f'{site}_{part}'
+
     by = {s: {} for s in STAGES}
     rcp = dict.fromkeys(STAGES, 0)   # division sequences (MUFU.RCP) a stage
     for op, chain in ins:
@@ -746,6 +899,8 @@ def sass_mix(cubin: str, src: str, kernel: str, a: dict, n_rect: int,
         elif any(in_helper(x, h) for x in chain
                  for h in ('phase', 'phase_f', 'phase_h', 'phase_c')):
             st = 'phase'
+        elif pair_stage(chain) is not None:
+            st = pair_stage(chain)
         else:
             st = next((stages[x] for x in chain if x in stages), 'block')
             if st not in by:
@@ -792,6 +947,28 @@ def sass_mix(cubin: str, src: str, kernel: str, a: dict, n_rect: int,
     # t) a copy of its body: each copy runs for a part of the tests
     for st in ('closest', 'shadow'):
         ex[st] /= max(1, rcp[st])
+    # the cross-WDFs by copy: a pair's test once a pair tested (the
+    # grid-stride twins: every pair; the endpoint kernels: the pairs the
+    # index visits), its term once a pair inside its footprint, the
+    # set-up once a sum.  The endpoint scenes' phased arrays are the
+    # receiver's or the transmitters', never both; a direct hit's sum is
+    # taken as long as an NEE's
+    pr = pairs or {}
+    sums = pr.get('pair_sums', 0)
+    per = {'pairs': pr.get('pair_visits', 0) if 'endpoint' in name
+           else pr.get('pair_tests', 0),
+           'terms': pr.get('pair_terms', 0), 'calls': sums}
+    for k in ('rx', 'direct', 'nee'):
+        for part in per:
+            ex[f'{k}_{part}'] = 0.0
+    d = 0.0 if pr.get('phased_ray', 0) or not sums \
+        else float(min(a['direct'].sum(), sums))
+    for part, v in per.items():
+        if pr.get('phased_ray', 0):
+            ex[f'rx_{part}'] = v / n
+        elif sums:
+            ex[f'direct_{part}'] = d * v / sums / n
+            ex[f'nee_{part}'] = (v - d * v / sums) / n
     totals = {s: sum(v.values()) for s, v in by.items()}
     per_lane = {s: totals[s] * ex[s] for s in STAGES}
     stage_ti = sum(v for s, v in per_lane.items() if s not in BOOKKEEPING)
@@ -847,11 +1024,16 @@ def main() -> int:
     masks, n_rect = stage_masks(n, config=args.config)
     a = per_lane(masks, n)
     stride, pick = draw_stride(lobe_kw(args.config))
-    phx = philox_blocks(a, stride=stride, pick=pick)
+    pairs = pair_totals(masks)
+    phx = ep_blocks(a, pairs['n_tx'], False) \
+        if args.config in EP_SCENES \
+        else philox_blocks(a, stride=stride, pick=pick)
     res = {'config': args.config, 'lanes': n, 'depth': cfg['depth'],
            'seed': SEED,
            'n_rect': n_rect,
            'per_lane': {k: float(v.sum()) / n for k, v in a.items()},
+           'pairs_a_lane': {k: v / n for k, v in pairs.items()
+                            if k != 'n_tx'},
            'philox_blocks_a_lane': float(phx.mean())}
     if args.simt:
         res['fp32_weights'] = w = stage_weights_fp32(n_rect, args.config)
@@ -860,15 +1042,15 @@ def main() -> int:
         res['pool_fused_fp32'] = pool_model(a, w, fused=True)
     if args.sass:
         tag = os.path.basename(os.path.abspath(args.sass)) or 'tree'
-        mix = sass_mix(args.listing or build_cubin(args.sass),
+        cubin = args.listing or build_cubin(args.sass)
+        mix = sass_mix(cubin,
                        source_of(args.sass), cfg['kernel'], a, n_rect,
                        os.path.join(HERE, 'chiprun_out',
                                     f'k1_sass_{tag}_{args.config}.txt'),
-                       args.config)
+                       args.config, pairs)
         res['sass'] = mix
         if not args.listing:
-            with open(os.path.join(args.sass, 'beifong_tpu_torch', '_build',
-                                   'k1_mix.cubin.log')) as f:
+            with open(cubin + '.log') as f:
                 res['ptxas'] = ptxas_of(f.read(), cfg['kernel'])
             res['geometry'] = tree_geometry(os.path.abspath(args.sass),
                                             args.config)

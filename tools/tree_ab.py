@@ -23,7 +23,11 @@ lanes: the windowed corner (depth 6; the thin window in power, the
 smooth one in I / Q), the depth-2 plastic, rough plastic, GGX glass
 (target and through, the latter also in I / Q), blend and mask scenes in
 power, and the windowed corner's 16-pulse CPI (2^20 lanes a pulse) in
-one launch (one warm-up, then ten calls each), K4's closest-hit and
+one launch (one warm-up, then ten calls each), the endpoint twins on
+the endpoint scenes at 2^24 Philox lanes, depth 2, gate (ep_phased_tx,
+ep_phased_rx, ep_four_tx in power, ep_phased_tx_coh in I / Q: the
+analytic endpoint kernels, or in a tree before them the grid-stride
+twins), K4's closest-hit and
 shadow kernels at chip_smoke.K4_SHAPES (the wavefront's 2^17 rays x 324
 faces, the query's 2^18 x 10,082 and 2^17 x 968: twenty calls queued
 behind a sleeping kernel, five times), and the host time of ten
@@ -41,7 +45,8 @@ times DIR2 in place of this tree, and only the named configurations
 (comma-separated; an ablation's pairs need only the flagship; the lobe
 twins' are window_thin, window_dielectric, lobe_plastic,
 lobe_rough_plastic, lobe_rough_dielectric, lobe_through,
-lobe_through_iq, lobe_blend, lobe_mask and window_cpi; K4's are
+lobe_through_iq, lobe_blend, lobe_mask and window_cpi; the endpoint
+twins' ep_phased_tx, ep_phased_rx, ep_four_tx and ep_phased_tx_coh; K4's are
 k4_closest and k4_any, which build only K4's library).
 
     python3 tools/tree_ab.py --other DIR --sass
@@ -56,6 +61,7 @@ encodings are dropped.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import inspect
 import json
 import os
@@ -109,10 +115,39 @@ LOBE_PATHS = {'window_thin': ('window_corner_scene', 'thin', 6, False),
               'lobe_mask': ('composite_scene', 'mask', 2, False)}
 WINDOW_CPI_PULSES = 16
 
+# the endpoint scenes: (scenes' function, coherent)
+EP_PATHS = {'ep_phased_tx': ('phased_tx_scene', False),
+            'ep_phased_rx': ('phased_rx_scene', False),
+            'ep_four_tx': ('four_tx_scene', False),
+            'ep_phased_tx_coh': ('phased_tx_scene', True)}
+EP_LANES = 1 << 24
+EP_DEPTH = 2
+
 K4_NAMES = ('k4_closest', 'k4_any')
 NAMES = ('flagship', 'mesh', 'multi_body', 'range_doppler', 'coherent',
          'coherent_mesh') + COH_PATHS + CPI_PATHS + tuple(LOBE_PATHS) \
-    + ('window_cpi',) + K4_NAMES
+    + ('window_cpi',) + tuple(EP_PATHS) + K4_NAMES
+
+
+def endpoint_call(rk, scenes, name: str, dev):
+    """(params, prim, txp, keyword arguments) of receive_megakernel on an
+    endpoint scene at chip_smoke.py's shapes, in the imported tree."""
+    import torch
+    fn, coh = EP_PATHS[name]
+    P = scenes.PHASED
+    arg = {'phased_tx_scene': (scenes.steer_toward(
+        P['tx'], scenes.phased_tx_target()),),
+        'phased_rx_scene': (P['rx_az'],)}.get(fn, ())
+    s, rx = getattr(scenes, fn)(*arg)
+    p = rk.pack_scene(s.compile(use_bvh=False, device='cpu'), rx,
+                      s.shape_index_of_endpoint('receiver', rx.id))
+    rx_kind = rk.rx_kind_of(rx)
+    params, prim, txp, php, rxph = (torch.tensor(a, device=dev) for a in (
+        p.params, p.prim, p.txp, p.php, p.rxph))
+    kw = dict(adc=rx.adc, max_depth=EP_DEPTH, time_sampling='gate',
+              rx_kind=rx_kind, n_lanes=EP_LANES, doppler=coh, coherent=coh,
+              php=php, rxph=rxph if rx_kind == 'phased' else None)
+    return params, prim, txp, kw
 
 
 def k4_child(cs, only: tuple) -> dict:
@@ -216,6 +251,20 @@ def child(root: str, only: tuple = NAMES) -> dict:
                   lobes=p.lobes, **lead)
         ms, _ = cs.cuda_ms(lambda i: fn(params, prim, txp, **kw), CALLS + 1)
         out[f'{name}_ms'] = ms[1:]
+    for name in only:
+        if name not in EP_PATHS:
+            continue
+        params, prim, txp, kw = endpoint_call(rk, scenes, name, dev)
+        ms, _ = cs.cuda_ms(lambda i: rk.receive_megakernel(
+            params, prim, txp, seed=cs.SEED, **kw), CALLS + 1)
+        out[f'{name}_ms'] = ms[1:]
+        # the result's bits (a repeat, and a tree that differs only in how
+        # it sums, give the same hash where the sums are in a fixed order)
+        acc, n_ev = rk.receive_megakernel(params, prim, txp, seed=cs.SEED,
+                                          **kw)
+        out[f'{name}_sha'] = hashlib.sha1(
+            acc.cpu().numpy().tobytes()
+            + n_ev.cpu().numpy().tobytes()).hexdigest()[:16]
     for name, scene, n_lanes, depth, doppler, coherent in timed_configs(
             chip_smoke, flagship_scene, mesh_scene, multi_body_scene,
             range_doppler_scene, pulse_train_scene):
@@ -392,6 +441,12 @@ def main() -> int:
                                               / summary[f'{name}_other_ms'])
         summary[f'{name}_pairs_won_by_this'] = sum(
             b < a for a, b in zip(meds['other'], meds['this']))
+        if f'{name}_sha' in runs['this'][0]:
+            shas = {w: {r[f'{name}_sha'] for r in rs}
+                    for w, rs in runs.items()}
+            summary[f'{name}_repeats_equal'] = {w: len(v) == 1
+                                                for w, v in shas.items()}
+            summary[f'{name}_trees_bit_equal'] = shas['this'] == shas['other']
         for w, rs in runs.items():
             for k in ('host', 'lookup'):
                 if f'{name}_{k}_ms' in rs[0]:
