@@ -138,8 +138,9 @@ MAX_N_TIME_ROWS = 512
 MAX_SMEM_CELLS = 16384
 MAX_SMEM_COH_CELLS = MAX_SMEM_CELLS // 2
 MAX_ADC_CELLS = 1 << 20
-# - the coherent kernel on analytic scenes (receive_coherent_kernel) and
-#   the analytic lobe twins' kernel (receive_lobe_kernel) sum a 1-D grid
+# - the coherent kernel on analytic scenes (receive_coherent_kernel), the
+#   analytic lobe twins' kernel (receive_lobe_kernel) and the analytic
+#   Doppler power kernel (receive_doppler_power_kernel) sum a 1-D grid
 #   of at most COH_ROW_VALS values (I and Q, or the power, of n_time
 #   bins) into a row of doubles a warp, each bin's taps in lane order:
 #   their repeats are bit-identical; larger grids keep the block's or the
@@ -2484,6 +2485,8 @@ def _bind(lib):
     lib.rk_lobe_kernel.restype = vp
     lib.rk_endpoint_kernel.argtypes = [i32]
     lib.rk_endpoint_kernel.restype = vp
+    lib.rk_doppler_power_kernel.argtypes = [i32]
+    lib.rk_doppler_power_kernel.restype = vp
 
 
 LIBRARY = _nvcc.Library('receive_megakernel', 'rk', _bind)
@@ -2510,6 +2513,17 @@ def launched_endpoint_kernel(coherent: bool) -> bool:
     return lib.rk_last_kernel() == lib.rk_endpoint_kernel(int(coherent))
 
 
+def launched_doppler_power_kernel(twin: str = '') -> bool:
+    """Whether the last launch on a card ran the analytic Doppler power
+    configuration's kernel (receive_doppler_power_kernel), or with `twin`
+    'media' / 'ep' that configuration's grid-stride media or endpoint twin
+    (receive_doppler_kernel<false, false, MED, EP>): the library's launch
+    record."""
+    lib = LIBRARY.get()
+    which = {'': 0, 'media': 1, 'ep': 2}[twin]
+    return lib.rk_last_kernel() == lib.rk_doppler_power_kernel(which)
+
+
 def grid_mode(n_cells: int, doppler: bool, coherent: bool = False,
               n_elem: int = 0) -> int:
     """How the kernel accumulates an ADC grid of `n_cells`: 0 private
@@ -2528,7 +2542,8 @@ def grid_mode(n_cells: int, doppler: bool, coherent: bool = False,
 
 def coherent_warp_rows(adc: ADCConfig, coherent: bool = True) -> bool:
     """Whether a coherent call on an analytic scene, or (`coherent` False)
-    a power call of an analytic lobe twin, sums its grid in warp rows
+    a power call of an analytic lobe twin or of the analytic Doppler
+    configuration, sums its grid in warp rows
     (bit-identical repeats): a 1-D grid of at most COH_ROW_VALS / 2 bins
     (COH_ROW_VALS in power)."""
     return adc.n_freq == 1 \

@@ -556,6 +556,21 @@ def mimo_azimuth_scan(az_deg: float = MIMO['az_deg'], device='cpu'):
     return az, dirs, int(np.abs(np.degrees(az) - az_deg).argmin())
 
 
+def mixer_receiver(scene, rx, beat_hi: float = 2e3, n_time: int | None = None):
+    """The scene's receiver as a mixer: the first transmitter's waveform
+    as its LO (params[33:42]), a beat window [0, beat_hi] Hz drawn a lane
+    (the receive frequency is the LO's less the beat), and optionally
+    n_time fast-time bins; the scene's receiver is replaced.  Returns
+    (scene, receiver spec)."""
+    import dataclasses as dc
+    adc = dc.replace(rx.adc, freq_lo=0.0, freq_hi=beat_hi,
+                     n_time=rx.adc.n_time if n_time is None else n_time)
+    rx = dc.replace(rx, receive_type='mixer', adc=adc,
+                    lo_waveform=scene.transmitters[0].waveform)
+    scene.receivers[0] = rx
+    return scene, rx
+
+
 def round_trip_bin(scene, rx, target=(0.0, -4.0, 0.0), tx=None) -> float:
     """Fast-time bin (continuous, bin centres at integers) of the
     transmitter (`tx`, a spec; the first by default) -> target ->

@@ -53,7 +53,11 @@ Phases (any failure exits non-zero before the last line is printed):
              multi_body and the range-Doppler pulse through `receive()` at
              2^24 samples, depth 2, gate sampling (one warm-up, five timed
              calls each), each launching the Doppler configuration of K1
-             and no K4, the bodies and the plate at their range gates and
+             and no K4 (the range-Doppler pulse, like every analytic power
+             scene of the Doppler and fmcw_sonar parity, the Doppler power
+             kernel `receive_doppler_power_kernel` by the launch record,
+             with its geometry, registers, SASS mix and issue-slot bound),
+             the bodies and the plate at their range gates and
              Doppler bins; then a ray query on the mesh: bvh_closest of
              2^20 receiver rays, bvh_any of their hits toward the
              transmitter.  Each path must have launched its kernels; the
@@ -118,7 +122,13 @@ Phases (any failure exits non-zero before the last line is printed):
              one's, each transmitter's echo within 2 bins of its own round
              trip), the kernel alone, K1 against the wavefront at 2^20
              (peak bins within 2, window energies within 0.2-5x; the
-             coherent case averaged over 16 seeds on each route);
+             coherent case averaged over 16 seeds on each route); then
+             the receive rules (`rule_parity`): the I / Q endpoint kernel
+             on the analog phased receiver and on the phased transmitter
+             under a mixer with an LO, and (at the lobes phase's end) the
+             lobe kernel on the rough plastic under that mixer in power
+             and I / Q, each on injected uniforms (2^16 lanes) and Philox
+             (2^20) lane by lane against the plain version;
    wavefront - the eager receive wavefront: ray_triangle_closest /
              ray_triangle_any (K4) against their plain versions, bit for
              bit, at the wavefront's shape (2^17 receiver rays x the
@@ -483,6 +493,7 @@ def print_build(infos: dict, tag: str) -> None:
                                               ' lobes)' if lob else ')'))
     names['receive_flagship_kernel'] = 'receive_megakernel (flagship)'
     names['receive_coherent_kernel'] = 'receive_megakernel (coherent)'
+    names['receive_doppler_power_kernel'] = 'receive_megakernel (doppler)'
     names['receive_lobe_kernelILb0E'] = 'receive_megakernel (doppler lobes)'
     names['receive_lobe_kernelILb1E'] = \
         'receive_megakernel (coherent lobes)'
@@ -518,7 +529,9 @@ MIX_KERNEL = {'flagship': 'receive_flagship_kernel',
               'ep_phased_tx': 'receive_endpoint_kernel',
               'ep_phased_rx': 'receive_endpoint_kernel',
               'ep_four_tx': 'receive_endpoint_kernel',
-              'ep_phased_tx_coh': 'receive_endpoint_coherent_kernel'}
+              'ep_phased_tx_coh': 'receive_endpoint_coherent_kernel',
+              'range_doppler': 'receive_doppler_power_kernel',
+              'fmcw_sonar': 'receive_doppler_power_kernel'}
 
 
 def kernel_mix(dev, tag, build_log: str, cubin: str, config: str,
@@ -980,10 +993,12 @@ def _doppler_tables(torch, rk, scene_fn, dev):
             torch.tensor(packed.txp, device=dev), kw)
 
 
-def doppler(torch, bt, rk, ik, dev, tag):
+def doppler(torch, bt, rk, ik, dev, tag, build_log: str, cubin: str):
     """The Doppler configuration of K1: parity, the main paths, the kernel
-    alone.  Returns (two kernel entries, K1's developed multi_body grid at
-    WF_SAMPLES for the comparison with the wavefront)."""
+    alone (the analytic scenes' the Doppler power kernel, which the
+    launch record shows ran).  Returns (two kernel entries, K1's developed
+    multi_body grid at WF_SAMPLES for the comparison with the
+    wavefront)."""
     import dataclasses as dc
     from beifong_tpu_torch.scenes import (flagship_scene, multi_body_scene,
                                           range_doppler_scene)
@@ -1032,6 +1047,9 @@ def doppler(torch, bt, rk, ik, dev, tag):
                           dtype=torch.float64, device=dev)
         acc, n_ev = rk.receive_megakernel(params, prim, txp, n_lanes=n_lanes,
                                           uniforms=u, lane_out=lane, **kw)
+        if rk.launched_doppler_power_kernel() != (kw['mesh'] is None):
+            fail(f'doppler {what}: the launch record does not show the '
+                 f'Doppler power kernel on an analytic scene alone')
         ms, (ref, n_ref) = wall_ms(lambda: rk.receive_megakernel_ref(
             params, prim, txp, u, lane_out=lane_ref, amp_out=amp, **kw))
         mode = rk.grid_mode(rx.adc.n_time * rx.adc.n_freq, True)
@@ -1129,6 +1147,9 @@ def doppler(torch, bt, rk, ik, dev, tag):
         call_ms, (adc, n) = cuda_ms(lambda i: run_main(2 + i), 5)
         launches = rk.receive_megakernel.launches
         by_cfg = dict(rk.receive_megakernel.by_config)
+        if rk.launched_doppler_power_kernel() != (mesh is None):
+            fail(f'the {what} path: the launch record does not show the '
+                 f'Doppler power kernel on the analytic scene alone')
         k4 = (ik.ray_triangle_closest.launches, ik.ray_triangle_any.launches)
         if launches < 6 or by_cfg[cfg_name] != launches or k4 != (0, 0) \
                 or n0 != DOP_LANES or n != DOP_LANES:
@@ -1163,6 +1184,10 @@ def doppler(torch, bt, rk, ik, dev, tag):
         n_bytes = 4 * (sum(t.numel() for t in tab)
                        + rx.adc.n_time * rx.adc.n_freq) + 8
         b = bound(lane_ops(stats, n_rect), n_bytes, f'{what} 2^24 lanes')
+        # the Doppler power kernel's issue-slot bound (tools/k1_mix.py)
+        mix = {} if mesh is not None else kernel_mix(
+            dev, tag, build_log, cubin, 'range_doppler',
+            (blocks, threads, smem), sms)
         entries.append({
             'name': 'receive_megakernel',
             'configuration': cfg_name.replace('_', ' '), 'route': 'cuda',
@@ -1175,7 +1200,7 @@ def doppler(torch, bt, rk, ik, dev, tag):
             'max_abs_err': max(c['err'] for c in errs[cfg_name]),
             'parity': max(c['rel'] for c in errs[cfg_name]),
             'repeat_rel': rep / scale, 'ms': k_med, 'plain_ms': plain_ms,
-            'receive_ms': med, **b, 'library_ms': None})
+            'receive_ms': med, **b, 'library_ms': None, **mix})
     return entries, k1_grid
 
 
@@ -1373,10 +1398,13 @@ def coherent(torch, bt, rk, ik, dev, tag, build_log: str,
                           dtype=torch.float64, device=dev)
         acc, n_ev = rk.receive_megakernel(params, prim, txp, n_lanes=n_lanes,
                                           uniforms=u, lane_out=lane, **kw)
+        mesh = kw['mesh'] is not None
+        if rk.launched_doppler_power_kernel() != (not coh and not mesh):
+            fail(f'{what}: the launch record does not show the Doppler '
+                 f'power kernel on an analytic power scene alone')
         ms, (ref, n_ref) = wall_ms(lambda: rk.receive_megakernel_ref(
             params, prim, txp, u, lane_out=lane_ref,
             amp_out=amp if coh else None, **kw))
-        mesh = kw['mesh'] is not None
         name = (f'{what} injected 2^{n_lanes.bit_length() - 1} lanes, '
                 f'{ts} (grid mode '
                 f'{rk.grid_mode(rx.adc.n_time * rx.adc.n_freq, True, coh)})')
@@ -1422,11 +1450,23 @@ def coherent(torch, bt, rk, ik, dev, tag, build_log: str,
           f'bin {pk}, slope 2R/c at bin {want} ({f_beat:.1f} Hz) {tag}')
     if abs(pk - want) > 2:
         fail(f'fmcw_sonar: beat peak at bin {pk}, expected {want}')
+    if not rk.launched_doppler_power_kernel():
+        fail('fmcw_sonar path: the launch record does not show the Doppler '
+             'power kernel')
     k_ms, _ = cuda_ms(lambda i: rk.receive_megakernel(
         params, prim, txp, n_lanes=COH_LANES, seed=SEED, **kw), 6)
     k_med = statistics.median(k_ms[1:])
     acc1, n1 = rk.receive_megakernel(params, prim, txp, n_lanes=COH_LANES,
                                      seed=SEED, **kw)
+    acc2, n2 = rk.receive_megakernel(params, prim, txp, n_lanes=COH_LANES,
+                                     seed=SEED, **kw)
+    scale = float(acc1.abs().max())
+    rep = float((acc1 - acc2).abs().max())
+    print(f'parity fmcw_sonar philox 2^24 lanes: two calls differ by at '
+          f'most {rep:.3e} ({rep / max(scale, 1e-300):.3e} of max|acc|) per '
+          f'cell, events {int(n1)} / {int(n2)}')
+    if not (scale > 0 and rep <= REPEAT_TOL * scale and int(n1) == int(n2)):
+        fail('fmcw_sonar: two Philox-mode calls with one seed differ')
     ref, n_ref, _, stats, plain_ms = _plain_philox(
         torch, rk, params, prim, txp, kw, COH_LANES, COH_DEPTH, dev)
     c = compare(acc1, n1, ref, n_ref, 'fmcw_sonar philox 2^24 lanes')
@@ -1435,11 +1475,17 @@ def coherent(torch, bt, rk, ik, dev, tag, build_log: str,
           f'samples/s) {[round(x, 3) for x in k_ms[1:]]}; plain version '
           f'{plain_ms:.1f} ms {tag}')
     print('fmcw_sonar stage lanes: ' + json.dumps(stats))
+    mix = kernel_mix(dev, tag, build_log, cubin, 'fmcw_sonar',
+                     rk.launch_geometry(rx.adc.n_time, COH_LANES,
+                                        int(prim.shape[0]),
+                                        n_freq=rx.adc.n_freq, doppler=True),
+                     sms)
     entries.append(_kernel_entry(
         torch, rk, 'doppler, mix_resample', 'fmcw_sonar 2^24 lanes',
         'receive(fmcw_sonar_scene()), 2^24 samples, depth 2, fixed',
         launches, errs['doppler'] + [c], k_med, plain_ms, med, stats,
-        [params, prim, txp], 16 * 256, 1))
+        [params, prim, txp], 16 * 256, 1, dict(repeat_rel=rep / scale,
+                                               **mix)))
     kw_grid = {'fmcw_sonar': (s, sd, rx)}
 
     # ---- 4b. the pulse train (golden config 3): eight coherent pulses,
@@ -2734,8 +2780,93 @@ def phased(torch, bt, rk, dev, tag, build_log: str = '',
               f'{entry["pair_visits_per_lane"]:.3f}, inside '
               f'{entry["pair_terms_per_lane"]:.3f} {tag}')
         out.append(entry)
+    rule_parity(torch, rk, dev, tag, 'endpoint')
     print(f'phased phase wall {time.perf_counter() - t_phase:.1f} s {tag}')
     return out
+
+
+RULE_PARITY_LANES = 1 << 16   # injected uniforms
+RULE_PHILOX_LANES = 1 << 20   # the Philox stream
+
+
+def rule_parity(torch, rk, dev, tag, which: str) -> None:
+    """The receive rules in the analytic endpoint and lobe kernels (their
+    C10 scenes): `which` 'endpoint' holds receive_endpoint_coherent_kernel
+    on the analog phased receiver and on the phased transmitter under a
+    mixer with an LO (`scenes.mixer_receiver`: a beat drawn a lane), 'lobe'
+    receive_lobe_kernel on the rough plastic plate under that mixer, in
+    power and I / Q; each on injected uniforms and the Philox stream,
+    lane by lane against the plain version (I / Q with the phase slack),
+    and the launch record."""
+    from beifong_tpu_torch import scenes
+    P = scenes.PHASED
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    st = scenes.steer_toward(P['tx'], scenes.phased_tx_target())
+    if which == 'endpoint':
+        cases = (('phased_rx I / Q', lambda: scenes.phased_rx_scene(
+            P['rx_az']), True, 2),
+                 ('phased_tx mixer I / Q', lambda: scenes.mixer_receiver(
+                     *scenes.phased_tx_scene(st)), True, 2))
+    else:
+        cases = tuple((f'rough plastic mixer {"I / Q" if coh else "power"}',
+                       lambda: scenes.mixer_receiver(
+                           *scenes.plastic_scene('rough_plastic')), coh, 2)
+                      for coh in (False, True))
+    for what, make, coh, depth in cases:
+        s, rx = make()
+        p = rk.pack_scene(s.compile(device=dev), rx,
+                          s.shape_index_of_endpoint('receiver', rx.id))
+        params, prim, txp = (torch.tensor(a, device=dev)
+                             for a in (p.params, p.prim, p.txp))
+        params[0] = rk.seed_slot(SEED)
+        rx_kind = rk.rx_kind_of(rx)
+        kw = dict(adc=rx.adc, max_depth=depth, time_sampling='gate',
+                  rx_kind=rx_kind, doppler=True, coherent=coh,
+                  receive_type=rx.receive_type,
+                  has_lo=rx.lo_waveform is not None, mirror=bool(p.mirror))
+        if which == 'endpoint':
+            kw.update(php=torch.tensor(p.php, device=dev),
+                      rxph=torch.tensor(p.rxph, device=dev)
+                      if rx_kind == 'phased' else None)
+        else:
+            kw['lobes'] = p.lobes
+        nd = rk.n_draws(depth, int(txp.shape[0]),
+                        **rk.lobe_draws(kw.get('lobes') or 0))
+        for mode, n_l in (('injected', RULE_PARITY_LANES),
+                          ('philox', RULE_PHILOX_LANES)):
+            u = torch.rand((nd, n_l), generator=gen, device=dev) \
+                if mode == 'injected' else \
+                rk.philox_uniforms(SEED, nd, n_l, device=dev)
+            lane = torch.empty(n_l, device=dev)
+            acc, n_ev = rk.receive_megakernel(
+                params, prim, txp, n_lanes=n_l, lane_out=lane,
+                **(dict(uniforms=u) if mode == 'injected'
+                   else dict(seed=SEED)), **kw)
+            ran = rk.launched_endpoint_kernel(coh) if which == 'endpoint' \
+                else rk.launched_lobe_kernel(coh)
+            if not ran:
+                fail(f'{what}: the launch record does not show the '
+                     f'{which} kernel')
+            lane_ref = torch.empty(n_l, device=dev)
+            amp = torch.zeros((rx.adc.n_time, 1), dtype=torch.float64,
+                              device=dev)
+            # a lobe pick or a cosine's sign within the plain version's tie
+            # margin may go the other way under FMA contraction
+            ill = torch.zeros(n_l, dtype=torch.bool, device=dev)
+            ref, n_ref = rk.receive_megakernel_ref(
+                params, prim, txp, u, lane_out=lane_ref, amp_out=amp,
+                ill_out=ill, **kw)
+            name = f'{what} ({which} kernel) {mode} 2^' \
+                f'{n_l.bit_length() - 1} lanes'
+            if coh:
+                compare_coherent(torch, acc, n_ev, ref, n_ref, amp,
+                                 rk.phase_slack(s.band, rx.adc), name, lane,
+                                 lane_ref, depth=depth, ill=ill)
+            else:
+                compare_lanes(acc, n_ev, lane, ref, n_ref, lane_ref, depth,
+                              name, ill=ill)
+    print(f'receive rules in the {which} kernel: every case within its '
+          f'gate {tag}')
 
 
 LOBE_LANES = 1 << 24          # receive(), the kernel alone, Philox parity
@@ -3156,6 +3287,7 @@ def lobes(torch, bt, rk, dev, tag, build_log: str, cubin: str) -> list:
         fail('lobes: K1 and the wavefront disagree on the windowed corner')
     for e_ in out:
         e_.update(anchors=anchors, k1_wavefront_ratio=ratio)
+    rule_parity(torch, rk, dev, tag, 'lobe')
     print(f'lobes phase wall {time.perf_counter() - t_phase:.1f} s {tag}')
     return out
 
@@ -3946,7 +4078,8 @@ def main() -> int:
     kernels = [flagship(torch, bt, rk, dev, tag, pulse_compress,
                         infos['receive_megakernel'].log, cubin),
                mesh(torch, bt, rk, dev, tag, pulse_compress)]
-    dop_kernels, k1_grid = doppler(torch, bt, rk, ik, dev, tag)
+    dop_kernels, k1_grid = doppler(torch, bt, rk, ik, dev, tag,
+                                   infos['receive_megakernel'].log, cubin)
     kernels += dop_kernels
     kernels += coherent(torch, bt, rk, ik, dev, tag,
                         infos['receive_megakernel'].log, cubin)

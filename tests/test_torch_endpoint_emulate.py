@@ -3,9 +3,11 @@
 on the CPU: the source compiled once by g++ against the CUDA runtime stub
 `tools/emu/cuda_runtime.h` (each block as std::threads; `tools/k1_emulate.py`)
 and held against the plain version with the card's gates on the endpoint
-scenes, bit-identical on a repeat; their footprint index held to the full
-pair loop bit for bit on points built to break it.  Skips where g++ is
-absent."""
+scenes (the I / Q kernel also on the analog phased receiver and under a
+mixer with an LO), bit-identical on a repeat; their footprint index held
+to the full pair loop bit for bit on points built to break it; and the
+analytic lobe kernel (`receive_lobe_kernel`, power and I / Q) under a
+mixer with an LO.  Skips where g++ is absent."""
 
 import contextlib
 import ctypes
@@ -28,7 +30,8 @@ from beifong_tpu_torch.integrators import receive_kernel as rk  # noqa: E402
 
 LANES = 4096
 DEPTH = 2
-SCENES = ('ep_phased_tx', 'ep_phased_rx', 'ep_four_tx', 'ep_phased_tx_coh')
+SCENES = ('ep_phased_tx', 'ep_phased_rx', 'ep_four_tx', 'ep_phased_tx_coh',
+          'ep_phased_rx_coh', 'ep_phased_tx_mixer')
 
 
 @pytest.fixture(scope='module')
@@ -53,8 +56,8 @@ def emulated(lib, monkeypatch):
 def _kernel(name, u, lane):
     params, prim, txp, kw, n_p, _ = k1_emulate.endpoint_tables(name)
     return rk._launch(params, prim, txp, None, u, None, lane, n_pulses=n_p,
-                      n_lanes=LANES, seed=13, seed_step=0, patch_p=0, rule=0,
-                      has_lo=False, mirror=False, ep=True, **kw)
+                      n_lanes=LANES, seed=13, seed_step=0, patch_p=0,
+                      ep=True, **k1_emulate.launch_kw(kw))
 
 
 @pytest.mark.parametrize('name', SCENES)
@@ -81,6 +84,7 @@ def test_endpoint_kernel_matches_plain_version(emulated, name):
     else:
         chip_smoke.compare(acc, ev[0], ref, n_ref, name)
     assert int(ev[0]) > 0
+    assert rk.launched_endpoint_kernel(coh)
     # a repeat gives the same bits: private rows summed in thread order
     lane2 = torch.zeros(LANES) if coh else None
     acc2, ev2 = _kernel(name, u, lane2)
@@ -88,6 +92,60 @@ def test_endpoint_kernel_matches_plain_version(emulated, name):
     assert torch.equal(ev, ev2)
     if coh:
         assert torch.equal(lane, lane2)
+
+
+@pytest.mark.parametrize('coherent', [False, True], ids=['power', 'iq'])
+def test_lobe_kernel_under_a_mixer_matches_plain_version(emulated,
+                                                         coherent):
+    """The rough plastic plate under a mixer with an LO (a beat drawn a
+    lane before the ray's draws; `scenes.mixer_receiver`), depth 2, on
+    injected uniforms of the lobe draw stride: the lobe kernel lane by
+    lane against the plain version (power: each cell within 1e-4 x
+    max|acc|; I / Q: with the phase slack), the same events, and a repeat
+    bit for bit (warp rows)."""
+    from beifong_tpu_torch import scenes
+    s, rx = scenes.mixer_receiver(*scenes.plastic_scene('rough_plastic'))
+    p = rk.pack_scene(s.compile(use_bvh=False, device='cpu'), rx,
+                      s.shape_index_of_endpoint('receiver', rx.id))
+    params, prim, txp = (torch.tensor(x) for x in (p.params, p.prim, p.txp))
+    kw = dict(adc=rx.adc, max_depth=DEPTH, time_sampling='gate',
+              rx_kind=rk.rx_kind_of(rx), doppler=True, coherent=coherent,
+              receive_type='mixer', has_lo=True, mirror=bool(p.mirror),
+              lobes=p.lobes)
+    gen = torch.Generator().manual_seed(17)
+    u = torch.rand((rk.n_draws(DEPTH, 1, **rk.lobe_draws(p.lobes)), LANES),
+                   generator=gen)
+
+    def kernel():
+        lane = torch.zeros(LANES)
+        acc, ev = rk._launch(params, prim, txp, None, u, None, lane,
+                             n_pulses=1, n_lanes=LANES, seed=13,
+                             seed_step=0, patch_p=0,
+                             **k1_emulate.launch_kw(kw))
+        return acc, ev, lane
+    acc, ev, lane = kernel()
+    assert rk.launched_lobe_kernel(coherent)
+    shape = (rx.adc.n_time, 1) + ((2,) if coherent else ())
+    acc = acc.view(shape)
+    lane_ref = torch.zeros(LANES)
+    amp = torch.zeros((rx.adc.n_time, 1), dtype=torch.float64)
+    stats = {}
+    ref, n_ref = rk.receive_megakernel_ref(params, prim, txp, u,
+                                           lane_out=lane_ref, amp_out=amp,
+                                           stats=stats, **kw)
+    if coherent:
+        chip_smoke.compare_coherent(
+            torch, acc, ev[0], ref, n_ref, amp,
+            rk.phase_slack(s.band, rx.adc), 'rough plastic mixer iq', lane,
+            lane_ref, depth=DEPTH, quiet=True)
+    else:
+        chip_smoke.compare_lanes(acc, ev[0], lane, ref, n_ref, lane_ref,
+                                 DEPTH, 'rough plastic mixer power')
+    assert stats['freq_draw'] == stats['lo_freq'] == LANES
+    assert stats['rplas_bounce'] > 0 and int(ev[0]) > 0
+    acc2, ev2, lane2 = kernel()
+    assert torch.equal(acc.flatten(), acc2.flatten())
+    assert torch.equal(ev, ev2) and torch.equal(lane, lane2)
 
 
 def _frame(rng, wx, wy):

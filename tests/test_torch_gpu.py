@@ -504,6 +504,8 @@ def test_doppler_kernel_matches_plain_version(cuda, scene):
     torch.cuda.synchronize()
     name = rk.config_name(kw['mesh'] is not None, True)
     assert rk.receive_megakernel.by_config[name] == before[name] + 1
+    # the analytic scenes run the Doppler power kernel (the launch record)
+    assert rk.launched_doppler_power_kernel() == (kw['mesh'] is None)
     adc = kw['adc']
     amp = torch.zeros((adc.n_time, adc.n_freq), dtype=torch.float64,
                       device=cuda)
@@ -582,6 +584,94 @@ def test_doppler_receive_on_card_matches_cpu_for_one_seed(cuda, scene):
     else:
         # the plate closing at 5 m/s: +1173 Hz, bin 101.0
         assert int(grid.sum(0).argmax()) in (100, 101, 102)
+
+
+def _k1_emulate():
+    import os
+    import sys
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), 'tools'))
+    import k1_emulate
+    return k1_emulate
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('name', ['dop_fmcw_sonar', 'dop_mixer', 'dop_ggx',
+                                  'dop_rows'])
+def test_doppler_power_kernel_on_its_scenes(cuda, name):
+    """The analytic Doppler power kernel on the scenes of
+    tools/k1_emulate.py: golden config 2 (mix_resample, 16 x 256, fixed
+    sampling), the FMCW mixer in power (an LO, a beat drawn a lane), the
+    range-Doppler pulse with a GGX plate, and a pulse of config 3 on warp
+    rows; injected uniforms, lane by lane against the plain version, each
+    cell within 1e-4 x max|acc|, and a repeat within 1e-6 (bit for bit on
+    warp rows)."""
+    params, prim, txp, kw, _ = _k1_emulate().doppler_tables(name, cuda)
+    n_lanes = 1 << 16
+    u = torch.rand((rk.n_draws(kw['max_depth']), n_lanes),
+                   generator=torch.Generator(cuda).manual_seed(5),
+                   device=cuda)
+    lane = torch.empty(n_lanes, device=cuda)
+    acc, n_ev = rk.receive_megakernel(params, prim, txp, n_lanes=n_lanes,
+                                      uniforms=u, lane_out=lane, **kw)
+    torch.cuda.synchronize()
+    assert rk.launched_doppler_power_kernel()
+    lane_ref = torch.empty(n_lanes, device=cuda)
+    stats = {}
+    ref, n_ref = rk.receive_megakernel_ref(params, prim, txp, u,
+                                           lane_out=lane_ref, stats=stats,
+                                           **kw)
+    _assert_mesh_parity(acc, n_ev, lane, ref, n_ref, lane_ref,
+                        depth=kw['max_depth'])
+    if name == 'dop_ggx':
+        assert stats['ggx_nee'] > 0 and stats['ggx_bounce'] > 0
+    if name == 'dop_mixer':
+        assert stats['freq_draw'] == stats['lo_freq'] == n_lanes
+    acc2, n2 = rk.receive_megakernel(params, prim, txp, n_lanes=n_lanes,
+                                     uniforms=u, **kw)
+    if rk.coherent_warp_rows(kw['adc'], False):
+        assert torch.equal(acc, acc2)
+    assert float((acc - acc2).abs().max()) <= 1e-6 * float(acc.abs().max())
+    assert int(n_ev) == int(n2)
+
+
+@pytest.mark.gpu
+def test_doppler_power_twins_keep_the_grid_stride_kernel(cuda):
+    """The range-Doppler pulse through a homogeneous medium launches the
+    media twin receive_doppler_kernel<0,0,1,0,0> and a phased
+    transmitter's Doppler power call the endpoint twin <0,0,0,1,0> (the
+    launch record), each within 1e-4 x max|acc| of the plain version."""
+    s, rx = range_doppler_scene()
+    s.medium = scenes.stratified_homogeneous()
+    p = rk.pack_scene(s.compile(use_bvh=False, device='cpu'), rx,
+                      s.shape_index_of_endpoint('receiver', rx.id))
+    params, prim, txp = (torch.tensor(x, device=cuda)
+                         for x in (p.params, p.prim, p.txp))
+    kw = dict(adc=rx.adc, max_depth=2, time_sampling='gate',
+              rx_kind='wigner', doppler=True, medium=p.medium)
+    u = torch.rand((rk.n_draws(2), 1 << 16),
+                   generator=torch.Generator(cuda).manual_seed(7),
+                   device=cuda)
+    acc, n_ev = rk.receive_megakernel(params, prim, txp, n_lanes=1 << 16,
+                                      uniforms=u, **kw)
+    torch.cuda.synchronize()
+    assert rk.launched_doppler_power_kernel('media')
+    assert not rk.launched_doppler_power_kernel()
+    ref, n_ref = rk.receive_megakernel_ref(params, prim, txp, u, **kw)
+    assert float((acc - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+    params, prim, txp, kw, _, _ = _k1_emulate().endpoint_tables(
+        'ep_phased_tx', cuda)
+    kw = dict(kw, doppler=True)
+    u = torch.rand((rk.n_draws(2), 1 << 16),
+                   generator=torch.Generator(cuda).manual_seed(7),
+                   device=cuda)
+    acc, n_ev = rk.receive_megakernel(params, prim, txp, n_lanes=1 << 16,
+                                      uniforms=u, **kw)
+    torch.cuda.synchronize()
+    assert rk.launched_doppler_power_kernel('ep')
+    ref, n_ref = rk.receive_megakernel_ref(params, prim, txp, u, **kw)
+    assert float((acc - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+    assert int(n_ev) == int(n_ref) > 0
 
 
 # ---------------------------------------------------------------------------
@@ -972,6 +1062,55 @@ def test_receive_cpi_on_card_is_one_launch_and_matches_cpu(cuda):
     assert float((loop - cube).abs().max()) <= 1e-6 * amp_max
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize('scene', list(CPI_SCENES))
+def test_doppler_power_cpi_is_launches_per_pulse(cuda, scene):
+    """A power CPI of four pulses (configs 5 and 4 without their I / Q) in
+    one launch of the Doppler power kernel, the pulse its grid's y axis:
+    each pulse within 1e-6 of max|acc| of one launch on the pulse's key
+    (the pulses share the resident blocks, so a pulse's grid sums its
+    lanes in another grouping), and lane by lane against the plain
+    version on the pulse's Philox stream.  The corner's mirror chains end
+    on the transmitter's aperture sinc near its zeros, where FMA
+    contraction moves a lane by more than 1e-4 of itself: there, as for
+    the lobe twins' chains (`_assert_lobe_parity`) and chip_smoke.py's
+    corner gate, a lane may move by 1e-4 of the largest lane and a cell
+    by 1e-4 of its sum of |power|."""
+    s, rx, seeds, step, params, prim, txp, kw = _cpi_tables(cuda, scene, 11,
+                                                            False)
+    params, prim, txp = params[:4], prim[:4], txp[:4]
+    kw = dict(kw, coherent=False)
+    n_pulses, n_lanes = 4, 1 << 16
+    lane = torch.empty((n_pulses, n_lanes), device=cuda)
+    acc, n_ev = rk.receive_megakernel_cpi(params, prim, txp, n_lanes=n_lanes,
+                                          seed=11, seed_step=step,
+                                          lane_out=lane, **kw)
+    torch.cuda.synchronize()
+    assert rk.launched_doppler_power_kernel()
+    assert acc.shape == (n_pulses, rx.adc.n_time, rx.adc.n_freq)
+    for p in range(n_pulses):
+        one, n_one = rk.receive_megakernel(params[p], prim[p], txp[p],
+                                           n_lanes=n_lanes, seed=seeds[p],
+                                           **kw)
+        assert int(n_one) == int(n_ev[p])
+        assert float((acc[p] - one).abs().max()) \
+            <= 1e-6 * float(one.abs().max())
+        u = rk.philox_uniforms(seeds[p], rk.n_draws(kw['max_depth']),
+                               n_lanes, device=cuda)
+        lane_ref = torch.empty(n_lanes, device=cuda)
+        amp = torch.zeros((rx.adc.n_time, rx.adc.n_freq),
+                          dtype=torch.float64, device=cuda)
+        ref, n_ref = rk.receive_megakernel_ref(params[p], prim[p], txp[p], u,
+                                               lane_out=lane_ref,
+                                               amp_out=amp, **kw)
+        chain = scene == 'corner'
+        _assert_mesh_parity(acc[p], n_ev[p], lane[p], ref, n_ref, lane_ref,
+                            depth=kw['max_depth'],
+                            floor=1e-4 if chain else 1e-6,
+                            cell_slack=1e-4 * amp.float() if chain else 0.0)
+
+
+
 # ---------------------------------------------------------------------------
 # MIMO receive: golden config 6 through K1's MIMO configuration
 # ---------------------------------------------------------------------------
@@ -1252,11 +1391,14 @@ def test_example_attenuation_on_card(cuda):
 
 
 def _ep_scene(name, mesh=False):
-    """The endpoint scenes (`scenes.py`), with a crumpled 5 x 5 grid of
+    """The endpoint scenes (`scenes.py`; phased_tx_mixer under a mixer
+    with an LO, `scenes.mixer_receiver`), with a crumpled 5 x 5 grid of
     triangles added beside the target for the mesh twins."""
-    if name == 'phased_tx':
+    if name.startswith('phased_tx'):
         s, rx = scenes.phased_tx_scene(scenes.steer_toward(
             scenes.PHASED['tx'], scenes.phased_tx_target()))
+        if name == 'phased_tx_mixer':
+            s, rx = scenes.mixer_receiver(s, rx)
     elif name == 'phased_rx':
         s, rx = scenes.phased_rx_scene(scenes.PHASED['rx_az'])
     else:
@@ -1296,7 +1438,8 @@ def _ep_tables(device, scene, config, seed=3):
               mesh=m, doppler=doppler,
               msh=torch.tensor(p.msh, device=device)
               if m is not None and doppler else None, coherent=coherent,
-              receive_type=rx.receive_type, has_lo=False,
+              receive_type=rx.receive_type,
+              has_lo=rx.lo_waveform is not None,
               php=torch.tensor(p.php, device=device),
               rxph=torch.tensor(p.rxph, device=device)
               if rx_kind == 'phased' else None)
@@ -1370,6 +1513,17 @@ def test_endpoint_kernels_match_plain_version(cuda, scene, config):
     if scene != 'four_tx':
         assert stats['pair_terms'] > 0
     _assert_ep_parity(s, rx, kw, acc, n_ev, ref, n_ref, amp, lane, lane_ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('config', ['coherent', 'doppler'])
+def test_endpoint_kernels_under_a_mixer(cuda, config):
+    """The phased transmitter under a mixer with an LO (a beat drawn a
+    lane; `scenes.mixer_receiver`): the coherent endpoint kernel and the
+    Doppler power endpoint twin against the plain version, as
+    test_endpoint_kernels_match_plain_version holds the raw scenes."""
+    test_endpoint_kernels_match_plain_version(cuda, 'phased_tx_mixer',
+                                              config)
 
 
 @pytest.mark.gpu
@@ -1515,6 +1669,9 @@ LOBE_SCENES = {
     'mask': (lambda: scenes.composite_scene('mask', 0.4), 2, False),
     'mesh': (lambda: mesh_scene(n_side=23, material='rough_plastic'), 2,
              False),
+    # under a mixer with an LO: a beat drawn a lane before the ray's draws
+    'rough_plastic_mixer': (lambda: scenes.mixer_receiver(
+        *scenes.plastic_scene('rough_plastic')), 2, False),
 }
 
 
@@ -1531,7 +1688,9 @@ def _lobe_tables(device, scene, coherent, seed=3):
               rx_kind=rk.rx_kind_of(rx), mesh=mesh, doppler=True,
               msh=None if mesh is None else torch.tensor(p.msh,
                                                          device=device),
-              coherent=coherent, mirror=p.mirror, lobes=p.lobes)
+              coherent=coherent, mirror=p.mirror, lobes=p.lobes,
+              receive_type=rx.receive_type,
+              has_lo=rx.lo_waveform is not None)
     return (s, rx, params, torch.tensor(p.prim, device=device),
             torch.tensor(p.txp, device=device), kw, chain)
 

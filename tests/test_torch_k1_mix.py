@@ -1,7 +1,8 @@
 """tools/k1_mix.py on the CPU: the stage masks it reads from the plain
-version's counts (the flagship's, the coherent configuration's and the
-analytic lobe twins' main paths), the SIMT models built on them, and the
-stage tags of the flagship, coherent and lobe kernels' source that its
+version's counts (the flagship's, the coherent configuration's, the
+analytic lobe twins' and the analytic Doppler power configuration's main
+paths), the SIMT models built on them, and the stage tags of the
+flagship, coherent, lobe and Doppler power kernels' source that its
 instruction mix reads; the anchors by which tools/k1_clock.py
 instruments that source, and the edits of tools/k1_ablate.py."""
 
@@ -77,7 +78,8 @@ def test_simt_models_bound_their_work(lanes):
     (False, 'receive_flagship_kernel'), (True, 'receive_flagship_kernel'),
     (False, 'receive_coherent_kernel'), (False, 'receive_lobe_kernel'),
     (False, 'receive_endpoint_kernel'),
-    (False, 'receive_endpoint_coherent_kernel')])
+    (False, 'receive_endpoint_coherent_kernel'),
+    (False, 'receive_doppler_power_kernel')])
 def test_clock_probe_anchors_appear_once(splat, kernel):
     """k1_clock patches the kernel's source by exact text: each of its
     anchors lies in the current source once (the warp loop's in the
@@ -249,8 +251,11 @@ def test_ablations_apply_to_the_source():
     with open(k1_mix.source_of(ROOT)) as f:
         src = f.read()
     for name, edits in k1_ablate.ABLATIONS.items():
+        body, head, tail = k1_ablate.scoped(src, name)
         for old, new in edits:
-            assert src.count(new if name == 'tags' else old) == 1, name
+            assert body.count(new if name == 'tags' else old) == 1, name
+        for old, _ in k1_ablate.OUTSIDE.get(name, ()):
+            assert (head + tail).count(old) == 1, name
 
 
 @pytest.mark.parametrize('config', ['ep_phased_tx', 'ep_phased_rx',
@@ -300,3 +305,64 @@ def test_endpoint_source_carries_every_stage_tag():
     assert {'pairs', 'pair_index'} <= {st for ln, st in tags.items()
                                        if a < ln < b}
     assert 'pairs' in k1_mix.func_ranges(src)
+
+
+@pytest.mark.parametrize('config', ['range_doppler', 'fmcw_sonar'])
+def test_doppler_power_masks_sum_to_the_plain_versions_stats(config):
+    """The analytic Doppler power configurations (the range-Doppler
+    pulse, golden config 2 under mix_resample): each stat key's per-lane
+    counts sum to the plain version's in power, their contributions splat
+    over time x frequency (fmcw_sonar's at a beat), the SIMT models take
+    them, a pool of 64 paths a warp issues fewer slots than the
+    grid-stride loop, and the kernel's Philox blocks (two for the ray, two
+    a hit, one a direct hit) count from the same masks."""
+    n = 1 << 10
+    masks, n_rect = k1_mix.stage_masks(n, config=config)
+    a = k1_mix.per_lane(masks, n)
+    s, rx = k1_mix.scene_of(config)
+    p = rk.pack_scene(s.compile(device='cpu'), rx,
+                      s.shape_index_of_endpoint('receiver', rx.id))
+    params, prim, txp = (torch.tensor(x) for x in (p.params, p.prim, p.txp))
+    kw = k1_mix.ref_kw(config, rx, p)
+    assert kw['coherent'] is False and kw['doppler'] is True
+    assert kw['time_sampling'] == k1_mix.CONFIGS[config]['ts']
+    stats: dict = {}
+    rk.receive_megakernel_ref(params, prim, txp,
+                              rk.philox_uniforms(7, rk.n_draws(2), n),
+                              stats=stats, **kw)
+    for key, v in a.items():
+        assert int(v.sum()) == stats[key], key
+    assert int(a['phase'].sum()) == 0 and int(a['splat_2d'].sum()) > 0
+    assert (int(a['lo_bin'].sum()) > 0) == (config == 'fmcw_sonar')
+    w = k1_mix.stage_weights_fp32(n_rect, config)
+    m = k1_mix.simt(a, w, lanes_per_thread=8)
+    assert 0 < m['grid_stride_efficiency'] <= 1
+    pm = k1_mix.pool_model(a, w, lanes_per_thread=8, fused=True)
+    assert 0 < pm['efficiency'] <= 1
+    assert pm['slots_a_lane'] < m['grid_stride_slots_a_lane']
+    blocks = k1_mix.stage_blocks(a, direct=True)
+    assert bool((blocks == 2 + 2 * a['hit'].sum(1) + a['direct'].sum(1))
+                .all())
+
+
+def test_doppler_power_source_carries_every_stage_tag():
+    """The Doppler power kernel's tags: each stage that k1_mix reads lies
+    in its body (no echo phase in power), and its splats' helpers are
+    found; the kernel pattern names it and the grid-stride instantiation
+    it replaced."""
+    src = k1_mix.source_of(ROOT)
+    with open(src) as f:
+        lines = f.read().splitlines()
+    a, b = _body_lines(lines, 'receive_doppler_power_kernel(')
+    stages = {st for ln, st in k1_mix.line_stages(src).items() if a < ln < b}
+    assert {'draws', 'sched', 'ray', 'hit', 'direct', 'nee', 'shadow',
+            'splat', 'bounce', 'trace', 'closest'} <= stages
+    assert 'phase' not in stages
+    helpers = k1_mix.func_ranges(src)
+    assert {'splat_p', 'splat_g'} <= set(helpers)
+    import re
+    for name in ('receive_doppler_power_kernel',
+                 'receive_doppler_kernelILb0ELb0ELb0ELb0ELb0E'):
+        assert re.search(k1_mix.DPW_KERNEL, name)
+    assert not re.search(k1_mix.DPW_KERNEL,
+                         'receive_doppler_kernelILb0ELb0ELb1ELb0ELb0E')

@@ -423,10 +423,12 @@ def test_endpoints_through_a_medium_stay_on_the_wavefront():
 # ---------------------------------------------------------------------------
 
 
-def jax_kernel(s, rx, depth: int, n_lanes: int, seed: int):
+def jax_kernel(s, rx, depth: int, n_lanes: int, seed: int,
+               coherent: bool = False):
     """`_run(interpret=True)` as `receive_pallas` calls it on a static
     analytic scene, gate sampling, plus the uniforms it drew as (n_draws,
-    n_lanes) and its tables."""
+    n_lanes) and its tables; the output is power, or with `coherent` I and
+    Q stacked on a last axis."""
     sd = s.compile(use_bvh=False)
     why = []
     assert pr.supported(sd, rx, why), why
@@ -438,15 +440,16 @@ def jax_kernel(s, rx, depth: int, n_lanes: int, seed: int):
     params[0] = float(seed * 1_000_003 % (1 << 30))
     rx_kind = ('phased' if rx.kind == ep_j.PHASED and rx.n_elems > 1
                else 'wigner')
-    out, _, _, _, cnt = pr._run(
+    out, out_q, _, _, cnt = pr._run(
         jnp.asarray(params), jnp.asarray(prim), jnp.asarray(txp),
         jnp.asarray(php), jnp.asarray(rxph), jax.random.key(seed),
         tuple(int(k) for k in prim[:, 0]), tuple(int(f) for f in prim[:, 14]),
         tuple(int(f) for f in prim[:, 18]), tuple(int(f) for f in prim[:, 26]),
         rx.adc, rx.receive_type, 'gate', depth, rx_kind, n_lanes, True,
-        False, has_mesh=False, mesh_types=mesh_types, moving=False,
+        coherent, has_mesh=False, mesh_types=mesh_types, moving=False,
         absorbing=False, tx_kinds=tuple(int(f) for f in txp[:, 27]),
-        has_lo=False, polarized=False, bmp_meta=bmp_meta, layered=0,
+        has_lo=rx.lo_waveform is not None, polarized=False,
+        bmp_meta=bmp_meta, layered=0,
         tex=jnp.asarray(tex), msh=jnp.asarray(msh), mimo_e=0, eoff=None,
         grid_meta=pr._grid_meta(params),
         prim_bsdf1=tuple(int(f) for f in prim[:, 28]),
@@ -455,7 +458,8 @@ def jax_kernel(s, rx, depth: int, n_lanes: int, seed: int):
     u = jax.random.uniform(jax.random.key(seed),
                            (n_lanes // 1024, nd, 8, 128), dtype=jnp.float32)
     u = np.asarray(u).transpose(1, 0, 2, 3).reshape(nd, n_lanes)
-    return (np.asarray(out)[:, 0], float(np.asarray(cnt)[0, 0]), rx_kind,
+    out = np.stack([out, out_q], -1) if coherent else np.asarray(out)
+    return (out[:, 0], float(np.asarray(cnt)[0, 0]), rx_kind,
             (params, prim, txp, php, rxph, u))
 
 
@@ -494,6 +498,59 @@ def test_plain_version_matches_jax_megakernel(name, args):
     acc_w, n_w = rk.receive_megakernel(t(params), t(prim), t(txp),
                                        n_lanes=n_lanes, uniforms=t(u), **kw)
     assert torch.equal(acc_w, acc) and int(n_w) == int(n_ev)
+
+
+def assert_iq_matches_jax(s_j, rx_j, depth: int, n_lanes: int, seed: int):
+    """The plain version's endpoint I / Q against the JAX kernel's on
+    identical uniforms: I and Q of each cell within TOL x max(|I|, |Q|)
+    plus `phase_slack` (4 ulps of the longest path in the ADC window over
+    the shortest wavelength) times the cell's sum of amplitudes, as the
+    coherent parity tests hold them (the frameworks' path lengths differ
+    in their last bits); events within 1e-3; the CPU wrapper is the plain
+    version."""
+    out_j, cnt_j, rx_kind, (params, prim, txp, php, rxph, u) = jax_kernel(
+        s_j, rx_j, depth, n_lanes, seed, coherent=True)
+    t = torch.tensor
+    rx_t = port_rx(rx_j)
+    kw = dict(adc=rx_t.adc, max_depth=depth, time_sampling='gate',
+              rx_kind=rx_kind, doppler=True, coherent=True,
+              receive_type=rx_t.receive_type,
+              has_lo=rx_t.lo_waveform is not None, php=t(php),
+              rxph=t(rxph) if rx_kind == 'phased' else None)
+    amp = torch.zeros((rx_t.adc.n_time, 1), dtype=torch.float64)
+    stats = {}
+    acc, n_ev = rk.receive_megakernel_ref(t(params), t(prim), t(txp), t(u),
+                                          stats=stats, amp_out=amp, **kw)
+    assert acc.shape == (rx_t.adc.n_time, 1, 2) and out_j.shape == (
+        rx_t.adc.n_time, 2)
+    scale = np.abs(out_j).max()
+    assert scale > 0 and cnt_j > 0 and stats['phase'] > 0
+    bound = TOL * scale + rk.phase_slack(s_j.band, rx_j.adc) \
+        * amp.numpy()[:, 0, None]
+    err = np.abs(acc[:, 0].numpy() - out_j)
+    assert (err <= bound).all(), (err.max(), scale)
+    assert abs(int(n_ev) - cnt_j) <= 1e-3 * cnt_j
+    acc_w, n_w = rk.receive_megakernel(t(params), t(prim), t(txp),
+                                       n_lanes=n_lanes, uniforms=t(u), **kw)
+    assert torch.equal(acc_w, acc) and int(n_w) == int(n_ev)
+    return stats
+
+
+IQ_CASES = [('phased_tx', (12.7, 4)), ('phased_rx', (16.7, 4))]
+
+
+@pytest.mark.parametrize('name, args', IQ_CASES,
+                         ids=[c[0] for c in IQ_CASES])
+def test_plain_version_iq_matches_jax_megakernel(name, args):
+    """Depth 2, 1,024 lanes, gate, 16 fast-time bins: the endpoint
+    configuration's I / Q (the coherent endpoint kernel's plain version)
+    on a phased transmitter and an analog phased receiver, held to the
+    JAX kernel with `coherent=True` (assert_iq_matches_jax)."""
+    s_j, rx_j = endpoint_scene('jax', name, *args)
+    rx_j = dc.replace(rx_j, adc=dc.replace(rx_j.adc, n_time=16))
+    s_j.receivers[0] = rx_j
+    stats = assert_iq_matches_jax(s_j, rx_j, 2, 1024, seed=4)
+    assert stats['pair_terms'] > 0
 
 
 # ---------------------------------------------------------------------------

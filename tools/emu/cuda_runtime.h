@@ -183,6 +183,10 @@ inline T __shfl_up_sync(unsigned, T x, unsigned off) {
     T r = emu_shfl(x, j >= (int)off ? j - (int)off : j);
     return r;
 }
+template <class T>
+inline T __shfl_xor_sync(unsigned, T x, int mask) {
+    return emu_shfl(x, (emu::t_idx.x % 32) ^ mask);
+}
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
 inline int __popcll(unsigned long long x) { return __builtin_popcountll(x); }
 inline int __ffs(unsigned x) { return __builtin_ffs((int)x); }

@@ -46,6 +46,21 @@ and of the endpoint kernels:
                independent, added in pair order: the same sums);
   epx_warp     the receiver's cross-WDF for a whole warp (its (lane,
                pair) items spread over the warp's threads; the same sums);
+of the analytic Doppler power kernel (receive_doppler_power_kernel; time
+them with --only range_doppler,fmcw_sonar; its edits lie inside its body,
+DPW_SCOPE):
+  dpw_warp_taps  D2: the warp's taps summed a cell at a time in a fixed
+               tree of shuffles before the atomics (pow_splat_warp) on
+               grids without warp rows;
+  dpw_rows2d   D3: a 2-D grid of at most 1,024 cells in a row of floats a
+               warp, each cell's taps in lane order (pow_splat_rows2: no
+               atomics, bit-identical repeats);
+               (both with helpers outside the body: OUTSIDE)
+  dpw_lb4, dpw_lb5  its blocks an SM, 4 / 5 in place of 6;
+  dpw_freq_call  every lane's receive frequency the call's (no frequency
+               drawn a lane, the block's lobe mixture; not exact);
+  dpw_rule_raw  RAY's receive frequency not read off the chirp under
+               mix_resample (the call's; not exact);
 and, no ablation, `tags`: the stage tags of trace_lane's lobe path added
 to a parent that predates them (comments only: its machine code is the
 parent's), for tools/k1_mix.py --sass.
@@ -86,7 +101,7 @@ ABLATIONS = {
         if (v == 0.0f) return;
         if (s != nullptr)''',
         '''    __device__ void add(int cell, float v) const {
-        if (v == 0.0f || (const void*)s == (const void*)g) return;
+        if (v == 0.0f || (const void*)s != (const void*)g) return;
         if (s != nullptr)'''),),
     'hash': (('    for (int r = 0; r < 10; ++r) {',
               '    for (int r = 0; r < 1; ++r) {'),),
@@ -150,6 +165,253 @@ for _n in (3, 5, 6):
 for _n in (5, 6):
     ABLATIONS[f'lob_lb{_n}'] = (('constexpr int LOB_MIN_BLOCKS = 4;',
                                  f'constexpr int LOB_MIN_BLOCKS = {_n};'),)
+# the analytic Doppler power kernel's
+for _n in (4, 5):
+    ABLATIONS[f'dpw_lb{_n}'] = (('constexpr int DPW_MIN_BLOCKS = 6;',
+                                 f'constexpr int DPW_MIN_BLOCKS = {_n};'),)
+ABLATIONS['dpw_freq_call'] = (
+    ('    const bool f_call = r0 == 1 && (cfg.gate || cfg.rule == 0);',
+     '    const bool f_call = true;'),
+    ('                    } else if (cfg.n_freq > 1) {\n'
+     '                        f_rx = cfg.f_lo + ud[1] * cfg.f_span;',
+     '                    } else if (cfg.n_freq > 1 && false) {\n'
+     '                        f_rx = cfg.f_lo + ud[1] * cfg.f_span;'))
+ABLATIONS['dpw_rule_raw'] = ((
+    '                    if (cfg.rule == RX_MIX) {\n'
+    '                        f_rx = Wave{s_tx + 16, s_tx + 28}.inst_freq(t_mid);',
+    '                    if (cfg.rule == RX_MIX && false) {\n'
+    '                        f_rx = Wave{s_tx + 16, s_tx + 28}.inst_freq(t_mid);'),)
+# the ablations whose edits apply inside one function's body (from the
+# line that starts its definition to its closing brace)
+DPW_SCOPE = 'receive_doppler_power_kernel(const float* __restrict__ params,'
+SCOPE = {n: DPW_SCOPE for n in ('dpw_freq_call', 'dpw_rule_raw',
+                               'dpw_warp_taps', 'dpw_rows2d')}
+# the Doppler power kernel's splat designs that lost to its block atomics
+# (PERF.md §6): the warp's taps summed a cell at a time before the
+# atomics (D2), and a 2-D grid in a row of floats a warp (D3)
+DPW_WARP_SPLAT = """// The Doppler power kernel's warp splat of a grid without warp rows: each
+// thread's taps (grid_splat's: two time bins, times two frequency bins on
+// a 2-D grid, each weighted as there) are added across the warp before
+// the atomics.  For each cell a tap of the warp lands on, in turn, the
+// taps on it are summed in a fixed tree of shuffles and the lowest lane
+// with such a tap adds the sum to the grid (Grid::add).  Every thread of
+// the warp calls it (val 0: no taps); xb is the frequency coordinate.
+// [k1 splat]
+__device__ __forceinline__ void pow_splat_warp(const Grid& grid,
+                                               const Cfg& cfg, float val,
+                                               float yb, float xb, int j) {
+    int c[4] = {-1, -1, -1, -1};
+    float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    const float b0 = floorf(yb);
+    if (val != 0.0f && b0 >= -1.0f && b0 < (float)cfg.n_time) {
+        const float b1 = b0 + 1.0f;
+        const float wt0 = fmaxf(1.0f - fabsf(yb - b0), 0.0f);
+        const float wt1 = fmaxf(1.0f - fabsf(yb - b1), 0.0f);
+        const int i0 = (int)b0;
+        if (cfg.n_freq == 1) {
+            if (i0 >= 0) {
+                c[0] = i0;
+                v[0] = val * wt0;
+            }
+            if (i0 + 1 < cfg.n_time) {
+                c[1] = i0 + 1;
+                v[1] = val * wt1;
+            }
+        } else {
+            const float c0 = floorf(xb);
+            if (c0 >= -1.0f && c0 < (float)cfg.n_freq) {
+                const float c1 = c0 + 1.0f;
+                const float wf0 = fmaxf(1.0f - fabsf(xb - c0), 0.0f);
+                const float wf1 = fmaxf(1.0f - fabsf(xb - c1), 0.0f);
+                const int j0 = (int)c0;
+#pragma unroll
+                for (int a = 0; a < 2; ++a) {
+                    const int it = i0 + a;
+                    if (it < 0 || it >= cfg.n_time) continue;
+                    const float vt = val * (a ? wt1 : wt0);
+                    const int row = it * cfg.n_freq;
+                    if (j0 >= 0) {
+                        c[2 * a] = row + j0;
+                        v[2 * a] = vt * wf0;
+                    }
+                    if (j0 + 1 < cfg.n_freq) {
+                        c[2 * a + 1] = row + j0 + 1;
+                        v[2 * a + 1] = vt * wf1;
+                    }
+                }
+            }
+        }
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+        if (v[k] == 0.0f) c[k] = -1;       // Grid::add skips a zero
+    for (;;) {
+        const int mine = c[0] >= 0 ? c[0] : c[1] >= 0 ? c[1]
+                         : c[2] >= 0 ? c[2] : c[3];
+        const unsigned act = __ballot_sync(FULL_MASK, mine >= 0);
+        if (act == 0u) return;
+        const int lead = __ffs(act) - 1;
+        const int cell = __shfl_sync(FULL_MASK, mine, lead);
+        float x = 0.0f;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+            if (c[k] == cell) {
+                x = v[k];
+                c[k] = -1;
+            }
+        }
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+            x += __shfl_xor_sync(FULL_MASK, x, off);
+        if (j == lead) grid.add(cell, x);
+    }
+}
+
+"""
+DPW_ROWS2_SPLAT = """// A 2-D grid of at most DPW_ROW2D_CELLS cells (mode 1) goes to a row of
+// floats a warp, each cell's taps added in lane order (pow_splat_rows2),
+// in place of the block's grid of atomics
+constexpr int DPW_ROW2D_CELLS = 1024;
+
+__host__ __device__ constexpr bool dpw_rows2(int n_time, int n_freq,
+                                             int mode) {
+    return mode == 1 && n_freq > 1
+           && n_time * n_freq <= DPW_ROW2D_CELLS;
+}
+// Shared bytes of one warp's area: the coherent kernel's, then its row of
+// n_time doubles (1-D warp rows) or of n_time x n_freq floats (2-D).
+__host__ __device__ constexpr int dpw_warp_bytes(int n_time, int n_freq,
+                                                 int mode) {
+    return dpw_rows2(n_time, n_freq, mode)
+               ? (coh_row_offset() + 4 * n_time * n_freq + 15) & ~15
+               : lob_warp_bytes(n_time, lob_rows(n_time, n_freq, mode, 1),
+                                1);
+}
+
+// The 2-D warp row's splat: each thread's taps (grid_splat's) staged, a
+// base cell and a mask of its taps (tap t: base + (t & 1) + (t >> 1)
+// n_freq); then for each staging lane in lane order the lane that owns
+// cell c (c mod 32) adds the staged tap that lands on c.  Each cell thus
+// sums its taps in lane order and nothing is atomic.  Every thread of the
+// warp calls it (val 0: no taps); xb is the frequency coordinate.
+// [k1 splat]
+__device__ __forceinline__ void pow_splat_rows2(float* row, float* vals,
+                                                const Cfg& cfg, float val,
+                                                float yb, float xb, int j) {
+    int base = 0;
+    unsigned tm = 0u;
+    float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    const float b0 = floorf(yb), c0 = floorf(xb);
+    if (val != 0.0f && b0 >= -1.0f && b0 < (float)cfg.n_time
+        && c0 >= -1.0f && c0 < (float)cfg.n_freq) {
+        const float wt0 = fmaxf(1.0f - fabsf(yb - b0), 0.0f);
+        const float wt1 = fmaxf(1.0f - fabsf(yb - (b0 + 1.0f)), 0.0f);
+        const float wf0 = fmaxf(1.0f - fabsf(xb - c0), 0.0f);
+        const float wf1 = fmaxf(1.0f - fabsf(xb - (c0 + 1.0f)), 0.0f);
+        const int i0 = (int)b0, j0 = (int)c0;
+        base = i0 * cfg.n_freq + j0;
+#pragma unroll
+        for (int a = 0; a < 2; ++a) {
+            const int it = i0 + a;
+            if (it < 0 || it >= cfg.n_time) continue;
+            const float vt = val * (a ? wt1 : wt0);
+            if (j0 >= 0) {
+                v[2 * a] = vt * wf0;
+                tm |= (v[2 * a] != 0.0f) << (2 * a);
+            }
+            if (j0 + 1 < cfg.n_freq) {
+                v[2 * a + 1] = vt * wf1;
+                tm |= (v[2 * a + 1] != 0.0f) << (2 * a + 1);
+            }
+        }
+    }
+    unsigned go = __ballot_sync(FULL_MASK, tm != 0u);
+    if (go == 0u) return;
+    int* first = reinterpret_cast<int*>(vals + 128);   // base x 16 + mask
+    vals[j] = v[0];
+    vals[32 + j] = v[1];
+    vals[64 + j] = v[2];
+    vals[96 + j] = v[3];
+    first[j] = base * 16 + (int)tm;
+    __syncwarp();
+    while (go != 0u) {
+        const int k = __ffs(go) - 1;
+        go &= go - 1u;
+        const int x = first[k];
+        const int b = x >> 4, m = x & 15;
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+            const int c = b + (t & 1) + (t >> 1) * cfg.n_freq;
+            if (((m >> t) & 1) && (c & 31) == j)
+                row[c] = row[c] + vals[32 * t + k];
+        }
+    }
+}
+
+"""
+DPW_ANCHOR = '// Blocks an SM the Doppler power kernel is held to:'
+DPW_PV = '        float pv = 0.0f, yb = 0.0f, f_recv = 0.0f, t_recv = 0.0f;'
+DPW_PV_XB = ('        float pv = 0.0f, yb = 0.0f, xb = 0.0f, f_recv = 0.0f,'
+             ' t_recv = 0.0f;')
+DPW_GRID_SPLAT = '                    grid_splat<false>(grid, cfg, val, 0.0f, yb, [&] {\n                        return bin_freq(cfg, txw, lo, f_recv, t_recv);\n                    });\n'
+DPW_XB = ('                    if (cfg.n_freq > 1)\n'
+          '                        xb = (bin_freq(cfg, txw, lo, f_recv, t_recv)'
+          ' - cfg.f_lo)\n'
+          '                             / cfg.f_den * (float)cfg.n_freq'
+          ' - 0.5f;\n')
+DPW_LOOP_END = ('            pow_splat_rows(w_row, w_vals, cfg.n_time, pv, yb, j);\n'
+                '        }\n')
+ABLATIONS['dpw_warp_taps'] = (
+    (DPW_PV, DPW_PV_XB), (DPW_GRID_SPLAT, DPW_XB),
+    (DPW_LOOP_END, DPW_LOOP_END + '        if (shade && !rows) {\n'
+     '            // [k1 stage: splat]\n'
+     '            pow_splat_warp(grid, cfg, pv, yb, xb, j);\n'
+     '        }\n'))
+ABLATIONS['dpw_rows2d'] = (
+    ('    const int wbytes = lob_warp_bytes(cfg.n_time, rows, 1);',
+     '    const bool rows2 = dpw_rows2(cfg.n_time, cfg.n_freq, cfg.mode);\n'
+     '    const int wbytes = dpw_warp_bytes(cfg.n_time, cfg.n_freq, cfg.mode);'),
+    ('        for (int i = j; i < cfg.n_time; i += 32) w_row[i] = 0.0;\n'
+     '    } else if (cfg.mode == 1) {',
+     '        for (int i = j; i < cfg.n_time; i += 32) w_row[i] = 0.0;\n'
+     '    } else if (rows2) {\n'
+     '        for (long long i = j; i < n_vals; i += 32)\n'
+     '            reinterpret_cast<float*>(w_row)[i] = 0.0f;\n'
+     '    } else if (cfg.mode == 1) {'),
+    (DPW_PV, DPW_PV_XB),
+    (DPW_GRID_SPLAT, '                    if (rows2) {\n' + DPW_XB
+     + '                    } else {\n' + DPW_GRID_SPLAT
+     + '                    }\n'),
+    (DPW_LOOP_END, DPW_LOOP_END + '        if (shade && rows2) {\n'
+     '            // [k1 stage: splat]\n'
+     '            pow_splat_rows2(reinterpret_cast<float*>(w_row), w_vals,'
+     ' cfg, pv,\n                            yb, xb, j);\n'
+     '        }\n'),
+    ('            partial[(long long)blockIdx.x * n_vals + v] = s;\n'
+     '        }\n    } else if (cfg.mode == 1) {',
+     '            partial[(long long)blockIdx.x * n_vals + v] = s;\n'
+     '        }\n    } else if (rows2) {\n'
+     '        for (long long v = tid; v < n_vals; v += T) {\n'
+     '            double s = 0.0;\n'
+     '            for (int w = 0; w < T / 32; ++w)\n'
+     '                s += (double)reinterpret_cast<const float*>(\n'
+     '                    s_warps + w * wbytes + coh_row_offset())[v];\n'
+     '            partial[(long long)blockIdx.x * n_vals + v] = s;\n'
+     '        }\n    } else if (cfg.mode == 1) {'))
+# edits of those ablations outside the kernel's body: each design's
+# helpers, and (D3) the launch geometry's warp rows
+OUTSIDE = {
+    'dpw_warp_taps': ((DPW_ANCHOR, DPW_WARP_SPLAT + DPW_ANCHOR),),
+    'dpw_rows2d': (
+        (DPW_ANCHOR, DPW_ROWS2_SPLAT + DPW_ANCHOR),
+        ('        const bool rows = lob_rows(n_time, n_freq, mode, 1);\n'
+         '        smem = coh_table_bytes(n_prims, n_params)\n'
+         '               + (T / 32) * lob_warp_bytes(n_time, rows, 1)',
+         '        const bool rows = lob_rows(n_time, n_freq, mode, 1)\n'
+         '                          || dpw_rows2(n_time, n_freq, mode);\n'
+         '        smem = coh_table_bytes(n_prims, n_params)\n'
+         '               + (T / 32) * dpw_warp_bytes(n_time, n_freq, mode)'))}
+
 # the lobe kernel's SHADE turns of mixed kinds (no turn of 32 paths on the
 # transmitter or 32 off it: the parent's slot order)
 ABLATIONS['lob_mixed'] = (
@@ -795,6 +1057,32 @@ ABLATIONS['epx_warp'] = (
 K4_PARENT = ('k4_rcp', 'k4_lds128', 'k4_warp_any', 'k4_cull')
 
 
+def scoped(source: str, name: str) -> tuple:
+    """(the text an ablation's edits apply to, the source before it, the
+    source after it): the body of its SCOPE function, or all of it."""
+    if name not in SCOPE:
+        return source, '', ''
+    head = SCOPE[name]
+    if source.count(head) != 1:
+        raise SystemExit(f'{name}: {head!r} not found once')
+    a = source.index(head)
+    b = source.index('\n}\n', a) + 3
+    return source[a:b], source[:a], source[b:]
+
+
+def outside(head: str, tail: str, name: str) -> tuple:
+    """(head, tail) of a scoped ablation's source with its OUTSIDE edits,
+    each of whose text lies once in the two together."""
+    for old, new in OUTSIDE.get(name, ()):
+        if (head + tail).count(old) != 1:
+            raise SystemExit(f'{name}: edit not found once: {old[:60]!r}')
+        if old in head:
+            head = head.replace(old, new)
+        else:
+            tail = tail.replace(old, new)
+    return head, tail
+
+
 def make(tree: str, name: str) -> str:
     """_archive/NAME: TREE's package with the ablation's edits."""
     dst = os.path.join(HERE, '_archive', name)
@@ -806,7 +1094,8 @@ def make(tree: str, name: str) -> str:
                        'intersect_kernels.cu' if name in K4_ABLATIONS
                        else 'receive_megakernel.cu')
     with open(src) as f:
-        s = f.read()
+        full = f.read()
+    s, head, tail = scoped(full, name)
     for edit in {**ABLATIONS, **K4_ABLATIONS}[name]:
         old, new = edit[0], edit[-1]
         if s.count(old) != 1 or (len(edit) == 3 and s.count(edit[1]) != 1):
@@ -814,8 +1103,9 @@ def make(tree: str, name: str) -> str:
         if len(edit) == 3:   # a span: from `old` up to edit[1]
             old = s[s.index(old):s.index(edit[1])]
         s = s.replace(old, new)
+    head, tail = outside(head, tail, name)
     with open(src, 'w') as f:
-        f.write(s)
+        f.write(head + s + tail)
     return dst
 
 

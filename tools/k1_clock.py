@@ -17,7 +17,12 @@ a whole warp runs them), and the warp's cycles in the splats.  In a
 tree before the endpoint kernels the endpoint configurations read the
 grid-stride twins instead: each thread's cycles in its lanes and, of
 them, in the cross-WDFs (pair_sum), the NEEs, the shadow loops and the
-splats.
+splats.  The analytic Doppler power kernel (receive_doppler_power_kernel)
+runs range_doppler (pulse 0 of the range-Doppler example, gate) and
+fmcw_sonar (golden config 2, fixed sampling) at 2^24 lanes, depth 2,
+with each thread's cycles in SHADE's grid splat (the block's or the
+global grid's atomics) read inside it; in a tree before that kernel the
+grid-stride instantiation's per-thread stage cycles instead.
 
 Run from the repository root on the card's machine:
 
@@ -58,7 +63,9 @@ KERNELS = {'flagship': 'receive_flagship_kernel',
            'ep_phased_tx': 'receive_endpoint_kernel',
            'ep_phased_rx': 'receive_endpoint_kernel',
            'ep_four_tx': 'receive_endpoint_kernel',
-           'ep_phased_tx_coh': 'receive_endpoint_coherent_kernel'}
+           'ep_phased_tx_coh': 'receive_endpoint_coherent_kernel',
+           'range_doppler': 'receive_doppler_power_kernel',
+           'fmcw_sonar': 'receive_doppler_power_kernel'}
 SPLAT_CALL = {
     'receive_flagship_kernel':
         '        if (shade) {\n            // [k1 stage: splat]\n'
@@ -173,6 +180,28 @@ EP_SPLAT = {
     'receive_endpoint_coherent_kernel':
         '                    coh_splat_rows(w_row, w_vals, cfg.n_time, ci, '
         'si, yb, j);\n'}
+
+
+# the Doppler power kernel's loop end (its warp splats) and its grid
+# splat inside SHADE, per thread (14)
+DPW_KERNEL = 'receive_doppler_power_kernel'
+DPW_PATCH = PATCH[1:5] + (
+    ('            pow_splat_rows(w_row, w_vals, cfg.n_time, pv, yb, j);\n'
+     '        }\n    }\n',
+     '            pow_splat_rows(w_row, w_vals, cfg.n_time, pv, yb, j);\n'
+     '        }\n'
+     '        ck[5] += clock64() - c3;\n    }\n'
+     '    for (int k = 0; k < 16; ++k)\n'
+     '        if (j == 0 || k == 14)\n'
+     '            atomicAdd(&k1_clk[k], ck[k]);\n'),
+    ('                    grid_splat<false>(grid, cfg, val, 0.0f, yb, [&] {\n'
+     '                        return bin_freq(cfg, txw, lo, f_recv, t_recv);\n'
+     '                    });\n',
+     '                    const long long q3 = clock64();\n'
+     '                    grid_splat<false>(grid, cfg, val, 0.0f, yb, [&] {\n'
+     '                        return bin_freq(cfg, txw, lo, f_recv, t_recv);\n'
+     '                    });\n'
+     '                    ck[14] += clock64() - q3;\n'))
 
 
 def ep_patch(kernel: str) -> tuple:
@@ -344,9 +373,19 @@ def instrument(s: str, splat: bool = False,
     """The receive kernel's source `s` with the clock reads added to the
     warp loop of `kernel`; each anchor must appear exactly once (the
     loop's within the kernel's body)."""
-    if kernel in EP_KERNELS and kernel + '(const float' not in s:
-        # a tree before the endpoint kernels: its grid-stride twins
+    if kernel in EP_KERNELS + (DPW_KERNEL,) \
+            and kernel + '(const float' not in s:
+        # a tree before the endpoint kernels or the Doppler power kernel:
+        # its grid-stride twins
         return instrument_grid(s)
+    if kernel == DPW_KERNEL:
+        s = _patch_body(s, f'{kernel}(const float* __restrict__ params,',
+                        DPW_PATCH)
+        for old, new in (PATCH[0], PATCH[-1]):
+            if s.count(old) != 1:
+                raise SystemExit(f'anchor not found once: {old[:60]!r}')
+            s = s.replace(old, new)
+        return s
     if kernel in EP_KERNELS:
         # both endpoint kernels: one build serves the four scenes
         for k in EP_KERNELS:
@@ -412,7 +451,7 @@ def run(tree: str, config: str = 'flagship') -> dict:
     from beifong_tpu_torch.integrators import receive_kernel as rk
     assert rk.__file__.startswith(tree)
     dev = torch.device('cuda')
-    if config.startswith('ep_'):
+    if config.startswith('ep_') or config in ('range_doppler', 'fmcw_sonar'):
         return run_ep(tree, config, rk, scenes, dev)
     s, rx = {'flagship': scenes.flagship_scene,
              'pulse_train': lambda: scenes.pulse_train_scene(0),
@@ -473,7 +512,10 @@ def run_ep(tree: str, config: str, rk, scenes, dev) -> dict:
     import torch
     sys.path.insert(0, os.path.join(HERE, 'tools'))
     import tree_ab
-    params, prim, txp, kw = tree_ab.endpoint_call(rk, scenes, config, dev)
+    dpw = not config.startswith('ep_')
+    params, prim, txp, kw = (tree_ab.doppler_power_call if dpw
+                             else tree_ab.endpoint_call)(rk, scenes, config,
+                                                         dev)
     lib = rk.LIBRARY.get()
     lib.rk_clock.argtypes = [ctypes.c_void_p, ctypes.c_int]
     buf = (ctypes.c_ulonglong * 16)()
@@ -493,7 +535,8 @@ def run_ep(tree: str, config: str, rk, scenes, dev) -> dict:
                           text=True).stdout.strip()
     out = {'card': card, 'config': config,
            'instrumented_ms': a.elapsed_time(b)}
-    if not hasattr(rk, 'launched_endpoint_kernel'):
+    if not hasattr(rk, 'launched_doppler_power_kernel' if dpw
+                   else 'launched_endpoint_kernel'):
         lane = max(1, v[0])
         out.update(kernel='grid-stride twin',
                    share_of_lane_cycles={n: v[i] / lane for i, n in
@@ -501,12 +544,14 @@ def run_ep(tree: str, config: str, rk, scenes, dev) -> dict:
                    thread_cycles_a_lane=v[0] / kw['n_lanes'])
         return out
     tot = sum(v[:len(NAMES)])
+    if dpw:
+        within = {'grid_splat_in_shade': v[14] / 32 / tot}
+    else:
+        within = {'nee_pairs': v[12] / 32 / tot, 'shadow': v[13] / 32 / tot,
+                  'rx_pairs': v[15] / 32 / tot, 'splat_in_shade': v[14] / tot}
     out.update(kernel=KERNELS[config],
                share={n: v[i] / tot for i, n in enumerate(NAMES)},
-               within={'nee_pairs': v[12] / 32 / tot,
-                       'shadow': v[13] / 32 / tot,
-                       'rx_pairs': v[15] / 32 / tot,
-                       'splat_in_shade': v[14] / tot},
+               within=within,
                warp_cycles_a_lane=tot * 32 / kw['n_lanes'],
                ray_turns=v[8], shade_turns=v[9],
                shade_fill=v[10] / max(1, 32 * v[9]),

@@ -15,7 +15,8 @@ __syncwarp and the warp votes, real atomics), with -ffp-contract=off;
 the `<<<...>>>` launches, `extern __shared__` arrays and the pulse's asm
 read are rewritten for it.  The library is called through
 `receive_kernel._launch` with CPU tensors (two SMs of one block each).
-For each lobe scene (CASES), power and I / Q, on injected uniforms and
+For each lobe scene (CASES; rough_plastic_mixer under a mixer with an
+LO, `scenes.mixer_receiver`), power and I / Q, on injected uniforms and
 on Philox, it prints whether every lane's sum (`lane_out`) is equal bit
 for bit, the event counts and the largest grid difference over max|acc|
 (the grids sum in another order); `--grids` runs the thin windowed
@@ -23,9 +24,16 @@ corner on a 2-D grid (n_freq 8, the block's grid), a global one (n_freq
 300) and a 4-pulse CPI instead.  The endpoint scenes (EP_CASES: the
 phased transmitter, the analog phased receiver and four transmitters in
 power, the three in I / Q, the phased transmitter's 4-pulse CPI, and the
-phased transmitter on a 2-D grid and a global one in I / Q) run the endpoint
+phased transmitter on a 2-D grid and a global one in I / Q, and under a
+mixer with an LO in I / Q) run the endpoint
 twins: `--cases ep_phased_tx,...` (depth 2, gate); the power twin
-writes no lane sums, so its grids are compared bit for bit.
+writes no lane sums, so its grids are compared bit for bit.  The
+Doppler power scenes (DOP_CASES: the range-Doppler pulse's 8 x 128 grid,
+golden config 2's mix_resample 16 x 256, the FMCW mixer (an LO and a
+beat drawn a lane), the flagship on 1,024 bins, the range-Doppler pulse
+on a global grid and with a GGX plate, a pulse of config 3 on warp rows,
+and the corner's 4-pulse CPI of mirror chains) run the analytic Doppler
+power configuration: `--cases dop_range_doppler,...`.
 """
 
 from __future__ import annotations
@@ -44,9 +52,10 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 STUB = os.path.join(HERE, 'tools', 'emu')
 
 
-def emulate(tree: str, out: str) -> str:
+def emulate(tree: str, out: str, opt: str = '-O2') -> str:
     """A shared library of the tree's K1 source built by g++ with the
-    stub runtime."""
+    stub runtime (`opt`: g++'s optimisation level; -O1 builds in half
+    the time and runs the same arithmetic)."""
     csrc = os.path.join(tree, 'beifong_tpu_torch', 'csrc')
     with open(os.path.join(csrc, 'receive_megakernel.cu')) as f:
         cu = f.read()
@@ -63,7 +72,7 @@ def emulate(tree: str, out: str) -> str:
     os.makedirs(os.path.dirname(out), exist_ok=True)
     with open(out + '.cpp', 'w') as f:
         f.write(cu)
-    subprocess.run(['g++', '-std=c++20', '-O2', '-pthread', '-shared',
+    subprocess.run(['g++', '-std=c++20', opt, '-pthread', '-shared',
                     '-fPIC', '-ffp-contract=off', '-w', '-I', STUB, '-I',
                     csrc, '-o', out, out + '.cpp'], check=True)
     return out
@@ -106,7 +115,9 @@ CASES = {'window_thin': ('window_corner_scene', 'thin', 6),
          'rough_dielectric': ('rough_dielectric_scene', 'target', 2),
          'through': ('rough_dielectric_scene', 'through', 2),
          'blend': ('composite_scene', 'blend', 2),
-         'mask': ('composite_scene', 'mask', 2)}
+         'mask': ('composite_scene', 'mask', 2),
+         # under a mixer with the transmitter's waveform as its LO
+         'rough_plastic_mixer': ('plastic_scene', 'rough_plastic', 2)}
 
 
 # the endpoint scenes: (scenes' function, coherent, pulses, n_freq)
@@ -118,7 +129,102 @@ EP_CASES = {'ep_phased_tx': ('phased_tx_scene', False, 1, 1),
             'ep_four_tx_coh': ('four_tx_scene', True, 1, 1),
             'ep_phased_tx_cpi': ('phased_tx_scene', True, 4, 1),
             'ep_phased_tx_2d': ('phased_tx_scene', True, 1, 8),
-            'ep_phased_tx_global': ('phased_tx_scene', True, 1, 300)}
+            'ep_phased_tx_global': ('phased_tx_scene', True, 1, 300),
+            # a mixer with the transmitter's waveform as its LO
+            'ep_phased_tx_mixer': ('phased_tx_scene', True, 1, 1)}
+
+
+# the analytic Doppler power scenes: (scenes' function and arguments, the
+# ADC's changes, depth, time sampling, pulses)
+DOP_CASES = {'dop_range_doppler': ('range_doppler_scene', (0,), {}, 2,
+                                   'gate', 1),
+             'dop_fmcw_sonar': ('fmcw_sonar_scene', (), {}, 2, 'fixed', 1),
+             'dop_mixer': ('fmcw_scene', ('mixer',), {}, 2, 'fixed', 1),
+             'dop_wide': ('flagship_scene', (), {'n_time': 1024}, 3, 'gate',
+                          1),
+             'dop_global': ('range_doppler_scene', (0,),
+                            {'n_time': 256, 'n_freq': 128}, 2, 'gate', 1),
+             'dop_ggx': ('range_doppler_scene', ('ggx',), {}, 2, 'gate', 1),
+             'dop_rows': ('pulse_train_scene', (0,), {}, 1, 'gate', 1),
+             'dop_corner_cpi': ('corner_scene', (), {}, 4, 'fixed', 4)}
+
+
+def doppler_scene(name: str):
+    """(scene, receiver) of a Doppler power case, its ADC changed; 'ggx'
+    gives the range-Doppler pulse a rough conductor plate."""
+    from beifong_tpu_torch import scenes as S
+    from beifong_tpu_torch.bsdf.tables import rough_conductor
+    fn, args, adc, *_ = DOP_CASES[name]
+    ggx = args == ('ggx',)
+    s, rx = getattr(S, fn)(*((0,) if ggx else args))
+    if ggx:
+        s.bsdfs[0] = rough_conductor('mat', specular_reflectance=1.0,
+                                     alpha=0.3, eta=0.2, k=3.0,
+                                     twosided=True)
+    if adc:
+        rx = dataclasses.replace(rx, adc=dataclasses.replace(rx.adc, **adc))
+        s.receivers[0] = rx
+    return s, rx
+
+
+def doppler_tables(name: str, device='cpu'):
+    """(params, prim, txp, keyword arguments of receive_megakernel(_cpi)
+    less the lanes, pulses) of a Doppler power case."""
+    import torch
+    from beifong_tpu_torch.integrators import receive_kernel as rk
+    _, _, _, depth, ts, n_p = DOP_CASES[name]
+    s, rx = doppler_scene(name)
+    if n_p > 1:
+        p, rx, _ = rk.pack_cpi(s, n_p, 10.0)
+    else:
+        p = rk.pack_scene(s.compile(use_bvh=False, device='cpu'), rx,
+                          s.shape_index_of_endpoint('receiver', rx.id))
+    params = torch.tensor(p.params, device=device)
+    if n_p == 1:
+        params[0] = rk.seed_slot(3)
+    kw = dict(adc=rx.adc, max_depth=depth, time_sampling=ts,
+              rx_kind=rk.rx_kind_of(rx), doppler=True, coherent=False,
+              receive_type=rx.receive_type,
+              has_lo=rx.lo_waveform is not None, mirror=bool(p.mirror))
+    return (params, torch.tensor(p.prim, device=device),
+            torch.tensor(p.txp, device=device), kw, n_p)
+
+
+def launch_kw(kw: dict) -> dict:
+    """receive_megakernel's keywords of a case as `_launch` takes them."""
+    from beifong_tpu_torch.integrators import receive_kernel as rk
+    out = {k: v for k, v in kw.items() if k != 'receive_type'}
+    out['rule'] = rk.rx_rule(kw['receive_type'], kw['has_lo'])
+    return out
+
+
+def compare_doppler(libs, name: str, n: int, gen) -> dict:
+    """One Doppler power case in both trees on injected uniforms and on
+    Philox: {'injected' / 'philox': (lanes equal, events equal, grids
+    equal, largest grid difference over max|acc|)}."""
+    import torch
+    from beifong_tpu_torch.integrators import receive_kernel as rk
+    params, prim, txp, kw, n_p = doppler_tables(name)
+    out = {}
+    for mode in ('injected', 'philox'):
+        nd = rk.n_draws(kw['max_depth'])
+        shape = (n_p, nd, n) if n_p > 1 else (nd, n)
+        u = torch.rand(shape, generator=gen) if mode == 'injected' else None
+        res = []
+        for which in ('other', 'this'):
+            rk.LIBRARY = libs[which]
+            lane = torch.zeros((n_p, n) if n_p > 1 else n)
+            acc, ev = rk._launch(
+                params, prim, txp, None, u, None, lane, n_pulses=n_p,
+                n_lanes=n, seed=13, seed_step=7919 if n_p > 1 else 0,
+                patch_p=0, **launch_kw(kw))
+            res.append((acc, ev, lane))
+        (a0, e0, l0), (a1, e1, l1) = res
+        scale = float(a0.abs().max()) or 1.0
+        out[mode] = (torch.equal(l0, l1), torch.equal(e0, e1),
+                     torch.equal(a0, a1),
+                     float((a0 - a1).abs().max()) / scale)
+    return out
 
 
 def endpoint_tables(name: str, device='cpu'):
@@ -132,6 +238,8 @@ def endpoint_tables(name: str, device='cpu'):
     arg = {'phased_tx_scene': S.steer_toward(P['tx'], S.phased_tx_target()),
            'phased_rx_scene': P['rx_az']}.get(fn)
     s, rx = getattr(S, fn)(*(() if arg is None else (arg,)))
+    if name.endswith('_mixer'):
+        s, rx = S.mixer_receiver(s, rx)
     if n_p > 1:
         p, rx, _ = rk.pack_cpi(s, n_p, 10.0)
     else:
@@ -143,7 +251,8 @@ def endpoint_tables(name: str, device='cpu'):
     if n_p == 1:
         params[0] = rk.seed_slot(3)
     kw = dict(adc=adc, max_depth=2, time_sampling='gate', rx_kind=rx_kind,
-              doppler=coh, coherent=coh,
+              doppler=coh, coherent=coh, receive_type=rx.receive_type,
+              has_lo=rx.lo_waveform is not None, mirror=bool(p.mirror),
               php=None if p.php is None else torch.tensor(p.php,
                                                           device=device),
               rxph=torch.tensor(p.rxph, device=device)
@@ -173,7 +282,7 @@ def compare_endpoint(libs, name: str, n: int, gen) -> dict:
                 params, prim, txp, None, u, None,
                 lane if kw['doppler'] else None, n_pulses=n_p, n_lanes=n,
                 seed=13, seed_step=7919 if n_p > 1 else 0, patch_p=0,
-                rule=0, has_lo=False, mirror=False, ep=True, **kw)
+                ep=True, **launch_kw(kw))
             res.append((acc, ev, lane))
         (a0, e0, l0), (a1, e1, l1) = res
         scale = float(a0.abs().max()) or 1.0
@@ -189,7 +298,8 @@ def main() -> int:
     ap.add_argument('--this', default=HERE)
     ap.add_argument('--lanes', type=int, default=4096)
     ap.add_argument('--cases', default=','.join(CASES),
-                    help=f'of {tuple(CASES) + tuple(EP_CASES)}')
+                    help=f'of {tuple(CASES) + tuple(EP_CASES)}'
+                    f' + {tuple(DOP_CASES)}')
     ap.add_argument('--grids', action='store_true')
     args = ap.parse_args()
     import torch
@@ -207,8 +317,10 @@ def main() -> int:
     n = args.lanes
     gen = torch.Generator().manual_seed(5)
 
-    def tables(scene, arg, depth, coh, adc=None):
+    def tables(scene, arg, depth, coh, adc=None, mixer=False):
         s, rx = getattr(S, scene)(arg)
+        if mixer:
+            s, rx = S.mixer_receiver(s, rx)
         p = rk.pack_scene(s.compile(use_bvh=False, device='cpu'), rx,
                           s.shape_index_of_endpoint('receiver', rx.id))
         params = torch.tensor(p.params)
@@ -265,8 +377,9 @@ def main() -> int:
             compare('window_thin CPI 4 pulses', p, u, n_pulses=4, seed=3)
         return 0
     for name in args.cases.split(','):
-        if name in EP_CASES:
-            for mode, (lanes, evs, grids, diff) in compare_endpoint(
+        if name in EP_CASES or name in DOP_CASES:
+            fn = compare_endpoint if name in EP_CASES else compare_doppler
+            for mode, (lanes, evs, grids, diff) in fn(
                     libs, name, n, gen).items():
                 print(f'{name} {mode}: lanes bit-equal {lanes}, events '
                       f'equal {evs}, grids bit-equal {grids}, grid max diff '
@@ -274,7 +387,7 @@ def main() -> int:
             continue
         scene, arg, depth = CASES[name]
         for coh in (False, True):
-            p = tables(scene, arg, depth, coh)
+            p = tables(scene, arg, depth, coh, mixer=name.endswith('_mixer'))
             nd = rk.n_draws(depth, 1, **rk.lobe_draws(p[3]['lobes']))
             for u in (torch.rand((nd, n), generator=gen), None):
                 compare(f'{name} {"iq" if coh else "power"}', p, u)

@@ -43,7 +43,12 @@ corner CPI's pulse 0 (mirror chains, depth 4, fixed sampling, 64 x 2^16
 lanes), or the analytic lobe twins' windowed corner (depth 6, gate, 2^24
 lanes: the grid-stride receive_doppler_kernel<false, COH, false, false,
 true> or receive_lobe_kernel<COH> that replaced it): window_thin (the
-thin window, power) and window_dielectric (the smooth one, I / Q).  The
+thin window, power) and window_dielectric (the smooth one, I / Q), or the
+analytic Doppler configuration in power (depth 2, 2^24 lanes: the
+grid-stride receive_doppler_kernel<false, false, false, false> or
+receive_doppler_power_kernel that replaced it): range_doppler (pulse 0 of
+the range-Doppler example, gate) and fmcw_sonar (golden config 2,
+mix_resample, fixed sampling).  The
 lanes' stage masks come from the plain version on the configuration's
 scene (Wigner receiver) with Philox seed 7; the pool model is the
 kernels' pool of 64 paths a warp.
@@ -88,8 +93,16 @@ LOBE_COH_KERNEL = (r'receive_doppler_kernelILb0ELb1ELb0ELb0ELb1E|'
 EP_KERNEL = r'receive_trace_kernelILb0ELb0ELb1EE|receive_endpoint_kernel'
 EP_COH_KERNEL = (r'receive_doppler_kernelILb0ELb1ELb0ELb1ELb0E|'
                  r'receive_endpoint_coherent_kernel')
+# the analytic Doppler configuration in power: the grid-stride
+# instantiation or the kernel that replaced it
+DPW_KERNEL = (r'receive_doppler_kernelILb0ELb0ELb0ELb0ELb0E|'
+              r'receive_doppler_power_kernel')
 CONFIGS = {'flagship': dict(depth=DEPTH, ts='gate', lanes=MAIN_LANES,
                             kernel=KERNEL),
+           'range_doppler': dict(depth=2, ts='gate', lanes=1 << 24,
+                                 kernel=DPW_KERNEL),
+           'fmcw_sonar': dict(depth=2, ts='fixed', lanes=1 << 24,
+                              kernel=DPW_KERNEL),
            'pulse_train': dict(depth=1, ts='gate', lanes=1 << 24,
                                kernel=COH_KERNEL),
            'dechirp': dict(depth=2, ts='gate', lanes=1 << 24,
@@ -115,6 +128,8 @@ EP_SCENES = {'ep_phased_tx': ('phased_tx_scene', False),
              'ep_phased_tx_coh': ('phased_tx_scene', True)}
 # the configurations of the lobe twins, and whether each is the I / Q twin
 LOBE_COHERENT = {'window_thin': False, 'window_dielectric': True}
+# the analytic Doppler power configurations
+DPW_CONFIGS = ('range_doppler', 'fmcw_sonar')
 # the stages that are bookkeeping, not a lane's work: the warp wavefront's
 # turns, the grid-stride loop, the block's set-up
 BOOKKEEPING = ('sched', 'lane', 'block')
@@ -217,6 +232,10 @@ def scene_of(config: str):
         return scenes.pulse_train_scene(0)
     if config == 'dechirp':
         return scenes.fmcw_dechirp_scene()
+    if config == 'range_doppler':
+        return scenes.range_doppler_scene(0)
+    if config == 'fmcw_sonar':
+        return scenes.fmcw_sonar_scene()
     s, rx = scenes.corner_scene()
     return s.at_time(0.0), rx
 
@@ -242,6 +261,8 @@ def ref_kw(config: str, rx, packed) -> dict:
                   mirror=packed.mirror)
     if config in LOBE_COHERENT:
         kw.update(coherent=LOBE_COHERENT[config], lobes=packed.lobes)
+    if config in DPW_CONFIGS:
+        kw['coherent'] = False
     return kw
 
 
@@ -755,6 +776,7 @@ if {config!r} in k1_mix.EP_SCENES:
 n_pulses = 64 if {config!r} == 'corner' else 1
 g = rk.launch_geometry(rx.adc.n_time, k1_mix.CONFIGS[{config!r}]['lanes']
                        // n_pulses, p.prim.shape[0], p.params.shape[-1],
+                       n_freq=rx.adc.n_freq,
                        doppler=kw.get('doppler', False),
                        coherent=kw.get('coherent', False),
                        n_pulses=n_pulses, **lob)
@@ -845,7 +867,8 @@ def sass_mix(cubin: str, src: str, kernel: str, a: dict, n_rect: int,
         phx = ep_blocks(a, pairs['n_tx'], 'endpoint' in name)
     elif 'receive_flagship_kernel' in name:
         phx = stage_blocks(a)
-    elif 'receive_coherent_kernel' in name:
+    elif 'receive_coherent_kernel' in name \
+            or 'receive_doppler_power_kernel' in name:
         phx = stage_blocks(a, direct=True)
     elif 'receive_lobe_kernel' in name:
         phx = stage_blocks(a, direct=True, stride=stride)

@@ -27,7 +27,10 @@ one launch (one warm-up, then ten calls each), the endpoint twins on
 the endpoint scenes at 2^24 Philox lanes, depth 2, gate (ep_phased_tx,
 ep_phased_rx, ep_four_tx in power, ep_phased_tx_coh in I / Q: the
 analytic endpoint kernels, or in a tree before them the grid-stride
-twins), K4's closest-hit and
+twins), the analytic Doppler power configuration on golden config 2
+(fmcw_sonar: mix_resample, 2^24 Philox lanes, depth 2, fixed sampling,
+with a hash of its result, as the range-Doppler pulse above), K4's
+closest-hit and
 shadow kernels at chip_smoke.K4_SHAPES (the wavefront's 2^17 rays x 324
 faces, the query's 2^18 x 10,082 and 2^17 x 968: twenty calls queued
 behind a sleeping kernel, five times), and the host time of ten
@@ -122,11 +125,33 @@ EP_PATHS = {'ep_phased_tx': ('phased_tx_scene', False),
             'ep_phased_tx_coh': ('phased_tx_scene', True)}
 EP_LANES = 1 << 24
 EP_DEPTH = 2
+# the analytic Doppler power scenes timed here beside range_doppler:
+# (scenes' function, time sampling)
+DPW_PATHS = {'fmcw_sonar': ('fmcw_sonar_scene', 'fixed')}
+DPW_SCENES = {'range_doppler': ('range_doppler_scene', 'gate'), **DPW_PATHS}
 
 K4_NAMES = ('k4_closest', 'k4_any')
 NAMES = ('flagship', 'mesh', 'multi_body', 'range_doppler', 'coherent',
          'coherent_mesh') + COH_PATHS + CPI_PATHS + tuple(LOBE_PATHS) \
-    + ('window_cpi',) + tuple(EP_PATHS) + K4_NAMES
+    + ('window_cpi',) + tuple(EP_PATHS) + tuple(DPW_PATHS) + K4_NAMES
+
+
+def doppler_power_call(rk, scenes, name: str, dev):
+    """(params, prim, txp, keyword arguments) of receive_megakernel on an
+    analytic Doppler power scene (DPW_SCENES) at chip_smoke.py's shapes
+    (2^24 Philox lanes, depth 2), in the imported tree."""
+    import torch
+    fn, ts = DPW_SCENES[name]
+    s, rx = getattr(scenes, fn)()
+    p = rk.pack_scene(s.compile(use_bvh=False, device='cpu'), rx,
+                      s.shape_index_of_endpoint('receiver', rx.id))
+    params, prim, txp = (torch.tensor(a, device=dev)
+                         for a in (p.params, p.prim, p.txp))
+    kw = dict(adc=rx.adc, max_depth=EP_DEPTH, time_sampling=ts,
+              rx_kind='wigner', n_lanes=EP_LANES, doppler=True,
+              coherent=False, receive_type=rx.receive_type,
+              has_lo=rx.lo_waveform is not None, mirror=bool(p.mirror))
+    return params, prim, txp, kw
 
 
 def endpoint_call(rk, scenes, name: str, dev):
@@ -252,9 +277,11 @@ def child(root: str, only: tuple = NAMES) -> dict:
         ms, _ = cs.cuda_ms(lambda i: fn(params, prim, txp, **kw), CALLS + 1)
         out[f'{name}_ms'] = ms[1:]
     for name in only:
-        if name not in EP_PATHS:
+        if name not in EP_PATHS and name not in DPW_PATHS:
             continue
-        params, prim, txp, kw = endpoint_call(rk, scenes, name, dev)
+        params, prim, txp, kw = (endpoint_call if name in EP_PATHS
+                                 else doppler_power_call)(rk, scenes, name,
+                                                          dev)
         ms, _ = cs.cuda_ms(lambda i: rk.receive_megakernel(
             params, prim, txp, seed=cs.SEED, **kw), CALLS + 1)
         out[f'{name}_ms'] = ms[1:]
@@ -293,6 +320,11 @@ def child(root: str, only: tuple = NAMES) -> dict:
             lambda i: rk.receive_megakernel(params, prim, txp, **kw),
             CALLS + 1)
         out[f'{name}_ms'] = ms[1:]
+        if name == 'range_doppler':
+            acc, n_ev = rk.receive_megakernel(params, prim, txp, **kw)
+            out[f'{name}_sha'] = hashlib.sha1(
+                acc.cpu().numpy().tobytes()
+                + n_ev.cpu().numpy().tobytes()).hexdigest()[:16]
         # the wrapper's host time a call, the card idle before each
         host = []
         for _ in range(CALLS):
