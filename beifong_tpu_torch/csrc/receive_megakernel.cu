@@ -42,7 +42,8 @@
 // index over each phased array's pairs); the mesh twins and the Doppler
 // power twin run the EP instantiations of the block body.
 // The Doppler family's four vacuum configurations have a lobe twin (the
-// mesh ones LOB, the analytic ones receive_lobe_kernel<COH>, below; the
+// mesh ones LOB, in I / Q receive_mesh_doppler_kernel<true, true>, the
+// analytic ones receive_lobe_kernel<COH>, below; the
 // JAX kernel's diel, thin, plas, rplas, rdiel, has_blend and has_mask,
 // :187-225, 819-835, 1122-1297, 1663-1671, 1912-2226), whose flags are
 // the warp-uniform Cfg.lobes: the hit's lobe by its type, its NEE through
@@ -7034,6 +7035,1087 @@ receive_doppler_power_kernel(const float* __restrict__ params,
     }
 }
 
+// ---- the mesh Doppler kernel: the coherent kernel's turns with the walk ---
+//
+// Two mesh configurations of the Doppler family run a kernel of their own
+// on the coherent kernel's turns: the Doppler mesh in power
+// (receive_mesh_doppler_kernel<false, false>; receive_doppler_kernel<true,
+// false> before) and the mesh lobe twin in I / Q (<true, true>;
+// receive_doppler_kernel<true, true, false, false, true> before).  Its
+// lane is trace_lane's mesh path, operation by operation (the power
+// Doppler one, or with LOB the lobe one in I / Q), and what differs is
+// which thread runs which part of which lane, and when (PERF.md):
+//  - A wavefront inside each warp: the coherent kernel's pool of COH_POOL
+//    paths, its turns (SHADE over 32 waiting paths, else RAY over the
+//    warp's next 32 lanes, each tracing the rays it makes), its draws a
+//    stage at a time and its tables (the rectangles, the shadowing
+//    rectangles' list, the receiver's frame and the block's lobe
+//    mixture).  The grid-stride bodies ran at ~2% of their FP32 bounds: a
+//    warp waited on its slowest lane's path, its walks included.
+//  - The walks.  Each turn's trace runs the closest-hit walk of the BVH
+//    (bvh::walk with MeshClosest<true>, pruned by the analytic best) after
+//    the rectangles, and SHADE's NEE the any-hit walk (bvh::Any, behind the
+//    shadowing rectangles, none from a delta lobe under LOB) on the
+//    pulse's tables in device memory behind the read-only path, as the
+//    grid-stride bodies walk them.  RAY's walks are coherent: a turn's 32
+//    lanes are consecutive, so they share a 1024-lane tile's direction
+//    stratum (a narrow beam); SHADE's bounce and shadow walks are not.
+//  - The slot: a path waits in MDK_SLOT floats, the coherent kernel's 16
+//    and a mesh hit's unit normal and reflectance; the hit's code (column
+//    10) is its rectangle (>= 0) or -1 - its mesh-shape row, whose lobe,
+//    conductor constants and velocity SHADE reads from the block's copy of
+//    the shape rows in shared memory.
+//  - The splat: a 1-D grid of at most COH_ROW_VALS values goes to the
+//    warp's row of doubles, each value summed in lane order (coh_splat_rows
+//    for I / Q, pow_splat_rows for power: bit-identical repeats); a 2-D or
+//    wider grid (multi_body's 16 x 32) to the block's floats of
+//    shared-memory atomics (mode 1) or the global float64 grid (mode 2).
+// The packed tables, the positional draws (n_draws unchanged), the
+// direction strata, the tent, the partial rows, the reduce and the CPI's
+// pulse axis are the other configurations'.  The tags "[k1 stage: ...]"
+// name each stage for tools/k1_mix.py (walk: the closest-hit walks,
+// shadow_walk: NEE's any-hit walk).
+constexpr int MDK_SLOT = 20;        // floats a path: five float4s
+// Blocks an SM the mesh Doppler kernel is held to: six.  The power kernel
+// ran 1.04 / 1.21 of that at five / four; the I / Q lobe twin held to four
+// (124 registers, as the lobe kernel) ran 1.15 of it (tools/k1_ablate.py
+// mdk_lb*, PERF.md)
+constexpr int MDK_MIN_BLOCKS = 6;
+
+// Shared bytes of one warp's area: its paths of MDK_SLOT floats, a turn's
+// slots, the splat's staging, then (warp rows) its row of per_bin x
+// n_time doubles.
+__host__ __device__ constexpr int mdk_row_offset() {
+    return 4 * (COH_POOL * MDK_SLOT + 32 + 160);
+}
+__host__ __device__ constexpr int mdk_warp_bytes(int n_time, bool rows,
+                                                 int per_bin) {
+    return (mdk_row_offset() + (rows ? 8 * per_bin * n_time : 0) + 15) & ~15;
+}
+// Shared bytes of a block's tables: the rectangles (rec float4s each),
+// the shadowing rectangles' rows, params, the transmitter row and its unit
+// normal, the receiver's frame, four counts, the mesh-shape rows.
+__host__ __device__ constexpr int mdk_table_bytes(int n_prims, int n_params,
+                                                  int n_msh, int rec) {
+    return (16 * (rec + 3) * n_prims
+            + 4 * (n_params + TXP_COLS + 4 + COH_RXC + 4 + MSH_COLS * n_msh)
+            + 15)
+           & ~15;
+}
+
+template <bool COH, bool LOB>
+__global__ void __launch_bounds__(COH_THREADS, MDK_MIN_BLOCKS)
+receive_mesh_doppler_kernel(const float* __restrict__ params,
+                            const float* __restrict__ prim,
+                            const float* __restrict__ txp,
+                            const float* __restrict__ msh,
+                            const float* __restrict__ uniforms,
+                            bvh::Tables mesh, float* __restrict__ lane_val,
+                            double* __restrict__ partial,
+                            unsigned long long* __restrict__ part_ev,
+                            Cfg cfg) {
+    constexpr int REC = LOB ? LOB_REC : COH_REC;
+    constexpr int PER_BIN = COH ? 2 : 1;   // a bin's values: I and Q, or power
+    extern __shared__ float4 msm[];
+    const int T = blockDim.x, tid = threadIdx.x, j = tid & 31;
+    const long long pulse = blockIdx.y;
+    const int np = cfg.n_prims;
+    params += pulse * cfg.n_params;
+    prim += pulse * np * PRIM_COLS;
+    txp += pulse * TXP_COLS;
+    msh += pulse * cfg.n_msh * MSH_COLS;
+    float4* s_rec = msm;
+    float4* s_blk = s_rec + REC * np;
+    float* s_par = reinterpret_cast<float*>(s_blk + 3 * np);
+    float* s_tx = s_par + cfg.n_params;      // its row, then its unit normal
+    float* s_rxc = s_tx + TXP_COLS + 4;      // the receiver's frame
+    int* s_cnt = reinterpret_cast<int*>(s_rxc + COH_RXC);
+    float* s_msh = reinterpret_cast<float*>(s_cnt + 4);
+    const bool rows = lob_rows(cfg.n_time, cfg.n_freq, cfg.mode, PER_BIN);
+    char* s_warps = reinterpret_cast<char*>(msm)
+                    + mdk_table_bytes(np, cfg.n_params, cfg.n_msh, REC);
+    const int wbytes = mdk_warp_bytes(cfg.n_time, rows, PER_BIN);
+    float* w_slots = reinterpret_cast<float*>(s_warps + (tid >> 5) * wbytes);
+    int* w_take = reinterpret_cast<int*>(w_slots + COH_POOL * MDK_SLOT);
+    float* w_vals = reinterpret_cast<float*>(w_take + 32);
+    double* w_row = reinterpret_cast<double*>(
+        reinterpret_cast<char*>(w_slots) + mdk_row_offset());
+    // the values of a pulse's grid: I and Q of each cell, or its power
+    const long long n_vals = (long long)PER_BIN * cfg.n_time * cfg.n_freq;
+    // mode 1 without warp rows: the block's float grid after the warps'
+    float* s_grid = reinterpret_cast<float*>(s_warps + (T / 32) * wbytes);
+
+    for (int i = tid; i < cfg.n_params; i += T) s_par[i] = params[i];
+    for (int i = tid; i < TXP_COLS; i += T) s_tx[i] = txp[i];
+    for (int i = tid; i < cfg.n_msh * MSH_COLS; i += T) s_msh[i] = msh[i];
+    if (rows) {
+        for (int i = j; i < PER_BIN * cfg.n_time; i += 32) w_row[i] = 0.0;
+    } else if (cfg.mode == 1) {
+        for (long long i = tid; i < n_vals; i += T) s_grid[i] = 0.0f;
+    }
+    if (tid == 0) {
+        // the rectangles in prim order, and those that can shadow an NEE
+        // (the transmitter's own, tx index 0 in column 14, never does)
+        int nr = 0, nb = 0;
+        for (int p = 0; p < np; ++p) {
+            const float* row = prim + p * PRIM_COLS;
+            if ((int)row[0] != RECTANGLE) continue;
+            const float* q = row + 1;
+            float rnorm = rsqrtf(fmaxf(q[8] * q[8] + q[9] * q[9]
+                                       + q[10] * q[10], F(1e-20)));
+            float4* r = s_rec + REC * nr++;
+            r[0] = make_float4(q[0], q[1], q[2], q[3]);
+            r[1] = make_float4(q[4], q[5], q[6], q[7]);
+            r[2] = make_float4(q[8], q[9], q[10], q[11]);
+            r[3] = make_float4(q[8] * rnorm, q[9] * rnorm, q[10] * rnorm,
+                               row[13]);
+            r[4] = make_float4(row[14], row[18], row[15], row[16]);
+            r[5] = make_float4(row[17], row[19], row[20], row[21]);
+            if constexpr (LOB) {
+                // a composite's mark, second lobe and first lobe's weight
+                r[6] = make_float4(row[27], row[28], row[29], row[30]);
+                r[7] = make_float4(row[31], row[32], row[33], 0.0f);
+            }
+            if (row[14] != 0.0f) {
+                float4* b = s_blk + 3 * nb++;
+                b[0] = r[0];
+                b[1] = r[1];
+                b[2] = r[2];
+            }
+        }
+        s_cnt[0] = nr;
+        s_cnt[1] = nb;
+    }
+    __syncthreads();
+    if (tid == 0) {
+        const float* m = s_tx;
+        float tnn = rsqrtf(fmaxf(m[2] * m[2] + m[6] * m[6] + m[10] * m[10],
+                                 F(1e-20)));
+        s_tx[TXP_COLS] = m[2] * tnn;
+        s_tx[TXP_COLS + 1] = m[6] * tnn;
+        s_tx[TXP_COLS + 2] = m[10] * tnn;
+        // the Wigner receiver's frame, trace_lane's expressions
+        const float* rxm = s_par + 2;
+        float nzx = rxm[2], nzy = rxm[6], nzz = rxm[10];
+        float nn = rsqrtf(nzx * nzx + nzy * nzy + nzz * nzz);
+        nzx = nzx * nn;
+        nzy = nzy * nn;
+        nzz = nzz * nn;
+        float sign = sgn_ge(nzz);
+        float a = -1.0f / (sign + nzz);
+        float b = nzx * nzy * a;
+        float* rc = s_rxc;
+        rc[0] = nzx;
+        rc[1] = nzy;
+        rc[2] = nzz;
+        rc[3] = 4.0f * s_par[14] * s_par[15];                 // area
+        rc[8] = 1.0f + sign * nzx * nzx * a;                  // s1
+        rc[9] = sign * b;
+        rc[10] = -sign * nzx;
+        rc[11] = b;                                           // s2
+        rc[12] = sign + nzy * nzy * a;
+        rc[13] = -nzy;
+        // the lobe mixture of a receive frequency every lane shares (raw
+        // receive on a 1-D grid; mix_resample and the LO's raw_resample
+        // under gate sampling, read at mid-window): RAY's expressions
+        float t_mid = 0.0f + (cfg.gate ? 0.5f * cfg.t_window : 0.0f);
+        float f_rx = cfg.rule == RX_MIX ? Wave{s_tx + 16, s_tx + 28}
+                                              .inst_freq(t_mid)
+                     : cfg.rule == RX_RAW_LO
+                         ? Wave{s_par + 33, s_par + 41}.inst_freq(t_mid)
+                         : cfg.f_rx;
+        float lam0 = s_par[1] / fmaxf(f_rx, F(1e-6));
+        float w_mn = fminf(s_par[14], s_par[15]);
+        float q = 2.0f * w_mn / (F(0.6) * lam0);
+        float k_l = fmaxf(2.0f * (q * q) - 2.0f, 0.0f);
+        rc[4] = k_l;
+        rc[5] = k_l + 1.0f;
+        rc[6] = 0.5f * (k_l + 1.0f) * F(1.0 / 6.283185307179586);
+        rc[7] = lam0;
+    }
+    __syncthreads();
+
+    const float TP = F(6.283185307179586);
+    const float* sp = s_par;
+    const float cvel = sp[1];
+    const int n_rect = s_cnt[0], n_blk = s_cnt[1];
+    // the pulse's uniforms, Philox key, BVH tables and lane sums, held a
+    // block
+    const float* u_p = uniforms == nullptr ? nullptr
+                                           : uniforms + pulse * cfg.u_stride;
+    const unsigned long long key = cfg.seed + cfg.seed_step * pulse;
+    const bvh::Tables mesh_b = pulse_tables(mesh, cfg);
+    float* lv_p = lane_val == nullptr ? nullptr : lane_val + pulse * cfg.n_lanes;
+    // trace_lane's r0: a frequency or beat draw comes before the ray's
+    const int r0 = (cfg.rule == RX_MIXER
+                    || (cfg.rule == 0 && cfg.n_freq > 1)) ? 2 : 1;
+    const int base = r0 + (cfg.omni ? 2 : 4);
+    // the draws of a depth: six, and (LOB) the lobe pick and composite
+    // pick where the tables hold them
+    const int n_more = LOB ? ((cfg.lobes & LOBE_PICK) != 0)
+                                 + ((cfg.lobes & LOBE_BLEND) != 0)
+                           : 0;
+    // every lane's receive frequency is the block's (s_rxc[4:8])
+    const bool f_call = r0 == 1 && (cfg.gate || cfg.rule == 0);
+    // the direction strata: the tile's cell of a P x P grid (trace_lane's)
+    const long long n_strata = (long long)cfg.patch_p * cfg.patch_p;
+    const int slot0 = (int)sp[0];
+    const float inv_p = cfg.patch_p > 0
+                            ? (float)(1.0 / (double)cfg.patch_p) : 0.0f;
+    Grid grid;
+    grid.s = cfg.mode == 1 ? s_grid : nullptr;
+    grid.g = partial + (cfg.mode == 2 ? pulse * n_vals : 0);
+    const Wave lo{s_par + 33, s_par + 41};
+    unsigned int events = 0;
+    const long long stride = (long long)gridDim.x * T;
+    long long next = (long long)blockIdx.x * T + (tid & ~31);
+    const unsigned lt = (1u << j) - 1u;
+    // the slots whose paths wait for SHADE, the same in every thread (bit
+    // s of the pair: slot s); the others are free
+    unsigned sh_lo = 0u, sh_hi = 0u;
+    for (;;) {
+        // [k1 stage: sched]  the turn: SHADE when 32 paths wait for it,
+        // else RAY for the warp's next lanes, else the rest of SHADE,
+        // else done
+        __syncwarp();
+        const int n_sh = __popc(sh_lo) + __popc(sh_hi);
+        const int n_new = next < cfg.n_lanes
+                              ? (int)min(32LL, cfg.n_lanes - next) : 0;
+        const bool shade = n_sh >= 32 || (n_new == 0 && n_sh > 0);
+        if (!shade && n_new == 0) break;
+        const unsigned m0 = shade ? sh_lo : ~sh_lo;
+        const unsigned m1 = shade ? sh_hi : ~sh_hi;
+        if ((m0 >> j) & 1u) w_take[__popc(m0 & lt)] = j;
+        const int rk1 = __popc(m0) + __popc(m1 & lt);
+        if (((m1 >> j) & 1u) && rk1 < 32) w_take[rk1] = j + 32;
+        __syncwarp();
+        const int n_go = shade ? min(32, n_sh) : n_new;
+        const int slot = j < n_go ? w_take[j] : -1;
+        float4* sl4 = reinterpret_cast<float4*>(
+            w_slots + MDK_SLOT * (slot < 0 ? 0 : slot));
+        long long lane = next + j;
+        int depth = 0;
+        bool wdel = false;
+        float dop = 1.0f, lsum = 0.0f;
+        if (shade && slot >= 0) {
+            const float4 e = sl4[3];
+            lane = (long long)(((unsigned long long)__float_as_uint(e.y)
+                                << 32)
+                               | __float_as_uint(e.x));
+            dop = e.z;
+            lsum = e.w;
+            const int dw = __float_as_int(sl4[2].w);
+            depth = dw & 0xffff;
+            wdel = (dw >> 16) != 0;
+        }
+        const int d0 = base + (6 + n_more) * depth;
+        float ud[7];
+        // [k1 stage: draws]
+        if (slot >= 0) {
+            if (!shade)
+                coh_ray_draws(cfg, u_p, key, lane, ud);
+            else if constexpr (LOB)
+                lob_draws(cfg, u_p, key, lane, d0 + 1, n_more, ud);
+            else
+                coh_draws5(cfg, u_p, key, lane, d0 + 1, ud);
+        }
+        // [k1 stage: sched]
+
+        bool live = false;
+        float ox = 0.0f, oy = 0.0f, oz = 0.0f, dx = 0.0f, dy = 0.0f,
+              dz = 0.0f, thr = 0.0f, plen = 0.0f, t_rx0 = 0.0f;
+        // SHADE: the contribution's I, Q (the power alone in `ci`) and time
+        // coordinate, and its frequency and receive time (the frequency
+        // bin of a 2-D grid); the connection, if any: its power and its
+        // phase's inputs
+        float ci = 0.0f, si = 0.0f, yb = 0.0f, f_recv = 0.0f, t_recv = 0.0f;
+        bool conn = false;
+        float val = 0.0f, dtot = 0.0f, t_emit = 0.0f, k_c = 0.0f;
+        int n_bnd = 0;
+        if (!shade) {
+            if (slot >= 0) {
+                // [k1 stage: ray]  trace_lane's receive frequency and ray
+                const float* rxm = sp + 2;
+                const float rx_wx = sp[14], rx_wy = sp[15];
+                t_rx0 = cfg.gate ? 0.0f : cfg.t_start + ud[0] * cfg.t_window;
+                float f_rx = cfg.f_rx;
+                {
+                    float t_mid = t_rx0 + (cfg.gate ? 0.5f * cfg.t_window
+                                                    : 0.0f);
+                    if (cfg.rule == RX_MIX) {
+                        f_rx = Wave{s_tx + 16, s_tx + 28}.inst_freq(t_mid);
+                    } else if (cfg.rule == RX_RAW_LO) {
+                        f_rx = lo.inst_freq(t_mid);
+                    } else if (cfg.rule == RX_MIXER) {
+                        f_rx = lo.inst_freq(t_mid)
+                               - (cfg.f_lo + ud[1] * cfg.f_span);
+                    } else if (cfg.n_freq > 1) {
+                        f_rx = cfg.f_lo + ud[1] * cfg.f_span;
+                    }
+                }
+                // the ray draws r0 .. r0 + 3, each read at a constant
+                // index (a run-time one would keep `ud` in local memory)
+                const bool fd = r0 == 2;
+                const float u1 = fd ? ud[2] : ud[1], u2 = fd ? ud[3] : ud[2];
+                const float u3 = fd ? ud[4] : ud[3], u4 = fd ? ud[5] : ud[4];
+                if (cfg.omni) {
+                    ox = rxm[3];
+                    oy = rxm[7];
+                    oz = rxm[11];
+                    float z = 1.0f - 2.0f * u1;
+                    float r = sqrtf(fmaxf(1.0f - z * z, 0.0f));
+                    float ph = TP * u2;
+                    dx = r * fast_cos(ph);
+                    dy = r * fast_sin(ph);
+                    dz = z;
+                    thr = F(4.0 * 3.141592653589793) * sp[32];
+                } else {
+                    float lx = 2.0f * u1 - 1.0f, ly = 2.0f * u2 - 1.0f;
+                    ox = rxm[0] * lx + rxm[1] * ly + rxm[3];
+                    oy = rxm[4] * lx + rxm[5] * ly + rxm[7];
+                    oz = rxm[8] * lx + rxm[9] * ly + rxm[11];
+                    const float* rc = s_rxc;
+                    const float nzx = rc[0], nzy = rc[1], nzz = rc[2];
+                    // the lobe mixture's constants: the block's, or this
+                    // lane's
+                    float lam0 = rc[7], k_l = rc[4], k_l1 = rc[5],
+                          kc = rc[6];
+                    if (!f_call) {
+                        lam0 = cvel / fmaxf(f_rx, F(1e-6));
+                        float w_mn = fminf(rx_wx, rx_wy);
+                        float q = 2.0f * w_mn / (F(0.6) * lam0);
+                        k_l = fmaxf(2.0f * (q * q) - 2.0f, 0.0f);
+                        k_l1 = k_l + 1.0f;
+                        kc = 0.5f * (k_l + 1.0f)
+                             * F(1.0 / 6.283185307179586);
+                    }
+                    float tx_, ty_, tz, w0;
+                    if (cfg.patch_p > 0) {
+                        // stratified cosine hemisphere: the tile's cell
+                        // plus the lane's jitter; cos pdf, weight pi area
+                        const long long P = cfg.patch_p;
+                        long long patch = ((lane / 1024) * 131 + slot0)
+                                          % n_strata;
+                        float s3 = ((float)(patch % P) + u3) * inv_p;
+                        float s4 = ((float)(patch / P) + u4) * inv_p;
+                        float rr = sqrtf(s3);
+                        float ph = TP * s4;
+                        tx_ = rr * fast_cos(ph);
+                        ty_ = rr * fast_sin(ph);
+                        tz = sqrtf(fmaxf(1.0f - s3, 0.0f));
+                        w0 = F(3.141592653589793) * rc[3] * sp[32];
+                    } else {
+                        bool pick = u3 >= 0.5f;
+                        float u0m = pick ? 2.0f * u3 - 1.0f : 2.0f * u3;
+                        float ph = TP * u4;
+                        float ct_c = sqrtf(fmaxf(1.0f - u0m, 0.0f));
+                        float ct_l = expf(logf(fmaxf(u0m, F(1e-12))) / k_l1);
+                        tz = pick ? ct_l : ct_c;
+                        float st = sqrtf(fmaxf(1.0f - tz * tz, 0.0f));
+                        tx_ = st * fast_cos(ph);
+                        ty_ = st * fast_sin(ph);
+                        float cosk = expf(k_l * logf(fmaxf(tz, F(1e-12))));
+                        float pdf_d = 0.5f * tz * F(1.0 / 3.141592653589793)
+                                      + kc * cosk;
+                        w0 = (tz / fmaxf(pdf_d, F(1e-30))) * rc[3] * sp[32];
+                    }
+                    dx = rc[8] * tx_ + rc[11] * ty_ + nzx * tz;
+                    dy = rc[9] * tx_ + rc[12] * ty_ + nzy * tz;
+                    dz = rc[10] * tx_ + rc[13] * ty_ + nzz * tz;
+                    float lam = lam0;
+                    float nu_x = (rxm[0] * dx + rxm[4] * dy + rxm[8] * dz)
+                                 / fmaxf(rx_wx, F(1e-9)) / lam;
+                    float nu_y = (rxm[1] * dx + rxm[5] * dy + rxm[9] * dz)
+                                 / fmaxf(rx_wy, F(1e-9)) / lam;
+                    float trx = tri_f(lx * 0.5f), try_ = tri_f(ly * 0.5f);
+                    thr = w0 * (4.0f * trx * try_
+                                * sinc_f(TP * nu_x * rx_wx * trx)
+                                * sinc_f(TP * nu_y * rx_wy * try_));
+                    ox = ox + F(1e-4) * nzx;
+                    oy = oy + F(1e-4) * nzy;
+                    oz = oz + F(1e-4) * nzz;
+                }
+                // cumulative Doppler factor, the receiver's motion first
+                dop = 1.0f + (dx * sp[23] + dy * sp[24] + dz * sp[25]) / cvel;
+                live = true;
+            }
+            next += stride;
+        } else if (slot >= 0) {
+            // [k1 stage: hit]  the path from its slot, the hit point and
+            // the hit's lobe: a rectangle's record, or a triangle's normal
+            // and reflectance and its mesh-shape row
+            const float4 a = sl4[0], b = sl4[1], c = sl4[2];
+            const float cx = a.x, cy = a.y, cz = a.z;
+            thr = a.w;
+            dx = b.x;
+            dy = b.y;
+            dz = b.z;
+            t_rx0 = c.x;
+            const float tb = c.y;
+            const int code = __float_as_int(c.z);
+            const float4* rec = s_rec + REC * (code < 0 ? 0 : code);
+            float nx, ny, nz, rb, txc, kb, ab, eb, kk, vbx, vby, vbz;
+            // a composite's first-lobe weight (1 on a plain row or a mesh)
+            float wmx = 1.0f;
+            if (code >= 0) {
+                const float4 nrb = rec[3], lob = rec[4], kv = rec[5];
+                nx = nrb.x;
+                ny = nrb.y;
+                nz = nrb.z;
+                rb = nrb.w;
+                txc = lob.x;
+                kb = lob.y;
+                ab = lob.z;
+                eb = lob.w;
+                kk = kv.x;
+                vbx = kv.y;
+                vby = kv.z;
+                vbz = kv.w;
+                if constexpr (LOB) wmx = rec[7].z;
+            } else {
+                const float4 nm = sl4[4];
+                nx = nm.x;
+                ny = nm.y;
+                nz = nm.z;
+                rb = nm.w;
+                txc = -1.0f;
+                const float* r = s_msh + MSH_COLS * (-1 - code);
+                kb = r[6];
+                ab = r[3];
+                eb = r[4];
+                kk = r[5];
+                vbx = r[0];
+                vby = r[1];
+                vbz = r[2];
+            }
+            const float n_time_f = (float)cfg.n_time;
+            const float t_start = cfg.t_start, t_window = cfg.t_window;
+            Tx tx;
+            tx.m = s_tx;
+            tx.wx = s_tx[12];
+            tx.wy = s_tx[13];
+            tx.area = s_tx[14];
+            tx.gain = s_tx[15];
+            tx.wf = s_tx[16];
+            tx.amp = s_tx[17];
+            tx.prf = s_tx[18];
+            tx.text = s_tx[19];
+            tx.fc = s_tx[20];
+            tx.fext = s_tx[21];
+            tx.nx = s_tx[TXP_COLS];
+            tx.ny = s_tx[TXP_COLS + 1];
+            tx.nz = s_tx[TXP_COLS + 2];
+            tx.vx = s_tx[24];
+            tx.vy = s_tx[25];
+            tx.vz = s_tx[26];
+            tx.w = Wave{s_tx + 16, s_tx + 28};
+            const float* m = tx.m;
+            plen = b.w + tb;
+            float hx = cx + tb * dx, hy = cy + tb * dy, hz = cz + tb * dz;
+            const bool is_ggx = kb == ROUGH_CONDUCTOR;
+            const bool is_m = cfg.mirror && kb == CONDUCTOR;
+            // whether NEE leaves the hit: not from the transmitter or a
+            // mirror, and (LOB) not from a delta lobe, unless a composite's
+            // other lobe may connect
+            const bool nee = LOB ? txc < 0.0f
+                                       && !((is_m || kb == DIELECTRIC
+                                             || kb == THIN_DIELECTRIC)
+                                            && !(wmx < 1.0f))
+                                 : txc < 0.0f && !is_m;
+
+            // [k1 stage: direct]  direct transmitter hits at depth 0 and
+            // after a delta bounce
+            if (depth == 0 || wdel) {
+                float cos_dh = -(dx * tx.nx + dy * tx.ny + dz * tx.nz);
+                if (txc == 0.0f && cos_dh > 0.0f) {
+                    float te_h, tr_h, wg_h, k_h = 0.0f;
+                    tx.emission(plen / cvel,
+                                coh_draw1(cfg, u_p, key, lane, d0), t_rx0,
+                                cfg.gate, t_start, t_window, &te_h, &tr_h,
+                                &wg_h, &k_h);
+                    float fe_h = tx.inst_freq(te_h);
+                    float sig_h = tx.eval_wdf(te_h, fe_h);
+                    float lam_h = cvel / fmaxf(fe_h, F(1e-6));
+                    float lxh = ((hx - m[3]) * m[0] + (hy - m[7]) * m[4]
+                                 + (hz - m[11]) * m[8])
+                                / fmaxf(tx.wx * tx.wx, F(1e-12));
+                    float lyh = ((hx - m[3]) * m[1] + (hy - m[7]) * m[5]
+                                 + (hz - m[11]) * m[9])
+                                / fmaxf(tx.wy * tx.wy, F(1e-12));
+                    float ap_h = tx.aperture(lxh, lyh, dx, dy, dz, lam_h);
+                    float w_dh = sig_h * tx.gain * ap_h * TP;
+                    val = thr * w_dh * wg_h;
+                    yb = (tr_h - t_start) / t_window * n_time_f - 0.5f;
+                    f_recv = fe_h * dop;
+                    t_recv = tr_h;
+                    dtot = plen;
+                    t_emit = te_h;
+                    k_c = k_h;
+                    conn = true;
+                }
+            }
+
+            // [k1 stage: nee]  NEE to the transmitter
+            if (nee) {
+                float glx = 2.0f * ud[0] - 1.0f;
+                float gly = 2.0f * ud[1] - 1.0f;
+                float qx = m[0] * glx + m[1] * gly + m[3];
+                float qy = m[4] * glx + m[5] * gly + m[7];
+                float qz = m[8] * glx + m[9] * gly + m[11];
+                float vx = qx - hx, vy = qy - hy, vz = qz - hz;
+                float dist2 = vx * vx + vy * vy + vz * vz;
+                float dist = sqrtf(fmaxf(dist2, F(1e-20)));
+                float inv_d = 1.0f / dist;
+                float wx_ = vx * inv_d, wy_ = vy * inv_d, wz_ = vz * inv_d;
+                float cos_tx = -(wx_ * tx.nx + wy_ * tx.ny + wz_ * tx.nz);
+                if (cos_tx > F(1e-6)) {
+                    float pdf_sa = (1.0f / fmaxf(tx.area, F(1e-12))) * dist2
+                                   / fmaxf(cos_tx, F(1e-6));
+                    float cos_s = wx_ * nx + wy_ * ny + wz_ * nz;
+                    float f_cos;
+                    if constexpr (LOB) {
+                        // [k1 stage: lobe_nee]  the hit's lobe; a
+                        // composite's mix w f0 + (1 - w) f1 with its second
+                        // lobe (a mask's: a zero diffuse one)
+                        f_cos = lobe_fcos(kb, rb, ab, eb, kk, nx, ny, nz,
+                                          -dx, -dy, -dz, wx_, wy_, wz_);
+                        if (wmx < 1.0f) {
+                            const float4 l1 = rec[6], l2 = rec[7];
+                            float f1 = lobe_fcos(l1.y, l1.z, l1.w, l2.x,
+                                                 l2.y, nx, ny, nz, -dx, -dy,
+                                                 -dz, wx_, wy_, wz_);
+                            f_cos = wmx * f_cos + (1.0f - wmx) * f1;
+                        }
+                        // [k1 stage: nee]
+                    } else if (is_ggx) {
+                        f_cos = ggx_fcos(rb, ab, eb, kk, nx, ny, nz, -dx,
+                                         -dy, -dz, wx_, wy_, wz_);
+                    } else {
+                        float sg = sgn_ge(-dx * nx + -dy * ny + -dz * nz);
+                        float co = wx_ * (nx * sg) + wy_ * (ny * sg)
+                                   + wz_ * (nz * sg);
+                        f_cos = rb * F(1.0 / 3.141592653589793)
+                                * fmaxf(co, 0.0f);
+                    }
+                    float te_n, tr_n, w_gate, k_nee = 0.0f;
+                    tx.emission((plen + dist) / cvel, ud[2], t_rx0, cfg.gate,
+                                t_start, t_window, &te_n, &tr_n, &w_gate,
+                                &k_nee);
+                    float f_emit = tx.inst_freq(te_n);
+                    float sig = tx.eval_wdf(te_n, f_emit);
+                    float ap = tx.aperture(glx, gly, wx_, wy_, wz_,
+                                           cvel / fmaxf(f_emit, F(1e-6)));
+                    float w_tx = sig * tx.gain * ap * TP;
+                    float off = F(1e-4) * sign0(cos_s);
+                    float sx = hx + off * nx, sy = hy + off * ny,
+                          sz = hz + off * nz;
+                    float limit = dist * F(0.999);
+                    // [k1 stage: shadow]
+                    bool occ = false;
+                    for (int r = 0; r < n_blk && !occ; ++r) {
+                        float t_p;
+                        bool hit_p = rect_hit4(s_blk + 3 * r, sx, sy, sz,
+                                               wx_, wy_, wz_, &t_p);
+                        occ = hit_p && t_p > F(1e-4) && t_p < limit;
+                    }
+                    // [k1 stage: shadow_walk]  the mesh's any hit (LOB:
+                    // none from a delta lobe, as the JAX kernel's walk;
+                    // a composite's other lobe connects unshadowed by the
+                    // mesh there)
+                    if (!occ && !(LOB && (is_m || kb == DIELECTRIC
+                                          || kb == THIN_DIELECTRIC))) {
+                        bvh::Any sh;
+                        sh.limit = limit;
+                        bvh::walk(mesh_b,
+                                  bvh::make_ray(sx, sy, sz, wx_, wy_, wz_),
+                                  sh);
+                        occ = sh.occ;
+                    }
+                    // [k1 stage: nee]
+                    if (!occ && pdf_sa > 0.0f) {
+                        val = thr * f_cos * w_tx * w_gate
+                              / fmaxf(pdf_sa, F(1e-30));
+                        yb = (tr_n - t_start) / t_window * n_time_f - 0.5f;
+                        // connection Doppler: the vertex's bounce and the
+                        // transmitter's motion; the phase adds the
+                        // boundary phase of depth + 1 vertices
+                        float dop_vtx = 1.0f + ((wx_ - dx) * vbx
+                                                + (wy_ - dy) * vby
+                                                + (wz_ - dz) * vbz) / cvel;
+                        float dop_tx = 1.0f - (wx_ * tx.vx + wy_ * tx.vy
+                                               + wz_ * tx.vz) / cvel;
+                        f_recv = f_emit * dop * dop_vtx * dop_tx;
+                        t_recv = tr_n;
+                        dtot = plen + dist;
+                        t_emit = te_n;
+                        k_c = k_nee;
+                        n_bnd = depth + 1;
+                        conn = true;
+                    }
+                }
+            }
+            if constexpr (!COH) {
+                if (conn) {
+                    // [k1 stage: splat]  the power (conn_splat)
+                    ci = val;
+                    lsum += val;
+                    events += val != 0.0f;
+                    if (!rows) {
+                        const Wave txw{s_tx + 16, s_tx + 28};
+                        grid_splat<false>(grid, cfg, val, 0.0f, yb, [&] {
+                            return bin_freq(cfg, txw, lo, f_recv, t_recv);
+                        });
+                    }
+                }
+            } else if (conn) {
+                // [k1 stage: phase]  the echo phase, I and Q (conn_splat)
+                const Wave txw{s_tx + 16, s_tx + 28};
+                float ph = echo_phase(txw, lo, cfg, sp, dtot, t_emit,
+                                      t_recv, k_c);
+                if (n_bnd > 0) ph = add_rn(ph, mul_rn((float)n_bnd, sp[16]));
+                float amp = sqrtf(fmaxf(val, 0.0f));
+                ci = amp * fast_cos(ph);
+                si = amp * fast_sin(ph);
+                lsum += amp;
+                events += val != 0.0f;
+                if (!rows) {
+                    // [k1 stage: splat]
+                    grid_splat<true>(grid, cfg, ci, si, yb, [&] {
+                        return bin_freq(cfg, txw, lo, f_recv, t_recv);
+                    });
+                }
+            }
+
+            if constexpr (LOB) {
+                // [k1 stage: bounce]  the hit's lobe (trace_lane's lobe
+                // bounce): a composite first picks its lobe; then a
+                // mask's pass, a mirror, a smooth or thin dielectric's
+                // reflection or refraction, a GGX half vector (rough
+                // conductor, rough plastic's coat, GGX glass) or the
+                // cosine hemisphere (diffuse, plastic's base) about the
+                // flipped normal (none after the last depth or on the
+                // transmitter)
+                if (depth < cfg.max_depth - 1 && txc < 0.0f) {
+                    float u8 = ud[3], u9 = ud[4];       // draws d0 + 4, 5
+                    float lk = kb, lr = rb, la = ab, le = eb, lkk = kk;
+                    bool pass = false;
+                    // [k1 stage: pick]
+                    if (wmx < 1.0f
+                        && !(((cfg.lobes & LOBE_PICK) ? ud[6] : ud[5])
+                             < wmx)) {
+                        // the second lobe; a mask's passes the ray
+                        // straight on (a delta null transmission, weight 1)
+                        const float4 l1 = rec[6], l2 = rec[7];
+                        pass = l1.x == 2.0f;
+                        lk = l1.y;
+                        lr = l1.z;
+                        la = l1.w;
+                        le = l2.x;
+                        lkk = l2.y;
+                    }
+                    // [k1 stage: bounce]
+                    float face = -(dx * nx + dy * ny + dz * nz);
+                    float sgn = sgn_ge(face);
+                    float fx = nx * sgn, fy = ny * sgn, fz = nz * sgn;
+                    float sign = sgn_ge(fz);
+                    float a2 = -1.0f / (sign + fz);
+                    float b2 = fx * fy * a2;
+                    float s1x = 1.0f + sign * fx * fx * a2, s1y = sign * b2,
+                          s1z = -sign * fx;
+                    float s2x = b2, s2y = sign + fy * fy * a2, s2z = -fy;
+                    float ph2 = TP * u9;
+                    float ndx, ndy, ndz, w_b;
+                    bool del = false;   // a delta bounce
+                    if (pass) {
+                        ndx = dx;
+                        ndy = dy;
+                        ndz = dz;
+                        w_b = 1.0f;
+                        del = true;
+                    } else if (cfg.mirror && lk == CONDUCTOR) {
+                        // [k1 stage: mirror]
+                        float dn = dx * fx + dy * fy + dz * fz;
+                        ndx = dx - 2.0f * dn * fx;
+                        ndy = dy - 2.0f * dn * fy;
+                        ndz = dz - 2.0f * dn * fz;
+                        w_b = lr * fres_cond(fabsf(dn), le, lkk);
+                        del = true;
+                    } else if (lk == DIELECTRIC || lk == THIN_DIELECTRIC) {
+                        // [k1 stage: diel]  the Fresnel of the unflipped
+                        // cosine picks by u8: reflect about n, or refract
+                        // (thin: pass straight on)
+                        float eta_it, cos_t;
+                        float f_d = fres_diel_full(face, le, &eta_it, &cos_t);
+                        bool refl = lk == DIELECTRIC
+                                        ? u8 < f_d
+                                        : u8 < (f_d < 1.0f
+                                                    ? 2.0f * f_d / (1.0f + f_d)
+                                                    : 1.0f);
+                        if (refl) {
+                            ndx = dx + 2.0f * face * nx;
+                            ndy = dy + 2.0f * face * ny;
+                            ndz = dz + 2.0f * face * nz;
+                            w_b = lk == DIELECTRIC ? lr : 1.0f;
+                        } else if (lk == DIELECTRIC) {
+                            // the refraction: transmittance (k) x the
+                            // radiance compression 1 / eta^2
+                            float scl = 1.0f / eta_it;
+                            float coef = scl * face - sgn_ge(face) * cos_t;
+                            ndx = scl * dx + coef * nx;
+                            ndy = scl * dy + coef * ny;
+                            ndz = scl * dz + coef * nz;
+                            w_b = lkk * scl * scl;
+                        } else {
+                            ndx = dx;
+                            ndy = dy;
+                            ndz = dz;
+                            w_b = 1.0f;
+                        }
+                        del = true;
+                    } else if (lk == ROUGH_CONDUCTOR || lk == ROUGH_PLASTIC
+                               || lk == ROUGH_DIELECTRIC) {
+                        // [k1 stage: ggx]  the GGX half vector hw about the
+                        // flipped normal and its reflection of the ray
+                        float ag2 = la * la;
+                        float tan2 = ag2 * u8 / fmaxf(1.0f - u8, F(1e-12));
+                        float cth = rsqrtf(1.0f + tan2);
+                        float sth = sqrtf(fmaxf(1.0f - cth * cth, 0.0f));
+                        float hlx = sth * fast_cos(ph2),
+                              hly = sth * fast_sin(ph2);
+                        float hwx = s1x * hlx + s2x * hly + fx * cth;
+                        float hwy = s1y * hlx + s2y * hly + fy * cth;
+                        float hwz = s1z * hlx + s2z * hly + fz * cth;
+                        float ci_b = fabsf(face);
+                        float idoth = -dx * hwx + -dy * hwy + -dz * hwz;
+                        ndx = 2.0f * idoth * hwx + dx;
+                        ndy = 2.0f * idoth * hwy + dy;
+                        ndz = 2.0f * idoth * hwz + dz;
+                        if (lk == ROUGH_CONDUCTOR) {
+                            // weight refl F G (wi.h) / (cos_i h.n)
+                            float co_g = ndx * fx + ndy * fy + ndz * fz;
+                            float f_b = fres_cond(fabsf(idoth), le, lkk);
+                            float g_b = g1(ci_b, ag2) * g1(fabsf(co_g), ag2);
+                            w_b = lr * f_b * g_b * idoth
+                                  / fmaxf(ci_b * cth, F(1e-8));
+                            if (!(co_g > 0.0f && idoth > 0.0f)) w_b = 0.0f;
+                        } else if (lk == ROUGH_PLASTIC) {
+                            // the coat with probability spec_w, else the
+                            // diffuse base; the weight is f / pdf of both
+                            float fi = fres_diel(ci_b, le);
+                            float spec_w = fminf(fmaxf(fi, F(0.05)),
+                                                 F(0.95));
+                            if (!(ud[5] < spec_w)) {
+                                float rr2 = sqrtf(u8);
+                                float bx = rr2 * fast_cos(ph2),
+                                      by = rr2 * fast_sin(ph2);
+                                float bz = sqrtf(fmaxf(1.0f - u8, 0.0f));
+                                ndx = s1x * bx + s2x * by + fx * bz;
+                                ndy = s1y * bx + s2y * by + fy * bz;
+                                ndz = s1z * bx + s2z * by + fz * bz;
+                            }
+                            float co_r = ndx * fx + ndy * fy + ndz * fz;
+                            float h2x = -dx + ndx, h2y = -dy + ndy,
+                                  h2z = -dz + ndz;
+                            float hc2 = half_toward(&h2x, &h2y, &h2z, fx, fy,
+                                                    fz);
+                            float dd2 = hc2 * hc2 * (ag2 - 1.0f) + 1.0f;
+                            float d_r = ag2
+                                        / fmaxf(F(3.141592653589793) * dd2
+                                                    * dd2,
+                                                F(1e-20));
+                            float g_r = g1(ci_b, ag2) * g1(fabsf(co_r), ag2);
+                            float idoth2 = -dx * h2x + -dy * h2y + -dz * h2z;
+                            float f_val = lr * F(1.0 / 3.141592653589793)
+                                              * fmaxf(co_r, 0.0f)
+                                              * (1.0f - fi)
+                                              * (1.0f - fres_diel(co_r, le))
+                                          + fres_diel(fabsf(idoth2), le)
+                                                * d_r * g_r
+                                                / fmaxf(4.0f * ci_b,
+                                                        F(1e-8));
+                            float odoth2 = fabsf(ndx * h2x + ndy * h2y
+                                                 + ndz * h2z);
+                            float pdf_r = (1.0f - spec_w) * fmaxf(co_r, 0.0f)
+                                              * F(1.0 / 3.141592653589793)
+                                          + spec_w * d_r * hc2
+                                                / fmaxf(4.0f * odoth2,
+                                                        F(1e-8));
+                            w_b = (co_r > 0.0f && ci_b > F(1e-6))
+                                      ? f_val / fmaxf(pdf_r, F(1e-20))
+                                      : 0.0f;
+                        } else {
+                            // GGX glass: reflect or refract through hw by
+                            // its Fresnel, the relative IOR by the side the
+                            // ray came from; the weight is the
+                            // eval-consistent f cos / pdf
+                            float eta_i2, cost_h;
+                            float f_h = fres_diel_full(idoth * sgn, le,
+                                                       &eta_i2, &cost_h);
+                            bool pick_rf = ud[5] < f_h;
+                            if (!pick_rf) {
+                                float inv_e2 = 1.0f / eta_i2;
+                                float coef_t = (inv_e2 * fabsf(idoth)
+                                                - cost_h)
+                                               * sgn_ge(idoth);
+                                float ttx = coef_t * hwx - (-dx) * inv_e2;
+                                float tty = coef_t * hwy - (-dy) * inv_e2;
+                                float ttz = coef_t * hwz - (-dz) * inv_e2;
+                                float ttn = rsqrtf(fmaxf(ttx * ttx
+                                                         + tty * tty
+                                                         + ttz * ttz,
+                                                         F(1e-20)));
+                                ndx = ttx * ttn;
+                                ndy = tty * ttn;
+                                ndz = ttz * ttn;
+                            }
+                            float p_c;
+                            float f_c = rd_fcos_pdf(face, fx, fy, fz, le,
+                                                    lkk, lr, la, -dx, -dy,
+                                                    -dz, ndx, ndy, ndz,
+                                                    &p_c);
+                            float co_rd = ndx * fx + ndy * fy + ndz * fz;
+                            float odh_s = ndx * hwx + ndy * hwy + ndz * hwz;
+                            bool ok = (pick_rf ? co_rd : -co_rd) > 0.0f
+                                      && idoth > 0.0f
+                                      && odh_s * co_rd > 0.0f;
+                            w_b = ok && p_c > 0.0f
+                                      ? f_c / fmaxf(p_c, F(1e-20))
+                                      : 0.0f;
+                        }
+                    } else {
+                        // [k1 stage: diffuse]  the cosine hemisphere:
+                        // diffuse, and the plastic's base
+                        float rr2 = sqrtf(u8);
+                        float bx = rr2 * fast_cos(ph2),
+                              by = rr2 * fast_sin(ph2);
+                        float bz = sqrtf(fmaxf(1.0f - u8, 0.0f));
+                        ndx = s1x * bx + s2x * by + fx * bz;
+                        ndy = s1y * bx + s2y * by + fy * bz;
+                        ndz = s1z * bx + s2z * by + fz * bz;
+                        w_b = lr;
+                        if (lk == PLASTIC) {
+                            // the smooth coat's mirror direction with
+                            // probability spec_w; both share the base's
+                            // ratio
+                            float fi = fres_diel(fabsf(face), le);
+                            float spec_w = fminf(fmaxf(fi, F(0.05)),
+                                                 F(0.95));
+                            if (ud[5] < spec_w) {
+                                float dn2 = dx * fx + dy * fy + dz * fz;
+                                ndx = dx - 2.0f * dn2 * fx;
+                                ndy = dy - 2.0f * dn2 * fy;
+                                ndz = dz - 2.0f * dn2 * fz;
+                            }
+                            float co_p = ndx * fx + ndy * fy + ndz * fz;
+                            w_b = lr * (1.0f - fi)
+                                  * (1.0f - fres_diel(co_p, le))
+                                  / fmaxf(1.0f - spec_w, F(1e-6));
+                            if (!(co_p > 0.0f)) w_b = 0.0f;
+                        }
+                    }
+                    // [k1 stage: bounce]
+                    if (w_b > 0.0f) {
+                        // direct hits at the next vertex follow a delta
+                        // bounce only where the tables hold a delta lobe
+                        // (a mask's pass alone counts none)
+                        wdel = del && (cfg.mirror
+                                       || (cfg.lobes
+                                           & (LOBE_DIEL | LOBE_THIN)) != 0);
+                        // bounce Doppler of the continued path
+                        dop = dop * (1.0f + ((ndx - dx) * vbx
+                                             + (ndy - dy) * vby
+                                             + (ndz - dz) * vbz) / cvel);
+                        // a refracted or passed ray leaves through the
+                        // back face
+                        float off = F(1e-4);
+                        if ((cfg.lobes & (LOBE_DIEL | LOBE_THIN | LOBE_RDIEL
+                                          | LOBE_MASK))
+                            && !(ndx * fx + ndy * fy + ndz * fz >= 0.0f))
+                            off = F(-1e-4);
+                        dx = ndx;
+                        dy = ndy;
+                        dz = ndz;
+                        thr = thr * w_b;
+                        ox = hx + off * fx;
+                        oy = hy + off * fy;
+                        oz = hz + off * fz;
+                        depth = depth + 1;
+                        live = true;
+                    }
+                }
+            } else {
+                // [k1 stage: bounce]  a diffuse cosine, a GGX half vector
+                // or a mirror about the flipped normal (none after the last
+                // depth, on the transmitter, or from an absorbing hit)
+                if (depth < cfg.max_depth - 1 && txc < 0.0f
+                    && (is_ggx || is_m || rb > 0.0f)) {
+                    float u8 = ud[3], u9 = ud[4];       // draws d0 + 4, 5
+                    float face = -(dx * nx + dy * ny + dz * nz);
+                    float sgn = sgn_ge(face);
+                    float fx = nx * sgn, fy = ny * sgn, fz = nz * sgn;
+                    float sign = sgn_ge(fz);
+                    float a2 = -1.0f / (sign + fz);
+                    float b2 = fx * fy * a2;
+                    float s1x = 1.0f + sign * fx * fx * a2, s1y = sign * b2,
+                          s1z = -sign * fx;
+                    float s2x = b2, s2y = sign + fy * fy * a2, s2z = -fy;
+                    float ph2 = TP * u9;
+                    float ndx, ndy, ndz, w_b;
+                    bool go = true;
+                    if (is_m) {
+                        // [k1 stage: mirror]
+                        float dn = dx * fx + dy * fy + dz * fz;
+                        ndx = dx - 2.0f * dn * fx;
+                        ndy = dy - 2.0f * dn * fy;
+                        ndz = dz - 2.0f * dn * fz;
+                        w_b = rb * fres_cond(fabsf(dn), eb, kk);
+                        go = w_b > 0.0f;
+                    } else if (is_ggx) {
+                        // [k1 stage: ggx]
+                        float ag2 = ab * ab;
+                        float tan2 = ag2 * u8 / fmaxf(1.0f - u8, F(1e-12));
+                        float cth = rsqrtf(1.0f + tan2);
+                        float sth = sqrtf(fmaxf(1.0f - cth * cth, 0.0f));
+                        float hlx = sth * fast_cos(ph2),
+                              hly = sth * fast_sin(ph2);
+                        float hwx = s1x * hlx + s2x * hly + fx * cth;
+                        float hwy = s1y * hlx + s2y * hly + fy * cth;
+                        float hwz = s1z * hlx + s2z * hly + fz * cth;
+                        float ci_b = fabsf(face);
+                        float idoth = -dx * hwx + -dy * hwy + -dz * hwz;
+                        ndx = 2.0f * idoth * hwx + dx;
+                        ndy = 2.0f * idoth * hwy + dy;
+                        ndz = 2.0f * idoth * hwz + dz;
+                        float co_g = ndx * fx + ndy * fy + ndz * fz;
+                        float f_b = fres_cond(fabsf(idoth), eb, kk);
+                        float g_b = g1(ci_b, ag2) * g1(fabsf(co_g), ag2);
+                        w_b = rb * f_b * g_b * idoth
+                              / fmaxf(ci_b * cth, F(1e-8));
+                        go = co_g > 0.0f && idoth > 0.0f && w_b > 0.0f;
+                    } else {
+                        // [k1 stage: diffuse]
+                        float rr2 = sqrtf(u8);
+                        float bx = rr2 * fast_cos(ph2),
+                              by = rr2 * fast_sin(ph2);
+                        float bz = sqrtf(fmaxf(1.0f - u8, 0.0f));
+                        ndx = s1x * bx + s2x * by + fx * bz;
+                        ndy = s1y * bx + s2y * by + fy * bz;
+                        ndz = s1z * bx + s2z * by + fz * bz;
+                        w_b = rb;
+                    }
+                    // [k1 stage: bounce]
+                    if (go) {
+                        wdel = is_m;
+                        // bounce Doppler of the continued path
+                        dop = dop * (1.0f + ((ndx - dx) * vbx
+                                             + (ndy - dy) * vby
+                                             + (ndz - dz) * vbz) / cvel);
+                        dx = ndx;
+                        dy = ndy;
+                        dz = ndz;
+                        thr = thr * w_b;
+                        ox = hx + F(1e-4) * fx;
+                        oy = hy + F(1e-4) * fy;
+                        oz = hz + F(1e-4) * fz;
+                        depth = depth + 1;
+                        live = true;
+                    }
+                }
+            }
+        }
+
+        // [k1 stage: trace]  the closest rectangle of the turn's rays, then
+        // the closest triangle (the walk, pruned by the rectangle's t); a
+        // hit waits in its slot for SHADE, a miss ends the lane
+        bool hit = false;
+        if (live) {
+            float tb = F(3.4e38);
+            int code = -1;
+            for (int r = 0; r < n_rect; ++r) {
+                // [k1 stage: closest]
+                float t_p;
+                bool hit_p = rect_hit4(s_rec + REC * r, ox, oy, oz, dx,
+                                       dy, dz, &t_p);
+                if (hit_p && t_p > F(1e-4) && t_p < tb) {
+                    tb = t_p;
+                    code = r;
+                }
+            }
+            // [k1 stage: walk]
+            MeshClosest<true> mc;
+            mc.ta = tb;
+            bvh::walk(mesh_b, bvh::make_ray(ox, oy, oz, dx, dy, dz), mc);
+            // [k1 stage: trace]
+            const bool tri = mc.t < tb;
+            if (tri) {
+                tb = mc.t;
+                code = -1 - min(max((int)mc.sid, 0), cfg.n_msh - 1);
+            }
+            hit = tb < F(3.4e37);
+            if (hit) {
+                const unsigned long long ln = (unsigned long long)lane;
+                sl4[0] = make_float4(ox, oy, oz, thr);
+                sl4[1] = make_float4(dx, dy, dz, plen);
+                sl4[2] = make_float4(t_rx0, tb, __int_as_float(code),
+                                     __int_as_float(depth
+                                                    | (wdel ? 1 << 16 : 0)));
+                sl4[3] = make_float4(__uint_as_float((unsigned)ln),
+                                     __uint_as_float((unsigned)(ln >> 32)),
+                                     dop, lsum);
+                if (tri) sl4[4] = make_float4(mc.nx, mc.ny, mc.nz, mc.rf);
+            }
+        }
+        // the lane's sum, where its path ended
+        if (slot >= 0 && !hit && lv_p != nullptr) lv_p[lane] = lsum;
+        // [k1 stage: sched]  the waiting set: the turn's slots leave it,
+        // those whose ray hit join it
+        const bool lo_s = slot >= 0 && slot < 32, hi_s = slot >= 32;
+        const unsigned bit = 1u << (slot & 31);
+        sh_lo = (sh_lo & ~__reduce_or_sync(FULL_MASK, lo_s ? bit : 0u))
+                | __reduce_or_sync(FULL_MASK, lo_s && hit ? bit : 0u);
+        sh_hi = (sh_hi & ~__reduce_or_sync(FULL_MASK, hi_s ? bit : 0u))
+                | __reduce_or_sync(FULL_MASK, hi_s && hit ? bit : 0u);
+        if (shade && rows) {
+            // [k1 stage: splat]
+            if constexpr (COH)
+                coh_splat_rows(w_row, w_vals, cfg.n_time, ci, si, yb, j);
+            else
+                pow_splat_rows(w_row, w_vals, cfg.n_time, ci, yb, j);
+        }
+    }
+    // [k1 stage: end]
+    __syncthreads();
+
+    // the block's grid: its warps' rows summed in warp order, or its
+    // float grid (mode 2 added to `partial` already); its events
+    partial += pulse * gridDim.x * n_vals;
+    part_ev += pulse * gridDim.x;
+    if (rows) {
+        for (int v = tid; v < n_vals; v += T) {
+            double s = 0.0;
+            for (int w = 0; w < T / 32; ++w)
+                s += reinterpret_cast<const double*>(
+                    s_warps + w * wbytes + mdk_row_offset())[v];
+            partial[(long long)blockIdx.x * n_vals + v] = s;
+        }
+    } else if (cfg.mode == 1) {
+        for (long long v = tid; v < n_vals; v += T)
+            partial[(long long)blockIdx.x * n_vals + v] = (double)s_grid[v];
+    }
+    __syncthreads();
+    unsigned long long ev = events;
+    for (int off = 16; off > 0; off >>= 1)
+        ev += __shfl_down_sync(FULL_MASK, ev, off);
+    unsigned long long* s_ev = reinterpret_cast<unsigned long long*>(msm);
+    if (j == 0) s_ev[tid >> 5] = ev;
+    __syncthreads();
+    if (tid == 0) {
+        unsigned long long tot = 0;
+        for (int w = 0; w < T / 32; ++w) tot += s_ev[w];
+        part_ev[blockIdx.x] = tot;
+    }
+}
+
 // The MIMO configuration: the coherent one of a phased array on analytic
 // scenes, in 128-thread blocks of its own launch bounds.
 template <bool MED, bool EP = false>
@@ -7070,6 +8152,8 @@ constexpr auto kernel_of() {
         return receive_endpoint_kernel;
     else if constexpr (EP && !MESH && !MED && !LOB && DOP && COH)
         return receive_endpoint_coherent_kernel;
+    else if constexpr (DOP && MESH && !MED && !EP && COH == LOB)
+        return receive_mesh_doppler_kernel<COH, LOB>;
     else if constexpr (DOP)
         return receive_doppler_kernel<MESH, COH, MED, EP, LOB>;
     else if constexpr (!MESH && !MED && !EP)
@@ -7209,6 +8293,17 @@ int geometry(int n_time, int n_freq, long long n_lanes, int n_prims,
         const bool rows = lob_rows(n_time, n_freq, mode, per_bin);
         smem = lob_table_bytes(n_prims, n_params)
                + (T / 32) * lob_warp_bytes(n_time, rows, per_bin)
+               + (mode == 1 && !rows ? 4 * per_bin * n_time * n_freq : 0);
+    } else if (DOP && MESH && !MED && !EP && COH == LOB) {
+        // the mesh Doppler kernel: its tables and mesh-shape rows, each
+        // warp's paths (and row), then the block's float grid where there
+        // are no warp rows (mode 1)
+        T = COH_THREADS;
+        constexpr int per_bin = COH ? 2 : 1;
+        const bool rows = lob_rows(n_time, n_freq, mode, per_bin);
+        smem = mdk_table_bytes(n_prims, n_params, n_msh,
+                               LOB ? LOB_REC : COH_REC)
+               + (T / 32) * mdk_warp_bytes(n_time, rows, per_bin)
                + (mode == 1 && !rows ? 4 * per_bin * n_time * n_freq : 0);
     } else if (DOP) {
         T = DOP_THREADS;
@@ -7495,8 +8590,13 @@ int rk_launch(const float* params, const float* prim, const float* txp,
                 launch(receive_doppler_kernel<false, true, MED, EP>,
                        lane_val);
         }
-        else if (m)
-            launch(receive_doppler_kernel<true, false, MED, EP>, lane_val);
+        else if (m) {
+            if constexpr (!MED && !EP)
+                launch(receive_mesh_doppler_kernel<false, false>, lane_val);
+            else
+                launch(receive_doppler_kernel<true, false, MED, EP>,
+                       lane_val);
+        }
         else if constexpr (!MED && !EP)
             launch(receive_doppler_power_kernel, lane_val);
         else
@@ -7504,10 +8604,10 @@ int rk_launch(const float* params, const float* prim, const float* txp,
     };
     if (lobes) {
         // the lobe twins of the Doppler and coherent configurations: the
-        // mesh ones (LOB), the analytic ones' kernel of their own
+        // mesh ones (the power one LOB, the I / Q one the mesh Doppler
+        // kernel's), the analytic ones' kernel of their own
         if (coh)
-            m ? launch(receive_doppler_kernel<true, true, false, false, true>,
-                       lane_val)
+            m ? launch(receive_mesh_doppler_kernel<true, true>, lane_val)
               : launch(receive_lobe_kernel<true>, lane_val);
         else
             m ? launch(receive_doppler_kernel<true, false, false, false,
@@ -7566,6 +8666,16 @@ const void* rk_doppler_power_kernel(int twin) {
                              receive_doppler_kernel<false, false, false, true>)
                        : reinterpret_cast<const void*>(
                              receive_doppler_power_kernel);
+}
+
+// The mesh Doppler kernel of the Doppler mesh power configuration (lob 0)
+// or of the mesh lobe twin in I / Q (lob 1), to compare with the launch
+// record.
+const void* rk_mesh_doppler_kernel(int lob) {
+    return lob ? reinterpret_cast<const void*>(
+                     receive_mesh_doppler_kernel<true, true>)
+               : reinterpret_cast<const void*>(
+                     receive_mesh_doppler_kernel<false, false>);
 }
 
 // The endpoint kernel of the power (coh 0) or I / Q configuration, to

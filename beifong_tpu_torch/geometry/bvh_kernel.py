@@ -108,7 +108,7 @@ class WalkResult:
 
 
 def walk_ref(pb: PackedBVH, ox, oy, oz, dx, dy, dz, limit, anyhit: bool,
-             stats: dict | None = None) -> WalkResult:
+             stats: dict | None = None, visits=None) -> WalkResult:
     """Per-ray stackless walk of every ray (1-D float32 tensors).
 
     Closest hit (`anyhit=False`): a box must be entered before
@@ -118,7 +118,8 @@ def walk_ref(pb: PackedBVH, ox, oy, oz, dx, dy, dz, limit, anyhit: bool,
     `limit`, a triangle with t < `limit` occludes, and the ray stops there.
 
     `stats`, if given, accumulates 'node_tests' (slab tests) and
-    'leaf_tests' (leaves entered, 8 triangle tests each)."""
+    'leaf_tests' (leaves entered, 8 triangle tests each); `visits`, an
+    (n, 2) int64 tensor, each ray's slab tests and leaves entered."""
     dev = ox.device
     n = int(ox.shape[0])
     bbox = pb.bbox.view(-1, 6)
@@ -155,6 +156,9 @@ def walk_ref(pb: PackedBVH, ox, oy, oz, dx, dy, dz, limit, anyhit: bool,
         at_leaf = enter & (lk[:, 2] >= 0)
         n_nodes += int(cur.numel())
         li = cur[at_leaf]
+        if visits is not None:
+            visits[cur, 0] += 1
+            visits[li, 1] += 1
         if li.numel():
             n_leaves += int(li.numel())
             lid = lk[at_leaf, 2].long()

@@ -2487,6 +2487,8 @@ def _bind(lib):
     lib.rk_endpoint_kernel.restype = vp
     lib.rk_doppler_power_kernel.argtypes = [i32]
     lib.rk_doppler_power_kernel.restype = vp
+    lib.rk_mesh_doppler_kernel.argtypes = [i32]
+    lib.rk_mesh_doppler_kernel.restype = vp
 
 
 LIBRARY = _nvcc.Library('receive_megakernel', 'rk', _bind)
@@ -2522,6 +2524,15 @@ def launched_doppler_power_kernel(twin: str = '') -> bool:
     lib = LIBRARY.get()
     which = {'': 0, 'media': 1, 'ep': 2}[twin]
     return lib.rk_last_kernel() == lib.rk_doppler_power_kernel(which)
+
+
+def launched_mesh_doppler_kernel(lobes: bool = False) -> bool:
+    """Whether the last launch on a card ran the mesh Doppler kernel
+    (receive_mesh_doppler_kernel): of the Doppler mesh configuration in
+    power, or with `lobes` of the mesh lobe twin in I / Q; the library's
+    launch record."""
+    lib = LIBRARY.get()
+    return lib.rk_last_kernel() == lib.rk_mesh_doppler_kernel(int(lobes))
 
 
 def grid_mode(n_cells: int, doppler: bool, coherent: bool = False,

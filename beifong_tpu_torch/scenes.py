@@ -618,7 +618,13 @@ def steer_toward(array_pos, target) -> float:
     return float(np.degrees(np.arcsin(v[0] / np.linalg.norm(v))))
 
 
-def phased_tx_scene(steer_deg: float, n_elems: int = PHASED['n_elems']):
+# the moving GGX target of `phased_tx_scene(moving_ggx=True)`: a rough
+# conductor (multi_body's metal) closing along +y
+PHASED_GGX = dict(alpha=0.3, eta=1.5, k=3.0, v=5.0)
+
+
+def phased_tx_scene(steer_deg: float, n_elems: int = PHASED['n_elems'],
+                    moving_ggx: bool = False):
     """The JAX package's phased-transmitter kernel test
     (`tests/test_pallas_receive.py:1137-1178`) with `n_elems` elements:
     a phased transmitter at (0.3, 0, 0) facing -y, elements lambda / 2
@@ -626,9 +632,16 @@ def phased_tx_scene(steer_deg: float, n_elems: int = PHASED['n_elems']):
     target's angle: `steer_toward(PHASED['tx'], phased_tx_target())`),
     on a rectangle that spans the array (2 lambda a side at least); a
     20 mm Wigner receiver at (-0.3, 0, 0) aimed at the target, a diffuse
-    0.8 m plate 4 m out and 1.2 m to +x, facing the transmitter.  Returns
-    (scene, receiver spec)."""
+    0.8 m plate 4 m out and 1.2 m to +x, facing the transmitter.
+    `moving_ggx` makes the plate a GGX rough conductor closing at
+    PHASED_GGX['v'] m/s along +y (the Doppler chain and the GGX lobe of
+    the endpoint twins).  Returns (scene, receiver spec)."""
     s, wf, adc = _endpoint_base(1e3)
+    if moving_ggx:
+        g = PHASED_GGX
+        s.bsdfs[0] = rough_conductor('mat', specular_reflectance=1.0,
+                                     alpha=g['alpha'], eta=g['eta'],
+                                     k=g['k'], twosided=True)
     wl = s.band.wavelength_centre
     p = PHASED
     s.add(phased_transmitter('tx', wf, n_elems=n_elems, elem_spacing=wl / 2,
@@ -642,7 +655,9 @@ def phased_tx_scene(steer_deg: float, n_elems: int = PHASED['n_elems']):
     s.add(rx)
     tgt = phased_tx_target()
     _aperture(s, (-0.3, 0.0, 0.0), tgt, (0.02, 0.02, 1.0), receiver='rx')
-    _plate(s, tgt, 0.4, look_to=tx)
+    vel = {} if not moving_ggx else dict(
+        velocity=np.array([0.0, PHASED_GGX['v'], 0.0], np.float32))
+    _plate(s, tgt, 0.4, look_to=tx, **vel)
     return s, rx
 
 

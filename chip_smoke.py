@@ -494,6 +494,10 @@ def print_build(infos: dict, tag: str) -> None:
     names['receive_flagship_kernel'] = 'receive_megakernel (flagship)'
     names['receive_coherent_kernel'] = 'receive_megakernel (coherent)'
     names['receive_doppler_power_kernel'] = 'receive_megakernel (doppler)'
+    names['receive_mesh_doppler_kernelILb0ELb0E'] = \
+        'receive_megakernel (doppler mesh)'
+    names['receive_mesh_doppler_kernelILb1ELb1E'] = \
+        'receive_megakernel (coherent mesh lobes)'
     names['receive_lobe_kernelILb0E'] = 'receive_megakernel (doppler lobes)'
     names['receive_lobe_kernelILb1E'] = \
         'receive_megakernel (coherent lobes)'
@@ -531,7 +535,9 @@ MIX_KERNEL = {'flagship': 'receive_flagship_kernel',
               'ep_four_tx': 'receive_endpoint_kernel',
               'ep_phased_tx_coh': 'receive_endpoint_coherent_kernel',
               'range_doppler': 'receive_doppler_power_kernel',
-              'fmcw_sonar': 'receive_doppler_power_kernel'}
+              'fmcw_sonar': 'receive_doppler_power_kernel',
+              'multi_body': 'receive_mesh_doppler_kernelILb0ELb0E',
+              'mesh_lobes_iq': 'receive_mesh_doppler_kernelILb1ELb1E'}
 
 
 def kernel_mix(dev, tag, build_log: str, cubin: str, config: str,
@@ -1050,6 +1056,9 @@ def doppler(torch, bt, rk, ik, dev, tag, build_log: str, cubin: str):
         if rk.launched_doppler_power_kernel() != (kw['mesh'] is None):
             fail(f'doppler {what}: the launch record does not show the '
                  f'Doppler power kernel on an analytic scene alone')
+        if rk.launched_mesh_doppler_kernel() != (kw['mesh'] is not None):
+            fail(f'doppler {what}: the launch record does not show the '
+                 f'mesh Doppler kernel on multi_body alone')
         ms, (ref, n_ref) = wall_ms(lambda: rk.receive_megakernel_ref(
             params, prim, txp, u, lane_out=lane_ref, amp_out=amp, **kw))
         mode = rk.grid_mode(rx.adc.n_time * rx.adc.n_freq, True)
@@ -1150,6 +1159,9 @@ def doppler(torch, bt, rk, ik, dev, tag, build_log: str, cubin: str):
         if rk.launched_doppler_power_kernel() != (mesh is None):
             fail(f'the {what} path: the launch record does not show the '
                  f'Doppler power kernel on the analytic scene alone')
+        if rk.launched_mesh_doppler_kernel() != (mesh is not None):
+            fail(f'the {what} path: the launch record does not show the '
+                 f'mesh Doppler kernel on multi_body alone')
         k4 = (ik.ray_triangle_closest.launches, ik.ray_triangle_any.launches)
         if launches < 6 or by_cfg[cfg_name] != launches or k4 != (0, 0) \
                 or n0 != DOP_LANES or n != DOP_LANES:
@@ -1184,10 +1196,11 @@ def doppler(torch, bt, rk, ik, dev, tag, build_log: str, cubin: str):
         n_bytes = 4 * (sum(t.numel() for t in tab)
                        + rx.adc.n_time * rx.adc.n_freq) + 8
         b = bound(lane_ops(stats, n_rect), n_bytes, f'{what} 2^24 lanes')
-        # the Doppler power kernel's issue-slot bound (tools/k1_mix.py)
-        mix = {} if mesh is not None else kernel_mix(
-            dev, tag, build_log, cubin, 'range_doppler',
-            (blocks, threads, smem), sms)
+        # the Doppler power kernel's and the mesh Doppler kernel's
+        # issue-slot bounds (tools/k1_mix.py)
+        mix = kernel_mix(dev, tag, build_log, cubin,
+                         'range_doppler' if mesh is None else 'multi_body',
+                         (blocks, threads, smem), sms) if cubin else {}
         entries.append({
             'name': 'receive_megakernel',
             'configuration': cfg_name.replace('_', ' '), 'route': 'cuda',
@@ -2797,7 +2810,9 @@ def rule_parity(torch, rk, dev, tag, which: str) -> None:
     receive_lobe_kernel on the rough plastic plate under that mixer, in
     power and I / Q; each on injected uniforms and the Philox stream,
     lane by lane against the plain version (I / Q with the phase slack),
-    and the launch record."""
+    and the launch record; 'endpoint' also the phased transmitter with its
+    target a GGX rough conductor closing at 5 m/s (C10's moving GGX
+    path)."""
     from beifong_tpu_torch import scenes
     P = scenes.PHASED
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
@@ -2806,7 +2821,9 @@ def rule_parity(torch, rk, dev, tag, which: str) -> None:
         cases = (('phased_rx I / Q', lambda: scenes.phased_rx_scene(
             P['rx_az']), True, 2),
                  ('phased_tx mixer I / Q', lambda: scenes.mixer_receiver(
-                     *scenes.phased_tx_scene(st)), True, 2))
+                     *scenes.phased_tx_scene(st)), True, 2),
+                 ('phased_tx moving GGX I / Q', lambda: scenes.phased_tx_scene(
+                     st, moving_ggx=True), True, 2))
     else:
         cases = tuple((f'rough plastic mixer {"I / Q" if coh else "power"}',
                        lambda: scenes.mixer_receiver(
@@ -3089,6 +3106,11 @@ def lobes(torch, bt, rk, dev, tag, build_log: str, cubin: str) -> list:
                                          lane_out=lane, **k_kw)
         analytic = kw['mesh'] is None
         record = rk.launched_lobe_kernel(coh)
+        # the mesh lobe twin in I / Q runs the mesh Doppler kernel
+        mdk = not analytic and coh
+        if rk.launched_mesh_doppler_kernel(True) != mdk:
+            fail(f'lobes {scene} ({cfg_name}): the launch record shows the '
+                 f'mesh Doppler kernel {not mdk}')
         acc2, n2 = rk.receive_megakernel(params, prim, txp,
                                          n_lanes=LOBE_LANES, seed=SEED,
                                          **k_kw)
@@ -3097,10 +3119,11 @@ def lobes(torch, bt, rk, dev, tag, build_log: str, cubin: str) -> list:
             lane_ref=lane_ref, power_amp=chain)
         errs.append(check(acc1, n1, ref, n_ref, amp, lane, lane_ref, None,
                           k_kw, chain, s, rx, f'{scene} philox 2^24 lanes'))
-        # the analytic twins run receive_lobe_kernel (the launch record),
-        # whose warp rows make Philox repeats bit-identical (the mesh
-        # twins' atomics add in arrival order: printed only)
-        rows = analytic and rk.coherent_warp_rows(rx.adc, coh)
+        # the analytic twins run receive_lobe_kernel (the launch record)
+        # and the mesh lobe twin in I / Q the mesh Doppler kernel, whose
+        # warp rows make Philox repeats bit-identical (the power mesh
+        # twin's atomics add in arrival order: printed only)
+        rows = (analytic or mdk) and rk.coherent_warp_rows(rx.adc, coh)
         rep = float((acc1 - acc2).abs().max())
         same = bool(torch.equal(acc1, acc2)) and int(n1) == int(n2)
         print(f'{scene} ({cfg_name}) philox repeat: lobe kernel launched '
@@ -3134,6 +3157,16 @@ def lobes(torch, bt, rk, dev, tag, build_log: str, cubin: str) -> list:
                                    coherent=coh, lobes=True),
                 torch.cuda.get_device_properties(0).multi_processor_count)
             mix['kernel'] = f'receive_lobe_kernel<{str(coh).lower()}>'
+        elif mdk and cubin:
+            mix = kernel_mix(
+                dev, tag, build_log, cubin, 'mesh_lobes_iq',
+                rk.launch_geometry(rx.adc.n_time, LOBE_LANES,
+                                   int(prim.shape[0]),
+                                   int(params.shape[-1]), mesh=True,
+                                   n_msh=int(kw['msh'].shape[0]),
+                                   doppler=True, coherent=True, lobes=True),
+                torch.cuda.get_device_properties(0).multi_processor_count)
+            mix['kernel'] = 'receive_mesh_doppler_kernel<true, true>'
         entry = _kernel_entry(
             torch, rk, cfg_name, f'{scene} 2^24 lanes',
             f'receive({scene}), 2^24 samples, depth {depth}, gate'

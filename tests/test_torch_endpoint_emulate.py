@@ -3,8 +3,9 @@
 on the CPU: the source compiled once by g++ against the CUDA runtime stub
 `tools/emu/cuda_runtime.h` (each block as std::threads; `tools/k1_emulate.py`)
 and held against the plain version with the card's gates on the endpoint
-scenes (the I / Q kernel also on the analog phased receiver and under a
-mixer with an LO), bit-identical on a repeat; their footprint index held
+scenes (the I / Q kernel also on the analog phased receiver, under a
+mixer with an LO and with its target a moving GGX rough conductor),
+bit-identical on a repeat; their footprint index held
 to the full pair loop bit for bit on points built to break it; and the
 analytic lobe kernel (`receive_lobe_kernel`, power and I / Q) under a
 mixer with an LO.  Skips where g++ is absent."""
@@ -31,7 +32,7 @@ from beifong_tpu_torch.integrators import receive_kernel as rk  # noqa: E402
 LANES = 4096
 DEPTH = 2
 SCENES = ('ep_phased_tx', 'ep_phased_rx', 'ep_four_tx', 'ep_phased_tx_coh',
-          'ep_phased_rx_coh', 'ep_phased_tx_mixer')
+          'ep_phased_rx_coh', 'ep_phased_tx_mixer', 'ep_phased_tx_ggx')
 
 
 @pytest.fixture(scope='module')
@@ -73,9 +74,14 @@ def test_endpoint_kernel_matches_plain_version(emulated, name):
     acc = acc.view(shape)
     lane_ref = torch.zeros(LANES) if coh else None
     amp = torch.zeros((kw['adc'].n_time, 1), dtype=torch.float64)
+    stats = {}
     ref, n_ref = rk.receive_megakernel_ref(
         params, prim, txp, u, lane_out=lane_ref,
-        amp_out=amp if coh else None, **kw)
+        amp_out=amp if coh else None, stats=stats, **kw)
+    if name.endswith('_ggx'):
+        # the moving GGX target: its lobe's NEE and bounce, its Doppler
+        assert stats['ggx_nee'] > 0 and stats['ggx_bounce'] > 0
+        assert stats['dop_nee'] > 0
     if coh:
         chip_smoke.compare_coherent(
             torch, acc, ev[0], ref, n_ref, amp,

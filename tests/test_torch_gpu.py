@@ -504,8 +504,10 @@ def test_doppler_kernel_matches_plain_version(cuda, scene):
     torch.cuda.synchronize()
     name = rk.config_name(kw['mesh'] is not None, True)
     assert rk.receive_megakernel.by_config[name] == before[name] + 1
-    # the analytic scenes run the Doppler power kernel (the launch record)
+    # the analytic scenes run the Doppler power kernel, multi_body the
+    # mesh Doppler kernel (the launch record)
     assert rk.launched_doppler_power_kernel() == (kw['mesh'] is None)
+    assert rk.launched_mesh_doppler_kernel() == (kw['mesh'] is not None)
     adc = kw['adc']
     amp = torch.zeros((adc.n_time, adc.n_freq), dtype=torch.float64,
                       device=cuda)
@@ -633,6 +635,144 @@ def test_doppler_power_kernel_on_its_scenes(cuda, name):
         assert torch.equal(acc, acc2)
     assert float((acc - acc2).abs().max()) <= 1e-6 * float(acc.abs().max())
     assert int(n_ev) == int(n2)
+
+
+# the mesh Doppler kernel's scenes (tools/k1_emulate.py MESH_CASES):
+# multi_body in power with the main path's strata and without, the
+# rough-plastic mesh in I / Q
+MDK_CASES = ('mesh_multi_body', 'mesh_multi_body_p0',
+             'mesh_rough_plastic_iq')
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('name', MDK_CASES)
+def test_mesh_doppler_kernel_matches_plain_version(cuda, name):
+    """The mesh Doppler kernel (receive_mesh_doppler_kernel: the Doppler
+    mesh in power, the mesh lobe twin in I / Q) on injected uniforms, lane
+    by lane against the plain version (power to 1e-4 x max|acc|, I / Q
+    with the phase slack), the launch record, and a repeat: bit for bit on
+    the I / Q warp rows, within 1e-6 of max|acc| on multi_body's block
+    atomics."""
+    params, prim, txp, msh, mesh, kw, _, band = \
+        _k1_emulate().mesh_tables(name, cuda)
+    n_lanes = 1 << 16
+    coh = kw['coherent']
+    nd = rk.n_draws(kw['max_depth'], 1, **rk.lobe_draws(kw['lobes']))
+    u = torch.rand((nd, n_lanes),
+                   generator=torch.Generator(cuda).manual_seed(9),
+                   device=cuda)
+    lane = torch.empty(n_lanes, device=cuda)
+    acc, n_ev = rk.receive_megakernel(params, prim, txp, n_lanes=n_lanes,
+                                      uniforms=u, lane_out=lane, mesh=mesh,
+                                      msh=msh, **kw)
+    torch.cuda.synchronize()
+    assert rk.launched_mesh_doppler_kernel(coh)
+    assert not rk.launched_mesh_doppler_kernel(not coh)
+    adc = kw['adc']
+    lane_ref = torch.empty(n_lanes, device=cuda)
+    amp = torch.zeros((adc.n_time, adc.n_freq), dtype=torch.float64,
+                      device=cuda)
+    stats = {}
+    ref, n_ref = rk.receive_megakernel_ref(params, prim, txp, u,
+                                           lane_out=lane_ref, amp_out=amp,
+                                           stats=stats, mesh=mesh, msh=msh,
+                                           **kw)
+    assert stats['mesh_hits'] > 0 and stats['nee_splat'] > 0
+    if coh:
+        assert stats['rplas_bounce'] > 0
+        _assert_coherent_parity(acc, n_ev, ref, n_ref, amp,
+                                rk.phase_slack(band, adc), lane, lane_ref)
+    else:
+        assert stats['ggx_nee'] > 0
+        _assert_mesh_parity(acc, n_ev, lane, ref, n_ref, lane_ref)
+    acc2, n2 = rk.receive_megakernel(params, prim, txp, n_lanes=n_lanes,
+                                     uniforms=u, mesh=mesh, msh=msh, **kw)
+    if rk.coherent_warp_rows(adc, coh):
+        assert torch.equal(acc, acc2)
+    assert float((acc - acc2).abs().max()) <= 1e-6 * float(acc.abs().max())
+    assert int(n_ev) == int(n2)
+
+
+@pytest.mark.gpu
+def test_mesh_doppler_cpi_is_launches_per_pulse(cuda):
+    """multi_body's 4-pulse CPI (the GGX body moving between pulses) in one
+    launch of the mesh Doppler kernel, the pulse its grid's y axis: each
+    pulse within 1e-6 of max|acc| of one launch on the pulse's key and
+    tables, and lane by lane against the plain version on its Philox
+    stream."""
+    params, prim, txp, msh, mesh, kw, n_p, _ = \
+        _k1_emulate().mesh_tables('mesh_multi_body_cpi', cuda)
+    n_lanes, step = 1 << 16, 7919
+    lane = torch.empty((n_p, n_lanes), device=cuda)
+    acc, n_ev = rk.receive_megakernel_cpi(params, prim, txp, n_lanes=n_lanes,
+                                          seed=11, seed_step=step,
+                                          lane_out=lane, mesh=mesh, msh=msh,
+                                          **kw)
+    torch.cuda.synchronize()
+    assert rk.launched_mesh_doppler_kernel(False)
+    for p in range(n_p):
+        m_p = rk.pulse_mesh(mesh, p)
+        one, n_one = rk.receive_megakernel(params[p], prim[p], txp[p],
+                                           n_lanes=n_lanes,
+                                           seed=11 + step * p, mesh=m_p,
+                                           msh=msh[p], **kw)
+        assert int(n_one) == int(n_ev[p]) > 0
+        assert float((acc[p] - one).abs().max()) \
+            <= 1e-6 * float(one.abs().max())
+        u = rk.philox_uniforms(11 + step * p, rk.n_draws(kw['max_depth']),
+                               n_lanes, device=cuda)
+        lane_ref = torch.empty(n_lanes, device=cuda)
+        ref, n_ref = rk.receive_megakernel_ref(params[p], prim[p], txp[p],
+                                               u, lane_out=lane_ref,
+                                               mesh=m_p, msh=msh[p], **kw)
+        _assert_mesh_parity(acc[p], n_ev[p], lane[p], ref, n_ref, lane_ref)
+
+
+@pytest.mark.gpu
+def test_mesh_twins_keep_the_grid_stride_kernel(cuda):
+    """The other mesh instantiations keep receive_doppler_kernel<true,
+    ...>: the mesh lobe twin in power and the coherent mesh (no lobes) on
+    the rough-plastic and diffuse meshes, the Doppler mesh through a
+    homogeneous medium, and the Doppler mesh endpoint twin; none launches
+    the mesh Doppler kernel (the launch record; their parity is held by
+    the tests of their configurations)."""
+    cases = []
+    params, prim, txp, msh, mesh, kw, _, _ = \
+        _k1_emulate().mesh_tables('mesh_rough_plastic_iq', cuda)
+    cases.append(('lobes power', params, prim, txp,
+                  dict(kw, coherent=False, mesh=mesh, msh=msh)))
+    s, rx = mesh_scene(n_side=23)
+    p = rk.pack_scene(s.compile(use_bvh=False, device='cpu'), rx,
+                      s.shape_index_of_endpoint('receiver', rx.id))
+    t = [torch.tensor(a, device=cuda) for a in (p.params, p.prim, p.txp,
+                                                p.msh)]
+    base = dict(adc=rx.adc, max_depth=2, time_sampling='gate',
+                rx_kind='wigner', doppler=True, mesh=p.mesh.to(cuda),
+                msh=t[3])
+    cases.append(('coherent mesh', t[0], t[1], t[2],
+                  dict(base, coherent=True)))
+    s, rx = multi_body_scene()
+    s.medium = scenes.stratified_homogeneous()
+    p = rk.pack_scene(s.compile(use_bvh=False, device='cpu'), rx,
+                      s.shape_index_of_endpoint('receiver', rx.id))
+    assert p.medium > 0
+    cases.append(('doppler mesh media', *(torch.tensor(a, device=cuda)
+                                          for a in (p.params, p.prim,
+                                                    p.txp)),
+                  dict(adc=rx.adc, max_depth=2, time_sampling='gate',
+                       rx_kind='wigner', doppler=True, medium=p.medium,
+                       mesh=p.mesh.to(cuda),
+                       msh=torch.tensor(p.msh, device=cuda))))
+    _, _, params, prim, txp, kw = _ep_tables(cuda, 'phased_tx',
+                                             'doppler_mesh')
+    cases.append(('doppler mesh endpoints', params, prim, txp, kw))
+    for what, params, prim, txp, kw in cases:
+        acc, n_ev = rk.receive_megakernel(params, prim, txp, n_lanes=1 << 16,
+                                          seed=7, **kw)
+        torch.cuda.synchronize()
+        assert not rk.launched_mesh_doppler_kernel(False), what
+        assert not rk.launched_mesh_doppler_kernel(True), what
+        assert bool(torch.isfinite(acc).all()) and int(n_ev) > 0, what
 
 
 @pytest.mark.gpu
@@ -1396,7 +1536,8 @@ def _ep_scene(name, mesh=False):
     triangles added beside the target for the mesh twins."""
     if name.startswith('phased_tx'):
         s, rx = scenes.phased_tx_scene(scenes.steer_toward(
-            scenes.PHASED['tx'], scenes.phased_tx_target()))
+            scenes.PHASED['tx'], scenes.phased_tx_target()),
+            moving_ggx=name == 'phased_tx_ggx')
         if name == 'phased_tx_mixer':
             s, rx = scenes.mixer_receiver(s, rx)
     elif name == 'phased_rx':
@@ -1524,6 +1665,26 @@ def test_endpoint_kernels_under_a_mixer(cuda, config):
     test_endpoint_kernels_match_plain_version holds the raw scenes."""
     test_endpoint_kernels_match_plain_version(cuda, 'phased_tx_mixer',
                                               config)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('config', ['coherent', 'doppler'])
+def test_endpoint_kernels_on_a_moving_ggx_target(cuda, config):
+    """The phased transmitter with its target a GGX rough conductor
+    closing at 5 m/s (`scenes.phased_tx_scene(moving_ggx=True)`): the
+    coherent endpoint kernel (I / Q) and the Doppler power endpoint twin
+    against the plain version, as test_endpoint_kernels_match_plain_version
+    holds the static scenes; the lanes take the GGX lobe and the
+    target's Doppler factor."""
+    test_endpoint_kernels_match_plain_version(cuda, 'phased_tx_ggx', config)
+    s, rx, params, prim, txp, kw = _ep_tables(cuda, 'phased_tx_ggx', config)
+    u = torch.rand((rk.n_draws(2, int(txp.shape[0])), 1 << 12),
+                   generator=torch.Generator(cuda).manual_seed(5),
+                   device=cuda)
+    stats = {}
+    rk.receive_megakernel_ref(params, prim, txp, u, stats=stats, **kw)
+    assert stats['ggx_nee'] > 0 and stats['ggx_bounce'] > 0
+    assert stats['dop_nee'] > 0
 
 
 @pytest.mark.gpu
@@ -1873,9 +2034,10 @@ def test_lobe_kernel_philox_repeats_are_bit_identical(cuda, scene, coherent):
 @pytest.mark.parametrize('coherent', [False, True], ids=['power', 'iq'])
 def test_lobe_scenes_launch_the_lobe_kernel(cuda, coherent):
     """Analytic lobe scenes launch receive_lobe_kernel<COH> (the library's
-    launch record), a mesh lobe scene its LOB instantiation; the library
-    holds the lobe kernel and no analytic grid-stride lobe twin
-    (its functions, as `tools/tree_ab.py --sass` reads them)."""
+    launch record), a mesh lobe scene its LOB instantiation in power and
+    the mesh Doppler kernel in I / Q; the library holds the lobe kernel,
+    no analytic grid-stride lobe twin and, in I / Q, no grid-stride mesh
+    lobe twin (its functions, as `tools/tree_ab.py --sass` reads them)."""
     import os
     import sys
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
@@ -1890,12 +2052,15 @@ def test_lobe_scenes_launch_the_lobe_kernel(cuda, coherent):
         torch.cuda.synchronize()
         assert rk.launched_lobe_kernel(coherent) == analytic, scene
         assert rk.launched_lobe_kernel(not coherent) is False
+        assert rk.launched_mesh_doppler_kernel(True) \
+            == (coherent and not analytic), scene
     names = set(tree_ab.sass_of(rk.build_library().path))
     c = int(coherent)
     assert 'receive_coherent_kernel<>' in names, sorted(names)
     assert f'receive_lobe_kernel<{c}>' in names
     assert f'receive_doppler_kernel<0,{c},0,0,1>' not in names
-    assert f'receive_doppler_kernel<1,{c},0,0,1>' in names
+    assert (f'receive_doppler_kernel<1,{c},0,0,1>' in names) != coherent
+    assert 'receive_mesh_doppler_kernel<1,1>' in names
 
 
 @pytest.mark.gpu

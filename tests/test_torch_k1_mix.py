@@ -1,9 +1,10 @@
 """tools/k1_mix.py on the CPU: the stage masks it reads from the plain
 version's counts (the flagship's, the coherent configuration's, the
-analytic lobe twins' and the analytic Doppler power configuration's main
-paths), the SIMT models built on them, and the stage tags of the
-flagship, coherent, lobe and Doppler power kernels' source that its
-instruction mix reads; the anchors by which tools/k1_clock.py
+analytic lobe twins', the analytic Doppler power configuration's and
+the mesh Doppler kernel's main paths, with each BVH walk's visits), the
+SIMT models built on them, and the stage tags of the flagship, coherent,
+lobe, Doppler power and mesh Doppler kernels' source that its instruction
+mix reads; the anchors by which tools/k1_clock.py
 instruments that source, and the edits of tools/k1_ablate.py."""
 
 import os
@@ -79,7 +80,8 @@ def test_simt_models_bound_their_work(lanes):
     (False, 'receive_coherent_kernel'), (False, 'receive_lobe_kernel'),
     (False, 'receive_endpoint_kernel'),
     (False, 'receive_endpoint_coherent_kernel'),
-    (False, 'receive_doppler_power_kernel')])
+    (False, 'receive_doppler_power_kernel'),
+    (False, 'receive_mesh_doppler_kernel')])
 def test_clock_probe_anchors_appear_once(splat, kernel):
     """k1_clock patches the kernel's source by exact text: each of its
     anchors lies in the current source once (the warp loop's in the
@@ -366,3 +368,85 @@ def test_doppler_power_source_carries_every_stage_tag():
         assert re.search(k1_mix.DPW_KERNEL, name)
     assert not re.search(k1_mix.DPW_KERNEL,
                          'receive_doppler_kernelILb0ELb0ELb1ELb0ELb0E')
+
+
+@pytest.mark.parametrize('config', ['multi_body', 'mesh_lobes_iq'])
+def test_mesh_masks_sum_to_the_plain_versions_stats(config):
+    """The mesh configurations (multi_body in power, the rough-plastic mesh
+    in I / Q, with the main path's direction strata): each stat key's
+    per-lane counts sum to the plain version's, each walk's recorded slab
+    tests and leaves to its node and leaf tests, RAY's walks are the
+    depth-0 ones, the walk models' efficiencies lie in (0, 1], and the
+    pool and SIMT models take the walks' costs."""
+    n = 1 << 12
+    masks, n_rect = k1_mix.stage_masks(n, config=config)
+    a = k1_mix.per_lane(masks, n)
+    s, rx = k1_mix.scene_of(config)
+    p = rk.pack_scene(s.compile(device='cpu'), rx,
+                      s.shape_index_of_endpoint('receiver', rx.id))
+    params, prim, txp = (torch.tensor(x) for x in (p.params, p.prim, p.txp))
+    params[0] = rk.seed_slot(k1_mix.SEED)
+    kw = k1_mix.ref_kw(config, rx, p)
+    assert kw['patch_p'] == 32 and kw['mesh'] is not None
+    assert kw['coherent'] == k1_mix.MESH_COHERENT[config]
+    stats: dict = {}
+    rk.receive_megakernel_ref(params, prim, txp, rk.philox_uniforms(
+        k1_mix.SEED, rk.n_draws(2, 1, **rk.lobe_draws(kw['lobes'])), n),
+        stats=stats, **kw)
+    for key in k1_mix.KEYS:
+        assert int(a[key].sum()) == stats[key], key
+    nodes = sum(int(a[f'node_{w}'].sum()) for w in k1_mix.WALKS)
+    leaves = sum(int(a[f'leaf_{w}'].sum()) for w in k1_mix.WALKS)
+    assert nodes == stats['node_tests'] and leaves == stats['leaf_tests']
+    # every lane walks at depth 0 (RAY's first hit) and only there
+    assert int((a['node_ray'][:, 0] > 0).sum()) == n
+    assert int(a['node_ray'][:, 1:].sum()) == 0
+    assert int(a['node_bounce'][:, 0].sum()) == 0
+    w = k1_mix.stage_weights_fp32(n_rect, config)
+    for v in k1_mix.walk_simt(a, w).values():
+        assert 0 < v['grid_stride_efficiency'] <= 1
+        assert 0 < v['wavefront_efficiency'] <= 1
+    m = k1_mix.simt(a, w, lanes_per_thread=8)
+    pm = k1_mix.pool_model(a, w, lanes_per_thread=8, fused=True)
+    assert 0 < m['grid_stride_efficiency'] <= 1
+    assert 0 < pm['efficiency'] <= 1
+    assert m['used_slots_a_lane'] > w['ray']
+
+
+def test_mesh_doppler_source_carries_every_stage_tag():
+    """The mesh Doppler kernel's tags: each stage that k1_mix reads lies
+    in its body, its walks' own (walk, shadow_walk) among them; the kernel
+    patterns name its two instantiations and the grid-stride ones they
+    replaced, and a listing's walk lines (csrc/bvh_walk.cuh) read as the
+    walk's triangle or node code at the call site's stage."""
+    src = k1_mix.source_of(ROOT)
+    with open(src) as f:
+        lines = f.read().splitlines()
+    a, b = _body_lines(lines, 'receive_mesh_doppler_kernel(')
+    stages = {st for ln, st in k1_mix.line_stages(src).items() if a < ln < b}
+    assert {'draws', 'sched', 'ray', 'hit', 'direct', 'nee', 'lobe_nee',
+            'shadow', 'shadow_walk', 'phase', 'splat', 'bounce', 'pick',
+            'mirror', 'diel', 'ggx', 'diffuse', 'trace', 'closest',
+            'walk'} <= stages
+    import re
+    for pat, names in (
+            (k1_mix.MDK_KERNEL, ('receive_mesh_doppler_kernelILb0ELb0E',
+                                 'receive_doppler_kernelILb1ELb0ELb0ELb0E'
+                                 'Lb0E')),
+            (k1_mix.MDK_LOB_KERNEL, ('receive_mesh_doppler_kernelILb1ELb1E',
+                                     'receive_doppler_kernelILb1ELb1ELb0E'
+                                     'Lb0ELb1E'))):
+        for name in names:
+            assert re.search(pat, name)
+    assert not re.search(k1_mix.MDK_KERNEL,
+                         'receive_doppler_kernelILb1ELb0ELb0ELb0ELb1E')
+    tri = k1_mix.walk_triangle_lines(ROOT)
+    assert tri[0] > 0 and tri[1] > tri[0]
+    walk = next(ln for ln, st in k1_mix.line_stages(src).items()
+                if a < ln < b and st == 'walk')
+    listing = ('\t.text.f:\n'
+               f'\t//## File "x/bvh_walk.cuh", line {tri[0] + 2} inlined at '
+               f'"x/receive_megakernel.cu", line {walk}\n'
+               '\t/*0010*/ FFMA R1, R2, R3, R4 ;\n')
+    (op, chain), = k1_mix.parse_functions(listing)['f']
+    assert op == 'FFMA' and chain == [-(tri[0] + 2), walk]

@@ -1,0 +1,166 @@
+"""K1's mesh Doppler kernel (`receive_mesh_doppler_kernel` in
+`csrc/receive_megakernel.cu`: the Doppler mesh in power and the mesh lobe
+twin in I / Q) on the CPU: the source compiled once by g++ against the
+CUDA runtime stub `tools/emu/cuda_runtime.h` (each block as std::threads;
+`tools/k1_emulate.py`) and held against the plain version lane by lane
+with the card's gates on multi_body (with the main path's direction strata
+and without), its 4-pulse CPI and the rough-plastic mesh in I / Q; the
+launch record shows the new kernel ran, its I / Q warp rows repeat bit for
+bit, and the other mesh instantiations (the power mesh lobe twin, the
+coherent mesh, the media twin) keep the grid-stride kernel.
+Skips where g++ is absent."""
+
+import contextlib
+import os
+import shutil
+import sys
+import types
+
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.join(ROOT, 'tools'))
+sys.path.insert(0, ROOT)
+
+import chip_smoke  # noqa: E402  (the card's gates)
+import k1_emulate  # noqa: E402
+from beifong_tpu_torch import scenes  # noqa: E402
+from beifong_tpu_torch.integrators import receive_kernel as rk  # noqa: E402
+
+LANES = 4096
+SCENES = ('mesh_multi_body', 'mesh_multi_body_p0', 'mesh_rough_plastic_iq')
+
+
+@pytest.fixture(scope='module')
+def lib(tmp_path_factory):
+    if shutil.which('g++') is None:
+        pytest.skip('needs g++ to compile the CUDA source against the stub')
+    out = str(tmp_path_factory.mktemp('k1_emulate') / 'k1.so')
+    return k1_emulate._library(k1_emulate.emulate(ROOT, out, '-O1'))
+
+
+@pytest.fixture
+def emulated(lib, monkeypatch):
+    """The wrapper's launch path on CPU tensors, through the emulation."""
+    monkeypatch.setattr(rk, 'LIBRARY', lib)
+    monkeypatch.setattr(torch.cuda, 'device',
+                        lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, 'current_stream',
+                        lambda d=None: types.SimpleNamespace(cuda_stream=0))
+    return lib
+
+
+def _kernel(params, prim, txp, msh, mesh, kw, u, lane, n_pulses=1,
+            **extra):
+    return rk._launch(params, prim, txp, msh, u, mesh, lane,
+                      n_pulses=n_pulses, n_lanes=LANES, seed=13,
+                      seed_step=7919 if n_pulses > 1 else 0,
+                      **k1_emulate.launch_kw(kw), **extra)
+
+
+def _parity(acc, ev, lane, ref, n_ref, lane_ref, amp, kw, band, what):
+    adc = kw['adc']
+    if kw['coherent']:
+        chip_smoke.compare_coherent(
+            torch, acc.view(adc.n_time, adc.n_freq, 2), ev, ref, n_ref, amp,
+            rk.phase_slack(band, adc), what, lane, lane_ref,
+            depth=kw['max_depth'], quiet=True)
+    else:
+        chip_smoke.compare_lanes(acc.view(adc.n_time, adc.n_freq), ev, lane,
+                                 ref, n_ref, lane_ref, kw['max_depth'], what)
+
+
+@pytest.mark.parametrize('name', SCENES)
+def test_mesh_doppler_kernel_matches_plain_version(emulated, name):
+    """Injected uniforms of the lobe draw stride: every lane's sum against
+    the plain version's (lane by lane), each cell within 1e-4 x max|acc|
+    (I / Q with the phase slack), the same events, the launch record of
+    the configuration's instantiation; a repeat bit for bit on the I / Q
+    warp rows, within REPEAT_TOL on multi_body's block atomics."""
+    params, prim, txp, msh, mesh, kw, _, band = k1_emulate.mesh_tables(name)
+    coh = kw['coherent']
+    gen = torch.Generator().manual_seed(29)
+    nd = rk.n_draws(kw['max_depth'], 1, **rk.lobe_draws(kw['lobes']))
+    u = torch.rand((nd, LANES), generator=gen)
+    lane = torch.zeros(LANES)
+    acc, ev = _kernel(params, prim, txp, msh, mesh, kw, u, lane)
+    assert rk.launched_mesh_doppler_kernel(coh)
+    assert not rk.launched_mesh_doppler_kernel(not coh)
+    adc = kw['adc']
+    lane_ref = torch.zeros(LANES)
+    amp = torch.zeros((adc.n_time, adc.n_freq), dtype=torch.float64)
+    stats = {}
+    ref, n_ref = rk.receive_megakernel_ref(params, prim, txp, u, mesh=mesh,
+                                           msh=msh, lane_out=lane_ref,
+                                           amp_out=amp, stats=stats, **kw)
+    assert int(ev[0]) > 0 and stats['mesh_hits'] > 0
+    assert (stats['strata'] > 0) == (kw['patch_p'] > 0)
+    _parity(acc, ev[0], lane, ref, n_ref, lane_ref, amp, kw, band, name)
+    if coh:
+        assert stats['rplas_bounce'] > 0 and stats['phase'] > 0
+    else:
+        assert stats['ggx_nee'] > 0 and stats['splat_2d'] > 0
+    lane2 = torch.zeros(LANES)
+    acc2, ev2 = _kernel(params, prim, txp, msh, mesh, kw, u, lane2)
+    assert torch.equal(ev, ev2) and torch.equal(lane, lane2)
+    if rk.coherent_warp_rows(adc, coh):
+        assert torch.equal(acc, acc2)
+    assert float((acc - acc2).abs().max()) \
+        <= chip_smoke.REPEAT_TOL * float(acc.abs().max())
+
+
+def test_mesh_doppler_cpi_matches_plain_version(emulated):
+    """multi_body's 4-pulse CPI in one launch: each pulse lane by lane
+    against the plain version on its own tables and uniforms."""
+    params, prim, txp, msh, mesh, kw, n_p, band = \
+        k1_emulate.mesh_tables('mesh_multi_body_cpi')
+    gen = torch.Generator().manual_seed(31)
+    nd = rk.n_draws(kw['max_depth'])
+    u = torch.rand((n_p, nd, LANES), generator=gen)
+    lane = torch.zeros((n_p, LANES))
+    acc, ev = _kernel(params, prim, txp, msh, mesh, kw, u, lane,
+                      n_pulses=n_p)
+    assert rk.launched_mesh_doppler_kernel()
+    for p in range(n_p):
+        lane_ref = torch.zeros(LANES)
+        amp = torch.zeros((kw['adc'].n_time, kw['adc'].n_freq),
+                          dtype=torch.float64)
+        ref, n_ref = rk.receive_megakernel_ref(
+            params[p], prim[p], txp[p], u[p], mesh=rk.pulse_mesh(mesh, p),
+            msh=msh[p], lane_out=lane_ref, amp_out=amp, **kw)
+        assert int(ev[p]) > 0
+        _parity(acc[p], ev[p], lane[p], ref, n_ref, lane_ref, amp, kw, band,
+                f'multi_body CPI pulse {p}')
+
+
+def test_mesh_twins_keep_the_grid_stride_kernel(emulated):
+    """The power mesh lobe twin and the coherent mesh (no lobes) on the
+    rough-plastic and diffuse meshes and the Doppler mesh through a
+    homogeneous medium each launch receive_doppler_kernel<true, ...> (the
+    launch record): not the mesh Doppler kernel."""
+    params, prim, txp, msh, mesh, kw, _, _ = \
+        k1_emulate.mesh_tables('mesh_rough_plastic_iq')
+    runs = [(params, prim, txp, msh, mesh, dict(kw, coherent=False), {})]
+    s, rx = scenes.mesh_scene(n_side=9)
+    p = rk.pack_scene(s.compile(use_bvh=False, device='cpu'), rx,
+                      s.shape_index_of_endpoint('receiver', rx.id))
+    t = [torch.tensor(a) for a in (p.params, p.prim, p.txp, p.msh)]
+    base = dict(adc=rx.adc, max_depth=2, time_sampling='gate',
+                rx_kind='wigner', doppler=True, receive_type='raw',
+                has_lo=False, mirror=False, patch_p=0)
+    runs.append((*t, p.mesh, dict(base, coherent=True), {}))
+    s, rx = scenes.multi_body_scene()
+    s.medium = scenes.stratified_homogeneous()
+    p = rk.pack_scene(s.compile(use_bvh=False, device='cpu'), rx,
+                      s.shape_index_of_endpoint('receiver', rx.id))
+    assert p.medium > 0
+    t = [torch.tensor(a) for a in (p.params, p.prim, p.txp, p.msh)]
+    runs.append((*t, p.mesh, dict(base, coherent=False),
+                 {'medium': p.medium}))
+    for params, prim, txp, msh, mesh, kw, extra in runs:
+        acc, ev = _kernel(params, prim, txp, msh, mesh, kw, None, None,
+                          **extra)
+        assert not rk.launched_mesh_doppler_kernel(False)
+        assert not rk.launched_mesh_doppler_kernel(True)
+        assert bool(torch.isfinite(acc).all())

@@ -67,9 +67,14 @@ def endpoint_scene(pkg: str, name: str, *args):
         s.add(k.sh.rectangle(to_world=np.asarray(k.tf.compose(
             k.tf.look_at(list(pos), list(aim)), k.tf.scale(scale))), **ep))
 
-    if name == 'phased_tx':
+    if name in ('phased_tx', 'phased_tx_ggx'):
         steer, n_e = args
         s, wf, adc = base(1e3)
+        g = scenes.PHASED_GGX
+        if name == 'phased_tx_ggx':
+            s.bsdfs[0] = k.bsdf.rough_conductor(
+                'mat', specular_reflectance=1.0, alpha=g['alpha'],
+                eta=g['eta'], k=g['k'], twosided=True)
         wl = s.band.wavelength_centre
         s.add(k.radar.phased_transmitter(
             'tx', wf, n_elems=n_e, elem_spacing=wl / 2,
@@ -81,7 +86,9 @@ def endpoint_scene(pkg: str, name: str, *args):
         s.add(rx)
         tgt = scenes.phased_tx_target()
         rect(s, (-0.3, 0.0, 0.0), tgt, [0.02, 0.02, 1.0], receiver='rx')
-        rect(s, tgt, tx, 0.4, bsdf='mat')
+        vel = {} if name == 'phased_tx' else dict(
+            velocity=np.array([0.0, g['v'], 0.0], np.float32))
+        rect(s, tgt, tx, 0.4, bsdf='mat', **vel)
         return s, rx
     if name == 'phased_rx':
         steer, n_e = args
@@ -440,13 +447,17 @@ def jax_kernel(s, rx, depth: int, n_lanes: int, seed: int,
     params[0] = float(seed * 1_000_003 % (1 << 30))
     rx_kind = ('phased' if rx.kind == ep_j.PHASED and rx.n_elems > 1
                else 'wigner')
+    # `receive_pallas`'s flag: any velocity in the tables
+    moving = bool(np.abs(prim[:, 19:22]).max() > 0.0
+                  or np.abs(txp[:, 24:27]).max() > 0.0
+                  or np.abs(params[23:26]).max() > 0.0)
     out, out_q, _, _, cnt = pr._run(
         jnp.asarray(params), jnp.asarray(prim), jnp.asarray(txp),
         jnp.asarray(php), jnp.asarray(rxph), jax.random.key(seed),
         tuple(int(k) for k in prim[:, 0]), tuple(int(f) for f in prim[:, 14]),
         tuple(int(f) for f in prim[:, 18]), tuple(int(f) for f in prim[:, 26]),
         rx.adc, rx.receive_type, 'gate', depth, rx_kind, n_lanes, True,
-        coherent, has_mesh=False, mesh_types=mesh_types, moving=False,
+        coherent, has_mesh=False, mesh_types=mesh_types, moving=moving,
         absorbing=False, tx_kinds=tuple(int(f) for f in txp[:, 27]),
         has_lo=rx.lo_waveform is not None, polarized=False,
         bmp_meta=bmp_meta, layered=0,
@@ -537,6 +548,22 @@ def assert_iq_matches_jax(s_j, rx_j, depth: int, n_lanes: int, seed: int):
 
 
 IQ_CASES = [('phased_tx', (12.7, 4)), ('phased_rx', (16.7, 4))]
+
+
+def test_plain_version_iq_on_a_moving_ggx_target_matches_jax_megakernel():
+    """The coherent endpoint kernel's moving GGX path (its plain
+    version): the phased transmitter's target a GGX rough conductor
+    closing at 5 m/s (`scenes.phased_tx_scene(moving_ggx=True)`), depth 2,
+    1,024 lanes, gate, 16 fast-time bins, held to the JAX kernel with
+    `coherent=True` and `moving=True` as `assert_iq_matches_jax` holds the
+    static cases; the lanes take the GGX lobe's NEE and bounce and the
+    target's Doppler factor."""
+    s_j, rx_j = endpoint_scene('jax', 'phased_tx_ggx', 12.7, 4)
+    rx_j = dc.replace(rx_j, adc=dc.replace(rx_j.adc, n_time=16))
+    s_j.receivers[0] = rx_j
+    stats = assert_iq_matches_jax(s_j, rx_j, 2, 1024, seed=4)
+    assert stats['pair_terms'] > 0
+    assert stats['ggx_nee'] > 0 and stats['ggx_bounce'] > 0
 
 
 @pytest.mark.parametrize('name, args', IQ_CASES,

@@ -61,6 +61,19 @@ DPW_SCOPE):
                drawn a lane, the block's lobe mixture; not exact);
   dpw_rule_raw  RAY's receive frequency not read off the chirp under
                mix_resample (the call's; not exact);
+of the mesh Doppler kernel (receive_mesh_doppler_kernel; time them with
+--only multi_body,mesh_lobes_iq):
+  mdk_lb4, mdk_lb5  its blocks an SM, 4 / 5 in place of 6;
+  mdk_queue    the warp's walk queue: its shadow rays and its rays'
+               closest hits walked one node a step by its threads, a
+               thread whose walk ends taking the next (Aila and Laine's
+               while-while traversal; the same results bit for bit), its
+               splat after it (edits inside the kernel's body, MDK_SCOPE,
+               and the helper and warp area outside it: OUTSIDE);
+  mdk_smem_bvh  the pulse's BVH copied into the block's shared memory
+               where it fits (MDK_SMEM_BVH_BYTES: multi_body's 19 KB) and
+               walked there with plain loads (the same results bit for
+               bit; _launch passes the tables' sizes for one pulse too);
 and, no ablation, `tags`: the stage tags of trace_lane's lobe path added
 to a parent that predates them (comments only: its machine code is the
 parent's), for tools/k1_mix.py --sass.
@@ -169,6 +182,10 @@ for _n in (5, 6):
 for _n in (4, 5):
     ABLATIONS[f'dpw_lb{_n}'] = (('constexpr int DPW_MIN_BLOCKS = 6;',
                                  f'constexpr int DPW_MIN_BLOCKS = {_n};'),)
+# the mesh Doppler kernel's blocks an SM, 4 / 5 in place of 6
+for _n in (4, 5):
+    ABLATIONS[f'mdk_lb{_n}'] = (('constexpr int MDK_MIN_BLOCKS = 6;',
+                                 f'constexpr int MDK_MIN_BLOCKS = {_n};'),)
 ABLATIONS['dpw_freq_call'] = (
     ('    const bool f_call = r0 == 1 && (cfg.gate || cfg.rule == 0);',
      '    const bool f_call = true;'),
@@ -502,6 +519,87 @@ K4_ABLATIONS = {
     'k4_threads128': (('constexpr int THREADS = 256;',
                        'constexpr int THREADS = 128;'),),
 }
+
+# the mesh Doppler kernel's walk queue (an Aila-Laine while-while walk over
+# the warp's shadow rays and closest hits, one node a step, a thread whose
+# walk ends taking the next request; SHADE's splat moved after it, its
+# shadow known): the design tried where the walks' SIMT efficiency fell
+# below 60% (PERF.md §6, PR 17)
+MDK_SCOPE = 'receive_mesh_doppler_kernel(const float* __restrict__ params,'
+ABLATIONS['mdk_queue'] = (
+    ('        bool conn = false;\n        float val = 0.0f, dtot = 0.0f, t_emit = 0.0f, k_c = 0.0f;\n        int n_bnd = 0;\n',
+     "        bool conn = false;\n        float val = 0.0f, dtot = 0.0f, t_emit = 0.0f, k_c = 0.0f;\n        int n_bnd = 0;\n        // this thread's shadow ray, if its NEE walks one\n        bool q_any = false;\n        float4 qa0 = make_float4(0.0f, 0.0f, 0.0f, 0.0f), qa1 = qa0;\n"),
+    ('    float* w_vals = reinterpret_cast<float*>(w_take + 32);\n',
+     '    float* w_vals = reinterpret_cast<float*>(w_take + 32);\n    float4* w_q = reinterpret_cast<float4*>(w_vals + 160);\n'),
+    ('                    if (!occ && !(LOB && (is_m || kb == DIELECTRIC\n                                          || kb == THIN_DIELECTRIC))) {\n                        bvh::Any sh;\n                        sh.limit = limit;\n                        bvh::walk(mesh_b,\n                                  bvh::make_ray(sx, sy, sz, wx_, wy_, wz_),\n                                  sh);\n                        occ = sh.occ;\n                    }\n', '                    if (!occ && !(LOB && (is_m || kb == DIELECTRIC\n                                          || kb == THIN_DIELECTRIC))) {\n                        q_any = true;\n                        qa0 = make_float4(sx, sy, sz, limit);\n                        qa1 = make_float4(wx_, wy_, wz_, 0.0f);\n                    }\n'),
+    ('            if constexpr (!COH) {\n                if (conn) {\n                    // [k1 stage: splat]  the power (conn_splat)\n                    ci = val;\n                    lsum += val;\n                    events += val != 0.0f;\n                    if (!rows) {\n                        const Wave txw{s_tx + 16, s_tx + 28};\n                        grid_splat<false>(grid, cfg, val, 0.0f, yb, [&] {\n                            return bin_freq(cfg, txw, lo, f_recv, t_recv);\n                        });\n                    }\n                }\n            } else if (conn) {\n                // [k1 stage: phase]  the echo phase, I and Q (conn_splat)\n                const Wave txw{s_tx + 16, s_tx + 28};\n                float ph = echo_phase(txw, lo, cfg, sp, dtot, t_emit,\n                                      t_recv, k_c);\n                if (n_bnd > 0) ph = add_rn(ph, mul_rn((float)n_bnd, sp[16]));\n                float amp = sqrtf(fmaxf(val, 0.0f));\n                ci = amp * fast_cos(ph);\n                si = amp * fast_sin(ph);\n                lsum += amp;\n                events += val != 0.0f;\n                if (!rows) {\n                    // [k1 stage: splat]\n                    grid_splat<true>(grid, cfg, ci, si, yb, [&] {\n                        return bin_freq(cfg, txw, lo, f_recv, t_recv);\n                    });\n                }\n            }\n\n', ''),
+    ('        bool hit = false;\n        if (live) {\n            float tb = F(3.4e38);\n            int code = -1;\n            for (int r = 0; r < n_rect; ++r) {\n                // [k1 stage: closest]\n                float t_p;\n                bool hit_p = rect_hit4(s_rec + REC * r, ox, oy, oz, dx,\n                                       dy, dz, &t_p);\n                if (hit_p && t_p > F(1e-4) && t_p < tb) {\n                    tb = t_p;\n                    code = r;\n                }\n            }\n            // [k1 stage: walk]\n            MeshClosest<true> mc;\n            mc.ta = tb;\n            bvh::walk(mesh_b, bvh::make_ray(ox, oy, oz, dx, dy, dz), mc);\n            // [k1 stage: trace]\n            const bool tri = mc.t < tb;\n            if (tri) {\n                tb = mc.t;\n                code = -1 - min(max((int)mc.sid, 0), cfg.n_msh - 1);\n            }\n            hit = tb < F(3.4e37);\n            if (hit) {\n                const unsigned long long ln = (unsigned long long)lane;\n                sl4[0] = make_float4(ox, oy, oz, thr);\n                sl4[1] = make_float4(dx, dy, dz, plen);\n                sl4[2] = make_float4(t_rx0, tb, __int_as_float(code),\n                                     __int_as_float(depth\n                                                    | (wdel ? 1 << 16 : 0)));\n                sl4[3] = make_float4(__uint_as_float((unsigned)ln),\n                                     __uint_as_float((unsigned)(ln >> 32)),\n                                     dop, lsum);\n                if (tri) sl4[4] = make_float4(mc.nx, mc.ny, mc.nz, mc.rf);\n            }\n        }\n', "        bool hit = false;\n        float tb = F(3.4e38);\n        int code = -1;\n        if (live) {\n            for (int r = 0; r < n_rect; ++r) {\n                // [k1 stage: closest]\n                float t_p;\n                bool hit_p = rect_hit4(s_rec + REC * r, ox, oy, oz, dx,\n                                       dy, dz, &t_p);\n                if (hit_p && t_p > F(1e-4) && t_p < tb) {\n                    tb = t_p;\n                    code = r;\n                }\n            }\n        }\n        // [k1 stage: walk]  the warp's walk queue: its shadow rays\n        // and its live rays' closest hits (mdk_walk_queue)\n        MeshClosest<true> mc;\n        mc.ta = tb;\n        {\n            const unsigned b_any = __ballot_sync(FULL_MASK, q_any);\n            const unsigned b_cl = __ballot_sync(FULL_MASK, live);\n            const int n_any = __popc(b_any);\n            const int i_any = __popc(b_any & lt);\n            const int i_cl = n_any + __popc(b_cl & lt);\n            if (q_any) {\n                w_q[2 * i_any] = qa0;\n                w_q[2 * i_any + 1] = make_float4(qa1.x, qa1.y, qa1.z, 1.0f);\n            }\n            if (live) {\n                w_q[2 * i_cl] = make_float4(ox, oy, oz, tb);\n                w_q[2 * i_cl + 1] = make_float4(dx, dy, dz, 0.0f);\n            }\n            __syncwarp();\n            mdk_walk_queue(mesh_b, w_q, n_any + __popc(b_cl), lt);\n            if (q_any && w_q[2 * i_any].x != 0.0f) conn = false;\n            if (live) {\n                const float4 r0 = w_q[2 * i_cl], r1 = w_q[2 * i_cl + 1];\n                mc.t = r0.x;\n                mc.nx = r0.y;\n                mc.ny = r0.z;\n                mc.nz = r0.w;\n                mc.rf = r1.x;\n                mc.sid = r1.y;\n            }\n            __syncwarp();\n        }\n        // the connection, its shadow known (SHADE's splat moved here)\n        if constexpr (!COH) {\n            if (conn) {\n                // [k1 stage: splat]  the power (conn_splat)\n                ci = val;\n                lsum += val;\n                events += val != 0.0f;\n                if (!rows) {\n                    const Wave txw{s_tx + 16, s_tx + 28};\n                    grid_splat<false>(grid, cfg, val, 0.0f, yb, [&] {\n                        return bin_freq(cfg, txw, lo, f_recv, t_recv);\n                    });\n                }\n            }\n        } else if (conn) {\n            // [k1 stage: phase]  the echo phase, I and Q (conn_splat)\n            const Wave txw{s_tx + 16, s_tx + 28};\n            float ph = echo_phase(txw, lo, cfg, sp, dtot, t_emit,\n                                  t_recv, k_c);\n            if (n_bnd > 0) ph = add_rn(ph, mul_rn((float)n_bnd, sp[16]));\n            float amp = sqrtf(fmaxf(val, 0.0f));\n            ci = amp * fast_cos(ph);\n            si = amp * fast_sin(ph);\n            lsum += amp;\n            events += val != 0.0f;\n            if (!rows) {\n                // [k1 stage: splat]\n                grid_splat<true>(grid, cfg, ci, si, yb, [&] {\n                    return bin_freq(cfg, txw, lo, f_recv, t_recv);\n                });\n            }\n        }\n\n        if (live) {\n            // [k1 stage: trace]\n            const bool tri = mc.t < tb;\n            if (tri) {\n                tb = mc.t;\n                code = -1 - min(max((int)mc.sid, 0), cfg.n_msh - 1);\n            }\n            hit = tb < F(3.4e37);\n            if (hit) {\n                const unsigned long long ln = (unsigned long long)lane;\n                sl4[0] = make_float4(ox, oy, oz, thr);\n                sl4[1] = make_float4(dx, dy, dz, plen);\n                sl4[2] = make_float4(t_rx0, tb, __int_as_float(code),\n                                     __int_as_float(depth\n                                                    | (wdel ? 1 << 16 : 0)));\n                sl4[3] = make_float4(__uint_as_float((unsigned)ln),\n                                     __uint_as_float((unsigned)(ln >> 32)),\n                                     dop, lsum);\n                if (tri) sl4[4] = make_float4(mc.nx, mc.ny, mc.nz, mc.rf);\n            }\n        }\n"))
+SCOPE['mdk_queue'] = MDK_SCOPE
+MDK_HELPER = "// The warp's walk queue (tools/k1_ablate.py mdk_queue): n requests at q,\n// two float4s each (origin and the prune distance: a shadow ray's limit or\n// a closest hit's analytic best; direction and kind, 1 any hit, 0\n// closest), walked by the warp's threads one node a step, a thread whose\n// walk ends taking the next request (Aila and Laine's persistent\n// while-while traversal, HPG 2009); each result overwrites its request\n// (any hit: occluded in .x; closest: t and the normal, then the\n// reflectance and shape row).  Each walk takes bvh::walk's steps in its\n// order, so the results are its bit for bit.\n__device__ void mdk_walk_queue(const bvh::Tables& tab, float4* q, int n,\n                               unsigned lt) {\n    int item = -1, head = 0, node = -1;\n    bool any = false;\n    bvh::Ray r{};\n    MeshClosest<true> mc;\n    bvh::Any an;\n    an.limit = 0.0f;\n    for (;;) {\n        const unsigned idle = __ballot_sync(FULL_MASK, item < 0);\n        const int rank = __popc(idle & lt);\n        if (item < 0 && head + rank < n) {\n            item = head + rank;\n            const float4 a = q[2 * item], b = q[2 * item + 1];\n            r = bvh::make_ray(a.x, a.y, a.z, b.x, b.y, b.z);\n            any = b.w != 0.0f;\n            mc = MeshClosest<true>();\n            mc.ta = a.w;\n            an.limit = a.w;\n            an.occ = false;\n            node = 0;\n        }\n        head += __popc(idle);\n        if (!__any_sync(FULL_MASK, item >= 0)) break;\n        if (item >= 0) {\n            const int* lk = tab.links + 3 * node;\n            if (bvh::slab(tab.bbox + 6 * node, r,\n                          any ? an.tbest() : mc.tbest())) {\n                const int leaf = __ldg(lk + 2);\n                bool done = false;\n                if (leaf >= 0) {\n                    const float* lr = tab.leaves + (long long)leaf * tab.stride;\n#pragma unroll 1\n                    for (int k = 0; k < bvh::K_LEAF; ++k) {\n                        bvh::TriHit h;\n                        if (bvh::triangle(lr, k, r, &h)) {\n                            if (any) {\n                                an.hit(h, lr);\n                                if (an.done()) {\n                                    done = true;\n                                    break;\n                                }\n                            } else {\n                                mc.hit(h, lr);\n                            }\n                        }\n                    }\n                }\n                node = done ? -1 : __ldg(lk);\n            } else {\n                node = __ldg(lk + 1);\n            }\n            if (node < 0) {\n                if (any) {\n                    q[2 * item] = make_float4(an.occ ? 1.0f : 0.0f, 0.0f,\n                                              0.0f, 0.0f);\n                } else {\n                    q[2 * item] = make_float4(mc.t, mc.nx, mc.ny, mc.nz);\n                    q[2 * item + 1] = make_float4(mc.rf, mc.sid, 0.0f, 0.0f);\n                }\n                item = -1;\n            }\n        }\n    }\n    __syncwarp();\n}\n\n"
+OUTSIDE['mdk_queue'] = (
+    ('    return 4 * (COH_POOL * MDK_SLOT + 32 + 160);',
+     '    return 4 * (COH_POOL * MDK_SLOT + 32 + 160 + 8 * COH_POOL);'),
+    ('template <bool COH, bool LOB>\n__global__ void __launch_bounds__(COH_THREADS, MDK_MIN_BLOCKS)\n',
+     MDK_HELPER + 'template <bool COH, bool LOB>\n__global__ void __launch_bounds__(COH_THREADS, MDK_MIN_BLOCKS)\n'))
+# the pulse's BVH in shared memory where it fits (multi_body's 19 KB; the
+# mesh scene's 575 KB does not): a walk of its own over the block's copy
+# (the tables' sizes from the per-pulse strides, which _launch then passes
+# for one pulse too)
+ABLATIONS['mdk_smem_bvh'] = (
+    ('    const bvh::Tables mesh_b = pulse_tables(mesh, cfg);\n',
+     '    const bvh::Tables mesh_b = pulse_tables(mesh, cfg);\n'
+     '    // the pulse\'s BVH in shared memory when it fits\n'
+     '    const long long bvh_n = cfg.bbox_stride + cfg.links_stride\n'
+     '                            + cfg.leaves_stride;\n'
+     '    const bool bvh_s = bvh_n > 0 && 4 * bvh_n <= MDK_SMEM_BVH_BYTES;\n'
+     '    bvh::Tables mesh_s = mesh_b;\n'
+     '    if (bvh_s) {\n'
+     '        float* sb = reinterpret_cast<float*>(\n'
+     '            s_warps + (T / 32) * wbytes\n'
+     '            + (cfg.mode == 1 && !rows ? 4 * n_vals : 0));\n'
+     '        int* sl = reinterpret_cast<int*>(sb + cfg.bbox_stride);\n'
+     '        float* sf = reinterpret_cast<float*>(sl + cfg.links_stride);\n'
+     '        for (long long i = tid; i < cfg.bbox_stride; i += T)\n'
+     '            sb[i] = mesh_b.bbox[i];\n'
+     '        for (long long i = tid; i < cfg.links_stride; i += T)\n'
+     '            sl[i] = mesh_b.links[i];\n'
+     '        for (long long i = tid; i < cfg.leaves_stride; i += T)\n'
+     '            sf[i] = mesh_b.leaves[i];\n'
+     '        mesh_s = bvh::Tables{sb, sl, sf, mesh_b.stride};\n'
+     '    }\n'
+     '    __syncthreads();\n'),
+    ('                        bvh::walk(mesh_b,\n'
+     '                                  bvh::make_ray(sx, sy, sz, wx_, wy_, wz_),\n'
+     '                                  sh);\n',
+     '                        if (bvh_s)\n'
+     '                            walk_s(mesh_s, bvh::make_ray(sx, sy, sz, wx_,\n'
+     '                                                         wy_, wz_), sh);\n'
+     '                        else\n'
+     '                            bvh::walk(mesh_b,\n'
+     '                                      bvh::make_ray(sx, sy, sz, wx_, wy_,\n'
+     '                                                    wz_), sh);\n'),
+    ('            MeshClosest<true> mc;\n            mc.ta = tb;\n'
+     '            bvh::walk(mesh_b, bvh::make_ray(ox, oy, oz, dx, dy, dz), mc);\n',
+     '            MeshClosestS mc;\n            mc.ta = tb;\n'
+     '            if (bvh_s)\n'
+     '                walk_s(mesh_s, bvh::make_ray(ox, oy, oz, dx, dy, dz), mc);\n'
+     '            else\n'
+     '                bvh::walk(mesh_b, bvh::make_ray(ox, oy, oz, dx, dy, dz),\n'
+     '                          mc);\n'))
+SCOPE['mdk_smem_bvh'] = MDK_SCOPE
+OUTSIDE['mdk_smem_bvh'] = (
+    ('               + (mode == 1 && !rows ? 4 * per_bin * n_time * n_freq : 0);\n'
+     '    } else if (DOP) {',
+     '               + (mode == 1 && !rows ? 4 * per_bin * n_time * n_freq : 0)\n'
+     '               + MDK_SMEM_BVH_BYTES;\n'
+     '    } else if (DOP) {'),
+    ('template <bool COH, bool LOB>\n__global__ void __launch_bounds__(COH_THREADS, MDK_MIN_BLOCKS)\n',
+     "// The pulse's BVH in shared memory (tools/k1_ablate.py mdk_smem_bvh): a\n// block reserves MDK_SMEM_BVH_BYTES after its grid and copies the tables\n// there when they fit (multi_body's 324 faces: 81 nodes, 41 leaves, 19 KB);\n// the walk reads them with plain loads (a read-only load of a shared\n// address is not allowed): bvh::slab, bvh::triangle and bvh::walk with\n// every operation as there.\nconstexpr int MDK_SMEM_BVH_BYTES = 20480;\n\n__device__ __forceinline__ bool slab_s(const float* bb, const bvh::Ray& r,\n                                       float tbest) {\n    float tx0 = (bb[0] - r.ox) * r.ix;\n    float tx1 = (bb[3] - r.ox) * r.ix;\n    float ty0 = (bb[1] - r.oy) * r.iy;\n    float ty1 = (bb[4] - r.oy) * r.iy;\n    float tz0 = (bb[2] - r.oz) * r.iz;\n    float tz1 = (bb[5] - r.oz) * r.iz;\n    float tn = fmaxf(fmaxf(fminf(tx0, tx1), fminf(ty0, ty1)),\n                     fminf(tz0, tz1));\n    float tf = fminf(fminf(fmaxf(tx0, tx1), fmaxf(ty0, ty1)),\n                     fmaxf(tz0, tz1));\n    return tf >= fmaxf(tn, 0.0f) && tn < tbest;\n}\n\n__device__ __forceinline__ bool triangle_s(const float* lr, int k,\n                                           const bvh::Ray& r,\n                                           bvh::TriHit* h) {\n    float v0x = lr[0 + k], v0y = lr[8 + k], v0z = lr[16 + k];\n    float e1x = lr[24 + k], e1y = lr[32 + k], e1z = lr[40 + k];\n    float e2x = lr[48 + k], e2y = lr[56 + k], e2z = lr[64 + k];\n    float tri = lr[72 + k];\n    float px = r.dy * e2z - r.dz * e2y;\n    float py = r.dz * e2x - r.dx * e2z;\n    float pz = r.dx * e2y - r.dy * e2x;\n    float det = e1x * px + e1y * py + e1z * pz;\n    float inv = fabsf(det) > (float)1e-12 ? 1.0f / det : 0.0f;\n    float tvx = r.ox - v0x, tvy = r.oy - v0y, tvz = r.oz - v0z;\n    float uu = (tvx * px + tvy * py + tvz * pz) * inv;\n    float qx = tvy * e1z - tvz * e1y;\n    float qy = tvz * e1x - tvx * e1z;\n    float qz = tvx * e1y - tvy * e1x;\n    float vv = (r.dx * qx + r.dy * qy + r.dz * qz) * inv;\n    float tt = (e2x * qx + e2y * qy + e2z * qz) * inv;\n    h->t = tt; h->u = uu; h->v = vv;\n    h->e1x = e1x; h->e1y = e1y; h->e1z = e1z;\n    h->e2x = e2x; h->e2y = e2y; h->e2z = e2z;\n    h->slot = k;\n    return uu >= 0.0f && vv >= 0.0f && uu + vv <= 1.0f\n           && tt > (float)1e-4 && tri >= 0.0f;\n}\n\n// the visitors' leaf payloads from a shared row: MeshClosest's reflectance\n// and shape row (columns 80, 88)\nstruct MeshClosestS : MeshClosest<true> {\n    __device__ void hit(const bvh::TriHit& h, const float* lr) {\n        if (!(h.t < t)) return;\n        float gnx = cross_rn(h.e1y, h.e2z, h.e1z, h.e2y);\n        float gny = cross_rn(h.e1z, h.e2x, h.e1x, h.e2z);\n        float gnz = cross_rn(h.e1x, h.e2y, h.e1y, h.e2x);\n        float rn = rsqrtf(fmaxf(gnx * gnx + gny * gny + gnz * gnz,\n                                F(1e-20)));\n        nx = gnx * rn;\n        ny = gny * rn;\n        nz = gnz * rn;\n        rf = lr[80 + h.slot];\n        sid = lr[88 + h.slot];\n        t = h.t;\n    }\n};\n\ntemplate <class V>\n__device__ __forceinline__ void walk_s(const bvh::Tables& t,\n                                       const bvh::Ray& r, V& v) {\n    int node = 0;\n    while (node >= 0) {\n        const int* lk = t.links + 3 * node;\n        if (slab_s(t.bbox + 6 * node, r, v.tbest())) {\n            int leaf = lk[2];\n            if (leaf >= 0) {\n                const float* lr = t.leaves + (long long)leaf * t.stride;\n#pragma unroll 1\n                for (int k = 0; k < bvh::K_LEAF; ++k) {\n                    bvh::TriHit h;\n                    if (triangle_s(lr, k, r, &h)) {\n                        v.hit(h, lr);\n                        if (v.done()) return;\n                    }\n                }\n            }\n            node = lk[0];\n        } else {\n            node = lk[1];\n        }\n    }\n}\n\n" + 'template <bool COH, bool LOB>\n__global__ void __launch_bounds__(COH_THREADS, MDK_MIN_BLOCKS)\n'))
+# package files (relative to the tree) an ablation also edits
+PY_EDITS = {'mdk_smem_bvh': (
+    ('integrators/receive_kernel.py',
+     '        m_strides = (0, 0, 0) if mesh is None or n_pulses == 1 else tuple(',
+     '        m_strides = (0, 0, 0) if mesh is None else tuple('),)}
 for _n in (1, 8, 16):
     K4_ABLATIONS[f'k4_group{_n}'] = (('constexpr int GROUP = 32;',
                                       f'constexpr int GROUP = {_n};'),)
@@ -1106,6 +1204,14 @@ def make(tree: str, name: str) -> str:
     head, tail = outside(head, tail, name)
     with open(src, 'w') as f:
         f.write(head + s + tail)
+    for rel, old, new in PY_EDITS.get(name, ()):
+        path = os.path.join(dst, 'beifong_tpu_torch', rel)
+        with open(path) as f:
+            text = f.read()
+        if text.count(old) != 1:
+            raise SystemExit(f'{name}: edit not found once in {rel}')
+        with open(path, 'w') as f:
+            f.write(text.replace(old, new))
     return dst
 
 

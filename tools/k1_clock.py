@@ -22,7 +22,15 @@ runs range_doppler (pulse 0 of the range-Doppler example, gate) and
 fmcw_sonar (golden config 2, fixed sampling) at 2^24 lanes, depth 2,
 with each thread's cycles in SHADE's grid splat (the block's or the
 global grid's atomics) read inside it; in a tree before that kernel the
-grid-stride instantiation's per-thread stage cycles instead.
+grid-stride instantiation's per-thread stage cycles instead.  The
+mesh Doppler kernel (receive_mesh_doppler_kernel) runs multi_body (the
+Doppler mesh in power) and mesh_lobes_iq (the rough-plastic mesh_scene in
+I / Q) at 2^24 lanes, depth 2, with the main path's direction strata,
+reading inside its turns each thread's cycles in the closest-hit walks
+(the trace after RAY and after SHADE), in NEE's shadow walk and in the
+block's grid splat; in a tree before it the grid-stride instantiation's
+per-thread cycles in its lanes, their closest-hit walks, shadow walks
+and grid splats.
 
 Run from the repository root on the card's machine:
 
@@ -65,7 +73,9 @@ KERNELS = {'flagship': 'receive_flagship_kernel',
            'ep_four_tx': 'receive_endpoint_kernel',
            'ep_phased_tx_coh': 'receive_endpoint_coherent_kernel',
            'range_doppler': 'receive_doppler_power_kernel',
-           'fmcw_sonar': 'receive_doppler_power_kernel'}
+           'fmcw_sonar': 'receive_doppler_power_kernel',
+           'multi_body': 'receive_mesh_doppler_kernel',
+           'mesh_lobes_iq': 'receive_mesh_doppler_kernel'}
 SPLAT_CALL = {
     'receive_flagship_kernel':
         '        if (shade) {\n            // [k1 stage: splat]\n'
@@ -202,6 +212,46 @@ DPW_PATCH = PATCH[1:5] + (
      '                        return bin_freq(cfg, txw, lo, f_recv, t_recv);\n'
      '                    });\n'
      '                    ck[14] += clock64() - q3;\n'))
+
+
+# the mesh Doppler kernel's loop end (its warp splats), and per thread its
+# closest-hit walks (12), shadow walks (13) and grid splat (14)
+MDK_KERNEL = 'receive_mesh_doppler_kernel'
+MDK_PATCH = PATCH[1:5] + (
+    ('                pow_splat_rows(w_row, w_vals, cfg.n_time, ci, yb, j);\n'
+     '        }\n    }\n',
+     '                pow_splat_rows(w_row, w_vals, cfg.n_time, ci, yb, j);\n'
+     '        }\n'
+     '        ck[5] += clock64() - c3;\n    }\n'
+     '    for (int k = 0; k < 16; ++k)\n'
+     '        if (j == 0 || k == 12 || k == 13 || k == 14)\n'
+     '            atomicAdd(&k1_clk[k], ck[k]);\n'),
+    ('            bvh::walk(mesh_b, bvh::make_ray(ox, oy, oz, dx, dy, dz), '
+     'mc);\n',
+     '            const long long q0 = clock64();\n'
+     '            bvh::walk(mesh_b, bvh::make_ray(ox, oy, oz, dx, dy, dz), '
+     'mc);\n'
+     '            ck[12] += clock64() - q0;\n'),
+    ('                        bvh::walk(mesh_b,\n'
+     '                                  bvh::make_ray(sx, sy, sz, wx_, wy_, '
+     'wz_),\n                                  sh);\n',
+     '                        const long long q1 = clock64();\n'
+     '                        bvh::walk(mesh_b,\n'
+     '                                  bvh::make_ray(sx, sy, sz, wx_, wy_, '
+     'wz_),\n                                  sh);\n'
+     '                        ck[13] += clock64() - q1;\n'),
+    ('                        grid_splat<false>(grid, cfg, val, 0.0f, yb, '
+     '[&] {\n',
+     '                        const long long q2 = clock64();\n'
+     '                        grid_splat<false>(grid, cfg, val, 0.0f, yb, '
+     '[&] {\n'),
+    ('                            return bin_freq(cfg, txw, lo, f_recv, '
+     't_recv);\n                        });\n                    }\n'
+     '                }\n',
+     '                            return bin_freq(cfg, txw, lo, f_recv, '
+     't_recv);\n                        });\n'
+     '                        ck[14] += clock64() - q2;\n'
+     '                    }\n                }\n'))
 
 
 def ep_patch(kernel: str) -> tuple:
@@ -343,10 +393,33 @@ GRID_PATCH = (
     PATCH[-1])
 
 
-def instrument_grid(s: str) -> str:
+# a parent's grid-stride mesh instantiations: each thread's cycles in its
+# lanes (0), their closest-hit walks (1), their shadow walks (3) and grid
+# splats (4)
+MESH_GRID_NAMES = ('lane', 'walk', '', 'shadow_walk', 'splat')
+MESH_GRID_PATCH = GRID_PATCH[:1] + GRID_PATCH[3:4] + GRID_PATCH[-4:] + (
+    ('            bvh::walk(lane_tables<DOP>(mesh, cfg),\n'
+     '                      bvh::make_ray(cx, cy, cz, dx, dy, dz), mc);\n',
+     '            const long long k1_w0 = clock64();\n'
+     '            bvh::walk(lane_tables<DOP>(mesh, cfg),\n'
+     '                      bvh::make_ray(cx, cy, cz, dx, dy, dz), mc);\n'
+     '            k1_acc[1][threadIdx.x] += (unsigned)(clock64() - k1_w0);\n'),
+    ('                        bvh::walk(lane_tables<DOP>(mesh, cfg),\n'
+     '                                  bvh::make_ray(sx, sy, sz, wx_, wy_, '
+     'wz_),\n                                  sh);\n',
+     '                        const long long k1_w1 = clock64();\n'
+     '                        bvh::walk(lane_tables<DOP>(mesh, cfg),\n'
+     '                                  bvh::make_ray(sx, sy, sz, wx_, wy_, '
+     'wz_),\n                                  sh);\n'
+     '                        k1_acc[3][threadIdx.x] += '
+     '(unsigned)(clock64() - k1_w1);\n'))
+
+
+def instrument_grid(s: str, patch=GRID_PATCH) -> str:
     """The receive kernel's source `s` with each thread's clocks in the
-    grid-stride endpoint twins' stages (GRID_NAMES)."""
-    for old, new in GRID_PATCH:
+    grid-stride endpoint twins' stages (GRID_NAMES), or with
+    MESH_GRID_PATCH in the mesh instantiations' (MESH_GRID_NAMES)."""
+    for old, new in patch:
         if s.count(old) != 1:
             raise SystemExit(f'anchor not found once: {old[:60]!r}')
         s = s.replace(old, new)
@@ -373,14 +446,17 @@ def instrument(s: str, splat: bool = False,
     """The receive kernel's source `s` with the clock reads added to the
     warp loop of `kernel`; each anchor must appear exactly once (the
     loop's within the kernel's body)."""
+    if kernel == MDK_KERNEL and kernel + '(const float' not in s:
+        # a tree before the mesh Doppler kernel: its grid-stride body
+        return instrument_grid(s, MESH_GRID_PATCH)
     if kernel in EP_KERNELS + (DPW_KERNEL,) \
             and kernel + '(const float' not in s:
         # a tree before the endpoint kernels or the Doppler power kernel:
         # its grid-stride twins
         return instrument_grid(s)
-    if kernel == DPW_KERNEL:
+    if kernel in (DPW_KERNEL, MDK_KERNEL):
         s = _patch_body(s, f'{kernel}(const float* __restrict__ params,',
-                        DPW_PATCH)
+                        DPW_PATCH if kernel == DPW_KERNEL else MDK_PATCH)
         for old, new in (PATCH[0], PATCH[-1]):
             if s.count(old) != 1:
                 raise SystemExit(f'anchor not found once: {old[:60]!r}')
@@ -451,7 +527,8 @@ def run(tree: str, config: str = 'flagship') -> dict:
     from beifong_tpu_torch.integrators import receive_kernel as rk
     assert rk.__file__.startswith(tree)
     dev = torch.device('cuda')
-    if config.startswith('ep_') or config in ('range_doppler', 'fmcw_sonar'):
+    if config.startswith('ep_') or config in ('range_doppler', 'fmcw_sonar',
+                                              'multi_body', 'mesh_lobes_iq'):
         return run_ep(tree, config, rk, scenes, dev)
     s, rx = {'flagship': scenes.flagship_scene,
              'pulse_train': lambda: scenes.pulse_train_scene(0),
@@ -512,8 +589,10 @@ def run_ep(tree: str, config: str, rk, scenes, dev) -> dict:
     import torch
     sys.path.insert(0, os.path.join(HERE, 'tools'))
     import tree_ab
-    dpw = not config.startswith('ep_')
-    params, prim, txp, kw = (tree_ab.doppler_power_call if dpw
+    mdk = config in ('multi_body', 'mesh_lobes_iq')
+    dpw = not config.startswith('ep_') and not mdk
+    params, prim, txp, kw = (tree_ab.mesh_doppler_call if mdk
+                             else tree_ab.doppler_power_call if dpw
                              else tree_ab.endpoint_call)(rk, scenes, config,
                                                          dev)
     lib = rk.LIBRARY.get()
@@ -535,16 +614,21 @@ def run_ep(tree: str, config: str, rk, scenes, dev) -> dict:
                           text=True).stdout.strip()
     out = {'card': card, 'config': config,
            'instrumented_ms': a.elapsed_time(b)}
-    if not hasattr(rk, 'launched_doppler_power_kernel' if dpw
+    if not hasattr(rk, 'launched_mesh_doppler_kernel' if mdk
+                   else 'launched_doppler_power_kernel' if dpw
                    else 'launched_endpoint_kernel'):
         lane = max(1, v[0])
+        names = MESH_GRID_NAMES if mdk else GRID_NAMES
         out.update(kernel='grid-stride twin',
                    share_of_lane_cycles={n: v[i] / lane for i, n in
-                                         enumerate(GRID_NAMES)},
+                                         enumerate(names) if n},
                    thread_cycles_a_lane=v[0] / kw['n_lanes'])
         return out
     tot = sum(v[:len(NAMES)])
-    if dpw:
+    if mdk:
+        within = {'walk': v[12] / 32 / tot, 'shadow_walk': v[13] / 32 / tot,
+                  'grid_splat_in_shade': v[14] / 32 / tot}
+    elif dpw:
         within = {'grid_splat_in_shade': v[14] / 32 / tot}
     else:
         within = {'nee_pairs': v[12] / 32 / tot, 'shadow': v[13] / 32 / tot,

@@ -25,7 +25,8 @@ corner on a 2-D grid (n_freq 8, the block's grid), a global one (n_freq
 phased transmitter, the analog phased receiver and four transmitters in
 power, the three in I / Q, the phased transmitter's 4-pulse CPI, and the
 phased transmitter on a 2-D grid and a global one in I / Q, and under a
-mixer with an LO in I / Q) run the endpoint
+mixer with an LO in I / Q, and in I / Q with its target a moving GGX
+rough conductor) run the endpoint
 twins: `--cases ep_phased_tx,...` (depth 2, gate); the power twin
 writes no lane sums, so its grids are compared bit for bit.  The
 Doppler power scenes (DOP_CASES: the range-Doppler pulse's 8 x 128 grid,
@@ -33,7 +34,11 @@ golden config 2's mix_resample 16 x 256, the FMCW mixer (an LO and a
 beat drawn a lane), the flagship on 1,024 bins, the range-Doppler pulse
 on a global grid and with a GGX plate, a pulse of config 3 on warp rows,
 and the corner's 4-pulse CPI of mirror chains) run the analytic Doppler
-power configuration: `--cases dop_range_doppler,...`.
+power configuration: `--cases dop_range_doppler,...`.  The mesh
+scenes (MESH_CASES: multi_body in power with the main path's direction
+strata and without, its 4-pulse CPI, and the rough-plastic mesh in I / Q)
+run the mesh Doppler kernel's two configurations (the Doppler mesh power
+and the mesh lobe twin in I / Q): `--cases mesh_multi_body,...`.
 """
 
 from __future__ import annotations
@@ -131,7 +136,9 @@ EP_CASES = {'ep_phased_tx': ('phased_tx_scene', False, 1, 1),
             'ep_phased_tx_2d': ('phased_tx_scene', True, 1, 8),
             'ep_phased_tx_global': ('phased_tx_scene', True, 1, 300),
             # a mixer with the transmitter's waveform as its LO
-            'ep_phased_tx_mixer': ('phased_tx_scene', True, 1, 1)}
+            'ep_phased_tx_mixer': ('phased_tx_scene', True, 1, 1),
+            # the target a GGX rough conductor closing at 5 m/s
+            'ep_phased_tx_ggx': ('phased_tx_scene', True, 1, 1)}
 
 
 # the analytic Doppler power scenes: (scenes' function and arguments, the
@@ -147,6 +154,84 @@ DOP_CASES = {'dop_range_doppler': ('range_doppler_scene', (0,), {}, 2,
              'dop_ggx': ('range_doppler_scene', ('ggx',), {}, 2, 'gate', 1),
              'dop_rows': ('pulse_train_scene', (0,), {}, 1, 'gate', 1),
              'dop_corner_cpi': ('corner_scene', (), {}, 4, 'fixed', 4)}
+
+
+# the mesh Doppler kernel's scenes: (scenes' function and arguments,
+# coherent, depth, time sampling, pulses, direction strata P): multi_body
+# in power (its GGX body moving) with the main path's strata and without,
+# its 4-pulse CPI, and the rough-plastic mesh in I / Q (23 x 23 vertices:
+# 968 triangles, the main path's surface at a tenth of its faces)
+MESH_CASES = {'mesh_multi_body': ('multi_body_scene', (), False, 2, 'gate',
+                                  1, 32),
+              'mesh_multi_body_p0': ('multi_body_scene', (), False, 2,
+                                     'gate', 1, 0),
+              'mesh_multi_body_cpi': ('multi_body_scene', (), False, 2,
+                                      'gate', 4, 16),
+              'mesh_rough_plastic_iq': ('mesh_scene', (),
+                                        True, 2, 'gate', 1, 32)}
+
+
+def mesh_tables(name: str, device='cpu'):
+    """(params, prim, txp, msh, mesh, keyword arguments of
+    receive_megakernel(_cpi) less the lanes, pulses, the scene's band) of
+    a mesh case."""
+    import torch
+    from beifong_tpu_torch import scenes as S
+    from beifong_tpu_torch.integrators import receive_kernel as rk
+    fn, args, coh, depth, ts, n_p, patch_p = MESH_CASES[name]
+    kw_s = dict(n_side=23, material='rough_plastic') \
+        if fn == 'mesh_scene' else {}
+    s, rx = getattr(S, fn)(*args, **kw_s)
+    if n_p > 1:
+        p, rx, _ = rk.pack_cpi(s, n_p, 10.0)
+    else:
+        p = rk.pack_scene(s.compile(use_bvh=False, device='cpu'), rx,
+                          s.shape_index_of_endpoint('receiver', rx.id))
+    params = torch.tensor(p.params, device=device)
+    if n_p == 1:
+        # under strata, a seed slot whose first tiles' beams meet the
+        # targets (seed 3's miss them at a few thousand lanes)
+        params[0] = rk.seed_slot(32 if patch_p else 3)
+    kw = dict(adc=rx.adc, max_depth=depth, time_sampling=ts,
+              rx_kind=rk.rx_kind_of(rx), doppler=True, coherent=coh,
+              receive_type=rx.receive_type,
+              has_lo=rx.lo_waveform is not None, mirror=bool(p.mirror),
+              lobes=int(p.lobes), patch_p=patch_p)
+    return (params, torch.tensor(p.prim, device=device),
+            torch.tensor(p.txp, device=device),
+            torch.tensor(p.msh, device=device), p.mesh.to(device), kw, n_p,
+            s.band)
+
+
+def compare_mesh(libs, name: str, n: int, gen) -> dict:
+    """One mesh case in both trees on injected uniforms and on Philox:
+    {'injected' / 'philox': (lanes equal, events equal, grids equal,
+    largest grid difference over max|acc|)}."""
+    import torch
+    from beifong_tpu_torch.integrators import receive_kernel as rk
+    params, prim, txp, msh, mesh, kw, n_p, _ = mesh_tables(name)
+    out = {}
+    for mode in ('injected', 'philox'):
+        nd = rk.n_draws(kw['max_depth'], 1, **rk.lobe_draws(kw['lobes']))
+        shape = (n_p, nd, n) if n_p > 1 else (nd, n)
+        u = torch.rand(shape, generator=gen) if mode == 'injected' else None
+        res = []
+        for which in ('other', 'this'):
+            rk.LIBRARY = libs[which]
+            lane = torch.zeros((n_p, n) if n_p > 1 else n)
+            acc, ev = rk._launch(
+                params, prim, txp, msh, u, mesh, lane, n_pulses=n_p,
+                n_lanes=n, seed=13, seed_step=7919 if n_p > 1 else 0,
+                **launch_kw(kw))
+            res.append((acc, ev, lane))
+        (a0, e0, l0), (a1, e1, l1) = res
+        scale = float(a0.abs().max()) or 1.0
+        out[mode] = (torch.equal(l0, l1), torch.equal(e0, e1),
+                     torch.equal(a0, a1),
+                     float((a0 - a1).abs().max()) / scale)
+        print(f'{name} {mode}: events {e1.tolist()}, lanes with a '
+              f'contribution {int((l1 != 0).sum())}', flush=True)
+    return out
 
 
 def doppler_scene(name: str):
@@ -237,7 +322,9 @@ def endpoint_tables(name: str, device='cpu'):
     P = S.PHASED
     arg = {'phased_tx_scene': S.steer_toward(P['tx'], S.phased_tx_target()),
            'phased_rx_scene': P['rx_az']}.get(fn)
-    s, rx = getattr(S, fn)(*(() if arg is None else (arg,)))
+    s, rx = getattr(S, fn)(*(() if arg is None else (arg,)),
+                           **({'moving_ggx': True}
+                              if name.endswith('_ggx') else {}))
     if name.endswith('_mixer'):
         s, rx = S.mixer_receiver(s, rx)
     if n_p > 1:
@@ -299,7 +386,7 @@ def main() -> int:
     ap.add_argument('--lanes', type=int, default=4096)
     ap.add_argument('--cases', default=','.join(CASES),
                     help=f'of {tuple(CASES) + tuple(EP_CASES)}'
-                    f' + {tuple(DOP_CASES)}')
+                    f' + {tuple(DOP_CASES)} + {tuple(MESH_CASES)}')
     ap.add_argument('--grids', action='store_true')
     args = ap.parse_args()
     import torch
@@ -377,8 +464,9 @@ def main() -> int:
             compare('window_thin CPI 4 pulses', p, u, n_pulses=4, seed=3)
         return 0
     for name in args.cases.split(','):
-        if name in EP_CASES or name in DOP_CASES:
-            fn = compare_endpoint if name in EP_CASES else compare_doppler
+        if name in EP_CASES or name in DOP_CASES or name in MESH_CASES:
+            fn = compare_endpoint if name in EP_CASES else \
+                compare_mesh if name in MESH_CASES else compare_doppler
             for mode, (lanes, evs, grids, diff) in fn(
                     libs, name, n, gen).items():
                 print(f'{name} {mode}: lanes bit-equal {lanes}, events '

@@ -97,6 +97,12 @@ EP_COH_KERNEL = (r'receive_doppler_kernelILb0ELb1ELb0ELb1ELb0E|'
 # instantiation or the kernel that replaced it
 DPW_KERNEL = (r'receive_doppler_kernelILb0ELb0ELb0ELb0ELb0E|'
               r'receive_doppler_power_kernel')
+# the Doppler mesh in power and the mesh lobe twin in I / Q: the
+# grid-stride instantiations or the mesh Doppler kernel that replaced them
+MDK_KERNEL = (r'receive_doppler_kernelILb1ELb0ELb0ELb0ELb0E|'
+              r'receive_mesh_doppler_kernelILb0ELb0E')
+MDK_LOB_KERNEL = (r'receive_doppler_kernelILb1ELb1ELb0ELb0ELb1E|'
+                  r'receive_mesh_doppler_kernelILb1ELb1E')
 CONFIGS = {'flagship': dict(depth=DEPTH, ts='gate', lanes=MAIN_LANES,
                             kernel=KERNEL),
            'range_doppler': dict(depth=2, ts='gate', lanes=1 << 24,
@@ -120,7 +126,11 @@ CONFIGS = {'flagship': dict(depth=DEPTH, ts='gate', lanes=MAIN_LANES,
            'ep_four_tx': dict(depth=2, ts='gate', lanes=1 << 24,
                               kernel=EP_KERNEL),
            'ep_phased_tx_coh': dict(depth=2, ts='gate', lanes=1 << 24,
-                                    kernel=EP_COH_KERNEL)}
+                                    kernel=EP_COH_KERNEL),
+           'multi_body': dict(depth=2, ts='gate', lanes=1 << 24,
+                              kernel=MDK_KERNEL),
+           'mesh_lobes_iq': dict(depth=2, ts='gate', lanes=1 << 24,
+                                 kernel=MDK_LOB_KERNEL)}
 # the endpoint configurations: (scenes' function, coherent)
 EP_SCENES = {'ep_phased_tx': ('phased_tx_scene', False),
              'ep_phased_rx': ('phased_rx_scene', False),
@@ -130,6 +140,13 @@ EP_SCENES = {'ep_phased_tx': ('phased_tx_scene', False),
 LOBE_COHERENT = {'window_thin': False, 'window_dielectric': True}
 # the analytic Doppler power configurations
 DPW_CONFIGS = ('range_doppler', 'fmcw_sonar')
+# the mesh configurations, and whether each is the I / Q lobe twin: the
+# Doppler mesh on multi_body, the rough-plastic mesh_scene in I / Q; their
+# lanes take the main path's direction strata (patch_p_for of its lanes)
+MESH_COHERENT = {'multi_body': False, 'mesh_lobes_iq': True}
+# the BVH walks of a mesh lane: RAY's first hit (depth 0), a bounce's
+# closest hit (depth > 0), NEE's any hit
+WALKS = ('ray', 'bounce', 'shadow')
 # the stages that are bookkeeping, not a lane's work: the warp wavefront's
 # turns, the grid-stride loop, the block's set-up
 BOOKKEEPING = ('sched', 'lane', 'block')
@@ -142,14 +159,17 @@ BOOKKEEPING = ('sched', 'lane', 'block')
 # of receive_lobe_kernel (Philox blocks by need; the grid-stride
 # instantiations before it 4,987.8, 5,765.2); the endpoint scenes', the
 # endpoint kernels held to six blocks an SM with 64 cells an axis (the
-# grid-stride twins before them 2,194.4, 4,377.7, 4,716.2, 3,329.6)
+# grid-stride twins before them 2,194.4, 4,377.7, 4,716.2, 3,329.6); the
+# mesh configurations', the mesh Doppler kernel (the grid-stride
+# instantiations before it 2,601.4, 2,295.0)
 LEAST_STAGE_INSTRUCTIONS = {'flagship': 2399.0, 'pulse_train': 2341.9,
                             'dechirp': 1639.5, 'corner': 3462.6,
                             'window_thin': 3461.6,
                             'window_dielectric': 3904.9,
                             'ep_phased_tx': 1545.0, 'ep_phased_rx': 3638.7,
                             'ep_four_tx': 4014.8,
-                            'ep_phased_tx_coh': 2336.7}
+                            'ep_phased_tx_coh': 2336.7,
+                            'multi_body': 2316.9, 'mesh_lobes_iq': 1992.6}
 
 # the stages of a flagship lane and the plain version's stat key that counts
 # the entries of each ('rect' and 'occ' per rectangle tested)
@@ -159,7 +179,9 @@ STAGES = ('ray', 'trace', 'closest', 'hit', 'direct', 'nee', 'shadow',
           'phase', 'splat', 'bounce', 'draws', 'sched', 'lane', 'block',
           'lobe_nee', 'pick', 'mirror', 'diel', 'ggx', 'diffuse',
           'rx_pairs', 'rx_terms', 'rx_calls', 'nee_pairs', 'nee_terms',
-          'nee_calls', 'direct_pairs', 'direct_terms', 'direct_calls')
+          'nee_calls', 'direct_pairs', 'direct_terms', 'direct_calls',
+          'walk', 'walk_node', 'walk_tri', 'shadow_walk', 'shadow_node',
+          'shadow_tri')
 # the plain version's stat keys a lane's masks are read for (its receive
 # frequency's, counted for every lane, are the ray's: stage_weights_fp32)
 KEYS = ('trace', 'hit', 'direct', 'nee_geom', 'nee', 'occ_tests',
@@ -226,6 +248,10 @@ def scene_of(config: str):
         return getattr(scenes, fn)(*arg)
     if config in LOBE_COHERENT:
         return scenes.window_corner_scene(config[len('window_'):])
+    if config == 'multi_body':
+        return scenes.multi_body_scene()
+    if config == 'mesh_lobes_iq':
+        return scenes.mesh_scene(material='rough_plastic')
     if config == 'flagship':
         return scenes.flagship_scene()
     if config == 'pulse_train':
@@ -263,6 +289,12 @@ def ref_kw(config: str, rx, packed) -> dict:
         kw.update(coherent=LOBE_COHERENT[config], lobes=packed.lobes)
     if config in DPW_CONFIGS:
         kw['coherent'] = False
+    if config in MESH_COHERENT:
+        import torch
+        from beifong_tpu_torch.integrators import receive_kernel as rk
+        kw.update(coherent=MESH_COHERENT[config], mesh=packed.mesh,
+                  msh=torch.tensor(packed.msh), lobes=packed.lobes,
+                  patch_p=rk.patch_p_for(CONFIGS[config]['lanes']))
     return kw
 
 
@@ -279,7 +311,7 @@ def draw_stride(kw: dict) -> tuple:
 def lobe_kw(config: str) -> dict:
     """{'lobes': the lobe twins' flags} of a configuration's tables (0
     outside the lobe twins)."""
-    if config not in LOBE_COHERENT:
+    if config not in LOBE_COHERENT and config not in MESH_COHERENT:
         return {}
     sys.path.insert(0, HERE)
     from beifong_tpu_torch.integrators import receive_kernel as rk
@@ -321,16 +353,37 @@ def stage_masks(n_lanes: int, device: str = 'cpu',
     p = rk.pack_scene(sd, rx, s.shape_index_of_endpoint('receiver', rx.id))
     params, prim, txp = (torch.tensor(a, device=device)
                          for a in (p.params, p.prim, p.txp))
-    kw = {k: v.to(device) if isinstance(v, torch.Tensor) else v
+    if p.mesh is not None:
+        params[0] = rk.seed_slot(SEED)
+    kw = {k: v.to(device) if isinstance(v, torch.Tensor)
+          or k == 'mesh' else v
           for k, v in ref_kw(config, rx, p).items()}
+    walk_ref = rk.walk_ref
+
+    def walk_rec(pb, ox, *a, anyhit, stats=None):
+        """the plain version's walk, recording each ray's slab tests and
+        leaves against its lane (the caller's `walk` indices) and kind"""
+        v = torch.zeros((int(ox.shape[0]), 2), dtype=torch.long,
+                        device=ox.device)
+        r = walk_ref(pb, ox, *a, anyhit=anyhit, stats=stats, visits=v)
+        lanes = sys._getframe(1).f_locals['walk']
+        kind = 'shadow' if anyhit else 'ray' if d[0] == 0 else 'bounce'
+        out.append((f'_walk_{kind}', d[0], (lanes.cpu().numpy().copy(),
+                                            v.cpu().numpy())))
+        return r
     u = rk.philox_uniforms(SEED, rk.n_draws(kw['max_depth'],
                                             int(txp.shape[0]),
                                             **rk.lobe_draws(kw.get('lobes')
                                                             or 0)),
                            n_lanes, device=device)
     stats: dict = {}
-    with Capture():
-        rk.receive_megakernel_ref(params, prim, txp, u, stats=stats, **kw)
+    rk.walk_ref = walk_rec
+    try:
+        with Capture():
+            rk.receive_megakernel_ref(params, prim, txp, u, stats=stats,
+                                      **kw)
+    finally:
+        rk.walk_ref = walk_ref
     n_rect = int((prim[:, 0] == 0).sum())
     # the cross-WDFs' totals (not masks): pair sums, pairs tested, pairs
     # the endpoint kernels' index visits
@@ -341,12 +394,23 @@ def stage_masks(n_lanes: int, device: str = 'cpu',
 
 
 def per_lane(masks, n_lanes: int):
-    """(n_lanes, depth) arrays of each stage's entries (KEYS)."""
+    """(n_lanes, depth) arrays of each stage's entries (KEYS), and on a
+    mesh of each walk's slab tests and leaves (`node_<walk>`,
+    `leaf_<walk>`, WALKS)."""
     depth = max(1, max(d for _, d, _ in masks) + 1)
     a = {k: np.zeros((n_lanes, depth), np.int32) for k in KEYS}
+    if any(key.startswith('_walk_') for key, _, _ in masks):
+        for w in WALKS:
+            a[f'node_{w}'] = np.zeros((n_lanes, depth), np.int64)
+            a[f'leaf_{w}'] = np.zeros((n_lanes, depth), np.int64)
     for key, d, m in masks:
-        if key in a and m.shape == (n_lanes,):
+        if key in a and isinstance(m, np.ndarray) and m.shape == (n_lanes,):
             a[key][:, d] += m
+        elif key.startswith('_walk_'):
+            lanes, v = m
+            w = key[len('_walk_'):]
+            np.add.at(a[f'node_{w}'][:, d], lanes, v[:, 0])
+            np.add.at(a[f'leaf_{w}'][:, d], lanes, v[:, 1])
     return a
 
 
@@ -483,18 +547,82 @@ def stage_weights_fp32(n_rect: int, config: str = 'flagship') -> dict:
             # a chirp's echo phase adds the quadratic term to each h
             w['phase'] += f['h_chirp']
             w['phase_lo'] += f['h_chirp']
+    if config in MESH_COHERENT:
+        # the strata's ray; each walk's slab tests and leaves (walk_cost)
+        w['ray'] += f['ray_strata'] - f['ray_wigner']
+        w.update(node_test=f['node_test'], leaf_test=f['leaf_test'])
     return w
+
+
+def walk_cost(a: dict, w: dict, walk: str) -> np.ndarray:
+    """(n_lanes, depth) cost of a lane's `walk` (WALKS) at each depth: its
+    slab tests and leaves at the weights w['node_test'], w['leaf_test']
+    (0 on an analytic configuration)."""
+    if f'node_{walk}' not in a:
+        return np.zeros(a['trace'].shape)
+    return (a[f'node_{walk}'] * w.get('node_test', 0.0)
+            + a[f'leaf_{walk}'] * w.get('leaf_test', 0.0))
 
 
 def _vertex_table(a: dict, w: dict):
     """(n_lanes, depth, 1 + len(COLUMNS)) per-vertex costs of each stage
-    (the ray's at depth 0)."""
+    (the ray's at depth 0); a mesh lane's closest-hit walks join its trace
+    column, its shadow walks the shadow tests'."""
     n, depth = a['trace'].shape
     t = np.zeros((n, depth, len(COLUMNS) + 1))
     t[:, 0, 0] = w['ray']
     for j, keys in enumerate(COLUMNS):
         t[:, :, j + 1] = sum(a[k] * w.get(k, 0.0) for k in keys)
+    t[:, :, 1] += walk_cost(a, w, 'ray') + walk_cost(a, w, 'bounce')
+    t[:, :, 1 + COLUMNS.index(('occ_tests',))] += walk_cost(a, w, 'shadow')
     return t
+
+
+def _eff(groups) -> float:
+    """used over issued slots of groups of up to 32 costs, each issued as
+    32 x its largest"""
+    used = sum(float(g.sum()) for g in groups)
+    issued = sum(32.0 * float(g.max()) for g in groups if len(g))
+    return used / issued if issued else 1.0
+
+
+def walk_simt(a: dict, w: dict) -> dict:
+    """SIMT efficiency of the BVH walks (used over issued slots, each
+    group of 32 issued as 32 x its largest walk), by walk (RAY's first
+    hit, a bounce's closest hit, NEE's shadow) and measure (slab tests,
+    leaves, their FP32 cost at the weights w): for the grid-stride loop (a
+    warp's 32 consecutive lanes, each walk at its depth) and for the warp
+    wavefront (RAY's walks over 32 consecutive lanes; a SHADE turn's
+    shadow walks, and the bounce walks it traces, over 32 paths that hit
+    at that depth, taken in lane order)."""
+    n, depth = a['trace'].shape
+    hit = a['hit'] > 0
+    out = {}
+    for walk in WALKS:
+        meas = {'nodes': a[f'node_{walk}'].astype(np.float64),
+                'leaves': a[f'leaf_{walk}'].astype(np.float64),
+                'fp32': walk_cost(a, w, walk)}
+        for m, v in meas.items():
+            gs = [v[i:i + 32, d] for d in range(depth)
+                  for i in range(0, n - n % 32, 32)]
+            wf = []
+            for d in range(depth):
+                if walk == 'ray' and d == 0:
+                    wf += [v[i:i + 32, 0] for i in range(0, n - n % 32, 32)]
+                    continue
+                # the SHADE turn of the hits at depth d (shadow) or d - 1
+                # (the bounce it traces)
+                src = d if walk == 'shadow' else d - 1
+                if src < 0:
+                    continue
+                paths = np.nonzero(hit[:, src])[0]
+                wf += [v[paths[i:i + 32], d]
+                       for i in range(0, len(paths), 32)]
+            out[f'{walk}_{m}'] = dict(
+                per_lane=float(v.sum()) / n,
+                grid_stride_efficiency=_eff(gs),
+                wavefront_efficiency=_eff(wf))
+    return out
 
 
 def simt(a: dict, w: dict, lanes_per_thread: int = 64) -> dict:
@@ -566,8 +694,13 @@ def pool_model(a: dict, w: dict, lanes_per_thread: int = 64,
     full = dict.fromkeys(turns, 0)
 
     def trace_cost(go):
-        """issued and used slots of tracing the paths `go`"""
-        return (32 * w['trace'] if go else 0.0), len(go) * w['trace']
+        """issued and used slots of tracing the paths `go` (the rectangles
+        and, on a mesh, each path's own walk: the warp issues its
+        longest)"""
+        if not go:
+            return 0.0, 0.0
+        c = np.asarray([t[ln, d, 1] for ln, d in go])
+        return 32.0 * float(c.max()), float(c.sum())
 
     for g in range(n_threads // 32):
         lanes = [g * 32 + j + k * stride for k in range(lanes_per_thread)
@@ -697,6 +830,27 @@ def func_ranges(source: str) -> dict:
     return out
 
 
+def walk_triangle_lines(tree: str) -> tuple:
+    """(first, last) line of bvh::triangle in the tree's
+    csrc/bvh_walk.cuh: the walk's per-triangle code (the rest of a walk
+    runs once a node)."""
+    path = os.path.join(os.path.dirname(source_of(tree)), 'bvh_walk.cuh')
+    if not os.path.exists(path):
+        return (0, -1)
+    with open(path) as f:
+        lines = f.read().splitlines()
+    for i, ln in enumerate(lines, 1):
+        if re.search(r'bool triangle\(', ln):
+            depth, j = 0, i
+            while j <= len(lines):
+                depth += lines[j - 1].count('{') - lines[j - 1].count('}')
+                if depth == 0 and '}' in lines[j - 1]:
+                    break
+                j += 1
+            return (i, j)
+    return (0, -1)
+
+
 def classify(op: str) -> str:
     for name, pat in CLASSES:
         if re.search(pat, op):
@@ -766,6 +920,8 @@ p = rk.pack_scene(s.compile(use_bvh=False, device='cpu'), rx,
                   s.shape_index_of_endpoint('receiver', rx.id))
 kw = k1_mix.ref_kw({config!r}, rx, p)
 lob = {{'lobes': True}} if kw.get('lobes') else {{}}
+if p.mesh is not None:
+    lob.update(mesh=True, n_msh=p.msh.shape[0])
 if {config!r} in k1_mix.EP_SCENES:
     import inspect
     lob = {{'ep': True}}
@@ -794,7 +950,9 @@ print('GEOM ' + json.dumps(dict(blocks=g[0], threads=g[1], smem=g[2],
 def parse_functions(text: str) -> dict:
     """{function: [(opcode, [source lines of its inline chain])]} of an
     nvdisasm listing with line info (each instruction takes the '//##'
-    lines above it, or its predecessor's where none are)."""
+    lines above it, or its predecessor's where none are); a line of
+    csrc/bvh_walk.cuh is negative (the walk's own lines, inlined at a
+    line of the kernel's source)."""
     funcs, cur, chain, fresh = {}, None, [], False
     for ln in text.splitlines():
         m = re.match(r'\s*\.text\.(\S+):', ln)
@@ -807,7 +965,10 @@ def parse_functions(text: str) -> dict:
         if '//##' in ln:
             if not fresh:
                 chain, fresh = [], True
-            chain = chain + [int(x) for x in re.findall(r'line (\d+)', ln)]
+            refs = re.findall(r'"([^"]*)",\s*line (\d+)', ln)
+            chain = chain + ([-int(x) if f.endswith('bvh_walk.cuh')
+                              else int(x) for f, x in refs] if refs else
+                             [int(x) for x in re.findall(r'line (\d+)', ln)])
             continue
         m = re.search(r'/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;', ln)
         if m:
@@ -870,13 +1031,28 @@ def sass_mix(cubin: str, src: str, kernel: str, a: dict, n_rect: int,
     elif 'receive_coherent_kernel' in name \
             or 'receive_doppler_power_kernel' in name:
         phx = stage_blocks(a, direct=True)
-    elif 'receive_lobe_kernel' in name:
+    elif 'receive_lobe_kernel' in name \
+            or 'receive_mesh_doppler_kernel' in name:
         phx = stage_blocks(a, direct=True, stride=stride)
     else:
         phx = philox_blocks(a, CONFIGS[config]['ts'] == 'fixed', stride,
                             pick)
     stages = line_stages(src)
     helpers = func_ranges(src)
+    tri = walk_triangle_lines(os.path.dirname(os.path.dirname(
+        os.path.dirname(src))))
+
+    def walk_stage(chain):
+        """A BVH walk's instruction (a line of bvh_walk.cuh in its chain):
+        the closest-hit walks' or the shadow walk's (by the stage of its
+        site in the kernel), a triangle test's or a node's."""
+        walk = [-x for x in chain if x < 0]
+        if not walk:
+            return None
+        site = next((stages[x] for x in chain if x in stages), 'closest')
+        kind = 'shadow' if site in ('shadow', 'shadow_walk') else 'walk'
+        part = 'tri' if any(tri[0] <= x <= tri[1] for x in walk) else 'node'
+        return f'{kind}_{part}'
 
     def in_helper(ln, h):
         r = helpers.get(h)
@@ -924,6 +1100,8 @@ def sass_mix(cubin: str, src: str, kernel: str, a: dict, n_rect: int,
             st = 'phase'
         elif pair_stage(chain) is not None:
             st = pair_stage(chain)
+        elif walk_stage(chain) is not None:
+            st = walk_stage(chain)
         else:
             st = next((stages[x] for x in chain if x in stages), 'block')
             if st not in by:
@@ -932,6 +1110,7 @@ def sass_mix(cubin: str, src: str, kernel: str, a: dict, n_rect: int,
         by[st][c] = by[st].get(c, 0) + 1
         rcp[st] += op.startswith('MUFU.RCP')
     n = a['trace'].shape[0]
+    z = np.zeros(1)
     # a lane's connections (each one echo phase and tent splat)
     conns = (a['nee_splat'].sum() + a['direct'].sum()) / n
     # entries of each stage a lane
@@ -955,6 +1134,18 @@ def sass_mix(cubin: str, src: str, kernel: str, a: dict, n_rect: int,
           'ggx': (a['ggx_bounce'] + a['rplas_bounce']
                   + a['rdiel_bounce']).sum() / n,
           'diffuse': (a['bounce'] + a['plas_bounce']).sum() / n,
+          # the BVH walks: their set-up once a walk (the closest hit's at
+          # every trace of a mesh lane, the shadow's at each NEE that
+          # walks), a node's code once a slab test, a triangle's once a
+          # triangle (8 a leaf entered)
+          'walk': float(a['trace'].sum()) / n if 'node_ray' in a else 0.0,
+          'shadow_walk': float((a.get('node_shadow', z) > 0).sum()) / n,
+          'walk_node': sum(float(a.get(f'node_{w}', z).sum())
+                           for w in ('ray', 'bounce')) / n,
+          'walk_tri': 8.0 * sum(float(a.get(f'leaf_{w}', z).sum())
+                                for w in ('ray', 'bounce')) / n,
+          'shadow_node': float(a.get('node_shadow', z).sum()) / n,
+          'shadow_tri': 8.0 * float(a.get('leaf_shadow', z).sum()) / n,
           # the warp wavefront's turns for 32 lanes: one RAY, and a SHADE
           # for every 32 hits (each turn traces the rays it makes)
           'sched': (n + a['hit'].sum()) / n,
@@ -1058,9 +1249,14 @@ def main() -> int:
            'pairs_a_lane': {k: v / n for k, v in pairs.items()
                             if k != 'n_tx'},
            'philox_blocks_a_lane': float(phx.mean())}
+    if args.config in MESH_COHERENT:
+        res['walks_a_lane'] = {f'{k}_{w}': float(a[f'{k}_{w}'].sum()) / n
+                               for w in WALKS for k in ('node', 'leaf')}
     if args.simt:
         res['fp32_weights'] = w = stage_weights_fp32(n_rect, args.config)
         res['simt_fp32'] = simt(a, w)
+        if args.config in MESH_COHERENT:
+            res['walk_simt'] = walk_simt(a, w)
         res['pool_fp32'] = pool_model(a, w)
         res['pool_fused_fp32'] = pool_model(a, w, fused=True)
     if args.sass:
@@ -1103,7 +1299,9 @@ def main() -> int:
              'plas_bounce': per['bounce'] + per['diffuse'],
              'rplas_bounce': per['bounce'] + per['ggx'],
              'rdiel_bounce': per['bounce'] + per['ggx'],
-             'pass_bounce': per['bounce']}
+             'pass_bounce': per['bounce'],
+             'node_test': per['walk_node'],
+             'leaf_test': 8.0 * per['walk_tri']}
         res['simt_sass'] = simt(a, w)
         res['pool_sass'] = pool_model(a, w)
         res['pool_fused_sass'] = pool_model(a, w, fused=True)

@@ -29,7 +29,10 @@ ep_phased_rx, ep_four_tx in power, ep_phased_tx_coh in I / Q: the
 analytic endpoint kernels, or in a tree before them the grid-stride
 twins), the analytic Doppler power configuration on golden config 2
 (fmcw_sonar: mix_resample, 2^24 Philox lanes, depth 2, fixed sampling,
-with a hash of its result, as the range-Doppler pulse above), K4's
+with a hash of its result, as the range-Doppler pulse above), the mesh
+Doppler kernel's second path, the rough-plastic mesh_scene in I / Q
+(mesh_lobes_iq: 2^24 Philox lanes, depth 2, gate, the main path's
+direction strata; with multi_body above, a hash of each result), K4's
 closest-hit and
 shadow kernels at chip_smoke.K4_SHAPES (the wavefront's 2^17 rays x 324
 faces, the query's 2^18 x 10,082 and 2^17 x 968: twenty calls queued
@@ -45,7 +48,8 @@ ratio this / other, the pairs this tree won, and the host times.
     python3 tools/tree_ab.py --other DIR --this DIR2 --only flagship
 
 times DIR2 in place of this tree, and only the named configurations
-(comma-separated; an ablation's pairs need only the flagship; the lobe
+(comma-separated; an ablation's pairs need only the flagship; the mesh
+Doppler kernel's are multi_body and mesh_lobes_iq; the lobe
 twins' are window_thin, window_dielectric, lobe_plastic,
 lobe_rough_plastic, lobe_rough_dielectric, lobe_through,
 lobe_through_iq, lobe_blend, lobe_mask and window_cpi; the endpoint
@@ -54,8 +58,9 @@ k4_closest and k4_any, which build only K4's library).
 
     python3 tools/tree_ab.py --other DIR --sass
 
-compares instead the machine code of K1's vacuum kernels in the two trees
-(`cuobjdump -sass` of each tree's library; a kernel that gained a
+compares instead the machine code of K1's kernels and of K2 / K3's and
+K4's in the two trees (`cuobjdump -sass` of each tree's libraries; a
+kernel that gained a
 template flag is matched to its old name) and prints, per kernel, the
 instruction counts and the instructions that differ once addresses and
 encodings are dropped.
@@ -125,6 +130,9 @@ EP_PATHS = {'ep_phased_tx': ('phased_tx_scene', False),
             'ep_phased_tx_coh': ('phased_tx_scene', True)}
 EP_LANES = 1 << 24
 EP_DEPTH = 2
+# the mesh Doppler kernel's path timed beside multi_body: the mesh lobe
+# twin in I / Q on the rough-plastic mesh_scene
+MDK_PATHS = ('mesh_lobes_iq',)
 # the analytic Doppler power scenes timed here beside range_doppler:
 # (scenes' function, time sampling)
 DPW_PATHS = {'fmcw_sonar': ('fmcw_sonar_scene', 'fixed')}
@@ -133,7 +141,8 @@ DPW_SCENES = {'range_doppler': ('range_doppler_scene', 'gate'), **DPW_PATHS}
 K4_NAMES = ('k4_closest', 'k4_any')
 NAMES = ('flagship', 'mesh', 'multi_body', 'range_doppler', 'coherent',
          'coherent_mesh') + COH_PATHS + CPI_PATHS + tuple(LOBE_PATHS) \
-    + ('window_cpi',) + tuple(EP_PATHS) + tuple(DPW_PATHS) + K4_NAMES
+    + ('window_cpi',) + tuple(EP_PATHS) + tuple(DPW_PATHS) \
+    + tuple(MDK_PATHS) + K4_NAMES
 
 
 def doppler_power_call(rk, scenes, name: str, dev):
@@ -151,6 +160,31 @@ def doppler_power_call(rk, scenes, name: str, dev):
               rx_kind='wigner', n_lanes=EP_LANES, doppler=True,
               coherent=False, receive_type=rx.receive_type,
               has_lo=rx.lo_waveform is not None, mirror=bool(p.mirror))
+    return params, prim, txp, kw
+
+
+def mesh_doppler_call(rk, scenes, name: str, dev):
+    """(params, prim, txp, keyword arguments) of receive_megakernel on the
+    mesh Doppler kernel's paths at chip_smoke.py's shapes (2^24 Philox
+    lanes, depth 2, gate, the main path's strata), in the imported tree:
+    multi_body in power, or (MDK_PATHS) the rough-plastic mesh_scene's
+    lobe twin in I / Q."""
+    import torch
+    coh = name in MDK_PATHS
+    s, rx = scenes.mesh_scene(material='rough_plastic') if coh \
+        else scenes.multi_body_scene()
+    p = rk.pack_scene(s.compile(use_bvh=False, device='cpu'), rx,
+                      s.shape_index_of_endpoint('receiver', rx.id))
+    params, prim, txp = (torch.tensor(a, device=dev)
+                         for a in (p.params, p.prim, p.txp))
+    params[0] = rk.seed_slot(7)
+    kw = dict(adc=rx.adc, max_depth=EP_DEPTH, time_sampling='gate',
+              rx_kind='wigner', n_lanes=EP_LANES, doppler=True,
+              coherent=coh, mirror=bool(p.mirror), mesh=p.mesh.to(dev),
+              msh=torch.tensor(p.msh, device=dev),
+              patch_p=rk.patch_p_for(EP_LANES))
+    if p.lobes:
+        kw['lobes'] = p.lobes
     return params, prim, txp, kw
 
 
@@ -277,10 +311,12 @@ def child(root: str, only: tuple = NAMES) -> dict:
         ms, _ = cs.cuda_ms(lambda i: fn(params, prim, txp, **kw), CALLS + 1)
         out[f'{name}_ms'] = ms[1:]
     for name in only:
-        if name not in EP_PATHS and name not in DPW_PATHS:
+        if name not in EP_PATHS and name not in DPW_PATHS \
+                and name not in MDK_PATHS:
             continue
-        params, prim, txp, kw = (endpoint_call if name in EP_PATHS
-                                 else doppler_power_call)(rk, scenes, name,
+        params, prim, txp, kw = (
+            endpoint_call if name in EP_PATHS else mesh_doppler_call
+            if name in MDK_PATHS else doppler_power_call)(rk, scenes, name,
                                                           dev)
         ms, _ = cs.cuda_ms(lambda i: rk.receive_megakernel(
             params, prim, txp, seed=cs.SEED, **kw), CALLS + 1)
@@ -320,7 +356,7 @@ def child(root: str, only: tuple = NAMES) -> dict:
             lambda i: rk.receive_megakernel(params, prim, txp, **kw),
             CALLS + 1)
         out[f'{name}_ms'] = ms[1:]
-        if name == 'range_doppler':
+        if name in ('range_doppler', 'multi_body'):
             acc, n_ev = rk.receive_megakernel(params, prim, txp, **kw)
             out[f'{name}_sha'] = hashlib.sha1(
                 acc.cpu().numpy().tobytes()
@@ -346,23 +382,30 @@ def child(root: str, only: tuple = NAMES) -> dict:
 
 
 def library(root: str) -> str:
-    """The receive kernel's library built from the tree at `root`."""
+    """The receive kernel's (K1), the BVH kernels' (K2, K3) and the
+    ray / triangle kernels' (K4) libraries built from the tree at `root`,
+    their paths joined by commas."""
     sys.path.insert(0, root)
+    from beifong_tpu_torch.geometry import bvh_kernel as bk
+    from beifong_tpu_torch.geometry import intersect_kernel as ik
     from beifong_tpu_torch.integrators import receive_kernel as rk
-    return rk.build_library().path
+    return ','.join(m.build_library().path for m in (rk, bk, ik))
 
 
-def sass_of(path: str) -> dict:
-    """{kernel: [instructions]} of a library's K1 kernels, without
-    addresses or encodings, keyed by name and template flags (the
-    mangled name carries a hash of the source's path)."""
+def sass_of(paths: str) -> dict:
+    """{kernel: [instructions]} of the libraries' kernels (K1's, K2 / K3's,
+    K4's; `paths` joined by commas), without addresses or encodings, keyed
+    by name and template flags (the mangled name carries a hash of the
+    source's path)."""
     cuda = os.environ.get('CUDA_HOME', '/usr/local/cuda')
-    out = subprocess.run([os.path.join(cuda, 'bin', 'cuobjdump'), '-sass',
-                          path], capture_output=True, text=True,
-                         check=True).stdout
+    out = '\n'.join(subprocess.run(
+        [os.path.join(cuda, 'bin', 'cuobjdump'), '-sass', path],
+        capture_output=True, text=True, check=True).stdout
+        for path in paths.split(','))
     funcs, key = {}, None
     for line in out.splitlines():
-        m = re.search(r'Function : \S*?(receive_[a-z_]+_kernel)'
+        m = re.search(r'Function : \S*?(receive_[a-z_]+_kernel|bvh_[a-z]+'
+                      r'_kernel|ray_triangle_kernel)'
                       r'(I((?:Lb[01]E)+)E)?', line)
         if m:
             flags = re.findall(r'Lb([01])E', m.group(3) or '')
