@@ -42,8 +42,8 @@
 // index over each phased array's pairs); the mesh twins and the Doppler
 // power twin run the EP instantiations of the block body.
 // The Doppler family's four vacuum configurations have a lobe twin (the
-// mesh ones LOB, in I / Q receive_mesh_doppler_kernel<true, true>, the
-// analytic ones receive_lobe_kernel<COH>, below; the
+// mesh ones receive_mesh_doppler_kernel<COH, true>, the analytic ones
+// receive_lobe_kernel<COH>, below; the
 // JAX kernel's diel, thin, plas, rplas, rdiel, has_blend and has_mask,
 // :187-225, 819-835, 1122-1297, 1663-1671, 1912-2226), whose flags are
 // the warp-uniform Cfg.lobes: the hit's lobe by its type, its NEE through
@@ -7037,14 +7037,18 @@ receive_doppler_power_kernel(const float* __restrict__ params,
 
 // ---- the mesh Doppler kernel: the coherent kernel's turns with the walk ---
 //
-// Two mesh configurations of the Doppler family run a kernel of their own
-// on the coherent kernel's turns: the Doppler mesh in power
-// (receive_mesh_doppler_kernel<false, false>; receive_doppler_kernel<true,
-// false> before) and the mesh lobe twin in I / Q (<true, true>;
-// receive_doppler_kernel<true, true, false, false, true> before).  Its
-// lane is trace_lane's mesh path, operation by operation (the power
-// Doppler one, or with LOB the lobe one in I / Q), and what differs is
-// which thread runs which part of which lane, and when (PERF.md):
+// The four vacuum mesh configurations of the Doppler family run a kernel
+// of their own on the coherent kernel's turns,
+// receive_mesh_doppler_kernel<COH, LOB>: the Doppler mesh in power
+// (<false, false>; receive_doppler_kernel<true, false> before), the
+// coherent mesh (<true, false>; receive_doppler_kernel<true, true>
+// before), the power mesh lobe twin (<false, true>;
+// receive_doppler_kernel<true, false, false, false, true> before) and the
+// mesh lobe twin in I / Q (<true, true>; receive_doppler_kernel<true, true,
+// false, false, true> before).  Its lane is trace_lane's mesh path,
+// operation by operation (the power Doppler one or the coherent one, or
+// with LOB the lobe one), and what differs is which thread runs which part
+// of which lane, and when (PERF.md):
 //  - A wavefront inside each warp: the coherent kernel's pool of COH_POOL
 //    paths, its turns (SHADE over 32 waiting paths, else RAY over the
 //    warp's next 32 lanes, each tracing the rays it makes), its draws a
@@ -7078,8 +7082,9 @@ receive_doppler_power_kernel(const float* __restrict__ params,
 constexpr int MDK_SLOT = 20;        // floats a path: five float4s
 // Blocks an SM the mesh Doppler kernel is held to: six.  The power kernel
 // ran 1.04 / 1.21 of that at five / four; the I / Q lobe twin held to four
-// (124 registers, as the lobe kernel) ran 1.15 of it (tools/k1_ablate.py
-// mdk_lb*, PERF.md)
+// (124 registers, as the lobe kernel) ran 1.15 of it; the coherent mesh
+// 1.06 / 1.24 and the power mesh lobe twin 1.07 / 1.23 at five / four
+// (tools/k1_ablate.py mdk_lb*, mdc_lb*, mdl_lb*; PERF.md)
 constexpr int MDK_MIN_BLOCKS = 6;
 
 // Shared bytes of one warp's area: its paths of MDK_SLOT floats, a turn's
@@ -8152,7 +8157,7 @@ constexpr auto kernel_of() {
         return receive_endpoint_kernel;
     else if constexpr (EP && !MESH && !MED && !LOB && DOP && COH)
         return receive_endpoint_coherent_kernel;
-    else if constexpr (DOP && MESH && !MED && !EP && COH == LOB)
+    else if constexpr (DOP && MESH && !MED && !EP)
         return receive_mesh_doppler_kernel<COH, LOB>;
     else if constexpr (DOP)
         return receive_doppler_kernel<MESH, COH, MED, EP, LOB>;
@@ -8294,7 +8299,7 @@ int geometry(int n_time, int n_freq, long long n_lanes, int n_prims,
         smem = lob_table_bytes(n_prims, n_params)
                + (T / 32) * lob_warp_bytes(n_time, rows, per_bin)
                + (mode == 1 && !rows ? 4 * per_bin * n_time * n_freq : 0);
-    } else if (DOP && MESH && !MED && !EP && COH == LOB) {
+    } else if (DOP && MESH && !MED && !EP) {
         // the mesh Doppler kernel: its tables and mesh-shape rows, each
         // warp's paths (and row), then the block's float grid where there
         // are no warp rows (mode 1)
@@ -8580,9 +8585,14 @@ int rk_launch(const float* params, const float* prim, const float* txp,
                 launch(receive_trace_kernel<false, MED, EP>, nullptr);
         }
         else if (coh) {
-            if (m)
-                launch(receive_doppler_kernel<true, true, MED, EP>, lane_val);
-            else if constexpr (!MED && !EP)
+            if (m) {
+                if constexpr (!MED && !EP)
+                    launch(receive_mesh_doppler_kernel<true, false>,
+                           lane_val);
+                else
+                    launch(receive_doppler_kernel<true, true, MED, EP>,
+                           lane_val);
+            } else if constexpr (!MED && !EP)
                 launch(receive_coherent_kernel, lane_val);
             else if constexpr (EP)
                 launch(receive_endpoint_coherent_kernel, lane_val);
@@ -8604,15 +8614,13 @@ int rk_launch(const float* params, const float* prim, const float* txp,
     };
     if (lobes) {
         // the lobe twins of the Doppler and coherent configurations: the
-        // mesh ones (the power one LOB, the I / Q one the mesh Doppler
-        // kernel's), the analytic ones' kernel of their own
+        // mesh ones the mesh Doppler kernel's, the analytic ones' kernel of
+        // their own
         if (coh)
             m ? launch(receive_mesh_doppler_kernel<true, true>, lane_val)
               : launch(receive_lobe_kernel<true>, lane_val);
         else
-            m ? launch(receive_doppler_kernel<true, false, false, false,
-                                              true>,
-                       lane_val)
+            m ? launch(receive_mesh_doppler_kernel<false, true>, lane_val)
               : launch(receive_lobe_kernel<false>, lane_val);
     } else if (medium)
         pick(std::true_type{}, std::false_type{});
@@ -8668,14 +8676,19 @@ const void* rk_doppler_power_kernel(int twin) {
                              receive_doppler_power_kernel);
 }
 
-// The mesh Doppler kernel of the Doppler mesh power configuration (lob 0)
-// or of the mesh lobe twin in I / Q (lob 1), to compare with the launch
-// record.
-const void* rk_mesh_doppler_kernel(int lob) {
-    return lob ? reinterpret_cast<const void*>(
-                     receive_mesh_doppler_kernel<true, true>)
-               : reinterpret_cast<const void*>(
-                     receive_mesh_doppler_kernel<false, false>);
+// The mesh Doppler kernel of a vacuum mesh configuration of the Doppler
+// family, to compare with the launch record: the Doppler mesh in power
+// (coh 0, lob 0), the coherent mesh (1, 0), the power mesh lobe twin (0,
+// 1) or the mesh lobe twin in I / Q (1, 1).
+const void* rk_mesh_doppler_kernel(int coh, int lob) {
+    return coh ? (lob ? reinterpret_cast<const void*>(
+                            receive_mesh_doppler_kernel<true, true>)
+                      : reinterpret_cast<const void*>(
+                            receive_mesh_doppler_kernel<true, false>))
+               : (lob ? reinterpret_cast<const void*>(
+                            receive_mesh_doppler_kernel<false, true>)
+                      : reinterpret_cast<const void*>(
+                            receive_mesh_doppler_kernel<false, false>));
 }
 
 // The endpoint kernel of the power (coh 0) or I / Q configuration, to

@@ -2487,7 +2487,7 @@ def _bind(lib):
     lib.rk_endpoint_kernel.restype = vp
     lib.rk_doppler_power_kernel.argtypes = [i32]
     lib.rk_doppler_power_kernel.restype = vp
-    lib.rk_mesh_doppler_kernel.argtypes = [i32]
+    lib.rk_mesh_doppler_kernel.argtypes = [i32, i32]
     lib.rk_mesh_doppler_kernel.restype = vp
 
 
@@ -2526,13 +2526,18 @@ def launched_doppler_power_kernel(twin: str = '') -> bool:
     return lib.rk_last_kernel() == lib.rk_doppler_power_kernel(which)
 
 
-def launched_mesh_doppler_kernel(lobes: bool = False) -> bool:
+def launched_mesh_doppler_kernel(lobes: bool = False,
+                                 coherent: bool | None = None) -> bool:
     """Whether the last launch on a card ran the mesh Doppler kernel
-    (receive_mesh_doppler_kernel): of the Doppler mesh configuration in
-    power, or with `lobes` of the mesh lobe twin in I / Q; the library's
-    launch record."""
+    (receive_mesh_doppler_kernel<coherent, lobes>) of a vacuum mesh
+    configuration of the Doppler family: the Doppler mesh in power, the
+    coherent mesh (`coherent`), the power mesh lobe twin (`lobes`,
+    `coherent` False) or the mesh lobe twin in I / Q (`lobes`);
+    `coherent` defaults to `lobes`.  The library's launch record."""
     lib = LIBRARY.get()
-    return lib.rk_last_kernel() == lib.rk_mesh_doppler_kernel(int(lobes))
+    coh = lobes if coherent is None else coherent
+    return lib.rk_last_kernel() == lib.rk_mesh_doppler_kernel(int(coh),
+                                                              int(lobes))
 
 
 def grid_mode(n_cells: int, doppler: bool, coherent: bool = False,

@@ -498,6 +498,10 @@ def print_build(infos: dict, tag: str) -> None:
         'receive_megakernel (doppler mesh)'
     names['receive_mesh_doppler_kernelILb1ELb1E'] = \
         'receive_megakernel (coherent mesh lobes)'
+    names['receive_mesh_doppler_kernelILb1ELb0E'] = \
+        'receive_megakernel (coherent mesh)'
+    names['receive_mesh_doppler_kernelILb0ELb1E'] = \
+        'receive_megakernel (doppler mesh lobes)'
     names['receive_lobe_kernelILb0E'] = 'receive_megakernel (doppler lobes)'
     names['receive_lobe_kernelILb1E'] = \
         'receive_megakernel (coherent lobes)'
@@ -537,7 +541,9 @@ MIX_KERNEL = {'flagship': 'receive_flagship_kernel',
               'range_doppler': 'receive_doppler_power_kernel',
               'fmcw_sonar': 'receive_doppler_power_kernel',
               'multi_body': 'receive_mesh_doppler_kernelILb0ELb0E',
-              'mesh_lobes_iq': 'receive_mesh_doppler_kernelILb1ELb1E'}
+              'mesh_lobes_iq': 'receive_mesh_doppler_kernelILb1ELb1E',
+              'mesh_lobes_power': 'receive_mesh_doppler_kernelILb0ELb1E',
+              'coherent_mesh': 'receive_mesh_doppler_kernelILb1ELb0E'}
 
 
 def kernel_mix(dev, tag, build_log: str, cubin: str, config: str,
@@ -1415,6 +1421,9 @@ def coherent(torch, bt, rk, ik, dev, tag, build_log: str,
         if rk.launched_doppler_power_kernel() != (not coh and not mesh):
             fail(f'{what}: the launch record does not show the Doppler '
                  f'power kernel on an analytic power scene alone')
+        if rk.launched_mesh_doppler_kernel(False, coh) != mesh:
+            fail(f'{what}: the launch record does not show the mesh '
+                 f'Doppler kernel on the mesh alone')
         ms, (ref, n_ref) = wall_ms(lambda: rk.receive_megakernel_ref(
             params, prim, txp, u, lane_out=lane_ref,
             amp_out=amp if coh else None, **kw))
@@ -1705,6 +1714,21 @@ def coherent(torch, bt, rk, ik, dev, tag, build_log: str,
     lane_ref = torch.empty(COH_LANES, device=dev)
     acc1, n1 = rk.receive_megakernel(params, prim, txp, n_lanes=COH_LANES,
                                      seed=SEED, lane_out=lane, **kw)
+    # the coherent mesh runs the mesh Doppler kernel <true, false> (the
+    # launch record), whose warp rows make Philox repeats bit-identical
+    if not rk.launched_mesh_doppler_kernel(False, True):
+        fail('coherent mesh: the launch record does not show '
+             'receive_mesh_doppler_kernel<true, false>')
+    acc2, n2 = rk.receive_megakernel(params, prim, txp, n_lanes=COH_LANES,
+                                     seed=SEED, **kw)
+    rows = rk.coherent_warp_rows(rx.adc)
+    same = bool(torch.equal(acc1, acc2)) and int(n1) == int(n2)
+    print(f'coherent mesh philox repeat: mesh Doppler kernel <true, false> '
+          f'launched, warp rows {rows}, bit-identical {same}, max '
+          f'difference {float((acc1 - acc2).abs().max()):.3e}, events '
+          f'{int(n1)} / {int(n2)}')
+    if not rows or not same:
+        fail('coherent mesh: two Philox-mode calls with one seed differ')
     ref, n_ref, amp, stats, plain_ms = _plain_philox(
         torch, rk, params, prim, txp, kw, COH_LANES, COH_DEPTH, dev,
         lane_ref=lane_ref)
@@ -1717,12 +1741,17 @@ def coherent(torch, bt, rk, ik, dev, tag, build_log: str,
           f'{[round(x, 3) for x in k_ms[1:]]}; plain version {plain_ms:.1f} '
           f'ms {tag}')
     print('coherent mesh stage lanes: ' + json.dumps(stats))
+    mix = kernel_mix(dev, tag, build_log, cubin, 'coherent_mesh',
+                     (blocks, threads, smem), sms) if cubin else {}
+    if mix:
+        mix['kernel'] = 'receive_mesh_doppler_kernel<true, false>'
     entries.append(_kernel_entry(
         torch, rk, 'coherent mesh', 'mesh_scene 2^24 lanes',
         'receive(mesh_scene(), coherent=True), 2^24 samples, depth 2, gate',
         launches, errs['coherent_mesh'] + [c], k_med, plain_ms, med, stats,
         [params, prim, txp, kw['msh'], kw['mesh'].bbox, kw['mesh'].links,
-         kw['mesh'].leaves], 64, 2, dict(lanes_on_another_path=c['flips'])))
+         kw['mesh'].leaves], 64, 2, dict(lanes_on_another_path=c['flips'],
+                                         repeat_bit_identical=same, **mix)))
 
     # ---- K1 against the wavefront ----
     compare_k1_wavefront_lo(torch, bt, dev, kw_grid, tag)
@@ -3106,11 +3135,11 @@ def lobes(torch, bt, rk, dev, tag, build_log: str, cubin: str) -> list:
                                          lane_out=lane, **k_kw)
         analytic = kw['mesh'] is None
         record = rk.launched_lobe_kernel(coh)
-        # the mesh lobe twin in I / Q runs the mesh Doppler kernel
-        mdk = not analytic and coh
-        if rk.launched_mesh_doppler_kernel(True) != mdk:
+        # the mesh lobe twins run the mesh Doppler kernel <coh, true>
+        mdk = not analytic
+        if rk.launched_mesh_doppler_kernel(True, coh) != mdk:
             fail(f'lobes {scene} ({cfg_name}): the launch record shows the '
-                 f'mesh Doppler kernel {not mdk}')
+                 f'mesh Doppler kernel <{str(coh).lower()}, true> {not mdk}')
         acc2, n2 = rk.receive_megakernel(params, prim, txp,
                                          n_lanes=LOBE_LANES, seed=SEED,
                                          **k_kw)
@@ -3120,9 +3149,8 @@ def lobes(torch, bt, rk, dev, tag, build_log: str, cubin: str) -> list:
         errs.append(check(acc1, n1, ref, n_ref, amp, lane, lane_ref, None,
                           k_kw, chain, s, rx, f'{scene} philox 2^24 lanes'))
         # the analytic twins run receive_lobe_kernel (the launch record)
-        # and the mesh lobe twin in I / Q the mesh Doppler kernel, whose
-        # warp rows make Philox repeats bit-identical (the power mesh
-        # twin's atomics add in arrival order: printed only)
+        # and the mesh lobe twins the mesh Doppler kernel, whose warp rows
+        # make Philox repeats bit-identical
         rows = (analytic or mdk) and rk.coherent_warp_rows(rx.adc, coh)
         rep = float((acc1 - acc2).abs().max())
         same = bool(torch.equal(acc1, acc2)) and int(n1) == int(n2)
@@ -3159,14 +3187,16 @@ def lobes(torch, bt, rk, dev, tag, build_log: str, cubin: str) -> list:
             mix['kernel'] = f'receive_lobe_kernel<{str(coh).lower()}>'
         elif mdk and cubin:
             mix = kernel_mix(
-                dev, tag, build_log, cubin, 'mesh_lobes_iq',
+                dev, tag, build_log, cubin,
+                'mesh_lobes_iq' if coh else 'mesh_lobes_power',
                 rk.launch_geometry(rx.adc.n_time, LOBE_LANES,
                                    int(prim.shape[0]),
                                    int(params.shape[-1]), mesh=True,
                                    n_msh=int(kw['msh'].shape[0]),
-                                   doppler=True, coherent=True, lobes=True),
+                                   doppler=True, coherent=coh, lobes=True),
                 torch.cuda.get_device_properties(0).multi_processor_count)
-            mix['kernel'] = 'receive_mesh_doppler_kernel<true, true>'
+            mix['kernel'] = (f'receive_mesh_doppler_kernel<'
+                             f'{str(coh).lower()}, true>')
         entry = _kernel_entry(
             torch, rk, cfg_name, f'{scene} 2^24 lanes',
             f'receive({scene}), 2^24 samples, depth {depth}, gate'

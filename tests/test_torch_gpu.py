@@ -638,21 +638,34 @@ def test_doppler_power_kernel_on_its_scenes(cuda, name):
 
 
 # the mesh Doppler kernel's scenes (tools/k1_emulate.py MESH_CASES):
-# multi_body in power with the main path's strata and without, the
-# rough-plastic mesh in I / Q
+# multi_body in power with the main path's strata and without and in I /
+# Q, the rough-plastic mesh in I / Q and in power, the diffuse mesh in I /
+# Q (the coherent mesh) with strata and without, and the coherent mesh and
+# the power mesh lobe twin on a global grid
 MDK_CASES = ('mesh_multi_body', 'mesh_multi_body_p0',
-             'mesh_rough_plastic_iq')
+             'mesh_rough_plastic_iq', 'mesh_rough_plastic_power',
+             'mesh_coherent', 'mesh_coherent_p0', 'mesh_multi_body_iq',
+             'mesh_coherent_global', 'mesh_rough_plastic_global')
+
+
+def _mdk_record(coherent, lobes):
+    """The launch record shows receive_mesh_doppler_kernel<coherent,
+    lobes> and none of its three other instantiations."""
+    for c in (False, True):
+        for lob in (False, True):
+            assert rk.launched_mesh_doppler_kernel(lob, c) \
+                == ((c, lob) == (coherent, lobes)), (c, lob)
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize('name', MDK_CASES)
 def test_mesh_doppler_kernel_matches_plain_version(cuda, name):
-    """The mesh Doppler kernel (receive_mesh_doppler_kernel: the Doppler
-    mesh in power, the mesh lobe twin in I / Q) on injected uniforms, lane
-    by lane against the plain version (power to 1e-4 x max|acc|, I / Q
-    with the phase slack), the launch record, and a repeat: bit for bit on
-    the I / Q warp rows, within 1e-6 of max|acc| on multi_body's block
-    atomics."""
+    """The mesh Doppler kernel (receive_mesh_doppler_kernel<COH, LOB>: the
+    Doppler mesh in power and in I / Q, the mesh lobe twins in I / Q and in
+    power) on injected uniforms, lane by lane against the plain version
+    (power to 1e-4 x max|acc|, I / Q with the phase slack), the launch
+    record, and a repeat: bit for bit on the warp rows, within 1e-6 of
+    max|acc| on the block's and the global grid's atomics."""
     params, prim, txp, msh, mesh, kw, _, band = \
         _k1_emulate().mesh_tables(name, cuda)
     n_lanes = 1 << 16
@@ -666,8 +679,8 @@ def test_mesh_doppler_kernel_matches_plain_version(cuda, name):
                                       uniforms=u, lane_out=lane, mesh=mesh,
                                       msh=msh, **kw)
     torch.cuda.synchronize()
-    assert rk.launched_mesh_doppler_kernel(coh)
-    assert not rk.launched_mesh_doppler_kernel(not coh)
+    lob = bool(kw['lobes'])
+    _mdk_record(coh, lob)
     adc = kw['adc']
     lane_ref = torch.empty(n_lanes, device=cuda)
     amp = torch.zeros((adc.n_time, adc.n_freq), dtype=torch.float64,
@@ -678,12 +691,12 @@ def test_mesh_doppler_kernel_matches_plain_version(cuda, name):
                                            stats=stats, mesh=mesh, msh=msh,
                                            **kw)
     assert stats['mesh_hits'] > 0 and stats['nee_splat'] > 0
+    assert (stats['rplas_bounce'] > 0) == lob
+    assert (stats['ggx_nee'] > 0) == ('multi_body' in name)
     if coh:
-        assert stats['rplas_bounce'] > 0
         _assert_coherent_parity(acc, n_ev, ref, n_ref, amp,
                                 rk.phase_slack(band, adc), lane, lane_ref)
     else:
-        assert stats['ggx_nee'] > 0
         _assert_mesh_parity(acc, n_ev, lane, ref, n_ref, lane_ref)
     acc2, n2 = rk.receive_megakernel(params, prim, txp, n_lanes=n_lanes,
                                      uniforms=u, mesh=mesh, msh=msh, **kw)
@@ -700,8 +713,21 @@ def test_mesh_doppler_cpi_is_launches_per_pulse(cuda):
     pulse within 1e-6 of max|acc| of one launch on the pulse's key and
     tables, and lane by lane against the plain version on its Philox
     stream."""
-    params, prim, txp, msh, mesh, kw, n_p, _ = \
-        _k1_emulate().mesh_tables('mesh_multi_body_cpi', cuda)
+    _mdk_cpi(cuda, 'mesh_multi_body_cpi')
+
+
+@pytest.mark.gpu
+def test_coherent_mesh_cpi_is_launches_per_pulse(cuda):
+    """The coherent mesh's 4-pulse CPI in one launch of <true, false>, as
+    multi_body's (I / Q against the plain version with the phase
+    slack)."""
+    _mdk_cpi(cuda, 'mesh_coherent_cpi')
+
+
+def _mdk_cpi(cuda, name):
+    params, prim, txp, msh, mesh, kw, n_p, band = \
+        _k1_emulate().mesh_tables(name, cuda)
+    coh = kw['coherent']
     n_lanes, step = 1 << 16, 7919
     lane = torch.empty((n_p, n_lanes), device=cuda)
     acc, n_ev = rk.receive_megakernel_cpi(params, prim, txp, n_lanes=n_lanes,
@@ -709,7 +735,7 @@ def test_mesh_doppler_cpi_is_launches_per_pulse(cuda):
                                           lane_out=lane, mesh=mesh, msh=msh,
                                           **kw)
     torch.cuda.synchronize()
-    assert rk.launched_mesh_doppler_kernel(False)
+    _mdk_record(coh, False)
     for p in range(n_p):
         m_p = rk.pulse_mesh(mesh, p)
         one, n_one = rk.receive_megakernel(params[p], prim[p], txp[p],
@@ -722,47 +748,42 @@ def test_mesh_doppler_cpi_is_launches_per_pulse(cuda):
         u = rk.philox_uniforms(11 + step * p, rk.n_draws(kw['max_depth']),
                                n_lanes, device=cuda)
         lane_ref = torch.empty(n_lanes, device=cuda)
+        amp = torch.zeros((kw['adc'].n_time, kw['adc'].n_freq),
+                          dtype=torch.float64, device=cuda)
         ref, n_ref = rk.receive_megakernel_ref(params[p], prim[p], txp[p],
                                                u, lane_out=lane_ref,
-                                               mesh=m_p, msh=msh[p], **kw)
-        _assert_mesh_parity(acc[p], n_ev[p], lane[p], ref, n_ref, lane_ref)
+                                               amp_out=amp, mesh=m_p,
+                                               msh=msh[p], **kw)
+        if coh:
+            _assert_coherent_parity(acc[p], n_ev[p], ref, n_ref, amp,
+                                    rk.phase_slack(band, kw['adc']),
+                                    lane[p], lane_ref)
+        else:
+            _assert_mesh_parity(acc[p], n_ev[p], lane[p], ref, n_ref,
+                                lane_ref)
 
 
 @pytest.mark.gpu
 def test_mesh_twins_keep_the_grid_stride_kernel(cuda):
-    """The other mesh instantiations keep receive_doppler_kernel<true,
-    ...>: the mesh lobe twin in power and the coherent mesh (no lobes) on
-    the rough-plastic and diffuse meshes, the Doppler mesh through a
-    homogeneous medium, and the Doppler mesh endpoint twin; none launches
-    the mesh Doppler kernel (the launch record; their parity is held by
-    the tests of their configurations)."""
+    """The media and endpoint twins of the mesh configurations keep
+    receive_doppler_kernel<true, ...>: the Doppler mesh and the coherent
+    mesh through a homogeneous medium, and the Doppler mesh endpoint twin;
+    none launches the mesh Doppler kernel (the launch record; their parity
+    is held by the tests of their configurations)."""
     cases = []
-    params, prim, txp, msh, mesh, kw, _, _ = \
-        _k1_emulate().mesh_tables('mesh_rough_plastic_iq', cuda)
-    cases.append(('lobes power', params, prim, txp,
-                  dict(kw, coherent=False, mesh=mesh, msh=msh)))
-    s, rx = mesh_scene(n_side=23)
-    p = rk.pack_scene(s.compile(use_bvh=False, device='cpu'), rx,
-                      s.shape_index_of_endpoint('receiver', rx.id))
-    t = [torch.tensor(a, device=cuda) for a in (p.params, p.prim, p.txp,
-                                                p.msh)]
-    base = dict(adc=rx.adc, max_depth=2, time_sampling='gate',
-                rx_kind='wigner', doppler=True, mesh=p.mesh.to(cuda),
-                msh=t[3])
-    cases.append(('coherent mesh', t[0], t[1], t[2],
-                  dict(base, coherent=True)))
-    s, rx = multi_body_scene()
-    s.medium = scenes.stratified_homogeneous()
-    p = rk.pack_scene(s.compile(use_bvh=False, device='cpu'), rx,
-                      s.shape_index_of_endpoint('receiver', rx.id))
-    assert p.medium > 0
-    cases.append(('doppler mesh media', *(torch.tensor(a, device=cuda)
-                                          for a in (p.params, p.prim,
-                                                    p.txp)),
-                  dict(adc=rx.adc, max_depth=2, time_sampling='gate',
-                       rx_kind='wigner', doppler=True, medium=p.medium,
-                       mesh=p.mesh.to(cuda),
-                       msh=torch.tensor(p.msh, device=cuda))))
+    for coh, (s, rx) in ((False, multi_body_scene()),
+                         (True, mesh_scene(n_side=23))):
+        s.medium = scenes.stratified_homogeneous()
+        p = rk.pack_scene(s.compile(use_bvh=False, device='cpu'), rx,
+                          s.shape_index_of_endpoint('receiver', rx.id))
+        assert p.medium > 0
+        cases.append((f'{"coherent" if coh else "doppler"} mesh media',
+                      *(torch.tensor(a, device=cuda)
+                        for a in (p.params, p.prim, p.txp)),
+                      dict(adc=rx.adc, max_depth=2, time_sampling='gate',
+                           rx_kind='wigner', doppler=True, coherent=coh,
+                           medium=p.medium, mesh=p.mesh.to(cuda),
+                           msh=torch.tensor(p.msh, device=cuda))))
     _, _, params, prim, txp, kw = _ep_tables(cuda, 'phased_tx',
                                              'doppler_mesh')
     cases.append(('doppler mesh endpoints', params, prim, txp, kw))
@@ -770,8 +791,9 @@ def test_mesh_twins_keep_the_grid_stride_kernel(cuda):
         acc, n_ev = rk.receive_megakernel(params, prim, txp, n_lanes=1 << 16,
                                           seed=7, **kw)
         torch.cuda.synchronize()
-        assert not rk.launched_mesh_doppler_kernel(False), what
-        assert not rk.launched_mesh_doppler_kernel(True), what
+        for coh in (False, True):
+            for lob in (False, True):
+                assert not rk.launched_mesh_doppler_kernel(lob, coh), what
         assert bool(torch.isfinite(acc).all()) and int(n_ev) > 0, what
 
 
@@ -2034,10 +2056,10 @@ def test_lobe_kernel_philox_repeats_are_bit_identical(cuda, scene, coherent):
 @pytest.mark.parametrize('coherent', [False, True], ids=['power', 'iq'])
 def test_lobe_scenes_launch_the_lobe_kernel(cuda, coherent):
     """Analytic lobe scenes launch receive_lobe_kernel<COH> (the library's
-    launch record), a mesh lobe scene its LOB instantiation in power and
-    the mesh Doppler kernel in I / Q; the library holds the lobe kernel,
-    no analytic grid-stride lobe twin and, in I / Q, no grid-stride mesh
-    lobe twin (its functions, as `tools/tree_ab.py --sass` reads them)."""
+    launch record), a mesh lobe scene the mesh Doppler kernel <COH, true>;
+    the library holds the lobe kernel and the mesh Doppler kernel's
+    instantiation, and no grid-stride lobe twin, analytic or mesh (its
+    functions, as `tools/tree_ab.py --sass` reads them)."""
     import os
     import sys
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
@@ -2052,15 +2074,15 @@ def test_lobe_scenes_launch_the_lobe_kernel(cuda, coherent):
         torch.cuda.synchronize()
         assert rk.launched_lobe_kernel(coherent) == analytic, scene
         assert rk.launched_lobe_kernel(not coherent) is False
-        assert rk.launched_mesh_doppler_kernel(True) \
-            == (coherent and not analytic), scene
+        assert rk.launched_mesh_doppler_kernel(True, coherent) \
+            == (not analytic), scene
     names = set(tree_ab.sass_of(rk.build_library().path))
     c = int(coherent)
     assert 'receive_coherent_kernel<>' in names, sorted(names)
     assert f'receive_lobe_kernel<{c}>' in names
     assert f'receive_doppler_kernel<0,{c},0,0,1>' not in names
-    assert (f'receive_doppler_kernel<1,{c},0,0,1>' in names) != coherent
-    assert 'receive_mesh_doppler_kernel<1,1>' in names
+    assert f'receive_doppler_kernel<1,{c},0,0,1>' not in names
+    assert f'receive_mesh_doppler_kernel<{c},1>' in names
 
 
 @pytest.mark.gpu

@@ -370,10 +370,12 @@ def test_doppler_power_source_carries_every_stage_tag():
                          'receive_doppler_kernelILb0ELb0ELb1ELb0ELb0E')
 
 
-@pytest.mark.parametrize('config', ['multi_body', 'mesh_lobes_iq'])
+@pytest.mark.parametrize('config', ['multi_body', 'mesh_lobes_iq',
+                                    'mesh_lobes_power', 'coherent_mesh'])
 def test_mesh_masks_sum_to_the_plain_versions_stats(config):
     """The mesh configurations (multi_body in power, the rough-plastic mesh
-    in I / Q, with the main path's direction strata): each stat key's
+    in I / Q and in power, the diffuse mesh in I / Q, with the main path's
+    direction strata): each stat key's
     per-lane counts sum to the plain version's, each walk's recorded slab
     tests and leaves to its node and leaf tests, RAY's walks are the
     depth-0 ones, the walk models' efficiencies lie in (0, 1], and the
@@ -416,9 +418,10 @@ def test_mesh_masks_sum_to_the_plain_versions_stats(config):
 def test_mesh_doppler_source_carries_every_stage_tag():
     """The mesh Doppler kernel's tags: each stage that k1_mix reads lies
     in its body, its walks' own (walk, shadow_walk) among them; the kernel
-    patterns name its two instantiations and the grid-stride ones they
-    replaced, and a listing's walk lines (csrc/bvh_walk.cuh) read as the
-    walk's triangle or node code at the call site's stage."""
+    patterns name its four instantiations and the grid-stride ones they
+    replaced (and no other), and a listing's walk lines
+    (csrc/bvh_walk.cuh) read as the walk's triangle or node code at the
+    call site's stage."""
     src = k1_mix.source_of(ROOT)
     with open(src) as f:
         lines = f.read().splitlines()
@@ -435,11 +438,24 @@ def test_mesh_doppler_source_carries_every_stage_tag():
                                  'Lb0E')),
             (k1_mix.MDK_LOB_KERNEL, ('receive_mesh_doppler_kernelILb1ELb1E',
                                      'receive_doppler_kernelILb1ELb1ELb0E'
-                                     'Lb0ELb1E'))):
+                                     'Lb0ELb1E')),
+            (k1_mix.MDK_POW_LOB_KERNEL,
+             ('receive_mesh_doppler_kernelILb0ELb1E',
+              'receive_doppler_kernelILb1ELb0ELb0ELb0ELb1E')),
+            (k1_mix.MDK_COH_KERNEL, ('receive_mesh_doppler_kernelILb1ELb0E',
+                                     'receive_doppler_kernelILb1ELb1ELb0E'
+                                     'Lb0ELb0E'))):
         for name in names:
             assert re.search(pat, name)
-    assert not re.search(k1_mix.MDK_KERNEL,
-                         'receive_doppler_kernelILb1ELb0ELb0ELb0ELb1E')
+    pats = (k1_mix.MDK_KERNEL, k1_mix.MDK_LOB_KERNEL,
+            k1_mix.MDK_POW_LOB_KERNEL, k1_mix.MDK_COH_KERNEL)
+    for i, pat in enumerate(pats):
+        for j, other in enumerate(pats):
+            for name in other.split('|'):
+                assert bool(re.search(pat, name)) == (i == j), (pat, name)
+    # the media twins are none of them
+    assert not any(re.search(p, 'receive_doppler_kernelILb1ELb1ELb1ELb0E'
+                             'Lb0E') for p in pats)
     tri = k1_mix.walk_triangle_lines(ROOT)
     assert tri[0] > 0 and tri[1] > tri[0]
     walk = next(ln for ln, st in k1_mix.line_stages(src).items()
@@ -450,3 +466,21 @@ def test_mesh_doppler_source_carries_every_stage_tag():
                '\t/*0010*/ FFMA R1, R2, R3, R4 ;\n')
     (op, chain), = k1_mix.parse_functions(listing)['f']
     assert op == 'FFMA' and chain == [-(tri[0] + 2), walk]
+
+
+@pytest.mark.parametrize('config', ['multi_body', 'mesh_lobes_iq',
+                                    'mesh_lobes_power', 'coherent_mesh'])
+def test_clock_reads_each_mesh_configuration_on_its_kernel(config):
+    """k1_clock instruments the mesh Doppler kernel's turns for every mesh
+    configuration of this source (rk_launch launches its instantiation),
+    and the grid-stride body's lanes for a source whose configuration
+    still runs the grid-stride instantiation."""
+    with open(k1_mix.source_of(ROOT)) as f:
+        src = f.read()
+    assert k1_clock.mdk_runs(src, config)
+    out = k1_clock.instrument(src, False, k1_clock.MDK_KERNEL, config)
+    assert 'k1_acc' not in out and 'ck[12] += clock64() - q0;' in out
+    old = src.replace(k1_clock.MDK_LAUNCH[config], 'launch(other')
+    assert not k1_clock.mdk_runs(old, config)
+    out = k1_clock.instrument(old, False, k1_clock.MDK_KERNEL, config)
+    assert 'k1_acc[1][threadIdx.x]' in out

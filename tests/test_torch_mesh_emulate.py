@@ -1,14 +1,16 @@
-"""K1's mesh Doppler kernel (`receive_mesh_doppler_kernel` in
-`csrc/receive_megakernel.cu`: the Doppler mesh in power and the mesh lobe
-twin in I / Q) on the CPU: the source compiled once by g++ against the
-CUDA runtime stub `tools/emu/cuda_runtime.h` (each block as std::threads;
-`tools/k1_emulate.py`) and held against the plain version lane by lane
-with the card's gates on multi_body (with the main path's direction strata
-and without), its 4-pulse CPI and the rough-plastic mesh in I / Q; the
-launch record shows the new kernel ran, its I / Q warp rows repeat bit for
-bit, and the other mesh instantiations (the power mesh lobe twin, the
-coherent mesh, the media twin) keep the grid-stride kernel.
-Skips where g++ is absent."""
+"""K1's mesh Doppler kernel (`receive_mesh_doppler_kernel<COH, LOB>` in
+`csrc/receive_megakernel.cu`: the Doppler mesh and the coherent mesh, the
+mesh lobe twins in power and in I / Q) on the CPU: the source compiled
+once by g++ against the CUDA runtime stub `tools/emu/cuda_runtime.h` (each
+block as std::threads; `tools/k1_emulate.py`) and held against the plain
+version lane by lane with the card's gates on multi_body (with the main
+path's direction strata and without, and in I / Q on its 2-D grid), the
+rough-plastic mesh in I / Q and in power, the diffuse mesh in I / Q with
+strata and without, both on a global grid, and the 4-pulse CPIs of
+multi_body and the coherent mesh; the launch record shows the
+configuration's instantiation ran, its warp rows repeat bit for bit, and
+the media twins keep the grid-stride kernel.  Skips where g++ is
+absent."""
 
 import contextlib
 import os
@@ -29,7 +31,19 @@ from beifong_tpu_torch import scenes  # noqa: E402
 from beifong_tpu_torch.integrators import receive_kernel as rk  # noqa: E402
 
 LANES = 4096
-SCENES = ('mesh_multi_body', 'mesh_multi_body_p0', 'mesh_rough_plastic_iq')
+SCENES = ('mesh_multi_body', 'mesh_multi_body_p0', 'mesh_rough_plastic_iq',
+          'mesh_rough_plastic_power', 'mesh_coherent', 'mesh_coherent_p0',
+          'mesh_multi_body_iq', 'mesh_coherent_global',
+          'mesh_rough_plastic_global')
+
+
+def _record(coherent, lobes):
+    """The launch record shows receive_mesh_doppler_kernel<coherent,
+    lobes> and none of its three other instantiations."""
+    for c in (False, True):
+        for lob in (False, True):
+            assert rk.launched_mesh_doppler_kernel(lob, c) \
+                == ((c, lob) == (coherent, lobes)), (c, lob)
 
 
 @pytest.fixture(scope='module')
@@ -76,8 +90,9 @@ def test_mesh_doppler_kernel_matches_plain_version(emulated, name):
     """Injected uniforms of the lobe draw stride: every lane's sum against
     the plain version's (lane by lane), each cell within 1e-4 x max|acc|
     (I / Q with the phase slack), the same events, the launch record of
-    the configuration's instantiation; a repeat bit for bit on the I / Q
-    warp rows, within REPEAT_TOL on multi_body's block atomics."""
+    the configuration's instantiation; a repeat bit for bit on the warp
+    rows, within REPEAT_TOL on the block's and the global grid's
+    atomics."""
     params, prim, txp, msh, mesh, kw, _, band = k1_emulate.mesh_tables(name)
     coh = kw['coherent']
     gen = torch.Generator().manual_seed(29)
@@ -85,8 +100,8 @@ def test_mesh_doppler_kernel_matches_plain_version(emulated, name):
     u = torch.rand((nd, LANES), generator=gen)
     lane = torch.zeros(LANES)
     acc, ev = _kernel(params, prim, txp, msh, mesh, kw, u, lane)
-    assert rk.launched_mesh_doppler_kernel(coh)
-    assert not rk.launched_mesh_doppler_kernel(not coh)
+    lob = bool(kw['lobes'])
+    _record(coh, lob)
     adc = kw['adc']
     lane_ref = torch.zeros(LANES)
     amp = torch.zeros((adc.n_time, adc.n_freq), dtype=torch.float64)
@@ -97,10 +112,14 @@ def test_mesh_doppler_kernel_matches_plain_version(emulated, name):
     assert int(ev[0]) > 0 and stats['mesh_hits'] > 0
     assert (stats['strata'] > 0) == (kw['patch_p'] > 0)
     _parity(acc, ev[0], lane, ref, n_ref, lane_ref, amp, kw, band, name)
-    if coh:
-        assert stats['rplas_bounce'] > 0 and stats['phase'] > 0
-    else:
-        assert stats['ggx_nee'] > 0 and stats['splat_2d'] > 0
+    assert (stats['phase'] > 0) == coh
+    assert (stats['rplas_bounce'] > 0) == lob
+    assert (stats['ggx_nee'] > 0) == ('multi_body' in name)
+    assert (stats['splat_2d'] > 0) \
+        == ('multi_body' in name or name.endswith('_global'))
+    # a 1-D grid of at most 512 values sums in warp rows
+    assert rk.coherent_warp_rows(adc, coh) \
+        == (adc.n_freq == 1 and kw['adc'].n_time * (1 + coh) <= 512)
     lane2 = torch.zeros(LANES)
     acc2, ev2 = _kernel(params, prim, txp, msh, mesh, kw, u, lane2)
     assert torch.equal(ev, ev2) and torch.equal(lane, lane2)
@@ -113,15 +132,26 @@ def test_mesh_doppler_kernel_matches_plain_version(emulated, name):
 def test_mesh_doppler_cpi_matches_plain_version(emulated):
     """multi_body's 4-pulse CPI in one launch: each pulse lane by lane
     against the plain version on its own tables and uniforms."""
+    _cpi_parity('mesh_multi_body_cpi')
+
+
+def test_coherent_mesh_cpi_matches_plain_version(emulated):
+    """The coherent mesh's 4-pulse CPI in one launch of <true, false>:
+    each pulse lane by lane against the plain version (I / Q with the
+    phase slack)."""
+    _cpi_parity('mesh_coherent_cpi')
+
+
+def _cpi_parity(name):
     params, prim, txp, msh, mesh, kw, n_p, band = \
-        k1_emulate.mesh_tables('mesh_multi_body_cpi')
+        k1_emulate.mesh_tables(name)
     gen = torch.Generator().manual_seed(31)
     nd = rk.n_draws(kw['max_depth'])
     u = torch.rand((n_p, nd, LANES), generator=gen)
     lane = torch.zeros((n_p, LANES))
     acc, ev = _kernel(params, prim, txp, msh, mesh, kw, u, lane,
                       n_pulses=n_p)
-    assert rk.launched_mesh_doppler_kernel()
+    _record(kw['coherent'], False)
     for p in range(n_p):
         lane_ref = torch.zeros(LANES)
         amp = torch.zeros((kw['adc'].n_time, kw['adc'].n_freq),
@@ -131,36 +161,29 @@ def test_mesh_doppler_cpi_matches_plain_version(emulated):
             msh=msh[p], lane_out=lane_ref, amp_out=amp, **kw)
         assert int(ev[p]) > 0
         _parity(acc[p], ev[p], lane[p], ref, n_ref, lane_ref, amp, kw, band,
-                f'multi_body CPI pulse {p}')
+                f'{name} pulse {p}')
 
 
 def test_mesh_twins_keep_the_grid_stride_kernel(emulated):
-    """The power mesh lobe twin and the coherent mesh (no lobes) on the
-    rough-plastic and diffuse meshes and the Doppler mesh through a
-    homogeneous medium each launch receive_doppler_kernel<true, ...> (the
-    launch record): not the mesh Doppler kernel."""
-    params, prim, txp, msh, mesh, kw, _, _ = \
-        k1_emulate.mesh_tables('mesh_rough_plastic_iq')
-    runs = [(params, prim, txp, msh, mesh, dict(kw, coherent=False), {})]
-    s, rx = scenes.mesh_scene(n_side=9)
-    p = rk.pack_scene(s.compile(use_bvh=False, device='cpu'), rx,
-                      s.shape_index_of_endpoint('receiver', rx.id))
-    t = [torch.tensor(a) for a in (p.params, p.prim, p.txp, p.msh)]
-    base = dict(adc=rx.adc, max_depth=2, time_sampling='gate',
-                rx_kind='wigner', doppler=True, receive_type='raw',
-                has_lo=False, mirror=False, patch_p=0)
-    runs.append((*t, p.mesh, dict(base, coherent=True), {}))
-    s, rx = scenes.multi_body_scene()
-    s.medium = scenes.stratified_homogeneous()
-    p = rk.pack_scene(s.compile(use_bvh=False, device='cpu'), rx,
-                      s.shape_index_of_endpoint('receiver', rx.id))
-    assert p.medium > 0
-    t = [torch.tensor(a) for a in (p.params, p.prim, p.txp, p.msh)]
-    runs.append((*t, p.mesh, dict(base, coherent=False),
-                 {'medium': p.medium}))
+    """The media twins of the Doppler mesh (multi_body) and of the
+    coherent mesh (the diffuse mesh) through a homogeneous medium launch
+    receive_doppler_kernel<true, ...> (the launch record): none of the
+    mesh Doppler kernel's instantiations."""
+    base = dict(max_depth=2, time_sampling='gate', rx_kind='wigner',
+                doppler=True, receive_type='raw', has_lo=False,
+                mirror=False, patch_p=0)
+    runs = []
+    for coh, (s, rx) in ((False, scenes.multi_body_scene()),
+                         (True, scenes.mesh_scene(n_side=9))):
+        s.medium = scenes.stratified_homogeneous()
+        p = rk.pack_scene(s.compile(use_bvh=False, device='cpu'), rx,
+                          s.shape_index_of_endpoint('receiver', rx.id))
+        assert p.medium > 0
+        t = [torch.tensor(a) for a in (p.params, p.prim, p.txp, p.msh)]
+        runs.append((*t, p.mesh, dict(base, adc=rx.adc, coherent=coh),
+                     {'medium': p.medium}))
     for params, prim, txp, msh, mesh, kw, extra in runs:
         acc, ev = _kernel(params, prim, txp, msh, mesh, kw, None, None,
                           **extra)
-        assert not rk.launched_mesh_doppler_kernel(False)
-        assert not rk.launched_mesh_doppler_kernel(True)
+        _record(None, None)
         assert bool(torch.isfinite(acc).all())

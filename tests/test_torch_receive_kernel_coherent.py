@@ -3,8 +3,10 @@
 the JAX package's Pallas megakernel (interpret mode) on identical
 uniforms, on golden config 2 (`fmcw_sonar`, power), the FMCW mixer scene
 of tests/test_radar.py (I / Q), a pulse of golden config 3 (I / Q, a
-moving plate) and the flagship (I / Q); the packed tables, LO rows
-included, bit for bit; the scope; and physics anchors of `receive()` on
+moving plate), the flagship (I / Q), the mesh benchmark scene (I / Q: the
+coherent mesh, its BVH walks) and multi_body (I / Q: a moving GGX mesh on
+a 16 x 32 time x Doppler grid); the packed tables, LO rows and mesh
+tables included, bit for bit; the scope; and physics anchors of `receive()` on
 the CPU.  The CUDA kernel is held against the plain version on a card by
 tests/test_torch_gpu.py."""
 
@@ -22,9 +24,9 @@ from beifong_tpu_torch.integrators import receive_kernel as rk
 from beifong_tpu_torch.interop import scene_data_from_numpy
 from beifong_tpu_torch.radar.endpoints import ADCConfig
 
-from test_torch_mesh import jax_leaves, port_band
+from test_torch_mesh import jax_leaves, port_band, twin_scene
 from test_torch_receive_kernel_doppler import _jax_run
-from test_torch_wavefront import _pkg, fmcw_sonar
+from test_torch_wavefront import _pkg, fmcw_sonar, multi_body
 
 torch.set_num_threads(1)
 
@@ -87,14 +89,23 @@ def fmcw_sonar_scene(pkg: str):
     return fmcw_sonar(pkg)
 
 
+def mesh(pkg: str):
+    """The mesh benchmark scene at n_side 9 (162 triangles), diffuse: the
+    port's `scenes.mesh_scene(n_side=9)`."""
+    return twin_scene(pkg)
+
+
 SCENES = {'fmcw_sonar': fmcw_sonar_scene, 'mixer': fmcw_mixer,
-          'pulse_train': pulse_train, 'flagship': flagship}
+          'pulse_train': pulse_train, 'flagship': flagship, 'mesh': mesh,
+          'multi_body': multi_body}
 
 
 CASES = [('fmcw_sonar', 2048, 2, 'fixed', False),
          ('mixer', 2048, 2, 'fixed', True),
          ('pulse_train', 4096, 1, 'gate', True),
-         ('flagship', 2048, 2, 'gate', True)]
+         ('flagship', 2048, 2, 'gate', True),
+         ('mesh', 1024, 2, 'gate', True),
+         ('multi_body', 1024, 2, 'gate', True)]
 
 
 @pytest.mark.parametrize('scene, n_lanes, depth, ts, coherent', CASES,
@@ -139,6 +150,11 @@ def test_plain_version_matches_jax_megakernel(scene, n_lanes, depth, ts,
         assert stats['phase_lo'] == stats['phase']
     else:
         assert stats['lo_freq'] == stats['phase_lo'] == 0
+    if scene in ('mesh', 'multi_body'):
+        # the walks hit the mesh; multi_body's GGX body and 2-D splat
+        assert stats['mesh_hits'] > 0
+        assert (stats['ggx_nee'] > 0 and stats['splat_2d'] > 0) \
+            == (scene == 'multi_body')
     # the CPU wrapper is the plain version, fed the same uniforms
     acc_w, n_w = rk.receive_megakernel(tab['params'], tab['prim'],
                                        tab['txp'], n_lanes=n_lanes,

@@ -228,13 +228,24 @@ def test_sheet_over_plate_matches_jax_megakernel(sheet, coherent):
     assert stats['nee_splat'] > 0
 
 
+def _rough_plastic_mesh_parity(coherent: bool):
+    s, rx = rough_plastic_mesh('jax')
+    stats = parity(s, rx, 1024, 2, coherent)
+    assert stats['rplas_nee'] > 0 and stats['rplas_bounce'] > 0
+    assert stats['mesh_hits'] > 0
+    assert (stats['phase'] > 0) == coherent
+
+
 def test_rough_plastic_mesh_matches_jax_megakernel():
     """The rough plastic on the mesh's shape rows: the lobe twin's mesh
     form, its type and parameters read from the mesh-shape row."""
-    s, rx = rough_plastic_mesh('jax')
-    stats = parity(s, rx, 1024, 2)
-    assert stats['rplas_nee'] > 0 and stats['rplas_bounce'] > 0
-    assert stats['mesh_hits'] > 0
+    _rough_plastic_mesh_parity(False)
+
+
+def test_rough_plastic_mesh_iq_matches_jax_megakernel():
+    """The same mesh lobe twin in I / Q: the echo phase of each connection
+    through the mesh's rough plastic."""
+    _rough_plastic_mesh_parity(True)
 
 
 PACK_SCENES = ('window_thin', 'window_dielectric', 'plastic',

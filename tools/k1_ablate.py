@@ -62,8 +62,12 @@ DPW_SCOPE):
   dpw_rule_raw  RAY's receive frequency not read off the chirp under
                mix_resample (the call's; not exact);
 of the mesh Doppler kernel (receive_mesh_doppler_kernel; time them with
---only multi_body,mesh_lobes_iq):
-  mdk_lb4, mdk_lb5  its blocks an SM, 4 / 5 in place of 6;
+--only multi_body,mesh_lobes_iq,mesh_lobes_power,coherent_mesh):
+  mdk_lb4, mdk_lb5  the blocks an SM of all four instantiations, 4 / 5
+               in place of 6;
+  mdc_lb4, mdc_lb5  the coherent mesh's, <true, false> (coherent_mesh);
+  mdl_lb4, mdl_lb5  the power mesh lobe twin's, <false, true>
+               (mesh_lobes_power);
   mdk_queue    the warp's walk queue: its shadow rays and its rays'
                closest hits walked one node a step by its threads, a
                thread whose walk ends taking the next (Aila and Laine's
@@ -182,10 +186,19 @@ for _n in (5, 6):
 for _n in (4, 5):
     ABLATIONS[f'dpw_lb{_n}'] = (('constexpr int DPW_MIN_BLOCKS = 6;',
                                  f'constexpr int DPW_MIN_BLOCKS = {_n};'),)
-# the mesh Doppler kernel's blocks an SM, 4 / 5 in place of 6
+# the mesh Doppler kernel's blocks an SM, 4 / 5 in place of 6: of all
+# four instantiations (mdk_), of the coherent mesh <true, false> alone
+# (mdc_) and of the power mesh lobe twin <false, true> alone (mdl_)
 for _n in (4, 5):
     ABLATIONS[f'mdk_lb{_n}'] = (('constexpr int MDK_MIN_BLOCKS = 6;',
                                  f'constexpr int MDK_MIN_BLOCKS = {_n};'),)
+    for _k, _f in (('mdc', 'COH && !LOB'), ('mdl', '!COH && LOB')):
+        ABLATIONS[f'{_k}_lb{_n}'] = ((
+            'template <bool COH, bool LOB>\n__global__ void '
+            '__launch_bounds__(COH_THREADS, MDK_MIN_BLOCKS)\n',
+            'template <bool COH, bool LOB>\n__global__ void '
+            f'__launch_bounds__(COH_THREADS, {_f} ? {_n} : MDK_MIN_BLOCKS)'
+            '\n'),)
 ABLATIONS['dpw_freq_call'] = (
     ('    const bool f_call = r0 == 1 && (cfg.gate || cfg.rule == 0);',
      '    const bool f_call = true;'),

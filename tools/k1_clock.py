@@ -24,11 +24,14 @@ with each thread's cycles in SHADE's grid splat (the block's or the
 global grid's atomics) read inside it; in a tree before that kernel the
 grid-stride instantiation's per-thread stage cycles instead.  The
 mesh Doppler kernel (receive_mesh_doppler_kernel) runs multi_body (the
-Doppler mesh in power) and mesh_lobes_iq (the rough-plastic mesh_scene in
-I / Q) at 2^24 lanes, depth 2, with the main path's direction strata,
-reading inside its turns each thread's cycles in the closest-hit walks
-(the trace after RAY and after SHADE), in NEE's shadow walk and in the
-block's grid splat; in a tree before it the grid-stride instantiation's
+Doppler mesh in power), mesh_lobes_iq and mesh_lobes_power (the
+rough-plastic mesh_scene in I / Q and in power) and coherent_mesh (the
+diffuse mesh_scene in I / Q) at 2^24 lanes, depth 2, with the main path's
+direction strata, reading inside its turns each thread's cycles in the
+closest-hit walks (the trace after RAY and after SHADE), in NEE's shadow
+walk and in the block's power grid splat; in a tree whose configuration
+runs the grid-stride instantiation (before the mesh Doppler kernel, or
+before its instantiation for that configuration) that instantiation's
 per-thread cycles in its lanes, their closest-hit walks, shadow walks
 and grid splats.
 
@@ -75,7 +78,14 @@ KERNELS = {'flagship': 'receive_flagship_kernel',
            'range_doppler': 'receive_doppler_power_kernel',
            'fmcw_sonar': 'receive_doppler_power_kernel',
            'multi_body': 'receive_mesh_doppler_kernel',
-           'mesh_lobes_iq': 'receive_mesh_doppler_kernel'}
+           'mesh_lobes_iq': 'receive_mesh_doppler_kernel',
+           'mesh_lobes_power': 'receive_mesh_doppler_kernel',
+           'coherent_mesh': 'receive_mesh_doppler_kernel'}
+# the mesh Doppler kernel's instantiation of each mesh configuration, as
+# rk_launch launches it in a tree that has it
+MDK_LAUNCH = {c: f'launch(receive_mesh_doppler_kernel<{f}>' for c, f in (
+    ('multi_body', 'false, false'), ('mesh_lobes_iq', 'true, true'),
+    ('mesh_lobes_power', 'false, true'), ('coherent_mesh', 'true, false'))}
 SPLAT_CALL = {
     'receive_flagship_kernel':
         '        if (shade) {\n            // [k1 stage: splat]\n'
@@ -441,13 +451,22 @@ def _patch_body(s: str, head: str, patch) -> str:
     return s[:a] + body + s[b:]
 
 
+def mdk_runs(s: str, config: str) -> bool:
+    """Whether the receive kernel's source `s` runs a mesh configuration
+    (MDK_LAUNCH) on the mesh Doppler kernel, not on the grid-stride
+    instantiation."""
+    return MDK_KERNEL + '(const float' in s and MDK_LAUNCH[config] in s
+
+
 def instrument(s: str, splat: bool = False,
-               kernel: str = 'receive_flagship_kernel') -> str:
+               kernel: str = 'receive_flagship_kernel',
+               config: str | None = None) -> str:
     """The receive kernel's source `s` with the clock reads added to the
-    warp loop of `kernel`; each anchor must appear exactly once (the
-    loop's within the kernel's body)."""
-    if kernel == MDK_KERNEL and kernel + '(const float' not in s:
-        # a tree before the mesh Doppler kernel: its grid-stride body
+    warp loop of `kernel` (of `config`'s instantiation: a mesh
+    configuration's); each anchor must appear exactly once (the loop's
+    within the kernel's body)."""
+    if kernel == MDK_KERNEL and not mdk_runs(s, config or 'multi_body'):
+        # a tree whose configuration runs the grid-stride body
         return instrument_grid(s, MESH_GRID_PATCH)
     if kernel in EP_KERNELS + (DPW_KERNEL,) \
             and kernel + '(const float' not in s:
@@ -494,14 +513,15 @@ def instrument(s: str, splat: bool = False,
 
 
 def instrumented_copy(root: str, splat: bool = False,
-                      kernel: str = 'receive_flagship_kernel') -> str:
+                      kernel: str = 'receive_flagship_kernel',
+                      config: str | None = None) -> str:
     """DIR's package with `kernel` instrumented under _build/k1_clock/;
     a copy of the same tree and instrumentation (and its library) is
     kept."""
     dst = os.path.join(HERE, 'beifong_tpu_torch', '_build', 'k1_clock')
     with open(os.path.join(root, 'beifong_tpu_torch', 'csrc',
                            'receive_megakernel.cu')) as f:
-        text = instrument(f.read(), splat, kernel)
+        text = instrument(f.read(), splat, kernel, config)
     src = os.path.join(dst, 'beifong_tpu_torch', 'csrc',
                        'receive_megakernel.cu')
     tag = os.path.join(dst, 'tree')
@@ -527,8 +547,8 @@ def run(tree: str, config: str = 'flagship') -> dict:
     from beifong_tpu_torch.integrators import receive_kernel as rk
     assert rk.__file__.startswith(tree)
     dev = torch.device('cuda')
-    if config.startswith('ep_') or config in ('range_doppler', 'fmcw_sonar',
-                                              'multi_body', 'mesh_lobes_iq'):
+    if config.startswith('ep_') or config in ('range_doppler', 'fmcw_sonar') \
+            or config in MDK_LAUNCH:
         return run_ep(tree, config, rk, scenes, dev)
     s, rx = {'flagship': scenes.flagship_scene,
              'pulse_train': lambda: scenes.pulse_train_scene(0),
@@ -589,7 +609,7 @@ def run_ep(tree: str, config: str, rk, scenes, dev) -> dict:
     import torch
     sys.path.insert(0, os.path.join(HERE, 'tools'))
     import tree_ab
-    mdk = config in ('multi_body', 'mesh_lobes_iq')
+    mdk = config in MDK_LAUNCH
     dpw = not config.startswith('ep_') and not mdk
     params, prim, txp, kw = (tree_ab.mesh_doppler_call if mdk
                              else tree_ab.doppler_power_call if dpw
@@ -614,9 +634,12 @@ def run_ep(tree: str, config: str, rk, scenes, dev) -> dict:
                           text=True).stdout.strip()
     out = {'card': card, 'config': config,
            'instrumented_ms': a.elapsed_time(b)}
-    if not hasattr(rk, 'launched_mesh_doppler_kernel' if mdk
-                   else 'launched_doppler_power_kernel' if dpw
-                   else 'launched_endpoint_kernel'):
+    with open(os.path.join(tree, 'beifong_tpu_torch', 'csrc',
+                           'receive_megakernel.cu')) as f:
+        grid_stride = not mdk_runs(f.read(), config) if mdk else \
+            not hasattr(rk, 'launched_doppler_power_kernel' if dpw
+                        else 'launched_endpoint_kernel')
+    if grid_stride:
         lane = max(1, v[0])
         names = MESH_GRID_NAMES if mdk else GRID_NAMES
         out.update(kernel='grid-stride twin',
@@ -655,7 +678,8 @@ def main() -> int:
         del argv[i:i + 2]
     args = [a for a in argv if a != '--splat']
     root = os.path.abspath(args[0] if args else HERE)
-    tree = instrumented_copy(root, '--splat' in argv, KERNELS[config])
+    tree = instrumented_copy(root, '--splat' in argv, KERNELS[config],
+                             config)
     res = subprocess.run([sys.executable, os.path.abspath(__file__),
                           '--child', tree, config], capture_output=True,
                          text=True)

@@ -36,9 +36,13 @@ on a global grid and with a GGX plate, a pulse of config 3 on warp rows,
 and the corner's 4-pulse CPI of mirror chains) run the analytic Doppler
 power configuration: `--cases dop_range_doppler,...`.  The mesh
 scenes (MESH_CASES: multi_body in power with the main path's direction
-strata and without, its 4-pulse CPI, and the rough-plastic mesh in I / Q)
-run the mesh Doppler kernel's two configurations (the Doppler mesh power
-and the mesh lobe twin in I / Q): `--cases mesh_multi_body,...`.
+strata and without, its 4-pulse CPI, multi_body in I / Q (its 16 x 32
+grid in the block's floats), the rough-plastic mesh in I / Q and in
+power, the diffuse mesh in I / Q with strata and without, its 4-pulse
+CPI, and the diffuse mesh in I / Q and the rough-plastic one in power on
+a global grid of 64 x 300 cells) run the mesh Doppler kernel's four configurations (the Doppler mesh
+in power, the coherent mesh, the power mesh lobe twin and the mesh lobe
+twin in I / Q): `--cases mesh_multi_body,...`.
 """
 
 from __future__ import annotations
@@ -156,19 +160,41 @@ DOP_CASES = {'dop_range_doppler': ('range_doppler_scene', (0,), {}, 2,
              'dop_corner_cpi': ('corner_scene', (), {}, 4, 'fixed', 4)}
 
 
-# the mesh Doppler kernel's scenes: (scenes' function and arguments,
+# the mesh Doppler kernel's scenes: (scenes' function and its keywords,
 # coherent, depth, time sampling, pulses, direction strata P): multi_body
-# in power (its GGX body moving) with the main path's strata and without,
-# its 4-pulse CPI, and the rough-plastic mesh in I / Q (23 x 23 vertices:
+# (its GGX body moving) in power with the main path's strata and without,
+# its 4-pulse CPI, and in I / Q (the 2-D coherent grid); the rough-plastic
+# mesh in I / Q and in power, and the diffuse mesh in I / Q (the coherent
+# mesh) with strata and without and its 4-pulse CPI (23 x 23 vertices:
 # 968 triangles, the main path's surface at a tenth of its faces)
-MESH_CASES = {'mesh_multi_body': ('multi_body_scene', (), False, 2, 'gate',
+ROUGH = dict(n_side=23, material='rough_plastic')
+MESH_CASES = {'mesh_multi_body': ('multi_body_scene', {}, False, 2, 'gate',
                                   1, 32),
-              'mesh_multi_body_p0': ('multi_body_scene', (), False, 2,
+              'mesh_multi_body_p0': ('multi_body_scene', {}, False, 2,
                                      'gate', 1, 0),
-              'mesh_multi_body_cpi': ('multi_body_scene', (), False, 2,
+              'mesh_multi_body_cpi': ('multi_body_scene', {}, False, 2,
                                       'gate', 4, 16),
-              'mesh_rough_plastic_iq': ('mesh_scene', (),
-                                        True, 2, 'gate', 1, 32)}
+              'mesh_multi_body_iq': ('multi_body_scene', {}, True, 2,
+                                     'gate', 1, 32),
+              'mesh_rough_plastic_iq': ('mesh_scene', ROUGH, True, 2, 'gate',
+                                        1, 32),
+              'mesh_rough_plastic_power': ('mesh_scene', ROUGH, False, 2,
+                                           'gate', 1, 32),
+              'mesh_coherent': ('mesh_scene', dict(n_side=23), True, 2,
+                                'gate', 1, 32),
+              'mesh_coherent_p0': ('mesh_scene', dict(n_side=23), True, 2,
+                                   'gate', 1, 0),
+              'mesh_coherent_cpi': ('mesh_scene', dict(n_side=23), True, 2,
+                                    'gate', 4, 16),
+              'mesh_coherent_global': ('mesh_scene', dict(n_side=23), True,
+                                       2, 'gate', 1, 32),
+              'mesh_rough_plastic_global': ('mesh_scene', ROUGH, False, 2,
+                                            'gate', 1, 32)}
+# the ADC changes of a mesh case: 300 frequency bins put the coherent
+# mesh's and the power mesh lobe twin's grids past the block's shared
+# memory, into the global float64 grid (mode 2)
+MESH_ADC = {'mesh_coherent_global': dict(n_freq=300),
+            'mesh_rough_plastic_global': dict(n_freq=300)}
 
 
 def mesh_tables(name: str, device='cpu'):
@@ -178,10 +204,12 @@ def mesh_tables(name: str, device='cpu'):
     import torch
     from beifong_tpu_torch import scenes as S
     from beifong_tpu_torch.integrators import receive_kernel as rk
-    fn, args, coh, depth, ts, n_p, patch_p = MESH_CASES[name]
-    kw_s = dict(n_side=23, material='rough_plastic') \
-        if fn == 'mesh_scene' else {}
-    s, rx = getattr(S, fn)(*args, **kw_s)
+    fn, kw_s, coh, depth, ts, n_p, patch_p = MESH_CASES[name]
+    s, rx = getattr(S, fn)(**kw_s)
+    if name in MESH_ADC:
+        rx = dataclasses.replace(
+            rx, adc=dataclasses.replace(rx.adc, **MESH_ADC[name]))
+        s.receivers[0] = rx
     if n_p > 1:
         p, rx, _ = rk.pack_cpi(s, n_p, 10.0)
     else:

@@ -103,6 +103,12 @@ MDK_KERNEL = (r'receive_doppler_kernelILb1ELb0ELb0ELb0ELb0E|'
               r'receive_mesh_doppler_kernelILb0ELb0E')
 MDK_LOB_KERNEL = (r'receive_doppler_kernelILb1ELb1ELb0ELb0ELb1E|'
                   r'receive_mesh_doppler_kernelILb1ELb1E')
+# the power mesh lobe twin and the coherent mesh: the grid-stride
+# instantiations or the mesh Doppler kernel's that replaced them
+MDK_POW_LOB_KERNEL = (r'receive_doppler_kernelILb1ELb0ELb0ELb0ELb1E|'
+                      r'receive_mesh_doppler_kernelILb0ELb1E')
+MDK_COH_KERNEL = (r'receive_doppler_kernelILb1ELb1ELb0ELb0ELb0E|'
+                  r'receive_mesh_doppler_kernelILb1ELb0E')
 CONFIGS = {'flagship': dict(depth=DEPTH, ts='gate', lanes=MAIN_LANES,
                             kernel=KERNEL),
            'range_doppler': dict(depth=2, ts='gate', lanes=1 << 24,
@@ -130,7 +136,11 @@ CONFIGS = {'flagship': dict(depth=DEPTH, ts='gate', lanes=MAIN_LANES,
            'multi_body': dict(depth=2, ts='gate', lanes=1 << 24,
                               kernel=MDK_KERNEL),
            'mesh_lobes_iq': dict(depth=2, ts='gate', lanes=1 << 24,
-                                 kernel=MDK_LOB_KERNEL)}
+                                 kernel=MDK_LOB_KERNEL),
+           'mesh_lobes_power': dict(depth=2, ts='gate', lanes=1 << 24,
+                                    kernel=MDK_POW_LOB_KERNEL),
+           'coherent_mesh': dict(depth=2, ts='gate', lanes=1 << 24,
+                                 kernel=MDK_COH_KERNEL)}
 # the endpoint configurations: (scenes' function, coherent)
 EP_SCENES = {'ep_phased_tx': ('phased_tx_scene', False),
              'ep_phased_rx': ('phased_rx_scene', False),
@@ -140,10 +150,12 @@ EP_SCENES = {'ep_phased_tx': ('phased_tx_scene', False),
 LOBE_COHERENT = {'window_thin': False, 'window_dielectric': True}
 # the analytic Doppler power configurations
 DPW_CONFIGS = ('range_doppler', 'fmcw_sonar')
-# the mesh configurations, and whether each is the I / Q lobe twin: the
-# Doppler mesh on multi_body, the rough-plastic mesh_scene in I / Q; their
-# lanes take the main path's direction strata (patch_p_for of its lanes)
-MESH_COHERENT = {'multi_body': False, 'mesh_lobes_iq': True}
+# the mesh configurations, and whether each is in I / Q: the Doppler mesh
+# on multi_body, the rough-plastic mesh_scene in I / Q and in power, the
+# diffuse mesh_scene in I / Q; their lanes take the main path's direction
+# strata (patch_p_for of its lanes)
+MESH_COHERENT = {'multi_body': False, 'mesh_lobes_iq': True,
+                 'mesh_lobes_power': False, 'coherent_mesh': True}
 # the BVH walks of a mesh lane: RAY's first hit (depth 0), a bounce's
 # closest hit (depth > 0), NEE's any hit
 WALKS = ('ray', 'bounce', 'shadow')
@@ -161,7 +173,7 @@ BOOKKEEPING = ('sched', 'lane', 'block')
 # endpoint kernels held to six blocks an SM with 64 cells an axis (the
 # grid-stride twins before them 2,194.4, 4,377.7, 4,716.2, 3,329.6); the
 # mesh configurations', the mesh Doppler kernel (the grid-stride
-# instantiations before it 2,601.4, 2,295.0)
+# instantiations before it 2,601.4, 2,295.0, 2,252.4, 2,196.9)
 LEAST_STAGE_INSTRUCTIONS = {'flagship': 2399.0, 'pulse_train': 2341.9,
                             'dechirp': 1639.5, 'corner': 3462.6,
                             'window_thin': 3461.6,
@@ -169,7 +181,9 @@ LEAST_STAGE_INSTRUCTIONS = {'flagship': 2399.0, 'pulse_train': 2341.9,
                             'ep_phased_tx': 1545.0, 'ep_phased_rx': 3638.7,
                             'ep_four_tx': 4014.8,
                             'ep_phased_tx_coh': 2336.7,
-                            'multi_body': 2316.9, 'mesh_lobes_iq': 1992.6}
+                            'multi_body': 2316.9, 'mesh_lobes_iq': 1992.6,
+                            'mesh_lobes_power': 1996.8,
+                            'coherent_mesh': 1965.5}
 
 # the stages of a flagship lane and the plain version's stat key that counts
 # the entries of each ('rect' and 'occ' per rectangle tested)
@@ -250,8 +264,10 @@ def scene_of(config: str):
         return scenes.window_corner_scene(config[len('window_'):])
     if config == 'multi_body':
         return scenes.multi_body_scene()
-    if config == 'mesh_lobes_iq':
+    if config in ('mesh_lobes_iq', 'mesh_lobes_power'):
         return scenes.mesh_scene(material='rough_plastic')
+    if config == 'coherent_mesh':
+        return scenes.mesh_scene()
     if config == 'flagship':
         return scenes.flagship_scene()
     if config == 'pulse_train':

@@ -30,9 +30,10 @@ analytic endpoint kernels, or in a tree before them the grid-stride
 twins), the analytic Doppler power configuration on golden config 2
 (fmcw_sonar: mix_resample, 2^24 Philox lanes, depth 2, fixed sampling,
 with a hash of its result, as the range-Doppler pulse above), the mesh
-Doppler kernel's second path, the rough-plastic mesh_scene in I / Q
-(mesh_lobes_iq: 2^24 Philox lanes, depth 2, gate, the main path's
-direction strata; with multi_body above, a hash of each result), K4's
+Doppler kernel's other paths, the rough-plastic mesh_scene in I / Q and
+in power (mesh_lobes_iq, mesh_lobes_power: 2^24 Philox lanes, depth 2,
+gate, the main path's direction strata; with multi_body and the coherent
+mesh above, a hash of each result), K4's
 closest-hit and
 shadow kernels at chip_smoke.K4_SHAPES (the wavefront's 2^17 rays x 324
 faces, the query's 2^18 x 10,082 and 2^17 x 968: twenty calls queued
@@ -49,7 +50,8 @@ ratio this / other, the pairs this tree won, and the host times.
 
 times DIR2 in place of this tree, and only the named configurations
 (comma-separated; an ablation's pairs need only the flagship; the mesh
-Doppler kernel's are multi_body and mesh_lobes_iq; the lobe
+Doppler kernel's are multi_body, coherent_mesh, mesh_lobes_iq and
+mesh_lobes_power; the lobe
 twins' are window_thin, window_dielectric, lobe_plastic,
 lobe_rough_plastic, lobe_rough_dielectric, lobe_through,
 lobe_through_iq, lobe_blend, lobe_mask and window_cpi; the endpoint
@@ -130,9 +132,18 @@ EP_PATHS = {'ep_phased_tx': ('phased_tx_scene', False),
             'ep_phased_tx_coh': ('phased_tx_scene', True)}
 EP_LANES = 1 << 24
 EP_DEPTH = 2
-# the mesh Doppler kernel's path timed beside multi_body: the mesh lobe
-# twin in I / Q on the rough-plastic mesh_scene
-MDK_PATHS = ('mesh_lobes_iq',)
+# the mesh Doppler kernel's paths timed beside multi_body and the coherent
+# mesh: the mesh lobe twins in I / Q and in power on the rough-plastic
+# mesh_scene
+MDK_PATHS = ('mesh_lobes_iq', 'mesh_lobes_power')
+# each mesh Doppler kernel path's scene: (scenes' function, its keywords,
+# coherent)
+MDK_SCENES = {'multi_body': ('multi_body_scene', {}, False),
+              'coherent_mesh': ('mesh_scene', {}, True),
+              'mesh_lobes_iq': ('mesh_scene', {'material': 'rough_plastic'},
+                                True),
+              'mesh_lobes_power': ('mesh_scene',
+                                   {'material': 'rough_plastic'}, False)}
 # the analytic Doppler power scenes timed here beside range_doppler:
 # (scenes' function, time sampling)
 DPW_PATHS = {'fmcw_sonar': ('fmcw_sonar_scene', 'fixed')}
@@ -167,12 +178,10 @@ def mesh_doppler_call(rk, scenes, name: str, dev):
     """(params, prim, txp, keyword arguments) of receive_megakernel on the
     mesh Doppler kernel's paths at chip_smoke.py's shapes (2^24 Philox
     lanes, depth 2, gate, the main path's strata), in the imported tree:
-    multi_body in power, or (MDK_PATHS) the rough-plastic mesh_scene's
-    lobe twin in I / Q."""
+    a scene of MDK_SCENES."""
     import torch
-    coh = name in MDK_PATHS
-    s, rx = scenes.mesh_scene(material='rough_plastic') if coh \
-        else scenes.multi_body_scene()
+    fn, kw_s, coh = MDK_SCENES[name]
+    s, rx = getattr(scenes, fn)(**kw_s)
     p = rk.pack_scene(s.compile(use_bvh=False, device='cpu'), rx,
                       s.shape_index_of_endpoint('receiver', rx.id))
     params, prim, txp = (torch.tensor(a, device=dev)
@@ -356,7 +365,7 @@ def child(root: str, only: tuple = NAMES) -> dict:
             lambda i: rk.receive_megakernel(params, prim, txp, **kw),
             CALLS + 1)
         out[f'{name}_ms'] = ms[1:]
-        if name in ('range_doppler', 'multi_body'):
+        if name in ('range_doppler', 'multi_body', 'coherent_mesh'):
             acc, n_ev = rk.receive_megakernel(params, prim, txp, **kw)
             out[f'{name}_sha'] = hashlib.sha1(
                 acc.cpu().numpy().tobytes()
