@@ -40,7 +40,11 @@
 // (receive_endpoint_kernel, receive_endpoint_coherent_kernel, below: the
 // flagship's and the coherent kernel's warp wavefronts, and a footprint
 // index over each phased array's pairs); the mesh twins and the Doppler
-// power twin run the EP instantiations of the block body.
+// power twin run the EP instantiations of the block body.  The vacuum mesh
+// configuration in power and the vacuum MIMO configuration run kernels of
+// their own too (receive_mesh_kernel and receive_mimo_array_kernel, below:
+// the flagship's and the coherent kernel's warp wavefronts); their media
+// and endpoint twins run the block body.
 // The Doppler family's four vacuum configurations have a lobe twin (the
 // mesh ones receive_mesh_doppler_kernel<COH, true>, the analytic ones
 // receive_lobe_kernel<COH>, below; the
@@ -255,8 +259,8 @@ constexpr float TX_PHASED = 1.0f;
 constexpr float TX_AREA = 2.0f;
 constexpr int MAX_TX = 4;
 constexpr int DOP_THREADS = 128;   // threads per block, Doppler config
-// The MIMO kernel's blocks an SM: at 4 it fits 127 registers with no
-// spill; 3 and 2 give it 137 and 139 (ptxas on the H100, PERF.md)
+// The MIMO twins' blocks an SM: at 4 they fit 127 registers with no
+// spill; 3 and 2 give them 137 and 139 (ptxas on the H100, PERF.md)
 constexpr int MIMO_MIN_BLOCKS = 4;
 // receive-frequency rules (receive_kernel.py RX_*)
 constexpr int RX_MIX = 1;
@@ -8121,8 +8125,1233 @@ receive_mesh_doppler_kernel(const float* __restrict__ params,
     }
 }
 
-// The MIMO configuration: the coherent one of a phased array on analytic
-// scenes, in 128-thread blocks of its own launch bounds.
+// ---- the mesh kernel: the flagship's turns with the BVH walks -------------
+//
+// The mesh configuration in power (a static scene of diffuse rectangles
+// and triangle meshes, one Wigner transmitter, a Wigner or omni receiver,
+// vacuum, mode 0; receive_trace_kernel<true, false, false> before) runs a
+// kernel of its own on the flagship kernel's turns.  Its lane is
+// trace_lane's mesh path, operation by operation, and what differs is
+// which thread runs which part of which lane, and when (PERF.md):
+//  - A wavefront inside each warp: the flagship kernel's pool of
+//    FLAG_POOL paths, its turns (SHADE over 32 waiting paths, else RAY
+//    over the warp's next 32 lanes, each tracing the rays it makes), its
+//    draws a stage at a time (flag_draws5, the pulse read at use) and its
+//    tables (the rectangles as float4 records, the shadowing rectangles'
+//    list, the Wigner receiver's constants).
+//  - The walks.  Each turn's trace runs the closest-hit walk of the BVH
+//    (bvh::walk with MeshClosest<false>, pruned by the analytic best)
+//    after the rectangles, and SHADE's NEE the any-hit walk (bvh::Any,
+//    behind the shadowing rectangles) on the pulse's tables in device
+//    memory behind the read-only path, as the grid-stride body walks
+//    them.  RAY's walks are coherent: a turn's 32 lanes are consecutive,
+//    so they share a 1024-lane tile's direction stratum.
+//  - The direction strata: RAY takes the tile's cell of the P x P grid
+//    (trace_lane's expressions) where the call has them.
+//  - The slot: a path waits in MSK_SLOT floats, the flagship's 16 (its
+//    free two floats now the lane's sum) and a triangle hit's unit normal
+//    and reflectance; the hit's code is its rectangle (>= 0) or -1 (a
+//    triangle).
+//  - The splat: the 1-D grid goes to the warp's row of n_time doubles,
+//    each bin summed in lane order (pow_splat_rows): no atomics, and
+//    repeats are bit-identical, as the grid-stride body's private tent
+//    rows were.  Each lane's sum goes to lane_val where its path ends.
+// The packed tables, the positional draws, the tent, the partial rows,
+// the reduce and the CPI's pulse axis (blockIdx.y, as the flagship's) are
+// the other configurations'.  The tags "[k1 stage: ...]" name each stage
+// for tools/k1_mix.py (walk: the closest-hit walks, shadow_walk: NEE's
+// any-hit walk).
+constexpr int MSK_SLOT = 20;        // floats a path: five float4s
+// Blocks an SM the mesh kernel is held to (PERF.md)
+constexpr int MSK_MIN_BLOCKS = 6;
+
+// Shared bytes of one warp's area: its paths of MSK_SLOT floats, a turn's
+// slots, the splat's staging (two taps a lane, each lane's first bin),
+// then its row of n_time doubles.
+__host__ __device__ constexpr int msk_row_offset() {
+    return 4 * (FLAG_POOL * MSK_SLOT + 32 + 96);
+}
+__host__ __device__ constexpr int msk_warp_bytes(int n_time) {
+    return (msk_row_offset() + 8 * n_time + 15) & ~15;
+}
+
+__global__ void __launch_bounds__(FLAG_THREADS, MSK_MIN_BLOCKS)
+receive_mesh_kernel(const float* __restrict__ params,
+                    const float* __restrict__ prim,
+                    const float* __restrict__ txp,
+                    const float* __restrict__ msh,
+                    const float* __restrict__ uniforms, bvh::Tables mesh,
+                    float* __restrict__ lane_val,
+                    double* __restrict__ partial,
+                    unsigned long long* __restrict__ part_ev, Cfg cfg) {
+    extern __shared__ float4 ksm[];
+    const int T = blockDim.x, tid = threadIdx.x, j = tid & 31;
+    const long long pulse = blockIdx.y;
+    const int np = cfg.n_prims;
+    params += pulse * cfg.n_params;
+    prim += pulse * np * PRIM_COLS;
+    txp += pulse * TXP_COLS;
+    float4* s_rec = ksm;
+    float4* s_blk = s_rec + FLAG_REC * np;
+    float* s_par = reinterpret_cast<float*>(s_blk + 3 * np);
+    float* s_tx = s_par + cfg.n_params;      // its row, then its unit normal
+    float* s_rxc = s_tx + TXP_COLS + 4;      // the receiver's constants
+    float* s_prim = s_rxc + FLAG_RXC;
+    int* s_cnt = reinterpret_cast<int*>(s_prim + np * PRIM_COLS);
+    char* s_warps = reinterpret_cast<char*>(ksm)
+                    + flag_table_bytes(np, cfg.n_params);
+    const int wbytes = msk_warp_bytes(cfg.n_time);
+    float* w_slots = reinterpret_cast<float*>(s_warps + (tid >> 5) * wbytes);
+    int* w_take = reinterpret_cast<int*>(w_slots + FLAG_POOL * MSK_SLOT);
+    float* w_vals = reinterpret_cast<float*>(w_take + 32);
+    double* w_row = reinterpret_cast<double*>(
+        reinterpret_cast<char*>(w_slots) + msk_row_offset());
+
+    for (int i = tid; i < cfg.n_params; i += T) s_par[i] = params[i];
+    for (int i = tid; i < TXP_COLS; i += T) s_tx[i] = txp[i];
+    for (int i = tid; i < np * PRIM_COLS; i += T) s_prim[i] = prim[i];
+    for (int i = j; i < cfg.n_time; i += 32) w_row[i] = 0.0;
+    __syncthreads();
+    if (tid == 0) {
+        // the rectangles in prim order, and those that can shadow an NEE
+        // (the transmitter's own, tx index 0 in column 14, never does)
+        int nr = 0, nb = 0;
+        for (int p = 0; p < np; ++p) {
+            const float* row = s_prim + p * PRIM_COLS;
+            if ((int)row[0] != RECTANGLE) continue;
+            const float* q = row + 1;
+            float rnorm = rsqrtf(fmaxf(q[8] * q[8] + q[9] * q[9]
+                                       + q[10] * q[10], F(1e-20)));
+            float4* r = s_rec + FLAG_REC * nr++;
+            r[0] = make_float4(q[0], q[1], q[2], q[3]);
+            r[1] = make_float4(q[4], q[5], q[6], q[7]);
+            r[2] = make_float4(q[8], q[9], q[10], q[11]);
+            r[3] = make_float4(q[8] * rnorm, q[9] * rnorm, q[10] * rnorm,
+                               row[13]);
+            r[4] = make_float4(row[14], 0.0f, 0.0f, 0.0f);
+            if (row[14] != 0.0f) {
+                float4* b = s_blk + 3 * nb++;
+                b[0] = r[0];
+                b[1] = r[1];
+                b[2] = r[2];
+            }
+        }
+        s_cnt[0] = nr;
+        s_cnt[1] = nb;
+        const float* m = s_tx;
+        float tnn = rsqrtf(fmaxf(m[2] * m[2] + m[6] * m[6] + m[10] * m[10],
+                                 F(1e-20)));
+        s_tx[TXP_COLS] = m[2] * tnn;
+        s_tx[TXP_COLS + 1] = m[6] * tnn;
+        s_tx[TXP_COLS + 2] = m[10] * tnn;
+        // the Wigner receiver's frame and lobe mixture, trace_lane's
+        // expressions: they depend on the tables alone
+        const float* rxm = s_par + 2;
+        const float rx_wx = s_par[14], rx_wy = s_par[15];
+        float nzx = rxm[2], nzy = rxm[6], nzz = rxm[10];
+        float nn = rsqrtf(nzx * nzx + nzy * nzy + nzz * nzz);
+        nzx = nzx * nn;
+        nzy = nzy * nn;
+        nzz = nzz * nn;
+        float lam0 = s_par[1] / fmaxf(cfg.f_rx, F(1e-6));
+        float w_mn = fminf(rx_wx, rx_wy);
+        float q = 2.0f * w_mn / (F(0.6) * lam0);
+        float k_l = fmaxf(2.0f * (q * q) - 2.0f, 0.0f);
+        float sign = sgn_ge(nzz);
+        float a = -1.0f / (sign + nzz);
+        float b = nzx * nzy * a;
+        float* rc = s_rxc;
+        rc[0] = nzx;
+        rc[1] = nzy;
+        rc[2] = nzz;
+        rc[3] = 4.0f * rx_wx * rx_wy;                         // area
+        rc[4] = k_l;
+        rc[5] = k_l + 1.0f;
+        rc[6] = 0.5f * (k_l + 1.0f) * F(1.0 / 6.283185307179586);
+        rc[7] = lam0;
+        rc[8] = 1.0f + sign * nzx * nzx * a;                  // s1
+        rc[9] = sign * b;
+        rc[10] = -sign * nzx;
+        rc[11] = b;                                           // s2
+        rc[12] = sign + nzy * nzy * a;
+        rc[13] = -nzy;
+    }
+    __syncthreads();
+
+    const float TP = F(6.283185307179586);
+    const float* sp = s_par;
+    const int n_rect = s_cnt[0], n_blk = s_cnt[1];
+    const int base = cfg.omni ? 3 : 5;        // trace_lane's r0 + 2 or r0 + 4
+    // the pulse's BVH tables and lane sums, held a block
+    const bvh::Tables mesh_b = pulse_tables(mesh, cfg);
+    float* lv_p = lane_val == nullptr ? nullptr : lane_val + pulse * cfg.n_lanes;
+    // the direction strata: the tile's cell of a P x P grid (trace_lane's)
+    const long long n_strata = (long long)cfg.patch_p * cfg.patch_p;
+    const int slot0 = (int)sp[0];
+    const float inv_p = cfg.patch_p > 0
+                            ? (float)(1.0 / (double)cfg.patch_p) : 0.0f;
+    unsigned int events = 0;
+    const long long stride = (long long)gridDim.x * T;
+    long long next = (long long)blockIdx.x * T + (tid & ~31);
+    const unsigned lt = (1u << j) - 1u;
+    // the slots whose paths wait for SHADE, the same in every thread (bit
+    // s of the pair: slot s); the others are free
+    unsigned sh_lo = 0u, sh_hi = 0u;
+    for (;;) {
+        // [k1 stage: sched]  the turn: SHADE when 32 paths wait for it,
+        // else RAY for the warp's next lanes (at most 31 paths wait, so
+        // 33 slots are free), else the rest of SHADE, else done
+        __syncwarp();
+        const int n_sh = __popc(sh_lo) + __popc(sh_hi);
+        const int n_new = next < cfg.n_lanes
+                              ? (int)min(32LL, cfg.n_lanes - next) : 0;
+        const bool shade = n_sh >= 32 || (n_new == 0 && n_sh > 0);
+        if (!shade && n_new == 0) break;
+        const unsigned m0 = shade ? sh_lo : ~sh_lo;
+        const unsigned m1 = shade ? sh_hi : ~sh_hi;
+        if ((m0 >> j) & 1u) w_take[__popc(m0 & lt)] = j;
+        const int r1 = __popc(m0) + __popc(m1 & lt);
+        if (((m1 >> j) & 1u) && r1 < 32) w_take[r1] = j + 32;
+        __syncwarp();
+        const int n_go = shade ? min(32, n_sh) : n_new;
+        const int slot = j < n_go ? w_take[j] : -1;
+        float4* sl4 = reinterpret_cast<float4*>(
+            w_slots + MSK_SLOT * (slot < 0 ? 0 : slot));
+        // the turn's lane and its five draws: RAY a new lane's draws 0-4,
+        // SHADE its path's d0 + 1 .. d0 + 5 (the slot's lane and depth)
+        long long lane = next + j;
+        int depth = 0;
+        float lsum = 0.0f;
+        if (shade && slot >= 0) {
+            const float4 e = sl4[3];
+            lane = (long long)(((unsigned long long)__float_as_uint(e.y)
+                                << 32)
+                               | __float_as_uint(e.x));
+            lsum = e.z;
+            depth = __float_as_int(sl4[2].w);
+        }
+        const int d0 = base + 6 * depth;
+        float u5[5];
+        // [k1 stage: draws]
+        if (slot >= 0)
+            flag_draws5(cfg, uniforms, lane, shade ? d0 + 1 : 0, u5);
+        // [k1 stage: sched]
+
+        // the path this turn traces: a new lane's ray (RAY) or the bounce
+        // of a shaded one (SHADE); its state
+        bool live = false;
+        float ox = 0.0f, oy = 0.0f, oz = 0.0f, dx = 0.0f, dy = 0.0f,
+              dz = 0.0f, thr = 0.0f, plen = 0.0f, t_rx0 = 0.0f;
+        float val = 0.0f, yb = 0.0f;       // SHADE: the contribution
+        if (!shade) {
+            if (slot >= 0) {
+                // [k1 stage: ray]  trace_lane's receive ray (draws 0..4)
+                const float* rxm = sp + 2;
+                const float rx_wx = sp[14], rx_wy = sp[15];
+                t_rx0 = cfg.gate ? 0.0f
+                                 : cfg.t_start + u5[0] * cfg.t_window;
+                if (cfg.omni) {
+                    ox = rxm[3];
+                    oy = rxm[7];
+                    oz = rxm[11];
+                    float z = 1.0f - 2.0f * u5[1];
+                    float r = sqrtf(fmaxf(1.0f - z * z, 0.0f));
+                    float ph = TP * u5[2];
+                    dx = r * fast_cos(ph);
+                    dy = r * fast_sin(ph);
+                    dz = z;
+                    thr = F(4.0 * 3.141592653589793) * sp[32];
+                } else {
+                    float lx = 2.0f * u5[1] - 1.0f, ly = 2.0f * u5[2] - 1.0f;
+                    ox = rxm[0] * lx + rxm[1] * ly + rxm[3];
+                    oy = rxm[4] * lx + rxm[5] * ly + rxm[7];
+                    oz = rxm[8] * lx + rxm[9] * ly + rxm[11];
+                    const float* rc = s_rxc;
+                    const float nzx = rc[0], nzy = rc[1], nzz = rc[2];
+                    const float u3 = u5[3], u4 = u5[4];
+                    float tx_, ty_, tz, w0;
+                    if (cfg.patch_p > 0) {
+                        // stratified cosine hemisphere: the tile's cell
+                        // plus the lane's jitter; cos pdf, weight pi area
+                        const long long P = cfg.patch_p;
+                        long long patch = ((lane / 1024) * 131 + slot0)
+                                          % n_strata;
+                        float s3 = ((float)(patch % P) + u3) * inv_p;
+                        float s4 = ((float)(patch / P) + u4) * inv_p;
+                        float rr = sqrtf(s3);
+                        float ph = TP * s4;
+                        tx_ = rr * fast_cos(ph);
+                        ty_ = rr * fast_sin(ph);
+                        tz = sqrtf(fmaxf(1.0f - s3, 0.0f));
+                        w0 = F(3.141592653589793) * rc[3] * sp[32];
+                    } else {
+                        bool pick = u3 >= 0.5f;
+                        float u0m = pick ? 2.0f * u3 - 1.0f : 2.0f * u3;
+                        float ph = TP * u4;
+                        float ct_c = sqrtf(fmaxf(1.0f - u0m, 0.0f));
+                        float ct_l = expf(logf(fmaxf(u0m, F(1e-12))) / rc[5]);
+                        tz = pick ? ct_l : ct_c;
+                        float st = sqrtf(fmaxf(1.0f - tz * tz, 0.0f));
+                        tx_ = st * fast_cos(ph);
+                        ty_ = st * fast_sin(ph);
+                        float cosk = expf(rc[4] * logf(fmaxf(tz, F(1e-12))));
+                        float pdf_d = 0.5f * tz * F(1.0 / 3.141592653589793)
+                                      + rc[6] * cosk;
+                        w0 = (tz / fmaxf(pdf_d, F(1e-30))) * rc[3] * sp[32];
+                    }
+                    dx = rc[8] * tx_ + rc[11] * ty_ + nzx * tz;
+                    dy = rc[9] * tx_ + rc[12] * ty_ + nzy * tz;
+                    dz = rc[10] * tx_ + rc[13] * ty_ + nzz * tz;
+                    float lam = rc[7];
+                    float nu_x = (rxm[0] * dx + rxm[4] * dy + rxm[8] * dz)
+                                 / fmaxf(rx_wx, F(1e-9)) / lam;
+                    float nu_y = (rxm[1] * dx + rxm[5] * dy + rxm[9] * dz)
+                                 / fmaxf(rx_wy, F(1e-9)) / lam;
+                    float trx = tri_f(lx * 0.5f), try_ = tri_f(ly * 0.5f);
+                    thr = w0 * (4.0f * trx * try_
+                                * sinc_f(TP * nu_x * rx_wx * trx)
+                                * sinc_f(TP * nu_y * rx_wy * try_));
+                    ox = ox + F(1e-4) * nzx;
+                    oy = oy + F(1e-4) * nzy;
+                    oz = oz + F(1e-4) * nzz;
+                }
+                live = true;
+            }
+            next += stride;
+        } else if (slot >= 0) {
+            // [k1 stage: hit]  the path from its slot, the hit point and
+            // the hit's normal and reflectance: a rectangle's record, or
+            // the triangle's from the slot
+            const float4 a = sl4[0], b = sl4[1], c = sl4[2];
+            const float cx = a.x, cy = a.y, cz = a.z;
+            thr = a.w;
+            dx = b.x;
+            dy = b.y;
+            dz = b.z;
+            t_rx0 = c.x;
+            const float tb = c.y;
+            const int code = __float_as_int(c.z);
+            const float4 nrb = code >= 0 ? s_rec[FLAG_REC * code + 3]
+                                         : sl4[4];
+            const float nx = nrb.x, ny = nrb.y, nz = nrb.z, rb = nrb.w;
+            const float txc = code >= 0 ? s_rec[FLAG_REC * code + 4].x
+                                        : -1.0f;
+            const float cvel = sp[1];
+            const float n_time_f = (float)cfg.n_time;
+            const float t_start = cfg.t_start, t_window = cfg.t_window;
+            Tx tx;
+            tx.m = s_tx;
+            tx.wx = s_tx[12];
+            tx.wy = s_tx[13];
+            tx.area = s_tx[14];
+            tx.gain = s_tx[15];
+            tx.wf = s_tx[16];
+            tx.amp = s_tx[17];
+            tx.prf = s_tx[18];
+            tx.text = s_tx[19];
+            tx.fc = s_tx[20];
+            tx.fext = s_tx[21];
+            tx.nx = s_tx[TXP_COLS];
+            tx.ny = s_tx[TXP_COLS + 1];
+            tx.nz = s_tx[TXP_COLS + 2];
+            const float* m = tx.m;
+            plen = b.w + tb;
+            float hx = cx + tb * dx, hy = cy + tb * dy, hz = cz + tb * dz;
+
+            // [k1 stage: direct]  direct transmitter hits at depth 0
+            if (depth == 0) {
+                float cos_dh = -(dx * tx.nx + dy * tx.ny + dz * tx.nz);
+                if (txc == 0.0f && cos_dh > 0.0f) {
+                    float te_h, tr_h, wg_h;
+                    tx.emission(plen / cvel,
+                                flag_draw1(cfg, uniforms, lane, d0), t_rx0,
+                                cfg.gate, t_start, t_window, &te_h, &tr_h,
+                                &wg_h, nullptr);
+                    float fe_h = tx.inst_freq(te_h);
+                    float sig_h = tx.eval_wdf(te_h, fe_h);
+                    float lam_h = cvel / fmaxf(fe_h, F(1e-6));
+                    float lxh = ((hx - m[3]) * m[0] + (hy - m[7]) * m[4]
+                                 + (hz - m[11]) * m[8])
+                                / fmaxf(tx.wx * tx.wx, F(1e-12));
+                    float lyh = ((hx - m[3]) * m[1] + (hy - m[7]) * m[5]
+                                 + (hz - m[11]) * m[9])
+                                / fmaxf(tx.wy * tx.wy, F(1e-12));
+                    float ap_h = tx.aperture(lxh, lyh, dx, dy, dz, lam_h);
+                    float w_dh = sig_h * tx.gain * ap_h * TP;
+                    val = thr * w_dh * wg_h;
+                    yb = (tr_h - t_start) / t_window * n_time_f - 0.5f;
+                    events += val != 0.0f;
+                    lsum += val;
+                }
+            }
+
+            // [k1 stage: nee]  NEE to the transmitter (only from
+            // non-transmitter hits)
+            if (txc < 0.0f) {
+                float glx = 2.0f * u5[0] - 1.0f;
+                float gly = 2.0f * u5[1] - 1.0f;
+                float qx = m[0] * glx + m[1] * gly + m[3];
+                float qy = m[4] * glx + m[5] * gly + m[7];
+                float qz = m[8] * glx + m[9] * gly + m[11];
+                float vx = qx - hx, vy = qy - hy, vz = qz - hz;
+                float dist2 = vx * vx + vy * vy + vz * vz;
+                float dist = sqrtf(fmaxf(dist2, F(1e-20)));
+                float inv_d = 1.0f / dist;
+                float wx_ = vx * inv_d, wy_ = vy * inv_d,
+                      wz_ = vz * inv_d;
+                float cos_tx = -(wx_ * tx.nx + wy_ * tx.ny + wz_ * tx.nz);
+                if (cos_tx > F(1e-6)) {
+                    float pdf_sa = (1.0f / fmaxf(tx.area, F(1e-12)))
+                                   * dist2 / fmaxf(cos_tx, F(1e-6));
+                    float cos_s = wx_ * nx + wy_ * ny + wz_ * nz;
+                    float sg = sgn_ge(-dx * nx + -dy * ny + -dz * nz);
+                    float co = wx_ * (nx * sg) + wy_ * (ny * sg)
+                               + wz_ * (nz * sg);
+                    float f_cos = rb * F(1.0 / 3.141592653589793)
+                                  * fmaxf(co, 0.0f);
+                    float t_emit, t_recv, w_gate;
+                    tx.emission((plen + dist) / cvel, u5[2],
+                                t_rx0, cfg.gate, t_start, t_window,
+                                &t_emit, &t_recv, &w_gate, nullptr);
+                    float f_emit = tx.inst_freq(t_emit);
+                    float sig = tx.eval_wdf(t_emit, f_emit);
+                    float ap = tx.aperture(glx, gly, wx_, wy_, wz_,
+                                           cvel / fmaxf(f_emit, F(1e-6)));
+                    float w_tx = sig * tx.gain * ap * TP;
+                    float off = F(1e-4) * sign0(cos_s);
+                    float sx = hx + off * nx, sy = hy + off * ny,
+                          sz = hz + off * nz;
+                    float limit = dist * F(0.999);
+                    // [k1 stage: shadow]
+                    bool occ = false;
+                    for (int r = 0; r < n_blk && !occ; ++r) {
+                        float t_p;
+                        bool hit_p = rect_hit4(s_blk + 3 * r, sx, sy, sz,
+                                               wx_, wy_, wz_, &t_p);
+                        occ = hit_p && t_p > F(1e-4) && t_p < limit;
+                    }
+                    // [k1 stage: shadow_walk]  the mesh's any hit
+                    if (!occ) {
+                        bvh::Any sh;
+                        sh.limit = limit;
+                        bvh::walk(mesh_b,
+                                  bvh::make_ray(sx, sy, sz, wx_, wy_, wz_),
+                                  sh);
+                        occ = sh.occ;
+                    }
+                    // [k1 stage: nee]
+                    if (!occ && pdf_sa > 0.0f) {
+                        val = thr * f_cos * w_tx * w_gate
+                              / fmaxf(pdf_sa, F(1e-30));
+                        yb = (t_recv - t_start) / t_window * n_time_f
+                             - 0.5f;
+                        events += val != 0.0f;
+                        lsum += val;
+                    }
+                }
+            }
+
+            // [k1 stage: bounce]  the diffuse bounce: cosine
+            // hemisphere about the flipped normal (none after the
+            // last depth, from an absorbing hit or on the transmitter)
+            if (depth < cfg.max_depth - 1 && rb > 0.0f && txc < 0.0f) {
+                float u8 = u5[3], u9 = u5[4];           // draws d0 + 4, 5
+                float face = -(dx * nx + dy * ny + dz * nz);
+                float sgn = sgn_ge(face);
+                float fx = nx * sgn, fy = ny * sgn, fz = nz * sgn;
+                float sign = sgn_ge(fz);
+                float a2 = -1.0f / (sign + fz);
+                float b2 = fx * fy * a2;
+                float s1x = 1.0f + sign * fx * fx * a2, s1y = sign * b2,
+                      s1z = -sign * fx;
+                float s2x = b2, s2y = sign + fy * fy * a2, s2z = -fy;
+                float rr2 = sqrtf(u8);
+                float ph2 = TP * u9;
+                float bx = rr2 * fast_cos(ph2), by = rr2 * fast_sin(ph2);
+                float bz = sqrtf(fmaxf(1.0f - u8, 0.0f));
+                dx = s1x * bx + s2x * by + fx * bz;
+                dy = s1y * bx + s2y * by + fy * bz;
+                dz = s1z * bx + s2z * by + fz * bz;
+                thr = thr * rb;
+                ox = hx + F(1e-4) * fx;
+                oy = hy + F(1e-4) * fy;
+                oz = hz + F(1e-4) * fz;
+                depth = depth + 1;
+                live = true;
+            }
+        }
+
+        // [k1 stage: trace]  the closest rectangle of the turn's rays, then
+        // the closest triangle (the walk, pruned by the rectangle's t); a
+        // hit waits in its slot for SHADE, a miss ends the lane
+        bool hit = false;
+        if (live) {
+            float tb = F(3.4e38);
+            int code = -1;
+            for (int r = 0; r < n_rect; ++r) {
+                // [k1 stage: closest]
+                float t_p;
+                bool hit_p = rect_hit4(s_rec + FLAG_REC * r, ox, oy, oz, dx,
+                                       dy, dz, &t_p);
+                if (hit_p && t_p > F(1e-4) && t_p < tb) {
+                    tb = t_p;
+                    code = r;
+                }
+            }
+            // [k1 stage: walk]
+            MeshClosest<false> mc;
+            mc.ta = tb;
+            bvh::walk(mesh_b, bvh::make_ray(ox, oy, oz, dx, dy, dz), mc);
+            // [k1 stage: trace]
+            const bool tri = mc.t < tb;
+            if (tri) {
+                tb = mc.t;
+                code = -1;
+            }
+            hit = tb < F(3.4e37);
+            if (hit) {
+                const unsigned long long ln = (unsigned long long)lane;
+                sl4[0] = make_float4(ox, oy, oz, thr);
+                sl4[1] = make_float4(dx, dy, dz, plen);
+                sl4[2] = make_float4(t_rx0, tb, __int_as_float(code),
+                                     __int_as_float(depth));
+                sl4[3] = make_float4(__uint_as_float((unsigned)ln),
+                                     __uint_as_float((unsigned)(ln >> 32)),
+                                     lsum, 0.0f);
+                if (tri) sl4[4] = make_float4(mc.nx, mc.ny, mc.nz, mc.rf);
+            }
+        }
+        // the lane's sum, where its path ended
+        if (slot >= 0 && !hit && lv_p != nullptr) lv_p[lane] = lsum;
+        // [k1 stage: sched]  the waiting set: the turn's slots leave it,
+        // those whose ray hit join it
+        const bool lo = slot >= 0 && slot < 32, hi = slot >= 32;
+        const unsigned bit = 1u << (slot & 31);
+        sh_lo = (sh_lo & ~__reduce_or_sync(FULL_MASK, lo ? bit : 0u))
+                | __reduce_or_sync(FULL_MASK, lo && hit ? bit : 0u);
+        sh_hi = (sh_hi & ~__reduce_or_sync(FULL_MASK, hi ? bit : 0u))
+                | __reduce_or_sync(FULL_MASK, hi && hit ? bit : 0u);
+        if (shade) {
+            // [k1 stage: splat]
+            pow_splat_rows(w_row, w_vals, cfg.n_time, val, yb, j);
+        }
+    }
+    // [k1 stage: end]
+    __syncthreads();
+
+    // the block's row: its warps' rows summed in warp order; its events
+    partial += pulse * gridDim.x * (long long)cfg.n_time;
+    part_ev += pulse * gridDim.x;
+    for (int b = tid; b < cfg.n_time; b += T) {
+        double s = 0.0;
+        for (int w = 0; w < T / 32; ++w)
+            s += reinterpret_cast<const double*>(
+                s_warps + w * wbytes + msk_row_offset())[b];
+        partial[(long long)blockIdx.x * cfg.n_time + b] = s;
+    }
+    __syncthreads();
+    unsigned long long ev = events;
+    for (int off = 16; off > 0; off >>= 1)
+        ev += __shfl_down_sync(FULL_MASK, ev, off);
+    unsigned long long* s_ev = reinterpret_cast<unsigned long long*>(ksm);
+    if (j == 0) s_ev[tid >> 5] = ev;
+    __syncthreads();
+    if (tid == 0) {
+        unsigned long long tot = 0;
+        for (int w = 0; w < T / 32; ++w) tot += s_ev[w];
+        part_ev[blockIdx.x] = tot;
+    }
+}
+
+// ---- the MIMO array kernel: the coherent kernel's turns --------------------
+//
+// The MIMO configuration (a phased receive array, one I / Q pair an
+// element, analytic scenes, vacuum; receive_mimo_kernel<false, false>
+// before) runs a kernel of its own on the coherent kernel's turns.  Its
+// lane is trace_lane's MIMO path, operation by operation, and what
+// differs is which thread runs which part of which lane, and when
+// (PERF.md):
+//  - A wavefront inside each warp: the coherent kernel's pool of COH_POOL
+//    paths, its turns (SHADE over 32 waiting paths, else RAY over the
+//    warp's next 32 lanes, each tracing the rays it makes), its draws a
+//    stage at a time and its tables (the rectangles, the shadowing
+//    rectangles' list, the receiver's frame).  On golden config 6 a few
+//    lanes in a thousand hit: the grid-stride body held a warp on the one
+//    lane that did (its NEE, its element loop, its bounce and trace).
+//  - RAY: the receive frequency by receive type, then the array's ray
+//    from its origin over the cosine hemisphere about its normal, weighted
+//    by one element's pattern gain (draws r0 + 2, r0 + 3; r0, r0 + 1 are
+//    not used), and its Doppler factor.
+//  - The slot: a path waits in MAK_SLOT floats, the coherent kernel's 16
+//    and the lane's first vertex less the array's origin and its length
+//    (x1 - o, |x1 - o|: SHADE takes them at depth 0 and carries them).
+//  - The splat: each connection's echo phase less each element's term,
+//    into the element's I / Q pair of the (n_time, 2E) grid of doubles:
+//    the block's grid in shared memory, added to with float64 atomics, or
+//    the global grid past MAX_SMEM_MIMO_VALS values (mode 2).  SHADE
+//    stages each connection's phase, amplitude, tent and first vertex in
+//    the warp's staging area (mimo_stage); after the turn's trace the warp
+//    runs the connections' (connection, element) items 32 at a time
+//    (mimo_warp_taps), each with mimo_splat's rounded arithmetic, rather
+//    than each connecting thread looping over the E elements while the
+//    others wait (0.90 of that, tools/k1_ablate.py).  Each lane's sum of
+//    amplitudes goes to lane_val where its path ends.
+// The packed tables, the positional draws, the tent, the partial rows and
+// the reduce are the other configurations'.  The tags "[k1 stage: ...]"
+// name each stage for tools/k1_mix.py.
+constexpr int MAK_SLOT = 20;        // floats a path: five float4s
+constexpr int MAK_STAGE = 10;       // floats a connection stages for taps
+// Blocks an SM the MIMO array kernel is held to: four (128 registers, no
+// spill) ran 0.93 of six (80, ~170 B spilled), five 0.98 (PERF.md)
+constexpr int MAK_MIN_BLOCKS = 4;
+
+// Shared bytes of one warp's area: its paths of MAK_SLOT floats, a turn's
+// slots, the staging of 32 connections' taps.
+__host__ __device__ constexpr int mak_warp_bytes() {
+    return (4 * (COH_POOL * MAK_SLOT + 32 + 32 * MAK_STAGE) + 15) & ~15;
+}
+// Shared bytes of a block's tables, ahead of the warps' areas: the
+// coherent kernel's, then the element half-widths and offsets.
+__host__ __device__ constexpr int mak_table_bytes(int n_prims, int n_params,
+                                                  int n_elem) {
+    return (16 * (COH_REC + 3) * n_prims
+            + 4 * (n_params + TXP_COLS + 4 + COH_RXC + 4 + 2 + 3 * n_elem)
+            + 15)
+           & ~15;
+}
+
+// SHADE's part of a connection's taps (mimo_splat's terms before its
+// element loop): its echo phase plus n_bnd boundary phases and amplitude,
+// returned as the lane sum's share; where it has taps (val != 0 and a
+// bin in the grid), its phase, amplitude, 2 pi f / c, tent weights, first
+// bin and first vertex go to thread j's column of the warp's staging area
+// `st` (MAK_STAGE rows of 32) and *taps is set.
+__device__ __forceinline__ float mimo_stage(
+    const Cfg& cfg, const Tx& tx, const Wave& lo, const float* sp, float val,
+    float yb, float f_recv, float t_recv, float dtot, float t_emit,
+    float k_pri, int n_bnd, float v0x, float v0y, float v0z, float r0,
+    float* st, int j, bool* taps) {
+    float ph = echo_phase(tx.w, lo, cfg, sp, dtot, t_emit, t_recv, k_pri);
+    if (n_bnd > 0) ph = add_rn(ph, mul_rn((float)n_bnd, sp[16]));
+    float amp = sqrtf(fmaxf(val, 0.0f));
+    *taps = false;
+    if (val == 0.0f) return amp;
+    float b0 = floorf(yb);
+    if (!(b0 >= -1.0f && b0 < (float)cfg.n_time)) return amp;  // drops NaN
+    st[j] = ph;
+    st[32 + j] = amp;
+    st[64 + j] = mul_rn(F(6.283185307179586), f_recv / sp[1]);
+    st[96 + j] = fmaxf(1.0f - fabsf(yb - b0), 0.0f);
+    st[128 + j] = fmaxf(1.0f - fabsf(yb - (b0 + 1.0f)), 0.0f);
+    st[160 + j] = __int_as_float((int)b0);
+    st[192 + j] = v0x;
+    st[224 + j] = v0y;
+    st[256 + j] = v0z;
+    st[288 + j] = r0;
+    *taps = true;
+    return amp;
+}
+
+// The warp's element taps of the connections its threads staged (taps):
+// item i of the n_c x E items is element i mod E of the (i / E)-th staged
+// thread in lane order, run by thread i mod 32, each with mimo_splat's
+// element arithmetic, rounded as the plain version's.  Every thread of
+// the warp calls it.
+// [k1 splat]
+__device__ __forceinline__ void mimo_warp_taps(const MimoGrid& grid,
+                                               const Cfg& cfg,
+                                               const float* st, bool taps,
+                                               int j) {
+    const unsigned go = __ballot_sync(FULL_MASK, taps);
+    if (go == 0u) return;
+    __syncwarp();
+    const int n_e = cfg.n_elem, n_ch = 2 * n_e;
+    const int n = __popc(go) * n_e;
+    const float* eo = grid.tab + 2;
+    for (int it = j; it < n; it += 32) {
+        const int c = it / n_e, e = it - c * n_e;
+        unsigned g = go;
+        for (int q = 0; q < c; ++q) g &= g - 1u;
+        const int k = __ffs(g) - 1;
+        const float ph = st[k], amp = st[32 + k], kf = st[64 + k];
+        const float wt0 = st[96 + k], wt1 = st[128 + k];
+        const int i0 = __float_as_int(st[160 + k]);
+        float vx = sub_rn(st[192 + k], eo[3 * e]);
+        float vy = sub_rn(st[224 + k], eo[3 * e + 1]);
+        float vz = sub_rn(st[256 + k], eo[3 * e + 2]);
+        float re = __fsqrt_rn(fmaxf(add_rn(add_rn(mul_rn(vx, vx),
+                                                  mul_rn(vy, vy)),
+                                           mul_rn(vz, vz)), F(1e-20)));
+        float pe = sub_rn(ph, mul_rn(kf, sub_rn(re, st[288 + k])));
+        float ci = amp * fast_cos(pe), si = amp * fast_sin(pe);
+        if (i0 >= 0) {
+            grid.add(i0 * n_ch + 2 * e, ci * wt0);
+            grid.add(i0 * n_ch + 2 * e + 1, si * wt0);
+        }
+        if (i0 + 1 < cfg.n_time) {
+            grid.add((i0 + 1) * n_ch + 2 * e, ci * wt1);
+            grid.add((i0 + 1) * n_ch + 2 * e + 1, si * wt1);
+        }
+    }
+    __syncwarp();
+}
+
+__global__ void __launch_bounds__(COH_THREADS, MAK_MIN_BLOCKS)
+receive_mimo_array_kernel(const float* __restrict__ params,
+                          const float* __restrict__ prim,
+                          const float* __restrict__ txp,
+                          const float* __restrict__ msh,
+                          const float* __restrict__ uniforms,
+                          bvh::Tables mesh, float* __restrict__ lane_val,
+                          double* __restrict__ partial,
+                          unsigned long long* __restrict__ part_ev, Cfg cfg,
+                          const float* __restrict__ rxph,
+                          const float* __restrict__ eoff) {
+    extern __shared__ float4 asm_[];
+    const int T = blockDim.x, tid = threadIdx.x, j = tid & 31;
+    const long long pulse = blockIdx.y;
+    const int np = cfg.n_prims;
+    params += pulse * cfg.n_params;
+    prim += pulse * np * PRIM_COLS;
+    txp += pulse * TXP_COLS;
+    float4* s_rec = asm_;
+    float4* s_blk = s_rec + COH_REC * np;
+    float* s_par = reinterpret_cast<float*>(s_blk + 3 * np);
+    float* s_tx = s_par + cfg.n_params;      // its row, then its unit normal
+    float* s_rxc = s_tx + TXP_COLS + 4;      // the receiver's frame
+    int* s_cnt = reinterpret_cast<int*>(s_rxc + COH_RXC);
+    // the element half-widths, then the (E, 3) element offsets
+    float* s_mimo = reinterpret_cast<float*>(s_cnt + 4);
+    char* s_warps = reinterpret_cast<char*>(asm_)
+                    + mak_table_bytes(np, cfg.n_params, cfg.n_elem);
+    const int wbytes = mak_warp_bytes();
+    float* w_slots = reinterpret_cast<float*>(s_warps + (tid >> 5) * wbytes);
+    int* w_take = reinterpret_cast<int*>(w_slots + COH_POOL * MAK_SLOT);
+    float* w_st = reinterpret_cast<float*>(w_take + 32);   // taps' staging
+    // the values of a pulse's grid: an I / Q pair an element a bin
+    const long long n_vals = 2LL * cfg.n_elem * cfg.n_time;
+    // mode 1: the block's grid of doubles after the warps'
+    double* s_dgrid = reinterpret_cast<double*>(s_warps + (T / 32) * wbytes);
+
+    for (int i = tid; i < cfg.n_params; i += T) s_par[i] = params[i];
+    for (int i = tid; i < TXP_COLS; i += T) s_tx[i] = txp[i];
+    for (int i = tid; i < 2; i += T) s_mimo[i] = rxph[i];
+    for (int i = tid; i < 3 * cfg.n_elem; i += T) s_mimo[2 + i] = eoff[i];
+    if (cfg.mode == 1)
+        for (long long i = tid; i < n_vals; i += T) s_dgrid[i] = 0.0;
+    if (tid == 0) {
+        // the rectangles in prim order, and those that can shadow an NEE
+        // (the transmitter's own, tx index 0 in column 14, never does)
+        int nr = 0, nb = 0;
+        for (int p = 0; p < np; ++p) {
+            const float* row = prim + p * PRIM_COLS;
+            if ((int)row[0] != RECTANGLE) continue;
+            const float* q = row + 1;
+            float rnorm = rsqrtf(fmaxf(q[8] * q[8] + q[9] * q[9]
+                                       + q[10] * q[10], F(1e-20)));
+            float4* r = s_rec + COH_REC * nr++;
+            r[0] = make_float4(q[0], q[1], q[2], q[3]);
+            r[1] = make_float4(q[4], q[5], q[6], q[7]);
+            r[2] = make_float4(q[8], q[9], q[10], q[11]);
+            r[3] = make_float4(q[8] * rnorm, q[9] * rnorm, q[10] * rnorm,
+                               row[13]);
+            r[4] = make_float4(row[14], row[18], row[15], row[16]);
+            r[5] = make_float4(row[17], row[19], row[20], row[21]);
+            if (row[14] != 0.0f) {
+                float4* b = s_blk + 3 * nb++;
+                b[0] = r[0];
+                b[1] = r[1];
+                b[2] = r[2];
+            }
+        }
+        s_cnt[0] = nr;
+        s_cnt[1] = nb;
+    }
+    __syncthreads();
+    if (tid == 0) {
+        const float* m = s_tx;
+        float tnn = rsqrtf(fmaxf(m[2] * m[2] + m[6] * m[6] + m[10] * m[10],
+                                 F(1e-20)));
+        s_tx[TXP_COLS] = m[2] * tnn;
+        s_tx[TXP_COLS + 1] = m[6] * tnn;
+        s_tx[TXP_COLS + 2] = m[10] * tnn;
+        // the array's frame about its normal, trace_lane's expressions,
+        // and its rows' inverse half-widths
+        const float* rxm = s_par + 2;
+        float nzx = rxm[2], nzy = rxm[6], nzz = rxm[10];
+        float nn = rsqrtf(nzx * nzx + nzy * nzy + nzz * nzz);
+        nzx = nzx * nn;
+        nzy = nzy * nn;
+        nzz = nzz * nn;
+        float sign = sgn_ge(nzz);
+        float a = -1.0f / (sign + nzz);
+        float b = nzx * nzy * a;
+        float* rc = s_rxc;
+        rc[0] = nzx;
+        rc[1] = nzy;
+        rc[2] = nzz;
+        rc[4] = 1.0f / fmaxf(s_par[14], F(1e-20));           // iwx
+        rc[5] = 1.0f / fmaxf(s_par[15], F(1e-20));           // iwy
+        rc[8] = 1.0f + sign * nzx * nzx * a;                  // s1
+        rc[9] = sign * b;
+        rc[10] = -sign * nzx;
+        rc[11] = b;                                           // s2
+        rc[12] = sign + nzy * nzy * a;
+        rc[13] = -nzy;
+    }
+    __syncthreads();
+
+    const float TP = F(6.283185307179586);
+    const float* sp = s_par;
+    const float cvel = sp[1];
+    const int n_rect = s_cnt[0], n_blk = s_cnt[1];
+    // the pulse's uniforms, Philox key and lane sums, held a block
+    const float* u_p = uniforms == nullptr ? nullptr
+                                           : uniforms + pulse * cfg.u_stride;
+    const unsigned long long key = cfg.seed + cfg.seed_step * pulse;
+    float* lv_p = lane_val == nullptr ? nullptr : lane_val + pulse * cfg.n_lanes;
+    // trace_lane's r0: a frequency or beat draw comes before the ray's
+    const int r0 = (cfg.rule == RX_MIXER
+                    || (cfg.rule == 0 && cfg.n_freq > 1)) ? 2 : 1;
+    const int base = r0 + 4;
+    MimoGrid grid;
+    grid.tab = s_mimo;
+    grid.s = cfg.mode == 1 ? s_dgrid : nullptr;
+    grid.g = partial + (cfg.mode == 2 ? pulse * n_vals : 0);
+    const Wave lo{s_par + 33, s_par + 41};
+    unsigned int events = 0;
+    const long long stride = (long long)gridDim.x * T;
+    long long next = (long long)blockIdx.x * T + (tid & ~31);
+    const unsigned lt = (1u << j) - 1u;
+    // the slots whose paths wait for SHADE, the same in every thread (bit
+    // s of the pair: slot s); the others are free
+    unsigned sh_lo = 0u, sh_hi = 0u;
+    for (;;) {
+        // [k1 stage: sched]  the turn: SHADE when 32 paths wait for it,
+        // else RAY for the warp's next lanes, else the rest of SHADE,
+        // else done
+        __syncwarp();
+        const int n_sh = __popc(sh_lo) + __popc(sh_hi);
+        const int n_new = next < cfg.n_lanes
+                              ? (int)min(32LL, cfg.n_lanes - next) : 0;
+        const bool shade = n_sh >= 32 || (n_new == 0 && n_sh > 0);
+        if (!shade && n_new == 0) break;
+        const unsigned m0 = shade ? sh_lo : ~sh_lo;
+        const unsigned m1 = shade ? sh_hi : ~sh_hi;
+        if ((m0 >> j) & 1u) w_take[__popc(m0 & lt)] = j;
+        const int rk1 = __popc(m0) + __popc(m1 & lt);
+        if (((m1 >> j) & 1u) && rk1 < 32) w_take[rk1] = j + 32;
+        __syncwarp();
+        const int n_go = shade ? min(32, n_sh) : n_new;
+        const int slot = j < n_go ? w_take[j] : -1;
+        float4* sl4 = reinterpret_cast<float4*>(
+            w_slots + MAK_SLOT * (slot < 0 ? 0 : slot));
+        long long lane = next + j;
+        int depth = 0;
+        bool wdel = false;
+        float dop = 1.0f, lsum = 0.0f;
+        bool taps = false;      // SHADE staged a connection's taps
+        if (shade && slot >= 0) {
+            const float4 e = sl4[3];
+            lane = (long long)(((unsigned long long)__float_as_uint(e.y)
+                                << 32)
+                               | __float_as_uint(e.x));
+            dop = e.z;
+            lsum = e.w;
+            const int dw = __float_as_int(sl4[2].w);
+            depth = dw & 0xffff;
+            wdel = (dw >> 16) != 0;
+        }
+        const int d0 = base + 6 * depth;
+        float ud[6];
+        // [k1 stage: draws]
+        if (slot >= 0) {
+            if (shade)
+                coh_draws5(cfg, u_p, key, lane, d0 + 1, ud);
+            else
+                coh_ray_draws(cfg, u_p, key, lane, ud);
+        }
+        // [k1 stage: sched]
+
+        bool live = false;
+        float ox = 0.0f, oy = 0.0f, oz = 0.0f, dx = 0.0f, dy = 0.0f,
+              dz = 0.0f, thr = 0.0f, plen = 0.0f, t_rx0 = 0.0f;
+        // the lane's first vertex less the array's origin, and its length
+        float v0x = 0.0f, v0y = 0.0f, v0z = 0.0f, r0m = 0.0f;
+        if (!shade) {
+            if (slot >= 0) {
+                // [k1 stage: ray]  trace_lane's receive frequency and the
+                // array's ray
+                const float* rxm = sp + 2;
+                t_rx0 = cfg.gate ? 0.0f : cfg.t_start + ud[0] * cfg.t_window;
+                float f_rx = cfg.f_rx;
+                {
+                    float t_mid = t_rx0 + (cfg.gate ? 0.5f * cfg.t_window
+                                                    : 0.0f);
+                    if (cfg.rule == RX_MIX) {
+                        f_rx = Wave{s_tx + 16, s_tx + 28}.inst_freq(t_mid);
+                    } else if (cfg.rule == RX_RAW_LO) {
+                        f_rx = lo.inst_freq(t_mid);
+                    } else if (cfg.rule == RX_MIXER) {
+                        f_rx = lo.inst_freq(t_mid)
+                               - (cfg.f_lo + ud[1] * cfg.f_span);
+                    } else if (cfg.n_freq > 1) {
+                        f_rx = cfg.f_lo + ud[1] * cfg.f_span;
+                    }
+                }
+                // the ray draws r0 + 2, r0 + 3, each read at a constant
+                // index (a run-time one would keep `ud` in local memory)
+                const bool fd = r0 == 2;
+                const float u3 = fd ? ud[4] : ud[3], u4 = fd ? ud[5] : ud[4];
+                const float* rc = s_rxc;
+                const float nzx = rc[0], nzy = rc[1], nzz = rc[2];
+                float rr = sqrtf(u3);
+                float ph = TP * u4;
+                float tx_ = rr * fast_cos(ph), ty_ = rr * fast_sin(ph);
+                float tz = sqrtf(fmaxf(1.0f - u3, 0.0f));
+                dx = rc[8] * tx_ + rc[11] * ty_ + nzx * tz;
+                dy = rc[9] * tx_ + rc[12] * ty_ + nzy * tz;
+                dz = rc[10] * tx_ + rc[13] * ty_ + nzz * tz;
+                float iwx = rc[4], iwy = rc[5];
+                float lam = cvel / fmaxf(f_rx, F(1e-6));
+                float nu_x = (dx * (rxm[0] * iwx) + dy * (rxm[4] * iwx)
+                              + dz * (rxm[8] * iwx)) / lam;
+                float nu_y = (dx * (rxm[1] * iwy) + dy * (rxm[5] * iwy)
+                              + dz * (rxm[9] * iwy)) / lam;
+                float wex = s_mimo[0], wey = s_mimo[1];
+                thr = F(16.0 * 3.141592653589793) * wex * wey
+                      * sinc_f(TP * nu_x * wex) * sinc_f(TP * nu_y * wey)
+                      * sp[32];
+                ox = rxm[3] + F(1e-4) * nzx;
+                oy = rxm[7] + F(1e-4) * nzy;
+                oz = rxm[11] + F(1e-4) * nzz;
+                // cumulative Doppler factor, the receiver's motion first
+                dop = 1.0f + (dx * sp[23] + dy * sp[24] + dz * sp[25]) / cvel;
+                live = true;
+            }
+            next += stride;
+        } else if (slot >= 0) {
+            // [k1 stage: hit]  the path from its slot, the hit point and
+            // the hit rectangle's lobe
+            const float4 a = sl4[0], b = sl4[1], c = sl4[2];
+            const float cx = a.x, cy = a.y, cz = a.z;
+            thr = a.w;
+            dx = b.x;
+            dy = b.y;
+            dz = b.z;
+            t_rx0 = c.x;
+            const float tb = c.y;
+            const float4* rec = s_rec + COH_REC * __float_as_int(c.z);
+            const float4 nrb = rec[3], lob = rec[4], kv = rec[5];
+            const float nx = nrb.x, ny = nrb.y, nz = nrb.z, rb = nrb.w;
+            const float txc = lob.x, kb = lob.y, ab = lob.z, eb = lob.w;
+            const float kk = kv.x, vbx = kv.y, vby = kv.z, vbz = kv.w;
+            const float n_time_f = (float)cfg.n_time;
+            const float t_start = cfg.t_start, t_window = cfg.t_window;
+            Tx tx;
+            tx.m = s_tx;
+            tx.wx = s_tx[12];
+            tx.wy = s_tx[13];
+            tx.area = s_tx[14];
+            tx.gain = s_tx[15];
+            tx.wf = s_tx[16];
+            tx.amp = s_tx[17];
+            tx.prf = s_tx[18];
+            tx.text = s_tx[19];
+            tx.fc = s_tx[20];
+            tx.fext = s_tx[21];
+            tx.nx = s_tx[TXP_COLS];
+            tx.ny = s_tx[TXP_COLS + 1];
+            tx.nz = s_tx[TXP_COLS + 2];
+            tx.vx = s_tx[24];
+            tx.vy = s_tx[25];
+            tx.vz = s_tx[26];
+            tx.w = Wave{s_tx + 16, s_tx + 28};
+            const float* m = tx.m;
+            plen = b.w + tb;
+            float hx = cx + tb * dx, hy = cy + tb * dy, hz = cz + tb * dz;
+            const bool is_ggx = kb == ROUGH_CONDUCTOR;
+            const bool is_m = cfg.mirror && kb == CONDUCTOR;
+            // the first vertex less the origin (depth 0), rounded as the
+            // plain version's; after it, the slot's
+            if (depth == 0) {
+                v0x = hx - cx;
+                v0y = hy - cy;
+                v0z = hz - cz;
+                r0m = __fsqrt_rn(fmaxf(add_rn(add_rn(mul_rn(v0x, v0x),
+                                                     mul_rn(v0y, v0y)),
+                                              mul_rn(v0z, v0z)), F(1e-20)));
+            } else {
+                const float4 v = sl4[4];
+                v0x = v.x;
+                v0y = v.y;
+                v0z = v.z;
+                r0m = v.w;
+            }
+            // the connection, if any: its power and its phase's inputs
+            bool conn = false;
+            float val = 0.0f, yb = 0.0f, f_recv = 0.0f, t_recv = 0.0f,
+                  dtot = 0.0f, t_emit = 0.0f, k_c = 0.0f;
+            int n_bnd = 0;
+
+            // [k1 stage: direct]  direct transmitter hits at depth 0 and
+            // after a mirror bounce
+            if (depth == 0 || wdel) {
+                float cos_dh = -(dx * tx.nx + dy * tx.ny + dz * tx.nz);
+                if (txc == 0.0f && cos_dh > 0.0f) {
+                    float te_h, tr_h, wg_h, k_h = 0.0f;
+                    tx.emission(plen / cvel,
+                                coh_draw1(cfg, u_p, key, lane, d0), t_rx0,
+                                cfg.gate, t_start, t_window, &te_h, &tr_h,
+                                &wg_h, &k_h);
+                    float fe_h = tx.inst_freq(te_h);
+                    float sig_h = tx.eval_wdf(te_h, fe_h);
+                    float lam_h = cvel / fmaxf(fe_h, F(1e-6));
+                    float lxh = ((hx - m[3]) * m[0] + (hy - m[7]) * m[4]
+                                 + (hz - m[11]) * m[8])
+                                / fmaxf(tx.wx * tx.wx, F(1e-12));
+                    float lyh = ((hx - m[3]) * m[1] + (hy - m[7]) * m[5]
+                                 + (hz - m[11]) * m[9])
+                                / fmaxf(tx.wy * tx.wy, F(1e-12));
+                    float ap_h = tx.aperture(lxh, lyh, dx, dy, dz, lam_h);
+                    float w_dh = sig_h * tx.gain * ap_h * TP;
+                    val = thr * w_dh * wg_h;
+                    yb = (tr_h - t_start) / t_window * n_time_f - 0.5f;
+                    f_recv = fe_h * dop;
+                    t_recv = tr_h;
+                    dtot = plen;
+                    t_emit = te_h;
+                    k_c = k_h;
+                    conn = true;
+                }
+            }
+
+            // [k1 stage: nee]  NEE to the transmitter (only from
+            // non-transmitter hits; none from a mirror)
+            if (txc < 0.0f && !is_m) {
+                float glx = 2.0f * ud[0] - 1.0f;
+                float gly = 2.0f * ud[1] - 1.0f;
+                float qx = m[0] * glx + m[1] * gly + m[3];
+                float qy = m[4] * glx + m[5] * gly + m[7];
+                float qz = m[8] * glx + m[9] * gly + m[11];
+                float vx = qx - hx, vy = qy - hy, vz = qz - hz;
+                float dist2 = vx * vx + vy * vy + vz * vz;
+                float dist = sqrtf(fmaxf(dist2, F(1e-20)));
+                float inv_d = 1.0f / dist;
+                float wx_ = vx * inv_d, wy_ = vy * inv_d, wz_ = vz * inv_d;
+                float cos_tx = -(wx_ * tx.nx + wy_ * tx.ny + wz_ * tx.nz);
+                if (cos_tx > F(1e-6)) {
+                    float pdf_sa = (1.0f / fmaxf(tx.area, F(1e-12))) * dist2
+                                   / fmaxf(cos_tx, F(1e-6));
+                    float cos_s = wx_ * nx + wy_ * ny + wz_ * nz;
+                    float f_cos;
+                    if (is_ggx) {
+                        f_cos = ggx_fcos(rb, ab, eb, kk, nx, ny, nz, -dx,
+                                         -dy, -dz, wx_, wy_, wz_);
+                    } else {
+                        float sg = sgn_ge(-dx * nx + -dy * ny + -dz * nz);
+                        float co = wx_ * (nx * sg) + wy_ * (ny * sg)
+                                   + wz_ * (nz * sg);
+                        f_cos = rb * F(1.0 / 3.141592653589793)
+                                * fmaxf(co, 0.0f);
+                    }
+                    float te_n, tr_n, w_gate, k_nee = 0.0f;
+                    tx.emission((plen + dist) / cvel, ud[2], t_rx0, cfg.gate,
+                                t_start, t_window, &te_n, &tr_n, &w_gate,
+                                &k_nee);
+                    float f_emit = tx.inst_freq(te_n);
+                    float sig = tx.eval_wdf(te_n, f_emit);
+                    float ap = tx.aperture(glx, gly, wx_, wy_, wz_,
+                                           cvel / fmaxf(f_emit, F(1e-6)));
+                    float w_tx = sig * tx.gain * ap * TP;
+                    float off = F(1e-4) * sign0(cos_s);
+                    float sx = hx + off * nx, sy = hy + off * ny,
+                          sz = hz + off * nz;
+                    float limit = dist * F(0.999);
+                    // [k1 stage: shadow]
+                    bool occ = false;
+                    for (int r = 0; r < n_blk && !occ; ++r) {
+                        float t_p;
+                        bool hit_p = rect_hit4(s_blk + 3 * r, sx, sy, sz,
+                                               wx_, wy_, wz_, &t_p);
+                        occ = hit_p && t_p > F(1e-4) && t_p < limit;
+                    }
+                    // [k1 stage: nee]
+                    if (!occ && pdf_sa > 0.0f) {
+                        val = thr * f_cos * w_tx * w_gate
+                              / fmaxf(pdf_sa, F(1e-30));
+                        yb = (tr_n - t_start) / t_window * n_time_f - 0.5f;
+                        // connection Doppler: the vertex's bounce and the
+                        // transmitter's motion; the phase adds the
+                        // boundary phase of depth + 1 vertices
+                        float dop_vtx = 1.0f + ((wx_ - dx) * vbx
+                                                + (wy_ - dy) * vby
+                                                + (wz_ - dz) * vbz) / cvel;
+                        float dop_tx = 1.0f - (wx_ * tx.vx + wy_ * tx.vy
+                                               + wz_ * tx.vz) / cvel;
+                        f_recv = f_emit * dop * dop_vtx * dop_tx;
+                        t_recv = tr_n;
+                        dtot = plen + dist;
+                        t_emit = te_n;
+                        k_c = k_nee;
+                        n_bnd = depth + 1;
+                        conn = true;
+                    }
+                }
+            }
+            if (conn) {
+                // [k1 stage: splat]  the echo phase; the element taps'
+                // terms staged for the warp
+                lsum += mimo_stage(cfg, tx, lo, sp, val, yb, f_recv, t_recv,
+                                   dtot, t_emit, k_c, n_bnd, v0x, v0y, v0z,
+                                   r0m, w_st, j, &taps);
+                events += val != 0.0f;
+            }
+
+            // [k1 stage: bounce]  a diffuse cosine, a GGX half vector or a
+            // mirror about the flipped normal (none after the last depth,
+            // on the transmitter, or from an absorbing hit)
+            if (depth < cfg.max_depth - 1 && txc < 0.0f
+                && (is_ggx || is_m || rb > 0.0f)) {
+                float u8 = ud[3], u9 = ud[4];           // draws d0 + 4, 5
+                float face = -(dx * nx + dy * ny + dz * nz);
+                float sgn = sgn_ge(face);
+                float fx = nx * sgn, fy = ny * sgn, fz = nz * sgn;
+                float sign = sgn_ge(fz);
+                float a2 = -1.0f / (sign + fz);
+                float b2 = fx * fy * a2;
+                float s1x = 1.0f + sign * fx * fx * a2, s1y = sign * b2,
+                      s1z = -sign * fx;
+                float s2x = b2, s2y = sign + fy * fy * a2, s2z = -fy;
+                float ph2 = TP * u9;
+                float ndx, ndy, ndz, w_b;
+                bool go = true;
+                if (is_m) {
+                    float dn = dx * fx + dy * fy + dz * fz;
+                    ndx = dx - 2.0f * dn * fx;
+                    ndy = dy - 2.0f * dn * fy;
+                    ndz = dz - 2.0f * dn * fz;
+                    w_b = rb * fres_cond(fabsf(dn), eb, kk);
+                    go = w_b > 0.0f;
+                } else if (is_ggx) {
+                    float ag2 = ab * ab;
+                    float tan2 = ag2 * u8 / fmaxf(1.0f - u8, F(1e-12));
+                    float cth = rsqrtf(1.0f + tan2);
+                    float sth = sqrtf(fmaxf(1.0f - cth * cth, 0.0f));
+                    float hlx = sth * fast_cos(ph2),
+                          hly = sth * fast_sin(ph2);
+                    float hwx = s1x * hlx + s2x * hly + fx * cth;
+                    float hwy = s1y * hlx + s2y * hly + fy * cth;
+                    float hwz = s1z * hlx + s2z * hly + fz * cth;
+                    float ci_b = fabsf(face);
+                    float idoth = -dx * hwx + -dy * hwy + -dz * hwz;
+                    ndx = 2.0f * idoth * hwx + dx;
+                    ndy = 2.0f * idoth * hwy + dy;
+                    ndz = 2.0f * idoth * hwz + dz;
+                    float co_g = ndx * fx + ndy * fy + ndz * fz;
+                    float f_b = fres_cond(fabsf(idoth), eb, kk);
+                    float g_b = g1(ci_b, ag2) * g1(fabsf(co_g), ag2);
+                    w_b = rb * f_b * g_b * idoth / fmaxf(ci_b * cth, F(1e-8));
+                    go = co_g > 0.0f && idoth > 0.0f && w_b > 0.0f;
+                } else {
+                    float rr2 = sqrtf(u8);
+                    float bx = rr2 * fast_cos(ph2), by = rr2 * fast_sin(ph2);
+                    float bz = sqrtf(fmaxf(1.0f - u8, 0.0f));
+                    ndx = s1x * bx + s2x * by + fx * bz;
+                    ndy = s1y * bx + s2y * by + fy * bz;
+                    ndz = s1z * bx + s2z * by + fz * bz;
+                    w_b = rb;
+                }
+                if (go) {
+                    wdel = is_m;
+                    // bounce Doppler of the continued path
+                    dop = dop * (1.0f + ((ndx - dx) * vbx + (ndy - dy) * vby
+                                         + (ndz - dz) * vbz) / cvel);
+                    dx = ndx;
+                    dy = ndy;
+                    dz = ndz;
+                    thr = thr * w_b;
+                    ox = hx + F(1e-4) * fx;
+                    oy = hy + F(1e-4) * fy;
+                    oz = hz + F(1e-4) * fz;
+                    depth = depth + 1;
+                    live = true;
+                }
+            }
+        }
+
+        // [k1 stage: trace]  the closest rectangle of the turn's rays; a
+        // hit waits in its slot for SHADE, a miss ends the lane
+        bool hit = false;
+        if (live) {
+            float tb = F(3.4e38);
+            int pw = -1;
+            for (int r = 0; r < n_rect; ++r) {
+                // [k1 stage: closest]
+                float t_p;
+                bool hit_p = rect_hit4(s_rec + COH_REC * r, ox, oy, oz, dx,
+                                       dy, dz, &t_p);
+                if (hit_p && t_p > F(1e-4) && t_p < tb) {
+                    tb = t_p;
+                    pw = r;
+                }
+            }
+            // [k1 stage: trace]
+            hit = tb < F(3.4e37);
+            if (hit) {
+                const unsigned long long ln = (unsigned long long)lane;
+                sl4[0] = make_float4(ox, oy, oz, thr);
+                sl4[1] = make_float4(dx, dy, dz, plen);
+                sl4[2] = make_float4(t_rx0, tb, __int_as_float(pw),
+                                     __int_as_float(depth
+                                                    | (wdel ? 1 << 16 : 0)));
+                sl4[3] = make_float4(__uint_as_float((unsigned)ln),
+                                     __uint_as_float((unsigned)(ln >> 32)),
+                                     dop, lsum);
+                if (depth > 0) sl4[4] = make_float4(v0x, v0y, v0z, r0m);
+            }
+        }
+        // the lane's sum of amplitudes, where its path ended
+        if (slot >= 0 && !hit && lv_p != nullptr) lv_p[lane] = lsum;
+        // [k1 stage: sched]  the waiting set: the turn's slots leave it,
+        // those whose ray hit join it
+        const bool lo_s = slot >= 0 && slot < 32, hi_s = slot >= 32;
+        const unsigned bit = 1u << (slot & 31);
+        sh_lo = (sh_lo & ~__reduce_or_sync(FULL_MASK, lo_s ? bit : 0u))
+                | __reduce_or_sync(FULL_MASK, lo_s && hit ? bit : 0u);
+        sh_hi = (sh_hi & ~__reduce_or_sync(FULL_MASK, hi_s ? bit : 0u))
+                | __reduce_or_sync(FULL_MASK, hi_s && hit ? bit : 0u);
+        if (shade) {
+            // [k1 stage: splat]
+            mimo_warp_taps(grid, cfg, w_st, taps, j);
+        }
+    }
+    // [k1 stage: end]
+    __syncthreads();
+
+    // the block's grid (mode 2 added to `partial` already); its events
+    partial += pulse * gridDim.x * n_vals;
+    part_ev += pulse * gridDim.x;
+    if (cfg.mode == 1)
+        for (long long v = tid; v < n_vals; v += T)
+            partial[(long long)blockIdx.x * n_vals + v] = s_dgrid[v];
+    __syncthreads();
+    unsigned long long ev = events;
+    for (int off = 16; off > 0; off >>= 1)
+        ev += __shfl_down_sync(FULL_MASK, ev, off);
+    unsigned long long* s_ev = reinterpret_cast<unsigned long long*>(asm_);
+    if (j == 0) s_ev[tid >> 5] = ev;
+    __syncthreads();
+    if (tid == 0) {
+        unsigned long long tot = 0;
+        for (int w = 0; w < T / 32; ++w) tot += s_ev[w];
+        part_ev[blockIdx.x] = tot;
+    }
+}
+
+// The MIMO configuration's media and endpoint twins: the coherent one of a
+// phased array on analytic scenes, in 128-thread blocks of its own launch
+// bounds.
 template <bool MED, bool EP = false>
 __global__ void __launch_bounds__(DOP_THREADS, MIMO_MIN_BLOCKS)
 receive_mimo_kernel(const float* __restrict__ params,
@@ -8145,7 +9374,9 @@ receive_mimo_kernel(const float* __restrict__ params,
 template <bool MESH, bool DOP, bool COH, bool MIMO, bool MED, bool EP,
           bool LOB = false>
 constexpr auto kernel_of() {
-    if constexpr (MIMO)
+    if constexpr (MIMO && !MED && !EP)
+        return receive_mimo_array_kernel;
+    else if constexpr (MIMO)
         return receive_mimo_kernel<MED, EP>;
     else if constexpr (DOP && !MESH && COH && !MED && !EP && !LOB)
         return receive_coherent_kernel;
@@ -8163,6 +9394,8 @@ constexpr auto kernel_of() {
         return receive_doppler_kernel<MESH, COH, MED, EP, LOB>;
     else if constexpr (!MESH && !MED && !EP)
         return receive_flagship_kernel;
+    else if constexpr (!MED && !EP)
+        return receive_mesh_kernel;
     else
         return receive_trace_kernel<MESH, MED, EP>;
 }
@@ -8247,7 +9480,15 @@ int geometry(int n_time, int n_freq, long long n_lanes, int n_prims,
              int* threads, int* smem_bytes) {
     constexpr int TX_FLOATS = EP ? MAX_TX * TXP_COLS : TXP_COLS;
     int T, smem;
-    if (MIMO) {
+    if (MIMO && !MED && !EP) {
+        // the MIMO array kernel: its tables and the element half-widths
+        // and offsets, each warp's paths, then the block's grid of doubles
+        // (mode 1)
+        T = COH_THREADS;
+        smem = mak_table_bytes(n_prims, n_params, n_elem)
+               + (T / 32) * mak_warp_bytes()
+               + (mode == 1 ? 8 * n_time * 2 * n_elem : 0);
+    } else if (MIMO) {
         // tables, element half-widths and offsets, padded to 8 bytes,
         // then the grid of doubles
         T = DOP_THREADS;
@@ -8322,6 +9563,12 @@ int geometry(int n_time, int n_freq, long long n_lanes, int n_prims,
         T = FLAG_THREADS;
         smem = flag_table_bytes(n_prims, n_params)
                + (T / 32) * flag_warp_bytes(n_time);
+    } else if (!MED && !EP) {
+        // the mesh kernel: the flagship's tables, then each warp's paths
+        // and row
+        T = FLAG_THREADS;
+        smem = flag_table_bytes(n_prims, n_params)
+               + (T / 32) * msk_warp_bytes(n_time);
     } else {
         T = threads_for(n_time);
         if (T < 32) return (int)cudaErrorInvalidValue;
@@ -8562,22 +9809,30 @@ int rk_launch(const float* params, const float* prim, const float* txp,
             params, prim, txp, msh, uniforms, mesh, lv, partial, part_ev,
             cfg);
     };
+    // the MIMO kernels take the receiver row and the element offsets
+    auto launch_mimo = [&](auto kernel) {
+        last_kernel = reinterpret_cast<const void*>(kernel);
+        kernel<<<blocks_grid, threads, smem_bytes, s>>>(
+            params, prim, txp, msh, uniforms, mesh, lane_val, partial,
+            part_ev, cfg, rxph, eoff);
+    };
     const bool m = bbox != nullptr;
     // the configuration, or (MED) its media twin, or (EP) its endpoint twin
     auto pick = [&](auto med, auto ep_) {
         constexpr bool MED = decltype(med)::value;
         constexpr bool EP = decltype(ep_)::value;
         if (n_elem > 0) {
-            last_kernel = reinterpret_cast<const void*>(
-                receive_mimo_kernel<MED, EP>);
-            receive_mimo_kernel<MED, EP>
-                <<<blocks_grid, threads, smem_bytes, s>>>(
-                    params, prim, txp, msh, uniforms, mesh, lane_val,
-                    partial, part_ev, cfg, rxph, eoff);
+            if constexpr (!MED && !EP)
+                launch_mimo(receive_mimo_array_kernel);
+            else
+                launch_mimo(receive_mimo_kernel<MED, EP>);
         } else if (mode == 0) {
-            if (m)
-                launch(receive_trace_kernel<true, MED, EP>, lane_val);
-            else if constexpr (!MED && !EP)
+            if (m) {
+                if constexpr (!MED && !EP)
+                    launch(receive_mesh_kernel, lane_val);
+                else
+                    launch(receive_trace_kernel<true, MED, EP>, lane_val);
+            } else if constexpr (!MED && !EP)
                 launch(receive_flagship_kernel, nullptr);
             else if constexpr (EP)
                 launch(receive_endpoint_kernel, nullptr);
@@ -8689,6 +9944,17 @@ const void* rk_mesh_doppler_kernel(int coh, int lob) {
                             receive_mesh_doppler_kernel<false, true>)
                       : reinterpret_cast<const void*>(
                             receive_mesh_doppler_kernel<false, false>));
+}
+
+// The MIMO array kernel (the vacuum MIMO configuration) and the mesh
+// kernel (the vacuum mesh configuration in power), to compare with the
+// launch record.
+const void* rk_mimo_kernel() {
+    return reinterpret_cast<const void*>(receive_mimo_array_kernel);
+}
+
+const void* rk_mesh_kernel() {
+    return reinterpret_cast<const void*>(receive_mesh_kernel);
 }
 
 // The endpoint kernel of the power (coh 0) or I / Q configuration, to

@@ -2489,6 +2489,10 @@ def _bind(lib):
     lib.rk_doppler_power_kernel.restype = vp
     lib.rk_mesh_doppler_kernel.argtypes = [i32, i32]
     lib.rk_mesh_doppler_kernel.restype = vp
+    lib.rk_mimo_kernel.argtypes = []
+    lib.rk_mimo_kernel.restype = vp
+    lib.rk_mesh_kernel.argtypes = []
+    lib.rk_mesh_kernel.restype = vp
 
 
 LIBRARY = _nvcc.Library('receive_megakernel', 'rk', _bind)
@@ -2538,6 +2542,22 @@ def launched_mesh_doppler_kernel(lobes: bool = False,
     coh = lobes if coherent is None else coherent
     return lib.rk_last_kernel() == lib.rk_mesh_doppler_kernel(int(coh),
                                                               int(lobes))
+
+
+def launched_mimo_kernel() -> bool:
+    """Whether the last launch on a card ran the MIMO array kernel
+    (receive_mimo_array_kernel) of the vacuum MIMO configuration: the
+    library's launch record."""
+    lib = LIBRARY.get()
+    return lib.rk_last_kernel() == lib.rk_mimo_kernel()
+
+
+def launched_mesh_kernel() -> bool:
+    """Whether the last launch on a card ran the mesh kernel
+    (receive_mesh_kernel) of the vacuum mesh configuration in power: the
+    library's launch record."""
+    lib = LIBRARY.get()
+    return lib.rk_last_kernel() == lib.rk_mesh_kernel()
 
 
 def grid_mode(n_cells: int, doppler: bool, coherent: bool = False,

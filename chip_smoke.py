@@ -177,6 +177,7 @@ MESH_DEPTH = 2
 MESH_PLAIN_CHUNK = 1 << 20
 MESH_BENCH_LANES = 1 << 20  # the JAX package's mesh benchmark size
 N_RAYS = 1 << 20           # BVH query rays
+WF_PASS_RAYS = 1 << 17     # the BVH wavefront's rays a pass (K2 / K3)
 SEED = 7
 TOL = 1e-4                 # x max|acc| per bin; relative on event counts
 EDGE_FLIPS = 1e-4          # rays whose face differs at a shared edge
@@ -492,6 +493,8 @@ def print_build(infos: dict, tag: str) -> None:
                                               ' endpoints)' if e else
                                               ' lobes)' if lob else ')'))
     names['receive_flagship_kernel'] = 'receive_megakernel (flagship)'
+    names['receive_mesh_kernel'] = 'receive_megakernel (mesh)'
+    names['receive_mimo_array_kernel'] = 'receive_megakernel (mimo)'
     names['receive_coherent_kernel'] = 'receive_megakernel (coherent)'
     names['receive_doppler_power_kernel'] = 'receive_megakernel (doppler)'
     names['receive_mesh_doppler_kernelILb0ELb0E'] = \
@@ -543,7 +546,9 @@ MIX_KERNEL = {'flagship': 'receive_flagship_kernel',
               'multi_body': 'receive_mesh_doppler_kernelILb0ELb0E',
               'mesh_lobes_iq': 'receive_mesh_doppler_kernelILb1ELb1E',
               'mesh_lobes_power': 'receive_mesh_doppler_kernelILb0ELb1E',
-              'coherent_mesh': 'receive_mesh_doppler_kernelILb1ELb0E'}
+              'coherent_mesh': 'receive_mesh_doppler_kernelILb1ELb0E',
+              'mesh': 'receive_mesh_kernel',
+              'mimo': 'receive_mimo_array_kernel'}
 
 
 def kernel_mix(dev, tag, build_log: str, cubin: str, config: str,
@@ -748,7 +753,8 @@ def check_profile(torch, bt, adc, n, rx, anchor, pulse_compress, what):
              f'{anchor:.2f}')
 
 
-def mesh(torch, bt, rk, dev, tag, pulse_compress) -> dict:
+def mesh(torch, bt, rk, dev, tag, pulse_compress, build_log: str,
+         cubin: str) -> dict:
     from beifong_tpu_torch.scenes import mesh_scene, round_trip_bin
     s, rx = mesh_scene()
     sd = s.compile(device=dev)
@@ -857,10 +863,15 @@ def mesh(torch, bt, rk, dev, tag, pulse_compress) -> dict:
     rk.receive_megakernel.launches = 0
     rk.receive_megakernel.by_config = dict.fromkeys(rk.CONFIGS, 0)
 
+    # each call's launch record: the mesh kernel (receive_mesh_kernel)
+    record = []
+
     def run_main(seed):
-        return bt.receive(s, sd, rx, seed=seed, spp=MESH_LANES,
-                          max_depth=MESH_DEPTH, time_sampling='gate',
-                          device=dev)
+        out = bt.receive(s, sd, rx, seed=seed, spp=MESH_LANES,
+                         max_depth=MESH_DEPTH, time_sampling='gate',
+                         device=dev)
+        record.append(rk.launched_mesh_kernel())
+        return out
 
     _, n0 = run_main(1)
     call_ms, (adc, n) = cuda_ms(lambda i: run_main(2 + i), 5)
@@ -870,6 +881,11 @@ def mesh(torch, bt, rk, dev, tag, pulse_compress) -> dict:
         fail(f'the mesh path launched receive_megakernel '
              f'{rk.receive_megakernel.by_config} in 6 receive() calls ({n} '
              'samples)')
+    print(f'mesh path launch record: receive_mesh_kernel on '
+          f'{sum(record)} of {len(record)} receive() calls')
+    if len(record) != launches or not all(record):
+        fail('mesh: the launch record does not show receive_mesh_kernel '
+             'on every receive() call')
     check_profile(torch, bt, adc, n, rx, anchor, pulse_compress, 'mesh')
     med = statistics.median(call_ms)
     print(f'receive() mesh 2^24 samples depth 2: median {med:.3f} ms/call '
@@ -894,6 +910,8 @@ def mesh(torch, bt, rk, dev, tag, pulse_compress) -> dict:
                    + mesh_t.bbox.numel() + mesh_t.links.numel()
                    + mesh_t.leaves.numel() + rx.adc.n_time) + 8
     b = bound(lane_ops(stats, n_rect), n_bytes, 'mesh 2^24 lanes')
+    mix = kernel_mix(dev, tag, build_log, cubin, 'mesh',
+                     (blocks, threads, smem), sms) if cubin else {}
     return {
         'name': 'receive_megakernel', 'configuration': 'mesh',
         'route': 'cuda',
@@ -903,6 +921,7 @@ def mesh(torch, bt, rk, dev, tag, pulse_compress) -> dict:
         'launches': launches, 'max_abs_err': max(abs_errs),
         'parity': max(rel_errs), 'lanes_on_another_path': flips,
         'ms': k_med, 'plain_ms': plain_ms, **b, 'library_ms': None,
+        'repeat_bit_identical': True, **mix,
     }
 
 
@@ -2062,7 +2081,8 @@ MIMO_WF_SAMPLES = 1 << 20     # K1 against the MIMO wavefront
 MIMO_WF_CORR = 0.9            # their DAS azimuth spectra, correlated
 
 
-def mimo(torch, bt, rk, dev, tag) -> list:
+def mimo(torch, bt, rk, dev, tag, build_log: str = '',
+         cubin: str = '') -> list:
     """K1's MIMO configuration on golden config 6: parity, the anchors of
     receive_mimo() and the beamformers, the main path's times, the kernel
     alone, K1 against the MIMO wavefront."""
@@ -2084,8 +2104,11 @@ def mimo(torch, bt, rk, dev, tag) -> list:
     eoff = rk.array_offsets(s, sd, rx, dev)
     n_e = int(eoff.shape[0])
     depth = m['max_depth']
+    # the tables' mirror flag, as the main path passes it (read back from
+    # the card at each call otherwise: a host stall in the timed window)
     kw = dict(adc=rx.adc, max_depth=depth, time_sampling='gate',
-              rx_kind='phased', doppler=True, rxph=rxph, eoff=eoff)
+              rx_kind='phased', doppler=True, rxph=rxph, eoff=eoff,
+              mirror=bool(packed.mirror))
     slack = rk.phase_slack(s.band, rx.adc, mimo=True)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     blocks, threads, smem = rk.launch_geometry(
@@ -2125,24 +2148,34 @@ def mimo(torch, bt, rk, dev, tag) -> list:
         return B, das, bf.mvdr_spectrum(cube, eoff, dirs, m['fc'], s.band.c)
 
     az, dirs, want = scenes.mimo_azimuth_scan(device=dev)
+    # each call's launch record: the MIMO array kernel
+    record = []
+
+    def receive_mimo(**k):
+        out = bt.receive_mimo(s, sd, rx, max_depth=depth,
+                              time_sampling='gate', device=dev, **k)
+        record.append(rk.launched_mimo_kernel())
+        return out
+
     reset()
     with _Wavefront(bt, '_receive_mimo_pass') as wfc:
-        adc, n = bt.receive_mimo(s, sd, rx, spp=m['spp'], max_depth=depth,
-                                 seed=m['seed'], time_sampling='gate',
-                                 device=dev)
+        adc, n = receive_mimo(spp=m['spp'], seed=m['seed'])
         cube = bt.develop_mimo(adc, n, rx.adc)
         B, das, mvdr = beamform(cube)
         rates = {}
         for n_s in (MIMO_LANES, MIMO_BENCH_LANES):
-            bt.receive_mimo(s, sd, rx, spp=n_s, max_depth=depth, seed=1,
-                            time_sampling='gate', device=dev)
-            rates[n_s] = cuda_ms(lambda i: bt.receive_mimo(
-                s, sd, rx, spp=n_s, max_depth=depth, seed=2 + i,
-                time_sampling='gate', device=dev), 5)[0]
+            receive_mimo(spp=n_s, seed=1)
+            rates[n_s] = cuda_ms(lambda i: receive_mimo(spp=n_s, seed=2 + i),
+                                 5)[0]
     launches = rk.receive_megakernel.by_config['mimo']
     if launches != 13 or rk.receive_megakernel.launches != 13 or wfc.calls:
         fail(f'mimo path launched K1 {rk.receive_megakernel.by_config}, the '
              f'wavefront {wfc.calls} times in 13 receive_mimo() calls')
+    print(f'mimo path launch record: receive_mimo_array_kernel on '
+          f'{sum(record)} of {len(record)} receive_mimo() calls')
+    if len(record) != 13 or not all(record):
+        fail('mimo: the launch record does not show '
+             'receive_mimo_array_kernel on all 13 receive_mimo() calls')
     if tuple(adc.shape) != (64, 1, 2 * n_e + 2) or not bool(
             torch.isfinite(adc).all()):
         fail(f'mimo: grid {tuple(adc.shape)} not finite / wrong shape')
@@ -2204,6 +2237,8 @@ def mimo(torch, bt, rk, dev, tag) -> list:
           f'{[round(x, 3) for x in k_ms[1:]]}; plain version {plain_ms:.1f} '
           f'ms {tag}')
     print('mimo stage lanes: ' + json.dumps(stats))
+    mix = kernel_mix(dev, tag, build_log, cubin, 'mimo',
+                     (blocks, threads, smem), sms) if cubin else {}
 
     # ---- K1 against the MIMO wavefront ----
     spec = {}
@@ -2232,7 +2267,7 @@ def mimo(torch, bt, rk, dev, tag) -> list:
         dict(row='K1 MIMO', repeat_rel=rep / amp_max,
              lanes_on_another_path=c['flips'],
              receive_ms_2_22=statistics.median(rates[MIMO_BENCH_LANES]),
-             beamform_ms=bf_med, k1_wavefront_corr=corr))]
+             beamform_ms=bf_med, k1_wavefront_corr=corr, **mix))]
 
 
 MEDIA_PARITY_LANES = 1 << 14   # injected uniforms, each medium kind
@@ -3522,6 +3557,31 @@ def queries(torch, bt, dev, tag) -> list:
                 'bvh_closest 2^20 rays')
     b_a = bound(walk_ops(st_a), tables + N_RAYS * (24 + 4 + 1),
                 'bvh_any 2^20 rays')
+    # and at the BVH wavefront's pass of 2^17 rays (every eighth ray: the
+    # same mix of aperture and volume rays), with its own walk counts
+    o8, d8, m8 = (x[::N_RAYS // WF_PASS_RAYS].contiguous()
+                  for x in (o, d, maxt))
+    st_c8: dict = {}
+    st_a8: dict = {}
+    pc8_ms, _ = wall_ms(lambda: bk.bvh_closest_ref(pb, o8, d8, stats=st_c8))
+    pa8_ms, _ = wall_ms(lambda: bk.bvh_any_ref(pb, o8, d8, m8, stats=st_a8))
+    c8_ms, _ = cuda_ms(lambda i: bk.bvh_closest(pb, o8, d8), 6)
+    a8_ms, _ = cuda_ms(lambda i: bk.bvh_any(pb, o8, d8, m8), 6)
+    c8, a8 = statistics.median(c8_ms[1:]), statistics.median(a8_ms[1:])
+    b_c8 = bound(walk_ops(st_c8), tables + WF_PASS_RAYS * (24 + 16),
+                 'bvh_closest 2^17 rays')
+    b_a8 = bound(walk_ops(st_a8), tables + WF_PASS_RAYS * (24 + 4 + 1),
+                 'bvh_any 2^17 rays')
+    print(f'bvh_closest 2^17 rays (the wavefront pass): median {c8:.4f} ms '
+          f'{[round(x, 4) for x in c8_ms[1:]]}, bvh_any {a8:.4f} ms '
+          f'{[round(x, 4) for x in a8_ms[1:]]}; plain versions '
+          f'{pc8_ms:.1f} / {pa8_ms:.1f} ms {tag}')
+    at_pass = {'closest': dict(ms_2_17=c8, plain_ms_2_17=pc8_ms,
+                               bound_ms_2_17=b_c8['bound_ms'],
+                               bound_by_2_17=b_c8['bound_by']),
+               'any': dict(ms_2_17=a8, plain_ms_2_17=pa8_ms,
+                           bound_ms_2_17=b_a8['bound_ms'],
+                           bound_by_2_17=b_a8['bound_by'])}
     common = dict(route='cuda', source='beifong_tpu_torch/csrc/'
                   'bvh_kernels.cu', library_ms=None)
     return [
@@ -3529,13 +3589,14 @@ def queries(torch, bt, dev, tag) -> list:
              replaces='beifong_tpu/geometry/pallas_bvh.py:380',
              tpu_function='_run_closest via bvh_closest (pallas_bvh.py:396)',
              launches=launches[0], max_abs_err=t_abs, parity=t_rel,
-             edge_flips=flips, ms=c_med, plain_ms=pc_ms, **b_c),
+             edge_flips=flips, ms=c_med, plain_ms=pc_ms, **b_c,
+             **at_pass['closest']),
         dict(name='bvh_any', **common,
              replaces='beifong_tpu/geometry/pallas_bvh.py:426',
              tpu_function='_run_any via bvh_any (pallas_bvh.py:437)',
              launches=launches[1], max_abs_err=float(occ_flips > 0),
              parity=occ_flips / N_RAYS, edge_flips=occ_flips, ms=a_med,
-             plain_ms=pa_ms, **b_a),
+             plain_ms=pa_ms, **b_a, **at_pass['any']),
     ]
 
 
@@ -4140,7 +4201,8 @@ def main() -> int:
     # ---- 3-4. each path: parity, then the path itself ----
     kernels = [flagship(torch, bt, rk, dev, tag, pulse_compress,
                         infos['receive_megakernel'].log, cubin),
-               mesh(torch, bt, rk, dev, tag, pulse_compress)]
+               mesh(torch, bt, rk, dev, tag, pulse_compress,
+                    infos['receive_megakernel'].log, cubin)]
     dop_kernels, k1_grid = doppler(torch, bt, rk, ik, dev, tag,
                                    infos['receive_megakernel'].log, cubin)
     kernels += dop_kernels
@@ -4148,7 +4210,8 @@ def main() -> int:
                         infos['receive_megakernel'].log, cubin)
     kernels += cpi(torch, bt, rk, ik, dev, tag,
                    infos['receive_megakernel'].log, cubin)
-    kernels += mimo(torch, bt, rk, dev, tag)
+    kernels += mimo(torch, bt, rk, dev, tag,
+                    infos['receive_megakernel'].log, cubin)
     kernels += media(torch, bt, rk, dev, tag)
     kernels += phased(torch, bt, rk, dev, tag,
                       infos['receive_megakernel'].log, cubin)

@@ -266,6 +266,7 @@ def test_mesh_kernel_matches_plain_version(cuda, n_lanes, patch_p):
                                       uniforms=u, lane_out=lane, **kw)
     torch.cuda.synchronize()
     assert rk.receive_megakernel.launches == before + 1
+    assert rk.launched_mesh_kernel()
     ref, n_ref = rk.receive_megakernel_ref(params, prim, txp, u,
                                            lane_out=lane_ref, **kw)
     _assert_mesh_parity(acc, n_ev, lane, ref, n_ref, lane_ref)
@@ -1178,6 +1179,7 @@ def test_cpi_launch_is_launches_per_pulse_bit_for_bit(cuda, mesh):
         params_p, stack(prim), stack(txp), n_lanes=n_lanes, seed=seed,
         seed_step=step, mesh=None if m is None else rk.stack_meshes([m] * 3),
         **kw)
+    assert rk.launched_mesh_kernel() == mesh
     assert float(acc.abs().max()) > 0
     for p in range(n_pulses):
         one, n_one = rk.receive_megakernel(params_p[p], prim, txp,
@@ -1328,6 +1330,7 @@ def test_mimo_kernel_matches_plain_version(cuda, scene):
                                       uniforms=u, lane_out=lane, **kw)
     torch.cuda.synchronize()
     assert rk.receive_megakernel.by_config['mimo'] == before + 1
+    assert rk.launched_mimo_kernel()
     amp = torch.zeros((rx.adc.n_time, 1), dtype=torch.float64, device=cuda)
     ref, n_ref = rk.receive_megakernel_ref(params, prim, txp, u,
                                            lane_out=lane_ref, amp_out=amp,
@@ -1360,6 +1363,49 @@ def test_mimo_kernel_philox_mode(cuda):
     assert float((a1 - a2).abs().max()) <= 1e-6 * float(amp.max())
     _assert_coherent_parity(a1, n1, ref, n_ref, amp,
                             rk.phase_slack(s.band, rx.adc, mimo=True))
+
+
+@pytest.mark.gpu
+def test_mimo_and_mesh_kernels_replace_their_grid_stride_bodies(cuda):
+    """The library holds the MIMO array kernel and the mesh kernel and no
+    longer the grid-stride instantiations they replaced
+    (receive_mimo_kernel<false, false>, receive_trace_kernel<true, false,
+    false>: its functions, as `tools/tree_ab.py --sass` reads them); the
+    MIMO and mesh media twins keep the grid-stride bodies (the launch
+    record)."""
+    import os
+    import sys
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), 'tools'))
+    import tree_ab
+    names = set(tree_ab.sass_of(rk.build_library().path))
+    assert {'receive_mimo_array_kernel<>', 'receive_mesh_kernel<>',
+            'receive_mimo_kernel<1,0>', 'receive_mimo_kernel<0,1>',
+            'receive_trace_kernel<1,1,0>',
+            'receive_trace_kernel<1,0,1>'} <= names, sorted(names)
+    assert 'receive_mimo_kernel<0,0>' not in names
+    assert 'receive_trace_kernel<1,0,0>' not in names
+    for what in ('mimo', 'mesh'):
+        s, rx = mimo_beamform_scene() if what == 'mimo' else \
+            mesh_scene(n_side=9)
+        s.medium = scenes.stratified_homogeneous()
+        sd = s.compile(device='cpu')
+        p = rk.pack_scene(sd, rx, s.shape_index_of_endpoint('receiver',
+                                                            rx.id))
+        t = lambda a: torch.tensor(a, device=cuda)   # noqa: E731
+        kw = dict(adc=rx.adc, max_depth=2, time_sampling='gate',
+                  medium=p.medium)
+        if what == 'mimo':
+            kw.update(rx_kind='phased', doppler=True, rxph=t(p.rxph),
+                      eoff=rk.array_offsets(s, sd, rx, cuda))
+        else:
+            kw.update(rx_kind='wigner', mesh=p.mesh.to(cuda))
+        acc, _ = rk.receive_megakernel(t(p.params), t(p.prim), t(p.txp),
+                                       n_lanes=1 << 12, seed=3, **kw)
+        torch.cuda.synchronize()
+        assert not rk.launched_mimo_kernel() and \
+            not rk.launched_mesh_kernel(), what
+        assert bool(torch.isfinite(acc).all())
 
 
 @pytest.mark.gpu
@@ -1798,6 +1844,7 @@ def test_endpoint_mimo_kernel_matches_plain_version(cuda):
                                       lane_out=lane, **kw)
     torch.cuda.synchronize()
     assert rk.receive_megakernel.by_config['mimo_ep'] == before + 1
+    assert not rk.launched_mimo_kernel()
     amp = torch.zeros((rx.adc.n_time, 1), dtype=torch.float64, device=cuda)
     ref, n_ref = rk.receive_megakernel_ref(t(p.params), t(p.prim), t(p.txp),
                                            u, lane_out=lane_ref, amp_out=amp,

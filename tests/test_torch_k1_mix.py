@@ -1,10 +1,11 @@
 """tools/k1_mix.py on the CPU: the stage masks it reads from the plain
 version's counts (the flagship's, the coherent configuration's, the
-analytic lobe twins', the analytic Doppler power configuration's and
-the mesh Doppler kernel's main paths, with each BVH walk's visits), the
-SIMT models built on them, and the stage tags of the flagship, coherent,
-lobe, Doppler power and mesh Doppler kernels' source that its instruction
-mix reads; the anchors by which tools/k1_clock.py
+analytic lobe twins', the analytic Doppler power configuration's, the
+mesh Doppler kernel's, the mesh configuration's in power and the MIMO
+configuration's main paths, with each BVH walk's visits), the SIMT
+models built on them, and the stage tags of the flagship, coherent,
+lobe, Doppler power, mesh Doppler, mesh and MIMO array kernels' source
+that its instruction mix reads; the anchors by which tools/k1_clock.py
 instruments that source, and the edits of tools/k1_ablate.py."""
 
 import os
@@ -81,7 +82,8 @@ def test_simt_models_bound_their_work(lanes):
     (False, 'receive_endpoint_kernel'),
     (False, 'receive_endpoint_coherent_kernel'),
     (False, 'receive_doppler_power_kernel'),
-    (False, 'receive_mesh_doppler_kernel')])
+    (False, 'receive_mesh_doppler_kernel'), (False, 'receive_mesh_kernel'),
+    (False, 'receive_mimo_array_kernel')])
 def test_clock_probe_anchors_appear_once(splat, kernel):
     """k1_clock patches the kernel's source by exact text: each of its
     anchors lies in the current source once (the warp loop's in the
@@ -484,3 +486,118 @@ def test_clock_reads_each_mesh_configuration_on_its_kernel(config):
     assert not k1_clock.mdk_runs(old, config)
     out = k1_clock.instrument(old, False, k1_clock.MDK_KERNEL, config)
     assert 'k1_acc[1][threadIdx.x]' in out
+
+
+@pytest.mark.parametrize('config', ['mesh', 'mimo'])
+def test_mesh_power_and_mimo_masks_sum_to_the_plain_versions_stats(config):
+    """The mesh configuration in power (the diffuse mesh_scene, the main
+    path's strata) and the MIMO configuration (golden config 6): each stat
+    key's per-lane counts sum to the plain version's (MIMO's element
+    channels, counted over the elements, among them), the mesh's walks to
+    its node and leaf tests, and the SIMT and pool models take them (the
+    element loop and the walks weighted)."""
+    n = 1 << 12
+    masks, n_rect = k1_mix.stage_masks(n, config=config)
+    a = k1_mix.per_lane(masks, n)
+    s, rx = k1_mix.scene_of(config)
+    p = rk.pack_scene(s.compile(device='cpu'), rx,
+                      s.shape_index_of_endpoint('receiver', rx.id))
+    params, prim, txp = (torch.tensor(x) for x in (p.params, p.prim, p.txp))
+    if p.mesh is not None:
+        params[0] = rk.seed_slot(k1_mix.SEED)
+    kw = k1_mix.ref_kw(config, rx, p)
+    assert kw['max_depth'] == 2 and kw['time_sampling'] == 'gate'
+    stats: dict = {}
+    rk.receive_megakernel_ref(params, prim, txp, rk.philox_uniforms(
+        k1_mix.SEED, rk.n_draws(2), n), stats=stats, **kw)
+    for key in k1_mix.KEYS:
+        assert int(a[key].sum()) == stats[key], key
+    if config == 'mesh':
+        assert kw['patch_p'] == 32 and not kw.get('doppler')
+        nodes = sum(int(a[f'node_{w}'].sum()) for w in k1_mix.WALKS)
+        assert nodes == stats['node_tests'] > 0
+        assert int(a['phase'].sum()) == 0
+    else:
+        assert int(kw['eoff'].shape[0]) == 8 and kw['rx_kind'] == 'phased'
+        assert int(a['mimo_elem'].sum()) == 8 * int(a['phase'].sum()) > 0
+        assert 'node_ray' not in a
+    w = k1_mix.stage_weights_fp32(n_rect, config)
+    assert (w.get('mimo_elem', 0) > 0) == (config == 'mimo')
+    m = k1_mix.simt(a, w, lanes_per_thread=8)
+    pm = k1_mix.pool_model(a, w, lanes_per_thread=8, fused=True)
+    assert 0 < m['grid_stride_efficiency'] <= 1
+    assert 0 < pm['efficiency'] <= 1
+    # at 4,096 lanes few of the mesh's warps meet a hit: the pool issues at
+    # most the grid-stride loop's slots
+    assert pm['slots_a_lane'] <= m['grid_stride_slots_a_lane']
+
+
+def test_mesh_and_mimo_sources_carry_every_stage_tag():
+    """The mesh kernel's and the MIMO array kernel's tags: each stage that
+    k1_mix reads lies in their bodies (the mesh kernel's walks, no echo
+    phase in power), the element loops (mimo_splat's, the grid-stride
+    twins', and the MIMO array kernel's warp taps) are found, and each kernel
+    pattern names the kernel and the grid-stride instantiation it replaced
+    (and not the media or endpoint twins)."""
+    import re
+    src = k1_mix.source_of(ROOT)
+    with open(src) as f:
+        lines = f.read().splitlines()
+    st = k1_mix.line_stages(src)
+    a, b = _body_lines(lines, 'receive_mesh_kernel(')
+    stages = {v for ln, v in st.items() if a < ln < b}
+    assert {'draws', 'sched', 'ray', 'hit', 'direct', 'nee', 'shadow',
+            'shadow_walk', 'splat', 'bounce', 'trace', 'closest',
+            'walk'} <= stages
+    assert 'phase' not in stages
+    a, b = _body_lines(lines, 'receive_mimo_array_kernel(')
+    assert {'draws', 'sched', 'ray', 'hit', 'direct', 'nee', 'shadow',
+            'splat', 'bounce', 'trace', 'closest'} \
+        <= {v for ln, v in st.items() if a < ln < b}
+    helpers = k1_mix.func_ranges(src)
+    assert {'splat_m', 'elem', 'splat_p', 'splat_s', 'elem_w'} \
+        <= set(helpers)
+    m0, m1 = helpers['splat_m']
+    assert m0 < helpers['elem'][0] < helpers['elem'][1] < m1
+    # the MIMO array kernel stages its taps and spreads them over the warp
+    a, b = _body_lines(lines, 'receive_mimo_array_kernel(')
+    body = '\n'.join(lines[a - 1:b])
+    assert 'mimo_stage(' in body and 'mimo_warp_taps(' in body
+    assert 'mimo_splat(' not in body
+    for pat, names, not_names in (
+            (k1_mix.MSK_KERNEL, ('receive_mesh_kernel',
+                                 'receive_trace_kernelILb1ELb0ELb0EEv'),
+             ('receive_trace_kernelILb1ELb1ELb0EEv',
+              'receive_trace_kernelILb1ELb0ELb1EEv',
+              'receive_mesh_doppler_kernelILb0ELb0E')),
+            (k1_mix.MAK_KERNEL, ('receive_mimo_array_kernel',
+                                 'receive_mimo_kernelILb0ELb0EEv'),
+             ('receive_mimo_kernelILb1ELb0EEv',
+              'receive_mimo_kernelILb0ELb1EEv'))):
+        for name in names:
+            assert re.search(pat, name), (pat, name)
+        for name in not_names:
+            assert not re.search(pat, name), (pat, name)
+
+
+@pytest.mark.parametrize('kernel', ['receive_mesh_kernel',
+                                    'receive_mimo_array_kernel'])
+def test_clock_reads_the_mesh_and_mimo_kernels_or_their_parents(kernel):
+    """k1_clock instruments the new kernel's turns (its walks, or its
+    connections' splats, read per thread), and in a source without it
+    the grid-stride instantiation's lanes."""
+    with open(k1_mix.source_of(ROOT)) as f:
+        src = f.read()
+    out = k1_clock.instrument(src, False, kernel)
+    assert 'k1_acc' not in out
+    assert ('ck[12] += clock64() - q0;' in out) \
+        == (kernel == 'receive_mesh_kernel')
+    assert ('ck[14] += clock64() - q2;' in out) \
+        == (kernel == 'receive_mimo_array_kernel')
+    old = src.replace(f'{kernel}(const float', 'other_kernel(const float')
+    out = k1_clock.instrument(old, False, kernel)
+    assert 'k1_acc[0][threadIdx.x]' in out
+    assert ('k1_acc[1][threadIdx.x]' in out) \
+        == (kernel == 'receive_mesh_kernel')
+    assert ('k1_acc[4][threadIdx.x] += (unsigned)(clock64() - k1_m0)'
+            in out) == (kernel == 'receive_mimo_array_kernel')

@@ -9,8 +9,11 @@ rough-plastic mesh in I / Q and in power, the diffuse mesh in I / Q with
 strata and without, both on a global grid, and the 4-pulse CPIs of
 multi_body and the coherent mesh; the launch record shows the
 configuration's instantiation ran, its warp rows repeat bit for bit, and
-the media twins keep the grid-stride kernel.  Skips where g++ is
-absent."""
+the media twins keep the grid-stride kernel.  The mesh kernel
+(`receive_mesh_kernel`: the mesh configuration in power on the flagship
+kernel's turns) the same way on the diffuse mesh with strata and without
+and on its 4-pulse CPI, and its media twin keeps the grid-stride kernel.
+Skips where g++ is absent."""
 
 import contextlib
 import os
@@ -162,6 +165,86 @@ def _cpi_parity(name):
         assert int(ev[p]) > 0
         _parity(acc[p], ev[p], lane[p], ref, n_ref, lane_ref, amp, kw, band,
                 f'{name} pulse {p}')
+
+
+@pytest.mark.parametrize('name', ['mesh_power', 'mesh_power_p0'])
+def test_mesh_kernel_matches_plain_version(emulated, name):
+    """The mesh configuration in power (the diffuse mesh, mode 0) on
+    receive_mesh_kernel, with the main path's direction strata and
+    without: injected uniforms, every lane's sum against the plain
+    version's (lane by lane), each cell within 1e-4 x max|acc|, the same
+    events, the launch record; a repeat bit for bit (warp rows), and on
+    Philox the plain version's stream."""
+    params, prim, txp, mesh, kw, _ = k1_emulate.mesh_power_tables(name)
+    gen = torch.Generator().manual_seed(37)
+    u = torch.rand((rk.n_draws(kw['max_depth']), LANES), generator=gen)
+    for mode in ('injected', 'philox'):
+        lane = torch.zeros(LANES)
+        acc, ev = _kernel(params, prim, txp, None, mesh, kw,
+                          u if mode == 'injected' else None, lane)
+        assert rk.launched_mesh_kernel() and not rk.launched_mimo_kernel()
+        _record(None, None)
+        uu = u if mode == 'injected' else rk.philox_uniforms(
+            13, rk.n_draws(kw['max_depth']), LANES)
+        lane_ref = torch.zeros(LANES)
+        stats = {}
+        ref, n_ref = rk.receive_megakernel_ref(params, prim, txp, uu,
+                                               mesh=mesh, lane_out=lane_ref,
+                                               stats=stats, **kw)
+        assert int(ev[0]) > 0 and stats['mesh_hits'] > 0
+        assert (stats['strata'] > 0) == (kw['patch_p'] > 0)
+        chip_smoke.compare_lanes(acc.view(kw['adc'].n_time, 1), ev[0], lane,
+                                 ref, n_ref, lane_ref, kw['max_depth'],
+                                 f'{name} {mode}')
+        lane2 = torch.zeros(LANES)
+        acc2, ev2 = _kernel(params, prim, txp, None, mesh, kw,
+                            u if mode == 'injected' else None, lane2)
+        assert torch.equal(acc, acc2) and torch.equal(ev, ev2)
+        assert torch.equal(lane, lane2)
+
+
+def test_mesh_kernel_cpi_matches_plain_version(emulated):
+    """The mesh scene's 4-pulse CPI in power in one launch of
+    receive_mesh_kernel (the pulse a grid axis): each pulse lane by lane
+    against the plain version on its own tables and uniforms."""
+    params, prim, txp, mesh, kw, n_p = \
+        k1_emulate.mesh_power_tables('mesh_power_cpi')
+    gen = torch.Generator().manual_seed(41)
+    nd = rk.n_draws(kw['max_depth'])
+    u = torch.rand((n_p, nd, LANES), generator=gen)
+    lane = torch.zeros((n_p, LANES))
+    acc, ev = _kernel(params, prim, txp, None, mesh, kw, u, lane,
+                      n_pulses=n_p)
+    assert rk.launched_mesh_kernel()
+    for p in range(n_p):
+        lane_ref = torch.zeros(LANES)
+        ref, n_ref = rk.receive_megakernel_ref(
+            params[p], prim[p], txp[p], u[p], mesh=rk.pulse_mesh(mesh, p),
+            lane_out=lane_ref, **kw)
+        assert int(ev[p]) > 0
+        chip_smoke.compare_lanes(acc[p].view(kw['adc'].n_time, 1), ev[p],
+                                 lane[p], ref, n_ref, lane_ref,
+                                 kw['max_depth'], f'mesh CPI pulse {p}')
+
+
+def test_mesh_power_media_twin_keeps_the_grid_stride_kernel(emulated):
+    """The mesh scene in power through a homogeneous medium (the mesh
+    configuration's media twin) launches receive_trace_kernel<true, true>
+    (the launch record): not the mesh kernel."""
+    s, rx = scenes.mesh_scene(n_side=9)
+    s.medium = scenes.stratified_homogeneous()
+    p = rk.pack_scene(s.compile(use_bvh=False, device='cpu'), rx,
+                      s.shape_index_of_endpoint('receiver', rx.id))
+    assert p.medium > 0
+    kw = dict(adc=rx.adc, max_depth=2, time_sampling='gate',
+              rx_kind='wigner', doppler=False, coherent=False,
+              receive_type='raw', has_lo=False, mirror=False, patch_p=0)
+    acc, ev = _kernel(torch.tensor(p.params), torch.tensor(p.prim),
+                      torch.tensor(p.txp), None, p.mesh, kw, None, None,
+                      medium=p.medium)
+    assert not rk.launched_mesh_kernel()
+    _record(None, None)
+    assert bool(torch.isfinite(acc).all())
 
 
 def test_mesh_twins_keep_the_grid_stride_kernel(emulated):

@@ -294,18 +294,23 @@ def test_wavefront_mimo_matches_jax(name, fn, depth, ts, monkeypatch):
 # ---------------------------------------------------------------------------
 
 
-def test_kernel_plain_version_matches_jax_megakernel():
-    """Config 6, depth 2, gate, 2,048 lanes, all 16 channels, identical
-    uniforms: within 1e-4 x max|acc| plus the MIMO phase slack times the
-    cell's amplitude sum; the same events."""
+def _kernel_parity(ts: str, depth: int, n_lanes: int, n_time: int = 64,
+                   seed: int = 5):
+    """The plain version's MIMO configuration against `pr._run(interpret=
+    True, mimo_e=8)` on config 6 (on `n_time` fast-time bins) in time
+    sampling `ts` at `depth`, identical uniforms: all 16 channels within
+    1e-4 x max|acc| plus the MIMO phase slack times the cell's amplitude
+    sum; the same events."""
     s_j, rx_j = config6('jax')
+    if n_time != rx_j.adc.n_time:
+        rx_j = dc.replace(rx_j, adc=dc.replace(rx_j.adc, n_time=n_time))
+        s_j.receivers[0] = rx_j
     sd_j = s_j.compile(use_bvh=False)
     why = []
     assert pr.supported(sd_j, rx_j, why, mimo=True), why
     si = s_j.shape_index_of_endpoint('receiver', rx_j.id)
     (params, prim, txp, php, rxph, msh, mesh_types, tex, bmp_meta,
      _) = pr._pack_scene(sd_j, rx_j, si)
-    seed, n_lanes, depth = 5, 2048, 2
     params = params.copy()
     params[0] = float(seed * 1_000_003 % (1 << 30))
     eoff = np.asarray(ep_j.rx_elem_offsets(sd_j, rx_j, si), np.float32)
@@ -314,7 +319,7 @@ def test_kernel_plain_version_matches_jax_megakernel():
         jnp.asarray(php), jnp.asarray(rxph), jax.random.key(seed),
         tuple(int(k) for k in prim[:, 0]), tuple(int(f) for f in prim[:, 14]),
         tuple(int(f) for f in prim[:, 18]), tuple(int(f) for f in prim[:, 26]),
-        rx_j.adc, rx_j.receive_type, 'gate', depth, 'phased', n_lanes, True,
+        rx_j.adc, rx_j.receive_type, ts, depth, 'phased', n_lanes, True,
         False, has_mesh=False, mesh_types=mesh_types, moving=False,
         absorbing=False, tx_kinds=tuple(int(f) for f in txp[:, 27]),
         has_lo=False, polarized=False, bmp_meta=bmp_meta, layered=0,
@@ -329,14 +334,14 @@ def test_kernel_plain_version_matches_jax_megakernel():
                            dtype=jnp.float32)
     u = torch.tensor(np.asarray(u).transpose(1, 0, 2, 3).reshape(nd, n_lanes))
     rx_t = port_rx(rx_j)
-    amp = torch.zeros((64, 1), dtype=torch.float64)
+    amp = torch.zeros((n_time, 1), dtype=torch.float64)
     stats = {}
     acc, n_ev = rk.receive_megakernel_ref(
         torch.tensor(params), torch.tensor(prim), torch.tensor(txp), u,
-        adc=rx_t.adc, max_depth=depth, time_sampling='gate',
+        adc=rx_t.adc, max_depth=depth, time_sampling=ts,
         rx_kind='phased', doppler=True, rxph=torch.tensor(rxph),
         eoff=torch.from_numpy(eoff), amp_out=amp, stats=stats)
-    assert acc.shape == (64, 1, 16) and out.shape == (64, 16)
+    assert acc.shape == (n_time, 1, 16) and out.shape == (n_time, 16)
     ref = out[:, None, :]
     scale = np.abs(ref).max()
     assert scale > 0 and cnt > 0
@@ -347,6 +352,36 @@ def test_kernel_plain_version_matches_jax_megakernel():
     assert int(n_ev) == int(cnt)
     assert stats['phased_ray'] == n_lanes and stats['mimo_vertex'] > 0
     assert stats['mimo_elem'] == 8 * stats['phase'] > 0
+    return rx_t, stats
+
+
+def test_kernel_plain_version_matches_jax_megakernel():
+    """Config 6, depth 2, gate, 2,048 lanes (`_kernel_parity`)."""
+    _kernel_parity('gate', 2, 2048)
+
+
+# the card's other two MIMO cases (tests/test_torch_gpu.py MIMO_SCENES):
+# (time sampling, depth, fast-time bins, lanes, seed): fixed time sampling
+# at depth 3, and 1,024 fast-time bins, whose 1,024 x 16 values lie past
+# the block's 8,192-value shared grid (mode 2).  Fixed sampling connects
+# about one lane in 2,048 on config 6 (seed 5's connect none there): seed 4
+# is one whose lanes connect
+MORE_CASES = {'config6_fixed_d3': ('fixed', 3, 64, 2048, 4),
+              'global_grid': ('gate', 2, 1024, 1024, 5)}
+
+
+@pytest.mark.parametrize('case', list(MORE_CASES))
+def test_kernel_plain_version_matches_jax_megakernel_more(case):
+    """Config 6 in fixed sampling at depth 3, and on 1,024 bins (the global
+    grid's case), 1,024-2,048 lanes (`_kernel_parity`)."""
+    ts, depth, n_time, n_lanes, seed = MORE_CASES[case]
+    rx_t, stats = _kernel_parity(ts, depth, n_lanes, n_time, seed)
+    n_elem = 8
+    assert rk.grid_mode(n_time, True, True, n_elem) == \
+        (2 if case == 'global_grid' else 1)
+    if depth == 3:
+        # the bounce's second vertex is traced
+        assert stats['trace'] > stats['phased_ray']
 
 
 # ---------------------------------------------------------------------------

@@ -78,6 +78,20 @@ of the mesh Doppler kernel (receive_mesh_doppler_kernel; time them with
                where it fits (MDK_SMEM_BVH_BYTES: multi_body's 19 KB) and
                walked there with plain loads (the same results bit for
                bit; _launch passes the tables' sizes for one pulse too);
+of the mesh kernel (receive_mesh_kernel; --only mesh) and of the MIMO
+array kernel (receive_mimo_array_kernel; --only mimo):
+  msk_lb4, msk_lb5  the mesh kernel's blocks an SM, 4 / 5 in place of 6;
+  mak_lb5, mak_lb6  the MIMO array kernel's, 5 / 6 in place of 4;
+  msk_mdk      the mesh configuration in power routed to the mesh Doppler
+               kernel <false, false> (no new code: the wrapper hands it a
+               static diffuse mesh-shape row and the block's grid; a
+               Python edit, PY_EDITS);
+  mak_thread_elem  the MIMO array kernel's first design: each connecting
+               thread loops over the elements in SHADE (mimo_splat), not
+               the warp after the trace (mimo_warp_taps);
+  mak_no_elem  the MIMO array kernel's element taps skipped (each
+               connection's phase and amplitude kept, its taps not added;
+               not exact);
 and, no ablation, `tags`: the stage tags of trace_lane's lobe path added
 to a parent that predates them (comments only: its machine code is the
 parent's), for tools/k1_mix.py --sass.
@@ -199,6 +213,21 @@ for _n in (4, 5):
             'template <bool COH, bool LOB>\n__global__ void '
             f'__launch_bounds__(COH_THREADS, {_f} ? {_n} : MDK_MIN_BLOCKS)'
             '\n'),)
+# the mesh kernel's and the MIMO array kernel's blocks an SM, 4 / 5 in
+# place of 6
+for _n in (4, 5):
+    ABLATIONS[f'msk_lb{_n}'] = (('constexpr int MSK_MIN_BLOCKS = 6;',
+                                 f'constexpr int MSK_MIN_BLOCKS = {_n};'),)
+
+# the MIMO array kernel's blocks an SM, 5 / 6 in place of 4
+for _n in (5, 6):
+    ABLATIONS[f'mak_lb{_n}'] = (('constexpr int MAK_MIN_BLOCKS = 4;',
+                                 f'constexpr int MAK_MIN_BLOCKS = {_n};'),)
+# the MIMO array kernel's element taps skipped: each connection's phase
+# and amplitude kept, its taps not added (the grid left empty; not exact)
+ABLATIONS['mak_no_elem'] = ((
+    '            mimo_warp_taps(grid, cfg, w_st, taps, j);',
+    '            mimo_warp_taps(grid, cfg, w_st, false, j);'),)
 ABLATIONS['dpw_freq_call'] = (
     ('    const bool f_call = r0 == 1 && (cfg.gate || cfg.rule == 0);',
      '    const bool f_call = true;'),
@@ -442,6 +471,21 @@ OUTSIDE = {
          '        smem = coh_table_bytes(n_prims, n_params)\n'
          '               + (T / 32) * dpw_warp_bytes(n_time, n_freq, mode)'))}
 
+# the MIMO array kernel's first design: each connecting thread loops over
+# the elements in SHADE (mimo_splat), the warp waiting (edits inside the
+# kernel's body, MAK_SCOPE)
+MAK_SCOPE = 'receive_mimo_array_kernel(const float* __restrict__ params,'
+ABLATIONS['mak_thread_elem'] = (
+    ('                lsum += mimo_stage(cfg, tx, lo, sp, val, yb, f_recv, t_recv,\n'
+     '                                   dtot, t_emit, k_c, n_bnd, v0x, v0y, v0z,\n'
+     '                                   r0m, w_st, j, &taps);',
+     '                lsum += mimo_splat(grid, cfg, tx, lo, sp, val, yb, f_recv,\n'
+     '                                   t_recv, dtot, t_emit, k_c, n_bnd, v0x,\n'
+     '                                   v0y, v0z, r0m);'),
+    ('            mimo_warp_taps(grid, cfg, w_st, taps, j);',
+     '            mimo_warp_taps(grid, cfg, w_st, false, j);'))
+SCOPE['mak_thread_elem'] = MAK_SCOPE
+
 # the lobe kernel's SHADE turns of mixed kinds (no turn of 32 paths on the
 # transmitter or 32 off it: the parent's slot order)
 ABLATIONS['lob_mixed'] = (
@@ -613,6 +657,23 @@ PY_EDITS = {'mdk_smem_bvh': (
     ('integrators/receive_kernel.py',
      '        m_strides = (0, 0, 0) if mesh is None or n_pulses == 1 else tuple(',
      '        m_strides = (0, 0, 0) if mesh is None else tuple('),)}
+# the mesh configuration in power routed to the mesh Doppler kernel
+# <false, false> with no new code: the wrapper hands it the Doppler mesh's
+# tables (one static diffuse mesh-shape row, the block's grid: mode 1),
+# whose lanes are the mesh configuration's (tools/k1_emulate.py
+# mesh_power_mdk holds them lane by lane)
+ABLATIONS['msk_mdk'] = ()
+PY_EDITS['msk_mdk'] = (
+    ('integrators/receive_kernel.py',
+     '''    dev = params.device
+    lib = LIBRARY.get()
+    n_elem = 0 if eoff is None else int(eoff.shape[0])''',
+     '''    dev = params.device
+    if mesh is not None and not doppler and not medium and not ep:
+        doppler = True
+        msh = torch.zeros(tuple(params.shape[:-1]) + (1, 8), device=dev)
+    lib = LIBRARY.get()
+    n_elem = 0 if eoff is None else int(eoff.shape[0])'''),)
 for _n in (1, 8, 16):
     K4_ABLATIONS[f'k4_group{_n}'] = (('constexpr int GROUP = 32;',
                                       f'constexpr int GROUP = {_n};'),)

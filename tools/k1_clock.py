@@ -33,7 +33,14 @@ walk and in the block's power grid splat; in a tree whose configuration
 runs the grid-stride instantiation (before the mesh Doppler kernel, or
 before its instantiation for that configuration) that instantiation's
 per-thread cycles in its lanes, their closest-hit walks, shadow walks
-and grid splats.
+and grid splats.  The mesh kernel (receive_mesh_kernel) runs `mesh` (the
+diffuse mesh_scene in power, 2^24 lanes, depth 2, the main path's
+strata) with each thread's cycles in its walks, the MIMO array kernel
+(receive_mimo_array_kernel) `mimo` (golden config 6, 2^24 lanes, depth
+2) with each thread's cycles in SHADE's part of its connections' splats
+(mimo_stage) and the warp's element taps as its splat;
+in a tree before them the grid-stride instantiation's lanes, and their
+walks or element loops.
 
 Run from the repository root on the card's machine:
 
@@ -80,7 +87,9 @@ KERNELS = {'flagship': 'receive_flagship_kernel',
            'multi_body': 'receive_mesh_doppler_kernel',
            'mesh_lobes_iq': 'receive_mesh_doppler_kernel',
            'mesh_lobes_power': 'receive_mesh_doppler_kernel',
-           'coherent_mesh': 'receive_mesh_doppler_kernel'}
+           'coherent_mesh': 'receive_mesh_doppler_kernel',
+           'mesh': 'receive_mesh_kernel',
+           'mimo': 'receive_mimo_array_kernel'}
 # the mesh Doppler kernel's instantiation of each mesh configuration, as
 # rk_launch launches it in a tree that has it
 MDK_LAUNCH = {c: f'launch(receive_mesh_doppler_kernel<{f}>' for c, f in (
@@ -264,6 +273,49 @@ MDK_PATCH = PATCH[1:5] + (
      '                    }\n                }\n'))
 
 
+# the mesh kernel's warp loop (the flagship's turns, its warp splat at the
+# loop's end), and per thread its closest-hit walks (12) and shadow walks
+# (13)
+MSK_KERNEL = 'receive_mesh_kernel'
+MSK_SPLAT = ('        if (shade) {\n            // [k1 stage: splat]\n'
+             '            pow_splat_rows(w_row, w_vals, cfg.n_time, val, yb, '
+             'j);\n')
+MSK_PATCH = tuple(
+    (old.format(splat=MSK_SPLAT), new.format(splat=MSK_SPLAT))
+    if '{splat}' in old else (old, new) for old, new in PATCH[1:-1]) + (
+    ('    if (j == 0)\n'
+     '        for (int k = 0; k < 16; ++k) atomicAdd(&k1_clk[k], ck[k]);',
+     '    for (int k = 0; k < 16; ++k)\n'
+     '        if (j == 0 || k == 12 || k == 13)\n'
+     '            atomicAdd(&k1_clk[k], ck[k]);'),) + MDK_PATCH[5:7]
+
+
+# the MIMO array kernel's warp loop (the coherent kernel's turns, its warp
+# element taps at the loop's end), and per thread SHADE's part of its
+# connections' splats, the echo phase and the taps' staging (14)
+MAK_KERNEL = 'receive_mimo_array_kernel'
+MAK_SPLAT = ('        if (shade) {\n            // [k1 stage: splat]\n'
+             '            mimo_warp_taps(grid, cfg, w_st, taps, j);\n')
+MAK_PATCH = tuple(
+    (old.format(splat=MAK_SPLAT), new.format(splat=MAK_SPLAT))
+    if '{splat}' in old else (old, new) for old, new in PATCH[1:-1]) + (
+    ('    if (j == 0)\n'
+     '        for (int k = 0; k < 16; ++k) atomicAdd(&k1_clk[k], ck[k]);',
+     '    for (int k = 0; k < 16; ++k)\n'
+     '        if (j == 0 || k == 14)\n'
+     '            atomicAdd(&k1_clk[k], ck[k]);'),
+    ('                lsum += mimo_stage(cfg, tx, lo, sp, val, yb, f_recv, '
+     't_recv,\n',
+     '                const long long q2 = clock64();\n'
+     '                lsum += mimo_stage(cfg, tx, lo, sp, val, yb, f_recv, '
+     't_recv,\n'),
+    ('                events += val != 0.0f;\n            }\n\n'
+     '            // [k1 stage: bounce]',
+     '                events += val != 0.0f;\n'
+     '                ck[14] += clock64() - q2;\n            }\n\n'
+     '            // [k1 stage: bounce]'))
+
+
 def ep_patch(kernel: str) -> tuple:
     """(anchor, text) of an endpoint kernel's loop: the turn clocks of
     PATCH, its loop's end, and its sub-stages'."""
@@ -425,6 +477,23 @@ MESH_GRID_PATCH = GRID_PATCH[:1] + GRID_PATCH[3:4] + GRID_PATCH[-4:] + (
      '(unsigned)(clock64() - k1_w1);\n'))
 
 
+# a parent's grid-stride MIMO instantiation: each thread's cycles in its
+# lanes (0) and in mimo_splat's element loop (4)
+MIMO_GRID_NAMES = ('lane', '', '', '', 'elem_loop')
+MIMO_GRID_PATCH = GRID_PATCH[:1] + GRID_PATCH[-4:] + (
+    ('    float kf = mul_rn(F(6.283185307179586), f_recv / sp[1]);\n'
+     '    const float* eo = grid.tab + 2;\n',
+     '    float kf = mul_rn(F(6.283185307179586), f_recv / sp[1]);\n'
+     '    const float* eo = grid.tab + 2;\n'
+     '    const long long k1_m0 = clock64();\n'),
+    ('            grid.add((i0 + 1) * n_ch + 2 * e + 1, si * wt1);\n'
+     '        }\n    }\n    return amp;\n}',
+     '            grid.add((i0 + 1) * n_ch + 2 * e + 1, si * wt1);\n'
+     '        }\n    }\n'
+     '    k1_acc[4][threadIdx.x] += (unsigned)(clock64() - k1_m0);\n'
+     '    return amp;\n}'))
+
+
 def instrument_grid(s: str, patch=GRID_PATCH) -> str:
     """The receive kernel's source `s` with each thread's clocks in the
     grid-stride endpoint twins' stages (GRID_NAMES), or with
@@ -468,6 +537,20 @@ def instrument(s: str, splat: bool = False,
     if kernel == MDK_KERNEL and not mdk_runs(s, config or 'multi_body'):
         # a tree whose configuration runs the grid-stride body
         return instrument_grid(s, MESH_GRID_PATCH)
+    if kernel in (MSK_KERNEL, MAK_KERNEL) \
+            and kernel + '(const float' not in s:
+        # a tree before the mesh kernel or the MIMO array kernel: the
+        # grid-stride instantiation's lanes
+        return instrument_grid(s, MESH_GRID_PATCH if kernel == MSK_KERNEL
+                               else MIMO_GRID_PATCH)
+    if kernel in (MSK_KERNEL, MAK_KERNEL):
+        s = _patch_body(s, f'{kernel}(const float* __restrict__ params,',
+                        MSK_PATCH if kernel == MSK_KERNEL else MAK_PATCH)
+        for old, new in (PATCH[0], PATCH[-1]):
+            if s.count(old) != 1:
+                raise SystemExit(f'anchor not found once: {old[:60]!r}')
+            s = s.replace(old, new)
+        return s
     if kernel in EP_KERNELS + (DPW_KERNEL,) \
             and kernel + '(const float' not in s:
         # a tree before the endpoint kernels or the Doppler power kernel:
@@ -548,7 +631,7 @@ def run(tree: str, config: str = 'flagship') -> dict:
     assert rk.__file__.startswith(tree)
     dev = torch.device('cuda')
     if config.startswith('ep_') or config in ('range_doppler', 'fmcw_sonar') \
-            or config in MDK_LAUNCH:
+            or config in MDK_LAUNCH or config in ('mesh', 'mimo'):
         return run_ep(tree, config, rk, scenes, dev)
     s, rx = {'flagship': scenes.flagship_scene,
              'pulse_train': lambda: scenes.pulse_train_scene(0),
@@ -610,11 +693,20 @@ def run_ep(tree: str, config: str, rk, scenes, dev) -> dict:
     sys.path.insert(0, os.path.join(HERE, 'tools'))
     import tree_ab
     mdk = config in MDK_LAUNCH
-    dpw = not config.startswith('ep_') and not mdk
-    params, prim, txp, kw = (tree_ab.mesh_doppler_call if mdk
-                             else tree_ab.doppler_power_call if dpw
-                             else tree_ab.endpoint_call)(rk, scenes, config,
-                                                         dev)
+    own = config in ('mesh', 'mimo')   # the mesh or MIMO array kernel
+    dpw = not config.startswith('ep_') and not mdk and not own
+    if config == 'mesh':
+        sys.path.insert(0, HERE)
+        import chip_smoke
+        params, prim, txp, kw = tree_ab.mesh_call(rk, scenes, dev,
+                                                  chip_smoke)
+    elif config == 'mimo':
+        params, prim, txp, kw = tree_ab.mimo_call(rk, scenes, dev)
+    else:
+        params, prim, txp, kw = (tree_ab.mesh_doppler_call if mdk
+                                 else tree_ab.doppler_power_call if dpw
+                                 else tree_ab.endpoint_call)(rk, scenes,
+                                                             config, dev)
     lib = rk.LIBRARY.get()
     lib.rk_clock.argtypes = [ctypes.c_void_p, ctypes.c_int]
     buf = (ctypes.c_ulonglong * 16)()
@@ -636,21 +728,26 @@ def run_ep(tree: str, config: str, rk, scenes, dev) -> dict:
            'instrumented_ms': a.elapsed_time(b)}
     with open(os.path.join(tree, 'beifong_tpu_torch', 'csrc',
                            'receive_megakernel.cu')) as f:
-        grid_stride = not mdk_runs(f.read(), config) if mdk else \
-            not hasattr(rk, 'launched_doppler_power_kernel' if dpw
-                        else 'launched_endpoint_kernel')
+        src = f.read()
+    grid_stride = not mdk_runs(src, config) if mdk else \
+        KERNELS[config] + '(const float' not in src if own else \
+        not hasattr(rk, 'launched_doppler_power_kernel' if dpw
+                    else 'launched_endpoint_kernel')
     if grid_stride:
         lane = max(1, v[0])
-        names = MESH_GRID_NAMES if mdk else GRID_NAMES
+        names = MESH_GRID_NAMES if mdk or config == 'mesh' else \
+            MIMO_GRID_NAMES if config == 'mimo' else GRID_NAMES
         out.update(kernel='grid-stride twin',
                    share_of_lane_cycles={n: v[i] / lane for i, n in
                                          enumerate(names) if n},
                    thread_cycles_a_lane=v[0] / kw['n_lanes'])
         return out
     tot = sum(v[:len(NAMES)])
-    if mdk:
+    if mdk or config == 'mesh':
         within = {'walk': v[12] / 32 / tot, 'shadow_walk': v[13] / 32 / tot,
                   'grid_splat_in_shade': v[14] / 32 / tot}
+    elif config == 'mimo':
+        within = {'stage_in_shade': v[14] / 32 / tot}
     elif dpw:
         within = {'grid_splat_in_shade': v[14] / 32 / tot}
     else:

@@ -42,7 +42,14 @@ power, the diffuse mesh in I / Q with strata and without, its 4-pulse
 CPI, and the diffuse mesh in I / Q and the rough-plastic one in power on
 a global grid of 64 x 300 cells) run the mesh Doppler kernel's four configurations (the Doppler mesh
 in power, the coherent mesh, the power mesh lobe twin and the mesh lobe
-twin in I / Q): `--cases mesh_multi_body,...`.
+twin in I / Q): `--cases mesh_multi_body,...`.  The mesh scene in power
+(MESH_POWER_CASES: the diffuse mesh with the main path's direction strata
+and without, and its 4-pulse CPI) runs the mesh kernel (mesh_power_mdk:
+this tree's mesh Doppler kernel on the Doppler mesh's tables, the
+ablation msk_mdk's route), and golden config
+6 (MIMO_CASES: in gate sampling at depth 2, in fixed sampling at depth 3,
+and on 1,024 bins, the global grid) the MIMO array kernel: `--cases
+mesh_power,...,mimo_config6,...`.
 """
 
 from __future__ import annotations
@@ -195,6 +202,144 @@ MESH_CASES = {'mesh_multi_body': ('multi_body_scene', {}, False, 2, 'gate',
 # memory, into the global float64 grid (mode 2)
 MESH_ADC = {'mesh_coherent_global': dict(n_freq=300),
             'mesh_rough_plastic_global': dict(n_freq=300)}
+
+
+# the mesh kernel's scenes (the mesh configuration in power, mode 0): the
+# diffuse mesh_scene at 23 x 23 vertices (968 triangles) with the main
+# path's direction strata P 32 and without (P 0), its 4-pulse CPI (P 16),
+# and on the omni receiver: (scenes' keywords, pulses, direction strata P)
+MESH_POWER_CASES = {'mesh_power': (dict(n_side=23), 1, 32),
+                    'mesh_power_p0': (dict(n_side=23), 1, 0),
+                    'mesh_power_cpi': (dict(n_side=23), 4, 16),
+                    'mesh_power_mdk': (dict(n_side=23), 1, 32)}
+# the cases whose `this` side runs the mesh Doppler kernel's route (the
+# ablation tools/k1_ablate.py msk_mdk: the Doppler mesh's tables, one
+# static diffuse mesh-shape row, the block's grid)
+MDK_ROUTE = ('mesh_power_mdk',)
+
+
+def mesh_power_tables(name: str, device='cpu'):
+    """(params, prim, txp, mesh, keyword arguments of
+    receive_megakernel(_cpi) less the lanes, pulses) of a mesh case in
+    power: the main path's tables (no mesh-shape rows in mode 0)."""
+    import torch
+    from beifong_tpu_torch import scenes as S
+    from beifong_tpu_torch.integrators import receive_kernel as rk
+    kw_s, n_p, patch_p = MESH_POWER_CASES[name]
+    s, rx = S.mesh_scene(**kw_s)
+    if n_p > 1:
+        p, rx, _ = rk.pack_cpi(s, n_p, 10.0)
+    else:
+        p = rk.pack_scene(s.compile(use_bvh=False, device='cpu'), rx,
+                          s.shape_index_of_endpoint('receiver', rx.id))
+    params = torch.tensor(p.params, device=device)
+    if n_p == 1:
+        # under strata, a seed slot whose first tiles' beams meet the target
+        params[0] = rk.seed_slot(32 if patch_p else 3)
+    kw = dict(adc=rx.adc, max_depth=2, time_sampling='gate',
+              rx_kind=rk.rx_kind_of(rx), doppler=False, coherent=False,
+              receive_type=rx.receive_type, has_lo=False, mirror=False,
+              patch_p=patch_p)
+    return (params, torch.tensor(p.prim, device=device),
+            torch.tensor(p.txp, device=device), p.mesh.to(device), kw, n_p)
+
+
+def compare_mesh_power(libs, name: str, n: int, gen) -> dict:
+    """One mesh case in power in both trees on injected uniforms and on
+    Philox: {'injected' / 'philox': (lanes equal, events equal, grids
+    equal, largest grid difference over max|acc|)}."""
+    import torch
+    from beifong_tpu_torch.integrators import receive_kernel as rk
+    params, prim, txp, mesh, kw, n_p = mesh_power_tables(name)
+    out = {}
+    for mode in ('injected', 'philox'):
+        nd = rk.n_draws(kw['max_depth'])
+        shape = (n_p, nd, n) if n_p > 1 else (nd, n)
+        u = torch.rand(shape, generator=gen) if mode == 'injected' else None
+        res = []
+        for which in ('other', 'this'):
+            rk.LIBRARY = libs[which]
+            lane = torch.zeros((n_p, n) if n_p > 1 else n)
+            k, msh = launch_kw(kw), None
+            if which == 'this' and name in MDK_ROUTE:
+                k['doppler'] = True
+                msh = torch.zeros(tuple(params.shape[:-1]) + (1, 8))
+            acc, ev = rk._launch(
+                params, prim, txp, msh, u, mesh, lane, n_pulses=n_p,
+                n_lanes=n, seed=13, seed_step=7919 if n_p > 1 else 0, **k)
+            res.append((acc, ev, lane))
+        (a0, e0, l0), (a1, e1, l1) = res
+        scale = float(a0.abs().max()) or 1.0
+        out[mode] = (torch.equal(l0, l1), torch.equal(e0, e1),
+                     torch.equal(a0, a1),
+                     float((a0 - a1).abs().max()) / scale)
+        print(f'{name} {mode}: events {e1.tolist()}, lanes with a '
+              f'contribution {int((l1 != 0).sum())}', flush=True)
+    return out
+
+
+# the MIMO array kernel's scenes: golden config 6 (the block's grid),
+# in fixed sampling at depth 3, and on 1,024 fast-time bins (1,024 x 16
+# values: the global grid, mode 2), as tests/test_torch_gpu.py MIMO_SCENES:
+# (the ADC's changes, time sampling, depth)
+MIMO_CASES = {'mimo_config6': ({}, 'gate', 2),
+              'mimo_config6_fixed_d3': ({}, 'fixed', 3),
+              'mimo_global_grid': ({'n_time': 1024}, 'gate', 2)}
+
+
+def mimo_tables(name: str, device='cpu'):
+    """(params, prim, txp, keyword arguments of receive_megakernel less
+    the lanes, the scene's band) of a MIMO case."""
+    import torch
+    from beifong_tpu_torch import scenes as S
+    from beifong_tpu_torch.integrators import receive_kernel as rk
+    adc, ts, depth = MIMO_CASES[name]
+    s, rx = S.mimo_beamform_scene()
+    if adc:
+        rx = dataclasses.replace(rx, adc=dataclasses.replace(rx.adc, **adc))
+        s.receivers[0] = rx
+    sd = s.compile(use_bvh=False, device='cpu')
+    p = rk.pack_scene(sd, rx, s.shape_index_of_endpoint('receiver', rx.id))
+    params = torch.tensor(p.params, device=device)
+    params[0] = rk.seed_slot(3)
+    kw = dict(adc=rx.adc, max_depth=depth, time_sampling=ts,
+              rx_kind='phased', doppler=True, coherent=False,
+              receive_type=rx.receive_type,
+              has_lo=rx.lo_waveform is not None, mirror=bool(p.mirror),
+              rxph=torch.tensor(p.rxph, device=device),
+              eoff=rk.array_offsets(s, sd, rx, device))
+    return (params, torch.tensor(p.prim, device=device),
+            torch.tensor(p.txp, device=device), kw, s.band)
+
+
+def compare_mimo(libs, name: str, n: int, gen) -> dict:
+    """One MIMO case in both trees on injected uniforms and on Philox:
+    {'injected' / 'philox': (lanes equal, events equal, grids equal,
+    largest grid difference over max|acc|)}."""
+    import torch
+    from beifong_tpu_torch.integrators import receive_kernel as rk
+    params, prim, txp, kw, _ = mimo_tables(name)
+    out = {}
+    for mode in ('injected', 'philox'):
+        nd = rk.n_draws(kw['max_depth'])
+        u = torch.rand((nd, n), generator=gen) if mode == 'injected' \
+            else None
+        res = []
+        for which in ('other', 'this'):
+            rk.LIBRARY = libs[which]
+            lane = torch.zeros(n)
+            acc, ev = rk._launch(params, prim, txp, None, u, None, lane,
+                                 n_pulses=1, n_lanes=n, seed=13,
+                                 seed_step=0, patch_p=0, **launch_kw(kw))
+            res.append((acc, ev, lane))
+        (a0, e0, l0), (a1, e1, l1) = res
+        scale = float(a0.abs().max()) or 1.0
+        out[mode] = (torch.equal(l0, l1), torch.equal(e0, e1),
+                     torch.equal(a0, a1),
+                     float((a0 - a1).abs().max()) / scale)
+        print(f'{name} {mode}: events {e1.tolist()}, lanes with a '
+              f'contribution {int((l1 != 0).sum())}', flush=True)
+    return out
 
 
 def mesh_tables(name: str, device='cpu'):
@@ -414,7 +559,8 @@ def main() -> int:
     ap.add_argument('--lanes', type=int, default=4096)
     ap.add_argument('--cases', default=','.join(CASES),
                     help=f'of {tuple(CASES) + tuple(EP_CASES)}'
-                    f' + {tuple(DOP_CASES)} + {tuple(MESH_CASES)}')
+                    f' + {tuple(DOP_CASES)} + {tuple(MESH_CASES)}'
+                    f' + {tuple(MESH_POWER_CASES)} + {tuple(MIMO_CASES)}')
     ap.add_argument('--grids', action='store_true')
     args = ap.parse_args()
     import torch
@@ -492,9 +638,12 @@ def main() -> int:
             compare('window_thin CPI 4 pulses', p, u, n_pulses=4, seed=3)
         return 0
     for name in args.cases.split(','):
-        if name in EP_CASES or name in DOP_CASES or name in MESH_CASES:
+        if name in EP_CASES or name in DOP_CASES or name in MESH_CASES \
+                or name in MESH_POWER_CASES or name in MIMO_CASES:
             fn = compare_endpoint if name in EP_CASES else \
-                compare_mesh if name in MESH_CASES else compare_doppler
+                compare_mesh if name in MESH_CASES else \
+                compare_mesh_power if name in MESH_POWER_CASES else \
+                compare_mimo if name in MIMO_CASES else compare_doppler
             for mode, (lanes, evs, grids, diff) in fn(
                     libs, name, n, gen).items():
                 print(f'{name} {mode}: lanes bit-equal {lanes}, events '

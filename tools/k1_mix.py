@@ -48,7 +48,13 @@ analytic Doppler configuration in power (depth 2, 2^24 lanes: the
 grid-stride receive_doppler_kernel<false, false, false, false> or
 receive_doppler_power_kernel that replaced it): range_doppler (pulse 0 of
 the range-Doppler example, gate) and fmcw_sonar (golden config 2,
-mix_resample, fixed sampling).  The
+mix_resample, fixed sampling), the mesh configuration in power
+(`mesh`: the diffuse mesh_scene, depth 2, gate, 2^24 lanes, the main
+path's direction strata: the grid-stride receive_trace_kernel<true> or
+receive_mesh_kernel that replaced it) and the MIMO configuration (`mimo`:
+golden config 6, depth 2, gate, 2^24 lanes: the grid-stride
+receive_mimo_kernel<false, false> or receive_mimo_array_kernel that
+replaced it; its element loop the stage `elem`).  The
 lanes' stage masks come from the plain version on the configuration's
 scene (Wigner receiver) with Philox seed 7; the pool model is the
 kernels' pool of 64 paths a warp.
@@ -109,6 +115,10 @@ MDK_POW_LOB_KERNEL = (r'receive_doppler_kernelILb1ELb0ELb0ELb0ELb1E|'
                       r'receive_mesh_doppler_kernelILb0ELb1E')
 MDK_COH_KERNEL = (r'receive_doppler_kernelILb1ELb1ELb0ELb0ELb0E|'
                   r'receive_mesh_doppler_kernelILb1ELb0E')
+# the mesh configuration in power and the MIMO configuration: the
+# grid-stride instantiations or the kernels that replaced them
+MSK_KERNEL = r'receive_trace_kernelILb1ELb0ELb0EE|receive_mesh_kernel'
+MAK_KERNEL = r'receive_mimo_kernelILb0ELb0EE|receive_mimo_array_kernel'
 CONFIGS = {'flagship': dict(depth=DEPTH, ts='gate', lanes=MAIN_LANES,
                             kernel=KERNEL),
            'range_doppler': dict(depth=2, ts='gate', lanes=1 << 24,
@@ -140,7 +150,11 @@ CONFIGS = {'flagship': dict(depth=DEPTH, ts='gate', lanes=MAIN_LANES,
            'mesh_lobes_power': dict(depth=2, ts='gate', lanes=1 << 24,
                                     kernel=MDK_POW_LOB_KERNEL),
            'coherent_mesh': dict(depth=2, ts='gate', lanes=1 << 24,
-                                 kernel=MDK_COH_KERNEL)}
+                                 kernel=MDK_COH_KERNEL),
+           'mesh': dict(depth=2, ts='gate', lanes=1 << 24,
+                        kernel=MSK_KERNEL),
+           'mimo': dict(depth=2, ts='gate', lanes=1 << 24,
+                        kernel=MAK_KERNEL)}
 # the endpoint configurations: (scenes' function, coherent)
 EP_SCENES = {'ep_phased_tx': ('phased_tx_scene', False),
              'ep_phased_rx': ('phased_rx_scene', False),
@@ -156,6 +170,9 @@ DPW_CONFIGS = ('range_doppler', 'fmcw_sonar')
 # strata (patch_p_for of its lanes)
 MESH_COHERENT = {'multi_body': False, 'mesh_lobes_iq': True,
                  'mesh_lobes_power': False, 'coherent_mesh': True}
+# every configuration on a mesh: those and the mesh configuration in power
+# (the diffuse mesh_scene, mode 0), whose lanes take the strata too
+MESH_CONFIGS = tuple(MESH_COHERENT) + ('mesh',)
 # the BVH walks of a mesh lane: RAY's first hit (depth 0), a bounce's
 # closest hit (depth > 0), NEE's any hit
 WALKS = ('ray', 'bounce', 'shadow')
@@ -173,7 +190,10 @@ BOOKKEEPING = ('sched', 'lane', 'block')
 # endpoint kernels held to six blocks an SM with 64 cells an axis (the
 # grid-stride twins before them 2,194.4, 4,377.7, 4,716.2, 3,329.6); the
 # mesh configurations', the mesh Doppler kernel (the grid-stride
-# instantiations before it 2,601.4, 2,295.0, 2,252.4, 2,196.9)
+# instantiations before it 2,601.4, 2,295.0, 2,252.4, 2,196.9); the mesh
+# configuration in power's, the mesh kernel (the grid-stride kernel before
+# it 1,646.9), and the MIMO configuration's, the MIMO array kernel at four
+# blocks an SM (the grid-stride kernel before it 1,311.0)
 LEAST_STAGE_INSTRUCTIONS = {'flagship': 2399.0, 'pulse_train': 2341.9,
                             'dechirp': 1639.5, 'corner': 3462.6,
                             'window_thin': 3461.6,
@@ -183,7 +203,8 @@ LEAST_STAGE_INSTRUCTIONS = {'flagship': 2399.0, 'pulse_train': 2341.9,
                             'ep_phased_tx_coh': 2336.7,
                             'multi_body': 2316.9, 'mesh_lobes_iq': 1992.6,
                             'mesh_lobes_power': 1996.8,
-                            'coherent_mesh': 1965.5}
+                            'coherent_mesh': 1965.5, 'mesh': 1482.5,
+                            'mimo': 1036.8}
 
 # the stages of a flagship lane and the plain version's stat key that counts
 # the entries of each ('rect' and 'occ' per rectangle tested)
@@ -195,7 +216,7 @@ STAGES = ('ray', 'trace', 'closest', 'hit', 'direct', 'nee', 'shadow',
           'rx_pairs', 'rx_terms', 'rx_calls', 'nee_pairs', 'nee_terms',
           'nee_calls', 'direct_pairs', 'direct_terms', 'direct_calls',
           'walk', 'walk_node', 'walk_tri', 'shadow_walk', 'shadow_node',
-          'shadow_tri')
+          'shadow_tri', 'elem')
 # the plain version's stat keys a lane's masks are read for (its receive
 # frequency's, counted for every lane, are the ray's: stage_weights_fp32)
 KEYS = ('trace', 'hit', 'direct', 'nee_geom', 'nee', 'occ_tests',
@@ -203,7 +224,7 @@ KEYS = ('trace', 'hit', 'direct', 'nee_geom', 'nee', 'occ_tests',
         'dop_direct', 'dop_nee', 'dop_bounce', 'splat_2d', 'lo_bin', 'phase',
         'phase_lo', 'plas_nee', 'rplas_nee', 'rdiel_nee', 'blend_nee',
         'blend_pick', 'diel_bounce', 'plas_bounce', 'rplas_bounce',
-        'rdiel_bounce', 'pass_bounce')
+        'rdiel_bounce', 'pass_bounce', 'mimo_elem')
 # the lobe twins' bounce keys, each in place of the diffuse bounce
 LOBE_BOUNCES = ('diel_bounce', 'plas_bounce', 'rplas_bounce', 'rdiel_bounce',
                 'pass_bounce')
@@ -214,7 +235,8 @@ COLUMNS = (('trace',), ('hit',), ('direct', 'dop_direct'), ('nee_geom',),
            ('bounce', 'ggx_bounce', 'dop_bounce'), ('mirror_bounce',),
            ('plas_nee', 'rplas_nee', 'rdiel_nee', 'blend_nee'),
            ('blend_pick',), ('diel_bounce',), ('plas_bounce',),
-           ('rplas_bounce',), ('rdiel_bounce',), ('pass_bounce',))
+           ('rplas_bounce',), ('rdiel_bounce',), ('pass_bounce',),
+           ('mimo_elem',))
 # the parent's section comments inside trace_lane, in source order, and
 # the tags of a body written with them
 MARKERS = ((r'-- receive-ray generation', 'ray'),
@@ -266,8 +288,10 @@ def scene_of(config: str):
         return scenes.multi_body_scene()
     if config in ('mesh_lobes_iq', 'mesh_lobes_power'):
         return scenes.mesh_scene(material='rough_plastic')
-    if config == 'coherent_mesh':
+    if config in ('coherent_mesh', 'mesh'):
         return scenes.mesh_scene()
+    if config == 'mimo':
+        return scenes.mimo_beamform_scene()
     if config == 'flagship':
         return scenes.flagship_scene()
     if config == 'pulse_train':
@@ -287,6 +311,25 @@ def ref_kw(config: str, rx, packed) -> dict:
     receiver)."""
     kw = dict(adc=rx.adc, max_depth=CONFIGS[config]['depth'],
               time_sampling=CONFIGS[config]['ts'], rx_kind='wigner')
+    if config == 'mesh':
+        sys.path.insert(0, HERE)
+        from beifong_tpu_torch.integrators import receive_kernel as rk
+        kw.update(mesh=packed.mesh,
+                  patch_p=rk.patch_p_for(CONFIGS[config]['lanes']))
+        return kw
+    if config == 'mimo':
+        import torch
+        sys.path.insert(0, HERE)
+        from beifong_tpu_torch.integrators import receive_kernel as rk
+        s, _ = scene_of(config)
+        kw.update(rx_kind='phased', doppler=True,
+                  receive_type=rx.receive_type,
+                  has_lo=rx.lo_waveform is not None, mirror=packed.mirror,
+                  rxph=torch.tensor(packed.rxph),
+                  eoff=rk.array_offsets(s, s.compile(use_bvh=False,
+                                                     device='cpu'), rx,
+                                        'cpu'))
+        return kw
     if config in EP_SCENES:
         import torch
         sys.path.insert(0, HERE)
@@ -422,6 +465,10 @@ def per_lane(masks, n_lanes: int):
     for key, d, m in masks:
         if key in a and isinstance(m, np.ndarray) and m.shape == (n_lanes,):
             a[key][:, d] += m
+        elif key in a and isinstance(m, np.ndarray) \
+                and m.shape[-1:] == (n_lanes,):
+            # a count over rows of lanes (MIMO: one row an element)
+            a[key][:, d] += m.reshape(-1, n_lanes).sum(axis=0)
         elif key.startswith('_walk_'):
             lanes, v = m
             w = key[len('_walk_'):]
@@ -563,10 +610,14 @@ def stage_weights_fp32(n_rect: int, config: str = 'flagship') -> dict:
             # a chirp's echo phase adds the quadratic term to each h
             w['phase'] += f['h_chirp']
             w['phase_lo'] += f['h_chirp']
-    if config in MESH_COHERENT:
+    if config in MESH_CONFIGS:
         # the strata's ray; each walk's slab tests and leaves (walk_cost)
         w['ray'] += f['ray_strata'] - f['ray_wigner']
         w.update(node_test=f['node_test'], leaf_test=f['leaf_test'])
+    if config == 'mimo':
+        # the array's ray; each connection's element terms
+        w['ray'] += f['ray_phased'] - f['ray_wigner']
+        w['mimo_elem'] = f['mimo_elem']
     return w
 
 
@@ -827,6 +878,10 @@ def func_ranges(source: str) -> dict:
                       ('splat_w', r'\[k1 splat\]'),
                       ('splat_c', r'void coh_splat_rows\('),
                       ('splat_p', r'void pow_splat_rows\('),
+                      ('splat_m', r'float mimo_splat\('),
+                      ('splat_s', r'float mimo_stage\('),
+                      ('elem', r'for \(int e = 0; e < cfg\.n_elem; \+\+e\) \{'),
+                      ('elem_w', r'void mimo_warp_taps\('),
                       ('splat_g', r'void grid_splat\('),
                       ('splat_a', r'void add\(int cell, float v\) const'),
                       ('phase', r'float echo_phase\('),
@@ -938,6 +993,8 @@ kw = k1_mix.ref_kw({config!r}, rx, p)
 lob = {{'lobes': True}} if kw.get('lobes') else {{}}
 if p.mesh is not None:
     lob.update(mesh=True, n_msh=p.msh.shape[0])
+if kw.get('eoff') is not None:
+    lob.update(n_elem=int(kw['eoff'].shape[0]))
 if {config!r} in k1_mix.EP_SCENES:
     import inspect
     lob = {{'ep': True}}
@@ -950,7 +1007,8 @@ g = rk.launch_geometry(rx.adc.n_time, k1_mix.CONFIGS[{config!r}]['lanes']
                        // n_pulses, p.prim.shape[0], p.params.shape[-1],
                        n_freq=rx.adc.n_freq,
                        doppler=kw.get('doppler', False),
-                       coherent=kw.get('coherent', False),
+                       coherent=kw.get('coherent', False)
+                       or kw.get('eoff') is not None,
                        n_pulses=n_pulses, **lob)
 sms = torch.cuda.get_device_properties(0).multi_processor_count
 print('GEOM ' + json.dumps(dict(blocks=g[0], threads=g[1], smem=g[2],
@@ -1050,6 +1108,9 @@ def sass_mix(cubin: str, src: str, kernel: str, a: dict, n_rect: int,
     elif 'receive_lobe_kernel' in name \
             or 'receive_mesh_doppler_kernel' in name:
         phx = stage_blocks(a, direct=True, stride=stride)
+    elif 'receive_mesh_kernel' in name \
+            or 'receive_mimo_array_kernel' in name:
+        phx = stage_blocks(a, direct=True)
     else:
         phx = philox_blocks(a, CONFIGS[config]['ts'] == 'fixed', stride,
                             pick)
@@ -1114,6 +1175,13 @@ def sass_mix(cubin: str, src: str, kernel: str, a: dict, n_rect: int,
         elif any(in_helper(x, h) for x in chain
                  for h in ('phase', 'phase_f', 'phase_h', 'phase_c')):
             st = 'phase'
+        elif any(in_helper(x, h) for x in chain for h in ('elem', 'elem_w')):
+            # MIMO: an element's term and its I / Q taps (mimo_splat's
+            # loop, or the warp's items)
+            st = 'elem'
+        elif any(in_helper(x, h) for x in chain
+                 for h in ('splat_m', 'splat_s')):
+            st = 'splat'
         elif pair_stage(chain) is not None:
             st = pair_stage(chain)
         elif walk_stage(chain) is not None:
@@ -1162,6 +1230,8 @@ def sass_mix(cubin: str, src: str, kernel: str, a: dict, n_rect: int,
                                 for w in ('ray', 'bounce')) / n,
           'shadow_node': float(a.get('node_shadow', z).sum()) / n,
           'shadow_tri': 8.0 * float(a.get('leaf_shadow', z).sum()) / n,
+          # MIMO: the element loop, once an element of a connection
+          'elem': float(a['mimo_elem'].sum()) / n,
           # the warp wavefront's turns for 32 lanes: one RAY, and a SHADE
           # for every 32 hits (each turn traces the rays it makes)
           'sched': (n + a['hit'].sum()) / n,
@@ -1265,13 +1335,13 @@ def main() -> int:
            'pairs_a_lane': {k: v / n for k, v in pairs.items()
                             if k != 'n_tx'},
            'philox_blocks_a_lane': float(phx.mean())}
-    if args.config in MESH_COHERENT:
+    if args.config in MESH_CONFIGS:
         res['walks_a_lane'] = {f'{k}_{w}': float(a[f'{k}_{w}'].sum()) / n
                                for w in WALKS for k in ('node', 'leaf')}
     if args.simt:
         res['fp32_weights'] = w = stage_weights_fp32(n_rect, args.config)
         res['simt_fp32'] = simt(a, w)
-        if args.config in MESH_COHERENT:
+        if args.config in MESH_CONFIGS:
             res['walk_simt'] = walk_simt(a, w)
         res['pool_fp32'] = pool_model(a, w)
         res['pool_fused_fp32'] = pool_model(a, w, fused=True)
@@ -1317,7 +1387,8 @@ def main() -> int:
              'rdiel_bounce': per['bounce'] + per['ggx'],
              'pass_bounce': per['bounce'],
              'node_test': per['walk_node'],
-             'leaf_test': 8.0 * per['walk_tri']}
+             'leaf_test': 8.0 * per['walk_tri'],
+             'mimo_elem': per['elem']}
         res['simt_sass'] = simt(a, w)
         res['pool_sass'] = pool_model(a, w)
         res['pool_fused_sass'] = pool_model(a, w, fused=True)

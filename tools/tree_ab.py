@@ -32,8 +32,10 @@ twins), the analytic Doppler power configuration on golden config 2
 with a hash of its result, as the range-Doppler pulse above), the mesh
 Doppler kernel's other paths, the rough-plastic mesh_scene in I / Q and
 in power (mesh_lobes_iq, mesh_lobes_power: 2^24 Philox lanes, depth 2,
-gate, the main path's direction strata; with multi_body and the coherent
-mesh above, a hash of each result), K4's
+gate, the main path's direction strata; with multi_body, the coherent
+mesh and the mesh scene in power above, a hash of each result), the
+MIMO configuration on golden config 6 (mimo: 2^24 Philox lanes, depth 2,
+gate, with a hash of its result), K4's
 closest-hit and
 shadow kernels at chip_smoke.K4_SHAPES (the wavefront's 2^17 rays x 324
 faces, the query's 2^18 x 10,082 and 2^17 x 968: twenty calls queued
@@ -153,7 +155,7 @@ K4_NAMES = ('k4_closest', 'k4_any')
 NAMES = ('flagship', 'mesh', 'multi_body', 'range_doppler', 'coherent',
          'coherent_mesh') + COH_PATHS + CPI_PATHS + tuple(LOBE_PATHS) \
     + ('window_cpi',) + tuple(EP_PATHS) + tuple(DPW_PATHS) \
-    + tuple(MDK_PATHS) + K4_NAMES
+    + tuple(MDK_PATHS) + ('mimo',) + K4_NAMES
 
 
 def doppler_power_call(rk, scenes, name: str, dev):
@@ -194,6 +196,43 @@ def mesh_doppler_call(rk, scenes, name: str, dev):
               patch_p=rk.patch_p_for(EP_LANES))
     if p.lobes:
         kw['lobes'] = p.lobes
+    return params, prim, txp, kw
+
+
+def mimo_call(rk, scenes, dev):
+    """(params, prim, txp, keyword arguments) of receive_megakernel on
+    golden config 6 (the MIMO configuration) at chip_smoke.py's shapes
+    (2^24 Philox lanes, depth 2, gate), in the imported tree."""
+    import torch
+    s, rx = scenes.mimo_beamform_scene()
+    sd = s.compile(use_bvh=False, device='cpu')
+    p = rk.pack_scene(sd, rx, s.shape_index_of_endpoint('receiver', rx.id))
+    params, prim, txp = (torch.tensor(a, device=dev)
+                         for a in (p.params, p.prim, p.txp))
+    kw = dict(adc=rx.adc, max_depth=EP_DEPTH, time_sampling='gate',
+              rx_kind='phased', n_lanes=EP_LANES, doppler=True,
+              receive_type=rx.receive_type,
+              has_lo=rx.lo_waveform is not None, mirror=bool(p.mirror),
+              rxph=torch.tensor(p.rxph, device=dev),
+              eoff=rk.array_offsets(s, sd, rx, dev))
+    return params, prim, txp, kw
+
+
+def mesh_call(rk, scenes, dev, cs):
+    """(params, prim, txp, keyword arguments) of receive_megakernel on
+    the mesh scene in power (the mesh configuration) at chip_smoke.py's
+    shapes (2^24 lanes, depth 2, gate, the main path's strata), in the
+    imported tree."""
+    import torch
+    s, rx = scenes.mesh_scene()
+    p = rk.pack_scene(s.compile(use_bvh=False, device='cpu'), rx,
+                      s.shape_index_of_endpoint('receiver', rx.id))
+    params, prim, txp = (torch.tensor(a, device=dev)
+                         for a in (p.params, p.prim, p.txp))
+    params[0] = rk.seed_slot(cs.SEED)
+    kw = dict(adc=rx.adc, max_depth=cs.MESH_DEPTH, time_sampling='gate',
+              rx_kind='wigner', n_lanes=cs.MESH_LANES, mesh=p.mesh.to(dev),
+              patch_p=rk.patch_p_for(cs.MESH_LANES))
     return params, prim, txp, kw
 
 
@@ -321,12 +360,15 @@ def child(root: str, only: tuple = NAMES) -> dict:
         out[f'{name}_ms'] = ms[1:]
     for name in only:
         if name not in EP_PATHS and name not in DPW_PATHS \
-                and name not in MDK_PATHS:
+                and name not in MDK_PATHS and name != 'mimo':
             continue
-        params, prim, txp, kw = (
-            endpoint_call if name in EP_PATHS else mesh_doppler_call
-            if name in MDK_PATHS else doppler_power_call)(rk, scenes, name,
-                                                          dev)
+        if name == 'mimo':
+            params, prim, txp, kw = mimo_call(rk, scenes, dev)
+        else:
+            params, prim, txp, kw = (
+                endpoint_call if name in EP_PATHS else mesh_doppler_call
+                if name in MDK_PATHS else doppler_power_call)(rk, scenes,
+                                                              name, dev)
         ms, _ = cs.cuda_ms(lambda i: rk.receive_megakernel(
             params, prim, txp, seed=cs.SEED, **kw), CALLS + 1)
         out[f'{name}_ms'] = ms[1:]
@@ -365,7 +407,7 @@ def child(root: str, only: tuple = NAMES) -> dict:
             lambda i: rk.receive_megakernel(params, prim, txp, **kw),
             CALLS + 1)
         out[f'{name}_ms'] = ms[1:]
-        if name in ('range_doppler', 'multi_body', 'coherent_mesh'):
+        if name in ('range_doppler', 'multi_body', 'coherent_mesh', 'mesh'):
             acc, n_ev = rk.receive_megakernel(params, prim, txp, **kw)
             out[f'{name}_sha'] = hashlib.sha1(
                 acc.cpu().numpy().tobytes()
