@@ -242,14 +242,88 @@ def bvh_any_ref(pb: PackedBVH, o, d, maxt, stats: dict | None = None):
 # the CUDA kernels
 # ---------------------------------------------------------------------------
 
+STACK = 64   # csrc/bvh_kernels.cu: deferred children a ray may hold
+
+
+@dataclasses.dataclass(frozen=True)
+class WalkTables:
+    """The kernels' layout of a PackedBVH, derived from its tables on their
+    device: `rec` (n_inner + 1, 16) f32 node pairs, record 0 the root's
+    box and reference (and at 11 the number of records), record j > 0
+    the j-th inner node (in the tables' order) as [left min xyz, left
+    ref, left max xyz, 0, right min xyz, right ref, right max xyz, 0], a
+    ref (int32 bits) j > 0 for an inner child and ~(leaf row * 8 + count
+    - 1) for a leaf; `tri` (L*8, 12) f32, each leaf slot as [v0 xyz, face
+    index, e1 xyz, 0, e2 xyz, 0]."""
+
+    rec: torch.Tensor
+    tri: torch.Tensor
+    depth: int
+
+
+def tree_depth(links: np.ndarray, n_nodes: int) -> int:
+    """Nodes on the longest root-to-leaf path of the threaded tables'
+    tree ((N*3,) int32 links)."""
+    lk = links.reshape(-1, 3)[:n_nodes]
+    depth, level = 0, np.zeros(1, np.int64)
+    while level.size:
+        depth += 1
+        inner = level[lk[level, 2] < 0]
+        left = lk[inner, 0].astype(np.int64)
+        level = np.concatenate([left, lk[left, 1].astype(np.int64)])
+    return depth
+
+
+def walk_tables(pb: PackedBVH) -> WalkTables:
+    """The node pairs and float4 triangles of `pb` on its device, derived
+    once a PackedBVH (cached on it)."""
+    cached = pb.__dict__.get('_walk_tables')
+    if cached is not None:
+        return cached
+    dev = pb.bbox.device
+    n = pb.n_nodes
+    depth = tree_depth(pb.links.cpu().numpy(), n)
+    if depth - 1 > STACK:
+        raise ValueError(f'BVH of depth {depth}: the kernels hold at most '
+                         f'{STACK} deferred children')
+    links = pb.links.view(-1, 3)[:n].long()
+    box = pb.bbox.view(-1, 6)[:n].contiguous().view(torch.int32)
+    rows = pb.leaves.view(-1, pb.stride)
+    count = (rows[:, 72:80] >= 0).sum(1).clamp(min=1)
+    inner = links[:, 2] < 0
+    rec_of = torch.cumsum(inner.long(), 0)
+    leaf = links[:, 2].clamp(min=0)
+    ref = torch.where(inner, rec_of,
+                      -(leaf * 8 + count[leaf] - 1) - 1).to(torch.int32)
+    left = links[inner, 0]
+    rec = torch.zeros((int(inner.sum()) + 1, 4, 4), dtype=torch.int32,
+                      device=dev)
+    root = torch.zeros(1, dtype=torch.long, device=dev)
+    for rows_, s, nodes in ((slice(0, 1), 0, root), (slice(1, None), 0, left),
+                            (slice(1, None), 2, links[left, 1])):
+        rec[rows_, s, :3] = box[nodes, :3]
+        rec[rows_, s, 3] = ref[nodes]
+        rec[rows_, s + 1, :3] = box[nodes, 3:]
+    rec[0, 2, 3] = rec.shape[0]
+    tri = torch.zeros((rows.shape[0], 8, 3, 4), dtype=torch.float32,
+                      device=dev)
+    for c in range(3):           # v0, e1, e2
+        for ax in range(3):
+            tri[:, :, c, ax] = rows[:, 24 * c + 8 * ax:24 * c + 8 * ax + 8]
+    tri[:, :, 0, 3] = rows[:, 72:80]
+    out = WalkTables(rec=rec.view(torch.float32).reshape(-1, 16),
+                     tri=tri.reshape(-1, 12), depth=depth)
+    pb.__dict__['_walk_tables'] = out
+    return out
+
 
 def _bind(lib):
-    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.bvh_closest_launch.argtypes = [vp, vp, vp, i32, vp, vp, i64, vp, vp,
-                                       vp, vp, vp]
-    lib.bvh_closest_launch.restype = i32
-    lib.bvh_any_launch.argtypes = [vp, vp, vp, i32, vp, vp, vp, i64, vp, vp]
-    lib.bvh_any_launch.restype = i32
+    vp, i64 = ctypes.c_void_p, ctypes.c_longlong
+    lib.bvh_closest_launch.argtypes = [vp, vp, vp, vp, i64, vp, vp, vp, vp,
+                                       vp, vp]
+    lib.bvh_closest_launch.restype = ctypes.c_int
+    lib.bvh_any_launch.argtypes = [vp, vp, vp, vp, vp, i64, vp, vp, vp]
+    lib.bvh_any_launch.restype = ctypes.c_int
 
 
 LIBRARY = _nvcc.Library('bvh_kernels', 'bvh', _bind)
@@ -259,16 +333,21 @@ def build_library() -> _nvcc.BuildInfo:
     return _nvcc.build('bvh_kernels')
 
 
-def _check_inputs(pb: PackedBVH, rays: dict):
+def _check(name, t, dev, shape):
+    if t.shape != shape or t.dtype != torch.float32 or t.device != dev \
+            or not t.is_contiguous():
+        raise ValueError(f'{name}: expected contiguous float32 {shape} on '
+                         f'{dev}, got {t.dtype} {tuple(t.shape)} on '
+                         f'{t.device}')
+
+
+def _check_inputs(pb: PackedBVH, o, d, maxt=None):
     dev = pb.bbox.device
-    n = int(rays['o'].shape[0])
-    for name, t in rays.items():
-        shape = (n,) if name == 'maxt' else (n, 3)
-        if tuple(t.shape) != shape or t.dtype != torch.float32 \
-                or t.device != dev or not t.is_contiguous():
-            raise ValueError(f'{name}: expected contiguous float32 {shape} '
-                             f'on {dev}, got {t.dtype} {tuple(t.shape)} on '
-                             f'{t.device}')
+    n = o.shape[0]
+    _check('o', o, dev, (n, 3))
+    _check('d', d, dev, (n, 3))
+    if maxt is not None:
+        _check('maxt', maxt, dev, (n,))
     if pb.links.device != dev or pb.leaves.device != dev:
         raise ValueError('the BVH tables lie on different devices')
     if dev.type not in ('cpu', 'cuda'):
@@ -279,24 +358,24 @@ def _check_inputs(pb: PackedBVH, rays: dict):
 def bvh_closest(pb: PackedBVH, o, d):
     """Closest hit of (R, 3) rays: (t, face index int32, u, v) as
     `pallas_bvh.bvh_closest` returns them (t = inf, index -1 on a miss).
-    Tables and rays on the CPU run the plain version; on a card, K2."""
-    dev, n = _check_inputs(pb, dict(o=o, d=d))
+    Tables and rays on the CPU run the plain version; on a card, K2, whose
+    four outputs are views of one buffer."""
+    dev, n = _check_inputs(pb, o, d)
     if dev.type == 'cpu':
         return bvh_closest_ref(pb, o, d)
     lib = LIBRARY.get()
+    wt = walk_tables(pb)
     with torch.cuda.device(dev):
-        t = torch.empty(n, dtype=torch.float32, device=dev)
-        idx = torch.empty(n, dtype=torch.int32, device=dev)
-        u = torch.empty(n, dtype=torch.float32, device=dev)
-        v = torch.empty(n, dtype=torch.float32, device=dev)
+        buf = torch.empty(4 * n + 2, dtype=torch.float32, device=dev)
+        p = buf.data_ptr()    # t, idx, u, v, then the launch's counter
         err = lib.bvh_closest_launch(
-            pb.bbox.data_ptr(), pb.links.data_ptr(), pb.leaves.data_ptr(),
-            pb.stride, o.data_ptr(), d.data_ptr(), n, t.data_ptr(),
-            idx.data_ptr(), u.data_ptr(), v.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
+            wt.rec.data_ptr(), wt.tri.data_ptr(), o.data_ptr(),
+            d.data_ptr(), n, p, p + 4 * n, p + 8 * n, p + 12 * n,
+            p + 16 * n, torch.cuda.current_stream(dev).cuda_stream)
         LIBRARY.check(err, 'bvh_closest launch')
     bvh_closest.launches += 1
-    return t, idx, u, v
+    t, idx, u, v = buf[:4 * n].view(4, n).unbind(0)
+    return t, idx.view(torch.int32), u, v
 
 
 bvh_closest.launches = 0
@@ -305,20 +384,24 @@ bvh_closest.launches = 0
 def bvh_any(pb: PackedBVH, o, d, maxt):
     """Occlusion of (R, 3) rays: True where a triangle blocks before
     maxt (1 - 1e-3), as `pallas_bvh.bvh_any`.  Tables and rays on the CPU
-    run the plain version; on a card, K3."""
-    dev, n = _check_inputs(pb, dict(o=o, d=d, maxt=maxt))
+    run the plain version; on a card, K3, whose flags are a view of its
+    buffer."""
+    dev, n = _check_inputs(pb, o, d, maxt)
     if dev.type == 'cpu':
         return bvh_any_ref(pb, o, d, maxt)
     lib = LIBRARY.get()
+    wt = walk_tables(pb)
     with torch.cuda.device(dev):
-        occ = torch.empty(n, dtype=torch.uint8, device=dev)
+        head = (n + 7) // 8 * 8
+        buf = torch.empty(head + 8, dtype=torch.bool, device=dev)
+        p = buf.data_ptr()    # the flags, then the launch's counter
         err = lib.bvh_any_launch(
-            pb.bbox.data_ptr(), pb.links.data_ptr(), pb.leaves.data_ptr(),
-            pb.stride, o.data_ptr(), d.data_ptr(), maxt.data_ptr(), n,
-            occ.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+            wt.rec.data_ptr(), wt.tri.data_ptr(), o.data_ptr(),
+            d.data_ptr(), maxt.data_ptr(), n, p, p + head,
+            torch.cuda.current_stream(dev).cuda_stream)
         LIBRARY.check(err, 'bvh_any launch')
     bvh_any.launches += 1
-    return occ.bool()
+    return buf[:n]
 
 
 bvh_any.launches = 0

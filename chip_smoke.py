@@ -25,7 +25,11 @@ Phases (any failure exits non-zero before the last line is printed):
              lanes; two Philox calls with one seed, which must be
              bit-identical, in both configurations; bvh_closest and
              bvh_any on 2^20 rays over the same mesh (half from the
-             receiver aperture, half from around the mesh);
+             receiver aperture, half from around the mesh), their device
+             times at 2^20 and at the wavefront pass's 2^17 (calls queued
+             behind a sleep) beside a call with its wrapper and the
+             wrapper's host µs, registers and the issue-slot bound of
+             their SASS (`tools/bvh_mix.py`);
    doppler - the receive megakernel's Doppler configuration (moving
              geometry, the GGX rough conductor, time x frequency grids)
              against its plain version: the multi_body scene lane by lane
@@ -3470,7 +3474,12 @@ def aperture_rays(torch, scene, rx, lo, hi, n, gen, dev):
     return o, tgt
 
 
-def queries(torch, bt, dev, tag) -> list:
+def bvh_query_inputs(torch, dev):
+    """(PackedBVH, o, d, maxt, (scene, receiver rays o1, their count)) of
+    the BVH query on mesh_scene: N_RAYS rays, half from uniform points of
+    the receiver aperture, half from a 3 m cube about the mesh, toward
+    uniform points of the mesh's box; shadow lengths 0.8-1.2 of the
+    distance."""
     from beifong_tpu_torch.geometry import bvh as bvh_mod
     from beifong_tpu_torch.geometry import bvh_kernel as bk
     from beifong_tpu_torch.scenes import mesh_scene
@@ -3493,6 +3502,57 @@ def queries(torch, bt, dev, tag) -> list:
     o = o.contiguous()
     maxt = (dist * (0.8 + 0.4 * torch.rand(N_RAYS, generator=gen,
                                            device=dev))).contiguous()
+    return pb, o, d, maxt, (s, o1, half)
+
+
+def host_us(torch, fn, n: int = K4_QUEUED, reps: int = 5) -> float:
+    """Host µs a call of fn(): the wrapper's Python, checks, allocation and
+    launch, not the kernel: n calls enqueued behind a sleeping kernel (so
+    that none waits for the card), the median over `reps` of their
+    mean."""
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(K4_SLEEP_CYCLES)
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        out.append((time.perf_counter() - t0) / n * 1e6)
+    torch.cuda.synchronize()
+    return statistics.median(out)
+
+
+def bvh_issue(bk, bvh_mix, tag) -> dict:
+    """Thread-instructions a slab test and a triangle test of K2 and K3,
+    read from the library's SASS (`tools/bvh_mix.py`), and the card's top
+    SM clock."""
+    import k1_mix
+    import k4_mix
+    per = {k: bvh_mix.per_test(v) for k, v in bvh_mix.parse(k4_mix.listing(
+        bk.build_library().path)).items()}
+    clock = k1_mix.card_clock_mhz()[2]
+    print('BVH SASS, thread-instructions a slab test and a triangle test: '
+          + json.dumps({k: {x: v[x] for x in ('slab', 'slabs_a_step',
+                                              'triangle')}
+                        for k, v in per.items()})
+          + f'; SM clock {clock:.0f} MHz {tag}')
+    if any(v['slab'] is None or v['triangle'] is None
+           for v in per.values()):
+        fail(f'bvh_mix found no node step or triangle loop: {per}')
+    return dict(per=per, clock=clock)
+
+
+def queries(torch, bt, dev, tag, build_log: str) -> list:
+    from beifong_tpu_torch.geometry import bvh_kernel as bk
+    regs, fn = {}, None
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '\S*(bvh_\w+?)_kernel",
+                      line)
+        if m:
+            fn = m.group(1)
+        elif 'registers' in line and fn:
+            regs[fn] = int(re.search(r'(\d+) registers', line).group(1))
+    pb, o, d, maxt, (s, o1, half) = bvh_query_inputs(torch, dev)
 
     # ---- 3. parity ----
     t, idx, u, vv = bk.bvh_closest(pb, o, d)
@@ -3521,9 +3581,11 @@ def queries(torch, bt, dev, tag) -> list:
     if not (t_rel <= 1e-5 and 0 < int(ro.sum()) < N_RAYS):
         fail(f'bvh_closest: t differs by {t_rel:.3e} relative, or the '
              f'shadow rays are all free or all blocked')
+    wt = bk.walk_tables(pb)
     print(f'plain versions: bvh_closest {pc_ms:.1f} ms, bvh_any '
           f'{pa_ms:.1f} ms {tag}; walk counts closest {json.dumps(st_c)}, '
-          f'any {json.dumps(st_a)}')
+          f'any {json.dumps(st_a)}; node pairs {wt.rec.shape[0]} '
+          f'({4 * wt.rec.numel()} B), tree depth {wt.depth}')
 
     # ---- 4. the query path: receiver rays, then shadow rays to the tx ----
     ti = s.shape_index_of_endpoint('transmitter', s.transmitters[0].id)
@@ -3546,57 +3608,77 @@ def queries(torch, bt, dev, tag) -> list:
     print(f'query path: {int(hit.sum())} of {half} receiver rays hit the '
           f'mesh, {int(occ_q.sum())} of those see no transmitter')
 
-    # the kernels alone at 2^20 rays (launches here do not count)
-    c_ms, _ = cuda_ms(lambda i: bk.bvh_closest(pb, o, d), 6)
-    a_ms, _ = cuda_ms(lambda i: bk.bvh_any(pb, o, d, maxt), 6)
-    c_med, a_med = statistics.median(c_ms[1:]), statistics.median(a_ms[1:])
-    print(f'bvh_closest 2^20 rays: median {c_med:.4f} ms, bvh_any '
-          f'{a_med:.4f} ms {tag}')
+    # the kernels alone (launches here do not count) at 2^20 rays and at
+    # the BVH wavefront's pass of 2^17 (every eighth ray: the same mix of
+    # aperture and volume rays), with its own walk counts: device time
+    # (calls queued behind a sleep), a call's time with its wrapper
+    # (events around each call) and the wrapper's host µs
+    sys.path.insert(0, os.path.join(HERE, 'tools'))
+    import bvh_mix
+    mix = bvh_issue(bk, bvh_mix, tag)
     tables = 4 * (pb.bbox.numel() + pb.links.numel() + pb.leaves.numel())
-    b_c = bound(walk_ops(st_c), tables + N_RAYS * (24 + 16),
-                'bvh_closest 2^20 rays')
-    b_a = bound(walk_ops(st_a), tables + N_RAYS * (24 + 4 + 1),
-                'bvh_any 2^20 rays')
-    # and at the BVH wavefront's pass of 2^17 rays (every eighth ray: the
-    # same mix of aperture and volume rays), with its own walk counts
-    o8, d8, m8 = (x[::N_RAYS // WF_PASS_RAYS].contiguous()
-                  for x in (o, d, maxt))
-    st_c8: dict = {}
-    st_a8: dict = {}
-    pc8_ms, _ = wall_ms(lambda: bk.bvh_closest_ref(pb, o8, d8, stats=st_c8))
-    pa8_ms, _ = wall_ms(lambda: bk.bvh_any_ref(pb, o8, d8, m8, stats=st_a8))
-    c8_ms, _ = cuda_ms(lambda i: bk.bvh_closest(pb, o8, d8), 6)
-    a8_ms, _ = cuda_ms(lambda i: bk.bvh_any(pb, o8, d8, m8), 6)
-    c8, a8 = statistics.median(c8_ms[1:]), statistics.median(a8_ms[1:])
-    b_c8 = bound(walk_ops(st_c8), tables + WF_PASS_RAYS * (24 + 16),
-                 'bvh_closest 2^17 rays')
-    b_a8 = bound(walk_ops(st_a8), tables + WF_PASS_RAYS * (24 + 4 + 1),
-                 'bvh_any 2^17 rays')
-    print(f'bvh_closest 2^17 rays (the wavefront pass): median {c8:.4f} ms '
-          f'{[round(x, 4) for x in c8_ms[1:]]}, bvh_any {a8:.4f} ms '
-          f'{[round(x, 4) for x in a8_ms[1:]]}; plain versions '
-          f'{pc8_ms:.1f} / {pa8_ms:.1f} ms {tag}')
-    at_pass = {'closest': dict(ms_2_17=c8, plain_ms_2_17=pc8_ms,
-                               bound_ms_2_17=b_c8['bound_ms'],
-                               bound_by_2_17=b_c8['bound_by']),
-               'any': dict(ms_2_17=a8, plain_ms_2_17=pa8_ms,
-                           bound_ms_2_17=b_a8['bound_ms'],
-                           bound_by_2_17=b_a8['bound_by'])}
+    out = {'closest': {}, 'any': {}}
+    for shape, step in (('2^20', 1), ('2^17', N_RAYS // WF_PASS_RAYS)):
+        oo, dd, mm = (x[::step].contiguous() for x in (o, d, maxt))
+        n = int(oo.shape[0])
+        st = {'closest': st_c, 'any': st_a} if step == 1 else \
+            {'closest': {}, 'any': {}}
+        plain_ms = {'closest': pc_ms, 'any': pa_ms}
+        if step != 1:
+            plain_ms['closest'], _ = wall_ms(lambda: bk.bvh_closest_ref(
+                pb, oo, dd, stats=st['closest']))
+            plain_ms['any'], _ = wall_ms(lambda: bk.bvh_any_ref(
+                pb, oo, dd, mm, stats=st['any']))
+        calls = {'closest': lambda: bk.bvh_closest(pb, oo, dd),
+                 'any': lambda: bk.bvh_any(pb, oo, dd, mm)}
+        for k, call in calls.items():
+            call()
+            q = queued_ms(torch, call)
+            ev, _ = cuda_ms(lambda i: call(), 6)
+            h = host_us(torch, call)
+            c = st[k]
+            b = bound(walk_ops(c), tables + n * ((24 + 16) if k == 'closest'
+                                                 else (24 + 4 + 1)),
+                      f'bvh_{k} {shape} rays')
+            per = mix['per'][k]
+            issue = bvh_mix.issue_slot_bound_ms(
+                c['node_tests'], 8 * c['leaf_tests'], per, mix['clock'])
+            r = dict(ms=statistics.median(q), queued_ms=q,
+                     call_ms=statistics.median(ev[1:]), host_us=h,
+                     plain_ms=plain_ms[k], issue_slot_bound_ms=issue, **b)
+            print(f'bvh_{k} {shape} rays: device {r["ms"]:.4f} ms (queued '
+                  f'{[round(x, 4) for x in q]}), a call with its wrapper '
+                  f'{r["call_ms"]:.4f} ms, host {h:.1f} µs a call; bounds '
+                  f'{b["bound_ms"]:.4e} ms ({b["bound_by"]}), issue slots '
+                  f'{issue:.4e} ms ({per["slab"]} / {per["triangle"]} '
+                  f'thread-instructions a slab / triangle test); plain '
+                  f'version {plain_ms[k]:.1f} ms {tag}')
+            out[k][shape] = r
     common = dict(route='cuda', source='beifong_tpu_torch/csrc/'
                   'bvh_kernels.cu', library_ms=None)
+
+    def entry(k):
+        a, b = out[k]['2^20'], out[k]['2^17']
+        return dict(**a, ms_2_17=b['ms'], queued_ms_2_17=b['queued_ms'],
+                    call_ms_2_17=b['call_ms'], host_us_2_17=b['host_us'],
+                    plain_ms_2_17=b['plain_ms'], bound_ms_2_17=b['bound_ms'],
+                    bound_by_2_17=b['bound_by'],
+                    issue_slot_bound_ms_2_17=b['issue_slot_bound_ms'],
+                    registers=regs.get(f'bvh_{k}'),
+                    thread_instructions=mix['per'][k]['slab'],
+                    thread_instructions_triangle=mix['per'][k]['triangle'])
     return [
         dict(name='bvh_closest', **common,
              replaces='beifong_tpu/geometry/pallas_bvh.py:380',
              tpu_function='_run_closest via bvh_closest (pallas_bvh.py:396)',
              launches=launches[0], max_abs_err=t_abs, parity=t_rel,
-             edge_flips=flips, ms=c_med, plain_ms=pc_ms, **b_c,
-             **at_pass['closest']),
+             edge_flips=flips, **entry('closest')),
         dict(name='bvh_any', **common,
              replaces='beifong_tpu/geometry/pallas_bvh.py:426',
              tpu_function='_run_any via bvh_any (pallas_bvh.py:437)',
              launches=launches[1], max_abs_err=float(occ_flips > 0),
-             parity=occ_flips / N_RAYS, edge_flips=occ_flips, ms=a_med,
-             plain_ms=pa_ms, **b_a, **at_pass['any']),
+             parity=occ_flips / N_RAYS, edge_flips=occ_flips,
+             **entry('any')),
     ]
 
 
@@ -4217,7 +4299,7 @@ def main() -> int:
                       infos['receive_megakernel'].log, cubin)
     kernels += lobes(torch, bt, rk, dev, tag,
                      infos['receive_megakernel'].log, cubin)
-    kernels += queries(torch, bt, dev, tag)
+    kernels += queries(torch, bt, dev, tag, infos['bvh_kernels'].log)
     k4 = k4_parity(torch, ik, dev, tag, infos['intersect_kernels'].log)
     k4_launches, bvh_launches = wavefront(torch, bt, ik, bk, rk, dev, tag,
                                           pulse_compress, k1_grid)

@@ -223,10 +223,14 @@ def _query_rays(sd, n, device, seed=0):
 
 
 @pytest.mark.gpu
-def test_bvh_kernels_match_plain_versions(cuda):
-    *_, sd = _mesh_tables('cpu')
+@pytest.mark.parametrize('n_side, align', [(71, True), (201, False)])
+def test_bvh_kernels_match_plain_versions(cuda, n_side, align):
+    """K2 / K3 on the mesh scene's tree (10,082 faces, aligned leaves), and
+    on a second tree: 80,802 faces, the wavefront's unaligned build (leaves
+    of 1-8 faces), 855 KB of node pairs."""
+    sd = mesh_scene(n_side=n_side)[0].compile(use_bvh=False, device='cpu')
     b = bvh_mod.build(sd.tris.v0.numpy(), sd.tris.e1.numpy(),
-                      sd.tris.e2.numpy(), align=True)
+                      sd.tris.e2.numpy(), align=align)
     pb = bk.pack(b).to(cuda)
     o, d, maxt = _query_rays(sd, 1 << 16, cuda)
     before = (bk.bvh_closest.launches, bk.bvh_any.launches)

@@ -1,9 +1,10 @@
 // A g++ emulation of the CUDA runtime for the receive megakernel
-// (tools/k1_emulate.py) and the ray / triangle kernels
-// (tools/k4_emulate.py): each block runs as blockDim.x std::threads;
-// __syncthreads a block barrier, the warp votes and __syncwarp a barrier a
-// warp; atomics are real atomics (a plain |= loses bits when two threads
-// race); the occupancy query gives one block an SM on two SMs.
+// (tools/k1_emulate.py), the ray / triangle kernels (tools/k4_emulate.py)
+// and the BVH walks (tools/bvh_emulate.py): each block runs as blockDim.x
+// std::threads; __syncthreads a block barrier, the warp votes and
+// __syncwarp a barrier a warp; atomics are real atomics (a plain |= loses
+// bits when two threads race); the occupancy query gives one block an SM
+// on two SMs.
 #pragma once
 #include <algorithm>
 #include <atomic>
@@ -30,12 +31,14 @@ struct dim3 {
 };
 struct uint4 { uint32_t x, y, z, w; };
 struct uint2 { uint32_t x, y; };
+struct int2 { int x, y; };
 struct float2 { float x, y; };
 struct float4 { float x, y, z, w; };
 inline uint4 make_uint4(uint32_t a, uint32_t b, uint32_t c, uint32_t d) {
     return uint4{a, b, c, d};
 }
 inline uint2 make_uint2(uint32_t a, uint32_t b) { return uint2{a, b}; }
+inline int2 make_int2(int a, int b) { return int2{a, b}; }
 inline float2 make_float2(float a, float b) { return float2{a, b}; }
 inline float4 make_float4(float a, float b, float c, float d) {
     return float4{a, b, c, d};
@@ -269,4 +272,5 @@ inline cudaError_t cudaMemcpyToSymbol(S& sym, const T* src, size_t n) {
     return 0;
 }
 inline cudaError_t cudaGetLastError() { return 0; }
+inline cudaError_t cudaDeviceSynchronize() { return 0; }
 inline const char* cudaGetErrorString(cudaError_t) { return "emulated"; }

@@ -9,8 +9,8 @@ Run from the repository root:
 
     python3 tools/k1_ablate.py TREE NAME [NAME ...]
 
-Each NAME is one of ABLATIONS or K4_ABLATIONS; each edit is exact text
-that must appear once in TREE's source.  The edits of the grid-stride
+Each NAME is one of ABLATIONS, K4_ABLATIONS or BVH_ABLATIONS; each edit
+is exact text that must appear once in TREE's source.  The edits of the grid-stride
 lobe twins (receive_doppler_kernel<..., LOB>, the parent of
 receive_lobe_kernel):
   no_splat     the splat's atomics skipped (its tent arithmetic kept: a
@@ -116,6 +116,23 @@ and of the culling kernel:
   k4_rays2     two rays a thread;
   k4_queue     D3, the warp queue (see K4_ABLATIONS); k4_queue_lb5 the
                same at five blocks an SM.
+
+The bvh_ names edit K2 / K3's `csrc/bvh_kernels.cu` (the node-pair walk
+of persistent warps; time them with `--only bvh_closest,bvh_any`):
+  bvh_lockstep  no refill: a warp takes new rays only when its 32 lanes
+               are all done (the grid-stride walk's lockstep);
+  bvh_any_left  K3 enters the left child first (not the nearer one);
+  bvh_rays2, bvh_rays4  the persistent grid sized for two or four rays
+               a lane (fewer warps, which refill at 2^17 too);
+  bvh_chunk32, bvh_chunk128  rays a warp takes from the counter, 32 or
+               128 (not 64);
+  bvh_threads128, bvh_threads256  blocks of 128 threads (8 an SM) or 256
+               (4 an SM), not 512 (2);
+  bvh_lb1, bvh_lb3  blocks an SM of 512 threads, 1 / 3 (at most 128 / 40
+               registers) in place of 2 (64);
+  bvh_smem     the node pairs in shared memory where they fit (96 KB),
+               read with LDS.128.
+All of them give the same results bit for bit.
 """
 
 from __future__ import annotations
@@ -1228,6 +1245,77 @@ ABLATIONS['epx_warp'] = (
 # checkout of it (unpacked with git archive) carries
 K4_PARENT = ('k4_rcp', 'k4_lds128', 'k4_warp_any', 'k4_cull')
 
+# K2 / K3, the BVH walks of csrc/bvh_kernels.cu: each lever of the
+# node-pair walk taken back or varied (BVH_DOC)
+BVH_ABLATIONS = {
+    # no refill: a warp takes new rays only when all 32 lanes are done,
+    # as the grid-stride walk it replaced (the same results)
+    'bvh_lockstep': (('        const bool done = L.cur == 0;',
+                      '        const bool done = __all_sync(FULL, '
+                      'L.cur == 0);'),),
+    # K3 enters the left child first, as K2 (the same flags)
+    'bvh_any_left': (('            bool swap = ANY && tr < tl;',
+                      '            bool swap = false;'),),
+    # the persistent grid at two or four rays a lane (blocks for n / 2 or
+    # n / 4 rays), so that lanes refill at 2^17 too
+    'bvh_rays2': (('    long long need = (n + THREADS - 1) / THREADS;',
+                   '    long long need = (n + 2 * THREADS - 1) '
+                   '/ (2 * THREADS);'),),
+    'bvh_rays4': (('    long long need = (n + THREADS - 1) / THREADS;',
+                   '    long long need = (n + 4 * THREADS - 1) '
+                   '/ (4 * THREADS);'),),
+    'bvh_chunk32': (('constexpr int CHUNK = 64;', 'constexpr int CHUNK = 32;'),),
+    'bvh_chunk128': (('constexpr int CHUNK = 64;',
+                      'constexpr int CHUNK = 128;'),),
+}
+# the node pairs in the block's shared memory where they fit (96 KB: the
+# query tree's 80 KB, not the 80,802-face tree's 855 KB), the steps'
+# loads then LDS.128 (the same results)
+BVH_ABLATIONS['bvh_smem'] = (
+    ('constexpr unsigned FULL = 0xffffffffu;',
+     'constexpr int SMEM_F4 = 96 * 1024 / 16;   // node-pair float4s\n'
+     'constexpr unsigned FULL = 0xffffffffu;'),
+    ('        float4 la = __ldg(p), lb = __ldg(p + 1), ra = __ldg(p + 2),\n'
+     '               rb = __ldg(p + 3);',
+     '        float4 la = p[0], lb = p[1], ra = p[2], rb = p[3];'),
+    ('    const int lane = threadIdx.x & 31;\n',
+     '    const int lane = threadIdx.x & 31;\n'
+     '    extern __shared__ float4 srec[];\n'
+     '    const int n4 = 4 * __float_as_int(__ldg(w.rec + 2).w);\n'
+     '    const bool in_smem = n4 <= SMEM_F4;\n'
+     '    if (in_smem) {\n'
+     '        for (int k = threadIdx.x; k < n4; k += blockDim.x)\n'
+     '            srec[k] = __ldg(w.rec + k);\n'
+     '        __syncthreads();\n'
+     '    }\n'),
+    ('        while (L.cur > 0) L.step(w.rec, stk);',
+     '        if (in_smem) {\n'
+     '            while (L.cur > 0) L.step(srec, stk);\n'
+     '        } else {\n'
+     '            while (L.cur > 0) L.step(w.rec, stk);\n'
+     '        }'),
+    ('    bvh_closest_kernel<<<blocks, THREADS, 0, s>>>(',
+     '    bvh_closest_kernel<<<blocks, THREADS, 16 * SMEM_F4, s>>>('),
+    ('    bvh_any_kernel<<<blocks, THREADS, 0, s>>>(',
+     '    bvh_any_kernel<<<blocks, THREADS, 16 * SMEM_F4, s>>>('),
+    ('        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, '
+     'kernel,\n                                                            '
+     'THREADS, 0);',
+     '        err = cudaFuncSetAttribute(\n'
+     '            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,\n'
+     '            16 * SMEM_F4);\n'
+     '        if (err != cudaSuccess) return (int)err;\n'
+     '        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(\n'
+     '            &per_sm, kernel, THREADS, 16 * SMEM_F4);'))
+for _t, _b in ((128, 8), (256, 4)):
+    BVH_ABLATIONS[f'bvh_threads{_t}'] = (
+        ('constexpr int THREADS = 512;', f'constexpr int THREADS = {_t};'),
+        ('constexpr int MIN_BLOCKS = 2;',
+         f'constexpr int MIN_BLOCKS = {_b};'))
+for _b in (1, 3):
+    BVH_ABLATIONS[f'bvh_lb{_b}'] = (('constexpr int MIN_BLOCKS = 2;',
+                                     f'constexpr int MIN_BLOCKS = {_b};'),)
+
 
 def scoped(source: str, name: str) -> tuple:
     """(the text an ablation's edits apply to, the source before it, the
@@ -1264,11 +1352,12 @@ def make(tree: str, name: str) -> str:
                     ignore=shutil.ignore_patterns('_build', '__pycache__'))
     src = os.path.join(dst, 'beifong_tpu_torch', 'csrc',
                        'intersect_kernels.cu' if name in K4_ABLATIONS
+                       else 'bvh_kernels.cu' if name in BVH_ABLATIONS
                        else 'receive_megakernel.cu')
     with open(src) as f:
         full = f.read()
     s, head, tail = scoped(full, name)
-    for edit in {**ABLATIONS, **K4_ABLATIONS}[name]:
+    for edit in {**ABLATIONS, **K4_ABLATIONS, **BVH_ABLATIONS}[name]:
         old, new = edit[0], edit[-1]
         if s.count(old) != 1 or (len(edit) == 3 and s.count(edit[1]) != 1):
             raise SystemExit(f'{name}: edit not found once: {old[:60]!r}')
@@ -1290,7 +1379,7 @@ def make(tree: str, name: str) -> str:
 
 
 def main() -> int:
-    names = set(ABLATIONS) | set(K4_ABLATIONS)
+    names = set(ABLATIONS) | set(K4_ABLATIONS) | set(BVH_ABLATIONS)
     if len(sys.argv) < 3 or not set(sys.argv[2:]) <= names:
         raise SystemExit(f'usage: k1_ablate.py TREE NAME..., NAME among '
                          f'{sorted(names)}')

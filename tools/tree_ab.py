@@ -39,7 +39,12 @@ gate, with a hash of its result), K4's
 closest-hit and
 shadow kernels at chip_smoke.K4_SHAPES (the wavefront's 2^17 rays x 324
 faces, the query's 2^18 x 10,082 and 2^17 x 968: twenty calls queued
-behind a sleeping kernel, five times), and the host time of ten
+behind a sleeping kernel, five times), K2 / K3 (bvh_closest, bvh_any) on
+chip_smoke.py's query rays at 2^20 and at the wavefront pass's 2^17
+(queued as K4's, beside a call with its wrapper, the wrapper's host time
+a call, enqueued behind a sleep, and a hash of the results' bits), the BVH wavefront's receive on
+mesh_scene (bvh_wavefront: 2^20 samples, depth 2, three calls' wall
+time), and the host time of ten
 more calls of the wrapper, each from an idle card (the Python and launch
 work inside the timed window), and for the Doppler family the host time of
 its table lookups alone (the lobe flags and the transmitter kinds, read
@@ -58,7 +63,8 @@ twins' are window_thin, window_dielectric, lobe_plastic,
 lobe_rough_plastic, lobe_rough_dielectric, lobe_through,
 lobe_through_iq, lobe_blend, lobe_mask and window_cpi; the endpoint
 twins' ep_phased_tx, ep_phased_rx, ep_four_tx and ep_phased_tx_coh; K4's are
-k4_closest and k4_any, which build only K4's library).
+k4_closest and k4_any, which build only K4's library; K2 / K3's
+bvh_closest, bvh_any and bvh_wavefront).
 
     python3 tools/tree_ab.py --other DIR --sass
 
@@ -152,10 +158,12 @@ DPW_PATHS = {'fmcw_sonar': ('fmcw_sonar_scene', 'fixed')}
 DPW_SCENES = {'range_doppler': ('range_doppler_scene', 'gate'), **DPW_PATHS}
 
 K4_NAMES = ('k4_closest', 'k4_any')
+# K2 / K3 on chip_smoke.py's query rays, and the BVH wavefront's receive
+BVH_NAMES = ('bvh_closest', 'bvh_any', 'bvh_wavefront')
 NAMES = ('flagship', 'mesh', 'multi_body', 'range_doppler', 'coherent',
          'coherent_mesh') + COH_PATHS + CPI_PATHS + tuple(LOBE_PATHS) \
     + ('window_cpi',) + tuple(EP_PATHS) + tuple(DPW_PATHS) \
-    + tuple(MDK_PATHS) + ('mimo',) + K4_NAMES
+    + tuple(MDK_PATHS) + ('mimo',) + K4_NAMES + BVH_NAMES
 
 
 def doppler_power_call(rk, scenes, name: str, dev):
@@ -277,6 +285,52 @@ def k4_child(cs, only: tuple) -> dict:
     return out
 
 
+def bvh_child(cs, only: tuple) -> dict:
+    """K2 / K3 of the imported tree on chip_smoke.py's query rays at 2^20
+    and at the wavefront pass's 2^17 (device time: twenty calls queued
+    behind a sleeping kernel, five times), a call with its wrapper (events
+    around each), the wrapper's host time a call and a hash of the
+    results' bits; and the BVH wavefront's receive on mesh_scene (2^20
+    samples, depth 2: three calls' wall time after a warm-up)."""
+    import torch
+    from beifong_tpu_torch.geometry import bvh_kernel as bk
+    out = dict(bvh_ptxas=[ln.strip() for ln in bk.build_library().log
+                          .splitlines() if 'registers' in ln])
+    dev = torch.device('cuda')
+    pb, o, d, maxt, _ = cs.bvh_query_inputs(torch, dev)
+    for shape, step in (('2_20', 1), ('2_17', cs.N_RAYS // cs.WF_PASS_RAYS)):
+        oo, dd, mm = (x[::step].contiguous() for x in (o, d, maxt))
+        calls = {'bvh_closest': lambda: bk.bvh_closest(pb, oo, dd),
+                 'bvh_any': lambda: bk.bvh_any(pb, oo, dd, mm)}
+        for name in only:
+            if name not in calls:
+                continue
+            res = calls[name]()
+            res = res if isinstance(res, tuple) else (res,)
+            out[f'{name}_{shape}_sha'] = hashlib.sha1(b''.join(
+                x.cpu().numpy().tobytes() for x in res)).hexdigest()[:16]
+            out[f'{name}_{shape}_ms'] = cs.queued_ms(torch, calls[name])
+            ev, _ = cs.cuda_ms(lambda i: calls[name](), CALLS + 1)
+            out[f'{name}_{shape}_call_ms'] = ev[1:]
+            out[f'{name}_{shape}_host_ms'] = [
+                cs.host_us(torch, calls[name], reps=1) * 1e-3
+                for _ in range(CALLS)]
+    if 'bvh_wavefront' in only:
+        import beifong_tpu_torch as bt
+        from beifong_tpu_torch.scenes import mesh_scene
+        s, rx = mesh_scene()
+        sd = s.compile(device=dev)
+
+        def call():
+            return bt.receive(s, sd, rx, seed=5, spp=cs.BVH_WF_SAMPLES,
+                              max_depth=2, time_sampling='gate',
+                              use_kernel=False, device=dev)
+        call()
+        out['bvh_wavefront_wall_ms'] = [cs.wall_ms(call)[0]
+                                        for _ in range(3)]
+    return out
+
+
 def child(root: str, only: tuple = NAMES) -> dict:
     sys.path.insert(0, root)
     import torch
@@ -298,7 +352,9 @@ def child(root: str, only: tuple = NAMES) -> dict:
     cs = chip_smoke   # the main paths' sizes
     if set(only) & set(K4_NAMES):
         out.update(k4_child(cs, only))
-    if set(only) <= set(K4_NAMES):
+    if set(only) & set(BVH_NAMES):
+        out.update(bvh_child(cs, only))
+    if set(only) <= set(K4_NAMES + BVH_NAMES):
         return out
     out['ptxas'] = [ln.strip() for ln in rk.build_library().log.splitlines()
                     if 'registers' in ln]
@@ -486,6 +542,8 @@ def sass_compare(other: str, this: str = HERE) -> dict:
     # the flag is false
     b = {(k if k in a or not k.endswith(',0>') or k[:-3] + '>' not in a
           else k[:-3] + '>'): v for k, v in b.items()}
+    b = {(k if k in a or not k.endswith('<0>') or k[:-3] + '<>' not in a
+          else k[:-3] + '<>'): v for k, v in b.items()}
     out = {}
     for name in sorted(set(a) & set(b)):
         diff = [(x, y) for x, y in zip(a[name], b[name]) if x != y]
@@ -556,7 +614,7 @@ def main() -> int:
     summary = {'card': card, 'pairs': args.pairs}
     # one timed number a configuration (K4: a configuration and shape)
     metrics = [k[:-3] for k in runs['this'][0] if k.endswith('_ms')
-               and not k.endswith(('_host_ms', '_lookup_ms'))]
+               and not k.endswith(('_host_ms', '_lookup_ms', '_call_ms'))]
     for name in metrics:
         meds = {w: [statistics.median(r[f'{name}_ms']) for r in rs]
                 for w, rs in runs.items()}
@@ -574,7 +632,7 @@ def main() -> int:
                                                 for w, v in shas.items()}
             summary[f'{name}_trees_bit_equal'] = shas['this'] == shas['other']
         for w, rs in runs.items():
-            for k in ('host', 'lookup'):
+            for k in ('host', 'lookup', 'call'):
                 if f'{name}_{k}_ms' in rs[0]:
                     summary[f'{name}_{w}_{k}_ms'] = statistics.median(
                         statistics.median(r[f'{name}_{k}_ms']) for r in rs)
