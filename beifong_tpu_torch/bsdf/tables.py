@@ -2,8 +2,9 @@
 
 Host-side constructors build `BSDFSpec`s; `BSDFTable.build` flattens them
 into one structure-of-arrays table that `bsdf/eval.py` dispatches over by
-type code.  Textured reflectance and the normal / bump maps wait for the
-texture constructors (ROADMAP B7).
+type code.  A diffuse or plastic BSDF's reflectance may be scaled by a
+texture (`texture=`, a `textures.TextureSpec` id of the scene); the normal
+and bump maps wait for ROADMAP A3.
 """
 
 from __future__ import annotations
@@ -45,6 +46,7 @@ class BSDFSpec:
     nested1: Optional[str] = None
     weight: float = 0.5              # blend weight / mask opacity
     brdf_grid: Optional[np.ndarray] = None   # MEASURED only
+    texture: Optional[str] = None    # texture id scaling the reflectance
 
 
 def _c(v, default=1.0) -> np.ndarray:
@@ -56,10 +58,10 @@ def _c(v, default=1.0) -> np.ndarray:
     return a
 
 
-def diffuse(id, reflectance=0.5, twosided=False) -> BSDFSpec:
-    """Lambertian."""
+def diffuse(id, reflectance=0.5, twosided=False, texture=None) -> BSDFSpec:
+    """Lambertian; `texture` (a texture id) scales the reflectance."""
     return BSDFSpec(id=id, type=DIFFUSE, reflectance=_c(reflectance),
-                    twosided=twosided)
+                    twosided=twosided, texture=texture)
 
 
 def conductor(id, eta=0.2, k=3.0, specular_reflectance=1.0,
@@ -104,16 +106,19 @@ def thin_dielectric(id, int_ior=1.5046, ext_ior=1.000277) -> BSDFSpec:
 
 
 def plastic(id, diffuse_reflectance=0.5, int_ior=1.49, ext_ior=1.000277,
-            twosided=False) -> BSDFSpec:
+            twosided=False, texture=None) -> BSDFSpec:
     return BSDFSpec(id=id, type=PLASTIC, reflectance=_c(diffuse_reflectance),
-                    eta=_c(int_ior / ext_ior), twosided=twosided)
+                    eta=_c(int_ior / ext_ior), twosided=twosided,
+                    texture=texture)
 
 
 def rough_plastic(id, diffuse_reflectance=0.5, alpha=0.1, int_ior=1.49,
-                  ext_ior=1.000277, twosided=False) -> BSDFSpec:
+                  ext_ior=1.000277, twosided=False,
+                  texture=None) -> BSDFSpec:
     return BSDFSpec(id=id, type=ROUGH_PLASTIC,
                     reflectance=_c(diffuse_reflectance), alpha=float(alpha),
-                    eta=_c(int_ior / ext_ior), twosided=twosided)
+                    eta=_c(int_ior / ext_ior), twosided=twosided,
+                    texture=texture)
 
 
 def measured(id, brdf_grid, twosided=False) -> BSDFSpec:
@@ -142,13 +147,13 @@ def blend(id, bsdf0, bsdf1, weight=0.5) -> BSDFSpec:
 
 
 def normalmap(id, nested, texture):
-    raise NotImplementedError('normal maps need the texture constructors '
-                              '(ROADMAP A10 / B7)')
+    raise NotImplementedError('normal maps: the shading-frame perturbation '
+                              'is not ported (ROADMAP A3)')
 
 
 def bumpmap(id, nested, texture, scale: float = 1.0):
-    raise NotImplementedError('bump maps need the texture constructors '
-                              '(ROADMAP A10 / B7)')
+    raise NotImplementedError('bump maps: the shading-frame perturbation '
+                              'is not ported (ROADMAP A3)')
 
 
 @dataclasses.dataclass(frozen=True)
@@ -167,8 +172,19 @@ class BSDFTable:
     measured_grid: Optional[torch.Tensor] = None   # (Nti, Nto, Ndp, MAX_C)
 
     @staticmethod
-    def build(specs: list[BSDFSpec], device) -> "BSDFTable":
+    def build(specs: list[BSDFSpec], device,
+              resolve_texture=None) -> "BSDFTable":
+        """The table of `specs` on `device`; `resolve_texture` maps a
+        texture id to its row of the scene's texture table (None: -1 ids
+        only), and raises `KeyError` on an unknown one."""
         n = max(len(specs), 1)
+
+        def tex_row(s):
+            if s.texture is None:
+                return -1
+            if resolve_texture is None:
+                raise KeyError(f'unresolved reference {s.texture!r}')
+            return resolve_texture(s.texture)
         ids = {s.id: i for i, s in enumerate(specs)}
 
         def col(fn, shape, dtype=np.float32, fill=0):
@@ -187,7 +203,7 @@ class BSDFTable:
             k=col(lambda s: _c(s.k, 0.0 if s.type != DIELECTRIC else 1.0),
                   (MAX_C,)),
             twosided=col(lambda s: s.twosided, (), bool),
-            texture_idx=col(lambda s: -1, (), np.int32, -1),
+            texture_idx=col(tex_row, (), np.int32, -1),
             nested0=col(lambda s: ids.get(s.nested0, -1), (), np.int32, -1),
             nested1=col(lambda s: ids.get(s.nested1, -1), (), np.int32, -1),
             weight=col(lambda s: s.weight, ()),

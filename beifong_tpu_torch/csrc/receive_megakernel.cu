@@ -2838,9 +2838,13 @@ __device__ __forceinline__ float flag_draw1(const Cfg& cfg, const float* u,
 }
 
 // rect_hit on a rectangle's world-to-local rows held as float4s.
-__device__ __forceinline__ bool rect_hit4(const float4* q, float cx,
-                                          float cy, float cz, float dx,
-                                          float dy, float dz, float* t_out) {
+// rect_hit4_uv also gives the hit's local coordinates (px, py), the
+// texture twins' uv; rect_hit4 drops them.
+__device__ __forceinline__ bool rect_hit4_uv(const float4* q, float cx,
+                                             float cy, float cz, float dx,
+                                             float dy, float dz,
+                                             float* t_out, float* px_out,
+                                             float* py_out) {
     const float4 a = q[0], b = q[1], c = q[2];
     float oox = a.x * cx + a.y * cy + a.z * cz + a.w;
     float ooy = b.x * cx + b.y * cy + b.z * cz + b.w;
@@ -2853,7 +2857,60 @@ __device__ __forceinline__ bool rect_hit4(const float4* q, float cx,
     float px = oox + t_p * odx;
     float py = ooy + t_p * ody;
     *t_out = t_p;
+    *px_out = px;
+    *py_out = py;
     return big && fabsf(px) <= 1.0f && fabsf(py) <= 1.0f;
+}
+
+__device__ __forceinline__ bool rect_hit4(const float4* q, float cx,
+                                          float cy, float cz, float dx,
+                                          float dy, float dz, float* t_out) {
+    float px, py;
+    return rect_hit4_uv(q, cx, cy, cz, dx, dy, dz, t_out, &px, &py);
+}
+
+// The texture twins' record of a rectangle (two float4s, after the
+// warps' areas in shared memory): (code, c0, c1, su) and (sv, its first
+// texel, H, W), from prim columns 22-26 and the bitmap rectangles' (first
+// row, H, W) at the head of the texture buffer `tb` (four floats a prim
+// row, then the texel rows of w_row texels; Cfg.grid and Cfg.g_w, which
+// the vacuum kernels read for nothing else).
+__device__ __forceinline__ void tex_record(float4* t, const float* row,
+                                           int p, const float* tb,
+                                           int n_prims, int w_row) {
+    const float* bm = tb + 4 * p;
+    t[0] = make_float4(row[26], row[22], row[23], row[24]);
+    t[1] = make_float4(row[25],
+                       __int_as_float(4 * n_prims + (int)bm[0] * w_row),
+                       bm[1], bm[2]);
+}
+
+// The reflectance of a textured rectangle at its local hit point (px,
+// py): rb times its checkerboard's colour or its bitmap's nearest texel at
+// uv = (p + 1) / 2 scaled, in the JAX kernel's arithmetic (the
+// checkerboard :762-770, the bitmap's uv fraction :771-776 and its texel
+// :1497-1510: floor(f W) held below W), the plain version's too.  A
+// bitmap's texel is one load through the read-only path.
+__device__ __forceinline__ float tex_reflectance(const float4* t, float rb,
+                                                 float px, float py,
+                                                 const float* tb,
+                                                 int w_row) {
+    const float4 a = t[0], b = t[1];
+    float uu = (px + 1.0f) * 0.5f * a.w;
+    float vv = (py + 1.0f) * 0.5f * b.x;
+    if (a.x == 1.0f) {
+        float cs = floorf(uu) + floorf(vv);
+        float par = cs - 2.0f * floorf(cs * 0.5f);
+        return rb * (par < 0.5f ? a.y : a.z);
+    }
+    if (a.x == 2.0f) {
+        float fu = uu - floorf(uu), fv = vv - floorf(vv);
+        float ix = fminf(floorf(fu * b.w), b.w - 1.0f);
+        float iy = fminf(floorf(fv * b.z), b.z - 1.0f);
+        return rb * __ldg(tb + __float_as_int(b.y) + (int)iy * w_row
+                          + (int)ix);
+    }
+    return rb;
 }
 
 // The sum of the values of a (nonempty) group of lanes, in lane order,
@@ -2938,6 +2995,7 @@ __device__ __forceinline__ void flag_splat(double* row, unsigned* masks,
     }
 }
 
+template <bool TEX>
 __global__ void __launch_bounds__(FLAG_THREADS)
 receive_flagship_kernel(const float* __restrict__ params,
                         const float* __restrict__ prim,
@@ -2970,6 +3028,8 @@ receive_flagship_kernel(const float* __restrict__ params,
     double* w_row = reinterpret_cast<double*>(
         reinterpret_cast<char*>(w_slots) + flag_row_offset());
     unsigned* w_mask = reinterpret_cast<unsigned*>(w_row + cfg.n_time);
+    // TEX: each rectangle's texture record, after the warps' areas
+    float4* s_tex = reinterpret_cast<float4*>(s_warps + (T / 32) * wbytes);
 
     for (int i = tid; i < cfg.n_params; i += T) s_par[i] = params[i];
     for (int i = tid; i < TXP_COLS; i += T) s_tx[i] = txp[i];
@@ -2994,6 +3054,9 @@ receive_flagship_kernel(const float* __restrict__ params,
             r[3] = make_float4(q[8] * rnorm, q[9] * rnorm, q[10] * rnorm,
                                row[13]);
             r[4] = make_float4(row[14], 0.0f, 0.0f, 0.0f);
+            if constexpr (TEX)
+                tex_record(s_tex + 2 * (nr - 1), row, p, cfg.grid, np,
+                           cfg.g_w);
             if (row[14] != 0.0f) {
                 float4* b = s_blk + 3 * nb++;
                 b[0] = r[0];
@@ -3174,7 +3237,9 @@ receive_flagship_kernel(const float* __restrict__ params,
             const float tb = c.y;
             const int pw = __float_as_int(c.z);
             const float4 nrb = s_rec[FLAG_REC * pw + 3];
-            const float nx = nrb.x, ny = nrb.y, nz = nrb.z, rb = nrb.w;
+            // TEX: the textured reflectance the trace left in the slot
+            const float nx = nrb.x, ny = nrb.y, nz = nrb.z,
+                        rb = TEX ? sl4[3].z : nrb.w;
             const float txc = s_rec[FLAG_REC * pw + 4].x;
             const float cvel = sp[1];
             const float n_time_f = (float)cfg.n_time;
@@ -3317,14 +3382,19 @@ receive_flagship_kernel(const float* __restrict__ params,
         if (live) {
             float tb = F(3.4e38);
             int pw = -1;
+            float bpx = 0.0f, bpy = 0.0f;      // TEX: the winner's (px, py)
             for (int r = 0; r < n_rect; ++r) {
                 // [k1 stage: closest]
-                float t_p;
-                bool hit_p = rect_hit4(s_rec + FLAG_REC * r, ox, oy, oz, dx,
-                                       dy, dz, &t_p);
+                float t_p, px, py;
+                bool hit_p = rect_hit4_uv(s_rec + FLAG_REC * r, ox, oy, oz, dx,
+                                          dy, dz, &t_p, &px, &py);
                 if (hit_p && t_p > F(1e-4) && t_p < tb) {
                     tb = t_p;
                     pw = r;
+                    if constexpr (TEX) {
+                        bpx = px;
+                        bpy = py;
+                    }
                 }
             }
             // [k1 stage: trace]
@@ -3338,6 +3408,11 @@ receive_flagship_kernel(const float* __restrict__ params,
                 sl4[3] = make_float4(__uint_as_float((unsigned)ln),
                                      __uint_as_float((unsigned)(ln >> 32)),
                                      0.0f, 0.0f);
+                // TEX: the winner's textured reflectance
+                if constexpr (TEX)
+                    sl4[3].z = tex_reflectance(s_tex + 2 * pw,
+                                               s_rec[FLAG_REC * pw + 3].w,
+                                               bpx, bpy, cfg.grid, cfg.g_w);
             }
         }
         // [k1 stage: sched]  the waiting set: the turn's slots leave it,
@@ -3379,6 +3454,17 @@ receive_flagship_kernel(const float* __restrict__ params,
         part_ev[blockIdx.x] = tot;
     }
 }
+
+// The untextured flagship kernel, instantiated where it is defined, so
+// that the module keeps its kernels' order: instantiated where it is
+// used, at the module's end, it left every kernel's PTX as it was but for
+// its labels' numbers, and ptxas then gave the endpoint kernel other
+// machine code.  The texture twin is instantiated where it is used.
+template __global__ void receive_flagship_kernel<false>(
+    const float* __restrict__, const float* __restrict__,
+    const float* __restrict__, const float* __restrict__,
+    const float* __restrict__, bvh::Tables, float* __restrict__,
+    double* __restrict__, unsigned long long* __restrict__, Cfg);
 
 // ---- the power endpoint kernel: a warp wavefront -------------------------
 //
@@ -4131,6 +4217,7 @@ __device__ __forceinline__ void coh_splat_rows(double* row, float* vals,
     }
 }
 
+template <bool TEX>
 __global__ void __launch_bounds__(COH_THREADS, COH_MIN_BLOCKS)
 receive_coherent_kernel(const float* __restrict__ params,
                         const float* __restrict__ prim,
@@ -4166,6 +4253,10 @@ receive_coherent_kernel(const float* __restrict__ params,
     const long long n_vals = 2LL * cfg.n_time * cfg.n_freq;
     // mode 1 without warp rows: the block's float grid after the warps'
     float* s_grid = reinterpret_cast<float*>(s_warps + (T / 32) * wbytes);
+    // TEX: each rectangle's texture record, after the block's grid
+    float4* s_tex = reinterpret_cast<float4*>(
+        reinterpret_cast<char*>(s_grid)
+        + (cfg.mode == 1 && !rows ? (4 * n_vals + 15) & ~15LL : 0LL));
 
     for (int i = tid; i < cfg.n_params; i += T) s_par[i] = params[i];
     for (int i = tid; i < TXP_COLS; i += T) s_tx[i] = txp[i];
@@ -4192,6 +4283,9 @@ receive_coherent_kernel(const float* __restrict__ params,
                                row[13]);
             r[4] = make_float4(row[14], row[18], row[15], row[16]);
             r[5] = make_float4(row[17], row[19], row[20], row[21]);
+            if constexpr (TEX)
+                tex_record(s_tex + 2 * (nr - 1), row, p, cfg.grid, np,
+                           cfg.g_w);
             if (row[14] != 0.0f) {
                 float4* b = s_blk + 3 * nb++;
                 b[0] = r[0];
@@ -4310,7 +4404,8 @@ receive_coherent_kernel(const float* __restrict__ params,
             lsum = e.w;
             const int dw = __float_as_int(sl4[2].w);
             depth = dw & 0xffff;
-            wdel = (dw >> 16) != 0;
+            // TEX: the hit rectangle rides bits 17 and up
+            wdel = ((TEX ? dw & 0x1ffff : dw) >> 16) != 0;
         }
         const int d0 = base + 6 * depth;
         float ud[6];
@@ -4428,9 +4523,14 @@ receive_coherent_kernel(const float* __restrict__ params,
             dz = b.z;
             t_rx0 = c.x;
             const float tb = c.y;
-            const float4* rec = s_rec + COH_REC * __float_as_int(c.z);
+            // TEX: the slot holds the textured reflectance in place of
+            // the rectangle, which rides the depth word
+            const float4* rec = s_rec + COH_REC * (TEX ? __float_as_int(c.w)
+                                                             >> 17
+                                                       : __float_as_int(c.z));
             const float4 nrb = rec[3], lob = rec[4], kv = rec[5];
-            const float nx = nrb.x, ny = nrb.y, nz = nrb.z, rb = nrb.w;
+            const float nx = nrb.x, ny = nrb.y, nz = nrb.z,
+                        rb = TEX ? c.z : nrb.w;
             const float txc = lob.x, kb = lob.y, ab = lob.z, eb = lob.w;
             const float kk = kv.x, vbx = kv.y, vby = kv.z, vbz = kv.w;
             const float n_time_f = (float)cfg.n_time;
@@ -4666,14 +4766,19 @@ receive_coherent_kernel(const float* __restrict__ params,
         if (live) {
             float tb = F(3.4e38);
             int pw = -1;
+            float bpx = 0.0f, bpy = 0.0f;      // TEX: the winner's (px, py)
             for (int r = 0; r < n_rect; ++r) {
                 // [k1 stage: closest]
-                float t_p;
-                bool hit_p = rect_hit4(s_rec + COH_REC * r, ox, oy, oz, dx,
-                                       dy, dz, &t_p);
+                float t_p, px, py;
+                bool hit_p = rect_hit4_uv(s_rec + COH_REC * r, ox, oy, oz, dx,
+                                          dy, dz, &t_p, &px, &py);
                 if (hit_p && t_p > F(1e-4) && t_p < tb) {
                     tb = t_p;
                     pw = r;
+                    if constexpr (TEX) {
+                        bpx = px;
+                        bpy = py;
+                    }
                 }
             }
             // [k1 stage: trace]
@@ -4682,9 +4787,18 @@ receive_coherent_kernel(const float* __restrict__ params,
                 const unsigned long long ln = (unsigned long long)lane;
                 sl4[0] = make_float4(ox, oy, oz, thr);
                 sl4[1] = make_float4(dx, dy, dz, plen);
-                sl4[2] = make_float4(t_rx0, tb, __int_as_float(pw),
-                                     __int_as_float(depth
-                                                    | (wdel ? 1 << 16 : 0)));
+                if constexpr (TEX)
+                    sl4[2] = make_float4(
+                        t_rx0, tb,
+                        tex_reflectance(s_tex + 2 * pw,
+                                        s_rec[COH_REC * pw + 3].w, bpx, bpy,
+                                        cfg.grid, cfg.g_w),
+                        __int_as_float(depth | (wdel ? 1 << 16 : 0)
+                                       | pw << 17));
+                else
+                    sl4[2] = make_float4(t_rx0, tb, __int_as_float(pw),
+                                         __int_as_float(
+                                             depth | (wdel ? 1 << 16 : 0)));
                 sl4[3] = make_float4(__uint_as_float((unsigned)ln),
                                      __uint_as_float((unsigned)(ln >> 32)),
                                      dop, lsum);
@@ -4737,6 +4851,17 @@ receive_coherent_kernel(const float* __restrict__ params,
         part_ev[blockIdx.x] = tot;
     }
 }
+
+// The untextured coherent kernel, instantiated where it is defined, so
+// that the module keeps its kernels' order: instantiated where it is
+// used, at the module's end, it left every kernel's PTX as it was but for
+// its labels' numbers, and ptxas then gave the endpoint kernel other
+// machine code.  The texture twin is instantiated where it is used.
+template __global__ void receive_coherent_kernel<false>(
+    const float* __restrict__, const float* __restrict__,
+    const float* __restrict__, const float* __restrict__,
+    const float* __restrict__, bvh::Tables, float* __restrict__,
+    double* __restrict__, unsigned long long* __restrict__, Cfg);
 
 // ---- the coherent endpoint kernel: the coherent kernel's turns ----------
 //
@@ -9372,14 +9497,14 @@ receive_mimo_kernel(const float* __restrict__ params,
 
 // The kernel of a configuration.
 template <bool MESH, bool DOP, bool COH, bool MIMO, bool MED, bool EP,
-          bool LOB = false>
+          bool LOB = false, bool TEX = false>
 constexpr auto kernel_of() {
     if constexpr (MIMO && !MED && !EP)
         return receive_mimo_array_kernel;
     else if constexpr (MIMO)
         return receive_mimo_kernel<MED, EP>;
     else if constexpr (DOP && !MESH && COH && !MED && !EP && !LOB)
-        return receive_coherent_kernel;
+        return receive_coherent_kernel<TEX>;
     else if constexpr (DOP && !MESH && !MED && !EP && LOB)
         return receive_lobe_kernel<COH>;
     else if constexpr (DOP && !MESH && !COH && !MED && !EP)
@@ -9393,7 +9518,7 @@ constexpr auto kernel_of() {
     else if constexpr (DOP)
         return receive_doppler_kernel<MESH, COH, MED, EP, LOB>;
     else if constexpr (!MESH && !MED && !EP)
-        return receive_flagship_kernel;
+        return receive_flagship_kernel<TEX>;
     else if constexpr (!MED && !EP)
         return receive_mesh_kernel;
     else
@@ -9473,7 +9598,7 @@ int threads_for(int n_time) {
 }
 
 template <bool MESH, bool DOP, bool COH, bool MIMO, bool MED, bool EP,
-          bool LOB = false>
+          bool LOB = false, bool TEX = false>
 int geometry(int n_time, int n_freq, long long n_lanes, int n_prims,
              int n_params, int n_msh, int mode, int n_pulses, int n_elem,
              int n_tx, int n_pairs, int n_rx_pairs, int* blocks,
@@ -9516,12 +9641,15 @@ int geometry(int n_time, int n_freq, long long n_lanes, int n_prims,
                + (mode == 1 && !rows ? 8 * n_time * n_freq : 0);
     } else if (DOP && !MESH && COH && !MED && !EP && !LOB) {
         // the coherent kernel: its tables, each warp's paths (and row), then
-        // the block's float grid where there are no warp rows (mode 1)
+        // the block's float grid where there are no warp rows (mode 1);
+        // its texture twin's records after them
         T = COH_THREADS;
         const bool rows = coh_rows(n_time, n_freq, mode);
+        const int grid_bytes = mode == 1 && !rows ? 8 * n_time * n_freq : 0;
         smem = coh_table_bytes(n_prims, n_params)
                + (T / 32) * coh_warp_bytes(n_time, rows)
-               + (mode == 1 && !rows ? 8 * n_time * n_freq : 0);
+               + (TEX ? ((grid_bytes + 15) & ~15) + 32 * n_prims
+                      : grid_bytes);
     } else if (DOP && !MESH && !COH && !MED && !EP && !LOB) {
         // the Doppler power kernel: the coherent kernel's tables, each
         // warp's paths (and row of n_time doubles), then the block's float
@@ -9559,10 +9687,12 @@ int geometry(int n_time, int n_freq, long long n_lanes, int n_prims,
         smem = (int)(4 * (n_params + n_prims * PRIM_COLS + TX_FLOATS
                           + n_msh * MSH_COLS + cells));
     } else if (!MESH && !MED && !EP) {
-        // the flagship kernel: its tables, then each warp's paths and row
+        // the flagship kernel: its tables, then each warp's paths and row;
+        // its texture twin's records after them
         T = FLAG_THREADS;
         smem = flag_table_bytes(n_prims, n_params)
-               + (T / 32) * flag_warp_bytes(n_time);
+               + (T / 32) * flag_warp_bytes(n_time)
+               + (TEX ? 32 * n_prims : 0);
     } else if (!MED && !EP) {
         // the mesh kernel: the flagship's tables, then each warp's paths
         // and row
@@ -9575,12 +9705,13 @@ int geometry(int n_time, int n_freq, long long n_lanes, int n_prims,
         smem = 4 * (n_params + n_prims * PRIM_COLS + TX_FLOATS + n_time * T);
     }
     cudaError_t err = cudaFuncSetAttribute(
-        kernel_of<MESH, DOP, COH, MIMO, MED, EP, LOB>(),
+        kernel_of<MESH, DOP, COH, MIMO, MED, EP, LOB, TEX>(),
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
     int per_sm = 0;
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, kernel_of<MESH, DOP, COH, MIMO, MED, EP, LOB>(), T, smem);
+        &per_sm, kernel_of<MESH, DOP, COH, MIMO, MED, EP, LOB, TEX>(), T,
+        smem);
     if (err != cudaSuccess) return (int)err;
     if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
     int dev = 0, sms = 0;
@@ -9660,6 +9791,15 @@ int geometry_lobes(int n_time, int n_freq, long long n_lanes, int n_prims,
                 : g(geometry<false, true, false, false, false, false, true>);
 }
 
+// Whether a call may run a texture twin: the flagship configuration
+// (mode 0) or the coherent one, on an analytic scene, one pulse, in
+// vacuum, with one Wigner transmitter, no lobe twin and no MIMO.
+bool tex_config(int mode, int coh, int mesh, int medium, int ep, int lob,
+                int n_elem, int n_pulses) {
+    return (mode == 0 || coh) && !mesh && !medium && !ep && !lob
+           && n_elem == 0 && n_pulses == 1;
+}
+
 }  // namespace
 
 extern "C" {
@@ -9668,15 +9808,30 @@ extern "C" {
 // when `medium` != 0, of its endpoint twin when `ep` != 0 (n_tx
 // transmitters, n_pairs pairs a phased transmitter's row, n_rx_pairs an
 // analog phased receiver's: the endpoint kernels' index), of a Doppler
-// configuration's lobe twin when `lob` != 0 (one of the three at most).
+// configuration's lobe twin when `lob` != 0 (one of the three at most), of
+// the flagship or the analytic coherent configuration's texture twin when
+// `tex` != 0 (one pulse, vacuum, one Wigner transmitter, no lobe twin).
 int rk_geometry(int n_time, int n_freq, long long n_lanes, int n_prims,
                 int n_params, int n_msh, int mesh, int mode, int coh,
                 int n_pulses, int n_elem, int medium, int ep, int lob,
-                int n_tx, int n_pairs, int n_rx_pairs, int* blocks,
+                int n_tx, int n_pairs, int n_rx_pairs, int tex, int* blocks,
                 int* threads, int* smem_bytes) {
     if (n_pulses < 1 || (medium && ep) || (lob && (medium || ep))
         || n_tx < 1 || n_tx > MAX_TX || n_pairs < 0 || n_rx_pairs < 0)
         return (int)cudaErrorInvalidValue;
+    if (tex) {
+        if (!tex_config(mode, coh, mesh, medium, ep, lob, n_elem, n_pulses))
+            return (int)cudaErrorInvalidValue;
+        return coh ? geometry<false, true, true, false, false, false, false,
+                              true>(n_time, n_freq, n_lanes, n_prims,
+                                    n_params, n_msh, mode, n_pulses, n_elem,
+                                    1, 0, 0, blocks, threads, smem_bytes)
+                   : geometry<false, false, false, false, false, false,
+                              false, true>(n_time, n_freq, n_lanes, n_prims,
+                                           n_params, n_msh, mode, n_pulses,
+                                           n_elem, 1, 0, 0, blocks, threads,
+                                           smem_bytes);
+    }
     if (lob)
         return geometry_lobes(n_time, n_freq, n_lanes, n_prims, n_params,
                               n_msh, mesh, mode, coh, n_pulses, n_elem,
@@ -9735,7 +9890,7 @@ int rk_launch(const float* params, const float* prim, const float* txp,
               const float* eoff, int n_elem, int medium, const float* grid,
               int g_d, int g_h, int g_w, int n_tx, int ep, const float* php,
               int php_cols, int rx_phased, int n_rx_pairs, int lobes,
-              void* stream) {
+              const float* tex, int tex_w, void* stream) {
     Cfg cfg;
     cfg.n_lanes = n_lanes;
     cfg.seed = seed;
@@ -9790,6 +9945,14 @@ int rk_launch(const float* params, const float* prim, const float* txp,
     if (mode == 0 && (coh || rule != 0 || mirror))
         return (int)cudaErrorInvalidValue;
     if (n_pulses < 1 || n_pulses > 65535) return (int)cudaErrorInvalidValue;
+    if (tex != nullptr) {
+        // the texture twins read the texture buffer through cfg.grid
+        if (!tex_config(mode, coh, bbox != nullptr, medium, ep, lobes,
+                        n_elem, n_pulses) || tex_w < 1)
+            return (int)cudaErrorInvalidValue;
+        cfg.grid = tex;
+        cfg.g_w = tex_w;
+    }
     if (n_elem > 0 && (mode == 0 || !coh || bbox != nullptr || n_freq != 1
                        || n_pulses != 1 || rxph == nullptr
                        || eoff == nullptr))
@@ -9833,7 +9996,9 @@ int rk_launch(const float* params, const float* prim, const float* txp,
                 else
                     launch(receive_trace_kernel<true, MED, EP>, lane_val);
             } else if constexpr (!MED && !EP)
-                launch(receive_flagship_kernel, nullptr);
+                tex != nullptr ? launch(receive_flagship_kernel<true>, nullptr)
+                               : launch(receive_flagship_kernel<false>,
+                                        nullptr);
             else if constexpr (EP)
                 launch(receive_endpoint_kernel, nullptr);
             else
@@ -9848,7 +10013,9 @@ int rk_launch(const float* params, const float* prim, const float* txp,
                     launch(receive_doppler_kernel<true, true, MED, EP>,
                            lane_val);
             } else if constexpr (!MED && !EP)
-                launch(receive_coherent_kernel, lane_val);
+                tex != nullptr
+                    ? launch(receive_coherent_kernel<true>, lane_val)
+                    : launch(receive_coherent_kernel<false>, lane_val);
             else if constexpr (EP)
                 launch(receive_endpoint_coherent_kernel, lane_val);
             else
@@ -9955,6 +10122,13 @@ const void* rk_mimo_kernel() {
 
 const void* rk_mesh_kernel() {
     return reinterpret_cast<const void*>(receive_mesh_kernel);
+}
+
+// The texture twins (which 0 / 1): the flagship's and the coherent
+// kernel's.
+const void* rk_tex_kernel(int coh) {
+    return coh ? reinterpret_cast<const void*>(receive_coherent_kernel<true>)
+               : reinterpret_cast<const void*>(receive_flagship_kernel<true>);
 }
 
 // The endpoint kernel of the power (coh 0) or I / Q configuration, to

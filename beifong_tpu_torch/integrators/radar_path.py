@@ -304,6 +304,7 @@ def radar_receive_trace(scene, stream, o, d, t_rx, f_rx, ray_weight, adc,
         has_bsdf = bsdf_idx >= 0
         tex_idx = scene.bsdfs.texture_idx[torch.clamp(bsdf_idx, min=0).long()]
         refl_scale = texture_eval(scene.textures, tex_idx, si.uv,
+                                  si.prim_idx,
                                   wl=c / torch.clamp(f_rx, min=1e-20))
         u_sel, stream = stream.next_1d()
         u_pos, stream = stream.next_2d()
@@ -332,7 +333,7 @@ def radar_receive_trace(scene, stream, o, d, t_rx, f_rx, ray_weight, adc,
         wo_nee = si.to_local(ds.d)
         # the NEE vertex's spectral reflectance at the connection's own
         # frequency
-        refl_nee = texture_eval(scene.textures, tex_idx, si.uv,
+        refl_nee = texture_eval(scene.textures, tex_idx, si.uv, si.prim_idx,
                                 wl=c / torch.clamp(f_recv_nee, min=1e-20))
         sgn_geo = _side_sign(si)
         f_b, pdf_b_nee = bsdf_eval_pdf(scene.bsdfs, bsdf_idx,

@@ -49,7 +49,11 @@ rectangle (the second lobe in prim columns 27-33; NEE evaluates the mix,
 the bounce picks a lobe, a mask's other lobe passes the ray on); a
 refracted or passed ray leaves through the back face, and a lane a
 delta lobe continued counts a direct transmitter hit at its next
-vertex.  Per lane the kernel generates the receive ray, finds the
+vertex.  The flagship and coherent configurations have a texture twin,
+which scales a diffuse rectangle's reflectance by its checkerboard or
+bitmap texture at the hit's local uv (prim columns 22-26; the bitmaps'
+texel rows `PackedScene.tex`), as the JAX kernel's `prim_tex` does.  Per
+lane the kernel generates the receive ray, finds the
 closest hit, counts direct transmitter hits at depth 0, connects to the
 transmitter (NEE) with the waveform and aperture Wigner weights and a
 shadow test, tent-splats into the ADC grid and makes the BSDF bounce.
@@ -96,6 +100,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import weakref
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -114,6 +119,7 @@ from ..media import (GRID, HOMOGENEOUS, LAYERED, HeterogeneousMedium,
 from ..radar.endpoints import (ADCConfig, AREA, OMNI, PHASED, WIGNER,
                                _elem_locs, _phased_pairs, rx_elem_offsets)
 from ..radar.waveform import CW, LINFMCW
+from ..textures import BITMAP, CHECKERBOARD
 
 MAX_PRIMS = 64          # prim rows held in shared memory
 # the endpoint configuration's caps, the JAX package's (its NEE and its
@@ -167,6 +173,14 @@ MAX_GRID3_W = 128
 # the row at which the JAX package's texture table holds the sigma grid of
 # an untextured scene (its table's 8 rows of zeros come first): params[52]
 GRID3_TEX_ROW = 8
+# bitmap textures, the JAX package's caps (its one-hot gather's cost),
+# kept so that both packages route a textured scene alike: the texels of
+# one bitmap, and the texel rows of the distinct bitmaps together (each
+# padded to a multiple of 8 rows).  The texture twins read a texel with
+# one load, so neither binds them here
+MAX_BMP_TEXELS = 16384
+MAX_BMP_ROWS = 512
+TEX_LANE = 128          # texel rows are padded to a multiple of 128 texels
 MAX_MESH_SHAPES = 64    # distinct mesh-shape rows (the JAX package's cap)
 MESH_STRIDE = 96        # leaf rows: 80 + reflectance + shape-row payloads
 # the BVH tables live in device memory and are indexed with int32: a leaf
@@ -242,6 +256,17 @@ class PackedScene:
     rx_rule: int = RX_RAW           # the receiver's frequency rule
     medium: int = 0                 # media.HOMOGENEOUS / LAYERED / GRID
     grid: np.ndarray | None = None  # (D, H, W) f32 sigma cells (GRID)
+    tex: np.ndarray | None = None   # (R, Wp) f32: the JAX package's texel
+    #                                 rows (its sigma grid's rows last)
+    bmp_meta: np.ndarray | None = None   # (n_prims, 3) int32: a bitmap
+    #                                 rectangle's (first row, H, W) in
+    #                                 `tex`, (-1, 0, 0) for the others
+
+    @property
+    def textured(self) -> bool:
+        """A checkerboard or bitmap rectangle (prim column 26): the
+        texture twins."""
+        return bool((self.prim[:, 26] != 0).any())
 
     @property
     def moving(self) -> bool:
@@ -405,6 +430,12 @@ def pack_scene(scene_data, rx, shape_idx: int) -> PackedScene:
     nested1 = sd.bsdfs.nested1.cpu().numpy()
     b_wt = sd.bsdfs.weight.cpu().numpy()
     shape_vel = shapes.velocity.cpu().numpy()
+    tex_idx = sd.bsdfs.texture_idx.cpu().numpy()
+    t_type = sd.textures.type.cpu().numpy()
+    t_c0 = sd.textures.color0.cpu().numpy()
+    t_c1 = sd.textures.color1.cpu().numpy()
+    t_suv = sd.textures.scale_uv.cpu().numpy()
+    bmp_of_prim = {}   # prim row -> texture row (bitmap rectangles)
 
     tx = sd.transmitters
     tx_shapes = tx.shape_idx.cpu().numpy()
@@ -454,6 +485,20 @@ def pack_scene(scene_data, rx, shape_idx: int) -> PackedScene:
                 prim[r, 28] = float(DIFFUSE)
                 prim[r, 29:33] = 0.0
         prim[r, 19:22] = shape_vel[i]
+        # the texture payload (rectangles; `supported` refuses the rest):
+        # column 26 the code, 1 a checkerboard (its colours at 22, 23), 2
+        # a bitmap (its texel rows in `tex`); its uv scale at 24, 25
+        t_i = int(tex_idx[b]) if b >= 0 else -1
+        if t_i >= 0 and int(t_type[t_i]) in (CHECKERBOARD, BITMAP):
+            prim[r, 24:26] = t_suv[t_i]
+            if int(t_type[t_i]) == CHECKERBOARD:
+                prim[r, 22] = t_c0[t_i, 0]
+                prim[r, 23] = t_c1[t_i, 0]
+                prim[r, 26] = 1.0
+            else:
+                prim[r, 26] = 2.0
+                bmp_of_prim[r] = t_i
+    tex, bmp_meta = _pack_bitmaps(sd.textures, bmp_of_prim, len(keep))
 
     # per-tx rows; the phase pivots are computed in float64 on the host
     fc_ref = 0.5 * (sd.band.freq_min + sd.band.freq_max)
@@ -557,7 +602,16 @@ def pack_scene(scene_data, rx, shape_idx: int) -> PackedScene:
         params[40] = np.float32(np.float64(params[37]) - np.float64(fc_ref))
         params[41] = float(lo_wf.phi0.reshape(-1)[0])
 
-    medium, grid = pack_medium(sd.medium, params)
+    medium, grid = pack_medium(sd.medium, params, tex.shape[0])
+    if grid is not None:
+        # the JAX package's texture table carries the sigma grid's rows
+        gd, gh, gw = grid.shape
+        if gw > tex.shape[1]:
+            tex = np.pad(tex, ((0, 0), (0, -(-gw // TEX_LANE) * TEX_LANE
+                                        - tex.shape[1])))
+        blk = np.zeros((-(-gd * gh // 8) * 8, tex.shape[1]), np.float32)
+        blk[:gd * gh, :gw] = grid.reshape(gd * gh, gw)
+        tex = np.concatenate([tex, blk])
 
     # meshes (and demoted rectangles): the aligned BVH, per-face
     # reflectance at leaf column 80, the owning shape's mesh-shape row at 88
@@ -576,18 +630,47 @@ def pack_scene(scene_data, rx, shape_idx: int) -> PackedScene:
     return PackedScene(params=params, prim=prim, txp=txp, php=php,
                        rxph=rxph, msh=msh, mesh=mesh,
                        rx_rule=rx_rule(rx.receive_type, lo_wf is not None),
-                       medium=medium, grid=grid)
+                       medium=medium, grid=grid, tex=tex, bmp_meta=bmp_meta)
 
 
-def pack_medium(med, params: np.ndarray):
+def _pack_bitmaps(textures, bmp_of_prim: dict, n_prims: int):
+    """The bitmap rectangles' texel rows as the JAX package packs them:
+    channel 0 of each distinct bitmap, in texture-row order, a block of
+    its rows padded to a multiple of 8, the width padded to a multiple of
+    TEX_LANE (at least one); 8 rows of zeros without bitmaps.  Returns
+    (tex (R, Wp) float32, bmp_meta (n_prims, 3) int32: (first row, H, W)
+    of a bitmap rectangle's block, (-1, 0, 0) for the other rows)."""
+    bmp_meta = np.tile(np.asarray([-1, 0, 0], np.int32), (n_prims, 1))
+    if not bmp_of_prim:
+        return np.zeros((8, TEX_LANE), np.float32), bmp_meta
+    hw = textures.atlas_hw.cpu().numpy()
+    atlas = textures.atlas.cpu().numpy()
+    used = sorted(set(bmp_of_prim.values()))
+    w_max = max(int(hw[t, 1]) for t in used)
+    wp = max(TEX_LANE, -(-w_max // TEX_LANE) * TEX_LANE)
+    blocks, off_of, off = [], {}, 0
+    for t in used:
+        h, w = int(hw[t, 0]), int(hw[t, 1])
+        blk = np.zeros((-(-h // 8) * 8, wp), np.float32)
+        blk[:h, :w] = atlas[t, :h, :w, 0]
+        off_of[t] = (off, h, w)
+        blocks.append(blk)
+        off += blk.shape[0]
+    for r, t in bmp_of_prim.items():
+        bmp_meta[r] = off_of[t]
+    return np.concatenate(blocks), bmp_meta
+
+
+def pack_medium(med, params: np.ndarray, tex_rows: int = GRID3_TEX_ROW):
     """Write a scene's ambient medium into `params` as the JAX package's
     `_pack_scene` does, bit for bit, and return (kind, grid): 0 and None
     in vacuum; homogeneous sigma_t at [29]; layered K at [42], z_min and
     the layer thickness at [43:45], the K steps of the profile (taken in
     float64, then rounded) from [45]; a grid's box minimum [43:46],
-    inverse extent [46:49], D, H, W [49:52] and its texture row [52],
-    with its (D, H, W) float32 cells returned apart (the rows the JAX
-    package appends to its texture table).  The kind goes to the kernel
+    inverse extent [46:49], D, H, W [49:52] and its texture row [52]
+    (`tex_rows`, the rows of the bitmaps packed ahead of it), with its
+    (D, H, W) float32 cells returned apart (the rows the JAX package
+    appends to its texture table).  The kind goes to the kernel
     on its own: params[49] > 0 does not tell a grid (a layered medium's
     fifth step sits there)."""
     if med is None:
@@ -612,7 +695,7 @@ def pack_medium(med, params: np.ndarray):
         params[43:46] = bmn
         params[46:49] = 1.0 / np.maximum(bmx - bmn, 1e-12)
         params[49:52] = grid.shape
-        params[52] = GRID3_TEX_ROW
+        params[52] = tex_rows
         return GRID, np.ascontiguousarray(grid)
     raise NotImplementedError(f'ambient medium {type(med).__name__}')
 
@@ -706,8 +789,9 @@ def supported(scene_data, rx, reason: list | None = None,
                 return no('blend / mask on a triangle-mesh shape: the '
                           'kernels take composites on rectangles only, in '
                           'the JAX package as here')
-    if bool((sd.bsdfs.texture_idx >= 0).any()):
-        return no('textured BSDFs (ROADMAP B7)')
+    textured = _textured_scope(sd, no)
+    if textured is None:
+        return False
     lobes = bool(_lobe_types(sd) - {DIFFUSE, CONDUCTOR, ROUGH_CONDUCTOR})
     if mimo:
         if rx.kind != PHASED or rx.n_elems < 2:
@@ -788,6 +872,89 @@ def supported(scene_data, rx, reason: list | None = None,
     if adc.n_freq > 1 and not adc.freq_hi > adc.freq_lo:
         return no(f'n_freq {adc.n_freq} over an empty frequency window '
                   f'[{adc.freq_lo}, {adc.freq_hi}] (ROADMAP A5)')
+    if textured:
+        # the texture twins: the flagship and the coherent configurations
+        # of an analytic, static scene in vacuum with one Wigner
+        # transmitter and diffuse or conductor lobes
+        if mimo:
+            return no('textures in MIMO receive: the MIMO configuration '
+                      'has no texture twin (ROADMAP B7); the wavefront '
+                      'runs it')
+        if sd.tris is not None or demote:
+            return no('textured rectangles in a mesh scene: the mesh '
+                      'configurations have no texture twin (ROADMAP B7); '
+                      'the wavefront runs it')
+        if lobes:
+            return no('textures with dielectric, plastic or composite '
+                      'lobes: the lobe twins have no texture twin (ROADMAP '
+                      'B7); the wavefront runs it')
+        if endpoints:
+            return no('textures with these endpoints (several '
+                      'transmitters, a phased or area transmitter, an '
+                      'analog phased receiver): the endpoint twins have no '
+                      'texture twin (ROADMAP B7); the wavefront runs it')
+        if med is not None:
+            return no('textures through an ambient medium: the media twins '
+                      'have no texture twin (ROADMAP B7); the wavefront runs '
+                      'it')
+        # `needs_doppler` on the flags the pack would carry (an analytic
+        # scene: its shapes' lobes and velocities), without packing it
+        types = _lobe_types(sd)
+        flags = SimpleNamespace(
+            moving=any(bool((torch.as_tensor(v) != 0).any()) for v in (
+                sd.shapes.velocity, tx.velocity, rx.velocity)),
+            ggx=ROUGH_CONDUCTOR in types, mirror=CONDUCTOR in types,
+            lobes=0, rx_rule=rx_rule(rt, has_lo))
+        if needs_doppler(flags, adc):
+            return no('a textured scene that needs the Doppler '
+                      'configuration (motion, a GGX or mirror lobe, an LO '
+                      'receive type, n_freq > 1 or n_time > '
+                      f'{MAX_N_TIME_ROWS}): its power twin has no texture '
+                      'twin (ROADMAP B7); the wavefront runs it')
+    return True
+
+
+def _textured_scope(sd, no):
+    """The JAX kernel's texture rules (pallas_receive.py:2780-2810): a
+    textured BSDF takes a checkerboard or a bitmap, on rectangles only, a
+    bitmap of at most MAX_BMP_TEXELS texels, and the distinct bitmaps at
+    most MAX_BMP_ROWS packed rows.  Returns whether the scene has a
+    texture, or None where it breaks a rule (after calling `no` with the
+    reason)."""
+
+    def refuse(why: str):
+        no(why)
+        return None
+
+    tex_idx = sd.bsdfs.texture_idx.tolist()
+    if max(tex_idx, default=-1) < 0:
+        return False
+    t_type = sd.textures.type.tolist()
+    t_hw = sd.textures.atlas_hw.tolist()
+    used = set()     # a shared bitmap's rows count once
+    for k, b in zip(sd.shapes.kind.tolist(), sd.shapes.bsdf_idx.tolist()):
+        if b < 0 or tex_idx[b] < 0:
+            continue
+        t = tex_idx[b]
+        if t_type[t] not in (CHECKERBOARD, BITMAP):
+            return refuse('textured BSDF beyond checkerboard / bitmap: '
+                          'the kernel takes those two, as the JAX '
+                          'package\'s does (ROADMAP B7)')
+        if k != RECTANGLE:
+            return refuse('texture on a non-rectangle shape: the kernel '
+                          'takes uv from a rectangle\'s local coordinates, '
+                          'as the JAX package\'s does (ROADMAP B7)')
+        if t_type[t] == BITMAP:
+            h, w = t_hw[t]
+            if h * w > MAX_BMP_TEXELS:
+                return refuse(f'bitmap texture {h}x{w} > '
+                              f'{MAX_BMP_TEXELS} texels (the JAX '
+                              'package\'s cap; ROADMAP A5)')
+            used.add(t)
+    rows = sum(-(-t_hw[t][0] // 8) * 8 for t in used)
+    if rows > MAX_BMP_ROWS:
+        return refuse(f'{rows} packed bitmap rows > {MAX_BMP_ROWS} (the '
+                      'JAX package\'s cap; ROADMAP A5)')
     return True
 
 
@@ -1110,7 +1277,7 @@ STAT_KEYS = ('lanes', 'strata', 'freq_draw', 'lo_freq', 'trace', 'hit',
              'pair_tests', 'pair_terms', 'plas_nee', 'rplas_nee',
              'rdiel_nee', 'blend_nee', 'blend_pick', 'diel_bounce',
              'plas_bounce', 'rplas_bounce', 'rdiel_bounce', 'pass_bounce',
-             'pair_sums', 'pair_visits')
+             'pair_sums', 'pair_visits', 'tex_hit')
 
 # the endpoint kernels' footprint index (csrc epx_header / epx_build):
 # cells an axis
@@ -1398,7 +1565,8 @@ def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
                            has_lo: bool = False, coherent: bool = False,
                            amp_out=None, mirror: bool | None = None,
                            rxph=None, eoff=None, medium: int = 0, grid=None,
-                           ill_out=None, php=None, lobes: int | None = None):
+                           ill_out=None, php=None, lobes: int | None = None,
+                           tex=None, bmp_meta=None):
     """Plain version of the kernel, in every configuration.  Returns (acc
     (n_time, n_freq) float32, n_events 0-d int64): the tent-splatted power
     and the count of nonzero contributions; with `coherent` acc is
@@ -1487,7 +1655,14 @@ def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
     (optical depths of segments and of connections); 'pair_tests' and
     'pair_terms' (phased pair terms evaluated, and of those inside their
     footprint), with 'phased_ray' also for an analog phased receiver's
-    rays."""
+    rays; 'tex_hit' (closest hits on a textured rectangle).
+
+    `tex` (R, Wp) float32 and `bmp_meta` (n_prims, 3) int32, the texel
+    rows of `pack_scene`, feed the rectangles whose prim rows carry a
+    texture (column 26: 1 a checkerboard, colours at 22 and 23; 2 a
+    bitmap; its uv scale at 24 and 25): the hit rectangle's reflectance
+    times the texture at its local uv = (p + 1) / 2, in the JAX kernel's
+    arithmetic (the texture twins)."""
     rule = rx_rule(receive_type, has_lo)
     mimo = eoff is not None
     if mimo and (rx_kind != 'phased' or coherent or not doppler):
@@ -1553,8 +1728,14 @@ def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
                 counts['pair_visits'] += int(pairs[live].sum())
     lo_w = dict(wf=sp[33], prf=sp[35], text=sp[36], fc=sp[37], fext=sp[38],
                 fcpri=sp[39], dfc=sp[40], phi0=sp[41])
-    prims = [prim[p] for p in range(prim.shape[0])
-             if int(prim[p, 0]) == RECTANGLE]
+    prim_ids = [p for p in range(prim.shape[0])
+                if int(prim[p, 0]) == RECTANGLE]
+    prims = [prim[p] for p in prim_ids]
+    # the texture twins' codes of the rectangles (1 checkerboard, 2 bitmap)
+    tex_code = [int(prim[p, 26]) for p in prim_ids]
+    if 2 in tex_code and (tex is None or bmp_meta is None):
+        raise ValueError('a bitmap rectangle needs the texel rows `tex` and '
+                         'their `bmp_meta`')
     # transmitter t's own rectangle (t in column 14) never occludes its
     # NEE; other geometry, the other transmitters' rectangles included, does
     blockers = [[row for row in prims if float(row[14]) != float(t)]
@@ -1937,7 +2118,7 @@ def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
         t_p = -ooz / torch.where(big, odz, 1e-12)
         px = oox + t_p * odx
         py = ooy + t_p * ody
-        return t_p, big & (px.abs() <= 1.0) & (py.abs() <= 1.0), q
+        return t_p, big & (px.abs() <= 1.0) & (py.abs() <= 1.0), q, px, py
 
     cx, cy, cz = ox, oy, oz
     ddx, ddy, ddz = dx, dy, dz
@@ -1968,8 +2149,16 @@ def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
                      torch.zeros_like(tb)]
             wmx = torch.ones_like(tb)
             mskf = torch.zeros(n_lanes, dtype=torch.bool, device=dev)
-        for row in prims:
-            t_p, hit_p, q = rect_t(row, cx, cy, cz, ddx, ddy, ddz)
+        tex_w = torch.zeros_like(active)    # the winner is textured
+        if 2 in tex_code:
+            # the bitmap rectangle a lane hit (its prim row, -1 none) and
+            # the fraction of its scaled uv: its texel is read after the
+            # loop (the JAX kernel's bub, bvb, bpid)
+            bpid = torch.full((n_lanes,), -1, dtype=torch.long, device=dev)
+            bub = torch.zeros_like(tb)
+            bvb = torch.zeros_like(tb)
+        for p_id, code, row in zip(prim_ids, tex_code, prims):
+            t_p, hit_p, q, px, py = rect_t(row, cx, cy, cz, ddx, ddy, ddz)
             rnorm = torch.rsqrt(torch.clamp(
                 q[8] * q[8] + q[9] * q[9] + q[10] * q[10], min=1e-20))
             closer = hit_p & (t_p > 1e-4) & (t_p < tb)
@@ -1977,7 +2166,24 @@ def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
             nx = torch.where(closer, q[8] * rnorm, nx)
             ny = torch.where(closer, q[9] * rnorm, ny)
             nz = torch.where(closer, q[10] * rnorm, nz)
-            rb = torch.where(closer, row[13], rb)
+            rb_p = row[13]
+            if code:
+                # the texture at the rectangle's uv = (p_local + 1) / 2,
+                # scaled, in the JAX kernel's arithmetic
+                uu = (px + 1.0) * 0.5 * row[24]
+                vv = (py + 1.0) * 0.5 * row[25]
+                if code == 1:
+                    cs = torch.floor(uu) + torch.floor(vv)
+                    par = cs - 2.0 * torch.floor(cs * 0.5)
+                    rb_p = rb_p * torch.where(par < 0.5, row[22], row[23])
+                else:
+                    bub = torch.where(closer, uu - torch.floor(uu), bub)
+                    bvb = torch.where(closer, vv - torch.floor(vv), bvb)
+            if 2 in tex_code:
+                bpid = torch.where(closer, p_id if code == 2 else -1, bpid)
+            if any(tex_code):
+                tex_w = torch.where(closer, code != 0, tex_w)
+            rb = torch.where(closer, rb_p, rb)
             txc = torch.where(closer, row[14], txc)
             if read_lobe:
                 kb = torch.where(closer, row[18], kb)
@@ -2010,6 +2216,9 @@ def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
             m_closer = w.t < tb[walk]
             count('mesh_hits', m_closer)
             sel = walk[m_closer]
+            tex_w[sel] = False
+            if 2 in tex_code:
+                bpid[sel] = -1
             tb[sel] = w.t[m_closer]
             nx[sel] = (gnx * rn)[m_closer]
             ny[sel] = (gny * rn)[m_closer]
@@ -2037,9 +2246,22 @@ def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
                 kb[sel] = float(DIFFUSE)
                 for i in range(3):
                     vb[i][sel] = 0.0
+        if 2 in tex_code:
+            # the bitmap rectangles' texels: nearest, the fraction's
+            # floor(f * W) held below W (the JAX kernel's _bitmap_fetch)
+            bm = bmp_meta.to(device=dev, dtype=torch.long)[
+                torch.clamp(bpid, min=0)]
+            w_f, h_f = bm[:, 2].float(), bm[:, 1].float()
+            ix = torch.minimum(torch.floor(bub * w_f), w_f - 1.0).long()
+            iy = torch.minimum(torch.floor(bvb * h_f), h_f - 1.0).long()
+            on = bpid >= 0
+            texel = tex[torch.where(on, bm[:, 0] + iy, 0),
+                        torch.where(on, ix, 0)]
+            rb = torch.where(on, rb * texel, rb)
         hit = tb < 3.4e37
         active = active & hit
         count('hit', active)
+        count('tex_hit', active & tex_w)
         tb = torch.where(hit, tb, 1.0)   # misses: keep dead lanes finite
         plen = plen + torch.where(active, tb, 0.0)
         if tau is not None:
@@ -2177,7 +2399,7 @@ def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
             limit = dist * 0.999
             for row in blockers[t]:
                 count('occ_tests', shade & ~occ)
-                t_p, hit_p, _ = rect_t(row, sx, sy, sz, wx_, wy_, wz_)
+                t_p, hit_p, *_ = rect_t(row, sx, sy, sz, wx_, wy_, wz_)
                 occ = occ | (hit_p & (t_p > 1e-4) & (t_p < limit))
             if mesh is not None:
                 # mesh any hit for the lanes the rectangles left unblocked
@@ -2472,12 +2694,12 @@ def _bind(lib):
                               ctypes.c_longlong, ctypes.c_ulonglong,
                               ctypes.c_float)
     ip = ctypes.POINTER(ctypes.c_int)
-    lib.rk_geometry.argtypes = [i32] * 2 + [i64] + [i32] * 14 + [ip] * 3
+    lib.rk_geometry.argtypes = [i32] * 2 + [i64] + [i32] * 15 + [ip] * 3
     lib.rk_geometry.restype = i32
     lib.rk_launch.argtypes = [vp] * 12 + [i32, i32, vp, i64, u64] \
         + [i32] * 13 + [f32] * 6 + [i32, u64] + [i64] * 4 + [i32] * 3 \
         + [vp, vp, i32] + [i32, vp, i32, i32, i32] + [i32, i32, vp, i32] \
-        + [i32, i32] + [i32] + [vp]
+        + [i32, i32] + [i32] + [vp, i32] + [vp]
     lib.rk_launch.restype = i32
     lib.rk_last_kernel.argtypes = []
     lib.rk_last_kernel.restype = vp
@@ -2493,6 +2715,8 @@ def _bind(lib):
     lib.rk_mimo_kernel.restype = vp
     lib.rk_mesh_kernel.argtypes = []
     lib.rk_mesh_kernel.restype = vp
+    lib.rk_tex_kernel.argtypes = [i32]
+    lib.rk_tex_kernel.restype = vp
 
 
 LIBRARY = _nvcc.Library('receive_megakernel', 'rk', _bind)
@@ -2560,6 +2784,15 @@ def launched_mesh_kernel() -> bool:
     return lib.rk_last_kernel() == lib.rk_mesh_kernel()
 
 
+def launched_tex_kernel(coherent: bool) -> bool:
+    """Whether the last launch on a card ran a texture twin: the flagship
+    kernel's (receive_flagship_kernel<true>, power) or the coherent
+    kernel's (receive_coherent_kernel<true>, I / Q).  The library's launch
+    record."""
+    lib = LIBRARY.get()
+    return lib.rk_last_kernel() == lib.rk_tex_kernel(int(coherent))
+
+
 def grid_mode(n_cells: int, doppler: bool, coherent: bool = False,
               n_elem: int = 0) -> int:
     """How the kernel accumulates an ADC grid of `n_cells`: 0 private
@@ -2592,7 +2825,8 @@ def launch_geometry(n_time: int, n_lanes: int, n_prims: int,
                     doppler: bool = False, coherent: bool = False,
                     n_pulses: int = 1, n_elem: int = 0, medium: int = 0,
                     ep: bool = False, lobes: bool = False, n_tx: int = 1,
-                    n_pairs: int = 0, n_rx_pairs: int = 0):
+                    n_pairs: int = 0, n_rx_pairs: int = 0,
+                    tex: bool = False):
     """(blocks a pulse, threads per block, dynamic shared bytes) of the
     trace kernel (its mesh, Doppler and / or coherent configuration, or
     the MIMO one of `n_elem` elements; its media twin with `medium`, its
@@ -2604,7 +2838,8 @@ def launch_geometry(n_time: int, n_lanes: int, n_prims: int,
     pulse gets it (they run in waves, each summing in the order of one
     call).  The endpoint twin's analytic kernels size their footprint
     index by `n_tx`, the pairs a phased transmitter's row `n_pairs` and an
-    analog phased receiver's `n_rx_pairs`."""
+    analog phased receiver's `n_rx_pairs`.  `tex` asks for the texture twin
+    of the flagship or the coherent configuration."""
     lib = LIBRARY.get()
     mode = grid_mode(n_time * n_freq, doppler, coherent, n_elem)
     blocks, threads, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
@@ -2612,7 +2847,7 @@ def launch_geometry(n_time: int, n_lanes: int, n_prims: int,
                                   n_msh, int(mesh), mode, int(coherent),
                                   n_pulses, n_elem, int(medium > 0), int(ep),
                                   int(bool(lobes)), n_tx, n_pairs,
-                                  n_rx_pairs, ctypes.byref(blocks),
+                                  n_rx_pairs, int(tex), ctypes.byref(blocks),
                                   ctypes.byref(threads), ctypes.byref(smem)),
                   'receive_megakernel geometry')
     return blocks.value, threads.value, smem.value
@@ -2677,7 +2912,8 @@ def _table_tx_kinds(txp, n_tx: int) -> tuple:
 def _check_call(params, prim, txp, uniforms, mesh, msh, lane_out, lead, *,
                 adc, max_depth, time_sampling, rx_kind, n_lanes, doppler,
                 patch_p, receive_type, has_lo, coherent, rxph=None,
-                eoff=None, medium=0, grid=None, php=None, lobes=0):
+                eoff=None, medium=0, grid=None, php=None, lobes=0, tex=None,
+                bmp_meta=None, textured=None):
     """Validate a call's arguments; `lead` is () for one pulse, (P,) for a
     CPI of P pulses (every table, the uniforms and the lane sums then have
     that leading axis, the BVH tables (P, n) rows).  `eoff` (with `rxph`)
@@ -2686,8 +2922,14 @@ def _check_call(params, prim, txp, uniforms, mesh, msh, lane_out, lead, *,
     pulse of a CPI shares; so do `php`, the phased pair rows, and `rxph`.
     Returns (the receive-frequency rule, the transmitters' kinds (read
     from txp, `_table_tx_kinds`), whether the call needs the endpoint
-    configuration).  `lobes`, the call's lobe twins' flags (`_lobe_flag`),
-    set the uniforms' stride."""
+    configuration, whether its prim rows carry textures: `textured`, or
+    where it is None, `_textured`).
+    `lobes`, the call's lobe twins' flags (`_lobe_flag`), set the
+    uniforms' stride.  Textured tables take their texel rows `tex` (R, Wp)
+    float32 and `bmp_meta` (n_prims, 3) int32 (`pack_scene`), and run in
+    the texture twins only: one pulse of the flagship or the coherent
+    configuration on an analytic scene in vacuum, with one Wigner
+    transmitter and no lobe twin."""
     dev = params.device
     n_tx = int(txp.shape[-2]) if txp.dim() >= 2 else 0
     if not 1 <= n_tx <= MAX_TX:
@@ -2814,7 +3056,43 @@ def _check_call(params, prim, txp, uniforms, mesh, msh, lane_out, lead, *,
                          'receiver')
     if dev.type not in ('cpu', 'cuda'):
         raise ValueError(f'no receive kernel for device {dev}')
-    return rule, tx_kinds, ep
+    textured = _textured(prim) if textured is None else bool(textured)
+    if textured:
+        if (lead or mesh is not None or eoff is not None or medium or ep
+                or lobes or (doppler and not coherent)):
+            raise ValueError('textured tables run in the flagship and the '
+                             'coherent configurations alone: one pulse, an '
+                             'analytic scene in vacuum, one Wigner '
+                             'transmitter, no lobe twin (ROADMAP B7)')
+        if (tex is None or bmp_meta is None or tex.dim() != 2
+                or tex.dtype != torch.float32 or tex.device != dev
+                or not tex.is_contiguous() or tex.numel() < 1
+                or tuple(bmp_meta.shape) != (n_prims, 3)
+                or bmp_meta.dtype != torch.int32
+                or bmp_meta.device != dev):
+            raise ValueError(f'textured tables need their texel rows tex '
+                             f'(contiguous float32 (R, Wp)) and bmp_meta '
+                             f'(int32 ({n_prims}, 3)) on {dev}')
+    return rule, tx_kinds, ep, textured
+
+
+def _textured(prim) -> bool:
+    """Do the prim rows carry a checkerboard or bitmap texture (column
+    26)?  Read back once a tensor (a stall on a card), then kept."""
+    return _read_back('textured', (prim,),
+                      lambda t: bool((t[..., 26] != 0).any()))
+
+
+def _tex_buffer(tex, bmp_meta):
+    """The texture twins' buffer on the tables' device: four floats a prim
+    row (a bitmap rectangle's first texel row, H and W, then 0), then the
+    texel rows; made once for these tensors."""
+    def make(tex, bmp_meta):
+        head = torch.zeros((bmp_meta.shape[0], 4), dtype=torch.float32,
+                           device=tex.device)
+        head[:, :3] = bmp_meta.float()
+        return torch.cat([head.reshape(-1), tex.reshape(-1)])
+    return _read_back('tex_buffer', (tex, bmp_meta), make)
 
 
 def has_mirror(prim, msh) -> bool:
@@ -2847,14 +3125,16 @@ def _lobe_flag(lobes, prim, msh, doppler) -> int:
 def _launch(params, prim, txp, msh, uniforms, mesh, lane_out, *, n_pulses,
             adc, max_depth, time_sampling, rx_kind, n_lanes, seed, seed_step,
             doppler, patch_p, rule, has_lo, coherent, mirror, rxph=None,
-            eoff=None, medium=0, grid=None, ep=False, php=None, lobes=0):
+            eoff=None, medium=0, grid=None, ep=False, php=None, lobes=0,
+            tex=None, bmp_meta=None):
     """The CUDA kernel and its reduce over `n_pulses` pulses of stacked
     tables on a card: (acc (n_pulses, n_cells x n_ch) float32, n_events
     (n_pulses,) int64).  `eoff` launches the MIMO configuration, `medium`
     a configuration's media twin, `ep` its endpoint twin (the pair rows
     `php` of its phased transmitters, the pair row `rxph` of an analog
     phased receiver), `lobes` (LOBE_* flags) a Doppler configuration's
-    lobe twin."""
+    lobe twin, `tex` (with `bmp_meta`) the flagship's or the coherent
+    configuration's texture twin."""
     dev = params.device
     lib = LIBRARY.get()
     n_elem = 0 if eoff is None else int(eoff.shape[0])
@@ -2872,7 +3152,9 @@ def _launch(params, prim, txp, msh, uniforms, mesh, lane_out, *, n_pulses,
         blocks, threads, smem = launch_geometry(
             adc.n_time, n_lanes, n_prims, int(params.shape[-1]),
             mesh is not None, adc.n_freq, n_msh, doppler, coherent, n_pulses,
-            n_elem, medium, ep, lobes, n_tx, n_pairs, n_rx_pairs)
+            n_elem, medium, ep, lobes, n_tx, n_pairs, n_rx_pairs,
+            tex is not None)
+        tex_buf = None if tex is None else _tex_buffer(tex, bmp_meta)
         # per-block partial grids of each pulse (I and Q interleaved per
         # cell when coherent); one global grid of atomics a pulse in mode 2
         partial = torch.empty(
@@ -2912,7 +3194,8 @@ def _launch(params, prim, txp, msh, uniforms, mesh, lane_out, *, n_pulses,
             *((0, 0, 0) if grid is None else grid.shape), n_tx, int(ep),
             None if php is None else php.data_ptr(),
             0 if php is None else int(php.shape[1]), int(analog),
-            n_rx_pairs, lobes, stream)
+            n_rx_pairs, lobes, None if tex is None else tex_buf.data_ptr(),
+            0 if tex is None else int(tex.shape[1]), stream)
         LIBRARY.check(err, 'receive_megakernel launch')
     return acc, n_events
 
@@ -2926,7 +3209,8 @@ def receive_megakernel(params, prim, txp, *, adc: ADCConfig, max_depth: int,
                        has_lo: bool = False, coherent: bool = False,
                        mirror: bool | None = None, rxph=None, eoff=None,
                        medium: int = 0, grid=None, php=None,
-                       lobes: int | None = None):
+                       lobes: int | None = None, tex=None, bmp_meta=None,
+                       textured: bool | None = None):
     """Trace `n_lanes` receive samples.  Returns (acc (n_time, n_freq)
     float32, (n_time, n_freq, 2) I / Q with `coherent`, or (n_time, 1, 2E)
     with `eoff`, n_events 0-d int64) on the tables' device.
@@ -2966,18 +3250,26 @@ def receive_megakernel(params, prim, txp, *, adc: ADCConfig, max_depth: int,
     (LOBE_* flags, `PackedScene.lobes`; None reads them from the tables, a
     stall on a card) launches the Doppler configuration's lobe twin: the
     dielectric, plastic, GGX glass and composite lobes, and the draw
-    stride `n_draws(max_depth, 1, **lobe_draws(lobes))`.  Tables on the
-    CPU run the plain version (`receive_megakernel_ref`, fed
+    stride `n_draws(max_depth, 1, **lobe_draws(lobes))`.  Prim rows with
+    textures (column 26: 1 a checkerboard, 2 a bitmap) take the texel rows
+    `tex` (R, Wp) float32 and `bmp_meta` (n_prims, 3) int32 of
+    `pack_scene` and launch the flagship's or the coherent configuration's
+    texture twin (no other configuration has one); `textured` says whether
+    they do (`PackedScene.textured`), and None reads column 26 back from
+    the tables, a stall on a card the first time a tensor is seen.  Tables
+    on the CPU run the plain version (`receive_megakernel_ref`, fed
     `philox_uniforms` in PRNG mode); tables on a card launch the CUDA
     kernel, which raises if it cannot build or launch."""
     lobes = _lobe_flag(lobes, prim, msh, doppler)
-    rule, tx_kinds, ep = _check_call(
+    rule, tx_kinds, ep, textured = _check_call(
         params, prim, txp, uniforms, mesh, msh, lane_out, (), adc=adc,
         max_depth=max_depth, time_sampling=time_sampling, rx_kind=rx_kind,
         n_lanes=n_lanes, doppler=doppler, patch_p=patch_p,
         receive_type=receive_type, has_lo=has_lo, coherent=coherent,
         rxph=rxph, eoff=eoff, medium=medium, grid=grid, php=php,
-        lobes=lobes)
+        lobes=lobes, tex=tex, bmp_meta=bmp_meta, textured=textured)
+    if not textured:
+        tex = bmp_meta = None
     n_tx = len(tx_kinds)
     if params.device.type == 'cpu':
         u = uniforms if uniforms is not None else philox_uniforms(
@@ -2992,7 +3284,8 @@ def receive_megakernel(params, prim, txp, *, adc: ADCConfig, max_depth: int,
                                       has_lo=has_lo, coherent=coherent,
                                       mirror=mirror, rxph=rxph, eoff=eoff,
                                       medium=medium, grid=grid, php=php,
-                                      lobes=lobes)
+                                      lobes=lobes, tex=tex,
+                                      bmp_meta=bmp_meta)
     acc, n_events = _launch(
         params, prim, txp, msh, uniforms, mesh, lane_out, n_pulses=1,
         adc=adc, max_depth=max_depth, time_sampling=time_sampling,
@@ -3000,11 +3293,11 @@ def receive_megakernel(params, prim, txp, *, adc: ADCConfig, max_depth: int,
         doppler=doppler, patch_p=patch_p, rule=rule, has_lo=has_lo,
         coherent=coherent, mirror=_mirror_flag(mirror, prim, msh, doppler),
         rxph=rxph, eoff=eoff, medium=medium, grid=grid, ep=ep, php=php,
-        lobes=lobes)
+        lobes=lobes, tex=tex, bmp_meta=bmp_meta)
     receive_megakernel.launches += 1
     receive_megakernel.by_config[config_name(
         mesh is not None, doppler, coherent, eoff is not None,
-        medium > 0, ep, lobes > 0)] += 1
+        medium > 0, ep, lobes > 0, textured)] += 1
     if eoff is not None:
         shape = (adc.n_time, adc.n_freq, 2 * int(eoff.shape[0]))
     else:
@@ -3048,7 +3341,7 @@ def receive_megakernel_cpi(params, prim, txp, *, adc: ADCConfig,
     if n_pulses < 1:
         raise ValueError('params: expected (n_pulses, 77)')
     lobes = _lobe_flag(lobes, prim, msh, doppler)
-    rule, tx_kinds, ep = _check_call(
+    rule, tx_kinds, ep, _ = _check_call(
         params, prim, txp, uniforms, mesh, msh, lane_out, (n_pulses,),
         adc=adc, max_depth=max_depth, time_sampling=time_sampling,
         rx_kind=rx_kind, n_lanes=n_lanes, doppler=doppler, patch_p=patch_p,
@@ -3096,18 +3389,23 @@ VACUUM_CONFIGS = ('flagship', 'mesh', 'doppler', 'doppler_mesh', 'coherent',
 # analog phased receiver), in vacuum; the Doppler family has a lobe twin
 # (LOB: the dielectric, plastic, GGX glass and composite lobes), in vacuum
 LOBE_CONFIGS = ('doppler', 'doppler_mesh', 'coherent', 'coherent_mesh')
+# the flagship and the analytic coherent configurations have a texture twin
+# (TEX: checkerboard and bitmap rectangles), in vacuum
+TEX_CONFIGS = ('flagship', 'coherent')
 CONFIGS = VACUUM_CONFIGS + tuple(c + '_media' for c in VACUUM_CONFIGS) \
     + tuple(c + '_ep' for c in VACUUM_CONFIGS) \
-    + tuple(c + '_lobes' for c in LOBE_CONFIGS)
+    + tuple(c + '_lobes' for c in LOBE_CONFIGS) \
+    + tuple(c + '_tex' for c in TEX_CONFIGS)
 
 
 def config_name(mesh: bool, doppler: bool, coherent: bool = False,
                 mimo: bool = False, medium: bool = False,
-                ep: bool = False, lobes: bool = False) -> str:
+                ep: bool = False, lobes: bool = False,
+                tex: bool = False) -> str:
     name = 'mimo' if mimo else VACUUM_CONFIGS[
         int(mesh) + (4 if coherent else 2 * int(doppler))]
     return name + ('_media' if medium else '') + ('_ep' if ep else '') \
-        + ('_lobes' if lobes else '')
+        + ('_lobes' if lobes else '') + ('_tex' if tex else '')
 
 
 # launches of the CUDA kernel, in all and by configuration: one receive
@@ -3140,6 +3438,8 @@ class DeviceTables:
     medium: int = 0               # the ambient medium's kind (0: vacuum)
     grid: torch.Tensor | None = None   # a grid medium's (D, H, W) cells
     lobes: int = 0                # the lobe twins' flags (LOBE_*)
+    tex: torch.Tensor | None = None       # texel rows (textured scenes)
+    bmp_meta: torch.Tensor | None = None  # their bitmap rectangles' rows
 
 
 def in_scope(scene, scene_data, rx, dev, reason: list,
@@ -3199,7 +3499,11 @@ def _device_tables(scene, scene_data, rx, dev,
         php=php,
         medium=packed.medium, grid=None if packed.grid is None
         else torch.as_tensor(packed.grid, device=dev).contiguous(),
-        lobes=packed.lobes)
+        lobes=packed.lobes,
+        tex=torch.as_tensor(packed.tex, device=dev).contiguous()
+        if packed.textured else None,
+        bmp_meta=torch.as_tensor(packed.bmp_meta, device=dev)
+        if packed.textured else None)
     cache[key] = (scene_data, rx, tables)
     return tables
 
@@ -3267,7 +3571,7 @@ def receive_kernel(scene, scene_data, rx, spp: int, seed: int = 0,
             seed=seed, doppler=True, receive_type=rx.receive_type,
             has_lo=rx.lo_waveform is not None, mirror=tab.mirror,
             rxph=tab.rxph, eoff=eoff, medium=tab.medium, grid=tab.grid,
-            php=tab.php, lobes=tab.lobes)
+            php=tab.php, lobes=tab.lobes, textured=False)
         return acc, spp
     rx_kind = rx_kind_of(rx)
     n_lanes, patch_p, params = spp, 0, tab.params
@@ -3286,7 +3590,8 @@ def receive_kernel(scene, scene_data, rx, spp: int, seed: int = 0,
         has_lo=rx.lo_waveform is not None, coherent=coherent,
         mirror=tab.mirror, medium=tab.medium, grid=tab.grid,
         rxph=tab.rxph if rx_kind == 'phased' else None, php=tab.php,
-        lobes=tab.lobes if doppler else 0)
+        lobes=tab.lobes if doppler else 0, tex=tab.tex,
+        bmp_meta=tab.bmp_meta, textured=tab.tex is not None)
     return acc, n_lanes
 
 
@@ -3406,6 +3711,10 @@ def pack_cpi(scene, n_pulses: int, prf: float, t0: float = 0.0,
             raise NotImplementedError(
                 "scene outside the receive kernel's scope: "
                 + '; '.join(why))
+        if _textured_scope(sds[0], why.append):
+            raise NotImplementedError(
+                'a textured CPI: the texture twins run one pulse (ROADMAP '
+                'B7); the per-pulse loop runs it')
         si = snaps[0].shape_index_of_endpoint('receiver', rx.id)
         hit = cache[key] = (pack_cpi_tables(sds, rx, si), rx, si,
                             scene.medium)

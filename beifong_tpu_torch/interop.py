@@ -30,8 +30,6 @@ from .radar.waveform import Waveform
 from .scene import SceneData
 from .textures import TextureTable
 
-_PORTED_ELSEWHERE = {'.textures.face_attr': 'mesh-attribute textures '
-                     '(ROADMAP B7)'}
 # a JAX medium's kind, told by the leaves it has
 _MEDIA = ((('sigma_t',), HomogeneousMedium),
           (('sigma', 'z_min', 'z_max'), LayeredMedium),
@@ -53,17 +51,13 @@ def _medium(leaves: dict, dev):
 
 
 def scene_data_from_numpy(leaves: dict, band: Band, device=None) -> SceneData:
-    """Build the port's `SceneData` from JAX `SceneData` leaves.  Leaves of
-    tables the port does not hold yet raise `NotImplementedError`; the
-    optical emitter table, which the receive path never reads, is
-    skipped.  The ambient medium's kind follows from its leaves:
-    `sigma_t` homogeneous, `sigma` / `z_min` / `z_max` layered,
-    `sigma_grid` / `box_min` / `box_max` the 3-D grid."""
+    """Build the port's `SceneData` from JAX `SceneData` leaves, a
+    mesh-attribute texture's per-face values among them; normal and bump
+    maps raise `NotImplementedError`, and the optical emitter table, which
+    the receive path never reads, is skipped.  The ambient medium's kind
+    follows from its leaves: `sigma_t` homogeneous, `sigma` / `z_min` /
+    `z_max` layered, `sigma_grid` / `box_min` / `box_max` the 3-D grid."""
     dev = resolve_device(device)
-    for key in leaves:
-        for prefix, what in _PORTED_ELSEWHERE.items():
-            if key.startswith(prefix):
-                raise NotImplementedError(f'{key}: {what}')
 
     def table(cls, prefix, **extra):
         kw = {}
@@ -94,8 +88,17 @@ def scene_data_from_numpy(leaves: dict, band: Band, device=None) -> SceneData:
     bvh = BVH(**{f.name: np.array(leaves[f'.bvh.{f.name}'])
                  for f in dataclasses.fields(BVH)}) \
         if '.bvh.bb_min' in leaves else None
+    # a mesh-attribute texture's per-face values and its row, where the
+    # scene has one
+    attr = leaves.get('.textures.face_attr')
+    textures = table(
+        TextureTable, '.textures',
+        face_attr=None if attr is None
+        else torch.tensor(np.array(attr), device=dev),
+        face_attr_row=None if attr is None
+        else int(leaves['.textures.face_attr_row']))
     return SceneData(band=band, shapes=table(ShapeTable, '.shapes'),
-                     bsdfs=bsdfs, textures=table(TextureTable, '.textures'),
+                     bsdfs=bsdfs, textures=textures,
                      transmitters=tx, receivers=rx, tris=tris, bvh=bvh,
                      medium=_medium(leaves, dev))
 

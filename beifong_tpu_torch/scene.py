@@ -6,9 +6,11 @@ A `Scene` collects host-side specs; `compile()` flattens them into
 world-space triangle table (`tris`).  Above `bvh_threshold` faces it also
 builds the eager wavefront's BVH (`bvh`, host tables; the K2 / K3 kernels
 read them packed, once per SceneData and device).  The receive kernel
-builds its own, leaf-aligned BVH from `tris`.  The ambient medium
-(`media.py`, or None for vacuum) moves to the scene's device.  The
-optical emitter table, which the port does not fill, is `None`.
+builds its own, leaf-aligned BVH from `tris`.  The textures
+(`textures.TextureSpec`) become the texture table, which the BSDFs'
+`texture` ids index.  The ambient medium (`media.py`, or None for vacuum)
+moves to the scene's device.  The optical emitter table, which the port
+does not fill, is `None`.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ from .geometry.mesh import MeshSpec
 from .geometry.shapes import ShapeSpec, ShapeTable
 from .media import HeterogeneousMedium, HomogeneousMedium, LayeredMedium
 from .radar.endpoints import ReceiverTable, TransmitterTable
-from .textures import TextureTable
+from .textures import TextureSpec, TextureTable
 
 
 Medium = Union[HomogeneousMedium, LayeredMedium, HeterogeneousMedium]
@@ -86,6 +88,7 @@ class Scene:
     transmitters: list = dataclasses.field(default_factory=list)
     receivers: list = dataclasses.field(default_factory=list)
     medium: Optional[Medium] = None   # ambient absorption of every path
+    textures: list = dataclasses.field(default_factory=list)
 
     def add(self, *objs) -> "Scene":
         for o in objs:
@@ -93,6 +96,8 @@ class Scene:
                 self.shapes.append(o)
             elif isinstance(o, BSDFSpec):
                 self.bsdfs.append(o)
+            elif isinstance(o, TextureSpec):
+                self.textures.append(o)
             else:
                 kind = getattr(o, 'endpoint_kind', None)
                 if kind == 'transmitter':
@@ -126,7 +131,7 @@ class Scene:
         the intra-pulse Doppler follows the animation; an endpoint carried
         by an animated shape takes that shape's velocity.  Slow time is
         quasistatic: one snapshot per pulse (`receive.receive_cpi`).  The
-        medium is the same in every snapshot."""
+        medium and the textures are the same in every snapshot."""
 
         def snap(spec, vel_override=None):
             anim = getattr(spec, 'to_world', None)
@@ -143,7 +148,7 @@ class Scene:
             return c, vel
 
         out = Scene(band=self.band, bsdfs=list(self.bsdfs),
-                    medium=self.medium)
+                    medium=self.medium, textures=list(self.textures))
         endpoint_vel = {}   # endpoint id -> the carrying shape's velocity
         for s in self.shapes:
             c, vel = snap(s)
@@ -211,8 +216,10 @@ class Scene:
             bvh = bvh_mod.build(*(c.cpu().numpy()
                                   for c in (tris.v0, tris.e1, tris.e2)))
         return SceneData(band=self.band, shapes=shapes,
-                         bsdfs=BSDFTable.build(self.bsdfs, dev),
-                         textures=TextureTable.empty(dev),
+                         bsdfs=BSDFTable.build(
+                             self.bsdfs, dev, lambda tid: self._index_of(
+                                 self.textures, tid)),
+                         textures=TextureTable.build(self.textures, dev),
                          transmitters=tx_table, receivers=rx_table,
                          tris=tris, bvh=bvh,
                          medium=None if self.medium is None

@@ -4,7 +4,10 @@
 builds for its benchmark and entry point: a 40 kHz sonar band, Wigner
 transmitter and receiver apertures 0.6 m apart, a diffuse 1 m target
 plate R metres out, a 40 m ground plane, a 2 ms pulse and a raw
-64-bin ADC over 60 ms.
+64-bin ADC over 60 ms.  `ground_texture` puts a texture on the ground's
+own diffuse BSDF: a checkerboard of 1 m cells (0.8 / 0.3), or a 128 x 128
+reflectance bitmap (the JAX kernel's largest) drawn from
+`GROUND_BITMAP_SEED`.
 
 `mesh_scene` is the JAX package's mesh benchmark scene
 (`benchmarks/mesh_megakernel.py::build`): the same endpoints and ADC,
@@ -77,11 +80,22 @@ from .media import HeterogeneousMedium, HomogeneousMedium, LayeredMedium
 from .radar import (ADCConfig, area_transmitter, cw, linfmcw, omni_receiver,
                     phased_receiver, phased_transmitter, pulse,
                     wigner_receiver, wigner_transmitter)
+from .textures import bitmap, checkerboard
+
+GROUND_BITMAP_SEED = 0      # flagship_scene(ground_texture='bitmap')'s image
 
 
 def flagship_scene(R: float = 4.0, ground: bool = True,
-                   rx_kind: str = 'wigner'):
-    """Returns (scene, receiver spec)."""
+                   rx_kind: str = 'wigner', ground_texture: str | None = None):
+    """Returns (scene, receiver spec).  `ground_texture` None leaves the
+    scene as it is; 'checkerboard' or 'bitmap' gives the ground a diffuse
+    BSDF of its own ('gnd', the target keeps 'mat') textured with 0.8 /
+    0.3 checks of 1 m (scale_uv 40 on the 40 m plane) or with a 128 x 128
+    map uniform in [0.2, 1.0] from
+    numpy.random.default_rng(GROUND_BITMAP_SEED)."""
+    if ground_texture not in (None, 'checkerboard', 'bitmap'):
+        raise ValueError(f'ground_texture {ground_texture!r}: None, '
+                         "'checkerboard' or 'bitmap'")
     band = Band.from_freq(340.0, 40e3, 10e3)
     s = sc.Scene(band=band)
     s.add(diffuse('mat', reflectance=1.0, twosided=True))
@@ -110,7 +124,18 @@ def flagship_scene(R: float = 4.0, ground: bool = True,
     if ground:
         gnd = np.asarray(tf.compose(tf.translate([0, 0, -0.5]),
                                     tf.scale(20.0)))
-        s.add(sh.rectangle(to_world=gnd, bsdf='mat'))
+        bsdf = 'mat'
+        if ground_texture == 'checkerboard':
+            s.add(checkerboard('gnd_tex', 0.8, 0.3, scale_uv=(40.0, 40.0)))
+        elif ground_texture == 'bitmap':
+            img = np.random.default_rng(GROUND_BITMAP_SEED).uniform(
+                0.2, 1.0, (128, 128)).astype(np.float32)
+            s.add(bitmap('gnd_tex', img))
+        if ground_texture is not None:
+            s.add(diffuse('gnd', reflectance=1.0, twosided=True,
+                          texture='gnd_tex'))
+            bsdf = 'gnd'
+        s.add(sh.rectangle(to_world=gnd, bsdf=bsdf))
     return s, rx
 
 

@@ -62,7 +62,9 @@ Phases (any failure exits non-zero before the last line is printed):
              kernel `receive_doppler_power_kernel` by the launch record,
              with its geometry, registers, SASS mix and issue-slot bound),
              the bodies and the plate at their range gates and
-             Doppler bins; then a ray query on the mesh: bvh_closest of
+             Doppler bins, and CA-CFAR (`dsp.ca_cfar_2d`) on the
+             plate's range-Doppler map, on the card, whose detections
+             hold the plate's cell; then a ray query on the mesh: bvh_closest of
              2^20 receiver rays, bvh_any of their hits toward the
              transmitter.  Each path must have launched its kernels; the
              launch counts are set to 0 just before a path and read just
@@ -87,6 +89,19 @@ Phases (any failure exits non-zero before the last line is printed):
              them for the corner; then K1 against the wavefront on
              fmcw_sonar (peak bin, window energy) and pulse 0 (the summed
              I / Q's magnitude and phase);
+   textures - K1's texture twins (receive_flagship_kernel<true>, power,
+             and receive_coherent_kernel<true>, I / Q) on the flagship
+             scene with a checkerboard or a 128 x 128 bitmap ground
+             (`flagship_scene(ground_texture=...)`): each against its
+             plain version on injected uniforms (2^18 lanes) and Philox
+             (2^22); the anchors (a uniform checkerboard equals the
+             untextured scene bit for bit, a constant bitmap its
+             checkerboard to 1e-5); receive() at the flagship's 2^28
+             samples, depth 3, and the coherent receive's 2^24, depth 2,
+             one warm-up and five timed calls a ground, each launching
+             the twin (the launch record), the target on its round-trip
+             bin; each twin alone beside the untextured kernel, its
+             registers, SASS mix and bounds;
    mimo    - golden config 6 (`mimo_beamform_scene`: an 8-element
              lambda / 2 receive array, one target at 15 degrees, 4 m out)
              through K1's MIMO configuration: against its plain version on
@@ -320,6 +335,10 @@ FP32_OPS = {
     'rplas_bounce': 300,
     'rdiel_bounce': 295,
     'pass_bounce': 5,
+    # the texture twins: a hit on a textured rectangle, its scaled uv (6),
+    # the checkerboard's parity (6) and the reflectance's product (the
+    # bitmap's fraction, texel coordinates and clamps take 19)
+    'tex_hit': 13,
 }
 
 
@@ -460,7 +479,8 @@ def lane_ops(stats: dict, n_rect: int, ray: str = 'ray_wigner') -> float:
                    'mirror_bounce', 'mimo_vertex', 'mimo_elem',
                    'pair_tests', 'pair_terms', 'plas_nee', 'rplas_nee',
                    'rdiel_nee', 'blend_nee', 'diel_bounce', 'plas_bounce',
-                   'rplas_bounce', 'rdiel_bounce', 'pass_bounce'))
+                   'rplas_bounce', 'rdiel_bounce', 'pass_bounce',
+                   'tex_hit'))
             + walk_ops(stats))
 
 
@@ -496,10 +516,14 @@ def print_build(infos: dict, tag: str) -> None:
                 f'receive_megakernel ({v}' + (' media)' if m else
                                               ' endpoints)' if e else
                                               ' lobes)' if lob else ')'))
-    names['receive_flagship_kernel'] = 'receive_megakernel (flagship)'
+    names['receive_flagship_kernelILb0E'] = 'receive_megakernel (flagship)'
+    names['receive_flagship_kernelILb1E'] = \
+        'receive_megakernel (flagship textures)'
     names['receive_mesh_kernel'] = 'receive_megakernel (mesh)'
     names['receive_mimo_array_kernel'] = 'receive_megakernel (mimo)'
-    names['receive_coherent_kernel'] = 'receive_megakernel (coherent)'
+    names['receive_coherent_kernelILb0E'] = 'receive_megakernel (coherent)'
+    names['receive_coherent_kernelILb1E'] = \
+        'receive_megakernel (coherent textures)'
     names['receive_doppler_power_kernel'] = 'receive_megakernel (doppler)'
     names['receive_mesh_doppler_kernelILb0ELb0E'] = \
         'receive_megakernel (doppler mesh)'
@@ -535,10 +559,12 @@ def print_build(infos: dict, tag: str) -> None:
 
 
 # the warp-wavefront kernel of each configuration `tools/k1_mix.py` reads
-MIX_KERNEL = {'flagship': 'receive_flagship_kernel',
-              'pulse_train': 'receive_coherent_kernel',
-              'dechirp': 'receive_coherent_kernel',
-              'corner': 'receive_coherent_kernel',
+MIX_KERNEL = {'flagship': 'receive_flagship_kernelILb0E',
+              'pulse_train': 'receive_coherent_kernelILb0E',
+              'dechirp': 'receive_coherent_kernelILb0E',
+              'corner': 'receive_coherent_kernelILb0E',
+              'flagship_checker': 'receive_flagship_kernelILb1E',
+              'coherent_checker': 'receive_coherent_kernelILb1E',
               'window_thin': 'receive_lobe_kernelILb0E',
               'window_dielectric': 'receive_lobe_kernelILb1E',
               'ep_phased_tx': 'receive_endpoint_kernel',
@@ -1007,6 +1033,22 @@ def check_range_doppler(torch, grid, s, cfg, what):
           f'at bin {f_bin:.2f} (peak {fpk})')
     if abs(fpk - f_bin) > 1:
         fail(f'{what}: Doppler peak at bin {fpk}, expected {f_bin:.2f}')
+    # CA-CFAR (dsp/cfar.py) on the map, Doppler rows by range columns, on
+    # the grid's device: its detections hold the plate's cell (the anchored
+    # Doppler bin, within one, at the range bin where its column peaks)
+    from beifong_tpu_torch.dsp import ca_cfar_2d
+    rd_map = grid.T.contiguous()
+    ms, (det, thresh) = wall_ms(lambda: ca_cfar_2d(rd_map))
+    t_pk = int(grid[:, int(round(f_bin))].argmax())
+    f0 = int(round(f_bin))
+    found = bool(det[max(f0 - 1, 0):f0 + 2, t_pk].any())
+    print(f'{what} CA-CFAR ({det.device}): {int(det.sum())} detections of '
+          f'{det.numel()} cells, Doppler bins '
+          f'{sorted(set(det.nonzero()[:, 0].tolist()))}; the plate\'s cell '
+          f'(Doppler {f0}, range {t_pk}) detected {found}; {ms:.3f} ms')
+    if not found or not bool(torch.isfinite(thresh).all()):
+        fail(f'{what}: CA-CFAR misses the plate\'s cell (Doppler {f0}, '
+             f'range {t_pk})')
 
 
 def _doppler_tables(torch, rk, scene_fn, dev):
@@ -1362,10 +1404,10 @@ def _kernel_entry(torch, rk, cfg_name, what, main_path, launches, errs,
 
 
 def _plain_philox(torch, rk, params, prim, txp, kw, n_lanes, depth, dev,
-                  lane_ref=None, power_amp=False):
+                  lane_ref=None, power_amp=False, chunk=COH_PLAIN_CHUNK):
     """The plain version on the kernel's Philox stream at the main path's
-    shape, in chunks: (acc, events, amplitude sums (of |power| with
-    `power_amp`), stage counts, ms)."""
+    shape, in `chunk`-lane chunks: (acc, events, amplitude sums (of
+    |power| with `power_amp`), stage counts, ms)."""
     stats: dict = {}
     nd = rk.n_draws(depth, int(txp.shape[-2]),
                     **rk.lobe_draws(kw.get('lobes') or 0))
@@ -1375,15 +1417,14 @@ def _plain_philox(torch, rk, params, prim, txp, kw, n_lanes, depth, dev,
 
     def plain():
         total, n_tot = None, 0
-        for lane0 in range(0, n_lanes, COH_PLAIN_CHUNK):
-            u = rk.philox_uniforms(SEED, nd, COH_PLAIN_CHUNK, device=dev,
-                                   lane0=lane0)
+        for lane0 in range(0, n_lanes, chunk):
+            u = rk.philox_uniforms(SEED, nd, chunk, device=dev, lane0=lane0)
             a, n = rk.receive_megakernel_ref(
                 params, prim, txp, u, lane0=lane0, stats=stats,
                 amp_out=amp if kw.get('coherent') or power_amp
                 or kw.get('eoff') is not None else None,
                 lane_out=None if lane_ref is None
-                else lane_ref[lane0:lane0 + COH_PLAIN_CHUNK], **kw)
+                else lane_ref[lane0:lane0 + chunk], **kw)
             total = a if total is None else total + a
             n_tot += int(n)
         return total, n_tot
@@ -2074,6 +2115,257 @@ def cpi(torch, bt, rk, ik, dev, tag, build_log: str, cubin: str) -> list:
         'ms': m_med, 'plain_ms': m_plain_ms, **b, 'library_ms': None,
         'lanes_on_another_path': c_mirror['flips'],
         'kernel': 'receive_coherent_kernel'})
+    return entries
+
+
+# the texture twins: the flagship scene's ground under a checkerboard of
+# 1 m cells or a 128 x 128 reflectance bitmap (`ground_texture`)
+TEX_TEXTURES = ('checkerboard', 'bitmap')
+TEX_LANES = 1 << 28            # the flagship's width, depth 3
+TEX_COH_LANES = 1 << 24        # the coherent receive's, depth 2
+TEX_COH_DEPTH = 2
+TEX_PARITY_LANES = 1 << 18     # injected uniforms
+TEX_ANCHOR_LANES = 1 << 22     # the anchors' calls
+TEX_CONSTANT_RTOL = 1e-5       # the 0.7 grounds against each other
+TEX_MOVED = 100                # a texture moves the grid > this x TOL
+
+
+def _tex_scene(texture):
+    """The flagship scene with a textured ground (None: untextured), or
+    the anchors' own grounds: 'uniform' a checkerboard of 1.0 / 1.0,
+    'uniform07' one of 0.7 / 0.7, 'constant' an 8 x 8 bitmap of 0.7,
+    'plain07' an untextured ground of reflectance 0.7."""
+    from beifong_tpu_torch import textures as tx
+    from beifong_tpu_torch.bsdf.tables import diffuse
+    from beifong_tpu_torch.scenes import flagship_scene
+    if texture in (None,) + TEX_TEXTURES:
+        return flagship_scene(ground_texture=texture)
+    s, rx = flagship_scene()
+    if texture == 'plain07':
+        s.add(diffuse('gnd', reflectance=0.7, twosided=True))
+    else:
+        s.add({'uniform': tx.checkerboard('t', 1.0, 1.0),
+               'uniform07': tx.checkerboard('t', 0.7, 0.7),
+               'constant': tx.bitmap('t', [[0.7] * 8] * 8)}[texture])
+        s.add(diffuse('gnd', reflectance=1.0, twosided=True, texture='t'))
+    s.shapes[-1].bsdf = 'gnd'
+    return s, rx
+
+
+def textures(torch, bt, rk, dev, tag, pulse_compress, build_log: str,
+             cubin: str) -> list:
+    """K1's texture twins, receive_flagship_kernel<true> (power, the
+    flagship's 2^28 lanes at depth 3) and receive_coherent_kernel<true>
+    (I / Q, 2^24 lanes at depth 2), on the checkerboard and the bitmap
+    ground: each against its plain version on injected uniforms and on
+    the Philox stream at the main path's width; the anchors (a uniform
+    checkerboard is the untextured scene bit for bit; a constant bitmap,
+    the uniform checkerboard of its value and an untextured ground of that
+    reflectance agree to 1e-5; each texture moves the grid far beyond the
+    parity bound; the target's peak on its round-trip bin); receive() at
+    full width, six calls a scene, every one launching the twin; each twin
+    alone beside the untextured kernel; their bounds."""
+    from beifong_tpu_torch.scenes import round_trip_bin
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    entries = []
+    for coh in (False, True):
+        depth = TEX_COH_DEPTH if coh else MAX_DEPTH
+        lanes = TEX_COH_LANES if coh else TEX_LANES
+        twin = 'coherent' if coh else 'flagship'
+        cfg_name = f'{twin}_tex'
+        tabs = {}
+        for texture in (None, 'uniform', 'uniform07', 'constant', 'plain07') \
+                + TEX_TEXTURES:
+            s, rx = _tex_scene(texture)
+            sd = s.compile(device=dev)
+            tabs[texture] = (s, sd, rx, rk._device_tables(s, sd, rx, dev))
+
+        def kwargs(texture):
+            _, _, rx, t = tabs[texture]
+            return dict(adc=rx.adc, max_depth=depth, time_sampling='gate',
+                        rx_kind='wigner', doppler=coh, coherent=coh,
+                        tex=t.tex, bmp_meta=t.bmp_meta)
+
+        def call(texture, n_lanes, u=None):
+            t = tabs[texture][3]
+            return rk.receive_megakernel(t.params, t.prim, t.txp,
+                                         n_lanes=n_lanes, seed=SEED,
+                                         uniforms=u, **kwargs(texture))
+
+        def held(texture, acc, n_ev, ref, n_ref, amp, what):
+            s, _, rx, _ = tabs[texture]
+            if coh:
+                return compare_coherent(
+                    torch, acc, n_ev, ref, n_ref, amp,
+                    rk.phase_slack(s.band, rx.adc), what, depth=depth)
+            return compare(acc, n_ev, ref, n_ref, what)
+
+        # ---- 3. each twin against its plain version: injected uniforms,
+        # then the Philox stream at the main path's width ----
+        errs, plain, stats = [], {}, {}
+        nd = rk.n_draws(depth)
+        for texture in TEX_TEXTURES:
+            _, _, rx, t = tabs[texture]
+            u = torch.rand((nd, TEX_PARITY_LANES), generator=gen,
+                           device=dev)
+            acc, n_ev = call(texture, TEX_PARITY_LANES, u)
+            torch.cuda.synchronize()
+            if not rk.launched_tex_kernel(coh):
+                fail(f'{texture} {twin}: the launch record does not show '
+                     'the texture twin')
+            amp = torch.zeros((rx.adc.n_time, 1), dtype=torch.float64,
+                              device=dev)
+            ms, (ref, n_ref) = wall_ms(lambda: rk.receive_megakernel_ref(
+                t.params, t.prim, t.txp, u, amp_out=amp if coh else None,
+                **kwargs(texture)))
+            what = (f'{twin} textures ({texture}) injected 2^'
+                    f'{TEX_PARITY_LANES.bit_length() - 1} lanes, depth '
+                    f'{depth}')
+            errs.append(held(texture, acc, n_ev, ref, n_ref, amp, what))
+            print(f'plain version {what}: {ms:.1f} ms {tag}')
+
+            acc, n_ev = call(texture, lanes)
+            torch.cuda.synchronize()
+            if not rk.launched_tex_kernel(coh):
+                fail(f'{texture} {twin}: the launch record does not show '
+                     'the texture twin')
+            chunk = COH_PLAIN_CHUNK if coh else PLAIN_CHUNK
+            ref, n_ref, amp, stats[texture], plain[texture] = _plain_philox(
+                torch, rk, t.params, t.prim, t.txp, kwargs(texture), lanes,
+                depth, dev, chunk=chunk)
+            what = (f'{twin} textures ({texture}) philox 2^'
+                    f'{lanes.bit_length() - 1} lanes, depth {depth}')
+            errs.append(held(texture, acc, n_ev, ref, n_ref, amp, what))
+            print(f'plain version {what} in 2^{chunk.bit_length() - 1}-lane '
+                  f'chunks: {plain[texture]:.1f} ms; stage lanes '
+                  + json.dumps(stats[texture]) + f' {tag}')
+
+        # ---- the anchors, on the card ----
+        grids = {k: call(k, TEX_ANCHOR_LANES)[0] for k in
+                 (None, 'uniform', 'uniform07', 'constant', 'plain07')
+                 + TEX_TEXTURES}
+        torch.cuda.synchronize()
+        if not torch.equal(grids['uniform'], grids[None]):
+            fail(f'{twin}: the uniform checkerboard differs from the '
+                 'untextured scene')
+        rels = {}
+        for a, b in (('constant', 'uniform07'), ('constant', 'plain07'),
+                     ('uniform07', 'plain07')):
+            rels[f'{a}/{b}'] = float((grids[a] - grids[b]).abs().max()) \
+                / float(grids[b].abs().max())
+        scale = float(grids[None].abs().max())
+        moved = {k: float((grids[k] - grids[None]).abs().max())
+                 / (TOL * scale) for k in TEX_TEXTURES}
+        print(f'{twin} textures anchors, 2^'
+              f'{TEX_ANCHOR_LANES.bit_length() - 1} lanes: uniform '
+              f'checkerboard == untextured bit for bit; the 0.7 grounds '
+              + ', '.join(f'{k} {v:.3e}' for k, v in rels.items())
+              + f' of max (bound {TEX_CONSTANT_RTOL}); max|texture - '
+              f'untextured| ' + ', '.join(f'{k} {v:.1f}' for k, v in
+                                          moved.items())
+              + f' x the parity bound {TOL} x max|acc| (floor {TEX_MOVED})')
+        for k, v in rels.items():
+            if v > TEX_CONSTANT_RTOL:
+                fail(f'{twin}: the 0.7 grounds {k} differ by {v:.3e} of max')
+        for k, v in moved.items():
+            if not v > TEX_MOVED:
+                fail(f'{twin}: the {k} ground moves the grid by {v:.1f} x '
+                     'the parity bound only')
+
+        # ---- 4. the main path: receive() of both grounds ----
+        rk.receive_megakernel.launches = 0
+        rk.receive_megakernel.by_config = dict.fromkeys(rk.CONFIGS, 0)
+        recv = {}
+        for texture in TEX_TEXTURES:
+            s, sd, rx, _ = tabs[texture]
+
+            def run_main(seed, s=s, sd=sd, rx=rx):
+                return bt.receive(s, sd, rx, seed=seed, spp=lanes,
+                                  max_depth=depth, coherent=coh,
+                                  time_sampling='gate', device=dev)
+
+            run_main(1)
+            call_ms, (adc, n) = cuda_ms(lambda i: run_main(2 + i), 5)
+            if not rk.launched_tex_kernel(coh):
+                fail(f'receive() {texture} {twin}: not the texture twin')
+            anchor = round_trip_bin(s, rx)
+            if coh:
+                iq = bt.develop_signal(adc, n, rx.adc)
+                if tuple(iq.shape) != (rx.adc.n_time, 1, 2) \
+                        or not bool(torch.isfinite(iq).all()):
+                    fail(f'{texture} {twin}: I / Q {tuple(iq.shape)} not '
+                         'finite / wrong shape')
+                pk = int(iq[:, 0].square().sum(-1).argmax())
+                print(f'{texture} {twin} |I + jQ|^2 peak bin {pk}, 2R/c '
+                      f'anchor {anchor:.2f}')
+                if abs(pk - anchor) > 2:
+                    fail(f'{texture} {twin}: peak at {pk}, anchor '
+                         f'{anchor:.2f}')
+            else:
+                check_profile(torch, bt, adc, n, rx, anchor, pulse_compress,
+                              f'{texture} {twin}')
+            recv[texture] = statistics.median(call_ms)
+            print(f'receive() {texture} {twin} 2^{lanes.bit_length() - 1} '
+                  f'samples depth {depth}: median {recv[texture]:.3f} '
+                  f'ms/call ({lanes / (recv[texture] * 1e-3):.4e} '
+                  f'samples/s), calls {[round(x, 3) for x in call_ms]} '
+                  f'{tag}')
+        launches = rk.receive_megakernel.launches
+        by_cfg = dict(rk.receive_megakernel.by_config)
+        if launches < 12 or by_cfg[cfg_name] != launches:
+            fail(f'the {twin} textures path launched K1 {by_cfg} in 12 '
+                 'receive() calls')
+
+        # ---- each twin alone, beside the untextured kernel ----
+        k_ms = {}
+        for texture in (None,) + TEX_TEXTURES + (None,):
+            t_ms, _ = cuda_ms(lambda i: call(texture, lanes), 6)
+            k_ms.setdefault(texture, []).extend(t_ms[1:])
+        med = {k: statistics.median(v) for k, v in k_ms.items()}
+        print(f'receive_megakernel ({twin}) 2^{lanes.bit_length() - 1} '
+              f'lanes depth {depth}: untextured {med[None]:.3f} ms, '
+              f'checkerboard {med["checkerboard"]:.3f} ms '
+              f'({med["checkerboard"] / med[None]:.4f}), bitmap '
+              f'{med["bitmap"]:.3f} ms ({med["bitmap"] / med[None]:.4f}) '
+              f'{tag}')
+
+        # the bounds, from the checkerboard's stage counts on the main
+        # path's stream
+        _, _, rx, t = tabs['checkerboard']
+        n_rect = int((t.prim[:, 0] == 0).sum())
+        n_bytes = 4 * (t.params.numel() + t.prim.numel() + t.txp.numel()
+                       + t.tex.numel() + t.bmp_meta.numel()
+                       + rx.adc.n_time * (2 if coh else 1)) + 8
+        b = bound(lane_ops(stats['checkerboard'], n_rect), n_bytes,
+                  f'{twin} textures 2^{lanes.bit_length() - 1} lanes')
+        geom = rk.launch_geometry(rx.adc.n_time, lanes, int(t.prim.shape[0]),
+                                  doppler=coh, coherent=coh, tex=True)
+        mix = kernel_mix(dev, tag, build_log, cubin, f'{twin}_checker',
+                         geom, sms)
+        print(f'{twin} textures bounds: FP32 {b["bound_ms"]:.4f} ms, issue '
+              f'slots {mix["issue_slot_bound_ms"]:.4f} ms; kernel '
+              f'{med["checkerboard"]:.3f} ms {tag}')
+        entries.append({
+            'name': 'receive_megakernel',
+            'configuration': f'{twin} textures', 'route': 'cuda',
+            'source': 'beifong_tpu_torch/csrc/receive_megakernel.cu',
+            'replaces': 'beifong_tpu/integrators/pallas_receive.py:2983',
+            'tpu_function': '_make_kernel (pallas_receive.py:106), '
+            'prim_tex 1 / 2 (:762-776, :1402, :1497-1510)',
+            'main_path': f'receive(flagship_scene(ground_texture=...)), '
+            f'checkerboard and bitmap, 2^{lanes.bit_length() - 1} samples, '
+            f'depth {depth}' + (', coherent' if coh else ''),
+            'launches': launches,
+            'max_abs_err': max(c['err'] for c in errs),
+            'parity': max(c['rel'] for c in errs),
+            'philox_max_abs_err': max(c['err'] for c in errs[1::2]),
+            'ms': med['checkerboard'], 'bitmap_ms': med['bitmap'],
+            'untextured_ms': med[None], 'plain_ms': plain['checkerboard'],
+            'plain_bitmap_ms': plain['bitmap'],
+            'receive_ms': recv['checkerboard'],
+            'receive_bitmap_ms': recv['bitmap'], **b, 'library_ms': None,
+            **mix})
     return entries
 
 
@@ -4292,6 +4584,8 @@ def main() -> int:
                         infos['receive_megakernel'].log, cubin)
     kernels += cpi(torch, bt, rk, ik, dev, tag,
                    infos['receive_megakernel'].log, cubin)
+    kernels += textures(torch, bt, rk, dev, tag, pulse_compress,
+                        infos['receive_megakernel'].log, cubin)
     kernels += mimo(torch, bt, rk, dev, tag,
                     infos['receive_megakernel'].log, cubin)
     kernels += media(torch, bt, rk, dev, tag)

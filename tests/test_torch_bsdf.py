@@ -196,8 +196,9 @@ def test_parametric_warps_match_jax(name):
 
 
 def test_texture_eval_matches_jax():
-    """The lookup over a JAX texture table (the port's constructors wait):
-    constant, checkerboard, bitmap and spectral-curve rows, and -1."""
+    """The lookup over a JAX texture table, carried over field by field
+    (its unset mesh-attribute fields stay None): constant, checkerboard,
+    bitmap and spectral-curve rows, and -1."""
     specs = [tex_j.constant('c', [0.2, 0.4, 0.6]),
              tex_j.checkerboard('k', 0.9, 0.1, scale_uv=(4.0, 3.0)),
              tex_j.bitmap('b', np.random.default_rng(2).random(
@@ -207,7 +208,8 @@ def test_texture_eval_matches_jax():
                                   values=[0.1, 0.9, 0.4, 0.2])]
     tj = tex_j.TextureTable.build(specs)
     tt = tex_t.TextureTable(**{f.name: torch.tensor(np.asarray(
-        getattr(tj, f.name))) for f in dataclasses.fields(tex_t.TextureTable)})
+        getattr(tj, f.name))) for f in dataclasses.fields(tex_t.TextureTable)
+        if getattr(tj, f.name) is not None})
     g = np.random.default_rng(4)
     idx = g.integers(-1, len(specs), N).astype(np.int32)
     uv = g.uniform(-1.5, 2.5, (N, 2)).astype(np.float32)

@@ -2129,7 +2129,8 @@ def test_lobe_scenes_launch_the_lobe_kernel(cuda, coherent):
             == (not analytic), scene
     names = set(tree_ab.sass_of(rk.build_library().path))
     c = int(coherent)
-    assert 'receive_coherent_kernel<>' in names, sorted(names)
+    # the coherent kernel (its untextured instantiation, <false>)
+    assert 'receive_coherent_kernel<0>' in names, sorted(names)
     assert f'receive_lobe_kernel<{c}>' in names
     assert f'receive_doppler_kernel<0,{c},0,0,1>' not in names
     assert f'receive_doppler_kernel<1,{c},0,0,1>' not in names
@@ -2168,3 +2169,141 @@ def test_lobe_kernel_grids_match_plain_version(cuda, n_freq, coherent):
         **kw)
     _assert_lobe_parity(s, types.SimpleNamespace(adc=adc), kw, chain, acc,
                         n_ev, ref, n_ref, amp, lane, lane_ref, ill)
+
+
+# ---- the texture twins: checkerboard and bitmap rectangles ----
+
+
+def _tex_tables(device, texture, coherent, seed=0):
+    """The flagship scene with a textured ground (`ground_texture`), its
+    tables and texel rows on `device`, and the call's keywords: the
+    flagship configuration at depth 3, or the coherent one at depth 2."""
+    s, rx = flagship_scene(ground_texture=texture)
+    tab = rk._device_tables(s, s.compile(device='cpu'), rx, device)
+    kw = dict(adc=rx.adc, max_depth=2 if coherent else 3,
+              time_sampling='gate', rx_kind='wigner', doppler=coherent,
+              coherent=coherent, tex=tab.tex, bmp_meta=tab.bmp_meta)
+    return s, rx, tab, kw
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('coherent', [False, True], ids=['power', 'iq'])
+@pytest.mark.parametrize('texture', ['checkerboard', 'bitmap'])
+def test_texture_twins_match_plain_version(cuda, texture, coherent):
+    """receive_flagship_kernel<true> (power) and receive_coherent_kernel<
+    true> (I / Q) on injected uniforms and on Philox against the plain
+    version: power per cell within 1e-4 x max|acc|, I / Q within 1e-4 x
+    max(|I|, |Q|) plus the phase slack times the cell's amplitude sum; the
+    launch record and the configuration's count."""
+    s, rx, tab, kw = _tex_tables(cuda, texture, coherent)
+    name = 'coherent_tex' if coherent else 'flagship_tex'
+    for n_lanes, u in ((1 << 16, torch.rand(
+            (rk.n_draws(kw['max_depth']), 1 << 16),
+            generator=torch.Generator(cuda).manual_seed(5), device=cuda)),
+            ((1 << 20) + 77, None)):
+        before = rk.receive_megakernel.by_config[name]
+        acc, n_ev = rk.receive_megakernel(tab.params, tab.prim, tab.txp,
+                                          n_lanes=n_lanes, uniforms=u,
+                                          seed=11, **kw)
+        torch.cuda.synchronize()
+        assert rk.launched_tex_kernel(coherent)
+        assert not rk.launched_tex_kernel(not coherent)
+        assert rk.receive_megakernel.by_config[name] == before + 1
+        if u is None:
+            u = rk.philox_uniforms(11, rk.n_draws(kw['max_depth']), n_lanes,
+                                   device=cuda)
+        amp = torch.zeros((rx.adc.n_time, 1), dtype=torch.float64,
+                          device=cuda)
+        ref, n_ref = rk.receive_megakernel_ref(
+            tab.params, tab.prim, tab.txp, u,
+            amp_out=amp if coherent else None, **kw)
+        assert acc.shape == ref.shape
+        if coherent:
+            _assert_coherent_parity(acc, n_ev, ref, n_ref, amp,
+                                    rk.phase_slack(s.band, rx.adc))
+        else:
+            scale = float(ref.abs().max())
+            assert scale > 0 and int(n_ref) > 0
+            assert float((acc - ref).abs().max()) <= 1e-4 * scale
+            assert abs(int(n_ev) - int(n_ref)) <= 1e-4 * int(n_ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('coherent', [False, True], ids=['power', 'iq'])
+def test_texture_twin_anchors(cuda, coherent):
+    """On the card: a uniform checkerboard (1.0 / 1.0) through the
+    texture twin is the untextured scene through its kernel, bit for bit
+    (warp rows in a fixed order, the same draws); a constant bitmap of
+    0.7 and the uniform checkerboard of 0.7 through the twin, and an
+    untextured ground of reflectance 0.7 through the untextured kernel,
+    agree to 1e-5 (a twin that left the texture out would give the ground
+    1.0); the checkerboard and the bitmap move the grid by more than 100 x
+    the parity bound (1e-4 x max|acc|) and keep the target's peak on bin
+    26."""
+    from beifong_tpu_torch import textures as tx
+    from beifong_tpu_torch.bsdf.tables import diffuse
+
+    def grid(texture):
+        if texture in ('checkerboard', 'bitmap', None):
+            s, rx = flagship_scene(ground_texture=texture)
+        else:
+            s, rx = flagship_scene()
+            if texture == 'plain07':
+                s.add(diffuse('gnd', reflectance=0.7, twosided=True))
+            else:
+                s.add({'uniform': tx.checkerboard('t', 1.0, 1.0),
+                       'uniform07': tx.checkerboard('t', 0.7, 0.7),
+                       'constant': tx.bitmap('t', np.full(
+                           (8, 8), 0.7, np.float32))}[texture])
+                s.add(diffuse('gnd', reflectance=1.0, twosided=True,
+                              texture='t'))
+            s.shapes[-1].bsdf = 'gnd'
+        tab = rk._device_tables(s, s.compile(device='cpu'), rx, cuda)
+        acc, _ = rk.receive_megakernel(
+            tab.params, tab.prim, tab.txp, adc=rx.adc,
+            max_depth=2 if coherent else 3, time_sampling='gate',
+            rx_kind='wigner', n_lanes=1 << 22, seed=7, doppler=coherent,
+            coherent=coherent, tex=tab.tex, bmp_meta=tab.bmp_meta)
+        torch.cuda.synchronize()
+        assert rk.launched_tex_kernel(coherent) == (
+            texture not in (None, 'plain07'))
+        return acc
+
+    base = grid(None)
+    assert torch.equal(grid('uniform'), base)
+    const, unif07, plain07 = (grid(t) for t in
+                              ('constant', 'uniform07', 'plain07'))
+    for a, b in ((const, unif07), (const, plain07), (unif07, plain07)):
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+    for texture in ('checkerboard', 'bitmap'):
+        got = grid(texture)
+        moved = float((got - base).abs().max())
+        assert moved > 100 * 1e-4 * float(base.abs().max()), texture
+        power = got[:, 0] if not coherent else got[:, 0].square().sum(-1)
+        assert int(power.argmax()) == 26, texture
+
+
+@pytest.mark.gpu
+def test_textured_receive_launches_the_texture_twins(cuda):
+    """receive() of a textured flagship scene launches the texture twins,
+    in power and in I / Q, and the untextured one its kernels; the
+    library holds both instantiations of each kernel (its functions, as
+    `tools/tree_ab.py --sass` reads them)."""
+    import os
+    import sys
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), 'tools'))
+    import tree_ab
+    for texture in ('bitmap', None):
+        s, rx = flagship_scene(ground_texture=texture)
+        for coherent in (False, True):
+            adc, n = receive(s, receiver=rx, spp=1 << 16, max_depth=2,
+                             coherent=coherent, time_sampling='gate',
+                             device=cuda)
+            torch.cuda.synchronize()
+            assert rk.launched_tex_kernel(coherent) == (texture is not None)
+            assert bool(torch.isfinite(adc).all()) and n == 1 << 16
+    names = set(tree_ab.sass_of(rk.build_library().path))
+    assert {'receive_flagship_kernel<0>', 'receive_flagship_kernel<1>',
+            'receive_coherent_kernel<0>',
+            'receive_coherent_kernel<1>'} <= names, sorted(names)

@@ -199,8 +199,35 @@ def flagship(pkg: str):
     return ge._build_scene()
 
 
+def flagship_textured(texture: str):
+    """The flagship scene with a checkerboard or bitmap ground
+    (`scenes.flagship_scene(ground_texture=...)`)."""
+    def build(pkg: str):
+        # imported here: that module imports this one
+        from test_torch_receive_kernel_textures import textured_flagship
+        return textured_flagship(pkg, texture)
+    return build
+
+
+def multi_body_attr(pkg: str):
+    """multi_body with a mesh-attribute texture on the stationary body:
+    one seeded reflectance a face of the scene's 324 (the hit triangle's
+    row)."""
+    s, rx = multi_body(pkg)
+    tex = importlib.import_module(
+        'beifong_tpu.textures' if pkg == 'jax'
+        else 'beifong_tpu_torch.textures')
+    s.add(tex.mesh_attribute('attr', np.random.default_rng(6).uniform(
+        0.1, 1.0, 324).astype(np.float32)))
+    next(b for b in s.bsdfs if b.id == 'hull').texture = 'attr'
+    return s, rx
+
+
 SCENES = {'multi_body': multi_body, 'analytic_zoo': analytic_zoo,
-          'fmcw_sonar': fmcw_sonar, 'flagship': flagship}
+          'fmcw_sonar': fmcw_sonar, 'flagship': flagship,
+          'flagship_checker': flagship_textured('checkerboard'),
+          'flagship_bitmap': flagship_textured('bitmap'),
+          'multi_body_attr': multi_body_attr}
 
 
 # ---------------------------------------------------------------------------
@@ -296,6 +323,9 @@ CASES = [
     ('fmcw_sonar', 2, False, 'fixed'),
     ('fmcw_sonar', 2, True, 'fixed'),
     ('flagship', 2, False, 'gate'),
+    ('flagship_checker', 2, False, 'gate'),
+    ('flagship_bitmap', 2, True, 'gate'),
+    ('multi_body_attr', 2, False, 'gate'),
 ]
 
 

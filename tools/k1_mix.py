@@ -85,9 +85,14 @@ MAIN_LANES = 1 << 28
 POOL = 64                    # paths a warp in the flagship kernel
 # the flagship kernel of a tree: the grid-stride instantiation or the
 # warp-wavefront kernel that replaced it; the same for the coherent one
-KERNEL = r'receive_trace_kernelILb0ELb0ELb0E|receive_flagship_kernel'
+# (a tree with texture twins: their untextured instantiation, <false>)
+KERNEL = (r'receive_trace_kernelILb0ELb0ELb0E|'
+          r'receive_flagship_kernel(?!ILb1E)')
 COH_KERNEL = (r'receive_doppler_kernelILb0ELb1ELb0ELb0ELb0E|'
-              r'receive_coherent_kernel')
+              r'receive_coherent_kernel(?!ILb1E)')
+# the texture twins of the two
+FLAG_TEX_KERNEL = r'receive_flagship_kernelILb1E'
+COH_TEX_KERNEL = r'receive_coherent_kernelILb1E'
 # each configuration: depth, time sampling, the main path's lanes, its
 # kernels
 LOBE_KERNEL = (r'receive_doppler_kernelILb0ELb0ELb0ELb0ELb1E|'
@@ -154,7 +159,21 @@ CONFIGS = {'flagship': dict(depth=DEPTH, ts='gate', lanes=MAIN_LANES,
            'mesh': dict(depth=2, ts='gate', lanes=1 << 24,
                         kernel=MSK_KERNEL),
            'mimo': dict(depth=2, ts='gate', lanes=1 << 24,
-                        kernel=MAK_KERNEL)}
+                        kernel=MAK_KERNEL),
+           'flagship_checker': dict(depth=DEPTH, ts='gate',
+                                    lanes=MAIN_LANES, kernel=FLAG_TEX_KERNEL),
+           'flagship_bitmap': dict(depth=DEPTH, ts='gate', lanes=MAIN_LANES,
+                                   kernel=FLAG_TEX_KERNEL),
+           'coherent_checker': dict(depth=2, ts='gate', lanes=1 << 24,
+                                    kernel=COH_TEX_KERNEL),
+           'coherent_bitmap': dict(depth=2, ts='gate', lanes=1 << 24,
+                                   kernel=COH_TEX_KERNEL)}
+# the texture twins' configurations: the flagship scene's ground texture,
+# and whether the twin is the coherent kernel's (I / Q)
+TEX_CONFIGS = {'flagship_checker': ('checkerboard', False),
+               'flagship_bitmap': ('bitmap', False),
+               'coherent_checker': ('checkerboard', True),
+               'coherent_bitmap': ('bitmap', True)}
 # the endpoint configurations: (scenes' function, coherent)
 EP_SCENES = {'ep_phased_tx': ('phased_tx_scene', False),
              'ep_phased_rx': ('phased_rx_scene', False),
@@ -292,6 +311,8 @@ def scene_of(config: str):
         return scenes.mesh_scene()
     if config == 'mimo':
         return scenes.mimo_beamform_scene()
+    if config in TEX_CONFIGS:
+        return scenes.flagship_scene(ground_texture=TEX_CONFIGS[config][0])
     if config == 'flagship':
         return scenes.flagship_scene()
     if config == 'pulse_train':
@@ -329,6 +350,12 @@ def ref_kw(config: str, rx, packed) -> dict:
                   eoff=rk.array_offsets(s, s.compile(use_bvh=False,
                                                      device='cpu'), rx,
                                         'cpu'))
+        return kw
+    if config in TEX_CONFIGS:
+        import torch
+        coh = TEX_CONFIGS[config][1]
+        kw.update(doppler=coh, coherent=coh, tex=torch.tensor(packed.tex),
+                  bmp_meta=torch.tensor(packed.bmp_meta))
         return kw
     if config in EP_SCENES:
         import torch
@@ -995,6 +1022,8 @@ if p.mesh is not None:
     lob.update(mesh=True, n_msh=p.msh.shape[0])
 if kw.get('eoff') is not None:
     lob.update(n_elem=int(kw['eoff'].shape[0]))
+if kw.get('tex') is not None:
+    lob.update(tex=True)
 if {config!r} in k1_mix.EP_SCENES:
     import inspect
     lob = {{'ep': True}}

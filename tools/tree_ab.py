@@ -454,6 +454,8 @@ def child(root: str, only: tuple = NAMES) -> dict:
             if 'mirror' in inspect.signature(
                     rk.receive_megakernel).parameters:
                 kw['mirror'] = False   # these scenes hold no mirror
+        if 'textured' in inspect.signature(rk.receive_megakernel).parameters:
+            kw['textured'] = False     # nor a texture, as receive() says
         if p.mesh is not None:
             params[0] = rk.seed_slot(chip_smoke.SEED)
             kw.update(mesh=p.mesh.to(dev), patch_p=rk.patch_p_for(n_lanes))
