@@ -3,8 +3,10 @@
 Host-side constructors build `BSDFSpec`s; `BSDFTable.build` flattens them
 into one structure-of-arrays table that `bsdf/eval.py` dispatches over by
 type code.  A diffuse or plastic BSDF's reflectance may be scaled by a
-texture (`texture=`, a `textures.TextureSpec` id of the scene); the normal
-and bump maps wait for ROADMAP A3.
+texture (`texture=`, a `textures.TextureSpec` id of the scene).  A normal
+or bump map (`normalmap`, `bumpmap`) is a blend of weight 1 over one nested
+BSDF that carries the map's texture id; `SceneData.ray_intersect` perturbs
+the shading frame of its hits.
 """
 
 from __future__ import annotations
@@ -47,6 +49,8 @@ class BSDFSpec:
     weight: float = 0.5              # blend weight / mask opacity
     brdf_grid: Optional[np.ndarray] = None   # MEASURED only
     texture: Optional[str] = None    # texture id scaling the reflectance
+    normalmap: Optional[str] = None  # texture id of a tangent normal map
+    bumpmap: Optional[str] = None    # texture id of a height map
 
 
 def _c(v, default=1.0) -> np.ndarray:
@@ -146,14 +150,20 @@ def blend(id, bsdf0, bsdf1, weight=0.5) -> BSDFSpec:
                     nested0=bsdf0, nested1=bsdf1, weight=float(weight))
 
 
-def normalmap(id, nested, texture):
-    raise NotImplementedError('normal maps: the shading-frame perturbation '
-                              'is not ported (ROADMAP A3)')
+def normalmap(id, nested, texture) -> BSDFSpec:
+    """A tangent-space normal map (the texture's rgb) over the BSDF
+    `nested`: a blend of weight 1 over it, the perturbation applied to the
+    shading frame at the hit (`SceneData.ray_intersect`)."""
+    return BSDFSpec(id=id, type=BLEND, reflectance=_c(1.0), nested0=nested,
+                    nested1=nested, weight=1.0, normalmap=texture)
 
 
-def bumpmap(id, nested, texture, scale: float = 1.0):
-    raise NotImplementedError('bump maps: the shading-frame perturbation '
-                              'is not ported (ROADMAP A3)')
+def bumpmap(id, nested, texture, scale: float = 1.0) -> BSDFSpec:
+    """A height-field bump map (the texture's channel 0, times `scale`,
+    kept in alpha) over the BSDF `nested`, as `normalmap`."""
+    return BSDFSpec(id=id, type=BLEND, reflectance=_c(1.0), nested0=nested,
+                    nested1=nested, weight=1.0, bumpmap=texture,
+                    alpha=float(scale))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -168,6 +178,8 @@ class BSDFTable:
     nested0: torch.Tensor       # (B,) int32, -1 none
     nested1: torch.Tensor       # (B,) int32
     weight: torch.Tensor        # (B,)
+    normalmap_idx: torch.Tensor   # (B,) int32, -1 none
+    bumpmap_idx: torch.Tensor     # (B,) int32, -1 none
     present: tuple = ()         # type codes present in the table
     measured_grid: Optional[torch.Tensor] = None   # (Nti, Nto, Ndp, MAX_C)
 
@@ -179,12 +191,12 @@ class BSDFTable:
         only), and raises `KeyError` on an unknown one."""
         n = max(len(specs), 1)
 
-        def tex_row(s):
-            if s.texture is None:
+        def tex_row(tid):
+            if tid is None:
                 return -1
             if resolve_texture is None:
-                raise KeyError(f'unresolved reference {s.texture!r}')
-            return resolve_texture(s.texture)
+                raise KeyError(f'unresolved reference {tid!r}')
+            return resolve_texture(tid)
         ids = {s.id: i for i, s in enumerate(specs)}
 
         def col(fn, shape, dtype=np.float32, fill=0):
@@ -203,10 +215,13 @@ class BSDFTable:
             k=col(lambda s: _c(s.k, 0.0 if s.type != DIELECTRIC else 1.0),
                   (MAX_C,)),
             twosided=col(lambda s: s.twosided, (), bool),
-            texture_idx=col(tex_row, (), np.int32, -1),
+            texture_idx=col(lambda s: tex_row(s.texture), (), np.int32, -1),
             nested0=col(lambda s: ids.get(s.nested0, -1), (), np.int32, -1),
             nested1=col(lambda s: ids.get(s.nested1, -1), (), np.int32, -1),
             weight=col(lambda s: s.weight, ()),
+            normalmap_idx=col(lambda s: tex_row(s.normalmap), (), np.int32,
+                              -1),
+            bumpmap_idx=col(lambda s: tex_row(s.bumpmap), (), np.int32, -1),
             present=tuple(sorted({s.type for s in specs})),
             measured_grid=None if grid is None
             else torch.as_tensor(grid, device=device))

@@ -233,6 +233,9 @@ constexpr int PRIM_COLS = 34;
 constexpr int TXP_COLS = 32;
 constexpr int MSH_COLS = 8;
 constexpr int RECTANGLE = 0;
+constexpr int SPHERE = 1;     // the prims twins' other analytic kinds
+constexpr int DISK = 2;
+constexpr int CYLINDER = 3;
 constexpr float CW = 0.0f;
 constexpr float LINFMCW = 2.0f;
 constexpr float DIFFUSE = 0.0f;
@@ -2913,6 +2916,105 @@ __device__ __forceinline__ float tex_reflectance(const float4* t, float rb,
     return rb;
 }
 
+// The prims twins' test of one analytic prim of kind `kind` (its
+// world-to-local rows as float4s `q`): the JAX kernel's arithmetic
+// (pallas_receive.py:697-798), which the plain version copies.  A
+// rectangle as rect_hit4_uv; a disk the plane z = 0 clipped to the unit
+// circle; a cylinder x^2 + y^2 = 1, z in [0, 1], by the roots (-b -+
+// sqrt(disc)) / 2a and the near root where its z is on the surface, else
+// the far one; a sphere by the stable q = -(b + sgn(b) sqrt(disc)) / 2,
+// t0 = q / a, t1 = c / q, the near root if positive, else the far one.
+// (px, py) are a rectangle's local hit coordinates (the texture codes');
+// the shadow test uses the same roots.
+__device__ __forceinline__ bool prim_hit4_uv(const float4* q, int kind,
+                                             float cx, float cy, float cz,
+                                             float dx, float dy, float dz,
+                                             float* t_out, float* px_out,
+                                             float* py_out) {
+    if (kind == RECTANGLE)
+        return rect_hit4_uv(q, cx, cy, cz, dx, dy, dz, t_out, px_out,
+                            py_out);
+    const float4 a = q[0], b = q[1], c = q[2];
+    float oox = a.x * cx + a.y * cy + a.z * cz + a.w;
+    float ooy = b.x * cx + b.y * cy + b.z * cz + b.w;
+    float ooz = c.x * cx + c.y * cy + c.z * cz + c.w;
+    float odx = a.x * dx + a.y * dy + a.z * dz;
+    float ody = b.x * dx + b.y * dy + b.z * dz;
+    float odz = c.x * dx + c.y * dy + c.z * dz;
+    *px_out = 0.0f;
+    *py_out = 0.0f;
+    if (kind == DISK) {
+        bool big = fabsf(odz) > F(1e-12);
+        float t_p = -ooz / (big ? odz : F(1e-12));
+        float px = oox + t_p * odx;
+        float py = ooy + t_p * ody;
+        *t_out = t_p;
+        return big && px * px + py * py <= 1.0f;
+    }
+    if (kind == CYLINDER) {
+        float a_s = odx * odx + ody * ody;
+        float b_s = 2.0f * (oox * odx + ooy * ody);
+        float c_s = oox * oox + ooy * ooy - 1.0f;
+        float disc = b_s * b_s - 4.0f * a_s * c_s;
+        float sq = sqrtf(fmaxf(disc, 0.0f));
+        float a_sf = fabsf(a_s) > F(1e-20) ? a_s : F(1e-20);
+        float t0 = (-b_s - sq) / (2.0f * a_sf);
+        float t1 = (-b_s + sq) / (2.0f * a_sf);
+        float z0 = ooz + t0 * odz;
+        float z1 = ooz + t1 * odz;
+        bool v0 = disc >= 0.0f && z0 >= 0.0f && z0 <= 1.0f && t0 > 0.0f;
+        bool v1 = disc >= 0.0f && z1 >= 0.0f && z1 <= 1.0f && t1 > 0.0f;
+        *t_out = v0 ? t0 : t1;
+        return v0 || v1;
+    }
+    float a_s = odx * odx + ody * ody + odz * odz;
+    float b_s = 2.0f * (oox * odx + ooy * ody + ooz * odz);
+    float c_s = oox * oox + ooy * ooy + ooz * ooz - 1.0f;
+    float disc = b_s * b_s - 4.0f * a_s * c_s;
+    float sq = sqrtf(fmaxf(disc, 0.0f));
+    float qq = -0.5f * (b_s + (b_s >= 0.0f ? 1.0f : -1.0f) * sq);
+    float t0 = qq / (fabsf(a_s) > F(1e-20) ? a_s : F(1e-20));
+    float t1 = c_s / (fabsf(qq) > F(1e-20) ? qq : F(3.4e38));
+    float tn = fminf(t0, t1), tf = fmaxf(t0, t1);
+    float t_p = tn > 0.0f ? tn : tf;
+    *t_out = t_p;
+    return disc >= 0.0f && t_p > 0.0f;
+}
+
+__device__ __forceinline__ bool prim_hit4(const float4* q, int kind,
+                                          float cx, float cy, float cz,
+                                          float dx, float dy, float dz,
+                                          float* t_out) {
+    float px, py;
+    return prim_hit4_uv(q, kind, cx, cy, cz, dx, dy, dz, t_out, &px, &py);
+}
+
+// The unit world normal at the hit t of the ray (c, d) on a prim of kind
+// `kind` (rows `q`): a rectangle's or disk's from its record (`n`, rows
+// 8-10 normalised once a block); a cylinder's M^T (px, py, 0), a sphere's
+// M^T p, normalised by rsqrt, from the hit point in object space as the
+// trace computed it.  SHADE recomputes it from the slot's ray and t.  The
+// normal is the result's x, y, z.
+__device__ __forceinline__ float4 prim_normal4(const float4* q, int kind,
+                                               float4 n, float cx, float cy,
+                                               float cz, float dx, float dy,
+                                               float dz, float t) {
+    if (kind != SPHERE && kind != CYLINDER) return n;
+    const float4 a = q[0], b = q[1], c = q[2];
+    float px = (a.x * cx + a.y * cy + a.z * cz + a.w)
+               + t * (a.x * dx + a.y * dy + a.z * dz);
+    float py = (b.x * cx + b.y * cy + b.z * cz + b.w)
+               + t * (b.x * dx + b.y * dy + b.z * dz);
+    float pz = kind == SPHERE ? (c.x * cx + c.y * cy + c.z * cz + c.w)
+                                    + t * (c.x * dx + c.y * dy + c.z * dz)
+                              : 0.0f;
+    float snx = a.x * px + b.x * py + c.x * pz;
+    float sny = a.y * px + b.y * py + c.y * pz;
+    float snz = a.z * px + b.z * py + c.z * pz;
+    float nn = rsqrtf(fmaxf(snx * snx + sny * sny + snz * snz, F(1e-20)));
+    return make_float4(snx * nn, sny * nn, snz * nn, 0.0f);
+}
+
 // The sum of the values of a (nonempty) group of lanes, in lane order,
 // four loads in flight.
 __device__ __forceinline__ float group_sum(const float* vals, unsigned g) {
@@ -2995,7 +3097,7 @@ __device__ __forceinline__ void flag_splat(double* row, unsigned* masks,
     }
 }
 
-template <bool TEX>
+template <bool TEX, bool PRIM = false>
 __global__ void __launch_bounds__(FLAG_THREADS)
 receive_flagship_kernel(const float* __restrict__ params,
                         const float* __restrict__ prim,
@@ -3030,6 +3132,9 @@ receive_flagship_kernel(const float* __restrict__ params,
     unsigned* w_mask = reinterpret_cast<unsigned*>(w_row + cfg.n_time);
     // TEX: each rectangle's texture record, after the warps' areas
     float4* s_tex = reinterpret_cast<float4*>(s_warps + (T / 32) * wbytes);
+    // PRIM: the kinds of the prim records, then of the shadowing rows,
+    // after the texture records where there are any
+    int* s_kind = reinterpret_cast<int*>(s_tex + (TEX ? 2 * np : 0));
 
     for (int i = tid; i < cfg.n_params; i += T) s_par[i] = params[i];
     for (int i = tid; i < TXP_COLS; i += T) s_tx[i] = txp[i];
@@ -3039,11 +3144,19 @@ receive_flagship_kernel(const float* __restrict__ params,
     __syncthreads();
     if (tid == 0) {
         // the rectangles in prim order, and those that can shadow an NEE
-        // (the transmitter's own, tx index 0 in column 14, never does)
+        // (the transmitter's own, tx index 0 in column 14, never does);
+        // PRIM: the spheres, disks and cylinders among them, in prim order
         int nr = 0, nb = 0;
         for (int p = 0; p < np; ++p) {
             const float* row = s_prim + p * PRIM_COLS;
-            if ((int)row[0] != RECTANGLE) continue;
+            const int kd = (int)row[0];
+            if constexpr (PRIM) {
+                if (kd != RECTANGLE && kd != SPHERE && kd != DISK
+                    && kd != CYLINDER)
+                    continue;
+            } else if (kd != RECTANGLE) {
+                continue;
+            }
             const float* q = row + 1;
             float rnorm = rsqrtf(fmaxf(q[8] * q[8] + q[9] * q[9]
                                        + q[10] * q[10], F(1e-20)));
@@ -3057,11 +3170,13 @@ receive_flagship_kernel(const float* __restrict__ params,
             if constexpr (TEX)
                 tex_record(s_tex + 2 * (nr - 1), row, p, cfg.grid, np,
                            cfg.g_w);
+            if constexpr (PRIM) s_kind[nr - 1] = kd;
             if (row[14] != 0.0f) {
                 float4* b = s_blk + 3 * nb++;
                 b[0] = r[0];
                 b[1] = r[1];
                 b[2] = r[2];
+                if constexpr (PRIM) s_kind[np + nb - 1] = kd;
             }
         }
         s_cnt[0] = nr;
@@ -3237,8 +3352,13 @@ receive_flagship_kernel(const float* __restrict__ params,
             const float tb = c.y;
             const int pw = __float_as_int(c.z);
             const float4 nrb = s_rec[FLAG_REC * pw + 3];
-            // TEX: the textured reflectance the trace left in the slot
-            const float nx = nrb.x, ny = nrb.y, nz = nrb.z,
+            // TEX: the textured reflectance the trace left in the slot;
+            // PRIM: a sphere's or cylinder's normal at the hit
+            const float4 nh = PRIM ? prim_normal4(s_rec + FLAG_REC * pw,
+                                                  s_kind[pw], nrb, cx, cy,
+                                                  cz, dx, dy, dz, tb)
+                                   : nrb;
+            const float nx = nh.x, ny = nh.y, nz = nh.z,
                         rb = TEX ? sl4[3].z : nrb.w;
             const float txc = s_rec[FLAG_REC * pw + 4].x;
             const float cvel = sp[1];
@@ -3331,8 +3451,12 @@ receive_flagship_kernel(const float* __restrict__ params,
                     bool occ = false;
                     for (int r = 0; r < n_blk && !occ; ++r) {
                         float t_p;
-                        bool hit_p = rect_hit4(s_blk + 3 * r, sx, sy, sz,
-                                               wx_, wy_, wz_, &t_p);
+                        bool hit_p = PRIM ? prim_hit4(s_blk + 3 * r,
+                                                      s_kind[np + r], sx, sy,
+                                                      sz, wx_, wy_, wz_, &t_p)
+                                          : rect_hit4(s_blk + 3 * r, sx, sy,
+                                                      sz, wx_, wy_, wz_,
+                                                      &t_p);
                         occ = hit_p && t_p > F(1e-4) && t_p < limit;
                     }
                     // [k1 stage: nee]
@@ -3386,8 +3510,12 @@ receive_flagship_kernel(const float* __restrict__ params,
             for (int r = 0; r < n_rect; ++r) {
                 // [k1 stage: closest]
                 float t_p, px, py;
-                bool hit_p = rect_hit4_uv(s_rec + FLAG_REC * r, ox, oy, oz, dx,
-                                          dy, dz, &t_p, &px, &py);
+                bool hit_p = PRIM ? prim_hit4_uv(s_rec + FLAG_REC * r,
+                                                 s_kind[r], ox, oy, oz, dx,
+                                                 dy, dz, &t_p, &px, &py)
+                                  : rect_hit4_uv(s_rec + FLAG_REC * r, ox, oy,
+                                                 oz, dx, dy, dz, &t_p, &px,
+                                                 &py);
                 if (hit_p && t_p > F(1e-4) && t_p < tb) {
                     tb = t_p;
                     pw = r;
@@ -4217,7 +4345,7 @@ __device__ __forceinline__ void coh_splat_rows(double* row, float* vals,
     }
 }
 
-template <bool TEX>
+template <bool TEX, bool PRIM = false>
 __global__ void __launch_bounds__(COH_THREADS, COH_MIN_BLOCKS)
 receive_coherent_kernel(const float* __restrict__ params,
                         const float* __restrict__ prim,
@@ -4257,6 +4385,9 @@ receive_coherent_kernel(const float* __restrict__ params,
     float4* s_tex = reinterpret_cast<float4*>(
         reinterpret_cast<char*>(s_grid)
         + (cfg.mode == 1 && !rows ? (4 * n_vals + 15) & ~15LL : 0LL));
+    // PRIM: the kinds of the prim records, then of the shadowing rows,
+    // after the texture records where there are any
+    int* s_kind = reinterpret_cast<int*>(s_tex + (TEX ? 2 * np : 0));
 
     for (int i = tid; i < cfg.n_params; i += T) s_par[i] = params[i];
     for (int i = tid; i < TXP_COLS; i += T) s_tx[i] = txp[i];
@@ -4268,10 +4399,18 @@ receive_coherent_kernel(const float* __restrict__ params,
     if (tid == 0) {
         // the rectangles in prim order, and those that can shadow an NEE
         // (the transmitter's own, tx index 0 in column 14, never does)
+        // PRIM: the spheres, disks and cylinders among them, in prim order
         int nr = 0, nb = 0;
         for (int p = 0; p < np; ++p) {
             const float* row = prim + p * PRIM_COLS;
-            if ((int)row[0] != RECTANGLE) continue;
+            const int kd = (int)row[0];
+            if constexpr (PRIM) {
+                if (kd != RECTANGLE && kd != SPHERE && kd != DISK
+                    && kd != CYLINDER)
+                    continue;
+            } else if (kd != RECTANGLE) {
+                continue;
+            }
             const float* q = row + 1;
             float rnorm = rsqrtf(fmaxf(q[8] * q[8] + q[9] * q[9]
                                        + q[10] * q[10], F(1e-20)));
@@ -4286,11 +4425,13 @@ receive_coherent_kernel(const float* __restrict__ params,
             if constexpr (TEX)
                 tex_record(s_tex + 2 * (nr - 1), row, p, cfg.grid, np,
                            cfg.g_w);
+            if constexpr (PRIM) s_kind[nr - 1] = kd;
             if (row[14] != 0.0f) {
                 float4* b = s_blk + 3 * nb++;
                 b[0] = r[0];
                 b[1] = r[1];
                 b[2] = r[2];
+                if constexpr (PRIM) s_kind[np + nb - 1] = kd;
             }
         }
         s_cnt[0] = nr;
@@ -4525,11 +4666,15 @@ receive_coherent_kernel(const float* __restrict__ params,
             const float tb = c.y;
             // TEX: the slot holds the textured reflectance in place of
             // the rectangle, which rides the depth word
-            const float4* rec = s_rec + COH_REC * (TEX ? __float_as_int(c.w)
-                                                             >> 17
-                                                       : __float_as_int(c.z));
+            const int pw = TEX ? __float_as_int(c.w) >> 17
+                               : __float_as_int(c.z);
+            const float4* rec = s_rec + COH_REC * pw;
             const float4 nrb = rec[3], lob = rec[4], kv = rec[5];
-            const float nx = nrb.x, ny = nrb.y, nz = nrb.z,
+            // PRIM: a sphere's or cylinder's normal at the hit
+            const float4 nh = PRIM ? prim_normal4(rec, s_kind[pw], nrb, cx,
+                                                  cy, cz, dx, dy, dz, tb)
+                                   : nrb;
+            const float nx = nh.x, ny = nh.y, nz = nh.z,
                         rb = TEX ? c.z : nrb.w;
             const float txc = lob.x, kb = lob.y, ab = lob.z, eb = lob.w;
             const float kk = kv.x, vbx = kv.y, vby = kv.z, vbz = kv.w;
@@ -4642,8 +4787,12 @@ receive_coherent_kernel(const float* __restrict__ params,
                     bool occ = false;
                     for (int r = 0; r < n_blk && !occ; ++r) {
                         float t_p;
-                        bool hit_p = rect_hit4(s_blk + 3 * r, sx, sy, sz,
-                                               wx_, wy_, wz_, &t_p);
+                        bool hit_p = PRIM ? prim_hit4(s_blk + 3 * r,
+                                                      s_kind[np + r], sx, sy,
+                                                      sz, wx_, wy_, wz_, &t_p)
+                                          : rect_hit4(s_blk + 3 * r, sx, sy,
+                                                      sz, wx_, wy_, wz_,
+                                                      &t_p);
                         occ = hit_p && t_p > F(1e-4) && t_p < limit;
                     }
                     // [k1 stage: nee]
@@ -4770,8 +4919,12 @@ receive_coherent_kernel(const float* __restrict__ params,
             for (int r = 0; r < n_rect; ++r) {
                 // [k1 stage: closest]
                 float t_p, px, py;
-                bool hit_p = rect_hit4_uv(s_rec + COH_REC * r, ox, oy, oz, dx,
-                                          dy, dz, &t_p, &px, &py);
+                bool hit_p = PRIM ? prim_hit4_uv(s_rec + COH_REC * r,
+                                                 s_kind[r], ox, oy, oz, dx,
+                                                 dy, dz, &t_p, &px, &py)
+                                  : rect_hit4_uv(s_rec + COH_REC * r, ox, oy,
+                                                 oz, dx, dy, dz, &t_p, &px,
+                                                 &py);
                 if (hit_p && t_p > F(1e-4) && t_p < tb) {
                     tb = t_p;
                     pw = r;
@@ -9497,14 +9650,14 @@ receive_mimo_kernel(const float* __restrict__ params,
 
 // The kernel of a configuration.
 template <bool MESH, bool DOP, bool COH, bool MIMO, bool MED, bool EP,
-          bool LOB = false, bool TEX = false>
+          bool LOB = false, bool TEX = false, bool PRIM = false>
 constexpr auto kernel_of() {
     if constexpr (MIMO && !MED && !EP)
         return receive_mimo_array_kernel;
     else if constexpr (MIMO)
         return receive_mimo_kernel<MED, EP>;
     else if constexpr (DOP && !MESH && COH && !MED && !EP && !LOB)
-        return receive_coherent_kernel<TEX>;
+        return receive_coherent_kernel<TEX, PRIM>;
     else if constexpr (DOP && !MESH && !MED && !EP && LOB)
         return receive_lobe_kernel<COH>;
     else if constexpr (DOP && !MESH && !COH && !MED && !EP)
@@ -9518,7 +9671,7 @@ constexpr auto kernel_of() {
     else if constexpr (DOP)
         return receive_doppler_kernel<MESH, COH, MED, EP, LOB>;
     else if constexpr (!MESH && !MED && !EP)
-        return receive_flagship_kernel<TEX>;
+        return receive_flagship_kernel<TEX, PRIM>;
     else if constexpr (!MED && !EP)
         return receive_mesh_kernel;
     else
@@ -9598,7 +9751,7 @@ int threads_for(int n_time) {
 }
 
 template <bool MESH, bool DOP, bool COH, bool MIMO, bool MED, bool EP,
-          bool LOB = false, bool TEX = false>
+          bool LOB = false, bool TEX = false, bool PRIM = false>
 int geometry(int n_time, int n_freq, long long n_lanes, int n_prims,
              int n_params, int n_msh, int mode, int n_pulses, int n_elem,
              int n_tx, int n_pairs, int n_rx_pairs, int* blocks,
@@ -9642,14 +9795,17 @@ int geometry(int n_time, int n_freq, long long n_lanes, int n_prims,
     } else if (DOP && !MESH && COH && !MED && !EP && !LOB) {
         // the coherent kernel: its tables, each warp's paths (and row), then
         // the block's float grid where there are no warp rows (mode 1);
-        // its texture twin's records after them
+        // its texture twin's records after them, and its prims twin's
+        // kinds after those
         T = COH_THREADS;
         const bool rows = coh_rows(n_time, n_freq, mode);
         const int grid_bytes = mode == 1 && !rows ? 8 * n_time * n_freq : 0;
         smem = coh_table_bytes(n_prims, n_params)
                + (T / 32) * coh_warp_bytes(n_time, rows)
-               + (TEX ? ((grid_bytes + 15) & ~15) + 32 * n_prims
-                      : grid_bytes);
+               + (PRIM ? 8 * n_prims : 0)
+               + (TEX || PRIM ? ((grid_bytes + 15) & ~15)
+                                    + (TEX ? 32 * n_prims : 0)
+                              : grid_bytes);
     } else if (DOP && !MESH && !COH && !MED && !EP && !LOB) {
         // the Doppler power kernel: the coherent kernel's tables, each
         // warp's paths (and row of n_time doubles), then the block's float
@@ -9692,7 +9848,7 @@ int geometry(int n_time, int n_freq, long long n_lanes, int n_prims,
         T = FLAG_THREADS;
         smem = flag_table_bytes(n_prims, n_params)
                + (T / 32) * flag_warp_bytes(n_time)
-               + (TEX ? 32 * n_prims : 0);
+               + (TEX ? 32 * n_prims : 0) + (PRIM ? 8 * n_prims : 0);
     } else if (!MED && !EP) {
         // the mesh kernel: the flagship's tables, then each warp's paths
         // and row
@@ -9705,12 +9861,13 @@ int geometry(int n_time, int n_freq, long long n_lanes, int n_prims,
         smem = 4 * (n_params + n_prims * PRIM_COLS + TX_FLOATS + n_time * T);
     }
     cudaError_t err = cudaFuncSetAttribute(
-        kernel_of<MESH, DOP, COH, MIMO, MED, EP, LOB, TEX>(),
+        kernel_of<MESH, DOP, COH, MIMO, MED, EP, LOB, TEX, PRIM>(),
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
     int per_sm = 0;
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, kernel_of<MESH, DOP, COH, MIMO, MED, EP, LOB, TEX>(), T,
+        &per_sm, kernel_of<MESH, DOP, COH, MIMO, MED, EP, LOB, TEX, PRIM>(),
+        T,
         smem);
     if (err != cudaSuccess) return (int)err;
     if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
@@ -9800,6 +9957,13 @@ bool tex_config(int mode, int coh, int mesh, int medium, int ep, int lob,
            && n_elem == 0 && n_pulses == 1;
 }
 
+// Whether a call may run a prims twin: as a texture twin, a CPI's pulses
+// too (whose tables carry no texture: the caller's rule).
+bool prim_config(int mode, int coh, int mesh, int medium, int ep, int lob,
+                 int n_elem) {
+    return tex_config(mode, coh, mesh, medium, ep, lob, n_elem, 1);
+}
+
 }  // namespace
 
 extern "C" {
@@ -9810,15 +9974,37 @@ extern "C" {
 // analog phased receiver's: the endpoint kernels' index), of a Doppler
 // configuration's lobe twin when `lob` != 0 (one of the three at most), of
 // the flagship or the analytic coherent configuration's texture twin when
-// `tex` != 0 (one pulse, vacuum, one Wigner transmitter, no lobe twin).
+// `tex` != 0 (one pulse, vacuum, one Wigner transmitter, no lobe twin), of
+// their prims twin when `prims` != 0 (spheres, disks and cylinders; with
+// `tex` too, the twin that also carries the texture codes; a CPI's pulses
+// too).
 int rk_geometry(int n_time, int n_freq, long long n_lanes, int n_prims,
                 int n_params, int n_msh, int mesh, int mode, int coh,
                 int n_pulses, int n_elem, int medium, int ep, int lob,
-                int n_tx, int n_pairs, int n_rx_pairs, int tex, int* blocks,
-                int* threads, int* smem_bytes) {
+                int n_tx, int n_pairs, int n_rx_pairs, int tex, int prims,
+                int* blocks, int* threads, int* smem_bytes) {
     if (n_pulses < 1 || (medium && ep) || (lob && (medium || ep))
         || n_tx < 1 || n_tx > MAX_TX || n_pairs < 0 || n_rx_pairs < 0)
         return (int)cudaErrorInvalidValue;
+    if (prims) {
+        if (!prim_config(mode, coh, mesh, medium, ep, lob, n_elem))
+            return (int)cudaErrorInvalidValue;
+        // with `tex`, the twin that carries the texture codes
+        auto of = [&](auto tex_) {
+            constexpr bool TEX = decltype(tex_)::value;
+            return coh ? geometry<false, true, true, false, false, false,
+                                  false, TEX, true>(
+                             n_time, n_freq, n_lanes, n_prims, n_params,
+                             n_msh, mode, n_pulses, n_elem, 1, 0, 0, blocks,
+                             threads, smem_bytes)
+                       : geometry<false, false, false, false, false, false,
+                                  false, TEX, true>(
+                             n_time, n_freq, n_lanes, n_prims, n_params,
+                             n_msh, mode, n_pulses, n_elem, 1, 0, 0, blocks,
+                             threads, smem_bytes);
+        };
+        return tex ? of(std::true_type{}) : of(std::false_type{});
+    }
     if (tex) {
         if (!tex_config(mode, coh, mesh, medium, ep, lob, n_elem, n_pulses))
             return (int)cudaErrorInvalidValue;
@@ -9890,7 +10076,7 @@ int rk_launch(const float* params, const float* prim, const float* txp,
               const float* eoff, int n_elem, int medium, const float* grid,
               int g_d, int g_h, int g_w, int n_tx, int ep, const float* php,
               int php_cols, int rx_phased, int n_rx_pairs, int lobes,
-              const float* tex, int tex_w, void* stream) {
+              const float* tex, int tex_w, int prims, void* stream) {
     Cfg cfg;
     cfg.n_lanes = n_lanes;
     cfg.seed = seed;
@@ -9946,12 +10132,19 @@ int rk_launch(const float* params, const float* prim, const float* txp,
         return (int)cudaErrorInvalidValue;
     if (n_pulses < 1 || n_pulses > 65535) return (int)cudaErrorInvalidValue;
     if (tex != nullptr) {
-        // the texture twins read the texture buffer through cfg.grid
-        if (!tex_config(mode, coh, bbox != nullptr, medium, ep, lobes,
-                        n_elem, n_pulses) || tex_w < 1)
+        // the texture and prims twins read the texture buffer through
+        // cfg.grid
+        if (!(prims ? prim_config(mode, coh, bbox != nullptr, medium, ep,
+                                  lobes, n_elem)
+                    : tex_config(mode, coh, bbox != nullptr, medium, ep,
+                                 lobes, n_elem, n_pulses))
+            || tex_w < 1)
             return (int)cudaErrorInvalidValue;
         cfg.grid = tex;
         cfg.g_w = tex_w;
+    } else if (prims && !prim_config(mode, coh, bbox != nullptr, medium, ep,
+                                     lobes, n_elem)) {
+        return (int)cudaErrorInvalidValue;
     }
     if (n_elem > 0 && (mode == 0 || !coh || bbox != nullptr || n_freq != 1
                        || n_pulses != 1 || rxph == nullptr
@@ -9996,9 +10189,14 @@ int rk_launch(const float* params, const float* prim, const float* txp,
                 else
                     launch(receive_trace_kernel<true, MED, EP>, lane_val);
             } else if constexpr (!MED && !EP)
-                tex != nullptr ? launch(receive_flagship_kernel<true>, nullptr)
-                               : launch(receive_flagship_kernel<false>,
-                                        nullptr);
+                prims ? (tex != nullptr
+                             ? launch(receive_flagship_kernel<true, true>,
+                                      nullptr)
+                             : launch(receive_flagship_kernel<false, true>,
+                                      nullptr))
+                : tex != nullptr
+                    ? launch(receive_flagship_kernel<true>, nullptr)
+                    : launch(receive_flagship_kernel<false>, nullptr);
             else if constexpr (EP)
                 launch(receive_endpoint_kernel, nullptr);
             else
@@ -10013,7 +10211,12 @@ int rk_launch(const float* params, const float* prim, const float* txp,
                     launch(receive_doppler_kernel<true, true, MED, EP>,
                            lane_val);
             } else if constexpr (!MED && !EP)
-                tex != nullptr
+                prims ? (tex != nullptr
+                             ? launch(receive_coherent_kernel<true, true>,
+                                      lane_val)
+                             : launch(receive_coherent_kernel<false, true>,
+                                      lane_val))
+                : tex != nullptr
                     ? launch(receive_coherent_kernel<true>, lane_val)
                     : launch(receive_coherent_kernel<false>, lane_val);
             else if constexpr (EP)
@@ -10129,6 +10332,21 @@ const void* rk_mesh_kernel() {
 const void* rk_tex_kernel(int coh) {
     return coh ? reinterpret_cast<const void*>(receive_coherent_kernel<true>)
                : reinterpret_cast<const void*>(receive_flagship_kernel<true>);
+}
+
+// The prims twins (which 0 / 1): the flagship's and the coherent
+// kernel's, with the texture codes (tex 1: a textured scene's) or
+// without.
+const void* rk_prim_kernel(int coh, int tex) {
+    if (tex)
+        return coh ? reinterpret_cast<const void*>(
+                         receive_coherent_kernel<true, true>)
+                   : reinterpret_cast<const void*>(
+                         receive_flagship_kernel<true, true>);
+    return coh ? reinterpret_cast<const void*>(
+                     receive_coherent_kernel<false, true>)
+               : reinterpret_cast<const void*>(
+                     receive_flagship_kernel<false, true>);
 }
 
 // The endpoint kernel of the power (coh 0) or I / Q configuration, to

@@ -6,8 +6,9 @@ package: the unit rectangle spans [-1, 1]^2 in the z = 0 plane, normal +z;
 the unit sphere has radius 1 at the origin; the unit disk radius 1 in the
 z = 0 plane; the unit cylinder radius 1 with z in [0, 1].  Triangle meshes
 (`geometry/mesh.py`) take one TRIANGLE row per mesh, their faces in
-`SceneData.tris`.  Shape groups and instances wait for the loaders
-(ROADMAP A10).
+`SceneData.tris`.  A `shapegroup` names a list of shapes, and each
+`instance` of it adds their copies to the scene under its own transform
+(`Scene.add`).
 """
 
 from __future__ import annotations
@@ -73,6 +74,36 @@ def disk(to_world=None, **kw) -> ShapeSpec:
 def cylinder(to_world=None, **kw) -> ShapeSpec:
     """Unit cylinder: radius 1, z in [0, 1], open ends."""
     return ShapeSpec(kind=CYLINDER, to_world=_m4(to_world), **kw)
+
+
+@dataclasses.dataclass
+class ShapeGroup:
+    """A named list of shapes for instancing (the reference's
+    `shapegroup`): not drawn itself; each `instance` of it adds
+    transformed copies of its shapes to the scene."""
+
+    id: str
+    shapes: list
+    endpoint_kind: str = dataclasses.field(default='shapegroup', init=False)
+
+
+@dataclasses.dataclass
+class InstanceSpec:
+    """An instance of the ShapeGroup `group` (the reference's `instance`):
+    `Scene.add` adds each member with to_world = this to_world @ the
+    member's to_world, in float32."""
+
+    group: str
+    to_world: np.ndarray
+    endpoint_kind: str = dataclasses.field(default='instance', init=False)
+
+
+def shapegroup(id, shapes) -> ShapeGroup:
+    return ShapeGroup(id=id, shapes=list(shapes))
+
+
+def instance(group, to_world=None) -> InstanceSpec:
+    return InstanceSpec(group=group, to_world=_m4(to_world))
 
 
 def trihedral(apex, toward, size: float = 1.0, **kw) -> list:

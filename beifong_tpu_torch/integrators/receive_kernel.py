@@ -113,7 +113,7 @@ from ..bsdf.tables import (BLEND, CONDUCTOR, DIELECTRIC, DIFFUSE, MASK,
 from ..core.rng import MASK32, philox4x32_10
 from ..geometry import bvh as bvh_mod
 from ..geometry.bvh_kernel import PackedBVH, walk_ref, leaf_column, pack
-from ..geometry.shapes import RECTANGLE, TRIANGLE
+from ..geometry.shapes import CYLINDER, DISK, RECTANGLE, SPHERE, TRIANGLE
 from ..media import (GRID, HOMOGENEOUS, LAYERED, HeterogeneousMedium,
                      HomogeneousMedium, LayeredMedium)
 from ..radar.endpoints import (ADCConfig, AREA, OMNI, PHASED, WIGNER,
@@ -188,6 +188,10 @@ MESH_STRIDE = 96        # leaf rows: 80 + reflectance + shape-row payloads
 MAX_MESH_TRIS = 8 * ((2 ** 31 - 1) // MESH_STRIDE)
 TILE = 1024             # lanes per stratification tile (8 x 128 on the TPU)
 PRIM_COLS = 34
+# the analytic kinds the kernel's prim rows hold, and those beyond the
+# rectangle (the prims twins)
+ANALYTIC = (RECTANGLE, SPHERE, DISK, CYLINDER)
+NON_RECT = (SPHERE, DISK, CYLINDER)
 TXP_COLS = 32
 
 TWO_PI = 6.283185307179586
@@ -269,6 +273,11 @@ class PackedScene:
         return bool((self.prim[:, 26] != 0).any())
 
     @property
+    def prims(self) -> bool:
+        """A sphere, disk or cylinder row (column 0): the prims twins."""
+        return bool(np.isin(self.prim[:, 0], NON_RECT).any())
+
+    @property
     def moving(self) -> bool:
         """Any shape, transmitter or receiver velocity (the JAX kernel's
         `moving` flag)."""
@@ -336,11 +345,13 @@ def lobe_flags(prim, msh=None) -> int:
 
 def _demoted_rects(sd) -> list:
     """Shape rows of the plain rectangles moved into the triangle BVH when
-    the analytic prim table would overflow MAX_PRIMS (two exact world-space
-    triangles each).  Transmitter shapes, bsdf-less blockers (the receiver
-    rectangle) and textured rectangles stay analytic."""
+    the analytic prims (rectangles, spheres, disks, cylinders) would
+    overflow MAX_PRIMS (two exact world-space triangles each), as the JAX
+    package counts them.  Transmitter shapes, bsdf-less blockers (the
+    receiver rectangle), textured rectangles and the other kinds stay
+    analytic."""
     kind_np = sd.shapes.kind.cpu().numpy()
-    if int((kind_np == RECTANGLE).sum()) <= MAX_PRIMS:
+    if int(np.isin(kind_np, ANALYTIC).sum()) <= MAX_PRIMS:
         return []
     bsdf_idx = sd.shapes.bsdf_idx.cpu().numpy()
     tex_idx = sd.bsdfs.texture_idx.cpu().numpy()
@@ -744,9 +755,15 @@ def supported(scene_data, rx, reason: list | None = None,
                   'transmitter\'s chirp: ambiguous), in the JAX package as '
                   'here')
     kinds = set(sd.shapes.kind.tolist())
-    if not kinds <= {-1, RECTANGLE, TRIANGLE}:
-        return no(f'shape kinds {sorted(kinds)}: rectangles and triangle '
-                  'meshes only (ROADMAP B1)')
+    if not kinds <= {-1, TRIANGLE, *ANALYTIC}:
+        return no(f'shape kinds {sorted(kinds)}: rectangles, spheres, '
+                  'disks, cylinders and triangle meshes only')
+    if sd.has_shading_maps:
+        return no('normal or bump maps: the kernel does not perturb the '
+                  "shading frame (the JAX package's kernel admits such "
+                  'scenes and drops the maps, ROADMAP C11); the wavefront '
+                  'runs it')
+    prims = bool(kinds & set(NON_RECT))
     demote = _demoted_rects(sd)
     n_prims = int(sd.shapes.kind.shape[0]) - len(demote)
     if n_prims > MAX_PRIMS:
@@ -872,31 +889,36 @@ def supported(scene_data, rx, reason: list | None = None,
     if adc.n_freq > 1 and not adc.freq_hi > adc.freq_lo:
         return no(f'n_freq {adc.n_freq} over an empty frequency window '
                   f'[{adc.freq_lo}, {adc.freq_hi}] (ROADMAP A5)')
-    if textured:
-        # the texture twins: the flagship and the coherent configurations
-        # of an analytic, static scene in vacuum with one Wigner
-        # transmitter and diffuse or conductor lobes
+    # the texture and prims twins: the flagship and the coherent
+    # configurations of an analytic, static scene in vacuum with one Wigner
+    # transmitter and diffuse or conductor lobes
+    for on, what, item in ((textured, 'textures', 'B7'),
+                           (prims, 'spheres, disks or cylinders',
+                            'B1 (rest)')):
+        if not on:
+            continue
         if mimo:
-            return no('textures in MIMO receive: the MIMO configuration '
-                      'has no texture twin (ROADMAP B7); the wavefront '
+            return no(f'{what} in MIMO receive: the MIMO configuration has '
+                      f'no twin for them (ROADMAP {item}); the wavefront '
                       'runs it')
         if sd.tris is not None or demote:
-            return no('textured rectangles in a mesh scene: the mesh '
-                      'configurations have no texture twin (ROADMAP B7); '
-                      'the wavefront runs it')
+            return no(f'{what} in a mesh scene: the mesh configurations '
+                      f'have no twin for them (ROADMAP {item}); the '
+                      'wavefront runs it')
         if lobes:
-            return no('textures with dielectric, plastic or composite '
-                      'lobes: the lobe twins have no texture twin (ROADMAP '
-                      'B7); the wavefront runs it')
+            return no(f'{what} with dielectric, plastic or composite '
+                      'lobes: the lobe twins have no twin for them '
+                      f'(ROADMAP {item}); the wavefront runs it')
         if endpoints:
-            return no('textures with these endpoints (several '
+            return no(f'{what} with these endpoints (several '
                       'transmitters, a phased or area transmitter, an '
                       'analog phased receiver): the endpoint twins have no '
-                      'texture twin (ROADMAP B7); the wavefront runs it')
-        if med is not None:
-            return no('textures through an ambient medium: the media twins '
-                      'have no texture twin (ROADMAP B7); the wavefront runs '
+                      f'twin for them (ROADMAP {item}); the wavefront runs '
                       'it')
+        if med is not None:
+            return no(f'{what} through an ambient medium: the media twins '
+                      f'have no twin for them (ROADMAP {item}); the '
+                      'wavefront runs it')
         # `needs_doppler` on the flags the pack would carry (an analytic
         # scene: its shapes' lobes and velocities), without packing it
         types = _lobe_types(sd)
@@ -906,11 +928,11 @@ def supported(scene_data, rx, reason: list | None = None,
             ggx=ROUGH_CONDUCTOR in types, mirror=CONDUCTOR in types,
             lobes=0, rx_rule=rx_rule(rt, has_lo))
         if needs_doppler(flags, adc):
-            return no('a textured scene that needs the Doppler '
+            return no(f'{what} in a scene that needs the Doppler '
                       'configuration (motion, a GGX or mirror lobe, an LO '
                       'receive type, n_freq > 1 or n_time > '
-                      f'{MAX_N_TIME_ROWS}): its power twin has no texture '
-                      'twin (ROADMAP B7); the wavefront runs it')
+                      f'{MAX_N_TIME_ROWS}): its power twin has no twin for '
+                      f'them (ROADMAP {item}); the wavefront runs it')
     return True
 
 
@@ -1277,7 +1299,18 @@ STAT_KEYS = ('lanes', 'strata', 'freq_draw', 'lo_freq', 'trace', 'hit',
              'pair_tests', 'pair_terms', 'plas_nee', 'rplas_nee',
              'rdiel_nee', 'blend_nee', 'blend_pick', 'diel_bounce',
              'plas_bounce', 'rplas_bounce', 'rdiel_bounce', 'pass_bounce',
-             'pair_sums', 'pair_visits', 'tex_hit')
+             'pair_sums', 'pair_visits', 'tex_hit', 'sphere_hit',
+             'disk_hit', 'cylinder_hit', 'sphere_occ', 'disk_occ',
+             'cylinder_occ')
+# the incidence cosine below which a hit counts as grazing
+# (`receive_megakernel_ref`'s `cond_out`), and the least cosine its error
+# model divides by
+GRAZE = 0.25
+COS_FLOOR = 0.01
+# the prims twins' counts: closest hits on each kind beyond the rectangle,
+# and the shadow tests of such blockers ('occ_tests' counts every one)
+HIT_KEY = {SPHERE: 'sphere_hit', DISK: 'disk_hit', CYLINDER: 'cylinder_hit'}
+OCC_KEY = {SPHERE: 'sphere_occ', DISK: 'disk_occ', CYLINDER: 'cylinder_occ'}
 
 # the endpoint kernels' footprint index (csrc epx_header / epx_build):
 # cells an axis
@@ -1566,7 +1599,7 @@ def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
                            amp_out=None, mirror: bool | None = None,
                            rxph=None, eoff=None, medium: int = 0, grid=None,
                            ill_out=None, php=None, lobes: int | None = None,
-                           tex=None, bmp_meta=None):
+                           tex=None, bmp_meta=None, cond_out=None):
     """Plain version of the kernel, in every configuration.  Returns (acc
     (n_time, n_freq) float32, n_events 0-d int64): the tent-splatted power
     and the count of nonzero contributions; with `coherent` acc is
@@ -1655,14 +1688,32 @@ def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
     (optical depths of segments and of connections); 'pair_tests' and
     'pair_terms' (phased pair terms evaluated, and of those inside their
     footprint), with 'phased_ray' also for an analog phased receiver's
-    rays; 'tex_hit' (closest hits on a textured rectangle).
+    rays; 'tex_hit' (closest hits on a textured rectangle); 'sphere_hit',
+    'disk_hit', 'cylinder_hit' (closest hits on those prims) and
+    'sphere_occ', 'disk_occ', 'cylinder_occ' (their shadow tests, among
+    'occ_tests').
 
     `tex` (R, Wp) float32 and `bmp_meta` (n_prims, 3) int32, the texel
     rows of `pack_scene`, feed the rectangles whose prim rows carry a
     texture (column 26: 1 a checkerboard, colours at 22 and 23; 2 a
     bitmap; its uv scale at 24 and 25): the hit rectangle's reflectance
     times the texture at its local uv = (p + 1) / 2, in the JAX kernel's
-    arithmetic (the texture twins)."""
+    arithmetic (the texture twins).
+
+    `cond_out`, a (n_time, n_freq) float64 tensor (with `coherent`),
+    receives the splat of amp x G of the connections whose phase is
+    ill-conditioned: those from a grazing hit (incidence cosine below
+    GRAZE) and all made after one, and those made after a bounce off a
+    sphere or cylinder.  G bounds, in units of the phase slack's path
+    error u (4 ulps of the longest path), how far two float32 evaluations
+    may move the connection's path, to first order: a hit reached along
+    a ray whose origin is g_prev u off and whose direction is th u / m
+    off lies (g_prev + th t + 1) u / cos off along the surface (cos its
+    incidence cosine, at least COS_FLOOR); a bounce off a sphere or
+    cylinder of curvature k turns the normal by k g u, and so the next
+    ray by 2 k g u more; each vertex moves the path by at most twice its
+    own error, so G = 2 sum_i g_i over the lane's vertices so far.  The
+    connection's phase then stays within (1 + G) x `phase_slack`."""
     rule = rx_rule(receive_type, has_lo)
     mimo = eoff is not None
     if mimo and (rx_kind != 'phased' or coherent or not doppler):
@@ -1728,9 +1779,12 @@ def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
                 counts['pair_visits'] += int(pairs[live].sum())
     lo_w = dict(wf=sp[33], prf=sp[35], text=sp[36], fc=sp[37], fext=sp[38],
                 fcpri=sp[39], dfc=sp[40], phi0=sp[41])
+    # the analytic prims in row order, each with its kind (the prims
+    # twins' spheres, disks and cylinders beside the rectangles)
     prim_ids = [p for p in range(prim.shape[0])
-                if int(prim[p, 0]) == RECTANGLE]
+                if int(prim[p, 0]) in ANALYTIC]
     prims = [prim[p] for p in prim_ids]
+    kinds = [int(prim[p, 0]) for p in prim_ids]
     # the texture twins' codes of the rectangles (1 checkerboard, 2 bitmap)
     tex_code = [int(prim[p, 26]) for p in prim_ids]
     if 2 in tex_code and (tex is None or bmp_meta is None):
@@ -1738,8 +1792,8 @@ def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
                          'their `bmp_meta`')
     # transmitter t's own rectangle (t in column 14) never occludes its
     # NEE; other geometry, the other transmitters' rectangles included, does
-    blockers = [[row for row in prims if float(row[14]) != float(t)]
-                for t in range(len(txs))]
+    blockers = [[(k, row) for k, row in zip(kinds, prims)
+                 if float(row[14]) != float(t)] for t in range(len(txs))]
     rows_m = msh if doppler and mesh is not None else None
     # the JAX kernel's static flags, read from the tables
     moving = doppler and bool(
@@ -2043,6 +2097,19 @@ def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
 
     lane_sum = torch.zeros(n_lanes, dtype=torch.float32, device=dev)
     amp_flat = None if amp_out is None else amp_out.view(-1)
+    cond_flat = None if cond_out is None else cond_out.view(-1)
+    if cond_out is not None and not coherent:
+        raise ValueError('cond_out: the coherent configuration only')
+    # the lanes whose connections' phases are ill-conditioned (`cond_out`):
+    # after a grazing hit or a bounce off a sphere or cylinder (`bent`),
+    # and at a grazing hit (`bent_now`, this vertex's connections); the
+    # current vertex's position error (g_pos u), the ray's direction error
+    # (g_dir u / m) and the sum of the vertices' position errors (g_sum u)
+    bent = torch.zeros(n_lanes, dtype=torch.bool, device=dev)
+    bent_now = bent
+    g_pos = torch.zeros(n_lanes, dtype=torch.float32, device=dev)
+    g_dir = torch.zeros_like(g_pos)
+    g_sum = torch.zeros_like(g_pos)
 
     def splat(w, val, yb, f_recv, t_recv, ok, ph=None):
         """Tent splat at time coordinate yb (and, on a 2-D grid, at the
@@ -2071,6 +2138,9 @@ def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
             lane_sum = lane_sum + torch.where(ok, amp, 0.0)
             if amp_out is not None:
                 chans.append(torch.where(ok, amp, 0.0))
+            if cond_out is not None:
+                chans.append(torch.where(ok & bent_now,
+                                         amp * (2.0 * g_sum), 0.0))
         else:
             chans = [val]
             lane_sum = lane_sum + val
@@ -2103,10 +2173,16 @@ def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
                     # power mode's amp_out counts |val| whole at each tap
                     if ch < n_ch or coherent:
                         v = v * w if not grid2d else v * w[0] * w[1]
-                    dst = acc[ch] if ch < n_ch else amp_flat
+                    dst = acc[ch] if ch < n_ch else \
+                        amp_flat if ch == n_ch else cond_flat
                     dst.index_add_(0, idx[keep], v[keep].double())
 
-    def rect_t(p_row, cx, cy, cz, ddx, ddy, ddz):
+    def prim_t(kind, p_row, cx, cy, cz, ddx, ddy, ddz, normal=False):
+        """The hit of the ray (c, dd) on one analytic prim, in the JAX
+        kernel's arithmetic (pallas_receive.py:697-798; the shadow test's
+        roots are the same): t, hit, the local (px, py) of a rectangle and
+        with `normal` its unit world normal (a rectangle's or disk's rows
+        8-10; M^T (px, py, 0) of a cylinder, M^T p of a sphere)."""
         q = [p_row[1 + i] for i in range(12)]
         oox = q[0] * cx + q[1] * cy + q[2] * cz + q[3]
         ooy = q[4] * cx + q[5] * cy + q[6] * cz + q[7]
@@ -2114,11 +2190,64 @@ def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
         odx = q[0] * ddx + q[1] * ddy + q[2] * ddz
         ody = q[4] * ddx + q[5] * ddy + q[6] * ddz
         odz = q[8] * ddx + q[9] * ddy + q[10] * ddz
-        big = odz.abs() > 1e-12
-        t_p = -ooz / torch.where(big, odz, 1e-12)
-        px = oox + t_p * odx
-        py = ooy + t_p * ody
-        return t_p, big & (px.abs() <= 1.0) & (py.abs() <= 1.0), q, px, py
+        px = py = n = None
+        if kind in (RECTANGLE, DISK):
+            big = odz.abs() > 1e-12
+            t_p = -ooz / torch.where(big, odz, 1e-12)
+            px = oox + t_p * odx
+            py = ooy + t_p * ody
+            hit_p = big & ((px * px + py * py <= 1.0) if kind == DISK
+                           else (px.abs() <= 1.0) & (py.abs() <= 1.0))
+            if normal:
+                rnorm = torch.rsqrt(torch.clamp(
+                    q[8] * q[8] + q[9] * q[9] + q[10] * q[10], min=1e-20))
+                n = (q[8] * rnorm, q[9] * rnorm, q[10] * rnorm)
+            return t_p, hit_p, px, py, n
+        if kind == CYLINDER:
+            a_s = odx * odx + ody * ody
+            b_s = 2.0 * (oox * odx + ooy * ody)
+            c_s = oox * oox + ooy * ooy - 1.0
+            disc = b_s * b_s - 4.0 * a_s * c_s
+            sq = torch.sqrt(torch.clamp(disc, min=0.0))
+            a_sf = torch.where(a_s.abs() > 1e-20, a_s, 1e-20)
+            t0 = (-b_s - sq) / (2.0 * a_sf)
+            t1 = (-b_s + sq) / (2.0 * a_sf)
+            z0 = ooz + t0 * odz
+            z1 = ooz + t1 * odz
+            v0 = (disc >= 0.0) & (z0 >= 0.0) & (z0 <= 1.0) & (t0 > 0.0)
+            v1 = (disc >= 0.0) & (z1 >= 0.0) & (z1 <= 1.0) & (t1 > 0.0)
+            t_p = torch.where(v0, t0, t1)
+            hit_p = v0 | v1
+            if normal:
+                cpx = oox + t_p * odx
+                cpy = ooy + t_p * ody
+                sn = (q[0] * cpx + q[4] * cpy, q[1] * cpx + q[5] * cpy,
+                      q[2] * cpx + q[6] * cpy)
+        else:
+            a_s = odx * odx + ody * ody + odz * odz
+            b_s = 2.0 * (oox * odx + ooy * ody + ooz * odz)
+            c_s = oox * oox + ooy * ooy + ooz * ooz - 1.0
+            disc = b_s * b_s - 4.0 * a_s * c_s
+            sq = torch.sqrt(torch.clamp(disc, min=0.0))
+            qq = -0.5 * (b_s + torch.where(b_s >= 0.0, 1.0, -1.0) * sq)
+            t0 = qq / torch.where(a_s.abs() > 1e-20, a_s, 1e-20)
+            t1 = c_s / torch.where(qq.abs() > 1e-20, qq, 3.4e38)
+            tn = torch.minimum(t0, t1)
+            tf = torch.maximum(t0, t1)
+            t_p = torch.where(tn > 0.0, tn, tf)
+            hit_p = (disc >= 0.0) & (t_p > 0.0)
+            if normal:
+                spx = oox + t_p * odx
+                spy = ooy + t_p * ody
+                spz = ooz + t_p * odz
+                sn = (q[0] * spx + q[4] * spy + q[8] * spz,
+                      q[1] * spx + q[5] * spy + q[9] * spz,
+                      q[2] * spx + q[6] * spy + q[10] * spz)
+        if normal:
+            nn = torch.rsqrt(torch.clamp(sn[0] * sn[0] + sn[1] * sn[1]
+                                         + sn[2] * sn[2], min=1e-20))
+            n = (sn[0] * nn, sn[1] * nn, sn[2] * nn)
+        return t_p, hit_p, px, py, n
 
     cx, cy, cz = ox, oy, oz
     ddx, ddy, ddz = dx, dy, dz
@@ -2157,15 +2286,27 @@ def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
             bpid = torch.full((n_lanes,), -1, dtype=torch.long, device=dev)
             bub = torch.zeros_like(tb)
             bvb = torch.zeros_like(tb)
-        for p_id, code, row in zip(prim_ids, tex_code, prims):
-            t_p, hit_p, q, px, py = rect_t(row, cx, cy, cz, ddx, ddy, ddz)
-            rnorm = torch.rsqrt(torch.clamp(
-                q[8] * q[8] + q[9] * q[9] + q[10] * q[10], min=1e-20))
+        if stats is not None or cond_out is not None:
+            kind_w = torch.full((n_lanes,), -1, dtype=torch.int8,
+                                device=dev)
+            kap_w = torch.zeros_like(tb)
+        for p_id, kind, code, row in zip(prim_ids, kinds, tex_code, prims):
+            t_p, hit_p, px, py, n_p = prim_t(kind, row, cx, cy, cz, ddx,
+                                             ddy, ddz, normal=True)
             closer = hit_p & (t_p > 1e-4) & (t_p < tb)
             tb = torch.where(closer, t_p, tb)
-            nx = torch.where(closer, q[8] * rnorm, nx)
-            ny = torch.where(closer, q[9] * rnorm, ny)
-            nz = torch.where(closer, q[10] * rnorm, nz)
+            nx = torch.where(closer, n_p[0], nx)
+            ny = torch.where(closer, n_p[1], ny)
+            nz = torch.where(closer, n_p[2], nz)
+            if stats is not None or cond_out is not None:
+                kind_w = torch.where(closer, kind, kind_w)
+                if kind in (SPHERE, CYLINDER):
+                    # the curvature: the larger of the object rows' x and
+                    # y scales (a sphere's or cylinder's 1 / radius)
+                    kap = torch.maximum(
+                        torch.sqrt(row[1] ** 2 + row[2] ** 2 + row[3] ** 2),
+                        torch.sqrt(row[5] ** 2 + row[6] ** 2 + row[7] ** 2))
+                    kap_w = torch.where(closer, kap, kap_w)
             rb_p = row[13]
             if code:
                 # the texture at the rectangle's uv = (p_local + 1) / 2,
@@ -2216,6 +2357,9 @@ def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
             m_closer = w.t < tb[walk]
             count('mesh_hits', m_closer)
             sel = walk[m_closer]
+            if stats is not None or cond_out is not None:
+                kind_w[sel] = -1
+                kap_w[sel] = 0.0
             tex_w[sel] = False
             if 2 in tex_code:
                 bpid[sel] = -1
@@ -2262,6 +2406,19 @@ def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
         active = active & hit
         count('hit', active)
         count('tex_hit', active & tex_w)
+        if stats is not None:
+            for kind, key in HIT_KEY.items():
+                count(key, active & (kind_w == kind))
+        if cond_out is not None:
+            curved = (kind_w == SPHERE) | (kind_w == CYLINDER)
+            cos_i = (ddx * nx + ddy * ny + ddz * nz).abs()
+            bent_now = bent | (active & (cos_i < GRAZE))
+            bent = bent_now | (active & curved)
+            g_pos = torch.where(active, (g_pos + g_dir * tb + 1.0)
+                                / torch.clamp(cos_i, min=COS_FLOOR), g_pos)
+            g_sum = g_sum + torch.where(active, g_pos, 0.0)
+            g_dir = g_dir + torch.where(active & curved,
+                                        2.0 * kap_w * g_pos, 0.0)
         tb = torch.where(hit, tb, 1.0)   # misses: keep dead lanes finite
         plen = plen + torch.where(active, tb, 0.0)
         if tau is not None:
@@ -2397,9 +2554,12 @@ def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
             sx, sy, sz = hx + off * nx, hy + off * ny, hz + off * nz
             occ = torch.zeros_like(active)
             limit = dist * 0.999
-            for row in blockers[t]:
+            for kind, row in blockers[t]:
                 count('occ_tests', shade & ~occ)
-                t_p, hit_p, *_ = rect_t(row, sx, sy, sz, wx_, wy_, wz_)
+                if kind != RECTANGLE:
+                    count(OCC_KEY[kind], shade & ~occ)
+                t_p, hit_p, *_ = prim_t(kind, row, sx, sy, sz, wx_, wy_,
+                                        wz_)
                 occ = occ | (hit_p & (t_p > 1e-4) & (t_p < limit))
             if mesh is not None:
                 # mesh any hit for the lanes the rectangles left unblocked
@@ -2694,12 +2854,12 @@ def _bind(lib):
                               ctypes.c_longlong, ctypes.c_ulonglong,
                               ctypes.c_float)
     ip = ctypes.POINTER(ctypes.c_int)
-    lib.rk_geometry.argtypes = [i32] * 2 + [i64] + [i32] * 15 + [ip] * 3
+    lib.rk_geometry.argtypes = [i32] * 2 + [i64] + [i32] * 16 + [ip] * 3
     lib.rk_geometry.restype = i32
     lib.rk_launch.argtypes = [vp] * 12 + [i32, i32, vp, i64, u64] \
         + [i32] * 13 + [f32] * 6 + [i32, u64] + [i64] * 4 + [i32] * 3 \
         + [vp, vp, i32] + [i32, vp, i32, i32, i32] + [i32, i32, vp, i32] \
-        + [i32, i32] + [i32] + [vp, i32] + [vp]
+        + [i32, i32] + [i32] + [vp, i32, i32] + [vp]
     lib.rk_launch.restype = i32
     lib.rk_last_kernel.argtypes = []
     lib.rk_last_kernel.restype = vp
@@ -2717,6 +2877,8 @@ def _bind(lib):
     lib.rk_mesh_kernel.restype = vp
     lib.rk_tex_kernel.argtypes = [i32]
     lib.rk_tex_kernel.restype = vp
+    lib.rk_prim_kernel.argtypes = [i32, i32]
+    lib.rk_prim_kernel.restype = vp
 
 
 LIBRARY = _nvcc.Library('receive_megakernel', 'rk', _bind)
@@ -2793,6 +2955,18 @@ def launched_tex_kernel(coherent: bool) -> bool:
     return lib.rk_last_kernel() == lib.rk_tex_kernel(int(coherent))
 
 
+def launched_prim_kernel(coherent: bool, textured: bool = False) -> bool:
+    """Whether the last launch on a card ran a prims twin (spheres, disks
+    and cylinders beside the rectangles): the flagship kernel's
+    (receive_flagship_kernel<false, true>, power) or the coherent
+    kernel's (receive_coherent_kernel<false, true>, I / Q), or with
+    `textured` the one that also carries the texture twins' codes
+    (<true, true>, a textured scene's).  The library's launch record."""
+    lib = LIBRARY.get()
+    return lib.rk_last_kernel() == lib.rk_prim_kernel(int(coherent),
+                                                       int(textured))
+
+
 def grid_mode(n_cells: int, doppler: bool, coherent: bool = False,
               n_elem: int = 0) -> int:
     """How the kernel accumulates an ADC grid of `n_cells`: 0 private
@@ -2826,7 +3000,7 @@ def launch_geometry(n_time: int, n_lanes: int, n_prims: int,
                     n_pulses: int = 1, n_elem: int = 0, medium: int = 0,
                     ep: bool = False, lobes: bool = False, n_tx: int = 1,
                     n_pairs: int = 0, n_rx_pairs: int = 0,
-                    tex: bool = False):
+                    tex: bool = False, prims: bool = False):
     """(blocks a pulse, threads per block, dynamic shared bytes) of the
     trace kernel (its mesh, Doppler and / or coherent configuration, or
     the MIMO one of `n_elem` elements; its media twin with `medium`, its
@@ -2839,7 +3013,9 @@ def launch_geometry(n_time: int, n_lanes: int, n_prims: int,
     call).  The endpoint twin's analytic kernels size their footprint
     index by `n_tx`, the pairs a phased transmitter's row `n_pairs` and an
     analog phased receiver's `n_rx_pairs`.  `tex` asks for the texture twin
-    of the flagship or the coherent configuration."""
+    of the flagship or the coherent configuration, `prims` for its prims
+    twin (spheres, disks and cylinders; with `tex`, the twin that also
+    carries the texture codes)."""
     lib = LIBRARY.get()
     mode = grid_mode(n_time * n_freq, doppler, coherent, n_elem)
     blocks, threads, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
@@ -2847,7 +3023,8 @@ def launch_geometry(n_time: int, n_lanes: int, n_prims: int,
                                   n_msh, int(mesh), mode, int(coherent),
                                   n_pulses, n_elem, int(medium > 0), int(ep),
                                   int(bool(lobes)), n_tx, n_pairs,
-                                  n_rx_pairs, int(tex), ctypes.byref(blocks),
+                                  n_rx_pairs, int(tex), int(prims),
+                                  ctypes.byref(blocks),
                                   ctypes.byref(threads), ctypes.byref(smem)),
                   'receive_megakernel geometry')
     return blocks.value, threads.value, smem.value
@@ -2913,7 +3090,7 @@ def _check_call(params, prim, txp, uniforms, mesh, msh, lane_out, lead, *,
                 adc, max_depth, time_sampling, rx_kind, n_lanes, doppler,
                 patch_p, receive_type, has_lo, coherent, rxph=None,
                 eoff=None, medium=0, grid=None, php=None, lobes=0, tex=None,
-                bmp_meta=None, textured=None):
+                bmp_meta=None, textured=None, prims=None):
     """Validate a call's arguments; `lead` is () for one pulse, (P,) for a
     CPI of P pulses (every table, the uniforms and the lane sums then have
     that leading axis, the BVH tables (P, n) rows).  `eoff` (with `rxph`)
@@ -2923,13 +3100,16 @@ def _check_call(params, prim, txp, uniforms, mesh, msh, lane_out, lead, *,
     Returns (the receive-frequency rule, the transmitters' kinds (read
     from txp, `_table_tx_kinds`), whether the call needs the endpoint
     configuration, whether its prim rows carry textures: `textured`, or
-    where it is None, `_textured`).
+    where it is None, `_textured`, and whether they hold a sphere, disk or
+    cylinder: `prims`, or where it is None, `_has_prims`).
     `lobes`, the call's lobe twins' flags (`_lobe_flag`), set the
     uniforms' stride.  Textured tables take their texel rows `tex` (R, Wp)
     float32 and `bmp_meta` (n_prims, 3) int32 (`pack_scene`), and run in
     the texture twins only: one pulse of the flagship or the coherent
     configuration on an analytic scene in vacuum, with one Wigner
-    transmitter and no lobe twin."""
+    transmitter and no lobe twin.  Spheres, disks and cylinders run in the
+    prims twins of those two configurations only, a CPI's pulses too
+    where they carry no texture."""
     dev = params.device
     n_tx = int(txp.shape[-2]) if txp.dim() >= 2 else 0
     if not 1 <= n_tx <= MAX_TX:
@@ -3073,7 +3253,14 @@ def _check_call(params, prim, txp, uniforms, mesh, msh, lane_out, lead, *,
             raise ValueError(f'textured tables need their texel rows tex '
                              f'(contiguous float32 (R, Wp)) and bmp_meta '
                              f'(int32 ({n_prims}, 3)) on {dev}')
-    return rule, tx_kinds, ep, textured
+    prims = _has_prims(prim) if prims is None else bool(prims)
+    if prims and (mesh is not None or eoff is not None or medium or ep
+                  or lobes or (doppler and not coherent)):
+        raise ValueError('spheres, disks and cylinders run in the flagship '
+                         'and the coherent configurations alone: an '
+                         'analytic scene in vacuum, one Wigner transmitter, '
+                         'no lobe twin (ROADMAP B1 (rest))')
+    return rule, tx_kinds, ep, textured, prims
 
 
 def _textured(prim) -> bool:
@@ -3081,6 +3268,14 @@ def _textured(prim) -> bool:
     26)?  Read back once a tensor (a stall on a card), then kept."""
     return _read_back('textured', (prim,),
                       lambda t: bool((t[..., 26] != 0).any()))
+
+
+def _has_prims(prim) -> bool:
+    """Do the prim rows hold a sphere, disk or cylinder (column 0)?  Read
+    back once a tensor (a stall on a card), then kept."""
+    return _read_back('prims', (prim,), lambda t: bool(
+        torch.isin(t[..., 0], torch.tensor(NON_RECT, dtype=t.dtype,
+                                           device=t.device)).any()))
 
 
 def _tex_buffer(tex, bmp_meta):
@@ -3126,7 +3321,7 @@ def _launch(params, prim, txp, msh, uniforms, mesh, lane_out, *, n_pulses,
             adc, max_depth, time_sampling, rx_kind, n_lanes, seed, seed_step,
             doppler, patch_p, rule, has_lo, coherent, mirror, rxph=None,
             eoff=None, medium=0, grid=None, ep=False, php=None, lobes=0,
-            tex=None, bmp_meta=None):
+            tex=None, bmp_meta=None, prims=False):
     """The CUDA kernel and its reduce over `n_pulses` pulses of stacked
     tables on a card: (acc (n_pulses, n_cells x n_ch) float32, n_events
     (n_pulses,) int64).  `eoff` launches the MIMO configuration, `medium`
@@ -3134,7 +3329,8 @@ def _launch(params, prim, txp, msh, uniforms, mesh, lane_out, *, n_pulses,
     `php` of its phased transmitters, the pair row `rxph` of an analog
     phased receiver), `lobes` (LOBE_* flags) a Doppler configuration's
     lobe twin, `tex` (with `bmp_meta`) the flagship's or the coherent
-    configuration's texture twin."""
+    configuration's texture twin, `prims` their prims twin (with `tex`,
+    the one that also reads the texture codes)."""
     dev = params.device
     lib = LIBRARY.get()
     n_elem = 0 if eoff is None else int(eoff.shape[0])
@@ -3153,7 +3349,7 @@ def _launch(params, prim, txp, msh, uniforms, mesh, lane_out, *, n_pulses,
             adc.n_time, n_lanes, n_prims, int(params.shape[-1]),
             mesh is not None, adc.n_freq, n_msh, doppler, coherent, n_pulses,
             n_elem, medium, ep, lobes, n_tx, n_pairs, n_rx_pairs,
-            tex is not None)
+            tex is not None, prims)
         tex_buf = None if tex is None else _tex_buffer(tex, bmp_meta)
         # per-block partial grids of each pulse (I and Q interleaved per
         # cell when coherent); one global grid of atomics a pulse in mode 2
@@ -3195,7 +3391,7 @@ def _launch(params, prim, txp, msh, uniforms, mesh, lane_out, *, n_pulses,
             None if php is None else php.data_ptr(),
             0 if php is None else int(php.shape[1]), int(analog),
             n_rx_pairs, lobes, None if tex is None else tex_buf.data_ptr(),
-            0 if tex is None else int(tex.shape[1]), stream)
+            0 if tex is None else int(tex.shape[1]), int(prims), stream)
         LIBRARY.check(err, 'receive_megakernel launch')
     return acc, n_events
 
@@ -3210,7 +3406,8 @@ def receive_megakernel(params, prim, txp, *, adc: ADCConfig, max_depth: int,
                        mirror: bool | None = None, rxph=None, eoff=None,
                        medium: int = 0, grid=None, php=None,
                        lobes: int | None = None, tex=None, bmp_meta=None,
-                       textured: bool | None = None):
+                       textured: bool | None = None,
+                       prims: bool | None = None):
     """Trace `n_lanes` receive samples.  Returns (acc (n_time, n_freq)
     float32, (n_time, n_freq, 2) I / Q with `coherent`, or (n_time, 1, 2E)
     with `eoff`, n_events 0-d int64) on the tables' device.
@@ -3256,18 +3453,24 @@ def receive_megakernel(params, prim, txp, *, adc: ADCConfig, max_depth: int,
     `pack_scene` and launch the flagship's or the coherent configuration's
     texture twin (no other configuration has one); `textured` says whether
     they do (`PackedScene.textured`), and None reads column 26 back from
-    the tables, a stall on a card the first time a tensor is seen.  Tables
+    the tables, a stall on a card the first time a tensor is seen.
+    Spheres, disks and cylinders (column 0) launch the flagship's or the
+    coherent configuration's prims twin, the one that also carries the
+    texture codes where the rows hold textures; `prims` says whether the
+    rows hold one (`PackedScene.prims`),
+    None reads column 0 back as `textured` does.  Tables
     on the CPU run the plain version (`receive_megakernel_ref`, fed
     `philox_uniforms` in PRNG mode); tables on a card launch the CUDA
     kernel, which raises if it cannot build or launch."""
     lobes = _lobe_flag(lobes, prim, msh, doppler)
-    rule, tx_kinds, ep, textured = _check_call(
+    rule, tx_kinds, ep, textured, prims = _check_call(
         params, prim, txp, uniforms, mesh, msh, lane_out, (), adc=adc,
         max_depth=max_depth, time_sampling=time_sampling, rx_kind=rx_kind,
         n_lanes=n_lanes, doppler=doppler, patch_p=patch_p,
         receive_type=receive_type, has_lo=has_lo, coherent=coherent,
         rxph=rxph, eoff=eoff, medium=medium, grid=grid, php=php,
-        lobes=lobes, tex=tex, bmp_meta=bmp_meta, textured=textured)
+        lobes=lobes, tex=tex, bmp_meta=bmp_meta, textured=textured,
+        prims=prims)
     if not textured:
         tex = bmp_meta = None
     n_tx = len(tx_kinds)
@@ -3293,11 +3496,11 @@ def receive_megakernel(params, prim, txp, *, adc: ADCConfig, max_depth: int,
         doppler=doppler, patch_p=patch_p, rule=rule, has_lo=has_lo,
         coherent=coherent, mirror=_mirror_flag(mirror, prim, msh, doppler),
         rxph=rxph, eoff=eoff, medium=medium, grid=grid, ep=ep, php=php,
-        lobes=lobes, tex=tex, bmp_meta=bmp_meta)
+        lobes=lobes, tex=tex, bmp_meta=bmp_meta, prims=prims)
     receive_megakernel.launches += 1
     receive_megakernel.by_config[config_name(
         mesh is not None, doppler, coherent, eoff is not None,
-        medium > 0, ep, lobes > 0, textured)] += 1
+        medium > 0, ep, lobes > 0, textured, prims)] += 1
     if eoff is not None:
         shape = (adc.n_time, adc.n_freq, 2 * int(eoff.shape[0]))
     else:
@@ -3322,7 +3525,8 @@ def receive_megakernel_cpi(params, prim, txp, *, adc: ADCConfig,
                            has_lo: bool = False, coherent: bool = False,
                            mirror: bool | None = None, medium: int = 0,
                            grid=None, rxph=None, php=None,
-                           lobes: int | None = None):
+                           lobes: int | None = None,
+                           prims: bool | None = None):
     """A coherent processing interval (CPI) of P pulses in one launch: the
     pulse is a grid axis of the kernel.  The tables carry a leading pulse
     axis (params (P, 77), prim (P, n_prims, 34), txp (P, n_tx, 32), msh (P,
@@ -3335,18 +3539,21 @@ def receive_megakernel_cpi(params, prim, txp, *, adc: ADCConfig,
     scene-wide row, the same in every pulse's params, and every pulse
     reads the one (D, H, W) `grid` of a GRID medium; so do the pair rows
     `php` of phased transmitters and `rxph` of an analog phased receiver
-    (they follow from the specs, the same in every pulse).  On the CPU
+    (they follow from the specs, the same in every pulse).  Spheres,
+    disks and cylinders (`prims`, as in `receive_megakernel`) launch the
+    prims twin of the flagship or the coherent configuration.  On the CPU
     the plain version runs pulse by pulse."""
     n_pulses = int(params.shape[0]) if params.dim() == 2 else 0
     if n_pulses < 1:
         raise ValueError('params: expected (n_pulses, 77)')
     lobes = _lobe_flag(lobes, prim, msh, doppler)
-    rule, tx_kinds, ep, _ = _check_call(
+    rule, tx_kinds, ep, _, prims = _check_call(
         params, prim, txp, uniforms, mesh, msh, lane_out, (n_pulses,),
         adc=adc, max_depth=max_depth, time_sampling=time_sampling,
         rx_kind=rx_kind, n_lanes=n_lanes, doppler=doppler, patch_p=patch_p,
         receive_type=receive_type, has_lo=has_lo, coherent=coherent,
-        medium=medium, grid=grid, rxph=rxph, php=php, lobes=lobes)
+        medium=medium, grid=grid, rxph=rxph, php=php, lobes=lobes,
+        prims=prims)
     n_tx = len(tx_kinds)
     nd = n_draws(max_depth, n_tx, **lobe_draws(lobes))
     shape = (n_pulses, adc.n_time, adc.n_freq) + ((2,) if coherent else ())
@@ -3374,11 +3581,12 @@ def receive_megakernel_cpi(params, prim, txp, *, adc: ADCConfig,
         rx_kind=rx_kind, n_lanes=n_lanes, seed=seed, seed_step=seed_step,
         doppler=doppler, patch_p=patch_p, rule=rule, has_lo=has_lo,
         coherent=coherent, mirror=_mirror_flag(mirror, prim, msh, doppler),
-        medium=medium, grid=grid, rxph=rxph, ep=ep, php=php, lobes=lobes)
+        medium=medium, grid=grid, rxph=rxph, ep=ep, php=php, lobes=lobes,
+        prims=prims)
     receive_megakernel_cpi.launches += 1
     receive_megakernel_cpi.by_config[config_name(
         mesh is not None, doppler, coherent, medium=medium > 0, ep=ep,
-        lobes=lobes > 0)] += 1
+        lobes=lobes > 0, prims=prims)] += 1
     return acc.view(shape), n_events
 
 
@@ -3391,21 +3599,26 @@ VACUUM_CONFIGS = ('flagship', 'mesh', 'doppler', 'doppler_mesh', 'coherent',
 LOBE_CONFIGS = ('doppler', 'doppler_mesh', 'coherent', 'coherent_mesh')
 # the flagship and the analytic coherent configurations have a texture twin
 # (TEX: checkerboard and bitmap rectangles), in vacuum
+# and a prims twin (spheres, disks and cylinders), and a textured scene's
+# prims twin, which also carries the texture codes (_tex_prims)
 TEX_CONFIGS = ('flagship', 'coherent')
 CONFIGS = VACUUM_CONFIGS + tuple(c + '_media' for c in VACUUM_CONFIGS) \
     + tuple(c + '_ep' for c in VACUUM_CONFIGS) \
     + tuple(c + '_lobes' for c in LOBE_CONFIGS) \
-    + tuple(c + '_tex' for c in TEX_CONFIGS)
+    + tuple(c + '_tex' for c in TEX_CONFIGS) \
+    + tuple(c + '_prims' for c in TEX_CONFIGS) \
+    + tuple(c + '_tex_prims' for c in TEX_CONFIGS)
 
 
 def config_name(mesh: bool, doppler: bool, coherent: bool = False,
                 mimo: bool = False, medium: bool = False,
                 ep: bool = False, lobes: bool = False,
-                tex: bool = False) -> str:
+                tex: bool = False, prims: bool = False) -> str:
     name = 'mimo' if mimo else VACUUM_CONFIGS[
         int(mesh) + (4 if coherent else 2 * int(doppler))]
     return name + ('_media' if medium else '') + ('_ep' if ep else '') \
-        + ('_lobes' if lobes else '') + ('_tex' if tex else '')
+        + ('_lobes' if lobes else '') + ('_tex' if tex else '') \
+        + ('_prims' if prims else '')
 
 
 # launches of the CUDA kernel, in all and by configuration: one receive
@@ -3438,8 +3651,11 @@ class DeviceTables:
     medium: int = 0               # the ambient medium's kind (0: vacuum)
     grid: torch.Tensor | None = None   # a grid medium's (D, H, W) cells
     lobes: int = 0                # the lobe twins' flags (LOBE_*)
-    tex: torch.Tensor | None = None       # texel rows (textured scenes)
+    tex: torch.Tensor | None = None       # texel rows (textured scenes
+    #                                       and the prims twins' scenes)
     bmp_meta: torch.Tensor | None = None  # their bitmap rectangles' rows
+    textured: bool = False        # a checkerboard or bitmap rectangle
+    prims: bool = False           # a sphere, disk or cylinder
 
 
 def in_scope(scene, scene_data, rx, dev, reason: list,
@@ -3503,7 +3719,8 @@ def _device_tables(scene, scene_data, rx, dev,
         tex=torch.as_tensor(packed.tex, device=dev).contiguous()
         if packed.textured else None,
         bmp_meta=torch.as_tensor(packed.bmp_meta, device=dev)
-        if packed.textured else None)
+        if packed.textured else None,
+        textured=packed.textured, prims=packed.prims)
     cache[key] = (scene_data, rx, tables)
     return tables
 
@@ -3571,7 +3788,7 @@ def receive_kernel(scene, scene_data, rx, spp: int, seed: int = 0,
             seed=seed, doppler=True, receive_type=rx.receive_type,
             has_lo=rx.lo_waveform is not None, mirror=tab.mirror,
             rxph=tab.rxph, eoff=eoff, medium=tab.medium, grid=tab.grid,
-            php=tab.php, lobes=tab.lobes, textured=False)
+            php=tab.php, lobes=tab.lobes, textured=False, prims=False)
         return acc, spp
     rx_kind = rx_kind_of(rx)
     n_lanes, patch_p, params = spp, 0, tab.params
@@ -3591,7 +3808,7 @@ def receive_kernel(scene, scene_data, rx, spp: int, seed: int = 0,
         mirror=tab.mirror, medium=tab.medium, grid=tab.grid,
         rxph=tab.rxph if rx_kind == 'phased' else None, php=tab.php,
         lobes=tab.lobes if doppler else 0, tex=tab.tex,
-        bmp_meta=tab.bmp_meta, textured=tab.tex is not None)
+        bmp_meta=tab.bmp_meta, textured=tab.textured, prims=tab.prims)
     return acc, n_lanes
 
 

@@ -52,9 +52,10 @@ def _medium(leaves: dict, dev):
 
 def scene_data_from_numpy(leaves: dict, band: Band, device=None) -> SceneData:
     """Build the port's `SceneData` from JAX `SceneData` leaves, a
-    mesh-attribute texture's per-face values among them; normal and bump
-    maps raise `NotImplementedError`, and the optical emitter table, which
-    the receive path never reads, is skipped.  The ambient medium's kind
+    mesh-attribute texture's per-face values among them; the optical
+    emitter table, which the receive path never reads, is skipped.  The
+    shading-map flag is static metadata in the JAX pytree: it is set where
+    a normal or bump map column names a texture.  The ambient medium's kind
     follows from its leaves: `sigma_t` homogeneous, `sigma` / `z_min` /
     `z_max` layered, `sigma_grid` / `box_min` / `box_max` the 3-D grid."""
     dev = resolve_device(device)
@@ -68,10 +69,6 @@ def scene_data_from_numpy(leaves: dict, band: Band, device=None) -> SceneData:
                                       device=dev)
         return cls(**kw, **extra)
 
-    for key in ('.bsdfs.normalmap_idx', '.bsdfs.bumpmap_idx'):
-        if key in leaves and bool((np.asarray(leaves[key]) >= 0).any()):
-            raise NotImplementedError(f'{key}: normal and bump maps '
-                                      '(ROADMAP B7)')
     bsdf_types = np.asarray(leaves['.bsdfs.type'])
     grid = leaves.get('.bsdfs.measured_grid')
     bsdfs = table(BSDFTable, '.bsdfs',
@@ -100,7 +97,10 @@ def scene_data_from_numpy(leaves: dict, band: Band, device=None) -> SceneData:
     return SceneData(band=band, shapes=table(ShapeTable, '.shapes'),
                      bsdfs=bsdfs, textures=textures,
                      transmitters=tx, receivers=rx, tris=tris, bvh=bvh,
-                     medium=_medium(leaves, dev))
+                     medium=_medium(leaves, dev),
+                     has_shading_maps=bool(
+                         (bsdfs.normalmap_idx >= 0).any()
+                         or (bsdfs.bumpmap_idx >= 0).any()))
 
 
 def cpi_tables_from_numpy(pulse_leaves: list, band: Band, rx,

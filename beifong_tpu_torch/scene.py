@@ -29,10 +29,12 @@ from .core.transform import AnimatedTransform
 from .geometry import bvh as bvh_mod
 from .geometry.intersect import TriData, closest_hit, any_hit
 from .geometry.mesh import MeshSpec
-from .geometry.shapes import ShapeSpec, ShapeTable
+from .geometry.shapes import InstanceSpec, ShapeGroup, ShapeSpec, ShapeTable
 from .media import HeterogeneousMedium, HomogeneousMedium, LayeredMedium
+from .core import transform as tfm
+from .core.math import normalize
 from .radar.endpoints import ReceiverTable, TransmitterTable
-from .textures import TextureSpec, TextureTable
+from .textures import TextureSpec, TextureTable, texture_eval
 
 
 Medium = Union[HomogeneousMedium, LayeredMedium, HeterogeneousMedium]
@@ -52,12 +54,50 @@ class SceneData:
     emitters: None = None    # optical emitters: ROADMAP A12
     medium: Optional[Medium] = None   # ambient medium; None: vacuum
     bvh: Optional[bvh_mod.BVH] = None   # the wavefront's BVH over `tris`
+    has_shading_maps: bool = False   # a BSDF with a normal or bump map
 
     # --- queries (the reference's Scene::ray_intersect / ray_test) ---
 
     def ray_intersect(self, o, d):
-        return closest_hit(self.shapes, self.tris, o.contiguous(),
-                           d.contiguous(), bvh=self.bvh)
+        si = closest_hit(self.shapes, self.tris, o.contiguous(),
+                         d.contiguous(), bvh=self.bvh)
+        if self.has_shading_maps:
+            si = self._apply_shading_maps(si)
+        return si
+
+    def _apply_shading_maps(self, si):
+        """The hits' shading frames perturbed by their BSDFs' normal or
+        bump maps (the reference's `normalmap` / `bumpmap`), the tangent
+        basis the frame's s and t rows, in the JAX package's arithmetic: a
+        normal map's rgb in [0, 1] is the tangent normal 2 rgb - 1; a bump
+        map tilts the normal by forward differences (1e-3 in uv) of its
+        channel 0 times its scale (the BSDF's alpha).  The frame is rebuilt
+        about the new normal and `wi` taken in it."""
+        i = torch.clamp(self.bsdf_of(si.shape_idx), min=0).long()
+        nm = self.bsdfs.normalmap_idx[i]
+        bm = self.bsdfs.bumpmap_idx[i]
+        frame = si.sh_frame
+        rgb = texture_eval(self.textures, nm, si.uv)
+        n_nm = tfm.to_world(frame, normalize(2.0 * rgb - 1.0))
+        eps = 1e-3
+        h0 = texture_eval(self.textures, bm, si.uv)[..., 0]
+        hx = texture_eval(self.textures, bm, si.uv + torch.tensor(
+            [eps, 0.0], device=si.uv.device))[..., 0]
+        hy = texture_eval(self.textures, bm, si.uv + torch.tensor(
+            [0.0, eps], device=si.uv.device))[..., 0]
+        scale = self.bsdfs.alpha[i]
+        dhdu = (hx - h0) / eps * scale
+        dhdv = (hy - h0) / eps * scale
+        n_bm = tfm.to_world(frame, normalize(torch.stack(
+            [-dhdu, -dhdv, torch.ones_like(dhdu)], -1)))
+        n_new = torch.where((nm >= 0)[:, None], n_nm,
+                            torch.where((bm >= 0)[:, None], n_bm,
+                                        frame[:, 2]))
+        new_frame = tfm.frame_from_normal(normalize(n_new))
+        use = (nm >= 0) | (bm >= 0)
+        frame = torch.where(use[:, None, None], new_frame, frame)
+        return dataclasses.replace(si, sh_frame=frame,
+                                   wi=tfm.to_local(frame, si.wi_world))
 
     def ray_test(self, o, d, maxt):
         return any_hit(self.shapes, self.tris, o.contiguous(),
@@ -89,10 +129,22 @@ class Scene:
     receivers: list = dataclasses.field(default_factory=list)
     medium: Optional[Medium] = None   # ambient absorption of every path
     textures: list = dataclasses.field(default_factory=list)
+    groups: dict = dataclasses.field(default_factory=dict)
 
     def add(self, *objs) -> "Scene":
+        """Add specs; a ShapeGroup is kept by its id, and an InstanceSpec
+        adds a copy of each of its group's shapes with to_world = the
+        instance's to_world @ the member's, in float32."""
         for o in objs:
-            if isinstance(o, ShapeSpec):
+            if isinstance(o, ShapeGroup):
+                self.groups[o.id] = o
+            elif isinstance(o, InstanceSpec):
+                for member in self.groups[o.group].shapes:
+                    m = copy.copy(member)
+                    m.to_world = np.asarray(o.to_world, np.float32) \
+                        @ member.to_world
+                    self.shapes.append(m)
+            elif isinstance(o, ShapeSpec):
                 self.shapes.append(o)
             elif isinstance(o, BSDFSpec):
                 self.bsdfs.append(o)
@@ -148,7 +200,8 @@ class Scene:
             return c, vel
 
         out = Scene(band=self.band, bsdfs=list(self.bsdfs),
-                    medium=self.medium, textures=list(self.textures))
+                    medium=self.medium, textures=list(self.textures),
+                    groups=dict(self.groups))
         endpoint_vel = {}   # endpoint id -> the carrying shape's velocity
         for s in self.shapes:
             c, vel = snap(s)
@@ -223,4 +276,7 @@ class Scene:
                          transmitters=tx_table, receivers=rx_table,
                          tris=tris, bvh=bvh,
                          medium=None if self.medium is None
-                         else self.medium.to(dev))
+                         else self.medium.to(dev),
+                         has_shading_maps=any(
+                             b.normalmap is not None or b.bumpmap is not None
+                             for b in self.bsdfs))

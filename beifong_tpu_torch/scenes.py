@@ -85,17 +85,34 @@ from .textures import bitmap, checkerboard
 GROUND_BITMAP_SEED = 0      # flagship_scene(ground_texture='bitmap')'s image
 
 
+TARGETS = ('plate', 'sphere', 'disk', 'cylinder')
+
+
+def target_range(target: str = 'plate', R: float = 4.0) -> float:
+    """The distance from the apertures' line to the near surface of
+    `flagship_scene`'s target."""
+    return R - 0.3 if target == 'cylinder' else R
+
+
 def flagship_scene(R: float = 4.0, ground: bool = True,
-                   rx_kind: str = 'wigner', ground_texture: str | None = None):
+                   rx_kind: str = 'wigner', ground_texture: str | None = None,
+                   target: str = 'plate'):
     """Returns (scene, receiver spec).  `ground_texture` None leaves the
     scene as it is; 'checkerboard' or 'bitmap' gives the ground a diffuse
     BSDF of its own ('gnd', the target keeps 'mat') textured with 0.8 /
     0.3 checks of 1 m (scale_uv 40 on the 40 m plane) or with a 128 x 128
     map uniform in [0.2, 1.0] from
-    numpy.random.default_rng(GROUND_BITMAP_SEED)."""
+    numpy.random.default_rng(GROUND_BITMAP_SEED).  `target` is the shape
+    at range R: 'plate' the 1 m square facing the apertures; 'sphere' a
+    sphere of radius 0.4 m, its near surface at R; 'disk' a disk of radius
+    0.5 m facing the apertures; 'cylinder' a vertical cylinder of radius
+    0.3 m and height 1.2 m centred on the boresight at R, its near surface
+    at R - 0.3 (`target_range`)."""
     if ground_texture not in (None, 'checkerboard', 'bitmap'):
         raise ValueError(f'ground_texture {ground_texture!r}: None, '
                          "'checkerboard' or 'bitmap'")
+    if target not in TARGETS:
+        raise ValueError(f'target {target!r}: one of {TARGETS}')
     band = Band.from_freq(340.0, 40e3, 10e3)
     s = sc.Scene(band=band)
     s.add(diffuse('mat', reflectance=1.0, twosided=True))
@@ -118,9 +135,19 @@ def flagship_scene(R: float = 4.0, ground: bool = True,
                                                   [-0.3, -1, 0]),
                                        tf.scale([0.05, 0.05, 1.0])))
         s.add(sh.rectangle(to_world=aim_rx, receiver='rx'))
-    tgt = np.asarray(tf.compose(tf.look_at([0, -R, 0], [0, 0, 0]),
-                                tf.scale(0.5)))
-    s.add(sh.rectangle(to_world=tgt, bsdf='mat'))
+    facing = np.asarray(tf.compose(tf.look_at([0, -R, 0], [0, 0, 0]),
+                                   tf.scale(0.5)))
+    if target == 'plate':
+        s.add(sh.rectangle(to_world=facing, bsdf='mat'))
+    elif target == 'sphere':
+        s.add(sh.sphere(center=(0.0, -(R + 0.4), 0.0), radius=0.4,
+                        bsdf='mat'))
+    elif target == 'disk':
+        s.add(sh.disk(to_world=facing, bsdf='mat'))
+    else:
+        s.add(sh.cylinder(to_world=np.asarray(tf.compose(
+            tf.translate([0.0, -R, -0.6]), tf.scale([0.3, 0.3, 1.2]))),
+            bsdf='mat'))
     if ground:
         gnd = np.asarray(tf.compose(tf.translate([0, 0, -0.5]),
                                     tf.scale(20.0)))

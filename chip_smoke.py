@@ -339,6 +339,17 @@ FP32_OPS = {
     # the checkerboard's parity (6) and the reflectance's product (the
     # bitmap's fraction, texel coordinates and clamps take 19)
     'tex_hit': 13,
+    # the prims twins, in place of 'rect_test' for those records (closest
+    # hit and shadow): the object-space ray (33), then a disk's plane and
+    # circle (10); a cylinder's quadratic, two roots and their z (31); a
+    # sphere's quadratic, stable roots and their min / max (32); and at a
+    # hit SHADE's normal: a sphere's object point, M^T p, rsqrt and scale
+    # (64), a cylinder's (45; a disk's is its record's)
+    'disk_test': 43,
+    'cylinder_test': 64,
+    'sphere_test': 65,
+    'sphere_hit': 64,
+    'cylinder_hit': 45,
 }
 
 
@@ -460,12 +471,20 @@ def bound(ops: float, n_bytes: float, what: str) -> dict:
                 bound_by='operations' if t_ops >= t_bytes else 'bytes')
 
 
-def lane_ops(stats: dict, n_rect: int, ray: str = 'ray_wigner') -> float:
+def lane_ops(stats: dict, n_rect: int, ray: str = 'ray_wigner',
+             kinds: dict | None = None) -> float:
     """FP32 operations that the stage counts of a plain-version run say
     the receive kernel must do; `ray` the cost of an unstratified ray
-    ('ray_omni' for an omni receiver)."""
+    ('ray_omni' for an omni receiver).  `kinds` ({'sphere': n, 'disk': n,
+    'cylinder': n}, the prims twins' records among the `n_rect`) costs
+    their closest-hit and shadow tests and their hits' normals."""
     phased = stats.get('phased_ray', 0)
-    return ((stats['lanes'] - stats['strata'] - phased)
+    extra = 0.0
+    for k, n in (kinds or {}).items():
+        d = FP32_OPS[f'{k}_test'] - FP32_OPS['rect_test']
+        extra += (stats['trace'] * n + stats.get(f'{k}_occ', 0)) * d \
+            + stats.get(f'{k}_hit', 0) * FP32_OPS.get(f'{k}_hit', 0)
+    return extra + ((stats['lanes'] - stats['strata'] - phased)
             * FP32_OPS[ray]
             + stats['strata'] * FP32_OPS['ray_strata']
             + phased * FP32_OPS['ray_phased']
@@ -516,6 +535,14 @@ def print_build(infos: dict, tag: str) -> None:
                 f'receive_megakernel ({v}' + (' media)' if m else
                                               ' endpoints)' if e else
                                               ' lobes)' if lob else ')'))
+    names['receive_flagship_kernelILb0ELb1E'] = \
+        'receive_megakernel (flagship prims)'
+    names['receive_coherent_kernelILb0ELb1E'] = \
+        'receive_megakernel (coherent prims)'
+    names['receive_flagship_kernelILb1ELb1E'] = \
+        'receive_megakernel (flagship prims textures)'
+    names['receive_coherent_kernelILb1ELb1E'] = \
+        'receive_megakernel (coherent prims textures)'
     names['receive_flagship_kernelILb0E'] = 'receive_megakernel (flagship)'
     names['receive_flagship_kernelILb1E'] = \
         'receive_megakernel (flagship textures)'
@@ -559,12 +586,16 @@ def print_build(infos: dict, tag: str) -> None:
 
 
 # the warp-wavefront kernel of each configuration `tools/k1_mix.py` reads
-MIX_KERNEL = {'flagship': 'receive_flagship_kernelILb0E',
-              'pulse_train': 'receive_coherent_kernelILb0E',
-              'dechirp': 'receive_coherent_kernelILb0E',
-              'corner': 'receive_coherent_kernelILb0E',
-              'flagship_checker': 'receive_flagship_kernelILb1E',
-              'coherent_checker': 'receive_coherent_kernelILb1E',
+MIX_KERNEL = {'flagship': 'receive_flagship_kernelILb0ELb0E',
+              'pulse_train': 'receive_coherent_kernelILb0ELb0E',
+              'dechirp': 'receive_coherent_kernelILb0ELb0E',
+              'corner': 'receive_coherent_kernelILb0ELb0E',
+              'flagship_checker': 'receive_flagship_kernelILb1ELb0E',
+              'coherent_checker': 'receive_coherent_kernelILb1ELb0E',
+              'flagship_sphere': 'receive_flagship_kernelILb0ELb1E',
+              'coherent_sphere': 'receive_coherent_kernelILb0ELb1E',
+              'flagship_sphere_checker': 'receive_flagship_kernelILb1ELb1E',
+              'coherent_sphere_checker': 'receive_coherent_kernelILb1ELb1E',
               'window_thin': 'receive_lobe_kernelILb0E',
               'window_dielectric': 'receive_lobe_kernelILb1E',
               'ep_phased_tx': 'receive_endpoint_kernel',
@@ -1290,15 +1321,22 @@ def doppler(torch, bt, rk, ik, dev, tag, build_log: str, cubin: str):
 
 def compare_coherent(torch, acc, n_ev, ref, n_ref, amp, slack, what,
                      lane=None, lane_ref=None, depth=COH_DEPTH,
-                     quiet=False, ill=None) -> dict:
+                     quiet=False, ill=None, cond=None) -> dict:
     """I / Q parity per cell and channel: within TOL x max(|I|, |Q|) plus
     the phase slack (`receive_kernel.phase_slack`) times the cell's sum of
     amplitudes `amp` (the plain version's), since the kernel's contracted
     path lengths move each phase by a few ulps of the path over the
     wavelength.  With `lane`, lane by lane as `compare_lanes`, flagging
-    lanes beyond TOL of themselves and COH_LANE_FLOOR of the largest."""
+    lanes beyond TOL of themselves and COH_LANE_FLOOR of the largest.
+    `cond` (the plain version's `cond_out`) widens each cell's phase
+    slack term to the slack times (amp + cond): each ill-conditioned
+    connection's own slack, from its vertices' incidence cosines and
+    curvatures; the reading without it is printed beside (`worst_plain`)."""
     scale = float(ref.abs().max())
     bound = TOL * scale + slack * amp.float()[..., None]
+    plain_bound = bound
+    if cond is not None:
+        bound = bound + slack * cond.float()[..., None]
     flips, flip_slack = 0, 0.0
     if lane is not None:
         flipped = (lane - lane_ref).abs() > \
@@ -1310,6 +1348,7 @@ def compare_coherent(torch, acc, n_ev, ref, n_ref, amp, slack, what,
     diff = (acc - ref).abs()
     err = float(diff.max())
     worst = float((diff / (bound + flip_slack)).max())
+    worst_plain = float((diff / (plain_bound + flip_slack)).max())
     ev, ev_ref = int(n_ev), int(n_ref)
     if not quiet:
         print(f'parity {what}: max(|I|, |Q|) {scale:.6e}  max abs err '
@@ -1319,7 +1358,9 @@ def compare_coherent(torch, acc, n_ev, ref, n_ref, amp, slack, what,
               f'{float(amp.max()) / max(scale, 1e-300):.2f} x max)  events '
               f'{ev} vs {ev_ref}'
               + ('' if lane is None else f'; {flips} of {lane.numel()} '
-                 f'lanes took another path'))
+                 f'lanes took another path')
+              + ('' if cond is None else f'; without the connections\' own '
+                 f'slack {worst_plain:.3f} of the bound'))
     if lane is not None and (flips if ill is None else flipped_out) \
             > EDGE_FLIPS * lane.numel():
         fail(f'{what}: {flips} lanes differ from the plain version')
@@ -1328,7 +1369,8 @@ def compare_coherent(torch, acc, n_ev, ref, n_ref, amp, slack, what,
              f'{worst:.3f} of its bound)')
     if abs(ev - ev_ref) > TOL * ev_ref + 2 * depth * flips:
         fail(f'{what}: event counts {ev} vs {ev_ref}')
-    return dict(err=err, rel=err / scale, worst=worst, flips=flips)
+    return dict(err=err, rel=err / scale, worst=worst, flips=flips,
+                worst_plain=worst_plain)
 
 
 def _coh_tables(torch, rk, scene_fn, dev, coherent):
@@ -1404,10 +1446,12 @@ def _kernel_entry(torch, rk, cfg_name, what, main_path, launches, errs,
 
 
 def _plain_philox(torch, rk, params, prim, txp, kw, n_lanes, depth, dev,
-                  lane_ref=None, power_amp=False, chunk=COH_PLAIN_CHUNK):
+                  lane_ref=None, power_amp=False, chunk=COH_PLAIN_CHUNK,
+                  cond=None):
     """The plain version on the kernel's Philox stream at the main path's
     shape, in `chunk`-lane chunks: (acc, events, amplitude sums (of
-    |power| with `power_amp`), stage counts, ms)."""
+    |power| with `power_amp`), stage counts, ms); `cond`, a float64 grid,
+    takes its `cond_out`."""
     stats: dict = {}
     nd = rk.n_draws(depth, int(txp.shape[-2]),
                     **rk.lobe_draws(kw.get('lobes') or 0))
@@ -1424,7 +1468,7 @@ def _plain_philox(torch, rk, params, prim, txp, kw, n_lanes, depth, dev,
                 amp_out=amp if kw.get('coherent') or power_amp
                 or kw.get('eoff') is not None else None,
                 lane_out=None if lane_ref is None
-                else lane_ref[lane0:lane0 + chunk], **kw)
+                else lane_ref[lane0:lane0 + chunk], cond_out=cond, **kw)
             total = a if total is None else total + a
             n_tot += int(n)
         return total, n_tot
@@ -2000,8 +2044,8 @@ def cpi(torch, bt, rk, ik, dev, tag, build_log: str, cubin: str) -> list:
         acc, n_ev = rk.receive_megakernel_cpi(params, prim, txp, seed=seed,
                                               lane_out=lane, **kw)
         stats: dict = {}
-        worst = {'err': 0.0, 'rel': 0.0, 'worst': 0.0, 'flips': 0,
-                 'per_pulse': 0.0}
+        worst = {'err': 0.0, 'rel': 0.0, 'worst': 0.0, 'worst_plain': 0.0,
+                 'flips': 0, 'per_pulse': 0.0}
         kw1 = {k: v for k, v in kw.items() if k != 'n_lanes'}
         u = rk.philox_uniforms(seed, rk.n_draws(depth), spp, device=dev)
         slack = rk.phase_slack(s.band, rx.adc)
@@ -2367,6 +2411,405 @@ def textures(torch, bt, rk, dev, tag, pulse_compress, build_log: str,
             'receive_bitmap_ms': recv['bitmap'], **b, 'library_ms': None,
             **mix})
     return entries
+
+
+PRIM_TARGETS = ('sphere', 'disk', 'cylinder')
+PRIM_TEX = 'sphere_checker'    # the sphere over a checkerboard ground
+PRIM_LANES = 1 << 28           # the flagship's width, depth 3
+PRIM_COH_LANES = 1 << 24       # the coherent receive's, depth 2
+PRIM_COH_DEPTH = 2
+PRIM_PARITY_LANES = 1 << 18    # injected uniforms
+PRIM_ANCHOR_LANES = 1 << 22    # the anchors' and the floor's calls
+PRIM_MOVED = 100               # a target moves the grid > this x TOL
+PRIM_PAIRS = 4                 # twin / rectangle kernel pairs on the plate
+PRIM_CPI_PULSES = 4            # the sphere's CPI, one launch
+PRIM_CPI_LANES = 1 << 20       # a pulse
+
+
+def _prim_scene(target):
+    """The flagship scene with `target` ('plate' or a PRIM_TARGETS kind)
+    at 4 m, PRIM_TEX the sphere over a checkerboard ground, or None: the
+    flagship scene without a target."""
+    from beifong_tpu_torch.scenes import flagship_scene
+    if target == PRIM_TEX:
+        return flagship_scene(target='sphere', ground_texture='checkerboard')
+    s, rx = flagship_scene(target=target or 'plate')
+    if target is None:
+        del s.shapes[2]
+    return s, rx
+
+
+def prims(torch, bt, rk, dev, tag, pulse_compress, build_log: str,
+          cubin: str) -> list:
+    """K1's prims twins, receive_flagship_kernel<false, true> (power, the
+    flagship's 2^28 lanes at depth 3) and receive_coherent_kernel<false,
+    true> (I / Q, 2^24 lanes at depth 2), on the flagship scene with a
+    sphere, a disk or a cylinder for its target, and the twins that also
+    carry the texture codes (<true, true>) on the sphere over a
+    checkerboard ground (PRIM_TEX): each against its plain
+    version on injected uniforms and on the Philox stream at the main
+    path's width (I / Q: the phase slack, each ill-conditioned
+    connection's own slack from the plain version's `cond_out`, the
+    reading without it printed beside, and each lane's amplitude sum, a
+    phase-free check; a sphere CPI pulse by pulse);
+    the anchors (each target's peak within [b - 1, b + 3] of the round
+    trip b to its near surface, and each target moves the grid by more
+    than PRIM_MOVED x the parity bound against the scene without it);
+    receive() at full width, five calls a scene, every one launching its
+    twin; each twin alone on each scene, and on the all-rectangle
+    flagship scene beside the rectangle kernel (the cost of carrying the
+    kinds; held there to the plain version); their bounds."""
+    from beifong_tpu_torch.scenes import round_trip_bin, target_range
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    entries = []
+    for coh in (False, True):
+        depth = PRIM_COH_DEPTH if coh else MAX_DEPTH
+        lanes = PRIM_COH_LANES if coh else PRIM_LANES
+        twin = 'coherent' if coh else 'flagship'
+        cfg_name = f'{twin}_prims'
+        tabs = {}
+        scenes = PRIM_TARGETS + (PRIM_TEX,)
+        for target in (None, 'plate') + scenes:
+            s, rx = _prim_scene(target)
+            sd = s.compile(device=dev)
+            tabs[target] = (s, sd, rx, rk._device_tables(s, sd, rx, dev))
+
+        def kwargs(target):
+            rx, t = tabs[target][2:]
+            kw = dict(adc=rx.adc, max_depth=depth, time_sampling='gate',
+                      rx_kind='wigner', doppler=coh, coherent=coh)
+            if t.textured:
+                kw.update(tex=t.tex, bmp_meta=t.bmp_meta)
+            return kw
+
+        def call(target, n_lanes, u=None, prims=None, lane=None):
+            t = tabs[target][3]
+            return rk.receive_megakernel(t.params, t.prim, t.txp,
+                                         n_lanes=n_lanes, seed=SEED,
+                                         uniforms=u, prims=prims,
+                                         lane_out=lane, **kwargs(target))
+
+        def held(target, acc, n_ev, ref, n_ref, amp, cond, what, lane=None,
+                 lane_ref=None):
+            s, _, rx, _ = tabs[target]
+            if coh:
+                r = compare_coherent(
+                    torch, acc, n_ev, ref, n_ref, amp,
+                    rk.phase_slack(s.band, rx.adc), what, lane, lane_ref,
+                    depth=depth, cond=cond)
+                share = float(cond.sum() / amp.sum())
+                print(f'{what}: the ill-conditioned connections\' own slack '
+                      f'adds {share:.4f} x the amplitude-weighted phase slack')
+                r['cond_share'] = share
+                return r
+            return compare(acc, n_ev, ref, n_ref, what)
+
+        def lanes_of(n):
+            return (torch.empty(n, device=dev), torch.empty(n, device=dev)) \
+                if coh else (None, None)
+
+        def launched(what, target=None):
+            if not rk.launched_prim_kernel(coh, target == PRIM_TEX):
+                fail(f'{what}: the launch record does not show the prims '
+                     'twin')
+
+        # ---- 3. each twin against its plain version: injected uniforms,
+        # then the Philox stream at the main path's width ----
+        errs, plain, stats = [], {}, {}
+        nd = rk.n_draws(depth)
+        for target in scenes:
+            _, _, rx, t = tabs[target]
+            u = torch.rand((nd, PRIM_PARITY_LANES), generator=gen,
+                           device=dev)
+            lane, lane_ref = lanes_of(PRIM_PARITY_LANES)
+            acc, n_ev = call(target, PRIM_PARITY_LANES, u, lane=lane)
+            torch.cuda.synchronize()
+            launched(f'{target} {twin}', target)
+            amp = torch.zeros((rx.adc.n_time, 1), dtype=torch.float64,
+                              device=dev)
+            cond = torch.zeros_like(amp)
+            ms, (ref, n_ref) = wall_ms(lambda: rk.receive_megakernel_ref(
+                t.params, t.prim, t.txp, u, amp_out=amp if coh else None,
+                cond_out=cond if coh else None, lane_out=lane_ref,
+                **kwargs(target)))
+            what = (f'{twin} prims ({target}) injected 2^'
+                    f'{PRIM_PARITY_LANES.bit_length() - 1} lanes, depth '
+                    f'{depth}')
+            errs.append(held(target, acc, n_ev, ref, n_ref, amp, cond,
+                             what, lane, lane_ref))
+            print(f'plain version {what}: {ms:.1f} ms {tag}')
+
+            lane, lane_ref = lanes_of(lanes)
+            acc, n_ev = call(target, lanes, lane=lane)
+            torch.cuda.synchronize()
+            launched(f'{target} {twin}', target)
+            chunk = COH_PLAIN_CHUNK if coh else PLAIN_CHUNK
+            cond = torch.zeros((rx.adc.n_time, 1), dtype=torch.float64,
+                               device=dev) if coh else None
+            ref, n_ref, amp, stats[target], plain[target] = _plain_philox(
+                torch, rk, t.params, t.prim, t.txp, kwargs(target), lanes,
+                depth, dev, lane_ref=lane_ref, chunk=chunk, cond=cond)
+            what = (f'{twin} prims ({target}) philox 2^'
+                    f'{lanes.bit_length() - 1} lanes, depth {depth}')
+            errs.append(held(target, acc, n_ev, ref, n_ref, amp, cond,
+                             what, lane, lane_ref))
+            print(f'plain version {what} in 2^{chunk.bit_length() - 1}-lane '
+                  f'chunks: {plain[target]:.1f} ms; stage lanes '
+                  + json.dumps(stats[target]) + f' {tag}')
+
+        # ---- the anchors and the floor, on the card ----
+        grids = {k: call(k, PRIM_ANCHOR_LANES)[0] for k in
+                 (None,) + PRIM_TARGETS}
+        torch.cuda.synchronize()
+        base = grids[None]
+        scale = float(base.abs().max())
+        for target in PRIM_TARGETS:
+            s, _, rx, _ = tabs[target]
+            g = grids[target]
+            prof = g[:, 0] if not coh else g[:, 0].square().sum(-1)
+            b = int(round(round_trip_bin(
+                s, rx, (0.0, -target_range(target), 0.0))))
+            pk = int(prof.argmax())
+            moved = float((g - base).abs().max()) / (TOL * scale)
+            print(f'{twin} prims anchor {target}: peak bin {pk}, near-surface '
+                  f'round trip {b} (window [{b - 1}, {b + 3}]); moves the '
+                  f'grid {moved:.1f} x the parity bound {TOL} x max|acc| '
+                  f'(floor {PRIM_MOVED}), 2^'
+                  f'{PRIM_ANCHOR_LANES.bit_length() - 1} lanes')
+            if not b - 1 <= pk <= b + 3:
+                fail(f'{twin} {target}: peak at {pk}, anchor {b}')
+            if not moved > PRIM_MOVED:
+                fail(f'{twin} {target}: moves the grid by {moved:.1f} x '
+                     'the parity bound only')
+
+        # ---- 4. the main path: receive() of each target ----
+        rk.receive_megakernel.launches = 0
+        rk.receive_megakernel.by_config = dict.fromkeys(rk.CONFIGS, 0)
+        recv = {}
+        for target in scenes:
+            s, sd, rx, _ = tabs[target]
+
+            def run_main(seed, s=s, sd=sd, rx=rx):
+                return bt.receive(s, sd, rx, seed=seed, spp=lanes,
+                                  max_depth=depth, coherent=coh,
+                                  time_sampling='gate', device=dev)
+
+            run_main(1)
+            call_ms, (adc, n) = cuda_ms(lambda i: run_main(2 + i), 4)
+            launched(f'receive() {target} {twin}', target)
+            b = round(round_trip_bin(s, rx, (
+                0.0, -target_range(target.split('_')[0]), 0.0)))
+            sig = bt.develop_signal(adc, n, rx.adc)
+            want = (rx.adc.n_time, 1, 2) if coh else (rx.adc.n_time, 1, 1)
+            if tuple(sig.shape) != want or not bool(torch.isfinite(sig).all()):
+                fail(f'{target} {twin}: signal {tuple(sig.shape)} not '
+                     'finite / wrong shape')
+            prof = sig[:, 0].square().sum(-1) if coh else sig[:, 0, 0]
+            pk = int(prof.argmax())
+            print(f'receive() {target} {twin}: peak bin {pk}, anchor {b}')
+            if not b - 1 <= pk <= b + 3:
+                fail(f'receive() {target} {twin}: peak at {pk}, anchor {b}')
+            recv[target] = statistics.median(call_ms)
+            print(f'receive() {target} {twin} 2^{lanes.bit_length() - 1} '
+                  f'samples depth {depth}: median {recv[target]:.3f} '
+                  f'ms/call ({lanes / (recv[target] * 1e-3):.4e} '
+                  f'samples/s), calls {[round(x, 3) for x in call_ms]} '
+                  f'{tag}')
+        launches = rk.receive_megakernel.launches
+        by_cfg = dict(rk.receive_megakernel.by_config)
+        tex_name = f'{twin}_tex_prims'
+        if launches != 20 or by_cfg[cfg_name] != 15 \
+                or by_cfg[tex_name] != 5:
+            fail(f'the {twin} prims path launched K1 {by_cfg} in 20 '
+                 'receive() calls')
+        cpi_launches = prim_cpi(torch, bt, rk, dev, tag, tabs['sphere'],
+                                depth) if coh else None
+
+        # ---- each twin alone on each target, and on the plate beside the
+        # rectangle kernel (alternating, the same process) ----
+        k_ms = {}
+        for target in scenes:
+            t_ms, _ = cuda_ms(lambda i: call(target, lanes), 5)
+            k_ms[target] = statistics.median(t_ms[1:])
+        plate = {True: [], False: []}
+        for i in range(PRIM_PAIRS):
+            for pr in ((True, False) if i % 2 == 0 else (False, True)):
+                t_ms, _ = cuda_ms(lambda j: call('plate', lanes, prims=pr),
+                                  3)
+                plate[pr].extend(t_ms[1:])
+        med = {k: statistics.median(v) for k, v in plate.items()}
+        print(f'receive_megakernel ({twin}) 2^{lanes.bit_length() - 1} lanes '
+              f'depth {depth}: ' + ', '.join(
+                  f'{k} {v:.3f} ms' for k, v in k_ms.items())
+              + f'; the plate: rectangle kernel {med[False]:.3f} ms, prims '
+              f'twin {med[True]:.3f} ms ({med[True] / med[False]:.4f}) '
+              f'{tag}')
+        # the twin on the plate is held to the plain version (FMA
+        # contraction may differ between the two instantiations: the
+        # emulation, which contracts nothing, gives them bit for bit)
+        lane, lane_ref = lanes_of(PRIM_ANCHOR_LANES)
+        grids = {True: call('plate', PRIM_ANCHOR_LANES, prims=True,
+                            lane=lane)}
+        launched(f'plate {twin}')
+        grids[False] = call('plate', PRIM_ANCHOR_LANES, prims=False)
+        _, _, rx, t = tabs['plate']
+        cond = torch.zeros((rx.adc.n_time, 1), dtype=torch.float64,
+                           device=dev) if coh else None
+        ref, n_ref, amp, _, _ = _plain_philox(
+            torch, rk, t.params, t.prim, t.txp, kwargs('plate'),
+            PRIM_ANCHOR_LANES, depth, dev, lane_ref=lane_ref, cond=cond,
+            chunk=min(COH_PLAIN_CHUNK if coh else PLAIN_CHUNK,
+                      PRIM_ANCHOR_LANES))
+        what = (f'{twin} prims twin on the plate, philox 2^'
+                f'{PRIM_ANCHOR_LANES.bit_length() - 1} lanes')
+        errs.append(held('plate', *grids[True], ref, n_ref, amp, cond,
+                         what, lane, lane_ref))
+        a, b2 = grids[True][0], grids[False][0]
+        print(f'{what}: against the rectangle kernel max diff '
+              f'{float((a - b2).abs().max()) / float(b2.abs().max()):.3e} '
+              f'of max, bit for bit {torch.equal(a, b2)}')
+
+        # the bounds, from the sphere's stage counts on the main path's
+        # stream (over the checkerboard: the texels read too)
+        b, mix = {}, {}
+        for target in ('sphere', PRIM_TEX):
+            _, _, rx, t = tabs[target]
+            kinds = {k: int((t.prim[:, 0] == code).sum()) for k, code in
+                     (('sphere', 1), ('disk', 2), ('cylinder', 3))}
+            n_rec = int(((t.prim[:, 0] >= 0) & (t.prim[:, 0] <= 3)).sum())
+            n_bytes = 4 * (t.params.numel() + t.prim.numel() + t.txp.numel()
+                           + (0 if t.tex is None else t.tex.numel())
+                           + rx.adc.n_time * (2 if coh else 1)) + 8
+            b[target] = bound(lane_ops(stats[target], n_rec, kinds=kinds),
+                              n_bytes, f'{twin} prims ({target}) 2^'
+                              f'{lanes.bit_length() - 1} lanes')
+            geom = rk.launch_geometry(rx.adc.n_time, lanes,
+                                      int(t.prim.shape[0]), doppler=coh,
+                                      coherent=coh, tex=t.textured,
+                                      prims=True)
+            mix[target] = kernel_mix(dev, tag, build_log, cubin,
+                                     f'{twin}_{target}', geom, sms)
+            print(f'{twin} prims bounds ({target}): FP32 '
+                  f'{b[target]["bound_ms"]:.4f} ms, issue slots '
+                  f'{mix[target]["issue_slot_bound_ms"]:.4f} ms; kernel '
+                  f'{k_ms[target]:.3f} ms {tag}')
+        entries.append({
+            'name': 'receive_megakernel',
+            'configuration': f'{twin} prims', 'route': 'cuda',
+            'source': 'beifong_tpu_torch/csrc/receive_megakernel.cu',
+            'replaces': 'beifong_tpu/integrators/pallas_receive.py:2983',
+            'tpu_function': '_make_kernel (pallas_receive.py:106), '
+            'intersect (:656-798) and occluded (:947-998), spheres, disks '
+            'and cylinders',
+            'main_path': f'receive(flagship_scene(target=...)), sphere, '
+            f'disk and cylinder, 2^{lanes.bit_length() - 1} samples, depth '
+            f'{depth}' + (', coherent' if coh else ''),
+            'launches': by_cfg[cfg_name],
+            'max_abs_err': max(c['err'] for c in errs[:6] + errs[8:]),
+            'parity': max(c['rel'] for c in errs[:6] + errs[8:]),
+            'philox_max_abs_err': max(c['err'] for c in errs[1:6:2]),
+            'ms': k_ms['sphere'], 'disk_ms': k_ms['disk'],
+            'cylinder_ms': k_ms['cylinder'], 'plate_ms': med[True],
+            'plate_rect_kernel_ms': med[False],
+            'plain_ms': plain['sphere'], 'plain_disk_ms': plain['disk'],
+            'plain_cylinder_ms': plain['cylinder'],
+            'receive_ms': recv['sphere'], 'receive_disk_ms': recv['disk'],
+            'receive_cylinder_ms': recv['cylinder'], **b['sphere'],
+            'library_ms': None, **mix['sphere']})
+        if coh:
+            entries[-1]['cpi_launches'] = cpi_launches
+        entries.append({
+            'name': 'receive_megakernel',
+            'configuration': f'{twin} prims textures', 'route': 'cuda',
+            'source': 'beifong_tpu_torch/csrc/receive_megakernel.cu',
+            'replaces': 'beifong_tpu/integrators/pallas_receive.py:2983',
+            'tpu_function': '_make_kernel (pallas_receive.py:106), '
+            'intersect (:656-798) and occluded (:947-998), spheres, disks '
+            'and cylinders, with the texture twins\' codes',
+            'main_path': f'receive(flagship_scene(target=\'sphere\', '
+            f'ground_texture=\'checkerboard\')), 2^'
+            f'{lanes.bit_length() - 1} samples, depth {depth}'
+            + (', coherent' if coh else ''),
+            'launches': by_cfg[tex_name],
+            'max_abs_err': max(c['err'] for c in errs[6:8]),
+            'parity': max(c['rel'] for c in errs[6:8]),
+            'ms': k_ms[PRIM_TEX], 'plain_ms': plain[PRIM_TEX],
+            'receive_ms': recv[PRIM_TEX], **b[PRIM_TEX], 'library_ms': None,
+            **mix[PRIM_TEX]})
+    print(f'prims phase wall {time.perf_counter() - t_phase:.1f} s {tag}')
+    return entries
+
+
+def prim_cpi(torch, bt, rk, dev, tag, tab, depth) -> int:
+    """A coherent CPI of the sphere scene: receive_cpi() launches the
+    coherent prims twin once a call (its pulse axis), and the launch is
+    held pulse by pulse against the plain version on each pulse's Philox
+    stream (the phase slack with the connections' own, the lanes'
+    amplitude sums).  Returns the twin's CPI launches in three calls."""
+    s, _, rx, _ = tab
+    prf, seed = 100.0, SEED
+    for fn in (rk.receive_megakernel, rk.receive_megakernel_cpi):
+        fn.launches = 0
+        fn.by_config = dict.fromkeys(rk.CONFIGS, 0)
+    with _Wavefront(bt) as wfc:
+        for i in range(3):
+            cube, n = bt.receive_cpi(
+                s, n_pulses=PRIM_CPI_PULSES, prf=prf, seed=seed + i,
+                spp=PRIM_CPI_LANES, max_depth=depth, time_sampling='gate',
+                device=dev)
+    torch.cuda.synchronize()
+    launches = rk.receive_megakernel_cpi.by_config['coherent_prims']
+    if launches != 3 or rk.receive_megakernel_cpi.launches != 3 \
+            or rk.receive_megakernel.launches or wfc.calls:
+        fail(f'sphere CPI: {rk.receive_megakernel_cpi.by_config}, K1 alone '
+             f'{rk.receive_megakernel.launches}, the wavefront {wfc.calls} '
+             'times in 3 receive_cpi() calls')
+    if not bool(torch.isfinite(cube).all()) \
+            or cube.shape[0] != PRIM_CPI_PULSES:
+        fail(f'sphere CPI: cube {tuple(cube.shape)} not finite / wrong shape')
+    packed, rx, _ = rk.pack_cpi(s, PRIM_CPI_PULSES, prf)
+    params, prim, txp = (torch.tensor(a, device=dev) for a in
+                         (packed.params, packed.prim, packed.txp))
+    params[:, 0] = rk.seed_slot(seed)
+    kw = dict(adc=rx.adc, max_depth=depth, time_sampling='gate',
+              rx_kind='wigner', doppler=True, receive_type=rx.receive_type,
+              has_lo=rx.lo_waveform is not None, coherent=True,
+              mirror=packed.mirror)
+    step = 7919
+    lane = torch.empty((PRIM_CPI_PULSES, PRIM_CPI_LANES), device=dev)
+    acc, n_ev = rk.receive_megakernel_cpi(
+        params, prim, txp, seed=seed, seed_step=step, lane_out=lane,
+        n_lanes=PRIM_CPI_LANES, **kw)
+    if not rk.launched_prim_kernel(True):
+        fail('sphere CPI: the launch record does not show the coherent '
+             'prims twin')
+    slack = rk.phase_slack(s.band, rx.adc)
+    worst = {'worst': 0.0, 'worst_plain': 0.0, 'flips': 0}
+    for p in range(PRIM_CPI_PULSES):
+        u = rk.philox_uniforms(seed + step * p, rk.n_draws(depth),
+                               PRIM_CPI_LANES, device=dev)
+        amp = torch.zeros((rx.adc.n_time, 1), dtype=torch.float64,
+                          device=dev)
+        cond = torch.zeros_like(amp)
+        lane_ref = torch.empty(PRIM_CPI_LANES, device=dev)
+        ref, n_ref = rk.receive_megakernel_ref(
+            params[p], prim[p], txp[p], u, lane_out=lane_ref, amp_out=amp,
+            cond_out=cond, **kw)
+        c = compare_coherent(torch, acc[p], n_ev[p], ref, n_ref, amp, slack,
+                             f'sphere CPI pulse {p}', lane[p], lane_ref,
+                             depth=depth, quiet=True, cond=cond)
+        worst = {k: max(worst[k], c[k]) for k in ('worst', 'worst_plain')} \
+            | {'flips': worst['flips'] + c['flips']}
+    print(f'parity sphere CPI launch (coherent prims twin), '
+          f'{PRIM_CPI_PULSES} pulses x 2^{PRIM_CPI_LANES.bit_length() - 1} '
+          f'philox lanes, depth {depth}: worst cell at '
+          f'{worst["worst"]:.3f} of its bound ({worst["worst_plain"]:.3f} '
+          f'without the connections\' own slack), {worst["flips"]} lanes '
+          f'took another path; receive_cpi() launched the twin {launches} '
+          f'times in 3 calls {tag}')
+    return launches
 
 
 # MIMO receive: golden config 6 through K1's MIMO configuration
@@ -4573,26 +5016,20 @@ def main() -> int:
     print(f'build wall {time.perf_counter() - t0:.1f} s {tag}')
 
     # ---- 3-4. each path: parity, then the path itself ----
-    kernels = [flagship(torch, bt, rk, dev, tag, pulse_compress,
-                        infos['receive_megakernel'].log, cubin),
-               mesh(torch, bt, rk, dev, tag, pulse_compress,
-                    infos['receive_megakernel'].log, cubin)]
-    dop_kernels, k1_grid = doppler(torch, bt, rk, ik, dev, tag,
-                                   infos['receive_megakernel'].log, cubin)
+    log = infos['receive_megakernel'].log
+    kernels = [flagship(torch, bt, rk, dev, tag, pulse_compress, log,
+                        cubin),
+               mesh(torch, bt, rk, dev, tag, pulse_compress, log, cubin)]
+    dop_kernels, k1_grid = doppler(torch, bt, rk, ik, dev, tag, log, cubin)
     kernels += dop_kernels
-    kernels += coherent(torch, bt, rk, ik, dev, tag,
-                        infos['receive_megakernel'].log, cubin)
-    kernels += cpi(torch, bt, rk, ik, dev, tag,
-                   infos['receive_megakernel'].log, cubin)
-    kernels += textures(torch, bt, rk, dev, tag, pulse_compress,
-                        infos['receive_megakernel'].log, cubin)
-    kernels += mimo(torch, bt, rk, dev, tag,
-                    infos['receive_megakernel'].log, cubin)
+    kernels += coherent(torch, bt, rk, ik, dev, tag, log, cubin)
+    kernels += cpi(torch, bt, rk, ik, dev, tag, log, cubin)
+    kernels += textures(torch, bt, rk, dev, tag, pulse_compress, log, cubin)
+    kernels += prims(torch, bt, rk, dev, tag, pulse_compress, log, cubin)
+    kernels += mimo(torch, bt, rk, dev, tag, log, cubin)
     kernels += media(torch, bt, rk, dev, tag)
-    kernels += phased(torch, bt, rk, dev, tag,
-                      infos['receive_megakernel'].log, cubin)
-    kernels += lobes(torch, bt, rk, dev, tag,
-                     infos['receive_megakernel'].log, cubin)
+    kernels += phased(torch, bt, rk, dev, tag, log, cubin)
+    kernels += lobes(torch, bt, rk, dev, tag, log, cubin)
     kernels += queries(torch, bt, dev, tag, infos['bvh_kernels'].log)
     k4 = k4_parity(torch, ik, dev, tag, infos['intersect_kernels'].log)
     k4_launches, bvh_launches = wavefront(torch, bt, ik, bk, rk, dev, tag,

@@ -84,9 +84,16 @@ def test_tables_match_jax():
                                           np.asarray(getattr(tj, f.name)),
                                           err_msg=f.name)
     assert tt.present == tuple(tj.present)
+    # the normal and bump maps build the JAX package's spec: a blend of
+    # weight 1 over the nested BSDF, carrying the map's texture id
+    import beifong_tpu.bsdf as bsdf_j
     for name in ('normalmap', 'bumpmap'):
-        with pytest.raises(NotImplementedError, match='ROADMAP'):
-            getattr(bsdf_t, name)('x', 'mat', 'tex')
+        a = getattr(bsdf_t, name)('x', 'mat', 'tex')
+        b = getattr(bsdf_j, name)('x', 'mat', 'tex')
+        for f in ('type', 'nested0', 'nested1', 'weight', 'alpha',
+                  'normalmap', 'bumpmap'):
+            assert getattr(a, f) == getattr(b, f), (name, f)
+        np.testing.assert_array_equal(a.reflectance, b.reflectance)
 
 
 @pytest.mark.parametrize('kw', [dict(), dict(with_nested=False),

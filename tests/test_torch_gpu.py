@@ -890,7 +890,7 @@ def _coherent_tables(device, scene, seed=0):
 
 
 def _assert_coherent_parity(acc, n_ev, ref, n_ref, amp, slack, lane=None,
-                            lane_ref=None, depth=2, ill=None):
+                            lane_ref=None, depth=2, ill=None, cond=None):
     """Per cell and channel: 1e-4 x max(|I|, |Q|) plus the phase slack
     times the cell's sum of amplitudes (the kernel's contracted path
     lengths move each phase by a few ulps of the path over the
@@ -898,10 +898,14 @@ def _assert_coherent_parity(acc, n_ev, ref, n_ref, amp, slack, lane=None,
     of a power, so the power test's 1e-6 of the largest lane becomes 1e-3;
     lanes beyond it took another path and bound the cells by their
     amplitude sums; lanes of the mask `ill` may take another path besides
-    them (`_assert_mesh_parity`)."""
+    them (`_assert_mesh_parity`).  `cond` (the plain version's
+    `cond_out`) adds the phase slack times each ill-conditioned
+    connection's amplitude times its own slack gain."""
     scale = float(ref.abs().max())
     assert scale > 0 and int(n_ref) > 0
     bound = 1e-4 * scale + slack * amp.float()[..., None]
+    if cond is not None:
+        bound = bound + slack * cond.float()[..., None]
     flip_slack, n_flip = 0.0, 0
     if lane is not None:
         flipped = (lane - lane_ref).abs() > \
@@ -2129,8 +2133,9 @@ def test_lobe_scenes_launch_the_lobe_kernel(cuda, coherent):
             == (not analytic), scene
     names = set(tree_ab.sass_of(rk.build_library().path))
     c = int(coherent)
-    # the coherent kernel (its untextured instantiation, <false>)
-    assert 'receive_coherent_kernel<0>' in names, sorted(names)
+    # the coherent kernel (its untextured, rectangle-only instantiation,
+    # <false, false>)
+    assert 'receive_coherent_kernel<0,0>' in names, sorted(names)
     assert f'receive_lobe_kernel<{c}>' in names
     assert f'receive_doppler_kernel<0,{c},0,0,1>' not in names
     assert f'receive_doppler_kernel<1,{c},0,0,1>' not in names
@@ -2304,6 +2309,190 @@ def test_textured_receive_launches_the_texture_twins(cuda):
             assert rk.launched_tex_kernel(coherent) == (texture is not None)
             assert bool(torch.isfinite(adc).all()) and n == 1 << 16
     names = set(tree_ab.sass_of(rk.build_library().path))
-    assert {'receive_flagship_kernel<0>', 'receive_flagship_kernel<1>',
-            'receive_coherent_kernel<0>',
-            'receive_coherent_kernel<1>'} <= names, sorted(names)
+    assert {'receive_flagship_kernel<0,0>', 'receive_flagship_kernel<1,0>',
+            'receive_coherent_kernel<0,0>',
+            'receive_coherent_kernel<1,0>'} <= names, sorted(names)
+
+
+def _prim_tables(device, target, coherent):
+    """The flagship scene with `target` ('plate', 'sphere', 'disk',
+    'cylinder'; 'sphere_checker' the sphere over a checkerboard ground;
+    None: no target) at 4 m, its tables on `device`, and the call's
+    keywords: the flagship configuration at depth 3, or the coherent one
+    at depth 2."""
+    ground = 'checkerboard' if target == 'sphere_checker' else None
+    s, rx = flagship_scene(target=(target or 'plate').split('_')[0],
+                           ground_texture=ground)
+    if target is None:
+        del s.shapes[2]
+    tab = rk._device_tables(s, s.compile(device='cpu'), rx, device)
+    kw = dict(adc=rx.adc, max_depth=2 if coherent else 3,
+              time_sampling='gate', rx_kind='wigner', doppler=coherent,
+              coherent=coherent)
+    if tab.textured:
+        kw.update(tex=tab.tex, bmp_meta=tab.bmp_meta)
+    return s, rx, tab, kw
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('coherent', [False, True], ids=['power', 'iq'])
+@pytest.mark.parametrize('target', ['sphere', 'disk', 'cylinder',
+                                    'sphere_checker'])
+def test_prims_twins_match_plain_version(cuda, target, coherent):
+    """receive_flagship_kernel<false, true> (power) and
+    receive_coherent_kernel<false, true> (I / Q), and over the
+    checkerboard the twins that also carry the texture codes (<true,
+    true>), on injected uniforms and on Philox against the plain version:
+    power per cell within 1e-4 x
+    max|acc|, I / Q within 1e-4 x max(|I|, |Q|) plus the phase slack
+    times the cell's amplitude sum and the ill-conditioned connections'
+    own slack (`cond_out`), lane by lane in amplitude; the launch record
+    and the configuration's count."""
+    s, rx, tab, kw = _prim_tables(cuda, target, coherent)
+    textured = target == 'sphere_checker'
+    name = rk.config_name(False, coherent, coherent, tex=textured,
+                          prims=True)
+    for n_lanes, u in ((1 << 16, torch.rand(
+            (rk.n_draws(kw['max_depth']), 1 << 16),
+            generator=torch.Generator(cuda).manual_seed(5), device=cuda)),
+            ((1 << 20) + 77, None)):
+        before = rk.receive_megakernel.by_config[name]
+        lane = torch.empty(n_lanes, device=cuda) if coherent else None
+        lane_ref = torch.empty(n_lanes, device=cuda) if coherent else None
+        acc, n_ev = rk.receive_megakernel(tab.params, tab.prim, tab.txp,
+                                          n_lanes=n_lanes, uniforms=u,
+                                          seed=11, lane_out=lane, **kw)
+        torch.cuda.synchronize()
+        assert rk.launched_prim_kernel(coherent, textured)
+        assert not rk.launched_prim_kernel(not coherent, textured)
+        assert not rk.launched_prim_kernel(coherent, not textured)
+        assert rk.receive_megakernel.by_config[name] == before + 1
+        if u is None:
+            u = rk.philox_uniforms(11, rk.n_draws(kw['max_depth']), n_lanes,
+                                   device=cuda)
+        amp = torch.zeros((rx.adc.n_time, 1), dtype=torch.float64,
+                          device=cuda)
+        cond = torch.zeros_like(amp)
+        ref, n_ref = rk.receive_megakernel_ref(
+            tab.params, tab.prim, tab.txp, u,
+            amp_out=amp if coherent else None,
+            cond_out=cond if coherent else None, lane_out=lane_ref, **kw)
+        assert acc.shape == ref.shape
+        if coherent:
+            _assert_coherent_parity(acc, n_ev, ref, n_ref, amp,
+                                    rk.phase_slack(s.band, rx.adc), lane,
+                                    lane_ref, cond=cond)
+        else:
+            scale = float(ref.abs().max())
+            assert scale > 0 and int(n_ref) > 0
+            assert float((acc - ref).abs().max()) <= 1e-4 * scale
+            assert abs(int(n_ev) - int(n_ref)) <= 1e-4 * int(n_ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('coherent', [False, True], ids=['power', 'iq'])
+def test_prims_twin_anchors(cuda, coherent):
+    """On the card: each target's peak lies within bins [b - 1, b + 3] of
+    the round trip b to its near surface, and each moves the grid by more
+    than 100 x the parity bound (1e-4 x max|acc|) against the scene
+    without it; receive() launches the twin.  The prims twin on the
+    all-rectangle flagship scene is held to the plain version as the
+    rectangle kernel is (FMA contraction may differ between the two
+    instantiations; the g++ emulation, which contracts nothing, gives
+    them bit for bit: tests/test_torch_prims_emulate.py)."""
+    from beifong_tpu_torch.scenes import round_trip_bin, target_range
+
+    def grid(target, prims=None):
+        s, rx, tab, kw = _prim_tables(cuda, target, coherent)
+        acc, _ = rk.receive_megakernel(tab.params, tab.prim, tab.txp,
+                                       n_lanes=1 << 22, seed=7, prims=prims,
+                                       **kw)
+        torch.cuda.synchronize()
+        return s, rx, acc
+
+    _, _, base = grid(None)
+    for target in ('sphere', 'disk', 'cylinder'):
+        s, rx, got = grid(target)
+        assert rk.launched_prim_kernel(coherent)
+        power = got[:, 0] if not coherent else got[:, 0].square().sum(-1)
+        b = round(round_trip_bin(s, rx, (0.0, -target_range(target), 0.0)))
+        assert b - 1 <= int(power.argmax()) <= b + 3, (target, b)
+        moved = float((got - base).abs().max())
+        assert moved > 100 * 1e-4 * float(base.abs().max()), target
+        adc, n = receive(s, receiver=rx, spp=1 << 16, max_depth=2,
+                         coherent=coherent, time_sampling='gate',
+                         device=cuda)
+        torch.cuda.synchronize()
+        assert rk.launched_prim_kernel(coherent)
+        assert bool(torch.isfinite(adc).all()) and n == 1 << 16
+    s, rx, twin = grid('plate', prims=True)
+    assert rk.launched_prim_kernel(coherent)
+    _, _, rect = grid('plate', prims=False)
+    assert not rk.launched_prim_kernel(coherent)
+    _, _, tab, kw = _prim_tables(cuda, 'plate', coherent)
+    u = rk.philox_uniforms(7, rk.n_draws(kw['max_depth']), 1 << 22,
+                           device=cuda)
+    amp = torch.zeros((rx.adc.n_time, 1), dtype=torch.float64, device=cuda)
+    cond = torch.zeros_like(amp)
+    ref, n_ref = rk.receive_megakernel_ref(
+        tab.params, tab.prim, tab.txp, u, amp_out=amp if coherent else None,
+        cond_out=cond if coherent else None, **kw)
+    for got in (twin, rect):
+        if coherent:
+            bound = 1e-4 * float(ref.abs().max()) \
+                + rk.phase_slack(s.band, rx.adc) \
+                * (amp + cond).float()[..., None]
+            assert bool(((got - ref).abs() <= bound).all())
+        else:
+            assert float((got - ref).abs().max()) \
+                <= 1e-4 * float(ref.abs().max())
+
+
+@pytest.mark.gpu
+def test_prims_cpi_takes_the_coherent_twin(cuda):
+    """A coherent CPI of the sphere scene runs in one launch of the
+    coherent prims twin (its pulse axis), finite, its target on the
+    near surface's round trip in every pulse; the launch, held pulse by
+    pulse against the plain version on each pulse's Philox stream (the
+    phase slack with the connections' own, lane by lane in amplitude)."""
+    from beifong_tpu_torch.scenes import round_trip_bin, target_range
+    s, rx = flagship_scene(target='sphere')
+    before = rk.receive_megakernel_cpi.by_config['coherent_prims']
+    cube, n = receive_cpi(s, n_pulses=4, prf=100.0, spp=1 << 18,
+                          max_depth=2, time_sampling='gate',
+                          engine='pallas', device=cuda)
+    torch.cuda.synchronize()
+    assert rk.launched_prim_kernel(True)
+    assert rk.receive_megakernel_cpi.by_config['coherent_prims'] \
+        == before + 1
+    assert bool(torch.isfinite(cube).all()) and cube.shape[0] == 4
+    b = round(round_trip_bin(s, rx, (0.0, -target_range('sphere'), 0.0)))
+    power = cube[:, :, 0, 0].square() + cube[:, :, 0, 1].square()
+    for p in range(4):
+        assert b - 1 <= int(power[p].argmax()) <= b + 3, (p, b)
+    packed, rx, _ = rk.pack_cpi(s, 4, 100.0)
+    params, prim, txp = (torch.tensor(a, device=cuda) for a in
+                         (packed.params, packed.prim, packed.txp))
+    params[:, 0] = rk.seed_slot(5)
+    kw = dict(adc=rx.adc, max_depth=2, time_sampling='gate',
+              rx_kind='wigner', doppler=True, receive_type=rx.receive_type,
+              has_lo=rx.lo_waveform is not None, coherent=True,
+              mirror=packed.mirror)
+    lane = torch.empty((4, 1 << 18), device=cuda)
+    acc, n_ev = rk.receive_megakernel_cpi(params, prim, txp, seed=5,
+                                          seed_step=7919, n_lanes=1 << 18,
+                                          lane_out=lane, **kw)
+    assert rk.launched_prim_kernel(True)
+    for p in range(4):
+        u = rk.philox_uniforms(5 + 7919 * p, rk.n_draws(2), 1 << 18,
+                               device=cuda)
+        amp = torch.zeros((rx.adc.n_time, 1), dtype=torch.float64,
+                          device=cuda)
+        cond = torch.zeros_like(amp)
+        lane_ref = torch.empty(1 << 18, device=cuda)
+        ref, n_ref = rk.receive_megakernel_ref(
+            params[p], prim[p], txp[p], u, amp_out=amp, cond_out=cond,
+            lane_out=lane_ref, **kw)
+        _assert_coherent_parity(acc[p], n_ev[p], ref, n_ref, amp,
+                                rk.phase_slack(s.band, rx.adc), lane[p],
+                                lane_ref, cond=cond)

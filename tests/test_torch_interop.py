@@ -97,6 +97,13 @@ def test_import_loads_no_jax():
             'beifong_tpu_torch.geometry.intersect_kernel, '
             'beifong_tpu_torch.integrators.radar_path, '
             'beifong_tpu_torch.core.rng; '
+            'from beifong_tpu_torch.geometry.shapes import shapegroup, '
+            'instance; '
+            'from beifong_tpu_torch.bsdf.tables import normalmap, bumpmap; '
+            'from beifong_tpu_torch.scenes import flagship_scene, '
+            'target_range; '
+            'from beifong_tpu_torch.integrators.receive_kernel import '
+            'launched_prim_kernel; '
             'bad = [m for m in sys.modules if m == "jax" '
             'or m.startswith("jax.") or m == "beifong_tpu" '
             'or m.startswith("beifong_tpu.")]; '

@@ -125,8 +125,11 @@ def test_unknown_texture_raises():
         s.add(bs.diffuse('d', texture='nowhere'))
         with pytest.raises(KeyError, match='nowhere'):
             s.compile() if pkg == 'jax' else s.compile(device='cpu')
-    with pytest.raises(NotImplementedError, match='ROADMAP A3'):
-        bsdf_t.normalmap('n', 'd', 'k')
+    # a normal map's texture is resolved as the others are
+    s = scene_t.Scene()
+    s.add(bsdf_t.diffuse('d'), bsdf_t.normalmap('n', 'd', 'nowhere'))
+    with pytest.raises(KeyError, match='nowhere'):
+        s.compile(device='cpu')
 
 
 @pytest.mark.parametrize('with_wl', [False, True], ids=['no-wl', 'wl'])

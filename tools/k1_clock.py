@@ -3,7 +3,9 @@
 the receive kernel whose warp loop reads clock64() at each turn's
 boundaries (lane 0 of each warp, after a __syncwarp), summed over the
 warps, at a main path's shape: the flagship (receive_flagship_kernel,
-2^28 Philox lanes, depth 3), the coherent kernel
+2^28 Philox lanes, depth 3; flagship_prims its prims twin on the same
+scene, flagship_prims_tex the twin that carries the texture codes there,
+flagship_sphere the prims twin on the sphere target), the coherent kernel
 (receive_coherent_kernel) on pulse 0 of the pulse train (2^24 lanes,
 depth 1) or the dechirp (2^24, depth 2), the analytic lobe twins'
 kernel (receive_lobe_kernel) on the windowed corner (2^24 lanes, depth
@@ -44,7 +46,7 @@ walks or element loops.
 
 Run from the repository root on the card's machine:
 
-    python3 tools/k1_clock.py [DIR] [--splat] [--config NAME]
+    python3 tools/k1_clock.py [DIR] [--splat] [--config NAME[,NAME...]]
 
 It copies DIR's (default: this checkout's) `beifong_tpu_torch` into
 `beifong_tpu_torch/_build/k1_clock/` (ignored by git), adds the clocks to
@@ -74,6 +76,9 @@ NAMES = ('turn', 'ray', 'shade', 'trace_of_ray', 'trace_of_shade', 'masks',
          'splat')
 # each configuration's kernel and the warp splat's call in its loop
 KERNELS = {'flagship': 'receive_flagship_kernel',
+           'flagship_prims': 'receive_flagship_kernel',
+           'flagship_prims_tex': 'receive_flagship_kernel',
+           'flagship_sphere': 'receive_flagship_kernel',
            'pulse_train': 'receive_coherent_kernel',
            'dechirp': 'receive_coherent_kernel',
            'window_thin': 'receive_lobe_kernel',
@@ -634,6 +639,10 @@ def run(tree: str, config: str = 'flagship') -> dict:
             or config in MDK_LAUNCH or config in ('mesh', 'mimo'):
         return run_ep(tree, config, rk, scenes, dev)
     s, rx = {'flagship': scenes.flagship_scene,
+             'flagship_prims': scenes.flagship_scene,
+             'flagship_prims_tex': scenes.flagship_scene,
+             'flagship_sphere': lambda: scenes.flagship_scene(
+                 target='sphere'),
              'pulse_train': lambda: scenes.pulse_train_scene(0),
              'dechirp': scenes.fmcw_dechirp_scene,
              'window_thin': lambda: scenes.window_corner_scene('thin'),
@@ -645,7 +654,16 @@ def run(tree: str, config: str = 'flagship') -> dict:
                          for a in (p.params, p.prim, p.txp))
     kw = dict(adc=rx.adc, max_depth=3, time_sampling='gate',
               rx_kind='wigner', n_lanes=1 << 28, seed=7)
-    if config != 'flagship':
+    if config.startswith('flagship_prims'):
+        # the prims twin on the all-rectangle scene; _tex: the one that
+        # carries the texture codes, handed a buffer of no texture
+        kw['prims'] = True
+        if config == 'flagship_prims_tex':
+            kw.update(tex=torch.zeros((8, rk.TEX_LANE), device=dev),
+                      bmp_meta=torch.tensor([[-1, 0, 0]] * prim.shape[0],
+                                            dtype=torch.int32, device=dev),
+                      textured=True)
+    if not config.startswith('flagship'):
         kw.update(max_depth=1 if config == 'pulse_train' else 2,
                   n_lanes=1 << 24, doppler=True, coherent=True,
                   receive_type=rx.receive_type,
@@ -765,7 +783,8 @@ def run_ep(tree: str, config: str, rk, scenes, dev) -> dict:
 
 def main() -> int:
     if len(sys.argv) > 1 and sys.argv[1] == '--child':
-        print('CLK ' + json.dumps(run(sys.argv[2], sys.argv[3])), flush=True)
+        for config in sys.argv[3].split(','):
+            print('CLK ' + json.dumps(run(sys.argv[2], config)), flush=True)
         return 0
     argv = sys.argv[1:]
     config = 'flagship'
@@ -775,8 +794,13 @@ def main() -> int:
         del argv[i:i + 2]
     args = [a for a in argv if a != '--splat']
     root = os.path.abspath(args[0] if args else HERE)
-    tree = instrumented_copy(root, '--splat' in argv, KERNELS[config],
-                             config)
+    # several configurations of one kernel (comma-separated) share a build
+    # and a process, one CLK line each
+    configs = config.split(',')
+    if len({KERNELS[c] for c in configs}) != 1:
+        raise SystemExit('--config: configurations of one kernel')
+    tree = instrumented_copy(root, '--splat' in argv, KERNELS[configs[0]],
+                             configs[0])
     res = subprocess.run([sys.executable, os.path.abspath(__file__),
                           '--child', tree, config], capture_output=True,
                          text=True)

@@ -49,7 +49,12 @@ this tree's mesh Doppler kernel on the Doppler mesh's tables, the
 ablation msk_mdk's route), and golden config
 6 (MIMO_CASES: in gate sampling at depth 2, in fixed sampling at depth 3,
 and on 1,024 bins, the global grid) the MIMO array kernel: `--cases
-mesh_power,...,mimo_config6,...`.
+mesh_power,...,mimo_config6,...`.  The prims twins (PRIM_CASES: the
+flagship scene with a sphere, disk or cylinder target, power at depth 3
+or I / Q at depth 2) run this tree's twin against the plain version (I /
+Q lane by lane within 1e-4 of each lane and 1e-6 of the largest), and
+the twin on the all-rectangle scene against the other tree's rectangle
+kernel, bit for bit: `--cases prim_sphere,prim_sphere_iq,...`.
 """
 
 from __future__ import annotations
@@ -109,6 +114,17 @@ def _library(path: str):
                     rk._bind(lib)
                 except AttributeError:   # a tree without the launch record
                     pass
+                try:
+                    lib.rk_prim_kernel
+                except AttributeError:
+                    # a tree before the prims twins: rk_geometry and
+                    # rk_launch without their `prims` flag (never set for
+                    # such a tree)
+                    geo0, run0 = lib.rk_geometry, lib.rk_launch
+                    geo0.argtypes = geo0.argtypes[:18] + geo0.argtypes[19:]
+                    run0.argtypes = run0.argtypes[:-2] + run0.argtypes[-1:]
+                    lib.rk_geometry = lambda *a: geo0(*(a[:18] + a[19:]))
+                    lib.rk_launch = lambda *a: run0(*(a[:-2] + a[-1:]))
                 try:
                     lib.rk_endpoint_kernel
                 except AttributeError:
@@ -552,6 +568,72 @@ def compare_endpoint(libs, name: str, n: int, gen) -> dict:
     return out
 
 
+# the prims twins' scenes: the flagship scene's target, and coherent
+PRIM_CASES = {f'prim_{t}{"_iq" if c else ""}': (t, c)
+              for t in ('sphere', 'disk', 'cylinder') for c in (False, True)}
+
+
+def compare_prims(libs, name: str, n: int, gen) -> dict:
+    """This tree's prims twin on the flagship scene with a sphere, disk
+    or cylinder target against the plain version (power: the grid, events;
+    I / Q: lane by lane, the grid), on injected uniforms and Philox; then
+    the twin on the all-rectangle scene against the other tree's
+    rectangle kernel, bit for bit.  {mode: (lanes equal (against the
+    plain version: how many are off), events equal, grids equal, grid max
+    diff / max|acc|)}."""
+    import torch
+    sys.path.insert(0, HERE)
+    from beifong_tpu_torch import scenes as S
+    from beifong_tpu_torch.integrators import receive_kernel as rk
+    target, coh = PRIM_CASES[name]
+    depth = 2 if coh else 3
+    out = {}
+
+    def tables(tgt):
+        s, rx = S.flagship_scene(target=tgt)
+        tab = rk._device_tables(s, s.compile(device='cpu'), rx, 'cpu')
+        kw = dict(adc=rx.adc, max_depth=depth, time_sampling='gate',
+                  rx_kind='wigner', doppler=coh, coherent=coh, mirror=False,
+                  rule=0, has_lo=False)
+        return tab, kw
+
+    def launch(which, tab, kw, u, prims):
+        rk.LIBRARY = libs[which]
+        lane = torch.zeros(n) if coh else None
+        acc, ev = rk._launch(tab.params, tab.prim, tab.txp, None, u, None,
+                             lane, n_pulses=1, n_lanes=n, seed=13,
+                             seed_step=0, patch_p=0, prims=prims, **kw)
+        return acc, ev, lane
+
+    tab, kw = tables(target)
+    nd = rk.n_draws(depth)
+    for u in (torch.rand((nd, n), generator=gen), None):
+        acc, ev, lane = launch('this', tab, kw, u, True)
+        uu = u if u is not None else rk.philox_uniforms(13, nd, n)
+        lane_ref = torch.zeros(n) if coh else None
+        ref, n_ref = rk.receive_megakernel_ref(
+            tab.params, tab.prim, tab.txp, uu, lane_out=lane_ref,
+            **{k: v for k, v in kw.items() if k != 'rule'})
+        ref = ref.reshape(acc.shape)
+        scale = float(ref.abs().max()) or 1.0
+        # I / Q: the lanes beyond 1e-4 of themselves and 1e-6 of the
+        # largest (a grazing root may take another path, as a mesh edge)
+        off = None if lane is None else (lane - lane_ref).abs() > (
+            1e-4 * lane_ref.abs() + 1e-6 * float(lane_ref.abs().max()))
+        lanes = None if off is None else f'{int(off.sum())} of {n} off'
+        out[f'{"injected" if u is not None else "philox"} vs plain'] = (
+            lanes, int(ev[0]) == int(n_ref), bool(torch.equal(acc, ref)),
+            float((acc - ref).abs().max()) / scale)
+    tab, kw = tables('plate')
+    (a0, e0, l0), (a1, e1, l1) = (launch('other', tab, kw, None, False),
+                                  launch('this', tab, kw, None, True))
+    out['plate: twin vs the other rectangle kernel'] = (
+        l0 is None or bool(torch.equal(l0, l1)), bool(torch.equal(e0, e1)),
+        bool(torch.equal(a0, a1)),
+        float((a0 - a1).abs().max()) / (float(a0.abs().max()) or 1.0))
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--other', required=True)
@@ -560,7 +642,8 @@ def main() -> int:
     ap.add_argument('--cases', default=','.join(CASES),
                     help=f'of {tuple(CASES) + tuple(EP_CASES)}'
                     f' + {tuple(DOP_CASES)} + {tuple(MESH_CASES)}'
-                    f' + {tuple(MESH_POWER_CASES)} + {tuple(MIMO_CASES)}')
+                    f' + {tuple(MESH_POWER_CASES)} + {tuple(MIMO_CASES)}'
+                    f' + {tuple(PRIM_CASES)}')
     ap.add_argument('--grids', action='store_true')
     args = ap.parse_args()
     import torch
@@ -639,8 +722,10 @@ def main() -> int:
         return 0
     for name in args.cases.split(','):
         if name in EP_CASES or name in DOP_CASES or name in MESH_CASES \
-                or name in MESH_POWER_CASES or name in MIMO_CASES:
+                or name in MESH_POWER_CASES or name in MIMO_CASES \
+                or name in PRIM_CASES:
             fn = compare_endpoint if name in EP_CASES else \
+                compare_prims if name in PRIM_CASES else \
                 compare_mesh if name in MESH_CASES else \
                 compare_mesh_power if name in MESH_POWER_CASES else \
                 compare_mimo if name in MIMO_CASES else compare_doppler

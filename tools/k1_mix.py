@@ -85,14 +85,20 @@ MAIN_LANES = 1 << 28
 POOL = 64                    # paths a warp in the flagship kernel
 # the flagship kernel of a tree: the grid-stride instantiation or the
 # warp-wavefront kernel that replaced it; the same for the coherent one
-# (a tree with texture twins: their untextured instantiation, <false>)
+# (a tree with texture twins: their untextured instantiation, <false>; with
+# prims twins, <false, false>)
 KERNEL = (r'receive_trace_kernelILb0ELb0ELb0E|'
-          r'receive_flagship_kernel(?!ILb1E)')
+          r'receive_flagship_kernel(?!ILb1E|ILb0ELb1E)')
 COH_KERNEL = (r'receive_doppler_kernelILb0ELb1ELb0ELb0ELb0E|'
-              r'receive_coherent_kernel(?!ILb1E)')
-# the texture twins of the two
-FLAG_TEX_KERNEL = r'receive_flagship_kernelILb1E'
-COH_TEX_KERNEL = r'receive_coherent_kernelILb1E'
+              r'receive_coherent_kernel(?!ILb1E|ILb0ELb1E)')
+# the texture twins of the two (a tree with prims twins: <true, false>),
+# their prims twins (<false, true>) and a textured scene's (<true, true>)
+FLAG_TEX_KERNEL = r'receive_flagship_kernelILb1E(?!Lb1E)'
+COH_TEX_KERNEL = r'receive_coherent_kernelILb1E(?!Lb1E)'
+FLAG_PRIM_KERNEL = r'receive_flagship_kernelILb0ELb1E'
+COH_PRIM_KERNEL = r'receive_coherent_kernelILb0ELb1E'
+FLAG_PRIM_TEX_KERNEL = r'receive_flagship_kernelILb1ELb1E'
+COH_PRIM_TEX_KERNEL = r'receive_coherent_kernelILb1ELb1E'
 # each configuration: depth, time sampling, the main path's lanes, its
 # kernels
 LOBE_KERNEL = (r'receive_doppler_kernelILb0ELb0ELb0ELb0ELb1E|'
@@ -167,13 +173,33 @@ CONFIGS = {'flagship': dict(depth=DEPTH, ts='gate', lanes=MAIN_LANES,
            'coherent_checker': dict(depth=2, ts='gate', lanes=1 << 24,
                                     kernel=COH_TEX_KERNEL),
            'coherent_bitmap': dict(depth=2, ts='gate', lanes=1 << 24,
-                                   kernel=COH_TEX_KERNEL)}
+                                   kernel=COH_TEX_KERNEL),
+           **{f'flagship_{t}': dict(depth=DEPTH, ts='gate',
+                                    lanes=MAIN_LANES, kernel=FLAG_PRIM_KERNEL)
+              for t in ('sphere', 'disk', 'cylinder')},
+           **{f'coherent_{t}': dict(depth=2, ts='gate', lanes=1 << 24,
+                                    kernel=COH_PRIM_KERNEL)
+              for t in ('sphere', 'disk', 'cylinder')},
+           'flagship_sphere_checker': dict(depth=DEPTH, ts='gate',
+                                           lanes=MAIN_LANES,
+                                           kernel=FLAG_PRIM_TEX_KERNEL),
+           'coherent_sphere_checker': dict(depth=2, ts='gate',
+                                           lanes=1 << 24,
+                                           kernel=COH_PRIM_TEX_KERNEL)}
 # the texture twins' configurations: the flagship scene's ground texture,
 # and whether the twin is the coherent kernel's (I / Q)
 TEX_CONFIGS = {'flagship_checker': ('checkerboard', False),
                'flagship_bitmap': ('bitmap', False),
                'coherent_checker': ('checkerboard', True),
                'coherent_bitmap': ('bitmap', True)}
+# the prims twins' configurations: the flagship scene's target, whether
+# the twin is the coherent kernel's (I / Q), and the ground's texture (the
+# sphere over a checkerboard: the twin that carries the texture codes)
+PRIM_CONFIGS = {**{f'{k}_{t}': (t, k == 'coherent', None)
+                   for k in ('flagship', 'coherent')
+                   for t in ('sphere', 'disk', 'cylinder')},
+                'flagship_sphere_checker': ('sphere', False, 'checkerboard'),
+                'coherent_sphere_checker': ('sphere', True, 'checkerboard')}
 # the endpoint configurations: (scenes' function, coherent)
 EP_SCENES = {'ep_phased_tx': ('phased_tx_scene', False),
              'ep_phased_rx': ('phased_rx_scene', False),
@@ -313,6 +339,9 @@ def scene_of(config: str):
         return scenes.mimo_beamform_scene()
     if config in TEX_CONFIGS:
         return scenes.flagship_scene(ground_texture=TEX_CONFIGS[config][0])
+    if config in PRIM_CONFIGS:
+        target, _, ground = PRIM_CONFIGS[config]
+        return scenes.flagship_scene(target=target, ground_texture=ground)
     if config == 'flagship':
         return scenes.flagship_scene()
     if config == 'pulse_train':
@@ -356,6 +385,14 @@ def ref_kw(config: str, rx, packed) -> dict:
         coh = TEX_CONFIGS[config][1]
         kw.update(doppler=coh, coherent=coh, tex=torch.tensor(packed.tex),
                   bmp_meta=torch.tensor(packed.bmp_meta))
+        return kw
+    if config in PRIM_CONFIGS:
+        _, coh, ground = PRIM_CONFIGS[config]
+        kw.update(doppler=coh, coherent=coh)
+        if ground is not None:
+            import torch
+            kw.update(tex=torch.tensor(packed.tex),
+                      bmp_meta=torch.tensor(packed.bmp_meta))
         return kw
     if config in EP_SCENES:
         import torch
@@ -470,7 +507,9 @@ def stage_masks(n_lanes: int, device: str = 'cpu',
                                       **kw)
     finally:
         rk.walk_ref = walk_ref
-    n_rect = int((prim[:, 0] == 0).sum())
+    # the analytic prim records each trace tests (rectangles; with the
+    # prims twins, spheres, disks and cylinders too)
+    n_rect = int(((prim[:, 0] >= 0) & (prim[:, 0] <= 3)).sum())
     # the cross-WDFs' totals (not masks): pair sums, pairs tested, pairs
     # the endpoint kernels' index visits
     out.append(('_pairs', -1, dict({k: stats.get(k, 0) for k in (
@@ -1024,6 +1063,8 @@ if kw.get('eoff') is not None:
     lob.update(n_elem=int(kw['eoff'].shape[0]))
 if kw.get('tex') is not None:
     lob.update(tex=True)
+if getattr(p, 'prims', False):
+    lob.update(prims=True)
 if {config!r} in k1_mix.EP_SCENES:
     import inspect
     lob = {{'ep': True}}
