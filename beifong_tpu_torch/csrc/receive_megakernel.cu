@@ -6715,6 +6715,16 @@ receive_lobe_kernel(const float* __restrict__ params,
 //    cells and the atomics take a quarter of the time, but summing the
 //    warp's taps a cell at a time before them, or a row of floats a warp
 //    summed in lane order, cost more than they saved (PERF.md).
+//  - Its texture twin (TEX: checkerboard and bitmap rectangles) and its
+//    prims twin (PRIM: spheres, disks and cylinders beside the
+//    rectangles; with TEX, the twin that also carries the texture codes)
+//    are the coherent kernel's, flag for flag: each rectangle's texture
+//    record and each record's kind in shared memory after the block's
+//    grid, the closest-hit and the shadow tests by kind (prim_hit4_uv,
+//    the same branch in every lane of a warp), SHADE's normal recomputed
+//    from the slot's ray and t (prim_normal4), the winner's textured
+//    reflectance in the slot.  A moving sphere's velocity is its row's,
+//    as a rectangle's: the Doppler factors' arithmetic is the plate's.
 // The packed tables, the positional draws (n_draws unchanged), the tent,
 // the partial rows, the reduce and the CPI's pulse axis are the other
 // configurations'.  The tags "[k1 stage: ...]" name each stage for
@@ -6724,6 +6734,7 @@ receive_lobe_kernel(const float* __restrict__ params,
 // ~60 B spilled) ran range_doppler 0.90 of four (128) and 0.93 of five
 constexpr int DPW_MIN_BLOCKS = 6;
 
+template <bool TEX, bool PRIM = false>
 __global__ void __launch_bounds__(COH_THREADS, DPW_MIN_BLOCKS)
 receive_doppler_power_kernel(const float* __restrict__ params,
                              const float* __restrict__ prim,
@@ -6760,6 +6771,13 @@ receive_doppler_power_kernel(const float* __restrict__ params,
     const long long n_vals = (long long)cfg.n_time * cfg.n_freq;
     // mode 1 without warp rows: the block's float grid after the warps'
     float* s_grid = reinterpret_cast<float*>(s_warps + (T / 32) * wbytes);
+    // TEX: each rectangle's texture record, after the block's grid
+    float4* s_tex = reinterpret_cast<float4*>(
+        reinterpret_cast<char*>(s_grid)
+        + (cfg.mode == 1 && !rows ? (4 * n_vals + 15) & ~15LL : 0LL));
+    // PRIM: the kinds of the prim records, then of the shadowing rows,
+    // after the texture records where there are any
+    int* s_kind = reinterpret_cast<int*>(s_tex + (TEX ? 2 * np : 0));
 
     for (int i = tid; i < cfg.n_params; i += T) s_par[i] = params[i];
     for (int i = tid; i < TXP_COLS; i += T) s_tx[i] = txp[i];
@@ -6771,10 +6789,18 @@ receive_doppler_power_kernel(const float* __restrict__ params,
     if (tid == 0) {
         // the rectangles in prim order, and those that can shadow an NEE
         // (the transmitter's own, tx index 0 in column 14, never does)
+        // PRIM: the spheres, disks and cylinders among them, in prim order
         int nr = 0, nb = 0;
         for (int p = 0; p < np; ++p) {
             const float* row = prim + p * PRIM_COLS;
-            if ((int)row[0] != RECTANGLE) continue;
+            const int kd = (int)row[0];
+            if constexpr (PRIM) {
+                if (kd != RECTANGLE && kd != SPHERE && kd != DISK
+                    && kd != CYLINDER)
+                    continue;
+            } else if (kd != RECTANGLE) {
+                continue;
+            }
             const float* q = row + 1;
             float rnorm = rsqrtf(fmaxf(q[8] * q[8] + q[9] * q[9]
                                        + q[10] * q[10], F(1e-20)));
@@ -6786,11 +6812,16 @@ receive_doppler_power_kernel(const float* __restrict__ params,
                                row[13]);
             r[4] = make_float4(row[14], row[18], row[15], row[16]);
             r[5] = make_float4(row[17], row[19], row[20], row[21]);
+            if constexpr (TEX)
+                tex_record(s_tex + 2 * (nr - 1), row, p, cfg.grid, np,
+                           cfg.g_w);
+            if constexpr (PRIM) s_kind[nr - 1] = kd;
             if (row[14] != 0.0f) {
                 float4* b = s_blk + 3 * nb++;
                 b[0] = r[0];
                 b[1] = r[1];
                 b[2] = r[2];
+                if constexpr (PRIM) s_kind[np + nb - 1] = kd;
             }
         }
         s_cnt[0] = nr;
@@ -6904,7 +6935,8 @@ receive_doppler_power_kernel(const float* __restrict__ params,
             lsum = e.w;
             const int dw = __float_as_int(sl4[2].w);
             depth = dw & 0xffff;
-            wdel = (dw >> 16) != 0;
+            // TEX: the hit rectangle rides bits 17 and up
+            wdel = ((TEX ? dw & 0x1ffff : dw) >> 16) != 0;
         }
         const int d0 = base + 6 * depth;
         float ud[6];
@@ -7022,9 +7054,18 @@ receive_doppler_power_kernel(const float* __restrict__ params,
             dz = b.z;
             t_rx0 = c.x;
             const float tb = c.y;
-            const float4* rec = s_rec + COH_REC * __float_as_int(c.z);
+            // TEX: the slot holds the textured reflectance in place of
+            // the rectangle, which rides the depth word
+            const int pw = TEX ? __float_as_int(c.w) >> 17
+                               : __float_as_int(c.z);
+            const float4* rec = s_rec + COH_REC * pw;
             const float4 nrb = rec[3], lob = rec[4], kv = rec[5];
-            const float nx = nrb.x, ny = nrb.y, nz = nrb.z, rb = nrb.w;
+            // PRIM: a sphere's or cylinder's normal at the hit
+            const float4 nh = PRIM ? prim_normal4(rec, s_kind[pw], nrb, cx,
+                                                  cy, cz, dx, dy, dz, tb)
+                                   : nrb;
+            const float nx = nh.x, ny = nh.y, nz = nh.z,
+                        rb = TEX ? c.z : nrb.w;
             const float txc = lob.x, kb = lob.y, ab = lob.z, eb = lob.w;
             const float kk = kv.x, vbx = kv.y, vby = kv.z, vbz = kv.w;
             const float n_time_f = (float)cfg.n_time;
@@ -7132,8 +7173,12 @@ receive_doppler_power_kernel(const float* __restrict__ params,
                     bool occ = false;
                     for (int r = 0; r < n_blk && !occ; ++r) {
                         float t_p;
-                        bool hit_p = rect_hit4(s_blk + 3 * r, sx, sy, sz,
-                                               wx_, wy_, wz_, &t_p);
+                        bool hit_p = PRIM ? prim_hit4(s_blk + 3 * r,
+                                                      s_kind[np + r], sx, sy,
+                                                      sz, wx_, wy_, wz_, &t_p)
+                                          : rect_hit4(s_blk + 3 * r, sx, sy,
+                                                      sz, wx_, wy_, wz_,
+                                                      &t_p);
                         occ = hit_p && t_p > F(1e-4) && t_p < limit;
                     }
                     // [k1 stage: nee]
@@ -7245,14 +7290,23 @@ receive_doppler_power_kernel(const float* __restrict__ params,
         if (live) {
             float tb = F(3.4e38);
             int pw = -1;
+            float bpx = 0.0f, bpy = 0.0f;      // TEX: the winner's (px, py)
             for (int r = 0; r < n_rect; ++r) {
                 // [k1 stage: closest]
-                float t_p;
-                bool hit_p = rect_hit4(s_rec + COH_REC * r, ox, oy, oz, dx,
-                                       dy, dz, &t_p);
+                float t_p, px, py;
+                bool hit_p = PRIM ? prim_hit4_uv(s_rec + COH_REC * r,
+                                                 s_kind[r], ox, oy, oz, dx,
+                                                 dy, dz, &t_p, &px, &py)
+                                  : rect_hit4_uv(s_rec + COH_REC * r, ox, oy,
+                                                 oz, dx, dy, dz, &t_p, &px,
+                                                 &py);
                 if (hit_p && t_p > F(1e-4) && t_p < tb) {
                     tb = t_p;
                     pw = r;
+                    if constexpr (TEX) {
+                        bpx = px;
+                        bpy = py;
+                    }
                 }
             }
             // [k1 stage: trace]
@@ -7261,9 +7315,18 @@ receive_doppler_power_kernel(const float* __restrict__ params,
                 const unsigned long long ln = (unsigned long long)lane;
                 sl4[0] = make_float4(ox, oy, oz, thr);
                 sl4[1] = make_float4(dx, dy, dz, plen);
-                sl4[2] = make_float4(t_rx0, tb, __int_as_float(pw),
-                                     __int_as_float(depth
-                                                    | (wdel ? 1 << 16 : 0)));
+                if constexpr (TEX)
+                    sl4[2] = make_float4(
+                        t_rx0, tb,
+                        tex_reflectance(s_tex + 2 * pw,
+                                        s_rec[COH_REC * pw + 3].w, bpx, bpy,
+                                        cfg.grid, cfg.g_w),
+                        __int_as_float(depth | (wdel ? 1 << 16 : 0)
+                                       | pw << 17));
+                else
+                    sl4[2] = make_float4(t_rx0, tb, __int_as_float(pw),
+                                         __int_as_float(
+                                             depth | (wdel ? 1 << 16 : 0)));
                 sl4[3] = make_float4(__uint_as_float((unsigned)ln),
                                      __uint_as_float((unsigned)(ln >> 32)),
                                      dop, lsum);
@@ -7316,6 +7379,16 @@ receive_doppler_power_kernel(const float* __restrict__ params,
         part_ev[blockIdx.x] = tot;
     }
 }
+
+// The untextured Doppler power kernel of rectangles, instantiated where
+// it is defined, as the flagship and the coherent kernels' are, so that its
+// machine code stays as it was; the texture and prims twins are
+// instantiated where they are used.
+template __global__ void receive_doppler_power_kernel<false>(
+    const float* __restrict__, const float* __restrict__,
+    const float* __restrict__, const float* __restrict__,
+    const float* __restrict__, bvh::Tables, float* __restrict__,
+    double* __restrict__, unsigned long long* __restrict__, Cfg);
 
 // ---- the mesh Doppler kernel: the coherent kernel's turns with the walk ---
 //
@@ -9661,7 +9734,7 @@ constexpr auto kernel_of() {
     else if constexpr (DOP && !MESH && !MED && !EP && LOB)
         return receive_lobe_kernel<COH>;
     else if constexpr (DOP && !MESH && !COH && !MED && !EP)
-        return receive_doppler_power_kernel;
+        return receive_doppler_power_kernel<TEX, PRIM>;
     else if constexpr (EP && !MESH && !MED && !LOB && !DOP)
         return receive_endpoint_kernel;
     else if constexpr (EP && !MESH && !MED && !LOB && DOP && COH)
@@ -9809,12 +9882,17 @@ int geometry(int n_time, int n_freq, long long n_lanes, int n_prims,
     } else if (DOP && !MESH && !COH && !MED && !EP && !LOB) {
         // the Doppler power kernel: the coherent kernel's tables, each
         // warp's paths (and row of n_time doubles), then the block's float
-        // grid where there are no warp rows (mode 1)
+        // grid where there are no warp rows (mode 1); its texture twin's
+        // records after them, and its prims twin's kinds after those
         T = COH_THREADS;
         const bool rows = lob_rows(n_time, n_freq, mode, 1);
+        const int grid_bytes = mode == 1 && !rows ? 4 * n_time * n_freq : 0;
         smem = coh_table_bytes(n_prims, n_params)
                + (T / 32) * lob_warp_bytes(n_time, rows, 1)
-               + (mode == 1 && !rows ? 4 * n_time * n_freq : 0);
+               + (PRIM ? 8 * n_prims : 0)
+               + (TEX || PRIM ? ((grid_bytes + 15) & ~15)
+                                    + (TEX ? 32 * n_prims : 0)
+                              : grid_bytes);
     } else if (DOP && !MESH && !MED && !EP && LOB) {
         // the analytic lobe twins' kernel: the coherent kernel's layout,
         // rectangles of LOB_REC float4s, a bin's power or I and Q
@@ -9949,19 +10027,33 @@ int geometry_lobes(int n_time, int n_freq, long long n_lanes, int n_prims,
 }
 
 // Whether a call may run a texture twin: the flagship configuration
-// (mode 0) or the coherent one, on an analytic scene, one pulse, in
-// vacuum, with one Wigner transmitter, no lobe twin and no MIMO.
-bool tex_config(int mode, int coh, int mesh, int medium, int ep, int lob,
-                int n_elem, int n_pulses) {
-    return (mode == 0 || coh) && !mesh && !medium && !ep && !lob
-           && n_elem == 0 && n_pulses == 1;
+// (mode 0), the coherent one or the Doppler one in power, on an analytic
+// scene, one pulse, in vacuum, with one Wigner transmitter, no lobe twin
+// and no MIMO.  A prims twin asks with `n_pulses` 1: a CPI's pulses run
+// it too (their tables carry no texture: the caller's rule).
+bool tex_config(int mesh, int medium, int ep, int lob, int n_elem,
+                int n_pulses) {
+    return !mesh && !medium && !ep && !lob && n_elem == 0 && n_pulses == 1;
 }
 
-// Whether a call may run a prims twin: as a texture twin, a CPI's pulses
-// too (whose tables carry no texture: the caller's rule).
-bool prim_config(int mode, int coh, int mesh, int medium, int ep, int lob,
-                 int n_elem) {
-    return tex_config(mode, coh, mesh, medium, ep, lob, n_elem, 1);
+// The launch geometry of a texture or prims twin (with `coh`, the coherent
+// kernel's; mode 0 the flagship's; else the Doppler power kernel's).
+template <bool TEX, bool PRIM>
+int geometry_twin(int n_time, int n_freq, long long n_lanes, int n_prims,
+                  int n_params, int n_msh, int mode, int coh, int n_pulses,
+                  int n_elem, int* blocks, int* threads, int* smem_bytes) {
+    auto g = [&](auto fn) {
+        return fn(n_time, n_freq, n_lanes, n_prims, n_params, n_msh, mode,
+                  n_pulses, n_elem, 1, 0, 0, blocks, threads, smem_bytes);
+    };
+    if (coh)
+        return g(geometry<false, true, true, false, false, false, false, TEX,
+                          PRIM>);
+    if (mode == 0)
+        return g(geometry<false, false, false, false, false, false, false,
+                          TEX, PRIM>);
+    return g(geometry<false, true, false, false, false, false, false, TEX,
+                      PRIM>);
 }
 
 }  // namespace
@@ -9973,11 +10065,11 @@ extern "C" {
 // transmitters, n_pairs pairs a phased transmitter's row, n_rx_pairs an
 // analog phased receiver's: the endpoint kernels' index), of a Doppler
 // configuration's lobe twin when `lob` != 0 (one of the three at most), of
-// the flagship or the analytic coherent configuration's texture twin when
-// `tex` != 0 (one pulse, vacuum, one Wigner transmitter, no lobe twin), of
-// their prims twin when `prims` != 0 (spheres, disks and cylinders; with
-// `tex` too, the twin that also carries the texture codes; a CPI's pulses
-// too).
+// the flagship, the analytic coherent or the analytic Doppler power
+// configuration's texture twin when `tex` != 0 (one pulse, vacuum, one
+// Wigner transmitter, no lobe twin), of their prims twin when `prims` != 0
+// (spheres, disks and cylinders; with `tex` too, the twin that also
+// carries the texture codes; a CPI's pulses too).
 int rk_geometry(int n_time, int n_freq, long long n_lanes, int n_prims,
                 int n_params, int n_msh, int mesh, int mode, int coh,
                 int n_pulses, int n_elem, int medium, int ep, int lob,
@@ -9987,36 +10079,20 @@ int rk_geometry(int n_time, int n_freq, long long n_lanes, int n_prims,
         || n_tx < 1 || n_tx > MAX_TX || n_pairs < 0 || n_rx_pairs < 0)
         return (int)cudaErrorInvalidValue;
     if (prims) {
-        if (!prim_config(mode, coh, mesh, medium, ep, lob, n_elem))
+        if (!tex_config(mesh, medium, ep, lob, n_elem, 1))
             return (int)cudaErrorInvalidValue;
         // with `tex`, the twin that carries the texture codes
-        auto of = [&](auto tex_) {
-            constexpr bool TEX = decltype(tex_)::value;
-            return coh ? geometry<false, true, true, false, false, false,
-                                  false, TEX, true>(
-                             n_time, n_freq, n_lanes, n_prims, n_params,
-                             n_msh, mode, n_pulses, n_elem, 1, 0, 0, blocks,
-                             threads, smem_bytes)
-                       : geometry<false, false, false, false, false, false,
-                                  false, TEX, true>(
-                             n_time, n_freq, n_lanes, n_prims, n_params,
-                             n_msh, mode, n_pulses, n_elem, 1, 0, 0, blocks,
-                             threads, smem_bytes);
-        };
-        return tex ? of(std::true_type{}) : of(std::false_type{});
+        return (tex ? geometry_twin<true, true> : geometry_twin<false, true>)(
+            n_time, n_freq, n_lanes, n_prims, n_params, n_msh, mode, coh,
+            n_pulses, n_elem, blocks, threads, smem_bytes);
     }
     if (tex) {
-        if (!tex_config(mode, coh, mesh, medium, ep, lob, n_elem, n_pulses))
+        if (!tex_config(mesh, medium, ep, lob, n_elem, n_pulses))
             return (int)cudaErrorInvalidValue;
-        return coh ? geometry<false, true, true, false, false, false, false,
-                              true>(n_time, n_freq, n_lanes, n_prims,
-                                    n_params, n_msh, mode, n_pulses, n_elem,
-                                    1, 0, 0, blocks, threads, smem_bytes)
-                   : geometry<false, false, false, false, false, false,
-                              false, true>(n_time, n_freq, n_lanes, n_prims,
-                                           n_params, n_msh, mode, n_pulses,
-                                           n_elem, 1, 0, 0, blocks, threads,
-                                           smem_bytes);
+        return geometry_twin<true, false>(n_time, n_freq, n_lanes, n_prims,
+                                          n_params, n_msh, mode, coh,
+                                          n_pulses, n_elem, blocks, threads,
+                                          smem_bytes);
     }
     if (lob)
         return geometry_lobes(n_time, n_freq, n_lanes, n_prims, n_params,
@@ -10134,16 +10210,14 @@ int rk_launch(const float* params, const float* prim, const float* txp,
     if (tex != nullptr) {
         // the texture and prims twins read the texture buffer through
         // cfg.grid
-        if (!(prims ? prim_config(mode, coh, bbox != nullptr, medium, ep,
-                                  lobes, n_elem)
-                    : tex_config(mode, coh, bbox != nullptr, medium, ep,
-                                 lobes, n_elem, n_pulses))
+        if (!tex_config(bbox != nullptr, medium, ep, lobes, n_elem,
+                        prims ? 1 : n_pulses)
             || tex_w < 1)
             return (int)cudaErrorInvalidValue;
         cfg.grid = tex;
         cfg.g_w = tex_w;
-    } else if (prims && !prim_config(mode, coh, bbox != nullptr, medium, ep,
-                                     lobes, n_elem)) {
+    } else if (prims && !tex_config(bbox != nullptr, medium, ep, lobes,
+                                    n_elem, 1)) {
         return (int)cudaErrorInvalidValue;
     }
     if (n_elem > 0 && (mode == 0 || !coh || bbox != nullptr || n_freq != 1
@@ -10233,7 +10307,14 @@ int rk_launch(const float* params, const float* prim, const float* txp,
                        lane_val);
         }
         else if constexpr (!MED && !EP)
-            launch(receive_doppler_power_kernel, lane_val);
+            prims ? (tex != nullptr
+                         ? launch(receive_doppler_power_kernel<true, true>,
+                                  lane_val)
+                         : launch(receive_doppler_power_kernel<false, true>,
+                                  lane_val))
+            : tex != nullptr
+                ? launch(receive_doppler_power_kernel<true>, lane_val)
+                : launch(receive_doppler_power_kernel<false>, lane_val);
         else
             launch(receive_doppler_kernel<false, false, MED, EP>, lane_val);
     };
@@ -10291,14 +10372,29 @@ int rk_epx_check(const float* row, int n_k, const float* m, float wx,
 }
 
 // The analytic Doppler power configuration's kernel (twin 0), or its
-// media (1) or endpoint (2) twin's, to compare with the launch record.
+// media (1) or endpoint (2) twin's, or its texture (3), prims (4) or
+// textured prims (5) twin, to compare with the launch record.
 const void* rk_doppler_power_kernel(int twin) {
-    return twin == 1 ? reinterpret_cast<const void*>(
-                           receive_doppler_kernel<false, false, true, false>)
-           : twin == 2 ? reinterpret_cast<const void*>(
-                             receive_doppler_kernel<false, false, false, true>)
-                       : reinterpret_cast<const void*>(
-                             receive_doppler_power_kernel);
+    switch (twin) {
+    case 1:
+        return reinterpret_cast<const void*>(
+            receive_doppler_kernel<false, false, true, false>);
+    case 2:
+        return reinterpret_cast<const void*>(
+            receive_doppler_kernel<false, false, false, true>);
+    case 3:
+        return reinterpret_cast<const void*>(
+            receive_doppler_power_kernel<true>);
+    case 4:
+        return reinterpret_cast<const void*>(
+            receive_doppler_power_kernel<false, true>);
+    case 5:
+        return reinterpret_cast<const void*>(
+            receive_doppler_power_kernel<true, true>);
+    default:
+        return reinterpret_cast<const void*>(
+            receive_doppler_power_kernel<false>);
+    }
 }
 
 // The mesh Doppler kernel of a vacuum mesh configuration of the Doppler

@@ -49,10 +49,11 @@ rectangle (the second lobe in prim columns 27-33; NEE evaluates the mix,
 the bounce picks a lobe, a mask's other lobe passes the ray on); a
 refracted or passed ray leaves through the back face, and a lane a
 delta lobe continued counts a direct transmitter hit at its next
-vertex.  The flagship and coherent configurations have a texture twin,
-which scales a diffuse rectangle's reflectance by its checkerboard or
-bitmap texture at the hit's local uv (prim columns 22-26; the bitmaps'
-texel rows `PackedScene.tex`), as the JAX kernel's `prim_tex` does.  Per
+vertex.  The flagship, Doppler power and coherent configurations have a
+texture twin, which scales a diffuse rectangle's reflectance by its
+checkerboard or bitmap texture at the hit's local uv (prim columns 22-26;
+the bitmaps' texel rows `PackedScene.tex`), as the JAX kernel's
+`prim_tex` does.  Per
 lane the kernel generates the receive ray, finds the
 closest hit, counts direct transmitter hits at depth 0, connects to the
 transmitter (NEE) with the waveform and aperture Wigner weights and a
@@ -100,7 +101,6 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import weakref
-from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -889,9 +889,10 @@ def supported(scene_data, rx, reason: list | None = None,
     if adc.n_freq > 1 and not adc.freq_hi > adc.freq_lo:
         return no(f'n_freq {adc.n_freq} over an empty frequency window '
                   f'[{adc.freq_lo}, {adc.freq_hi}] (ROADMAP A5)')
-    # the texture and prims twins: the flagship and the coherent
-    # configurations of an analytic, static scene in vacuum with one Wigner
-    # transmitter and diffuse or conductor lobes
+    # the texture and prims twins: the flagship, the Doppler power and the
+    # coherent configurations (motion, mirror chains, GGX, the LO receive
+    # types, time x frequency and wide grids) of an analytic scene in
+    # vacuum with one Wigner transmitter and diffuse or conductor lobes
     for on, what, item in ((textured, 'textures', 'B7'),
                            (prims, 'spheres, disks or cylinders',
                             'B1 (rest)')):
@@ -919,20 +920,6 @@ def supported(scene_data, rx, reason: list | None = None,
             return no(f'{what} through an ambient medium: the media twins '
                       f'have no twin for them (ROADMAP {item}); the '
                       'wavefront runs it')
-        # `needs_doppler` on the flags the pack would carry (an analytic
-        # scene: its shapes' lobes and velocities), without packing it
-        types = _lobe_types(sd)
-        flags = SimpleNamespace(
-            moving=any(bool((torch.as_tensor(v) != 0).any()) for v in (
-                sd.shapes.velocity, tx.velocity, rx.velocity)),
-            ggx=ROUGH_CONDUCTOR in types, mirror=CONDUCTOR in types,
-            lobes=0, rx_rule=rx_rule(rt, has_lo))
-        if needs_doppler(flags, adc):
-            return no(f'{what} in a scene that needs the Doppler '
-                      'configuration (motion, a GGX or mirror lobe, an LO '
-                      'receive type, n_freq > 1 or n_time > '
-                      f'{MAX_N_TIME_ROWS}): its power twin has no twin for '
-                      f'them (ROADMAP {item}); the wavefront runs it')
     return True
 
 
@@ -1307,6 +1294,12 @@ STAT_KEYS = ('lanes', 'strata', 'freq_draw', 'lo_freq', 'trace', 'hit',
 # model divides by
 GRAZE = 0.25
 COS_FLOOR = 0.01
+# the rounding of a sphere's or cylinder's root, in u, beyond which a hit
+# carries it in `cond_out` in place of the 1 u of any hit, and counts as
+# ill-conditioned: three times that 1 u, which with the phase slack's own
+# absorbs the kernel's roots below it (a distant small sphere's
+# discriminant cancels most: golden config 2's sonar sphere)
+CURVED_ROOT_U = 3.0
 # the prims twins' counts: closest hits on each kind beyond the rectangle,
 # and the shadow tests of such blockers ('occ_tests' counts every one)
 HIT_KEY = {SPHERE: 'sphere_hit', DISK: 'disk_hit', CYLINDER: 'cylinder_hit'}
@@ -1436,7 +1429,8 @@ def _h_cyc(w: dict, tm):
     return cyc + torch.where(w['wf'] == LINFMCW, extra, 0.0)
 
 
-ULPS4 = 4.0 * float(np.finfo(np.float32).eps)
+EPS32 = float(np.finfo(np.float32).eps)
+ULPS4 = 4.0 * EPS32
 # a lobe's branch (a Fresnel pick, total internal reflection, a cosine's
 # sign) whose two sides lie within LOBE_TIE of each other: the kernel's
 # contracted roundings may take the other side (`ill_out`)
@@ -1703,13 +1697,15 @@ def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
     `cond_out`, a (n_time, n_freq) float64 tensor (with `coherent`),
     receives the splat of amp x G of the connections whose phase is
     ill-conditioned: those from a grazing hit (incidence cosine below
-    GRAZE) and all made after one, and those made after a bounce off a
-    sphere or cylinder.  G bounds, in units of the phase slack's path
+    GRAZE) or a curved one whose root's rounding exceeds CURVED_ROOT_U u,
+    and all made after one, and those made after a bounce off a sphere or
+    cylinder.  G bounds, in units of the phase slack's path
     error u (4 ulps of the longest path), how far two float32 evaluations
     may move the connection's path, to first order: a hit reached along
     a ray whose origin is g_prev u off and whose direction is th u / m
     off lies (g_prev + th t + 1) u / cos off along the surface (cos its
-    incidence cosine, at least COS_FLOOR); a bounce off a sphere or
+    incidence cosine, at least COS_FLOOR; the 1 u the root's rounding dt
+    where that exceeds CURVED_ROOT_U u); a bounce off a sphere or
     cylinder of curvature k turns the normal by k g u, and so the next
     ray by 2 k g u more; each vertex moves the path by at most twice its
     own error, so G = 2 sum_i g_i over the lane's vertices so far.  The
@@ -2110,6 +2106,9 @@ def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
     g_pos = torch.zeros(n_lanes, dtype=torch.float32, device=dev)
     g_dir = torch.zeros_like(g_pos)
     g_sum = torch.zeros_like(g_pos)
+    # u in metres: `phase_slack`'s 4 ulps of the longest path
+    u_len = None if cond_out is None else 4.0 * float(np.spacing(np.float32(
+        float(params[1]) * (adc.sampling_start + adc.sampling_time))))
 
     def splat(w, val, yb, f_recv, t_recv, ok, ph=None):
         """Tent splat at time coordinate yb (and, on a 2-D grid, at the
@@ -2182,7 +2181,12 @@ def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
         kernel's arithmetic (pallas_receive.py:697-798; the shadow test's
         roots are the same): t, hit, the local (px, py) of a rectangle and
         with `normal` its unit world normal (a rectangle's or disk's rows
-        8-10; M^T (px, py, 0) of a cylinder, M^T p of a sphere)."""
+        8-10; M^T (px, py, 0) of a cylinder, M^T p of a sphere) and, for a
+        sphere or cylinder, a first-order bound of how far float32
+        rounding moves its root t (`dt`; `cond_out`): the discriminant
+        b^2 - 4 a c cancels terms of size b^2 + 4 a (|c| + |o|^2), each
+        rounded by an ulp, and its square root's error over 2 a moves t
+        (sq held at COS_FLOOR |b|, a hit as grazing as COS_FLOOR)."""
         q = [p_row[1 + i] for i in range(12)]
         oox = q[0] * cx + q[1] * cy + q[2] * cz + q[3]
         ooy = q[4] * cx + q[5] * cy + q[6] * cz + q[7]
@@ -2202,7 +2206,7 @@ def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
                 rnorm = torch.rsqrt(torch.clamp(
                     q[8] * q[8] + q[9] * q[9] + q[10] * q[10], min=1e-20))
                 n = (q[8] * rnorm, q[9] * rnorm, q[10] * rnorm)
-            return t_p, hit_p, px, py, n
+            return t_p, hit_p, px, py, n, None
         if kind == CYLINDER:
             a_s = odx * odx + ody * ody
             b_s = 2.0 * (oox * odx + ooy * ody)
@@ -2243,11 +2247,16 @@ def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
                 sn = (q[0] * spx + q[4] * spy + q[8] * spz,
                       q[1] * spx + q[5] * spy + q[9] * spz,
                       q[2] * spx + q[6] * spy + q[10] * spz)
+        dt = None
         if normal:
             nn = torch.rsqrt(torch.clamp(sn[0] * sn[0] + sn[1] * sn[1]
                                          + sn[2] * sn[2], min=1e-20))
             n = (sn[0] * nn, sn[1] * nn, sn[2] * nn)
-        return t_p, hit_p, px, py, n
+            o2 = c_s + 1.0
+            dt = EPS32 * (b_s * b_s + 4.0 * a_s * (c_s.abs() + o2)) / (
+                4.0 * torch.clamp(a_s, min=1e-20)
+                * torch.maximum(sq, COS_FLOOR * b_s.abs()).clamp(min=1e-20))
+        return t_p, hit_p, px, py, n, dt
 
     cx, cy, cz = ox, oy, oz
     ddx, ddy, ddz = dx, dy, dz
@@ -2290,9 +2299,11 @@ def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
             kind_w = torch.full((n_lanes,), -1, dtype=torch.int8,
                                 device=dev)
             kap_w = torch.zeros_like(tb)
+            dt_w = torch.zeros_like(tb)
         for p_id, kind, code, row in zip(prim_ids, kinds, tex_code, prims):
-            t_p, hit_p, px, py, n_p = prim_t(kind, row, cx, cy, cz, ddx,
-                                             ddy, ddz, normal=True)
+            t_p, hit_p, px, py, n_p, dt_p = prim_t(kind, row, cx, cy, cz,
+                                                   ddx, ddy, ddz,
+                                                   normal=True)
             closer = hit_p & (t_p > 1e-4) & (t_p < tb)
             tb = torch.where(closer, t_p, tb)
             nx = torch.where(closer, n_p[0], nx)
@@ -2307,6 +2318,9 @@ def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
                         torch.sqrt(row[1] ** 2 + row[2] ** 2 + row[3] ** 2),
                         torch.sqrt(row[5] ** 2 + row[6] ** 2 + row[7] ** 2))
                     kap_w = torch.where(closer, kap, kap_w)
+                    dt_w = torch.where(closer, dt_p, dt_w)
+                else:
+                    dt_w = torch.where(closer, 0.0, dt_w)
             rb_p = row[13]
             if code:
                 # the texture at the rectangle's uv = (p_local + 1) / 2,
@@ -2360,6 +2374,7 @@ def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
             if stats is not None or cond_out is not None:
                 kind_w[sel] = -1
                 kap_w[sel] = 0.0
+                dt_w[sel] = 0.0
             tex_w[sel] = False
             if 2 in tex_code:
                 bpid[sel] = -1
@@ -2412,9 +2427,13 @@ def receive_megakernel_ref(params, prim, txp, uniforms, *, adc: ADCConfig,
         if cond_out is not None:
             curved = (kind_w == SPHERE) | (kind_w == CYLINDER)
             cos_i = (ddx * nx + ddy * ny + ddz * nz).abs()
-            bent_now = bent | (active & (cos_i < GRAZE))
+            # a curved hit's root moves by dt_w: beyond CURVED_ROOT_U u it
+            # takes the place of the 1 u of any hit
+            big = dt_w > CURVED_ROOT_U * u_len
+            root = torch.where(big, dt_w / u_len, 1.0)
+            bent_now = bent | (active & ((cos_i < GRAZE) | big))
             bent = bent_now | (active & curved)
-            g_pos = torch.where(active, (g_pos + g_dir * tb + 1.0)
+            g_pos = torch.where(active, (g_pos + g_dir * tb + root)
                                 / torch.clamp(cos_i, min=COS_FLOOR), g_pos)
             g_sum = g_sum + torch.where(active, g_pos, 0.0)
             g_dir = g_dir + torch.where(active & curved,
@@ -2907,12 +2926,16 @@ def launched_endpoint_kernel(coherent: bool) -> bool:
 
 def launched_doppler_power_kernel(twin: str = '') -> bool:
     """Whether the last launch on a card ran the analytic Doppler power
-    configuration's kernel (receive_doppler_power_kernel), or with `twin`
-    'media' / 'ep' that configuration's grid-stride media or endpoint twin
-    (receive_doppler_kernel<false, false, MED, EP>): the library's launch
-    record."""
+    configuration's kernel (receive_doppler_power_kernel<false>), or with
+    `twin` 'media' / 'ep' that configuration's grid-stride media or
+    endpoint twin (receive_doppler_kernel<false, false, MED, EP>), or
+    'tex' / 'prims' / 'tex_prims' its texture twin
+    (receive_doppler_power_kernel<true>), its prims twin (<false, true>)
+    or the prims twin that also carries the texture codes (<true, true>):
+    the library's launch record."""
     lib = LIBRARY.get()
-    which = {'': 0, 'media': 1, 'ep': 2}[twin]
+    which = {'': 0, 'media': 1, 'ep': 2, 'tex': 3, 'prims': 4,
+             'tex_prims': 5}[twin]
     return lib.rk_last_kernel() == lib.rk_doppler_power_kernel(which)
 
 
@@ -3013,9 +3036,10 @@ def launch_geometry(n_time: int, n_lanes: int, n_prims: int,
     call).  The endpoint twin's analytic kernels size their footprint
     index by `n_tx`, the pairs a phased transmitter's row `n_pairs` and an
     analog phased receiver's `n_rx_pairs`.  `tex` asks for the texture twin
-    of the flagship or the coherent configuration, `prims` for its prims
-    twin (spheres, disks and cylinders; with `tex`, the twin that also
-    carries the texture codes)."""
+    of the flagship, the analytic Doppler power or the coherent
+    configuration, `prims` for its prims twin (spheres, disks and
+    cylinders; with `tex`, the twin that also carries the texture
+    codes)."""
     lib = LIBRARY.get()
     mode = grid_mode(n_time * n_freq, doppler, coherent, n_elem)
     blocks, threads, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
@@ -3105,11 +3129,11 @@ def _check_call(params, prim, txp, uniforms, mesh, msh, lane_out, lead, *,
     `lobes`, the call's lobe twins' flags (`_lobe_flag`), set the
     uniforms' stride.  Textured tables take their texel rows `tex` (R, Wp)
     float32 and `bmp_meta` (n_prims, 3) int32 (`pack_scene`), and run in
-    the texture twins only: one pulse of the flagship or the coherent
-    configuration on an analytic scene in vacuum, with one Wigner
-    transmitter and no lobe twin.  Spheres, disks and cylinders run in the
-    prims twins of those two configurations only, a CPI's pulses too
-    where they carry no texture."""
+    the texture twins only: one pulse of the flagship, the Doppler power or
+    the coherent configuration on an analytic scene in vacuum, with one
+    Wigner transmitter and no lobe twin.  Spheres, disks and cylinders run
+    in the prims twins of those three configurations only, a CPI's pulses
+    too where they carry no texture."""
     dev = params.device
     n_tx = int(txp.shape[-2]) if txp.dim() >= 2 else 0
     if not 1 <= n_tx <= MAX_TX:
@@ -3239,11 +3263,12 @@ def _check_call(params, prim, txp, uniforms, mesh, msh, lane_out, lead, *,
     textured = _textured(prim) if textured is None else bool(textured)
     if textured:
         if (lead or mesh is not None or eoff is not None or medium or ep
-                or lobes or (doppler and not coherent)):
-            raise ValueError('textured tables run in the flagship and the '
-                             'coherent configurations alone: one pulse, an '
-                             'analytic scene in vacuum, one Wigner '
-                             'transmitter, no lobe twin (ROADMAP B7)')
+                or lobes):
+            raise ValueError('textured tables run in the flagship, the '
+                             'Doppler power and the coherent configurations '
+                             'alone: one pulse, an analytic scene in vacuum, '
+                             'one Wigner transmitter, no lobe twin (ROADMAP '
+                             'B7)')
         if (tex is None or bmp_meta is None or tex.dim() != 2
                 or tex.dtype != torch.float32 or tex.device != dev
                 or not tex.is_contiguous() or tex.numel() < 1
@@ -3255,11 +3280,11 @@ def _check_call(params, prim, txp, uniforms, mesh, msh, lane_out, lead, *,
                              f'(int32 ({n_prims}, 3)) on {dev}')
     prims = _has_prims(prim) if prims is None else bool(prims)
     if prims and (mesh is not None or eoff is not None or medium or ep
-                  or lobes or (doppler and not coherent)):
-        raise ValueError('spheres, disks and cylinders run in the flagship '
-                         'and the coherent configurations alone: an '
-                         'analytic scene in vacuum, one Wigner transmitter, '
-                         'no lobe twin (ROADMAP B1 (rest))')
+                  or lobes):
+        raise ValueError('spheres, disks and cylinders run in the flagship, '
+                         'the Doppler power and the coherent configurations '
+                         'alone: an analytic scene in vacuum, one Wigner '
+                         'transmitter, no lobe twin (ROADMAP B1 (rest))')
     return rule, tx_kinds, ep, textured, prims
 
 
@@ -3328,9 +3353,9 @@ def _launch(params, prim, txp, msh, uniforms, mesh, lane_out, *, n_pulses,
     a configuration's media twin, `ep` its endpoint twin (the pair rows
     `php` of its phased transmitters, the pair row `rxph` of an analog
     phased receiver), `lobes` (LOBE_* flags) a Doppler configuration's
-    lobe twin, `tex` (with `bmp_meta`) the flagship's or the coherent
-    configuration's texture twin, `prims` their prims twin (with `tex`,
-    the one that also reads the texture codes)."""
+    lobe twin, `tex` (with `bmp_meta`) the flagship's, the Doppler power
+    or the coherent configuration's texture twin, `prims` their prims twin
+    (with `tex`, the one that also reads the texture codes)."""
     dev = params.device
     lib = LIBRARY.get()
     n_elem = 0 if eoff is None else int(eoff.shape[0])
@@ -3450,12 +3475,14 @@ def receive_megakernel(params, prim, txp, *, adc: ADCConfig, max_depth: int,
     stride `n_draws(max_depth, 1, **lobe_draws(lobes))`.  Prim rows with
     textures (column 26: 1 a checkerboard, 2 a bitmap) take the texel rows
     `tex` (R, Wp) float32 and `bmp_meta` (n_prims, 3) int32 of
-    `pack_scene` and launch the flagship's or the coherent configuration's
-    texture twin (no other configuration has one); `textured` says whether
+    `pack_scene` and launch the flagship's, the Doppler power or the
+    coherent configuration's texture twin (no other configuration has
+    one); `textured` says whether
     they do (`PackedScene.textured`), and None reads column 26 back from
     the tables, a stall on a card the first time a tensor is seen.
-    Spheres, disks and cylinders (column 0) launch the flagship's or the
-    coherent configuration's prims twin, the one that also carries the
+    Spheres, disks and cylinders (column 0) launch the flagship's, the
+    Doppler power or the coherent configuration's prims twin, the one that
+    also carries the
     texture codes where the rows hold textures; `prims` says whether the
     rows hold one (`PackedScene.prims`),
     None reads column 0 back as `textured` does.  Tables
@@ -3541,7 +3568,8 @@ def receive_megakernel_cpi(params, prim, txp, *, adc: ADCConfig,
     `php` of phased transmitters and `rxph` of an analog phased receiver
     (they follow from the specs, the same in every pulse).  Spheres,
     disks and cylinders (`prims`, as in `receive_megakernel`) launch the
-    prims twin of the flagship or the coherent configuration.  On the CPU
+    prims twin of the flagship, the Doppler power or the coherent
+    configuration.  On the CPU
     the plain version runs pulse by pulse."""
     n_pulses = int(params.shape[0]) if params.dim() == 2 else 0
     if n_pulses < 1:
@@ -3597,11 +3625,11 @@ VACUUM_CONFIGS = ('flagship', 'mesh', 'doppler', 'doppler_mesh', 'coherent',
 # analog phased receiver), in vacuum; the Doppler family has a lobe twin
 # (LOB: the dielectric, plastic, GGX glass and composite lobes), in vacuum
 LOBE_CONFIGS = ('doppler', 'doppler_mesh', 'coherent', 'coherent_mesh')
-# the flagship and the analytic coherent configurations have a texture twin
-# (TEX: checkerboard and bitmap rectangles), in vacuum
+# the flagship and the analytic Doppler and coherent configurations have a
+# texture twin (TEX: checkerboard and bitmap rectangles), in vacuum
 # and a prims twin (spheres, disks and cylinders), and a textured scene's
 # prims twin, which also carries the texture codes (_tex_prims)
-TEX_CONFIGS = ('flagship', 'coherent')
+TEX_CONFIGS = ('flagship', 'doppler', 'coherent')
 CONFIGS = VACUUM_CONFIGS + tuple(c + '_media' for c in VACUUM_CONFIGS) \
     + tuple(c + '_ep' for c in VACUUM_CONFIGS) \
     + tuple(c + '_lobes' for c in LOBE_CONFIGS) \

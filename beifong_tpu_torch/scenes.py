@@ -86,6 +86,9 @@ GROUND_BITMAP_SEED = 0      # flagship_scene(ground_texture='bitmap')'s image
 
 
 TARGETS = ('plate', 'sphere', 'disk', 'cylinder')
+MATERIALS = ('diffuse', 'conductor', 'rough_conductor')
+# the target's metal (`flagship_scene(material=...)`): multi_body's
+METAL = dict(eta=1.5, k=3.0, alpha=0.3)
 
 
 def target_range(target: str = 'plate', R: float = 4.0) -> float:
@@ -94,9 +97,69 @@ def target_range(target: str = 'plate', R: float = 4.0) -> float:
     return R - 0.3 if target == 'cylinder' else R
 
 
+def _add_target(s, target: str, R: float, bsdf: str, velocity=None):
+    """`target` (one of TARGETS) at range R on the boresight, as
+    `flagship_scene` places it, with BSDF `bsdf`, moving at `velocity`."""
+    if target not in TARGETS:
+        raise ValueError(f'target {target!r}: one of {TARGETS}')
+    kw = dict(bsdf=bsdf)
+    if velocity is not None:
+        kw['velocity'] = np.asarray(velocity, np.float32)
+    facing = np.asarray(tf.compose(tf.look_at([0, -R, 0], [0, 0, 0]),
+                                   tf.scale(0.5)))
+    if target == 'plate':
+        s.add(sh.rectangle(to_world=facing, **kw))
+    elif target == 'sphere':
+        s.add(sh.sphere(center=(0.0, -(R + 0.4), 0.0), radius=0.4, **kw))
+    elif target == 'disk':
+        s.add(sh.disk(to_world=facing, **kw))
+    else:
+        s.add(sh.cylinder(to_world=np.asarray(tf.compose(
+            tf.translate([0.0, -R, -0.6]), tf.scale([0.3, 0.3, 1.2]))),
+            **kw))
+
+
+def add_ground(s, ground_texture: str | None = None, bsdf: str = 'mat'):
+    """Adds `flagship_scene`'s 40 m ground 0.5 m below the apertures to
+    the scene `s`, static: BSDF `bsdf`, or with `ground_texture`
+    ('checkerboard' or 'bitmap') a textured diffuse BSDF 'gnd' of its
+    own."""
+    if ground_texture not in (None, 'checkerboard', 'bitmap'):
+        raise ValueError(f'ground_texture {ground_texture!r}: None, '
+                         "'checkerboard' or 'bitmap'")
+    gnd = np.asarray(tf.compose(tf.translate([0, 0, -0.5]), tf.scale(20.0)))
+    if ground_texture == 'checkerboard':
+        s.add(checkerboard('gnd_tex', 0.8, 0.3, scale_uv=(40.0, 40.0)))
+    elif ground_texture == 'bitmap':
+        img = np.random.default_rng(GROUND_BITMAP_SEED).uniform(
+            0.2, 1.0, (128, 128)).astype(np.float32)
+        s.add(bitmap('gnd_tex', img))
+    if ground_texture is not None:
+        s.add(diffuse('gnd', reflectance=1.0, twosided=True,
+                      texture='gnd_tex'))
+        bsdf = 'gnd'
+    s.add(sh.rectangle(to_world=gnd, bsdf=bsdf))
+
+
+def _add_material(s, material: str) -> str:
+    """The target's BSDF of `material` (one of MATERIALS): the scene's
+    diffuse 'mat', or a smooth or GGX rough conductor 'metal' (METAL) of
+    its own.  Returns its id."""
+    if material not in MATERIALS:
+        raise ValueError(f'material {material!r}: one of {MATERIALS}')
+    if material == 'conductor':
+        s.add(conductor('metal', eta=METAL['eta'], k=METAL['k'],
+                        twosided=True))
+    elif material == 'rough_conductor':
+        s.add(rough_conductor('metal', alpha=METAL['alpha'],
+                              eta=METAL['eta'], k=METAL['k'],
+                              twosided=True))
+    return 'mat' if material == 'diffuse' else 'metal'
+
+
 def flagship_scene(R: float = 4.0, ground: bool = True,
                    rx_kind: str = 'wigner', ground_texture: str | None = None,
-                   target: str = 'plate'):
+                   target: str = 'plate', material: str = 'diffuse'):
     """Returns (scene, receiver spec).  `ground_texture` None leaves the
     scene as it is; 'checkerboard' or 'bitmap' gives the ground a diffuse
     BSDF of its own ('gnd', the target keeps 'mat') textured with 0.8 /
@@ -107,7 +170,12 @@ def flagship_scene(R: float = 4.0, ground: bool = True,
     sphere of radius 0.4 m, its near surface at R; 'disk' a disk of radius
     0.5 m facing the apertures; 'cylinder' a vertical cylinder of radius
     0.3 m and height 1.2 m centred on the boresight at R, its near surface
-    at R - 0.3 (`target_range`)."""
+    at R - 0.3 (`target_range`).  `material` is the target's: 'diffuse'
+    (the scene's 'mat'), or 'conductor' / 'rough_conductor', a smooth or
+    GGX rough metal of its own (METAL): the conducting sphere is radar's
+    calibration target, whose echo does not depend on aspect.  A metal
+    target puts the scene into the Doppler configuration (the mirror
+    chains, the GGX lobe)."""
     if ground_texture not in (None, 'checkerboard', 'bitmap'):
         raise ValueError(f'ground_texture {ground_texture!r}: None, '
                          "'checkerboard' or 'bitmap'")
@@ -135,34 +203,9 @@ def flagship_scene(R: float = 4.0, ground: bool = True,
                                                   [-0.3, -1, 0]),
                                        tf.scale([0.05, 0.05, 1.0])))
         s.add(sh.rectangle(to_world=aim_rx, receiver='rx'))
-    facing = np.asarray(tf.compose(tf.look_at([0, -R, 0], [0, 0, 0]),
-                                   tf.scale(0.5)))
-    if target == 'plate':
-        s.add(sh.rectangle(to_world=facing, bsdf='mat'))
-    elif target == 'sphere':
-        s.add(sh.sphere(center=(0.0, -(R + 0.4), 0.0), radius=0.4,
-                        bsdf='mat'))
-    elif target == 'disk':
-        s.add(sh.disk(to_world=facing, bsdf='mat'))
-    else:
-        s.add(sh.cylinder(to_world=np.asarray(tf.compose(
-            tf.translate([0.0, -R, -0.6]), tf.scale([0.3, 0.3, 1.2]))),
-            bsdf='mat'))
+    _add_target(s, target, R, _add_material(s, material))
     if ground:
-        gnd = np.asarray(tf.compose(tf.translate([0, 0, -0.5]),
-                                    tf.scale(20.0)))
-        bsdf = 'mat'
-        if ground_texture == 'checkerboard':
-            s.add(checkerboard('gnd_tex', 0.8, 0.3, scale_uv=(40.0, 40.0)))
-        elif ground_texture == 'bitmap':
-            img = np.random.default_rng(GROUND_BITMAP_SEED).uniform(
-                0.2, 1.0, (128, 128)).astype(np.float32)
-            s.add(bitmap('gnd_tex', img))
-        if ground_texture is not None:
-            s.add(diffuse('gnd', reflectance=1.0, twosided=True,
-                          texture='gnd_tex'))
-            bsdf = 'gnd'
-        s.add(sh.rectangle(to_world=gnd, bsdf=bsdf))
+        add_ground(s, ground_texture)
     return s, rx
 
 
@@ -234,9 +277,14 @@ def multi_body_scene():
 RANGE_DOPPLER = dict(R0=4.0, v=5.0, prf=20.0)
 
 
-def range_doppler_scene(p: int = 0):
+def range_doppler_scene(p: int = 0, target: str = 'plate',
+                        ground_texture: str | None = None):
     """Returns (scene, receiver spec) of pulse `p`: the plate at
-    R0 - v p / prf metres, closing at v m/s (RANGE_DOPPLER)."""
+    R0 - v p / prf metres, closing at v m/s (RANGE_DOPPLER).  `target`
+    puts another of TARGETS there, placed as `flagship_scene` places it
+    (a sphere's near surface at that range, a cylinder's 0.3 m nearer),
+    closing at v too; `ground_texture` ('checkerboard' or 'bitmap') adds
+    `flagship_scene`'s textured ground, static (its clutter at 0 Hz)."""
     fc = 40e3
     r0, v, prf = (RANGE_DOPPLER[k] for k in ('R0', 'v', 'prf'))
     rp = r0 - v * p / prf
@@ -253,10 +301,9 @@ def range_doppler_scene(p: int = 0):
     aim_rx = np.asarray(tf.compose(tf.look_at([-0.3, 0, 0], [-0.3, -1, 0]),
                                    tf.scale([0.05, 0.05, 1.0])))
     s.add(sh.rectangle(to_world=aim_rx, receiver='rx'))
-    tgt = np.asarray(tf.compose(tf.look_at([0, -rp, 0], [0, 0, 0]),
-                                tf.scale(0.5)))
-    s.add(sh.rectangle(to_world=tgt, bsdf='mat',
-                       velocity=np.array([0, v, 0], np.float32)))
+    _add_target(s, target, rp, 'mat', (0.0, v, 0.0))
+    if ground_texture is not None:
+        add_ground(s, ground_texture)
     return s, rx
 
 
@@ -294,12 +341,16 @@ def fmcw_beat_hz(r: float) -> float:
 FMCW_SONAR_R = 6.0
 
 
-def fmcw_sonar_scene():
+def fmcw_sonar_scene(target: str = 'plate'):
     """Golden config 2, `fmcw_sonar` (= examples/fmcw_sonar.py): the LFMCW
     sonar, 20 x 50 mm apertures 0.2 m apart, a mix_resample receiver
     dechirping against the transmitted chirp on a 16 x 256 time x beat
-    ADC over [0, 4 f_beat], a diffuse 1 m plate FMCW_SONAR_R metres out.
-    Returns (scene, receiver spec)."""
+    ADC over [0, 4 f_beat], a diffuse 1 m plate FMCW_SONAR_R metres out;
+    `target` 'sphere' puts the sonar's calibration sphere (0.4 m) there in
+    its place, its near surface at FMCW_SONAR_R.  Returns (scene, receiver
+    spec)."""
+    if target not in ('plate', 'sphere'):
+        raise ValueError(f"target {target!r}: 'plate' or 'sphere'")
     s = sc.Scene(band=Band.from_freq(C_SOUND, FMCW['fc'],
                                      2 * FMCW['sweep']))
     s.add(diffuse('mat', reflectance=1.0, twosided=True))
@@ -315,7 +366,7 @@ def fmcw_sonar_scene():
     s.add(rx)
     _aperture(s, (-0.1, 0, 0), (-0.1, -1, 0), (0.01, 0.025, 1.0),
               receiver='rx')
-    _plate(s, (0, -FMCW_SONAR_R, 0), 0.5)
+    _add_target(s, target, FMCW_SONAR_R, 'mat')
     return s, rx
 
 

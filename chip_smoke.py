@@ -94,7 +94,8 @@ Phases (any failure exits non-zero before the last line is printed):
              scene with a checkerboard or a 128 x 128 bitmap ground
              (`flagship_scene(ground_texture=...)`): each against its
              plain version on injected uniforms (2^18 lanes) and Philox
-             (2^22); the anchors (a uniform checkerboard equals the
+             (power 2^28, I / Q 2^24); the anchors (a uniform
+             checkerboard equals the
              untextured scene bit for bit, a constant bitmap its
              checkerboard to 1e-5); receive() at the flagship's 2^28
              samples, depth 3, and the coherent receive's 2^24, depth 2,
@@ -102,6 +103,24 @@ Phases (any failure exits non-zero before the last line is printed):
              the twin (the launch record), the target on its round-trip
              bin; each twin alone beside the untextured kernel, its
              registers, SASS mix and bounds;
+   doppler_prims - the kinds and the textures in K1's Doppler
+             configurations at the range-Doppler pulse's width (2^24
+             lanes, depth 2): the Doppler power twins
+             (receive_doppler_power_kernel<true>, <false, true>, <true,
+             true>) on the pulse with a closing sphere, disk or cylinder,
+             over a checkerboard or bitmap ground, the flagship's metal
+             (conductor) sphere and golden config 2's sonar sphere, and the
+             coherent prims twin on the closing sphere and the metal one:
+             each against its plain version on injected uniforms (2^18)
+             and Philox (power lane by lane, a lane's floor
+             PRIM_LANE_FLOOR; I / Q with each ill-conditioned
+             connection's own slack); the anchors (the Doppler bin and
+             CA-CFAR cell, the ground's ridge at 0 Hz, the metal sphere's
+             range bin and its closed mirror chains, the sonar's beat);
+             receive() five calls a scene, each launching its twin; a
+             closing sphere's CPI in one launch, power and I / Q; each
+             twin alone, beside the rectangle kernel on the plate and
+             over an untextured ground; registers, SASS mix and bounds;
    mimo    - golden config 6 (`mimo_beamform_scene`: an 8-element
              lambda / 2 receive array, one target at 15 degrees, 4 m out)
              through K1's MIMO configuration: against its plain version on
@@ -135,7 +154,7 @@ Phases (any failure exits non-zero before the last line is printed):
              four_tx_scene (four transmitters of three kinds) through
              receive() at 2^24 samples, depth 2, gate, and phased_tx
              coherent: each twin against its plain version on injected
-             uniforms (2^16 lanes) and on Philox (2^24), the anchors (the
+             uniforms (2^16 lanes) and on Philox (2^22), the anchors (the
              echo within 2 bins of its round trip, off-steer window < 0.5
              of on-steer, the other target's window < 0.5 of the steered
              one's, each transmitter's echo within 2 bins of its own round
@@ -193,7 +212,14 @@ PLAIN_CHUNK = 1 << 22      # the plain version runs 2^28 lanes in chunks
 MAX_DEPTH = 3
 MESH_LANES = 1 << 24       # mesh samples per receive() call
 MESH_DEPTH = 2
-MESH_PLAIN_CHUNK = 1 << 20
+# the mesh paths' plain version walks the BVH one node a step for every
+# lane at once, so its time goes with the steps more than with the lanes:
+# their Philox parity runs in chunks as large as the flagship's
+MESH_PLAIN_CHUNK = 1 << 22
+# the Philox parity of the phased and lobes phases, over the first 2^22 of
+# their main paths' 2^24 lanes (`scaled_stats`); every other path's runs at
+# its main path's width
+PARITY_PHILOX_LANES = 1 << 22
 MESH_BENCH_LANES = 1 << 20  # the JAX package's mesh benchmark size
 N_RAYS = 1 << 20           # BVH query rays
 WF_PASS_RAYS = 1 << 17     # the BVH wavefront's rays a pass (K2 / K3)
@@ -551,7 +577,14 @@ def print_build(infos: dict, tag: str) -> None:
     names['receive_coherent_kernelILb0E'] = 'receive_megakernel (coherent)'
     names['receive_coherent_kernelILb1E'] = \
         'receive_megakernel (coherent textures)'
-    names['receive_doppler_power_kernel'] = 'receive_megakernel (doppler)'
+    names['receive_doppler_power_kernelILb0ELb0E'] = \
+        'receive_megakernel (doppler)'
+    names['receive_doppler_power_kernelILb1ELb0E'] = \
+        'receive_megakernel (doppler textures)'
+    names['receive_doppler_power_kernelILb0ELb1E'] = \
+        'receive_megakernel (doppler prims)'
+    names['receive_doppler_power_kernelILb1ELb1E'] = \
+        'receive_megakernel (doppler prims textures)'
     names['receive_mesh_doppler_kernelILb0ELb0E'] = \
         'receive_megakernel (doppler mesh)'
     names['receive_mesh_doppler_kernelILb1ELb1E'] = \
@@ -602,8 +635,14 @@ MIX_KERNEL = {'flagship': 'receive_flagship_kernelILb0ELb0E',
               'ep_phased_rx': 'receive_endpoint_kernel',
               'ep_four_tx': 'receive_endpoint_kernel',
               'ep_phased_tx_coh': 'receive_endpoint_coherent_kernel',
-              'range_doppler': 'receive_doppler_power_kernel',
-              'fmcw_sonar': 'receive_doppler_power_kernel',
+              'range_doppler': 'receive_doppler_power_kernelILb0ELb0E',
+              'fmcw_sonar': 'receive_doppler_power_kernelILb0ELb0E',
+              **{f'doppler_{t}': 'receive_doppler_power_kernelILb0ELb1E'
+                 for t in ('sphere', 'disk', 'cylinder')},
+              **{f'doppler_{g}': 'receive_doppler_power_kernelILb1ELb0E'
+                 for g in ('checker', 'bitmap')},
+              'doppler_sphere_checker':
+                  'receive_doppler_power_kernelILb1ELb1E',
               'multi_body': 'receive_mesh_doppler_kernelILb0ELb0E',
               'mesh_lobes_iq': 'receive_mesh_doppler_kernelILb1ELb1E',
               'mesh_lobes_power': 'receive_mesh_doppler_kernelILb0ELb1E',
@@ -915,7 +954,8 @@ def mesh(torch, bt, rk, dev, tag, pulse_compress, build_log: str,
     rel_errs.append(c['rel'])
     abs_errs.append(c['err'])
     flips.append(c['flips'])
-    print(f'plain version mesh, 2^24 lanes in 2^20-lane chunks: '
+    print(f'plain version mesh, 2^24 lanes in '
+          f'2^{MESH_PLAIN_CHUNK.bit_length() - 1}-lane chunks: '
           f'{plain_ms:.1f} ms {tag}')
     print('mesh stage lanes: ' + json.dumps(stats))
 
@@ -1218,16 +1258,17 @@ def doppler(torch, bt, rk, ik, dev, tag, build_log: str, cubin: str):
         stats: dict = {}
         lane_ref = torch.empty(DOP_LANES, device=dev)
         nd = rk.n_draws(DOP_DEPTH)
+        chunk = DOP_PLAIN_CHUNK if mesh is None else MESH_PLAIN_CHUNK
 
         def plain():
             total = torch.zeros((rx.adc.n_time, rx.adc.n_freq), device=dev)
             n_tot = 0
-            for lane0 in range(0, DOP_LANES, DOP_PLAIN_CHUNK):
-                u = rk.philox_uniforms(SEED, nd, DOP_PLAIN_CHUNK, device=dev,
+            for lane0 in range(0, DOP_LANES, chunk):
+                u = rk.philox_uniforms(SEED, nd, chunk, device=dev,
                                        lane0=lane0)
                 a, n = rk.receive_megakernel_ref(
                     params, prim, txp, u, lane0=lane0, stats=stats,
-                    lane_out=lane_ref[lane0:lane0 + DOP_PLAIN_CHUNK], **kw)
+                    lane_out=lane_ref[lane0:lane0 + chunk], **kw)
                 total += a
                 n_tot += int(n)
             return total, n_tot
@@ -1240,8 +1281,9 @@ def doppler(torch, bt, rk, ik, dev, tag, build_log: str, cubin: str):
         else:
             c = compare(acc1, n1, ref, n_ref, name)
         errs[cfg_name].append(c)
-        print(f'plain version {what}, 2^24 lanes in 2^20-lane chunks: '
-              f'{plain_ms:.1f} ms {tag}')
+        print(f'plain version {what}, 2^24 lanes in '
+              f'2^{chunk.bit_length() - 1}-lane chunks: {plain_ms:.1f} ms '
+              f'{tag}')
         print(f'{what} stage lanes: ' + json.dumps(stats))
 
         # ---- 4. the main path: receive() ----
@@ -1321,7 +1363,7 @@ def doppler(torch, bt, rk, ik, dev, tag, build_log: str, cubin: str):
 
 def compare_coherent(torch, acc, n_ev, ref, n_ref, amp, slack, what,
                      lane=None, lane_ref=None, depth=COH_DEPTH,
-                     quiet=False, ill=None, cond=None) -> dict:
+                     quiet=False, ill=None, cond=None, check=True) -> dict:
     """I / Q parity per cell and channel: within TOL x max(|I|, |Q|) plus
     the phase slack (`receive_kernel.phase_slack`) times the cell's sum of
     amplitudes `amp` (the plain version's), since the kernel's contracted
@@ -1331,7 +1373,8 @@ def compare_coherent(torch, acc, n_ev, ref, n_ref, amp, slack, what,
     `cond` (the plain version's `cond_out`) widens each cell's phase
     slack term to the slack times (amp + cond): each ill-conditioned
     connection's own slack, from its vertices' incidence cosines and
-    curvatures; the reading without it is printed beside (`worst_plain`)."""
+    curvatures; the reading without it is printed beside (`worst_plain`).
+    `check` False returns the readings without failing."""
     scale = float(ref.abs().max())
     bound = TOL * scale + slack * amp.float()[..., None]
     plain_bound = bound
@@ -1361,13 +1404,14 @@ def compare_coherent(torch, acc, n_ev, ref, n_ref, amp, slack, what,
                  f'lanes took another path')
               + ('' if cond is None else f'; without the connections\' own '
                  f'slack {worst_plain:.3f} of the bound'))
-    if lane is not None and (flips if ill is None else flipped_out) \
+    if check and lane is not None \
+            and (flips if ill is None else flipped_out) \
             > EDGE_FLIPS * lane.numel():
         fail(f'{what}: {flips} lanes differ from the plain version')
-    if not (scale > 0 and worst <= 1.0):
+    if check and not (scale > 0 and worst <= 1.0):
         fail(f'{what}: kernel differs from the plain version (worst cell '
              f'{worst:.3f} of its bound)')
-    if abs(ev - ev_ref) > TOL * ev_ref + 2 * depth * flips:
+    if check and abs(ev - ev_ref) > TOL * ev_ref + 2 * depth * flips:
         fail(f'{what}: event counts {ev} vs {ev_ref}')
     return dict(err=err, rel=err / scale, worst=worst, flips=flips,
                 worst_plain=worst_plain)
@@ -1397,6 +1441,14 @@ def _chirp_h(stats, txp):
     if float(txp[0, 16]) == 2.0:       # LINFMCW
         stats['h_chirp'] = stats['phase'] + stats['phase_lo']
     return stats
+
+
+def scaled_stats(stats: dict, factor: int) -> dict:
+    """The stage counts of a plain-version run over the first 1 / factor
+    of a path's Philox lanes, scaled to the path's lanes for its bound:
+    the lanes are independent draws, so each count's share of them is the
+    whole path's to sampling noise (a few 1e-4 at 2^22 lanes)."""
+    return {k: v * factor for k, v in stats.items()}
 
 
 class _Wavefront:
@@ -1475,6 +1527,91 @@ def _plain_philox(torch, rk, params, prim, txp, kw, n_lanes, depth, dev,
 
     ms, (ref, n_ref) = wall_ms(plain)
     return ref, n_ref, amp, _chirp_h(stats, txp), ms
+
+
+def _twin_tables(rk, dev, names, scene_fn) -> dict:
+    """The scenes of a twin phase on the card: name -> (scene, compiled
+    scene, receiver, device tables)."""
+    tabs = {}
+    for name in names:
+        s, rx = scene_fn(name)
+        sd = s.compile(device=dev)
+        tabs[name] = (s, sd, rx, rk._device_tables(s, sd, rx, dev))
+    return tabs
+
+
+def _twin_parity(torch, rk, dev, tab, kw, n_lanes, u, record, what, tag, *,
+                 chunk, lanes=False, cond=False, floor=1e-6, prims=None):
+    """One launch of a K1 twin against its plain version on the same
+    draws: the injected uniforms `u`, or (None) the Philox stream in
+    `chunk`-lane pieces.  Power per cell (`compare`), or with `lanes` lane
+    by lane (`compare_lanes`, a lane's floor `floor`); I / Q
+    (`kw['coherent']`) with the phase slack (`compare_coherent`, with
+    `lanes` lane by lane in amplitude), with `cond` also each
+    ill-conditioned connection's own (the plain version's `cond_out`; the
+    reading without it printed beside).  `record()`, read after the
+    launch, must show the twin; `prims` as `receive_megakernel`'s.
+    Returns (the comparison, the Philox
+    run's stage counts or None, the plain version's ms)."""
+    s, _, rx, t = tab
+    coh, depth = bool(kw.get('coherent')), kw['max_depth']
+    lane, lane_ref = (torch.empty(n_lanes, device=dev),
+                      torch.empty(n_lanes, device=dev)) if lanes \
+        else (None, None)
+    acc, n_ev = rk.receive_megakernel(t.params, t.prim, t.txp,
+                                      n_lanes=n_lanes, seed=SEED, uniforms=u,
+                                      prims=prims, lane_out=lane, **kw)
+    torch.cuda.synchronize()
+    if not record():
+        fail(f'{what}: the launch record does not show its twin')
+    grid = (rx.adc.n_time, rx.adc.n_freq)
+    c_out = torch.zeros(grid, dtype=torch.float64, device=dev) \
+        if coh and cond else None
+    stats = None
+    if u is not None:
+        amp = torch.zeros(grid, dtype=torch.float64, device=dev) \
+            if coh else None
+        ms, (ref, n_ref) = wall_ms(lambda: rk.receive_megakernel_ref(
+            t.params, t.prim, t.txp, u, amp_out=amp, cond_out=c_out,
+            lane_out=lane_ref, **kw))
+    else:
+        ref, n_ref, amp, stats, ms = _plain_philox(
+            torch, rk, t.params, t.prim, t.txp, kw, n_lanes, depth, dev,
+            lane_ref=lane_ref, chunk=chunk, cond=c_out)
+    if coh:
+        c = compare_coherent(torch, acc, n_ev, ref, n_ref, amp,
+                             rk.phase_slack(s.band, rx.adc), what, lane,
+                             lane_ref, depth=depth, cond=c_out)
+        if c_out is not None:
+            c['cond_share'] = float(c_out.sum() / amp.sum())
+            print(f'{what}: the ill-conditioned connections\' own slack '
+                  f'adds {c["cond_share"]:.4f} x the amplitude-weighted '
+                  'phase slack')
+    elif lanes:
+        c = compare_lanes(acc, n_ev, lane, ref, n_ref, lane_ref, depth, what,
+                          floor=floor)
+    else:
+        c = compare(acc, n_ev, ref, n_ref, what)
+    print(f'plain version {what}'
+          + ('' if u is not None else
+             f' in 2^{chunk.bit_length() - 1}-lane chunks')
+          + f': {ms:.1f} ms' + ('' if stats is None else
+                                 '; stage lanes ' + json.dumps(stats))
+          + f' {tag}')
+    return c, stats, ms
+
+
+def _alternating(fns: dict, pairs: int, reps: int = 3) -> dict:
+    """Each call of `fns` (key -> fn()) timed with CUDA events, `reps`
+    calls a turn less the first, in `pairs` rounds in the same process
+    whose order alternates; the median ms of each key."""
+    times = {k: [] for k in fns}
+    keys = list(fns)
+    for i in range(pairs):
+        for k in (keys if i % 2 == 0 else keys[::-1]):
+            t_ms, _ = cuda_ms(lambda j: fns[k](), reps)
+            times[k].extend(t_ms[1:])
+    return {k: statistics.median(v) for k, v in times.items()}
 
 
 def coherent(torch, bt, rk, ik, dev, tag, build_log: str,
@@ -1839,7 +1976,7 @@ def coherent(torch, bt, rk, ik, dev, tag, build_log: str,
         fail('coherent mesh: two Philox-mode calls with one seed differ')
     ref, n_ref, amp, stats, plain_ms = _plain_philox(
         torch, rk, params, prim, txp, kw, COH_LANES, COH_DEPTH, dev,
-        lane_ref=lane_ref)
+        lane_ref=lane_ref, chunk=MESH_PLAIN_CHUNK)
     c = compare_coherent(torch, acc1, n1, ref, n_ref, amp,
                          rk.phase_slack(s.band, rx.adc),
                          'coherent mesh philox 2^24 lanes, P 32', lane,
@@ -2218,12 +2355,9 @@ def textures(torch, bt, rk, dev, tag, pulse_compress, build_log: str,
         lanes = TEX_COH_LANES if coh else TEX_LANES
         twin = 'coherent' if coh else 'flagship'
         cfg_name = f'{twin}_tex'
-        tabs = {}
-        for texture in (None, 'uniform', 'uniform07', 'constant', 'plain07') \
-                + TEX_TEXTURES:
-            s, rx = _tex_scene(texture)
-            sd = s.compile(device=dev)
-            tabs[texture] = (s, sd, rx, rk._device_tables(s, sd, rx, dev))
+        tabs = _twin_tables(rk, dev, (None, 'uniform', 'uniform07',
+                                      'constant', 'plain07') + TEX_TEXTURES,
+                            _tex_scene)
 
         def kwargs(texture):
             _, _, rx, t = tabs[texture]
@@ -2237,53 +2371,23 @@ def textures(torch, bt, rk, dev, tag, pulse_compress, build_log: str,
                                          n_lanes=n_lanes, seed=SEED,
                                          uniforms=u, **kwargs(texture))
 
-        def held(texture, acc, n_ev, ref, n_ref, amp, what):
-            s, _, rx, _ = tabs[texture]
-            if coh:
-                return compare_coherent(
-                    torch, acc, n_ev, ref, n_ref, amp,
-                    rk.phase_slack(s.band, rx.adc), what, depth=depth)
-            return compare(acc, n_ev, ref, n_ref, what)
-
         # ---- 3. each twin against its plain version: injected uniforms,
         # then the Philox stream at the main path's width ----
         errs, plain, stats = [], {}, {}
         nd = rk.n_draws(depth)
         for texture in TEX_TEXTURES:
-            _, _, rx, t = tabs[texture]
-            u = torch.rand((nd, TEX_PARITY_LANES), generator=gen,
-                           device=dev)
-            acc, n_ev = call(texture, TEX_PARITY_LANES, u)
-            torch.cuda.synchronize()
-            if not rk.launched_tex_kernel(coh):
-                fail(f'{texture} {twin}: the launch record does not show '
-                     'the texture twin')
-            amp = torch.zeros((rx.adc.n_time, 1), dtype=torch.float64,
-                              device=dev)
-            ms, (ref, n_ref) = wall_ms(lambda: rk.receive_megakernel_ref(
-                t.params, t.prim, t.txp, u, amp_out=amp if coh else None,
-                **kwargs(texture)))
-            what = (f'{twin} textures ({texture}) injected 2^'
-                    f'{TEX_PARITY_LANES.bit_length() - 1} lanes, depth '
-                    f'{depth}')
-            errs.append(held(texture, acc, n_ev, ref, n_ref, amp, what))
-            print(f'plain version {what}: {ms:.1f} ms {tag}')
-
-            acc, n_ev = call(texture, lanes)
-            torch.cuda.synchronize()
-            if not rk.launched_tex_kernel(coh):
-                fail(f'{texture} {twin}: the launch record does not show '
-                     'the texture twin')
-            chunk = COH_PLAIN_CHUNK if coh else PLAIN_CHUNK
-            ref, n_ref, amp, stats[texture], plain[texture] = _plain_philox(
-                torch, rk, t.params, t.prim, t.txp, kwargs(texture), lanes,
-                depth, dev, chunk=chunk)
-            what = (f'{twin} textures ({texture}) philox 2^'
-                    f'{lanes.bit_length() - 1} lanes, depth {depth}')
-            errs.append(held(texture, acc, n_ev, ref, n_ref, amp, what))
-            print(f'plain version {what} in 2^{chunk.bit_length() - 1}-lane '
-                  f'chunks: {plain[texture]:.1f} ms; stage lanes '
-                  + json.dumps(stats[texture]) + f' {tag}')
+            for n, u in ((TEX_PARITY_LANES, torch.rand(
+                    (nd, TEX_PARITY_LANES), generator=gen, device=dev)),
+                    (lanes, None)):
+                what = (f'{twin} textures ({texture}) '
+                        f'{"injected" if u is not None else "philox"} 2^'
+                        f'{n.bit_length() - 1} lanes, depth {depth}')
+                c, st, ms = _twin_parity(
+                    torch, rk, dev, tabs[texture], kwargs(texture), n, u,
+                    lambda: rk.launched_tex_kernel(coh), what, tag,
+                    chunk=COH_PLAIN_CHUNK if coh else PLAIN_CHUNK)
+                errs.append(c)
+            stats[texture], plain[texture] = st, ms
 
         # ---- the anchors, on the card ----
         grids = {k: call(k, TEX_ANCHOR_LANES)[0] for k in
@@ -2424,6 +2528,12 @@ PRIM_MOVED = 100               # a target moves the grid > this x TOL
 PRIM_PAIRS = 4                 # twin / rectangle kernel pairs on the plate
 PRIM_CPI_PULSES = 4            # the sphere's CPI, one launch
 PRIM_CPI_LANES = 1 << 20       # a pulse
+# a lane's floor, x the largest lane, in the Doppler power prims twins'
+# lane-by-lane parity (1e-6 elsewhere): a quadratic root's rounding slides
+# a hit along a sphere or cylinder further than along a plane, and near a
+# null of an aperture's sinc that moves the lane's value beyond 1e-4 of
+# itself (1.5e-4 - 3.2e-4 seen in the g++ emulation)
+PRIM_LANE_FLOOR = 1e-5
 
 
 def _prim_scene(target):
@@ -2469,12 +2579,8 @@ def prims(torch, bt, rk, dev, tag, pulse_compress, build_log: str,
         lanes = PRIM_COH_LANES if coh else PRIM_LANES
         twin = 'coherent' if coh else 'flagship'
         cfg_name = f'{twin}_prims'
-        tabs = {}
         scenes = PRIM_TARGETS + (PRIM_TEX,)
-        for target in (None, 'plate') + scenes:
-            s, rx = _prim_scene(target)
-            sd = s.compile(device=dev)
-            tabs[target] = (s, sd, rx, rk._device_tables(s, sd, rx, dev))
+        tabs = _twin_tables(rk, dev, (None, 'plate') + scenes, _prim_scene)
 
         def kwargs(target):
             rx, t = tabs[target][2:]
@@ -2491,73 +2597,33 @@ def prims(torch, bt, rk, dev, tag, pulse_compress, build_log: str,
                                          uniforms=u, prims=prims,
                                          lane_out=lane, **kwargs(target))
 
-        def held(target, acc, n_ev, ref, n_ref, amp, cond, what, lane=None,
-                 lane_ref=None):
-            s, _, rx, _ = tabs[target]
-            if coh:
-                r = compare_coherent(
-                    torch, acc, n_ev, ref, n_ref, amp,
-                    rk.phase_slack(s.band, rx.adc), what, lane, lane_ref,
-                    depth=depth, cond=cond)
-                share = float(cond.sum() / amp.sum())
-                print(f'{what}: the ill-conditioned connections\' own slack '
-                      f'adds {share:.4f} x the amplitude-weighted phase slack')
-                r['cond_share'] = share
-                return r
-            return compare(acc, n_ev, ref, n_ref, what)
-
-        def lanes_of(n):
-            return (torch.empty(n, device=dev), torch.empty(n, device=dev)) \
-                if coh else (None, None)
-
         def launched(what, target=None):
             if not rk.launched_prim_kernel(coh, target == PRIM_TEX):
                 fail(f'{what}: the launch record does not show the prims '
                      'twin')
+
+        def parity(target, n, u, what):
+            # I / Q lane by lane, with each connection's own slack
+            return _twin_parity(
+                torch, rk, dev, tabs[target], kwargs(target), n, u,
+                lambda: rk.launched_prim_kernel(coh, target == PRIM_TEX),
+                what, tag, chunk=min(COH_PLAIN_CHUNK if coh else PLAIN_CHUNK,
+                                     n), lanes=coh, cond=True, prims=True)
 
         # ---- 3. each twin against its plain version: injected uniforms,
         # then the Philox stream at the main path's width ----
         errs, plain, stats = [], {}, {}
         nd = rk.n_draws(depth)
         for target in scenes:
-            _, _, rx, t = tabs[target]
-            u = torch.rand((nd, PRIM_PARITY_LANES), generator=gen,
-                           device=dev)
-            lane, lane_ref = lanes_of(PRIM_PARITY_LANES)
-            acc, n_ev = call(target, PRIM_PARITY_LANES, u, lane=lane)
-            torch.cuda.synchronize()
-            launched(f'{target} {twin}', target)
-            amp = torch.zeros((rx.adc.n_time, 1), dtype=torch.float64,
-                              device=dev)
-            cond = torch.zeros_like(amp)
-            ms, (ref, n_ref) = wall_ms(lambda: rk.receive_megakernel_ref(
-                t.params, t.prim, t.txp, u, amp_out=amp if coh else None,
-                cond_out=cond if coh else None, lane_out=lane_ref,
-                **kwargs(target)))
-            what = (f'{twin} prims ({target}) injected 2^'
-                    f'{PRIM_PARITY_LANES.bit_length() - 1} lanes, depth '
-                    f'{depth}')
-            errs.append(held(target, acc, n_ev, ref, n_ref, amp, cond,
-                             what, lane, lane_ref))
-            print(f'plain version {what}: {ms:.1f} ms {tag}')
-
-            lane, lane_ref = lanes_of(lanes)
-            acc, n_ev = call(target, lanes, lane=lane)
-            torch.cuda.synchronize()
-            launched(f'{target} {twin}', target)
-            chunk = COH_PLAIN_CHUNK if coh else PLAIN_CHUNK
-            cond = torch.zeros((rx.adc.n_time, 1), dtype=torch.float64,
-                               device=dev) if coh else None
-            ref, n_ref, amp, stats[target], plain[target] = _plain_philox(
-                torch, rk, t.params, t.prim, t.txp, kwargs(target), lanes,
-                depth, dev, lane_ref=lane_ref, chunk=chunk, cond=cond)
-            what = (f'{twin} prims ({target}) philox 2^'
-                    f'{lanes.bit_length() - 1} lanes, depth {depth}')
-            errs.append(held(target, acc, n_ev, ref, n_ref, amp, cond,
-                             what, lane, lane_ref))
-            print(f'plain version {what} in 2^{chunk.bit_length() - 1}-lane '
-                  f'chunks: {plain[target]:.1f} ms; stage lanes '
-                  + json.dumps(stats[target]) + f' {tag}')
+            for n, u in ((PRIM_PARITY_LANES, torch.rand(
+                    (nd, PRIM_PARITY_LANES), generator=gen, device=dev)),
+                    (lanes, None)):
+                c, st, ms = parity(
+                    target, n, u, f'{twin} prims ({target}) '
+                    f'{"injected" if u is not None else "philox"} 2^'
+                    f'{n.bit_length() - 1} lanes, depth {depth}')
+                errs.append(c)
+            stats[target], plain[target] = st, ms
 
         # ---- the anchors and the floor, on the card ----
         grids = {k: call(k, PRIM_ANCHOR_LANES)[0] for k in
@@ -2633,13 +2699,9 @@ def prims(torch, bt, rk, dev, tag, pulse_compress, build_log: str,
         for target in scenes:
             t_ms, _ = cuda_ms(lambda i: call(target, lanes), 5)
             k_ms[target] = statistics.median(t_ms[1:])
-        plate = {True: [], False: []}
-        for i in range(PRIM_PAIRS):
-            for pr in ((True, False) if i % 2 == 0 else (False, True)):
-                t_ms, _ = cuda_ms(lambda j: call('plate', lanes, prims=pr),
-                                  3)
-                plate[pr].extend(t_ms[1:])
-        med = {k: statistics.median(v) for k, v in plate.items()}
+        med = _alternating({pr: (lambda pr=pr: call('plate', lanes,
+                                                    prims=pr))
+                            for pr in (True, False)}, PRIM_PAIRS)
         print(f'receive_megakernel ({twin}) 2^{lanes.bit_length() - 1} lanes '
               f'depth {depth}: ' + ', '.join(
                   f'{k} {v:.3f} ms' for k, v in k_ms.items())
@@ -2649,24 +2711,12 @@ def prims(torch, bt, rk, dev, tag, pulse_compress, build_log: str,
         # the twin on the plate is held to the plain version (FMA
         # contraction may differ between the two instantiations: the
         # emulation, which contracts nothing, gives them bit for bit)
-        lane, lane_ref = lanes_of(PRIM_ANCHOR_LANES)
-        grids = {True: call('plate', PRIM_ANCHOR_LANES, prims=True,
-                            lane=lane)}
-        launched(f'plate {twin}')
-        grids[False] = call('plate', PRIM_ANCHOR_LANES, prims=False)
-        _, _, rx, t = tabs['plate']
-        cond = torch.zeros((rx.adc.n_time, 1), dtype=torch.float64,
-                           device=dev) if coh else None
-        ref, n_ref, amp, _, _ = _plain_philox(
-            torch, rk, t.params, t.prim, t.txp, kwargs('plate'),
-            PRIM_ANCHOR_LANES, depth, dev, lane_ref=lane_ref, cond=cond,
-            chunk=min(COH_PLAIN_CHUNK if coh else PLAIN_CHUNK,
-                      PRIM_ANCHOR_LANES))
         what = (f'{twin} prims twin on the plate, philox 2^'
                 f'{PRIM_ANCHOR_LANES.bit_length() - 1} lanes')
-        errs.append(held('plate', *grids[True], ref, n_ref, amp, cond,
-                         what, lane, lane_ref))
-        a, b2 = grids[True][0], grids[False][0]
+        errs.append(parity('plate', PRIM_ANCHOR_LANES, None, what)[0])
+        a = call('plate', PRIM_ANCHOR_LANES, prims=True)[0]
+        launched(f'plate {twin}')
+        b2 = call('plate', PRIM_ANCHOR_LANES, prims=False)[0]
         print(f'{what}: against the rectangle kernel max diff '
               f'{float((a - b2).abs().max()) / float(b2.abs().max()):.3e} '
               f'of max, bit for bit {torch.equal(a, b2)}')
@@ -2810,6 +2860,415 @@ def prim_cpi(torch, bt, rk, dev, tag, tab, depth) -> int:
           f'took another path; receive_cpi() launched the twin {launches} '
           f'times in 3 calls {tag}')
     return launches
+
+
+# The Doppler configuration's twins: spheres, disks and cylinders and the
+# textured grounds in K1's Doppler power configuration (the range-Doppler
+# pulse's row: 2^24 lanes, depth 2), and the coherent prims twin under
+# motion and a mirror
+DP_LANES = 1 << 24             # samples a receive() call, Philox parity
+DP_DEPTH = 2
+DP_PARITY_LANES = 1 << 18      # injected uniforms
+DP_PAIRS = 4                   # twin / rectangle kernel pairs on the plate
+DP_CPI_PULSES = 8              # the closing sphere's CPI, one launch
+DP_CPI_LANES = 1 << 20         # a pulse
+DP_MIRROR_MIN = 8              # chains the metal sphere closes, at least
+# the power scenes and the twin each launches (its launch record); the
+# I / Q scenes of the coherent prims twin
+DP_POWER = {'sphere': 'prims', 'disk': 'prims', 'cylinder': 'prims',
+            'checker': 'tex', 'bitmap': 'tex', 'sphere_checker': 'tex_prims',
+            'metal_sphere': 'prims', 'sonar_sphere': 'prims'}
+DP_IQ = ('sphere', 'metal_sphere')
+DP_GROUND = {'checker': 'checkerboard', 'bitmap': 'bitmap',
+             'sphere_checker': 'checkerboard'}
+
+
+def _dp_scene(name):
+    """A scene of the doppler_prims phase: the range-Doppler pulse with
+    its target ('plate', 'sphere', 'disk', 'cylinder') over a textured
+    ground (DP_GROUND), the flagship's conductor sphere (the metal
+    calibration target: mirror chains), golden config 2 with its
+    calibration sphere (mix_resample), or ('ground') the pulse over an
+    untextured ground."""
+    from beifong_tpu_torch import scenes as S
+    if name == 'metal_sphere':
+        return S.flagship_scene(target='sphere', material='conductor')
+    if name == 'sonar_sphere':
+        return S.fmcw_sonar_scene(target='sphere')
+    if name == 'ground':
+        # the plate over the ground, untextured: the texture twin's
+        # scene for the Doppler power kernel
+        s, rx = S.range_doppler_scene(0)
+        S.add_ground(s)
+        return s, rx
+    target = 'plate' if name in ('plate', 'checker', 'bitmap') \
+        else name.split('_')[0]
+    return S.range_doppler_scene(0, target, DP_GROUND.get(name))
+
+
+def doppler_prims(torch, bt, rk, dev, tag, build_log: str,
+                  cubin: str) -> list:
+    """K1's Doppler power twins, receive_doppler_power_kernel<true>
+    (textured rectangles), <false, true> (spheres, disks and cylinders)
+    and <true, true> (both), and the coherent prims twin under motion and
+    a mirror, at the range-Doppler pulse's width (2^24 lanes, depth 2):
+    each against its plain version on injected uniforms and on the Philox
+    stream (power lane by lane, a lane's floor PRIM_LANE_FLOOR; I / Q with
+    each ill-conditioned connection's own phase slack, the reading
+    without it beside); the anchors (the closing target's Doppler bin and
+    its CA-CFAR cell, the static ground's ridge at 0 Hz, the metal
+    sphere's range bin and its closed mirror chains, the sonar sphere's
+    beat); receive() five calls a scene, each launching its twin; a
+    closing sphere's CPI in one launch of the power and of the I / Q
+    twin, held pulse by pulse; each twin alone, the prims twin on the
+    plate beside the rectangle kernel; their bounds."""
+    import numpy as np
+    from beifong_tpu_torch.scenes import (FMCW_SONAR_R, RANGE_DOPPLER,
+                                          fmcw_beat_hz, round_trip_bin,
+                                          target_range)
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    tabs = _twin_tables(rk, dev, ('plate', 'ground') + tuple(DP_POWER),
+                        _dp_scene)
+
+    def kwargs(name, coh):
+        _, _, rx, t = tabs[name]
+        kw = dict(adc=rx.adc, max_depth=DP_DEPTH,
+                  time_sampling='fixed' if name == 'sonar_sphere' else 'gate',
+                  rx_kind='wigner', doppler=True, coherent=coh,
+                  receive_type=rx.receive_type,
+                  has_lo=rx.lo_waveform is not None, mirror=t.mirror)
+        if t.textured:
+            kw.update(tex=t.tex, bmp_meta=t.bmp_meta)
+        return kw
+
+    def call(name, coh, n, u=None, prims=None, lane=None):
+        t = tabs[name][3]
+        return rk.receive_megakernel(t.params, t.prim, t.txp, n_lanes=n,
+                                     seed=SEED, uniforms=u, prims=prims,
+                                     lane_out=lane, **kwargs(name, coh))
+
+    def record(name, coh):
+        return rk.launched_prim_kernel(True) if coh \
+            else rk.launched_doppler_power_kernel(DP_POWER[name])
+
+    def launched(name, coh, what):
+        if not record(name, coh):
+            fail(f'{what}: the launch record does not show its twin')
+
+    # ---- 3. each twin against its plain version: injected uniforms,
+    #      then the Philox stream at the main path's width ----
+    runs = [(n, False) for n in DP_POWER] + [(n, True) for n in DP_IQ]
+    errs, plain, stats = {}, {}, {}
+    nd = rk.n_draws(DP_DEPTH)
+    for name, coh in runs:
+        key = (name, coh)
+        errs[key] = []
+        mode = 'iq' if coh else 'power'
+        for n_lanes, u in ((DP_PARITY_LANES, torch.rand(
+                (nd, DP_PARITY_LANES), generator=gen, device=dev)),
+                (DP_LANES, None)):
+            what = (f'doppler_prims {name} {mode} '
+                    f'{"injected" if u is not None else "philox"} 2^'
+                    f'{n_lanes.bit_length() - 1} lanes, depth {DP_DEPTH}')
+            c, st, ms = _twin_parity(
+                torch, rk, dev, tabs[name], kwargs(name, coh), n_lanes, u,
+                lambda: record(name, coh), what, tag, chunk=DOP_PLAIN_CHUNK,
+                lanes=True, cond=True, floor=PRIM_LANE_FLOOR)
+            errs[key].append(c)
+        stats[key], plain[key] = st, ms
+        hk = 'tex_hit' if name in ('checker', 'bitmap') else \
+            ('cylinder_hit' if name == 'cylinder' else
+             'disk_hit' if name == 'disk' else 'sphere_hit')
+        print(f'doppler_prims {name} {mode}: {st.get(hk, 0)} of 2^'
+              f'{DP_LANES.bit_length() - 1} Philox lanes hit ({hk})')
+        if not st.get(hk, 0) > 0:
+            fail(f'doppler_prims {name} {mode}: no lane hit ({hk})')
+
+    # the metal sphere's mirror chains: direct transmitter hits after the
+    # mirror bounce (those of depth 2 less those of depth 1)
+    _, _, rx, t = tabs['metal_sphere']
+    first: dict = {}
+    for lane0 in range(0, DP_LANES, DOP_PLAIN_CHUNK):
+        rk.receive_megakernel_ref(
+            t.params, t.prim, t.txp, rk.philox_uniforms(
+                SEED, rk.n_draws(1), DOP_PLAIN_CHUNK, device=dev,
+                lane0=lane0), lane0=lane0, stats=first,
+            **dict(kwargs('metal_sphere', False), max_depth=1))
+    closed = stats[('metal_sphere', False)]['direct'] - first['direct']
+    print(f'doppler_prims metal sphere: {closed} of 2^'
+          f'{DP_LANES.bit_length() - 1} lanes closed a mirror chain on the '
+          f'transmitter ({stats[("metal_sphere", False)]["mirror_bounce"]} '
+          f'mirror bounces) {tag}')
+    if closed < DP_MIRROR_MIN:
+        fail(f'doppler_prims metal sphere: {closed} mirror chains closed')
+
+    # ---- 4. the main path: receive() of each scene, and the anchors ----
+    rk.receive_megakernel.launches = 0
+    rk.receive_megakernel.by_config = dict.fromkeys(rk.CONFIGS, 0)
+    recv, sigs = {}, {}
+    with _Wavefront(bt) as wfc:
+        for name, coh in runs:
+            s, sd, rx, _ = tabs[name]
+            ts = 'fixed' if name == 'sonar_sphere' else 'gate'
+
+            def run_main(seed, s=s, sd=sd, rx=rx, coh=coh, ts=ts):
+                return bt.receive(s, sd, rx, seed=seed, spp=DP_LANES,
+                                  max_depth=DP_DEPTH, coherent=coh,
+                                  time_sampling=ts, device=dev)
+
+            run_main(1)
+            call_ms, (adc, n) = cuda_ms(lambda i: run_main(2 + i), 4)
+            launched(name, coh, f'receive() {name}')
+            sig = bt.develop_signal(adc, n, rx.adc)
+            want = (rx.adc.n_time, rx.adc.n_freq, 2 if coh else 1)
+            if tuple(sig.shape) != want or not bool(torch.isfinite(sig).all()):
+                fail(f'receive() doppler_prims {name}: signal '
+                     f'{tuple(sig.shape)} not finite / wrong shape')
+            sigs[(name, coh)] = sig.square().sum(-1) if coh else sig[..., 0]
+            recv[(name, coh)] = statistics.median(call_ms)
+            print(f'receive() doppler_prims {name} {"iq" if coh else "power"}'
+                  f' 2^{DP_LANES.bit_length() - 1} samples depth {DP_DEPTH}: '
+                  f'median {recv[(name, coh)]:.3f} ms/call '
+                  f'({DP_LANES / (recv[(name, coh)] * 1e-3):.4e} samples/s) '
+                  f'{tag}')
+    by_cfg = dict(rk.receive_megakernel.by_config)
+    want_cfg = {'doppler_prims': 25, 'doppler_tex': 10,
+                'doppler_tex_prims': 5, 'coherent_prims': 10}
+    if {k: by_cfg[k] for k in want_cfg} != want_cfg or wfc.calls \
+            or rk.receive_megakernel.launches != 50:
+        fail(f'the doppler_prims path launched K1 {by_cfg}, the wavefront '
+             f'{wfc.calls} times in 50 receive() calls')
+    # the anchors: each closing target's Doppler bin and CA-CFAR cell
+    for name in ('sphere', 'disk', 'cylinder', 'sphere_checker', 'checker',
+                 'bitmap'):
+        s, _, rx, _ = tabs[name]
+        check_range_doppler(torch, sigs[(name, False)], s, rx.adc,
+                            f'receive() doppler_prims {name}')
+    s, _, rx, _ = tabs['sphere']
+    check_range_doppler(torch, sigs[('sphere', True)], s, rx.adc,
+                        'receive() doppler_prims sphere I / Q |I + jQ|^2')
+    # the static ground's ridge at 0 Hz (the bare pulse has none there)
+    cfg = tabs['plate'][2].adc
+    f0 = int(round(_bin_coord(40e3, cfg.freq_lo, cfg.freq_hi, cfg.n_freq)))
+    bare = call('plate', False, DP_LANES)[0].sum(0)
+    ridge = {}
+    for name in ('checker', 'bitmap', 'sphere_checker'):
+        spec = sigs[(name, False)].sum(0)
+        ridge[name] = float(spec[f0 - 1:f0 + 2].abs().sum()
+                            / spec.abs().max())
+    bare_ridge = float(bare[f0 - 1:f0 + 2].abs().sum())
+    print(f'doppler_prims static ground: |power| at 0 Hz (bins {f0 - 1}-'
+          f'{f0 + 1}) over the spectrum\'s largest ' + json.dumps(
+              {k: float(f'{v:.4e}') for k, v in ridge.items()})
+          + f'; the bare pulse {bare_ridge:.3e}')
+    if bare_ridge != 0.0 or not all(v > 0.0 for v in ridge.values()):
+        fail(f'doppler_prims: the ground\'s 0 Hz ridge {ridge}, the bare '
+             f'pulse {bare_ridge}')
+    # the metal sphere's range bin, power and I / Q
+    s, _, rx, _ = tabs['metal_sphere']
+    b = int(round(round_trip_bin(s, rx, (0.0, -target_range('sphere'),
+                                         0.0))))
+    for coh in (False, True):
+        pk = int(sigs[('metal_sphere', coh)][:, 0].argmax())
+        print(f'receive() doppler_prims metal sphere '
+              f'{"iq" if coh else "power"}: peak bin {pk}, near-surface '
+              f'round trip {b}')
+        if not b - 1 <= pk <= b + 3:
+            fail(f'doppler_prims metal sphere: peak at {pk}, anchor {b}')
+    # the sonar sphere's beat (its near surface at FMCW_SONAR_R)
+    s, _, rx, _ = tabs['sonar_sphere']
+    f_beat = fmcw_beat_hz(FMCW_SONAR_R)
+    f_axis = (np.arange(rx.adc.n_freq) + 0.5) / rx.adc.n_freq * (4 * f_beat)
+    want_b = int(np.argmin(np.abs(f_axis - f_beat)))
+    pk = int(sigs[('sonar_sphere', False)].sum(0).argmax())
+    print(f'receive() doppler_prims sonar sphere: beat peak bin {pk}, slope '
+          f'2R/c at bin {want_b}')
+    if abs(pk - want_b) > 2:
+        fail(f'doppler_prims sonar sphere: beat peak at {pk}, want {want_b}')
+
+    # ---- a closing sphere's CPI: one launch a call, power and I / Q ----
+    s = tabs['sphere'][0]
+    cpi = {}
+    for coh in (False, True):
+        for fn in (rk.receive_megakernel, rk.receive_megakernel_cpi):
+            fn.launches = 0
+            fn.by_config = dict.fromkeys(rk.CONFIGS, 0)
+        with _Wavefront(bt) as wfc:
+            cube, n = bt.receive_cpi(
+                s, n_pulses=DP_CPI_PULSES, prf=RANGE_DOPPLER['prf'],
+                seed=SEED, spp=DP_CPI_LANES, max_depth=DP_DEPTH,
+                time_sampling='gate', coherent=coh, device=dev)
+        torch.cuda.synchronize()
+        cfg_name = 'coherent_prims' if coh else 'doppler_prims'
+        cpi[coh] = rk.receive_megakernel_cpi.by_config[cfg_name]
+        if cpi[coh] != 1 or rk.receive_megakernel_cpi.launches != 1 \
+                or rk.receive_megakernel.launches or wfc.calls \
+                or not bool(torch.isfinite(cube).all()):
+            fail(f'doppler_prims sphere CPI: '
+                 f'{rk.receive_megakernel_cpi.by_config}, K1 alone '
+                 f'{rk.receive_megakernel.launches}, the wavefront '
+                 f'{wfc.calls} times')
+        packed, rx, _ = rk.pack_cpi(s, DP_CPI_PULSES, RANGE_DOPPLER['prf'])
+        params, prim, txp = (torch.tensor(a, device=dev) for a in
+                             (packed.params, packed.prim, packed.txp))
+        params[:, 0] = rk.seed_slot(SEED)
+        kw = dict(adc=rx.adc, max_depth=DP_DEPTH, time_sampling='gate',
+                  rx_kind='wigner', doppler=True,
+                  receive_type=rx.receive_type, has_lo=False, coherent=coh,
+                  mirror=packed.mirror)
+        lane = torch.empty((DP_CPI_PULSES, DP_CPI_LANES), device=dev)
+        acc, n_ev = rk.receive_megakernel_cpi(
+            params, prim, txp, seed=SEED, seed_step=7919, lane_out=lane,
+            n_lanes=DP_CPI_LANES, **kw)
+        launched('sphere', coh, 'doppler_prims sphere CPI')
+        worst = 0.0
+        for p in range(DP_CPI_PULSES):
+            u = rk.philox_uniforms(SEED + 7919 * p, nd, DP_CPI_LANES,
+                                   device=dev)
+            lane_ref = torch.empty(DP_CPI_LANES, device=dev)
+            amp = torch.zeros((rx.adc.n_time, rx.adc.n_freq),
+                              dtype=torch.float64, device=dev)
+            cond = torch.zeros_like(amp) if coh else None
+            ref, n_ref = rk.receive_megakernel_ref(
+                params[p], prim[p], txp[p], u, lane_out=lane_ref,
+                amp_out=amp, cond_out=cond, **kw)
+            what = f'doppler_prims sphere CPI pulse {p}'
+            if coh:
+                c = compare_coherent(
+                    torch, acc[p], n_ev[p], ref, n_ref, amp,
+                    rk.phase_slack(s.band, rx.adc), what, lane[p], lane_ref,
+                    depth=DP_DEPTH, quiet=True, cond=cond)
+            else:
+                c = compare_lanes(acc[p], n_ev[p], lane[p], ref, n_ref,
+                                  lane_ref, DP_DEPTH, what,
+                                  floor=PRIM_LANE_FLOOR)
+            worst = max(worst, c.get('worst', c['rel']))
+        print(f'parity doppler_prims sphere CPI ({"iq" if coh else "power"}'
+              f'), {DP_CPI_PULSES} pulses x 2^'
+              f'{DP_CPI_LANES.bit_length() - 1} philox lanes in one launch: '
+              f'worst {worst:.3e} {tag}')
+
+    # ---- each twin alone, and the prims twin on the plate beside the
+    #      rectangle kernel (alternating, the same process) ----
+    k_ms = {}
+    for name, coh in runs:
+        t_ms, _ = cuda_ms(lambda i: call(name, coh, DP_LANES), 5)
+        k_ms[(name, coh)] = statistics.median(t_ms[1:])
+    med = _alternating({pr: (lambda pr=pr: call('plate', False, DP_LANES,
+                                                prims=pr))
+                        for pr in (True, False)}, DP_PAIRS)
+    # over the grounds: the Doppler power kernel on the untextured one, the
+    # texture twin and the textured prims twin (<true, true>) on the
+    # checkerboard
+    med_g = _alternating({g: (lambda g=g: call(
+        g.split('_')[0], False, DP_LANES,
+        prims=True if g == 'checker_prims' else None))
+        for g in ('ground', 'checker', 'checker_prims')}, DP_PAIRS)
+    print(f'receive_megakernel (doppler twins) 2^{DP_LANES.bit_length() - 1}'
+          f' lanes depth {DP_DEPTH}: ' + ', '.join(
+              f'{n}{" iq" if c else ""} {v:.3f} ms'
+              for (n, c), v in k_ms.items())
+          + f'; the plate: Doppler power kernel {med[False]:.3f} ms, prims '
+          f'twin {med[True]:.3f} ms ({med[True] / med[False]:.4f}); over '
+          f'an untextured ground the Doppler power kernel '
+          f'{med_g["ground"]:.3f} ms, over the checkerboard the texture twin '
+          f'{med_g["checker"]:.3f} ms '
+          f'({med_g["checker"] / med_g["ground"]:.4f}) and the textured '
+          f'prims twin {med_g["checker_prims"]:.3f} ms '
+          f'({med_g["checker_prims"] / med_g["ground"]:.4f}) {tag}')
+
+    # the bounds and the instruction mix of each new instantiation
+    entries = []
+    for name, cfg_name, label in (
+            ('sphere', 'doppler_prims', 'doppler prims'),
+            ('checker', 'doppler_tex', 'doppler textures'),
+            ('sphere_checker', 'doppler_tex_prims',
+             'doppler prims textures')):
+        s, _, rx, t = tabs[name]
+        key = (name, False)
+        kinds = {k: int((t.prim[:, 0] == code).sum()) for k, code in
+                 (('sphere', 1), ('disk', 2), ('cylinder', 3))}
+        n_rec = int(((t.prim[:, 0] >= 0) & (t.prim[:, 0] <= 3)).sum())
+        n_cells = rx.adc.n_time * rx.adc.n_freq
+        n_bytes = 4 * (t.params.numel() + t.prim.numel() + t.txp.numel()
+                       + (0 if t.tex is None else t.tex.numel())
+                       + n_cells) + 8
+        b = bound(lane_ops(stats[key], n_rec, kinds=kinds), n_bytes,
+                  f'{label} ({name}) 2^{DP_LANES.bit_length() - 1} lanes')
+        geom = rk.launch_geometry(rx.adc.n_time, DP_LANES,
+                                  int(t.prim.shape[0]), n_freq=rx.adc.n_freq,
+                                  doppler=True, tex=t.textured,
+                                  prims=t.prims)
+        mix = kernel_mix(dev, tag, build_log, cubin, f'doppler_{name}',
+                         geom, sms)
+        print(f'{label} bounds ({name}): FP32 {b["bound_ms"]:.4f} ms, issue '
+              f'slots {mix["issue_slot_bound_ms"]:.4f} ms; kernel '
+              f'{k_ms[key]:.3f} ms {tag}')
+        names = [n for n, c in runs if not c and DP_POWER[n] ==
+                 cfg_name[len('doppler_'):]]
+        e = [c for n in names for c in errs[(n, False)]]
+        entries.append({
+            'name': 'receive_megakernel', 'configuration': label,
+            'route': 'cuda',
+            'source': 'beifong_tpu_torch/csrc/receive_megakernel.cu',
+            'replaces': 'beifong_tpu/integrators/pallas_receive.py:2983',
+            'tpu_function': '_make_kernel (pallas_receive.py:106) in its '
+            'Doppler configuration (:624-629), intersect (:656-798) and '
+            'occluded (:947-998)' + (', the texture codes (:762-776)'
+                                     if 'tex' in cfg_name else ''),
+            'main_path': 'receive() of ' + ', '.join(names) + f', 2^'
+            f'{DP_LANES.bit_length() - 1} samples, depth {DP_DEPTH}',
+            'launches': by_cfg[cfg_name] + (cpi[False] if cfg_name ==
+                                            'doppler_prims' else 0),
+            'max_abs_err': max(c['err'] for c in e),
+            'parity': max(c['rel'] for c in e),
+            'ms': k_ms[key], 'plain_ms': plain[key],
+            'receive_ms': recv[key],
+            'kernel_ms_by_scene': {n: k_ms[(n, False)] for n in names},
+            **b, 'library_ms': None, **mix})
+        if cfg_name == 'doppler_prims':
+            entries[-1].update(plate_ms=med[True],
+                               plate_rect_kernel_ms=med[False],
+                               mirror_chains_closed=closed)
+        if cfg_name == 'doppler_tex':
+            entries[-1].update(checker_pairs_ms=med_g['checker'],
+                               plain_ground_rect_kernel_ms=med_g['ground'])
+        if cfg_name == 'doppler_tex_prims':
+            entries[-1].update(checker_ms=med_g['checker_prims'],
+                               plain_ground_rect_kernel_ms=med_g['ground'])
+    e = [c for n in DP_IQ for c in errs[(n, True)]]
+    entries.append({
+        'name': 'receive_megakernel',
+        'configuration': 'coherent prims, Doppler conditions',
+        'route': 'cuda',
+        'source': 'beifong_tpu_torch/csrc/receive_megakernel.cu',
+        'replaces': 'beifong_tpu/integrators/pallas_receive.py:2983',
+        'tpu_function': '_make_kernel (pallas_receive.py:106) coherent, '
+        'moving and mirror, spheres (:656-798)',
+        'main_path': 'receive(coherent=True) of the closing sphere and the '
+        f'metal sphere, 2^{DP_LANES.bit_length() - 1} samples, depth '
+        f'{DP_DEPTH}', 'launches': by_cfg['coherent_prims'] + cpi[True],
+        'max_abs_err': max(c['err'] for c in e),
+        'parity': max(c['rel'] for c in e),
+        'worst_of_gate': max(c['worst'] for c in e),
+        'worst_of_plain_gate': max(c['worst_plain'] for c in e),
+        'ms': k_ms[('sphere', True)], 'metal_ms': k_ms[('metal_sphere',
+                                                        True)],
+        'plain_ms': plain[('sphere', True)],
+        'receive_ms': recv[('sphere', True)],
+        **bound(lane_ops(stats[('sphere', True)], 3, kinds={'sphere': 1}),
+                4 * (tabs['sphere'][3].params.numel()
+                     + tabs['sphere'][3].prim.numel()
+                     + tabs['sphere'][3].txp.numel()
+                     + 2 * tabs['sphere'][2].adc.n_time
+                     * tabs['sphere'][2].adc.n_freq) + 8,
+                'coherent prims (closing sphere)'),
+        'library_ms': None})
+    print(f'doppler_prims phase wall {time.perf_counter() - t_phase:.1f} s '
+          f'{tag}')
+    return entries
 
 
 # MIMO receive: golden config 6 through K1's MIMO configuration
@@ -3305,7 +3764,7 @@ def media(torch, bt, rk, dev, tag) -> list:
         'cpi_worst': worst5, 'times': rows}]
 
 
-PHASED_LANES = 1 << 24          # receive() and the kernel alone, Philox parity
+PHASED_LANES = 1 << 24          # receive() and the kernel alone
 PHASED_PARITY_LANES = 1 << 16   # injected uniforms
 PHASED_DEPTH = 2
 PHASED_WF_SAMPLES = 1 << 20     # K1 against the wavefront
@@ -3486,10 +3945,12 @@ def phased(torch, bt, rk, dev, tag, build_log: str = '',
         k_ms, _ = cuda_ms(lambda i: rk.receive_megakernel(
             params, prim, txp, n_lanes=PHASED_LANES, seed=SEED, **kw), 6)
         k_med = statistics.median(k_ms[1:])
-        lane = torch.empty(PHASED_LANES, device=dev) if coh else None
-        lane_ref = torch.empty(PHASED_LANES, device=dev) if coh else None
+        lane = torch.empty(PARITY_PHILOX_LANES, device=dev) if coh else None
+        lane_ref = torch.empty(PARITY_PHILOX_LANES, device=dev) \
+            if coh else None
         acc1, n1 = rk.receive_megakernel(params, prim, txp,
-                                         n_lanes=PHASED_LANES, seed=SEED,
+                                         n_lanes=PARITY_PHILOX_LANES,
+                                         seed=SEED,
                                          lane_out=lane, **kw)
         lib = rk.LIBRARY.get()
         ran = rk.launched_endpoint_kernel(coh)
@@ -3507,13 +3968,16 @@ def phased(torch, bt, rk, dev, tag, build_log: str = '',
         if not ran:
             fail(f'phased {name}: the launch did not run {want_k}')
         ref, n_ref, amp, stats, plain_ms = _plain_philox(
-            torch, rk, params, prim, txp, kw, PHASED_LANES, PHASED_DEPTH,
-            dev, lane_ref=lane_ref)
+            torch, rk, params, prim, txp, kw, PARITY_PHILOX_LANES,
+            PHASED_DEPTH, dev, lane_ref=lane_ref)
+        what_p = f'{name} philox 2^{PARITY_PHILOX_LANES.bit_length() - 1} ' \
+            'lanes'
         errs.append(compare_coherent(
-            torch, acc1, n1, ref, n_ref, amp, slack,
-            f'{name} philox 2^24 lanes', lane, lane_ref,
+            torch, acc1, n1, ref, n_ref, amp, slack, what_p, lane, lane_ref,
             depth=PHASED_DEPTH) if coh else compare(
-            acc1, n1, ref, n_ref, f'{name} philox 2^24 lanes'))
+            acc1, n1, ref, n_ref, what_p))
+        # the bound's stage counts, for the kernel's 2^24 lanes
+        stats = scaled_stats(stats, PHASED_LANES // PARITY_PHILOX_LANES)
 
         # ---- K1 against the wavefront: the power profile of one seed;
         #      the coherent |I + jQ|^2 averaged over PHASED_WF_SEEDS seeds
@@ -3689,7 +4153,7 @@ def rule_parity(torch, rk, dev, tag, which: str) -> None:
           f'gate {tag}')
 
 
-LOBE_LANES = 1 << 24          # receive(), the kernel alone, Philox parity
+LOBE_LANES = 1 << 24          # receive(), the kernel alone
 LOBE_PARITY_LANES = 1 << 16   # injected uniforms
 LOBE_WF_SAMPLES = 1 << 18     # K1 against the wavefront: samples a seed
 LOBE_WF_SEEDS = 16            # seeds averaged on each route
@@ -3762,7 +4226,8 @@ def lobes(torch, bt, rk, dev, tag, build_log: str, cubin: str) -> list:
     """K1's lobe twins (the analytic ones' receive_lobe_kernel<COH>, the
     mesh ones' LOB instantiations) on the JAX package's lobe kernel tests'
     scenes at full width: parity of each twin against its plain version on
-    injected uniforms and on Philox (2^24; the analytic twins' repeats
+    injected uniforms and on Philox (2^22, its stage counts scaled to the
+    kernel's 2^24 lanes for the bound; the analytic twins' repeats
     bit-identical, their launch record the lobe kernel's, their registers,
     warps an SM and SASS mix), each through receive() at 2^24 samples
     with the anchors (the
@@ -3902,11 +4367,16 @@ def lobes(torch, bt, rk, dev, tag, build_log: str, cubin: str) -> list:
         k_ms, _ = cuda_ms(lambda i: rk.receive_megakernel(
             params, prim, txp, n_lanes=LOBE_LANES, seed=SEED, **k_kw), 6)
         k_med = statistics.median(k_ms[1:])
-        lane = torch.empty(LOBE_LANES, device=dev)
-        lane_ref = torch.empty(LOBE_LANES, device=dev)
+        # the Philox parity at PARITY_PHILOX_LANES (the mesh twins' direction
+        # strata are those of the parity call's own lanes)
+        p_kw = dict(k_kw)
+        if kw['mesh'] is not None:
+            p_kw['patch_p'] = rk.patch_p_for(PARITY_PHILOX_LANES)
+        lane = torch.empty(PARITY_PHILOX_LANES, device=dev)
+        lane_ref = torch.empty(PARITY_PHILOX_LANES, device=dev)
         acc1, n1 = rk.receive_megakernel(params, prim, txp,
-                                         n_lanes=LOBE_LANES, seed=SEED,
-                                         lane_out=lane, **k_kw)
+                                         n_lanes=PARITY_PHILOX_LANES,
+                                         seed=SEED, lane_out=lane, **p_kw)
         analytic = kw['mesh'] is None
         record = rk.launched_lobe_kernel(coh)
         # the mesh lobe twins run the mesh Doppler kernel <coh, true>
@@ -3915,13 +4385,16 @@ def lobes(torch, bt, rk, dev, tag, build_log: str, cubin: str) -> list:
             fail(f'lobes {scene} ({cfg_name}): the launch record shows the '
                  f'mesh Doppler kernel <{str(coh).lower()}, true> {not mdk}')
         acc2, n2 = rk.receive_megakernel(params, prim, txp,
-                                         n_lanes=LOBE_LANES, seed=SEED,
-                                         **k_kw)
+                                         n_lanes=PARITY_PHILOX_LANES,
+                                         seed=SEED, **p_kw)
         ref, n_ref, amp, stats, plain_ms = _plain_philox(
-            torch, rk, params, prim, txp, k_kw, LOBE_LANES, depth, dev,
-            lane_ref=lane_ref, power_amp=chain)
+            torch, rk, params, prim, txp, p_kw, PARITY_PHILOX_LANES, depth,
+            dev, lane_ref=lane_ref, power_amp=chain)
         errs.append(check(acc1, n1, ref, n_ref, amp, lane, lane_ref, None,
-                          k_kw, chain, s, rx, f'{scene} philox 2^24 lanes'))
+                          p_kw, chain, s, rx, f'{scene} philox 2^'
+                          f'{PARITY_PHILOX_LANES.bit_length() - 1} lanes'))
+        # the bound's stage counts, for the kernel's 2^24 lanes
+        stats = scaled_stats(stats, LOBE_LANES // PARITY_PHILOX_LANES)
         # the analytic twins run receive_lobe_kernel (the launch record)
         # and the mesh lobe twins the mesh Doppler kernel, whose warp rows
         # make Philox repeats bit-identical
@@ -5017,23 +5490,41 @@ def main() -> int:
 
     # ---- 3-4. each path: parity, then the path itself ----
     log = infos['receive_megakernel'].log
-    kernels = [flagship(torch, bt, rk, dev, tag, pulse_compress, log,
-                        cubin),
-               mesh(torch, bt, rk, dev, tag, pulse_compress, log, cubin)]
-    dop_kernels, k1_grid = doppler(torch, bt, rk, ik, dev, tag, log, cubin)
+    walls = {'build': round(time.perf_counter() - t0, 1)}
+
+    def phase(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        walls[name] = round(time.perf_counter() - t, 1)
+        return out
+
+    kernels = [phase('flagship', flagship, torch, bt, rk, dev, tag,
+                     pulse_compress, log, cubin),
+               phase('mesh', mesh, torch, bt, rk, dev, tag, pulse_compress,
+                     log, cubin)]
+    dop_kernels, k1_grid = phase('doppler', doppler, torch, bt, rk, ik, dev,
+                                 tag, log, cubin)
     kernels += dop_kernels
-    kernels += coherent(torch, bt, rk, ik, dev, tag, log, cubin)
-    kernels += cpi(torch, bt, rk, ik, dev, tag, log, cubin)
-    kernels += textures(torch, bt, rk, dev, tag, pulse_compress, log, cubin)
-    kernels += prims(torch, bt, rk, dev, tag, pulse_compress, log, cubin)
-    kernels += mimo(torch, bt, rk, dev, tag, log, cubin)
-    kernels += media(torch, bt, rk, dev, tag)
-    kernels += phased(torch, bt, rk, dev, tag, log, cubin)
-    kernels += lobes(torch, bt, rk, dev, tag, log, cubin)
-    kernels += queries(torch, bt, dev, tag, infos['bvh_kernels'].log)
-    k4 = k4_parity(torch, ik, dev, tag, infos['intersect_kernels'].log)
-    k4_launches, bvh_launches = wavefront(torch, bt, ik, bk, rk, dev, tag,
-                                          pulse_compress, k1_grid)
+    kernels += phase('coherent', coherent, torch, bt, rk, ik, dev, tag, log,
+                     cubin)
+    kernels += phase('cpi', cpi, torch, bt, rk, ik, dev, tag, log, cubin)
+    kernels += phase('textures', textures, torch, bt, rk, dev, tag,
+                     pulse_compress, log, cubin)
+    kernels += phase('prims', prims, torch, bt, rk, dev, tag,
+                     pulse_compress, log, cubin)
+    kernels += phase('doppler_prims', doppler_prims, torch, bt, rk, dev, tag,
+                     log, cubin)
+    kernels += phase('mimo', mimo, torch, bt, rk, dev, tag, log, cubin)
+    kernels += phase('media', media, torch, bt, rk, dev, tag)
+    kernels += phase('phased', phased, torch, bt, rk, dev, tag, log, cubin)
+    kernels += phase('lobes', lobes, torch, bt, rk, dev, tag, log, cubin)
+    kernels += phase('queries', queries, torch, bt, dev, tag,
+                     infos['bvh_kernels'].log)
+    k4 = phase('k4', k4_parity, torch, ik, dev, tag,
+               infos['intersect_kernels'].log)
+    k4_launches, bvh_launches = phase('wavefront', wavefront, torch, bt, ik,
+                                      bk, rk, dev, tag, pulse_compress,
+                                      k1_grid)
     for k in k4:
         k['launches'] = k4_launches[k['name']]
     for k in kernels:
@@ -5044,6 +5535,7 @@ def main() -> int:
     # ---- 5. report ----
     for k in kernels:
         k['card'] = card
+    print(f'phase walls (s): {json.dumps(walls)} {tag}')
     print(f'chip_smoke wall {time.perf_counter() - t_start:.1f} s {tag}')
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {

@@ -23,6 +23,7 @@ from beifong_tpu.integrators import pallas_receive as pr
 
 import beifong_tpu_torch as bt
 from beifong_tpu_torch import scenes
+from beifong_tpu_torch.bsdf.tables import plastic
 from beifong_tpu_torch.core import transform as tf_t
 from beifong_tpu_torch.geometry import shapes as sh_t
 from beifong_tpu_torch.integrators import receive_kernel as rk
@@ -339,8 +340,9 @@ def test_cpi_engines_agree_on_the_cpu():
 
 def test_cpi_launch_counts_and_scope(monkeypatch):
     """The kernel routes run one plain CPI call for the train; a scene
-    outside the kernel's scope runs the loop under 'scan' and raises
-    under 'pallas', naming the ROADMAP item."""
+    outside the kernel's scope (a plastic sphere: the kinds have no lobe
+    twin) runs the loop under 'scan' and raises under 'pallas', naming the
+    ROADMAP item."""
     calls = []
     k = rk.receive_megakernel_cpi
 
@@ -351,7 +353,8 @@ def test_cpi_launch_counts_and_scope(monkeypatch):
     s, _ = bt.micro_doppler_scene()
     bt.receive_cpi(s, n_pulses=3, spp=1024, max_depth=1, device='cpu')
     assert calls == [3]
-    s.add(sh_t.sphere(center=(2.0, -6.0, 0.0), radius=0.3, bsdf='mat'))
+    s.add(plastic('pl', twosided=True))
+    s.add(sh_t.sphere(center=(2.0, -6.0, 0.0), radius=0.3, bsdf='pl'))
     with pytest.raises(NotImplementedError, match='ROADMAP B1'):
         bt.receive_cpi(s, n_pulses=2, spp=256, max_depth=1, engine='pallas',
                        device='cpu')

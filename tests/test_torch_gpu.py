@@ -2496,3 +2496,208 @@ def test_prims_cpi_takes_the_coherent_twin(cuda):
         _assert_coherent_parity(acc[p], n_ev[p], ref, n_ref, amp,
                                 rk.phase_slack(s.band, rx.adc), lane[p],
                                 lane_ref, cond=cond)
+
+
+# the Doppler configuration's twins: (scene, time sampling, the Doppler
+# power twin's launch record)
+DOPPLER_TWIN_SCENES = {
+    'sphere': (lambda: range_doppler_scene(0, 'sphere'), 'gate', 'prims'),
+    'disk': (lambda: range_doppler_scene(0, 'disk'), 'gate', 'prims'),
+    'cylinder': (lambda: range_doppler_scene(0, 'cylinder'), 'gate',
+                 'prims'),
+    'checker': (lambda: range_doppler_scene(0, 'plate', 'checkerboard'),
+                'gate', 'tex'),
+    'bitmap': (lambda: range_doppler_scene(0, 'plate', 'bitmap'), 'gate',
+               'tex'),
+    'sphere_checker': (lambda: range_doppler_scene(0, 'sphere',
+                                                   'checkerboard'),
+                       'gate', 'tex_prims'),
+    'metal_sphere': (lambda: flagship_scene(target='sphere',
+                                            material='conductor'), 'gate',
+                     'prims'),
+    'ggx_sphere': (lambda: flagship_scene(target='sphere',
+                                          material='rough_conductor'),
+                   'gate', 'prims'),
+    'sonar_sphere': (lambda: fmcw_sonar_scene(target='sphere'), 'fixed',
+                     'prims'),
+    'sphere_global': (lambda: _wide_pulse(range_doppler_scene(0, 'sphere')),
+                      'gate', 'prims'),
+}
+
+
+def _wide_pulse(scene):
+    """The range-Doppler pulse on 256 x 128 cells: past the block's grid,
+    so the twin splats into the global float64 grid."""
+    s, rx = scene
+    rx = dataclasses.replace(rx, adc=dataclasses.replace(rx.adc,
+                                                         n_time=256))
+    s.receivers[0] = rx
+    return s, rx
+
+
+def _doppler_twin_tables(device, name, coherent):
+    scene, ts, twin = DOPPLER_TWIN_SCENES[name]
+    s, rx = scene()
+    tab = rk._device_tables(s, s.compile(device='cpu'), rx, device)
+    kw = dict(adc=rx.adc, max_depth=2, time_sampling=ts, rx_kind='wigner',
+              doppler=True, coherent=coherent, receive_type=rx.receive_type,
+              has_lo=rx.lo_waveform is not None, mirror=tab.mirror)
+    if tab.textured:
+        kw.update(tex=tab.tex, bmp_meta=tab.bmp_meta)
+    return s, rx, tab, kw, twin
+
+
+def _assert_power_lanes(acc, n_ev, ref, n_ref, lane, lane_ref, depth=2,
+                        cell_slack=0.0):
+    """Power lane by lane: each lane within 1e-4 of itself or 1e-5 of the
+    largest lane (a quadratic root's rounding slides a hit along a sphere
+    or cylinder further than along a plane; chip_smoke.PRIM_LANE_FLOOR);
+    lanes beyond it took another path, at most 1e-4 of them, and bound
+    the cells by their sums beyond 1e-4 x max|acc| (and `cell_slack`, a
+    tensor of the grid's shape)."""
+    scale = float(ref.abs().max())
+    assert scale > 0 and int(n_ref) > 0
+    flipped = (lane - lane_ref).abs() > \
+        1e-4 * lane_ref.abs() + 1e-5 * float(lane_ref.abs().max())
+    n_flip = int(flipped.sum())
+    assert n_flip <= 1e-4 * lane.numel(), n_flip
+    slack = float((lane.abs() + lane_ref.abs())[flipped].sum())
+    assert bool(((acc - ref).abs() <= 1e-4 * scale + slack + cell_slack)
+                .all())
+    assert abs(int(n_ev) - int(n_ref)) <= 1e-4 * int(n_ref) \
+        + 2 * depth * n_flip
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('name', list(DOPPLER_TWIN_SCENES))
+def test_doppler_power_twins_match_plain_version(cuda, name):
+    """receive_doppler_power_kernel<true> (textured grounds), <false,
+    true> (spheres, disks, cylinders: closing, a mirror, GGX, the sonar's
+    mix_resample) and <true, true> (both) on injected uniforms and on
+    Philox against the plain version, lane by lane (on the global grid each
+    cell also within `coord_slack` of its |power| sum, its bins' float
+    coordinates); the launch record and the configuration's count."""
+    s, rx, tab, kw, twin = _doppler_twin_tables(cuda, name, False)
+    cfg = rk.config_name(False, True, tex=tab.textured, prims=tab.prims)
+    assert cfg == 'doppler_' + twin
+    for n_lanes, u in ((1 << 16, torch.rand(
+            (rk.n_draws(2), 1 << 16),
+            generator=torch.Generator(cuda).manual_seed(5), device=cuda)),
+            ((1 << 20) + 77, None)):
+        before = rk.receive_megakernel.by_config[cfg]
+        lane = torch.empty(n_lanes, device=cuda)
+        acc, n_ev = rk.receive_megakernel(tab.params, tab.prim, tab.txp,
+                                          n_lanes=n_lanes, uniforms=u,
+                                          seed=11, lane_out=lane, **kw)
+        torch.cuda.synchronize()
+        assert rk.launched_doppler_power_kernel(twin)
+        assert not rk.launched_doppler_power_kernel()
+        assert rk.receive_megakernel.by_config[cfg] == before + 1
+        if u is None:
+            u = rk.philox_uniforms(11, rk.n_draws(2), n_lanes, device=cuda)
+        lane_ref = torch.empty(n_lanes, device=cuda)
+        amp = torch.zeros((rx.adc.n_time, rx.adc.n_freq),
+                          dtype=torch.float64, device=cuda)
+        ref, n_ref = rk.receive_megakernel_ref(
+            tab.params, tab.prim, tab.txp, u, lane_out=lane_ref,
+            amp_out=amp, **kw)
+        assert acc.shape == ref.shape
+        glob = rk.grid_mode(rx.adc.n_time * rx.adc.n_freq, True) == 2
+        assert glob == (name == 'sphere_global')
+        _assert_power_lanes(acc, n_ev, ref, n_ref, lane, lane_ref,
+                            cell_slack=rk.coord_slack(rx.adc) * amp.float()
+                            if glob else 0.0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('name', ['sphere', 'metal_sphere', 'ggx_sphere',
+                                  'sonar_sphere'])
+def test_coherent_prims_twin_under_doppler_conditions(cuda, name):
+    """receive_coherent_kernel<false, true> on a closing sphere's 2-D
+    I / Q grid, the metal sphere's mirror chains, a GGX sphere and the
+    sonar's mix_resample, on injected uniforms and on Philox: the phase
+    slack with each ill-conditioned connection's own, lane by lane in
+    amplitude."""
+    s, rx, tab, kw, _ = _doppler_twin_tables(cuda, name, True)
+    for n_lanes, u in ((1 << 16, torch.rand(
+            (rk.n_draws(2), 1 << 16),
+            generator=torch.Generator(cuda).manual_seed(6), device=cuda)),
+            ((1 << 20) + 77, None)):
+        lane = torch.empty(n_lanes, device=cuda)
+        acc, n_ev = rk.receive_megakernel(tab.params, tab.prim, tab.txp,
+                                          n_lanes=n_lanes, uniforms=u,
+                                          seed=12, lane_out=lane, **kw)
+        torch.cuda.synchronize()
+        assert rk.launched_prim_kernel(True)
+        if u is None:
+            u = rk.philox_uniforms(12, rk.n_draws(2), n_lanes, device=cuda)
+        amp = torch.zeros((rx.adc.n_time, rx.adc.n_freq),
+                          dtype=torch.float64, device=cuda)
+        cond = torch.zeros_like(amp)
+        lane_ref = torch.empty(n_lanes, device=cuda)
+        ref, n_ref = rk.receive_megakernel_ref(
+            tab.params, tab.prim, tab.txp, u, amp_out=amp, cond_out=cond,
+            lane_out=lane_ref, **kw)
+        _assert_coherent_parity(acc, n_ev, ref, n_ref, amp,
+                                rk.phase_slack(s.band, rx.adc), lane,
+                                lane_ref, cond=cond)
+
+
+@pytest.mark.gpu
+def test_doppler_twins_on_the_main_path(cuda):
+    """receive() of each Doppler twin scene launches its twin (no
+    wavefront pass), finite; the prims twin on the rectangle-only pulse is
+    held to the plain version as the Doppler power kernel is; a closing
+    sphere's power CPI runs in one launch of the prims twin, held pulse by
+    pulse."""
+    for name in DOPPLER_TWIN_SCENES:
+        s, rx, tab, kw, twin = _doppler_twin_tables(cuda, name, False)
+        adc, n = receive(s, receiver=rx, spp=1 << 18, max_depth=2,
+                         time_sampling=kw['time_sampling'], device=cuda)
+        torch.cuda.synchronize()
+        assert rk.launched_doppler_power_kernel(twin), name
+        assert bool(torch.isfinite(adc).all()) and n == 1 << 18
+    s, rx = range_doppler_scene(0)
+    tab = rk._device_tables(s, s.compile(device='cpu'), rx, cuda)
+    kw = dict(adc=rx.adc, max_depth=2, time_sampling='gate',
+              rx_kind='wigner', doppler=True)
+    u = rk.philox_uniforms(7, rk.n_draws(2), 1 << 20, device=cuda)
+    ref, n_ref = rk.receive_megakernel_ref(tab.params, tab.prim, tab.txp, u,
+                                           **kw)
+    for prims in (True, False):
+        acc, n_ev = rk.receive_megakernel(tab.params, tab.prim, tab.txp,
+                                          n_lanes=1 << 20, seed=7,
+                                          prims=prims, **kw)
+        torch.cuda.synchronize()
+        assert rk.launched_doppler_power_kernel('prims' if prims else '')
+        assert float((acc - ref).abs().max()) \
+            <= 1e-4 * float(ref.abs().max())
+        assert abs(int(n_ev) - int(n_ref)) <= 1e-4 * int(n_ref)
+    s, rx = range_doppler_scene(0, 'sphere')
+    before = rk.receive_megakernel_cpi.by_config['doppler_prims']
+    cube, n = receive_cpi(s, n_pulses=4, prf=20.0, spp=1 << 18,
+                          max_depth=2, time_sampling='gate', coherent=False,
+                          engine='pallas', device=cuda)
+    torch.cuda.synchronize()
+    assert rk.launched_doppler_power_kernel('prims')
+    assert rk.receive_megakernel_cpi.by_config['doppler_prims'] \
+        == before + 1
+    assert bool(torch.isfinite(cube).all()) and cube.shape[0] == 4
+    packed, rx, _ = rk.pack_cpi(s, 4, 20.0)
+    params, prim, txp = (torch.tensor(a, device=cuda) for a in
+                         (packed.params, packed.prim, packed.txp))
+    params[:, 0] = rk.seed_slot(5)
+    kw = dict(adc=rx.adc, max_depth=2, time_sampling='gate',
+              rx_kind='wigner', doppler=True, mirror=packed.mirror)
+    lane = torch.empty((4, 1 << 18), device=cuda)
+    acc, n_ev = rk.receive_megakernel_cpi(params, prim, txp, seed=5,
+                                          seed_step=7919, n_lanes=1 << 18,
+                                          lane_out=lane, **kw)
+    assert rk.launched_doppler_power_kernel('prims')
+    for p in range(4):
+        u = rk.philox_uniforms(5 + 7919 * p, rk.n_draws(2), 1 << 18,
+                               device=cuda)
+        lane_ref = torch.empty(1 << 18, device=cuda)
+        ref, n_ref = rk.receive_megakernel_ref(params[p], prim[p], txp[p], u,
+                                               lane_out=lane_ref, **kw)
+        _assert_power_lanes(acc[p], n_ev[p], ref, n_ref, lane[p], lane_ref)

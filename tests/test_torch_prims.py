@@ -38,6 +38,7 @@ from beifong_tpu_torch.geometry import shapes as sh_t
 from beifong_tpu_torch.integrators import receive_kernel as rk
 
 from test_torch_interop import jax_leaves, port_leaves
+from test_torch_wavefront import _pkg
 
 torch.set_num_threads(1)
 
@@ -94,8 +95,26 @@ def test_pack_bit_identical_to_jax(target, clutter):
     plates the sphere makes 65 analytic rows (64 rectangles), so both
     packages demote the plain rectangles into the BVH and count the same
     leaves."""
-    s_j, rx_j = flagship('jax', target, clutter)
-    s_t, rx_t = flagship('port', target, clutter)
+    _assert_pack_bit_identical(*flagship('jax', target, clutter),
+                               *flagship('port', target, clutter), clutter)
+
+
+@pytest.mark.parametrize('target', KINDS)
+@pytest.mark.parametrize('change', ['moving', 'mirror', 'ggx'])
+def test_doppler_pack_bit_identical_to_jax(target, change):
+    """A moving target, and a smooth or GGX rough conductor one, of each
+    kind pack as the JAX package's `_pack_scene` does, bit for bit (the
+    velocity in columns 19-21, the conductor's lobe and constants), and
+    the pack asks for the Doppler configuration."""
+    s_j, rx_j = doppler_change('jax', *flagship('jax', target), change)
+    s_t, rx_t = doppler_change('port', *flagship('port', target), change)
+    got = _assert_pack_bit_identical(s_j, rx_j, s_t, rx_t, 0)
+    assert got.doppler(rx_t.adc)
+    assert got.moving == (change == 'moving')
+    assert (got.mirror, got.ggx) == (change == 'mirror', change == 'ggx')
+
+
+def _assert_pack_bit_identical(s_j, rx_j, s_t, rx_t, clutter):
     si = s_j.shape_index_of_endpoint('receiver', rx_j.id)
     sd_j, sd_t = s_j.compile(use_bvh=False), s_t.compile(device='cpu')
     ref = pr._pack_scene(sd_j, rx_j, si)
@@ -114,14 +133,56 @@ def test_pack_bit_identical_to_jax(target, clutter):
                                       np.asarray(ref[9].leaves))
     else:
         assert got.mesh is None and ref[9] is None
+    return got
+
+
+# the Doppler conditions (`receive_kernel.needs_doppler`): each puts a
+# scene into the Doppler configuration, whose power and coherent twins
+# take the kinds and the textures as the JAX package's kernel does
+DOPPLER_CHANGES = ('moving', 'tx_moving', 'rx_moving', 'mirror', 'ggx',
+                   'mix_resample', 'mixer', 'raw_resample', 'n_freq',
+                   'wide')
+
+
+def doppler_change(pkg, s, rx, change, target=2):
+    """The scene (s, rx) of either package under one of DOPPLER_CHANGES:
+    its target (shape `target`) closing at 2 m/s, the transmitter or the
+    receiver moving, the target a smooth or a GGX rough conductor, the
+    receiver of an LO receive type (the transmitter's waveform its LO; a
+    mixer's beat window 0-2 kHz), 8 frequency bins or 1,024 time bins.
+    Returns (s, rx)."""
+    p = _pkg(pkg)
+    vel = np.asarray((0.0, 2.0, 0.0), np.float32)
+    if change == 'moving':
+        s.shapes[target].velocity = vel
+    elif change == 'tx_moving':
+        s.transmitters[0] = dc.replace(s.transmitters[0], velocity=-vel)
+    elif change == 'rx_moving':
+        rx = dc.replace(rx, velocity=vel)
+    elif change in ('mirror', 'ggx'):
+        metal = dict(eta=1.5, k=3.0, twosided=True)
+        s.add(p.bsdf.conductor('metal', **metal) if change == 'mirror'
+              else p.bsdf.rough_conductor('metal', alpha=0.3, **metal))
+        s.shapes[target].bsdf = 'metal'
+    elif change in ('mix_resample', 'mixer', 'raw_resample'):
+        adc = dc.replace(rx.adc, freq_lo=0.0, freq_hi=2e3) \
+            if change == 'mixer' else rx.adc
+        rx = dc.replace(rx, receive_type=change, adc=adc,
+                        lo_waveform=s.transmitters[0].waveform)
+    elif change == 'n_freq':
+        rx = dc.replace(rx, adc=dc.replace(rx.adc, n_freq=8))
+    elif change == 'wide':
+        rx = dc.replace(rx, adc=dc.replace(rx.adc, n_time=1024))
+    else:
+        raise ValueError(change)
+    s.receivers[0] = rx
+    return s, rx
 
 
 def _changed(pkg, target, change):
     s, rx = flagship(pkg, target)
     sh, tf = (sh_j, tf_j) if pkg == 'jax' else (sh_t, tf_t)
-    if change == 'moving':
-        s.shapes[2].velocity = np.asarray((0.0, 2.0, 0.0), np.float32)
-    elif change == 'plastic':
+    if change == 'plastic':
         s.bsdfs[0] = dc.replace(s.bsdfs[0], type=5)   # PLASTIC
     elif change == 'two_tx':
         mod = __import__('beifong_tpu.radar' if pkg == 'jax'
@@ -138,20 +199,24 @@ def _changed(pkg, target, change):
         s.add((normalmap_j if pkg == 'jax' else normalmap_t)(
             'mapped', 'mat', 'nm'))
         s.shapes[-1].bsdf = 'mapped'
+    elif change is not None:
+        s, rx = doppler_change(pkg, s, rx, change)
     return s, rx
 
 
 @pytest.mark.parametrize('target', KINDS)
-@pytest.mark.parametrize('change, needle', [
-    (None, None), ('moving', 'Doppler configuration'),
+@pytest.mark.parametrize('change, needle', [(None, None)] + [
+    pytest.param(c, None, id=f'{c}-Doppler configuration')
+    for c in DOPPLER_CHANGES] + [
     ('plastic', 'lobe twins'), ('two_tx', 'endpoint twins'),
     ('maps', 'ROADMAP C11')])
 def test_scope_against_jax(target, change, needle):
     """The JAX package's kernel takes every case; the port's takes the
-    static flagship scene of each kind, and refuses the kind in the Doppler
-    power, lobe and endpoint configurations naming ROADMAP B1 (rest), and
-    a shading-mapped scene naming C11, which the JAX kernel would run
-    without the maps."""
+    static flagship scene of each kind and the scene under each Doppler
+    condition (the Doppler power and coherent configurations' prims
+    twins), and refuses the kind in the lobe and endpoint configurations
+    naming ROADMAP B1 (rest), and a shading-mapped scene naming C11, which
+    the JAX kernel would run without the maps."""
     s_j, rx_j = _changed('jax', target, change)
     s_t, rx_t = _changed('port', target, change)
     why_j, why_t = [], []
@@ -159,6 +224,9 @@ def test_scope_against_jax(target, change, needle):
     sd_t = s_t.compile(device='cpu')
     ok = rk.supported(sd_t, rx_t, why_t)
     assert ok == (needle is None), why_t
+    if change in DOPPLER_CHANGES:
+        si = s_t.shape_index_of_endpoint('receiver', rx_t.id)
+        assert rk.pack_scene(sd_t, rx_t, si).doppler(rx_t.adc)
     if needle is not None:
         assert needle in why_t[0], why_t
         if change != 'maps':
@@ -192,10 +260,10 @@ def test_scope_refuses_media_meshes_and_mimo():
 
 def test_routing(monkeypatch):
     """`use_kernel='auto'` runs each target on the kernel (its plain
-    version on the CPU), in power and in I / Q, and a moving sphere on the
-    wavefront; a static sphere's coherent CPI takes the kernel's CPI (one
-    call), a moving one's the per-pulse loop; the wrapper refuses the
-    prims outside their twins."""
+    version on the CPU), in power and in I / Q, and a moving sphere too
+    (the Doppler power twin); a static sphere's coherent CPI takes the
+    kernel's CPI (one call), and so do a moving one's power and coherent
+    CPIs; the wrapper refuses the prims outside their twins."""
     calls = []
     real = rk.receive_kernel
     monkeypatch.setattr(rk, 'receive_kernel',
@@ -210,7 +278,7 @@ def test_routing(monkeypatch):
     assert len(calls) == 6
     sm, rxm = _changed('port', 'sphere', 'moving')
     bt.receive(sm, receiver=rxm, spp=1 << 10, max_depth=1, device='cpu')
-    assert len(calls) == 6
+    assert len(calls) == 7
     cpi = []
     k = rk.receive_megakernel_cpi
     monkeypatch.setattr(rk, 'receive_megakernel_cpi',
@@ -219,9 +287,12 @@ def test_routing(monkeypatch):
     cube, n = bt.receive_cpi(s, n_pulses=2, prf=100.0, spp=256,
                              max_depth=1, engine='pallas', device='cpu')
     assert cube.shape[0] == 2 and cpi == [1]
-    with pytest.raises(NotImplementedError, match='B1'):
-        bt.receive_cpi(sm, n_pulses=2, prf=100.0, spp=256, max_depth=1,
-                       engine='pallas', device='cpu')
+    for coh in (False, True):
+        cube, n = bt.receive_cpi(sm, n_pulses=2, prf=100.0, spp=256,
+                                 max_depth=1, coherent=coh, engine='pallas',
+                                 device='cpu')
+        assert cube.shape[0] == 2 and bool(torch.isfinite(cube).all())
+    assert cpi == [1, 1, 1]
     # an untextured scene's tables carry no texel buffer: its prims twin
     # is the one without the texture codes
     tab = rk._device_tables(s, s.compile(device='cpu'), rx, 'cpu')
@@ -229,11 +300,15 @@ def test_routing(monkeypatch):
     with pytest.raises(ValueError, match='ROADMAP B1'):
         rk.receive_megakernel(tab.params, tab.prim, tab.txp, adc=rx.adc,
                               max_depth=1, time_sampling='gate',
-                              rx_kind='wigner', n_lanes=256, doppler=True)
+                              rx_kind='wigner', n_lanes=256, doppler=True,
+                              lobes=rk.LOBE_PLAS)
     assert rk.config_name(False, False, prims=True) == 'flagship_prims'
     assert rk.config_name(False, True, True, tex=True, prims=True) \
         == 'coherent_tex_prims'
-    assert {'coherent_prims', 'flagship_tex_prims'} <= set(rk.CONFIGS)
+    assert rk.config_name(False, True, tex=True, prims=True) \
+        == 'doppler_tex_prims'
+    assert {'coherent_prims', 'flagship_tex_prims', 'doppler_prims',
+            'doppler_tex', 'doppler_tex_prims'} <= set(rk.CONFIGS)
 
 
 def _grid(s, rx, prim=None, seed=7, n_lanes=1 << 14):

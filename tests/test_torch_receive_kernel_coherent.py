@@ -19,6 +19,7 @@ import torch
 from beifong_tpu.integrators import pallas_receive as pr
 
 import beifong_tpu_torch as bt
+from beifong_tpu_torch.bsdf.tables import plastic
 from beifong_tpu_torch.geometry import shapes as sh_t
 from beifong_tpu_torch.integrators import receive_kernel as rk
 from beifong_tpu_torch.interop import scene_data_from_numpy
@@ -219,9 +220,10 @@ def _two_tx(s):
 def test_scope_still_rejects(change, needle):
     """Coherent calls of scenes the kernel does not take raise on
     `use_kernel=True` with the ROADMAP item that lifts them: polarized
-    receive, a second transmitter through an ambient medium, a sphere in
-    K1, a coherent grid past the global accumulator's 2^20 cells, and a
-    mixer without an LO."""
+    receive, a second transmitter through an ambient medium, a plastic
+    sphere (the kinds have no lobe twin; a diffuse sphere beside the
+    closing plate runs the coherent prims twin), a coherent grid past the
+    global accumulator's 2^20 cells, and a mixer without an LO."""
     s, rx = bt.pulse_train_scene(0)
     kw = {}
     if change == 'polarized':
@@ -233,7 +235,8 @@ def test_scope_still_rejects(change, needle):
         _two_tx(s)
         s.medium = bt.scenes.stratified_homogeneous()
     elif change == 'sphere':
-        s.add(sh_t.sphere(center=(2.0, -6.0, 0.0), radius=0.3, bsdf='mat'))
+        s.add(plastic('pl', twosided=True))
+        s.add(sh_t.sphere(center=(2.0, -6.0, 0.0), radius=0.3, bsdf='pl'))
     elif change == 'grid':
         rx = dc.replace(rx, adc=dc.replace(rx.adc, n_time=1024,
                                            n_freq=rk.MAX_ADC_CELLS // 1024

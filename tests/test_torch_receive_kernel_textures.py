@@ -27,6 +27,7 @@ from beifong_tpu_torch.bsdf.tables import diffuse as diffuse_t
 from beifong_tpu_torch.integrators import receive_kernel as rk
 
 from test_torch_mesh import twin_scene
+from test_torch_prims import DOPPLER_CHANGES, doppler_change
 from test_torch_receive_kernel_doppler import _jax_run
 
 torch.set_num_threads(1)
@@ -121,6 +122,52 @@ def test_pack_bit_identical_to_jax(texture, medium):
         # the 4 x 4 x 16 grid's 16 rows follow the bitmaps' (or 8 zeros)
         assert int(params[52]) == tex.shape[0] - 16 \
             == (8 if texture == 'checkerboard' else 128)
+
+
+@pytest.mark.parametrize('texture', ['checkerboard', 'bitmap'])
+@pytest.mark.parametrize('change', ['moving', 'mirror', 'ggx'])
+def test_doppler_pack_bit_identical_to_jax(texture, change):
+    """The textured flagship scene with a moving target, or a smooth or
+    GGX rough conductor one, packs as the JAX package's `_pack_scene`
+    does, bit for bit (prim, the texel rows, `bmp_meta`), and asks for the
+    Doppler configuration."""
+    s_j, rx_j = doppler_change('jax', *textured_flagship('jax', texture),
+                               change)
+    s_t, rx_t = doppler_change('port', *textured_flagship('port', texture),
+                               change)
+    si = s_j.shape_index_of_endpoint('receiver', rx_j.id)
+    (params, prim, txp, _, _, _, _, tex, bmp_meta, _) = pr._pack_scene(
+        s_j.compile(use_bvh=False), rx_j, si)
+    got = rk.pack_scene(s_t.compile(device='cpu'), rx_t, si)
+    for name, a, b in (('params', got.params, params),
+                       ('prim', got.prim, prim), ('txp', got.txp, txp),
+                       ('tex', got.tex, tex)):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        np.testing.assert_array_equal(a.view(np.uint32), b.view(np.uint32),
+                                      err_msg=name)
+    assert tuple(map(tuple, got.bmp_meta.tolist())) == tuple(bmp_meta)
+    assert got.textured and got.doppler(rx_t.adc)
+
+
+@pytest.mark.parametrize('texture', ['checkerboard', 'bitmap'])
+@pytest.mark.parametrize('change', DOPPLER_CHANGES)
+def test_scope_takes_the_doppler_conditions(texture, change):
+    """Under each Doppler condition (motion of the target, the
+    transmitter or the receiver, a mirror, GGX, each LO rule, n_freq > 1,
+    n_time > 512) the textured scene is in the JAX package's kernel's
+    scope and in the port's (the Doppler power and coherent texture
+    twins), and the port's pack asks for the Doppler configuration."""
+    s_j, rx_j = doppler_change('jax', *textured_flagship('jax', texture),
+                               change)
+    s_t, rx_t = doppler_change('port', *textured_flagship('port', texture),
+                               change)
+    why_j, why_t = [], []
+    assert pr.supported(s_j.compile(use_bvh=False), rx_j, why_j), why_j
+    sd_t = s_t.compile(device='cpu')
+    assert rk.supported(sd_t, rx_t, why_t), why_t
+    si = s_t.shape_index_of_endpoint('receiver', rx_t.id)
+    p = rk.pack_scene(sd_t, rx_t, si)
+    assert p.textured and p.doppler(rx_t.adc)
 
 
 @pytest.mark.parametrize('texture, coherent', [
@@ -252,13 +299,16 @@ def test_scope_follows_jax(case, needle):
 
 
 @pytest.mark.parametrize('change, needle', [
-    ('moving', 'Doppler configuration'), ('medium', 'ambient medium'),
+    pytest.param('moving', None, id='moving-Doppler configuration'),
+    ('medium', 'ambient medium'),
     ('two_tx', 'endpoint twins'), ('plastic', 'lobe twins'),
     ('mesh', 'mesh scene')])
 def test_scope_refuses_configurations_without_a_texture_twin(change,
                                                              needle):
     """Textures in a configuration this port has no texture twin of go to
-    the wavefront with a reason naming ROADMAP B7."""
+    the wavefront with a reason naming ROADMAP B7; a moving target puts
+    the scene in the Doppler configuration, whose power twin takes it
+    (the kernel's plain version on the CPU)."""
     if change == 'mesh':
         s, rx = twin_scene('port')
         s.add(tex_t.checkerboard('chk', 0.8, 0.3))
@@ -284,6 +334,12 @@ def test_scope_refuses_configurations_without_a_texture_twin(change,
             s.bsdfs[1] = dc.replace(s.bsdfs[1], type=5)   # PLASTIC
     sd = s.compile(device='cpu')
     why = []
+    if needle is None:
+        assert rk.supported(sd, rx, why), why
+        adc, n = bt.receive(s, sd, rx, spp=256, max_depth=1,
+                            use_kernel=True, device='cpu')
+        assert n == 256 and bool(torch.isfinite(adc).all())
+        return
     assert not rk.supported(sd, rx, why)
     assert needle in why[0] and 'ROADMAP B7' in why[0], why
     with pytest.raises(NotImplementedError, match='ROADMAP B7'):
@@ -293,8 +349,8 @@ def test_scope_refuses_configurations_without_a_texture_twin(change,
 
 def test_routing(monkeypatch):
     """`use_kernel='auto'` runs a textured flagship scene on the kernel
-    (its plain version on the CPU), in power and in I / Q, and a textured
-    scene outside its scope on the wavefront; a textured CPI runs the
+    (its plain version on the CPU), in power and in I / Q, and with a
+    moving target too (the Doppler power twin); a textured CPI runs the
     per-pulse loop under 'scan' and raises under 'pallas'."""
     calls = []
     real = rk.receive_kernel
@@ -310,7 +366,7 @@ def test_routing(monkeypatch):
     sm, rxm = textured_flagship('port', 'checkerboard',
                                 velocity=(0.0, 2.0, 0.0))
     bt.receive(sm, receiver=rxm, spp=1 << 10, max_depth=1, device='cpu')
-    assert len(calls) == 2
+    assert len(calls) == 3
     with pytest.raises(NotImplementedError, match='ROADMAP B7'):
         rk.pack_cpi(s, 2, 100.0)
     with pytest.raises(NotImplementedError, match='ROADMAP B7'):
@@ -318,14 +374,15 @@ def test_routing(monkeypatch):
                        engine='pallas', device='cpu')
     cube, n = bt.receive_cpi(s, n_pulses=2, prf=100.0, spp=256,
                              max_depth=1, device='cpu')
-    assert cube.shape[0] == 2 and len(calls) == 4
+    assert cube.shape[0] == 2 and len(calls) == 5
     # the wrapper refuses textured tables outside the texture twins
     tab = rk._device_tables(s, s.compile(device='cpu'), rx, 'cpu')
     with pytest.raises(ValueError, match='ROADMAP B7'):
         rk.receive_megakernel(tab.params, tab.prim, tab.txp, adc=rx.adc,
                               max_depth=1, time_sampling='gate',
                               rx_kind='wigner', n_lanes=256, doppler=True,
-                              tex=tab.tex, bmp_meta=tab.bmp_meta)
+                              lobes=rk.LOBE_PLAS, tex=tab.tex,
+                              bmp_meta=tab.bmp_meta)
     with pytest.raises(ValueError, match='texel rows'):
         rk.receive_megakernel(tab.params, tab.prim, tab.txp, adc=rx.adc,
                               max_depth=1, time_sampling='gate',

@@ -481,10 +481,14 @@ OUTSIDE = {
     'dpw_rows2d': (
         (DPW_ANCHOR, DPW_ROWS2_SPLAT + DPW_ANCHOR),
         ('        const bool rows = lob_rows(n_time, n_freq, mode, 1);\n'
+         '        const int grid_bytes = mode == 1 && !rows ? 4 * n_time * '
+         'n_freq : 0;\n'
          '        smem = coh_table_bytes(n_prims, n_params)\n'
          '               + (T / 32) * lob_warp_bytes(n_time, rows, 1)',
          '        const bool rows = lob_rows(n_time, n_freq, mode, 1)\n'
          '                          || dpw_rows2(n_time, n_freq, mode);\n'
+         '        const int grid_bytes = mode == 1 && !rows ? 4 * n_time * '
+         'n_freq : 0;\n'
          '        smem = coh_table_bytes(n_prims, n_params)\n'
          '               + (T / 32) * dpw_warp_bytes(n_time, n_freq, mode)'))}
 

@@ -23,8 +23,12 @@ splats.  The analytic Doppler power kernel (receive_doppler_power_kernel)
 runs range_doppler (pulse 0 of the range-Doppler example, gate) and
 fmcw_sonar (golden config 2, fixed sampling) at 2^24 lanes, depth 2,
 with each thread's cycles in SHADE's grid splat (the block's or the
-global grid's atomics) read inside it; in a tree before that kernel the
-grid-stride instantiation's per-thread stage cycles instead.  The
+global grid's atomics) read inside it, and its twins on the
+range-Doppler pulse (doppler_sphere: the prims twin on a closing sphere;
+doppler_checker: the texture twin over the checkerboard ground;
+doppler_sphere_checker: both; `tools/tree_ab.py`'s scenes); in a tree
+before that kernel the grid-stride instantiation's per-thread stage
+cycles instead.  The
 mesh Doppler kernel (receive_mesh_doppler_kernel) runs multi_body (the
 Doppler mesh in power), mesh_lobes_iq and mesh_lobes_power (the
 rough-plastic mesh_scene in I / Q and in power) and coherent_mesh (the
@@ -89,6 +93,9 @@ KERNELS = {'flagship': 'receive_flagship_kernel',
            'ep_phased_tx_coh': 'receive_endpoint_coherent_kernel',
            'range_doppler': 'receive_doppler_power_kernel',
            'fmcw_sonar': 'receive_doppler_power_kernel',
+           'doppler_sphere': 'receive_doppler_power_kernel',
+           'doppler_checker': 'receive_doppler_power_kernel',
+           'doppler_sphere_checker': 'receive_doppler_power_kernel',
            'multi_body': 'receive_mesh_doppler_kernel',
            'mesh_lobes_iq': 'receive_mesh_doppler_kernel',
            'mesh_lobes_power': 'receive_mesh_doppler_kernel',
@@ -635,7 +642,8 @@ def run(tree: str, config: str = 'flagship') -> dict:
     from beifong_tpu_torch.integrators import receive_kernel as rk
     assert rk.__file__.startswith(tree)
     dev = torch.device('cuda')
-    if config.startswith('ep_') or config in ('range_doppler', 'fmcw_sonar') \
+    if config.startswith('ep_') or config.startswith('doppler_') \
+            or config in ('range_doppler', 'fmcw_sonar') \
             or config in MDK_LAUNCH or config in ('mesh', 'mimo'):
         return run_ep(tree, config, rk, scenes, dev)
     s, rx = {'flagship': scenes.flagship_scene,

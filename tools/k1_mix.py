@@ -111,9 +111,14 @@ EP_KERNEL = r'receive_trace_kernelILb0ELb0ELb1EE|receive_endpoint_kernel'
 EP_COH_KERNEL = (r'receive_doppler_kernelILb0ELb1ELb0ELb1ELb0E|'
                  r'receive_endpoint_coherent_kernel')
 # the analytic Doppler configuration in power: the grid-stride
-# instantiation or the kernel that replaced it
+# instantiation or the kernel that replaced it (a tree with its texture and
+# prims twins: <false, false>), its texture twin (<true, false>), its prims
+# twin (<false, true>) and a textured scene's (<true, true>)
 DPW_KERNEL = (r'receive_doppler_kernelILb0ELb0ELb0ELb0ELb0E|'
-              r'receive_doppler_power_kernel')
+              r'receive_doppler_power_kernel(?!ILb1E|ILb0ELb1E)')
+DPW_TEX_KERNEL = r'receive_doppler_power_kernelILb1E(?!Lb1E)'
+DPW_PRIM_KERNEL = r'receive_doppler_power_kernelILb0ELb1E'
+DPW_PRIM_TEX_KERNEL = r'receive_doppler_power_kernelILb1ELb1E'
 # the Doppler mesh in power and the mesh lobe twin in I / Q: the
 # grid-stride instantiations or the mesh Doppler kernel that replaced them
 MDK_KERNEL = (r'receive_doppler_kernelILb1ELb0ELb0ELb0ELb0E|'
@@ -185,7 +190,15 @@ CONFIGS = {'flagship': dict(depth=DEPTH, ts='gate', lanes=MAIN_LANES,
                                            kernel=FLAG_PRIM_TEX_KERNEL),
            'coherent_sphere_checker': dict(depth=2, ts='gate',
                                            lanes=1 << 24,
-                                           kernel=COH_PRIM_TEX_KERNEL)}
+                                           kernel=COH_PRIM_TEX_KERNEL),
+           **{f'doppler_{t}': dict(depth=2, ts='gate', lanes=1 << 24,
+                                   kernel=DPW_PRIM_KERNEL)
+              for t in ('sphere', 'disk', 'cylinder')},
+           **{f'doppler_{g}': dict(depth=2, ts='gate', lanes=1 << 24,
+                                   kernel=DPW_TEX_KERNEL)
+              for g in ('checker', 'bitmap')},
+           'doppler_sphere_checker': dict(depth=2, ts='gate', lanes=1 << 24,
+                                          kernel=DPW_PRIM_TEX_KERNEL)}
 # the texture twins' configurations: the flagship scene's ground texture,
 # and whether the twin is the coherent kernel's (I / Q)
 TEX_CONFIGS = {'flagship_checker': ('checkerboard', False),
@@ -207,8 +220,15 @@ EP_SCENES = {'ep_phased_tx': ('phased_tx_scene', False),
              'ep_phased_tx_coh': ('phased_tx_scene', True)}
 # the configurations of the lobe twins, and whether each is the I / Q twin
 LOBE_COHERENT = {'window_thin': False, 'window_dielectric': True}
-# the analytic Doppler power configurations
-DPW_CONFIGS = ('range_doppler', 'fmcw_sonar')
+# the analytic Doppler power configurations; its twins' (the range-Doppler
+# pulse's target and static ground texture)
+DPW_TWIN_CONFIGS = {'doppler_sphere': ('sphere', None),
+                    'doppler_disk': ('disk', None),
+                    'doppler_cylinder': ('cylinder', None),
+                    'doppler_checker': ('plate', 'checkerboard'),
+                    'doppler_bitmap': ('plate', 'bitmap'),
+                    'doppler_sphere_checker': ('sphere', 'checkerboard')}
+DPW_CONFIGS = ('range_doppler', 'fmcw_sonar') + tuple(DPW_TWIN_CONFIGS)
 # the mesh configurations, and whether each is in I / Q: the Doppler mesh
 # on multi_body, the rough-plastic mesh_scene in I / Q and in power, the
 # diffuse mesh_scene in I / Q; their lanes take the main path's direction
@@ -350,6 +370,9 @@ def scene_of(config: str):
         return scenes.fmcw_dechirp_scene()
     if config == 'range_doppler':
         return scenes.range_doppler_scene(0)
+    if config in DPW_TWIN_CONFIGS:
+        target, ground = DPW_TWIN_CONFIGS[config]
+        return scenes.range_doppler_scene(0, target, ground)
     if config == 'fmcw_sonar':
         return scenes.fmcw_sonar_scene()
     s, rx = scenes.corner_scene()
@@ -412,6 +435,10 @@ def ref_kw(config: str, rx, packed) -> dict:
         kw.update(coherent=LOBE_COHERENT[config], lobes=packed.lobes)
     if config in DPW_CONFIGS:
         kw['coherent'] = False
+    if config in DPW_TWIN_CONFIGS and DPW_TWIN_CONFIGS[config][1]:
+        import torch
+        kw.update(tex=torch.tensor(packed.tex),
+                  bmp_meta=torch.tensor(packed.bmp_meta))
     if config in MESH_COHERENT:
         import torch
         from beifong_tpu_torch.integrators import receive_kernel as rk

@@ -62,8 +62,10 @@ mesh_lobes_power; the lobe
 twins' are window_thin, window_dielectric, lobe_plastic,
 lobe_rough_plastic, lobe_rough_dielectric, lobe_through,
 lobe_through_iq, lobe_blend, lobe_mask and window_cpi; the endpoint
-twins' ep_phased_tx, ep_phased_rx, ep_four_tx and ep_phased_tx_coh; K4's are
-k4_closest and k4_any, which build only K4's library; K2 / K3's
+twins' ep_phased_tx, ep_phased_rx, ep_four_tx and ep_phased_tx_coh; the
+Doppler power kernel's twins' doppler_sphere, doppler_checker and
+doppler_sphere_checker (a tree whose range_doppler_scene takes them);
+K4's are k4_closest and k4_any, which build only K4's library; K2 / K3's
 bvh_closest, bvh_any and bvh_wavefront).
 
     python3 tools/tree_ab.py --other DIR --sass
@@ -154,8 +156,19 @@ MDK_SCENES = {'multi_body': ('multi_body_scene', {}, False),
                                    {'material': 'rough_plastic'}, False)}
 # the analytic Doppler power scenes timed here beside range_doppler:
 # (scenes' function, time sampling)
-DPW_PATHS = {'fmcw_sonar': ('fmcw_sonar_scene', 'fixed')}
-DPW_SCENES = {'range_doppler': ('range_doppler_scene', 'gate'), **DPW_PATHS}
+# (scenes' function, time sampling, its keywords): golden config 2, and the
+# Doppler power kernel's prims, texture and textured prims twins on the
+# range-Doppler pulse (a tree whose scenes take a target and a ground)
+DPW_PATHS = {'fmcw_sonar': ('fmcw_sonar_scene', 'fixed', {}),
+             'doppler_sphere': ('range_doppler_scene', 'gate',
+                                {'target': 'sphere'}),
+             'doppler_checker': ('range_doppler_scene', 'gate',
+                                 {'ground_texture': 'checkerboard'}),
+             'doppler_sphere_checker': ('range_doppler_scene', 'gate',
+                                        {'target': 'sphere',
+                                         'ground_texture': 'checkerboard'})}
+DPW_SCENES = {'range_doppler': ('range_doppler_scene', 'gate', {}),
+              **DPW_PATHS}
 
 K4_NAMES = ('k4_closest', 'k4_any')
 # K2 / K3 on chip_smoke.py's query rays, and the BVH wavefront's receive
@@ -171,8 +184,8 @@ def doppler_power_call(rk, scenes, name: str, dev):
     analytic Doppler power scene (DPW_SCENES) at chip_smoke.py's shapes
     (2^24 Philox lanes, depth 2), in the imported tree."""
     import torch
-    fn, ts = DPW_SCENES[name]
-    s, rx = getattr(scenes, fn)()
+    fn, ts, args = DPW_SCENES[name]
+    s, rx = getattr(scenes, fn)(**args)
     p = rk.pack_scene(s.compile(use_bvh=False, device='cpu'), rx,
                       s.shape_index_of_endpoint('receiver', rx.id))
     params, prim, txp = (torch.tensor(a, device=dev)
@@ -181,6 +194,9 @@ def doppler_power_call(rk, scenes, name: str, dev):
               rx_kind='wigner', n_lanes=EP_LANES, doppler=True,
               coherent=False, receive_type=rx.receive_type,
               has_lo=rx.lo_waveform is not None, mirror=bool(p.mirror))
+    if p.textured:
+        kw.update(tex=torch.tensor(p.tex, device=dev),
+                  bmp_meta=torch.tensor(p.bmp_meta, device=dev))
     return params, prim, txp, kw
 
 
@@ -539,13 +555,14 @@ def sass_compare(other: str, this: str = HERE) -> dict:
         paths[which] = [ln for ln in res.stdout.splitlines()
                         if ln.startswith('LIB ')][-1][4:]
     a, b = sass_of(paths['other']), sass_of(paths['this'])
-    # a kernel that gained a trailing template flag (the media twins' MED,
-    # the endpoint twins' EP, the lobe twins' LOB) keeps its old key where
-    # the flag is false
-    b = {(k if k in a or not k.endswith(',0>') or k[:-3] + '>' not in a
-          else k[:-3] + '>'): v for k, v in b.items()}
-    b = {(k if k in a or not k.endswith('<0>') or k[:-3] + '<>' not in a
-          else k[:-3] + '<>'): v for k, v in b.items()}
+    # a kernel that gained trailing template flags (the media twins' MED,
+    # the endpoint twins' EP, the lobe twins' LOB, the texture and prims
+    # twins' TEX and PRIM) keeps its old key where the flags are false
+    def old_key(k):
+        while k not in a and k.endswith('0>'):
+            k = k[:-3] + '>' if k.endswith(',0>') else k[:-2] + '>'
+        return k
+    b = {(old_key(k) if old_key(k) in a else k): v for k, v in b.items()}
     out = {}
     for name in sorted(set(a) & set(b)):
         diff = [(x, y) for x, y in zip(a[name], b[name]) if x != y]
